@@ -1,0 +1,388 @@
+"""The check path's device programs: the BFS pull (K1) and the fixpoint
+step (K2), each as a plain PyTorch version and a hand-written CUDA kernel.
+
+Source notes:
+
+- ``pull`` replaces ``_pull`` (keto_tpu/check/tpu_engine.py:89): per degree
+  bucket, gather ``R[nbrs]`` and OR-reduce over the bucket's degree; the
+  bucket outputs concatenated are the active prefix. CUDA:
+  ``keto_pull`` in csrc/check_kernels.cu, one thread per (row, word).
+  Bound: bytes — it must read each bucket matrix and the R rows and write
+  ``P``; the gather streams ``sum(n·cap)·W·4`` bytes of R.
+- ``check_step`` replaces ``check_step`` (tpu_engine.py:110, jitted at
+  :257): seed scatter (``keto_seed``), a guarded Jacobi loop of pull +
+  commit (``keto_pull``, ``keto_commit``, ``keto_close``) run in blocks of
+  ``block_iters`` with one host read of ``(changed, iters)`` per block, and
+  the answer gather + bit pack (``keto_answer_pack``). Bound: bytes — the
+  seed and answer gathers touch a word per entry; each step moves R and P.
+
+The output is the reference's ``uint32[W+2]`` (held as int32): decision
+bits, then the iteration count, then the truncation flag, equal word for
+word. Each dispatcher runs the plain version only for tensors on the CPU
+and the kernel for tensors on a CUDA device — never one in place of the
+other. Every CUDA wrapper adds one to ``COUNTS[name]`` where it launches
+its kernel, launches on the current stream and does not synchronise;
+``check_step_cuda``'s host loop reads the two guard words once per block,
+as the reference's ``lax.while_loop`` observes its condition.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+#: per-CUDA-kernel launch counters (chip_smoke.py reads them)
+COUNTS = {"seed": 0, "pull": 0, "commit": 0, "close": 0, "answer_pack": 0}
+
+# cap on the [rows, chunk, W] gather intermediate of the plain pull
+_DEGREE_CHUNK = 1024
+_GATHER_ELEMS = 1 << 26
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
+
+
+# -- plain PyTorch versions ---------------------------------------------------
+
+
+def _or_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Bitwise-OR reduction over ``dim`` (torch has none): pairwise halving."""
+    x = x.movedim(dim, 0)
+    if x.shape[0] == 0:
+        return torch.zeros(x.shape[1:], dtype=x.dtype, device=x.device)
+    while x.shape[0] > 1:
+        if x.shape[0] % 2:
+            x = torch.cat([x, torch.zeros_like(x[:1])])
+        half = x.shape[0] // 2
+        x = x[:half] | x[half:]
+    return x[0]
+
+
+def _gather_or(R: torch.Tensor, nbrs: torch.Tensor) -> torch.Tensor:
+    """``OR_j R[nbrs[i, j]]`` per row i, in row and degree chunks."""
+    n, cap = nbrs.shape
+    W = R.shape[1]
+    out = torch.zeros((n, W), dtype=R.dtype, device=R.device)
+    chunk = min(cap, _DEGREE_CHUNK)
+    rows = max(1, _GATHER_ELEMS // max(1, chunk * W))
+    for r0 in range(0, n, rows):
+        for c0 in range(0, cap, chunk):
+            idx = nbrs[r0 : r0 + rows, c0 : c0 + chunk].long()
+            out[r0 : r0 + rows] |= _or_reduce(R[idx], 1)
+    return out
+
+
+def pull_ref(
+    bucket_nbrs: Sequence[torch.Tensor], valid_rows: Sequence[int], R: torch.Tensor
+) -> torch.Tensor:
+    """One BFS pull over the active rows: ``R`` int32[n_int+1, W] →
+    int32[n_active, W], the concatenated per-bucket OR-reductions."""
+    outs = [_gather_or(R, nb[:n]) for nb, n in zip(bucket_nbrs, valid_rows)]
+    return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
+def _split(entries: torch.Tensor, sizes):
+    S1, S2, SA, B = sizes
+    parts = torch.split(entries, [S1, S1, S2, S2, SA, SA, B])
+    return [p.long() for p in parts]
+
+
+def seed_ref(entries, sizes, n_int: int, W: int):
+    """``(R0, ans_base)``: e1/e2 query bits scattered into their rows; rows
+    outside ``[0, n_int]`` are dropped. Scatter-add on disjoint bits, as the
+    reference."""
+    e1r, e1q, e2r, e2q, _, _, _ = _split(entries, sizes)
+    dev = entries.device
+    ans_base = torch.zeros((n_int + 1, W), dtype=torch.int32, device=dev)
+    R0 = torch.zeros((n_int + 1, W), dtype=torch.int32, device=dev)
+    for dst, rows, qs in ((ans_base, e2r, e2q), (R0, e1r, e1q)):
+        keep = (rows >= 0) & (rows <= n_int)
+        rows, qs = rows[keep], qs[keep]
+        bits = (torch.ones_like(qs) << (qs & 31)).to(torch.int32)
+        dst.view(-1).index_put_((rows * W + (qs >> 5),), bits, accumulate=True)
+    return R0 | ans_base, ans_base
+
+
+def commit_ref(P: torch.Tensor, R: torch.Tensor, n_active: int, state: torch.Tensor) -> None:
+    """``R[:n_active] |= P[:n_active]`` while ``state[0]`` (changed) is set,
+    raising ``state[2]`` (step_changed) when a word grew."""
+    if int(state[0]) == 0:
+        return
+    act = R[:n_active]
+    nxt = act | P[:n_active]
+    if bool((nxt != act).any()):
+        state[2] = 1
+    R[:n_active] = nxt
+
+
+def close_ref(state: torch.Tensor) -> None:
+    """End one guarded step: changed = step_changed, step_changed = 0,
+    iters += 1 — only while changed is set."""
+    if int(state[0]):
+        state.copy_(torch.stack([state[2], state[1] + 1, torch.zeros_like(state[2])]))
+
+
+def _pack_bits(hit: torch.Tensor) -> torch.Tensor:
+    """int32 {0,1}[B] → int32[B/32]: bit q&31 of word q>>5."""
+    lanes = torch.arange(32, dtype=torch.int32, device=hit.device)
+    return _or_reduce(hit.view(-1, 32) << lanes, 1)
+
+
+def answer_pack_ref(entries, sizes, n_active: int, P, ans_base, R, iters: int, truncated: bool):
+    """Decisions from the fixpoint, packed, plus the two tail words."""
+    _, _, _, _, a_rows, a_q, targets = _split(entries, sizes)
+    B = sizes[3]
+    dev = entries.device
+    q = torch.arange(B, device=dev)
+    # shift amounts stay int32 so the bitmaps never promote to int64
+    words, bits = q >> 5, (q & 31).to(torch.int32)
+    t_act = torch.where(targets < n_active, targets, torch.full_like(targets, n_active))
+    a = P[t_act, words] | ans_base[targets, words]
+    hit = (a >> bits) & 1
+    vals = (R[a_rows, a_q >> 5] >> (a_q & 31).to(torch.int32)) & 1
+    hit = hit.scatter_reduce(0, a_q, vals, reduce="amax")
+    tail = torch.tensor([iters, int(truncated)], dtype=torch.int32, device=dev)
+    return torch.cat([_pack_bits(hit), tail])
+
+
+def check_step_ref(
+    bucket_nbrs: Sequence[torch.Tensor],
+    entries: torch.Tensor,
+    ov_nbrs: Optional[torch.Tensor] = None,
+    ov_dst: Optional[torch.Tensor] = None,
+    *,
+    sizes: tuple[int, int, int, int],
+    n_active: int,
+    n_int: int,
+    valid_rows: Sequence[int],
+    it_cap: int,
+    block_iters: int = 8,
+) -> torch.Tensor:
+    """The reference check step in plain PyTorch → int32[W+2]."""
+    W = sizes[3] // 32
+    R, ans_base = seed_ref(entries, sizes, n_int, W)
+    p = torch.zeros((n_active, W), dtype=torch.int32, device=entries.device)
+    changed, iters = False, 0
+    if n_active and bucket_nbrs:
+        changed = True
+        while changed and iters < it_cap:
+            for _ in range(block_iters):
+                if not changed:  # a guarded step after convergence is a no-op
+                    break
+                p = pull_ref(bucket_nbrs, valid_rows, R)
+                if ov_nbrs is not None:
+                    keep = (ov_dst >= 0) & (ov_dst < n_active)
+                    d = ov_dst[keep].long()
+                    p[d] |= _gather_or(R, ov_nbrs[keep])
+                act = R[:n_active]
+                nxt = p | act
+                changed = bool((nxt != act).any())
+                R[:n_active] = nxt
+                iters += 1
+    P = torch.cat([p, torch.zeros((1, W), dtype=torch.int32, device=p.device)])
+    return answer_pack_ref(entries, sizes, n_active, P, ans_base, R, iters, changed)
+
+
+# -- CUDA wrappers ------------------------------------------------------------
+
+
+def _lib():
+    from keto_tpu_torch import _build
+
+    return _build.lib()
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch (cudaError {rc})")
+
+
+def _need(t: torch.Tensor, what: str, ndim: int) -> None:
+    if t.device.type != "cuda" or t.dtype != torch.int32 or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(
+            f"{what}: expected a contiguous int32 CUDA tensor of {ndim} dims, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+
+
+def _need_rows(t: torch.Tensor, what: str, rows: int, W: int) -> None:
+    _need(t, what, 2)
+    if t.shape[0] < rows or t.shape[1] != W:
+        raise ValueError(f"{what}: expected at least {rows} rows of {W} words, got {tuple(t.shape)}")
+
+
+def _need_entries(entries: torch.Tensor, sizes) -> None:
+    _need(entries, "entries", 1)
+    S1, S2, SA, B = sizes
+    if entries.numel() != 2 * (S1 + S2 + SA) + B or B % 32:
+        raise ValueError(f"entries of {entries.numel()} words do not match sizes {tuple(sizes)}")
+
+
+def _need_state(state: torch.Tensor) -> None:
+    _need(state, "state", 1)
+    if state.numel() != 3:
+        raise ValueError("state: expected int32[3] {changed, iters, step_changed}")
+
+
+def seed_cuda(entries: torch.Tensor, sizes, n_int: int, W: int):
+    """``(R0, ans_base)`` via ``keto_seed``."""
+    _need_entries(entries, sizes)
+    S1, S2, _, _ = sizes
+    R = torch.zeros((n_int + 1, W), dtype=torch.int32, device=entries.device)
+    ans_base = torch.zeros_like(R)
+    COUNTS["seed"] += 1
+    _check(_lib().keto_seed(entries.data_ptr(), S1, S2, n_int, W, R.data_ptr(),
+                            ans_base.data_ptr(), _stream()), "keto_seed")
+    return R, ans_base
+
+
+def pull_cuda(
+    bucket_nbrs: Sequence[torch.Tensor],
+    valid_rows: Sequence[int],
+    R: torch.Tensor,
+    *,
+    P: Optional[torch.Tensor] = None,
+    state: Optional[torch.Tensor] = None,
+    ov_nbrs: Optional[torch.Tensor] = None,
+    ov_dst: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One pull step via ``keto_pull`` (one launch per bucket, one for the
+    overlay). Returns ``P`` int32[n_active, W] when ``P`` is not given;
+    otherwise writes into the given ``P`` (≥ n_active rows), guarded by the
+    device ``state``."""
+    _need(R, "R", 2)
+    W = R.shape[1]
+    n_active = sum(int(n) for n in valid_rows)
+    if P is None:
+        P = torch.empty((n_active, W), dtype=torch.int32, device=R.device)
+    _need_rows(P, "P", n_active, W)
+    if state is not None:
+        _need_state(state)
+    lib, stream, state_p = _lib(), _stream(), _ptr(state)
+    offset = 0
+    for nb, n in zip(bucket_nbrs, valid_rows):
+        _need(nb, "bucket nbrs", 2)
+        if nb.shape[0] < n:
+            raise ValueError(f"a bucket of {nb.shape[0]} rows cannot hold {n} valid rows")
+        if n:
+            COUNTS["pull"] += 1
+            _check(lib.keto_pull(nb.data_ptr(), int(n), nb.shape[1], None, offset, n_active,
+                                 R.data_ptr(), P.data_ptr(), W, state_p, stream), "keto_pull")
+        offset += int(n)
+    if ov_nbrs is not None and ov_nbrs.shape[0]:
+        _need(ov_nbrs, "ov_nbrs", 2)
+        _need(ov_dst, "ov_dst", 1)
+        if ov_dst.numel() != ov_nbrs.shape[0]:
+            raise ValueError("ov_dst must name one destination row per ov_nbrs row")
+        COUNTS["pull"] += 1
+        _check(lib.keto_pull(ov_nbrs.data_ptr(), ov_nbrs.shape[0], ov_nbrs.shape[1],
+                             ov_dst.data_ptr(), 0, n_active, R.data_ptr(), P.data_ptr(),
+                             W, state_p, stream), "keto_pull")
+    return P
+
+
+def commit_cuda(P: torch.Tensor, R: torch.Tensor, n_active: int, state: torch.Tensor) -> None:
+    """``R[:n_active] |= P[:n_active]`` via ``keto_commit``; sets
+    ``state[2]`` when a word grew."""
+    W = R.shape[1]
+    _need_rows(P, "P", n_active, W)
+    _need_rows(R, "R", n_active, W)
+    _need_state(state)
+    COUNTS["commit"] += 1
+    _check(_lib().keto_commit(P.data_ptr(), R.data_ptr(), n_active * R.shape[1],
+                              state.data_ptr(), _stream()), "keto_commit")
+
+
+def close_cuda(state: torch.Tensor) -> None:
+    """End one guarded step via ``keto_close``."""
+    _need_state(state)
+    COUNTS["close"] += 1
+    _check(_lib().keto_close(state.data_ptr(), _stream()), "keto_close")
+
+
+def answer_pack_cuda(entries, sizes, n_active: int, P, ans_base, R, state) -> torch.Tensor:
+    """int32[W+2] via ``keto_answer_pack``; ``state`` None means iters = 0
+    and not truncated."""
+    _need_entries(entries, sizes)
+    S1, S2, SA, B = sizes
+    W = B // 32
+    _need_rows(P, "P", n_active + 1, W)  # row n_active is the all-zero row
+    _need_rows(ans_base, "ans_base", 1, W)
+    _need_rows(R, "R", 1, W)
+    if state is not None:
+        _need_state(state)
+    out = torch.zeros(W + 2, dtype=torch.int32, device=entries.device)
+    COUNTS["answer_pack"] += 1
+    _check(_lib().keto_answer_pack(entries.data_ptr(), S1, S2, SA, B, n_active,
+                                   P.data_ptr(), ans_base.data_ptr(), R.data_ptr(), W,
+                                   _ptr(state), out.data_ptr(), _stream()), "keto_answer_pack")
+    return out
+
+
+def check_step_cuda(
+    bucket_nbrs: Sequence[torch.Tensor],
+    entries: torch.Tensor,
+    ov_nbrs: Optional[torch.Tensor] = None,
+    ov_dst: Optional[torch.Tensor] = None,
+    *,
+    sizes: tuple[int, int, int, int],
+    n_active: int,
+    n_int: int,
+    valid_rows: Sequence[int],
+    it_cap: int,
+    block_iters: int = 8,
+) -> torch.Tensor:
+    """The check step on the card → int32[W+2] (device tensor)."""
+    W = sizes[3] // 32
+    R, ans_base = seed_cuda(entries, sizes, n_int, W)
+    # P's extra all-zero row is what passive and absent targets read
+    P = torch.zeros((n_active + 1, W), dtype=torch.int32, device=entries.device)
+    state = None
+    if n_active and bucket_nbrs:
+        # {changed, iters, step_changed}
+        state = torch.tensor([1, 0, 0], dtype=torch.int32, device=entries.device)
+        changed, iters = True, 0
+        while changed and iters < it_cap:
+            for _ in range(block_iters):
+                pull_cuda(bucket_nbrs, valid_rows, R, P=P, state=state,
+                          ov_nbrs=ov_nbrs, ov_dst=ov_dst)
+                commit_cuda(P, R, n_active, state)
+                close_cuda(state)
+            changed, iters = (int(v) for v in state[:2].tolist())
+    return answer_pack_cuda(entries, sizes, n_active, P, ans_base, R, state)
+
+
+# -- dispatchers ----------------------------------------------------------------
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def pull(bucket_nbrs, valid_rows, R: torch.Tensor) -> torch.Tensor:
+    """K1: the plain version for CPU tensors, the kernel for CUDA tensors."""
+    if _on_cpu(R):
+        return pull_ref(bucket_nbrs, valid_rows, R)
+    return pull_cuda(bucket_nbrs, valid_rows, R)
+
+
+def check_step(bucket_nbrs, entries: torch.Tensor, ov_nbrs=None, ov_dst=None, **kw) -> torch.Tensor:
+    """K2: the plain version for CPU tensors, the kernels for CUDA tensors."""
+    if _on_cpu(entries):
+        return check_step_ref(bucket_nbrs, entries, ov_nbrs, ov_dst, **kw)
+    return check_step_cuda(bucket_nbrs, entries, ov_nbrs, ov_dst, **kw)

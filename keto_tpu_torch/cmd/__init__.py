@@ -1,0 +1,63 @@
+"""Command line: ``python -m keto_tpu_torch serve`` (explicit flags; the
+config provider and the client commands are a later slice)."""
+
+from __future__ import annotations
+
+import argparse
+import signal
+import sys
+import threading
+from typing import Optional, Sequence
+
+
+def _namespace(spec: str):
+    from keto_tpu_torch.namespace import Namespace
+
+    name, sep, ident = spec.rpartition("=")
+    if not sep or not ident.lstrip("-").isdigit():
+        raise argparse.ArgumentTypeError(f"expected NAME=ID, got {spec!r}")
+    return Namespace(id=int(ident), name=name)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m keto_tpu_torch")
+    sub = p.add_subparsers(dest="command", required=True)
+    s = sub.add_parser("serve", help="serve /check on the read port and tuple writes on the write port")
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--read-port", type=int, default=4466)
+    s.add_argument("--write-port", type=int, default=4467)
+    s.add_argument("--namespace", type=_namespace, action="append", default=[],
+                   metavar="NAME=ID", help="a namespace (repeatable)")
+    s.add_argument("--tuples", metavar="FILE",
+                   help="string-codec tuples to load at start ('//' comments)")
+    s.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' runs the plain PyTorch path)")
+    return p
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    from keto_tpu_torch.driver.daemon import Daemon
+    from keto_tpu_torch.workloads import parse_tuples
+
+    tuples = []
+    if args.tuples:
+        with open(args.tuples, encoding="utf-8") as f:
+            tuples = parse_tuples(f.read())
+    d = Daemon(args.namespace, device=args.device, host=args.host,
+               read_port=args.read_port, write_port=args.write_port, tuples=tuples)
+    d.start()
+    print(f"serving: read :{d.read.port}, write :{d.write.port}, device {d.engine.device}",
+          flush=True)
+    done = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: done.set())
+    try:
+        done.wait()
+    except KeyboardInterrupt:
+        pass
+    d.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

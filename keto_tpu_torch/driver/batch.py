@@ -1,0 +1,171 @@
+"""Request-coalescing check batcher: a lean port of keto_tpu/driver/batch.py.
+
+On the card one device program answers thousands of checks, so concurrent
+single-check requests are *coalesced*: a caller enqueues its tuples and
+blocks on a future; a collector thread drains the queue up to
+``batch_size`` tuples or ``window_ms`` (whichever first) and dispatches one
+``batch_check_with_token`` call for the round.
+
+Left out against the reference batcher: priority lanes, admission control,
+deadline shedding before dispatch, request timelines and the streaming
+dispatch — the Check slice's engine answers a round in one call.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future, InvalidStateError
+from concurrent.futures import TimeoutError as FutureTimeout
+from typing import Optional, Sequence
+
+from keto_tpu_torch.relationtuple.model import RelationTuple
+from keto_tpu_torch.x.errors import ErrDeadlineExceeded
+
+
+class _Item:
+    """One queued request: its tuples and its future."""
+
+    __slots__ = ("tuples", "fut")
+
+    def __init__(self, tuples, fut):
+        self.tuples = tuples
+        self.fut = fut
+
+
+class CheckBatcher:
+    def __init__(self, engine, batch_size: int = 4096, window_ms: float = 1.0):
+        """``engine`` needs ``batch_check_with_token(tuples) ->
+        (list[bool], snaptoken)``."""
+        self._engine = engine
+        self._batch_size = batch_size
+        self._window_s = window_ms / 1e3
+        self._cond = threading.Condition()
+        self._queue: deque[_Item] = deque()  # guarded by _cond
+        self._queued_tuples = 0  # guarded by _cond
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    # -- lifecycle -----------------------------------------------------------
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and not self._stop.is_set()
+
+    def start(self) -> None:
+        if self._thread:
+            return
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._loop, name="check-batcher", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        with self._cond:
+            self._cond.notify_all()
+        if self._thread:
+            self._thread.join(timeout=5)
+            self._thread = None
+        # fail whatever is still queued promptly instead of letting callers
+        # wait out their timeouts
+        with self._cond:
+            leftovers = list(self._queue)
+            self._queue.clear()
+            self._queued_tuples = 0
+        for item in leftovers:
+            try:
+                item.fut.set_exception(RuntimeError("check batcher stopped"))
+            except InvalidStateError:
+                pass
+
+    # -- API -----------------------------------------------------------------
+
+    def check(self, tuple_: RelationTuple, timeout: Optional[float] = 30.0) -> bool:
+        """Blocking single check, transparently batched with concurrent
+        callers."""
+        return self.check_with_token(tuple_, timeout)[0]
+
+    def check_with_token(
+        self, tuple_: RelationTuple, timeout: Optional[float] = 30.0
+    ) -> tuple[bool, Optional[int]]:
+        """``check`` plus the id of the snapshot that decided it."""
+        results, token = self._submit([tuple_], timeout)
+        return bool(results[0]), token
+
+    def check_batch(
+        self, tuples: Sequence[RelationTuple], timeout: Optional[float] = None
+    ) -> list[bool]:
+        return self.check_batch_with_token(tuples, timeout)[0]
+
+    def check_batch_with_token(
+        self, tuples: Sequence[RelationTuple], timeout: Optional[float] = None
+    ) -> tuple[list[bool], Optional[int]]:
+        tuples = list(tuples)
+        if not tuples:
+            return [], None
+        results, token = self._submit(tuples, timeout)
+        return [bool(r) for r in results], token
+
+    def _submit(self, tuples, timeout):
+        if self._stop.is_set() or self._thread is None:
+            raise RuntimeError("check batcher is not running")
+        item = _Item(tuples, Future())
+        with self._cond:
+            self._queue.append(item)
+            self._queued_tuples += len(tuples)
+            self._cond.notify_all()
+        try:
+            return item.fut.result(timeout=timeout)
+        except FutureTimeout:
+            raise ErrDeadlineExceeded("deadline expired waiting for the check result") from None
+
+    # -- dispatch ------------------------------------------------------------
+
+    def _take_locked(self) -> list[_Item]:  # holds: _cond
+        """Whole requests up to ``batch_size`` tuples (at least one)."""
+        items: list[_Item] = []
+        n = 0
+        while self._queue and (not items or n + len(self._queue[0].tuples) <= self._batch_size):
+            it = self._queue.popleft()
+            items.append(it)
+            n += len(it.tuples)
+        self._queued_tuples -= n
+        return items
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            with self._cond:
+                if not self._queue:
+                    # bounded wait so stop() always terminates the loop
+                    self._cond.wait(timeout=0.25)
+                    if not self._queue:
+                        continue
+                # coalescing window: wait for more arrivals up to window_ms
+                # or a full round
+                window_end = time.monotonic() + self._window_s
+                while self._queued_tuples < self._batch_size and not self._stop.is_set():
+                    remaining = window_end - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    self._cond.wait(timeout=remaining)
+                items = self._take_locked()
+            if not items:
+                continue
+            try:
+                flat = [t for it in items for t in it.tuples]
+                results, token = self._engine.batch_check_with_token(flat)
+            except Exception as e:
+                for it in items:
+                    try:
+                        it.fut.set_exception(e)
+                    except InvalidStateError:
+                        pass
+                continue
+            k = 0
+            for it in items:
+                try:
+                    it.fut.set_result((results[k : k + len(it.tuples)], token))
+                except InvalidStateError:
+                    pass
+                k += len(it.tuples)

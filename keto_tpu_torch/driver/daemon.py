@@ -1,0 +1,50 @@
+"""The serving process: one store, one engine on the card, one check
+batcher and the read and write REST ports (reference
+internal/driver/daemon.go, cut to the Check slice)."""
+
+from __future__ import annotations
+
+from typing import Iterable, Optional, Union
+
+import torch
+
+from keto_tpu_torch import namespace as namespace_pkg
+from keto_tpu_torch.check.gpu_engine import TorchCheckEngine
+from keto_tpu_torch.driver.batch import CheckBatcher
+from keto_tpu_torch.persistence.memory import MemoryPersister
+from keto_tpu_torch.relationtuple.model import RelationTuple
+from keto_tpu_torch.servers.rest import READ, WRITE, RestServer
+
+
+class Daemon:
+    def __init__(
+        self,
+        namespaces: Iterable[namespace_pkg.Namespace],
+        *,
+        device: Optional[Union[str, torch.device]] = None,
+        host: str = "127.0.0.1",
+        read_port: int = 0,
+        write_port: int = 0,
+        tuples: Iterable[RelationTuple] = (),
+    ):
+        nm = namespace_pkg.MemoryManager(namespaces)
+        self.store = MemoryPersister(nm)
+        tuples = list(tuples)
+        if tuples:
+            self.store.write_relation_tuples(*tuples)
+        self.engine = TorchCheckEngine(self.store, nm, device=device)
+        self.batcher = CheckBatcher(self.engine)
+        self.read = RestServer(READ, self.store, self.batcher, host, read_port)
+        self.write = RestServer(WRITE, self.store, self.batcher, host, write_port)
+
+    def start(self) -> None:
+        """Build the first snapshot on the device, then open both ports."""
+        self.engine.snapshot()
+        self.batcher.start()
+        self.read.start()
+        self.write.start()
+
+    def stop(self) -> None:
+        self.read.stop()
+        self.write.stop()
+        self.batcher.stop()

@@ -1,0 +1,76 @@
+"""Namespace definitions and managers.
+
+Namespaces partition the tuple space and live in *configuration*, not the
+database (the reference dropped its ``keto_namespace`` table; see reference
+internal/persistence/sql/migrations/sql/20201110175414000001_relationtuple.postgres.up.sql:1).
+Each namespace has an immutable int32 ID used by the storage layer and the
+graph interner, and a unique name used by the APIs.
+
+Mirrors reference internal/namespace/definitons.go:8-22 and
+internal/driver/config/namespace_memory.go:18-58.
+"""
+
+from __future__ import annotations
+
+import abc
+from dataclasses import dataclass
+from typing import Any, Iterable, Optional
+
+from keto_tpu_torch.x.errors import ErrNamespaceUnknown
+
+
+@dataclass(frozen=True)
+class Namespace:
+    id: int
+    name: str
+    config: Optional[dict[str, Any]] = None
+
+    def to_json(self) -> dict[str, Any]:
+        body: dict[str, Any] = {"id": self.id, "name": self.name}
+        if self.config:
+            body["config"] = self.config
+        return body
+
+
+class Manager(abc.ABC):
+    @abc.abstractmethod
+    def get_namespace_by_name(self, name: str) -> Namespace:
+        """Raises ErrNamespaceUnknown for unknown names."""
+
+    @abc.abstractmethod
+    def get_namespace_by_config_id(self, id: int) -> Namespace:
+        """Raises ErrNamespaceUnknown for unknown IDs."""
+
+    @abc.abstractmethod
+    def namespaces(self) -> list[Namespace]: ...
+
+
+class MemoryManager(Manager):
+    """Static in-config namespace list (reference
+    internal/driver/config/namespace_memory.go:18-58)."""
+
+    def __init__(self, namespaces: Iterable[Namespace] = ()):
+        self._by_name: dict[str, Namespace] = {}
+        self._by_id: dict[int, Namespace] = {}
+        for n in namespaces:
+            self._by_name[n.name] = n
+            self._by_id[n.id] = n
+
+    def get_namespace_by_name(self, name: str) -> Namespace:
+        try:
+            return self._by_name[name]
+        except KeyError:
+            raise ErrNamespaceUnknown(f"unknown namespace {name!r}") from None
+
+    def get_namespace_by_config_id(self, id: int) -> Namespace:
+        try:
+            return self._by_id[id]
+        except KeyError:
+            raise ErrNamespaceUnknown(f"unknown namespace id {id}") from None
+
+    def namespaces(self) -> list[Namespace]:
+        return list(self._by_name.values())
+
+
+def namespace_from_json(obj: dict[str, Any]) -> Namespace:
+    return Namespace(id=int(obj["id"]), name=str(obj["name"]), config=obj.get("config"))

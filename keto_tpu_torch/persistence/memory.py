@@ -1,0 +1,270 @@
+"""In-memory tuple store: a lean port of keto_tpu/persistence/memory.py.
+
+Implements the ``Manager`` contract (reference
+internal/relationtuple/definitions.go:28-33) with the semantics of the
+reference SQL persister (internal/persistence/sql/relationtuples.go):
+
+- namespaces are stored as their config-assigned int32 IDs and resolved back
+  through the namespace manager on read (relationtuples.go:43-80);
+- writes validate namespaces (both the tuple's and a subject-set subject's)
+  against the namespace manager before any mutation (relationtuples.go:82-126);
+- duplicate inserts create additional rows (the SQL PK is a random shard_id,
+  relationtuples.go:135-138), deletes remove *all* matching rows;
+- rows stay sorted in the reference's ORDER BY (relationtuples.go:215) with
+  SQLite NULL-first semantics, ties broken by commit order — the order the
+  snapshot builder interns in, so a store holding the same tuples as the JAX
+  package's store yields a byte-identical snapshot;
+- pagination tokens are 1-based page numbers, "" = first page / no more pages
+  (persister.go:106-134).
+
+Left out against the reference store: networks, idempotency keys, the
+insert/delete logs behind delta snapshots, fleet leases and watch logs —
+the Check slice rebuilds its snapshot whenever the watermark moves.
+"""
+
+from __future__ import annotations
+
+import bisect
+import heapq
+import itertools
+import threading
+from typing import Optional, Sequence
+
+from keto_tpu_torch import namespace as namespace_pkg
+from keto_tpu_torch.relationtuple.manager import Manager, TransactResult
+from keto_tpu_torch.relationtuple.model import RelationQuery, RelationTuple, SubjectID, SubjectSet
+from keto_tpu_torch.x.errors import ErrMalformedPageToken, ErrNilSubject
+from keto_tpu_torch.x.pagination import (
+    DEFAULT_PAGE_SIZE,
+    PaginationOptionSetter,
+    get_pagination_options,
+)
+
+
+class InternalRow:
+    """One stored tuple with interned namespace IDs (treat as immutable).
+    A slotted class: bulk loads construct millions of these."""
+
+    __slots__ = (
+        "namespace_id", "object", "relation", "subject_id",
+        "sset_namespace_id", "sset_object", "sset_relation", "seq",
+    )
+
+    def __init__(
+        self,
+        namespace_id: int,
+        object: str,  # noqa: A002 - field name mirrors the SQL column
+        relation: str,
+        subject_id: Optional[str],  # exactly one of subject_id / sset_* is set
+        sset_namespace_id: Optional[int],
+        sset_object: Optional[str],
+        sset_relation: Optional[str],
+        seq: int,  # commit order (the reference's commit_time)
+    ):
+        self.namespace_id = namespace_id
+        self.object = object
+        self.relation = relation
+        self.subject_id = subject_id
+        self.sset_namespace_id = sset_namespace_id
+        self.sset_object = sset_object
+        self.sset_relation = sset_relation
+        self.seq = seq
+
+    def __repr__(self) -> str:
+        return (
+            f"InternalRow(namespace_id={self.namespace_id!r}, object={self.object!r}, "
+            f"relation={self.relation!r}, subject_id={self.subject_id!r}, "
+            f"sset_namespace_id={self.sset_namespace_id!r}, "
+            f"sset_object={self.sset_object!r}, sset_relation={self.sset_relation!r}, "
+            f"seq={self.seq!r})"
+        )
+
+    def key7(self):
+        """Row identity for delete matching — the 7 user-visible fields."""
+        return (
+            self.namespace_id, self.object, self.relation, self.subject_id,
+            self.sset_namespace_id, self.sset_object, self.sset_relation,
+        )
+
+    def sort_key(self):
+        # ORDER BY namespace_id, object, relation, subject_id,
+        #   subject_set_namespace_id, subject_set_object, subject_set_relation,
+        #   commit_time — with NULLs first (SQLite dialect)
+        sid = self.subject_id
+        sns = self.sset_namespace_id
+        sso = self.sset_object
+        ssr = self.sset_relation
+        return (
+            self.namespace_id,
+            self.object,
+            self.relation,
+            (0, "") if sid is None else (1, sid),
+            (0, 0) if sns is None else (1, sns),
+            (0, "") if sso is None else (1, sso),
+            (0, "") if ssr is None else (1, ssr),
+            self.seq,
+        )
+
+
+class MemoryPersister(Manager):
+    #: inserts above this count sort once and merge; smaller ones insort
+    _MERGE_AT = 256
+
+    def __init__(self, namespace_manager_source):
+        """``namespace_manager_source`` is a zero-arg callable returning the
+        current namespace.Manager, or a Manager instance."""
+        if isinstance(namespace_manager_source, namespace_pkg.Manager):
+            self._nm = lambda: namespace_manager_source
+        else:
+            self._nm = namespace_manager_source
+        self._lock = threading.RLock()  # guards: _rows, _lhs_index, _watermark
+        self._rows: list[InternalRow] = []
+        self._seq = itertools.count()
+        self._watermark = 0
+        # (ns_id, obj, rel) → sorted row sublist: the in-memory analog of
+        # the reference's covering index, serving the oracle's fully
+        # literal traversal queries without a scan. Rebuilt lazily after
+        # writes.
+        self._lhs_index: Optional[dict[tuple, list[InternalRow]]] = None
+
+    @property
+    def namespaces(self):
+        """Zero-arg callable returning the current namespace manager — the
+        namespace source handed to engines built over this store."""
+        return self._nm
+
+    # -- helpers -------------------------------------------------------------
+
+    def _to_row(self, rt: RelationTuple) -> InternalRow:
+        nm = self._nm()
+        ns = nm.get_namespace_by_name(rt.namespace)
+        if rt.subject is None:
+            raise ErrNilSubject()
+        if isinstance(rt.subject, SubjectID):
+            return InternalRow(ns.id, rt.object, rt.relation, rt.subject.id, None, None, None, next(self._seq))
+        sns = nm.get_namespace_by_name(rt.subject.namespace)
+        return InternalRow(
+            ns.id, rt.object, rt.relation, None, sns.id, rt.subject.object, rt.subject.relation, next(self._seq)
+        )
+
+    def _to_tuple(self, row: InternalRow) -> RelationTuple:
+        nm = self._nm()
+        ns = nm.get_namespace_by_config_id(row.namespace_id)
+        if row.subject_id is not None:
+            subject: object = SubjectID(id=row.subject_id)
+        else:
+            sns = nm.get_namespace_by_config_id(row.sset_namespace_id)
+            subject = SubjectSet(namespace=sns.name, object=row.sset_object, relation=row.sset_relation)
+        return RelationTuple(namespace=ns.name, object=row.object, relation=row.relation, subject=subject)
+
+    def _compile_query(self, query: RelationQuery):
+        """Resolve namespace names up front (unknown → ErrNamespaceUnknown,
+        matching reference relationtuples.go:224-235 which resolves before
+        filtering) and return a row predicate."""
+        nm = self._nm()
+        ns_id = nm.get_namespace_by_name(query.namespace).id if query.namespace != "" else None
+        sub = query.subject
+        sub_id = None
+        sset_key = None
+        if isinstance(sub, SubjectID):
+            sub_id = sub.id
+        elif isinstance(sub, SubjectSet):
+            sset_key = (nm.get_namespace_by_name(sub.namespace).id, sub.object, sub.relation)
+
+        def matches(row: InternalRow) -> bool:
+            if query.relation != "" and row.relation != query.relation:
+                return False
+            if query.object != "" and row.object != query.object:
+                return False
+            if ns_id is not None and row.namespace_id != ns_id:
+                return False
+            if sub_id is not None and row.subject_id != sub_id:
+                return False
+            if sset_key is not None and (
+                (row.sset_namespace_id, row.sset_object, row.sset_relation) != sset_key
+            ):
+                return False
+            return True
+
+        return matches
+
+    def _index_lookup(self, query: RelationQuery) -> list[InternalRow]:
+        """Rows to filter: the LHS-index bucket for a fully-literal
+        (namespace, object, relation) query, else the full row list. Must be
+        called under the lock."""
+        if query.namespace == "" or query.object == "" or query.relation == "":
+            return self._rows
+        idx = self._lhs_index
+        if idx is None:
+            idx = {}
+            for r in self._rows:
+                idx.setdefault((r.namespace_id, r.object, r.relation), []).append(r)
+            self._lhs_index = idx
+        ns_id = self._nm().get_namespace_by_name(query.namespace).id
+        return idx.get((ns_id, query.object, query.relation), [])
+
+    # -- Manager -------------------------------------------------------------
+
+    def get_relation_tuples(
+        self, query: RelationQuery, *options: PaginationOptionSetter
+    ) -> tuple[list[RelationTuple], str]:
+        opts = get_pagination_options(*options)
+        per_page = opts.size or DEFAULT_PAGE_SIZE
+        if opts.token == "":
+            page = 1
+        else:
+            if not opts.token.isdigit():
+                raise ErrMalformedPageToken()
+            page = max(int(opts.token), 1)
+
+        with self._lock:
+            candidates = self._index_lookup(query)
+            matches = self._compile_query(query)
+            matched = [r for r in candidates if matches(r)]
+            total_pages = -(-len(matched) // per_page)  # ceil
+            start = (page - 1) * per_page
+            page_rows = matched[start : start + per_page]
+            next_token = "" if page >= total_pages else str(page + 1)
+            return [self._to_tuple(r) for r in page_rows], next_token
+
+    def write_relation_tuples(self, *tuples: RelationTuple) -> None:
+        self.transact_relation_tuples(tuples, ())
+
+    def delete_relation_tuples(self, *tuples: RelationTuple) -> None:
+        self.transact_relation_tuples((), tuples)
+
+    def transact_relation_tuples(
+        self,
+        insert: Sequence[RelationTuple],
+        delete: Sequence[RelationTuple],
+    ) -> TransactResult:
+        """Atomic: namespace validation happens for the whole batch before any
+        mutation, so a failing insert/delete leaves the store untouched
+        (rollback semantics of reference relationtuples.go:271-278)."""
+        with self._lock:
+            new_rows = [self._to_row(rt) for rt in insert]
+            delete_keys = {self._to_row(rt).key7() for rt in delete}
+            rows = self._rows
+            if len(new_rows) > self._MERGE_AT:
+                new_rows.sort(key=InternalRow.sort_key)
+                rows = list(heapq.merge(rows, new_rows, key=InternalRow.sort_key))
+            else:
+                for r in new_rows:
+                    bisect.insort(rows, r, key=InternalRow.sort_key)
+            if delete_keys:
+                rows = [r for r in rows if r.key7() not in delete_keys]
+            self._rows = rows
+            self._lhs_index = None
+            self._watermark += 1
+            return TransactResult(snaptoken=self._watermark)
+
+    def watermark(self) -> int:
+        with self._lock:
+            return self._watermark
+
+    # -- snapshot support ----------------------------------------------------
+
+    def snapshot_rows(self) -> tuple[list[InternalRow], int]:
+        """Consistent (rows, watermark) view for the graph builder."""
+        with self._lock:
+            return list(self._rows), self._watermark

@@ -1,0 +1,218 @@
+"""REST handlers over the stdlib HTTP server: a lean port of
+keto_tpu/servers/rest.py with the same routes, status codes and bodies.
+
+Read port:
+
+- ``GET /check`` decodes the tuple from the URL query; a nil subject is a
+  400 with "Subject has to be specified." (reference
+  internal/check/handler.go:85-107); the *status code mirrors the
+  decision*: 200 allowed / 403 denied, body ``{"allowed": bool}``.
+- ``POST /check`` takes the tuple as JSON (handler.go:128-146).
+- ``POST /check/batch`` takes ``{"tuples": [...]}`` and answers
+  ``{"results": [bool, ...]}`` in order.
+- ``?snaptoken=`` asks for a snapshot at or past a write's token; the port
+  always serves the latest snapshot, which satisfies it, so the token is
+  only validated (a malformed one is a 400). Responses carry the deciding
+  snapshot's id in ``X-Keto-Snaptoken``.
+
+Write port: ``PUT /relation-tuples`` creates from a JSON body → 201 +
+Location (reference transact_server.go:130-153); ``DELETE`` by URL query →
+204 (transact_server.go:173-187). Both answer the commit's snaptoken.
+
+Both ports: ``GET /health/alive`` → ``{"status": "ok"}``; ``GET
+/health/ready`` → 200 ``{"status": "ok"}`` while the check batcher runs,
+else 503. Errors render the herodot-style envelope of x/errors.py.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+from urllib.parse import parse_qs, urlsplit
+
+from keto_tpu_torch.relationtuple.model import RelationTuple
+from keto_tpu_torch.x.errors import ErrBadRequest, ErrNilSubject, KetoError
+
+READ = "read"
+WRITE = "write"
+
+#: upper bound on one /check/batch payload
+MAX_BATCH_CHECK = 65536
+
+
+class RestApp:
+    """Routes requests for one server role against the store (writes) and
+    the check batcher (reads)."""
+
+    def __init__(self, role: str, store, batcher):
+        self.role = role
+        self.store = store
+        self.batcher = batcher
+
+    def handle(self, method: str, path: str, query: dict[str, list[str]], body: bytes):
+        """Returns (status, payload-dict | None, headers-dict)."""
+        try:
+            route = (method, path)
+            if path == "/health/alive":
+                return 200, {"status": "ok"}, {}
+            if path == "/health/ready":
+                if self.batcher.running:
+                    return 200, {"status": "ok"}, {}
+                return 503, {"status": "unavailable", "reason": "check batcher stopped"}, {}
+            if self.role == READ:
+                if route == ("GET", "/check"):
+                    return self._get_check(query)
+                if route == ("POST", "/check"):
+                    return self._post_check(body, query)
+                if route == ("POST", "/check/batch"):
+                    return self._post_check_batch(body, query)
+            else:
+                if route == ("PUT", "/relation-tuples"):
+                    return self._put_relation_tuple(body)
+                if route == ("DELETE", "/relation-tuples"):
+                    return self._delete_relation_tuple(query)
+            err = KetoError("404 page not found")
+            err.status_code = 404
+            return 404, err.to_json(), {}
+        except KetoError as e:
+            return e.status_code, e.to_json(), {}
+        except Exception as e:  # unexpected → 500 envelope
+            err = KetoError(str(e) or "internal server error")
+            return 500, err.to_json(), {}
+
+    # -- read ----------------------------------------------------------------
+
+    @staticmethod
+    def _validate_snaptoken(query) -> None:
+        raw_token = (query.get("snaptoken") or [""])[0]
+        if raw_token:
+            try:
+                int(raw_token)
+            except ValueError:
+                raise ErrBadRequest(f"malformed snaptoken {raw_token!r}") from None
+
+    @staticmethod
+    def _token_headers(token) -> dict[str, str]:
+        return {} if token is None else {"X-Keto-Snaptoken": str(token)}
+
+    def _check(self, tuple_: RelationTuple, query):
+        self._validate_snaptoken(query)
+        allowed, token = self.batcher.check_with_token(tuple_)
+        return (200 if allowed else 403), {"allowed": allowed}, self._token_headers(token)
+
+    def _get_check(self, query):
+        try:
+            tuple_ = RelationTuple.from_url_query(query)
+        except ErrNilSubject:
+            raise ErrBadRequest("Subject has to be specified.") from None
+        return self._check(tuple_, query)
+
+    def _post_check(self, body: bytes, query):
+        try:
+            obj = json.loads(body or b"{}")
+        except json.JSONDecodeError as e:
+            raise ErrBadRequest(f"Unable to decode JSON payload: {e}") from None
+        return self._check(RelationTuple.from_json(obj), query)
+
+    def _post_check_batch(self, body: bytes, query):
+        try:
+            obj = json.loads(body or b"{}")
+        except json.JSONDecodeError as e:
+            raise ErrBadRequest(f"Unable to decode JSON payload: {e}") from None
+        raw = obj.get("tuples") if isinstance(obj, dict) else None
+        if not isinstance(raw, list) or not raw:
+            raise ErrBadRequest('expected a non-empty "tuples" array')
+        if len(raw) > MAX_BATCH_CHECK:
+            raise ErrBadRequest(
+                f"too many tuples in one batch check ({len(raw)} > "
+                f"{MAX_BATCH_CHECK}); split the request"
+            )
+        tuples = [RelationTuple.from_json(t) for t in raw]
+        self._validate_snaptoken(query)
+        results, token = self.batcher.check_batch_with_token(tuples)
+        return 200, {"results": [bool(r) for r in results]}, self._token_headers(token)
+
+    # -- write ---------------------------------------------------------------
+
+    def _put_relation_tuple(self, body: bytes):
+        try:
+            obj = json.loads(body or b"{}")
+        except json.JSONDecodeError as e:
+            raise ErrBadRequest(str(e)) from None
+        rel = RelationTuple.from_json(obj)
+        result = self.store.transact_relation_tuples([rel], ())
+        headers = {"Location": "/relation-tuples?" + rel.to_url_query()}
+        headers.update(self._token_headers(result.snaptoken))
+        return 201, rel.to_json(), headers
+
+    def _delete_relation_tuple(self, query):
+        rel = RelationTuple.from_url_query(query)
+        result = self.store.transact_relation_tuples((), [rel])
+        return 204, None, self._token_headers(result.snaptoken)
+
+
+def _make_handler(app: RestApp):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+        server_version = "keto-tpu-torch"
+
+        def _serve(self, method: str):
+            parts = urlsplit(self.path)
+            query = parse_qs(parts.query, keep_blank_values=True)
+            length = int(self.headers.get("Content-Length") or 0)
+            body = self.rfile.read(length) if length else b""
+            status, payload, headers = app.handle(method, parts.path, query, body)
+            data = b"" if payload is None else json.dumps(payload).encode()
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            for k, v in headers.items():
+                self.send_header(k, v)
+            self.end_headers()
+            if data:
+                self.wfile.write(data)
+
+        def log_message(self, fmt, *args):  # quiet: no per-request stderr lines
+            pass
+
+        def do_GET(self):
+            self._serve("GET")
+
+        def do_POST(self):
+            self._serve("POST")
+
+        def do_PUT(self):
+            self._serve("PUT")
+
+        def do_DELETE(self):
+            self._serve("DELETE")
+
+    return Handler
+
+
+class RestServer:
+    """One role's REST server on its own port, served from a thread."""
+
+    def __init__(self, role: str, store, batcher, host: str = "127.0.0.1", port: int = 0):
+        self.app = RestApp(role, store, batcher)
+        self.httpd = ThreadingHTTPServer((host or "0.0.0.0", port), _make_handler(self.app))
+        self.httpd.daemon_threads = True
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def port(self) -> int:
+        return self.httpd.server_address[1]
+
+    def start(self) -> None:
+        self._thread = threading.Thread(
+            target=self.httpd.serve_forever, name=f"rest-{self.app.role}", daemon=True
+        )
+        self._thread.start()
+
+    def stop(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        if self._thread:
+            self._thread.join(timeout=5)

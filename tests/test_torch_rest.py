@@ -1,0 +1,146 @@
+"""The port's REST server on the CPU: the cat-videos checks answer 200/403,
+a write on the write port is visible to the next check, and the batch and
+health routes answer."""
+
+from __future__ import annotations
+
+import json
+import urllib.error
+import urllib.request
+from urllib.parse import urlencode
+
+import pytest
+
+from keto_tpu_torch.driver.daemon import Daemon
+from keto_tpu_torch.relationtuple.model import RelationTuple
+from keto_tpu_torch.workloads import (
+    CAT_VIDEOS_CHECKS,
+    CAT_VIDEOS_NAMESPACES,
+    CAT_VIDEOS_TUPLES,
+    parse_tuples,
+)
+
+
+def _req(method, port, path, body=None):
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            raw = r.read()
+            return r.status, (json.loads(raw) if raw else None), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        raw = e.read()
+        return e.code, (json.loads(raw) if raw else None), dict(e.headers)
+
+
+@pytest.fixture
+def daemon():
+    d = Daemon(CAT_VIDEOS_NAMESPACES, device="cpu", tuples=parse_tuples(CAT_VIDEOS_TUPLES))
+    d.start()
+    yield d
+    d.stop()
+
+
+@pytest.mark.parametrize("check,allowed", CAT_VIDEOS_CHECKS)
+def test_cat_videos_get_check(daemon, check, allowed):
+    q = RelationTuple.from_string(check).to_url_query()
+    status, body, headers = _req("GET", daemon.read.port, "/check?" + q)
+    assert (status, body) == ((200 if allowed else 403), {"allowed": allowed})
+    assert headers["X-Keto-Snaptoken"] == "1"
+
+
+def test_post_check_and_batch(daemon):
+    tuples = [RelationTuple.from_string(c) for c, _ in CAT_VIDEOS_CHECKS]
+    status, body, _ = _req("POST", daemon.read.port, "/check", tuples[2].to_json())
+    assert (status, body) == (403, {"allowed": False})
+    status, body, _ = _req("POST", daemon.read.port, "/check/batch",
+                           {"tuples": [t.to_json() for t in tuples]})
+    assert status == 200 and body == {"results": [a for _, a in CAT_VIDEOS_CHECKS]}
+    status, body, _ = _req("POST", daemon.read.port, "/check/batch", {"tuples": []})
+    assert status == 400
+
+
+def test_write_then_check(daemon):
+    new = RelationTuple.from_string("videos:/cats/2.mp4#view@*")
+    status, _, _ = _req("GET", daemon.read.port, "/check?" + new.to_url_query())
+    assert status == 403
+    status, body, headers = _req("PUT", daemon.write.port, "/relation-tuples", new.to_json())
+    assert status == 201 and body == new.to_json()
+    assert headers["X-Keto-Snaptoken"] == "2"
+    status, body, headers = _req("GET", daemon.read.port, "/check?" + new.to_url_query())
+    assert (status, body, headers["X-Keto-Snaptoken"]) == (200, {"allowed": True}, "2")
+    status, _, _ = _req("DELETE", daemon.write.port, "/relation-tuples?" + new.to_url_query())
+    assert status == 204
+    status, _, _ = _req("GET", daemon.read.port, "/check?" + new.to_url_query())
+    assert status == 403
+
+
+@pytest.mark.parametrize("token,status", [("1", 200), ("", 200), ("x1", 400), ("1.5", 400)])
+def test_snaptoken_is_validated(daemon, token, status):
+    """The latest snapshot serves every well-formed token; a malformed one
+    is the caller's error."""
+    t = RelationTuple.from_string(CAT_VIDEOS_CHECKS[0][0])
+    got = _req("GET", daemon.read.port, f"/check?{t.to_url_query()}&snaptoken={token}")
+    assert got[0] == status
+    got = _req("POST", daemon.read.port, f"/check/batch?snaptoken={token}",
+               {"tuples": [t.to_json()]})
+    assert got[0] == status
+    if status == 400:
+        assert "malformed snaptoken" in got[1]["error"]["message"]
+
+
+def test_errors_and_health(daemon):
+    q = urlencode({"namespace": "videos", "object": "/cats", "relation": "view"})
+    status, body, _ = _req("GET", daemon.read.port, "/check?" + q)
+    assert status == 400 and body["error"]["message"] == "Subject has to be specified."
+    status, body, _ = _req("PUT", daemon.write.port, "/relation-tuples",
+                           {"namespace": "nope", "object": "o", "relation": "r",
+                            "subject_id": "u"})
+    assert status == 404
+    for port in (daemon.read.port, daemon.write.port):
+        assert _req("GET", port, "/health/alive")[:2] == (200, {"status": "ok"})
+        assert _req("GET", port, "/health/ready")[:2] == (200, {"status": "ok"})
+    assert _req("GET", daemon.write.port, "/check?" + q)[0] == 404
+
+
+def test_cli_serve_on_cpu(tmp_path):
+    """``python -m keto_tpu_torch serve --device cpu`` answers the cat-videos
+    checks and exits 0 on SIGTERM."""
+    import re
+    import signal
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    tuples = tmp_path / "tuples.txt"
+    tuples.write_text(CAT_VIDEOS_TUPLES)
+    root = Path(__file__).resolve().parent.parent
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "keto_tpu_torch", "serve", "--device", "cpu",
+         "--read-port", "0", "--write-port", "0", "--namespace", "videos=1",
+         "--tuples", str(tuples)],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        line = proc.stdout.readline()
+        m = re.search(r"read :(\d+), write :(\d+), device cpu", line)
+        assert m, (line, proc.stderr.read() if proc.poll() is not None else "")
+        read_port = int(m.group(1))
+        for check, allowed in CAT_VIDEOS_CHECKS:
+            q = RelationTuple.from_string(check).to_url_query()
+            assert _req("GET", read_port, "/check?" + q)[0] == (200 if allowed else 403)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def test_cli_rejects_a_malformed_namespace():
+    from keto_tpu_torch.cmd import build_parser
+
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["serve", "--namespace", "videos"])
+    args = build_parser().parse_args(["serve", "--namespace", "a=b=3"])
+    assert [(n.name, n.id) for n in args.namespace] == [("a=b", 3)]
