@@ -1,27 +1,43 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: build, parity, main path, serve.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: build, parity, the BFS
+and label routes of Check, serve.
 
     python3 chip_smoke.py            # every phase, as a release check runs it
     python3 chip_smoke.py --only build,parity
 
 Phases, in order; any failure exits non-zero:
 
-1. card and build — the card's name and power limit (nvidia-smi), then the
-   CUDA kernels compiled from keto_tpu_torch/csrc with nvcc for sm_90a;
+1. build — the card's name and power limit (nvidia-smi), then the CUDA
+   kernels compiled from keto_tpu_torch/csrc with nvcc for sm_90a (one nvcc
+   per source, all started together), timed beside one nvcc over every
+   source when the build was cold;
 2. parity — every CUDA kernel against its plain PyTorch version on the same
-   tensors on the card, over random ELL graphs made from a numpy seed
-   (degree caps 1..4096, W in {1, 8, 64, 4096}, bit 31, sentinel and padding
-   rows, overlays with padding, it_cap truncation with block_iters 1/3/8,
-   n_active = 0); every word of every output must agree;
-3. main path — BASELINE config 3 (RBAC, 1M tuples, 3-level group nesting)
-   into the port's store, TorchCheckEngine on the card, 100k checks: every
-   decision equals the analytic expectation, a 2,000-query sample equals
-   the recursive oracle, and every kernel of the path launched; then each
-   kernel is timed at the main path's shapes beside its plain version and
-   its memory bound;
-4. serve — the REST server with the engine on the card: the cat-videos
-   checks (200, 200, 403, 200), read-your-writes after a PUT, /check/batch,
-   then a PUT that closes a cycle and a batch over it; each part fails
-   unless its requests launched every kernel their snapshot needs.
+   tensors on the card, over random layouts made from a numpy seed: the
+   check step (degree caps 1..4096, W in {1, 8, 64, 4096}, bit 31, sentinel
+   and padding rows, overlays, it_cap truncation, n_active = 0), the label
+   step (label widths 1..128, pad pairs, several pairs per query), the
+   frontier wave (expansion pruning on and off, rows outside every dst,
+   wt 1 and 2) and the covered mask (an empty table, wt 1 and 2, a table
+   too large for shared memory); every word of every output must agree;
+3. main — BASELINE config 3 (RBAC, 1M tuples, 3-level group nesting) on
+   the BFS route (labels off), 100k checks: every decision equals the
+   analytic expectation, a 2,000-query sample equals the recursive
+   oracle, and every BFS kernel launched; each kernel is then timed at the
+   main path's shapes beside its plain version and its bound;
+4. labels — the same store and checks with the default engine: labels on,
+   built on the host (config 3 is below the device-build gate): decisions
+   equal to the BFS run's and the expectation, the label step launched and
+   the label build's kernels not;
+5. deep — BASELINE config 4 (GitHub-style org/team/repo, 10M tuples,
+   five namespaces, grant chains up to 7 edges) with the default engine:
+   the labels built on the card, 100k checks equal to the analytic
+   expectation, an oracle sample, the label step, frontier wave and
+   covered mask each launched; then those three kernels are timed at the
+   path's shapes beside their plain versions and bounds;
+6. serve — the REST server with the default engine (labels on): the
+   cat-videos checks (200, 200, 403, 200), read-your-writes after a PUT,
+   /check/batch, then a PUT that closes a cycle and a batch over it; each
+   part fails unless its requests launched the kernels of the routes that
+   answered them.
 
 Output: progress lines, the ``{"kernels": [...]}`` line, the card line, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -37,17 +53,33 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "parity", "main", "serve")
+PHASES = ("build", "parity", "main", "labels", "deep", "serve")
 SEED = 20261017
 N_TUPLES = 1_000_000
 N_CHECKS = 100_000
 ORACLE_SAMPLE = 2_000
+#: BASELINE config 4 at its full size
+DEEP_TUPLES = 10_000_000
+DEEP_ORACLE_SAMPLE = 250
 
 #: the TPU kernels these CUDA kernels replace
 K1 = "keto_tpu/check/tpu_engine.py:89"
 K2 = "keto_tpu/check/tpu_engine.py:110"
-#: HBM rate of one H100 SXM (NVIDIA's data sheet), the card the bounds are for
-H100_SXM_RATE = 3.35e12
+K3 = "keto_tpu/check/tpu_engine.py:310"
+K6 = "keto_tpu/graph/label_build.py:150"
+K7 = "keto_tpu/graph/label_build.py:183"
+
+#: per H100 variant, by a word of its nvidia-smi name: memory rate (B/s),
+#: SMs and boost clock (Hz), from NVIDIA's H100 data sheet (SXM5 HBM3
+#: 3.35 TB/s, PCIe HBM2e 2.0 TB/s, NVL HBM3 3.9 TB/s) and the Hopper
+#: architecture white paper (SM counts and boost clocks). Int32 compares
+#: run on 64 INT32 lanes per SM and clock.
+CARDS = (
+    ("NVL", 3.9e12, 132, 1.785e9),
+    ("PCIe", 2.0e12, 114, 1.755e9),
+    ("HBM3", 3.35e12, 132, 1.98e9),
+)
+INT32_LANES_PER_SM = 64
 
 
 def log(*a):
@@ -62,11 +94,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def hbm_rate(name: str) -> float:
-    """The memory rate the bounds use; only the H100 SXM's is known here."""
-    if "H100" not in name or "HBM3" not in name:
-        raise SystemExit(f"bounds are stated for an H100 SXM (HBM3), not {name!r}")
-    return H100_SXM_RATE
+def card_rates(name: str) -> tuple[float, float]:
+    """(memory rate in B/s, int32 compare rate in op/s) of the H100 variant
+    named; exits for a card outside the table."""
+    if "H100" in name:
+        for word, rate, sms, clock in CARDS:
+            if word in name:
+                return rate, sms * INT32_LANES_PER_SM * clock
+    raise SystemExit(f"no data-sheet rates for {name!r}: bounds are stated for H100 "
+                     f"variants ({', '.join(w for w, *_ in CARDS)})")
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -83,6 +119,39 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_fresh_ms(fn, make, reps: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn(*state)`` over ``reps`` calls, each on its
+    own ``state = make()``, all made before the timed loop: for a kernel
+    that updates its inputs in place, so every timed call does the work of
+    the first."""
+    import torch
+
+    states = [make() for _ in range(warmup + reps)]
+    for s in states[:warmup]:
+        fn(*s)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for s in states[warmup:]:
+        fn(*s)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def serial_build_seconds(_build) -> float:
+    """Seconds of one nvcc over every source into one library, in a
+    temporary directory under the build directory: the cold build the
+    parallel one (one nvcc per source) is compared with."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as d:
+        t0 = time.monotonic()
+        subprocess.run([_build._nvcc(), *_build.COMPILE_FLAGS, "-shared", "-o", f"{d}/lib.so",
+                        *map(str, _build.sources())], check=True, capture_output=True)
+        return time.monotonic() - t0
 
 
 def diff(a, b) -> tuple[int, int]:
@@ -145,9 +214,71 @@ def phase_parity(torch, kernels, rows_out):
                       kernels.pull_ref(nb, kw["valid_rows"], R))[0]
         log(f"parity case {i}: {case} -> iters={tail[0]} truncated={tail[1]} mismatches={m}")
         total += m
+    total += label_parity(torch, rng, dev)
     rows_out["parity_mismatches"] = total
     if total:
         raise SystemExit(f"kernel parity FAILED: {total} mismatching words")
+
+
+LABEL_STEP_CASES = [  # (n, Wo, Wi, W, live pairs)
+    (90, 1, 1, 1, 20), (90, 32, 1, 8, 700), (90, 1, 32, 8, 700), (200, 64, 64, 64, 6000),
+    (120, 128, 32, 64, 2100), (120, 32, 128, 64, 2100), (60, 128, 128, 1, 100),
+    (3000, 64, 64, 4096, 300_000), (500, 2, 8, 4096, 140_000),
+]
+SWEEP_CASES = [  # (n, caps, rows per group, wt)
+    (100, (1, 2, 4), (30, 10, 5), 1), (100, (1, 2, 4), (30, 10, 5), 2),
+    (300, (1, 4096), (100, 3), 2), (5000, (1, 2, 8, 64, 1024), (2000, 800, 300, 40, 4), 2),
+]
+COVERED_CASES = [  # (rows, width, u, wt)
+    (1000, 64, 4096, 2), (1000, 64, 300, 1), (500, 8, 0, 2), (700, 16, 1, 2),
+    (2000, 64, 20000, 2), (30000, 64, 4096, 2),
+]
+
+
+def label_parity(torch, rng, dev) -> int:
+    """K3, K6 and K7 against their plain versions; mismatching words."""
+    from keto_tpu_torch.check import kernels
+    from keto_tpu_torch.check.random_layouts import (
+        random_covered_case,
+        random_label_case,
+        random_sweep_case,
+    )
+    from keto_tpu_torch.graph import label_kernels as lk
+
+    t = lambda a: torch.from_numpy(a.copy()).to(dev)  # noqa: E731
+    total = 0
+    for n, Wo, Wi, W, pairs in LABEL_STEP_CASES:
+        out_lab, in_lab, entries, P, B = random_label_case(rng, n, Wo, Wi, W, pairs)
+        args = (t(out_lab), t(in_lab), t(entries))
+        got = kernels.label_step_cuda(*args, n_pairs=P, B=B)
+        want = kernels.label_step_ref(*args, n_pairs=P, B=B)
+        torch.cuda.synchronize()
+        m, _ = diff(got, want)
+        hits = int(sum(bin(w & 0xFFFFFFFF).count("1") for w in want.tolist()))
+        log(f"parity label_step n={n} Wo={Wo} Wi={Wi} W={W} pairs={pairs}: "
+            f"{hits} query bits set, mismatches={m}")
+        total += m
+    for n, caps, rows, wt in SWEEP_CASES:
+        groups, V, X, S, cov = random_sweep_case(rng, n, caps, rows, wt)
+        g = lk.EllGroups.from_groups(groups, dev)
+        for prune in (True, False):
+            a = lk.sweep_step_cuda(g, t(V), t(X), t(S), t(cov), prune_expansion=prune)
+            b = lk.sweep_step_ref(g, t(V), t(X), t(S), t(cov), prune_expansion=prune)
+            torch.cuda.synchronize()
+            m = sum(diff(x, y)[0] for x, y in zip(a, b))
+            log(f"parity sweep_step n={n} caps={caps} wt={wt} prune={prune}: "
+                f"state={b[3].tolist()}, mismatches={m}")
+            total += m
+    for rows, width, u, wt in COVERED_CASES:
+        lab, U, masks = random_covered_case(rng, rows, width, u, wt)
+        got = lk.covered_cuda(t(lab), t(U), t(masks))
+        want = lk.covered_ref(t(lab), t(U), t(masks))
+        torch.cuda.synchronize()
+        m, _ = diff(got, want)
+        log(f"parity covered rows={rows} width={width} u={u} wt={wt}: "
+            f"{int((want != 0).any(1).sum())} rows covered, mismatches={m}")
+        total += m
+    return total
 
 
 # -- phase 3: main path ---------------------------------------------------------
@@ -170,7 +301,7 @@ def phase_main(torch, kernels, report):
     log(f"workload: {len(tuples)} tuples, {len(queries)} checks, "
         f"{sum(expected)} expected grants ({time.monotonic() - t0:.1f}s to generate and store)")
 
-    engine = TorchCheckEngine(store, nm, device="cuda")
+    engine = TorchCheckEngine(store, nm, device="cuda", labels_enabled=False)
     t0 = time.monotonic()
     snap = engine.snapshot()
     torch.cuda.synchronize()
@@ -194,7 +325,7 @@ def phase_main(torch, kernels, report):
         f"wrong vs analytic {wrong}")
     if wrong:
         raise SystemExit(f"main path FAILED: {wrong} decisions differ from the expectation")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in kernels.BFS_KERNELS if launches[k] == 0]
     if missing:
         raise SystemExit(f"main path FAILED: kernels never launched: {missing}")
     # steady state: block_iters has adapted, nothing is cold
@@ -219,7 +350,7 @@ def phase_main(torch, kernels, report):
         "grants": sum(expected),
     }
     report["launches"] = launches
-    return engine, snap, queries
+    return engine, snap, queries, (store, nm, got, expected)
 
 
 def kernel_rows(torch, kernels, engine, snap, queries, rate, launches):
@@ -360,29 +491,310 @@ def kernel_rows(torch, kernels, engine, snap, queries, rate, launches):
     return rows, step
 
 
+# -- phase 4: labels on config 3 ------------------------------------------------
+
+
+def route_counts(engine) -> dict:
+    c = engine.counters()
+    return {k: c.get(k, 0) for k in
+            ("label_checks", "label_fallbacks", "label_builds", "label_device_builds")}
+
+
+def phase_labels(torch, kernels, report, main_ctx, queries):
+    """Config 3 with the default engine: labels on, built on the host."""
+    from keto_tpu_torch.check.gpu_engine import TorchCheckEngine
+
+    store, nm, bfs_got, expected = main_ctx
+    kernels.reset_counts()
+    engine = TorchCheckEngine(store, nm, device="cuda")
+    t0 = time.monotonic()
+    if not engine.labels_settled():
+        raise SystemExit("labels FAILED: no label index on config 3")
+    settle_s = time.monotonic() - t0
+    idx = engine.snapshot().labels
+    t0 = time.monotonic()
+    got = engine.batch_check(queries)
+    torch.cuda.synchronize()
+    check_s = time.monotonic() - t0
+    launches = dict(kernels.COUNTS)
+    counts = route_counts(engine)
+    wrong = sum(g != e for g, e in zip(got, expected))
+    differ = sum(g != b for g, b in zip(got, bfs_got))
+    log(f"labels (config 3, {idx.backend} build): {idx.n_landmarks} landmarks, "
+        f"{idx.n_entries} entries, coverage {idx.coverage:.4f}, Wo={idx.out_lab.shape[1]} "
+        f"Wi={idx.in_lab.shape[1]}, build {idx.build_ms / 1e3:.3f}s (settled in {settle_s:.3f}s); "
+        f"{len(queries)} checks in {check_s:.3f}s ({len(queries) / check_s:.0f} checks/s); "
+        f"route counts {counts}; launches {launches}; wrong vs analytic {wrong}, "
+        f"differ from the BFS run {differ}")
+    if wrong or differ:
+        raise SystemExit(f"labels FAILED: {wrong} wrong, {differ} differ from the BFS route")
+    if idx.backend != "host" or counts["label_device_builds"] or launches["sweep_step"] \
+            or launches["covered"]:
+        raise SystemExit("labels FAILED: config 3 must take the host build")
+    if not launches["label_step"] or not counts["label_checks"]:
+        raise SystemExit("labels FAILED: the label route never answered")
+    report["labels"] = {
+        "config": "BASELINE config 3 (RBAC), labels on", "build": idx.backend,
+        "build_s": idx.build_ms / 1e3, "landmarks": idx.n_landmarks, "entries": idx.n_entries,
+        "coverage": idx.coverage, "check_s": check_s, "checks_per_s": len(queries) / check_s,
+        "route_counts": counts, "launches": launches,
+    }
+
+
+# -- phase 5: deep, config 4 on the label route ---------------------------------
+
+
+def phase_deep(torch, kernels, report):
+    """BASELINE config 4 with the default engine: device label build, label
+    route. Returns what the kernel rows need."""
+    from keto_tpu_torch import namespace as tns
+    from keto_tpu_torch.check.engine import CheckEngine
+    from keto_tpu_torch.check.gpu_engine import TorchCheckEngine
+    from keto_tpu_torch.persistence.memory import MemoryPersister
+    from keto_tpu_torch.workloads import GITHUB_NAMESPACES, github_queries, github_workload
+
+    rng = random.Random(SEED + 4)
+    t0 = time.monotonic()
+    tuples, ctx = github_workload(rng, DEEP_TUPLES)
+    queries, expected = github_queries(rng, N_CHECKS, ctx)
+    gen_s = time.monotonic() - t0
+    nm = tns.MemoryManager(GITHUB_NAMESPACES)
+    store = MemoryPersister(nm)
+    t0 = time.monotonic()
+    store.write_relation_tuples(*tuples)
+    n_tuples = len(tuples)
+    del tuples
+    log(f"deep workload: {n_tuples} tuples, {len(queries)} checks, {sum(expected)} expected "
+        f"grants ({gen_s:.1f}s to generate, {time.monotonic() - t0:.1f}s to store)")
+
+    # the main path's run: counts from the snapshot and label build on
+    kernels.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    engine = TorchCheckEngine(store, nm, device="cuda")
+    t0 = time.monotonic()
+    snap = engine.snapshot()
+    torch.cuda.synchronize()
+    snap_s = time.monotonic() - t0
+    slots = engine._interior_ell_slots(snap)
+    log(f"deep snapshot: {snap.n_nodes} nodes, {snap.n_edges} edges, num_int={snap.num_int}, "
+        f"num_active={snap.num_active}, {slots} interior ELL slots, "
+        f"buckets={[(tuple(b.nbrs.shape), b.n) for b in snap.buckets]}, {snap_s:.3f}s")
+    t0 = time.monotonic()
+    if not engine.labels_settled():
+        raise SystemExit("deep FAILED: no label index")
+    settle_s = time.monotonic() - t0
+    idx, info = snap.labels, engine.label_build_info
+    build = {
+        "backend": idx.backend, "build_s": idx.build_ms / 1e3, "settled_s": settle_s,
+        "landmarks": info.landmarks if info else idx.n_landmarks,
+        "batches": info.batches if info else 0, "restarts": info.restarts if info else 0,
+        "entries": idx.n_entries, "coverage": idx.coverage, "Wo": int(idx.out_lab.shape[1]),
+        "Wi": int(idx.in_lab.shape[1]), "transient_bytes": engine.label_build_bytes,
+        "truncated": info.truncated if info else "",
+    }
+    log(f"deep label build: {json.dumps(build)}")
+
+    # capture the label step's inputs while the batch runs (the launches
+    # themselves are counted by the CUDA wrapper as always)
+    captured = []
+    dispatch = kernels.label_step
+
+    def capture(out_lab, in_lab, entries, **kw):
+        captured.append((out_lab, in_lab, entries, kw))
+        return dispatch(out_lab, in_lab, entries, **kw)
+
+    kernels.label_step = capture
+    try:
+        t0 = time.monotonic()
+        got = engine.batch_check(queries)
+        torch.cuda.synchronize()
+        check_s = time.monotonic() - t0
+    finally:
+        kernels.label_step = dispatch
+    launches = dict(kernels.COUNTS)
+    counts = route_counts(engine)
+    peak = torch.cuda.max_memory_allocated()
+    wrong = sum(g != e for g, e in zip(got, expected))
+    log(f"deep path: {N_CHECKS} checks in {check_s:.3f}s ({N_CHECKS / check_s:.0f} checks/s), "
+        f"peak device memory {peak / 2**20:.1f} MiB, route counts {counts}, launches {launches}, "
+        f"wrong vs analytic {wrong}")
+    if wrong:
+        raise SystemExit(f"deep FAILED: {wrong} decisions differ from the expectation")
+    missing = [k for k in ("label_step", "sweep_step", "covered") if not launches[k]]
+    if missing:
+        raise SystemExit(f"deep FAILED: kernels never launched: {missing}")
+    if counts["label_device_builds"] != 1 or not counts["label_checks"]:
+        raise SystemExit(f"deep FAILED: route counts {counts}")
+    t0 = time.monotonic()
+    got2 = engine.batch_check(queries)
+    steady_s = time.monotonic() - t0
+    if got2 != got:
+        raise SystemExit("deep FAILED: a second run decided differently")
+    oracle = CheckEngine(store)
+    t0 = time.monotonic()
+    step = max(1, N_CHECKS // DEEP_ORACLE_SAMPLE)
+    sample = list(range(0, N_CHECKS, step))[:DEEP_ORACLE_SAMPLE]
+    bad = sum(oracle.subject_is_allowed(queries[i]) != got[i] for i in sample)
+    log(f"deep oracle sample: {len(sample)} checks, {bad} mismatches "
+        f"({time.monotonic() - t0:.1f}s); steady {N_CHECKS / steady_s:.0f} checks/s")
+    if bad:
+        raise SystemExit(f"deep FAILED: {bad} oracle mismatches")
+    report["deep"] = {
+        "config": "BASELINE config 4 (GitHub org/team/repo)", "tuples": n_tuples,
+        "checks": N_CHECKS, "snapshot_s": snap_s, "interior_rows": snap.num_int,
+        "interior_ell_slots": slots, "label_build": build, "check_s": check_s,
+        "checks_per_s": N_CHECKS / check_s, "steady_check_s": steady_s,
+        "steady_checks_per_s": N_CHECKS / steady_s, "peak_device_bytes": peak,
+        "route_counts": counts, "launches": launches, "oracle_sample": len(sample),
+        "oracle_mismatches": bad, "grants": sum(expected),
+    }
+    return engine, snap, captured, launches
+
+
+def label_rows(torch, kernels, snap, engine, captured, launches, rate, int_rate):
+    """Time K3, K6 and K7 at the deep path's shapes beside their plain
+    versions and bounds; compare each against its plain version once more.
+    No single PyTorch call computes any of the three (library_ms null)."""
+    import numpy as np
+
+    from keto_tpu_torch.graph import label_build, label_kernels as lk
+    from keto_tpu_torch.graph.labels import interior_adjacency, landmark_order
+
+    rows = []
+
+    def row(name, replaces, cuda_fn, plain_fn, outs, bound_bytes, bound_ops, reps, extra,
+            make=None):
+        m = sum(diff(a, b)[0] for a, b in zip(*outs))
+        errs = [diff(a, b)[1] for a, b in zip(*outs)]
+        if make is None:
+            ms = time_ms(cuda_fn, reps)
+            plain = time_ms(plain_fn, max(1, reps // 10), warmup=1)
+        else:
+            ms = time_fresh_ms(cuda_fn, make, reps)
+            plain = time_fresh_ms(plain_fn, make, max(1, reps // 10), warmup=1)
+        by_bytes = bound_bytes / rate * 1e3
+        by_ops = bound_ops / int_rate * 1e3
+        r = {"name": name, "route": "cuda", "source": "keto_tpu_torch/csrc/label_kernels.cu",
+             "replaces": replaces, "launches": launches[name], "mismatches": m,
+             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain,
+             "bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops
+             else "operations", "library_ms": None, "bytes_bound_ms": by_bytes,
+             "ops_bound_ms": by_ops, **extra}
+        rows.append(r)
+        log(f"kernel {name}: {ms:.4f} ms (plain {plain:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"by {r['bound_by']}), mismatches {m}, {json.dumps(extra)}")
+
+    # K3: the largest label step of the deep batch
+    out_lab, in_lab, entries, kw = max(captured, key=lambda c: c[3]["n_pairs"])
+    P, B = kw["n_pairs"], kw["B"]
+    e = entries.long()
+    pa, pb = e[:P], e[P : 2 * P]
+    n_out = (out_lab != -1).sum(1)
+    n_in = (in_lab != -2).sum(1)
+    compares = int((n_out[pa] * n_in[pb]).sum())
+    Wo, Wi = out_lab.shape[1], in_lab.shape[1]
+    k3_bytes = 12 * P + 4 * (int(torch.unique(pa).numel()) * Wo + int(torch.unique(pb).numel()) * Wi
+                             + B // 32)
+    row("label_step", K3,
+        lambda: kernels.label_step_cuda(out_lab, in_lab, entries, **kw),
+        lambda: kernels.label_step_ref(out_lab, in_lab, entries, **kw),
+        ([kernels.label_step_cuda(out_lab, in_lab, entries, **kw)],
+         [kernels.label_step_ref(out_lab, in_lab, entries, **kw)]),
+        k3_bytes, compares, 20,
+        {"pairs": P, "live_pairs": int(((pa < snap.num_int) & (pb < snap.num_int)).sum()),
+         "Wo": Wo, "Wi": Wi, "B": B, "valid_compares": compares})
+
+    # K6: the first wave of the first forward sweep batch
+    n = snap.num_int
+    out_ip, out_ix, in_ip, in_ix = interior_adjacency(snap)
+    order = landmark_order(out_ip, in_ip, n)
+    wt = engine._labels_batch // 32
+    g = lk.EllGroups.from_groups(label_build.build_ell_groups(in_ip, in_ix, n), "cuda")
+    V0 = np.zeros((n + 1, wt), np.uint32)
+    for j, u in enumerate(order[: 32 * wt].tolist()):
+        V0[u, j // 32] |= np.uint32(1) << np.uint32(j % 32)
+    V = torch.from_numpy(V0.view(np.int32)).cuda()
+    cov = torch.zeros_like(V)
+    # one wave on, so the timed wave has a real frontier; the wave updates
+    # V and S in place, so every timed call gets fresh copies (X is only read)
+    V, X, S, _ = lk.sweep_step_cuda(g, V, V.clone(), torch.zeros_like(V), cov)
+    args = lambda: (V.clone(), X, S.clone(), cov)  # noqa: E731
+    srcs = int((torch.unique(g.slots) < n).sum())
+    k6_bytes = 4 * (g.slots.numel() + g.n_rows + wt * (srcs + 5 * g.n_rows + n + 1))
+    got = lk.sweep_step_cuda(g, *args())
+    visits = int(got[3][1])
+    if not visits:
+        raise SystemExit("deep FAILED: the timed sweep wave visits no node")
+    row("sweep_step", K6,
+        lambda *a: lk.sweep_step_cuda(g, *a),
+        lambda *a: lk.sweep_step_ref(g, *a),
+        (got, lk.sweep_step_ref(g, *args())),
+        k6_bytes, 0, 20,
+        {"rows": g.n_rows, "slots": int(g.slots.numel()), "groups": len(g.rows),
+         "caps": list(g.caps), "wt": wt, "distinct_source_rows": srcs,
+         "frontier_words": int((X != 0).sum()), "visits": visits}, make=args)
+
+    # K7: the covered mask of a mid-build batch, against the final labels
+    idx = snap.labels
+    mw = engine._labels_max_width
+    lab = np.full((n + 1, mw), -2, np.int32)
+    lab[:, : min(mw, idx.in_lab.shape[1])] = idx.in_lab[:, :mw]
+    mid = order[(n // 2) : (n // 2) + 32 * wt]
+    vals: dict = {}
+    for j, v in enumerate(mid.tolist()):
+        for x in idx.out_lab[v][idx.out_lab[v] != -1].tolist():
+            vals[x] = vals.get(x, 0) | (1 << j)
+    U = np.array(sorted(vals), np.int32)
+    masks = np.array([[(vals[x] >> (32 * w)) & 0xFFFFFFFF for w in range(wt)] for x in U.tolist()],
+                     np.uint32).reshape(-1, wt).view(np.int32)
+    lab_t, U_t, m_t = (torch.from_numpy(a).cuda() for a in (lab, U, masks))
+    k7_bytes = 4 * (lab.size + U.size + masks.size + (n + 1) * wt)
+    row("covered", K7,
+        lambda: lk.covered_cuda(lab_t, U_t, m_t),
+        lambda: lk.covered_ref(lab_t, U_t, m_t),
+        ([lk.covered_cuda(lab_t, U_t, m_t)], [lk.covered_ref(lab_t, U_t, m_t)]),
+        k7_bytes, 0, 20,
+        {"rows": n + 1, "width": mw, "u": int(U.size), "wt": wt})
+    total = sum(r["mismatches"] for r in rows)
+    if total:
+        raise SystemExit(f"label kernel parity at deep shapes FAILED: {total} mismatching words")
+    return rows
+
+
 # -- phase 4: serve ---------------------------------------------------------------
 
 
 #: a cycle through the directory's owners: its rows cannot be peeled, so the
-#: served snapshot gets active rows and the fixpoint kernels run
+#: served snapshot gets active rows; the self-query through the cycle falls
+#: back from the label route, so the fixpoint kernels run too
 SERVE_CYCLE = "videos:/cats#owner@(videos:/cats/1.mp4#owner)"
 SERVE_CYCLE_CHECKS = [
     ("videos:/cats/2.mp4#view@cat lady", True),
     ("videos:/cats#view@cat lady", True),
     ("videos:/cats/1.mp4#view@dog", False),
+    ("videos:/cats#owner@(videos:/cats#owner)", True),
 ]
 
 
-def served_launches(kernels, engine, what: str) -> dict:
-    """The launch counts of the serve requests since the last reset; fails
-    unless the path ran every kernel that the served snapshot needs."""
+def served_launches(kernels, engine, what: str, before: dict) -> dict:
+    """The launch counts of the serve requests since the last reset, after
+    the label build has settled; fails unless the label step launched
+    where the label route answered and the BFS kernels where it fell back
+    (the fixpoint's only where the snapshot has active rows)."""
+    engine.labels_settled()
     counts = dict(kernels.COUNTS)
+    routes = route_counts(engine)
+    answered = routes["label_checks"] - before["label_checks"]
+    fell_back = routes["label_fallbacks"] - before["label_fallbacks"]
     n_active = engine.snapshot().num_active
-    need = ["seed", "answer_pack"] + (["pull", "commit", "close"] if n_active else [])
-    log(f"serve launches ({what}, {n_active} active rows): {counts}")
+    need = ["label_step"] if answered else []
+    if fell_back:
+        need += ["seed", "answer_pack"] + (["pull", "commit", "close"] if n_active else [])
+    log(f"serve launches ({what}, {n_active} active rows, {answered} label-route checks, "
+        f"{fell_back} fallbacks): {counts}")
     missing = [k for k in need if not counts[k]]
-    if missing:
-        raise SystemExit(f"serve FAILED: {what} never launched {missing}")
+    if missing or not any(counts.values()):
+        raise SystemExit(f"serve FAILED: {what} never launched {missing or 'any kernel'}")
     return counts
 
 
@@ -413,7 +825,9 @@ def phase_serve(kernels, report):
     d = Daemon(CAT_VIDEOS_NAMESPACES, device="cuda", tuples=parse_tuples(CAT_VIDEOS_TUPLES))
     d.start()
     try:
+        d.engine.labels_settled()
         kernels.reset_counts()
+        before = route_counts(d.engine)
         codes = []
         for check, allowed in CAT_VIDEOS_CHECKS:
             q = RelationTuple.from_string(check).to_url_query()
@@ -431,17 +845,19 @@ def phase_serve(kernels, report):
             raise SystemExit("serve FAILED: a written tuple is not visible to /check")
         if batch != (200, {"results": [True, True, True, True]}):
             raise SystemExit(f"serve FAILED: /check/batch answered {batch}")
-        report["serve_launches"] = served_launches(kernels, d.engine, "cat-videos")
+        report["serve_launches"] = served_launches(kernels, d.engine, "cat-videos", before)
 
         put = req("PUT", d.write.port, "/relation-tuples",
                   RelationTuple.from_string(SERVE_CYCLE).to_json())
+        d.engine.labels_settled()
         kernels.reset_counts()
+        before = route_counts(d.engine)
         cyc = req("POST", d.read.port, "/check/batch",
                   {"tuples": [RelationTuple.from_string(c).to_json() for c, _ in SERVE_CYCLE_CHECKS]})
         log(f"serve: PUT {put[0]} of a cycle, batch {cyc}")
         if put[0] != 201 or cyc != (200, {"results": [a for _, a in SERVE_CYCLE_CHECKS]}):
             raise SystemExit(f"serve FAILED: checks over the cycle answered {cyc}")
-        cycled = served_launches(kernels, d.engine, "cycle")
+        cycled = served_launches(kernels, d.engine, "cycle", before)
         if not cycled["pull"]:
             raise SystemExit("serve FAILED: the cycle left the served snapshot without active rows")
         report["serve_cycle_launches"] = cycled
@@ -452,7 +868,8 @@ def phase_serve(kernels, report):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
-                    help=f"comma-separated phases to run (default: all of {','.join(PHASES)})")
+                    help=f"comma-separated phases to run (default: all of {','.join(PHASES)}); "
+                         "labels needs main")
     args = ap.parse_args(argv)
     phases = set(args.only.split(","))
 
@@ -466,24 +883,39 @@ def main(argv=None) -> int:
 
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    rate = hbm_rate(name)
+    rate, int_rate = card_rates(name)
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
-        f"memory rate used for bounds {rate / 1e12:.2f} TB/s")
+        f"memory rate used for bounds {rate / 1e12:.2f} TB/s, int32 compares "
+        f"{int_rate / 1e12:.2f} Top/s")
     t0 = time.monotonic()
     _build.build(verbose=True)
     _build.lib()
-    log(f"build: {_build.library_path().name} in {time.monotonic() - t0:.2f}s "
-        f"(nvcc {_build.build_seconds:.2f}s)")
+    log(f"build: {_build.library_path().name} from {[p.name for p in _build.sources()]} in "
+        f"{time.monotonic() - t0:.2f}s (nvcc {_build.build_seconds:.2f}s)")
+    if _build.build_seconds:
+        log(f"build: one nvcc over every source instead: {serial_build_seconds(_build):.2f}s")
 
     report: dict = {}
+    t_start = time.monotonic()
     if "parity" in phases:
         phase_parity(torch, kernels, report)
     rows = []
     if "main" in phases:
-        engine, snap, queries = phase_main(torch, kernels, report)
+        engine, snap, queries, main_ctx = phase_main(torch, kernels, report)
         rows, step = kernel_rows(torch, kernels, engine, snap, queries, rate, report["launches"])
         report["check_step"] = step
         log(json.dumps({"main": report["main"]}))
+        if "labels" in phases:
+            phase_labels(torch, kernels, report, main_ctx, queries)
+            log(json.dumps({"labels": report["labels"]}))
+        del engine, snap, queries, main_ctx
+    log(f"elapsed {time.monotonic() - t_start:.1f}s")
+    if "deep" in phases:
+        engine, snap, captured, launches = phase_deep(torch, kernels, report)
+        rows += label_rows(torch, kernels, snap, engine, captured, launches, rate, int_rate)
+        log(json.dumps({"deep": report["deep"]}))
+        del engine, snap, captured
+        log(f"elapsed {time.monotonic() - t_start:.1f}s")
     if "serve" in phases:
         phase_serve(kernels, report)
     log(json.dumps({"kernels": rows}))

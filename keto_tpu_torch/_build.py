@@ -1,12 +1,16 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
-compiles ``csrc/check_kernels.cu`` into ``build/kernels/`` at the root of
-the checkout (a directory ``.gitignore`` lists) the first time a kernel is
-launched; the library has a plain C interface and is loaded with
-``ctypes``. Nothing is built when the package is imported, and nothing but
-the repository's own sources is read. A built library is reused while its
-source is unchanged (the file name carries the source's hash).
+Every ``csrc/*.cu`` is compiled with ``nvcc -gencode
+arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC -c`` (one nvcc process
+per source, all started together), and the objects are linked into one
+shared library in ``build/kernels/`` at the root of the checkout (a
+directory ``.gitignore`` lists) the first time a kernel is launched. The
+library has a plain C interface and is loaded with ``ctypes``. Nothing is
+built when the package is imported, and nothing but the repository's own
+sources is read. A built library is reused while no source changed: its
+file name carries one hash over every source's name and bytes and the
+compiler flags. Every run on a fresh checkout builds cold;
+``chip_smoke.py`` times that build beside one nvcc over every source.
 """
 
 from __future__ import annotations
@@ -22,9 +26,10 @@ from pathlib import Path
 from typing import Optional
 
 _PKG = Path(__file__).resolve().parent
-SOURCE = _PKG / "csrc" / "check_kernels.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -34,13 +39,16 @@ build_seconds = 0.0
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
-#: C signature of every entry point in csrc/check_kernels.cu
+#: C signature of every entry point in csrc/*.cu
 _SIGNATURES = {
     "keto_seed": [_P, _I64, _I64, _I32, _I32, _P, _P, _P],
     "keto_pull": [_P, _I64, _I32, _P, _I64, _I64, _P, _P, _I32, _P, _P],
     "keto_commit": [_P, _P, _I64, _P, _P],
     "keto_close": [_P, _P],
     "keto_answer_pack": [_P, _I64, _I64, _I64, _I64, _I32, _P, _P, _P, _I32, _P, _P, _P],
+    "keto_label_step": [_P, _I32, _P, _I32, _I64, _P, _I64, _P, _P],
+    "keto_sweep_step": [_P, _P, _P, _I32, _I64, _P, _P, _P, _P, _P, _I32, _I32, _P, _P],
+    "keto_covered": [_P, _I64, _I32, _P, _I64, _P, _I32, _P, _P],
 }
 
 
@@ -55,34 +63,53 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built on this machine")
 
 
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libketo_check_{digest}.so"
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
+    return BUILD_DIR / f"libketo_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile the kernels unless a library built from the current source
+    """Compile the kernels unless a library built from the current sources
     exists. Returns its path; raises with nvcc's output on failure."""
     global build_seconds
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-Xptxas", "-v", "-o", str(tmp), str(SOURCE),
-    ]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
     t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+    jobs = []
+    for src in sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((src, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for src, obj, proc in jobs:
+        stdout, stderr = proc.communicate()
+        logs.append(f"{src.name}:\n{stdout}{stderr}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                           *(str(obj) for _, obj, _ in jobs)], capture_output=True, text=True)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
     os.replace(tmp, out)
     build_seconds = time.monotonic() - t0
     if verbose:
-        print(proc.stderr.strip())
+        print("\n".join(logs).strip())
     return out
 
 

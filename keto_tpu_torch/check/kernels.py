@@ -1,5 +1,6 @@
-"""The check path's device programs: the BFS pull (K1) and the fixpoint
-step (K2), each as a plain PyTorch version and a hand-written CUDA kernel.
+"""The check path's device programs: the BFS pull (K1), the fixpoint step
+(K2) and the label intersection (K3), each as a plain PyTorch version and a
+hand-written CUDA kernel.
 
 Source notes:
 
@@ -15,6 +16,12 @@ Source notes:
   ``block_iters`` with one host read of ``(changed, iters)`` per block, and
   the answer gather + bit pack (``keto_answer_pack``). Bound: bytes — the
   seed and answer gathers touch a word per entry; each step moves R and P.
+- ``label_step`` replaces ``label_step`` (tpu_engine.py:310): per pair
+  (a, b), ``any(out_lab[a][i] == in_lab[b][j])``, maxed into the owning
+  query and packed to ``uint32[W]``. CUDA: ``keto_label_step`` in
+  csrc/label_kernels.cu, one warp per pair. Bound: operations at large
+  label widths (Wo·Wi int32 compares per pair), else the bytes of the
+  pairs' label rows.
 
 The output is the reference's ``uint32[W+2]`` (held as int32): decision
 bits, then the iteration count, then the truncation flag, equal word for
@@ -32,12 +39,20 @@ from typing import Optional, Sequence
 
 import torch
 
-#: per-CUDA-kernel launch counters (chip_smoke.py reads them)
-COUNTS = {"seed": 0, "pull": 0, "commit": 0, "close": 0, "answer_pack": 0}
+#: per-CUDA-kernel launch counters (chip_smoke.py reads them); the label
+#: build's kernels (keto_tpu_torch/graph/label_kernels.py) count here too
+COUNTS = {
+    "seed": 0, "pull": 0, "commit": 0, "close": 0, "answer_pack": 0,
+    "label_step": 0, "sweep_step": 0, "covered": 0,
+}
+#: the kernels of the BFS route and of the label route's intersection
+BFS_KERNELS = ("seed", "pull", "commit", "close", "answer_pack")
 
 # cap on the [rows, chunk, W] gather intermediate of the plain pull
 _DEGREE_CHUNK = 1024
 _GATHER_ELEMS = 1 << 26
+# cap on the [pairs, Wo, Wi] compare intermediate of the plain label step
+_LABEL_PAIR_CHUNK = 2048
 
 
 def reset_counts() -> None:
@@ -184,6 +199,30 @@ def check_step_ref(
                 iters += 1
     P = torch.cat([p, torch.zeros((1, W), dtype=torch.int32, device=p.device)])
     return answer_pack_ref(entries, sizes, n_active, P, ans_base, R, iters, changed)
+
+
+def _label_parts(entries: torch.Tensor, n_pairs: int):
+    P = n_pairs
+    if entries.numel() != 3 * P:
+        raise ValueError(f"entries of {entries.numel()} words do not hold {P} pairs")
+    return entries[:P], entries[P : 2 * P], entries[2 * P :]
+
+
+def label_step_ref(out_lab, in_lab, entries, *, n_pairs: int, B: int) -> torch.Tensor:
+    """The reference label step in plain PyTorch → int32[B/32]: per pair
+    (a, b), does OUT(a) share an entry with IN(b)? The distinct pads
+    (-1 OUT, -2 IN) never compare equal. Pair hits max into their query
+    (never add) and pack to one bit per query."""
+    pa, pb, pq = (p.long() for p in _label_parts(entries, n_pairs))
+    hits = []
+    for c0 in range(0, n_pairs, _LABEL_PAIR_CHUNK):
+        oa = out_lab[pa[c0 : c0 + _LABEL_PAIR_CHUNK]]  # [chunk, Wo]
+        ib = in_lab[pb[c0 : c0 + _LABEL_PAIR_CHUNK]]  # [chunk, Wi]
+        hits.append((oa[:, :, None] == ib[:, None, :]).flatten(1).any(1))
+    hit = torch.cat(hits) if hits else torch.zeros(0, dtype=torch.bool, device=entries.device)
+    ans = torch.zeros(B, dtype=torch.int32, device=entries.device)
+    ans = ans.scatter_reduce(0, pq, hit.to(torch.int32), reduce="amax")
+    return _pack_bits(ans)
 
 
 # -- CUDA wrappers ------------------------------------------------------------
@@ -363,6 +402,26 @@ def check_step_cuda(
     return answer_pack_cuda(entries, sizes, n_active, P, ans_base, R, state)
 
 
+def label_step_cuda(out_lab, in_lab, entries, *, n_pairs: int, B: int) -> torch.Tensor:
+    """int32[B/32] via ``keto_label_step`` (device tensor, not synchronised)."""
+    _need(out_lab, "out_lab", 2)
+    _need(in_lab, "in_lab", 2)
+    _need(entries, "entries", 1)
+    _label_parts(entries, n_pairs)
+    if out_lab.shape[0] != in_lab.shape[0] or B % 32:
+        raise ValueError(
+            f"label arrays of {out_lab.shape[0]} and {in_lab.shape[0]} rows, B={B}: "
+            "expected equal row counts and B a multiple of 32"
+        )
+    out = torch.zeros(B // 32, dtype=torch.int32, device=entries.device)
+    if n_pairs:
+        COUNTS["label_step"] += 1
+        _check(_lib().keto_label_step(out_lab.data_ptr(), out_lab.shape[1], in_lab.data_ptr(),
+                                      in_lab.shape[1], out_lab.shape[0], entries.data_ptr(),
+                                      n_pairs, out.data_ptr(), _stream()), "keto_label_step")
+    return out
+
+
 # -- dispatchers ----------------------------------------------------------------
 
 
@@ -386,3 +445,10 @@ def check_step(bucket_nbrs, entries: torch.Tensor, ov_nbrs=None, ov_dst=None, **
     if _on_cpu(entries):
         return check_step_ref(bucket_nbrs, entries, ov_nbrs, ov_dst, **kw)
     return check_step_cuda(bucket_nbrs, entries, ov_nbrs, ov_dst, **kw)
+
+
+def label_step(out_lab, in_lab, entries: torch.Tensor, *, n_pairs: int, B: int) -> torch.Tensor:
+    """K3: the plain version for CPU tensors, the kernel for CUDA tensors."""
+    if _on_cpu(entries):
+        return label_step_ref(out_lab, in_lab, entries, n_pairs=n_pairs, B=B)
+    return label_step_cuda(out_lab, in_lab, entries, n_pairs=n_pairs, B=B)

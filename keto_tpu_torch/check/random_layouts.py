@@ -1,13 +1,18 @@
-"""Random check-kernel inputs with the engine's geometry, made from a numpy
+"""Random kernel inputs with the engine's geometry, made from a numpy
 generator, for holding a kernel against its plain version or against the
-JAX reference (tests/test_torch_check_kernel.py, chip_smoke.py).
+JAX reference (tests/test_torch_check_kernel.py,
+tests/test_torch_label_kernels.py, chip_smoke.py).
 
 The layouts keep every invariant the engine's own inputs have: buckets
 tile the active prefix and pad rows and slots with the sentinel ``n_int``
 (the all-zero bitmap row); seed pairs are distinct — the reference
 scatter-adds, which is OR only on disjoint bits — and padded with the
 dropped row ``n_int+1``; every word's bit-31 query is seeded; the overlay
-pads ``ov_dst`` with ``n_active``.
+pads ``ov_dst`` with ``n_active``. The label layouts keep the label
+index's: OUT rows pad with -1 and IN rows with -2 after their entries,
+row ``n`` is all padding, and pad pairs name row ``n`` for query 0; the
+sweep groups write distinct ``dst`` rows and gather sentinel ``n`` (an
+all-zero frontier row).
 """
 
 from __future__ import annotations
@@ -84,3 +89,77 @@ def random_case(rng, W, caps=(), rows=(), n_int=64, chain=False, overlay=False,
     kw = dict(sizes=(S1, S2, SA, B), n_active=n_active, n_int=n_int,
               valid_rows=tuple(int(r) for r in rows), it_cap=it_cap, block_iters=block_iters)
     return buckets, entries, ov, kw
+
+
+def _bits(rng, shape) -> np.ndarray:
+    """Random uint32 words, as int32, with bit 31 set in a third of them."""
+    w = rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32)
+    w[rng.random(shape) < 0.33] |= np.uint32(1 << 31)
+    return w.view(np.int32)
+
+
+def random_label_rows(rng, n: int, width: int, pad: int, hi: int) -> np.ndarray:
+    """int32[n+1, width]: per row a sorted set of distinct values in
+    [0, hi) (some rows empty, some full), then ``pad``; row n all pad."""
+    lab = np.full((n + 1, width), pad, np.int32)
+    for r in range(n):
+        k = int(rng.choice([0, 1, rng.integers(0, width + 1), width]))
+        k = min(k, hi)
+        if k:
+            lab[r, :k] = np.sort(rng.choice(hi, size=k, replace=False))
+    return lab
+
+
+def random_label_case(rng, n: int, Wo: int, Wi: int, W: int, pairs: int):
+    """``(out_lab, in_lab, entries, n_pairs, B)`` for ``label_step``:
+    ``pairs`` live pairs (several per query, every word's bit-31 query
+    among them) padded to ``n_pairs`` with pad pairs, values drawn from a
+    small range so hits and misses both occur."""
+    from keto_tpu_torch.check.pack import _entry_pad
+
+    B = 32 * W
+    hi = 2 * max(Wo, Wi)
+    out_lab = random_label_rows(rng, n, Wo, -1, hi)
+    in_lab = random_label_rows(rng, n, Wi, -2, hi)
+    pa = rng.integers(0, n + 1, size=pairs)
+    pb = rng.integers(0, n + 1, size=pairs)
+    pq = rng.integers(0, B, size=pairs)
+    k = min(W, pairs)
+    pq[:k] = np.arange(k) * 32 + 31
+    P = _entry_pad(B, pairs)
+    pad = P - pairs
+    entries = np.concatenate([pa, np.full(pad, n), pb, np.full(pad, n), pq, np.zeros(pad)])
+    return out_lab, in_lab, entries.astype(np.int32), P, B
+
+
+def random_sweep_case(rng, n: int, caps, rows, wt: int):
+    """``(groups, V, X, S, cov)`` for ``sweep_step``: ELL groups of
+    ``rows[g]`` rows with degree cap ``caps[g]`` over distinct ``dst`` rows
+    (the rest of [0, n) is in no group), and random int32[n+1, wt] bitmaps
+    with the sentinel row n of X zero."""
+    if sum(rows) > n:
+        raise ValueError("dst rows are distinct interior rows")
+    dst_all = rng.permutation(n)[: sum(rows)].astype(np.int32)
+    groups, at = [], 0
+    for cap, r in zip(caps, rows):
+        nbrs = np.full((r, cap), n, np.int32)
+        for i in range(r):
+            fill = int(rng.integers(1, cap + 1))
+            nbrs[i, :fill] = rng.integers(0, n + 1, size=fill)
+        groups.append((nbrs, dst_all[at : at + r]))
+        at += r
+    V, X, S, cov = (_bits(rng, (n + 1, wt)) for _ in range(4))
+    X[rng.random((n + 1, wt)) < 0.5] = 0
+    V[rng.random((n + 1, wt)) < 0.3] = 0
+    X[n] = 0
+    return groups, V, X, S, cov
+
+
+def random_covered_case(rng, rows: int, width: int, u: int, wt: int, pad: int = -1):
+    """``(lab, U, masks)`` for ``covered``: label rows over values in
+    [0, 2u+8) (so entries are found and missed), a sorted table ``U`` of
+    ``u`` distinct values (empty when u = 0) and random lane masks."""
+    hi = 2 * u + 8
+    lab = random_label_rows(rng, rows - 1, width, pad, hi)
+    U = np.sort(rng.choice(hi, size=u, replace=False)).astype(np.int32)
+    return lab, U, _bits(rng, (u, wt))

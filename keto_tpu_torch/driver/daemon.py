@@ -1,6 +1,11 @@
 """The serving process: one store, one engine on the card, one check
 batcher and the read and write REST ports (reference
-internal/driver/daemon.go, cut to the Check slice)."""
+internal/driver/daemon.go, cut to the Check slice). The engine serves with
+2-hop labels on, as the reference's daemon does; ``engine_options`` passes
+the label knobs (``labels_enabled``, ``labels_max_width``,
+``labels_landmarks``, ``labels_device_build``, ``labels_min_gain``,
+``labels_batch``, ``labels_device_min_edges``) through to
+``TorchCheckEngine``."""
 
 from __future__ import annotations
 
@@ -26,13 +31,14 @@ class Daemon:
         read_port: int = 0,
         write_port: int = 0,
         tuples: Iterable[RelationTuple] = (),
+        engine_options: Optional[dict] = None,
     ):
         nm = namespace_pkg.MemoryManager(namespaces)
         self.store = MemoryPersister(nm)
         tuples = list(tuples)
         if tuples:
             self.store.write_relation_tuples(*tuples)
-        self.engine = TorchCheckEngine(self.store, nm, device=device)
+        self.engine = TorchCheckEngine(self.store, nm, device=device, **(engine_options or {}))
         self.batcher = CheckBatcher(self.engine)
         self.read = RestServer(READ, self.store, self.batcher, host, read_port)
         self.write = RestServer(WRITE, self.store, self.batcher, host, write_port)

@@ -1,0 +1,363 @@
+"""Device-side 2-hop label construction: landmark BFS as batched frontier
+sweeps on one GPU.
+
+A port of the single-device build of keto_tpu/graph/label_build.py.
+``build_labels`` (keto_tpu_torch/graph/labels.py) runs one Python BFS per
+landmark; this module runs a batch of ``batch`` landmark BFSs at once as a
+bit-packed ``int32[n+1, batch/32]`` frontier, one wave per launch of
+``sweep_step`` (K6, keto_tpu_torch/graph/label_kernels.py): forward sweeps
+pull along the interior in-neighbour rows, backward sweeps along the
+transposed rows, and PLL **expansion pruning is a per-wave ANDNOT** against
+the batch's ``covered`` rows — the pairs the labels built so far already
+certify, computed once per batch and orientation by ``covered`` (K7).
+
+Entry-set identity with ``build_labels`` is the contract. Intra-batch
+interference — an earlier-ranked member whose fresh labels would have
+pruned a later member's sequential BFS — is read from the sweep output
+(lane i stored at lane j's landmark row) and resolved by **prefix
+acceptance**: the longest interference-free rank prefix commits and the
+rest re-runs in the next batch. Width caps, ok flags and per-row entry
+order replay on the host in rank order (``_Mirror``), exactly as the
+sequential build applies them. Landmarks stream in rank batches with no
+landmark cap; ``min_gain`` stops the stream when the marginal entries per
+landmark fall below it.
+
+Not here: the sharded sweeper (``_ShardedSweeper``) and the incremental
+patch (``device_patch_labels``); the port rebuilds labels with every
+snapshot and runs on one card.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from keto_tpu_torch.graph import label_kernels
+from keto_tpu_torch.graph.labels import IN_PAD, OUT_PAD, LabelIndex, interior_adjacency, landmark_order
+
+#: default landmark lanes per sweep batch (one int32 word pair of frontier
+#: state per node); must be a multiple of 32
+DEFAULT_BATCH = 64
+
+#: device builds below this interior-edge count lose to launch + transfer
+#: overhead; callers compare against the snapshot's ELL edge slots
+DEFAULT_MIN_EDGES = 65536
+
+
+def _ceil_pow2(x: int) -> int:
+    return 1 if x <= 1 else 1 << (int(x) - 1).bit_length()
+
+
+# -- interior ELL groups ------------------------------------------------------
+
+
+def build_ell_groups(indptr: np.ndarray, indices: np.ndarray, n: int):
+    """Degree-bucketed dense gather groups for one pull orientation:
+    ``[(nbrs int32[rows, cap], dst int32[rows]), ...]`` with pow2 caps and
+    gather sentinel ``n`` (the always-zero bitmap row). Derived from the
+    same CSRs as ``interior_adjacency`` so the sweeps and the host build
+    walk the identical edge universe."""
+    deg = np.diff(indptr)
+    groups = []
+    if n == 0:
+        return groups
+    nz = np.nonzero(deg > 0)[0]
+    if not nz.size:
+        return groups
+    bucket_of = np.ceil(np.log2(np.maximum(deg[nz], 1))).astype(np.int64)
+    for b in np.unique(bucket_of):
+        rows = nz[bucket_of == b]
+        cap = 1 << int(b)
+        nbrs = np.full((rows.size, cap), np.int32(n), np.int32)
+        lens = deg[rows]
+        offs = np.arange(int(lens.sum())) - np.repeat(np.cumsum(lens) - lens, lens)
+        nbrs[np.repeat(np.arange(rows.size), lens), offs] = indices[
+            np.repeat(indptr[rows], lens) + offs
+        ]
+        groups.append((np.ascontiguousarray(nbrs), rows.astype(np.int32)))
+    return groups
+
+
+def estimate_build_bytes(n: int, max_width: int, batch: int = DEFAULT_BATCH) -> int:
+    """Transient device bytes one sweep batch holds live: frontier /
+    visited / stored / covered bitmaps for both orientations plus the
+    full-width resident label arrays the covered kernel reads."""
+    wt = max(1, batch // 32)
+    bitmaps = 6 * (n + 1) * wt * 4
+    labels = 2 * (n + 1) * max(1, max_width) * 4
+    return bitmaps + labels
+
+
+def _compute_covered(lab_d: torch.Tensor, own_rows_host: np.ndarray, lanes: int, wt: int, pad):
+    """Covered bitmap ``int32[n+1, wt]`` for one orientation: union the
+    batch's own pre-batch label entries (host mirror rows) into a sorted
+    value table with one lane mask per value, then ``covered`` (K7)."""
+    vals: dict[int, int] = {}
+    for j in range(lanes):
+        row = own_rows_host[j]
+        for v in row[row != pad].tolist():
+            vals[v] = vals.get(v, 0) | (1 << j)
+    n1 = int(lab_d.shape[0])
+    if not vals:
+        return torch.zeros((n1, wt), dtype=torch.int32, device=lab_d.device)
+    U = np.array(sorted(vals), np.int32)
+    masks = np.zeros((U.size, wt), np.uint32)
+    for i, v in enumerate(U.tolist()):
+        m = vals[v]
+        for w in range(wt):
+            masks[i, w] = (m >> (32 * w)) & 0xFFFFFFFF
+    dev = lab_d.device
+    return label_kernels.covered(
+        lab_d, torch.from_numpy(U).to(dev), torch.from_numpy(masks.view(np.int32)).to(dev)
+    )
+
+
+class _Sweeper:
+    """Runs batched frontier sweeps on one device."""
+
+    backend = "device"
+
+    def __init__(self, fwd_groups, bwd_groups, n: int, device):
+        self.n = n
+        self.device = torch.device(device)
+        self._fwd = label_kernels.EllGroups.from_groups(fwd_groups, self.device)
+        self._bwd = label_kernels.EllGroups.from_groups(bwd_groups, self.device)
+
+    def sweep(self, forward: bool, seeds: np.ndarray, cov: torch.Tensor, wt: int) -> np.ndarray:
+        """Run one orientation's waves to the fixpoint; returns the stored
+        bitmap ``uint32[n+1, wt]`` on the host. Lane j starts at
+        ``seeds[j]`` (-1 for a dead lane). One host read of the wave's
+        ``active`` flag per wave, as the reference's ``bool(active)``."""
+        n = self.n
+        V0 = np.zeros((n + 1, wt), np.uint32)
+        for j, u in enumerate(np.asarray(seeds, np.int64).tolist()):
+            if 0 <= u < n:
+                V0[u, j // 32] |= np.uint32(1) << np.uint32(j % 32)
+        V = torch.from_numpy(V0.view(np.int32)).to(self.device)
+        X = V.clone()  # the wave updates V in place; X must not alias it
+        S = torch.zeros_like(V)
+        groups = self._fwd if forward else self._bwd
+        while groups.rows:
+            V, X, S, state = label_kernels.sweep_step(groups, V, X, S, cov)
+            if not int(state[0]):
+                break
+        return S.cpu().numpy().view(np.uint32)
+
+
+# -- host-side finalize state -------------------------------------------------
+
+
+class _Mirror:
+    """Host mirror of the evolving label arrays plus their device twins:
+    stores apply here in exact sequential (rank) order — width caps, ok
+    flags, per-row entry order — and the deltas scatter onto the device
+    arrays the next batch's covered kernel reads. The device rows are in
+    append order, not sorted; ``finalize`` sorts."""
+
+    def __init__(self, n: int, max_width: int, device):
+        self.n = n
+        self.max_width = max_width
+        W = max(1, max_width)
+        self.out_h = np.full((n + 1, W), OUT_PAD, np.int32)
+        self.in_h = np.full((n + 1, W), IN_PAD, np.int32)
+        self.out_w = np.zeros(n, np.int32)
+        self.in_w = np.zeros(n, np.int32)
+        self.out_ok = np.ones(n, bool)
+        self.in_ok = np.ones(n, bool)
+        self.out_d = torch.from_numpy(self.out_h.copy()).to(device)
+        self.in_d = torch.from_numpy(self.in_h.copy()).to(device)
+        self._pending: dict[str, list] = {"out": [], "in": []}
+
+    def store(self, side: str, nodes: np.ndarray, v: int) -> int:
+        """Append landmark ``v`` at ``nodes`` on one side, width-capped; a
+        full row trips its ok flag instead of lying (the sequential
+        semantics). Returns the number actually stored."""
+        nodes = np.asarray(nodes, np.int64)
+        if not nodes.size:
+            return 0
+        h, w, ok, pend = (
+            (self.out_h, self.out_w, self.out_ok, self._pending["out"])
+            if side == "out"
+            else (self.in_h, self.in_w, self.in_ok, self._pending["in"])
+        )
+        fits = w[nodes] < self.max_width
+        good = nodes[fits]
+        ok[nodes[~fits]] = False
+        if good.size:
+            cols = w[good].astype(np.int64)
+            h[good, cols] = np.int32(v)
+            w[good] += 1
+            pend.append((good, cols, np.full(good.size, v, np.int32)))
+        return int(good.size)
+
+    def flush_device(self) -> None:
+        """Scatter pending host stores onto the device label arrays (an
+        ``index_put_``; the reference's is an XLA scatter, no kernel)."""
+        for side in ("out", "in"):
+            pend = self._pending[side]
+            if not pend:
+                continue
+            dst = self.out_d if side == "out" else self.in_d
+            dev = dst.device
+            rows = torch.from_numpy(np.concatenate([p[0] for p in pend])).to(dev)
+            cols = torch.from_numpy(np.concatenate([p[1] for p in pend])).to(dev)
+            vals = torch.from_numpy(np.concatenate([p[2] for p in pend])).to(dev)
+            dst.index_put_((rows, cols), vals)
+            self._pending[side] = []
+
+    def finalize(self, processed: np.ndarray, n_landmarks: int, backend: str) -> LabelIndex:
+        """Pack the mirrors into the padded, sorted device layout —
+        byte-identical to ``labels._finalize`` over the same sets."""
+
+        def pack(h, w, pad):
+            wmax = int(w.max()) if self.n else 0
+            Wp = _ceil_pow2(max(1, wmax))
+            out = np.full((self.n + 1, Wp), pad, np.int32)
+            if self.n:
+                span = min(Wp, h.shape[1])
+                tmp = h[: self.n, :span].copy()
+                big = np.int32(2**31 - 1)
+                tmp[tmp == pad] = big
+                tmp.sort(axis=1)
+                tmp[tmp == big] = pad
+                out[: self.n, :span] = tmp
+            return out
+
+        return LabelIndex(
+            n=self.n,
+            out_lab=pack(self.out_h, self.out_w, OUT_PAD),
+            in_lab=pack(self.in_h, self.in_w, IN_PAD),
+            processed=processed,
+            out_ok=self.out_ok,
+            in_ok=self.in_ok,
+            max_width=self.max_width,
+            n_landmarks=n_landmarks,
+            n_entries=int(self.out_w.sum() + self.in_w.sum()),
+            backend=backend,
+        )
+
+
+def _lane_nodes(S: Optional[np.ndarray], nz: Optional[np.ndarray], j: int):
+    """Node ids where lane ``j``'s bit is set in the stored bitmap."""
+    if S is None or nz is None or not nz.size:
+        return np.zeros(0, np.int64)
+    hit = (S[nz, j // 32] >> np.uint32(j % 32)) & np.uint32(1)
+    return nz[hit.astype(bool)]
+
+
+def _lane_int(S_rows: np.ndarray, j: int, wt: int) -> int:
+    """Lane bitmask at one landmark row as a Python int."""
+    v = 0
+    for w in range(wt):
+        v |= int(S_rows[j, w]) << (32 * w)
+    return v
+
+
+@dataclass
+class BuildInfo:
+    """What the batched build did."""
+
+    batches: int = 0
+    dispatches: int = 0
+    landmarks: int = 0
+    #: "" | "min_gain" | "cap" — why the landmark stream stopped early
+    truncated: str = ""
+    sweep_entries: int = 0
+    restarts: int = 0  # lanes re-run due to intra-batch interference
+    build_ms: float = 0.0
+    gain_history: list = field(default_factory=list)
+
+
+# -- the batched build --------------------------------------------------------
+
+
+def device_build_labels(
+    snap,
+    max_width: int = 64,
+    landmarks: int = 0,
+    *,
+    min_gain: float = 0.0,
+    batch: int = DEFAULT_BATCH,
+    device: Union[str, torch.device] = "cuda",
+) -> tuple[LabelIndex, BuildInfo]:
+    """Construct the 2-hop index for ``snap`` with batched sweeps on
+    ``device``; entry-set identical to ``build_labels(snap, max_width,
+    landmarks=K)`` where K is the number of landmarks actually processed
+    (``landmarks == 0`` streams ALL interior nodes, subject only to the
+    ``min_gain`` early exit)."""
+    t0 = time.monotonic()
+    n = snap.num_int
+    info = BuildInfo()
+    out_ip, out_ix, in_ip, in_ix = interior_adjacency(snap)
+    order = landmark_order(out_ip, in_ip, n)
+    K = n if landmarks <= 0 else min(int(landmarks), n)
+    batch = max(32, (int(batch) // 32) * 32)
+    wt = batch // 32
+
+    # forward sweeps pull along in-neighbour rows (reach FROM the landmark,
+    # the check kernel's orientation); backward sweeps the transposed rows
+    sweeper = _Sweeper(
+        build_ell_groups(in_ip, in_ix, n), build_ell_groups(out_ip, out_ix, n), n, device
+    )
+    mirror = _Mirror(n, max_width, sweeper.device)
+    processed = np.zeros(n, bool)
+    pos = 0
+    while pos < K:
+        lanes = min(batch, K - pos)
+        v_batch = order[pos : pos + lanes].astype(np.int64)
+        seeds = np.full(batch, -1, np.int64)
+        seeds[:lanes] = v_batch
+        mirror.flush_device()
+        # covered masks: certification against the FROZEN pre-batch label
+        # arrays (the pruning ANDNOT of every wave of this batch)
+        cov_f = _compute_covered(mirror.in_d, mirror.out_h[v_batch], lanes, wt, OUT_PAD)
+        cov_b = _compute_covered(mirror.out_d, mirror.in_h[v_batch], lanes, wt, IN_PAD)
+        S_f = sweeper.sweep(True, seeds, cov_f, wt)
+        S_b = sweeper.sweep(False, seeds, cov_b, wt)
+        info.dispatches += 2
+        info.batches += 1
+        nz_f = np.nonzero(S_f[:n].any(axis=1))[0]
+        nz_b = np.nonzero(S_b[:n].any(axis=1))[0]
+        # intra-batch interference: lane i stored at lane j's landmark row
+        # (either orientation) means sequential processing of j would have
+        # seen i's fresh labels — accept the clean prefix
+        rows_f = S_f[v_batch]
+        rows_b = S_b[v_batch]
+        jstar = lanes
+        for j in range(lanes):
+            if (_lane_int(rows_f, j, wt) | _lane_int(rows_b, j, wt)) & ((1 << j) - 1):
+                jstar = j
+                break
+        if jstar == 0:
+            raise AssertionError("lane 0 can never interfere with itself")
+        info.restarts += lanes - jstar
+        swept = 0
+        for j in range(jstar):
+            v = int(v_batch[j])
+            # self entries first — reach0(v, v) must hit, the sequential
+            # build's invariant (labels.build_labels)
+            mirror.store("out", np.array([v]), v)
+            mirror.store("in", np.array([v]), v)
+            swept += mirror.store("in", _lane_nodes(S_f, nz_f, j), v)
+            swept += mirror.store("out", _lane_nodes(S_b, nz_b, j), v)
+            processed[v] = True
+        info.sweep_entries += swept
+        pos += jstar
+        info.landmarks = pos
+        gain = swept / max(1, jstar) / max(1, n)
+        info.gain_history.append(round(gain, 9))
+        if min_gain > 0.0 and gain < min_gain and pos < K:
+            info.truncated = "min_gain"
+            break
+
+    if not info.truncated and K < n:
+        info.truncated = "cap"
+    idx = mirror.finalize(processed, pos, sweeper.backend)
+    idx.build_ms = (time.monotonic() - t0) * 1e3
+    info.build_ms = idx.build_ms
+    info.landmarks = pos
+    return idx, info

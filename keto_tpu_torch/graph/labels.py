@@ -1,0 +1,259 @@
+"""Pruned-landmark 2-hop reachability labels: one-step checks at any depth.
+
+A copy of the parts of keto_tpu/graph/labels.py that the label build and
+the label route need. The BFS check kernels pay one device step per
+frontier hop; a **2-hop label index** over the interior subgraph turns a
+reachability probe into ONE label intersection (``label_step``,
+keto_tpu_torch/check/kernels.py), independent of graph depth.
+
+Scope: labels cover the **interior rows** (device ids < ``num_int``) and
+the **iterated (ELL) edges** between them — exactly the BFS kernel's
+bitmap universe. ``reach0(a, b)`` means "b reachable from a via ≥ 0 ELL
+edges"; the engine maps the check semantics ("reached via ≥ 1 real
+edge") onto reach0 probes in ``TorchCheckEngine._device_batch_labeled``.
+
+Construction is **pruned landmark labeling** (PLL): interior nodes are
+processed in degree rank order; for node v a forward pruned BFS appends v
+to ``IN(u)`` of every node u it reaches (skipping u when an earlier hub
+already certifies v→u), and a backward pruned BFS appends v to ``OUT(u)``.
+The ``landmarks`` cap and the per-row ``max_width`` cap degrade COVERAGE,
+never correctness:
+
+- every stored entry witnesses a real path, so a label **hit is always a
+  sound grant**;
+- a **miss certifies a deny** only for pairs ``(a, b)`` with
+  ``out_ok[a] and in_ok[b] and (processed[a] or processed[b])``.
+  Uncertifiable pairs fall back to the BFS kernels.
+
+Not here: ``patch_labels`` (incremental insertion for compaction) and the
+explain witness; the port rebuilds the index with every snapshot.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+#: padding values for the device rows: the two sides pad differently so a
+#: padded slot can never witness an intersection
+OUT_PAD = np.int32(-1)
+IN_PAD = np.int32(-2)
+
+
+def _ceil_pow2(x: int) -> int:
+    return 1 if x <= 1 else 1 << (int(x) - 1).bit_length()
+
+
+def interior_adjacency(snap):
+    """The iterated (ELL) edge set of ``snap`` as forward + reverse CSRs
+    over interior device ids — (out_indptr, out_indices, in_indptr,
+    in_indices). Derived from the bucket matrices (the kernel's own edge
+    source), so labels and BFS walk the SAME graph by construction."""
+    ni = snap.num_int
+    srcs: list[np.ndarray] = []
+    dsts: list[np.ndarray] = []
+    sentinel = np.int32(ni)
+    for b in snap.buckets:
+        nbrs = np.asarray(b.nbrs[: b.n])
+        rows, cols = np.nonzero(nbrs != sentinel)
+        if rows.size:
+            srcs.append(nbrs[rows, cols].astype(np.int64))
+            dsts.append((rows + b.offset).astype(np.int64))
+    if srcs:
+        src = np.concatenate(srcs)
+        dst = np.concatenate(dsts)
+    else:
+        src = np.zeros(0, np.int64)
+        dst = np.zeros(0, np.int64)
+    o = np.argsort(src, kind="stable")
+    out_indptr = np.searchsorted(src[o], np.arange(ni + 1))
+    out_indices = dst[o].astype(np.int32)
+    i = np.argsort(dst, kind="stable")
+    in_indptr = np.searchsorted(dst[i], np.arange(ni + 1))
+    in_indices = src[i].astype(np.int32)
+    return out_indptr, out_indices, in_indptr, in_indices
+
+
+@dataclass
+class LabelIndex:
+    """Immutable 2-hop label arrays over ``n`` interior rows.
+
+    ``out_lab``/``in_lab`` are padded-ELL int32 ``[n + 1, W]`` matrices
+    (row ``n`` is all padding — the engine's pair padding gathers it);
+    valid entries per row are sorted ascending, padding after them.
+    ``processed[u]`` means u's own pruned BFS ran; ``out_ok``/``in_ok``
+    mean the row never hit the width cap."""
+
+    n: int
+    out_lab: np.ndarray  # int32 [n+1, Wo], OUT_PAD-padded
+    in_lab: np.ndarray  # int32 [n+1, Wi], IN_PAD-padded
+    processed: np.ndarray  # bool [n]
+    out_ok: np.ndarray  # bool [n]
+    in_ok: np.ndarray  # bool [n]
+    max_width: int
+    n_landmarks: int
+    build_ms: float = 0.0
+    #: total stored entries (both sides)
+    n_entries: int = 0
+    #: "host" (this module's per-landmark BFS) or "device" (the batched
+    #: sweeps of keto_tpu_torch/graph/label_build.py — entry-identical)
+    backend: str = "host"
+
+    @property
+    def coverage(self) -> float:
+        """Fraction of interior rows fully certifiable on BOTH sides."""
+        if self.n == 0:
+            return 1.0
+        return float(np.count_nonzero(self.processed & self.out_ok & self.in_ok) / self.n)
+
+    def device_bytes(self) -> int:
+        """Device footprint of the uploaded label arrays."""
+        return int(self.out_lab.nbytes + self.in_lab.nbytes)
+
+    def certifiable(self, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+        """bool[len(a)] — True where a MISS on pair (a[i], b[i]) is a
+        sound deny. Rows == n (the padding row) certify trivially: they
+        witness no path and assert none."""
+        a = np.asarray(a)
+        b = np.asarray(b)
+        pad_a = a >= self.n
+        pad_b = b >= self.n
+        ac = np.where(pad_a, 0, a)
+        bc = np.where(pad_b, 0, b)
+        out = self.out_ok[ac] & self.in_ok[bc] & (self.processed[ac] | self.processed[bc])
+        return out | pad_a | pad_b
+
+    def query(self, a: int, b: int) -> bool:
+        """Host-side reach0 probe: does OUT(a) intersect IN(b)?"""
+        if a >= self.n or b >= self.n:
+            return False
+        oa = self.out_lab[a]
+        ib = self.in_lab[b]
+        oa = oa[oa != OUT_PAD]
+        ib = ib[ib != IN_PAD]
+        if not oa.size or not ib.size:
+            return False
+        return bool(np.isin(oa, ib, assume_unique=True).any())
+
+
+def _finalize(
+    n: int,
+    out_sets: list,
+    in_sets: list,
+    processed: np.ndarray,
+    out_ok: np.ndarray,
+    in_ok: np.ndarray,
+    max_width: int,
+    n_landmarks: int,
+) -> LabelIndex:
+    """Pack per-node label sets into the padded, sorted device layout."""
+    wo = max((len(s) for s in out_sets), default=0)
+    wi = max((len(s) for s in in_sets), default=0)
+    Wo = _ceil_pow2(max(1, wo))
+    Wi = _ceil_pow2(max(1, wi))
+    out_lab = np.full((n + 1, Wo), OUT_PAD, np.int32)
+    in_lab = np.full((n + 1, Wi), IN_PAD, np.int32)
+    entries = 0
+    for u in range(n):
+        s = sorted(out_sets[u])
+        if s:
+            out_lab[u, : len(s)] = s
+            entries += len(s)
+        s = sorted(in_sets[u])
+        if s:
+            in_lab[u, : len(s)] = s
+            entries += len(s)
+    return LabelIndex(
+        n=n,
+        out_lab=out_lab,
+        in_lab=in_lab,
+        processed=processed,
+        out_ok=out_ok,
+        in_ok=in_ok,
+        max_width=max_width,
+        n_landmarks=n_landmarks,
+        n_entries=entries,
+    )
+
+
+def landmark_order(out_indptr: np.ndarray, in_indptr: np.ndarray, n: int) -> np.ndarray:
+    """THE landmark processing order: degree descending, device id
+    ascending on ties. Shared by ``build_labels`` and the device builder
+    so their entry-identity contract starts from the same rank list."""
+    out_deg = np.diff(out_indptr)
+    in_deg = np.diff(in_indptr)
+    return np.lexsort((np.arange(n), -(out_deg + in_deg)))
+
+
+def _pruned_bfs(
+    v: int,
+    frontier_adj,  # (indptr, indices) to EXPAND along
+    own_label: set,  # OUT(v) for forward, IN(v) for backward
+    write_labels: list,  # IN sets for forward, OUT sets for backward
+    ok_flags: np.ndarray,
+    max_width: int,
+) -> None:
+    """One pruned BFS for landmark ``v``: visit u; when an earlier hub
+    already certifies the pair (``own_label ∩ write_labels[u]``), skip
+    storing v at u and do not expand u; else record v (a width-cap
+    overflow trips ``ok_flags[u]`` instead of lying) and expand."""
+    indptr, indices = frontier_adj
+    visited = {v}
+    frontier = [v]
+    while frontier:
+        nxt: list = []
+        for u in frontier:
+            for w in indices[indptr[u] : indptr[u + 1]]:
+                w = int(w)
+                if w in visited:
+                    continue
+                visited.add(w)
+                if own_label & write_labels[w]:
+                    continue
+                lab = write_labels[w]
+                if len(lab) < max_width:
+                    lab.add(v)
+                else:
+                    ok_flags[w] = False
+                nxt.append(w)
+        frontier = nxt
+
+
+def build_labels(snap, max_width: int = 64, landmarks: int = 0) -> LabelIndex:
+    """Construct the index for ``snap`` on the host. ``landmarks == 0``
+    processes every interior node (exact oracle); a positive cap
+    processes only the top-ranked ones (coverage shrinks, soundness
+    holds). Deterministic: rank ties break on device id."""
+    import time
+
+    t0 = time.monotonic()
+    n = snap.num_int
+    out_indptr, out_indices, in_indptr, in_indices = interior_adjacency(snap)
+    order = landmark_order(out_indptr, in_indptr, n)
+    K = n if landmarks <= 0 else min(int(landmarks), n)
+
+    out_sets: list = [set() for _ in range(n)]
+    in_sets: list = [set() for _ in range(n)]
+    processed = np.zeros(n, bool)
+    out_ok = np.ones(n, bool)
+    in_ok = np.ones(n, bool)
+
+    for v in order[:K].tolist():
+        # self entries first: reach0(v, v) must hit, and the prune tests
+        # rely on v ∈ own label
+        if len(out_sets[v]) < max_width:
+            out_sets[v].add(v)
+        else:
+            out_ok[v] = False
+        if len(in_sets[v]) < max_width:
+            in_sets[v].add(v)
+        else:
+            in_ok[v] = False
+        _pruned_bfs(v, (out_indptr, out_indices), out_sets[v], in_sets, in_ok, max_width)
+        _pruned_bfs(v, (in_indptr, in_indices), in_sets[v], out_sets, out_ok, max_width)
+        processed[v] = True
+
+    idx = _finalize(n, out_sets, in_sets, processed, out_ok, in_ok, max_width, K)
+    idx.build_ms = (time.monotonic() - t0) * 1e3
+    return idx

@@ -24,8 +24,10 @@ concatenation of per-bucket OR-reductions — no scatter anywhere.
 Kept against the reference module: the host (numpy stable-argsort) build
 with peel, renumbering, buckets, the forward CSR and the sink reverse CSR,
 and start/subject resolution. Every array kept here is byte-identical to
-the JAX build's (tests/test_torch_snapshot.py). Left for later slices: the
-delta overlay, the reverse-query list layouts and transposed CSR, labels,
+the JAX build's (tests/test_torch_snapshot.py). The 2-hop label index
+(keto_tpu_torch/graph/labels.py) is attached by the engine after the
+build. Left for later slices: the delta overlay (and with it the labels'
+``lab_dirty`` set), the reverse-query list layouts and transposed CSR,
 sharding and the device-side sorter.
 """
 
@@ -111,6 +113,11 @@ class GraphSnapshot:
     #: the device-resident graph (keto_tpu_torch/graph/carry.py), set by
     #: the engine at upload
     device: Any = None
+    #: the 2-hop label index (keto_tpu_torch/graph/labels.py ``LabelIndex``)
+    #: built for exactly this snapshot, and its device arrays
+    #: ``(out_lab, in_lab)``; both set by the engine, None until then
+    labels: Any = None
+    device_labels: Any = None
     _pattern_cache: dict = field(default_factory=dict)
     _cache_lock: threading.Lock = field(default_factory=threading.Lock)
 

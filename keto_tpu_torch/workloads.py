@@ -7,6 +7,10 @@
   users ∈ leaf groups ∈ mid groups ∈ top groups, documents granting
   ``view`` to a group, sized by tuple count; ``rbac_queries`` draws checks
   with analytic expectations (half built to be granted, half uniform).
+- ``github_workload`` — BASELINE config 4, the GitHub-style org/team/repo
+  graph of bench.py:117 (five namespaces, team forests nested 4 deep, grant
+  chains up to 7 edges); ``github_queries`` (bench.py:282) draws checks on
+  issues and pulls with analytic expectations.
 """
 
 from __future__ import annotations
@@ -151,4 +155,161 @@ def rbac_queries(rng: random.Random, n_checks: int, ctx):
             u = rng.randrange(ctx["n_users"])
         queries.append(_T("docs", f"doc-{d}", "view", SubjectID(f"user-{u}")))
         expected.append(_user_reaches(ctx, u, kind, g))
+    return queries, expected
+
+
+GITHUB_NAMESPACES = [
+    Namespace(id=i + 1, name=n) for i, n in enumerate(("orgs", "teams", "repos", "issues", "pulls"))
+]
+
+
+def github_workload(rng: random.Random, n_tuples: int):
+    """BASELINE config 4 at ``n_tuples`` (10M in the BASELINE): users join
+    teams; teams nest in forests of depth ≤ 4
+    (``teams:team-P#member@teams:team-C#member``); root teams attach to
+    orgs; repos grant ``reader``/``maintainer`` to an org's members or a
+    team's members; issues and pulls grant ``view`` through the repo's
+    reader/maintainer set. The deepest chain is
+    issue→reader→org→root-team→(3 nested teams)→user = 7 edges. Every
+    count scales with ``n_tuples``. Returns ``(tuples, ctx)``; ``ctx`` has
+    the membership maps ``github_queries`` needs."""
+    scale = n_tuples / 10_000_000
+    n_users = max(1_000, int(800_000 * scale))
+    n_teams = max(64, int(120_000 * scale))
+    n_orgs = max(8, int(5_000 * scale))
+    n_repos = max(64, int(250_000 * scale))
+    levels = 4  # team nesting depth
+
+    tuples = []
+    # team forest: contiguous level blocks; level-k teams parent into k-1
+    lvl_bounds = [i * n_teams // levels for i in range(levels + 1)]
+
+    def level_of(t):
+        for k in range(levels):
+            if t < lvl_bounds[k + 1]:
+                return k
+        return levels - 1
+
+    team_parent, team_children = {}, {}
+    for t in range(lvl_bounds[1], n_teams):
+        k = level_of(t)
+        parent = rng.randrange(lvl_bounds[k - 1], lvl_bounds[k])
+        team_parent[t] = parent
+        team_children.setdefault(parent, []).append(t)
+        tuples.append(_T("teams", f"team-{parent}", "member", SubjectSet("teams", f"team-{t}", "member")))
+
+    anc_cache: dict = {}
+
+    def ancestors(t):
+        """(the team's ancestor chain, itself included; its root)"""
+        got = anc_cache.get(t)
+        if got is None:
+            chain = [t]
+            while chain[-1] in team_parent:
+                chain.append(team_parent[chain[-1]])
+            got = anc_cache[t] = (frozenset(chain), chain[-1])
+        return got
+
+    org_roots: dict = {o: [] for o in range(n_orgs)}
+    for r in range(lvl_bounds[1]):
+        o = rng.randrange(n_orgs)
+        org_roots[o].append(r)
+        tuples.append(_T("orgs", f"org-{o}", "member", SubjectSet("teams", f"team-{r}", "member")))
+
+    # direct team memberships: the tuple bulk, sized so the total lands on
+    # n_tuples after repos, issues and pulls
+    n_issueish = int(n_tuples * 0.30)
+    budget_members = n_tuples - len(tuples) - 2 * n_repos - n_issueish
+    per_user = max(1, budget_members // n_users)
+    team_users: dict = {}
+    user_teams: dict = {}
+    for u in range(n_users):
+        for _ in range(per_user):
+            t = rng.randrange(n_teams)
+            user_teams.setdefault(u, []).append(t)
+            team_users.setdefault(t, []).append(u)
+            tuples.append(_T("teams", f"team-{t}", "member", SubjectID(f"user-{u}")))
+
+    repo_reader, repo_maint = {}, {}
+    for r in range(n_repos):
+        if rng.random() < 0.5:
+            grant = ("org", rng.randrange(n_orgs))
+            sub = SubjectSet("orgs", f"org-{grant[1]}", "member")
+        else:
+            grant = ("team", rng.randrange(n_teams))
+            sub = SubjectSet("teams", f"team-{grant[1]}", "member")
+        repo_reader[r] = grant
+        tuples.append(_T("repos", f"repo-{r}", "reader", sub))
+        mt = rng.randrange(n_teams)
+        repo_maint[r] = ("team", mt)
+        tuples.append(_T("repos", f"repo-{r}", "maintainer", SubjectSet("teams", f"team-{mt}", "member")))
+
+    issue_repo, pull_repo = [], []
+    while len(tuples) < n_tuples:
+        r = rng.randrange(n_repos)
+        if len(issue_repo) <= len(pull_repo):
+            tuples.append(_T("issues", f"issue-{len(issue_repo)}", "view",
+                             SubjectSet("repos", f"repo-{r}", "reader")))
+            issue_repo.append(r)
+        else:
+            tuples.append(_T("pulls", f"pull-{len(pull_repo)}", "view",
+                             SubjectSet("repos", f"repo-{r}", "maintainer")))
+            pull_repo.append(r)
+
+    def grant_ok(u, grant):
+        kind, x = grant
+        if kind == "org":
+            roots = set(org_roots[x])
+            return any(ancestors(dt)[1] in roots for dt in user_teams.get(u, ()))
+        return any(x in ancestors(dt)[0] for dt in user_teams.get(u, ()))
+
+    def member_of_grant(grant):
+        """A user holding ``grant``, or None: a random downward walk from
+        the granted team (an org's random root team), stopping at direct
+        members."""
+        kind, x = grant
+        if kind == "org":
+            roots = org_roots[x]
+            if not roots:
+                return None
+            x = rng.choice(roots)
+        for _ in range(8):
+            us = team_users.get(x)
+            if us and rng.random() < 0.5:
+                return rng.choice(us)
+            kids = team_children.get(x)
+            if not kids:
+                return rng.choice(us) if us else None
+            x = rng.choice(kids)
+        us = team_users.get(x)
+        return rng.choice(us) if us else None
+
+    ctx = {
+        "n_users": n_users, "issue_repo": issue_repo, "pull_repo": pull_repo,
+        "repo_reader": repo_reader, "repo_maint": repo_maint,
+        "grant_ok": grant_ok, "member_of_grant": member_of_grant,
+    }
+    return tuples, ctx
+
+
+def github_queries(rng: random.Random, n_checks: int, ctx):
+    """``(queries, expected)``: half engineered grants, half uniform users
+    (mostly denials), over the deepest objects (issues and pulls). The
+    grant walk draws from the generator's ``rng`` (kept in ``ctx``), as the
+    reference's does."""
+    queries, expected = [], []
+    for i in range(n_checks):
+        if i % 2 == 0:
+            j = rng.randrange(len(ctx["issue_repo"]))
+            ns, obj = "issues", f"issue-{j}"
+            grant = ctx["repo_reader"][ctx["issue_repo"][j]]
+        else:
+            j = rng.randrange(len(ctx["pull_repo"]))
+            ns, obj = "pulls", f"pull-{j}"
+            grant = ctx["repo_maint"][ctx["pull_repo"][j]]
+        u = ctx["member_of_grant"](grant) if i % 4 < 2 else None
+        if u is None:
+            u = rng.randrange(ctx["n_users"])
+        queries.append(_T(ns, obj, "view", SubjectID(f"user-{u}")))
+        expected.append(ctx["grant_ok"](u, grant))
     return queries, expected

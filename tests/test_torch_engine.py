@@ -228,10 +228,13 @@ def test_fuzz_differential(seed):
 @pytest.mark.parametrize("it_cap", [1, 3])
 def test_truncation_reruns_exact(it_cap):
     """A truncated kernel never decides a query: the engine re-runs the
-    slice at an escalating cap (the reference ladder) and stays exact."""
+    slice at an escalating cap (the reference ladder) and stays exact. The
+    BFS route is pinned (labels off): a label index landing first would
+    answer the chain without iterating."""
     namespaces, tuples, cases = SCENARIOS["deep-chain"]
     store = port_store(namespaces, tuples)
-    eng = TorchCheckEngine(store, store.namespaces, device="cpu", it_cap=it_cap)
+    eng = TorchCheckEngine(store, store.namespaces, device="cpu", it_cap=it_cap,
+                           labels_enabled=False)
     rungs = []
     orig = eng._run_exact
     eng._run_exact = lambda s, t, it_cap=None: (rungs.append(it_cap), orig(s, t, it_cap=it_cap))[1]
@@ -244,7 +247,7 @@ def test_truncation_reruns_exact(it_cap):
 def test_block_iters_grows_with_depth():
     namespaces, tuples, cases = SCENARIOS["deep-chain"]
     store = port_store(namespaces, tuples)
-    eng = TorchCheckEngine(store, store.namespaces, device="cpu")
+    eng = TorchCheckEngine(store, store.namespaces, device="cpu", labels_enabled=False)
     eng.batch_check([q for q, _ in cases])
     assert eng._block_iters == 32
 

@@ -1,0 +1,135 @@
+"""The port's device label build against the JAX package.
+
+``sweep_step`` (K6) must equal the JAX ``_sweep_step()`` on all five of
+its outputs (visited, frontier, stored, active, visits) and ``covered``
+(K7) the JAX ``_covered_fn()``, word for word, with the plain versions on
+the CPU; ``device_build_labels`` must give byte-equal label arrays, flags
+and ``BuildInfo`` to the JAX ``device_build_labels`` and equal arrays to
+the port's host ``build_labels`` on 5 fuzz seeds, with and without a
+landmark cap and with ``min_gain``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from keto_tpu_torch.check.random_layouts import random_covered_case, random_sweep_case
+from keto_tpu_torch.graph import label_build, label_kernels
+from keto_tpu_torch.graph.labels import build_labels, interior_adjacency
+
+from test_torch_labels import ARRAYS, LABEL_NS, assert_index_equal, fuzz_rows, snapshots
+
+SWEEP_CASES = {
+    "wt1-small": dict(seed=0, n=40, caps=(1, 2, 4), rows=(10, 6, 3), wt=1),
+    "wt2-wide-cap": dict(seed=1, n=70, caps=(1, 2048), rows=(30, 2), wt=2),
+    "wt2-one-group": dict(seed=2, n=25, caps=(8,), rows=(9,), wt=2),
+    "wt4-many": dict(seed=3, n=120, caps=(1, 2, 4, 8, 16, 32), rows=(20, 15, 10, 8, 5, 3), wt=4),
+    "wt2-no-groups": dict(seed=4, n=10, caps=(), rows=(), wt=2),
+}
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("prune", [True, False])
+@pytest.mark.parametrize("name", sorted(SWEEP_CASES))
+def test_sweep_step_matches_jax(name, prune):
+    import jax.numpy as jnp
+
+    from keto_tpu.graph.label_build import _sweep_step
+
+    kw = dict(SWEEP_CASES[name])
+    rng = np.random.default_rng(kw.pop("seed"))
+    groups, V, X, S, cov = random_sweep_case(rng, **kw)
+    u = lambda a: jnp.asarray(a.view(np.uint32))  # noqa: E731
+    want = _sweep_step()(
+        tuple(jnp.asarray(nb) for nb, _ in groups), tuple(jnp.asarray(d) for _, d in groups),
+        u(V), u(X), u(S), u(cov), prune_expansion=prune,
+    )
+    g = label_kernels.EllGroups.from_groups(groups, "cpu")
+    V2, X2, S2, state = label_kernels.sweep_step(
+        g, _t(V.copy()), _t(X), _t(S.copy()), _t(cov), prune_expansion=prune
+    )
+    for got, ref, what in ((V2, want[0], "V"), (X2, want[1], "X"), (S2, want[2], "S")):
+        assert np.array_equal(got.numpy().view(np.uint32), np.asarray(ref)), what
+    assert state.tolist() == [int(bool(want[3])), int(want[4])]
+    if groups:
+        assert int(want[4]) > 0, "the case must visit"
+
+
+COVERED_CASES = {
+    "wt2-mw64": dict(seed=0, rows=90, width=64, u=300, wt=2),
+    "wt1-mw8": dict(seed=1, rows=50, width=8, u=20, wt=1),
+    "wt2-in-pads": dict(seed=2, rows=70, width=16, u=64, wt=2, pad=-2),
+    "wt2-empty-U": dict(seed=3, rows=30, width=8, u=0, wt=2),
+    "wt2-one-value": dict(seed=4, rows=40, width=4, u=1, wt=2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(COVERED_CASES))
+def test_covered_matches_jax(name):
+    import jax.numpy as jnp
+
+    from keto_tpu.graph.label_build import _covered_fn
+
+    kw = dict(COVERED_CASES[name])
+    rng = np.random.default_rng(kw.pop("seed"))
+    lab, U, masks = random_covered_case(rng, **kw)
+    got = label_kernels.covered(_t(lab), _t(U), _t(masks)).numpy().view(np.uint32)
+    if U.size == 0:
+        # the reference never calls the kernel without a table
+        assert not got.any() and got.shape == (lab.shape[0], masks.shape[1])
+        return
+    want = np.asarray(_covered_fn()(jnp.asarray(lab), jnp.asarray(U),
+                                    jnp.asarray(masks.view(np.uint32))))
+    assert np.array_equal(got, want)
+    assert want.any() and not want.all()
+
+
+def test_ell_groups_and_estimate_match_jax():
+    from keto_tpu.graph import label_build as jax_label_build
+
+    mine, _ = snapshots(LABEL_NS, fuzz_rows(0))
+    out_ip, out_ix, in_ip, in_ix = interior_adjacency(mine)
+    n = mine.num_int
+    for ip, ix in ((in_ip, in_ix), (out_ip, out_ix)):
+        a = label_build.build_ell_groups(ip, ix, n)
+        b = jax_label_build.build_ell_groups(ip, ix, n)
+        assert len(a) == len(b) > 0
+        for (na, da), (nb, db) in zip(a, b):
+            assert np.array_equal(na, nb) and np.array_equal(da, db)
+    for args in ((n, 64), (10_000, 8, 96), (0, 1, 32)):
+        assert label_build.estimate_build_bytes(*args) == jax_label_build.estimate_build_bytes(*args)
+
+
+BUILD_CASES = {
+    "full": dict(max_width=64, landmarks=0, batch=32),
+    "narrow": dict(max_width=3, landmarks=0, batch=32),
+    "landmark-cap": dict(max_width=64, landmarks=5, batch=32),
+    "min-gain": dict(max_width=64, landmarks=0, batch=32, min_gain=0.05),
+    "batch64": dict(max_width=2, landmarks=0, batch=64),
+}
+
+
+@pytest.mark.parametrize("seed", range(5))
+@pytest.mark.parametrize("case", sorted(BUILD_CASES))
+def test_device_build_matches_jax_and_host(seed, case):
+    from keto_tpu.graph.label_build import device_build_labels as jax_device_build
+
+    kw = BUILD_CASES[case]
+    mine, ref = snapshots(LABEL_NS, fuzz_rows(seed, n_objects=12, n_rows=90))
+    idx, info = label_build.device_build_labels(mine, device="cpu", **kw)
+    jidx, jinfo = jax_device_build(ref, **kw)
+    assert_index_equal(idx, jidx)
+    assert idx.backend == jidx.backend == "device"
+    for k in ("batches", "dispatches", "landmarks", "truncated", "sweep_entries", "restarts",
+              "gain_history"):
+        assert getattr(info, k) == getattr(jinfo, k), k
+    host = build_labels(mine, kw["max_width"], info.landmarks)
+    for k in ARRAYS:
+        assert np.array_equal(getattr(idx, k), getattr(host, k)), k
+    if case == "min-gain":
+        assert info.truncated == "min_gain" or info.landmarks == mine.num_int
