@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, parity, the BFS
-and label routes of Check, serve.
+and label routes of Check, the write path, serve.
 
     python3 chip_smoke.py            # every phase, as a release check runs it
     python3 chip_smoke.py --only build,parity
+    python3 chip_smoke.py --only build,parity,deep,write   # the write path
 
 Phases, in order; any failure exits non-zero:
 
@@ -16,8 +17,11 @@ Phases, in order; any failure exits non-zero:
    and padding rows, overlays, it_cap truncation, n_active = 0), the label
    step (label widths 1..128, pad pairs, several pairs per query), the
    frontier wave (expansion pruning on and off, rows outside every dst,
-   wt 1 and 2) and the covered mask (an empty table, wt 1 and 2, a table
-   too large for shared memory); every word of every output must agree;
+   wt 1 and 2), the covered mask (an empty table, wt 1 and 2, a table
+   too large for shared memory) and the slot set (a bucket patch, overlay
+   rows and their dst vector, a label-mirror store in place, an empty
+   entry list, duplicate slots, an out-of-range entry that must raise);
+   every word of every output must agree;
 3. main — BASELINE config 3 (RBAC, 1M tuples, 3-level group nesting) on
    the BFS route (labels off), 100k checks: every decision equals the
    analytic expectation, a 2,000-query sample equals the recursive
@@ -33,7 +37,23 @@ Phases, in order; any failure exits non-zero:
    expectation, an oracle sample, the label step, frontier wave and
    covered mask each launched; then those three kernels are timed at the
    path's shapes beside their plain versions and bounds;
-6. serve — the REST server with the default engine (labels on): the
+6. write — the deep phase's engine and store take writes through the
+   store, as the REST write API makes them: (a) the reference bench's
+   burst of 5,000 new team memberships (interior→sink edges: the labels
+   stay live, the background fold absorbs the burst), (b) 64 new
+   team→team edges between active interior team rows in two writes (the
+   overlay ELL: the second write lands in the resident overlay by the
+   slot set; the label route stops until the fold patches the labels on
+   the card), (c) deletes of 64 team-nesting edges (bucket slots patched
+   by the slot set) and of the 5,000 burst memberships (tombstones). After
+   each step: the seconds until ``snapshot_serving()`` reaches the
+   watermark, a 100k-check batch's checks/s and route counts, the
+   maintenance counters, and 100 decisions (half on touched teams)
+   against the oracle; then the fold. At the end the 100k decisions are
+   held against a fresh engine built on the final store (the rebuild the
+   write path replaced, its labels built on the card) and no full rebuild
+   may have happened;
+7. serve — the REST server with the default engine (labels on): the
    cat-videos checks (200, 200, 403, 200), read-your-writes after a PUT,
    /check/batch, then a PUT that closes a cycle and a batch over it; each
    part fails unless its requests launched the kernels of the routes that
@@ -53,7 +73,7 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "parity", "main", "labels", "deep", "serve")
+PHASES = ("build", "parity", "main", "labels", "deep", "write", "serve")
 SEED = 20261017
 N_TUPLES = 1_000_000
 N_CHECKS = 100_000
@@ -61,6 +81,12 @@ ORACLE_SAMPLE = 2_000
 #: BASELINE config 4 at its full size
 DEEP_TUPLES = 10_000_000
 DEEP_ORACLE_SAMPLE = 250
+#: the write phase: the reference bench's burst (bench.py:894-909), the
+#: overlay-ELL edges of step (b) in two writes, the deleted nesting edges
+WRITE_BURST = 5_000
+WRITE_ELL = (40, 24)
+WRITE_DELETE_ELL = 64
+WRITE_ORACLE_SAMPLE = 100
 
 #: the TPU kernels these CUDA kernels replace
 K1 = "keto_tpu/check/tpu_engine.py:89"
@@ -68,6 +94,7 @@ K2 = "keto_tpu/check/tpu_engine.py:110"
 K3 = "keto_tpu/check/tpu_engine.py:310"
 K6 = "keto_tpu/graph/label_build.py:150"
 K7 = "keto_tpu/graph/label_build.py:183"
+K9 = ("keto_tpu/check/tpu_engine.py:2542 (and :2665; keto_tpu/graph/label_build.py:433)")
 
 #: per H100 variant, by a word of its nvidia-smi name: memory rate (B/s),
 #: SMs and boost clock (Hz), from NVIDIA's H100 data sheet (SXM5 HBM3
@@ -215,6 +242,7 @@ def phase_parity(torch, kernels, rows_out):
         log(f"parity case {i}: {case} -> iters={tail[0]} truncated={tail[1]} mismatches={m}")
         total += m
     total += label_parity(torch, rng, dev)
+    total += slot_parity(torch, rng, dev)
     rows_out["parity_mismatches"] = total
     if total:
         raise SystemExit(f"kernel parity FAILED: {total} mismatching words")
@@ -278,6 +306,50 @@ def label_parity(torch, rng, dev) -> int:
         log(f"parity covered rows={rows} width={width} u={u} wt={wt}: "
             f"{int((want != 0).any(1).sum())} rows covered, mismatches={m}")
         total += m
+    return total
+
+
+SLOT_CASES = [  # (what, rows, ld, entries, duplicates, 1-D, in place)
+    ("bucket patch", 131072, 1, 64, False, False, False),
+    ("bucket patch, cap 8", 4096, 8, 300, False, False, False),
+    ("overlay rows", 64, 8, 24, False, False, False),
+    ("overlay dst", 64, 1, 24, False, True, False),
+    ("mirror store", 124000, 64, 3000, False, False, True),
+    ("empty entry list", 1000, 4, 0, False, False, False),
+    ("duplicate slots", 2000, 16, 800, True, False, False),
+]
+
+
+def slot_parity(torch, rng, dev) -> int:
+    """K9 against its plain version on the write path's layouts; an entry
+    outside its target must raise. Mismatching words."""
+    from keto_tpu_torch.check import kernels
+    from keto_tpu_torch.check.random_layouts import random_slot_case
+
+    total = 0
+    for what, n, ld, m, dup, one_d, in_place in SLOT_CASES:
+        buf, r, c, v = random_slot_case(rng, n, ld, m, dup=dup, one_d=one_d)
+        a = torch.from_numpy(buf.copy()).to(dev)
+        b = torch.from_numpy(buf.copy()).to(dev)
+        got = kernels.slot_set_cuda(a, r, c, v, in_place=in_place)
+        want = kernels.slot_set_ref(b, r, c, v, in_place=in_place)
+        torch.cuda.synchronize()
+        mism = diff(got, want)[0]
+        if in_place:
+            mism += diff(a, b)[0] + int(got.data_ptr() != a.data_ptr())
+        else:
+            mism += diff(a, torch.from_numpy(buf).to(dev))[0]  # the target is untouched
+        log(f"parity slot_set {what}: shape {tuple(buf.shape)}, {m} entries, "
+            f"{int((got != a).sum()) if not in_place else m} words changed, mismatches={mism}")
+        total += mism
+    buf, r, c, v = random_slot_case(rng, 100, 4, 10)
+    c[3] = 4
+    try:
+        kernels.slot_set_cuda(torch.from_numpy(buf).to(dev), r, c, v)
+    except ValueError as e:
+        log(f"parity slot_set out of range: raised ({e})")
+    else:
+        raise SystemExit("kernel parity FAILED: an out-of-range slot set did not raise")
     return total
 
 
@@ -648,7 +720,7 @@ def phase_deep(torch, kernels, report):
         "route_counts": counts, "launches": launches, "oracle_sample": len(sample),
         "oracle_mismatches": bad, "grants": sum(expected),
     }
-    return engine, snap, captured, launches
+    return engine, snap, captured, launches, store, queries, got
 
 
 def label_rows(torch, kernels, snap, engine, captured, launches, rate, int_rate):
@@ -761,6 +833,283 @@ def label_rows(torch, kernels, snap, engine, captured, launches, rate, int_rate)
     return rows
 
 
+# -- phase 6: write, on the deep phase's engine and store ------------------------
+
+MAINT = ("delta_applies", "overlay_device_applies", "full_rebuilds", "compactions", "fold_runs",
+         "label_patches", "label_patch_aborts", "label_rebuilds", "label_invalidations",
+         "label_checks", "label_fallbacks", "label_builds", "label_device_builds",
+         "refresh_failures", "compaction_failures", "label_patch_failures")
+
+
+def maint_counts(engine) -> dict:
+    c = engine.counters()
+    return {k: c.get(k, 0) for k in MAINT}
+
+
+def phase_write(torch, kernels, report, engine, store, queries, device="cuda"):
+    """The write path at config 4 (see the module docstring). Returns the
+    captured slot sets for K9's kernel row and K9's launches."""
+    import numpy as np
+
+    from keto_tpu_torch.check.gpu_engine import TorchCheckEngine
+
+    from keto_tpu_torch.check.engine import CheckEngine
+    from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectID, SubjectSet
+
+    rng = random.Random(SEED + 6)
+    oracle = CheckEngine(store)
+    out: dict = {"steps": {}}
+    # every slot set of the write path, tagged by its site (the bucket patch
+    # runs inside _apply_ell_patch; the mirror writes in place; the rest
+    # are the resident overlay's rows and dst)
+    captured: list = []
+    sites = {"ell_patch": 0, "overlay": 0, "mirror": 0}
+    in_patch = [False]
+    slot_set, apply_patch = kernels.slot_set, engine._apply_ell_patch
+
+    def capture(buf, rows, cols, vals, *, in_place=False):
+        site = "mirror" if in_place else "ell_patch" if in_patch[0] else "overlay"
+        if len(rows):
+            sites[site] += 1
+            captured.append((site, buf, np.asarray(rows), None if cols is None else np.asarray(cols),
+                             np.asarray(vals)))
+        return slot_set(buf, rows, cols, vals, in_place=in_place)
+
+    def patch(snap):
+        in_patch[0] = True
+        try:
+            apply_patch(snap)
+        finally:
+            in_patch[0] = False
+
+    def visible_s(wm) -> float:
+        t0 = time.monotonic()
+        while engine.snapshot_serving().snapshot_id < wm:
+            if time.monotonic() - t0 > 600:
+                raise SystemExit("write FAILED: the serving snapshot never reached the write")
+            time.sleep(0.002)
+        return time.monotonic() - t0
+
+    def check_round(name, touched):
+        """The 100k batch and the oracle sample after one step."""
+        before = maint_counts(engine)
+        ov = engine.snapshot().has_overlay
+        t0 = time.monotonic()
+        got = engine.batch_check(queries)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        after = maint_counts(engine)
+        half = WRITE_ORACLE_SAMPLE // 2
+        users = [f"user-{rng.randrange(800_000)}" for _ in range(half)]
+        sample = [RelationTuple("teams", f"team-{t}", "member", SubjectID(u))
+                  for t, u in zip(rng.choices(touched, k=half), users)]
+        sample += [queries[i] for i in rng.sample(range(len(queries)), WRITE_ORACLE_SAMPLE - half)]
+        mine = engine.batch_check(sample)
+        t1 = time.monotonic()
+        bad = sum(oracle.subject_is_allowed(q) != g for q, g in zip(sample, mine))
+        r = {"overlay_pending": ov, "checks_s": dt, "checks_per_s": len(queries) / dt,
+             "label_checks": after["label_checks"] - before["label_checks"],
+             "label_fallbacks": after["label_fallbacks"] - before["label_fallbacks"],
+             "label_invalidations": after["label_invalidations"] - before["label_invalidations"],
+             "oracle_sample": len(sample), "oracle_mismatches": bad,
+             "oracle_s": time.monotonic() - t1, "grants": sum(got)}
+        log(f"write {name} checks: {json.dumps(r)}")
+        if bad:
+            raise SystemExit(f"write FAILED: step {name}: {bad} oracle mismatches")
+        return r, got
+
+    def settle(name, fold):
+        t0 = time.monotonic()
+        snap = engine.maintenance_settled(fold=fold, timeout=900)
+        r = {"settle_s": time.monotonic() - t0, "overlay_left": snap.has_overlay,
+             "last_compaction": engine.last_compaction, "counters": maint_counts(engine)}
+        log(f"write {name} fold: {json.dumps(r)}")
+        return r
+
+    kernels.slot_set, engine._apply_ell_patch = capture, patch
+    try:
+        kernels.reset_counts()
+        start = maint_counts(engine)
+        snap = engine.snapshot()
+
+        # (a) the reference bench's burst: new users on existing teams
+        n_teams = 0  # the teams are team-0 .. team-(n-1)
+        while snap.resolve_set(2, f"team-{n_teams}", "member") is not None:
+            n_teams += 1
+        burst = [RelationTuple("teams", f"team-{rng.randrange(n_teams)}", "member",
+                               SubjectID(f"burst-user-{i}")) for i in range(WRITE_BURST)]
+        t0 = time.monotonic()
+        wm = store.transact_relation_tuples(burst, ()).snaptoken
+        store_s = time.monotonic() - t0
+        vis = visible_s(wm)
+        snap = engine.snapshot()
+        step = {"writes": len(burst), "store_s": store_s, "visible_s": vis,
+                "lab_dirty": bool(snap.lab_dirty), "counters": maint_counts(engine)}
+        log(f"write (a) burst: {json.dumps(step)}")
+        touched_a = sorted({int(t.object.split("-")[1]) for t in burst})
+        step["checks"], _ = check_round("(a)", touched_a)
+        if step["lab_dirty"] or step["checks"]["label_invalidations"] or not step["checks"]["label_checks"]:
+            raise SystemExit(f"write FAILED: the sink burst took the label route off: {step}")
+        step["fold"] = settle("(a)", fold=False)
+        out["steps"]["a"] = step
+
+        # (b) team→team edges between active interior team rows: overlay ELL
+        snap = engine.snapshot()
+        teams = [(f"team-{t}", d) for t, d in
+                 ((t, snap.resolve_set(2, f"team-{t}", "member")) for t in range(n_teams))
+                 if d is not None and d < snap.num_active]
+        ip, ix = snap.fwd_indptr, snap.fwd_indices
+        new_edges, used_dst = [], set()
+        while len(new_edges) < sum(WRITE_ELL):
+            (po, pd), (co, cd) = rng.sample(teams, 2)
+            if cd in used_dst or pd == cd or np.any(ix[ip[pd]:ip[pd + 1]] == cd):
+                continue
+            used_dst.add(cd)  # distinct destinations: one overlay row each
+            new_edges.append(RelationTuple("teams", po, "member", SubjectSet("teams", co, "member")))
+        step = {"writes": [], "counters": None}
+        for k, n in enumerate(WRITE_ELL):
+            part = new_edges[sum(WRITE_ELL[:k]):sum(WRITE_ELL[:k]) + n]
+            t0 = time.monotonic()
+            wm = store.transact_relation_tuples(part, ()).snaptoken
+            store_s = time.monotonic() - t0
+            vis = visible_s(wm)
+            step["writes"].append({"edges": n, "store_s": store_s, "visible_s": vis})
+        snap = engine.snapshot()
+        step.update({"lab_dirty": len(snap.lab_dirty or ()), "ov_ell": int(snap.ov_ell.shape[0]),
+                     "overlay_shape": list(snap.device_overlay[0].shape),
+                     "counters": maint_counts(engine)})
+        log(f"write (b) overlay ELL: {json.dumps(step)}")
+        touched_b = [int(t.object.split("-")[1]) for t in new_edges]
+        launches_before = dict(kernels.COUNTS)
+        step["checks"], _ = check_round("(b)", touched_b)
+        step["overlay_pull_launches"] = kernels.COUNTS["pull_overlay"] - launches_before["pull_overlay"]
+        if step["checks"]["label_checks"] or (device == "cuda" and not step["overlay_pull_launches"]):
+            raise SystemExit(f"write FAILED: the dirty overlay did not take the BFS route: {step}")
+        step["fold"] = settle("(b)", fold=True)
+        if (step["fold"]["last_compaction"] or {}).get("labels") != "patched":
+            raise SystemExit(f"write FAILED: the fold did not patch the labels: {step['fold']}")
+        step["after_fold"], _ = check_round("(b) after the fold", touched_b)
+        if not step["after_fold"]["label_checks"]:
+            raise SystemExit("write FAILED: the label route did not resume after the fold")
+        out["steps"]["b"] = step
+
+        # (c) deletes: team-nesting ELL edges (bucket patches) and the burst
+        snap = engine.snapshot()
+        nest = []
+        for t in range(n_teams):
+            d = snap.resolve_set(2, f"team-{t}", "member")
+            if d is None or d >= snap.num_int:
+                continue
+            for c in ix[ip[d]:ip[d + 1]].tolist():
+                if c < snap.num_active:
+                    key = snap.key_of_dev(c)
+                    if key[0] == "set" and key[1][0] == 2:
+                        nest.append(RelationTuple("teams", f"team-{t}", "member",
+                                                  SubjectSet("teams", key[1][1], "member")))
+            if len(nest) >= 4 * WRITE_DELETE_ELL:
+                break
+        dels = rng.sample(nest, WRITE_DELETE_ELL) + burst
+        t0 = time.monotonic()
+        wm = store.transact_relation_tuples((), dels).snaptoken
+        store_s = time.monotonic() - t0
+        vis = visible_s(wm)
+        snap = engine.snapshot()
+        step = {"deletes": len(dels), "store_s": store_s, "visible_s": vis,
+                "tombstones": int(snap.ov_removed.size) if snap.ov_removed is not None else 0,
+                "lab_dirty": len(snap.lab_dirty or ()), "counters": maint_counts(engine)}
+        log(f"write (c) deletes: {json.dumps(step)}")
+        touched_c = [int(t.object.split("-")[1]) for t in dels[:WRITE_DELETE_ELL]]
+        step["checks"], _ = check_round("(c)", touched_c + touched_a[:64])
+        step["fold"] = settle("(c)", fold=False)
+        step["after_fold"], got = check_round("(c) after the fold", touched_c)
+        out["steps"]["c"] = step
+    finally:
+        kernels.slot_set, engine._apply_ell_patch = slot_set, apply_patch
+    launches = dict(kernels.COUNTS)
+    end = maint_counts(engine)
+    delta = {k: end[k] - start[k] for k in MAINT}
+    out.update({"counters": delta, "launches": launches, "slot_set_sites": sites})
+    log(f"write counters {json.dumps(delta)}, slot set launches by site {sites}")
+    need = {"delta_applies": 3, "compactions": 1, "label_patches": 1, "overlay_device_applies": 1}
+    short = {k: delta[k] for k, v in need.items() if delta[k] < v}
+    if delta["full_rebuilds"] or short or any(delta[k] for k in MAINT if k.endswith("failures")):
+        raise SystemExit(f"write FAILED: counters {delta} (need {need}, no full rebuild)")
+    if not all(sites.values()):
+        raise SystemExit(f"write FAILED: the slot set missed a site: {sites}")
+
+    # the rebuild the write path replaced: a fresh engine on the final store
+    fresh = TorchCheckEngine(store, store.namespaces, device=device)
+    t0 = time.monotonic()
+    fresh.snapshot()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    rebuild_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    if not fresh.labels_settled():
+        raise SystemExit("write FAILED: the fresh engine built no label index")
+    label_s = time.monotonic() - t0
+    want = fresh.batch_check(queries)
+    bad = sum(g != w for g, w in zip(got, want))
+    out["fresh_engine"] = {"snapshot_s": rebuild_s, "label_build_s": label_s,
+                           "route_counts": route_counts(fresh), "mismatches": bad}
+    log(f"write fresh engine: snapshot {rebuild_s:.2f}s, label build {label_s:.2f}s, "
+        f"{bad} of {len(queries)} decisions differ, {json.dumps(out['fresh_engine'])}")
+    fresh.close()
+    del fresh
+    if bad:
+        raise SystemExit(f"write FAILED: {bad} decisions differ from a fresh engine")
+    report["write"] = out
+    return captured, launches
+
+
+def slot_rows(torch, kernels, captured, launches, rate):
+    """Time K9 on the write path's largest bucket patch beside its plain
+    version, its bound and ``clone().index_put_``. ``ms`` is the device work
+    of the functional update — the copy and the launch, entries already on
+    the card, as the bound counts it; ``wrapper_ms`` the whole wrapper call
+    (dedup, upload, copy, launch, the read of the error word)."""
+    import numpy as np
+
+    site, buf, r, c, v = max((x for x in captured if x[0] == "ell_patch"),
+                             key=lambda x: x[1].numel())
+    got = kernels.slot_set_cuda(buf, r, c, v)
+    want = kernels.slot_set_ref(buf, r, c, v)
+    m, err = diff(got, want)
+    rows, cols, vals, ld = kernels._slot_entries(buf, r, c, v)
+    n = len(rows)
+    ent = torch.from_numpy(np.concatenate([rows.astype(np.int32), cols.astype(np.int32),
+                                           vals])).cuda()
+    flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+    lib, stream = kernels._lib(), kernels._stream()
+
+    def launch():
+        out = buf.clone()
+        lib.keto_slot_set(out.data_ptr(), ld, buf.shape[0], ent.data_ptr(), ent.data_ptr() + 4 * n,
+                          ent.data_ptr() + 8 * n, n, flag.data_ptr(), stream)
+        return out
+
+    if diff(launch(), want)[0] or int(flag.item()):
+        raise SystemExit("slot set at write shapes FAILED: the bare launch disagrees")
+    rr, cc = ent[:n].long(), ent[n : 2 * n].long()
+    vv = ent[2 * n :]
+    lib_ms = time_ms(lambda: buf.clone().index_put_((rr, cc), vv), 100)
+    ms = time_ms(launch, 100)
+    wrapper = time_ms(lambda: kernels.slot_set_cuda(buf, r, c, v), 50)
+    plain = time_ms(lambda: kernels.slot_set_ref(buf, r, c, v), 10, warmup=1)
+    bytes_needed = 2 * buf.numel() * 4 + 16 * n
+    row = {"name": "slot_set", "route": "cuda", "source": "keto_tpu_torch/csrc/patch_kernels.cu",
+           "replaces": K9, "launches": launches["slot_set"], "mismatches": m, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain, "bound_ms": bytes_needed / rate * 1e3, "bound_by": "bytes",
+           "library_ms": lib_ms, "wrapper_ms": wrapper, "site": site,
+           "target_shape": list(buf.shape), "entries": n}
+    log(f"kernel slot_set: {ms:.4f} ms (wrapper {wrapper:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{row['bound_ms']:.5f} ms, index_put_ {lib_ms:.4f} ms), mismatches {m}, {json.dumps(row)}")
+    if m:
+        raise SystemExit(f"slot set parity at write shapes FAILED: {m} mismatching words")
+    return [row]
+
+
 # -- phase 4: serve ---------------------------------------------------------------
 
 
@@ -869,7 +1218,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help=f"comma-separated phases to run (default: all of {','.join(PHASES)}); "
-                         "labels needs main")
+                         "labels needs main, write needs deep")
     args = ap.parse_args(argv)
     phases = set(args.only.split(","))
 
@@ -911,11 +1260,19 @@ def main(argv=None) -> int:
         del engine, snap, queries, main_ctx
     log(f"elapsed {time.monotonic() - t_start:.1f}s")
     if "deep" in phases:
-        engine, snap, captured, launches = phase_deep(torch, kernels, report)
+        engine, snap, captured, launches, store, deep_q, _ = phase_deep(torch, kernels, report)
         rows += label_rows(torch, kernels, snap, engine, captured, launches, rate, int_rate)
         log(json.dumps({"deep": report["deep"]}))
-        del engine, snap, captured
+        del snap, captured
         log(f"elapsed {time.monotonic() - t_start:.1f}s")
+        if "write" in phases:
+            slots, wl = phase_write(torch, kernels, report, engine, store, deep_q)
+            rows += slot_rows(torch, kernels, slots, wl, rate)
+            log(json.dumps({"write": report["write"]}))
+            del slots
+            log(f"elapsed {time.monotonic() - t_start:.1f}s")
+        engine.close()
+        del engine, store, deep_q
     if "serve" in phases:
         phase_serve(kernels, report)
     log(json.dumps({"kernels": rows}))

@@ -49,6 +49,7 @@ _SIGNATURES = {
     "keto_label_step": [_P, _I32, _P, _I32, _I64, _P, _I64, _P, _P],
     "keto_sweep_step": [_P, _P, _P, _I32, _I64, _P, _P, _P, _P, _P, _I32, _I32, _P, _P],
     "keto_covered": [_P, _I64, _I32, _P, _I64, _P, _I32, _P, _P],
+    "keto_slot_set": [_P, _I32, _I64, _P, _P, _P, _I64, _P, _P],
 }
 
 

@@ -21,23 +21,51 @@ empty namespace/object/relation fields wildcard the start expansion while
 subject matching stays literal; an empty relation in a subject set never
 fabricates a transitive grant.
 
-Kept against the reference engine: snapshot (a full rebuild whenever the
-store's watermark moved — read-your-writes), bucket upload, the label
-build overlapped on a background thread and installed only onto the exact
-snapshot it was built for, host resolution, the label router, slicing,
-one device→host copy per batch, the exact truncation re-run ladder and
-the grow-only ``block_iters`` retune. Not here: delta overlays and label
-patches, compaction, the snapshot cache, sharding, the HBM governor, the
-streaming pipeline and slice controller, and any CPU fallback: a device
-error raises, and a failed label build is raised by the next check and by
-``labels_settled()`` instead of leaving serving quietly on BFS.
+Writes (tpu_engine.py:1394-1490, :2054-2760). A watermark advance applies
+as a **delta overlay** on the immutable snapshot (keto_tpu_torch/graph/
+overlay.py): inserts extend it, deletes become tombstones, in milliseconds
+and without re-interning. Tombstoned iterated edges patch their device
+bucket slots and overlay-ELL edges land in the resident ``[K, C]`` overlay
+gather matrix through K9 (``slot_set``), copy-on-write, so a batch that
+captured the old snapshot keeps gathering the old tensors. A supervised
+background pass folds the overlay into the base layout
+(keto_tpu_torch/graph/compaction.py) once it passes
+``overlay_edge_budget`` edges or has been quiet for ``compact_after_s``,
+segment by segment (``fold_segment_edges``), and patches the 2-hop label
+index on the card (``device_patch_labels``); only the touched buckets
+re-upload. A full rebuild happens only where ``apply_delta`` or
+``compact_snapshot`` cannot express the shape (a class change, a delete in
+a wildcard graph, a change of namespace config), or where the store's
+logs no longer reach back. While an overlay edge touches the interior
+subgraph (``lab_dirty``) every check takes the BFS route, which ORs the
+overlay into every pull.
+
+Freshness: ``snapshot()`` is read-your-writes, ``snapshot(at_least=w)``
+serves any snapshot at or past ``w``, and ``snapshot_serving()`` (the
+batcher's default) catches up through a delta synchronously and serves the
+current snapshot only while a full rebuild or a fold holds the refresh
+lock. Label installs take a separate short lock, never the refresh lock.
+
+Kept against the reference engine: bucket upload, the label build
+overlapped on a background thread and installed only onto the exact
+snapshot it was built for, host resolution, the label router, slicing, one
+device→host copy per batch, the exact truncation re-run ladder and the
+grow-only ``block_iters`` retune. Not here: the snapshot cache, group
+commit, sharding, the HBM governor, the streaming pipeline and slice
+controller, and any CPU fallback. A device error raises; a failed label
+build, background refresh, fold or device label patch is counted and
+raised by the next check (and by ``labels_settled()`` and
+``maintenance_settled()``), where the reference would serve stale, rebuild
+or retry on the host.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import logging
 import threading
+import time
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
@@ -54,11 +82,14 @@ from keto_tpu_torch.check.pack import (
 )
 from keto_tpu_torch.graph import label_build
 from keto_tpu_torch.graph.carry import device_graph_from_arrays, snapshot_arrays
-from keto_tpu_torch.graph.labels import build_labels
+from keto_tpu_torch.graph.compaction import compact_snapshot
+from keto_tpu_torch.graph.labels import build_labels, patch_labels
+from keto_tpu_torch.graph.overlay import apply_delta
 from keto_tpu_torch.graph.snapshot import WILDCARD, GraphSnapshot, build_snapshot
 from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectID, SubjectSet
 from keto_tpu_torch.x.device import resolve_device
 from keto_tpu_torch.x.errors import ErrNamespaceUnknown
+from keto_tpu_torch.x.supervise import SupervisedTask
 
 _log = logging.getLogger("keto_tpu_torch.check")
 
@@ -86,11 +117,13 @@ class _HybridSlice:
 class TorchCheckEngine:
     """Check engine answering batched queries on the device graph.
 
-    ``store`` must expose ``snapshot_rows() -> (rows, watermark)`` and
-    ``watermark()`` (keto_tpu_torch/persistence/memory.py); ``namespaces``
+    ``store`` must expose ``snapshot_rows() -> (rows, watermark)``,
+    ``watermark()`` and ``changes_since(watermark)``
+    (keto_tpu_torch/persistence/memory.py); ``namespaces``
     is a namespace.Manager or a zero-arg callable returning the current one.
     ``device`` defaults to ``cuda`` and must be named ``"cpu"`` to run the
-    plain PyTorch path on the host.
+    plain PyTorch path on the host. The overlay knobs and their defaults
+    are the reference's (tpu_engine.py:1086-1092).
     """
 
     def __init__(
@@ -110,6 +143,10 @@ class TorchCheckEngine:
         labels_min_gain: float = 0.0,
         labels_batch: int = 64,
         labels_device_min_edges: int = label_build.DEFAULT_MIN_EDGES,
+        overlay_edge_budget: int = 4096,
+        fold_segment_edges: int = 2048,
+        compact_after_s: float = 5.0,
+        sync_rebuild_budget_s: float = 0.25,
     ):
         if it_cap < 1:
             raise ValueError("it_cap must be >= 1 (the answer pull needs one step)")
@@ -127,8 +164,44 @@ class TorchCheckEngine:
         self._peel_seed_cap = peel_seed_cap
         # pulls per convergence observation, grown to the workload's depth
         self._block_iters = 8
+        # the refresh lock: deltas, folds and full rebuilds hold it. Installs
+        # (the snapshot swap, a label index landing) take the short
+        # _swap_lock instead, so the serving path's non-blocking try on the
+        # refresh lock fails only while a rebuild or a fold runs
         self._lock = threading.Lock()
+        self._swap_lock = threading.Lock()
         self._snapshot: Optional[GraphSnapshot] = None
+        # delta overlays and their background fold (tpu_engine.py:1223-1297)
+        self._max_overlay_edges = int(overlay_edge_budget)
+        self._fold_segment_edges = max(1, int(fold_segment_edges))
+        self._compact_after_s = float(compact_after_s)
+        self._sync_rebuild_budget_s = float(sync_rebuild_budget_s)
+        #: seconds the last full rebuild took (snapshot_serving rebuilds
+        #: inline only while this stays within sync_rebuild_budget_s)
+        self._last_full_build_s = 0.0
+        self._overlay_born: Optional[float] = None
+        # log-structured fold: the last overlay-free snapshot and the delta
+        # segments (base id, watermark, ops) applied on top of it since
+        self._fold_base: Optional[GraphSnapshot] = None
+        self._seg_log: list = []
+        self._pending_seg = None
+        # host mirror of the resident overlay pack ([K, C] gather matrix,
+        # dst vector, slot map, per-row fill): later deltas scatter into it
+        # with K9 instead of re-packing; dropped whenever it may disagree
+        # with the device
+        self._ov_pack: Optional[dict] = None
+        self._label_blocked_snap: Optional[int] = None
+        self._refresh_force_full = False
+        #: the exception of the last failed background refresh pass, raised
+        #: by the next check and by maintenance_settled()
+        self._maintenance_error: Optional[Exception] = None
+        self._refresh_task = SupervisedTask(
+            "refresh", self._refresh_pass, on_error=self._note_maintenance_error
+        )
+        #: what the last compaction did: seconds (the label patch or build
+        #: included), the label outcome, the label patch's or build's ms,
+        #: the touched buckets and their bytes
+        self.last_compaction: Optional[dict] = None
         # 2-hop labels: built per snapshot, served as the one-step route;
         # BFS answers what the labels cannot certify. The knobs and their
         # defaults are the reference's (tpu_engine.py:1097-1168)
@@ -148,34 +221,488 @@ class TorchCheckEngine:
         self.label_build_bytes = 0
         #: BuildInfo of the last device label build
         self.label_build_info: Optional[label_build.BuildInfo] = None
-        # route counters, counted where the reference counts them:
-        # label_checks, label_fallbacks, label_builds, label_device_builds
+        # route and maintenance counters, counted where the reference counts
+        # them: label_checks, label_fallbacks, label_builds,
+        # label_device_builds; delta_applies, overlay_device_applies,
+        # full_rebuilds, compactions, fold_runs, label_patches,
+        # label_patch_aborts, label_rebuilds, label_invalidations; and the
+        # failures the port raises where the reference falls back:
+        # refresh_failures, compaction_failures, label_patch_failures
         self._counters: collections.Counter = collections.Counter()
         self._counter_lock = threading.Lock()
 
     # -- snapshot lifecycle --------------------------------------------------
 
-    def snapshot(self) -> GraphSnapshot:
-        """Device snapshot current with the store's watermark: rebuilt in
-        full (and its buckets uploaded) whenever the watermark moved, so
-        every acknowledged write is visible to the next check."""
+    def snapshot(self, at_least: Optional[int] = None) -> GraphSnapshot:
+        """Device snapshot current with the store's watermark.
+
+        - ``at_least=None``: read-your-writes — blocks until the snapshot
+          reflects every acknowledged write (a delta overlay in the common
+          case, a full rebuild where the delta cannot express the change);
+        - ``at_least=w``: any snapshot with id >= ``w`` serves at once; when
+          the store has moved on, a background refresh is kicked.
+        """
         snap = self._snapshot
         if snap is not None and snap.snapshot_id == self._store.watermark():
+            self._maybe_kick_compaction(snap)
+            return snap
+        if at_least is not None and snap is not None and snap.snapshot_id >= at_least:
+            self._refresh_task.kick()
             return snap
         with self._lock:
-            snap = self._snapshot
+            return self._refresh_locked()
+
+    def snapshot_serving(self) -> GraphSnapshot:
+        """Serving-path snapshot (tpu_engine.py:1426): never stalls the read
+        plane on an expensive rebuild or a fold.
+
+        - the store has not moved → the current snapshot;
+        - the watermark advanced and a delta applies → synchronous catch-up
+          (milliseconds: effectively read-your-writes);
+        - only a full rebuild reaches the watermark → done inline when the
+          last one was cheap (<= ``sync_rebuild_budget_s``), else the current
+          snapshot serves while the background refresh catches up. The same
+          holds while a rebuild or a fold holds the refresh lock.
+
+        A refresh error raises (the reference serves stale and counts it).
+        """
+        snap = self._snapshot
+        if snap is None or self._last_full_build_s <= self._sync_rebuild_budget_s:
+            return self.snapshot()
+        if snap.snapshot_id >= self._store.watermark():
+            self._maybe_kick_compaction(snap)
+            return snap
+        if self._lock.acquire(blocking=False):
+            try:
+                try:
+                    got = self._refresh_locked(delta_only=True)
+                except Exception:
+                    self._incr("refresh_failures")
+                    raise
+                if got is not None:
+                    if self._overlay_edge_count(got) > self._max_overlay_edges:
+                        # serve fresh now; the background pass folds it
+                        self._refresh_task.kick()
+                    return got
+            finally:
+                self._lock.release()
+        # rebuild territory, or a rebuild or fold holds the lock
+        self._refresh_task.kick()
+        return self._snapshot
+
+    def _snapshot_for(self, at_least: Optional[int], mode: str) -> GraphSnapshot:
+        if at_least is not None:
+            return self.snapshot(at_least=at_least)
+        if mode == "serving":
+            return self.snapshot_serving()
+        if mode != "latest":
+            raise ValueError(f"unknown consistency mode {mode!r}")
+        return self.snapshot()
+
+    def _maybe_kick_compaction(self, snap: GraphSnapshot) -> None:
+        """Fold an overlay that has been quiet for ``compact_after_s``, off
+        the serving path."""
+        born = self._overlay_born
+        if snap.has_overlay and born is not None and time.monotonic() - born > self._compact_after_s:
+            self._refresh_force_full = True
+            self._refresh_task.kick()
+
+    def _note_maintenance_error(self, e: Exception) -> None:
+        self._incr("refresh_failures")
+        self._maintenance_error = e
+
+    def _refresh_pass(self) -> None:
+        """One supervised background pass: catch up to the watermark and
+        fold the overlay when it is over budget (or, forced, quiet)."""
+        force_full, self._refresh_force_full = self._refresh_force_full, False
+        try:
+            with self._lock:
+                self._refresh_locked(force_full=force_full, maintenance=True)
+        except Exception:
+            if force_full:
+                self._refresh_force_full = True  # the retry still owes the fold
+            raise
+
+    def maintenance_settled(self, fold: bool = False, timeout: Optional[float] = None) -> GraphSnapshot:
+        """Block until the background refresh is idle (after kicking a fold
+        of the pending overlay when ``fold``) and any label build has
+        installed; raise the error of a failed pass. Returns the serving
+        snapshot. Tests and ``chip_smoke.py`` use it; serving never needs
+        it."""
+        if fold:
+            self._refresh_force_full = True
+            self._refresh_task.kick()
+        if not self._refresh_task.wait_idle(timeout):
+            raise TimeoutError("the background refresh did not settle")
+        self._label_build_wait()
+        self._raise_errors()
+        return self._snapshot
+
+    def close(self) -> None:
+        """Stop the background refresh worker."""
+        self._refresh_task.stop()
+
+    def _refresh_locked(
+        self, force_full: bool = False, delta_only: bool = False, maintenance: bool = False
+    ) -> Optional[GraphSnapshot]:
+        """Bring the snapshot to the current watermark (caller holds the
+        refresh lock): a delta overlay when possible; an overlay past the
+        edge budget (or, with ``force_full``, any) folds into the base
+        layout by segment — on the background pass (``maintenance``) only;
+        a full rebuild is the last resort, for shapes the overlay or the
+        fold cannot express. With ``delta_only`` returns None instead of
+        rebuilding (the serving path)."""
+        snap = self._snapshot
+        wm = self._store.watermark()
+        needs_fold = (
+            snap is not None
+            and snap.has_overlay
+            and maintenance
+            and self._overlay_edge_count(snap) > self._max_overlay_edges
+        )
+        if (
+            snap is not None
+            and snap.snapshot_id == wm
+            and not (force_full and snap.has_overlay)
+            and not needs_fold
+        ):
+            return snap
+        wild_ns_ids = frozenset(n.id for n in self._nm().namespaces() if n.name == "")
+        new = None
+        if snap is not None:
+            new = self._try_delta(snap, wild_ns_ids)
+            if new is not None:
+                # segment log for the background fold
+                seg, self._pending_seg = self._pending_seg, None
+                if seg is not None and (seg[2] or seg[0] != seg[1]):
+                    self._seg_log.append(seg)
+                if len(self._seg_log) > 4096:
+                    # a runaway log: the next fold runs as one compaction
+                    self._fold_base, self._seg_log = None, []
+                self._incr("delta_applies")
+                over = force_full or self._overlay_edge_count(new) > self._max_overlay_edges
+                if over and new.has_overlay and not delta_only:
+                    if not maintenance:
+                        # never fold on a caller's thread
+                        self._refresh_task.kick()
+                    else:
+                        try:
+                            folded = self._fold_locked(new, full=force_full)
+                        except Exception:
+                            self._incr("compaction_failures")
+                            raise
+                        # None: the overlay's shape needs a real re-layout
+                        new = folded
+        rebuilt = new is None
+        if rebuilt:
+            if delta_only:
+                return None
+            t0 = time.monotonic()
             rows, wm = self._store.snapshot_rows()
-            if snap is not None and snap.snapshot_id == wm:
-                return snap
-            wild_ns_ids = frozenset(n.id for n in self._nm().namespaces() if n.name == "")
             new = build_snapshot(rows, wm, wild_ns_ids, peel_seed_cap=self._peel_seed_cap)
+            del rows
             arrays, meta = snapshot_arrays(new)
             new.device = device_graph_from_arrays(arrays, meta, self.device)
-            # the labels phase overlaps serving: BFS answers until the
-            # index installs onto this very snapshot
-            self._start_label_build(new)
+            self._ov_pack = None
+            self._last_full_build_s = time.monotonic() - t0
+            self._incr("full_rebuilds")
+        self._apply_ell_patch(new)
+        self._upload_overlay(new)
+        with self._swap_lock:
             self._snapshot = new
-            return new
+        if new.has_overlay:
+            if self._overlay_born is None:
+                self._overlay_born = time.monotonic()
+            if maintenance and self._overlay_edge_count(new) > self._max_overlay_edges:
+                self._refresh_task.kick()  # a bounded fold left more to fold
+        else:
+            # an overlay-free install is the new fold base
+            self._fold_base, self._seg_log = new, []
+            self._overlay_born = None
+        if rebuilt:
+            # the label build overlaps serving: BFS answers until it installs
+            self._start_label_build(new)
+        return new
+
+    def _overlay_edge_count(self, snap: GraphSnapshot) -> int:
+        """Overlay occupancy: pending delta edges plus tombstones (what the
+        budget compares)."""
+        n = 0
+        if snap.ov_ell is not None:
+            n += int(snap.ov_ell.shape[0])
+        if snap.ov_removed is not None:
+            n += int(snap.ov_removed.size)
+        if snap.ov_out:
+            n += sum(int(np.asarray(v).size) for v in snap.ov_out.values())
+        if snap.ov_sink_in:
+            n += sum(int(np.asarray(v).size) for v in snap.ov_sink_in.values())
+        return n
+
+    def _try_delta(self, base: GraphSnapshot, wild_ns_ids) -> Optional[GraphSnapshot]:
+        """Apply the watermark advance as an overlay. None when the store
+        cannot produce a delta (its logs no longer reach back), the delta
+        needs a class change, or the overlay would pass the hard cap."""
+        got = self._store.changes_since(base.snapshot_id)
+        if got is None:
+            return None
+        ops, new_wm = got
+        n_ov = len(ops) + (base.ov_ell.shape[0] if base.ov_ell is not None else 0)
+        if base.ov_removed is not None:
+            n_ov += int(base.ov_removed.size)
+        # hard cap: past it a delta's merge costs more than a rebuild; the
+        # budget below it is a fold trigger, not a bail
+        if n_ov > max(4 * self._max_overlay_edges, 65536):
+            return None
+        got = apply_delta(base, ops, new_wm, wild_ns_ids)
+        if got is not None:
+            self._pending_seg = (int(base.snapshot_id), int(new_wm), list(ops))
+        return got
+
+    def _compact_locked(self, snap: GraphSnapshot) -> Optional[GraphSnapshot]:
+        """Fold ``snap``'s overlay into its base layout (caller holds the
+        refresh lock). Only the touched buckets re-upload; everything else
+        is reused. None when the overlay needs a full rebuild."""
+        t0 = time.monotonic()
+        self._ov_pack = None  # the compacted snapshot starts a new overlay
+        # pending bucket patches first: untouched device buckets are reused,
+        # which is sound only when they agree with the host arrays
+        self._apply_ell_patch(snap)
+        got = compact_snapshot(snap, label_patcher=self._label_patcher)
+        if got is None:
+            return None
+        new = got.snapshot
+        g = snap.device
+        if g is None:
+            arrays, meta = snapshot_arrays(new)
+            new.device = device_graph_from_arrays(arrays, meta, self.device)
+        else:
+            bufs = list(g.buckets)
+            for bi in got.touched_buckets:
+                bufs[bi] = torch.from_numpy(
+                    np.ascontiguousarray(new.buckets[bi].nbrs, np.int32)
+                ).to(self.device)
+            new.device = dataclasses.replace(g, buckets=tuple(bufs), num_live=new.num_live)
+        if got.labels == "patched":
+            self._incr("label_patches")
+        elif got.labels == "patch_abort":
+            self._incr("label_patch_aborts")
+            self._incr("label_rebuilds")
+        elif got.labels == "rebuild":
+            self._incr("label_rebuilds")
+        if self._labels_enabled and new.labels is None:
+            # as the reference's _ensure_labels: the fold (a background pass)
+            # builds the index its compacted base needs before installing
+            new.labels = self._build_label_index(new)
+            self._incr("label_builds")
+        if new.labels is not None and new.device_labels is None:
+            self._upload_labels(new)
+        self._incr("compactions")
+        self.last_compaction = {
+            "seconds": time.monotonic() - t0,
+            "labels": got.labels,
+            "label_ms": new.labels.build_ms if new.labels is not None else None,
+            "touched_buckets": len(got.touched_buckets),
+            "touched_bytes": got.touched_bytes,
+        }
+        _log.info("overlay compacted: %s", self.last_compaction)
+        return new
+
+    def _fold_locked(self, snap: GraphSnapshot, full: bool = False) -> Optional[GraphSnapshot]:
+        """Log-structured fold (caller holds the refresh lock): replay the
+        OLDEST delta segments onto the last overlay-free base, compact just
+        those, then re-apply the rest — a pass costs about
+        ``fold_segment_edges`` of work however large the overlay grew. With
+        ``full`` every segment folds. Returns the refreshed snapshot (which
+        may still carry the newest segments' overlay), or None when the
+        shape needs a full rebuild."""
+        fb, log = self._fold_base, self._seg_log
+        # continuity: the log must replay fb → snap exactly; otherwise fold
+        # everything at once
+        intact = (
+            fb is not None
+            and log
+            and log[0][0] == fb.snapshot_id
+            and log[-1][1] == snap.snapshot_id
+            and all(log[i][1] == log[i + 1][0] for i in range(len(log) - 1))
+        )
+        if not intact:
+            got = self._compact_locked(snap)
+            if got is not None and not got.has_overlay:
+                self._fold_base, self._seg_log = got, []
+            return got
+        if full:
+            take = len(log)
+        else:
+            take, tot = 0, 0
+            while take < len(log) and (
+                take == 0 or tot + len(log[take][2]) <= self._fold_segment_edges
+            ):
+                tot += len(log[take][2])
+                take += 1
+        prefix, rest = log[:take], log[take:]
+        wild_ns_ids = frozenset(n.id for n in self._nm().namespaces() if n.name == "")
+        mid = fb
+        for _base_id, seg_wm, ops in prefix:
+            mid = apply_delta(mid, ops, seg_wm, wild_ns_ids)
+            if mid is None:
+                return None
+            # flush each segment's bucket patches before stacking the next
+            # (apply_delta replaces ell_patch, it does not extend it)
+            self._apply_ell_patch(mid)
+        new_base = self._compact_locked(mid) if mid.has_overlay else mid
+        if new_base is None or new_base.has_overlay:
+            return None
+        cur = new_base
+        for _base_id, seg_wm, ops in rest:
+            cur = apply_delta(cur, ops, seg_wm, wild_ns_ids)
+            if cur is None:
+                return None
+            self._apply_ell_patch(cur)
+        self._fold_base, self._seg_log = new_base, rest
+        self._ov_pack = None  # a new lineage: the upload below re-packs
+        self._incr("fold_runs")
+        _log.info("overlay fold: %d/%d segments folded (%d remain)", take, len(log), len(rest))
+        return cur
+
+    # -- device patches (K9) ---------------------------------------------------
+
+    def _apply_ell_patch(self, snap: GraphSnapshot) -> None:
+        """Apply a delta's pending bucket-slot patches (tombstoned or
+        restored iterated edges) with K9 on copies of the touched buckets,
+        installed on ``snap`` alone: the base snapshot's tensors are
+        untouched, so batches in flight keep gathering the old state."""
+        patch = snap.ell_patch
+        snap.ell_patch = None
+        g = snap.device
+        if not patch or g is None:
+            return
+        by_bucket: dict[int, list] = {}
+        for bi, row, col, val in patch:
+            by_bucket.setdefault(bi, []).append((row, col, val))
+        bufs = list(g.buckets)
+        for bi, entries in by_bucket.items():
+            e = np.asarray(entries, np.int64)
+            bufs[bi] = kernels.slot_set(bufs[bi], e[:, 0], e[:, 1], e[:, 2])
+        snap.device = dataclasses.replace(g, buckets=tuple(bufs))
+
+    def _apply_overlay_delta(self, snap: GraphSnapshot, delta) -> bool:
+        """Scatter one delta's added and dropped overlay-ELL edges into the
+        resident gather matrix with K9, on copies (the base snapshot's
+        tensors stay untouched). True when the delta landed; False when it
+        cannot (no resident pack, another lineage, capacity outgrown) and
+        the caller re-packs. Holes are the ``num_int`` sentinel (an all-zero
+        row), pad rows have ``dst = num_active``."""
+        pack = self._ov_pack
+        if pack is None or delta is None:
+            return False
+        base_id, added, dropped = delta
+        if pack["snap_id"] != base_id:
+            return False
+        nbrs, dst = pack["nbrs"], pack["dst"]
+        K, C = nbrs.shape
+        slot, row_of, fill = pack["slot"], pack["row_of"], pack["fill"]
+        rows: list = []
+        cols: list = []
+        vals: list = []
+        drows: list = []
+        dvals: list = []
+        num_int = snap.num_int
+        # the host mirror moves from here on: any bail or error below must
+        # drop it, so the next upload re-packs
+        for s, d in dropped:
+            rc = slot.pop((s, d), None)
+            if rc is None:
+                self._ov_pack = None
+                return False
+            r, c = rc
+            nbrs[r, c] = num_int
+            rows.append(r)
+            cols.append(c)
+            vals.append(num_int)
+        for s, d in added:
+            r = row_of.get(d)
+            if r is None:
+                r = pack["rows_used"]
+                if r >= K:
+                    self._ov_pack = None
+                    return False  # destination rows outgrew the capacity
+                pack["rows_used"] = r + 1
+                row_of[d] = r
+                fill[r] = 0
+                dst[r] = d
+                drows.append(r)
+                dvals.append(d)
+            c = int(fill[r])
+            if c >= C:
+                self._ov_pack = None
+                return False  # a row outgrew its column capacity
+            fill[r] = c + 1
+            nbrs[r, c] = s
+            slot[(s, d)] = (r, c)
+            rows.append(r)
+            cols.append(c)
+            vals.append(s)
+        dev_n, dev_d = pack["dev"]
+        try:
+            if rows:
+                dev_n = kernels.slot_set(dev_n, rows, cols, vals)
+            if drows:
+                dev_d = kernels.slot_set(dev_d, drows, None, dvals)
+        except Exception:
+            self._ov_pack = None
+            raise
+        pack["dev"] = (dev_n, dev_d)
+        pack["snap_id"] = int(snap.snapshot_id)
+        snap.device_overlay = pack["dev"]
+        self._incr("overlay_device_applies")
+        return True
+
+    def _upload_overlay(self, snap: GraphSnapshot) -> None:
+        """Place the overlay-ELL edges as a ``[K, C]`` gather matrix plus a
+        ``[K]`` dst vector (pow2-padded, so later deltas fit the spare
+        capacity): a delta that fits the resident pack scatters into it
+        (``_apply_overlay_delta``, K9), anything else re-packs and uploads."""
+        delta = snap.ov_ell_delta
+        snap.ov_ell_delta = None
+        if snap.ov_ell is None or snap.ov_ell.shape[0] == 0:
+            self._ov_pack = None
+            snap.device_overlay = None
+            return
+        if self._apply_overlay_delta(snap, delta):
+            return
+        src = snap.ov_ell[:, 0]
+        dst = snap.ov_ell[:, 1]
+        order = np.argsort(dst, kind="stable")
+        src, dst = src[order], dst[order]
+        uniq, starts = np.unique(dst, return_index=True)
+        counts = np.diff(np.append(starts, dst.shape[0]))
+        K = _ceil_pow2(uniq.shape[0])
+        C = _ceil_pow2(int(counts.max()))
+        nbrs = np.full((K, C), snap.num_int, np.int32)  # the all-zero bitmap row
+        for i, (s0, c) in enumerate(zip(starts, counts)):
+            nbrs[i, :c] = src[s0 : s0 + c]
+        dst_pad = np.full(K, snap.num_active, np.int32)  # pad rows: masked
+        dst_pad[: uniq.shape[0]] = uniq
+        snap.device_overlay = (
+            torch.from_numpy(nbrs.copy()).to(self.device),
+            torch.from_numpy(dst_pad.copy()).to(self.device),
+        )
+        fill = np.zeros(K, np.int64)
+        fill[: counts.shape[0]] = counts
+        self._ov_pack = {
+            "snap_id": int(snap.snapshot_id),
+            "nbrs": nbrs,
+            "dst": dst_pad,
+            "dev": snap.device_overlay,
+            "row_of": {int(d): i for i, d in enumerate(uniq)},
+            "fill": fill,
+            "rows_used": int(uniq.shape[0]),
+            "slot": {
+                (int(src[s0 + j]), int(uniq[i])): (i, j)
+                for i, (s0, c) in enumerate(zip(starts, counts))
+                for j in range(int(c))
+            },
+        }
 
     # -- counters ------------------------------------------------------------
 
@@ -184,8 +711,8 @@ class TorchCheckEngine:
             self._counters[name] += by
 
     def counters(self) -> dict:
-        """The route counters (``label_checks``, ``label_fallbacks``,
-        ``label_builds``, ``label_device_builds``) since construction."""
+        """The route and maintenance counters since construction (see
+        ``__init__``)."""
         with self._counter_lock:
             return dict(self._counters)
 
@@ -248,7 +775,7 @@ class TorchCheckEngine:
     def _start_label_build(self, snap: GraphSnapshot) -> None:
         """Kick the label construction for ``snap`` on a background thread;
         the engine serves ``snap`` on the BFS route until the index installs
-        under the lock. The thread launches on its own current stream (the
+        under the install lock. The thread launches on its own current stream (the
         default stream, as serving does), so its kernels and serving's
         serialise on the card. A failure is kept on the engine and raised
         by the next check and by ``labels_settled()``."""
@@ -264,7 +791,7 @@ class TorchCheckEngine:
                 if self._label_build_thread is threading.current_thread():
                     self._label_build_error = e
                 return
-            with self._lock:
+            with self._swap_lock:
                 self._install_labels_locked(snap, idx)
 
         t = threading.Thread(target=work, name="label-build", daemon=True)
@@ -272,10 +799,11 @@ class TorchCheckEngine:
         t.start()
 
     def _install_labels_locked(self, snap: GraphSnapshot, idx) -> None:
-        """Land a background-built index (caller holds the lock) on the
-        snapshot it was built for, and upload it only while that snapshot
-        is the one being served: a later snapshot starts its own build, and
-        an index never serves another snapshot's edges."""
+        """Land a background-built index (caller holds the install lock) on
+        the snapshot it was built for, and upload it only while that
+        snapshot is the one being served: a fold or a rebuild makes a new
+        snapshot object, which gets its own index (patched or built), and an
+        index never serves another snapshot's edges."""
         snap.labels = idx
         self._incr("label_builds")
         if self._snapshot is snap:
@@ -287,10 +815,15 @@ class TorchCheckEngine:
         if t is not None and t.is_alive():
             t.join()
 
-    def _raise_label_error(self) -> None:
+    def _raise_errors(self) -> None:
+        """Raise a background failure: the label build's (until a new build
+        starts) or the refresh pass's (once, to the next caller)."""
         err = self._label_build_error
         if err is not None:
             raise RuntimeError("the label build failed") from err
+        err, self._maintenance_error = self._maintenance_error, None
+        if err is not None:
+            raise RuntimeError("the background refresh failed") from err
 
     def labels_settled(self) -> bool:
         """Force the snapshot refresh and block until its label build has
@@ -298,7 +831,7 @@ class TorchCheckEngine:
         the serving snapshot carries an index."""
         self.snapshot()
         self._label_build_wait()
-        self._raise_label_error()
+        self._raise_errors()
         snap = self._snapshot
         return snap is not None and snap.labels is not None
 
@@ -309,8 +842,36 @@ class TorchCheckEngine:
         )
 
     def _labels_usable(self, snap: GraphSnapshot) -> bool:
-        """Route checks through the label index on this snapshot?"""
-        return self._labels_enabled and snap.labels is not None and snap.device_labels is not None
+        """Route checks through the label index on this snapshot? Not while
+        a pending overlay has mutated the interior subgraph (``lab_dirty``):
+        stale labels would deny wrongly. Counted once per blocked snapshot
+        as a ``label_invalidations`` event (tpu_engine.py:3182)."""
+        if not self._labels_enabled or snap.labels is None:
+            return False
+        if snap.lab_dirty:
+            with self._counter_lock:
+                if self._label_blocked_snap != snap.snapshot_id:
+                    self._label_blocked_snap = snap.snapshot_id
+                    self._counters["label_invalidations"] += 1
+            return False
+        return snap.device_labels is not None
+
+    def _label_patcher(self, idx, snap, added_edges, visit_budget: int = 65536):
+        """Compaction's incremental label patch (tpu_engine.py:3101): on the
+        device sweeps (``device_patch_labels``, K6 without expansion
+        pruning) past ``labels_device_min_edges`` interior ELL slots, on the
+        host walk below. A failed device patch raises (counted); it is not
+        retried on the host. None means the patch aborted: rebuild."""
+        if self._labels_device_build and self._interior_ell_slots(snap) >= self._labels_device_min_edges:
+            try:
+                return label_build.device_patch_labels(
+                    idx, snap, added_edges, visit_budget=visit_budget,
+                    batch=self._labels_batch, device=self.device,
+                )
+            except Exception:
+                self._incr("label_patch_failures")
+                raise
+        return patch_labels(idx, snap, added_edges, visit_budget=visit_budget)
 
     # -- resolution ----------------------------------------------------------
 
@@ -387,7 +948,7 @@ class TorchCheckEngine:
             t = self._subject_target(snap, tuples[i], _ns)
             if t is None:
                 continue  # nil subject / unknown subject namespace → denied
-            if 0 <= t < nl:
+            if 0 <= t < nl or (t >= nl and snap.is_answerable_target(t)):
                 tg[i] = t
             sd[i] = -2
             # interior starts seed the bitmap; sink starts (no out-edges)
@@ -417,6 +978,7 @@ class TorchCheckEngine:
         resolve_set = snap.interned.resolve_set
         raw2dev = snap.raw2dev
         wild_ids = snap.wild_ns_ids
+        ov_set = snap.ov_set_ids or {}
         _ns = self._ns_resolver()
 
         special: list[int] = []
@@ -429,30 +991,47 @@ class TorchCheckEngine:
                 special.append(i)  # wildcard pattern → bulk family resolver
                 continue
             raw = resolve_set(ns_id, obj, rel)
-            if raw < 0:
-                continue
+            if raw >= 0:
+                start_dev = int(raw2dev[raw])
+            else:
+                start_dev = ov_set.get((ns_id, obj, rel), -1)
+                if start_dev < 0:
+                    continue
             t = self._subject_target(snap, rt, _ns)
             if t is None:
                 continue  # nil subject / unknown subject namespace → denied
-            if 0 <= t < nl:
+            if 0 <= t < nl or (t >= nl and snap.is_answerable_target(t)):
                 tg[i] = t
-            sd[i] = int(raw2dev[raw])
+            sd[i] = start_dev
         if special:
             self._resolve_specials(snap, tuples, special, sd, tg, multi)
         return sd, tg, multi
 
     # -- public API ----------------------------------------------------------
 
-    def batch_check(self, tuples: Sequence[RelationTuple]) -> list[bool]:
+    def batch_check(
+        self,
+        tuples: Sequence[RelationTuple],
+        *,
+        at_least: Optional[int] = None,
+        mode: str = "latest",
+    ) -> list[bool]:
         """Answer every query (see ``batch_check_with_token``)."""
-        return self.batch_check_with_token(tuples)[0]
+        return self.batch_check_with_token(tuples, at_least=at_least, mode=mode)[0]
 
-    def batch_check_with_token(self, tuples: Sequence[RelationTuple]) -> tuple[list[bool], int]:
+    def batch_check_with_token(
+        self,
+        tuples: Sequence[RelationTuple],
+        *,
+        at_least: Optional[int] = None,
+        mode: str = "latest",
+    ) -> tuple[list[bool], int]:
         """Decisions plus the id of the snapshot that produced them (the
-        snaptoken). Every call reads the latest snapshot, so a check sees
-        every write acknowledged before it."""
-        snap = self.snapshot()
-        self._raise_label_error()
+        snaptoken). ``mode="latest"`` (the default) is read-your-writes;
+        ``at_least=w`` serves any snapshot at or past a write's token;
+        ``mode="serving"`` never stalls on a rebuild (``snapshot_serving``)."""
+        snap = self._snapshot_for(at_least, mode)
+        self._raise_errors()
         if snap.n_nodes == 0 or snap.n_edges == 0 or not tuples:
             return [False] * len(tuples), snap.snapshot_id
         out, max_iters = self._run_exact(snap, tuples)
@@ -527,7 +1106,10 @@ class TorchCheckEngine:
         m_host = ((sd >= ni) & (sd < sbase)) | (sd >= nl)
         if m_host.any():
             s = sd[m_host]
-            cnt[m_host] = ip[s + 1] - ip[s]
+            in_b = s < snap.n_base_nodes
+            c = np.ones(s.shape[0], np.int64)  # overlay adjacency: small
+            c[in_b] = ip[s[in_b] + 1] - ip[s[in_b]]
+            cnt[m_host] = c
         has_start = m_int | m_host
         for i, (live, hostp) in multi.items():
             cnt[i] = live.size + hostp.size
@@ -720,9 +1302,12 @@ class TorchCheckEngine:
         buf, sizes = pack_entries(packed)
         g = snap.device
         entries = torch.from_numpy(buf).to(g.device)
+        ov = snap.device_overlay or (None, None)
         dev = kernels.check_step(
             g.buckets,
             entries,
+            ov[0],
+            ov[1],
             sizes=sizes,
             n_active=g.num_active,
             n_int=g.num_int,

@@ -1,6 +1,6 @@
 """The check path's device programs: the BFS pull (K1), the fixpoint step
-(K2) and the label intersection (K3), each as a plain PyTorch version and a
-hand-written CUDA kernel.
+(K2), the label intersection (K3) and the slot set of the write path (K9),
+each as a plain PyTorch version and a hand-written CUDA kernel.
 
 Source notes:
 
@@ -22,6 +22,16 @@ Source notes:
   csrc/label_kernels.cu, one warp per pair. Bound: operations at large
   label widths (Wo·Wi int32 compares per pair), else the bytes of the
   pairs' label rows.
+- ``slot_set`` replaces the XLA scatter ``buf.at[rows, cols].set(vals)`` of
+  ``_apply_ell_patch`` (tpu_engine.py:2542), ``_apply_overlay_delta``
+  (:2665) and ``_Mirror.flush_device`` (keto_tpu/graph/label_build.py:433).
+  CUDA: ``keto_slot_set`` in csrc/patch_kernels.cu, one thread per entry.
+  The wrapper keeps the last entry per slot (the reference leaves the
+  winner of a duplicate undefined; its callers never make one), copies the
+  target first unless asked to write in place (the first two sites update
+  functionally: batches in flight keep gathering the old tensor), and
+  raises on an entry outside the target. Bound: bytes — the copy reads and
+  writes the target once, each entry is read once and written once.
 
 The output is the reference's ``uint32[W+2]`` (held as int32): decision
 bits, then the iteration count, then the truncation flag, equal word for
@@ -37,13 +47,17 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 #: per-CUDA-kernel launch counters (chip_smoke.py reads them); the label
 #: build's kernels (keto_tpu_torch/graph/label_kernels.py) count here too
 COUNTS = {
     "seed": 0, "pull": 0, "commit": 0, "close": 0, "answer_pack": 0,
-    "label_step": 0, "sweep_step": 0, "covered": 0,
+    "label_step": 0, "sweep_step": 0, "covered": 0, "slot_set": 0,
+    # of the "pull" launches, those over the overlay gather matrix (K2's
+    # overlay stage); not a kernel of its own
+    "pull_overlay": 0,
 }
 #: the kernels of the BFS route and of the label route's intersection
 BFS_KERNELS = ("seed", "pull", "commit", "close", "answer_pack")
@@ -225,6 +239,56 @@ def label_step_ref(out_lab, in_lab, entries, *, n_pairs: int, B: int) -> torch.T
     return _pack_bits(ans)
 
 
+def _slot_entries(buf: torch.Tensor, rows, cols, vals):
+    """Host entry arrays for a slot set on ``buf``: int64 rows/cols, int32
+    vals, the 1-D case as column 0, only the LAST entry per slot kept (in
+    first-kept order), and every slot checked against the target."""
+    rows = np.asarray(rows, np.int64).ravel()
+    cols = np.zeros_like(rows) if cols is None else np.asarray(cols, np.int64).ravel()
+    vals = np.asarray(vals, np.int64).ravel()
+    if not (rows.shape == cols.shape == vals.shape):
+        raise ValueError(f"slot set: {rows.size} rows, {cols.size} cols, {vals.size} vals")
+    if buf.dim() not in (1, 2):
+        raise ValueError(f"slot set: expected a 1-D or 2-D target, got {tuple(buf.shape)}")
+    ld = 1 if buf.dim() == 1 else buf.shape[1]
+    if rows.size:
+        key = rows * ld + cols
+        _, last_rev = np.unique(key[::-1], return_index=True)
+        keep = np.sort(rows.size - 1 - last_rev)
+        rows, cols, vals = rows[keep], cols[keep], vals[keep]
+    return rows, cols, vals.astype(np.int32), ld
+
+
+def _slot_range_error(buf, rows, cols, ld) -> Optional[ValueError]:
+    bad = (rows < 0) | (rows >= buf.shape[0]) | (cols < 0) | (cols >= ld)
+    if bad.any():
+        i = int(np.nonzero(bad)[0][0])
+        return ValueError(
+            f"slot set: entry ({rows[i]}, {cols[i]}) lies outside a target of "
+            f"{tuple(buf.shape)}"
+        )
+    return None
+
+
+def slot_set_ref(buf: torch.Tensor, rows, cols, vals, *, in_place: bool = False) -> torch.Tensor:
+    """K9 in plain PyTorch: ``out = buf.clone(); out[rows, cols] = vals``
+    (``out`` is ``buf`` itself with ``in_place``), after the wrapper's
+    last-entry-per-slot dedup; raises on a slot outside ``buf``."""
+    rows, cols, vals, ld = _slot_entries(buf, rows, cols, vals)
+    err = _slot_range_error(buf, rows, cols, ld)
+    if err is not None:
+        raise err
+    out = buf if in_place else buf.clone()
+    if rows.size:
+        v = torch.from_numpy(vals).to(out.device)
+        r = torch.from_numpy(rows).to(out.device)
+        if out.dim() == 1:
+            out[r] = v
+        else:
+            out[r, torch.from_numpy(cols).to(out.device)] = v
+    return out
+
+
 # -- CUDA wrappers ------------------------------------------------------------
 
 
@@ -325,6 +389,7 @@ def pull_cuda(
         if ov_dst.numel() != ov_nbrs.shape[0]:
             raise ValueError("ov_dst must name one destination row per ov_nbrs row")
         COUNTS["pull"] += 1
+        COUNTS["pull_overlay"] += 1
         _check(lib.keto_pull(ov_nbrs.data_ptr(), ov_nbrs.shape[0], ov_nbrs.shape[1],
                              ov_dst.data_ptr(), 0, n_active, R.data_ptr(), P.data_ptr(),
                              W, state_p, stream), "keto_pull")
@@ -422,6 +487,35 @@ def label_step_cuda(out_lab, in_lab, entries, *, n_pairs: int, B: int) -> torch.
     return out
 
 
+def slot_set_cuda(buf: torch.Tensor, rows, cols, vals, *, in_place: bool = False) -> torch.Tensor:
+    """K9 via ``keto_slot_set``: one upload of the deduplicated entries,
+    a device copy of ``buf`` unless ``in_place``, one launch, and one read
+    of the error word (an out-of-range entry raises)."""
+    if buf.device.type != "cuda" or buf.dtype != torch.int32 or not buf.is_contiguous():
+        raise ValueError(
+            f"buf: expected a contiguous int32 CUDA tensor, got {buf.dtype} "
+            f"{tuple(buf.shape)} on {buf.device}"
+        )
+    rows, cols, vals, ld = _slot_entries(buf, rows, cols, vals)
+    out = buf if in_place else buf.clone()
+    m = int(rows.size)
+    if not m:
+        return out
+    ent = torch.from_numpy(
+        np.concatenate([rows.astype(np.int32), cols.astype(np.int32), vals])
+    ).to(buf.device)
+    err = torch.zeros(1, dtype=torch.int32, device=buf.device)
+    COUNTS["slot_set"] += 1
+    _check(_lib().keto_slot_set(out.data_ptr(), ld, buf.shape[0], ent.data_ptr(),
+                                ent.data_ptr() + 4 * m, ent.data_ptr() + 8 * m, m,
+                                err.data_ptr(), _stream()), "keto_slot_set")
+    if int(err.item()):
+        raise _slot_range_error(buf, rows, cols, ld) or ValueError(
+            "keto_slot_set flagged an entry outside its target"
+        )
+    return out
+
+
 # -- dispatchers ----------------------------------------------------------------
 
 
@@ -452,3 +546,12 @@ def label_step(out_lab, in_lab, entries: torch.Tensor, *, n_pairs: int, B: int) 
     if _on_cpu(entries):
         return label_step_ref(out_lab, in_lab, entries, n_pairs=n_pairs, B=B)
     return label_step_cuda(out_lab, in_lab, entries, n_pairs=n_pairs, B=B)
+
+
+def slot_set(buf: torch.Tensor, rows, cols, vals, *, in_place: bool = False) -> torch.Tensor:
+    """K9: ``buf[rows, cols] = vals`` (``cols`` None for a 1-D ``buf``) on a
+    copy, or on ``buf`` itself with ``in_place``; the plain version for a
+    CPU tensor, the kernel for a CUDA tensor. Host entry arrays."""
+    if _on_cpu(buf):
+        return slot_set_ref(buf, rows, cols, vals, in_place=in_place)
+    return slot_set_cuda(buf, rows, cols, vals, in_place=in_place)

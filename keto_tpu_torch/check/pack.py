@@ -135,8 +135,9 @@ def pack_chunk(
     the forward CSR, one vectorized gather per hop over the whole chunk's
     frontier: reached bitmap rows become device seeds (e2), reached
     query targets are decided on host, and reached peeled rows continue
-    the frontier (the peeled subgraph is a DAG; the per-(query, row)
-    visited filter bounds the walk regardless). Sink targets get answer-gather entries from the
+    the frontier (the peeled subgraph is a DAG among base nodes; the
+    per-(query, row) visited filter also ends cycles a delta overlay may
+    close). Sink targets get answer-gather entries from the
     snapshot's sink reverse CSR. This is the numpy walk of the JAX
     package's pack_chunk (its ``native=False`` path), byte for byte.
 
@@ -165,7 +166,8 @@ def pack_chunk(
     if m_int.any():
         e1[0].append(sdc[m_int])
         e1[1].append(qi[m_int])
-    # host-propagated starts: peeled interior and static nodes. Sink
+    # host-propagated starts: peeled interior, static and overlay nodes (an
+    # overlay sink start has no out-edges and yields nothing). Base sink
     # starts [sb, nl) have no out-edges: nothing to seed.
     m_host = ((sdc >= ni) & (sdc < sb)) | (sdc >= nl)
     prop_rows = [sdc[m_host]] if m_host.any() else []
@@ -237,6 +239,10 @@ def pack_chunk(
             has_start[i - i0] = multi[i][0].size > 0 or multi[i][1].size > 0
     ans: tuple[list, list] = ([], [])
     m_sink_t = (tgc >= sb) & (tgc < nl)
+    if snap.ov_sink_in:
+        # overlay targets (ids >= n_base_nodes) and base sinks with overlay
+        # in-edges both answer through sink_in_rows_bulk
+        m_sink_t = m_sink_t | np.isin(tgc, np.fromiter(snap.ov_sink_in.keys(), np.int64))
     m_ans = has_start & m_sink_t
     if m_ans.any():
         rows, cnts = snap.sink_in_rows_bulk(tgc[m_ans])

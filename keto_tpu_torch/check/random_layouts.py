@@ -12,7 +12,9 @@ pads ``ov_dst`` with ``n_active``. The label layouts keep the label
 index's: OUT rows pad with -1 and IN rows with -2 after their entries,
 row ``n`` is all padding, and pad pairs name row ``n`` for query 0; the
 sweep groups write distinct ``dst`` rows and gather sentinel ``n`` (an
-all-zero frontier row).
+all-zero frontier row). The slot-set targets are a bucket, the overlay's
+rows or dst vector, or a label mirror, with distinct slots unless asked
+for duplicates.
 """
 
 from __future__ import annotations
@@ -163,3 +165,21 @@ def random_covered_case(rng, rows: int, width: int, u: int, wt: int, pad: int = 
     lab = random_label_rows(rng, rows - 1, width, pad, hi)
     U = np.sort(rng.choice(hi, size=u, replace=False)).astype(np.int32)
     return lab, U, _bits(rng, (u, wt))
+
+
+def random_slot_case(rng, rows: int, ld: int, m: int, dup: bool = False, one_d: bool = False):
+    """A slot-set target and its entries, as the write path makes them:
+    ``(buf, rows, cols, vals)`` with ``buf`` int32 ``[rows, ld]`` (``[rows]``
+    with ``one_d``, ``cols`` then None) and ``m`` entries at distinct slots
+    (``m <= rows·ld``), or with ``dup`` about a quarter of them landing on
+    slots already named, in a random order."""
+    shape = (rows,) if one_d else (rows, ld)
+    buf = rng.integers(-2, rows + 2, size=shape).astype(np.int32)
+    width = 1 if one_d else ld
+    flat = rng.choice(rows * width, size=m, replace=False) if m else np.zeros(0, np.int64)
+    if dup and m > 1:
+        k = max(1, m // 4)
+        flat[rng.choice(m, size=k, replace=False)] = flat[rng.integers(0, m, size=k)]
+    vals = rng.integers(-2, rows + 2, size=m).astype(np.int32)
+    r, c = flat // width, flat % width
+    return buf, r, None if one_d else c, vals

@@ -6,9 +6,16 @@ blocks on a future; a collector thread drains the queue up to
 ``batch_size`` tuples or ``window_ms`` (whichever first) and dispatches one
 ``batch_check_with_token`` call for the round.
 
+Freshness (keto_tpu/driver/batch.py:214-290, :472-480): the default is the
+serving mode (``snapshot_serving``: a delta catches up inline, a rebuild or
+a fold never stalls the round); ``at_least`` pins a write's snaptoken and
+``latest`` forces read-your-writes. A round asks the engine for the
+strongest of its requests: ``latest`` if any asked for it, else the highest
+``at_least``.
+
 Left out against the reference batcher: priority lanes, admission control,
 deadline shedding before dispatch, request timelines and the streaming
-dispatch — the Check slice's engine answers a round in one call.
+dispatch — the engine answers a round in one call.
 """
 
 from __future__ import annotations
@@ -25,19 +32,21 @@ from keto_tpu_torch.x.errors import ErrDeadlineExceeded
 
 
 class _Item:
-    """One queued request: its tuples and its future."""
+    """One queued request: its tuples, its freshness and its future."""
 
-    __slots__ = ("tuples", "fut")
+    __slots__ = ("tuples", "fut", "at_least", "latest")
 
-    def __init__(self, tuples, fut):
+    def __init__(self, tuples, fut, at_least=None, latest=False):
         self.tuples = tuples
         self.fut = fut
+        self.at_least = at_least
+        self.latest = latest
 
 
 class CheckBatcher:
     def __init__(self, engine, batch_size: int = 4096, window_ms: float = 1.0):
-        """``engine`` needs ``batch_check_with_token(tuples) ->
-        (list[bool], snaptoken)``."""
+        """``engine`` needs ``batch_check_with_token(tuples, *, at_least,
+        mode) -> (list[bool], snaptoken)``."""
         self._engine = engine
         self._batch_size = batch_size
         self._window_s = window_ms / 1e3
@@ -81,36 +90,59 @@ class CheckBatcher:
 
     # -- API -----------------------------------------------------------------
 
-    def check(self, tuple_: RelationTuple, timeout: Optional[float] = 30.0) -> bool:
+    def check(
+        self,
+        tuple_: RelationTuple,
+        timeout: Optional[float] = 30.0,
+        *,
+        at_least: Optional[int] = None,
+        latest: bool = False,
+    ) -> bool:
         """Blocking single check, transparently batched with concurrent
-        callers."""
-        return self.check_with_token(tuple_, timeout)[0]
+        callers. Serving mode unless ``at_least`` or ``latest`` say
+        otherwise."""
+        return self.check_with_token(tuple_, timeout, at_least=at_least, latest=latest)[0]
 
     def check_with_token(
-        self, tuple_: RelationTuple, timeout: Optional[float] = 30.0
+        self,
+        tuple_: RelationTuple,
+        timeout: Optional[float] = 30.0,
+        *,
+        at_least: Optional[int] = None,
+        latest: bool = False,
     ) -> tuple[bool, Optional[int]]:
         """``check`` plus the id of the snapshot that decided it."""
-        results, token = self._submit([tuple_], timeout)
+        results, token = self._submit([tuple_], timeout, at_least, latest)
         return bool(results[0]), token
 
     def check_batch(
-        self, tuples: Sequence[RelationTuple], timeout: Optional[float] = None
+        self,
+        tuples: Sequence[RelationTuple],
+        timeout: Optional[float] = None,
+        *,
+        at_least: Optional[int] = None,
+        latest: bool = False,
     ) -> list[bool]:
-        return self.check_batch_with_token(tuples, timeout)[0]
+        return self.check_batch_with_token(tuples, timeout, at_least=at_least, latest=latest)[0]
 
     def check_batch_with_token(
-        self, tuples: Sequence[RelationTuple], timeout: Optional[float] = None
+        self,
+        tuples: Sequence[RelationTuple],
+        timeout: Optional[float] = None,
+        *,
+        at_least: Optional[int] = None,
+        latest: bool = False,
     ) -> tuple[list[bool], Optional[int]]:
         tuples = list(tuples)
         if not tuples:
             return [], None
-        results, token = self._submit(tuples, timeout)
+        results, token = self._submit(tuples, timeout, at_least, latest)
         return [bool(r) for r in results], token
 
-    def _submit(self, tuples, timeout):
+    def _submit(self, tuples, timeout, at_least=None, latest=False):
         if self._stop.is_set() or self._thread is None:
             raise RuntimeError("check batcher is not running")
-        item = _Item(tuples, Future())
+        item = _Item(tuples, Future(), at_least, latest)
         with self._cond:
             self._queue.append(item)
             self._queued_tuples += len(tuples)
@@ -119,6 +151,15 @@ class CheckBatcher:
             return item.fut.result(timeout=timeout)
         except FutureTimeout:
             raise ErrDeadlineExceeded("deadline expired waiting for the check result") from None
+
+    @staticmethod
+    def _consistency_kw(items) -> dict:
+        """The engine arguments for one round: the strongest freshness any
+        of its requests asked for."""
+        if any(it.latest for it in items):
+            return {"mode": "latest"}
+        floors = [it.at_least for it in items if it.at_least is not None]
+        return {"at_least": max(floors) if floors else None, "mode": "serving"}
 
     # -- dispatch ------------------------------------------------------------
 
@@ -154,7 +195,9 @@ class CheckBatcher:
                 continue
             try:
                 flat = [t for it in items for t in it.tuples]
-                results, token = self._engine.batch_check_with_token(flat)
+                results, token = self._engine.batch_check_with_token(
+                    flat, **self._consistency_kw(items)
+                )
             except Exception as e:
                 for it in items:
                     try:

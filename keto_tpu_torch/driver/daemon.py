@@ -4,8 +4,11 @@ internal/driver/daemon.go, cut to the Check slice). The engine serves with
 2-hop labels on, as the reference's daemon does; ``engine_options`` passes
 the label knobs (``labels_enabled``, ``labels_max_width``,
 ``labels_landmarks``, ``labels_device_build``, ``labels_min_gain``,
-``labels_batch``, ``labels_device_min_edges``) through to
-``TorchCheckEngine``."""
+``labels_batch``, ``labels_device_min_edges``) and the overlay knobs
+(``overlay_edge_budget``, ``fold_segment_edges``, ``compact_after_s``,
+``sync_rebuild_budget_s``) through to ``TorchCheckEngine``. Writes apply as
+delta overlays folded in the background (keto_tpu_torch/graph/overlay.py,
+keto_tpu_torch/graph/compaction.py)."""
 
 from __future__ import annotations
 
@@ -54,3 +57,4 @@ class Daemon:
         self.read.stop()
         self.write.stop()
         self.batcher.stop()
+        self.engine.close()

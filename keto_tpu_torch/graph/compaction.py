@@ -1,0 +1,375 @@
+"""Overlay compaction: fold a delta overlay into the base layout in place.
+
+A copy of the check-path parts of keto_tpu/graph/compaction.py. Instead of
+a full rebuild (re-intern every row, re-peel, re-lay-out every bucket), the
+overlay (keto_tpu_torch/graph/overlay.py) merges INTO the existing layout,
+reusing everything expensive:
+
+- **interner**: never re-run. New overlay nodes fold in through an
+  ``ExtendedInterned`` view (keto_tpu_torch/graph/interner.py): the
+  immutable base tables plus small append-only extension tables, so batches
+  in flight on the pre-compaction snapshot stay consistent;
+- **device ids**: every base id below ``num_live`` is stable. New sink-class
+  nodes splice in at the sink/static boundary (statics shift up by the
+  new-sink count — a vectorized remap of ``raw2dev`` and the forward CSR
+  values), new static-class nodes append at the end. Bitmap geometry
+  (``num_int``, ``num_active``, bucket row counts) never changes;
+- **buckets**: overlay-ELL edges fill sentinel slots in their destination
+  row; a row out of slots widens its bucket's column capacity. Tombstoned
+  iterated edges get their slot sentinel-cleared in the host arrays (the
+  device copy was already patched by K9 when the delta applied). Only the
+  touched buckets re-upload (``touched_buckets``);
+- **CSRs**: the forward CSR and the sink reverse CSR rebuild in O(E)
+  vectorized passes — tombstones drop out, overlay edges splice in at their
+  Manager ORDER-BY position, so child order equals a rebuild's;
+- **labels**: folded ELL inserts patch the 2-hop index incrementally
+  (``label_patcher``, ``patch_labels`` by default); folded ELL deletions
+  leave it for a rebuild; an untouched interior subgraph keeps it.
+
+``compact_snapshot`` is pure and returns ``None`` when the overlay needs a
+real re-layout (the engine then rebuilds in full): overlay edges out of a
+wildcard-bearing set node (their child order is global row order), or
+extension tables past ``max_ext`` nodes.
+
+Left out against the reference: the transposed CSR and the list layouts
+(the List slice), and the device sorter (K8): the stable sorts here are
+numpy's, the reference's ``sorter=None`` path.
+"""
+
+from __future__ import annotations
+
+import bisect
+import threading
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+
+from keto_tpu_torch.graph.interner import ExtendedInterned
+from keto_tpu_torch.graph.snapshot import Bucket, GraphSnapshot
+
+
+def _ceil_pow2(x: int) -> int:
+    return 1 if x <= 1 else 1 << (int(x) - 1).bit_length()
+
+
+@dataclass
+class CompactionResult:
+    snapshot: GraphSnapshot
+    #: indices into ``snapshot.buckets`` whose host arrays changed (the
+    #: engine re-uploads exactly these)
+    touched_buckets: list = field(default_factory=list)
+    #: the label index: "none" (no index on the input), "kept" (interior
+    #: subgraph unchanged), "patched" (folded ELL inserts applied),
+    #: "patch_abort" (the patch ran past its budget or a resume set was
+    #: truncated: rebuild), or "rebuild" (folded ELL deletions)
+    labels: str = "none"
+    #: host bytes of the touched buckets (what their re-upload places)
+    touched_bytes: int = 0
+
+
+def _subject_order_key(snap: GraphSnapshot, dev: int):
+    """Manager ORDER-BY position of a child: subject sets sort before
+    subject ids, each group by its key fields."""
+    kind, key = snap.key_of_dev(int(dev))
+    return (0, key) if kind == "set" else (1, (key,))
+
+
+def _removed_mask(keys: np.ndarray, removed: Optional[np.ndarray]) -> np.ndarray:
+    """bool[len(keys)]: True where the packed (src<<32|dst) key is
+    tombstoned."""
+    if removed is None or removed.size == 0 or keys.size == 0:
+        return np.zeros(keys.shape[0], bool)
+    pos = np.clip(np.searchsorted(removed, keys), 0, removed.size - 1)
+    return removed[pos] == keys
+
+
+def compact_snapshot(
+    snap: GraphSnapshot, max_ext: int = 65536, label_patcher=None
+) -> Optional[CompactionResult]:
+    """Fold ``snap``'s overlay into its base layout. Returns the compacted
+    snapshot (same watermark, no overlay) with the touched bucket indices,
+    or ``None`` when the shape requires a full rebuild. ``label_patcher``
+    swaps the incremental label patch (the engine passes its device-sweep
+    route, keto_tpu_torch/graph/label_build.py) — the ``patch_labels``
+    signature and abort contract."""
+    if not snap.has_overlay:
+        return CompactionResult(snapshot=snap)
+
+    interned = snap.interned
+    ni = snap.num_int
+    na = snap.num_active
+    sb = snap.sink_base
+    nl = snap.num_live
+    nb = snap.n_base_nodes
+
+    ov_set = snap.ov_set_ids or {}
+    ov_leaf = snap.ov_leaf_ids or {}
+    ov_class = snap.ov_class or {}
+    ov_fwd = {int(k): list(v) for k, v in (snap.ov_fwd or {}).items()}
+    ov_sink_in = snap.ov_sink_in or {}
+    ov_ell = snap.ov_ell
+    removed = snap.ov_removed
+    if removed is not None and removed.size == 0:
+        removed = None
+
+    # wildcard sources: their child lists order by global row order — an
+    # overlay edge out of one is not foldable without a store scan
+    if snap.has_wildcards and ov_fwd:
+        wild_devs = snap.raw2dev[np.nonzero(np.asarray(interned.key_wild))[0]]
+        srcs = np.fromiter(ov_fwd.keys(), np.int64, len(ov_fwd))
+        if np.isin(srcs, wild_devs).any():
+            return None
+
+    # annex growth bound: past the cap a full rebuild folds everything back
+    prior_ext = getattr(interned, "n_ext", 0)
+    if prior_ext + len(ov_set) + len(ov_leaf) > max_ext:
+        return None
+
+    # --- new nodes: ids, classes, extended interner -------------------------
+    # fold order = overlay creation order (old overlay dev id); sinks splice
+    # in at the sink/static boundary, statics append at the end
+    ov_nodes = sorted(
+        [(dev, "set", key) for key, dev in ov_set.items()]
+        + [(dev, "leaf", s) for s, dev in ov_leaf.items()]
+    )
+    new_sinks = [rec for rec in ov_nodes if ov_class.get(rec[0]) != "static"]
+    new_statics = [rec for rec in ov_nodes if ov_class.get(rec[0]) == "static"]
+    S, T = len(new_sinks), len(new_statics)
+    ov_map: dict[int, int] = {}
+    for j, (dev, _, _) in enumerate(new_sinks):
+        ov_map[dev] = nl + j
+    for m, (dev, _, _) in enumerate(new_statics):
+        ov_map[dev] = nb + S + m
+
+    def remap(arr: np.ndarray) -> np.ndarray:
+        """Old device ids → compacted ids: ids below num_live are stable,
+        old statics shift past the spliced-in sinks, overlay ids take their
+        assigned slots."""
+        a = np.asarray(arr, np.int64)
+        out = a.copy()
+        out[(a >= nl) & (a < nb)] += S
+        m_ov = a >= nb
+        if m_ov.any():
+            out[m_ov] = np.asarray([ov_map[int(d)] for d in a[m_ov]], np.int64)
+        return out
+
+    if ov_set or ov_leaf:
+        new_interned = ExtendedInterned(
+            interned,
+            [key for _, kind, key in ov_nodes if kind == "set"],
+            [key for _, kind, key in ov_nodes if kind == "leaf"],
+        )
+        # raw-id order of extension nodes follows fold order within each kind
+        new_set_devs = np.asarray(
+            [ov_map[dev] for dev, kind, _ in ov_nodes if kind == "set"], np.int64
+        )
+        new_leaf_devs = np.asarray(
+            [ov_map[dev] for dev, kind, _ in ov_nodes if kind == "leaf"], np.int64
+        )
+    else:
+        new_interned = interned
+        new_set_devs = np.zeros(0, np.int64)
+        new_leaf_devs = np.zeros(0, np.int64)
+
+    ns_field = snap.num_sets  # raw2dev's set/leaf split point (pre-fold)
+    old_r2d = snap.raw2dev
+    raw2dev = np.concatenate(
+        [remap(old_r2d[:ns_field]), new_set_devs, remap(old_r2d[ns_field:]), new_leaf_devs]
+    )
+
+    # --- forward CSR: drop tombstones, splice overlay edges in order --------
+    fwd_indptr = snap.fwd_indptr
+    old_counts = np.diff(fwd_indptr)
+    rows_of = np.repeat(np.arange(nb, dtype=np.int64), old_counts)
+    vals = snap.fwd_indices.astype(np.int64)
+    if removed is not None:
+        kept = ~_removed_mask((rows_of << 32) | vals, removed)
+        rows_of, vals = rows_of[kept], vals[kept]
+        kept_counts = np.bincount(rows_of, minlength=nb).astype(np.int64)
+    else:
+        kept_counts = old_counts.astype(np.int64)
+
+    # per-source merged child lists: overlay children insert at their
+    # Manager-order position among the kept base children
+    merged_rows: dict[int, np.ndarray] = {}
+    if ov_fwd:
+        starts = np.concatenate([np.zeros(1, np.int64), np.cumsum(kept_counts)])
+
+        def okey(d):
+            return _subject_order_key(snap, d)
+
+        for src, extra in ov_fwd.items():
+            base_ch = vals[starts[src] : starts[src + 1]] if src < nb else np.zeros(0, np.int64)
+            ov_sorted = sorted(extra, key=okey)
+            positions = [bisect.bisect_left(base_ch, okey(d), key=okey) for d in ov_sorted]
+            merged_rows[src] = np.insert(base_ch, positions, ov_sorted)
+
+    n_new = nb + S + T
+    new_counts = np.zeros(n_new, np.int64)
+    old_devs = np.arange(nb, dtype=np.int64)
+    new_counts[np.where(old_devs >= nl, old_devs + S, old_devs)] = kept_counts
+    for src, merged in merged_rows.items():
+        new_counts[int(remap(np.asarray([src]))[0])] = merged.shape[0]
+    new_indptr = np.concatenate([np.zeros(1, np.int64), np.cumsum(new_counts)])
+    new_indices = np.empty(int(new_indptr[-1]), np.int32)
+
+    # bulk scatter of untouched rows
+    plain_counts = kept_counts.copy()
+    if merged_rows:
+        base_merge_srcs = np.asarray([s for s in merged_rows if s < nb], np.int64)
+        plain_counts[base_merge_srcs] = 0
+        plain_keep = ~np.isin(rows_of, base_merge_srcs)
+        p_rows, p_vals = rows_of[plain_keep], vals[plain_keep]
+    else:
+        p_rows, p_vals = rows_of, vals
+    if p_rows.size:
+        group_starts = np.cumsum(plain_counts) - plain_counts
+        rank = np.arange(p_rows.shape[0]) - np.repeat(
+            group_starts[plain_counts > 0], plain_counts[plain_counts > 0]
+        )
+        new_rows = np.where(p_rows >= nl, p_rows + S, p_rows)
+        new_indices[new_indptr[new_rows] + rank] = remap(p_vals).astype(np.int32)
+    for src, merged in merged_rows.items():
+        nr = int(remap(np.asarray([src]))[0])
+        new_indices[int(new_indptr[nr]) : int(new_indptr[nr + 1])] = remap(merged).astype(
+            np.int32
+        )
+
+    # --- sink reverse CSR: drop tombstones, extend rows, append new sinks ---
+    n_sink_old = nl - sb
+    s_counts = np.diff(snap.sink_indptr).astype(np.int64)
+    s_rows = np.repeat(np.arange(n_sink_old, dtype=np.int64), s_counts)
+    s_vals = snap.sink_indices.astype(np.int64)
+    if removed is not None and s_vals.size:
+        # sink-edge tombstone keys pack as (interior src << 32) | sink dev
+        kept = ~_removed_mask((s_vals << 32) | (s_rows + sb), removed)
+        s_rows, s_vals = s_rows[kept], s_vals[kept]
+        s_counts = np.bincount(s_rows, minlength=n_sink_old).astype(np.int64)
+    add_counts = np.zeros(n_sink_old + S, np.int64)
+    adds: dict[int, np.ndarray] = {}
+    for dst, srcs in ov_sink_in.items():
+        local = int(remap(np.asarray([dst]))[0]) - sb
+        if not (0 <= local < n_sink_old + S):
+            return None  # sink-class edge to a non-sink row — be safe
+        adds[local] = np.asarray(srcs, np.int64)
+        add_counts[local] = adds[local].shape[0]
+    new_s_counts = np.concatenate([s_counts, np.zeros(S, np.int64)]) + add_counts
+    new_sink_indptr = np.concatenate([np.zeros(1, np.int64), np.cumsum(new_s_counts)])
+    new_sink_indices = np.empty(int(new_sink_indptr[-1]), np.int32)
+    if s_rows.size:
+        g_starts = np.cumsum(s_counts) - s_counts
+        rank = np.arange(s_rows.shape[0]) - np.repeat(
+            g_starts[s_counts > 0], s_counts[s_counts > 0]
+        )
+        new_sink_indices[new_sink_indptr[s_rows] + rank] = s_vals.astype(np.int32)
+    for local, srcs in adds.items():
+        a = int(new_sink_indptr[local]) + (int(s_counts[local]) if local < n_sink_old else 0)
+        new_sink_indices[a : a + srcs.shape[0]] = srcs.astype(np.int32)
+
+    # --- buckets: fill sentinel slots / widen; clear tombstoned slots -------
+    buckets = list(snap.buckets)
+    touched: dict[int, np.ndarray] = {}  # bucket index → working copy
+    offsets = np.asarray([b.offset for b in buckets], np.int64)
+    sentinel = np.int32(ni)
+
+    def bucket_of(dst: int) -> int:
+        bi = int(np.searchsorted(offsets, dst, "right")) - 1
+        b = buckets[bi]
+        if not (b.offset <= dst < b.offset + b.n):
+            raise LookupError(dst)
+        return bi
+
+    def working(bi: int) -> np.ndarray:
+        w = touched.get(bi)
+        if w is None:
+            w = buckets[bi].nbrs.copy()
+            touched[bi] = w
+        return w
+
+    try:
+        if removed is not None:
+            for key in removed[(removed >> 32) < ni].tolist():
+                src, dst = key >> 32, key & 0xFFFFFFFF
+                if dst >= na:
+                    continue  # not an iterated edge (interior→sink, handled above)
+                bi = bucket_of(dst)
+                w = working(bi)
+                row = dst - buckets[bi].offset
+                cols = np.nonzero(w[row] == src)[0]
+                if cols.size == 0:
+                    return None  # base layout disagrees — be safe
+                w[row, cols[0]] = sentinel
+        if ov_ell is not None:
+            for src, dst in ov_ell.tolist():
+                bi = bucket_of(int(dst))
+                w = working(bi)
+                row = int(dst) - buckets[bi].offset
+                free = np.nonzero(w[row] == sentinel)[0]
+                if free.size == 0:
+                    # row out of slots: widen THIS bucket's capacity (ids stay
+                    # put; the degree key is only a layout heuristic)
+                    wide = np.full((w.shape[0], _ceil_pow2(w.shape[1] + 1)), sentinel, np.int32)
+                    wide[:, : w.shape[1]] = w
+                    w = touched[bi] = wide
+                    free = np.nonzero(w[row] == sentinel)[0]
+                w[row, free[0]] = np.int32(src)
+    except (LookupError, IndexError):
+        return None  # edge points outside the bucketed rows — be safe
+    for bi, w in touched.items():
+        b = buckets[bi]
+        buckets[bi] = Bucket(offset=b.offset, n=b.n, nbrs=w)
+
+    new_snap = GraphSnapshot(
+        snapshot_id=snap.snapshot_id,
+        num_sets=new_interned.num_sets,
+        num_leaves=new_interned.num_leaves,
+        num_active=na,
+        num_int=ni,
+        num_live=nl + S,
+        n_peeled=snap.n_peeled,
+        buckets=buckets,
+        interned=new_interned,
+        raw2dev=raw2dev,
+        wild_ns_ids=snap.wild_ns_ids,
+        fwd_indptr=new_indptr,
+        fwd_indices=new_indices,
+        sink_indptr=new_sink_indptr,
+        sink_indices=new_sink_indices,
+        _pattern_cache={},
+        _cache_lock=threading.Lock(),
+    )
+
+    # --- 2-hop labels: patch folded ELL inserts, rebuild on deletes ----------
+    # the fold clears lab_dirty by construction: the compacted snapshot
+    # carries an index that matches its interior subgraph exactly, or none
+    labels_state = "none"
+    idx = snap.labels
+    if idx is not None:
+        removed_ell = False
+        if removed is not None and removed.size:
+            keys = removed[(removed >> 32) < ni]
+            removed_ell = bool(keys.size) and bool(np.any((keys & np.int64(0xFFFFFFFF)) < na))
+        if removed_ell:
+            # deleting from a 2-hop cover is a rebuild
+            labels_state = "rebuild"
+        elif ov_ell is not None and ov_ell.shape[0]:
+            if label_patcher is None:
+                from keto_tpu_torch.graph.labels import patch_labels as label_patcher
+            patched = label_patcher(idx, new_snap, [tuple(e) for e in ov_ell.tolist()])
+            if patched is not None:
+                new_snap.labels = patched
+                labels_state = "patched"
+            else:
+                labels_state = "patch_abort"
+        else:
+            # interior subgraph untouched: the index is still exact
+            new_snap.labels = idx
+            new_snap.device_labels = snap.device_labels
+            labels_state = "kept"
+    return CompactionResult(
+        snapshot=new_snap,
+        touched_buckets=sorted(touched),
+        labels=labels_state,
+        touched_bytes=sum(int(w.nbytes) for w in touched.values()),
+    )

@@ -109,6 +109,151 @@ class InternedGraph:
     def rel_code(self, s: str) -> int:
         return self.rel_codes.get(s, -1)
 
+    def num_obj_codes(self) -> int:
+        """Code-table size (ExtendedInterned assigns fresh codes above)."""
+        return len(self.obj_codes)
+
+    def num_rel_codes(self) -> int:
+        return len(self.rel_codes)
+
+    # -- reverse lookups (compaction's child order) ----------------------------
+
+    def set_key_of(self, raw_id: int):
+        """``(ns_id, object, relation)`` of set node ``raw_id``."""
+        inv = self.__dict__.get("_set_by_id")
+        if inv is None:
+            inv = [None] * len(self.set_ids)
+            for k, i in self.set_ids.items():
+                inv[i] = k
+            self.__dict__["_set_by_id"] = inv
+        return inv[raw_id]
+
+    def leaf_str(self, idx: int) -> str:
+        """Subject-id string of leaf ``idx`` (not offset by num_sets)."""
+        inv = self.__dict__.get("_leaf_by_id")
+        if inv is None:
+            inv = [None] * len(self.leaf_ids)
+            for s, i in self.leaf_ids.items():
+                inv[i] = s
+            self.__dict__["_leaf_by_id"] = inv
+        return inv[idx]
+
+
+class ExtendedInterned:
+    """Copy-on-write interner view (keto_tpu/graph/interner.py:142-315): an
+    immutable base interner plus small append-only extension tables for
+    the nodes an overlay compaction folds in
+    (keto_tpu_torch/graph/compaction.py).
+
+    The base is never mutated, so snapshots sharing it (batches in flight
+    on the pre-compaction snapshot) stay consistent. Raw ids match a grown
+    interner: extension set keys take raw ids ``[base.num_sets,
+    num_sets)`` in fold order, which shifts every leaf's unified raw id by
+    the extension set count (compaction rebuilds ``raw2dev`` to match).
+    New field codes are assigned above the base code-table sizes, so they
+    never collide with base codes in the pattern indexes. Extension keys
+    are always literal (``apply_delta`` rejects new wildcard-bearing
+    keys), so ``key_wild`` extends with False. Extending an
+    ``ExtendedInterned`` copies its tables onto the same base rather than
+    stacking wrappers.
+    """
+
+    def __init__(self, base, new_set_keys, new_leaves):
+        if isinstance(base, ExtendedInterned):
+            self._base = base._base
+            self._ext_set_keys = list(base._ext_set_keys)
+            self._ext_leaves = list(base._ext_leaves)
+            self._ext_obj_codes = dict(base._ext_obj_codes)
+            self._ext_rel_codes = dict(base._ext_rel_codes)
+        else:
+            self._base = base
+            self._ext_set_keys = []
+            self._ext_leaves = []
+            self._ext_obj_codes = {}
+            self._ext_rel_codes = {}
+        b = self._base
+        self._base_num_sets = b.num_sets
+        self._base_num_leaves = b.num_leaves
+        # base code-table sizes: the floor for fresh extension codes
+        self._obj_floor = b.num_obj_codes()
+        self._rel_floor = b.num_rel_codes()
+        for key in new_set_keys:
+            self._ext_set_keys.append((int(key[0]), str(key[1]), str(key[2])))
+        self._ext_leaves.extend(str(s) for s in new_leaves)
+        self._ext_set_ids = {k: self._base_num_sets + i for i, k in enumerate(self._ext_set_keys)}
+        self._ext_leaf_ids = {s: self._base_num_leaves + i for i, s in enumerate(self._ext_leaves)}
+        n_ext = len(self._ext_set_keys)
+        ext_ns = np.empty(n_ext, np.int64)
+        ext_obj = np.empty(n_ext, np.int64)
+        ext_rel = np.empty(n_ext, np.int64)
+        for i, (ns, obj, rel) in enumerate(self._ext_set_keys):
+            ext_ns[i] = ns
+            ext_obj[i] = self._intern_field(obj, self._ext_obj_codes, b.obj_code, self._obj_floor)
+            ext_rel[i] = self._intern_field(rel, self._ext_rel_codes, b.rel_code, self._rel_floor)
+        self.key_ns = np.concatenate([np.asarray(b.key_ns, np.int64), ext_ns])
+        self.key_obj = np.concatenate([np.asarray(b.key_obj, np.int64), ext_obj])
+        self.key_rel = np.concatenate([np.asarray(b.key_rel, np.int64), ext_rel])
+        self.key_wild = np.concatenate([np.asarray(b.key_wild, bool), np.zeros(n_ext, bool)])
+
+    @staticmethod
+    def _intern_field(s, ext_codes, base_lookup, floor):
+        c = base_lookup(s)
+        if c >= 0:
+            return c
+        c = ext_codes.get(s)
+        if c is None:
+            c = floor + len(ext_codes)
+            ext_codes[s] = c
+        return c
+
+    @property
+    def num_sets(self) -> int:
+        return self._base_num_sets + len(self._ext_set_keys)
+
+    @property
+    def num_leaves(self) -> int:
+        return self._base_num_leaves + len(self._ext_leaves)
+
+    @property
+    def n_ext(self) -> int:
+        return len(self._ext_set_keys) + len(self._ext_leaves)
+
+    def num_obj_codes(self) -> int:
+        return self._obj_floor + len(self._ext_obj_codes)
+
+    def num_rel_codes(self) -> int:
+        return self._rel_floor + len(self._ext_rel_codes)
+
+    def resolve_set(self, ns_id: int, obj: str, rel: str) -> int:
+        raw = self._base.resolve_set(ns_id, obj, rel)
+        if raw >= 0:
+            return raw
+        return self._ext_set_ids.get((ns_id, obj, rel), -1)
+
+    def resolve_leaf(self, subject_id: str) -> int:
+        raw = self._base.resolve_leaf(subject_id)
+        if raw >= 0:
+            return raw
+        return self._ext_leaf_ids.get(subject_id, -1)
+
+    def obj_code(self, s: str) -> int:
+        c = self._base.obj_code(s)
+        return c if c >= 0 else self._ext_obj_codes.get(s, -1)
+
+    def rel_code(self, s: str) -> int:
+        c = self._base.rel_code(s)
+        return c if c >= 0 else self._ext_rel_codes.get(s, -1)
+
+    def set_key_of(self, raw_id: int):
+        if raw_id < self._base_num_sets:
+            return self._base.set_key_of(raw_id)
+        return self._ext_set_keys[raw_id - self._base_num_sets]
+
+    def leaf_str(self, idx: int) -> str:
+        if idx < self._base_num_leaves:
+            return self._base.leaf_str(idx)
+        return self._ext_leaves[idx - self._base_num_leaves]
+
 
 class IncrementalInterner:
     """Chunk-incremental interning with the exact ``intern_rows``

@@ -22,9 +22,15 @@ sequential build applies them. Landmarks stream in rank batches with no
 landmark cap; ``min_gain`` stops the stream when the marginal entries per
 landmark fall below it.
 
-Not here: the sharded sweeper (``_ShardedSweeper``) and the incremental
-patch (``device_patch_labels``); the port rebuilds labels with every
-snapshot and runs on one card.
+``device_patch_labels`` (keto_tpu/graph/label_build.py:630) is the
+incremental patch of an overlay compaction on the same machinery: the
+exact ``labels.patch_labels`` semantics, each folded edge's resume
+landmarks run as bit-packed lanes with ``prune_expansion=False``. The
+mirror's stores reach the device label arrays through K9 (``slot_set``,
+in place, as the reference's mirror updates its arrays).
+
+Not here: the sharded sweeper (``_ShardedSweeper``); the port runs on one
+card.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from keto_tpu_torch.check import kernels
 from keto_tpu_torch.graph import label_kernels
 from keto_tpu_torch.graph.labels import IN_PAD, OUT_PAD, LabelIndex, interior_adjacency, landmark_order
 
@@ -127,14 +134,28 @@ class _Sweeper:
         self._fwd = label_kernels.EllGroups.from_groups(fwd_groups, self.device)
         self._bwd = label_kernels.EllGroups.from_groups(bwd_groups, self.device)
 
-    def sweep(self, forward: bool, seeds: np.ndarray, cov: torch.Tensor, wt: int) -> np.ndarray:
+    def sweep(
+        self,
+        forward: bool,
+        seeds: np.ndarray,
+        cov: torch.Tensor,
+        wt: int,
+        *,
+        prune_expansion: bool = True,
+        budget: Optional[list] = None,
+        start_rows: Optional[np.ndarray] = None,
+    ) -> Optional[np.ndarray]:
         """Run one orientation's waves to the fixpoint; returns the stored
-        bitmap ``uint32[n+1, wt]`` on the host. Lane j starts at
-        ``seeds[j]`` (-1 for a dead lane). One host read of the wave's
-        ``active`` flag per wave, as the reference's ``bool(active)``."""
+        bitmap ``uint32[n+1, wt]`` on the host, or None when ``budget`` (a
+        mutable ``[remaining visits]``) runs dry. Lane j starts at
+        ``seeds[j]`` (-1 for a dead lane), or at ``start_rows[j]`` when
+        given (a patch resumes mid-graph; stores still belong to lane j's
+        landmark). One host read of the wave's ``{active, visits}`` per
+        wave, as the reference's ``bool(active)``."""
         n = self.n
+        rows = seeds if start_rows is None else start_rows
         V0 = np.zeros((n + 1, wt), np.uint32)
-        for j, u in enumerate(np.asarray(seeds, np.int64).tolist()):
+        for j, u in enumerate(np.asarray(rows, np.int64).tolist()):
             if 0 <= u < n:
                 V0[u, j // 32] |= np.uint32(1) << np.uint32(j % 32)
         V = torch.from_numpy(V0.view(np.int32)).to(self.device)
@@ -142,8 +163,15 @@ class _Sweeper:
         S = torch.zeros_like(V)
         groups = self._fwd if forward else self._bwd
         while groups.rows:
-            V, X, S, state = label_kernels.sweep_step(groups, V, X, S, cov)
-            if not int(state[0]):
+            V, X, S, state = label_kernels.sweep_step(
+                groups, V, X, S, cov, prune_expansion=prune_expansion
+            )
+            active, visits = state.tolist()
+            if budget is not None:
+                budget[0] -= int(visits)
+                if budget[0] < 0:
+                    return None
+            if not active:
                 break
         return S.cpu().numpy().view(np.uint32)
 
@@ -158,14 +186,22 @@ class _Mirror:
     arrays the next batch's covered kernel reads. The device rows are in
     append order, not sorted; ``finalize`` sorts."""
 
-    def __init__(self, n: int, max_width: int, device):
+    def __init__(self, n: int, max_width: int, device, out0=None, in0=None):
         self.n = n
         self.max_width = max_width
         W = max(1, max_width)
         self.out_h = np.full((n + 1, W), OUT_PAD, np.int32)
         self.in_h = np.full((n + 1, W), IN_PAD, np.int32)
-        self.out_w = np.zeros(n, np.int32)
-        self.in_w = np.zeros(n, np.int32)
+        # a patch starts from an index's rows: pow2-padded, entries sorted
+        # at the front, so columns past max_width are all pad
+        if out0 is not None:
+            span = min(W, out0.shape[1])
+            self.out_h[: n + 1, :span] = out0[: n + 1, :span]
+        if in0 is not None:
+            span = min(W, in0.shape[1])
+            self.in_h[: n + 1, :span] = in0[: n + 1, :span]
+        self.out_w = np.count_nonzero(self.out_h[:n] != OUT_PAD, axis=1).astype(np.int32)
+        self.in_w = np.count_nonzero(self.in_h[:n] != IN_PAD, axis=1).astype(np.int32)
         self.out_ok = np.ones(n, bool)
         self.in_ok = np.ones(n, bool)
         self.out_d = torch.from_numpy(self.out_h.copy()).to(device)
@@ -195,19 +231,25 @@ class _Mirror:
         return int(good.size)
 
     def flush_device(self) -> None:
-        """Scatter pending host stores onto the device label arrays (an
-        ``index_put_``; the reference's is an XLA scatter, no kernel)."""
+        """Scatter pending host stores onto the device label arrays in
+        place: K9 (``slot_set``), one launch per side."""
         for side in ("out", "in"):
             pend = self._pending[side]
             if not pend:
                 continue
-            dst = self.out_d if side == "out" else self.in_d
-            dev = dst.device
-            rows = torch.from_numpy(np.concatenate([p[0] for p in pend])).to(dev)
-            cols = torch.from_numpy(np.concatenate([p[1] for p in pend])).to(dev)
-            vals = torch.from_numpy(np.concatenate([p[2] for p in pend])).to(dev)
-            dst.index_put_((rows, cols), vals)
+            kernels.slot_set(
+                self.out_d if side == "out" else self.in_d,
+                np.concatenate([p[0] for p in pend]),
+                np.concatenate([p[1] for p in pend]),
+                np.concatenate([p[2] for p in pend]),
+                in_place=True,
+            )
             self._pending[side] = []
+
+    def row(self, side: str, u: int) -> np.ndarray:
+        h = self.out_h if side == "out" else self.in_h
+        w = self.out_w if side == "out" else self.in_w
+        return h[u, : w[u]] if u < self.n else h[u, :0]
 
     def finalize(self, processed: np.ndarray, n_landmarks: int, backend: str) -> LabelIndex:
         """Pack the mirrors into the padded, sorted device layout —
@@ -361,3 +403,114 @@ def device_build_labels(
     info.build_ms = idx.build_ms
     info.landmarks = pos
     return idx, info
+
+
+# -- incremental patch through the device path --------------------------------
+
+
+def device_patch_labels(
+    idx: LabelIndex,
+    snap,
+    added_edges,
+    visit_budget: int = 65536,
+    *,
+    batch: int = DEFAULT_BATCH,
+    device: Union[str, torch.device] = "cuda",
+) -> Optional[LabelIndex]:
+    """Incremental-PLL edge insertion through the batched sweeps: the exact
+    ``labels.patch_labels`` semantics (per-edge landmark resumption, no
+    expansion pruning, stores certified against the evolving sets) with
+    each edge's resume list run as bit-packed lanes. Interference between
+    lanes is static here — a resume landmark's own label row is frozen for
+    the whole loop — so the list splits into clean groups up front. None
+    when the caller must rebuild (the host patch's contract): truncated
+    endpoint labels, a dry budget, a universe mismatch. The budget counts
+    newly visited (node, landmark) pairs like the host walk, though the
+    abort point may differ near the boundary."""
+    t0 = time.monotonic()
+    n = snap.num_int
+    if idx.n != n:
+        return None
+    added = [(int(a), int(b)) for a, b in added_edges]
+    for a, b in added:
+        if not (0 <= a < n and 0 <= b < n):
+            return None
+        if not (idx.in_ok[a] and idx.out_ok[b]):
+            return None
+
+    out_ip, out_ix, in_ip, in_ix = interior_adjacency(snap)
+    sweeper = _Sweeper(
+        build_ell_groups(in_ip, in_ix, n), build_ell_groups(out_ip, out_ix, n), n, device
+    )
+    mirror = _Mirror(n, idx.max_width, sweeper.device, out0=idx.out_lab, in0=idx.in_lab)
+    mirror.out_ok = idx.out_ok.copy()
+    mirror.in_ok = idx.in_ok.copy()
+    batch = max(32, (int(batch) // 32) * 32)
+    wt = batch // 32
+    budget = [int(visit_budget)]
+
+    def lane_groups(lms: list[int], own_side: str) -> list[list[int]]:
+        """Split the ordered resume list into clean prefix groups: lane j
+        joins the open group only when no earlier member of the group
+        appears in j's own (frozen) label row."""
+        groups: list[list[int]] = []
+        cur: list[int] = []
+        cur_set: set = set()
+        for lm in lms:
+            own = set(int(x) for x in mirror.row(own_side, lm))
+            if cur_set & own or len(cur) >= batch:
+                groups.append(cur)
+                cur, cur_set = [], set()
+            cur.append(lm)
+            cur_set.add(lm)
+        if cur:
+            groups.append(cur)
+        return groups
+
+    def run_side(forward: bool, resume_at: int, store_at: int, lms: list[int]) -> bool:
+        """One direction of one edge: every landmark in ``lms`` stores at
+        ``store_at`` (certified against the current sets) and resumes its
+        walk at ``resume_at``. False when the budget runs dry."""
+        own_side, write_side = ("out", "in") if forward else ("in", "out")
+        pad = OUT_PAD if forward else IN_PAD
+        for group in lane_groups(lms, own_side):
+            mirror.flush_device()
+            lanes = len(group)
+            own_rows = np.full((lanes, mirror.max_width), pad, np.int32)
+            for j, lm in enumerate(group):
+                r = mirror.row(own_side, lm)
+                own_rows[j, : r.size] = r
+            cov = _compute_covered(mirror.in_d if forward else mirror.out_d, own_rows, lanes,
+                                   wt, pad)
+            seeds = np.full(batch, -1, np.int64)
+            seeds[:lanes] = group
+            starts = np.full(batch, -1, np.int64)
+            starts[:lanes] = resume_at
+            S = sweeper.sweep(forward, seeds, cov, wt, prune_expansion=False, budget=budget,
+                              start_rows=starts)
+            if S is None:
+                return False
+            nz = np.nonzero(S[:n].any(axis=1))[0]
+            for j, lm in enumerate(group):
+                # the explicit store at the edge endpoint runs before the
+                # resumed walk's, certified against the live sets — exactly
+                # patch_labels' _store
+                own = set(int(x) for x in mirror.row(own_side, lm))
+                write_row = set(int(x) for x in mirror.row(write_side, store_at))
+                if not (own & write_row):
+                    mirror.store(write_side, np.array([store_at]), lm)
+                # the covered mask was computed against the group-entry
+                # sets; stores by earlier lanes of this group cannot
+                # certify (the clean-group invariant), so it is exact
+                mirror.store(write_side, _lane_nodes(S, nz, j), lm)
+        return True
+
+    for a, b in added:
+        if not run_side(True, b, b, sorted(int(x) for x in mirror.row("in", a))):
+            return None
+        if not run_side(False, a, a, sorted(int(x) for x in mirror.row("out", b))):
+            return None
+
+    new = mirror.finalize(idx.processed.copy(), idx.n_landmarks, "device")
+    new.build_ms = (time.monotonic() - t0) * 1e3
+    return new

@@ -25,13 +25,17 @@ never correctness:
   ``out_ok[a] and in_ok[b] and (processed[a] or processed[b])``.
   Uncertifiable pairs fall back to the BFS kernels.
 
-Not here: ``patch_labels`` (incremental insertion for compaction) and the
-explain witness; the port rebuilds the index with every snapshot.
+``patch_labels`` (keto_tpu/graph/labels.py:367) inserts the ELL edges an
+overlay compaction folds in, incrementally: each landmark recorded at an
+edge's tail resumes its walk at the head, without expansion pruning.
+
+Not here: the explain witness.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
@@ -193,14 +197,25 @@ def _pruned_bfs(
     write_labels: list,  # IN sets for forward, OUT sets for backward
     ok_flags: np.ndarray,
     max_width: int,
+    start: Optional[int] = None,
+    prune_expansion: bool = True,
+    budget: Optional[list] = None,
 ) -> None:
     """One pruned BFS for landmark ``v``: visit u; when an earlier hub
     already certifies the pair (``own_label ∩ write_labels[u]``), skip
-    storing v at u and do not expand u; else record v (a width-cap
-    overflow trips ``ok_flags[u]`` instead of lying) and expand."""
+    storing v at u, else record v (a width-cap overflow trips
+    ``ok_flags[u]`` instead of lying).
+
+    ``prune_expansion=True`` is static PLL: a certified node is not
+    expanded. Incremental patches pass False — a certificate minted before
+    an edge insertion does not extend to the node's new descendants — and
+    ``start`` to resume mid-graph (patching edge a→b resumes at b).
+    ``budget`` (a mutable ``[remaining visits]``) makes the walk abortable:
+    it raises ``_BudgetExceeded`` when it runs dry."""
     indptr, indices = frontier_adj
-    visited = {v}
-    frontier = [v]
+    s = v if start is None else start
+    visited = {s}
+    frontier = [s]
     while frontier:
         nxt: list = []
         for u in frontier:
@@ -209,15 +224,25 @@ def _pruned_bfs(
                 if w in visited:
                     continue
                 visited.add(w)
-                if own_label & write_labels[w]:
+                if budget is not None:
+                    budget[0] -= 1
+                    if budget[0] < 0:
+                        raise _BudgetExceeded
+                certified = bool(own_label & write_labels[w])
+                if not certified:
+                    lab = write_labels[w]
+                    if len(lab) < max_width:
+                        lab.add(v)
+                    else:
+                        ok_flags[w] = False
+                if certified and prune_expansion:
                     continue
-                lab = write_labels[w]
-                if len(lab) < max_width:
-                    lab.add(v)
-                else:
-                    ok_flags[w] = False
                 nxt.append(w)
         frontier = nxt
+
+
+class _BudgetExceeded(Exception):
+    pass
 
 
 def build_labels(snap, max_width: int = 64, landmarks: int = 0) -> LabelIndex:
@@ -257,3 +282,65 @@ def build_labels(snap, max_width: int = 64, landmarks: int = 0) -> LabelIndex:
     idx = _finalize(n, out_sets, in_sets, processed, out_ok, in_ok, max_width, K)
     idx.build_ms = (time.monotonic() - t0) * 1e3
     return idx
+
+
+def patch_labels(
+    idx: LabelIndex,
+    snap,
+    added_edges,
+    visit_budget: int = 65536,
+) -> Optional[LabelIndex]:
+    """Incremental-PLL edge insertion: for each folded ELL edge (a, b),
+    every landmark recorded as reaching ``a`` resumes its forward walk from
+    ``b`` (and symmetrically every landmark ``b`` reaches, backward from
+    ``a``) over the COMPACTED adjacency. Returns the patched index, or None
+    when the caller must rebuild: truncated endpoint labels (the resume set
+    is incomplete), a dry visit budget, or an index whose universe does not
+    match the snapshot."""
+    import time
+
+    t0 = time.monotonic()
+    n = snap.num_int
+    if idx.n != n:
+        return None
+    added = [(int(a), int(b)) for a, b in added_edges]
+    for a, b in added:
+        if not (0 <= a < n and 0 <= b < n):
+            return None
+        if not (idx.in_ok[a] and idx.out_ok[b]):
+            return None
+
+    out_indptr, out_indices, in_indptr, in_indices = interior_adjacency(snap)
+    out_sets = [set(int(x) for x in row[row != OUT_PAD]) for row in idx.out_lab[:n]]
+    in_sets = [set(int(x) for x in row[row != IN_PAD]) for row in idx.in_lab[:n]]
+    out_ok = idx.out_ok.copy()
+    in_ok = idx.in_ok.copy()
+    budget = [int(visit_budget)]
+
+    def _store(lm: int, u: int, own: set, write: list, ok: np.ndarray) -> None:
+        if not (own & write[u]):
+            lab = write[u]
+            if len(lab) < idx.max_width:
+                lab.add(lm)
+            else:
+                ok[u] = False
+
+    try:
+        # edges apply one at a time, landmarks in ascending order: restoring
+        # the invariant after each edge is what makes the next resume sound
+        for a, b in added:
+            for lm in sorted(in_sets[a]):
+                _store(lm, b, out_sets[lm], in_sets, in_ok)
+                _pruned_bfs(lm, (out_indptr, out_indices), out_sets[lm], in_sets, in_ok,
+                            idx.max_width, start=b, prune_expansion=False, budget=budget)
+            for lm in sorted(out_sets[b]):
+                _store(lm, a, in_sets[lm], out_sets, out_ok)
+                _pruned_bfs(lm, (in_indptr, in_indices), in_sets[lm], out_sets, out_ok,
+                            idx.max_width, start=a, prune_expansion=False, budget=budget)
+    except _BudgetExceeded:
+        return None
+
+    new = _finalize(n, out_sets, in_sets, idx.processed.copy(), out_ok, in_ok,
+                    idx.max_width, idx.n_landmarks)
+    new.build_ms = (time.monotonic() - t0) * 1e3
+    return new

@@ -1,0 +1,430 @@
+"""Delta application: extend a snapshot without rebuilding it.
+
+A copy of the check-path parts of keto_tpu/graph/overlay.py:75-533. A full
+rebuild re-interns and re-lays-out the whole store (tens of seconds at 10M
+tuples), so a watermark advance applies as an **overlay** on the immutable
+base snapshot:
+
+- new nodes get device ids >= ``base.n_base_nodes``. They never need bitmap
+  rows: a brand-new set key seen as a tuple's LHS has only out-edges
+  (static class), one seen as a subject has only in-edges (sink class), and
+  new subject-ID leaves are always sinks;
+- new edges partition by endpoint class:
+
+  * static or peeled source → host one-hop adjacency (``ov_out``), walked
+    by the engine's batch-setup propagation (check/pack.py);
+  * interior source → active-interior destination → the **overlay ELL**: a
+    small ``[K, C]`` gather matrix the check step ORs into every pull, so
+    multi-hop paths through delta edges converge like base edges;
+  * interior source → sink destination → answer-gather overlay
+    (``ov_sink_in``);
+
+- **deleted edges become tombstones**: a removed base edge enters
+  ``ov_removed``, a sorted key array the snapshot's host gathers mask
+  against, and an iterated interior→interior edge also gets an
+  ``ell_patch`` entry that overwrites its device bucket slot with the
+  all-zero sentinel row (the engine applies it with K9, one slot scatter,
+  no re-upload). Deleting an overlay-added edge removes it from the overlay
+  structures. Only graphs with wildcard set nodes rebuild on delete: a
+  removed tuple's wildcard-attach edge survives exactly when another
+  matching row covers it, which needs a store scan;
+- a delta tuple also attaches to every existing **wildcard set node** whose
+  pattern matches it, as the base interner's wildcard expansion does;
+- anything that would change an existing node's class on insert returns
+  ``None`` and the caller rebuilds in full: a sink gaining an out-edge, a
+  static node gaining an in-edge, an edge into a passive or peeled
+  interior row, a new wildcard-bearing key, an overlay node changing class,
+  a change of the namespace config, an empty base.
+
+``apply_delta`` consumes an ordered op list (``("ins", row) | ("del",
+key7)``, the store's ``changes_since``) and nets it per tuple key: the last
+op per key wins, so delete-then-reinsert in one window is a no-op and
+insert-then-delete never materialises. It is pure: it returns a NEW
+snapshot sharing the base's arrays (batches in flight keep the old object)
+with the overlay containers copied and extended. Pending device patches
+ride in ``ell_patch`` (bucket slots) and ``ov_ell_delta`` (overlay rows),
+relative to the base; the engine applies and clears them.
+
+Left out against the reference: the reverse-query list mirror
+(``lst_*``), which waits for the List slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import FrozenSet, Iterable, Optional
+
+import numpy as np
+
+from keto_tpu_torch.graph.snapshot import GraphSnapshot
+
+
+def _merged(old: Optional[dict]) -> dict:
+    return dict(old) if old else {}
+
+
+def rows_as_ops(rows: Iterable) -> list:
+    """Wrap an insert-only row list in the op format (for stores that only
+    offer ``rows_since``)."""
+    return [("ins", r) for r in rows]
+
+
+def apply_delta(
+    base: GraphSnapshot,
+    ops: list,
+    new_watermark: int,
+    wild_ns_ids: FrozenSet[int],
+) -> Optional[GraphSnapshot]:
+    """Overlay ``ops`` (ordered mutations since the base watermark) onto
+    ``base``. Returns the extended snapshot, or ``None`` when the delta
+    needs a full rebuild."""
+    if wild_ns_ids != base.wild_ns_ids:
+        return None  # namespace config changed: wildcard expansion differs
+    if base.n_nodes == 0:
+        # an empty base has no device layout to overlay onto; the first
+        # real build is cheap
+        return None
+
+    # net effect per tuple key: the last op wins (a delete removes every
+    # row of its key). First-seen key order keeps processing deterministic.
+    net: dict[tuple, tuple] = {}
+    for kind, payload in ops:
+        key = payload if kind == "del" else payload.key7()
+        net[key] = (kind, payload)
+    ins_rows = [p for k, (kind, p) in net.items() if kind == "ins"]
+    del_keys = [k for k, (kind, _) in net.items() if kind == "del"]
+
+    ni = base.num_int
+    na = base.num_active
+    sb = base.sink_base  # peeled interior ids live in [ni, sb)
+    nl = base.num_live
+    nb = base.n_base_nodes
+
+    interned = base.interned
+    raw2dev = base.raw2dev
+
+    if del_keys and base.has_wildcards:
+        # a removed tuple's wildcard-attach edges survive iff another
+        # matching row covers them — deciding that needs a store scan
+        return None
+
+    ov_set = _merged(base.ov_set_ids)
+    ov_leaf = _merged(base.ov_leaf_ids)
+    ov_out = dict(base.ov_out or {})
+    ov_sink_in = dict(base.ov_sink_in or {})
+    # unified per-source overlay out-adjacency (every added edge, whatever
+    # its kernel class): compaction's child source
+    ov_fwd = {k: list(v) for k, v in (base.ov_fwd or {}).items()}
+    ell = [tuple(e) for e in (() if base.ov_ell is None else base.ov_ell)]
+    removed: set[int] = (
+        set(int(k) for k in base.ov_removed) if base.ov_removed is not None else set()
+    )
+    ell_patch: list[tuple[int, int, int, int]] = []
+    nxt = base.ov_next or nb
+    # label invalidation: any mutation of the iterated interior subgraph
+    # (an inserted overlay-ELL edge, a tombstoned or restored base ELL
+    # edge) dirties the label entries through its endpoints; the engine
+    # keeps checks off the label route while the set is non-empty
+    # (compaction patches the labels and clears it). Monotone across
+    # stacked deltas, as in the reference.
+    lab_dirty: set[int] = set(base.lab_dirty or ())
+
+    # overlay node classes: "static" = out-edges only, "sink" = in-edges only
+    ov_class: dict[int, str] = dict(base.ov_class or {})
+
+    def resolve_or_new_set(ns_id: int, obj: str, rel: str):
+        raw = interned.resolve_set(ns_id, obj, rel)
+        if raw >= 0:
+            return int(raw2dev[raw]), False
+        dev = ov_set.get((ns_id, obj, rel))
+        if dev is not None:
+            return dev, False
+        return None, True
+
+    def resolve_or_new_leaf(s: str):
+        raw = interned.resolve_leaf(s)
+        if raw >= 0:
+            return int(raw2dev[raw + base.num_sets]), False
+        dev = ov_leaf.get(s)
+        if dev is not None:
+            return dev, False
+        return None, True
+
+    # wildcard base set nodes, for per-row attach matching
+    wild_idx = np.nonzero(np.asarray(interned.key_wild))[0]
+    if wild_idx.size:
+        w_ns = np.asarray(interned.key_ns)[wild_idx]
+        w_obj = np.asarray(interned.key_obj)[wild_idx]
+        w_rel = np.asarray(interned.key_rel)[wild_idx]
+        w_dev = raw2dev[wild_idx]
+        wild_ns_arr = np.asarray(sorted(wild_ns_ids), np.int64)
+        empty_obj = interned.obj_code("")
+        empty_rel = interned.rel_code("")
+
+    new_edges: list[tuple[int, int]] = []
+    fwd_indptr = base.fwd_indptr
+    fwd_indices = base.fwd_indices
+
+    def in_base_csr(src: int, dst: int) -> bool:
+        # re-inserting an existing tuple must not duplicate the graph edge:
+        # out-neighbour lists feed pack_chunk's disjoint-bit seeds
+        if src >= nb:
+            return False
+        a, b = fwd_indptr[src], fwd_indptr[src + 1]
+        return bool(np.any(fwd_indices[a:b] == dst))
+
+    def ell_slot(src: int, dst: int) -> Optional[tuple[int, int, int]]:
+        """(bucket index, bucket-local row, column) of base ELL edge
+        src→dst, located in the base host arrays (never patched, so slots
+        stay stable across remove/restore cycles)."""
+        for bi, b in enumerate(base.buckets):
+            if b.offset <= dst < b.offset + b.n:
+                row = dst - b.offset
+                cols = np.nonzero(b.nbrs[row] == src)[0]
+                if cols.size == 0:
+                    return None
+                return bi, row, int(cols[0])
+        return None
+
+    for r in ins_rows:
+        lhs_wild = r.namespace_id in wild_ns_ids or r.object == "" or r.relation == ""
+        # subject node
+        if r.subject_id is not None:
+            sub_dev, is_new = resolve_or_new_leaf(r.subject_id)
+            if is_new:
+                sub_dev = nxt
+                nxt += 1
+                ov_leaf[r.subject_id] = sub_dev
+                ov_class[sub_dev] = "sink"
+        else:
+            sub_wild = (
+                r.sset_namespace_id in wild_ns_ids or r.sset_object == "" or r.sset_relation == ""
+            )
+            sub_key = (r.sset_namespace_id, r.sset_object, r.sset_relation)
+            sub_dev, is_new = resolve_or_new_set(*sub_key)
+            if is_new:
+                if sub_wild:
+                    return None  # a new wildcard key's out-edges need a full scan
+                sub_dev = nxt
+                nxt += 1
+                ov_set[sub_key] = sub_dev
+                ov_class[sub_dev] = "sink"
+            elif sub_dev >= nb and ov_class.get(sub_dev) == "static":
+                return None  # overlay static node gains an in-edge
+        # LHS node
+        lhs_key = (r.namespace_id, r.object, r.relation)
+        lhs_dev, lhs_new = resolve_or_new_set(*lhs_key)
+        if lhs_new:
+            if lhs_wild:
+                return None  # new wildcard LHS: out-edges need a full scan
+            lhs_dev = nxt
+            nxt += 1
+            ov_set[lhs_key] = lhs_dev
+            ov_class[lhs_dev] = "static"
+        elif lhs_dev >= nb and ov_class.get(lhs_dev) == "sink":
+            return None  # overlay sink node gains an out-edge
+        elif sb <= lhs_dev < nl:
+            return None  # base sink gains an out-edge: needs a bitmap row
+        # self-loops route through normal classification: they are paths of
+        # length 1, as the base builder keeps them
+        new_edges.append((lhs_dev, sub_dev))
+
+        # attach to every existing wildcard set node matching this tuple
+        if wild_idx.size:
+            m = np.isin(w_ns, wild_ns_arr) | (w_ns == r.namespace_id)
+            oc = interned.obj_code(r.object)
+            m &= (w_obj == empty_obj) | ((w_obj == oc) if oc >= 0 else False)
+            rc = interned.rel_code(r.relation)
+            m &= (w_rel == empty_rel) | ((w_rel == rc) if rc >= 0 else False)
+            for wdev in w_dev[m]:
+                wdev = int(wdev)
+                if wdev == lhs_dev:
+                    continue  # the literal edge above already covers it
+                if sb <= wdev < nl:
+                    return None  # a wildcard node that is a base sink
+                new_edges.append((wdev, sub_dev))
+
+    # classify + partition the new edges
+    add_out: dict[int, list[int]] = {}
+    add_sink_in: dict[int, list[int]] = {}
+
+    def fwd_add(src: int, dst: int) -> None:
+        lst = ov_fwd.setdefault(src, [])
+        if dst not in lst:
+            lst.append(dst)
+
+    def fwd_drop(src: int, dst: int) -> None:
+        lst = ov_fwd.get(src)
+        if lst is not None and dst in lst:
+            lst.remove(dst)
+            if not lst:
+                del ov_fwd[src]
+
+    for src, dst in new_edges:
+        if in_base_csr(src, dst):
+            key = (src << 32) | dst
+            if key in removed:
+                # re-insert of a tombstoned base edge: restore in place
+                removed.discard(key)
+                if src < ni and dst < na:
+                    slot = ell_slot(src, dst)
+                    if slot is None:
+                        return None  # base layout disagrees — be safe
+                    ell_patch.append(slot + (src,))
+                    lab_dirty.update((src, dst))
+            continue
+        if nl <= dst < nb:
+            return None  # base static node gains an in-edge
+        # host-propagated sources: peeled interior, base static, overlay
+        # static — their new out-edges extend the host walk's adjacency
+        src_hostprop = (
+            (ni <= src < sb)
+            or (nl <= src < nb)
+            or (src >= nb and ov_class.get(src) == "static")
+        )
+        if src < ni:
+            if dst < ni:
+                if dst >= na:
+                    return None  # passive bitmap row: the loop never updates it
+                ell.append((src, dst))
+                lab_dirty.update((src, dst))
+            elif ni <= dst < sb:
+                return None  # a peeled row gains a device-dependent in-edge
+            else:  # sink-class dst (base sink or overlay sink node)
+                add_sink_in.setdefault(dst, []).append(src)
+        elif src_hostprop:
+            add_out.setdefault(src, []).append(dst)
+        else:
+            return None  # sink source would need a class change
+        fwd_add(src, dst)
+
+    # deletes: resolve each key's endpoints (no creation) and remove the
+    # edge wherever it lives — overlay structures for delta-added edges,
+    # the tombstone set (plus a device sentinel patch for iterated edges)
+    # for base edges. Unresolvable endpoints or absent edges are no-ops.
+    ell_members = set(ell)
+    dropped_ell: set[tuple[int, int]] = set()
+    for k in del_keys:
+        ns_id, obj, rel, sub_id, sns, sobj, srel = k
+        lhs_dev, lhs_missing = resolve_or_new_set(ns_id, obj, rel)
+        if lhs_missing:
+            continue
+        if sub_id is not None:
+            sub_dev, sub_missing = resolve_or_new_leaf(sub_id)
+        else:
+            sub_dev, sub_missing = resolve_or_new_set(sns, sobj, srel)
+        if sub_missing:
+            continue
+        edge = (lhs_dev, sub_dev)
+        if edge in ell_members:
+            ell_members.discard(edge)
+            dropped_ell.add(edge)
+            fwd_drop(lhs_dev, sub_dev)
+            continue
+        out_arr = ov_out.get(lhs_dev)
+        if out_arr is not None and bool(np.any(out_arr == sub_dev)):
+            rest = out_arr[out_arr != sub_dev]
+            if rest.size:
+                ov_out[lhs_dev] = rest
+            else:
+                del ov_out[lhs_dev]
+            fwd_drop(lhs_dev, sub_dev)
+            continue
+        in_arr = ov_sink_in.get(sub_dev)
+        if in_arr is not None and bool(np.any(in_arr == lhs_dev)):
+            rest = in_arr[in_arr != lhs_dev]
+            if rest.size:
+                ov_sink_in[sub_dev] = rest
+            else:
+                del ov_sink_in[sub_dev]
+            fwd_drop(lhs_dev, sub_dev)
+            continue
+        key = (lhs_dev << 32) | sub_dev
+        if key in removed or not in_base_csr(lhs_dev, sub_dev):
+            continue  # already tombstoned / edge never existed
+        removed.add(key)
+        if lhs_dev < ni and sub_dev < na:
+            slot = ell_slot(lhs_dev, sub_dev)
+            if slot is None:
+                return None  # base layout disagrees — be safe
+            # num_int is the bitmap's all-zero row: the gather contributes
+            # nothing, exactly like bucket padding
+            ell_patch.append(slot + (ni,))
+            lab_dirty.update((lhs_dev, sub_dev))
+        elif lhs_dev < ni and not (sb <= sub_dev < nl):
+            # an interior source into anything but a sink has no host-side
+            # mask to hide behind: the layout and the store disagree
+            return None
+        # peeled/static sources and interior→sink edges are masked by the
+        # ov_removed filters in out_neighbors_bulk / sink_in_rows_bulk
+    if dropped_ell:
+        ell = [e for e in ell if e not in dropped_ell]
+
+    for src, dsts in add_out.items():
+        old = ov_out.get(src)
+        merged = np.asarray(dsts, np.int64) if old is None else np.concatenate(
+            [old, np.asarray(dsts, np.int64)]
+        )
+        ov_out[src] = np.unique(merged)
+    for dst, srcs in add_sink_in.items():
+        old = ov_sink_in.get(dst)
+        merged = np.asarray(srcs, np.int32) if old is None else np.concatenate(
+            [old, np.asarray(srcs, np.int32)]
+        )
+        ov_sink_in[dst] = np.unique(merged)
+
+    ell_arr = np.unique(np.asarray(ell, np.int64), axis=0) if ell else None
+
+    # per-delta overlay-ELL change record: what this delta added to and
+    # dropped from the overlay gather matrix, so the engine scatters into
+    # the resident [K, C] overlay (K9) instead of re-packing it
+    base_ell_set = set(
+        (int(e[0]), int(e[1])) for e in (() if base.ov_ell is None else base.ov_ell)
+    )
+    final_ell_set = set((int(a), int(b)) for a, b in ell)
+    ov_ell_delta = (
+        int(base.snapshot_id),
+        tuple(sorted(final_ell_set - base_ell_set)),
+        tuple(sorted(base_ell_set - final_ell_set)),
+    )
+
+    removed_arr = None
+    if removed:
+        removed_arr = np.sort(np.fromiter(removed, np.int64, len(removed)))
+
+    return dataclasses.replace(
+        base,
+        snapshot_id=new_watermark,
+        ov_set_ids=ov_set,
+        ov_leaf_ids=ov_leaf,
+        ov_class=ov_class,
+        ov_next=nxt,
+        ov_out=ov_out,
+        ov_sink_in=ov_sink_in,
+        ov_fwd=ov_fwd or None,
+        ov_ell=ell_arr,
+        ov_removed=removed_arr,
+        ov_ell_delta=ov_ell_delta,
+        ell_patch=ell_patch or None,
+        lab_dirty=lab_dirty or None,
+        device_overlay=None,  # the engine re-uploads or scatters (K9)
+        _pattern_cache={},
+        _cache_lock=threading.Lock(),
+    )
+
+
+def _ceil_pow2(x: int) -> int:
+    return 1 if x <= 1 else 1 << (int(x) - 1).bit_length()
+
+
+def overlay_device_bytes(snap: GraphSnapshot) -> int:
+    """Device bytes of the engine's overlay upload: the pow2-padded
+    ``[K, C]`` gather matrix plus its destination vector, sized as
+    ``TorchCheckEngine._upload_overlay`` lays them out."""
+    if snap.ov_ell is None or snap.ov_ell.shape[0] == 0:
+        return 0
+    _, counts = np.unique(snap.ov_ell[:, 1], return_counts=True)
+    K = _ceil_pow2(counts.shape[0])
+    C = _ceil_pow2(int(counts.max()))
+    return K * C * 4 + K * 4

@@ -26,9 +26,13 @@ with peel, renumbering, buckets, the forward CSR and the sink reverse CSR,
 and start/subject resolution. Every array kept here is byte-identical to
 the JAX build's (tests/test_torch_snapshot.py). The 2-hop label index
 (keto_tpu_torch/graph/labels.py) is attached by the engine after the
-build. Left for later slices: the delta overlay (and with it the labels'
-``lab_dirty`` set), the reverse-query list layouts and transposed CSR,
-sharding and the device-side sorter.
+build. The delta overlay (keto_tpu_torch/graph/overlay.py) rides on the
+same object: the ``ov_*`` fields, tombstones (``ov_removed``), pending
+device patches (``ell_patch``, ``ov_ell_delta``) and the labels'
+``lab_dirty`` set, with overlay-aware resolution and host gathers
+(keto_tpu/graph/snapshot.py:260-620). Left for later slices: the
+reverse-query list layouts and transposed CSR, sharding and the
+device-side sorter.
 """
 
 from __future__ import annotations
@@ -57,6 +61,13 @@ def _argsort(keys: np.ndarray) -> np.ndarray:
 def _csr_gather_host(indptr: np.ndarray, indices: np.ndarray, nodes: np.ndarray):
     """(all out-neighbors of ``nodes`` concatenated, per-node counts)."""
     cnts = indptr[nodes + 1] - indptr[nodes]
+    return _csr_gather_counts(indptr, indices, nodes, cnts)
+
+
+def _csr_gather_counts(indptr: np.ndarray, indices: np.ndarray, nodes: np.ndarray, cnts):
+    """CSR gather with caller-supplied per-node counts (callers zero the
+    counts of nodes that contribute nothing, e.g. overlay ids past the
+    base CSR)."""
     total = int(cnts.sum())
     if not total:
         return np.zeros(0, indices.dtype), cnts
@@ -113,6 +124,41 @@ class GraphSnapshot:
     #: the device-resident graph (keto_tpu_torch/graph/carry.py), set by
     #: the engine at upload
     device: Any = None
+
+    # -- delta overlay (keto_tpu_torch/graph/overlay.py) ----------------------
+    # Writes since the base build: new nodes get device ids >=
+    # ``n_base_nodes`` (never bitmap rows), static→x edges extend the host
+    # one-hop adjacency, edges into sinks extend the answer gathers,
+    # interior→interior edges form the small device overlay ELL that the
+    # check step ORs in every pull, and deleted base edges are tombstones.
+    ov_set_ids: Optional[dict] = None  # (ns_id, obj, rel) → overlay dev id
+    ov_leaf_ids: Optional[dict] = None  # subject str → overlay dev id
+    ov_class: Optional[dict] = None  # overlay dev id → "static" | "sink"
+    ov_next: int = 0  # next free overlay device id
+    ov_out: Optional[dict] = None  # src dev → int64[...] out-neighbour devs
+    ov_sink_in: Optional[dict] = None  # sink dev → int32[...] interior srcs
+    #: unified overlay out-adjacency: src dev → [dst devs] for every added
+    #: edge whatever its class (compaction's child source)
+    ov_fwd: Optional[dict] = None
+    ov_ell: Optional[np.ndarray] = None  # int64 [K, 2] (src, dst) edges
+    #: tombstoned base edges, a sorted int64 key array ((src << 32) | dst);
+    #: the host gathers mask against it and iterated edges are also
+    #: sentinel-patched out of the device buckets (``ell_patch``)
+    ov_removed: Optional[np.ndarray] = None
+    #: pending device-bucket patches [(bucket, row, col, value)] relative to
+    #: the base's device buckets; the engine applies and clears them
+    ell_patch: Optional[list] = None
+    #: ``(ov_nbrs int32[K, C], ov_dst int32[K])`` on the device, or None
+    device_overlay: Any = None
+    #: ``(base_snapshot_id, added, dropped)`` overlay-ELL edges of the last
+    #: delta, which the engine scatters into the resident overlay (K9) and
+    #: clears; None means re-pack
+    ov_ell_delta: Any = None
+    #: interior device ids whose label entries the overlay invalidated
+    #: (endpoints of inserted or tombstoned ELL edges); while non-empty the
+    #: engine sends every check to the BFS route
+    lab_dirty: Optional[set] = None
+
     #: the 2-hop label index (keto_tpu_torch/graph/labels.py ``LabelIndex``)
     #: built for exactly this snapshot, and its device arrays
     #: ``(out_lab, in_lab)``; both set by the engine, None until then
@@ -126,32 +172,187 @@ class GraphSnapshot:
         return self.num_sets + self.num_leaves
 
     @property
+    def has_overlay(self) -> bool:
+        """True when any delta-overlay state is pending (the one predicate
+        consumers use, so a newly added ``ov_*`` field cannot be missed)."""
+        return (
+            bool(self.ov_set_ids)
+            or bool(self.ov_leaf_ids)
+            or bool(self.ov_out)
+            or bool(self.ov_sink_in)
+            or bool(self.ov_fwd)
+            or self.ov_ell is not None
+            or (self.ov_removed is not None and self.ov_removed.size > 0)
+        )
+
+    @property
+    def has_wildcards(self) -> bool:
+        """True when any set node is wildcard-bearing (cached per snapshot)."""
+        with self._cache_lock:
+            v = self._pattern_cache.get("_has_wild")
+            if v is None:
+                v = bool(np.any(np.asarray(self.interned.key_wild)))
+                self._pattern_cache["_has_wild"] = v
+            return v
+
+    @property
     def sink_base(self) -> int:
         """First sink device id (peeled interior ids come before)."""
         return self.num_int + self.n_peeled
 
     @property
+    def n_base_nodes(self) -> int:
+        """Device ids below this are base nodes; ids in ``[n_base_nodes,
+        ov_next)`` are overlay nodes."""
+        return self.n_nodes
+
+    @property
     def n_edges(self) -> int:
-        return 0 if self.fwd_indices is None else int(self.fwd_indices.shape[0])
+        base = 0 if self.fwd_indices is None else int(self.fwd_indices.shape[0])
+        ov = 0
+        if self.ov_out:
+            ov = sum(v.size for v in self.ov_out.values())
+        if self.ov_ell is not None:
+            ov += int(self.ov_ell.shape[0])
+        if self.ov_sink_in:
+            ov += sum(v.size for v in self.ov_sink_in.values())
+        if self.ov_removed is not None:
+            ov -= int(self.ov_removed.size)
+        return base + ov
 
     def resolve_set(self, ns_id: int, obj: str, rel: str) -> Optional[int]:
         raw = self.interned.resolve_set(ns_id, obj, rel)
-        return int(self.raw2dev[raw]) if raw >= 0 else None
+        if raw >= 0:
+            return int(self.raw2dev[raw])
+        if self.ov_set_ids is not None:
+            return self.ov_set_ids.get((ns_id, obj, rel))
+        return None
 
     def resolve_leaf(self, subject_id: str) -> Optional[int]:
         raw = self.interned.resolve_leaf(subject_id)
-        return int(self.raw2dev[raw + self.num_sets]) if raw >= 0 else None
+        if raw >= 0:
+            return int(self.raw2dev[raw + self.num_sets])
+        if self.ov_leaf_ids is not None:
+            return self.ov_leaf_ids.get(subject_id)
+        return None
+
+    def is_answerable_target(self, dev: int) -> bool:
+        """True when a query targeting ``dev`` can be granted: the node has
+        in-edges and either a bitmap row, answer gathers, or overlay
+        in-edges (sink-class overlay nodes)."""
+        if dev < self.num_live:
+            return True
+        if self.ov_class is not None and self.ov_class.get(dev) == "sink":
+            return True
+        return self.ov_sink_in is not None and dev in self.ov_sink_in
+
+    def key_of_dev(self, dev: int):
+        """``("set", (ns_id, object, relation))`` or ``("leaf",
+        subject_id)`` for any device id, base or overlay."""
+        if dev >= self.n_base_nodes:
+            with self._cache_lock:
+                inv = self._pattern_cache.get("_ov_inv")
+                if inv is None:
+                    inv = {}
+                    for k, d in (self.ov_set_ids or {}).items():
+                        inv[d] = ("set", k)
+                    for s, d in (self.ov_leaf_ids or {}).items():
+                        inv[d] = ("leaf", s)
+                    self._pattern_cache["_ov_inv"] = inv
+            return inv[dev]
+        raw = int(self._dev2raw()[dev])
+        if raw < self.num_sets:
+            return ("set", self.interned.set_key_of(raw))
+        return ("leaf", self.interned.leaf_str(raw - self.num_sets))
+
+    def _dev2raw(self) -> np.ndarray:
+        """Lazily cached inverse of the raw2dev permutation."""
+        with self._cache_lock:
+            d2r = self._pattern_cache.get("_dev2raw")
+            if d2r is None:
+                nb = self.n_base_nodes
+                d2r = np.empty(nb, np.int64)
+                d2r[self.raw2dev] = np.arange(nb)
+                self._pattern_cache["_dev2raw"] = d2r
+            return d2r
+
+    def _removed_drop(self, keys: np.ndarray, cnts: np.ndarray):
+        """(keep-mask over gathered entries, per-segment adjusted counts) for
+        the tombstone filter, or None when nothing matches. ``keys`` pack
+        ``(src << 32) | dst`` like ``ov_removed``."""
+        rem = self.ov_removed
+        pos = np.clip(np.searchsorted(rem, keys), 0, rem.size - 1)
+        hit = rem[pos] == keys
+        if not hit.any():
+            return None
+        seg = np.repeat(np.arange(cnts.shape[0]), cnts)
+        return ~hit, cnts - np.bincount(seg[hit], minlength=cnts.shape[0])
+
+    @staticmethod
+    def _splice(rows, cnts, keys, ov: dict):
+        """Append each member's overlay extras after its base entries."""
+        member = np.isin(keys, np.fromiter(ov.keys(), np.int64, len(ov)))
+        if not member.any():
+            return rows, cnts
+        ends = np.cumsum(cnts)
+        mi = np.nonzero(member)[0]
+        extras = [np.asarray(ov[int(keys[i])], rows.dtype) for i in mi]
+        lens = np.asarray([e.size for e in extras], np.int64)
+        rows = np.insert(rows, np.repeat(ends[mi], lens), np.concatenate(extras))
+        cnts = cnts.copy()
+        cnts[mi] += lens
+        return rows, cnts
 
     def out_neighbors_bulk(self, nodes: np.ndarray):
-        """(concatenated out-neighbor devs of ``nodes``, per-node counts)
-        from the forward CSR; node order is preserved."""
-        return _csr_gather_host(self.fwd_indptr, self.fwd_indices, np.asarray(nodes))
+        """(concatenated out-neighbour devs of ``nodes``, per-node counts):
+        the base forward CSR masked by the tombstones, with the overlay's
+        host-propagation adjacency (``ov_out``) appended after each node's
+        base neighbours. Node order is preserved."""
+        nodes = np.asarray(nodes)
+        nb = self.n_base_nodes
+        if nodes.size and int(nodes.max()) >= nb:
+            # overlay ids lie past the base CSR: 0 base neighbours
+            in_base = nodes < nb
+            base_nodes = np.where(in_base, nodes, 0)
+            cnts = np.where(
+                in_base, self.fwd_indptr[base_nodes + 1] - self.fwd_indptr[base_nodes], 0
+            )
+            rows, cnts = _csr_gather_counts(self.fwd_indptr, self.fwd_indices, base_nodes, cnts)
+        else:
+            rows, cnts = _csr_gather_host(self.fwd_indptr, self.fwd_indices, nodes)
+        if self.ov_removed is not None and self.ov_removed.size and rows.size:
+            keys = (np.repeat(nodes.astype(np.int64), cnts) << 32) | rows.astype(np.int64)
+            drop = self._removed_drop(keys, cnts)
+            if drop is not None:
+                keep, cnts = drop
+                rows = rows[keep]
+        if not self.ov_out:
+            return rows, cnts
+        return self._splice(rows, cnts, nodes, self.ov_out)
 
     def sink_in_rows_bulk(self, sinks: np.ndarray):
-        """(concatenated interior in-neighbor rows of sink targets,
-        per-target counts) from the sink reverse CSR."""
+        """(concatenated interior in-neighbour rows of sink-class targets,
+        per-target counts): the base sink reverse CSR masked by the
+        tombstones, with overlay in-edges appended. ``sinks`` are device
+        ids (base sinks or overlay nodes)."""
         sinks = np.asarray(sinks)
-        return _csr_gather_host(self.sink_indptr, self.sink_indices, sinks - self.sink_base)
+        sb, nl = self.sink_base, self.num_live
+        no_ov = not self.ov_sink_in
+        if no_ov and (self.ov_removed is None or not self.ov_removed.size):
+            return _csr_gather_host(self.sink_indptr, self.sink_indices, sinks - sb)
+        in_base = (sinks >= sb) & (sinks < nl)
+        base_idx = np.where(in_base, sinks - sb, 0)
+        cnts = np.where(in_base, self.sink_indptr[base_idx + 1] - self.sink_indptr[base_idx], 0)
+        rows, cnts = _csr_gather_counts(self.sink_indptr, self.sink_indices, base_idx, cnts)
+        if self.ov_removed is not None and self.ov_removed.size and rows.size:
+            keys = (rows.astype(np.int64) << 32) | np.repeat(sinks.astype(np.int64), cnts)
+            drop = self._removed_drop(keys, cnts)
+            if drop is not None:
+                keep, cnts = drop
+                rows = rows[keep]
+        if no_ov:
+            return rows, cnts
+        return self._splice(rows, cnts, sinks, self.ov_sink_in)
 
     def _pattern_index(self, kind: str):
         """Lazily built sorted key index for pattern resolution:
@@ -256,6 +457,17 @@ class GraphSnapshot:
         — the shared tail of ``resolve_starts`` and ``resolve_starts_bulk``."""
         # ascending raw-id order: bitwise-identical to a full-scan nonzero()
         starts = self.raw2dev[np.sort(cand)] if cand.size else np.zeros(0, np.int64)
+        if self.ov_set_ids:
+            # overlay keys are always literal (a new wildcard key forces a
+            # full rebuild), so they pattern-match directly
+            extra = [
+                dev
+                for (k_ns, k_obj, k_rel), dev in self.ov_set_ids.items()
+                if (ns_wild or k_ns == ns_id) and (obj == "" or k_obj == obj)
+                and (rel == "" or k_rel == rel)
+            ]
+            if extra:
+                starts = np.concatenate([starts, np.asarray(extra, np.int64)])
         with self._cache_lock:
             self._pattern_cache[key] = starts
         return starts

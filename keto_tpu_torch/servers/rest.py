@@ -10,9 +10,10 @@ Read port:
 - ``POST /check`` takes the tuple as JSON (handler.go:128-146).
 - ``POST /check/batch`` takes ``{"tuples": [...]}`` and answers
   ``{"results": [bool, ...]}`` in order.
-- ``?snaptoken=`` asks for a snapshot at or past a write's token; the port
-  always serves the latest snapshot, which satisfies it, so the token is
-  only validated (a malformed one is a 400). Responses carry the deciding
+- ``?snaptoken=`` asks for a snapshot at or past a write's token (the
+  batcher's ``at_least``; a malformed one is a 400) and ``?latest=true``
+  for read-your-writes; by default a check is served in the serving mode
+  (keto_tpu/servers/rest.py:653-664). Responses carry the deciding
   snapshot's id in ``X-Keto-Snaptoken``.
 
 Write port: ``PUT /relation-tuples`` creates from a JSON body → 201 +
@@ -85,21 +86,25 @@ class RestApp:
     # -- read ----------------------------------------------------------------
 
     @staticmethod
-    def _validate_snaptoken(query) -> None:
+    def _consistency_from(query) -> dict:
+        """``{"at_least": ..., "latest": ...}`` from ``?snaptoken=`` and
+        ``?latest=``."""
         raw_token = (query.get("snaptoken") or [""])[0]
+        at_least = None
         if raw_token:
             try:
-                int(raw_token)
+                at_least = int(raw_token)
             except ValueError:
                 raise ErrBadRequest(f"malformed snaptoken {raw_token!r}") from None
+        latest = (query.get("latest") or [""])[0].lower() in ("1", "true")
+        return {"at_least": at_least, "latest": latest}
 
     @staticmethod
     def _token_headers(token) -> dict[str, str]:
         return {} if token is None else {"X-Keto-Snaptoken": str(token)}
 
     def _check(self, tuple_: RelationTuple, query):
-        self._validate_snaptoken(query)
-        allowed, token = self.batcher.check_with_token(tuple_)
+        allowed, token = self.batcher.check_with_token(tuple_, **self._consistency_from(query))
         return (200 if allowed else 403), {"allowed": allowed}, self._token_headers(token)
 
     def _get_check(self, query):
@@ -130,8 +135,9 @@ class RestApp:
                 f"{MAX_BATCH_CHECK}); split the request"
             )
         tuples = [RelationTuple.from_json(t) for t in raw]
-        self._validate_snaptoken(query)
-        results, token = self.batcher.check_batch_with_token(tuples)
+        results, token = self.batcher.check_batch_with_token(
+            tuples, **self._consistency_from(query)
+        )
         return 200, {"results": [bool(r) for r in results]}, self._token_headers(token)
 
     # -- write ---------------------------------------------------------------

@@ -5,8 +5,9 @@
 output — decision bits, iteration count and truncation flag — over random
 bucket layouts made with numpy from a seed; ``pull_ref`` must equal
 ``_pull``. Both run through the port's dispatchers, which take the plain
-version for CPU tensors. The ``cuda`` tests hold the CUDA kernels against
-the plain versions on the card and skip where there is none.
+version for CPU tensors. The ``cuda`` tests hold the CUDA kernels (K1, K2
+and the write path's slot set, K9) against the plain versions on the card
+and skip where there is none.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 from keto_tpu_torch.check import kernels
-from keto_tpu_torch.check.random_layouts import random_buckets, random_case
+from keto_tpu_torch.check.random_layouts import random_buckets, random_case, random_slot_case
 
 
 def _case(seed, **kw):
@@ -120,3 +121,41 @@ def test_check_step_cuda_matches_plain(name, cuda_device):
     want = kernels.check_step_ref(*args, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+#: K9 layouts of the write path: (rows, ld, entries, duplicates, 1-D, in place)
+SLOT_CASES = {
+    "bucket-patch": (4096, 1, 64, False, False, False),
+    "bucket-cap8": (512, 8, 200, False, False, False),
+    "overlay-rows": (64, 8, 24, False, False, False),
+    "overlay-dst": (64, 1, 24, False, True, False),
+    "mirror-in-place": (3000, 64, 2000, False, False, True),
+    "empty": (100, 4, 0, False, False, False),
+    "duplicates": (200, 16, 500, True, False, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SLOT_CASES))
+def test_slot_set_cuda_matches_plain(name, cuda_device):
+    n, ld, m, dup, one_d, in_place = SLOT_CASES[name]
+    buf, r, c, v = random_slot_case(np.random.default_rng(len(name)), n, ld, m, dup=dup, one_d=one_d)
+    a = torch.from_numpy(buf.copy()).to(cuda_device)
+    b = torch.from_numpy(buf.copy()).to(cuda_device)
+    got = kernels.slot_set_cuda(a, r, c, v, in_place=in_place)
+    want = kernels.slot_set_ref(b, r, c, v, in_place=in_place)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if in_place:
+        assert got.data_ptr() == a.data_ptr()
+    else:
+        assert np.array_equal(a.cpu().numpy(), buf), "a functional slot set wrote its target"
+
+
+@pytest.mark.cuda
+def test_slot_set_cuda_raises_out_of_range(cuda_device):
+    buf = torch.zeros((8, 4), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="outside"):
+        kernels.slot_set_cuda(buf, [1, 8], [0, 0], [5, 6])
+    with pytest.raises(ValueError, match="outside"):
+        kernels.slot_set_cuda(buf, [1], [4], [5])

@@ -237,11 +237,13 @@ def _req(method, port, path, body=None):
 
 @pytest.mark.parametrize("build", sorted(BUILDS))
 def test_rest_read_your_writes_across_label_rebuild(monkeypatch, build):
-    """A PUT makes a new snapshot whose label build runs in the background
-    (held back here until the check has answered): the check right after
-    the PUT sees the write on the BFS route, and once the new index lands
-    the label route answers it the same way. The daemon passes the build
-    knobs through ``engine_options``."""
+    """A PUT that a delta overlay cannot express (it gives the static
+    ``d:doc#view`` an in-edge, a class change) makes a rebuilt snapshot
+    whose label build runs in the background (held back here until the
+    check has answered): the check right after the PUTs sees the writes on
+    the BFS route, and once the new index lands the label route answers it
+    the same way. The daemon passes the build knobs through
+    ``engine_options``."""
     d = Daemon([tns.Namespace(id=i, name=n) for n, i in NS], device="cpu",
                tuples=deep_rows(depth=8), engine_options=BUILDS[build])
     d.start()
@@ -260,6 +262,8 @@ def test_rest_read_your_writes_across_label_rebuild(monkeypatch, build):
         monkeypatch.setattr(eng, "_build_label_index", held_build)
         new = T("g", "c7", "m", SubjectID("carol"))
         assert _req("PUT", d.write.port, "/relation-tuples", new.to_json())[0] == 201
+        relayout = T("g", "zz", "m", SubjectSet("d", "doc", "view"))
+        assert _req("PUT", d.write.port, "/relation-tuples", relayout.to_json())[0] == 201
         before = port_counters(eng)
         assert _req("GET", d.read.port, "/check?" + q.to_url_query()) == (200, {"allowed": True})
         assert eng.snapshot().labels is None, "the rebuilt index must not have landed yet"
