@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, parity, the BFS
-and label routes of Check, the write path, serve.
+and label routes of Check, reverse queries, the write path, serve.
 
     python3 chip_smoke.py            # every phase, as a release check runs it
     python3 chip_smoke.py --only build,parity
-    python3 chip_smoke.py --only build,parity,deep,write   # the write path
+    python3 chip_smoke.py --only build,parity,deep,list         # reverse queries
+    python3 chip_smoke.py --only build,parity,deep,list,write   # and the write path
 
 Phases, in order; any failure exits non-zero:
 
@@ -20,13 +21,21 @@ Phases, in order; any failure exits non-zero:
    wt 1 and 2), the covered mask (an empty table, wt 1 and 2, a table
    too large for shared memory) and the slot set (a bucket patch, overlay
    rows and their dst vector, a label-mirror store in place, an empty
-   entry list, duplicate slots, an out-of-range entry that must raise);
-   every word of every output must agree;
+   entry list, duplicate slots, an out-of-range entry that must raise), the
+   list fixpoint (the base pull alone, an overlay into active rows, an
+   overlay into passive rows, a chain that it_cap truncates, no active row
+   but an overlay, all 32 lanes) and the build's radix argsort (empty, one
+   key, all keys equal, negative keys, a ragged last tile, random int32, 10M
+   keys in [0, 5.2M), each permutation also equal to numpy's stable
+   argsort); every word of every output must agree;
 3. main — BASELINE config 3 (RBAC, 1M tuples, 3-level group nesting) on
    the BFS route (labels off), 100k checks: every decision equals the
    analytic expectation, a 2,000-query sample equals the recursive
    oracle, and every BFS kernel launched; each kernel is then timed at the
-   main path's shapes beside its plain version and its bound;
+   main path's shapes beside its plain version and its bound. The snapshot
+   line gives the build's sort seconds on the card (K8) against the host
+   sorter on the same keys, whose permutations must equal the card's, and
+   the sorter's dispatch counts;
 4. labels — the same store and checks with the default engine: labels on,
    built on the host (config 3 is below the device-build gate): decisions
    equal to the BFS run's and the expectation, the label step launched and
@@ -36,8 +45,19 @@ Phases, in order; any failure exits non-zero:
    the labels built on the card, 100k checks equal to the analytic
    expectation, an oracle sample, the label step, frontier wave and
    covered mask each launched; then those three kernels are timed at the
+   path's shapes beside their plain versions and bounds; its snapshot line
+   reports the build's sorts as main's does;
+6. list — on the deep phase's engine and store: 200 ListObjects ("which
+   issues may user-u view") and 200 ListSubjects ("which users may view
+   issue-j"), each against its analytic expected set from the generator's
+   maps; p50/p99 seconds and items/s per orientation (cache misses only),
+   the route counts (every listing on the card), K5's runs and steps, the
+   upload seconds of each orientation; then 50 of each against the host
+   lister on the same snapshot, 10 ListSubjects against the Manager oracle,
+   and 20 ListObjects answers through a Check batch (every listed issue
+   allowed, as many unlisted ones denied); K5 and K8 are timed at the
    path's shapes beside their plain versions and bounds;
-6. write — the deep phase's engine and store take writes through the
+7. write — the deep phase's engine and store take writes through the
    store, as the REST write API makes them: (a) the reference bench's
    burst of 5,000 new team memberships (interior→sink edges: the labels
    stay live, the background fold absorbs the burst), (b) 64 new
@@ -49,15 +69,25 @@ Phases, in order; any failure exits non-zero:
    each step: the seconds until ``snapshot_serving()`` reaches the
    watermark, a 100k-check batch's checks/s and route counts, the
    maintenance counters, and 100 decisions (half on touched teams)
-   against the oracle; then the fold. At the end the 100k decisions are
+   against the oracle, and 100 ListObjects for users the step touched plus
+   100 ListSubjects for issues granted to the touched teams, each against
+   the host lister on the same snapshot (K5's overlay stage must launch in
+   (b), K9's list site in (c), and every fold must clear the list mirror);
+   then the fold. At the end the 100k decisions and the last listings are
    held against a fresh engine built on the final store (the rebuild the
    write path replaced, its labels built on the card) and no full rebuild
-   may have happened;
-7. serve — the REST server with the default engine (labels on): the
+   may have happened; K9 is timed at the write shapes, and K5 on the first
+   fixpoint that ran with the overlay pending, against its plain version;
+8. serve — the REST server with the default engine (labels on): the
    cat-videos checks (200, 200, 403, 200), read-your-writes after a PUT,
-   /check/batch, then a PUT that closes a cycle and a batch over it; each
-   part fails unless its requests launched the kernels of the routes that
-   answered them.
+   /check/batch, then a PUT that closes a cycle and a batch over it, then
+   a ListObjects and a paged ListSubjects over REST; each part fails
+   unless its requests launched the kernels of the routes that answered
+   them.
+
+``--only`` names a subset; ``labels`` needs ``main``, ``list`` needs
+``deep`` and ``write`` needs ``list`` (they run on that phase's engine and
+store), and a subset that breaks this exits non-zero.
 
 Output: progress lines, the ``{"kernels": [...]}`` line, the card line, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -73,7 +103,9 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "parity", "main", "labels", "deep", "write", "serve")
+PHASES = ("build", "parity", "main", "labels", "deep", "list", "write", "serve")
+#: a phase that runs on the engine and store of another
+PHASE_NEEDS = {"labels": "main", "list": "deep", "write": "list"}
 SEED = 20261017
 N_TUPLES = 1_000_000
 N_CHECKS = 100_000
@@ -87,6 +119,15 @@ WRITE_BURST = 5_000
 WRITE_ELL = (40, 24)
 WRITE_DELETE_ELL = 64
 WRITE_ORACLE_SAMPLE = 100
+#: the list phase: listings per orientation, the host-lister and Check
+#: cross-check samples, the oracle sample (ListSubjects only: the oracle's
+#: ListObjects walks the store by subject, which it does not index)
+LIST_QUERIES = 200
+LIST_HOST_SAMPLE = 50
+LIST_CHECK_SAMPLE = 20
+LIST_ORACLE_SAMPLE = 10
+#: listings per orientation after each write step
+WRITE_LIST_QUERIES = 100
 
 #: the TPU kernels these CUDA kernels replace
 K1 = "keto_tpu/check/tpu_engine.py:89"
@@ -94,7 +135,12 @@ K2 = "keto_tpu/check/tpu_engine.py:110"
 K3 = "keto_tpu/check/tpu_engine.py:310"
 K6 = "keto_tpu/graph/label_build.py:150"
 K7 = "keto_tpu/graph/label_build.py:183"
-K9 = ("keto_tpu/check/tpu_engine.py:2542 (and :2665; keto_tpu/graph/label_build.py:433)")
+K9 = ("keto_tpu/check/tpu_engine.py:2542 (and :2665; keto_tpu/graph/label_build.py:433; "
+      "keto_tpu/list/tpu_engine.py:337)")
+K5 = "keto_tpu/list/tpu_engine.py:76"
+#: the counts of the kernels one K5 fixpoint run launches
+K5_KERNELS = ("pull", "commit", "list_gather", "list_scatter", "close")
+K8 = "keto_tpu/graph/device_build.py:54"
 
 #: per H100 variant, by a word of its nvidia-smi name: memory rate (B/s),
 #: SMs and boost clock (Hz), from NVIDIA's H100 data sheet (SXM5 HBM3
@@ -243,6 +289,8 @@ def phase_parity(torch, kernels, rows_out):
         total += m
     total += label_parity(torch, rng, dev)
     total += slot_parity(torch, rng, dev)
+    total += list_parity(torch, rng, dev)
+    total += sort_parity(torch, rng, dev)
     rows_out["parity_mismatches"] = total
     if total:
         raise SystemExit(f"kernel parity FAILED: {total} mismatching words")
@@ -353,6 +401,123 @@ def slot_parity(torch, rng, dev) -> int:
     return total
 
 
+def list_parity(torch, rng, dev) -> int:
+    """K5 against its plain version on the card over its parity layouts
+    (the base pull alone, an overlay into active rows, an overlay into
+    passive rows, a chain that it_cap truncates, no active row but an
+    overlay, all 32 lanes; lane 31 seeded in each). Mismatching words."""
+    import numpy as np
+
+    from keto_tpu_torch.check.random_layouts import LIST_CASES, list_case_inputs, list_case_tuples
+    from keto_tpu_torch.graph.carry import device_list_from_arrays, list_layout_arrays
+    from keto_tpu_torch.graph.snapshot import build_snapshot
+    from keto_tpu_torch.list import kernels as lk
+    from keto_tpu_torch.persistence.memory import MemoryPersister
+    from keto_tpu_torch import namespace as tns
+
+    nm = tns.MemoryManager([tns.Namespace(id=1, name="g"), tns.Namespace(id=2, name="d")])
+    total = 0
+    for kind in LIST_CASES:
+        tuples, orient = list_case_tuples(kind, rng)
+        store = MemoryPersister(nm)
+        store.write_relation_tuples(*tuples)
+        arrays, meta = list_layout_arrays(build_snapshot(*store.snapshot_rows()), orient)
+        R0, ovn, ovd, it_cap, block_iters = list_case_inputs(kind, rng, meta["n_rows"],
+                                                             meta["n_active"])
+        dl = device_list_from_arrays(arrays, meta, dev)
+        t = lambda a: None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        kw = dict(n_active=dl.n_active, valid_rows=dl.valid_rows, it_cap=it_cap,
+                  block_iters=block_iters)
+        iters0 = lk.COUNTS["list_iters"]
+        got = lk.list_step_cuda(dl.buckets, t(R0), t(ovn), t(ovd), **kw)
+        want = lk.list_step_ref(dl.buckets, t(R0), t(ovn), t(ovd), **kw)
+        torch.cuda.synchronize()
+        m, _ = diff(got, want)
+        grown = int((want != t(R0)).sum())
+        log(f"parity list_step {kind}: {meta['n_rows']} rows, {meta['n_active']} active, "
+            f"overlay {None if ovn is None else list(ovn.shape)}, "
+            f"{lk.COUNTS['list_iters'] - iters0} steps, {grown} words grew, mismatches={m}")
+        total += m
+    return total
+
+
+def sort_parity(torch, rng, dev) -> int:
+    """K8 against its plain version on the card over its parity layouts (10M
+    keys in [0, 5.2M) the largest); each permutation also equals
+    ``np.argsort(kind="stable")``. Mismatching words."""
+    import numpy as np
+
+    from keto_tpu_torch.check.random_layouts import SORT_CASES, sort_case_keys
+    from keto_tpu_torch.graph import sort_kernels as sk
+
+    total = 0
+    for kind in SORT_CASES:
+        keys = sort_case_keys(kind, rng, tile=sk.TILE, big=(10_000_000, 5_200_000))
+        t = torch.from_numpy(keys).to(dev)
+        got = sk.radix_argsort_cuda(t)
+        want = sk.radix_argsort_ref(t)
+        torch.cuda.synchronize()
+        m, _ = diff(got, want)
+        host = np.argsort(keys, kind="stable")
+        m_np = int((got.cpu().numpy() != host).sum()) if host.size else 0
+        log(f"parity radix_argsort {kind}: {keys.size} keys, mismatches={m} "
+            f"(vs np.argsort stable: {m_np})")
+        total += m + m_np
+    return total
+
+
+# -- the build's sorts (K8) -------------------------------------------------------
+
+
+def record_sorts(engine) -> list:
+    """Capture every batch the engine's build sorter sorts, with its
+    permutations, so the snapshot line can time the host sorter on the same
+    keys and hold K8's permutations against it."""
+    import numpy as np
+
+    batches: list = []
+    sorter = engine._build_sorter
+    inner = sorter.argsort_many
+
+    def many(arrays):
+        out = inner(arrays)
+        batches.append(([np.asarray(a) for a in arrays], out))
+        return out
+
+    sorter.argsort_many = many
+    return batches
+
+
+def sort_report(engine, batches) -> dict:
+    """The build's sort seconds on the card against the host sorter on the
+    same keys, the sorter's counters, and the permutation mismatches."""
+    from keto_tpu_torch.graph.device_build import DEFAULT_MIN_EDGES, HostSorter
+
+    # the batches that went to the card (the gate's side of the sorter)
+    big = [(arrays, out) for arrays, out in batches
+           if max((a.size for a in arrays), default=0) >= DEFAULT_MIN_EDGES]
+    host = HostSorter()
+    t0 = time.monotonic()
+    perms = [host.argsort_many(arrays) for arrays, _ in big]
+    host_s = time.monotonic() - t0
+    mism = sum(int((p != q).sum()) for (_, out), ps in zip(big, perms) for p, q in zip(ps, out))
+    c = engine.counters()
+    info = engine.build_info or {}
+    r = {"sort_s_card": info.get("sort_s", {}).get("device"),
+         "sort_s_host_below_gate": info.get("sort_s", {}).get("host"),
+         "host_sorter_s_same_keys": host_s,
+         "device_sorted_keys": int(sum(a.size for arrays, _ in big for a in arrays)),
+         "largest_sort": int(max((a.size for arrays, _ in batches for a in arrays), default=0)),
+         "build_sort_bytes": info.get("build_sort_bytes"),
+         "build_s": info.get("seconds"),
+         "perm_mismatches_vs_host": mism,
+         **{k: c.get(k, 0) for k in ("device_build_dispatches", "device_build_host_dispatches",
+                                     "device_build_errors")}}
+    if mism or not r["device_build_dispatches"] or r["device_build_errors"]:
+        raise SystemExit(f"build sorts FAILED: {r}")
+    return r
+
+
 # -- phase 3: main path ---------------------------------------------------------
 
 
@@ -374,13 +539,17 @@ def phase_main(torch, kernels, report):
         f"{sum(expected)} expected grants ({time.monotonic() - t0:.1f}s to generate and store)")
 
     engine = TorchCheckEngine(store, nm, device="cuda", labels_enabled=False)
+    batches = record_sorts(engine)
     t0 = time.monotonic()
     snap = engine.snapshot()
     torch.cuda.synchronize()
     snap_s = time.monotonic() - t0
+    sorts = sort_report(engine, batches)
+    del batches
     log(f"snapshot: {snap.n_nodes} nodes, {snap.n_edges} edges, num_int={snap.num_int}, "
         f"num_active={snap.num_active}, n_peeled={snap.n_peeled}, "
-        f"buckets={[(tuple(b.nbrs.shape), b.n) for b in snap.buckets]}, {snap_s:.3f}s")
+        f"buckets={[(tuple(b.nbrs.shape), b.n) for b in snap.buckets]}, {snap_s:.3f}s; "
+        f"build sorts {json.dumps(sorts)}")
 
     # the main path's run: launch counts from exactly this call
     kernels.reset_counts()
@@ -419,7 +588,7 @@ def phase_main(torch, kernels, report):
         "snapshot_s": snap_s, "check_s": check_s, "checks_per_s": N_CHECKS / check_s,
         "steady_check_s": steady_s, "steady_checks_per_s": N_CHECKS / steady_s,
         "peak_device_bytes": peak, "oracle_sample": ORACLE_SAMPLE, "oracle_mismatches": bad,
-        "grants": sum(expected),
+        "grants": sum(expected), "build_sorts": sorts,
     }
     report["launches"] = launches
     return engine, snap, queries, (store, nm, got, expected)
@@ -643,14 +812,21 @@ def phase_deep(torch, kernels, report):
     kernels.reset_counts()
     torch.cuda.reset_peak_memory_stats()
     engine = TorchCheckEngine(store, nm, device="cuda")
+    batches = record_sorts(engine)
     t0 = time.monotonic()
     snap = engine.snapshot()
     torch.cuda.synchronize()
     snap_s = time.monotonic() - t0
     slots = engine._interior_ell_slots(snap)
+    sorts = sort_report(engine, batches)
+    # K8's kernel row times the largest array the build sorted
+    sort_keys = max((a for arrays, _ in batches for a in arrays), key=lambda a: a.size)
+    del batches
     log(f"deep snapshot: {snap.n_nodes} nodes, {snap.n_edges} edges, num_int={snap.num_int}, "
         f"num_active={snap.num_active}, {slots} interior ELL slots, "
-        f"buckets={[(tuple(b.nbrs.shape), b.n) for b in snap.buckets]}, {snap_s:.3f}s")
+        f"buckets={[(tuple(b.nbrs.shape), b.n) for b in snap.buckets]}, {snap_s:.3f}s; "
+        f"list layouts fwd {snap.lay_fwd.n_rows} rows ({snap.lay_fwd.n_active} active), "
+        f"rev {snap.lay_rev.n_active} active; build sorts {json.dumps(sorts)}")
     t0 = time.monotonic()
     if not engine.labels_settled():
         raise SystemExit("deep FAILED: no label index")
@@ -718,9 +894,9 @@ def phase_deep(torch, kernels, report):
         "checks_per_s": N_CHECKS / check_s, "steady_check_s": steady_s,
         "steady_checks_per_s": N_CHECKS / steady_s, "peak_device_bytes": peak,
         "route_counts": counts, "launches": launches, "oracle_sample": len(sample),
-        "oracle_mismatches": bad, "grants": sum(expected),
+        "oracle_mismatches": bad, "grants": sum(expected), "build_sorts": sorts,
     }
-    return engine, snap, captured, launches, store, queries, got
+    return engine, snap, captured, launches, store, queries, got, ctx, sort_keys
 
 
 def label_rows(torch, kernels, snap, engine, captured, launches, rate, int_rate):
@@ -833,7 +1009,143 @@ def label_rows(torch, kernels, snap, engine, captured, launches, rate, int_rate)
     return rows
 
 
-# -- phase 6: write, on the deep phase's engine and store ------------------------
+# -- phase 6: list, reverse queries on the deep phase's engine and store -----------
+
+
+class PinnedEngine:
+    """A check-engine stand-in that serves one snapshot: the host lister
+    runs on it (a copy with ``lst_dirty`` set routes every listing to
+    ``_fixpoint_host``), over exactly the snapshot the card answered on."""
+
+    def __init__(self, snap, store):
+        self._snap = snap
+        self._store = store
+
+    def snapshot(self, at_least=None):
+        return self._snap
+
+    def snapshot_serving(self):
+        return self._snap
+
+
+def host_lister(snap, store, device="cuda"):
+    import dataclasses
+    import threading
+
+    from keto_tpu_torch.list.gpu_engine import SnapshotListEngine
+
+    dirty = dataclasses.replace(snap, lst_dirty=True, device_list=None, _pattern_cache={},
+                                _cache_lock=threading.Lock())
+    return SnapshotListEngine(PinnedEngine(dirty, store), store.namespaces, device=device)
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else None
+
+
+def phase_list(torch, kernels, report, engine, store, ctx, device="cuda"):
+    """ListObjects and ListSubjects at config 4 (see the module docstring).
+    Returns the list engine, the captured fixpoint inputs and the launches."""
+    from keto_tpu_torch.list import gpu_engine
+    from keto_tpu_torch.list.gpu_engine import SnapshotListEngine
+    from keto_tpu_torch.relationtuple.model import RelationTuple
+    from keto_tpu_torch.workloads import github_list_queries
+
+    rng = random.Random(SEED + 5)
+    objects, subjects = github_list_queries(rng, LIST_QUERIES, ctx)
+    # cache misses only: each query once
+    objects = list({str(s): (s, w) for s, w in objects}.values())
+    subjects = list({o: (o, w) for o, w in subjects}.values())
+    lst = SnapshotListEngine(engine, store.namespaces, device=device)
+    captured = []
+    step = gpu_engine.list_step
+
+    def capture(buckets, R0, ov_nbrs, ov_dst, **kw):
+        if not captured:
+            captured.append((buckets, R0.clone(), ov_nbrs, ov_dst, kw))
+        return step(buckets, R0, ov_nbrs, ov_dst, **kw)
+
+    kernels.reset_counts()
+    gpu_engine.list_step = capture
+    out: dict = {}
+    try:
+        for op, qs in (("objects", objects), ("subjects", subjects)):
+            lat, items, bad, tokens = [], 0, 0, set()
+            for q, want in qs:
+                t0 = time.monotonic()
+                if op == "objects":
+                    got, tok = lst.list_objects("issues", "view", q)
+                else:
+                    got, tok = lst.list_subjects("issues", q, "view")
+                lat.append(time.monotonic() - t0)
+                items += len(got)
+                bad += len(set(got) ^ set(want))
+                tokens.add(tok)
+            out[op] = {"listings": len(qs), "items": items, "mean_items": items / len(qs),
+                       "p50_s": _pct(lat, 0.5), "p99_s": _pct(lat, 0.99), "max_s": max(lat),
+                       "items_per_s": items / sum(lat), "wrong_items_vs_analytic": bad,
+                       "snaptokens": sorted(tokens)}
+            log(f"list {op}: {json.dumps(out[op])}")
+            if bad:
+                raise SystemExit(f"list FAILED: {bad} {op} differ from the analytic sets")
+    finally:
+        gpu_engine.list_step = step
+    launches = dict(kernels.COUNTS)
+    routes = {f"{op}/{path}": n for (op, path), n in sorted(lst.requests_total.items())}
+    out.update({"routes": routes, "device_errors": lst.device_errors,
+                "k5_runs": launches["list_step"], "k5_steps": launches["list_iters"],
+                "upload_s": dict(lst.upload_seconds), "launches": launches})
+    log(f"list routes {routes}, K5 runs {launches['list_step']} ({launches['list_iters']} steps), "
+        f"upload seconds {lst.upload_seconds}, launches {launches}")
+    if (routes.get("objects/device") != len(objects) or routes.get("subjects/device") != len(subjects)
+            or any(k.endswith("/host") for k in routes)):
+        raise SystemExit(f"list FAILED: every listing must take the device route: {routes}")
+    if device == "cuda" and (not launches["list_step"] or not launches["pull"]):
+        raise SystemExit(f"list FAILED: K5 never launched: {launches}")
+
+    # the host lister on the same snapshot, the oracle, and Check
+    snap = engine.snapshot()
+    host = host_lister(snap, store, device)
+    t0 = time.monotonic()
+    hbad = sum(len(set(lst.list_objects("issues", "view", q)[0])
+                   ^ set(host.list_objects("issues", "view", q)[0]))
+               for q, _ in objects[:LIST_HOST_SAMPLE])
+    hbad += sum(len(set(lst.list_subjects("issues", o, "view")[0])
+                    ^ set(host.list_subjects("issues", o, "view")[0]))
+                for o, _ in subjects[:LIST_HOST_SAMPLE])
+    host_s = time.monotonic() - t0
+    obad = sum(len(set(w) ^ set(lst.oracle.list_subjects("issues", o, "view")))
+               for o, w in subjects[:LIST_ORACLE_SAMPLE])
+    n_issues = len(ctx["issue_repo"])
+    cq, cwant = [], []
+    for q, want in objects[:LIST_CHECK_SAMPLE]:
+        listed = set(want)
+        cq += [RelationTuple("issues", o, "view", q) for o in want]
+        cwant += [True] * len(want)
+        others = set()
+        while len(others) < len(want):
+            o = f"issue-{rng.randrange(n_issues)}"
+            if o not in listed:
+                others.add(o)
+        cq += [RelationTuple("issues", o, "view", q) for o in sorted(others)]
+        cwant += [False] * len(others)
+    cgot = engine.batch_check(cq)
+    cbad = sum(g != w for g, w in zip(cgot, cwant))
+    cross = {"host_lister_sample": 2 * LIST_HOST_SAMPLE, "host_lister_differ": hbad,
+             "host_lister_s": host_s, "host_routes": {f"{o}/{p}": n for (o, p), n in
+                                                     host.requests_total.items()},
+             "oracle_sample": LIST_ORACLE_SAMPLE, "oracle_differ": obad,
+             "check_sample": len(cq), "check_differ": cbad}
+    out["cross_checks"] = cross
+    log(f"list cross-checks: {json.dumps(cross)}")
+    if hbad or obad or cbad or host.requests_total.get(("objects", "host"), 0) != LIST_HOST_SAMPLE:
+        raise SystemExit(f"list FAILED: cross-checks {cross}")
+    report["list"] = out
+    return lst, captured, launches
+
+
+# -- phase 7: write, on the deep phase's engine and store ------------------------
 
 MAINT = ("delta_applies", "overlay_device_applies", "full_rebuilds", "compactions", "fold_runs",
          "label_patches", "label_patch_aborts", "label_rebuilds", "label_invalidations",
@@ -846,10 +1158,14 @@ def maint_counts(engine) -> dict:
     return {k: c.get(k, 0) for k in MAINT}
 
 
-def phase_write(torch, kernels, report, engine, store, queries, device="cuda"):
-    """The write path at config 4 (see the module docstring). Returns the
-    captured slot sets for K9's kernel row and K9's launches."""
+def phase_write(torch, kernels, report, engine, store, queries, lst, ctx, device="cuda"):
+    """The write path at config 4 (see the module docstring), with the list
+    engine's listings after each step. Returns the captured slot sets for
+    K9's kernel row and K9's launches."""
     import numpy as np
+
+    from keto_tpu_torch.list import gpu_engine
+    from keto_tpu_torch.list.gpu_engine import SnapshotListEngine
 
     from keto_tpu_torch.check.gpu_engine import TorchCheckEngine
 
@@ -863,17 +1179,26 @@ def phase_write(torch, kernels, report, engine, store, queries, device="cuda"):
     # runs inside _apply_ell_patch; the mirror writes in place; the rest
     # are the resident overlay's rows and dst)
     captured: list = []
-    sites = {"ell_patch": 0, "overlay": 0, "mirror": 0}
-    in_patch = [False]
+    sites = {"ell_patch": 0, "overlay": 0, "mirror": 0, "list": 0}
+    in_patch, in_list = [False], [False]
     slot_set, apply_patch = kernels.slot_set, engine._apply_ell_patch
+    ensure_list, list_step = lst._ensure_device, gpu_engine.list_step
+    # the first K5 run with the overlay pending, for K5's overlay row
+    ov_cap: list = [None]
 
     def capture(buf, rows, cols, vals, *, in_place=False):
-        site = "mirror" if in_place else "ell_patch" if in_patch[0] else "overlay"
+        site = ("list" if in_list[0] else "mirror" if in_place
+                else "ell_patch" if in_patch[0] else "overlay")
         if len(rows):
             sites[site] += 1
             captured.append((site, buf, np.asarray(rows), None if cols is None else np.asarray(cols),
                              np.asarray(vals)))
         return slot_set(buf, rows, cols, vals, in_place=in_place)
+
+    def step_capture(buckets, R0, ov_nbrs, ov_dst, **kw):
+        if ov_cap[0] is None and ov_nbrs is not None and ov_nbrs.shape[0]:
+            ov_cap[0] = (buckets, R0.clone(), ov_nbrs, ov_dst, kw)
+        return list_step(buckets, R0, ov_nbrs, ov_dst, **kw)
 
     def patch(snap):
         in_patch[0] = True
@@ -881,6 +1206,55 @@ def phase_write(torch, kernels, report, engine, store, queries, device="cuda"):
             apply_patch(snap)
         finally:
             in_patch[0] = False
+
+    def ensure(snap, orient):
+        in_list[0] = True
+        try:
+            return ensure_list(snap, orient)
+        finally:
+            in_list[0] = False
+
+    def issues_of(teams, k):
+        """Up to ``k`` issues whose repos grant their reader set to one of
+        ``teams``."""
+        out = sorted({f"issue-{j}" for t in teams for r in ctx["reader_repos"].get(("team", t), ())
+                      for j in ctx["issues_by_repo"].get(r, ())})
+        return out if len(out) <= k else rng.sample(out, k)
+
+    def list_round(name, users, issues):
+        """Listings for what the step touched, on the card through the
+        engine's lister, each held against the host lister on the snapshot
+        of the same watermark."""
+        before = dict(kernels.COUNTS)
+        t0 = time.monotonic()
+        dev_o = [lst.list_objects("issues", "view", SubjectID(u), latest=True) for u in users]
+        dev_s = [lst.list_subjects("issues", i, "view", latest=True) for i in issues]
+        dt = time.monotonic() - t0
+        snap = engine.snapshot()
+        host = host_lister(snap, store, device)
+        bad = sum(len(set(g) ^ set(host.list_objects("issues", "view", SubjectID(u))[0]))
+                  for u, (g, _) in zip(users, dev_o))
+        bad += sum(len(set(g) ^ set(host.list_subjects("issues", i, "view")[0]))
+                   for i, (g, _) in zip(issues, dev_s))
+        tokens = {t for _, t in dev_o + dev_s}
+        r = {"objects": len(users), "subjects": len(issues), "seconds": dt,
+             "items": sum(len(g) for g, _ in dev_o + dev_s), "host_differ": bad,
+             "snaptokens": sorted(tokens), "host_snapshot": int(snap.snapshot_id),
+             "lst_ov_edges": len(snap.lst_ov_edges or ()), "lst_patch": len(snap.lst_patch or ()),
+             "lst_dirty": snap.lst_dirty,
+             "k5_overlay_launches": kernels.COUNTS["list_gather"] - before["list_gather"],
+             "k5_runs": kernels.COUNTS["list_step"] - before["list_step"]}
+        log(f"write {name} listings: {json.dumps(r)}")
+        if bad or tokens != {snap.snapshot_id}:
+            raise SystemExit(f"write FAILED: step {name}: listings differ from the host lister: {r}")
+        return r, [g for g, _ in dev_o], [g for g, _ in dev_s]
+
+    def lists_cleared(name):
+        snap = engine.snapshot()
+        if not snap.has_overlay and (snap.lst_ov_edges or snap.lst_patch or snap.lst_dirty):
+            raise SystemExit(f"write FAILED: the fold after {name} left lst_* behind")
+        return {"overlay_left": snap.has_overlay, "lst_cleared": not (
+            snap.lst_ov_edges or snap.lst_patch or snap.lst_dirty)}
 
     def visible_s(wm) -> float:
         t0 = time.monotonic()
@@ -927,7 +1301,8 @@ def phase_write(torch, kernels, report, engine, store, queries, device="cuda"):
         log(f"write {name} fold: {json.dumps(r)}")
         return r
 
-    kernels.slot_set, engine._apply_ell_patch = capture, patch
+    kernels.slot_set, engine._apply_ell_patch, lst._ensure_device = capture, patch, ensure
+    gpu_engine.list_step = step_capture
     try:
         kernels.reset_counts()
         start = maint_counts(engine)
@@ -948,10 +1323,14 @@ def phase_write(torch, kernels, report, engine, store, queries, device="cuda"):
                 "lab_dirty": bool(snap.lab_dirty), "counters": maint_counts(engine)}
         log(f"write (a) burst: {json.dumps(step)}")
         touched_a = sorted({int(t.object.split("-")[1]) for t in burst})
+        step["lists"], _, _ = list_round(
+            "(a)", [t.subject.id for t in burst[:WRITE_LIST_QUERIES]],
+            issues_of(touched_a, WRITE_LIST_QUERIES))
         step["checks"], _ = check_round("(a)", touched_a)
         if step["lab_dirty"] or step["checks"]["label_invalidations"] or not step["checks"]["label_checks"]:
             raise SystemExit(f"write FAILED: the sink burst took the label route off: {step}")
         step["fold"] = settle("(a)", fold=False)
+        step["fold"].update(lists_cleared("(a)"))
         out["steps"]["a"] = step
 
         # (b) team→team edges between active interior team rows: overlay ELL
@@ -981,12 +1360,22 @@ def phase_write(torch, kernels, report, engine, store, queries, device="cuda"):
                      "counters": maint_counts(engine)})
         log(f"write (b) overlay ELL: {json.dumps(step)}")
         touched_b = [int(t.object.split("-")[1]) for t in new_edges]
+        kids = [int(t.subject.object.split("-")[1]) for t in new_edges]
+        users_b = sorted({f"user-{u}" for k in kids for u in ctx["team_users"].get(k, ())})
         launches_before = dict(kernels.COUNTS)
         step["checks"], _ = check_round("(b)", touched_b)
         step["overlay_pull_launches"] = kernels.COUNTS["pull_overlay"] - launches_before["pull_overlay"]
         if step["checks"]["label_checks"] or (device == "cuda" and not step["overlay_pull_launches"]):
             raise SystemExit(f"write FAILED: the dirty overlay did not take the BFS route: {step}")
+        # after the checks, whose route assertion needs the overlay pending:
+        # a listing that runs past compact_after_s may meet the quiet fold
+        step["lists"], _, _ = list_round(
+            "(b)", rng.sample(users_b, min(WRITE_LIST_QUERIES, len(users_b))),
+            issues_of(touched_b, WRITE_LIST_QUERIES))
+        if device == "cuda" and not step["lists"]["k5_overlay_launches"]:
+            raise SystemExit(f"write FAILED: K5's overlay stage never launched in (b): {step}")
         step["fold"] = settle("(b)", fold=True)
+        step["fold"].update(lists_cleared("(b)"))
         if (step["fold"]["last_compaction"] or {}).get("labels") != "patched":
             raise SystemExit(f"write FAILED: the fold did not patch the labels: {step['fold']}")
         step["after_fold"], _ = check_round("(b) after the fold", touched_b)
@@ -1020,12 +1409,28 @@ def phase_write(torch, kernels, report, engine, store, queries, device="cuda"):
                 "lab_dirty": len(snap.lab_dirty or ()), "counters": maint_counts(engine)}
         log(f"write (c) deletes: {json.dumps(step)}")
         touched_c = [int(t.object.split("-")[1]) for t in dels[:WRITE_DELETE_ELL]]
+        kids = [int(t.subject.object.split("-")[1]) for t in dels[:WRITE_DELETE_ELL]]
+        users_c = sorted({f"user-{u}" for k in kids for u in ctx["team_users"].get(k, ())})
+        half = WRITE_LIST_QUERIES // 2
+        users_c = rng.sample(users_c, min(half, len(users_c))) + [
+            t.subject.id for t in burst[:WRITE_LIST_QUERIES - min(half, len(users_c))]]
+        issues_c = issues_of(touched_c, WRITE_LIST_QUERIES)
+        list_site = sites["list"]
+        step["lists"], _, _ = list_round("(c)", users_c, issues_c)
+        step["list_site_slot_sets"] = sites["list"] - list_site
+        if device == "cuda" and not step["list_site_slot_sets"]:
+            raise SystemExit(f"write FAILED: K9 never launched at the list site in (c): {step}")
         step["checks"], _ = check_round("(c)", touched_c + touched_a[:64])
         step["fold"] = settle("(c)", fold=False)
+        step["fold"].update(lists_cleared("(c)"))
+        step["lists_after_fold"], objs_c, subs_c = list_round("(c) after the fold", users_c,
+                                                              issues_c)
         step["after_fold"], got = check_round("(c) after the fold", touched_c)
         out["steps"]["c"] = step
     finally:
-        kernels.slot_set, engine._apply_ell_patch = slot_set, apply_patch
+        kernels.slot_set, engine._apply_ell_patch, lst._ensure_device = (
+            slot_set, apply_patch, ensure_list)
+        gpu_engine.list_step = list_step
     launches = dict(kernels.COUNTS)
     end = maint_counts(engine)
     delta = {k: end[k] - start[k] for k in MAINT}
@@ -1051,16 +1456,25 @@ def phase_write(torch, kernels, report, engine, store, queries, device="cuda"):
     label_s = time.monotonic() - t0
     want = fresh.batch_check(queries)
     bad = sum(g != w for g, w in zip(got, want))
+    fresh_lst = SnapshotListEngine(fresh, store.namespaces, device=device)
+    lbad = sum(len(set(g) ^ set(fresh_lst.list_objects("issues", "view", SubjectID(u))[0]))
+               for u, g in zip(users_c, objs_c))
+    lbad += sum(len(set(g) ^ set(fresh_lst.list_subjects("issues", i, "view")[0]))
+                for i, g in zip(issues_c, subs_c))
     out["fresh_engine"] = {"snapshot_s": rebuild_s, "label_build_s": label_s,
-                           "route_counts": route_counts(fresh), "mismatches": bad}
+                           "route_counts": route_counts(fresh), "mismatches": bad,
+                           "listings": len(users_c) + len(issues_c), "listing_items_differ": lbad,
+                           "list_routes": {f"{o}/{p}": n for (o, p), n in
+                                           fresh_lst.requests_total.items()}}
     log(f"write fresh engine: snapshot {rebuild_s:.2f}s, label build {label_s:.2f}s, "
         f"{bad} of {len(queries)} decisions differ, {json.dumps(out['fresh_engine'])}")
     fresh.close()
     del fresh
-    if bad:
-        raise SystemExit(f"write FAILED: {bad} decisions differ from a fresh engine")
+    if bad or lbad:
+        raise SystemExit(f"write FAILED: {bad} decisions, {lbad} listed items differ from a "
+                         "fresh engine")
     report["write"] = out
-    return captured, launches
+    return captured, launches, ov_cap[0]
 
 
 def slot_rows(torch, kernels, captured, launches, rate):
@@ -1110,7 +1524,96 @@ def slot_rows(torch, kernels, captured, launches, rate):
     return [row]
 
 
-# -- phase 4: serve ---------------------------------------------------------------
+def k5_row(torch, lk, cap, launches, rate, name, note):
+    """K5 on one captured fixpoint's inputs: the kernels against the plain
+    version, timed, with the kernel launches of one run read from the counts."""
+    buckets, R0, ovn, ovd, kw = cap
+    got = lk.list_step_cuda(buckets, R0, ovn, ovd, **kw)
+    want = lk.list_step_ref(buckets, R0, ovn, ovd, **kw)
+    m, err = diff(got, want)
+    before = dict(lk.COUNTS)
+    lk.list_step_cuda(buckets, R0, ovn, ovd, **kw)
+    per_run = {k: lk.COUNTS[k] - before[k] for k in K5_KERNELS}
+    steps = lk.COUNTS["list_iters"] - before["list_iters"]
+    ms = time_ms(lambda: lk.list_step_cuda(buckets, R0, ovn, ovd, **kw), 10)
+    plain = time_ms(lambda: lk.list_step_ref(buckets, R0, ovn, ovd, **kw), 2, warmup=1)
+    # inputs read once (the valid bucket rows, the overlay, R0), the bitmap
+    # written once
+    slots = sum(int(n) * b.shape[1] for b, n in zip(buckets, kw["valid_rows"]))
+    ov_ints = 0 if ovn is None else ovn.numel() + ovd.numel()
+    k5_bytes = 4 * (slots + ov_ints) + 2 * R0.numel() * 4
+    row = {"name": name, "route": "cuda", "source": "keto_tpu_torch/csrc/list_kernels.cu",
+           "replaces": K5, "launches": launches, "mismatches": m, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain, "bound_ms": k5_bytes / rate * 1e3, "bound_by": "bytes",
+           "library_ms": None, "rows": int(R0.shape[0]) - 1, "n_active": kw["n_active"],
+           "edge_slots": slots, "overlay_rows": 0 if ovn is None else int(ovn.shape[0]),
+           "steps": steps, "kernel_launches_per_run": sum(per_run.values()),
+           "kernel_launches_per_run_by_kernel": per_run, "note": note}
+    log(f"kernel {name}: {ms:.4f} ms (plain {plain:.4f} ms, bound {row['bound_ms']:.4f} ms), "
+        f"{steps} steps, {row['kernel_launches_per_run']} launches a run {per_run}, mismatches {m}")
+    if m:
+        raise SystemExit(f"{name} parity at its path's shapes FAILED: {m} mismatching words")
+    return row
+
+
+def list_sort_rows(torch, kernels, captured, list_launches, deep_launches, sort_keys, rate):
+    """K5 at the list phase's shapes (the first ListObjects fixpoint) and K8
+    on the deep build's largest key array, each beside its plain version and
+    bound; K8 also beside ``torch.argsort(stable=True)``."""
+    import numpy as np
+
+    from keto_tpu_torch.graph import sort_kernels as sk
+    from keto_tpu_torch.list import kernels as lk
+
+    rows = [k5_row(torch, lk, captured[0], list_launches["list_step"], rate, "list_step",
+                   "the whole fixpoint, no overlay pending; launches = fixpoint runs in the "
+                   "list phase; per step keto_pull per bucket + keto_commit + keto_close, "
+                   "queued in blocks of 8 guarded steps")]
+
+    keys = torch.from_numpy(np.ascontiguousarray(sort_keys, dtype=np.int32)).cuda()
+    n = keys.numel()
+    got = sk.radix_argsort_cuda(keys)
+    want = sk.radix_argsort_ref(keys)
+    m, err = diff(got, want)
+    lib = torch.argsort(keys, stable=True)
+    if not torch.equal(lib.to(torch.int32), got):
+        raise SystemExit("radix argsort at deep shapes FAILED: torch.argsort(stable=True) differs")
+    ms = time_ms(lambda: sk.radix_argsort_cuda(keys), 10)
+    plain = time_ms(lambda: sk.radix_argsort_ref(keys), 1, warmup=0)
+    lib_ms = time_ms(lambda: torch.argsort(keys, stable=True), 10)
+    rows.append({"name": "radix_argsort", "route": "cuda", "source": "keto_tpu_torch/csrc/sort_kernels.cu",
+                 "replaces": K8, "launches": deep_launches["radix_sort"], "mismatches": m,
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                 # the function reads each int32 key once and writes each int32 index once
+                 "bound_ms": 8 * n / rate * 1e3, "bound_by": "bytes", "library_ms": lib_ms,
+                 "keys": n, "kernel_bytes_bound_ms": 80 * n / rate * 1e3,
+                 "kernel_launches": {k: deep_launches[k] for k in
+                                     ("radix_hist", "radix_scan", "radix_scatter")},
+                 "note": "launches = whole sorts in the deep build (each 4 passes of "
+                         "keto_radix_hist, keto_radix_scan, keto_radix_scatter); "
+                         "kernel_bytes_bound_ms = the 80 B/key the 4 passes move"})
+    log(f"kernel radix_argsort: {ms:.4f} ms on {n} keys (plain {plain:.4f} ms, bound "
+        f"{rows[-1]['bound_ms']:.4f} ms, torch.argsort stable {lib_ms:.4f} ms), mismatches {m}")
+    if m:
+        raise SystemExit(f"radix argsort parity at deep shapes FAILED: {m} mismatching words")
+    return rows
+
+
+def list_overlay_row(torch, cap, launches, rate):
+    """K5 at the write phase's shapes: a fixpoint run with the overlay
+    pending, so the overlay gather and scatter launch in every step."""
+    from keto_tpu_torch.list import kernels as lk
+
+    if cap is None:
+        raise SystemExit("write FAILED: no listing ran K5 with an overlay pending")
+    return k5_row(torch, lk, cap, launches["list_scatter"], rate, "list_step_overlay",
+                  "the whole fixpoint with the write phase's overlay pending; launches = "
+                  "keto_list_scatter launches in the write phase; per step keto_pull per "
+                  "bucket + keto_commit + keto_pull (overlay gather) + keto_list_scatter + "
+                  "keto_close, queued in blocks of 8 guarded steps")
+
+
+# -- phase 8: serve ---------------------------------------------------------------
 
 
 #: a cycle through the directory's owners: its rows cannot be peeled, so the
@@ -1210,6 +1713,22 @@ def phase_serve(kernels, report):
         if not cycled["pull"]:
             raise SystemExit("serve FAILED: the cycle left the served snapshot without active rows")
         report["serve_cycle_launches"] = cycled
+
+        # the reverse queries over REST, on the card
+        kernels.reset_counts()
+        lo = req("GET", d.read.port, "/relation-tuples/list-objects?"
+                 "namespace=videos&relation=view&subject_id=cat%20lady&latest=true")
+        ls = req("GET", d.read.port, "/relation-tuples/list-subjects?"
+                 "namespace=videos&object=/cats/1.mp4&relation=view&page_size=1")
+        routes = dict(d.lister.requests_total)
+        log(f"serve: list-objects {lo}, list-subjects {ls}, routes {routes}, "
+            f"K5 runs {kernels.COUNTS['list_step']}")
+        if lo[0] != 200 or lo[1]["objects"] != ["/cats", "/cats/1.mp4", "/cats/2.mp4"] \
+                or ls[0] != 200 or ls[1]["subject_ids"] != ["*"] or not ls[1]["next_page_token"]:
+            raise SystemExit(f"serve FAILED: listings answered {lo}, {ls}")
+        if kernels.COUNTS["list_step"] < 2 or any(p != "device" for _, p in routes):
+            raise SystemExit(f"serve FAILED: the listings did not run K5 on the card: {routes}")
+        report["serve_list_launches"] = dict(kernels.COUNTS)
     finally:
         d.stop()
 
@@ -1218,9 +1737,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help=f"comma-separated phases to run (default: all of {','.join(PHASES)}); "
-                         "labels needs main, write needs deep")
+                         "labels needs main, list needs deep, write needs list")
     args = ap.parse_args(argv)
     phases = set(args.only.split(","))
+    unknown = phases - set(PHASES)
+    missing = [f"{p} needs {PHASE_NEEDS[p]}" for p in sorted(phases & set(PHASE_NEEDS))
+               if PHASE_NEEDS[p] not in phases]
+    if unknown or missing:
+        print(f"chip_smoke: --only {args.only}: unknown phases {sorted(unknown)}, {missing}",
+              file=sys.stderr)
+        return 2
 
     import torch
 
@@ -1260,19 +1786,29 @@ def main(argv=None) -> int:
         del engine, snap, queries, main_ctx
     log(f"elapsed {time.monotonic() - t_start:.1f}s")
     if "deep" in phases:
-        engine, snap, captured, launches, store, deep_q, _ = phase_deep(torch, kernels, report)
+        engine, snap, captured, launches, store, deep_q, _, ctx, sort_keys = phase_deep(
+            torch, kernels, report)
         rows += label_rows(torch, kernels, snap, engine, captured, launches, rate, int_rate)
         log(json.dumps({"deep": report["deep"]}))
         del snap, captured
         log(f"elapsed {time.monotonic() - t_start:.1f}s")
-        if "write" in phases:
-            slots, wl = phase_write(torch, kernels, report, engine, store, deep_q)
-            rows += slot_rows(torch, kernels, slots, wl, rate)
-            log(json.dumps({"write": report["write"]}))
-            del slots
+        if "list" in phases:
+            lst, lcap, ll = phase_list(torch, kernels, report, engine, store, ctx)
+            rows += list_sort_rows(torch, kernels, lcap, ll, launches, sort_keys, rate)
+            log(json.dumps({"list": report["list"]}))
+            del lcap
             log(f"elapsed {time.monotonic() - t_start:.1f}s")
+            if "write" in phases:
+                slots, wl, wcap = phase_write(torch, kernels, report, engine, store, deep_q,
+                                              lst, ctx)
+                rows += slot_rows(torch, kernels, slots, wl, rate)
+                rows.append(list_overlay_row(torch, wcap, wl, rate))
+                log(json.dumps({"write": report["write"]}))
+                del slots, wcap
+                log(f"elapsed {time.monotonic() - t_start:.1f}s")
+            del lst
         engine.close()
-        del engine, store, deep_q
+        del engine, store, deep_q, ctx, sort_keys
     if "serve" in phases:
         phase_serve(kernels, report)
     log(json.dumps({"kernels": rows}))

@@ -50,6 +50,11 @@ _SIGNATURES = {
     "keto_sweep_step": [_P, _P, _P, _I32, _I64, _P, _P, _P, _P, _P, _I32, _I32, _P, _P],
     "keto_covered": [_P, _I64, _I32, _P, _I64, _P, _I32, _P, _P],
     "keto_slot_set": [_P, _I32, _I64, _P, _P, _P, _I64, _P, _P],
+    "keto_radix_tile": [],
+    "keto_radix_hist": [_P, _I64, _I32, _P, _P],
+    "keto_radix_scan": [_P, _I64, _P, _P],
+    "keto_radix_scatter": [_P, _P, _I64, _I32, _P, _P, _P, _P, _P],
+    "keto_list_scatter": [_P, _I64, _P, _P, _I64, _P, _P],
 }
 
 

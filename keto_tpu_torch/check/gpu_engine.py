@@ -46,6 +46,17 @@ batcher's default) catches up through a delta synchronously and serves the
 current snapshot only while a full rebuild or a fold holds the refresh
 lock. Label installs take a separate short lock, never the refresh lock.
 
+Build sorts. With ``device_build_enabled`` (the default, as in the
+reference, tpu_engine.py:1106, :1375-1384) the full build and the fold run
+their edge-scale stable sorts through a ``GovernedSorter``
+(keto_tpu_torch/graph/device_build.py): K8 on the card past
+``DEFAULT_MIN_EDGES`` keys, the host below it. ``build_info`` records the
+last full build's seconds, its sort seconds by backend and
+``build_sort_bytes`` (the transient the reference plans against its HBM
+governor, reported here); the counters ``device_build_dispatches``,
+``device_build_host_dispatches`` and ``device_build_errors`` count the
+sorter's batches. A failed device sort raises.
+
 Kept against the reference engine: bucket upload, the label build
 overlapped on a background thread and installed only onto the exact
 snapshot it was built for, host resolution, the label router, slicing, one
@@ -83,6 +94,7 @@ from keto_tpu_torch.check.pack import (
 from keto_tpu_torch.graph import label_build
 from keto_tpu_torch.graph.carry import device_graph_from_arrays, snapshot_arrays
 from keto_tpu_torch.graph.compaction import compact_snapshot
+from keto_tpu_torch.graph.device_build import GovernedSorter, estimate_sort_bytes
 from keto_tpu_torch.graph.labels import build_labels, patch_labels
 from keto_tpu_torch.graph.overlay import apply_delta
 from keto_tpu_torch.graph.snapshot import WILDCARD, GraphSnapshot, build_snapshot
@@ -147,6 +159,7 @@ class TorchCheckEngine:
         fold_segment_edges: int = 2048,
         compact_after_s: float = 5.0,
         sync_rebuild_budget_s: float = 0.25,
+        device_build_enabled: bool = True,
     ):
         if it_cap < 1:
             raise ValueError("it_cap must be >= 1 (the answer pull needs one step)")
@@ -230,6 +243,15 @@ class TorchCheckEngine:
         # refresh_failures, compaction_failures, label_patch_failures
         self._counters: collections.Counter = collections.Counter()
         self._counter_lock = threading.Lock()
+        # the build's stable sorts: K8 on the card past the size gate
+        # (device_build_dispatches, device_build_host_dispatches,
+        # device_build_errors count its batches), numpy's without the knob
+        self._build_sorter = (
+            GovernedSorter(self.device, on_count=self._incr) if device_build_enabled else None
+        )
+        #: the last full build: seconds, sort seconds by backend, and the
+        #: transient sort bytes the reference plans (build_sort_bytes)
+        self.build_info: Optional[dict] = None
 
     # -- snapshot lifecycle --------------------------------------------------
 
@@ -399,12 +421,20 @@ class TorchCheckEngine:
                 return None
             t0 = time.monotonic()
             rows, wm = self._store.snapshot_rows()
-            new = build_snapshot(rows, wm, wild_ns_ids, peel_seed_cap=self._peel_seed_cap)
+            self._take_sort_seconds()
+            new = build_snapshot(rows, wm, wild_ns_ids, peel_seed_cap=self._peel_seed_cap,
+                                 sorter=self._build_sorter)
+            sort_s = self._take_sort_seconds()
             del rows
             arrays, meta = snapshot_arrays(new)
             new.device = device_graph_from_arrays(arrays, meta, self.device)
             self._ov_pack = None
             self._last_full_build_s = time.monotonic() - t0
+            self.build_info = {
+                "seconds": self._last_full_build_s,
+                "sort_s": sort_s,
+                "build_sort_bytes": estimate_sort_bytes(new.n_nodes, new.n_edges),
+            }
             self._incr("full_rebuilds")
         self._apply_ell_patch(new)
         self._upload_overlay(new)
@@ -423,6 +453,12 @@ class TorchCheckEngine:
             # the label build overlaps serving: BFS answers until it installs
             self._start_label_build(new)
         return new
+
+    def _take_sort_seconds(self) -> dict:
+        """The build sorter's seconds by backend since the last call."""
+        if self._build_sorter is None:
+            return {"device": 0.0, "host": 0.0}
+        return self._build_sorter.take_seconds()
 
     def _overlay_edge_count(self, snap: GraphSnapshot) -> int:
         """Overlay occupancy: pending delta edges plus tombstones (what the
@@ -467,7 +503,9 @@ class TorchCheckEngine:
         # pending bucket patches first: untouched device buckets are reused,
         # which is sound only when they agree with the host arrays
         self._apply_ell_patch(snap)
-        got = compact_snapshot(snap, label_patcher=self._label_patcher)
+        self._take_sort_seconds()
+        got = compact_snapshot(snap, sorter=self._build_sorter, label_patcher=self._label_patcher)
+        sort_s = self._take_sort_seconds()
         if got is None:
             return None
         new = got.snapshot
@@ -503,6 +541,7 @@ class TorchCheckEngine:
             "label_ms": new.labels.build_ms if new.labels is not None else None,
             "touched_buckets": len(got.touched_buckets),
             "touched_bytes": got.touched_bytes,
+            "sort_s": sort_s,
         }
         _log.info("overlay compacted: %s", self.last_compaction)
         return new

@@ -51,13 +51,18 @@ import numpy as np
 import torch
 
 #: per-CUDA-kernel launch counters (chip_smoke.py reads them); the label
-#: build's kernels (keto_tpu_torch/graph/label_kernels.py) count here too
+#: build's kernels (keto_tpu_torch/graph/label_kernels.py), the build sort's
+#: (keto_tpu_torch/graph/sort_kernels.py) and the list fixpoint's
+#: (keto_tpu_torch/list/kernels.py) count here too
 COUNTS = {
     "seed": 0, "pull": 0, "commit": 0, "close": 0, "answer_pack": 0,
     "label_step": 0, "sweep_step": 0, "covered": 0, "slot_set": 0,
-    # of the "pull" launches, those over the overlay gather matrix (K2's
-    # overlay stage); not a kernel of its own
-    "pull_overlay": 0,
+    "radix_hist": 0, "radix_scan": 0, "radix_scatter": 0,
+    "list_gather": 0, "list_scatter": 0,
+    # not kernels of their own: of the "pull" launches, those over the
+    # overlay gather matrix (K2's overlay stage); whole radix sorts; list
+    # fixpoint runs and the steps they ran
+    "pull_overlay": 0, "radix_sort": 0, "list_step": 0, "list_iters": 0,
 }
 #: the kernels of the BFS route and of the label route's intersection
 BFS_KERNELS = ("seed", "pull", "commit", "close", "answer_pack")

@@ -14,7 +14,12 @@ row ``n`` is all padding, and pad pairs name row ``n`` for query 0; the
 sweep groups write distinct ``dst`` rows and gather sentinel ``n`` (an
 all-zero frontier row). The slot-set targets are a bucket, the overlay's
 rows or dst vector, or a label mirror, with distinct slots unless asked
-for duplicates.
+for duplicates. The list fixpoint's cases (``LIST_CASES``) are tuple sets
+whose snapshots give its layouts (``list_case_tuples``) plus seeds and an
+overlay in the layout's row space (``list_case_inputs``): every case seeds
+lane 31; overlay destinations are distinct and padded with ``n_rows + 1``,
+holes point at the all-zero row ``n_rows``. The build sort's cases
+(``SORT_CASES``, ``sort_case_keys``) are int32 key arrays.
 """
 
 from __future__ import annotations
@@ -183,3 +188,109 @@ def random_slot_case(rng, rows: int, ld: int, m: int, dup: bool = False, one_d: 
     vals = rng.integers(-2, rows + 2, size=m).astype(np.int32)
     r, c = flat // width, flat % width
     return buf, r, None if one_d else c, vals
+
+
+#: the list fixpoint's parity layouts: base pull only; an overlay into
+#: active rows; an overlay into passive rows (no base neighbour); a chain
+#: that ``it_cap`` truncates; no active row but an overlay; all 32 lanes
+LIST_CASES = ("bucket-only", "overlay-active", "overlay-passive", "chain-truncated",
+              "no-active-overlay", "lane-31")
+
+
+def list_case_tuples(kind: str, rng) -> tuple[list, str]:
+    """``(tuples, orient)`` for a ``LIST_CASES`` kind, over namespaces
+    ``g`` and ``d``: every set has a user member (so no interior row peels),
+    a static ``d`` doc points into the graph."""
+    from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectID, SubjectSet
+
+    def T(ns, obj, sub):
+        return RelationTuple(ns, obj, "m" if ns == "g" else "view", sub)
+
+    tuples = []
+    if kind == "chain-truncated":
+        n = 30
+        for i in range(n - 1):
+            tuples.append(T("g", f"c{i}", SubjectSet("g", f"c{i + 1}", "m")))
+        tuples.append(T("d", "doc", SubjectSet("g", "c0", "m")))
+        names = [f"c{i}" for i in range(n)]
+    elif kind == "no-active-overlay":
+        names = ["a", "b", "c", "e"]
+        for i, x in enumerate(names):
+            tuples.append(T("d", f"doc{i}", SubjectSet("g", x, "m")))
+    else:
+        n = 48
+        names = [f"n{i}" for i in range(n)]
+        # the last 8 nodes get no interior in-edge: passive rows of "fwd"
+        for _ in range(96):
+            a, b = int(rng.integers(0, n)), int(rng.integers(0, n - 8))
+            tuples.append(T("g", names[a], SubjectSet("g", names[b], "m")))
+        for i in range(n - 8, n):
+            tuples.append(T("d", f"doc{i}", SubjectSet("g", names[i], "m")))
+    for i, x in enumerate(names):
+        tuples.append(T("g", x, SubjectID(f"u{i % 7}")))
+    orient = "rev" if kind in ("bucket-only", "lane-31") else "fwd"
+    return tuples, orient
+
+
+def list_case_inputs(kind: str, rng, n_rows: int, n_active: int):
+    """``(R0, ov_nbrs, ov_dst, it_cap, block_iters)`` for a layout of
+    ``n_rows`` rows, ``n_active`` of them bucket-covered: R0 int32
+    ``[n_rows + 1, 1]`` (row ``n_rows`` zero), the overlay int32 ``[K, C]``
+    and ``[K]`` or None."""
+    R0 = np.zeros((n_rows + 1, 1), np.uint32)
+    lanes = 32 if kind == "lane-31" else 4
+    for q in list(range(lanes - 1)) + [31]:
+        for r in rng.choice(n_rows, size=min(n_rows, 2), replace=False):
+            R0[r, 0] |= np.uint32(1) << np.uint32(q)
+    it_cap, block_iters = n_rows + 2, 8
+    if kind == "chain-truncated":
+        it_cap, block_iters = 5, 3
+    ov_nbrs = ov_dst = None
+    if kind in ("overlay-active", "overlay-passive", "no-active-overlay"):
+        if kind == "overlay-active":
+            dsts = rng.choice(n_active, size=min(n_active, 6), replace=False)
+        else:  # passive rows: past the bucket-covered prefix
+            dsts = rng.choice(np.arange(n_active, n_rows), size=min(n_rows - n_active, 3),
+                              replace=False)
+        K = _ceil_pow2(len(dsts) + 1)  # at least one padded destination
+        C = 4
+        ov_nbrs = np.full((K, C), n_rows, np.int32)
+        ov_dst = np.full(K, n_rows + 1, np.int32)
+        for i, d in enumerate(dsts):
+            ov_dst[i] = d
+            fill = int(rng.integers(1, C + 1))
+            ov_nbrs[i, :fill] = rng.integers(0, n_rows, size=fill)
+        if kind == "no-active-overlay":
+            # a path through the overlay alone, so the fixpoint needs steps
+            R0[:] = 0
+            R0[0, 0] = np.uint32(1) | (np.uint32(1) << np.uint32(31))
+            ov_dst[: n_rows - 1] = np.arange(1, n_rows)
+            ov_nbrs[: n_rows - 1] = n_rows
+            ov_nbrs[: n_rows - 1, 0] = np.arange(0, n_rows - 1)
+    return R0.view(np.int32), ov_nbrs, ov_dst, it_cap, block_iters
+
+
+#: the build sort's parity layouts; "config-4 range" is 10M keys in
+#: [0, 5.2M) at config 4's size (a node-id range of its edge arrays)
+SORT_CASES = ("empty", "one key", "all equal", "negative", "ragged tile", "random int32",
+              "config-4 range")
+
+
+def sort_case_keys(kind: str, rng, tile: int = 4096, big: tuple = (100_000, 52_000)) -> np.ndarray:
+    """int32 keys of a ``SORT_CASES`` kind; ``big`` = (count, range) of the
+    "config-4 range" case."""
+    if kind == "empty":
+        return np.zeros(0, np.int32)
+    if kind == "one key":
+        return np.asarray([-7], np.int32)
+    if kind == "all equal":
+        return np.full(3 * tile + 5, 42, np.int32)
+    if kind == "negative":
+        return rng.integers(-1000, 1000, size=5000).astype(np.int32)
+    if kind == "ragged tile":
+        return rng.integers(0, 300, size=2 * tile + 17).astype(np.int32)
+    if kind == "random int32":
+        return rng.integers(-(2**31), 2**31, size=3 * tile + 1, dtype=np.int64).astype(np.int32)
+    if kind == "config-4 range":
+        return rng.integers(0, big[1], size=big[0]).astype(np.int32)
+    raise ValueError(kind)

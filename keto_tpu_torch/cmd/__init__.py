@@ -32,6 +32,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="string-codec tuples to load at start ('//' comments)")
     s.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain PyTorch path)")
+    s.add_argument("--no-device-build", dest="device_build", action="store_false",
+                   help="sort the snapshot build on the host instead of the card (K8)")
     return p
 
 
@@ -45,7 +47,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         with open(args.tuples, encoding="utf-8") as f:
             tuples = parse_tuples(f.read())
     d = Daemon(args.namespace, device=args.device, host=args.host,
-               read_port=args.read_port, write_port=args.write_port, tuples=tuples)
+               read_port=args.read_port, write_port=args.write_port, tuples=tuples,
+               engine_options={"device_build_enabled": args.device_build})
     d.start()
     print(f"serving: read :{d.read.port}, write :{d.write.port}, device {d.engine.device}",
           flush=True)

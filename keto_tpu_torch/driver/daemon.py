@@ -1,12 +1,14 @@
-"""The serving process: one store, one engine on the card, one check
-batcher and the read and write REST ports (reference
-internal/driver/daemon.go, cut to the Check slice). The engine serves with
+"""The serving process: one store, one check engine on the card, the list
+engine beside it on the same snapshots, one check batcher and the read and
+write REST ports (reference internal/driver/daemon.go, cut to the Check
+and List slices). The engine serves with
 2-hop labels on, as the reference's daemon does; ``engine_options`` passes
 the label knobs (``labels_enabled``, ``labels_max_width``,
 ``labels_landmarks``, ``labels_device_build``, ``labels_min_gain``,
 ``labels_batch``, ``labels_device_min_edges``) and the overlay knobs
 (``overlay_edge_budget``, ``fold_segment_edges``, ``compact_after_s``,
-``sync_rebuild_budget_s``) through to ``TorchCheckEngine``. Writes apply as
+``sync_rebuild_budget_s``) and ``device_build_enabled`` (the build's sorts
+on the card) through to ``TorchCheckEngine``. Writes apply as
 delta overlays folded in the background (keto_tpu_torch/graph/overlay.py,
 keto_tpu_torch/graph/compaction.py)."""
 
@@ -19,6 +21,7 @@ import torch
 from keto_tpu_torch import namespace as namespace_pkg
 from keto_tpu_torch.check.gpu_engine import TorchCheckEngine
 from keto_tpu_torch.driver.batch import CheckBatcher
+from keto_tpu_torch.list.gpu_engine import SnapshotListEngine
 from keto_tpu_torch.persistence.memory import MemoryPersister
 from keto_tpu_torch.relationtuple.model import RelationTuple
 from keto_tpu_torch.servers.rest import READ, WRITE, RestServer
@@ -42,8 +45,10 @@ class Daemon:
         if tuples:
             self.store.write_relation_tuples(*tuples)
         self.engine = TorchCheckEngine(self.store, nm, device=device, **(engine_options or {}))
+        self.lister = SnapshotListEngine(self.engine, nm, device=self.engine.device)
         self.batcher = CheckBatcher(self.engine)
-        self.read = RestServer(READ, self.store, self.batcher, host, read_port)
+        self.read = RestServer(READ, self.store, self.batcher, host, read_port,
+                               lister=self.lister)
         self.write = RestServer(WRITE, self.store, self.batcher, host, write_port)
 
     def start(self) -> None:

@@ -24,16 +24,16 @@ reusing everything expensive:
   Manager ORDER-BY position, so child order equals a rebuild's;
 - **labels**: folded ELL inserts patch the 2-hop index incrementally
   (``label_patcher``, ``patch_labels`` by default); folded ELL deletions
-  leave it for a rebuild; an untouched interior subgraph keeps it.
+  leave it for a rebuild; an untouched interior subgraph keeps it;
+- **reverse-query layouts**: the transposed CSR and both list layouts are
+  re-derived from the spliced forward CSR, their edge-scale sorts through
+  ``sorter`` (K8 on the card when the engine passes its
+  ``GovernedSorter``); the fold clears ``lst_*`` by construction.
 
 ``compact_snapshot`` is pure and returns ``None`` when the overlay needs a
 real re-layout (the engine then rebuilds in full): overlay edges out of a
 wildcard-bearing set node (their child order is global row order), or
 extension tables past ``max_ext`` nodes.
-
-Left out against the reference: the transposed CSR and the list layouts
-(the List slice), and the device sorter (K8): the stable sorts here are
-numpy's, the reference's ``sorter=None`` path.
 """
 
 from __future__ import annotations
@@ -46,7 +46,12 @@ from typing import Optional
 import numpy as np
 
 from keto_tpu_torch.graph.interner import ExtendedInterned
-from keto_tpu_torch.graph.snapshot import Bucket, GraphSnapshot
+from keto_tpu_torch.graph.snapshot import (
+    Bucket,
+    GraphSnapshot,
+    build_list_layouts,
+    build_rev_csr,
+)
 
 
 def _ceil_pow2(x: int) -> int:
@@ -85,14 +90,16 @@ def _removed_mask(keys: np.ndarray, removed: Optional[np.ndarray]) -> np.ndarray
 
 
 def compact_snapshot(
-    snap: GraphSnapshot, max_ext: int = 65536, label_patcher=None
+    snap: GraphSnapshot, max_ext: int = 65536, sorter=None, label_patcher=None
 ) -> Optional[CompactionResult]:
     """Fold ``snap``'s overlay into its base layout. Returns the compacted
     snapshot (same watermark, no overlay) with the touched bucket indices,
-    or ``None`` when the shape requires a full rebuild. ``label_patcher``
-    swaps the incremental label patch (the engine passes its device-sweep
-    route, keto_tpu_torch/graph/label_build.py) — the ``patch_labels``
-    signature and abort contract."""
+    or ``None`` when the shape requires a full rebuild. ``sorter`` is the
+    stable-argsort backend of the transposed CSR and list layouts
+    (keto_tpu_torch/graph/device_build.py; numpy's when None).
+    ``label_patcher`` swaps the incremental label patch (the engine passes
+    its device-sweep route, keto_tpu_torch/graph/label_build.py) — the
+    ``patch_labels`` signature and abort contract."""
     if not snap.has_overlay:
         return CompactionResult(snapshot=snap)
 
@@ -338,6 +345,15 @@ def compact_snapshot(
         sink_indices=new_sink_indices,
         _pattern_cache={},
         _cache_lock=threading.Lock(),
+    )
+    # reverse-query layouts: both orientations re-derived from the folded
+    # forward CSR (overlay edges are base edges now, so lst_* start empty)
+    n_nodes_new = new_indptr.shape[0] - 1
+    new_snap.rev_indptr, new_snap.rev_indices = build_rev_csr(
+        new_indptr, new_indices, n_nodes_new, sorter=sorter
+    )
+    new_snap.lay_fwd, new_snap.lay_rev = build_list_layouts(
+        new_indptr, new_indices, n_nodes_new, new_snap.sink_base, sorter=sorter
     )
 
     # --- 2-hop labels: patch folded ELL inserts, rebuild on deletes ----------

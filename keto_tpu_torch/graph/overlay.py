@@ -45,8 +45,15 @@ with the overlay containers copied and extended. Pending device patches
 ride in ``ell_patch`` (bucket slots) and ``ov_ell_delta`` (overlay rows),
 relative to the base; the engine applies and clears them.
 
-Left out against the reference: the reverse-query list mirror
-(``lst_*``), which waits for the List slice.
+The reverse-query list layouts are mirrored too (``lst_*``,
+keto_tpu/graph/overlay.py:136-181): an overlay edge between two
+interior-class nodes joins ``lst_ov_edges`` (the list fixpoint's overlay
+stage), a tombstoned or restored base edge between two interior-class nodes
+appends a slot patch per orientation to ``lst_patch`` (append-only across
+stacked deltas), and a slot the layouts cannot locate sets ``lst_dirty``
+(listings then take the host lister until the fold). The new snapshot
+carries no uploaded list layouts (``device_list``): each snapshot uploads
+its own, and the list engine patches that private copy in place.
 """
 
 from __future__ import annotations
@@ -129,6 +136,44 @@ def apply_delta(
     # (compaction patches the labels and clears it). Monotone across
     # stacked deltas, as in the reference.
     lab_dirty: set[int] = set(base.lab_dirty or ())
+    # reverse-query mirror: interior-class overlay edges join the list
+    # fixpoint's overlay stage; interior-class base-edge tombstones and
+    # restores patch both list layouts as ell_patch patches the check
+    # buckets. lst_patch is append-only across stacked deltas; a slot the
+    # layouts cannot locate sets lst_dirty (host lister until the fold)
+    lst_edges = [tuple(e) for e in (base.lst_ov_edges or ())]
+    lst_edge_set = set(lst_edges)
+    lst_patch = list(base.lst_patch or ())
+    lst_dirty = bool(base.lst_dirty)
+
+    def lst_slot(lay, row_dev: int, val_dev: int):
+        row = int(lay.dev2row[row_dev])
+        want = np.int32(lay.dev2row[val_dev])
+        for bi, b in enumerate(lay.buckets):
+            if b.offset <= row < b.offset + b.n:
+                cols = np.nonzero(b.nbrs[row - b.offset] == want)[0]
+                if cols.size == 0:
+                    return None
+                return bi, row - b.offset, int(cols[0])
+        return None
+
+    def lst_tombstone(src: int, dst: int, restore: bool) -> None:
+        nonlocal lst_dirty
+        if base.lay_fwd is None or base.lay_rev is None:
+            lst_dirty = True
+            return
+        for lay, row_dev, val_dev in ((base.lay_fwd, dst, src), (base.lay_rev, src, dst)):
+            slot = lst_slot(lay, row_dev, val_dev)
+            if slot is None:
+                lst_dirty = True
+                continue
+            val = int(lay.dev2row[val_dev]) if restore else lay.n_rows
+            lst_patch.append((lay.orient, slot[0], slot[1], slot[2], val))
+
+    def lst_drop(src: int, dst: int) -> None:
+        if (src, dst) in lst_edge_set:
+            lst_edge_set.discard((src, dst))
+            lst_edges.remove((src, dst))
 
     # overlay node classes: "static" = out-edges only, "sink" = in-edges only
     ov_class: dict[int, str] = dict(base.ov_class or {})
@@ -273,6 +318,8 @@ def apply_delta(
                         return None  # base layout disagrees — be safe
                     ell_patch.append(slot + (src,))
                     lab_dirty.update((src, dst))
+                if src < sb and dst < sb:
+                    lst_tombstone(src, dst, restore=True)
             continue
         if nl <= dst < nb:
             return None  # base static node gains an in-edge
@@ -298,6 +345,12 @@ def apply_delta(
         else:
             return None  # sink source would need a class change
         fwd_add(src, dst)
+        # interior-class endpoints join the list fixpoint's overlay stage
+        # (overlay-ELL edges and peeled-source host edges alike: the list
+        # layouts iterate every interior-class row, peeled ones included)
+        if src < sb and dst < sb and (src, dst) not in lst_edge_set:
+            lst_edge_set.add((src, dst))
+            lst_edges.append((src, dst))
 
     # deletes: resolve each key's endpoints (no creation) and remove the
     # edge wherever it lives — overlay structures for delta-added edges,
@@ -321,6 +374,7 @@ def apply_delta(
             ell_members.discard(edge)
             dropped_ell.add(edge)
             fwd_drop(lhs_dev, sub_dev)
+            lst_drop(lhs_dev, sub_dev)
             continue
         out_arr = ov_out.get(lhs_dev)
         if out_arr is not None and bool(np.any(out_arr == sub_dev)):
@@ -330,6 +384,7 @@ def apply_delta(
             else:
                 del ov_out[lhs_dev]
             fwd_drop(lhs_dev, sub_dev)
+            lst_drop(lhs_dev, sub_dev)
             continue
         in_arr = ov_sink_in.get(sub_dev)
         if in_arr is not None and bool(np.any(in_arr == lhs_dev)):
@@ -358,6 +413,10 @@ def apply_delta(
             return None
         # peeled/static sources and interior→sink edges are masked by the
         # ov_removed filters in out_neighbors_bulk / sink_in_rows_bulk
+        if lhs_dev < sb and sub_dev < sb:
+            # interior-class on both ends: the list layouts iterate this edge
+            # on the device — sentinel-patch it out of both orientations
+            lst_tombstone(lhs_dev, sub_dev, restore=False)
     if dropped_ell:
         ell = [e for e in ell if e not in dropped_ell]
 
@@ -407,8 +466,12 @@ def apply_delta(
         ov_removed=removed_arr,
         ov_ell_delta=ov_ell_delta,
         ell_patch=ell_patch or None,
+        lst_ov_edges=lst_edges or None,
+        lst_patch=lst_patch or None,
+        lst_dirty=lst_dirty,
         lab_dirty=lab_dirty or None,
         device_overlay=None,  # the engine re-uploads or scatters (K9)
+        device_list=None,  # each snapshot uploads its own list layouts
         _pattern_cache={},
         _cache_lock=threading.Lock(),
     )

@@ -30,9 +30,13 @@ build. The delta overlay (keto_tpu_torch/graph/overlay.py) rides on the
 same object: the ``ov_*`` fields, tombstones (``ov_removed``), pending
 device patches (``ell_patch``, ``ov_ell_delta``) and the labels'
 ``lab_dirty`` set, with overlay-aware resolution and host gathers
-(keto_tpu/graph/snapshot.py:260-620). Left for later slices: the
-reverse-query list layouts and transposed CSR, sharding and the
-device-side sorter.
+(keto_tpu/graph/snapshot.py:260-620). The reverse-query state rides on
+it too: the transposed CSR over all device ids, the bucketed-ELL
+``ListLayout`` of each orientation (keto_tpu/graph/snapshot.py:99-218),
+their overlay mirror (``lst_*``) and ``in_neighbors_bulk``. Every stable
+sort of the build goes through a sorter (keto_tpu_torch/graph/
+device_build.py): the host's numpy argsort by default, K8 on the card when
+the engine passes its ``GovernedSorter``. Left for later slices: sharding.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from typing import Any, FrozenSet, Iterable, Optional
 
 import numpy as np
 
+from keto_tpu_torch.graph.device_build import host_sorter
 from keto_tpu_torch.graph.interner import intern_rows
 
 #: namespace sentinel meaning "wildcard" in a resolved query pattern
@@ -51,11 +56,6 @@ WILDCARD = -1
 
 def _ceil_pow2(x: int) -> int:
     return 1 if x <= 1 else 1 << (int(x) - 1).bit_length()
-
-
-def _argsort(keys: np.ndarray) -> np.ndarray:
-    """Stable argsort — the host sorter of keto_tpu/graph/device_build.py."""
-    return np.argsort(keys, kind="stable").astype(np.int64, copy=False)
 
 
 def _csr_gather_host(indptr: np.ndarray, indices: np.ndarray, nodes: np.ndarray):
@@ -85,6 +85,99 @@ class Bucket:
     offset: int  # device id of the first row
     n: int  # valid rows (bucket membership)
     nbrs: np.ndarray  # int32 [n_padded, degree_capacity]
+
+
+@dataclass
+class ListLayout:
+    """Bucketed-ELL gather layout for the reverse-query fixpoint
+    (keto_tpu_torch/list/gpu_engine.py), one per orientation.
+
+    Rows cover every interior-class device id ``[0, sink_base)`` — no
+    peel/passive split, because a listing reads the reached flag of every
+    interior node. Rows are renumbered so buckets are contiguous
+    (``order``/``dev2row``); bucket matrices hold ROW indices (sentinel
+    ``n_rows`` = the all-zero bitmap row), so a pull step is the check
+    kernel's gather + OR-reduce + concat.
+
+    - ``orient == "fwd"``: row r gathers the interior IN-neighbours of its
+      node — forward reachability (ListSubjects);
+    - ``orient == "rev"``: row r gathers the interior OUT-neighbours — the
+      transposed orientation, backward reachability (ListObjects).
+    """
+
+    orient: str
+    n_rows: int  # == sink_base of the owning snapshot
+    n_active: int  # rows with >= 1 gathered neighbour (bucket-covered prefix)
+    order: np.ndarray  # int64 [n_rows]: device id of row r
+    dev2row: np.ndarray  # int64 [n_rows]: device id -> row
+    buckets: list  # [Bucket], nbrs hold row indices, sentinel n_rows
+
+
+def _one_list_layout(
+    rows_dev: np.ndarray, nbr_dev: np.ndarray, n_rows: int, orient: str, sorter=None
+) -> ListLayout:
+    """Bucketize ``rows_dev[i] gathers nbr_dev[i]`` into a ListLayout over
+    ``n_rows`` interior-class device ids (the check buckets' machinery:
+    pow2 degree buckets, pow2 row padding, contiguous rows per bucket)."""
+    S = sorter or host_sorter()
+    deg = np.bincount(rows_dev, minlength=n_rows) if rows_dev.size else np.zeros(n_rows, np.int64)
+    with np.errstate(divide="ignore"):
+        bkey = np.ceil(np.log2(np.maximum(deg, 1))).astype(np.int64) + 1
+    bkey[deg <= 1] = 1
+    bkey[deg == 0] = 63  # degree-0 rows sort last, outside every bucket
+    # stable argsort of bkey == lexsort((arange, bkey))
+    order = S.argsort(bkey)
+    dev2row = np.empty(n_rows, np.int64)
+    dev2row[order] = np.arange(n_rows)
+    n_active = int(np.count_nonzero(deg > 0))
+    buckets: list[Bucket] = []
+    if rows_dev.size:
+        r = dev2row[rows_dev]
+        v = dev2row[nbr_dev].astype(np.int32)
+        eorder = S.argsort(r)
+        rs = r[eorder]
+        vs = v[eorder]
+        starts = np.searchsorted(rs, np.arange(n_active))
+        cumcount = np.arange(rs.shape[0]) - starts[rs]
+        key_by_row = bkey[order][:n_active]
+        sentinel = np.int32(n_rows)
+        for key in np.unique(key_by_row):
+            members = np.nonzero(key_by_row == key)[0]  # contiguous
+            offset, n_r = int(members[0]), int(members.shape[0])
+            cap = 1 << (int(key) - 1)
+            n_pad = _ceil_pow2(n_r)
+            nbrs = np.full((n_pad, cap), sentinel, dtype=np.int32)
+            emask = (rs >= offset) & (rs < offset + n_r)
+            nbrs[rs[emask] - offset, cumcount[emask]] = vs[emask]
+            buckets.append(Bucket(offset=offset, n=n_r, nbrs=nbrs))
+    return ListLayout(orient=orient, n_rows=n_rows, n_active=n_active, order=order,
+                      dev2row=dev2row, buckets=buckets)
+
+
+def build_rev_csr(fwd_indptr: np.ndarray, fwd_indices: np.ndarray, n_nodes: int, sorter=None):
+    """The transposed CSR over all device ids (in-neighbours per node),
+    derived from the forward CSR in one stable sort."""
+    S = sorter or host_sorter()
+    src = np.repeat(np.arange(n_nodes, dtype=np.int64), np.diff(fwd_indptr))
+    dst = fwd_indices.astype(np.int64)
+    rorder = S.argsort(dst)
+    rev_indptr = np.searchsorted(dst[rorder], np.arange(n_nodes + 1))
+    rev_indices = src[rorder].astype(np.int32)
+    return rev_indptr, rev_indices
+
+
+def build_list_layouts(
+    fwd_indptr: np.ndarray, fwd_indices: np.ndarray, n_nodes: int, sink_base: int, sorter=None
+) -> tuple[ListLayout, ListLayout]:
+    """Both reverse-query orientations over the interior-class subgraph
+    (device ids < ``sink_base``), from the forward CSR; shared by the build
+    and the fold."""
+    src = np.repeat(np.arange(n_nodes, dtype=np.int64), np.diff(fwd_indptr))
+    dst = fwd_indices.astype(np.int64)
+    m = (src < sink_base) & (dst < sink_base)
+    lay_fwd = _one_list_layout(dst[m], src[m], sink_base, "fwd", sorter=sorter)
+    lay_rev = _one_list_layout(src[m], dst[m], sink_base, "rev", sorter=sorter)
+    return lay_fwd, lay_rev
 
 
 @dataclass
@@ -158,6 +251,28 @@ class GraphSnapshot:
     #: (endpoints of inserted or tombstoned ELL edges); while non-empty the
     #: engine sends every check to the BFS route
     lab_dirty: Optional[set] = None
+
+    # -- reverse-query layouts (keto_tpu_torch/list/) ---------------------------
+    #: transposed CSR over all device ids (in-neighbours per node): backward
+    #: seeding and the host lister gather through it, masked by tombstones
+    rev_indptr: Optional[np.ndarray] = None  # int64 [n_nodes+1]
+    rev_indices: Optional[np.ndarray] = None  # int32 [E]
+    #: the ``ListLayout`` of each orientation over interior-class rows
+    lay_fwd: Any = None
+    lay_rev: Any = None
+    #: overlay interior-class edges [(src, dst)] for the list fixpoint's
+    #: overlay stage
+    lst_ov_edges: Optional[list] = None
+    #: pending slot patches of the list layouts, APPEND-ONLY across stacked
+    #: deltas: (orient, bucket, row, col, row value); the list engine applies
+    #: them to this snapshot's own upload (K9)
+    lst_patch: Optional[list] = None
+    #: True when an overlay shape could not be mirrored into the list layouts:
+    #: listings take the host lister until the fold
+    lst_dirty: bool = False
+    #: ``{orient: [DeviceList, patches applied]}``, this snapshot's own
+    #: upload, set by the list engine
+    device_list: Any = None
 
     #: the 2-hop label index (keto_tpu_torch/graph/labels.py ``LabelIndex``)
     #: built for exactly this snapshot, and its device arrays
@@ -303,11 +418,13 @@ class GraphSnapshot:
         cnts[mi] += lens
         return rows, cnts
 
-    def out_neighbors_bulk(self, nodes: np.ndarray):
+    def out_neighbors_bulk(self, nodes: np.ndarray, overlay: bool = True):
         """(concatenated out-neighbour devs of ``nodes``, per-node counts):
         the base forward CSR masked by the tombstones, with the overlay's
         host-propagation adjacency (``ov_out``) appended after each node's
-        base neighbours. Node order is preserved."""
+        base neighbours. Node order is preserved. ``overlay=False`` skips the
+        ``ov_out`` merge (still tombstone-masked): the list engine merges the
+        complete overlay adjacency (``ov_fwd``) itself."""
         nodes = np.asarray(nodes)
         nb = self.n_base_nodes
         if nodes.size and int(nodes.max()) >= nb:
@@ -326,7 +443,7 @@ class GraphSnapshot:
             if drop is not None:
                 keep, cnts = drop
                 rows = rows[keep]
-        if not self.ov_out:
+        if not overlay or not self.ov_out:
             return rows, cnts
         return self._splice(rows, cnts, nodes, self.ov_out)
 
@@ -353,6 +470,48 @@ class GraphSnapshot:
         if no_ov:
             return rows, cnts
         return self._splice(rows, cnts, sinks, self.ov_sink_in)
+
+    def _ov_rev(self) -> dict:
+        """Cached reverse of the unified overlay adjacency: dst dev → [src
+        devs] for every overlay-added edge (backward listing seeds)."""
+        with self._cache_lock:
+            inv = self._pattern_cache.get("_ov_rev")
+            if inv is None:
+                inv = {}
+                for src, dsts in (self.ov_fwd or {}).items():
+                    for dst in dsts:
+                        inv.setdefault(int(dst), []).append(int(src))
+                self._pattern_cache["_ov_rev"] = inv
+            return inv
+
+    def in_neighbors_bulk(self, nodes: np.ndarray):
+        """(concatenated in-neighbour devs of ``nodes``, per-node counts): the
+        transposed twin of ``out_neighbors_bulk`` — the base reverse CSR
+        masked by the tombstones, with the overlay's reverse adjacency
+        appended. Feeds backward listing seeds and the host lister."""
+        nodes = np.asarray(nodes)
+        nb = self.n_base_nodes
+        if nodes.size and int(nodes.max()) >= nb:
+            in_base = nodes < nb
+            base_nodes = np.where(in_base, nodes, 0)
+            cnts = np.where(
+                in_base, self.rev_indptr[base_nodes + 1] - self.rev_indptr[base_nodes], 0
+            )
+            rows, cnts = _csr_gather_counts(self.rev_indptr, self.rev_indices, base_nodes, cnts)
+        else:
+            rows, cnts = _csr_gather_host(self.rev_indptr, self.rev_indices, nodes)
+        if self.ov_removed is not None and self.ov_removed.size and rows.size:
+            # tombstone keys pack (src << 32) | dst; the gathered entry is the
+            # source and the queried node the destination
+            keys = (rows.astype(np.int64) << 32) | np.repeat(nodes.astype(np.int64), cnts)
+            drop = self._removed_drop(keys, cnts)
+            if drop is not None:
+                keep, cnts = drop
+                rows = rows[keep]
+        ov = self._ov_rev() if self.ov_fwd else None
+        if not ov:
+            return rows, cnts
+        return self._splice(rows, cnts, nodes, ov)
 
     def _pattern_index(self, kind: str):
         """Lazily built sorted key index for pattern resolution:
@@ -570,13 +729,14 @@ def build_snapshot(
     watermark: int,
     wild_ns_ids: FrozenSet[int] = frozenset(),
     peel_seed_cap: float = 4.0,
+    sorter=None,
 ) -> GraphSnapshot:
     """Intern rows (Python interner) and lay out the bucketed reverse-ELL
     adjacency. ``wild_ns_ids``: ids of configured namespaces whose *name*
     is the empty string — their set nodes expand with a wildcarded
-    namespace."""
+    namespace. ``sorter``: the stable-argsort backend (host by default)."""
     g = intern_rows(list(rows), wild_ns_ids)
-    return layout_snapshot(g, watermark, wild_ns_ids, peel_seed_cap=peel_seed_cap)
+    return layout_snapshot(g, watermark, wild_ns_ids, peel_seed_cap=peel_seed_cap, sorter=sorter)
 
 
 def layout_snapshot(
@@ -584,11 +744,15 @@ def layout_snapshot(
     watermark: int,
     wild_ns_ids: FrozenSet[int] = frozenset(),
     peel_seed_cap: float = 4.0,
+    sorter=None,
 ) -> GraphSnapshot:
     """Lay out an already-interned graph ``g``: classify/peel, renumber,
-    bucket, and derive the forward CSR and the sink reverse CSR. Every
-    stable sort is numpy's (the JAX package's host sorter), so the arrays
-    equal its build byte for byte."""
+    bucket, and derive the forward CSR, the sink reverse CSR, the
+    transposed CSR and both list layouts. Every stable sort goes through
+    ``sorter`` (keto_tpu_torch/graph/device_build.py; numpy's when None);
+    host and device give identical permutations, so the arrays equal the
+    JAX package's build byte for byte."""
+    S = sorter or host_sorter()
     src_raw, dst_raw = g.src, g.dst
     n = g.num_nodes
     if n == 0:
@@ -608,6 +772,10 @@ def layout_snapshot(
             fwd_indices=np.zeros(0, np.int32),
             sink_indptr=np.zeros(1, np.int64),
             sink_indices=np.zeros(0, np.int32),
+            rev_indptr=np.zeros(1, np.int64),
+            rev_indices=np.zeros(0, np.int32),
+            lay_fwd=_one_list_layout(np.zeros(0, np.int64), np.zeros(0, np.int64), 0, "fwd"),
+            lay_rev=_one_list_layout(np.zeros(0, np.int64), np.zeros(0, np.int64), 0, "rev"),
         )
 
     in_deg = np.bincount(dst_raw, minlength=n)
@@ -683,8 +851,8 @@ def layout_snapshot(
 
     # renumber: device order sorts by (bucket, raw id) — the raw-id
     # tie-break IS stability, so lexsort((arange, key)) == stable
-    # argsort(key)
-    dev_order = _argsort(bucket_key)
+    # argsort(key), on either sorter backend
+    dev_order = S.argsort(bucket_key)
     raw2dev = np.empty(n, dtype=np.int64)
     raw2dev[dev_order] = np.arange(n)
 
@@ -695,7 +863,7 @@ def layout_snapshot(
 
     # the three edge-scale groupings below (ELL by destination, forward
     # CSR by source, sink reverse CSR by sink) are independent once
-    # raw2dev exists
+    # raw2dev exists: one sorter batch covers them
     dst_dev = raw2dev[dst_raw[ell_edge]]
     src_dev = raw2dev[src_raw[ell_edge]]
     all_src_dev = raw2dev[src_raw]
@@ -704,7 +872,7 @@ def layout_snapshot(
     sink_base = num_int + n_peeled
     s_dst = raw2dev[dst_raw[s_edge]] - sink_base
     s_src = raw2dev[src_raw[s_edge]].astype(np.int32)
-    order, forder, sorder = (_argsort(k) for k in (dst_dev, all_src_dev, s_dst))
+    order, forder, sorder = S.argsort_many([dst_dev, all_src_dev, s_dst])
 
     # group ELL edges by destination device id; cumcount gives the column
     # slot. Destinations of ELL edges are active-interior by construction.
@@ -738,6 +906,11 @@ def layout_snapshot(
     sink_indptr = np.searchsorted(s_dst[sorder], np.arange(n_sink + 1))
     sink_indices = s_src[sorder]
 
+    # reverse-query layouts: the transposed CSR over all device ids and the
+    # list layouts of both orientations over the interior-class rows
+    rev_indptr, rev_indices = build_rev_csr(findptr, findices, n, sorter=S)
+    lay_fwd, lay_rev = build_list_layouts(findptr, findices, n, sink_base, sorter=S)
+
     return GraphSnapshot(
         snapshot_id=watermark,
         num_sets=g.num_sets,
@@ -754,4 +927,8 @@ def layout_snapshot(
         fwd_indices=findices,
         sink_indptr=sink_indptr,
         sink_indices=sink_indices,
+        rev_indptr=rev_indptr,
+        rev_indices=rev_indices,
+        lay_fwd=lay_fwd,
+        lay_rev=lay_rev,
     )

@@ -1,0 +1,217 @@
+"""Oracle list engines: reverse queries answered on the host.
+
+A copy of keto_tpu/list/engine.py. ListSubjects is breadth-first
+subject-set expansion (the check engine's traversal without the early
+exit); ListObjects is the same traversal over the TRANSPOSED relation —
+repeated subject-filtered Manager queries walk edges backward from the
+queried subject. Both page through the Manager contract, so any store
+plugs in.
+
+``ListEngine`` is the differential-testing oracle the snapshot list engine
+(keto_tpu_torch/list/gpu_engine.py) must agree with, and the route of
+queries the snapshot cannot serve (wildcard-configured namespaces).
+
+Results are canonicalized — deduplicated and sorted — so pagination has a
+stable, device-id-free cursor: a page token encodes the snapshot watermark
+the result was computed at plus the last returned value, which stays valid
+across a fold (a fold renumbers device ids; it cannot renumber strings).
+"""
+
+from __future__ import annotations
+
+import base64
+import bisect
+import binascii
+import json
+from typing import Optional
+
+from keto_tpu_torch.relationtuple.manager import Manager
+from keto_tpu_torch.relationtuple.model import (
+    RelationQuery,
+    Subject,
+    SubjectID,
+    SubjectSet,
+)
+from keto_tpu_torch.x.errors import ErrMalformedPageToken, ErrNotFound
+from keto_tpu_torch.x.pagination import with_size, with_token
+
+#: default page size for list-objects / list-subjects responses
+DEFAULT_LIST_PAGE = 100
+#: hard cap on one page (bigger requests should page)
+MAX_LIST_PAGE = 4096
+
+
+def encode_page_token(watermark: int, cursor: str) -> str:
+    """Opaque page token: snapshot watermark + value cursor (the last
+    returned item). The watermark pins follow-up pages to a snapshot at
+    least as fresh (snaptoken consistency); the VALUE cursor — not a
+    device id — keeps pagination consistent across maintenance."""
+    raw = json.dumps({"w": int(watermark), "c": cursor}).encode()
+    return base64.urlsafe_b64encode(raw).decode().rstrip("=")
+
+
+def decode_page_token(token: str) -> tuple[int, str]:
+    """(watermark, cursor) from an opaque page token; malformed tokens
+    raise ErrMalformedPageToken (a 400, matching the store tokens)."""
+    try:
+        pad = "=" * (-len(token) % 4)
+        obj = json.loads(base64.urlsafe_b64decode(token + pad))
+        return int(obj["w"]), str(obj["c"])
+    except (ValueError, KeyError, TypeError, binascii.Error):
+        raise ErrMalformedPageToken() from None
+
+
+def slice_page(items: list, cursor: str, size: int) -> tuple[list, str]:
+    """One page of a sorted result list past the value ``cursor``;
+    returns (page, next-cursor) with "" meaning last page."""
+    size = min(size or DEFAULT_LIST_PAGE, MAX_LIST_PAGE)
+    start = bisect.bisect_right(items, cursor) if cursor else 0
+    page = items[start : start + size]
+    nxt = page[-1] if start + size < len(items) else ""
+    return page, nxt
+
+
+class ListEngine:
+    """Manager-backed reverse-query engine (CPU reference)."""
+
+    def __init__(self, manager: Manager, page_size: int = 0):
+        self._manager = manager
+        self._page_size = page_size
+
+    # -- traversal -----------------------------------------------------------
+
+    def _pages(self, query: RelationQuery):
+        """Every tuple matching ``query``, across pages; an unknown
+        namespace yields nothing (the check engine's engine.go:76-77
+        deny, applied to listing)."""
+        token = ""
+        while True:
+            opts = [with_token(token)]
+            if self._page_size:
+                opts.append(with_size(self._page_size))
+            try:
+                rels, token = self._manager.get_relation_tuples(query, *opts)
+            except ErrNotFound:
+                return
+            yield from rels
+            if token == "":
+                return
+
+    def list_subjects(self, namespace: str, object: str, relation: str) -> list[str]:
+        """Every subject id transitively reachable from
+        ``namespace:object#relation`` — exactly the ids the check engine
+        would allow against that set. Sorted, deduplicated."""
+        out: set[str] = set()
+        visited: set[str] = set()
+        stack = [SubjectSet(namespace=namespace, object=object, relation=relation)]
+        while stack:
+            ss = stack.pop()
+            key = str(ss)
+            if key in visited:
+                continue
+            visited.add(key)
+            for rt in self._pages(
+                RelationQuery(
+                    namespace=ss.namespace, object=ss.object, relation=ss.relation
+                )
+            ):
+                sub = rt.subject
+                if isinstance(sub, SubjectID):
+                    out.add(sub.id)
+                elif isinstance(sub, SubjectSet):
+                    stack.append(sub)
+        return sorted(out)
+
+    def list_objects(self, namespace: str, relation: str, subject: Subject) -> list[str]:
+        """Every object ``o`` in ``namespace`` with
+        ``check(namespace, o, relation, subject) == True`` — backward
+        reachability from the subject over the transposed relation.
+        Sorted, deduplicated.
+
+        A tuple's left-hand side is reachable-backward not only through
+        its literal subject-set key but through every WILDCARD-BEARING
+        key whose pattern matches it (empty fields wildcard on expansion,
+        matching the check engine's zero-value-means-any reads), so each
+        matched row enqueues its wildcard key variants too. Objects named
+        ``""`` are patterns, not objects — never returned (both engines
+        share this contract)."""
+        out: set[str] = set()
+        visited: set[str] = set()
+        frontier: list[Subject] = [subject]
+        while frontier:
+            sub = frontier.pop()
+            key = str(sub)
+            if key in visited:
+                continue
+            visited.add(key)
+            if isinstance(sub, SubjectID):
+                q = RelationQuery(subject_id=sub.id)
+            else:
+                q = RelationQuery(subject_set=sub)
+            for rt in self._pages(q):
+                if (
+                    rt.namespace == namespace
+                    and rt.relation == relation
+                    and rt.object != ""
+                ):
+                    out.add(rt.object)
+                # the literal key plus every wildcard variant matching
+                # this row (a wildcard key reaches the subject iff ANY
+                # row matching its pattern does — exactly the expansion
+                # the graph encodes as pattern-expanded edges)
+                for ns_v in (rt.namespace, ""):
+                    for obj_v in (rt.object, ""):
+                        for rel_v in (rt.relation, ""):
+                            frontier.append(
+                                SubjectSet(
+                                    namespace=ns_v, object=obj_v, relation=rel_v
+                                )
+                            )
+        return sorted(out)
+
+    # -- paginated surface (shared face with the snapshot engine) ------------
+
+    def _snaptoken(self) -> int:
+        return int(self._manager.watermark())
+
+    def page_subjects(
+        self,
+        namespace: str,
+        object: str,
+        relation: str,
+        *,
+        page_size: int = 0,
+        page_token: str = "",
+        at_least: Optional[int] = None,
+        latest: bool = False,
+    ) -> tuple[list[str], str, int]:
+        """(subject_ids page, next_page_token, snaptoken). The Manager
+        reads the live store, so every page reflects at least the token's
+        pinned watermark by construction."""
+        cursor = ""
+        if page_token:
+            _, cursor = decode_page_token(page_token)
+        token = self._snaptoken()
+        items = self.list_subjects(namespace, object, relation)
+        page, nxt = slice_page(items, cursor, page_size)
+        return page, (encode_page_token(token, nxt) if nxt else ""), token
+
+    def page_objects(
+        self,
+        namespace: str,
+        relation: str,
+        subject: Subject,
+        *,
+        page_size: int = 0,
+        page_token: str = "",
+        at_least: Optional[int] = None,
+        latest: bool = False,
+    ) -> tuple[list[str], str, int]:
+        """(objects page, next_page_token, snaptoken)."""
+        cursor = ""
+        if page_token:
+            _, cursor = decode_page_token(page_token)
+        token = self._snaptoken()
+        items = self.list_objects(namespace, relation, subject)
+        page, nxt = slice_page(items, cursor, page_size)
+        return page, (encode_page_token(token, nxt) if nxt else ""), token

@@ -15,6 +15,13 @@ Read port:
   for read-your-writes; by default a check is served in the serving mode
   (keto_tpu/servers/rest.py:653-664). Responses carry the deciding
   snapshot's id in ``X-Keto-Snaptoken``.
+- ``GET /relation-tuples/list-objects`` (namespace, relation and a subject)
+  and ``GET /relation-tuples/list-subjects`` (namespace, object, relation)
+  answer the reverse queries through the list engine
+  (keto_tpu/servers/rest.py:919-976): ``page_size``, ``page_token`` and
+  the same freshness parameters; a missing field is a 400; the body is
+  ``{"objects" | "subject_ids", "next_page_token", "snaptoken"}`` and the
+  response carries ``X-Keto-Snaptoken``.
 
 Write port: ``PUT /relation-tuples`` creates from a JSON body → 201 +
 Location (reference transact_server.go:130-153); ``DELETE`` by URL query →
@@ -33,7 +40,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, urlsplit
 
-from keto_tpu_torch.relationtuple.model import RelationTuple
+from keto_tpu_torch.relationtuple.model import RelationQuery, RelationTuple
 from keto_tpu_torch.x.errors import ErrBadRequest, ErrNilSubject, KetoError
 
 READ = "read"
@@ -44,13 +51,14 @@ MAX_BATCH_CHECK = 65536
 
 
 class RestApp:
-    """Routes requests for one server role against the store (writes) and
-    the check batcher (reads)."""
+    """Routes requests for one server role against the store (writes), the
+    check batcher and the list engine (reads)."""
 
-    def __init__(self, role: str, store, batcher):
+    def __init__(self, role: str, store, batcher, lister=None):
         self.role = role
         self.store = store
         self.batcher = batcher
+        self.lister = lister
 
     def handle(self, method: str, path: str, query: dict[str, list[str]], body: bytes):
         """Returns (status, payload-dict | None, headers-dict)."""
@@ -69,6 +77,10 @@ class RestApp:
                     return self._post_check(body, query)
                 if route == ("POST", "/check/batch"):
                     return self._post_check_batch(body, query)
+                if route == ("GET", "/relation-tuples/list-objects") and self.lister:
+                    return self._get_list_objects(query)
+                if route == ("GET", "/relation-tuples/list-subjects") and self.lister:
+                    return self._get_list_subjects(query)
             else:
                 if route == ("PUT", "/relation-tuples"):
                     return self._put_relation_tuple(body)
@@ -140,6 +152,59 @@ class RestApp:
         )
         return 200, {"results": [bool(r) for r in results]}, self._token_headers(token)
 
+    # -- reverse queries -------------------------------------------------------
+
+    @staticmethod
+    def _page_opts(query) -> tuple[int, str]:
+        """(page_size, page_token); a malformed size is a 400."""
+        token = (query.get("page_token") or [""])[0]
+        raw_size = (query.get("page_size") or [""])[0]
+        size = 0
+        if raw_size:
+            try:
+                size = int(raw_size)
+            except ValueError:
+                raise ErrBadRequest(f"invalid page_size {raw_size!r}") from None
+            if size < 0:
+                raise ErrBadRequest(f"page_size must be >= 0, got {raw_size!r}")
+        return size, token
+
+    def _get_list_objects(self, query):
+        """Every object the subject can reach under namespace + relation, a
+        sorted page with a snaptoken-pinned page token."""
+        rq = RelationQuery.from_url_query(query)
+        if rq.namespace == "":
+            raise ErrBadRequest("namespace has to be specified")
+        if rq.relation == "":
+            raise ErrBadRequest("relation has to be specified")
+        sub = rq.subject
+        if sub is None:
+            raise ErrBadRequest("Subject has to be specified.")
+        size, token = self._page_opts(query)
+        objs, nxt, snaptoken = self.lister.page_objects(
+            rq.namespace, rq.relation, sub, page_size=size, page_token=token,
+            **self._consistency_from(query),
+        )
+        body = {"objects": objs, "next_page_token": nxt, "snaptoken": str(snaptoken)}
+        return 200, body, self._token_headers(snaptoken)
+
+    def _get_list_subjects(self, query):
+        """Every subject id allowed on namespace:object#relation."""
+        rq = RelationQuery.from_url_query(query)
+        if rq.namespace == "":
+            raise ErrBadRequest("namespace has to be specified")
+        if rq.object == "":
+            raise ErrBadRequest("object has to be specified")
+        if rq.relation == "":
+            raise ErrBadRequest("relation has to be specified")
+        size, token = self._page_opts(query)
+        subs, nxt, snaptoken = self.lister.page_subjects(
+            rq.namespace, rq.object, rq.relation, page_size=size, page_token=token,
+            **self._consistency_from(query),
+        )
+        body = {"subject_ids": subs, "next_page_token": nxt, "snaptoken": str(snaptoken)}
+        return 200, body, self._token_headers(snaptoken)
+
     # -- write ---------------------------------------------------------------
 
     def _put_relation_tuple(self, body: bytes):
@@ -201,8 +266,9 @@ def _make_handler(app: RestApp):
 class RestServer:
     """One role's REST server on its own port, served from a thread."""
 
-    def __init__(self, role: str, store, batcher, host: str = "127.0.0.1", port: int = 0):
-        self.app = RestApp(role, store, batcher)
+    def __init__(self, role: str, store, batcher, host: str = "127.0.0.1", port: int = 0,
+                 lister=None):
+        self.app = RestApp(role, store, batcher, lister)
         self.httpd = ThreadingHTTPServer((host or "0.0.0.0", port), _make_handler(self.app))
         self.httpd.daemon_threads = True
         self._thread: Optional[threading.Thread] = None

@@ -10,7 +10,9 @@
 - ``github_workload`` — BASELINE config 4, the GitHub-style org/team/repo
   graph of bench.py:117 (five namespaces, team forests nested 4 deep, grant
   chains up to 7 edges); ``github_queries`` (bench.py:282) draws checks on
-  issues and pulls with analytic expectations.
+  issues and pulls with analytic expectations; ``github_list_queries``
+  draws ListObjects ("which issues may user-u view") and ListSubjects
+  ("which users may view issue-j") with their analytic expected sets.
 """
 
 from __future__ import annotations
@@ -211,9 +213,11 @@ def github_workload(rng: random.Random, n_tuples: int):
         return got
 
     org_roots: dict = {o: [] for o in range(n_orgs)}
+    root_org: dict = {}
     for r in range(lvl_bounds[1]):
         o = rng.randrange(n_orgs)
         org_roots[o].append(r)
+        root_org[r] = o
         tuples.append(_T("orgs", f"org-{o}", "member", SubjectSet("teams", f"team-{r}", "member")))
 
     # direct team memberships: the tuple bulk, sized so the total lands on
@@ -284,10 +288,21 @@ def github_workload(rng: random.Random, n_tuples: int):
         us = team_users.get(x)
         return rng.choice(us) if us else None
 
+    issues_by_repo: dict = {}
+    for j, r in enumerate(issue_repo):
+        issues_by_repo.setdefault(r, []).append(j)
+    reader_repos: dict = {}  # grant → repos whose reader set it is
+    for r, grant in repo_reader.items():
+        reader_repos.setdefault(grant, []).append(r)
+
     ctx = {
         "n_users": n_users, "issue_repo": issue_repo, "pull_repo": pull_repo,
         "repo_reader": repo_reader, "repo_maint": repo_maint,
         "grant_ok": grant_ok, "member_of_grant": member_of_grant,
+        # the maps the list expectations read
+        "team_children": team_children, "team_users": team_users, "user_teams": user_teams,
+        "org_roots": org_roots, "root_org": root_org, "ancestors": ancestors,
+        "issues_by_repo": issues_by_repo, "reader_repos": reader_repos,
     }
     return tuples, ctx
 
@@ -313,3 +328,46 @@ def github_queries(rng: random.Random, n_checks: int, ctx):
         queries.append(_T(ns, obj, "view", SubjectID(f"user-{u}")))
         expected.append(ctx["grant_ok"](u, grant))
     return queries, expected
+
+
+def _team_subtree(ctx, team: int) -> list:
+    """The team and every team nested below it."""
+    out, stack = [], [team]
+    while stack:
+        t = stack.pop()
+        out.append(t)
+        stack.extend(ctx["team_children"].get(t, ()))
+    return out
+
+
+def github_list_queries(rng: random.Random, n: int, ctx):
+    """``(objects, subjects)`` over config 4's issues, each with its analytic
+    expected set, sorted as the list engines sort it:
+
+    - ``objects``: ``(SubjectID("user-u"), [issue names])`` — ListObjects on
+      ``issues#view``: the issues whose repo's reader grant is an org one of
+      the user's teams roots in, or a team that is one of their teams or an
+      ancestor of one;
+    - ``subjects``: ``("issue-j", [user ids])`` — ListSubjects on
+      ``issues:issue-j#view``: the direct members of every team under the
+      granted team (or under the granted org's root teams)."""
+    objects, subjects = [], []
+    for _ in range(n):
+        u = rng.randrange(ctx["n_users"])
+        teams, orgs = set(), set()
+        for t in ctx["user_teams"].get(u, ()):
+            chain, root = ctx["ancestors"](t)
+            teams |= chain
+            orgs.add(ctx["root_org"][root])
+        repos = [r for o in orgs for r in ctx["reader_repos"].get(("org", o), ())]
+        repos += [r for t in teams for r in ctx["reader_repos"].get(("team", t), ())]
+        issues = {j for r in repos for j in ctx["issues_by_repo"].get(r, ())}
+        objects.append((SubjectID(f"user-{u}"), sorted(f"issue-{j}" for j in issues)))
+    for _ in range(n):
+        j = rng.randrange(len(ctx["issue_repo"]))
+        kind, x = ctx["repo_reader"][ctx["issue_repo"][j]]
+        roots = ctx["org_roots"][x] if kind == "org" else [x]
+        users = {u for r in roots for t in _team_subtree(ctx, r)
+                 for u in ctx["team_users"].get(t, ())}
+        subjects.append((f"issue-{j}", sorted(f"user-{u}" for u in users)))
+    return objects, subjects

@@ -22,14 +22,20 @@ PKG = ROOT / "keto_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
-#: modules the walk must find (the write path's among them): a module that
-#: fails to be found is not checked
+#: modules the walk must find (the write path's and the reverse queries'
+#: among them): a module that fails to be found is not checked
 REQUIRED = (
     "keto_tpu_torch.graph.overlay",
     "keto_tpu_torch.graph.compaction",
     "keto_tpu_torch.x.supervise",
     "keto_tpu_torch.check.gpu_engine",
     "keto_tpu_torch.graph.label_build",
+    "keto_tpu_torch.graph.device_build",
+    "keto_tpu_torch.graph.sort_kernels",
+    "keto_tpu_torch.list",
+    "keto_tpu_torch.list.engine",
+    "keto_tpu_torch.list.kernels",
+    "keto_tpu_torch.list.gpu_engine",
 )
 
 
@@ -42,7 +48,7 @@ def _modules():
 def test_walk_finds_every_module():
     found = set(_modules())
     assert set(REQUIRED) <= found, sorted(set(REQUIRED) - found)
-    assert len(found) >= 37
+    assert len(found) >= 43
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -60,7 +66,7 @@ def test_every_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 37
+    assert int(out.stdout.strip()) >= 43
 
 
 def _imports(path: Path):

@@ -1,6 +1,8 @@
 """The port's REST server on the CPU: the cat-videos checks answer 200/403,
 a write on the write port is visible to the next check, and the batch and
-health routes answer."""
+health routes answer. The reverse queries (``/relation-tuples/list-objects``
+and ``/relation-tuples/list-subjects``) answer with their status codes,
+400s, pages and snaptoken header, and ``?latest=`` reads a PUT back."""
 
 from __future__ import annotations
 
@@ -144,3 +146,70 @@ def test_cli_rejects_a_malformed_namespace():
         build_parser().parse_args(["serve", "--namespace", "videos"])
     args = build_parser().parse_args(["serve", "--namespace", "a=b=3"])
     assert [(n.name, n.id) for n in args.namespace] == [("a=b", 3)]
+
+
+LIST_OBJECTS = "/relation-tuples/list-objects?"
+LIST_SUBJECTS = "/relation-tuples/list-subjects?"
+
+
+def test_list_endpoints_answer(daemon):
+    q = urlencode({"namespace": "videos", "relation": "view", "subject_id": "cat lady"})
+    status, body, headers = _req("GET", daemon.read.port, LIST_OBJECTS + q)
+    assert status == 200 and headers["X-Keto-Snaptoken"] == "1"
+    assert body == {"objects": ["/cats", "/cats/1.mp4", "/cats/2.mp4"], "next_page_token": "",
+                    "snaptoken": "1"}
+    q = urlencode({"namespace": "videos", "object": "/cats/1.mp4", "relation": "view"})
+    status, body, headers = _req("GET", daemon.read.port, LIST_SUBJECTS + q)
+    assert (status, body["subject_ids"], headers["X-Keto-Snaptoken"]) == (
+        200, ["*", "cat lady"], "1")
+    # a subject set as the subject
+    q = urlencode({"namespace": "videos", "relation": "view", "subject_set.namespace": "videos",
+                   "subject_set.object": "/cats", "subject_set.relation": "owner"})
+    assert _req("GET", daemon.read.port, LIST_OBJECTS + q)[1]["objects"] == [
+        "/cats", "/cats/1.mp4", "/cats/2.mp4"]
+    assert daemon.lister.requests_total[("objects", "device")] == 2
+
+
+def test_list_endpoints_page(daemon):
+    base = {"namespace": "videos", "relation": "view", "subject_id": "cat lady", "page_size": "2"}
+    status, body, _ = _req("GET", daemon.read.port, LIST_OBJECTS + urlencode(base))
+    assert status == 200 and body["objects"] == ["/cats", "/cats/1.mp4"] and body["next_page_token"]
+    nxt = dict(base, page_token=body["next_page_token"])
+    status, body, _ = _req("GET", daemon.read.port, LIST_OBJECTS + urlencode(nxt))
+    assert (status, body["objects"], body["next_page_token"]) == (200, ["/cats/2.mp4"], "")
+
+
+@pytest.mark.parametrize("path,query", [
+    (LIST_OBJECTS, {"namespace": "videos", "relation": "view"}),
+    (LIST_OBJECTS, {"relation": "view", "subject_id": "cat lady"}),
+    (LIST_OBJECTS, {"namespace": "videos", "subject_id": "cat lady"}),
+    (LIST_OBJECTS, {"namespace": "videos", "relation": "view", "subject_id": "x",
+                    "page_token": "$bad"}),
+    (LIST_OBJECTS, {"namespace": "videos", "relation": "view", "subject_id": "x",
+                    "page_size": "-1"}),
+    (LIST_OBJECTS, {"namespace": "videos", "relation": "view", "subject_id": "x",
+                    "snaptoken": "x1"}),
+    (LIST_SUBJECTS, {"namespace": "videos", "object": "/cats"}),
+    (LIST_SUBJECTS, {"object": "/cats", "relation": "view"}),
+    (LIST_SUBJECTS, {"namespace": "videos", "relation": "view"}),
+    (LIST_SUBJECTS, {"namespace": "videos", "object": "/cats", "relation": "view",
+                     "page_size": "two"}),
+])
+def test_list_endpoints_reject_incomplete_queries(daemon, path, query):
+    status, body, _ = _req("GET", daemon.read.port, path + urlencode(query))
+    assert status == 400, body
+    assert _req("GET", daemon.write.port, path + urlencode(query))[0] == 404
+
+
+def test_list_latest_reads_a_put_back(daemon):
+    new = RelationTuple.from_string("videos:/cats/2.mp4#view@dog")
+    status, _, headers = _req("PUT", daemon.write.port, "/relation-tuples", new.to_json())
+    assert status == 201 and headers["X-Keto-Snaptoken"] == "2"
+    for extra in ({"latest": "true"}, {"snaptoken": "2"}):
+        q = urlencode({"namespace": "videos", "object": "/cats/2.mp4", "relation": "view", **extra})
+        status, body, headers = _req("GET", daemon.read.port, LIST_SUBJECTS + q)
+        assert (status, body["subject_ids"], body["snaptoken"], headers["X-Keto-Snaptoken"]) == (
+            200, ["cat lady", "dog"], "2", "2")
+    q = urlencode({"namespace": "videos", "relation": "view", "subject_id": "dog",
+                   "latest": "true"})
+    assert _req("GET", daemon.read.port, LIST_OBJECTS + q)[1]["objects"] == ["/cats/2.mp4"]
