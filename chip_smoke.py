@@ -1,9 +1,11 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, parity, the BFS
-and label routes of Check, reverse queries, the write path, serve.
+and label routes of Check, reverse queries, the stream and explain, the
+write path, serve.
 
     python3 chip_smoke.py            # every phase, as a release check runs it
     python3 chip_smoke.py --only build,parity
     python3 chip_smoke.py --only build,parity,deep,list         # reverse queries
+    python3 chip_smoke.py --only build,parity,deep,explain      # the stream and explain
     python3 chip_smoke.py --only build,parity,deep,list,write   # and the write path
 
 Phases, in order; any failure exits non-zero:
@@ -22,7 +24,9 @@ Phases, in order; any failure exits non-zero:
    too large for shared memory) and the slot set (a bucket patch, overlay
    rows and their dst vector, a label-mirror store in place, an empty
    entry list, duplicate slots, an out-of-range entry that must raise), the
-   list fixpoint (the base pull alone, an overlay into active rows, an
+   label witness (label widths 1..128, unequal sides, sorted and shuffled
+   rows, the pad row, pairs with no common entry, rows whose every entry is
+   common, 65,536 pairs), the list fixpoint (the base pull alone, an overlay into active rows, an
    overlay into passive rows, a chain that it_cap truncates, no active row
    but an overlay, all 32 lanes) and the build's radix argsort (empty, one
    key, all keys equal, negative keys, a ragged last tile, random int32, 10M
@@ -57,14 +61,41 @@ Phases, in order; any failure exits non-zero:
    and 20 ListObjects answers through a Check batch (every listed issue
    allowed, as many unlisted ones denied); K5 and K8 are timed at the
    path's shapes beside their plain versions and bounds;
-7. write — the deep phase's engine and store take writes through the
+7. explain — on the deep phase's engine and store, labels on: the 100k
+   checks through ``batch_check_stream`` (ordered) and through
+   ``batch_check_stream_with_token(ordered=False, with_info=True)``, each
+   equal to ``batch_check`` and the expectation with every offset
+   delivered once, reported with slices and queries per route, checks/s
+   against the batch path, slice service-time p50/p99, the controller's
+   final width and the device busy share (CUDA-event spans of each slice's
+   kernels over the wall time); 8,192 checks at a pinned width of 1,024,
+   every fourth a wildcard-relation check ("may user u do anything on repo
+   r?", two starts, never label-certifiable), whose every slice must land
+   as ``hybrid`` (a label output and a BFS sub-batch) equal to
+   ``batch_check`` and the expectation; the 100k checks ten times over in
+   one stream (1M), long enough that slices land after the first window
+   and the controller's ``cap()`` must move, each decision equal to the
+   expectation; no staging lease outstanding after any stream; then 200
+   ``ExplainEngine.explain`` calls —
+   50 denies, and 150 grants of which up to 50 route to ``hybrid`` and the
+   rest to ``label`` (two thirds of those between interior rows: a team's
+   ancestor or a root team's org, whose explain names a landmark) — each
+   with the expected decision, grants verified by back-trace, denies
+   certified, no verify failure or divergence, and every label/hybrid
+   grant's ``landmark_dev`` equal to the host index's ``witness_landmark``
+   with the label witness launched once per interior pair; explain p50/p99
+   seconds; the label witness is then timed at one pair and at 65,536
+   pairs on config 4's label arrays beside its plain version and bound;
+8. write — the deep phase's engine and store take writes through the
    store, as the REST write API makes them: (a) the reference bench's
    burst of 5,000 new team memberships (interior→sink edges: the labels
    stay live, the background fold absorbs the burst), (b) 64 new
    team→team edges between active interior team rows in two writes (the
    overlay ELL: the second write lands in the resident overlay by the
    slot set; the label route stops until the fold patches the labels on
-   the card), (c) deletes of 64 team-nesting edges (bucket slots patched
+   the card; 20 explains at the write's snaptoken, on the new edges, must
+   take the BFS route with no landmark, with verified witnesses, deciding
+   as the host lister and the oracle do), (c) deletes of 64 team-nesting edges (bucket slots patched
    by the slot set) and of the 5,000 burst memberships (tombstones). After
    each step: the seconds until ``snapshot_serving()`` reaches the
    watermark, a 100k-check batch's checks/s and route counts, the
@@ -78,16 +109,19 @@ Phases, in order; any failure exits non-zero:
    write path replaced, its labels built on the card) and no full rebuild
    may have happened; K9 is timed at the write shapes, and K5 on the first
    fixpoint that ran with the overlay pending, against its plain version;
-8. serve — the REST server with the default engine (labels on): the
-   cat-videos checks (200, 200, 403, 200), read-your-writes after a PUT,
+9. serve — the REST server with the default engine (labels on) and a
+   decision log sampling every check: ``GET /check/explain`` on a grant
+   (a verified witness) and a deny (a certificate), the cat-videos checks
+   (200, 200, 403, 200) read back from the decision log, read-your-writes
+   after a PUT,
    /check/batch, then a PUT that closes a cycle and a batch over it, then
    a ListObjects and a paged ListSubjects over REST; each part fails
    unless its requests launched the kernels of the routes that answered
    them.
 
-``--only`` names a subset; ``labels`` needs ``main``, ``list`` needs
-``deep`` and ``write`` needs ``list`` (they run on that phase's engine and
-store), and a subset that breaks this exits non-zero.
+``--only`` names a subset; ``labels`` needs ``main``, ``list`` and
+``explain`` need ``deep`` and ``write`` needs ``list`` (they run on that
+phase's engine and store), and a subset that breaks this exits non-zero.
 
 Output: progress lines, the ``{"kernels": [...]}`` line, the card line, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -103,9 +137,9 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "parity", "main", "labels", "deep", "list", "write", "serve")
+PHASES = ("build", "parity", "main", "labels", "deep", "list", "explain", "write", "serve")
 #: a phase that runs on the engine and store of another
-PHASE_NEEDS = {"labels": "main", "list": "deep", "write": "list"}
+PHASE_NEEDS = {"labels": "main", "list": "deep", "explain": "deep", "write": "list"}
 SEED = 20261017
 N_TUPLES = 1_000_000
 N_CHECKS = 100_000
@@ -119,6 +153,8 @@ WRITE_BURST = 5_000
 WRITE_ELL = (40, 24)
 WRITE_DELETE_ELL = 64
 WRITE_ORACLE_SAMPLE = 100
+#: explains after step (b), on its new team→team edges
+WRITE_EXPLAINS = 20
 #: the list phase: listings per orientation, the host-lister and Check
 #: cross-check samples, the oracle sample (ListSubjects only: the oracle's
 #: ListObjects walks the store by subject, which it does not index)
@@ -141,6 +177,7 @@ K5 = "keto_tpu/list/tpu_engine.py:76"
 #: the counts of the kernels one K5 fixpoint run launches
 K5_KERNELS = ("pull", "commit", "list_gather", "list_scatter", "close")
 K8 = "keto_tpu/graph/device_build.py:54"
+K4 = "keto_tpu/check/tpu_engine.py:352"
 
 #: per H100 variant, by a word of its nvidia-smi name: memory rate (B/s),
 #: SMs and boost clock (Hz), from NVIDIA's H100 data sheet (SXM5 HBM3
@@ -288,6 +325,7 @@ def phase_parity(torch, kernels, rows_out):
         log(f"parity case {i}: {case} -> iters={tail[0]} truncated={tail[1]} mismatches={m}")
         total += m
     total += label_parity(torch, rng, dev)
+    total += witness_parity(torch, rng, dev)
     total += slot_parity(torch, rng, dev)
     total += list_parity(torch, rng, dev)
     total += sort_parity(torch, rng, dev)
@@ -366,6 +404,35 @@ SLOT_CASES = [  # (what, rows, ld, entries, duplicates, 1-D, in place)
     ("empty entry list", 1000, 4, 0, False, False, False),
     ("duplicate slots", 2000, 16, 800, True, False, False),
 ]
+
+
+#: K4's parity layouts: (n, Wo, Wi, pairs, shuffled rows); the last is the
+#: 65,536-pair batch
+WITNESS_CASES = [
+    (60, 1, 8, 400, False), (60, 8, 1, 400, True), (90, 32, 64, 2000, False),
+    (90, 64, 32, 2000, True), (120, 128, 64, 4000, False), (120, 64, 128, 4000, True),
+    (80, 128, 1, 1000, True), (3000, 64, 64, 65_536, False), (3000, 64, 64, 65_536, True),
+]
+
+
+def witness_parity(torch, rng, dev) -> int:
+    """K4 against its plain version on its own layouts; mismatching words."""
+    from keto_tpu_torch.check import kernels
+    from keto_tpu_torch.check.random_layouts import random_witness_case
+
+    total = 0
+    for n, Wo, Wi, pairs, shuffle in WITNESS_CASES:
+        arrays = random_witness_case(rng, n, Wo, Wi, pairs, shuffle=shuffle)
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        got = kernels.label_step_witness_cuda(*args)
+        want = kernels.label_step_witness_ref(*args)
+        torch.cuda.synchronize()
+        m, _ = diff(got, want)
+        log(f"parity label_witness n={n} Wo={Wo} Wi={Wi} pairs={pairs} shuffled={shuffle}: "
+            f"{int((want >= 0).sum())} pairs with a landmark, first {want[:3].tolist()}, "
+            f"mismatches={m}")
+        total += m
+    return total
 
 
 def slot_parity(torch, rng, dev) -> int:
@@ -1145,7 +1212,449 @@ def phase_list(torch, kernels, report, engine, store, ctx, device="cuda"):
     return lst, captured, launches
 
 
-# -- phase 7: write, on the deep phase's engine and store ------------------------
+# -- phase 7: explain, the stream and decision provenance on deep's engine -------
+
+#: the explain phase: explains of denies, of label-route grants, and at most
+#: this many grants the router sends to the hybrid route
+EXPLAIN_DENIES = 50
+EXPLAIN_GRANTS = 150
+EXPLAIN_HYBRID = 50
+#: K4's batch row: random interior pairs on config 4's label arrays
+WITNESS_BATCH = 65_536
+#: the hybrid stream: checks, every fourth a wildcard-relation check, at a
+#: pinned slice width
+HYBRID_CHECKS = 8192
+HYBRID_SLICE = 1024
+#: the long stream: the 100k checks this many times over, more than the
+#: first window of 16 slices at the controller's starting width holds
+LONG_REPEATS = 10
+
+
+def _spans(torch, kernels, names):
+    """Wrap the named kernel dispatchers so every call is bracketed by CUDA
+    events on the current stream; returns (the spans, a restore function).
+    A span runs from a call's first kernel to its last."""
+    spans, saved = [], {n: getattr(kernels, n) for n in names}
+
+    def wrap(fn):
+        def timed(*a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            spans.append((start, end))
+            return out
+        return timed
+
+    for n, fn in saved.items():
+        setattr(kernels, n, wrap(fn))
+
+    def restore():
+        for n, fn in saved.items():
+            setattr(kernels, n, fn)
+
+    return spans, restore
+
+
+def phase_explain(torch, kernels, report, engine, store, queries, expected, ctx, device="cuda"):
+    """The streaming pipeline and GET /check/explain's engine at config 4
+    (see the module docstring). Returns what K4's rows need."""
+    import numpy as np
+
+    from keto_tpu_torch.explain import ExplainEngine
+    from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectSet
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    n = len(queries)
+    out: dict = {}
+
+    # (1) the stream against the batch path on the same snapshot
+    t0 = time.monotonic()
+    batch = engine.batch_check(queries)
+    sync()
+    batch_s = time.monotonic() - t0
+    if batch != expected:
+        raise SystemExit("explain FAILED: batch_check differs from the expectation")
+    kernels.reset_counts()
+    engine.reset_route_stats()
+    engine.stream_slice_stats.reset()
+    spans, restore = _spans(torch, kernels, ("check_step", "label_step")) if cuda else ([], None)
+    try:
+        t0 = time.monotonic()
+        ordered = np.concatenate(list(engine.batch_check_stream(queries))).tolist()
+        sync()
+        ordered_s = time.monotonic() - t0
+        busy_ms = sum(a.elapsed_time(b) for a, b in spans)
+        spans.clear()
+        seen = np.zeros(n, np.int64)
+        unordered = np.zeros(n, bool)
+        infos = []
+        t0 = time.monotonic()
+        gen, token = engine.batch_check_stream_with_token(queries, ordered=False, with_info=True)
+        for off, dec, info in gen:
+            seen[off : off + len(dec)] += 1
+            unordered[off : off + len(dec)] = dec
+            infos.append(info)
+        sync()
+        unordered_s = time.monotonic() - t0
+        busy2_ms = sum(a.elapsed_time(b) for a, b in spans)
+    finally:
+        if restore is not None:
+            restore()
+    launches = dict(kernels.COUNTS)
+    by_route: dict = {}
+    for info in infos:
+        r = by_route.setdefault(info["route"], {"slices": 0, "queries": 0})
+        r["slices"] += 1
+        r["queries"] += info["width"]
+    stream = {
+        "checks": n, "batch_s": batch_s, "batch_checks_per_s": n / batch_s,
+        "ordered_s": ordered_s, "ordered_checks_per_s": n / ordered_s,
+        "unordered_s": unordered_s, "unordered_checks_per_s": n / unordered_s,
+        "ordered_wrong": sum(a != b for a, b in zip(ordered, expected)),
+        "unordered_wrong": int(sum(bool(a) != b for a, b in zip(unordered, expected))),
+        "offsets_not_once": int((seen != 1).sum()), "snaptoken": token,
+        "unordered_slices_by_route": by_route, "route_snapshot": engine.stream_route_snapshot(),
+        "slice_stats": engine.stream_slice_stats.snapshot(),
+        "bfs_steps": engine.bfs_steps_stats.snapshot(), "final_cap": engine.stream_ctrl.cap(),
+        "controller": engine.stream_ctrl.snapshot(),
+        "device_busy_share_ordered": busy_ms / 1e3 / ordered_s if cuda else None,
+        "device_busy_share_unordered": busy2_ms / 1e3 / unordered_s if cuda else None,
+        "launches": launches, "staging": engine.staging_snapshot(),
+    }
+    log(f"explain stream: {json.dumps(stream)}")
+    if stream["ordered_wrong"] or stream["unordered_wrong"] or stream["offsets_not_once"]:
+        raise SystemExit(f"explain FAILED: the stream differs from batch_check: {stream}")
+    if stream["staging"]["leased"]:
+        raise SystemExit("explain FAILED: a staging lease outlived its slice")
+    out["stream"] = stream
+    out["hybrid_stream"] = hybrid_stream(engine, queries, expected, ctx)
+    out["long_stream"] = long_stream(engine, queries, expected, sync)
+
+    # (2) 200 explains: denies, label-route grants, hybrid-route grants
+    rng = random.Random(SEED + 7)
+    snap = engine.snapshot()
+    idx = snap.labels
+    ex = ExplainEngine(engine, store)
+    denies = [queries[i] for i in range(n) if not expected[i]][: 40 * EXPLAIN_DENIES : 40]
+    grants = [queries[i] for i in range(n) if expected[i]]
+    # interior → interior grants (a team's ancestor, a root team's org)
+    inner = []
+    teams = sorted(ctx["team_users"])
+    while len(inner) < 2 * EXPLAIN_GRANTS:
+        t = rng.choice(teams)
+        chain, root = ctx["ancestors"](t)
+        sub = SubjectSet("teams", f"team-{t}", "member")
+        if len(chain) > 1 and rng.random() < 0.6:
+            a = rng.choice(sorted(chain - {t}))
+            inner.append(RelationTuple("teams", f"team-{a}", "member", sub))
+        else:
+            inner.append(RelationTuple("orgs", f"org-{ctx['root_org'][root]}", "member", sub))
+    t0 = time.monotonic()
+    label_inner, label_sink, hybrid = [], [], []
+    for q in inner + grants[: 8 * EXPLAIN_GRANTS]:
+        allowed, route, _ = ex.decide_with(engine, store, q, None)
+        if not allowed:
+            raise SystemExit(f"explain FAILED: the grant {q} was denied")
+        if route == "hybrid" and len(hybrid) < EXPLAIN_HYBRID:
+            hybrid.append(q)
+        elif route == "label":
+            (label_inner if q.namespace in ("teams", "orgs") else label_sink).append(q)
+    classify_s = time.monotonic() - t0
+    # two thirds interior pairs (they carry a landmark), the rest grants of
+    # the 100k batch (a sink target: no single interior pair)
+    n_label = EXPLAIN_GRANTS - len(hybrid)
+    k = min(len(label_inner), (2 * n_label) // 3)
+    label = label_inner[:k] + label_sink[: n_label - k]
+    label += label_inner[k : k + n_label - len(label)]
+    picked = [(q, False, "deny") for q in denies] + [(q, True, "label") for q in label] + \
+             [(q, True, "hybrid") for q in hybrid]
+    kernels.reset_counts()
+    lat, bad, k4_pairs, k4_launched, routes, lm_found = [], [], [], 0, {}, 0
+    for q, want, kind in picked:
+        before = kernels.COUNTS["label_witness"]
+        t0 = time.monotonic()
+        resp = ex.explain(q)
+        lat.append(time.monotonic() - t0)
+        k4 = kernels.COUNTS["label_witness"] - before
+        routes[resp["route"]] = routes.get(resp["route"], 0) + 1
+        problems = []
+        if resp["allowed"] != want or resp.get("decision_divergence"):
+            problems.append("decision")
+        if want and not (resp["verified"] and resp["witness_source"] == "backtrace"):
+            problems.append("witness")
+        if not want and (resp["certificate"] or {}).get("type") != "frontier-exhaustion":
+            problems.append("certificate")
+        if want and resp["route"] in ("label", "hybrid"):
+            # the host index's answer for the same pair; None where the query
+            # has no single interior pair
+            sd, tg, multi = engine._resolve_bulk_py(snap, [q])
+            a, b = int(sd[0]), int(tg[0])
+            pair = 0 not in multi and 0 <= a < snap.num_int and 0 <= b < snap.num_int
+            host_lm = idx.witness_landmark(a, b) if pair else None
+            got_lm = (resp.get("landmark") or {}).get("landmark_dev")
+            if got_lm != host_lm or k4 != (1 if pair and cuda else 0):
+                problems.append(f"landmark {got_lm} vs host {host_lm}, K4 launches {k4}")
+            if pair:
+                k4_pairs.append((a, b))
+                k4_launched += k4
+            lm_found += got_lm is not None
+        elif k4:
+            problems.append(f"K4 launched {k4} times for a {resp['route']} {kind}")
+        if problems:
+            bad.append((str(q), kind, problems, resp))
+    explain = {
+        "explains": len(picked), "denies": len(denies), "label_grants": len(label),
+        "label_grants_interior": sum(q.namespace in ("teams", "orgs") for q in label),
+        "hybrid_grants": len(hybrid), "hybrid_candidates_found": len(hybrid),
+        "classified": len(inner) + min(len(grants), 8 * EXPLAIN_GRANTS),
+        "classify_s": classify_s, "routes": routes, "landmarks": lm_found,
+        "k4_launches": kernels.COUNTS["label_witness"], "k4_pairs": len(k4_pairs),
+        "verify_failures": ex.verify_failures, "requests_by_route": dict(ex.requests_by_route),
+        "p50_s": _pct(lat, 0.5), "p99_s": _pct(lat, 0.99), "max_s": max(lat),
+        "total_s": sum(lat), "bad": bad[:5],
+    }
+    log(f"explain: {json.dumps(explain)}")
+    if bad or ex.verify_failures or len(denies) != EXPLAIN_DENIES or \
+            len(label) + len(hybrid) != EXPLAIN_GRANTS:
+        raise SystemExit(f"explain FAILED: {len(bad)} explains wrong: {bad[:3]}")
+    if cuda and (not k4_launched or k4_launched != len(k4_pairs) or lm_found < 50):
+        raise SystemExit(f"explain FAILED: K4 launches {k4_launched} for {len(k4_pairs)} pairs, "
+                         f"{lm_found} landmarks")
+    out["explain"] = explain
+    report["explain"] = out
+    return k4_pairs, kernels.COUNTS["label_witness"]
+
+
+def graph_ms(torch, launch, n: int, reps: int = 10):
+    """Mean device time of one ``launch()`` from a CUDA graph of ``n``
+    captured launches, replayed ``reps`` times: no host work between the
+    kernels, so a kernel shorter than its launch overhead is still timed.
+    Returns (ms, how): a launch loop timed by events where the capture
+    fails."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            launch()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(n):
+                launch()
+        g.replay()
+        torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 - reported with the row
+        torch.cuda.synchronize()
+        log(f"graph capture failed ({e!r}); timing a launch loop")
+        return time_ms(launch, n), "launch_loop"
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * n), "cuda_graph"
+
+
+def hybrid_stream(engine, queries, expected, ctx) -> dict:
+    """Label-route checks with wildcard-relation checks among them, streamed
+    at a pinned width: every slice must land on the hybrid route, equal to
+    ``batch_check`` and the expectation."""
+    import numpy as np
+
+    from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectID
+
+    rng = random.Random(SEED + 9)
+
+    def member_of(grant):
+        kind, x = grant
+        if kind == "org":
+            roots = ctx["org_roots"][x]
+            if not roots:
+                return None
+            x = rng.choice(roots)
+        users = ctx["team_users"].get(x)
+        return rng.choice(users) if users else None
+
+    qs, want = [], []
+    for i in range(HYBRID_CHECKS):
+        if i % 4 != 3:
+            qs.append(queries[i])
+            want.append(expected[i])
+            continue
+        r = rng.randrange(len(ctx["repo_reader"]))
+        grants = (ctx["repo_reader"][r], ctx["repo_maint"][r])
+        u = member_of(rng.choice(grants)) if rng.random() < 0.5 else None
+        if u is None:
+            u = rng.randrange(ctx["n_users"])
+        qs.append(RelationTuple("repos", f"repo-{r}", "", SubjectID(f"user-{u}")))
+        want.append(any(ctx["grant_ok"](u, g) for g in grants))
+    batch = engine.batch_check(qs)
+    engine.reset_route_stats()
+    fb0 = engine.counters().get("label_fallbacks", 0)
+    got = np.zeros(len(qs), bool)
+    seen = np.zeros(len(qs), np.int64)
+    routes: dict = {}
+    t0 = time.monotonic()
+    gen, _ = engine.batch_check_stream_with_token(qs, ordered=False, with_info=True,
+                                                  slice_cap=HYBRID_SLICE)
+    for off, dec, info in gen:
+        got[off : off + len(dec)] = dec
+        seen[off : off + len(dec)] += 1
+        routes[info["route"]] = routes.get(info["route"], 0) + 1
+    res = {
+        "checks": len(qs), "wildcard_checks": HYBRID_CHECKS // 4, "slice_cap": HYBRID_SLICE,
+        "grants": int(sum(want)), "wildcard_grants": int(sum(want[3::4])),
+        "stream_s": time.monotonic() - t0, "slices_by_route": routes,
+        "route_snapshot": engine.stream_route_snapshot(),
+        "label_fallbacks": engine.counters().get("label_fallbacks", 0) - fb0,
+        "batch_wrong": int(sum(a != b for a, b in zip(batch, want))),
+        "stream_wrong": int(sum(bool(a) != b for a, b in zip(got, want))),
+        "offsets_not_once": int((seen != 1).sum()), "staging": engine.staging_snapshot(),
+    }
+    log(f"explain hybrid stream: {json.dumps(res)}")
+    if res["batch_wrong"] or res["stream_wrong"] or res["offsets_not_once"] or \
+            set(routes) != {"hybrid"} or res["staging"]["leased"]:
+        raise SystemExit(f"explain FAILED: the hybrid stream {res}")
+    return res
+
+
+def long_stream(engine, queries, expected, sync) -> dict:
+    """The 100k checks LONG_REPEATS times over in one unordered stream, on a
+    fresh controller (a server's first stream starts there), with its
+    ``cap()`` read after every landed slice and recorded wherever the
+    stream asks it for the width of the next batch it takes: the first
+    window of slices goes out at the starting width, and the slices that
+    land then set the widths of those dispatched after."""
+    import itertools
+
+    import numpy as np
+
+    from keto_tpu_torch.check.stream import StreamSliceController
+
+    n = len(queries)
+    want = np.asarray(expected, bool)
+    ctrl = engine.stream_ctrl = StreamSliceController()
+    cap0 = ctrl.cap()
+    read_cap, taken = ctrl.cap, []
+    ctrl.cap = lambda: taken.append(read_cap()) or taken[-1]
+    splits0 = engine.counters().get("slice_splits", 0)
+    engine.stream_slice_stats.reset()
+    engine.reset_route_stats()
+    widths: dict = {}
+    caps = [cap0]
+    wrong = 0
+    t0 = time.monotonic()
+    gen, _ = engine.batch_check_stream_with_token(
+        itertools.chain.from_iterable([queries] * LONG_REPEATS), ordered=False, with_info=True)
+    for off, dec, info in gen:
+        if off in widths:
+            raise SystemExit(f"explain FAILED: the long stream landed offset {off} twice")
+        widths[off] = len(dec)
+        wrong += int((np.asarray(dec, bool) != want[(off + np.arange(len(dec))) % n]).sum())
+        caps.append(read_cap())
+    sync()
+    del ctrl.cap
+    wall = time.monotonic() - t0
+    order = [widths[k] for k in sorted(widths)]
+    covered = sum(order) == n * LONG_REPEATS and \
+        all(a + widths[a] == b for a, b in zip(sorted(widths), sorted(widths)[1:]))
+    res = {
+        "checks": n * LONG_REPEATS, "wall_s": wall, "checks_per_s": n * LONG_REPEATS / wall,
+        "slices": len(order), "start_cap": cap0, "final_cap": read_cap(),
+        "batch_caps": {str(c): taken.count(c) for c in sorted(set(taken))},
+        "entry_budget": ctrl.entry_budget(),
+        "caps_seen": sorted(set(caps)), "cap_changes": sum(a != b for a, b in zip(caps, caps[1:])),
+        "widths": {str(w): order.count(w) for w in sorted(set(order))},
+        "first_widths": order[:20], "last_widths": order[-20:],
+        "slice_splits": engine.counters().get("slice_splits", 0) - splits0,
+        "slice_stats": engine.stream_slice_stats.snapshot(),
+        "route_snapshot": engine.stream_route_snapshot(), "controller": ctrl.snapshot(),
+        "wrong": wrong, "covered": covered, "staging": engine.staging_snapshot(),
+    }
+    log(f"explain long stream: {json.dumps(res)}")
+    if wrong or not covered or res["staging"]["leased"]:
+        raise SystemExit(f"explain FAILED: the long stream {res}")
+    if len(res["caps_seen"]) < 2:
+        raise SystemExit(f"explain FAILED: the controller's cap never moved in {len(order)} slices")
+    return res
+
+
+def witness_rows(torch, kernels, snap, pairs, launches, rate, int_rate):
+    """K4 at the explain path's shape (one pair, the first explained) and at
+    a 65,536-pair batch of random interior pairs on config 4's label
+    arrays, each beside its plain version and bound. ``ms`` is the kernel's
+    device time: bare ``keto_label_witness`` launches captured in one CUDA
+    graph (``timed_by``), inputs and output already on the card;
+    ``wrapper_ms`` is the whole ``label_step_witness_cuda`` call (checks,
+    the output allocation, the ctypes launch), timed back to back. No single
+    PyTorch call computes it (library_ms null)."""
+    import numpy as np
+
+    out_lab, in_lab = snap.device_labels
+    Wo, Wi = int(out_lab.shape[1]), int(in_lab.shape[1])
+    n_out = (out_lab != -1).sum(1)
+    n_in = (in_lab != -2).sum(1)
+    rng = np.random.default_rng(SEED + 8)
+    batch = rng.integers(0, snap.num_int, size=(2, WITNESS_BATCH)).astype(np.int32)
+    lib = kernels._lib()
+    rows = []
+    for name, pa_np, pb_np, n_graph in (
+        ("label_witness", np.array([pairs[0][0]], np.int32), np.array([pairs[0][1]], np.int32), 500),
+        ("label_witness_batch", batch[0], batch[1], 20),
+    ):
+        pa, pb = (torch.from_numpy(x).cuda() for x in (pa_np, pb_np))
+        P = int(pa.numel())
+        got = kernels.label_step_witness_cuda(out_lab, in_lab, pa, pb)
+        want = kernels.label_step_witness_ref(out_lab, in_lab, pa, pb)
+        torch.cuda.synchronize()
+        m, err = diff(got, want)
+        bare = torch.full((P,), -3, dtype=torch.int32, device="cuda")
+
+        def launch():
+            rc = lib.keto_label_witness(out_lab.data_ptr(), Wo, in_lab.data_ptr(), Wi,
+                                        out_lab.shape[0], pa.data_ptr(), pb.data_ptr(), P,
+                                        bare.data_ptr(), kernels._stream())
+            if rc:
+                raise RuntimeError(f"keto_label_witness failed: CUDA error {rc}")
+
+        ms, timed_by = graph_ms(torch, launch, n_graph)
+        m_bare = diff(bare, want)[0]
+        wrapper = time_ms(lambda: kernels.label_step_witness_cuda(out_lab, in_lab, pa, pb),
+                          10 * n_graph)
+        plain = time_ms(lambda: kernels.label_step_witness_ref(out_lab, in_lab, pa, pb),
+                        max(1, n_graph // 50), warmup=1)
+        # each input read once: the distinct rows the pairs name, the pair
+        # rows, the output; the compares these rows' valid entries need
+        k4_bytes = 4 * (int(torch.unique(pa).numel()) * Wo + int(torch.unique(pb).numel()) * Wi) \
+            + 12 * P
+        compares = int((n_out[pa.long()] * n_in[pb.long()]).sum())
+        by_bytes, by_ops = k4_bytes / rate * 1e3, compares / int_rate * 1e3
+        # the bound over every slot of every pair, pads included: P·(Wo+Wi)·4
+        # + 12·P bytes against P·Wo·Wi compares
+        slot_bytes, slot_ops = (P * (Wo + Wi) * 4 + 12 * P) / rate * 1e3, P * Wo * Wi / int_rate * 1e3
+        r = {"name": name, "route": "cuda", "source": "keto_tpu_torch/csrc/label_kernels.cu",
+             "replaces": K4, "launches": launches, "mismatches": m, "max_abs_err": err,
+             "ms": ms, "plain_ms": plain, "bound_ms": max(by_bytes, by_ops),
+             "bound_by": "bytes" if by_bytes >= by_ops else "operations", "library_ms": None,
+             "wrapper_ms": wrapper, "timed_by": timed_by, "graph_launches": n_graph,
+             "bare_mismatches": m_bare, "pairs": P, "Wo": Wo, "Wi": Wi,
+             "valid_compares": compares, "bytes_bound_ms": by_bytes, "ops_bound_ms": by_ops,
+             "every_slot_bound_ms": max(slot_bytes, slot_ops),
+             "landmarks_found": int((want >= 0).sum())}
+        rows.append(r)
+        log(f"kernel {name}: {ms:.5f} ms by {timed_by} (wrapper {wrapper:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {r['bound_ms']:.6f} ms by {r['bound_by']}), P={P}, "
+            f"mismatches {m}, bare launches {m_bare}")
+        if m or m_bare:
+            raise SystemExit(f"{name} parity at config 4's shapes FAILED: {m} mismatching words, "
+                             f"{m_bare} from the bare launches")
+    return rows
+
+
+# -- phase 8: write, on the deep phase's engine and store ------------------------
 
 MAINT = ("delta_applies", "overlay_device_applies", "full_rebuilds", "compactions", "fold_runs",
          "label_patches", "label_patch_aborts", "label_rebuilds", "label_invalidations",
@@ -1170,6 +1679,7 @@ def phase_write(torch, kernels, report, engine, store, queries, lst, ctx, device
     from keto_tpu_torch.check.gpu_engine import TorchCheckEngine
 
     from keto_tpu_torch.check.engine import CheckEngine
+    from keto_tpu_torch.explain import ExplainEngine
     from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectID, SubjectSet
 
     rng = random.Random(SEED + 6)
@@ -1359,6 +1869,19 @@ def phase_write(torch, kernels, report, engine, store, queries, lst, ctx, device
                      "overlay_shape": list(snap.device_overlay[0].shape),
                      "counters": maint_counts(engine)})
         log(f"write (b) overlay ELL: {json.dumps(step)}")
+        # explains at the write's snaptoken while the overlay is pending
+        # (lab_dirty), before the quiet fold can land: a member of the new
+        # child team, or the child team itself, as the parent's member
+        ex_snap = engine.snapshot()
+        ex_qs = []
+        for t in new_edges[:WRITE_EXPLAINS]:
+            us = ctx["team_users"].get(int(t.subject.object.split("-")[1]))
+            sub = SubjectID(f"user-{us[0]}") if us and len(ex_qs) % 2 == 0 else t.subject
+            ex_qs.append(RelationTuple("teams", t.object, "member", sub))
+        ex = ExplainEngine(engine, store)
+        t0 = time.monotonic()
+        ex_resps = [ex.explain(q, at_least=wm) for q in ex_qs]
+        ex_s = time.monotonic() - t0
         touched_b = [int(t.object.split("-")[1]) for t in new_edges]
         kids = [int(t.subject.object.split("-")[1]) for t in new_edges]
         users_b = sorted({f"user-{u}" for k in kids for u in ctx["team_users"].get(k, ())})
@@ -1367,6 +1890,21 @@ def phase_write(torch, kernels, report, engine, store, queries, lst, ctx, device
         step["overlay_pull_launches"] = kernels.COUNTS["pull_overlay"] - launches_before["pull_overlay"]
         if step["checks"]["label_checks"] or (device == "cuda" and not step["overlay_pull_launches"]):
             raise SystemExit(f"write FAILED: the dirty overlay did not take the BFS route: {step}")
+        host = host_lister(ex_snap, store, device)
+        ex_bad = []
+        for q, r in zip(ex_qs, ex_resps):
+            listed = q.object in host.list_objects("teams", "member", q.subject)[0]
+            if not (r["allowed"] is listed is oracle.subject_is_allowed(q) is True) or \
+                    r["route"] != "bfs" or "landmark" in r or not r["verified"] or \
+                    r["witness_source"] != "backtrace" or int(r["snaptoken"]) < wm:
+                ex_bad.append((str(q), listed, r))
+        step["explains"] = {"explains": len(ex_qs), "seconds": ex_s, "lab_dirty": len(ex_snap.lab_dirty or ()),
+                            "routes": dict(ex.requests_by_route), "verify_failures": ex.verify_failures,
+                            "witness_edges": [len(r["witness"] or ()) for r in ex_resps],
+                            "wrong": len(ex_bad)}
+        log(f"write (b) explains: {json.dumps(step['explains'])}")
+        if ex_bad or ex.verify_failures or not ex_snap.lab_dirty:
+            raise SystemExit(f"write FAILED: explains over the pending overlay: {ex_bad[:3]}")
         # after the checks, whose route assertion needs the overlay pending:
         # a listing that runs past compact_after_s may meet the quiet fold
         step["lists"], _, _ = list_round(
@@ -1613,13 +2151,15 @@ def list_overlay_row(torch, cap, launches, rate):
                   "keto_close, queued in blocks of 8 guarded steps")
 
 
-# -- phase 8: serve ---------------------------------------------------------------
+# -- phase 9: serve ---------------------------------------------------------------
 
 
 #: a cycle through the directory's owners: its rows cannot be peeled, so the
 #: served snapshot gets active rows; the self-query through the cycle falls
 #: back from the label route, so the fixpoint kernels run too
 SERVE_CYCLE = "videos:/cats#owner@(videos:/cats/1.mp4#owner)"
+#: GET /check/explain on the cat-videos demo: a grant and a deny
+SERVE_EXPLAINS = [("videos:/cats/1.mp4#view@cat lady", True), ("videos:/cats/2.mp4#view@*", False)]
 SERVE_CYCLE_CHECKS = [
     ("videos:/cats/2.mp4#view@cat lady", True),
     ("videos:/cats#view@cat lady", True),
@@ -1651,9 +2191,11 @@ def served_launches(kernels, engine, what: str, before: dict) -> dict:
 
 
 def phase_serve(kernels, report):
+    import tempfile
     import urllib.error
     import urllib.request
 
+    from keto_tpu_torch import _build
     from keto_tpu_torch.driver.daemon import Daemon
     from keto_tpu_torch.relationtuple.model import RelationTuple
     from keto_tpu_torch.workloads import (
@@ -1674,12 +2216,30 @@ def phase_serve(kernels, report):
             raw = e.read()
             return e.code, json.loads(raw) if raw else None
 
-    d = Daemon(CAT_VIDEOS_NAMESPACES, device="cuda", tuples=parse_tuples(CAT_VIDEOS_TUPLES))
+    log_dir = tempfile.TemporaryDirectory(dir=_build.BUILD_DIR)
+    d = Daemon(CAT_VIDEOS_NAMESPACES, device="cuda", tuples=parse_tuples(CAT_VIDEOS_TUPLES),
+               decision_log_dir=log_dir.name, decision_log_sample=1.0)
     d.start()
     try:
         d.engine.labels_settled()
         kernels.reset_counts()
         before = route_counts(d.engine)
+        # GET /check/explain: a grant with its witness, a deny with its
+        # certificate (before the PUT below grants it)
+        explained = {}
+        for check, allowed in SERVE_EXPLAINS:
+            status, body = req("GET", d.read.port,
+                               "/check/explain?" + RelationTuple.from_string(check).to_url_query())
+            explained[check] = {"status": status, "allowed": body.get("allowed"),
+                                "route": body.get("route"), "verified": body.get("verified"),
+                                "witness_edges": len(body.get("witness") or ()),
+                                "certificate": body.get("certificate")}
+            if status != 200 or body["allowed"] is not allowed or \
+                    (allowed and not (body["verified"] and body["witness"])) or \
+                    (not allowed and body["certificate"]["type"] != "frontier-exhaustion"):
+                raise SystemExit(f"serve FAILED: /check/explain {check} -> {status} {body}")
+        log(f"serve: /check/explain {json.dumps(explained)}")
+        report["serve_explain"] = explained
         codes = []
         for check, allowed in CAT_VIDEOS_CHECKS:
             q = RelationTuple.from_string(check).to_url_query()
@@ -1687,6 +2247,14 @@ def phase_serve(kernels, report):
             codes.append(status)
             if status != (200 if allowed else 403) or body != {"allowed": allowed}:
                 raise SystemExit(f"serve FAILED: {check} -> {status} {body}")
+        # the daemon's log: read_all flushes its open segment first
+        recs, corrupt = d.decision_log.read_all("default")
+        checks = [r["decision"] for r in recs if r["kind"] == "check"]
+        kinds = [r["kind"] for r in recs]
+        log(f"serve: decision log {kinds}, check decisions {checks}, {corrupt} corrupt lines")
+        if corrupt or checks != [a for _, a in CAT_VIDEOS_CHECKS] or \
+                kinds.count("explain") != len(SERVE_EXPLAINS):
+            raise SystemExit(f"serve FAILED: the decision log holds {recs}")
         new = RelationTuple.from_string("videos:/cats/2.mp4#view@*")
         put = req("PUT", d.write.port, "/relation-tuples", new.to_json())
         after = req("GET", d.read.port, "/check?" + new.to_url_query())
@@ -1731,13 +2299,14 @@ def phase_serve(kernels, report):
         report["serve_list_launches"] = dict(kernels.COUNTS)
     finally:
         d.stop()
+        log_dir.cleanup()
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help=f"comma-separated phases to run (default: all of {','.join(PHASES)}); "
-                         "labels needs main, list needs deep, write needs list")
+                         "labels needs main, list and explain need deep, write needs list")
     args = ap.parse_args(argv)
     phases = set(args.only.split(","))
     unknown = phases - set(PHASES)
@@ -1786,7 +2355,7 @@ def main(argv=None) -> int:
         del engine, snap, queries, main_ctx
     log(f"elapsed {time.monotonic() - t_start:.1f}s")
     if "deep" in phases:
-        engine, snap, captured, launches, store, deep_q, _, ctx, sort_keys = phase_deep(
+        engine, snap, captured, launches, store, deep_q, deep_got, ctx, sort_keys = phase_deep(
             torch, kernels, report)
         rows += label_rows(torch, kernels, snap, engine, captured, launches, rate, int_rate)
         log(json.dumps({"deep": report["deep"]}))
@@ -1798,6 +2367,14 @@ def main(argv=None) -> int:
             log(json.dumps({"list": report["list"]}))
             del lcap
             log(f"elapsed {time.monotonic() - t_start:.1f}s")
+        if "explain" in phases:
+            pairs, k4_launches = phase_explain(torch, kernels, report, engine, store, deep_q,
+                                               deep_got, ctx)
+            rows += witness_rows(torch, kernels, engine.snapshot(), pairs, k4_launches, rate,
+                                 int_rate)
+            log(json.dumps({"explain": report["explain"]}))
+            log(f"elapsed {time.monotonic() - t_start:.1f}s")
+        if "list" in phases:
             if "write" in phases:
                 slots, wl, wcap = phase_write(torch, kernels, report, engine, store, deep_q,
                                               lst, ctx)
@@ -1808,7 +2385,7 @@ def main(argv=None) -> int:
                 log(f"elapsed {time.monotonic() - t_start:.1f}s")
             del lst
         engine.close()
-        del engine, store, deep_q, ctx, sort_keys
+        del engine, store, deep_q, deep_got, ctx, sort_keys
     if "serve" in phases:
         phase_serve(kernels, report)
     log(json.dumps({"kernels": rows}))

@@ -57,13 +57,28 @@ governor, reported here); the counters ``device_build_dispatches``,
 ``device_build_host_dispatches`` and ``device_build_errors`` count the
 sorter's batches. A failed device sort raises.
 
+Streaming (tpu_engine.py:3718-4069). ``batch_check_stream`` keeps up to
+16 slices in flight: the host resolves and packs slice k+2 while k+1 runs
+on the card, each slice's entries go up from a pinned staging buffer
+leased until the slice lands (keto_tpu_torch/check/stream.py), each
+slice's output comes home by its own ``non_blocking`` copy and event, and
+slices land in READY order (``ordered=False`` yields ``(offset,
+decisions[, info])`` as each lands, naming its route: ``host``, ``label``,
+``hybrid`` or ``bfs``). Widths and pre-dispatch splits follow the
+``StreamSliceController``. ``batch_check_with_token`` dispatches every
+slice before it lands any, and lands each the same way (``_land_slice``),
+where the reference fetches a whole batch in one copy. ``label_witness_info``
+names the landmark of a label-route grant for the explain path through
+``label_step_witness`` (K4).
+
 Kept against the reference engine: bucket upload, the label build
 overlapped on a background thread and installed only onto the exact
-snapshot it was built for, host resolution, the label router, slicing, one
-device→host copy per batch, the exact truncation re-run ladder and the
+snapshot it was built for, host resolution, the label router, slicing, the
+exact truncation re-run ladder and the
 grow-only ``block_iters`` retune. Not here: the snapshot cache, group
-commit, sharding, the HBM governor, the streaming pipeline and slice
-controller, and any CPU fallback. A device error raises; a failed label
+commit, sharding, the HBM governor (and its staging rung), priority lanes,
+admission control, deadlines, request timelines, the shadow audit and any
+CPU fallback. A device error raises; a failed label
 build, background refresh, fold or device label patch is counted and
 raised by the next check (and by ``labels_settled()`` and
 ``maintenance_settled()``), where the reference would serve stale, rebuild
@@ -74,6 +89,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import logging
 import threading
 import time
@@ -84,6 +100,7 @@ import torch
 
 from keto_tpu_torch import namespace as namespace_pkg
 from keto_tpu_torch.check import kernels
+from keto_tpu_torch.check.stream import StreamSliceController, _StagingPool
 from keto_tpu_torch.check.pack import (
     _WORD_WIDTHS,
     _ceil_pow2,
@@ -102,6 +119,7 @@ from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectID, Subject
 from keto_tpu_torch.x.device import resolve_device
 from keto_tpu_torch.x.errors import ErrNamespaceUnknown
 from keto_tpu_torch.x.supervise import SupervisedTask
+from keto_tpu_torch.x.telemetry import DurationStats
 
 _log = logging.getLogger("keto_tpu_torch.check")
 
@@ -109,11 +127,52 @@ _log = logging.getLogger("keto_tpu_torch.check")
 _UNSET = object()
 
 
+class _DeviceOut:
+    """One kernel output (``int32`` words on the engine's device) and its
+    copy home. ``copy_to_host_async`` issues a ``non_blocking`` copy into a
+    pinned host tensor on the current stream, right behind the slice's
+    kernels, and records an event; ``is_ready`` queries the event;
+    ``words`` waits for it and returns the words as uint32. On the CPU the
+    output is its own host copy, ready at once."""
+
+    __slots__ = ("dev", "_host", "_event")
+
+    def __init__(self, dev: torch.Tensor):
+        self.dev = dev
+        self._host: Optional[torch.Tensor] = None
+        self._event = None
+
+    @property
+    def shape(self):
+        return self.dev.shape
+
+    def copy_to_host_async(self) -> None:
+        if self._host is not None:
+            return
+        if self.dev.device.type != "cuda":
+            self._host = self.dev
+            return
+        host = torch.empty(self.dev.shape, dtype=self.dev.dtype, pin_memory=True)
+        host.copy_(self.dev, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        self._host, self._event = host, event
+
+    def is_ready(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def words(self) -> np.ndarray:
+        self.copy_to_host_async()
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy().view(np.uint32)
+
+
 class _HybridSlice:
     """Device output(s) of one label-routed slice: the label kernel's
     packed bits for the whole slice (None when every query fell back),
     plus — when some queries fell back — a BFS sub-batch output and the
-    slice positions it answers."""
+    slice positions it answers. Lands like a ``_DeviceOut``."""
 
     __slots__ = ("label_dev", "bfs_dev", "bfs_pos")
 
@@ -125,6 +184,24 @@ class _HybridSlice:
     def parts(self) -> list:
         return [p for p in (self.label_dev, self.bfs_dev) if p is not None]
 
+    def copy_to_host_async(self) -> None:
+        for p in self.parts():
+            p.copy_to_host_async()
+
+    def is_ready(self) -> bool:
+        return all(p.is_ready() for p in self.parts())
+
+
+def _route_of(dev) -> str:
+    """The route of a landed slice, named as the reference's ``land()``
+    names it: ``host`` (no device part), ``label`` (the label step alone),
+    ``hybrid`` (label-routed with a BFS sub-batch), else ``bfs``."""
+    if dev is None:
+        return "host"
+    if isinstance(dev, _HybridSlice):
+        return "label" if dev.bfs_dev is None else "hybrid"
+    return "bfs"
+
 
 class TorchCheckEngine:
     """Check engine answering batched queries on the device graph.
@@ -135,8 +212,15 @@ class TorchCheckEngine:
     is a namespace.Manager or a zero-arg callable returning the current one.
     ``device`` defaults to ``cuda`` and must be named ``"cpu"`` to run the
     plain PyTorch path on the host. The overlay knobs and their defaults
-    are the reference's (tpu_engine.py:1086-1092).
+    are the reference's (tpu_engine.py:1086-1092); the stream runs with the
+    reference's default window and controller (target 40 ms per slice, tail
+    ratio 5).
     """
+
+    #: the stream yields per-slice route info (``with_info=True``)
+    STREAM_INFO = True
+    #: slices a stream keeps in flight (the reference's default depth)
+    _DISPATCH_WINDOW = 16
 
     def __init__(
         self,
@@ -177,6 +261,22 @@ class TorchCheckEngine:
         self._peel_seed_cap = peel_seed_cap
         # pulls per convergence observation, grown to the workload's depth
         self._block_iters = 8
+        # the streaming pipeline (tpu_engine.py:1129-1153): the width
+        # controller shared by every stream so a serving process stays
+        # converged, and the per-slice service times that the controller
+        # and chip_smoke.py both read
+        self.stream_ctrl = StreamSliceController()
+        self.stream_slice_stats = DurationStats()
+        #: BFS iteration counts of every slice that ran the fixpoint (steps)
+        self.bfs_steps_stats = DurationStats()
+        #: per-route slice service times and slice/query counts (route =
+        #: label | hybrid | bfs | host), recorded as each slice lands
+        self._route_stats: dict[str, DurationStats] = {}
+        self._route_slices: collections.Counter = collections.Counter()
+        self._route_queries: collections.Counter = collections.Counter()
+        # entry staging: host buffers (pinned on the card) leased until the
+        # slice that shipped them lands
+        self._staging = _StagingPool(pin=self.device.type == "cuda")
         # the refresh lock: deltas, folds and full rebuilds hold it. Installs
         # (the snapshot swap, a label index landing) take the short
         # _swap_lock instead, so the serving path's non-blocking try on the
@@ -240,7 +340,10 @@ class TorchCheckEngine:
         # full_rebuilds, compactions, fold_runs, label_patches,
         # label_patch_aborts, label_rebuilds, label_invalidations; and the
         # failures the port raises where the reference falls back:
-        # refresh_failures, compaction_failures, label_patch_failures
+        # refresh_failures, compaction_failures, label_patch_failures,
+        # witness_errors (a failed K4 launch in label_witness_info); and
+        # slice_splits, the sub-chunks past the first that chunks whose
+        # entries passed their budget were split into
         self._counters: collections.Counter = collections.Counter()
         self._counter_lock = threading.Lock()
         # the build's stable sorts: K8 on the card past the size gate
@@ -1081,6 +1184,152 @@ class TorchCheckEngine:
         """Single-query convenience with the oracle engine's signature."""
         return self.batch_check([requested])[0]
 
+    def batch_check_stream(
+        self,
+        tuples_iter,
+        *,
+        slice_cap: Optional[int] = None,
+        at_least: Optional[int] = None,
+        mode: str = "latest",
+        ordered: bool = True,
+    ):
+        """Streaming check (tpu_engine.py:3718): consume an iterable of
+        tuples and yield decision slices, keeping at most 16 slices in
+        flight, so memory stays flat for any stream length.
+
+        - slice widths follow ``stream_ctrl``, narrowed toward its 40 ms
+          target when slices run slow and re-widened when they run fast;
+          ``slice_cap`` bounds them from above;
+        - the host resolves and packs slice k+2 while k+1 runs and k copies
+          home, and a slice is unpacked the moment its copy has landed —
+          no head-of-line blocking on a straggler;
+        - ``ordered=True`` yields ``bool[slice]`` arrays in request order
+          through an in-order delivery buffer; ``ordered=False`` yields
+          ``(offset, bool[slice])`` as each slice lands, ``offset`` the
+          stream index of the slice's first query.
+
+        Per-slice service times land in ``stream_slice_stats``."""
+        gen, _ = self.batch_check_stream_with_token(
+            tuples_iter, slice_cap=slice_cap, at_least=at_least, mode=mode, ordered=ordered,
+        )
+        return gen
+
+    def batch_check_stream_with_token(
+        self,
+        tuples_iter,
+        *,
+        slice_cap: Optional[int] = None,
+        at_least: Optional[int] = None,
+        mode: str = "latest",
+        ordered: bool = True,
+        with_info: bool = False,
+    ):
+        """``batch_check_stream`` plus the deciding snapshot's id, resolved
+        eagerly: returns ``(generator, token)``. ``with_info=True``
+        (requires ``ordered=False``) widens each yield to ``(offset,
+        decisions, info)``, ``info`` describing the slice that landed:
+        ``width`` (queries), ``bfs_steps``, ``route`` (``label`` |
+        ``hybrid`` | ``bfs`` | ``host``) and ``service_ms``. A device
+        error raises out of the generator; there is no CPU fallback."""
+        if with_info and ordered:
+            raise ValueError("with_info requires ordered=False")
+        snap = self._snapshot_for(at_least, mode)
+        self._raise_errors()
+        gen = self._stream(snap, tuples_iter, slice_cap=slice_cap, ordered=ordered,
+                           with_info=with_info)
+        return gen, snap.snapshot_id
+
+    def label_witness_info(
+        self, rt: RelationTuple, *, at_least: Optional[int] = None, mode: str = "latest"
+    ) -> Optional[dict]:
+        """The explain path's enrichment (tpu_engine.py:3803-3867): the
+        winning landmark of the 2-hop label intersection for ``rt``'s
+        (start, target) pair — the hub the label route's proof went
+        through — or None when the pair is not label-resolvable (labels
+        off, the index missing or dirtied by a pending overlay, a wildcard
+        query, a non-interior endpoint). Reads the device arrays through
+        ``label_step_witness`` (K4) with one pair; the host index answers
+        only when the labels are not on the device. Unlike the reference,
+        a failed K4 launch raises (counted as ``witness_errors``) and is
+        never replaced by the host's answer. Only the explain path calls
+        this; checks never do."""
+        if not self._labels_enabled:
+            return None
+        snap = self._snapshot_for(at_least, mode)
+        idx = snap.labels
+        if idx is None or snap.lab_dirty:
+            return None
+        sd, tg, multi = self._resolve_bulk_py(snap, [rt])
+        if 0 in multi:
+            return None  # a wildcard pattern: no single (start, target) pair
+        a, b = int(sd[0]), int(tg[0])
+        ni = snap.num_int
+        if a < 0 or b < 0 or a >= ni or b >= ni:
+            return None
+        dl = snap.device_labels
+        if dl is not None:
+            pair = torch.tensor([[a], [b]], dtype=torch.int32).to(self.device)
+            try:
+                got = int(kernels.label_step_witness(dl[0], dl[1], pair[0], pair[1])[0])
+            except Exception:
+                self._incr("witness_errors")
+                raise
+            lm = got if got >= 0 else None
+        else:
+            lm = idx.witness_landmark(a, b)
+        if lm is None:
+            return None
+        info: dict = {"kind": "2-hop-label", "pair": [a, b], "landmark_dev": int(lm)}
+        kind, key = snap.key_of_dev(int(lm))
+        if kind == "set":
+            ns_id, obj, rel = key
+            name = next((n.name for n in self._nm().namespaces() if n.id == ns_id), "")
+            info["landmark"] = f"{name}:{obj}#{rel}"
+        else:
+            info["landmark"] = str(key)
+        return info
+
+    # -- stream statistics ---------------------------------------------------
+
+    def _note_route(self, route: str, nq: int, ms: float) -> None:
+        """Record one landed slice's route (label | hybrid | bfs | host)."""
+        with self._counter_lock:
+            st = self._route_stats.get(route)
+            if st is None:
+                st = self._route_stats[route] = DurationStats()
+            self._route_slices[route] += 1
+            self._route_queries[route] += nq
+        st.observe(ms)
+
+    def stream_route_snapshot(self) -> dict:
+        """Per-route stream breakdown since the last ``reset_route_stats``:
+        slice and query counts and service-time percentiles per route."""
+        with self._counter_lock:
+            routes = list(self._route_stats.items())
+            slices, queries = dict(self._route_slices), dict(self._route_queries)
+        out = {}
+        for route, st in routes:
+            snap = st.snapshot()
+            out[route] = {
+                "slices": int(slices.get(route, 0)),
+                "queries": int(queries.get(route, 0)),
+                "p50_ms": snap["p50_ms"],
+                "p99_ms": snap["p99_ms"],
+                "mean_ms": snap["mean_ms"],
+            }
+        return out
+
+    def reset_route_stats(self) -> None:
+        """Zero the per-route breakdown."""
+        with self._counter_lock:
+            self._route_stats.clear()
+            self._route_slices.clear()
+            self._route_queries.clear()
+
+    def staging_snapshot(self) -> dict:
+        """The entry staging pool: bytes, leased buffers, free buffers."""
+        return self._staging.snapshot()
+
     # -- batch execution -----------------------------------------------------
 
     def _cap_limit(self, snap: GraphSnapshot) -> int:
@@ -1097,8 +1346,29 @@ class TorchCheckEngine:
         Affected queries re-run with an escalating cap bounded by
         ``_cap_limit`` — the final rung cannot truncate."""
         cap = it_cap or self._it_cap
-        results = list(self._dispatch_slices(snap, tuples, it_cap=cap))
-        out, max_iters, trunc_idx = self._collect(results, len(tuples))
+        out = np.zeros(len(tuples), dtype=bool)
+        max_iters = 0
+        trunc_idx: list[int] = []
+        recs: list = []
+        try:
+            # every slice is enqueued, its copy home right behind its
+            # kernels, before the first one lands
+            for rec in self._dispatch_slices(snap, tuples, it_cap=cap):
+                if rec[0] is not None:
+                    rec[0].copy_to_host_async()
+                recs.append(rec)
+            pos = 0
+            for dev, host_ans, nq, _chunk, leases, _n_ent in recs:
+                bits, iters, truncated, _route = self._land_slice(dev, host_ans, nq, leases)
+                out[pos : pos + nq] = bits
+                max_iters = max(max_iters, iters)
+                if truncated:
+                    # these queries carry no decision: they re-run below
+                    trunc_idx.extend(range(pos, pos + nq))
+                pos += nq
+        finally:
+            for rec in recs:
+                self._stage_release(rec[4])
         if trunc_idx:
             limit = self._cap_limit(snap)
             if cap >= limit:
@@ -1163,10 +1433,16 @@ class TorchCheckEngine:
         self, snap: GraphSnapshot, tuples: Sequence[RelationTuple], it_cap: Optional[int] = None
     ):
         """Resolve + pack + dispatch ``tuples`` in ``_slice_cap`` query
-        slices, yielding ``(dev_out | None, host_ans, nq)`` as each slice is
-        enqueued. A slice whose fan-out exceeds ``4·B`` device entries is
+        slices (tpu_engine.py:4120-4188), yielding ``(dev | None, host_ans,
+        nq, chunk, leases, n_entries)`` as each slice is enqueued: ``chunk``
+        lets a truncated slice re-run, ``leases`` are staging buffers to
+        release once the slice lands, ``n_entries`` feeds the controller's
+        entry-cost model. A slice whose fan-out exceeds its entry budget is
         sub-chunked at the same width, so entry arrays stay within the
-        ``{B, 2B, 4B}`` pad geometries."""
+        ``{B, 2B, 4B}`` pad geometries; the budget is the smaller of
+        ``4·B`` and the controller's predicted-service-time
+        ``entry_budget()`` (never below ``B``), so a chunk the model
+        predicts slow splits before dispatch."""
         cap_q = self._slice_cap(snap)
         n = len(tuples)
         for s0 in range(0, n, cap_q):
@@ -1174,7 +1450,11 @@ class TorchCheckEngine:
             sd, tg, multi = self._resolve_bulk_py(snap, tuples[s0:s1])
             nq = s1 - s0
             W = next(w for w in _WORD_WIDTHS if 32 * w >= nq)
-            cap_e = 4 * 32 * W
+            B = 32 * W
+            cap_e = 4 * B
+            budget = self.stream_ctrl.entry_budget()
+            if budget is not None:
+                cap_e = min(cap_e, max(B, budget))
             cnt = self._entry_counts(snap, sd, tg, multi)
             if int(cnt.sum()) <= cap_e:
                 bounds = [(0, nq)]
@@ -1187,16 +1467,19 @@ class TorchCheckEngine:
                     i1 = max(i0 + 1, min(i1, nq))
                     bounds.append((i0, i1))
                     i0 = i1
+                self._incr("slice_splits", len(bounds) - 1)
             use_labels = self._labels_usable(snap)
             for a, b in bounds:
                 # sub-chunks keep the slice width: queries pad, geometry stays
                 if use_labels:
-                    dev, host_ans = self._device_batch_labeled(
+                    dev, host_ans, leases = self._device_batch_labeled(
                         snap, sd, tg, multi, a, b, W, it_cap=it_cap
                     )
                 else:
-                    dev, host_ans = self._device_batch(snap, sd, tg, multi, a, b, W, it_cap=it_cap)
-                yield dev, host_ans, b - a
+                    dev, host_ans, leases = self._device_batch(
+                        snap, sd, tg, multi, a, b, W, it_cap=it_cap
+                    )
+                yield dev, host_ans, b - a, tuples[s0 + a : s0 + b], leases, int(cnt[a:b].sum())
 
     #: per-query pair-fanout cap on the label route: a query spawning more
     #: pairs than this costs more as intersections than as one BFS rider
@@ -1223,8 +1506,9 @@ class TorchCheckEngine:
         idx = snap.labels
         packed, host_ans = pack_chunk(snap, sd, tg, multi, i0, i1, W)
         nq = i1 - i0
+        leases: list = []
         if packed is None:
-            return None, host_ans  # nothing reaches any device path
+            return None, host_ans, leases  # nothing reaches any device path
         (e1r, e1q, e2r, e2q, ar, aq, targets) = packed
         ni = snap.num_int
         B = 32 * W
@@ -1302,59 +1586,82 @@ class TorchCheckEngine:
         if n_fb:
             self._incr("label_fallbacks", n_fb)
 
-        ldev = None
-        if pa.size:
-            P = _entry_pad(B, pa.size)
-            pad = P - pa.size
-            entries = np.concatenate([
-                pa, np.full(pad, ni, np.int64),
-                pb, np.full(pad, ni, np.int64),
-                pq, np.zeros(pad, np.int64),
-            ]).astype(np.int32)
-            out_lab, in_lab = snap.device_labels
-            ldev = kernels.label_step(
-                out_lab, in_lab, torch.from_numpy(entries).to(self.device), n_pairs=P, B=B
-            )
-
-        bfs_dev = None
-        bfs_pos = None
-        if n_fb:
-            pos = np.nonzero(fallback)[0]
-            gidx = pos + i0
-            multi2 = {j: multi[int(i)] for j, i in enumerate(gidx) if int(i) in multi}
-            W2 = next(w for w in _WORD_WIDTHS if 32 * w >= pos.size)
-            bfs_dev, _ = self._device_batch(
-                snap, sd[gidx], tg[gidx], multi2, 0, pos.size, W2, it_cap=it_cap
-            )
-            bfs_pos = pos
+        ldev = bfs_dev = bfs_pos = None
+        try:
+            if pa.size:
+                P = _entry_pad(B, pa.size)
+                pad = P - pa.size
+                stg = self._staging.acquire(3 * P)
+                leases.append(stg)
+                np.concatenate([pa, np.full(pad, ni), pb, np.full(pad, ni), pq, np.zeros(pad)],
+                               out=stg.numpy(), casting="unsafe")
+                out_lab, in_lab = snap.device_labels
+                ldev = _DeviceOut(kernels.label_step(
+                    out_lab, in_lab, stg.to(self.device, non_blocking=True), n_pairs=P, B=B
+                ))
+            if n_fb:
+                pos = np.nonzero(fallback)[0]
+                gidx = pos + i0
+                multi2 = {j: multi[int(i)] for j, i in enumerate(gidx) if int(i) in multi}
+                W2 = next(w for w in _WORD_WIDTHS if 32 * w >= pos.size)
+                bfs_dev, _, bfs_leases = self._device_batch(
+                    snap, sd[gidx], tg[gidx], multi2, 0, pos.size, W2, it_cap=it_cap
+                )
+                leases.extend(bfs_leases)
+                bfs_pos = pos
+        except BaseException:
+            self._stage_release(leases)  # nothing of the slice will land
+            raise
         if ldev is None and bfs_dev is None:
-            return None, host_ans
-        return _HybridSlice(ldev, bfs_dev, bfs_pos), host_ans
+            return None, host_ans, leases
+        return _HybridSlice(ldev, bfs_dev, bfs_pos), host_ans, leases
 
     def _device_batch(self, snap, sd, tg, multi, i0, i1, force_W=None, it_cap=None):
-        """Pack + dispatch one sub-chunk. Returns ``(dev, host_ans)``: the
-        kernel's int32[W+2] output still on the device (None when no query
-        of the chunk reaches the device) and the host-decided grants."""
+        """Pack + dispatch one sub-chunk. Returns ``(dev, host_ans,
+        leases)``: the kernel's int32[W+2] output still on the device (a
+        ``_DeviceOut``; None when no query of the chunk reaches the
+        device), the host-decided grants, and the staging buffers the
+        caller releases only once the slice has landed."""
         packed, host_ans = pack_chunk(snap, sd, tg, multi, i0, i1, force_W)
+        leases: list = []
         if packed is None:
-            return None, host_ans
-        buf, sizes = pack_entries(packed)
+            return None, host_ans, leases
+        stg = self._staging.acquire(sum(a.shape[0] for a in packed))
+        leases.append(stg)
+        try:
+            _, sizes = pack_entries(packed, out=stg.numpy())
+        except BaseException:
+            self._stage_release(leases)
+            raise
         g = snap.device
-        entries = torch.from_numpy(buf).to(g.device)
         ov = snap.device_overlay or (None, None)
-        dev = kernels.check_step(
-            g.buckets,
-            entries,
-            ov[0],
-            ov[1],
-            sizes=sizes,
-            n_active=g.num_active,
-            n_int=g.num_int,
-            valid_rows=g.valid_rows,
-            it_cap=it_cap or self._it_cap,
-            block_iters=self._block_iters,
-        )
-        return dev, host_ans
+        try:
+            dev = kernels.check_step(
+                g.buckets,
+                stg.to(g.device, non_blocking=True),
+                ov[0],
+                ov[1],
+                sizes=sizes,
+                n_active=g.num_active,
+                n_int=g.num_int,
+                valid_rows=g.valid_rows,
+                it_cap=it_cap or self._it_cap,
+                block_iters=self._block_iters,
+            )
+        except BaseException:
+            self._stage_release(leases)  # nothing of the slice will land
+            raise
+        return _DeviceOut(dev), host_ans, leases
+
+    def _stage_release(self, leases) -> None:
+        """Return a landed slice's staging buffers to the pool. Empties the
+        lease list, so releasing a record twice (``land()`` plus the
+        stream's teardown sweep) never frees a buffer twice."""
+        if not leases:
+            return
+        for buf in leases:
+            self._staging.release(buf)
+        del leases[:]
 
     @staticmethod
     def _decode_packed(f: np.ndarray, host_ans: np.ndarray, nq: int):
@@ -1385,47 +1692,146 @@ class TorchCheckEngine:
             out[bfs_pos] = bits2
         return out | host_ans[:nq], iters, trunc
 
-    def _collect(self, results, n: int):
-        """Fetch every dispatched slice in ONE device→host copy and unpack.
-        Returns ``(decisions, max_iters, truncated query indices)`` —
-        queries in a truncated slice carry no decision (``_run_exact``
-        re-runs them). Label-routed slices add their label output and BFS
-        sub-batch to the same copy."""
-        devs = []
-        for d, _, _ in results:
-            if d is not None:
-                devs.extend(d.parts() if isinstance(d, _HybridSlice) else [d])
-        flat = None
-        if devs:
-            flat = torch.cat(devs).cpu().numpy().view(np.uint32)
-        out = np.zeros(n, dtype=bool)
-        max_iters = 0
-        trunc_idx: list[int] = []
-        pos = 0
-        off = 0
-
-        def take(part):
-            nonlocal off
-            seg = flat[off : off + part.shape[0]]
-            off += part.shape[0]
-            return seg
-
-        for dev, host_ans, nq in results:
+    def _land_slice(self, dev, host_ans, nq, leases):
+        """Land one dispatched slice: wait for its copy home if it has not
+        finished, unpack it, and release its staging leases (the copy is
+        over, or the slice failed). Returns ``(bool[nq], iters, truncated,
+        route)``; a truncated slice's queries carry no decision."""
+        try:
             if dev is None:
-                out[pos : pos + nq] = host_ans[:nq]
+                out, iters, truncated = host_ans[:nq], 0, False
+            elif isinstance(dev, _HybridSlice):
+                lab = dev.label_dev.words() if dev.label_dev is not None else None
+                bfs = dev.bfs_dev.words() if dev.bfs_dev is not None else None
+                out, iters, truncated = self._decode_hybrid(lab, bfs, dev.bfs_pos, host_ans, nq)
             else:
-                if isinstance(dev, _HybridSlice):
-                    lab = take(dev.label_dev) if dev.label_dev is not None else None
-                    bfs = take(dev.bfs_dev) if dev.bfs_dev is not None else None
-                    bits, it, tr = self._decode_hybrid(lab, bfs, dev.bfs_pos, host_ans, nq)
-                else:
-                    bits, it, tr = self._decode_packed(take(dev), host_ans, nq)
-                out[pos : pos + nq] = bits
-                max_iters = max(max_iters, it)
-                if tr:
-                    trunc_idx.extend(range(pos, pos + nq))
-            pos += nq
-        return out, max_iters, trunc_idx
+                out, iters, truncated = self._decode_packed(dev.words(), host_ans, nq)
+        finally:
+            self._stage_release(leases)
+        route = _route_of(dev)
+        if route in ("bfs", "hybrid"):
+            self.bfs_steps_stats.observe(float(iters))
+        return out, iters, truncated, route
+
+    def _stream(self, snap, tuples_iter, *, slice_cap, ordered, with_info=False):
+        """The pipeline behind ``batch_check_stream`` (tpu_engine.py:3886-4067):
+        a window of ``_DISPATCH_WINDOW`` dispatched slices, each copying home as soon
+        as it is enqueued; every slice whose copy has landed unpacks at
+        once (ready order), and only a full window (or the end of the
+        input) blocks, on the oldest slice. A truncated slice re-runs
+        exactly, mid-stream. A failed or abandoned stream releases its
+        in-flight slices' staging leases."""
+        depth = self._DISPATCH_WINDOW
+        bound = self._slice_cap(snap)
+        if slice_cap:
+            bound = min(bound, slice_cap)
+        ctrl = self.stream_ctrl
+        stats = self.stream_slice_stats
+        it = iter(tuples_iter)
+        max_iters = 0
+        t_prev_ready = time.perf_counter()
+
+        def slices():
+            off = 0
+            while True:
+                batch = list(itertools.islice(it, min(bound, ctrl.cap())))
+                if not batch:
+                    return
+                if snap.n_nodes == 0 or snap.n_edges == 0:
+                    # the empty graph: a host slice, every query denied
+                    yield off, None, np.zeros(len(batch), dtype=bool), len(batch), batch, [], 0
+                    off += len(batch)
+                    continue
+                for dev, host_ans, nq, chunk, leases, n_ent in self._dispatch_slices(snap, batch):
+                    yield off, dev, host_ans, nq, chunk, leases, n_ent
+                    off += nq
+
+        def land(rec):
+            # unpack one slice (blocks iff its copy has not finished); a
+            # truncated frontier re-runs exactly, mid-stream
+            nonlocal max_iters, t_prev_ready
+            _seq, off, dev, host_ans, nq, chunk, leases, n_ent, t_disp = rec
+            out, iters, truncated, route = self._land_slice(dev, host_ans, nq, leases)
+            if truncated:
+                out, redo_iters = self._run_exact(
+                    snap, chunk, it_cap=min(max(self._it_cap * 8, 8), self._cap_limit(snap))
+                )
+                iters = max(iters, redo_iters)
+            max_iters = max(max_iters, iters)
+            now = time.perf_counter()
+            # the slice's service time: dispatch→ready when the pipeline ran
+            # dry, ready→ready when saturated
+            ms = (now - max(t_disp, t_prev_ready)) * 1e3
+            t_prev_ready = now
+            stats.observe(ms)
+            ctrl.observe(nq, ms, route=route, bfs_steps=int(iters), entries=n_ent)
+            self._note_route(route, nq, ms)
+            if not with_info:
+                return off, out
+            info = {"width": nq, "bfs_steps": int(iters), "route": route,
+                    "service_ms": round(ms, 3)}
+            return off, out, info
+
+        src = slices()
+        exhausted = False
+        inflight: list = []
+        done: dict = {}  # landed, awaiting in-order delivery
+        seq = 0
+        next_seq = 0
+        try:
+            while True:
+                # keep the window full: resolve/pack/dispatch overlaps the
+                # device work of every slice in flight
+                while not exhausted and len(inflight) < depth:
+                    nxt = next(src, None)
+                    if nxt is None:
+                        exhausted = True
+                        break
+                    off, dev, host_ans, nq, chunk, leases, n_ent = nxt
+                    if dev is not None:
+                        dev.copy_to_host_async()
+                    inflight.append((seq, off, dev, host_ans, nq, chunk, leases, n_ent,
+                                     time.perf_counter()))
+                    seq += 1
+                if not inflight and exhausted:
+                    break
+                # ready-order landing: every finished slice unpacks now
+                progressed = False
+                still = []
+                for rec in inflight:
+                    if rec[2] is None or rec[2].is_ready():
+                        res = land(rec)
+                        if ordered:
+                            done[rec[0]] = res
+                        else:
+                            yield res
+                        progressed = True
+                    else:
+                        still.append(rec)
+                inflight = still
+                if ordered:
+                    while next_seq in done:
+                        yield done.pop(next_seq)[1]
+                        next_seq += 1
+                if not progressed and inflight and (exhausted or len(inflight) >= depth):
+                    # nothing ready and the window is full (or the input is
+                    # done): block on the oldest slice
+                    rec = inflight.pop(0)
+                    res = land(rec)
+                    if ordered:
+                        done[rec[0]] = res
+                        while next_seq in done:
+                            yield done.pop(next_seq)[1]
+                            next_seq += 1
+                    else:
+                        yield res
+        finally:
+            # a failed or abandoned stream discards its in-flight outputs;
+            # their staging buffers may recycle (a lease list land() already
+            # emptied releases nothing)
+            for rec in inflight:
+                self._stage_release(rec[6])
+        self._after_batch(max_iters)
 
     def _after_batch(self, max_iters: int) -> None:
         # adapt the pull-block size so deep workloads converge within few

@@ -1,6 +1,7 @@
 """The check path's device programs: the BFS pull (K1), the fixpoint step
-(K2), the label intersection (K3) and the slot set of the write path (K9),
-each as a plain PyTorch version and a hand-written CUDA kernel.
+(K2), the label intersection (K3), its witness (K4) and the slot set of
+the write path (K9), each as a plain PyTorch version and a hand-written
+CUDA kernel.
 
 Source notes:
 
@@ -22,6 +23,12 @@ Source notes:
   csrc/label_kernels.cu, one warp per pair. Bound: operations at large
   label widths (Wo·Wi int32 compares per pair), else the bytes of the
   pairs' label rows.
+- ``label_step_witness`` replaces ``label_step_witness`` (tpu_engine.py:352),
+  the explain path's enrichment: per pair (a, b), the smallest
+  ``out_lab[a]`` entry equal to some ``in_lab[b]`` entry, or -1. CUDA:
+  ``keto_label_witness`` in csrc/label_kernels.cu, K3's warp per pair with
+  a warp minimum instead of the first-hit exit. Bound: as K3's (the
+  explain path launches it with one pair, so a launch).
 - ``slot_set`` replaces the XLA scatter ``buf.at[rows, cols].set(vals)`` of
   ``_apply_ell_patch`` (tpu_engine.py:2542), ``_apply_overlay_delta``
   (:2665) and ``_Mirror.flush_device`` (keto_tpu/graph/label_build.py:433).
@@ -56,7 +63,7 @@ import torch
 #: (keto_tpu_torch/list/kernels.py) count here too
 COUNTS = {
     "seed": 0, "pull": 0, "commit": 0, "close": 0, "answer_pack": 0,
-    "label_step": 0, "sweep_step": 0, "covered": 0, "slot_set": 0,
+    "label_step": 0, "label_witness": 0, "sweep_step": 0, "covered": 0, "slot_set": 0,
     "radix_hist": 0, "radix_scan": 0, "radix_scatter": 0,
     "list_gather": 0, "list_scatter": 0,
     # not kernels of their own: of the "pull" launches, those over the
@@ -242,6 +249,26 @@ def label_step_ref(out_lab, in_lab, entries, *, n_pairs: int, B: int) -> torch.T
     ans = torch.zeros(B, dtype=torch.int32, device=entries.device)
     ans = ans.scatter_reduce(0, pq, hit.to(torch.int32), reduce="amax")
     return _pack_bits(ans)
+
+
+def label_step_witness_ref(out_lab, in_lab, pa, pb) -> torch.Tensor:
+    """The reference witness step in plain PyTorch → int32[P]: per pair
+    (a, b), the smallest OUT(a) entry equal to some IN(b) entry, or -1
+    when none is. The distinct pads keep pad slots (and the all-pad row)
+    out of the minimum. The ``[P, Wo, Wi]`` compare runs in chunks of
+    pairs, as ``label_step_ref``'s."""
+    pa, pb = pa.long(), pb.long()
+    big = torch.iinfo(torch.int32).max
+    outs = []
+    for c0 in range(0, pa.numel(), _LABEL_PAIR_CHUNK):
+        oa = out_lab[pa[c0 : c0 + _LABEL_PAIR_CHUNK]]  # [chunk, Wo]
+        ib = in_lab[pb[c0 : c0 + _LABEL_PAIR_CHUNK]]  # [chunk, Wi]
+        entry_hit = (oa[:, :, None] == ib[:, None, :]).any(2)  # [chunk, Wo]
+        lm = torch.where(entry_hit, oa, torch.full_like(oa, big)).amin(1)
+        outs.append(torch.where(entry_hit.any(1), lm, torch.full_like(lm, -1)))
+    if not outs:
+        return torch.zeros(0, dtype=torch.int32, device=pa.device)
+    return torch.cat(outs).to(torch.int32)
 
 
 def _slot_entries(buf: torch.Tensor, rows, cols, vals):
@@ -492,6 +519,28 @@ def label_step_cuda(out_lab, in_lab, entries, *, n_pairs: int, B: int) -> torch.
     return out
 
 
+def label_step_witness_cuda(out_lab, in_lab, pa, pb) -> torch.Tensor:
+    """int32[P] via ``keto_label_witness`` (device tensor, not
+    synchronised)."""
+    _need(out_lab, "out_lab", 2)
+    _need(in_lab, "in_lab", 2)
+    _need(pa, "pa", 1)
+    _need(pb, "pb", 1)
+    if out_lab.shape[0] != in_lab.shape[0] or pa.numel() != pb.numel():
+        raise ValueError(
+            f"label arrays of {out_lab.shape[0]} and {in_lab.shape[0]} rows, "
+            f"{pa.numel()} and {pb.numel()} pair rows: expected equal counts"
+        )
+    out = torch.empty(pa.numel(), dtype=torch.int32, device=pa.device)
+    if pa.numel():
+        COUNTS["label_witness"] += 1
+        _check(_lib().keto_label_witness(out_lab.data_ptr(), out_lab.shape[1], in_lab.data_ptr(),
+                                         in_lab.shape[1], out_lab.shape[0], pa.data_ptr(),
+                                         pb.data_ptr(), pa.numel(), out.data_ptr(), _stream()),
+               "keto_label_witness")
+    return out
+
+
 def slot_set_cuda(buf: torch.Tensor, rows, cols, vals, *, in_place: bool = False) -> torch.Tensor:
     """K9 via ``keto_slot_set``: one upload of the deduplicated entries,
     a device copy of ``buf`` unless ``in_place``, one launch, and one read
@@ -551,6 +600,13 @@ def label_step(out_lab, in_lab, entries: torch.Tensor, *, n_pairs: int, B: int) 
     if _on_cpu(entries):
         return label_step_ref(out_lab, in_lab, entries, n_pairs=n_pairs, B=B)
     return label_step_cuda(out_lab, in_lab, entries, n_pairs=n_pairs, B=B)
+
+
+def label_step_witness(out_lab, in_lab, pa: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:
+    """K4: the plain version for CPU tensors, the kernel for CUDA tensors."""
+    if _on_cpu(pa):
+        return label_step_witness_ref(out_lab, in_lab, pa, pb)
+    return label_step_witness_cuda(out_lab, in_lab, pa, pb)
 
 
 def slot_set(buf: torch.Tensor, rows, cols, vals, *, in_place: bool = False) -> torch.Tensor:

@@ -27,19 +27,22 @@ def pack_entries(
     packed, out: Optional[np.ndarray] = None
 ) -> tuple[np.ndarray, tuple[int, int, int, int]]:
     """Concatenate pack_chunk's seven arrays into check_step's single
-    int32 ``entries`` buffer + split sizes. ``out`` (a buffer of exactly
-    the total size) receives the concatenation in place."""
+    int32 ``entries`` buffer + split sizes. ``out`` (an int32 buffer of
+    exactly the total size, else ``ValueError``) receives the concatenation
+    in place and is the buffer returned: a staging buffer that does not fit
+    must never ship what it held before."""
     (e1r, e1q, e2r, e2q, ar, aq, targets) = packed
     arrays = [e1r, e1q, e2r, e2q, ar, aq, targets]
-    if (
-        out is not None
-        and out.shape[0] == sum(a.shape[0] for a in arrays)
-        and all(a.dtype == np.int32 for a in arrays)
-    ):
-        buf = np.concatenate(arrays, out=out)
-    else:
-        buf = np.concatenate(arrays)
-    return buf, (e1r.shape[0], e2r.shape[0], ar.shape[0], targets.shape[0])
+    sizes = (e1r.shape[0], e2r.shape[0], ar.shape[0], targets.shape[0])
+    if out is None:
+        return np.concatenate(arrays), sizes
+    n = sum(a.shape[0] for a in arrays)
+    if out.dtype != np.int32 or out.shape != (n,) or any(a.dtype != np.int32 for a in arrays):
+        raise ValueError(
+            f"pack_entries: out is {out.dtype}{list(out.shape)}, the entries "
+            f"{[str(a.dtype) for a in arrays]} need int32[{n}]"
+        )
+    return np.concatenate(arrays, out=out), sizes
 
 
 

@@ -14,7 +14,9 @@ row ``n`` is all padding, and pad pairs name row ``n`` for query 0; the
 sweep groups write distinct ``dst`` rows and gather sentinel ``n`` (an
 all-zero frontier row). The slot-set targets are a bucket, the overlay's
 rows or dst vector, or a label mirror, with distinct slots unless asked
-for duplicates. The list fixpoint's cases (``LIST_CASES``) are tuple sets
+for duplicates. The witness cases (``random_witness_case``) add a row pair
+whose every entry is common, a row with no common entry, the pad row on
+either side and, when asked, rows in shuffled order. The list fixpoint's cases (``LIST_CASES``) are tuple sets
 whose snapshots give its layouts (``list_case_tuples``) plus seeds and an
 overlay in the layout's row space (``list_case_inputs``): every case seeds
 lane 31; overlay destinations are distinct and padded with ``n_rows + 1``,
@@ -137,6 +139,36 @@ def random_label_case(rng, n: int, Wo: int, Wi: int, W: int, pairs: int):
     pad = P - pairs
     entries = np.concatenate([pa, np.full(pad, n), pb, np.full(pad, n), pq, np.zeros(pad)])
     return out_lab, in_lab, entries.astype(np.int32), P, B
+
+
+def random_witness_case(rng, n: int, Wo: int, Wi: int, pairs: int, *, shuffle: bool = False):
+    """``(out_lab, in_lab, pa, pb)`` for ``label_step_witness``: label rows
+    as ``random_label_case``'s, each row's slots permuted when ``shuffle``
+    (the kernel may not rely on order), plus three fixed rows: OUT row 0
+    and IN row 1 hold the same entries (every entry common), OUT row 2
+    holds values no IN row has (no common entry). The first pairs are
+    (0, 1), (2, 1), (2, r), the pad row ``n`` on either side; the rest
+    are random over [0, n]."""
+    hi = 2 * max(Wo, Wi)
+    out_lab = random_label_rows(rng, n, Wo, -1, hi)
+    in_lab = random_label_rows(rng, n, Wi, -2, hi)
+    k = min(Wo, Wi)
+    common = np.sort(rng.choice(hi, size=k, replace=False)).astype(np.int32)
+    out_lab[0] = -1
+    out_lab[0, :k] = common
+    in_lab[1] = -2
+    in_lab[1, :k] = common
+    out_lab[2] = np.arange(hi, hi + Wo, dtype=np.int32)
+    if shuffle:
+        for lab in (out_lab, in_lab):
+            for r in range(n + 1):
+                lab[r] = lab[r, rng.permutation(lab.shape[1])]
+    fixed_a = [0, 2, 2, n, 3 % n, n]
+    fixed_b = [1, 1, int(rng.integers(0, n)), 1, n, n]
+    m = max(0, pairs - len(fixed_a))
+    pa = np.concatenate([fixed_a, rng.integers(0, n + 1, size=m)])[:pairs]
+    pb = np.concatenate([fixed_b, rng.integers(0, n + 1, size=m)])[:pairs]
+    return out_lab, in_lab, pa.astype(np.int32), pb.astype(np.int32)
 
 
 def random_sweep_case(rng, n: int, caps, rows, wt: int):

@@ -34,6 +34,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default cuda; 'cpu' runs the plain PyTorch path)")
     s.add_argument("--no-device-build", dest="device_build", action="store_false",
                    help="sort the snapshot build on the host instead of the card (K8)")
+    s.add_argument("--no-explain", dest="explain_enabled", action="store_false",
+                   help="answer GET /check/explain with 404")
+    s.add_argument("--decision-log-dir", default="", metavar="DIR",
+                   help="keep the decision-audit log under DIR (default: no log)")
+    s.add_argument("--decision-log-sample", type=float, default=0.0, metavar="FRACTION",
+                   help="fraction of /check decisions recorded in the log (default 0)")
+    s.add_argument("--decision-log-segment-bytes", type=int, default=1 << 20, metavar="BYTES",
+                   help="seal a log segment past this size (default 1 MiB)")
+    s.add_argument("--decision-log-retention", type=int, default=8, metavar="N",
+                   help="sealed log segments kept (default 8)")
     return p
 
 
@@ -48,7 +58,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             tuples = parse_tuples(f.read())
     d = Daemon(args.namespace, device=args.device, host=args.host,
                read_port=args.read_port, write_port=args.write_port, tuples=tuples,
-               engine_options={"device_build_enabled": args.device_build})
+               engine_options={"device_build_enabled": args.device_build},
+               explain_enabled=args.explain_enabled, decision_log_dir=args.decision_log_dir,
+               decision_log_sample=args.decision_log_sample,
+               decision_log_segment_bytes=args.decision_log_segment_bytes,
+               decision_log_retention=args.decision_log_retention)
     d.start()
     print(f"serving: read :{d.read.port}, write :{d.write.port}, device {d.engine.device}",
           flush=True)

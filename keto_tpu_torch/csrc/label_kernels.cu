@@ -1,8 +1,10 @@
-// Label-route kernels for Hopper (sm_90a): the 2-hop intersection of Check
-// and the two programs of the device label build.
+// Label-route kernels for Hopper (sm_90a): the 2-hop intersection of Check,
+// its witness for the explain path, and the two programs of the device
+// label build.
 //
 // Replaces the XLA programs:
 //   K3 `label_step`            (keto_tpu/check/tpu_engine.py:310)  -> keto_label_step
+//   K4 `label_step_witness`    (keto_tpu/check/tpu_engine.py:352)  -> keto_label_witness
 //   K6 `_sweep_step().step`    (keto_tpu/graph/label_build.py:150) -> keto_sweep_step
 //   K7 `_covered_fn().covered` (keto_tpu/graph/label_build.py:183) -> keto_covered
 // The Python wrappers and the plain PyTorch versions live in
@@ -19,6 +21,7 @@ constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 132 * 32;
 constexpr int kMaxGroups = 64;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int32_t kIntMax = 0x7fffffff;
 
 inline int blocks_for(int64_t n) {
   int64_t b = (n + kThreads - 1) / kThreads;
@@ -69,6 +72,54 @@ __global__ void label_step_kernel(const int32_t* __restrict__ out_lab, int32_t W
       const int32_t q = pq[p];
       atomicOr(out + (q >> 5), 1u << (q & 31));
     }
+  }
+}
+
+// K4. Per pair (a, b): the smallest OUT(a) entry that equals some IN(b)
+// entry, or -1 when none does (the reference's argmin over the same compare
+// K3 reduces to one bit).
+//
+// Bound: as K3's; the explain path launches it with one pair, so in serving
+// it is a launch. Design: K3's warp per pair and register-held OUT entries,
+// with no exit on the first hit: each lane keeps the minimum of its matching
+// entries (INT_MAX when it has none, or no valid slot where Wo < 32), the
+// warp takes __reduce_min_sync over the signed values and __any_sync over
+// the found flags, and lane 0 writes the minimum or -1. Brute force, so it
+// assumes nothing about the order of the entries; the pads (-1, -2) never
+// compare equal. Pairs naming a row outside [0, rows) write -1.
+__global__ void label_witness_kernel(const int32_t* __restrict__ out_lab, int32_t Wo,
+                                     const int32_t* __restrict__ in_lab, int32_t Wi,
+                                     int64_t rows, const int32_t* __restrict__ pa,
+                                     const int32_t* __restrict__ pb, int64_t P,
+                                     int32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
+  const int64_t n_warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  for (int64_t p = warp; p < P; p += n_warps) {  // uniform across the warp
+    const int32_t a = pa[p];
+    const int32_t b = pb[p];
+    if (a < 0 || a >= rows || b < 0 || b >= rows) {
+      if (lane == 0) out[p] = -1;
+      continue;
+    }
+    const int32_t* orow = out_lab + (int64_t)a * Wo;
+    const int32_t* irow = in_lab + (int64_t)b * Wi;
+    int32_t best = kIntMax;
+    bool found = false;
+    for (int32_t i0 = 0; i0 < Wo; i0 += 32) {
+      const int32_t i = i0 + lane;
+      if (i >= Wo) continue;
+      const int32_t x = orow[i];
+      bool mine = false;
+      for (int32_t j = 0; j < Wi; ++j) mine |= (x == irow[j]);
+      if (mine) {
+        found = true;
+        best = x < best ? x : best;
+      }
+    }
+    best = __reduce_min_sync(kFull, best);
+    found = __any_sync(kFull, found);
+    if (lane == 0) out[p] = found ? best : -1;
   }
 }
 
@@ -190,6 +241,14 @@ extern "C" int keto_label_step(const int32_t* out_lab, int32_t Wo, const int32_t
                                uint32_t* out, void* stream) {
   label_step_kernel<<<blocks_for(32 * P), kThreads, 0, (cudaStream_t)stream>>>(
       out_lab, Wo, in_lab, Wi, rows, entries, P, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int keto_label_witness(const int32_t* out_lab, int32_t Wo, const int32_t* in_lab,
+                                  int32_t Wi, int64_t rows, const int32_t* pa, const int32_t* pb,
+                                  int64_t P, int32_t* out, void* stream) {
+  label_witness_kernel<<<blocks_for(32 * P), kThreads, 0, (cudaStream_t)stream>>>(
+      out_lab, Wo, in_lab, Wi, rows, pa, pb, P, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,8 +3,13 @@
 On the card one device program answers thousands of checks, so concurrent
 single-check requests are *coalesced*: a caller enqueues its tuples and
 blocks on a future; a collector thread drains the queue up to
-``batch_size`` tuples or ``window_ms`` (whichever first) and dispatches one
-``batch_check_with_token`` call for the round.
+``batch_size`` tuples or ``window_ms`` (whichever first) and answers the
+round through the engine's ready-order stream (keto_tpu/driver/batch.py:
+533-580): each caller's future resolves as soon as the slices holding its
+tuples have landed, and a round is bounded by the engine's planned slice
+width (``stream_ctrl.cap()``, batch.py:611-625). A failed dispatch fails
+every request of the round; there is no retry (the reference retries on
+its CPU fallback, which the port does not have).
 
 Freshness (keto_tpu/driver/batch.py:214-290, :472-480): the default is the
 serving mode (``snapshot_serving``: a delta catches up inline, a rebuild or
@@ -13,9 +18,10 @@ a fold never stalls the round); ``at_least`` pins a write's snaptoken and
 strongest of its requests: ``latest`` if any asked for it, else the highest
 ``at_least``.
 
-Left out against the reference batcher: priority lanes, admission control,
-deadline shedding before dispatch, request timelines and the streaming
-dispatch — the engine answers a round in one call.
+Left out against the reference batcher: priority lanes (and with them the
+batch lane's partial chunks: a round takes whole requests, at least one),
+admission control, deadline shedding before dispatch and request
+timelines.
 """
 
 from __future__ import annotations
@@ -32,21 +38,24 @@ from keto_tpu_torch.x.errors import ErrDeadlineExceeded
 
 
 class _Item:
-    """One queued request: its tuples, its freshness and its future."""
+    """One queued request: its tuples, its freshness, its future and, on
+    the stream, the decisions landed so far."""
 
-    __slots__ = ("tuples", "fut", "at_least", "latest")
+    __slots__ = ("tuples", "fut", "at_least", "latest", "results", "left")
 
     def __init__(self, tuples, fut, at_least=None, latest=False):
         self.tuples = tuples
         self.fut = fut
         self.at_least = at_least
         self.latest = latest
+        self.results = [False] * len(tuples)
+        self.left = len(tuples)
 
 
 class CheckBatcher:
     def __init__(self, engine, batch_size: int = 4096, window_ms: float = 1.0):
-        """``engine`` needs ``batch_check_with_token(tuples, *, at_least,
-        mode) -> (list[bool], snaptoken)``."""
+        """``engine`` needs ``batch_check_stream_with_token`` and
+        ``stream_ctrl`` (TorchCheckEngine)."""
         self._engine = engine
         self._batch_size = batch_size
         self._window_s = window_ms / 1e3
@@ -164,10 +173,13 @@ class CheckBatcher:
     # -- dispatch ------------------------------------------------------------
 
     def _take_locked(self) -> list[_Item]:  # holds: _cond
-        """Whole requests up to ``batch_size`` tuples (at least one)."""
+        """Whole requests (at least one) up to ``batch_size`` tuples,
+        bounded by the engine's planned slice width: a wider round would be
+        split by the engine anyway."""
         items: list[_Item] = []
         n = 0
-        while self._queue and (not items or n + len(self._queue[0].tuples) <= self._batch_size):
+        cap = min(self._batch_size, max(1, int(self._engine.stream_ctrl.cap())))
+        while self._queue and (not items or n + len(self._queue[0].tuples) <= cap):
             it = self._queue.popleft()
             items.append(it)
             n += len(it.tuples)
@@ -194,21 +206,38 @@ class CheckBatcher:
             if not items:
                 continue
             try:
-                flat = [t for it in items for t in it.tuples]
-                results, token = self._engine.batch_check_with_token(
-                    flat, **self._consistency_kw(items)
-                )
+                self._dispatch_stream(items)
             except Exception as e:
                 for it in items:
                     try:
                         it.fut.set_exception(e)
                     except InvalidStateError:
                         pass
-                continue
-            k = 0
-            for it in items:
-                try:
-                    it.fut.set_result((results[k : k + len(it.tuples)], token))
-                except InvalidStateError:
-                    pass
-                k += len(it.tuples)
+
+    def _dispatch_stream(self, items) -> None:
+        """The round through the engine's ready-order stream
+        (``ordered=False``): results re-associate by stream offset, and
+        each request's future resolves the moment its last slice lands."""
+        emitted: list = []  # stream offset -> (item, index), built as tuples are pulled
+
+        def live_tuples():
+            for item in items:
+                if item.fut.done():
+                    continue
+                for idx, t in enumerate(item.tuples):
+                    emitted.append((item, idx))
+                    yield t
+
+        gen, token = self._engine.batch_check_stream_with_token(
+            live_tuples(), ordered=False, **self._consistency_kw(items)
+        )
+        for off, out in gen:
+            for j, allowed in enumerate(out.tolist()):
+                item, idx = emitted[off + j]
+                item.results[idx] = bool(allowed)
+                item.left -= 1
+                if item.left == 0:
+                    try:
+                        item.fut.set_result((item.results, token))
+                    except InvalidStateError:
+                        pass

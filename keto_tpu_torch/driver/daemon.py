@@ -10,7 +10,16 @@ the label knobs (``labels_enabled``, ``labels_max_width``,
 ``sync_rebuild_budget_s``) and ``device_build_enabled`` (the build's sorts
 on the card) through to ``TorchCheckEngine``. Writes apply as
 delta overlays folded in the background (keto_tpu_torch/graph/overlay.py,
-keto_tpu_torch/graph/compaction.py)."""
+keto_tpu_torch/graph/compaction.py).
+
+Decision provenance (keto_tpu/driver/registry.py:790-838, defaults from
+keto_tpu/config/schema.py:208-230): ``explain_enabled`` (default true)
+serves ``GET /check/explain`` through an ``ExplainEngine`` over the engine
+and the store; ``decision_log_dir`` (default "": no log) keeps a
+``DecisionLog`` that records every explain and, with
+``decision_log_sample`` > 0, that fraction of ``/check`` decisions, in
+segments of ``decision_log_segment_bytes`` (1 MiB) of which
+``decision_log_retention`` (8) sealed ones are kept."""
 
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ import torch
 from keto_tpu_torch import namespace as namespace_pkg
 from keto_tpu_torch.check.gpu_engine import TorchCheckEngine
 from keto_tpu_torch.driver.batch import CheckBatcher
+from keto_tpu_torch.explain import DecisionLog, ExplainEngine
 from keto_tpu_torch.list.gpu_engine import SnapshotListEngine
 from keto_tpu_torch.persistence.memory import MemoryPersister
 from keto_tpu_torch.relationtuple.model import RelationTuple
@@ -38,6 +48,11 @@ class Daemon:
         write_port: int = 0,
         tuples: Iterable[RelationTuple] = (),
         engine_options: Optional[dict] = None,
+        explain_enabled: bool = True,
+        decision_log_dir: str = "",
+        decision_log_sample: float = 0.0,
+        decision_log_segment_bytes: int = 1 << 20,
+        decision_log_retention: int = 8,
     ):
         nm = namespace_pkg.MemoryManager(namespaces)
         self.store = MemoryPersister(nm)
@@ -47,8 +62,19 @@ class Daemon:
         self.engine = TorchCheckEngine(self.store, nm, device=device, **(engine_options or {}))
         self.lister = SnapshotListEngine(self.engine, nm, device=self.engine.device)
         self.batcher = CheckBatcher(self.engine)
+        self.decision_log = (
+            DecisionLog(decision_log_dir, sample=decision_log_sample,
+                        segment_bytes=decision_log_segment_bytes,
+                        retention=decision_log_retention)
+            if decision_log_dir else None
+        )
+        self.explain = (
+            ExplainEngine(self.engine, self.store, decision_log=self.decision_log)
+            if explain_enabled else None
+        )
         self.read = RestServer(READ, self.store, self.batcher, host, read_port,
-                               lister=self.lister)
+                               lister=self.lister, explain=self.explain,
+                               decision_log=self.decision_log)
         self.write = RestServer(WRITE, self.store, self.batcher, host, write_port)
 
     def start(self) -> None:
@@ -63,3 +89,5 @@ class Daemon:
         self.write.stop()
         self.batcher.stop()
         self.engine.close()
+        if self.decision_log is not None:
+            self.decision_log.close()

@@ -1,0 +1,247 @@
+"""Witness construction and verification against the Manager contract: a
+copy of keto_tpu/explain/witness.py over the port's Manager, cycle guard
+and pagination.
+
+Three entry points:
+
+- ``build_witness``: breadth-first search over subject-set expansions with
+  parent pointers — returns the shortest witness path for a grant, or a
+  frontier-exhaustion certificate for a deny. Visits the same closure as the
+  reference check engine (keto_tpu_torch/check/engine.py), including its shared
+  string-keyed visited set, so the decision it reaches is the oracle's.
+- ``oracle_witness``: depth-first search threading the reference engine's
+  exact traversal (same page loop, same visited semantics, same iteration
+  order) with an explicit edge stack, so the path it returns is the one the
+  oracle itself walked. This is the fallback witness source.
+- ``verify_witness``: re-derives every claim a witness makes — head chaining,
+  subject linkage, terminal subject — and confirms each edge exists in the
+  store via an exact Manager query. A witness that fails here is a bug in
+  whichever route produced it.
+
+All three speak only the Manager contract, so they work identically against
+the in-memory store or any other store behind the same contract.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+from keto_tpu_torch.relationtuple.manager import Manager
+from keto_tpu_torch.relationtuple.model import (
+    RelationQuery,
+    RelationTuple,
+    SubjectSet,
+)
+from keto_tpu_torch.x.errors import ErrNotFound
+from keto_tpu_torch.x.graph import check_and_add_visited
+from keto_tpu_torch.x.pagination import with_size, with_token
+
+# Expansion ceiling: BFS stops (certificate marked truncated) rather than
+# walking an unbounded closure. Far above any realistic policy graph depth
+# times fanout; the serving engine's own depth limits bite first.
+DEFAULT_MAX_HEADS = 100_000
+
+WitnessPath = list[RelationTuple]
+
+
+def _iter_pages(manager: Manager, query: RelationQuery, page_size: int):
+    """Page loop matching the reference engine's read pattern; an unknown
+    namespace (ErrNotFound) is an empty expansion, not an error."""
+    prev_page = ""
+    while True:
+        opts = [with_token(prev_page)]
+        if page_size:
+            opts.append(with_size(page_size))
+        try:
+            rels, next_page = manager.get_relation_tuples(query, *opts)
+        except ErrNotFound:
+            return
+        yield rels
+        if next_page == "":
+            return
+        prev_page = next_page
+
+
+def build_witness(
+    manager: Manager,
+    requested: RelationTuple,
+    *,
+    page_size: int = 0,
+    max_heads: int = DEFAULT_MAX_HEADS,
+) -> tuple[bool, Optional[WitnessPath], Optional[dict[str, Any]]]:
+    """BFS back-trace: returns ``(allowed, path, certificate)``.
+
+    Exactly one of ``path`` (grant) / ``certificate`` (deny) is non-None.
+    The visited set is keyed by ``str(subject)`` like the reference engine's
+    cycle guard, so the closure explored — and therefore the decision — is
+    the oracle's; BFS order just makes the returned path a shortest one.
+    """
+    root = SubjectSet(
+        namespace=requested.namespace,
+        object=requested.object,
+        relation=requested.relation,
+    )
+    # head str -> (parent head str | None, edge tuple that introduced it)
+    parents: dict[str, tuple[Optional[str], Optional[RelationTuple]]] = {
+        str(root): (None, None)
+    }
+    visited: set[str] = set()
+    frontier: list[SubjectSet] = [root]
+    frontier_sizes: list[int] = []
+    edges_scanned = 0
+    truncated = False
+
+    while frontier and not truncated:
+        frontier_sizes.append(len(frontier))
+        next_frontier: list[SubjectSet] = []
+        for head in frontier:
+            head_key = str(head)
+            query = RelationQuery(
+                namespace=head.namespace, object=head.object, relation=head.relation
+            )
+            for rels in _iter_pages(manager, query, page_size):
+                for sr in rels:
+                    edges_scanned += 1
+                    if check_and_add_visited(visited, sr.subject):
+                        continue
+                    if requested.subject == sr.subject:
+                        return True, _backtrace(parents, head_key) + [sr], None
+                    if not isinstance(sr.subject, SubjectSet):
+                        continue
+                    sub_key = str(sr.subject)
+                    if sub_key in parents:
+                        continue
+                    parents[sub_key] = (head_key, sr)
+                    next_frontier.append(sr.subject)
+                    if len(parents) > max_heads:
+                        truncated = True
+        frontier = next_frontier
+
+    certificate = {
+        "type": "frontier-exhaustion",
+        "root": str(root),
+        "hops": len(frontier_sizes),
+        "frontier_sizes": frontier_sizes,
+        "subject_sets_expanded": len(parents),
+        "edges_scanned": edges_scanned,
+        "truncated": truncated,
+    }
+    return False, None, certificate
+
+
+def _backtrace(
+    parents: dict[str, tuple[Optional[str], Optional[RelationTuple]]], head_key: str
+) -> WitnessPath:
+    """Walk parent pointers from ``head_key`` back to the root, returning the
+    edge chain root-first."""
+    path: WitnessPath = []
+    key: Optional[str] = head_key
+    while key is not None:
+        parent, edge = parents[key]
+        if edge is not None:
+            path.append(edge)
+        key = parent
+    path.reverse()
+    return path
+
+
+def oracle_witness(
+    manager: Manager, requested: RelationTuple, *, page_size: int = 0
+) -> Optional[WitnessPath]:
+    """The CPU oracle's own witness: DFS threading the reference engine's
+    traversal (keto_tpu_torch/check/engine.py) with an explicit edge stack. Returns
+    the path the oracle walked to its first match, or None on deny."""
+    visited: set[str] = set()
+    path: WitnessPath = []
+
+    def expand(query: RelationQuery) -> bool:
+        for rels in _iter_pages(manager, query, page_size):
+            for sr in rels:
+                if check_and_add_visited(visited, sr.subject):
+                    continue
+                path.append(sr)
+                if requested.subject == sr.subject:
+                    return True
+                if isinstance(sr.subject, SubjectSet) and expand(
+                    RelationQuery(
+                        namespace=sr.subject.namespace,
+                        object=sr.subject.object,
+                        relation=sr.subject.relation,
+                    )
+                ):
+                    return True
+                path.pop()
+        return False
+
+    found = expand(
+        RelationQuery(
+            namespace=requested.namespace,
+            object=requested.object,
+            relation=requested.relation,
+        )
+    )
+    return list(path) if found else None
+
+
+def _head_matches(head: SubjectSet, edge: RelationTuple) -> bool:
+    """Does ``edge`` belong to the expansion of ``head``? Store queries treat
+    empty fields as wildcards, so an empty head field matches anything."""
+    return (
+        (head.namespace == "" or head.namespace == edge.namespace)
+        and (head.object == "" or head.object == edge.object)
+        and (head.relation == "" or head.relation == edge.relation)
+    )
+
+
+def verify_witness(
+    manager: Manager, requested: RelationTuple, path: WitnessPath
+) -> tuple[bool, str]:
+    """Validate a witness edge-by-edge. Returns ``(ok, reason)``; reason is
+    "" when the witness holds, else a human-readable description of the first
+    broken claim. Checks, in order:
+
+    1. structural chaining — edge i expands the head edge i-1's subject set
+       named (edge 0 expands the requested object#relation);
+    2. terminal linkage — the last edge's subject is the requested subject;
+    3. existence — each edge is present in the store right now, confirmed by
+       an exact (fully-specified) Manager query.
+    """
+    if not path:
+        return False, "empty witness path"
+
+    head = SubjectSet(
+        namespace=requested.namespace,
+        object=requested.object,
+        relation=requested.relation,
+    )
+    for i, edge in enumerate(path):
+        if not isinstance(edge, RelationTuple):
+            return False, f"edge {i} is not a relation tuple"
+        if not _head_matches(head, edge):
+            return False, (
+                f"edge {i} ({edge}) does not expand head {head}"
+            )
+        last = i == len(path) - 1
+        if last:
+            if edge.subject != requested.subject:
+                return False, (
+                    f"terminal edge subject {edge.subject} is not the "
+                    f"requested subject {requested.subject}"
+                )
+        else:
+            if not isinstance(edge.subject, SubjectSet):
+                return False, (
+                    f"edge {i} subject {edge.subject} is not a subject set "
+                    "but the path continues"
+                )
+            head = edge.subject
+
+    for i, edge in enumerate(path):
+        try:
+            rels, _ = manager.get_relation_tuples(edge.to_query(), with_size(2))
+        except ErrNotFound:
+            return False, f"edge {i} namespace unknown to the store"
+        if edge not in rels:
+            return False, f"edge {i} ({edge}) not present in the store"
+
+    return True, ""

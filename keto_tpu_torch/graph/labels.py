@@ -29,7 +29,9 @@ never correctness:
 overlay compaction folds in, incrementally: each landmark recorded at an
 edge's tail resumes its walk at the head, without expansion pruning.
 
-Not here: the explain witness.
+``LabelIndex.witness_landmark`` (keto_tpu/graph/labels.py:182) names the
+winning entry of one intersection for the explain path, as the device's
+``label_step_witness`` does.
 """
 
 from __future__ import annotations
@@ -139,6 +141,24 @@ class LabelIndex:
         if not oa.size or not ib.size:
             return False
         return bool(np.isin(oa, ib, assume_unique=True).any())
+
+    def witness_landmark(self, a: int, b: int) -> Optional[int]:
+        """The winning entry of the reach0 intersection for ``(a, b)``: the
+        minimum common landmark id, or None on a miss. Every stored entry
+        witnesses a real path, so a returned landmark sits on a genuine
+        a→…→landmark→…→b chain. The device path (``label_step_witness``,
+        keto_tpu_torch/check/kernels.py) is the minimum over the same
+        compare."""
+        if a >= self.n or b >= self.n:
+            return None
+        oa = self.out_lab[a]
+        ib = self.in_lab[b]
+        oa = oa[oa != OUT_PAD]
+        ib = ib[ib != IN_PAD]
+        if not oa.size or not ib.size:
+            return None
+        common = oa[np.isin(oa, ib, assume_unique=True)]
+        return int(common.min()) if common.size else None
 
 
 def _finalize(

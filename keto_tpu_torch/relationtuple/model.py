@@ -176,6 +176,17 @@ class RelationTuple:
             subject=_subject_from_json(obj),
         )
 
+    def to_query(self) -> "RelationQuery":
+        """The exact query naming this tuple (every field, the subject
+        included)."""
+        return RelationQuery(
+            namespace=self.namespace,
+            object=self.object,
+            relation=self.relation,
+            subject_id=self.subject.subject_id,
+            subject_set=self.subject.subject_set,
+        )
+
     # -- URL query -----------------------------------------------------------
 
     def to_url_query(self) -> str:

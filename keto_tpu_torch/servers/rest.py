@@ -22,6 +22,16 @@ Read port:
   the same freshness parameters; a missing field is a 400; the body is
   ``{"objects" | "subject_ids", "next_page_token", "snaptoken"}`` and the
   response carries ``X-Keto-Snaptoken``.
+- ``GET /check/explain`` (keto_tpu/servers/rest.py:748-790) answers the
+  decision with its provenance (keto_tpu_torch/explain): the route that
+  decided, a witness verified against the store (grant) or a
+  frontier-exhaustion certificate (deny), and the label route's landmark.
+  Always 200 (the body carries ``allowed``); a nil subject is a 400; 404
+  when explain is disabled; ``?snaptoken=`` as on ``/check``; the response
+  carries ``X-Keto-Snaptoken``.
+- With a decision log, ``/check`` appends a sampled, witness-free record of
+  each decision (rest.py:705-746) with ``route: ""`` (the reference's
+  value when request timelines are off; the port has none).
 
 Write port: ``PUT /relation-tuples`` creates from a JSON body → 201 +
 Location (reference transact_server.go:130-153); ``DELETE`` by URL query →
@@ -54,11 +64,15 @@ class RestApp:
     """Routes requests for one server role against the store (writes), the
     check batcher and the list engine (reads)."""
 
-    def __init__(self, role: str, store, batcher, lister=None):
+    def __init__(self, role: str, store, batcher, lister=None, explain=None, decision_log=None):
         self.role = role
         self.store = store
         self.batcher = batcher
         self.lister = lister
+        #: the ExplainEngine, None when explain is disabled
+        self.explain = explain
+        #: the DecisionLog that /check samples into, None when there is none
+        self.decision_log = decision_log
 
     def handle(self, method: str, path: str, query: dict[str, list[str]], body: bytes):
         """Returns (status, payload-dict | None, headers-dict)."""
@@ -77,6 +91,8 @@ class RestApp:
                     return self._post_check(body, query)
                 if route == ("POST", "/check/batch"):
                     return self._post_check_batch(body, query)
+                if route == ("GET", "/check/explain"):
+                    return self._get_explain(query)
                 if route == ("GET", "/relation-tuples/list-objects") and self.lister:
                     return self._get_list_objects(query)
                 if route == ("GET", "/relation-tuples/list-subjects") and self.lister:
@@ -117,14 +133,42 @@ class RestApp:
 
     def _check(self, tuple_: RelationTuple, query):
         allowed, token = self.batcher.check_with_token(tuple_, **self._consistency_from(query))
+        # the sampled decision record: one None test when the log is off,
+        # one RNG draw when it is on; witness-free (the snaptoken makes the
+        # decision re-explainable later)
+        dl = self.decision_log
+        if dl is not None and dl.sampled():
+            dl.record("default", {
+                "kind": "check",
+                "tuple": tuple_.to_json(),
+                "decision": bool(allowed),
+                "route": "",
+                "witness": None,
+                "snaptoken": str(token) if token is not None else "",
+                "trace_id": "",
+            })
         return (200 if allowed else 403), {"allowed": allowed}, self._token_headers(token)
 
-    def _get_check(self, query):
+    @staticmethod
+    def _tuple_from(query) -> RelationTuple:
         try:
-            tuple_ = RelationTuple.from_url_query(query)
+            return RelationTuple.from_url_query(query)
         except ErrNilSubject:
             raise ErrBadRequest("Subject has to be specified.") from None
-        return self._check(tuple_, query)
+
+    def _get_check(self, query):
+        return self._check(self._tuple_from(query), query)
+
+    def _get_explain(self, query):
+        """The decision plus its provenance (keto_tpu_torch/explain)."""
+        if self.explain is None:
+            err = KetoError("explain disabled by configuration")
+            err.status_code = 404
+            return 404, err.to_json(), {}
+        tuple_ = self._tuple_from(query)
+        resp = self.explain.explain(tuple_, at_least=self._consistency_from(query)["at_least"])
+        headers = {"X-Keto-Snaptoken": resp["snaptoken"]} if resp.get("snaptoken") else {}
+        return 200, resp, headers
 
     def _post_check(self, body: bytes, query):
         try:
@@ -267,8 +311,8 @@ class RestServer:
     """One role's REST server on its own port, served from a thread."""
 
     def __init__(self, role: str, store, batcher, host: str = "127.0.0.1", port: int = 0,
-                 lister=None):
-        self.app = RestApp(role, store, batcher, lister)
+                 lister=None, explain=None, decision_log=None):
+        self.app = RestApp(role, store, batcher, lister, explain, decision_log)
         self.httpd = ThreadingHTTPServer((host or "0.0.0.0", port), _make_handler(self.app))
         self.httpd.daemon_threads = True
         self._thread: Optional[threading.Thread] = None

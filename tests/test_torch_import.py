@@ -22,8 +22,9 @@ PKG = ROOT / "keto_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
-#: modules the walk must find (the write path's and the reverse queries'
-#: among them): a module that fails to be found is not checked
+#: modules the walk must find (the write path's, the reverse queries' and
+#: the explain path's among them): a module that fails to be found is not
+#: checked
 REQUIRED = (
     "keto_tpu_torch.graph.overlay",
     "keto_tpu_torch.graph.compaction",
@@ -36,6 +37,12 @@ REQUIRED = (
     "keto_tpu_torch.list.engine",
     "keto_tpu_torch.list.kernels",
     "keto_tpu_torch.list.gpu_engine",
+    "keto_tpu_torch.check.stream",
+    "keto_tpu_torch.x.telemetry",
+    "keto_tpu_torch.explain",
+    "keto_tpu_torch.explain.engine",
+    "keto_tpu_torch.explain.witness",
+    "keto_tpu_torch.explain.decision_log",
 )
 
 
@@ -48,7 +55,7 @@ def _modules():
 def test_walk_finds_every_module():
     found = set(_modules())
     assert set(REQUIRED) <= found, sorted(set(REQUIRED) - found)
-    assert len(found) >= 43
+    assert len(found) >= 49
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -66,7 +73,7 @@ def test_every_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 43
+    assert int(out.stdout.strip()) >= 49
 
 
 def _imports(path: Path):

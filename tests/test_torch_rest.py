@@ -2,7 +2,11 @@
 a write on the write port is visible to the next check, and the batch and
 health routes answer. The reverse queries (``/relation-tuples/list-objects``
 and ``/relation-tuples/list-subjects``) answer with their status codes,
-400s, pages and snaptoken header, and ``?latest=`` reads a PUT back."""
+400s, pages and snaptoken header, and ``?latest=`` reads a PUT back.
+``GET /check/explain`` answers a grant with a verified witness and a deny
+with a certificate (both 200), a nil subject with 400, and 404 when
+explain is disabled; ``/check`` samples its decisions into the decision
+log; the CLI passes the explain and decision-log flags through."""
 
 from __future__ import annotations
 
@@ -213,3 +217,90 @@ def test_list_latest_reads_a_put_back(daemon):
     q = urlencode({"namespace": "videos", "relation": "view", "subject_id": "dog",
                    "latest": "true"})
     assert _req("GET", daemon.read.port, LIST_OBJECTS + q)[1]["objects"] == ["/cats/2.mp4"]
+
+
+EXPLAIN = "/check/explain?"
+
+
+def test_explain_contract(daemon):
+    grant = RelationTuple.from_string("videos:/cats/1.mp4#view@cat lady")
+    status, body, headers = _req("GET", daemon.read.port, EXPLAIN + grant.to_url_query())
+    assert status == 200 and body["allowed"] and body["verified"], body
+    assert body["witness_source"] == "backtrace" and body["route"] in ("label", "hybrid", "bfs")
+    assert [RelationTuple.from_json(w).to_url_query() for w in body["witness"]] == [
+        RelationTuple.from_string(t).to_url_query() for t in (
+            "videos:/cats/1.mp4#view@(videos:/cats/1.mp4#owner)",
+            "videos:/cats/1.mp4#owner@(videos:/cats#owner)",
+            "videos:/cats#owner@cat lady")]
+    assert headers["X-Keto-Snaptoken"] == body["snaptoken"] == "1"
+
+    deny = RelationTuple.from_string("videos:/cats/2.mp4#view@*")
+    status, body, _ = _req("GET", daemon.read.port, EXPLAIN + deny.to_url_query())
+    assert status == 200 and body["allowed"] is False and body["witness"] is None
+    assert body["certificate"]["type"] == "frontier-exhaustion"
+
+    q = urlencode({"namespace": "videos", "object": "/cats", "relation": "view"})
+    status, body, _ = _req("GET", daemon.read.port, EXPLAIN + q)
+    assert status == 400 and body["error"]["message"] == "Subject has to be specified."
+    status, _, _ = _req("GET", daemon.read.port, EXPLAIN + grant.to_url_query() + "&snaptoken=x")
+    assert status == 400
+    # pinned to a write's snaptoken: the write is explained
+    status, _, headers = _req("PUT", daemon.write.port, "/relation-tuples", deny.to_json())
+    token = headers["X-Keto-Snaptoken"]
+    status, body, headers = _req("GET", daemon.read.port,
+                                 EXPLAIN + deny.to_url_query() + "&snaptoken=" + token)
+    assert status == 200 and body["allowed"] and body["verified"]
+    assert body["snaptoken"] == headers["X-Keto-Snaptoken"] == token
+    assert daemon.explain.verify_failures == 0
+    assert sum(daemon.explain.requests_by_route.values()) == 3
+    assert _req("GET", daemon.write.port, EXPLAIN + grant.to_url_query())[0] == 404
+
+
+def test_explain_disabled_is_404():
+    d = Daemon(CAT_VIDEOS_NAMESPACES, device="cpu", tuples=parse_tuples(CAT_VIDEOS_TUPLES),
+               explain_enabled=False)
+    d.start()
+    try:
+        grant = RelationTuple.from_string("videos:/cats/1.mp4#view@cat lady")
+        status, body, _ = _req("GET", d.read.port, EXPLAIN + grant.to_url_query())
+        assert status == 404 and "explain disabled" in body["error"]["message"]
+        assert _req("GET", d.read.port, "/check?" + grant.to_url_query())[0] == 200
+        assert d.explain is None and d.decision_log is None
+    finally:
+        d.stop()
+
+
+def test_check_samples_into_the_decision_log(tmp_path):
+    from keto_tpu_torch.explain import DecisionLog
+
+    d = Daemon(CAT_VIDEOS_NAMESPACES, device="cpu", tuples=parse_tuples(CAT_VIDEOS_TUPLES),
+               decision_log_dir=str(tmp_path / "dlog"), decision_log_sample=1.0)
+    d.start()
+    try:
+        for check, allowed in CAT_VIDEOS_CHECKS:
+            q = RelationTuple.from_string(check).to_url_query()
+            assert _req("GET", d.read.port, "/check?" + q)[0] == (200 if allowed else 403)
+        grant = RelationTuple.from_string(CAT_VIDEOS_CHECKS[0][0])
+        assert _req("GET", d.read.port, EXPLAIN + grant.to_url_query())[0] == 200
+    finally:
+        d.stop()
+    recs, corrupt = DecisionLog(str(tmp_path / "dlog")).read_all("default")
+    checks = [r for r in recs if r["kind"] == "check"]
+    assert corrupt == 0 and [c["decision"] for c in checks] == [a for _, a in CAT_VIDEOS_CHECKS]
+    for c in checks:
+        assert c["route"] == "" and c["witness"] is None and c["snaptoken"] == "1"
+    explains = [r for r in recs if r["kind"] == "explain"]
+    assert len(explains) == 1 and explains[0]["witness"] and explains[0]["decision"] is True
+
+
+def test_cli_passes_the_explain_flags():
+    from keto_tpu_torch.cmd import build_parser
+
+    args = build_parser().parse_args(["serve"])
+    assert (args.explain_enabled, args.decision_log_dir, args.decision_log_sample,
+            args.decision_log_segment_bytes, args.decision_log_retention) == (True, "", 0.0, 1 << 20, 8)
+    args = build_parser().parse_args([
+        "serve", "--no-explain", "--decision-log-dir", "/x", "--decision-log-sample", "0.25",
+        "--decision-log-segment-bytes", "4096", "--decision-log-retention", "2"])
+    assert (args.explain_enabled, args.decision_log_dir, args.decision_log_sample,
+            args.decision_log_segment_bytes, args.decision_log_retention) == (False, "/x", 0.25, 4096, 2)

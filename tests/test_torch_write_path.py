@@ -630,13 +630,15 @@ def test_batcher_coalesces_mixed_consistency():
     p = Pair(NS, TEAM).mine
     eng = TorchCheckEngine(p, manager(), device="cpu", **QUIET)
     seen = []
-    real = eng.batch_check_with_token
+    real = eng.batch_check_stream_with_token
 
     def spy(tuples, **kw):
-        seen.append(kw)
-        return real(tuples, **kw)
+        # the batcher dispatches a round through the engine's stream
+        assert kw.pop("ordered") is False
+        seen.append(dict(kw))
+        return real(tuples, ordered=False, **kw)
 
-    eng.batch_check_with_token = spy
+    eng.batch_check_stream_with_token = spy
     batcher = CheckBatcher(eng, window_ms=50)
     batcher.start()
     try:
