@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, parity, the BFS
-and label routes of Check, reverse queries, the stream and explain, the
-write path, serve.
+and label routes of Check, sharded serving, reverse queries, the stream and
+explain, the write path, serve.
 
     python3 chip_smoke.py            # every phase, as a release check runs it
     python3 chip_smoke.py --only build,parity
+    python3 chip_smoke.py --only build,parity,main,deep,shard   # sharded serving
     python3 chip_smoke.py --only build,parity,deep,list         # reverse queries
     python3 chip_smoke.py --only build,parity,deep,explain      # the stream and explain
     python3 chip_smoke.py --only build,parity,deep,list,write   # and the write path
@@ -28,10 +29,18 @@ Phases, in order; any failure exits non-zero:
    rows, the pad row, pairs with no common entry, rows whose every entry is
    common, 65,536 pairs), the list fixpoint (the base pull alone, an overlay into active rows, an
    overlay into passive rows, a chain that it_cap truncates, no active row
-   but an overlay, all 32 lanes) and the build's radix argsort (empty, one
+   but an overlay, all 32 lanes), the build's radix argsort (empty, one
    key, all keys equal, negative keys, a ragged last tile, random int32, 10M
    keys in [0, 5.2M), each permutation also equal to numpy's stable
-   argsort); every word of every output must agree;
+   argsort) and the sharded programs at 1, 2, 3 and 4 shards (K10a on the
+   check step's layouts — uneven last shards, overlays with rows no shard
+   owns, it_cap truncation, bit 31, no active row, and each layout again
+   with all-sentinel entries, which must decide nothing — with the
+   1-shard output's first W+2 words equal to the single-device K2's and
+   its popcount word equal to every shard count's; K10b on label widths
+   1..128 with pad rows, also against the single-device K3; K10c with
+   expansion pruning on and off, also against the single-device K6);
+   every word of every output must agree;
 3. main — BASELINE config 3 (RBAC, 1M tuples, 3-level group nesting) on
    the BFS route (labels off), 100k checks: every decision equals the
    analytic expectation, a 2,000-query sample equals the recursive
@@ -51,7 +60,33 @@ Phases, in order; any failure exits non-zero:
    covered mask each launched; then those three kernels are timed at the
    path's shapes beside their plain versions and bounds; its snapshot line
    reports the build's sorts as main's does;
-6. list — on the deep phase's engine and store: 200 ListObjects ("which
+6. shard — one ``ShardMesh`` of 4 graph shards on the card: (a) main's
+   store and 100k checks on a sharded engine with labels off (K10a, the
+   BFS route), every decision equal to the analytic expectation and to
+   main's unsharded run, a 2,000-query oracle sample, every K10a entry
+   point launched and no unsharded answer kernel, each slice's iterations
+   and truncation flag equal to main's engine's on the same slices, the
+   ``shard_*`` counters and the collectives' bytes, checks/s beside the
+   unsharded engine's; (b) a sharded engine on a fork of the deep phase's
+   store (labels on): the sharded device label build (K10c) whose stored
+   entries must equal the deep phase's single-device build, its seconds
+   beside that build's; the 100k checks on the label route (K10b) equal
+   to the expectation; the explain phase's 8,192 checks with wildcard
+   relations (hybrid slices: K10a at config 4's shapes) equal to their
+   expectation, per slice as the deep engine's, every stream slice
+   ``hybrid`` with its halo rounds; 20 ListObjects and 20 ListSubjects
+   against their analytic sets; a write of 64 team→team edges (the overlay
+   routed per shard), the fold (the labels patched by the sharded sweeps)
+   and the edges' deletes (bucket slots patched on their owning shards),
+   each followed by the 100k checks (the fold's equal to the overlay's,
+   the deletes' equal to the expectation) and an oracle sample; peak
+   device memory; then K10a's program, ``keto_shard_answer`` and the halo
+   copy timed at config 3's shapes, K10b's program and ``keto_pair_rows``
+   and K10c's wave and K6's ``keto_sweep_step`` per shard at config 4's,
+   each beside its
+   plain version and bound (the halo copy beside ``torch.cat`` and the
+   exchange beside ``torch.stack(...).sum(0)``);
+7. list — on the deep phase's engine and store: 200 ListObjects ("which
    issues may user-u view") and 200 ListSubjects ("which users may view
    issue-j"), each against its analytic expected set from the generator's
    maps; p50/p99 seconds and items/s per orientation (cache misses only),
@@ -61,7 +96,7 @@ Phases, in order; any failure exits non-zero:
    and 20 ListObjects answers through a Check batch (every listed issue
    allowed, as many unlisted ones denied); K5 and K8 are timed at the
    path's shapes beside their plain versions and bounds;
-7. explain — on the deep phase's engine and store, labels on: the 100k
+8. explain — on the deep phase's engine and store, labels on: the 100k
    checks through ``batch_check_stream`` (ordered) and through
    ``batch_check_stream_with_token(ordered=False, with_info=True)``, each
    equal to ``batch_check`` and the expectation with every offset
@@ -86,7 +121,7 @@ Phases, in order; any failure exits non-zero:
    with the label witness launched once per interior pair; explain p50/p99
    seconds; the label witness is then timed at one pair and at 65,536
    pairs on config 4's label arrays beside its plain version and bound;
-8. write — the deep phase's engine and store take writes through the
+9. write — the deep phase's engine and store take writes through the
    store, as the REST write API makes them: (a) the reference bench's
    burst of 5,000 new team memberships (interior→sink edges: the labels
    stay live, the background fold absorbs the burst), (b) 64 new
@@ -109,7 +144,7 @@ Phases, in order; any failure exits non-zero:
    write path replaced, its labels built on the card) and no full rebuild
    may have happened; K9 is timed at the write shapes, and K5 on the first
    fixpoint that ran with the overlay pending, against its plain version;
-9. serve — the REST server with the default engine (labels on) and a
+10. serve — the REST server with the default engine (labels on) and a
    decision log sampling every check: ``GET /check/explain`` on a grant
    (a verified witness) and a deny (a certificate), the cat-videos checks
    (200, 200, 403, 200) read back from the decision log, read-your-writes
@@ -119,9 +154,10 @@ Phases, in order; any failure exits non-zero:
    unless its requests launched the kernels of the routes that answered
    them.
 
-``--only`` names a subset; ``labels`` needs ``main``, ``list`` and
-``explain`` need ``deep`` and ``write`` needs ``list`` (they run on that
-phase's engine and store), and a subset that breaks this exits non-zero.
+``--only`` names a subset; ``labels`` needs ``main``, ``shard`` needs
+``main`` and ``deep``, ``list`` and ``explain`` need ``deep`` and ``write``
+needs ``list`` (they run on that phase's engine and store), and a subset
+that breaks this exits non-zero.
 
 Output: progress lines, the ``{"kernels": [...]}`` line, the card line, and
 as the last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing
@@ -137,9 +173,11 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "parity", "main", "labels", "deep", "list", "explain", "write", "serve")
+PHASES = ("build", "parity", "main", "labels", "deep", "shard", "list", "explain", "write",
+          "serve")
 #: a phase that runs on the engine and store of another
-PHASE_NEEDS = {"labels": "main", "list": "deep", "explain": "deep", "write": "list"}
+PHASE_NEEDS = {"labels": ("main",), "shard": ("main", "deep"), "list": ("deep",),
+               "explain": ("deep",), "write": ("list",)}
 SEED = 20261017
 N_TUPLES = 1_000_000
 N_CHECKS = 100_000
@@ -178,6 +216,11 @@ K5 = "keto_tpu/list/tpu_engine.py:76"
 K5_KERNELS = ("pull", "commit", "list_gather", "list_scatter", "close")
 K8 = "keto_tpu/graph/device_build.py:54"
 K4 = "keto_tpu/check/tpu_engine.py:352"
+K10A = "keto_tpu/parallel/sharded.py:327"
+K10B = "keto_tpu/parallel/sharded.py:473"
+K10C = "keto_tpu/parallel/sharded.py:559"
+SHARD_SRC = "keto_tpu_torch/csrc/shard_kernels.cu"
+LABEL_SRC = "keto_tpu_torch/csrc/label_kernels.cu"
 
 #: per H100 variant, by a word of its nvidia-smi name: memory rate (B/s),
 #: SMs and boost clock (Hz), from NVIDIA's H100 data sheet (SXM5 HBM3
@@ -329,6 +372,7 @@ def phase_parity(torch, kernels, rows_out):
     total += slot_parity(torch, rng, dev)
     total += list_parity(torch, rng, dev)
     total += sort_parity(torch, rng, dev)
+    total += shard_parity(torch, rng, dev)
     rows_out["parity_mismatches"] = total
     if total:
         raise SystemExit(f"kernel parity FAILED: {total} mismatching words")
@@ -530,6 +574,142 @@ def sort_parity(torch, rng, dev) -> int:
         log(f"parity radix_argsort {kind}: {keys.size} keys, mismatches={m} "
             f"(vs np.argsort stable: {m_np})")
         total += m + m_np
+    return total
+
+
+#: K10a's parity layouts (``random_case`` arguments), each at every g of
+#: SHARD_GS: uneven last shards (n_int + 1 rows rarely divide by 3 or 4),
+#: overlays (their pad rows owned by no shard), it_cap truncation, bit 31,
+#: no active row; plus every layout with all-sentinel entries
+SHARD_CASES = [
+    dict(W=1, caps=(1, 2, 4, 8), rows=(40, 20, 10, 5), n_int=100),
+    dict(W=8, caps=(1, 2048), rows=(60, 3), n_int=101, block_iters=3),
+    dict(W=64, caps=(1, 16, 1024), rows=(50, 9, 2), n_int=70, overlay=True, block_iters=1),
+    dict(W=4096, caps=(1, 2, 64), rows=(40, 10, 1), n_int=81),
+    dict(W=8, caps=(1,), rows=(60,), n_int=64, chain=True, it_cap=3, block_iters=1),
+    dict(W=64, caps=(1,), rows=(50,), n_int=64, chain=True, block_iters=3, overlay=True),
+    dict(W=8, n_int=30),
+]
+SHARD_GS = (1, 2, 3, 4)
+#: K10c's parity layouts: (n, caps, rows per group, wt, expansion pruning)
+SHARD_SWEEP_CASES = [
+    (40, (1, 2, 4), (10, 8, 5), 1, True), (33, (1, 8), (20, 6), 2, False),
+    (700, (1, 2, 16, 128), (300, 100, 30, 3), 2, True), (701, (1, 4), (500, 50), 1, False),
+]
+
+
+def _sentinel_entries(spec, B):
+    """The all-padding geometry (the reference's warm slice): every entry
+    a dropped or padded sentinel, routed to the shards."""
+    import numpy as np
+
+    from keto_tpu_torch.parallel.sharded import route_entries
+
+    ni = spec.n_int
+    e_rows = np.full(B, ni + 1, np.int32)
+    e_q = np.zeros(B, np.int32)
+    packed = (e_rows, e_q, e_rows, e_q, np.full(B, ni, np.int32), e_q, np.full(B, ni, np.int32))
+    return route_entries(spec, packed, B)[0]
+
+
+def shard_parity(torch, rng, dev) -> int:
+    """K10's kernels against their plain versions on the card, every output
+    word, at g in 1..4: the sharded BFS step (K10a, and the g = 1 program
+    against the single-device K2: its words [0, W+2) equal K2's and its
+    popcount word equals every g's), the sharded label step (K10b, and
+    against the single-device K3) and the sharded wave (K10c, and against
+    the single-device K6 on the same rows). Mismatching words."""
+    import numpy as np
+
+    from keto_tpu_torch.check import kernels
+    from keto_tpu_torch.check.random_layouts import (
+        random_label_case, random_shard_case, random_sweep_case)
+    from keto_tpu_torch.graph import label_kernels as lk
+    from keto_tpu_torch.parallel import make_mesh
+    from keto_tpu_torch.parallel import sharded as ps
+
+    t = lambda a: None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    total = 0
+    for i, case in enumerate(SHARD_CASES):
+        seed = int(rng.integers(1 << 30))
+        pop1 = None
+        for g in SHARD_GS:
+            mesh = make_mesh(graph=g, device=dev)
+            single, (spec, ent, ov, kw) = random_shard_case(np.random.default_rng(seed), g, **case)
+            bk = ps.ShardedBuckets.from_spec(spec, dev)
+            ovn, ovd = (None, None) if ov is None else (t(ov[0]), t(ov[1]))
+            got = ps.check_step_cuda(mesh, bk, t(ent), ovn, ovd, **kw)
+            want = ps.check_step_ref(mesh, bk, t(ent), ovn, ovd, **kw)
+            pad = _sentinel_entries(spec, kw["B"])
+            got0 = ps.check_step_cuda(mesh, bk, t(pad), ovn, ovd, **kw)
+            want0 = ps.check_step_ref(mesh, bk, t(pad), ovn, ovd, **kw)
+            torch.cuda.synchronize()
+            m = diff(got, want)[0] + diff(got0, want0)[0]
+            W = kw["B"] // 32
+            m += int((got0[:W] != 0).sum())  # an all-padding slice decides nothing
+            b, e, o, k1 = single
+            if g == 1 and k1["n_active"]:
+                one = kernels.check_step_cuda([t(x) for x in b], t(e), *(
+                    (None, None) if o is None else (t(o[0]), t(o[1]))), **k1)
+                m += diff(got[: W + 2], one)[0]
+            pop = int(got[W + 2]) & 0xFFFFFFFF
+            pop1 = pop if pop1 is None else pop1
+            m += int(pop != pop1)
+            log(f"parity shard check_step case {i} g={g} rps={kw['rps']} "
+                f"iters={int(got[W])} truncated={int(got[W + 1])} frontier_bits={pop}: "
+                f"mismatches={m}")
+            total += m
+    for n, Wo, Wi, W, pairs in LABEL_STEP_CASES[:7] + [(301, 64, 64, 64, 6000)]:
+        seed = int(rng.integers(1 << 30))
+        for g in SHARD_GS:
+            out_lab, in_lab, ent, P, B = random_label_case(np.random.default_rng(seed), n, Wo,
+                                                           Wi, W, pairs)
+            o_sh, i_sh, rl, _ = ps.route_labels(out_lab, in_lab, g)
+            mesh = make_mesh(graph=g, device=dev)
+            got = ps.label_step(mesh, t(o_sh), t(i_sh), t(ent), n_pairs=P, B=B, rl=rl)
+            want = ps.label_step(make_mesh(graph=g, device="cpu"), torch.from_numpy(o_sh),
+                                 torch.from_numpy(i_sh), torch.from_numpy(ent), n_pairs=P, B=B,
+                                 rl=rl)
+            one = kernels.label_step_cuda(t(out_lab), t(in_lab), t(ent), n_pairs=P, B=B)
+            torch.cuda.synchronize()
+            m = diff(got.cpu(), want)[0] + diff(got, one)[0]
+            log(f"parity shard label_step n={n} Wo={Wo} Wi={Wi} W={W} pairs={pairs} g={g} "
+                f"rl={rl}: {int(torch.tensor([bin(x & 0xFFFFFFFF).count('1') for x in want.tolist()]).sum())} "
+                f"grants, mismatches={m}")
+            total += m
+    for n, caps, rows, wt, prune in SHARD_SWEEP_CASES:
+        seed = int(rng.integers(1 << 30))
+        for g in SHARD_GS:
+            groups, V, X, S, cov = random_sweep_case(np.random.default_rng(seed), n, caps, rows, wt)
+            rps = -(-(n + 1) // g)
+            routed = ps.route_label_ell(groups, n, g, rps)
+
+            def slabs(a, where):
+                o = np.zeros((g * rps, wt), np.int32)
+                o[: a.shape[0]] = a
+                return [torch.from_numpy(o[s * rps : (s + 1) * rps].copy()).to(where)
+                        for s in range(g)]
+
+            outs = []
+            for where in (dev, "cpu"):
+                mesh = make_mesh(graph=g, device=where)
+                outs.append(ps.label_sweep_step(
+                    mesh, ps.shard_ell_groups(routed, where), slabs(V, where), slabs(X, where),
+                    slabs(S, where), slabs(cov, where), rps=rps, prune_expansion=prune))
+            torch.cuda.synchronize()
+            (cV, cX, cS, cst), (rV, rX, rS, rst) = outs
+            flat = lambda xs: torch.cat([x.cpu() for x in xs])[: n + 1]  # noqa: E731
+            m = sum(diff(flat(a), flat(b))[0] for a, b in ((cV, rV), (cX, rX), (cS, rS)))
+            m += diff(cst.cpu(), rst)[0]
+            eg = lk.EllGroups.from_groups(groups, dev)
+            oV, oX, oS, ost = lk.sweep_step_cuda(eg, t(V), t(X), t(S), t(cov),
+                                                 prune_expansion=prune)
+            torch.cuda.synchronize()
+            m += sum(diff(flat(a), b.cpu())[0] for a, b in ((cV, oV), (cX, oX), (cS, oS)))
+            m += diff(cst, ost)[0]
+            log(f"parity shard sweep n={n} caps={caps} wt={wt} prune={prune} g={g} rps={rps}: "
+                f"state {cst.tolist()}, mismatches={m}")
+            total += m
     return total
 
 
@@ -1076,7 +1256,501 @@ def label_rows(torch, kernels, snap, engine, captured, launches, rate, int_rate)
     return rows
 
 
-# -- phase 6: list, reverse queries on the deep phase's engine and store -----------
+# -- phase 6: shard, sharded serving on the card (K10) -------------------------------
+
+#: the shard phase's mesh: graph shards, all on the one card
+SHARD_G = 4
+SHARD_LISTS = 20
+SHARD_ELL = 64
+
+
+def slice_steps(engine, queries) -> list:
+    """``(queries, iters, truncated, route)`` of every slice the batch path
+    dispatches for ``queries``, each landed as the engine lands it. The
+    controller's entry budget (which follows measured service times) is
+    pinned off, so two engines cut the same slices."""
+    engine.stream_ctrl.entry_budget = lambda: None
+    try:
+        snap = engine.snapshot()
+        recs = []
+        for rec in engine._dispatch_slices(snap, queries):
+            if rec[0] is not None:
+                rec[0].copy_to_host_async()
+            recs.append(rec)
+        out = []
+        for dev, host_ans, nq, _chunk, leases, _n in recs:
+            _, iters, truncated, route = engine._land_slice(dev, host_ans, nq, leases)
+            out.append((nq, iters, truncated, route))
+        return out
+    finally:
+        del engine.stream_ctrl.entry_budget
+
+
+def shard_counts(engine) -> dict:
+    c = engine.counters()
+    return {k: c.get(k, 0) for k in ("shard_halo_rounds", "shard_halo_bytes",
+                                     "shard_frontier_bits", "shard_dispatch_failures")}
+
+
+def phase_shard(torch, kernels, report, main_keep, deep_keep, rate, int_rate, device="cuda"):
+    """Sharded serving on one ``ShardMesh`` of SHARD_G shards (see the
+    module docstring). Returns K10's kernel rows (none off the card: a
+    CPU rehearsal runs the plain versions)."""
+    import numpy as np
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def peak_bytes():
+        return torch.cuda.max_memory_allocated() if on_card else 0
+
+    def reset_peak():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    from keto_tpu_torch.check.engine import CheckEngine
+    from keto_tpu_torch.check.gpu_engine import TorchCheckEngine
+    from keto_tpu_torch.list.gpu_engine import SnapshotListEngine
+    from keto_tpu_torch.parallel import make_mesh
+    from keto_tpu_torch.parallel import sharded as ps
+    from keto_tpu_torch.workloads import github_list_queries
+
+    single3, queries3, (store3, nm3, got3, expected3) = main_keep
+    deep, deep_store, deep_q, deep_got, ctx = deep_keep
+    mesh = make_mesh(graph=SHARD_G, device=device)
+    out: dict = {"graph_shards": SHARD_G}
+    captured: dict = {}
+    wrapped = {name: getattr(ps, name) for name in ("check_step", "label_step", "label_sweep_step")}
+
+    def capture(name):
+        fn = wrapped[name]
+
+        def call(*a, **kw):
+            if name not in captured:
+                if name == "label_sweep_step":
+                    # the wave updates V and S in place: keep the first
+                    # wave's inputs as they were
+                    m_, groups, V, X, S, cov = a
+                    captured[name] = ((m_, groups, [v.clone() for v in V], list(X),
+                                       [x.clone() for x in S], list(cov)), kw)
+                else:
+                    captured[name] = (a, kw)
+            return fn(*a, **kw)
+        return call
+
+    for name in wrapped:
+        setattr(ps, name, capture(name))
+    try:
+        # (a) config 3, labels off: every check on the sharded BFS route
+        eng = TorchCheckEngine(store3, nm3, device=device, labels_enabled=False, mesh=mesh)
+        t0 = time.monotonic()
+        snap = eng.snapshot()
+        sync()
+        snap_s = time.monotonic() - t0
+        spec = snap.shard_spec
+        kernels.reset_counts()
+        ps.reset_collective_counts()
+        reset_peak()
+        t0 = time.monotonic()
+        got = eng.batch_check(queries3)
+        sync()
+        check_s = time.monotonic() - t0
+        launches = dict(kernels.COUNTS)
+        coll = {k: (ps.COLLECTIVE_CALLS[k], ps.COLLECTIVE_BYTES[k]) for k in ps.COLLECTIVE_BYTES}
+        peak = peak_bytes()
+        wrong = sum(g != e for g, e in zip(got, expected3))
+        differ = sum(g != e for g, e in zip(got, got3))
+        counters = shard_counts(eng)
+        missing = [k for k in ("seed", "pull", "commit", "close", "shard_answer")
+                   if on_card and not launches[k]]
+        t0 = time.monotonic()
+        got_b = eng.batch_check(queries3)
+        steady_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        single3.batch_check(queries3)
+        single_s = time.monotonic() - t0
+        bad = sum(CheckEngine(store3).subject_is_allowed(q) != g
+                  for q, g in zip(queries3[:ORACLE_SAMPLE], got[:ORACLE_SAMPLE]))
+        steps_sh, steps_one = slice_steps(eng, queries3), slice_steps(single3, queries3)
+        a = {"config": "BASELINE config 3 (RBAC), labels off", "rows_per_shard": spec.rows_per_shard,
+             "interior_rows": snap.num_int, "snapshot_s": snap_s, "check_s": check_s,
+             "checks_per_s": N_CHECKS / check_s, "steady_checks_per_s": N_CHECKS / steady_s,
+             "unsharded_steady_checks_per_s": N_CHECKS / single_s, "wrong_vs_analytic": wrong,
+             "differ_from_unsharded": differ, "oracle_sample": ORACLE_SAMPLE, "oracle_mismatches": bad,
+             "slices_sharded": steps_sh, "slices_unsharded": steps_one, "counters": counters,
+             "collective_bytes": coll, "peak_device_bytes": peak, "launches": launches}
+        log(f"shard (a): {json.dumps(a)}")
+        eng.close()
+        if wrong or differ or bad or got_b != got or missing or launches["answer_pack"]:
+            raise SystemExit(f"shard FAILED (a): {wrong} wrong, {differ} differ, {bad} oracle, "
+                             f"missing kernels {missing}, unsharded answer_pack "
+                             f"{launches['answer_pack']}")
+        if [x[:3] for x in steps_sh] != [x[:3] for x in steps_one] or not counters["shard_halo_rounds"]:
+            raise SystemExit(f"shard FAILED (a): per-slice iters/truncated {steps_sh} vs "
+                             f"{steps_one}, counters {counters}")
+        out["a"] = a
+        rows = shard_check_rows(torch, ps, mesh, snap, captured.pop("check_step"), launches,
+                                coll["all_gather"][0], rate) if on_card else []
+        del eng, snap
+
+        # (b) config 4 on a fork of the deep phase's store: labels on
+        fork = deep_store.fork()
+        eng = TorchCheckEngine(fork, fork.namespaces, device=device, mesh=mesh)
+        kernels.reset_counts()
+        reset_peak()
+        t0 = time.monotonic()
+        snap = eng.snapshot()
+        sync()
+        snap_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        if not eng.labels_settled():
+            raise SystemExit("shard FAILED: no sharded label index")
+        settle_s = time.monotonic() - t0
+        build_launches = dict(kernels.COUNTS)
+        idx, one = snap.labels, deep.snapshot().labels
+        same = {f: bool(np.array_equal(getattr(idx, f), getattr(one, f)))
+                for f in ("out_lab", "in_lab", "out_ok", "in_ok", "processed")}
+        build = {"backend": idx.backend, "build_s": idx.build_ms / 1e3, "settled_s": settle_s,
+                 "unsharded_build_s": one.build_ms / 1e3, "entries": idx.n_entries,
+                 "unsharded_entries": one.n_entries, "equal": same,
+                 "waves": build_launches["sweep_step"] // SHARD_G,
+                 "launches": {k: build_launches[k] for k in ("sweep_step", "covered")}}
+        log(f"shard (b) label build: {json.dumps(build)}")
+        if idx.backend != "sharded" or not all(same.values()) \
+                or (on_card and not build_launches["sweep_step"]):
+            raise SystemExit(f"shard FAILED: the sharded label build {build}")
+        kernels.reset_counts()
+        ps.reset_collective_counts()
+        t0 = time.monotonic()
+        got = eng.batch_check(deep_q)
+        sync()
+        check_s = time.monotonic() - t0
+        launches = dict(kernels.COUNTS)
+        t0 = time.monotonic()
+        eng.batch_check(deep_q)
+        steady_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        deep.batch_check(deep_q)
+        single_s = time.monotonic() - t0
+        wrong = sum(g != e for g, e in zip(got, deep_got))
+        hq, hwant = hybrid_queries(deep_q, deep_got, ctx)
+        before = dict(kernels.COUNTS)
+        hgot = eng.batch_check(hq)
+        hybrid_launches = {k: kernels.COUNTS[k] - before[k] for k in
+                           ("shard_answer", "pair_rows", "label_step", "pull", "answer_pack")}
+        hwrong = sum(g != w for g, w in zip(hgot, hwant))
+        hsteps, hsteps_one = slice_steps(eng, hq), slice_steps(deep, hq)
+        gen, _ = eng.batch_check_stream_with_token(hq, ordered=False, with_info=True,
+                                                   slice_cap=HYBRID_SLICE)
+        infos = [info for _, _, info in gen]
+        b = {"config": "BASELINE config 4 (GitHub org/team/repo), labels on",
+             "rows_per_shard": snap.shard_spec.rows_per_shard, "interior_rows": snap.num_int,
+             "snapshot_s": snap_s, "label_build": build, "check_s": check_s,
+             "checks_per_s": N_CHECKS / check_s, "steady_checks_per_s": N_CHECKS / steady_s,
+             "unsharded_steady_checks_per_s": N_CHECKS / single_s, "wrong_vs_analytic": wrong,
+             "route_counts": route_counts(eng), "launches": launches,
+             "hybrid": {"checks": len(hq), "wrong": hwrong, "launches": hybrid_launches,
+                        "slices_sharded": hsteps, "slices_unsharded": hsteps_one,
+                        "stream_routes": sorted({i["route"] for i in infos}),
+                        "stream_halo_rounds": [i.get("halo_rounds") for i in infos],
+                        "stream_halo_bytes": [i.get("halo_bytes") for i in infos]}}
+        log(f"shard (b) checks: {json.dumps(b)}")
+        if wrong or hwrong or (on_card and not (launches["pair_rows"] and launches["label_step"]
+                                                and hybrid_launches["shard_answer"])) \
+                or hybrid_launches["answer_pack"] \
+                or [x[:3] for x in hsteps] != [x[:3] for x in hsteps_one] \
+                or b["hybrid"]["stream_routes"] != ["hybrid"] \
+                or not all(b["hybrid"]["stream_halo_rounds"]):
+            raise SystemExit(f"shard FAILED (b): {json.dumps(b)}")
+
+        # listings on the sharded engine: the list engine's own layouts
+        objects, subjects = github_list_queries(random.Random(SEED + 5), SHARD_LISTS, ctx)
+        lst = SnapshotListEngine(eng, fork.namespaces, device=device)
+        lbad = sum(len(set(lst.list_objects("issues", "view", q)[0]) ^ set(w)) for q, w in objects)
+        lbad += sum(len(set(lst.list_subjects("issues", o, "view")[0]) ^ set(w)) for o, w in subjects)
+        lroutes = {f"{o}/{p}": n for (o, p), n in sorted(lst.requests_total.items())}
+        b["listings"] = {"objects": len(objects), "subjects": len(subjects),
+                         "wrong_items": lbad, "routes": lroutes}
+        log(f"shard (b) listings: {json.dumps(b['listings'])}")
+        if lbad or any(k.endswith("/host") for k in lroutes):
+            raise SystemExit(f"shard FAILED (b): listings {b['listings']}")
+
+        b["write"] = shard_write(kernels, eng, fork, deep_q, deep_got, ctx, sync, on_card)
+        b["counters"] = shard_counts(eng)
+        b["peak_device_bytes"] = peak_bytes()
+        log(f"shard (b) counters {b['counters']}, peak device memory "
+            f"{b['peak_device_bytes'] / 2**20:.1f} MiB")
+        out["b"] = b
+        if on_card:
+            rows += shard_label_rows(torch, ps, mesh, captured, launches, build_launches, rate,
+                                     int_rate)
+        eng.close()
+    finally:
+        for name, fn in wrapped.items():
+            setattr(ps, name, fn)
+    report["shard"] = out
+    return rows
+
+
+def shard_write(kernels, eng, store, queries, expected, ctx, sync, on_card) -> dict:
+    """One write of SHARD_ELL team→team edges (the overlay, routed per
+    shard), the fold (the labels patched by the sharded sweeps), then the
+    edges' deletes (tombstones: the owning shards' bucket slots patched by
+    ``patch_pos``), each followed by the 100k checks: equal to the overlay
+    run's decisions after the fold and to the expectation after the
+    deletes, with an oracle sample each time."""
+    import numpy as np
+
+    from keto_tpu_torch.check.engine import CheckEngine
+    from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectID, SubjectSet
+
+    rng = random.Random(SEED + 11)
+    oracle = CheckEngine(store)
+    snap = eng.snapshot()
+    n_teams = 0
+    while snap.resolve_set(2, f"team-{n_teams}", "member") is not None:
+        n_teams += 1
+    teams = [(f"team-{t}", d) for t, d in
+             ((t, snap.resolve_set(2, f"team-{t}", "member")) for t in range(n_teams))
+             if d is not None and d < snap.num_active]
+    ip, ix = snap.fwd_indptr, snap.fwd_indices
+    edges, used = [], set()
+    while len(edges) < SHARD_ELL:
+        (po, pd), (co, cd) = rng.sample(teams, 2)
+        if cd in used or pd == cd or np.any(ix[ip[pd]:ip[pd + 1]] == cd):
+            continue
+        used.add(cd)
+        edges.append(RelationTuple("teams", po, "member", SubjectSet("teams", co, "member")))
+    touched = [int(t.object.split("-")[1]) for t in edges]
+
+    def round_(name):
+        before = dict(kernels.COUNTS)
+        t0 = time.monotonic()
+        got = eng.batch_check(queries)
+        sync()
+        dt = time.monotonic() - t0
+        users = [f"user-{rng.randrange(800_000)}" for _ in range(50)]
+        sample = [RelationTuple("teams", f"team-{t}", "member", SubjectID(u))
+                  for t, u in zip(rng.choices(touched, k=50), users)]
+        sample += [queries[i] for i in rng.sample(range(len(queries)), 50)]
+        bad = sum(oracle.subject_is_allowed(q) != g for q, g in zip(sample, eng.batch_check(sample)))
+        snap = eng.snapshot()
+        r = {"checks_per_s": len(queries) / dt, "grants": sum(got), "oracle_mismatches": bad,
+             "overlay": snap.has_overlay, "lab_dirty": len(snap.lab_dirty or ()),
+             "shard_overlay": None if snap.device_shard_overlay is None
+             else list(snap.device_shard_overlay[0].shape),
+             "launches": {k: kernels.COUNTS[k] - before[k] for k in
+                          ("shard_answer", "pull_overlay", "pair_rows", "slot_set")}}
+        log(f"shard write {name}: {json.dumps(r)}")
+        if bad:
+            raise SystemExit(f"shard FAILED: write {name}: {bad} oracle mismatches")
+        return r, got
+
+    out = {}
+    before = dict(kernels.COUNTS)
+    wm = store.transact_relation_tuples(edges, ()).snaptoken
+    if eng.snapshot().snapshot_id != wm:
+        raise SystemExit("shard FAILED: the write is not visible")
+    out["overlay"], got_ov = round_("(overlay)")
+    if (on_card and not out["overlay"]["launches"]["pull_overlay"]) \
+            or out["overlay"]["shard_overlay"] is None:
+        raise SystemExit(f"shard FAILED: the routed overlay never ran: {out['overlay']}")
+    t0 = time.monotonic()
+    eng.maintenance_settled(fold=True, timeout=900)
+    out["fold_s"] = time.monotonic() - t0
+    out["last_compaction"] = eng.last_compaction
+    out["after_fold"], got_fold = round_("(after the fold)")
+    if got_fold != got_ov or (eng.last_compaction or {}).get("labels") != "patched":
+        raise SystemExit(f"shard FAILED: the fold changed decisions or did not patch the labels: "
+                         f"{eng.last_compaction}")
+    slot0 = kernels.COUNTS["slot_set"]
+    store.transact_relation_tuples((), edges)
+    snap = eng.snapshot()
+    out["tombstones"] = int(snap.ov_removed.size) if snap.ov_removed is not None else 0
+    out["ell_patch_slot_sets"] = kernels.COUNTS["slot_set"] - slot0
+    out["deleted"], got_del = round_("(deleted)")
+    wrong = sum(g != e for g, e in zip(got_del, expected))
+    out["wrong_vs_analytic_after_deletes"] = wrong
+    out["launches"] = {k: kernels.COUNTS[k] - before[k] for k in
+                       ("shard_answer", "pull_overlay", "slot_set", "sweep_step", "covered")}
+    log(f"shard write: {json.dumps({k: v for k, v in out.items() if k not in ('overlay', 'after_fold', 'deleted')})}")
+    if wrong or not out["tombstones"] or (on_card and not out["ell_patch_slot_sets"]):
+        raise SystemExit(f"shard FAILED: after the deletes {wrong} decisions differ from the "
+                         f"expectation, {out['ell_patch_slot_sets']} ELL patch slot sets")
+    return out
+
+
+def _bound(rate, int_rate, nbytes, ops=0):
+    by_bytes = nbytes / rate * 1e3
+    by_ops = ops / int_rate * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def _k10_row(rows, name, replaces, part, cuda_fn, plain_fn, outs, launches, bound, reps,
+             library=None, extra=None, make=None, source=SHARD_SRC):
+    m = sum(diff(a, b)[0] for a, b in zip(*outs))
+    err = max(diff(a, b)[1] for a, b in zip(*outs))
+    if make is None:
+        ms = time_ms(cuda_fn, reps)
+        plain = time_ms(plain_fn, max(1, reps // 10), warmup=1)
+    else:
+        ms = time_fresh_ms(cuda_fn, make, reps)
+        plain = time_fresh_ms(plain_fn, make, max(1, reps // 10), warmup=1)
+    lib = None if library is None else time_ms(library, reps)
+    r = {"name": name, "route": "cuda", "source": source, "replaces": replaces, "part": part,
+         "launches": launches, "mismatches": m, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+         "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib, **(extra or {})}
+    rows.append(r)
+    log(f"kernel {name}: {ms:.4f} ms (plain {plain:.4f} ms, bound {bound[0]:.4f} ms by "
+        f"{bound[1]}, library {lib}), mismatches {m}, {json.dumps(extra or {})}")
+
+
+def shard_check_rows(torch, ps, mesh, snap, call, launches, halo_copies, rate) -> list:
+    """K10a's rows at config 3's shapes (the first sharded dispatch of the
+    shard phase's run): the whole program, ``keto_shard_answer`` and the
+    halo copy, each beside its plain version and bound."""
+    (m_, bk, ent, ovn, ovd), kw = call
+    g, rps, B = ent.shape[0], kw["rps"], kw["B"]
+    W, (S1, S2, SA, _) = B // 32, kw["sizes"]
+    R, P, ab, state = ps.fixpoint_cuda(mesh, bk, ent, ovn, ovd, **kw)
+    iters = int(state[1])
+    rows: list = []
+    slab = rps * W * 4
+    # the whole program: seeds, per hop a halo copy (read + write), the
+    # pull's slots and sources, the commit, then the answers
+    slots = sum(k * nb.shape[2] for nb, runs in zip(bk.nbrs, bk.runs) for _, k in runs)
+    srcs = int(torch.unique(torch.cat([nb[s][:k].reshape(-1) for nb, runs in zip(bk.nbrs, bk.runs)
+                                       for s, (_, k) in enumerate(runs) if k])).numel()) if slots else 0
+    hop = 2 * g * slab + 4 * slots + srcs * W * 4 + 3 * g * slab
+    seed_b = g * (8 * (S1 + S2) + 2 * slab)
+    ans_b = g * (4 * (B + 2 * SA) + slab) + 4 * (B + SA) + 4 * (W + 3)
+    full = lambda: ps.check_step_cuda(mesh, bk, ent, ovn, ovd, **kw)  # noqa: E731
+    plain = lambda: ps.check_step_ref(mesh, bk, ent, ovn, ovd, **kw)  # noqa: E731
+    _k10_row(rows, "shard_check_step", K10A, "the whole sharded BFS step (K1/K2 entry points, "
+             "keto_shard_answer, the halo copies)", full, plain, ([full()], [plain()]),
+             launches["shard_answer"] // g, _bound(rate, 1, seed_b + iters * hop + ans_b), 5,
+             extra={"g": g, "rps": rps, "W": W, "iters": iters, "sizes": list(kw["sizes"])})
+
+    def answer():
+        out = torch.zeros(W + 3, dtype=torch.int32, device="cuda")
+        for s in range(g):
+            ps.shard_answer_cuda(ent[s], kw["sizes"], P[s], ab[s], R[s], rps, state, out)
+        return out
+
+    def answer_plain():
+        parts = [ps.shard_answer_ref(ent[s], kw["sizes"], P[s], ab[s], R[s], rps, iters,
+                                     bool(state[0])) for s in range(g)]
+        return torch.cat([ps.or_combine([x[:W] for x in parts]), parts[0][W : W + 2],
+                          ps.psum([x[W + 2 :] for x in parts])])
+
+    _k10_row(rows, "shard_answer", K10A, "owned answers, OR-combine and popcount psum, "
+             "sharded.py:422-455", answer, answer_plain, ([answer()], [answer_plain()]),
+             launches["shard_answer"], _bound(rate, 1, ans_b), 20)
+    G = torch.empty((g * rps, W), dtype=torch.int32, device="cuda")
+    _k10_row(rows, "halo_copy", K10A, "lax.all_gather of the [rps, W] slabs, sharded.py:403 "
+             "(cudaMemcpyAsync per slab; one card, no interconnect)",
+             lambda: ps.all_gather_rows(R, out=G), lambda: torch.cat(R),
+             ([ps.all_gather_rows(R, out=G)], [torch.cat(R)]), halo_copies,
+             _bound(rate, 1, 2 * g * slab), 20, library=lambda: torch.cat(R, out=G),
+             extra={"bytes_moved_per_hop": g * slab,
+                    "reference_halo_bytes_per_round": ps.halo_bytes_per_round(snap.shard_spec, W)},
+             source="keto_tpu_torch/parallel/sharded.py")
+    if sum(r["mismatches"] for r in rows):
+        raise SystemExit("shard FAILED: K10a parity at config 3's shapes")
+    return rows
+
+
+def shard_label_rows(torch, ps, mesh, captured, launches, build_launches, rate,
+                     int_rate) -> list:
+    """K10b's and K10c's rows at config 4's shapes: the first label step of
+    the 100k batch and the first wave of the sharded label build."""
+    from keto_tpu_torch.graph import label_kernels as lk
+
+    rows: list = []
+    (m_, out_sh, in_sh, ent), kw = captured["label_step"]
+    P, B, rl = kw["n_pairs"], kw["B"], kw["rl"]
+    g, Wo, Wi = out_sh.shape[0], out_sh.shape[2], in_sh.shape[2]
+    pa, pb = ent[:P], ent[P : 2 * P]
+    full = lambda: ps.label_step_cuda(mesh, out_sh, in_sh, ent, **kw)  # noqa: E731
+    plain = lambda: ps.label_step_ref(mesh, out_sh, in_sh, ent, **kw)  # noqa: E731
+    exch = 4 * P * (Wo + Wi)
+    _k10_row(rows, "shard_label_step", K10B, "pair-row exchange and K3's compare",
+             full, plain, ([full()], [plain()]), launches["label_step"],
+             _bound(rate, int_rate, 12 * P + 3 * exch + B // 8, P * Wo * Wi), 20,
+             extra={"pairs": P, "Wo": Wo, "Wi": Wi, "rl": rl, "g": g})
+
+    def exchange(acc):
+        return torch.cat([ps.exchange_pair_rows(out_sh, pa, rl, acc),
+                          ps.exchange_pair_rows(in_sh, pb, rl, acc)], 1)
+
+    def contrib(lab_sh, rows_):
+        out = []
+        for s in range(g):
+            local = rows_.long() - s * rl
+            own = (local >= 0) & (local < rl)
+            out.append(torch.where(own[:, None], lab_sh[s][local.clamp(0, rl - 1)],
+                                   torch.zeros((), dtype=torch.int32, device="cuda")))
+        return torch.stack(out)
+
+    co, ci = contrib(out_sh, pa), contrib(in_sh, pb)
+    _k10_row(rows, "pair_rows", K10B, "the psum pair-row exchange, sharded.py:500-514 (both "
+             "sides, every shard)", lambda: exchange(ps.pair_rows_cuda),
+             lambda: exchange(ps.pair_rows_ref),
+             ([exchange(ps.pair_rows_cuda)], [exchange(ps.pair_rows_ref)]), launches["pair_rows"],
+             _bound(rate, 1, 8 * P + 2 * exch), 20,
+             library=lambda: (co.sum(0, dtype=torch.int32), ci.sum(0, dtype=torch.int32)),
+             extra={"pairs": P, "library": "torch.stack(...).sum(0) of the per-shard rows"})
+
+    (m_, groups, V, X, S, cov), kw = captured["label_sweep_step"]
+    rps, wt = kw["rps"], V[0].shape[1]
+    make = lambda: ([v.clone() for v in V], X, [x.clone() for x in S], cov)  # noqa: E731
+
+    def wave(fn):
+        return lambda Vs, Xs, Ss, Cs: ps.label_sweep_step(mesh, groups, Vs, Xs, Ss, Cs, wave=fn,
+                                                          **kw)
+
+    def flat(res):
+        return [torch.cat(res[0]), torch.cat(res[1]), torch.cat(res[2]), res[3]]
+
+    n_rows = sum(gr.n_rows for gr in groups)
+    n_slots = sum(int(gr.slots.numel()) for gr in groups)
+    k6_bytes = 4 * (n_slots + n_rows + wt * (g * rps + 5 * n_rows)) + 2 * g * rps * wt * 4
+    _k10_row(rows, "shard_label_sweep_step", K10C, "one sharded wave: the halo copy and "
+             "K6's keto_sweep_step per shard", wave(lk.sweep_step_into_cuda),
+             wave(lk.sweep_step_into_ref),
+             (flat(wave(lk.sweep_step_into_cuda)(*make())),
+              flat(wave(lk.sweep_step_into_ref)(*make()))),
+             build_launches["sweep_step"] // g, _bound(rate, 1, k6_bytes), 20, make=make,
+             extra={"rows": n_rows, "slots": n_slots, "wt": wt, "rps": rps, "g": g},
+             source=LABEL_SRC)
+    Xfull = ps.all_gather_rows(X)
+
+    def sweep_only(fn):
+        def run(Vs, Xs, Ss, Cs):
+            X2 = [torch.zeros_like(v) for v in Vs]
+            st = torch.zeros(2, dtype=torch.int32, device="cuda")
+            for s in range(g):
+                fn(groups[s], Xfull, Vs[s], Ss[s], Cs[s], X2[s], st,
+                   prune_expansion=kw.get("prune_expansion", True))
+            return [torch.cat(Vs), torch.cat(X2), torch.cat(Ss), st]
+        return run
+
+    _k10_row(rows, "sweep_step_sharded", K10C, "the shard-local wave, sharded.py:592-610 "
+             "(K6's keto_sweep_step with n_dst = rps, once per shard)",
+             sweep_only(lk.sweep_step_into_cuda), sweep_only(lk.sweep_step_into_ref),
+             (sweep_only(lk.sweep_step_into_cuda)(*make()),
+              sweep_only(lk.sweep_step_into_ref)(*make())),
+             build_launches["sweep_step"], _bound(rate, 1, k6_bytes - 2 * g * rps * wt * 4), 20,
+             make=make, source=LABEL_SRC)
+    if sum(r["mismatches"] for r in rows):
+        raise SystemExit("shard FAILED: K10b/K10c parity at config 4's shapes")
+    return rows
+
+
+# -- phase 7: list, reverse queries on the deep phase's engine and store -----------
 
 
 class PinnedEngine:
@@ -1458,12 +2132,10 @@ def graph_ms(torch, launch, n: int, reps: int = 10):
     return start.elapsed_time(end) / (reps * n), "cuda_graph"
 
 
-def hybrid_stream(engine, queries, expected, ctx) -> dict:
-    """Label-route checks with wildcard-relation checks among them, streamed
-    at a pinned width: every slice must land on the hybrid route, equal to
-    ``batch_check`` and the expectation."""
-    import numpy as np
-
+def hybrid_queries(queries, expected, ctx):
+    """``HYBRID_CHECKS`` label-route checks with every fourth replaced by a
+    wildcard-relation check ("may user u do anything on repo r?", two
+    starts, never label-certifiable), and their expected decisions."""
     from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectID
 
     rng = random.Random(SEED + 9)
@@ -1491,6 +2163,16 @@ def hybrid_stream(engine, queries, expected, ctx) -> dict:
             u = rng.randrange(ctx["n_users"])
         qs.append(RelationTuple("repos", f"repo-{r}", "", SubjectID(f"user-{u}")))
         want.append(any(ctx["grant_ok"](u, g) for g in grants))
+    return qs, want
+
+
+def hybrid_stream(engine, queries, expected, ctx) -> dict:
+    """Label-route checks with wildcard-relation checks among them, streamed
+    at a pinned width: every slice must land on the hybrid route, equal to
+    ``batch_check`` and the expectation."""
+    import numpy as np
+
+    qs, want = hybrid_queries(queries, expected, ctx)
     batch = engine.batch_check(qs)
     engine.reset_route_stats()
     fb0 = engine.counters().get("label_fallbacks", 0)
@@ -2306,12 +2988,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help=f"comma-separated phases to run (default: all of {','.join(PHASES)}); "
-                         "labels needs main, list and explain need deep, write needs list")
+                         "labels needs main, shard needs main and deep, list and explain need "
+                         "deep, write needs list")
     args = ap.parse_args(argv)
     phases = set(args.only.split(","))
     unknown = phases - set(PHASES)
-    missing = [f"{p} needs {PHASE_NEEDS[p]}" for p in sorted(phases & set(PHASE_NEEDS))
-               if PHASE_NEEDS[p] not in phases]
+    missing = [f"{p} needs {need}" for p in sorted(phases & set(PHASE_NEEDS))
+               for need in PHASE_NEEDS[p] if need not in phases]
     if unknown or missing:
         print(f"chip_smoke: --only {args.only}: unknown phases {sorted(unknown)}, {missing}",
               file=sys.stderr)
@@ -2352,6 +3035,8 @@ def main(argv=None) -> int:
         if "labels" in phases:
             phase_labels(torch, kernels, report, main_ctx, queries)
             log(json.dumps({"labels": report["labels"]}))
+        # the shard phase holds its config 3 run against this engine's
+        main_keep = (engine, queries, main_ctx) if "shard" in phases else None
         del engine, snap, queries, main_ctx
     log(f"elapsed {time.monotonic() - t_start:.1f}s")
     if "deep" in phases:
@@ -2361,6 +3046,12 @@ def main(argv=None) -> int:
         log(json.dumps({"deep": report["deep"]}))
         del snap, captured
         log(f"elapsed {time.monotonic() - t_start:.1f}s")
+        if "shard" in phases:
+            rows += phase_shard(torch, kernels, report, main_keep,
+                                (engine, store, deep_q, deep_got, ctx), rate, int_rate)
+            main_keep[0].close()
+            main_keep = None
+            log(f"elapsed {time.monotonic() - t_start:.1f}s")
         if "list" in phases:
             lst, lcap, ll = phase_list(torch, kernels, report, engine, store, ctx)
             rows += list_sort_rows(torch, kernels, lcap, ll, launches, sort_keys, rate)

@@ -48,7 +48,7 @@ _SIGNATURES = {
     "keto_answer_pack": [_P, _I64, _I64, _I64, _I64, _I32, _P, _P, _P, _I32, _P, _P, _P],
     "keto_label_step": [_P, _I32, _P, _I32, _I64, _P, _I64, _P, _P],
     "keto_label_witness": [_P, _I32, _P, _I32, _I64, _P, _P, _I64, _P, _P],
-    "keto_sweep_step": [_P, _P, _P, _I32, _I64, _P, _P, _P, _P, _P, _I32, _I32, _P, _P],
+    "keto_sweep_step": [_P, _P, _P, _I32, _I64, _P, _P, _P, _P, _P, _I32, _I64, _I32, _P, _P],
     "keto_covered": [_P, _I64, _I32, _P, _I64, _P, _I32, _P, _P],
     "keto_slot_set": [_P, _I32, _I64, _P, _P, _P, _I64, _P, _P],
     "keto_radix_tile": [],
@@ -56,6 +56,8 @@ _SIGNATURES = {
     "keto_radix_scan": [_P, _I64, _P, _P],
     "keto_radix_scatter": [_P, _P, _I64, _I32, _P, _P, _P, _P, _P],
     "keto_list_scatter": [_P, _I64, _P, _P, _I64, _P, _P],
+    "keto_shard_answer": [_P, _I64, _I64, _I64, _I64, _I32, _P, _P, _P, _I32, _P, _P, _P],
+    "keto_pair_rows": [_P, _I64, _I32, _P, _I64, _I64, _P, _P],
 }
 
 

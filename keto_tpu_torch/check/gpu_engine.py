@@ -71,12 +71,28 @@ where the reference fetches a whole batch in one copy. ``label_witness_info``
 names the landmark of a label-route grant for the explain path through
 ``label_step_witness`` (K4).
 
+Sharded serving (tpu_engine.py:1188-1205, keto_tpu_torch/parallel/). With
+``mesh=`` a ``ShardMesh`` of ``g`` shards the engine partitions the bucket,
+bitmap and label rows into row-range shards (``make_shard_spec``) and runs
+the sharded programs (K10): the BFS route through ``check_step``, the
+label route through ``label_step``, the label build and patch through the
+sharded sweeper. Overlays are re-routed per shard on every delta (never
+scattered into a resident pack), ELL patches land on the owning shard's
+slot of the stacked arrays (K9), and each sharded slice feeds the counters
+``shard_halo_rounds``, ``shard_halo_bytes`` and ``shard_frontier_bits``
+and the stream's per-slice ``halo_rounds``/``halo_bytes``. Decisions are
+bit-identical to the single-device engine's. A failed sharded dispatch
+raises and counts ``shard_dispatch_failures``; nothing falls back to the
+unsharded kernels. Explain names a sharded engine's landmark from the host
+index, as the reference does (tpu_engine.py:3836).
+
 Kept against the reference engine: bucket upload, the label build
 overlapped on a background thread and installed only onto the exact
 snapshot it was built for, host resolution, the label router, slicing, the
 exact truncation re-run ladder and the
 grow-only ``block_iters`` retune. Not here: the snapshot cache, group
-commit, sharding, the HBM governor (and its staging rung), priority lanes,
+commit, shards on several cards, the GSPMD mode and the multi-process
+lockstep, the HBM governor (and its staging rung), priority lanes,
 admission control, deadlines, request timelines, the shadow audit and any
 CPU fallback. A device error raises; a failed label
 build, background refresh, fold or device label patch is counted and
@@ -115,8 +131,9 @@ from keto_tpu_torch.graph.device_build import GovernedSorter, estimate_sort_byte
 from keto_tpu_torch.graph.labels import build_labels, patch_labels
 from keto_tpu_torch.graph.overlay import apply_delta
 from keto_tpu_torch.graph.snapshot import WILDCARD, GraphSnapshot, build_snapshot
+from keto_tpu_torch.parallel import sharded as shard_mod
 from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectID, SubjectSet
-from keto_tpu_torch.x.device import resolve_device
+from keto_tpu_torch.x.device import resolve_device, same_device
 from keto_tpu_torch.x.errors import ErrNamespaceUnknown
 from keto_tpu_torch.x.supervise import SupervisedTask
 from keto_tpu_torch.x.telemetry import DurationStats
@@ -192,6 +209,36 @@ class _HybridSlice:
         return all(p.is_ready() for p in self.parts())
 
 
+class _ShardedSlice:
+    """Device output of one sharded BFS dispatch (tpu_engine.py:417-430):
+    the packed ``uint32[W+3]`` output of K10a (decision bits, iterations,
+    truncation, frontier-bit population) and the halo bytes of one round,
+    which the landing turns into the ``shard_*`` counters. Lands like a
+    ``_DeviceOut``."""
+
+    __slots__ = ("out", "halo_bytes_per_round")
+
+    def __init__(self, out: _DeviceOut, halo_bytes_per_round: int):
+        self.out = out
+        self.halo_bytes_per_round = int(halo_bytes_per_round)
+
+    def copy_to_host_async(self) -> None:
+        self.out.copy_to_host_async()
+
+    def is_ready(self) -> bool:
+        return self.out.is_ready()
+
+    def words(self) -> np.ndarray:
+        return self.out.words()
+
+
+def _halo_bytes_of(dev) -> Optional[int]:
+    """The halo bytes per round of a slice's sharded BFS part, or None."""
+    if isinstance(dev, _HybridSlice):
+        dev = dev.bfs_dev
+    return dev.halo_bytes_per_round if isinstance(dev, _ShardedSlice) else None
+
+
 def _route_of(dev) -> str:
     """The route of a landed slice, named as the reference's ``land()``
     names it: ``host`` (no device part), ``label`` (the label step alone),
@@ -214,7 +261,8 @@ class TorchCheckEngine:
     plain PyTorch path on the host. The overlay knobs and their defaults
     are the reference's (tpu_engine.py:1086-1092); the stream runs with the
     reference's default window and controller (target 40 ms per slice, tail
-    ratio 5).
+    ratio 5). ``mesh`` (a ``ShardMesh`` on the engine's device) selects the
+    sharded mode.
     """
 
     #: the stream yields per-slice route info (``with_info=True``)
@@ -244,10 +292,19 @@ class TorchCheckEngine:
         compact_after_s: float = 5.0,
         sync_rebuild_budget_s: float = 0.25,
         device_build_enabled: bool = True,
+        mesh=None,
     ):
         if it_cap < 1:
             raise ValueError("it_cap must be >= 1 (the answer pull needs one step)")
         self.device = resolve_device(device)
+        # the explicit sharded mode (keto_tpu_torch/parallel/sharded.py): the
+        # bucket, bitmap and label rows partition into row-range shards over
+        # the mesh's graph axis, all on this engine's device
+        self._mesh = mesh
+        self._sharded = mesh is not None
+        self._shard_count = int(mesh.graph) if mesh is not None else 0
+        if mesh is not None and not same_device(mesh.device, self.device):
+            raise ValueError(f"the mesh lives on {mesh.device}, the engine on {self.device}")
         self._store = store
         if isinstance(namespaces, namespace_pkg.Manager):
             self._nm: Callable[[], namespace_pkg.Manager] = lambda: namespaces
@@ -341,9 +398,11 @@ class TorchCheckEngine:
         # label_patch_aborts, label_rebuilds, label_invalidations; and the
         # failures the port raises where the reference falls back:
         # refresh_failures, compaction_failures, label_patch_failures,
-        # witness_errors (a failed K4 launch in label_witness_info); and
-        # slice_splits, the sub-chunks past the first that chunks whose
-        # entries passed their budget were split into
+        # witness_errors (a failed K4 launch in label_witness_info),
+        # shard_dispatch_failures (a failed sharded dispatch); slice_splits,
+        # the sub-chunks past the first that chunks whose entries passed
+        # their budget were split into; and, sharded, shard_halo_rounds,
+        # shard_halo_bytes and shard_frontier_bits
         self._counters: collections.Counter = collections.Counter()
         self._counter_lock = threading.Lock()
         # the build's stable sorts: K8 on the card past the size gate
@@ -355,6 +414,11 @@ class TorchCheckEngine:
         #: the last full build: seconds, sort seconds by backend, and the
         #: transient sort bytes the reference plans (build_sort_bytes)
         self.build_info: Optional[dict] = None
+
+    @property
+    def shard_count(self) -> int:
+        """Graph shards of the sharded mode (0 = not sharded)."""
+        return self._shard_count
 
     # -- snapshot lifecycle --------------------------------------------------
 
@@ -529,8 +593,7 @@ class TorchCheckEngine:
                                  sorter=self._build_sorter)
             sort_s = self._take_sort_seconds()
             del rows
-            arrays, meta = snapshot_arrays(new)
-            new.device = device_graph_from_arrays(arrays, meta, self.device)
+            self._upload_buckets(new)
             self._ov_pack = None
             self._last_full_build_s = time.monotonic() - t0
             self.build_info = {
@@ -614,8 +677,8 @@ class TorchCheckEngine:
         new = got.snapshot
         g = snap.device
         if g is None:
-            arrays, meta = snapshot_arrays(new)
-            new.device = device_graph_from_arrays(arrays, meta, self.device)
+            # the sharded mode re-partitions the compacted layout in full
+            self._upload_buckets(new)
         else:
             bufs = list(g.buckets)
             for bi in got.touched_buckets:
@@ -635,7 +698,7 @@ class TorchCheckEngine:
             # builds the index its compacted base needs before installing
             new.labels = self._build_label_index(new)
             self._incr("label_builds")
-        if new.labels is not None and new.device_labels is None:
+        if new.labels is not None and self._labels_dev(new) is None:
             self._upload_labels(new)
         self._incr("compactions")
         self.last_compaction = {
@@ -715,6 +778,10 @@ class TorchCheckEngine:
         untouched, so batches in flight keep gathering the old state."""
         patch = snap.ell_patch
         snap.ell_patch = None
+        if self._sharded:
+            if patch and snap.device_shards is not None:
+                self._apply_ell_patch_sharded(snap, patch)
+            return
         g = snap.device
         if not patch or g is None:
             return
@@ -726,6 +793,40 @@ class TorchCheckEngine:
             e = np.asarray(entries, np.int64)
             bufs[bi] = kernels.slot_set(bufs[bi], e[:, 0], e[:, 1], e[:, 2])
         snap.device = dataclasses.replace(g, buckets=tuple(bufs))
+
+    def _apply_ell_patch_sharded(self, snap: GraphSnapshot, patch) -> None:
+        """Sharded mode (tpu_engine.py:2578-2600): route each patched slot to
+        its owning shard's row of the stacked bucket array (``patch_pos``),
+        update the host stacked array in place (the upload truth, as the
+        reference keeps it) and apply the slots with K9 on a copy of the
+        touched stacks, so batches in flight keep gathering the old ones."""
+        spec = snap.shard_spec
+        by_bucket: dict[int, list] = {}
+        for bi, row, col, val in patch:
+            s, pos = spec.patch_pos(snap.buckets[bi].offset, bi, row)
+            by_bucket.setdefault(bi, []).append((s, pos, col, val))
+        dev = snap.device_shards
+        bufs = list(dev.nbrs)
+        for bi, entries in by_bucket.items():
+            e = np.asarray(entries, np.int64)
+            spec.nbrs_sh[bi][e[:, 0], e[:, 1], e[:, 2]] = e[:, 3]
+            g, rb, cap = bufs[bi].shape
+            flat = kernels.slot_set(bufs[bi].view(g * rb, cap), e[:, 0] * rb + e[:, 1], e[:, 2],
+                                    e[:, 3])
+            bufs[bi] = flat.view(g, rb, cap)
+        snap.device_shards = dataclasses.replace(dev, nbrs=tuple(bufs))
+
+    def _upload_buckets(self, snap: GraphSnapshot) -> None:
+        """Place the snapshot's buckets on the device: one tensor per bucket,
+        or in sharded mode (tpu_engine.py:2635-2663) the stacked per-shard
+        arrays of a fresh row-range partitioning."""
+        if not self._sharded:
+            arrays, meta = snapshot_arrays(snap)
+            snap.device = device_graph_from_arrays(arrays, meta, self.device)
+            return
+        spec = shard_mod.make_shard_spec(snap, self._shard_count)
+        snap.shard_spec = spec
+        snap.device_shards = shard_mod.ShardedBuckets.from_spec(spec, self.device)
 
     def _apply_overlay_delta(self, snap: GraphSnapshot, delta) -> bool:
         """Scatter one delta's added and dropped overlay-ELL edges into the
@@ -809,8 +910,9 @@ class TorchCheckEngine:
         if snap.ov_ell is None or snap.ov_ell.shape[0] == 0:
             self._ov_pack = None
             snap.device_overlay = None
+            snap.device_shard_overlay = None
             return
-        if self._apply_overlay_delta(snap, delta):
+        if not self._sharded and self._apply_overlay_delta(snap, delta):
             return
         src = snap.ov_ell[:, 0]
         dst = snap.ov_ell[:, 1]
@@ -818,8 +920,20 @@ class TorchCheckEngine:
         src, dst = src[order], dst[order]
         uniq, starts = np.unique(dst, return_index=True)
         counts = np.diff(np.append(starts, dst.shape[0]))
-        K = _ceil_pow2(uniq.shape[0])
         C = _ceil_pow2(int(counts.max()))
+        if self._sharded:
+            # route every overlay row to the shard owning its destination
+            # (tpu_engine.py:2790-2811), re-routed in full on every delta
+            self._ov_pack = None
+            nbrs = np.full((uniq.shape[0], C), snap.num_int, np.int32)
+            for i, (s0, c) in enumerate(zip(starts, counts)):
+                nbrs[i, :c] = src[s0 : s0 + c]
+            ovn, ovd, _ = shard_mod.route_overlay(snap.shard_spec, nbrs, uniq, snap.num_active)
+            snap.device_overlay = None
+            snap.device_shard_overlay = (torch.from_numpy(ovn).to(self.device),
+                                         torch.from_numpy(ovd).to(self.device))
+            return
+        K = _ceil_pow2(uniq.shape[0])
         nbrs = np.full((K, C), snap.num_int, np.int32)  # the all-zero bitmap row
         for i, (s0, c) in enumerate(zip(starts, counts)):
             nbrs[i, :c] = src[s0 : s0 + c]
@@ -893,6 +1007,8 @@ class TorchCheckEngine:
                 min_gain=self._labels_min_gain,
                 batch=self._labels_batch,
                 device=self.device,
+                mesh=self._mesh,
+                shard_count=self._shard_count,
             )
             self.label_build_info = info
             self._incr("label_device_builds")
@@ -978,10 +1094,23 @@ class TorchCheckEngine:
         return snap is not None and snap.labels is not None
 
     def _upload_labels(self, snap: GraphSnapshot) -> None:
-        snap.device_labels = tuple(
-            torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(self.device)
-            for a in (snap.labels.out_lab, snap.labels.in_lab)
-        )
+        """Place the label arrays on the device: the pair, or in sharded mode
+        (tpu_engine.py:3142-3160) row stripes per shard, each padded with
+        its side's own pad."""
+        out_lab = np.ascontiguousarray(snap.labels.out_lab, np.int32)
+        in_lab = np.ascontiguousarray(snap.labels.in_lab, np.int32)
+        if self._sharded:
+            out_sh, in_sh, rl, _ = shard_mod.route_labels(out_lab, in_lab, self._shard_count)
+            snap.device_labels = None
+            snap.device_shard_labels = (torch.from_numpy(out_sh).to(self.device),
+                                        torch.from_numpy(in_sh).to(self.device), rl)
+            return
+        snap.device_labels = tuple(torch.from_numpy(a).to(self.device) for a in (out_lab, in_lab))
+
+    def _labels_dev(self, snap: GraphSnapshot):
+        """The device label arrays this engine's mode reads: the row
+        stripes when sharded, else the pair."""
+        return snap.device_shard_labels if self._sharded else snap.device_labels
 
     def _labels_usable(self, snap: GraphSnapshot) -> bool:
         """Route checks through the label index on this snapshot? Not while
@@ -996,7 +1125,7 @@ class TorchCheckEngine:
                     self._label_blocked_snap = snap.snapshot_id
                     self._counters["label_invalidations"] += 1
             return False
-        return snap.device_labels is not None
+        return self._labels_dev(snap) is not None
 
     def _label_patcher(self, idx, snap, added_edges, visit_budget: int = 65536):
         """Compaction's incremental label patch (tpu_engine.py:3101): on the
@@ -1009,6 +1138,7 @@ class TorchCheckEngine:
                 return label_build.device_patch_labels(
                     idx, snap, added_edges, visit_budget=visit_budget,
                     batch=self._labels_batch, device=self.device,
+                    mesh=self._mesh, shard_count=self._shard_count,
                 )
             except Exception:
                 self._incr("label_patch_failures")
@@ -1249,7 +1379,8 @@ class TorchCheckEngine:
         off, the index missing or dirtied by a pending overlay, a wildcard
         query, a non-interior endpoint). Reads the device arrays through
         ``label_step_witness`` (K4) with one pair; the host index answers
-        only when the labels are not on the device. Unlike the reference,
+        only when the labels are not on the device, and on a sharded engine
+        (tpu_engine.py:3836: K4 has no sharded form). Unlike the reference,
         a failed K4 launch raises (counted as ``witness_errors``) and is
         never replaced by the host's answer. Only the explain path calls
         this; checks never do."""
@@ -1267,7 +1398,7 @@ class TorchCheckEngine:
         if a < 0 or b < 0 or a >= ni or b >= ni:
             return None
         dl = snap.device_labels
-        if dl is not None:
+        if dl is not None and not self._sharded:
             pair = torch.tensor([[a], [b]], dtype=torch.int32).to(self.device)
             try:
                 got = int(kernels.label_step_witness(dl[0], dl[1], pair[0], pair[1])[0])
@@ -1595,10 +1726,16 @@ class TorchCheckEngine:
                 leases.append(stg)
                 np.concatenate([pa, np.full(pad, ni), pb, np.full(pad, ni), pq, np.zeros(pad)],
                                out=stg.numpy(), casting="unsafe")
-                out_lab, in_lab = snap.device_labels
-                ldev = _DeviceOut(kernels.label_step(
-                    out_lab, in_lab, stg.to(self.device, non_blocking=True), n_pairs=P, B=B
-                ))
+                ent = stg.to(self.device, non_blocking=True)
+                if self._sharded:
+                    # row-striped labels: the pair-row exchange, then K3
+                    out_sh, in_sh, rl = snap.device_shard_labels
+                    ldev = _DeviceOut(self._shard_call(
+                        shard_mod.label_step, self._mesh, out_sh, in_sh, ent, n_pairs=P, B=B,
+                        rl=rl))
+                else:
+                    out_lab, in_lab = snap.device_labels
+                    ldev = _DeviceOut(kernels.label_step(out_lab, in_lab, ent, n_pairs=P, B=B))
             if n_fb:
                 pos = np.nonzero(fallback)[0]
                 gidx = pos + i0
@@ -1626,6 +1763,13 @@ class TorchCheckEngine:
         leases: list = []
         if packed is None:
             return None, host_ans, leases
+        if self._sharded:
+            try:
+                dev = self._dispatch_sharded(snap, packed, it_cap or self._it_cap, leases)
+            except BaseException:
+                self._stage_release(leases)  # nothing of the slice will land
+                raise
+            return dev, host_ans, leases
         stg = self._staging.acquire(sum(a.shape[0] for a in packed))
         leases.append(stg)
         try:
@@ -1653,6 +1797,55 @@ class TorchCheckEngine:
             raise
         return _DeviceOut(dev), host_ans, leases
 
+    def _dispatch_sharded(self, snap: GraphSnapshot, packed, it_cap: int, leases: list):
+        """Route one packed chunk's entries to their owning shards and run
+        K10a (tpu_engine.py:4695-4742): a ``_ShardedSlice`` whose
+        ``uint32[W+3]`` output lands like any BFS output, plus the halo
+        bytes of one round. The routed ``[g, L]`` entry stack stages through
+        the pool (its lease joins ``leases``). A failure anywhere in it, the
+        routing and staging included, is counted and raised."""
+        spec = snap.shard_spec
+        B = packed[-1].shape[0]
+
+        def out_alloc(shape):
+            stg = self._staging.acquire(shape[0] * shape[1])
+            leases.append(stg)
+            return stg.numpy().reshape(shape)
+
+        def dispatch():
+            entries, sizes = shard_mod.route_entries(spec, packed, B, out_alloc=out_alloc)
+            stg = leases[-1]
+            if entries.ctypes.data != stg.numpy().ctypes.data:
+                raise RuntimeError("the routed entries did not land in their staging buffer")
+            ent = stg.view(entries.shape).to(self.device, non_blocking=True)
+            ov = snap.device_shard_overlay or (None, None)
+            return shard_mod.check_step(
+                self._mesh, snap.device_shards, ent, ov[0], ov[1], sizes=sizes,
+                rps=spec.rows_per_shard, B=B, it_cap=it_cap, block_iters=self._block_iters,
+            )
+
+        dev = self._shard_call(dispatch)
+        return _ShardedSlice(_DeviceOut(dev), shard_mod.halo_bytes_per_round(spec, B // 32))
+
+    def _shard_call(self, fn, *args, **kw):
+        """Run one sharded program; a failure is counted
+        (``shard_dispatch_failures``) and raised — never retried on the
+        unsharded kernels or the host."""
+        try:
+            return fn(*args, **kw)
+        except Exception:
+            self._incr("shard_dispatch_failures")
+            raise
+
+    def _note_sharded_stats(self, iters: int, frontier_bits: int, halo_bytes_per_round: int) -> None:
+        """One sharded slice's tail words into the ``shard_*`` counters
+        (tpu_engine.py:4744-4753): one halo exchange per real hop."""
+        if iters:
+            self._incr("shard_halo_rounds", iters)
+            self._incr("shard_halo_bytes", iters * halo_bytes_per_round)
+        if frontier_bits:
+            self._incr("shard_frontier_bits", frontier_bits)
+
     def _stage_release(self, leases) -> None:
         """Return a landed slice's staging buffers to the pool. Empties the
         lease list, so releasing a record twice (``land()`` plus the
@@ -1674,6 +1867,26 @@ class TorchCheckEngine:
         return bits | host_ans[:nq], int(f[W]), bool(f[W + 1])
 
     @staticmethod
+    def _decode_packed_sharded(f: np.ndarray, host_ans: np.ndarray, nq: int):
+        """Decode one sharded output ``uint32[W+3]`` (tpu_engine.py:4209):
+        ``(bool[nq], iters, truncated, frontier_bits)``, the last read as
+        unsigned."""
+        W = f.shape[0] - 3
+        lanes = np.arange(32, dtype=np.uint32)
+        bits = ((f[:W, None] >> lanes) & 1).astype(bool).ravel()[:nq]
+        return bits | host_ans[:nq], int(f[W]), bool(f[W + 1]), int(f[W + 2])
+
+    def _decode_bfs(self, dev, host_ans: np.ndarray, nq: int):
+        """Land one BFS output of either kind (tpu_engine.py:4218-4227): a
+        sharded one also feeds the ``shard_*`` counters. Returns
+        ``(bool[nq], iters, truncated)``."""
+        if isinstance(dev, _ShardedSlice):
+            bits, it, tr, fb = self._decode_packed_sharded(dev.words(), host_ans, nq)
+            self._note_sharded_stats(it, fb, dev.halo_bytes_per_round)
+            return bits, it, tr
+        return self._decode_packed(dev.words(), host_ans, nq)
+
+    @staticmethod
     def _decode_label_bits(f: Optional[np.ndarray], nq: int) -> np.ndarray:
         """Label kernel output ``uint32[W]`` → bool[nq] (None → zeros)."""
         if f is None:
@@ -1681,14 +1894,14 @@ class TorchCheckEngine:
         lanes = np.arange(32, dtype=np.uint32)
         return ((f[:, None] >> lanes) & 1).astype(bool).ravel()[:nq]
 
-    def _decode_hybrid(self, lab, bfs, bfs_pos, host_ans, nq):
-        """Decode one label-routed slice from fetched arrays: label bits for
-        the whole slice, BFS sub-batch bits scattered onto their positions.
-        Only the BFS part can truncate."""
+    def _decode_hybrid(self, lab, bfs_dev, bfs_pos, host_ans, nq):
+        """Decode one label-routed slice: label bits (fetched) for the whole
+        slice, the BFS sub-batch's bits (landed here, sharded or not)
+        scattered onto their positions. Only the BFS part can truncate."""
         out = self._decode_label_bits(lab, nq)
         iters, trunc = 0, False
-        if bfs is not None:
-            bits2, iters, trunc = self._decode_packed(bfs, host_ans[bfs_pos], bfs_pos.size)
+        if bfs_dev is not None:
+            bits2, iters, trunc = self._decode_bfs(bfs_dev, host_ans[bfs_pos], bfs_pos.size)
             out[bfs_pos] = bits2
         return out | host_ans[:nq], iters, trunc
 
@@ -1702,10 +1915,10 @@ class TorchCheckEngine:
                 out, iters, truncated = host_ans[:nq], 0, False
             elif isinstance(dev, _HybridSlice):
                 lab = dev.label_dev.words() if dev.label_dev is not None else None
-                bfs = dev.bfs_dev.words() if dev.bfs_dev is not None else None
-                out, iters, truncated = self._decode_hybrid(lab, bfs, dev.bfs_pos, host_ans, nq)
+                out, iters, truncated = self._decode_hybrid(lab, dev.bfs_dev, dev.bfs_pos,
+                                                            host_ans, nq)
             else:
-                out, iters, truncated = self._decode_packed(dev.words(), host_ans, nq)
+                out, iters, truncated = self._decode_bfs(dev, host_ans, nq)
         finally:
             self._stage_release(leases)
         route = _route_of(dev)
@@ -1770,6 +1983,11 @@ class TorchCheckEngine:
                 return off, out
             info = {"width": nq, "bfs_steps": int(iters), "route": route,
                     "service_ms": round(ms, 3)}
+            halo = _halo_bytes_of(dev)
+            if halo is not None:
+                # one frontier all-gather per real hop (tpu_engine.py:3987-3999)
+                info["halo_rounds"] = int(iters)
+                info["halo_bytes"] = int(iters) * halo
             return off, out, info
 
         src = slices()

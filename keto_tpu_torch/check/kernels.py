@@ -59,13 +59,15 @@ import torch
 
 #: per-CUDA-kernel launch counters (chip_smoke.py reads them); the label
 #: build's kernels (keto_tpu_torch/graph/label_kernels.py), the build sort's
-#: (keto_tpu_torch/graph/sort_kernels.py) and the list fixpoint's
-#: (keto_tpu_torch/list/kernels.py) count here too
+#: (keto_tpu_torch/graph/sort_kernels.py), the list fixpoint's
+#: (keto_tpu_torch/list/kernels.py) and the sharded programs'
+#: (keto_tpu_torch/parallel/sharded.py) count here too
 COUNTS = {
     "seed": 0, "pull": 0, "commit": 0, "close": 0, "answer_pack": 0,
     "label_step": 0, "label_witness": 0, "sweep_step": 0, "covered": 0, "slot_set": 0,
     "radix_hist": 0, "radix_scan": 0, "radix_scatter": 0,
     "list_gather": 0, "list_scatter": 0,
+    "shard_answer": 0, "pair_rows": 0,
     # not kernels of their own: of the "pull" launches, those over the
     # overlay gather matrix (K2's overlay stage); whole radix sorts; list
     # fixpoint runs and the steps they ran

@@ -100,6 +100,48 @@ def random_case(rng, W, caps=(), rows=(), n_int=64, chain=False, overlay=False,
     return buckets, entries, ov, kw
 
 
+class _Bucket:
+    """A degree bucket as ``make_shard_spec`` reads one."""
+
+    def __init__(self, nbrs, n, offset):
+        self.nbrs, self.n, self.offset = nbrs, n, offset
+
+
+class _Layout:
+    """A snapshot's bucket layout, as ``make_shard_spec`` reads one."""
+
+    def __init__(self, buckets, n_int, n_active):
+        self.buckets, self.num_int, self.num_active = buckets, n_int, n_active
+
+
+def random_shard_case(rng, g: int, **case):
+    """A ``random_case`` layout (``case`` its arguments) partitioned into
+    ``g`` row-range shards by the port's routing: ``(single, sharded)``,
+    ``single = (buckets, entries, ov, kw)`` as ``random_case`` returns it
+    and ``sharded = (spec, entries int32[g, L], ov (int32[g, K, C],
+    int32[g, K]) | None, kw)`` with ``kw`` the sharded program's ``sizes``,
+    ``rps``, ``B``, ``it_cap`` and ``block_iters``. Rows that do not divide
+    evenly leave the last shard short (or empty); overlay pad rows are
+    owned by no shard."""
+    from keto_tpu_torch.parallel.sharded import make_shard_spec, route_entries, route_overlay
+
+    buckets, entries, ov, kw = random_case(rng, **case)
+    offs = np.cumsum([0] + list(kw["valid_rows"]))
+    layout = _Layout([_Bucket(nb, int(n), int(o)) for nb, n, o in
+                      zip(buckets, kw["valid_rows"], offs)], kw["n_int"], kw["n_active"])
+    spec = make_shard_spec(layout, g)
+    S1, S2, SA, B = kw["sizes"]
+    packed = np.split(entries, np.cumsum([S1, S1, S2, S2, SA, SA]))
+    ent_sh, sizes = route_entries(spec, packed, B)
+    ov_sh = None
+    if ov is not None:
+        ovn, ovd, _ = route_overlay(spec, ov[0], ov[1], kw["n_active"])
+        ov_sh = (ovn, ovd)
+    kw_sh = dict(sizes=sizes, rps=spec.rows_per_shard, B=B, it_cap=kw["it_cap"],
+                 block_iters=kw["block_iters"])
+    return (buckets, entries, ov, kw), (spec, ent_sh, ov_sh, kw_sh)
+
+
 def _bits(rng, shape) -> np.ndarray:
     """Random uint32 words, as int32, with bit 31 set in a third of them."""
     w = rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32)

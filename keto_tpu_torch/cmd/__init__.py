@@ -32,6 +32,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="string-codec tuples to load at start ('//' comments)")
     s.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain PyTorch path)")
+    s.add_argument("--mesh-graph", type=int, default=1, metavar="G",
+                   help="serve from G row-range graph shards on the device (default 1: unsharded)")
     s.add_argument("--no-device-build", dest="device_build", action="store_false",
                    help="sort the snapshot build on the host instead of the card (K8)")
     s.add_argument("--no-explain", dest="explain_enabled", action="store_false",
@@ -62,10 +64,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                explain_enabled=args.explain_enabled, decision_log_dir=args.decision_log_dir,
                decision_log_sample=args.decision_log_sample,
                decision_log_segment_bytes=args.decision_log_segment_bytes,
-               decision_log_retention=args.decision_log_retention)
+               decision_log_retention=args.decision_log_retention,
+               mesh_graph=args.mesh_graph)
     d.start()
-    print(f"serving: read :{d.read.port}, write :{d.write.port}, device {d.engine.device}",
-          flush=True)
+    print(f"serving: read :{d.read.port}, write :{d.write.port}, device {d.engine.device}, "
+          f"graph shards {d.engine.shard_count}", flush=True)
     done = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: done.set())
     try:

@@ -126,8 +126,15 @@ __global__ void label_witness_kernel(const int32_t* __restrict__ out_lab, int32_
 // K6. One frontier wave of a batch of landmark BFSs over every ELL group:
 // row r of the flattened groups gathers X over its slots (P), then at its
 // destination d: N = P & ~V, store = N & ~cov, V |= N, S |= store,
-// X2 = store (prune) or N. `active` (state[0]) is any(X2 != 0), `visits`
-// (state[1]) the popcount of N; X2 and state arrive zeroed.
+// X2 = store (prune) or N. A d outside [0, n_dst) is dropped. `active`
+// (state[0]) is set when any X2 word is nonzero and `visits` (state[1])
+// gains the popcount of N; X2 arrives zeroed, and state is added into.
+//
+// The sharded build (K10c, keto_tpu/parallel/sharded.py:559) runs the same
+// kernel once per shard: X is the halo-exchanged bitmap in GLOBAL rows,
+// V/S/cov/X2 are the shard's LOCAL rows, n_dst = rps drops the routing's
+// padding sentinel, and every shard adds into one state pair (the psums of
+// active and visits). Unsharded, n_dst = n + 1 and no dst is dropped.
 //
 // Bound: bytes — each ELL slot index is read once and each names one X
 // word per landmark word; the masks touch V, S, cov and X2 once per dst
@@ -144,7 +151,7 @@ __global__ void sweep_step_kernel(const int32_t* __restrict__ slots,
                                   int64_t n_rows, const uint32_t* __restrict__ X,
                                   uint32_t* __restrict__ V, uint32_t* __restrict__ S,
                                   const uint32_t* __restrict__ cov,
-                                  uint32_t* __restrict__ X2, int32_t wt,
+                                  uint32_t* __restrict__ X2, int32_t wt, int64_t n_dst,
                                   int32_t prune, int32_t* __restrict__ state) {
   __shared__ int64_t sdesc[3 * kMaxGroups];
   for (int i = threadIdx.x; i < 3 * G; i += blockDim.x) sdesc[i] = desc[i];
@@ -155,6 +162,8 @@ __global__ void sweep_step_kernel(const int32_t* __restrict__ slots,
   for (int64_t idx = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; idx < n;
        idx += (int64_t)gridDim.x * blockDim.x) {
     const int64_t r = idx / wt;
+    const int32_t d = dst[r];
+    if (d < 0 || d >= n_dst) continue;
     const int32_t w = static_cast<int32_t>(idx - r * wt);
     int g = 0;
     while (g + 1 < G && sdesc[3 * (g + 1)] <= r) ++g;
@@ -162,7 +171,7 @@ __global__ void sweep_step_kernel(const int32_t* __restrict__ slots,
     const int32_t* row = slots + sdesc[3 * g + 2] + (r - sdesc[3 * g]) * cap;
     uint32_t acc = 0;
     for (int64_t j = 0; j < cap; ++j) acc |= X[(int64_t)row[j] * wt + w];
-    const int64_t at = (int64_t)dst[r] * wt + w;
+    const int64_t at = (int64_t)d * wt + w;
     const uint32_t v = V[at];
     const uint32_t nw = acc & ~v;
     if (nw) {
@@ -255,10 +264,10 @@ extern "C" int keto_label_witness(const int32_t* out_lab, int32_t Wo, const int3
 extern "C" int keto_sweep_step(const int32_t* slots, const int32_t* dst, const int64_t* desc,
                                int32_t G, int64_t n_rows, const uint32_t* X, uint32_t* V,
                                uint32_t* S, const uint32_t* cov, uint32_t* X2, int32_t wt,
-                               int32_t prune, int32_t* state, void* stream) {
+                               int64_t n_dst, int32_t prune, int32_t* state, void* stream) {
   if (G > kMaxGroups) return static_cast<int>(cudaErrorInvalidValue);
   sweep_step_kernel<<<blocks_for(n_rows * wt), kThreads, 0, (cudaStream_t)stream>>>(
-      slots, dst, desc, G, n_rows, X, V, S, cov, X2, wt, prune, state);
+      slots, dst, desc, G, n_rows, X, V, S, cov, X2, wt, n_dst, prune, state);
   return static_cast<int>(cudaGetLastError());
 }
 

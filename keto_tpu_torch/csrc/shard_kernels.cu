@@ -1,0 +1,146 @@
+// Sharded-serving kernels for Hopper (sm_90a): the shard-local pieces of the
+// row-range sharded Check, label step and label build.
+//
+// Replaces the shard-local work of the shard_map programs of
+// keto_tpu/parallel/sharded.py (K10):
+//   K10a `sharded_check_step`       (:327) -> keto_shard_answer, with K2's
+//        keto_seed, keto_pull, keto_commit and keto_close per shard
+//   K10b `sharded_label_step`       (:473) -> keto_pair_rows, then K3's
+//        keto_label_step on the exchanged pair rows
+//   K10c `sharded_label_sweep_step` (:559) -> K6's keto_sweep_step per
+//        shard (csrc/label_kernels.cu), whose n_dst drops the sentinel
+// The halo all-gather is a device copy per shard slab (cudaMemcpyAsync, in
+// keto_tpu_torch/parallel/sharded.py), the counterpart of lax.all_gather,
+// which is a collective and not part of a kernel body. The reductions across
+// shards (psum of the changed flag, the visit count and the popcount, the
+// OR of the answers) are kernels of all shards accumulating into one word
+// or buffer on the device: the shards share one card.
+//
+// Shard s owns global rows [s*rps, (s+1)*rps). A local row at rps or beyond
+// is the "not owned / padding" sentinel: scatters drop it and gathers read
+// it as zero, never clamped into a row. Torch holds every array as int32;
+// bitmaps are read as uint32.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int64_t kMaxBlocks = 132 * 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+inline int blocks_for(int64_t n) {
+  int64_t b = (n + kThreads - 1) / kThreads;
+  if (b < 1) b = 1;
+  if (b > kMaxBlocks) b = kMaxBlocks;
+  return static_cast<int>(b);
+}
+
+// K10a, one shard's part of the answer. Targets read the shard's last pull
+// P OR its one-hop term ans_base; sink answer gathers read its fixpoint R.
+// Only rows the shard owns (local row in [0, rps)) contribute; their bits
+// are atomicOr'ed into the one out[0:W] every shard shares (the OR-combine
+// across shards). The popcount of the shard's R adds into out[W+2] with
+// uint32 wrap-around (the psum of the frontier bits), and out[W], out[W+1]
+// take iters and the changed flag from the shared state. `out` arrives
+// zeroed.
+//
+// Bound: bytes — a word per answer entry plus one read of the shard's R for
+// the popcount. Design: one grid-stride loop over max(B + SA, rps·W); the
+// popcount folds per warp (__reduce_add_sync) into one atomic.
+__global__ void shard_answer_kernel(const int32_t* __restrict__ entries, int64_t S1,
+                                    int64_t S2, int64_t SA, int64_t B, int32_t rps,
+                                    const uint32_t* __restrict__ P,
+                                    const uint32_t* __restrict__ ans_base,
+                                    const uint32_t* __restrict__ R, int32_t W,
+                                    const int32_t* __restrict__ state,
+                                    uint32_t* __restrict__ out) {
+  const int32_t* a_rows = entries + 2 * S1 + 2 * S2;
+  const int32_t* a_q = a_rows + SA;
+  const int32_t* targets = a_q + SA;
+  const int64_t n_ans = B + SA;
+  const int64_t n_pop = (int64_t)rps * W;
+  const int64_t n = n_ans > n_pop ? n_ans : n_pop;
+  const int64_t first = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (first == 0) {
+    out[W] = static_cast<uint32_t>(state[1]);
+    out[W + 1] = static_cast<uint32_t>(state[0]);
+  }
+  unsigned pop = 0;
+  for (int64_t idx = first; idx < n; idx += (int64_t)gridDim.x * blockDim.x) {
+    if (idx < n_ans) {
+      int32_t q = 0;
+      uint32_t word = 0;
+      if (idx < B) {
+        const int32_t t = targets[idx];
+        if (t >= 0 && t < rps) {
+          q = static_cast<int32_t>(idx);
+          const int64_t at = (int64_t)t * W + (q >> 5);
+          word = P[at] | ans_base[at];
+        }
+      } else {
+        const int64_t j = idx - B;
+        const int32_t r = a_rows[j];
+        if (r >= 0 && r < rps) {
+          q = a_q[j];
+          word = R[(int64_t)r * W + (q >> 5)];
+        }
+      }
+      if ((word >> (q & 31)) & 1u) atomicOr(out + (q >> 5), 1u << (q & 31));
+    }
+    if (idx < n_pop) pop += __popc(R[idx]);
+  }
+  pop = __reduce_add_sync(kFull, pop);
+  if ((threadIdx.x & 31) == 0 && pop) atomicAdd(out + W + 2, pop);
+}
+
+// K10b, one shard's part of the pair-row exchange: out[p] += lab[rows[p] - g0]
+// for every pair row the shard owns (rows[p] - g0 in [0, rl)), with int32
+// wrap-around. Every shard adds into the one zeroed [P, w] buffer, one
+// launch after the other on one stream, so the sum over shards is the
+// reference's psum of "the owned row, else 0": a row no shard owns stays
+// zero and the pads (OUT -1, IN -2) survive the exchange.
+//
+// Bound: bytes — each owned pair row is read once and written once.
+// Design: one thread per (pair, word), the word fastest, so a warp reads a
+// contiguous run of one label row.
+__global__ void pair_rows_kernel(const int32_t* __restrict__ lab, int64_t rl, int32_t w,
+                                 const int32_t* __restrict__ rows, int64_t P, int64_t g0,
+                                 int32_t* __restrict__ out) {
+  const int64_t n = P * w;
+  for (int64_t idx = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; idx < n;
+       idx += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t p = idx / w;
+    const int64_t j = idx - p * w;
+    const int64_t r = (int64_t)rows[p] - g0;
+    if (r < 0 || r >= rl) continue;
+    out[idx] = static_cast<int32_t>(static_cast<uint32_t>(out[idx]) +
+                                    static_cast<uint32_t>(lab[r * w + j]));
+  }
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// Plain C entry points (ctypes). Each launches on `stream` and returns
+// cudaGetLastError() so a refused launch surfaces in the Python wrapper.
+
+extern "C" int keto_shard_answer(const int32_t* entries, int64_t S1, int64_t S2, int64_t SA,
+                                 int64_t B, int32_t rps, const uint32_t* P,
+                                 const uint32_t* ans_base, const uint32_t* R, int32_t W,
+                                 const int32_t* state, uint32_t* out, void* stream) {
+  const int64_t n_ans = B + SA;
+  const int64_t n_pop = (int64_t)rps * W;
+  shard_answer_kernel<<<blocks_for(n_ans > n_pop ? n_ans : n_pop), kThreads, 0,
+                        (cudaStream_t)stream>>>(entries, S1, S2, SA, B, rps, P, ans_base, R,
+                                                W, state, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int keto_pair_rows(const int32_t* lab, int64_t rl, int32_t w, const int32_t* rows,
+                              int64_t P, int64_t g0, int32_t* out, void* stream) {
+  pair_rows_kernel<<<blocks_for(P * w), kThreads, 0, (cudaStream_t)stream>>>(lab, rl, w, rows,
+                                                                             P, g0, out);
+  return static_cast<int>(cudaGetLastError());
+}

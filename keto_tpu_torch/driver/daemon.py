@@ -19,7 +19,12 @@ and the store; ``decision_log_dir`` (default "": no log) keeps a
 ``DecisionLog`` that records every explain and, with
 ``decision_log_sample`` > 0, that fraction of ``/check`` decisions, in
 segments of ``decision_log_segment_bytes`` (1 MiB) of which
-``decision_log_retention`` (8) sealed ones are kept."""
+``decision_log_retention`` (8) sealed ones are kept.
+
+Sharded serving (keto_tpu/driver/registry.py:650-680, the registry's
+``serve.mesh_graph``): ``mesh_graph`` > 1 serves from a ``ShardMesh`` of
+that many row-range shards on the engine's device
+(keto_tpu_torch/parallel/); 1 (the default) serves unsharded."""
 
 from __future__ import annotations
 
@@ -32,9 +37,11 @@ from keto_tpu_torch.check.gpu_engine import TorchCheckEngine
 from keto_tpu_torch.driver.batch import CheckBatcher
 from keto_tpu_torch.explain import DecisionLog, ExplainEngine
 from keto_tpu_torch.list.gpu_engine import SnapshotListEngine
+from keto_tpu_torch.parallel import make_mesh
 from keto_tpu_torch.persistence.memory import MemoryPersister
 from keto_tpu_torch.relationtuple.model import RelationTuple
 from keto_tpu_torch.servers.rest import READ, WRITE, RestServer
+from keto_tpu_torch.x.device import resolve_device
 
 
 class Daemon:
@@ -53,13 +60,17 @@ class Daemon:
         decision_log_sample: float = 0.0,
         decision_log_segment_bytes: int = 1 << 20,
         decision_log_retention: int = 8,
+        mesh_graph: int = 1,
     ):
         nm = namespace_pkg.MemoryManager(namespaces)
+        options = dict(engine_options or {})
+        if int(mesh_graph) > 1:
+            options["mesh"] = make_mesh(graph=int(mesh_graph), device=resolve_device(device))
         self.store = MemoryPersister(nm)
         tuples = list(tuples)
         if tuples:
             self.store.write_relation_tuples(*tuples)
-        self.engine = TorchCheckEngine(self.store, nm, device=device, **(engine_options or {}))
+        self.engine = TorchCheckEngine(self.store, nm, device=device, **options)
         self.lister = SnapshotListEngine(self.engine, nm, device=self.engine.device)
         self.batcher = CheckBatcher(self.engine)
         self.decision_log = (

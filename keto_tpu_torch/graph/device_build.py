@@ -1,11 +1,12 @@
 """Device-side snapshot construction: the build's stable sorts on the card.
 
-A copy of keto_tpu/graph/device_build.py:1-196 and :215-221. Building a
-10M-tuple snapshot runs several O(E log E) host sorts over edge-scale
-arrays: the device-id renumbering, the ELL edge grouping, the forward CSR,
-the sink reverse CSR, the transposed CSR and both reverse-query list
-layouts (keto_tpu_torch/graph/snapshot.py). They all go through one
-**sorter seam**:
+A copy of keto_tpu/graph/device_build.py:1-196, :198-212
+(``shard_row_ranges``) and :215-221. Building a 10M-tuple snapshot runs
+several O(E log E) host sorts over edge-scale arrays: the device-id
+renumbering, the ELL edge grouping, the forward CSR, the sink reverse
+CSR, the transposed CSR and both reverse-query list layouts
+(keto_tpu_torch/graph/snapshot.py). They all go through one **sorter
+seam**:
 
 - ``HostSorter`` — ``np.argsort(kind="stable")``, the bit-exactness oracle;
 - ``DeviceSorter`` — the same stable argsort as K8, the hand-written radix
@@ -155,3 +156,18 @@ class GovernedSorter:
         self._add("device", time.monotonic() - t0)
         self._count("device_build_dispatches")
         return out
+
+
+def shard_row_ranges(n_rows: int, n_shards: int) -> list:
+    """Contiguous ``[lo, hi)`` row ranges assigning ``n_rows`` rows to
+    ``n_shards`` equal slabs of ``ceil(n_rows / n_shards)`` rows each (the
+    last may be short, or empty). The one shard assignment of the sharded
+    serving mode: keto_tpu_torch/parallel/sharded.py partitions the bitmap,
+    bucket and label rows with it at upload time, and the sharded label
+    build routes its sweep rows with it."""
+    n_shards = max(1, int(n_shards))
+    rps = -(-max(1, int(n_rows)) // n_shards)  # ceil div; >= 1
+    return [
+        (min(s * rps, n_rows), min((s + 1) * rps, n_rows))
+        for s in range(n_shards)
+    ]

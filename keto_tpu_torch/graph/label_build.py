@@ -29,8 +29,14 @@ landmarks run as bit-packed lanes with ``prune_expansion=False``. The
 mirror's stores reach the device label arrays through K9 (``slot_set``,
 in place, as the reference's mirror updates its arrays).
 
-Not here: the sharded sweeper (``_ShardedSweeper``); the port runs on one
-card.
+``_ShardedSweeper`` (keto_tpu/graph/label_build.py:284-365) runs the same
+waves over the row-range shards of a ``ShardMesh``
+(keto_tpu_torch/parallel/): the ELL groups are routed by destination row
+(``route_label_ell``, the rows the serving label stripes use), the frontier
+slabs halo-exchange once per wave and each shard runs its part of the wave
+(K10c, ``label_sweep_step``). OR is OR on any layout, so the stored entry
+set equals ``_Sweeper``'s. ``mesh=`` with ``shard_count > 1`` selects it,
+as in the reference (:553-554, :665-666).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import torch
 
 from keto_tpu_torch.check import kernels
 from keto_tpu_torch.graph import label_kernels
+from keto_tpu_torch.graph.device_build import shard_row_ranges
 from keto_tpu_torch.graph.labels import IN_PAD, OUT_PAD, LabelIndex, interior_adjacency, landmark_order
 
 #: default landmark lanes per sweep batch (one int32 word pair of frontier
@@ -174,6 +181,83 @@ class _Sweeper:
             if not active:
                 break
         return S.cpu().numpy().view(np.uint32)
+
+
+class _ShardedSweeper:
+    """The sweeps over a mesh's row-range shards: frontier slabs sharded by
+    the serving path's row ownership, one halo exchange per wave (K10c).
+    Stores the same bitmaps as ``_Sweeper``."""
+
+    backend = "sharded"
+
+    def __init__(self, fwd_groups, bwd_groups, n: int, mesh, n_shards: int, device):
+        from keto_tpu_torch.parallel import sharded as shard_mod
+
+        self.n = n
+        self.device = torch.device(device)
+        self._mesh = mesh
+        g = max(1, int(n_shards))
+        ranges = shard_row_ranges(n + 1, g)
+        self._rps = ranges[0][1] - ranges[0][0] if ranges[0][1] > ranges[0][0] else 1
+        self._g = g
+        self._fwd = shard_mod.shard_ell_groups(
+            shard_mod.route_label_ell(fwd_groups, n, g, self._rps), self.device)
+        self._bwd = shard_mod.shard_ell_groups(
+            shard_mod.route_label_ell(bwd_groups, n, g, self._rps), self.device)
+        self._n_fwd, self._n_bwd = len(fwd_groups), len(bwd_groups)
+
+    def _shard(self, flat: torch.Tensor) -> list:
+        """``[n+1, wt]`` on the device → ``g`` slabs ``[rps, wt]``."""
+        g, rps = self._g, self._rps
+        out = torch.zeros((g * rps, flat.shape[1]), dtype=torch.int32, device=self.device)
+        out[: flat.shape[0]] = flat
+        return [out[s * rps : (s + 1) * rps] for s in range(g)]
+
+    def sweep(
+        self,
+        forward: bool,
+        seeds: np.ndarray,
+        cov: torch.Tensor,
+        wt: int,
+        *,
+        prune_expansion: bool = True,
+        budget: Optional[list] = None,
+        start_rows: Optional[np.ndarray] = None,
+    ) -> Optional[np.ndarray]:
+        """As ``_Sweeper.sweep``, one sharded wave per launch set."""
+        from keto_tpu_torch.parallel import sharded as shard_mod
+
+        n = self.n
+        rows = seeds if start_rows is None else start_rows
+        V0 = np.zeros((n + 1, wt), np.uint32)
+        for j, u in enumerate(np.asarray(rows, np.int64).tolist()):
+            if 0 <= u < n:
+                V0[u, j // 32] |= np.uint32(1) << np.uint32(j % 32)
+        V = self._shard(torch.from_numpy(V0.view(np.int32)).to(self.device))
+        X = [v.clone() for v in V]  # the wave updates V in place
+        S = [torch.zeros_like(v) for v in V]
+        cov_sh = self._shard(cov)
+        groups = self._fwd if forward else self._bwd
+        while self._n_fwd if forward else self._n_bwd:
+            V, X, S, state = shard_mod.label_sweep_step(
+                self._mesh, groups, V, X, S, cov_sh, rps=self._rps,
+                prune_expansion=prune_expansion)
+            active, visits = state.tolist()
+            if budget is not None:
+                budget[0] -= int(visits)
+                if budget[0] < 0:
+                    return None
+            if not active:
+                break
+        return torch.cat(S)[: n + 1].cpu().numpy().view(np.uint32)
+
+
+def _make_sweeper(fwd_groups, bwd_groups, n: int, device, mesh, shard_count: int):
+    """``_ShardedSweeper`` for a mesh of more than one shard, else
+    ``_Sweeper`` (keto_tpu/graph/label_build.py:553-556)."""
+    if mesh is not None and int(shard_count) > 1:
+        return _ShardedSweeper(fwd_groups, bwd_groups, n, mesh, shard_count, device)
+    return _Sweeper(fwd_groups, bwd_groups, n, device)
 
 
 # -- host-side finalize state -------------------------------------------------
@@ -325,10 +409,13 @@ def device_build_labels(
     min_gain: float = 0.0,
     batch: int = DEFAULT_BATCH,
     device: Union[str, torch.device] = "cuda",
+    mesh=None,
+    shard_count: int = 0,
 ) -> tuple[LabelIndex, BuildInfo]:
     """Construct the 2-hop index for ``snap`` with batched sweeps on
-    ``device``; entry-set identical to ``build_labels(snap, max_width,
-    landmarks=K)`` where K is the number of landmarks actually processed
+    ``device`` (over ``mesh``'s shards when ``shard_count > 1``);
+    entry-set identical to ``build_labels(snap, max_width, landmarks=K)``
+    where K is the number of landmarks actually processed
     (``landmarks == 0`` streams ALL interior nodes, subject only to the
     ``min_gain`` early exit)."""
     t0 = time.monotonic()
@@ -342,9 +429,8 @@ def device_build_labels(
 
     # forward sweeps pull along in-neighbour rows (reach FROM the landmark,
     # the check kernel's orientation); backward sweeps the transposed rows
-    sweeper = _Sweeper(
-        build_ell_groups(in_ip, in_ix, n), build_ell_groups(out_ip, out_ix, n), n, device
-    )
+    sweeper = _make_sweeper(build_ell_groups(in_ip, in_ix, n),
+                            build_ell_groups(out_ip, out_ix, n), n, device, mesh, shard_count)
     mirror = _Mirror(n, max_width, sweeper.device)
     processed = np.zeros(n, bool)
     pos = 0
@@ -416,6 +502,8 @@ def device_patch_labels(
     *,
     batch: int = DEFAULT_BATCH,
     device: Union[str, torch.device] = "cuda",
+    mesh=None,
+    shard_count: int = 0,
 ) -> Optional[LabelIndex]:
     """Incremental-PLL edge insertion through the batched sweeps: the exact
     ``labels.patch_labels`` semantics (per-edge landmark resumption, no
@@ -439,9 +527,8 @@ def device_patch_labels(
             return None
 
     out_ip, out_ix, in_ip, in_ix = interior_adjacency(snap)
-    sweeper = _Sweeper(
-        build_ell_groups(in_ip, in_ix, n), build_ell_groups(out_ip, out_ix, n), n, device
-    )
+    sweeper = _make_sweeper(build_ell_groups(in_ip, in_ix, n),
+                            build_ell_groups(out_ip, out_ix, n), n, device, mesh, shard_count)
     mirror = _Mirror(n, idx.max_width, sweeper.device, out0=idx.out_lab, in0=idx.in_lab)
     mirror.out_ok = idx.out_ok.copy()
     mirror.in_ok = idx.in_ok.copy()

@@ -19,6 +19,15 @@ Source notes:
   sorted value table ``U``. CUDA: ``keto_covered``, one thread per row
   with ``U`` and the masks in shared memory. Bound: bytes — one read of
   every label entry.
+- ``sweep_step_into`` is the same wave into caller-owned ``X2`` and
+  ``state``, dropping a ``dst`` outside ``V``'s rows and adding into
+  ``state``. The sharded build (``sharded_label_sweep_step``,
+  keto_tpu/parallel/sharded.py:559; K10c) calls it once per shard: ``X``
+  is the halo-exchanged bitmap in global rows, ``V``/``S``/``cov``/``X2``
+  the shard's local ``[rps, wt]`` rows (so the routing's ``rps`` sentinel
+  is dropped), and every shard adds into one state pair. It launches the
+  same ``keto_sweep_step``; the program around it (the halo exchange, the
+  shards) is keto_tpu_torch/parallel/sharded.py.
 
 The ELL groups are held flattened (``EllGroups``): one int32 slot array,
 one ``dst`` array and a small descriptor table, so a wave is one launch;
@@ -112,21 +121,36 @@ def _popcount(x: torch.Tensor) -> torch.Tensor:
     return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
 
 
-def sweep_step_ref(groups: EllGroups, V, X, S, cov, *, prune_expansion: bool = True):
-    """One wave in plain PyTorch → ``(V, X2, S, state)``; ``V`` and ``S``
-    are updated in place, ``state`` is int32[2] {active, visits}."""
+def sweep_step_into_ref(groups: EllGroups, X, V, S, cov, X2, state, *,
+                        prune_expansion: bool = True) -> None:
+    """One wave in plain PyTorch into ``X2`` (zeroed) and ``state``: gathers
+    from ``X`` (its own row count), updates ``V`` and ``S`` in place, drops
+    a group ``dst`` outside ``V``'s rows, sets ``state[0]`` when the wave
+    is active and adds its ``visits`` into ``state[1]`` (int32
+    wrap-around)."""
     P = torch.zeros_like(V)
+    n_dst = V.shape[0]
     for g in range(len(groups.rows)):
         nb, d = groups.group(g)
-        P[d.long()] = _gather_or(X, nb)
+        keep = (d >= 0) & (d < n_dst)
+        if bool(keep.any()):
+            P[d[keep].long()] = _gather_or(X, nb[keep])
     N = P & ~V
     store = N & ~cov
     V |= N
-    X2 = store if prune_expansion else N
+    X2.copy_(store if prune_expansion else N)
     S |= store
-    active = bool((X2 != 0).any())
-    visits = int(_popcount(N).sum())
-    state = torch.tensor([int(active), visits], dtype=torch.int32, device=V.device)
+    if bool((X2 != 0).any()):
+        state[0] = 1
+    state[1] = (int(state[1]) + int(_popcount(N).sum()) + 2**31) % 2**32 - 2**31
+
+
+def sweep_step_ref(groups: EllGroups, V, X, S, cov, *, prune_expansion: bool = True):
+    """One wave in plain PyTorch → ``(V, X2, S, state)``; ``V`` and ``S``
+    are updated in place, ``state`` is int32[2] {active, visits}."""
+    X2 = torch.zeros_like(V)
+    state = torch.zeros(2, dtype=torch.int32, device=V.device)
+    sweep_step_into_ref(groups, X, V, S, cov, X2, state, prune_expansion=prune_expansion)
     return V, X2, S, state
 
 
@@ -151,26 +175,38 @@ def covered_ref(lab: torch.Tensor, U: torch.Tensor, masks: torch.Tensor) -> torc
 # -- CUDA wrappers ----------------------------------------------------------------
 
 
-def sweep_step_cuda(groups: EllGroups, V, X, S, cov, *, prune_expansion: bool = True):
-    """One wave via ``keto_sweep_step`` (one launch over every group)."""
-    for t, what in ((V, "V"), (X, "X"), (S, "S"), (cov, "cov")):
+def sweep_step_into_cuda(groups: EllGroups, X, V, S, cov, X2, state, *,
+                         prune_expansion: bool = True) -> None:
+    """One wave via ``keto_sweep_step`` (one launch over every group) into
+    ``X2`` and ``state``: ``X`` int32[rows, wt], ``V``/``S``/``cov``/``X2``
+    int32[n_dst, wt] with ``n_dst`` the kernel's drop bound."""
+    _need(X, "X", 2)
+    for t, what in ((V, "V"), (S, "S"), (cov, "cov"), (X2, "X2")):
         _need(t, what, 2)
-        if t.shape != V.shape:
-            raise ValueError(f"{what}: expected {tuple(V.shape)}, got {tuple(t.shape)}")
+        if t.shape != (V.shape[0], X.shape[1]):
+            raise ValueError(f"{what}: expected {(V.shape[0], X.shape[1])}, got {tuple(t.shape)}")
     for t, what in ((groups.slots, "slots"), (groups.dst, "dst")):
         _need(t, what, 1)
-    if X.data_ptr() in (V.data_ptr(), S.data_ptr()):
-        raise ValueError("X must not alias V or S: the wave reads the old frontier")
-    X2 = torch.zeros_like(V)
-    state = torch.zeros(2, dtype=torch.int32, device=V.device)
-    wt = V.shape[1]
+    _need(state, "state", 1)
+    if X.data_ptr() in (V.data_ptr(), S.data_ptr(), X2.data_ptr()) \
+            or X2.data_ptr() in (V.data_ptr(), S.data_ptr()):
+        raise ValueError("X and X2 must not alias each other, V or S: the wave reads the old frontier")
     if groups.rows:
         COUNTS["sweep_step"] += 1
         _check(_lib().keto_sweep_step(
             groups.slots.data_ptr(), groups.dst.data_ptr(), groups.desc.data_ptr(),
             len(groups.rows), groups.n_rows, X.data_ptr(), V.data_ptr(), S.data_ptr(),
-            cov.data_ptr(), X2.data_ptr(), wt, int(prune_expansion), state.data_ptr(),
-            _stream()), "keto_sweep_step")
+            cov.data_ptr(), X2.data_ptr(), X.shape[1], V.shape[0], int(prune_expansion),
+            state.data_ptr(), _stream()), "keto_sweep_step")
+
+
+def sweep_step_cuda(groups: EllGroups, V, X, S, cov, *, prune_expansion: bool = True):
+    """One wave via ``keto_sweep_step`` (one launch over every group)."""
+    if X.shape != V.shape:
+        raise ValueError(f"X: expected {tuple(V.shape)}, got {tuple(X.shape)}")
+    X2 = torch.zeros_like(V)
+    state = torch.zeros(2, dtype=torch.int32, device=V.device)
+    sweep_step_into_cuda(groups, X, V, S, cov, X2, state, prune_expansion=prune_expansion)
     return V, X2, S, state
 
 
@@ -201,6 +237,16 @@ def sweep_step(groups: EllGroups, V, X, S, cov, *, prune_expansion: bool = True)
     if _on_cpu(V):
         return sweep_step_ref(groups, V, X, S, cov, prune_expansion=prune_expansion)
     return sweep_step_cuda(groups, V, X, S, cov, prune_expansion=prune_expansion)
+
+
+def sweep_step_into(groups: EllGroups, X, V, S, cov, X2, state, *,
+                    prune_expansion: bool = True) -> None:
+    """K6 into caller-owned ``X2``/``state`` (K10c's per-shard wave): the
+    plain version for CPU tensors, the kernel for CUDA tensors."""
+    if _on_cpu(V):
+        sweep_step_into_ref(groups, X, V, S, cov, X2, state, prune_expansion=prune_expansion)
+    else:
+        sweep_step_into_cuda(groups, X, V, S, cov, X2, state, prune_expansion=prune_expansion)
 
 
 def covered(lab: torch.Tensor, U: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:

@@ -471,6 +471,7 @@ def apply_delta(
         lst_dirty=lst_dirty,
         lab_dirty=lab_dirty or None,
         device_overlay=None,  # the engine re-uploads or scatters (K9)
+        device_shard_overlay=None,  # the sharded engine re-routes and re-uploads
         device_list=None,  # each snapshot uploads its own list layouts
         _pattern_cache={},
         _cache_lock=threading.Lock(),

@@ -217,6 +217,20 @@ class GraphSnapshot:
     #: the device-resident graph (keto_tpu_torch/graph/carry.py), set by
     #: the engine at upload
     device: Any = None
+    #: sharded serving (keto_tpu_torch/parallel/sharded.py): the row-range
+    #: partitioning of the buckets (``ShardSpec``), made at upload by a
+    #: sharded engine in place of ``device``; deltas carry it, folds and
+    #: rebuilds make it anew
+    shard_spec: Any = None
+    #: the stacked per-shard bucket arrays on the device (``ShardedBuckets``)
+    device_shards: Any = None
+    #: the overlay-ELL gather arrays routed per shard by destination row
+    #: (``int32[g, K, C]``, ``int32[g, K]``); reset by every delta, as
+    #: ``device_overlay``
+    device_shard_overlay: Any = None
+    #: the row-striped label arrays ``(out int32[g, rl, Wo], in int32[g, rl,
+    #: Wi], rl)`` of the sharded label route
+    device_shard_labels: Any = None
 
     # -- delta overlay (keto_tpu_torch/graph/overlay.py) ----------------------
     # Writes since the base build: new nodes get device ids >=

@@ -1,0 +1,725 @@
+"""Row-range sharded serving on one card: the routing, the halo exchange and
+the three sharded device programs (K10).
+
+The counterpart of keto_tpu/parallel/sharded.py. The interior bitmap rows
+``[0, num_int]`` are partitioned into contiguous **row-range shards** along
+the mesh's ``graph`` axis (``shard_row_ranges``, the one assignment of
+keto_tpu_torch/graph/device_build.py): shard ``s`` owns rows
+``[s·rps, (s+1)·rps)``. Each shard's slice of a degree bucket is a dense ELL
+matrix gathered exactly like the single-device kernel's, scattered into the
+shard's local slab rows; query slices are replicated (the ``data`` axis is
+1).
+
+The host routing is a copy of the reference's, byte for byte in
+behaviour: ``ShardSpec``/``make_shard_spec`` (:80-166), ``_route_rows``/
+``route_entries`` (:169-226), ``route_overlay`` (:229-256),
+``route_labels`` (:259-285), ``halo_bytes_per_round`` (:288-291),
+``route_label_ell`` (:294-324), ``_entry_pad`` and ``_ceil_pow2``. A local
+row at ``rps`` or beyond is the "not owned / padding" sentinel everywhere:
+scatters drop it and gathers read it as zero.
+
+The programs, each a plain PyTorch version (for CPU tensors) and the
+hand-written kernels (for CUDA tensors; csrc/shard_kernels.cu plus K1/K2/K3
+entry points):
+
+- ``check_step`` replaces ``sharded_check_step`` (:327-470), K10a: per hop,
+  the halo all-gather of every shard's ``[rps, W]`` frontier slab into one
+  gathered bitmap, each shard's local pull from it, ``nxt = R | p``, and
+  the psum of the changed flag; the same ``block_iters``/``it_cap`` loop as
+  K2, whose guard is read between blocks. Then every shard answers the
+  targets and sink rows it owns, OR-combined into ``uint32[W+3]``: the
+  decision bits, ``iters``, ``truncated`` and the frontier-bit population
+  (a uint32 psum that wraps, as the reference's). CUDA: per shard
+  ``keto_seed`` (with ``n_int = rps - 1``, so the sentinel ``rps`` drops),
+  ``keto_pull`` from the gathered bitmap, ``keto_commit`` into one state
+  word every shard shares (that is the psum), one ``keto_close`` per hop,
+  and ``keto_shard_answer``. The bucket pulls use K1's row-run mode: each
+  shard's slice of a bucket is a contiguous run of local rows
+  (``make_shard_spec``), written in place each guarded step, so the pull
+  of the last step run survives the guarded no-op steps after convergence
+  as the answer's ``p_fix`` — a ``P`` zeroed every step would lose it. The
+  overlay stage uses K1's ``dst`` mode with ``n_dst = rps``.
+- ``label_step`` replaces ``sharded_label_step`` (:473-534), K10b: the
+  one-shot pair-row exchange — every shard adds the pair rows it owns
+  (zeros elsewhere) into one ``[P, w]`` buffer per side, the psum — then
+  K3's compare and pack on the exchanged rows, ``uint32[W]``. CUDA:
+  ``keto_pair_rows`` per shard and side, then ``keto_label_step``.
+- ``label_sweep_step`` replaces ``sharded_label_sweep_step`` (:559-628),
+  K10c: the halo all-gather of the frontier slabs, then each shard's K6
+  wave from the gathered bitmap into its local rows (``dst`` sentinel
+  ``rps`` dropped), ``active`` and ``visits`` summed over the shards into
+  one word pair. CUDA: K6's ``keto_sweep_step`` per shard, whose drop
+  bound is the shard's ``rps`` rows (``sweep_step_into``,
+  keto_tpu_torch/graph/label_kernels.py).
+
+**Jacobi across shards.** Every pull of a hop reads the gathered copy, taken
+before any shard commits, so no shard's commit feeds another shard's pull
+in the same hop, and ``iters`` equals the reference's.
+
+The collectives live in one place (``all_gather_rows``, ``psum``,
+``or_combine``) and count the bytes they move in ``COLLECTIVE_BYTES``. On
+one card the all-gather is one ``copy_`` (``cudaMemcpyAsync``) per shard
+slab into the gathered bitmap, and the reductions are kernels of every
+shard accumulating into one buffer. ``halo_bytes_per_round`` keeps the
+reference's definition (the bytes one device RECEIVES per exchange,
+``(g-1)·rps·W·4``); the copy on one card moves ``g·rps·W·4``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from keto_tpu_torch.check import kernels
+from keto_tpu_torch.check.kernels import COUNTS, _check, _gather_or, _lib, _need, _on_cpu, _stream
+from keto_tpu_torch.graph import label_kernels
+from keto_tpu_torch.graph.device_build import shard_row_ranges
+from keto_tpu_torch.graph.labels import IN_PAD, OUT_PAD
+from keto_tpu_torch.x.device import same_device
+
+#: bytes and calls of each collective (chip_smoke.py reads them)
+COLLECTIVE_BYTES = {"all_gather": 0, "psum": 0, "or_combine": 0}
+COLLECTIVE_CALLS = {"all_gather": 0, "psum": 0, "or_combine": 0}
+
+
+def reset_collective_counts() -> None:
+    for d in (COLLECTIVE_BYTES, COLLECTIVE_CALLS):
+        for k in d:
+            d[k] = 0
+
+
+def _ceil_pow2(x: int) -> int:
+    return 1 if x <= 1 else 1 << (int(x) - 1).bit_length()
+
+
+def _entry_pad(B: int, size: int) -> int:
+    """Entry arrays pad to B·2^k (the single-device path's geometry rule)."""
+    sp = max(1, B)
+    while sp < size:
+        sp *= 2
+    return sp
+
+
+# -- host routing (numpy) -------------------------------------------------------
+
+
+@dataclass
+class ShardSpec:
+    """Host-side description of one snapshot's row-range partitioning,
+    built once per uploaded snapshot: what a dispatch needs to route seeds,
+    targets and answer gathers to their owning shard, and what a delta needs
+    to route ELL patches (``patch_pos``) to the stacked array slot that owns
+    the patched bucket row."""
+
+    n_shards: int
+    rows_per_shard: int  # bitmap slab rows per shard (covers num_int+1)
+    n_int: int
+    n_active: int
+    #: per bucket: stacked per-shard gather matrices int32[g, rb, cap]
+    #: (sentinel n_int = the global all-zero bitmap row) and their local
+    #: scatter rows int32[g, rb] (sentinel rows_per_shard = dropped)
+    nbrs_sh: tuple
+    dst_sh: tuple
+    #: per bucket: int64[g] first bucket-local row owned by each shard
+    #: (clipped into [0, bucket.n]) — the patch-routing origin
+    bucket_lo: tuple
+    #: device bytes of each shard's OWNED (unpadded) bucket rows
+    owned_bucket_bytes: list
+
+    def patch_pos(self, bucket_offset: int, bi: int, row: int) -> tuple:
+        """(shard, stacked-row) owning bucket ``bi``'s local ``row``."""
+        g_row = bucket_offset + row
+        s = min(g_row // self.rows_per_shard, self.n_shards - 1)
+        return s, row - int(self.bucket_lo[bi][s])
+
+    def padded_bucket_bytes(self) -> int:
+        """Total device bytes of the stacked bucket arrays as uploaded."""
+        return sum(int(a.nbytes) for a in self.nbrs_sh) + sum(int(a.nbytes) for a in self.dst_sh)
+
+
+def make_shard_spec(snap, n_shards: int) -> ShardSpec:
+    """Partition ``snap``'s buckets into ``n_shards`` row-range shards.
+    Shard ``s`` owns bitmap rows ``[s*rps, (s+1)*rps)``, ``rps`` covering
+    ``num_int + 1`` rows (the +1 is the all-zero sentinel row). Each
+    bucket's member rows are contiguous in device-id order, so a shard's
+    slice of a bucket is a contiguous row range — sliced, padded to a shared
+    pow2 row count (sentinel gather rows, dropped scatter rows) and stacked
+    along a leading shard axis."""
+    g = max(1, int(n_shards))
+    ranges = shard_row_ranges(snap.num_int + 1, g)
+    rps = ranges[0][1] - ranges[0][0] if ranges[0][1] > ranges[0][0] else 1
+    sentinel = np.int32(snap.num_int)
+    nbrs_sh: list = []
+    dst_sh: list = []
+    bucket_lo: list = []
+    owned = [0] * g
+    for b in snap.buckets:
+        nbrs = np.asarray(b.nbrs)
+        cap = nbrs.shape[1]
+        lo = np.clip([s * rps - b.offset for s in range(g)], 0, b.n)
+        hi = np.clip([(s + 1) * rps - b.offset for s in range(g)], 0, b.n)
+        rb = _ceil_pow2(int(np.max(hi - lo)) or 1)
+        sb = np.full((g, rb, cap), sentinel, np.int32)
+        db = np.full((g, rb), rps, np.int32)
+        for s in range(g):
+            l, h = int(lo[s]), int(hi[s])
+            k = h - l
+            if k <= 0:
+                continue
+            sb[s, :k] = nbrs[l:h]
+            db[s, :k] = (b.offset + np.arange(l, h)) - s * rps
+            owned[s] += k * cap * 4
+        nbrs_sh.append(np.ascontiguousarray(sb))
+        dst_sh.append(np.ascontiguousarray(db))
+        bucket_lo.append(lo.astype(np.int64))
+    return ShardSpec(
+        n_shards=g,
+        rows_per_shard=rps,
+        n_int=snap.num_int,
+        n_active=snap.num_active,
+        nbrs_sh=tuple(nbrs_sh),
+        dst_sh=tuple(dst_sh),
+        bucket_lo=tuple(bucket_lo),
+        owned_bucket_bytes=owned,
+    )
+
+
+def _route_rows(rows: np.ndarray, qs: np.ndarray, g: int, rps: int, drop_row: int, B: int):
+    """Route (row, query) entry pairs to their owning shard: stacked
+    ``int32[g, P]`` local rows (sentinel ``rps`` = not owned / padding) and
+    their queries. ``drop_row`` marks the input's padding sentinel."""
+    rows = np.asarray(rows, np.int64)
+    qs = np.asarray(qs, np.int64)
+    valid = rows != drop_row
+    owner = np.minimum(np.where(valid, rows // rps, 0), g - 1)
+    counts = np.bincount(owner[valid], minlength=g)
+    P = _entry_pad(B, int(counts.max()) if counts.size else 0)
+    out_r = np.full((g, P), rps, np.int32)
+    out_q = np.zeros((g, P), np.int32)
+    for s in range(g):
+        sel = valid & (owner == s)
+        k = int(np.count_nonzero(sel))
+        if k:
+            out_r[s, :k] = rows[sel] - s * rps
+            out_q[s, :k] = qs[sel]
+    return out_r, out_q, P
+
+
+def route_entries(spec: ShardSpec, packed, B: int, out=None, out_alloc=None):
+    """Split ``pack_chunk``'s seven arrays by row ownership into one stacked
+    ``int32[g, L]`` entry buffer plus the static sizes ``(S1, S2, SA, B)``.
+    Seeds scatter into the owner's slab, answer gathers read the owner's
+    fixpoint rows, targets become per-shard local rows with a not-owned
+    sentinel: every shard receives the full query axis but only its own
+    rows. ``out`` (an int32 ``[g, L]`` buffer) or ``out_alloc`` (a ``shape
+    -> buffer | None`` allocator: the engine's staging pool) receives the
+    concatenation in place."""
+    (e1r, e1q, e2r, e2q, ar, aq, targets) = packed
+    g, rps, ni = spec.n_shards, spec.rows_per_shard, spec.n_int
+    r1, q1, S1 = _route_rows(e1r, e1q, g, rps, ni + 1, B)
+    r2, q2, S2 = _route_rows(e2r, e2q, g, rps, ni + 1, B)
+    ra, qa, SA = _route_rows(ar, aq, g, rps, ni, B)
+    t = np.asarray(targets, np.int64)
+    t_sh = np.full((g, t.shape[0]), rps, np.int32)
+    for s in range(g):
+        own = (t >= s * rps) & (t < (s + 1) * rps)
+        t_sh[s, own] = (t[own] - s * rps).astype(np.int32)
+    parts = [r1, q1, r2, q2, ra, qa, t_sh]
+    if out is None and out_alloc is not None:
+        L = sum(p.shape[1] for p in parts)
+        out = out_alloc((g, L))
+    if out is not None and out.shape == (g, sum(p.shape[1] for p in parts)):
+        entries = np.concatenate(parts, axis=1, out=out)
+    else:
+        entries = np.concatenate(parts, axis=1)
+    return np.ascontiguousarray(entries), (S1, S2, SA, t.shape[0])
+
+
+def route_overlay(spec: ShardSpec, nbrs: np.ndarray, dst: np.ndarray, num_active: int):
+    """Route the overlay-ELL gather matrix by destination-row ownership:
+    stacked ``int32[g, K, C]`` neighbour matrices (sentinel n_int) and
+    ``int32[g, K]`` local destination rows (sentinel rps = dropped)."""
+    g, rps = spec.n_shards, spec.rows_per_shard
+    dst = np.asarray(dst, np.int64)
+    valid = dst < num_active
+    owner = np.minimum(np.where(valid, dst // rps, 0), g - 1)
+    counts = np.bincount(owner[valid], minlength=g)
+    K = _ceil_pow2(int(counts.max()) if counts.size else 0)
+    C = nbrs.shape[1]
+    out_n = np.full((g, K, C), spec.n_int, np.int32)
+    out_d = np.full((g, K), rps, np.int32)
+    owned_bytes = [0] * g
+    for s in range(g):
+        sel = valid & (owner == s)
+        k = int(np.count_nonzero(sel))
+        if k:
+            out_n[s, :k] = nbrs[sel]
+            out_d[s, :k] = (dst[sel] - s * rps).astype(np.int32)
+            owned_bytes[s] = k * (C + 1) * 4
+    return np.ascontiguousarray(out_n), np.ascontiguousarray(out_d), owned_bytes
+
+
+def route_labels(out_lab: np.ndarray, in_lab: np.ndarray, n_shards: int):
+    """Stack the label arrays into per-shard row stripes ``int32[g, rl, W]``
+    padded with each side's own pad (a padded row can never witness an
+    intersection). Returns ``(out_sh, in_sh, rl, owned_bytes)``."""
+    g = max(1, int(n_shards))
+    n_rows = out_lab.shape[0]
+    ranges = shard_row_ranges(n_rows, g)
+    rl = ranges[0][1] - ranges[0][0] if ranges[0][1] > ranges[0][0] else 1
+    out_sh = np.full((g, rl, out_lab.shape[1]), OUT_PAD, np.int32)
+    in_sh = np.full((g, rl, in_lab.shape[1]), IN_PAD, np.int32)
+    owned = [0] * g
+    for s, (lo, hi) in enumerate(ranges):
+        k = hi - lo
+        if k <= 0:
+            continue
+        out_sh[s, :k] = out_lab[lo:hi]
+        in_sh[s, :k] = in_lab[lo:hi]
+        owned[s] = k * (out_lab.shape[1] + in_lab.shape[1]) * 4
+    return np.ascontiguousarray(out_sh), np.ascontiguousarray(in_sh), rl, owned
+
+
+def halo_bytes_per_round(spec: ShardSpec, W: int) -> int:
+    """Frontier-slab bytes one device RECEIVES per halo exchange: the other
+    ``g-1`` shards' ``[rows_per_shard, W]`` uint32 slabs."""
+    return (spec.n_shards - 1) * spec.rows_per_shard * W * 4
+
+
+def route_label_ell(groups, n: int, n_shards: int, rps: int):
+    """Route the label builder's pull-ELL groups (``build_ell_groups``:
+    global neighbour ids with gather sentinel ``n``, global destination
+    rows) by destination-row ownership — the same row ranges that stripe
+    the serving label arrays and bucket slabs. Returns per group
+    ``(int32[g, rb, cap] nbrs, int32[g, rb] local dst)`` with scatter
+    sentinel ``rps`` (dropped) and gather ids left GLOBAL: the sweep
+    gathers from the halo-exchanged full bitmap."""
+    g = max(1, int(n_shards))
+    routed = []
+    for nbrs, dst in groups:
+        dst64 = np.asarray(dst, np.int64)
+        owner = np.minimum(dst64 // rps, g - 1)
+        counts = np.bincount(owner, minlength=g)
+        rb = _ceil_pow2(int(counts.max()) if counts.size else 0) or 1
+        cap = nbrs.shape[1]
+        sb = np.full((g, rb, cap), np.int32(n), np.int32)
+        db = np.full((g, rb), np.int32(rps), np.int32)
+        for s in range(g):
+            sel = owner == s
+            k = int(np.count_nonzero(sel))
+            if k:
+                sb[s, :k] = nbrs[sel]
+                db[s, :k] = (dst64[sel] - s * rps).astype(np.int32)
+        routed.append((np.ascontiguousarray(sb), np.ascontiguousarray(db)))
+    return routed
+
+
+# -- device layouts ----------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShardedBuckets:
+    """The stacked bucket arrays on a device, plus each shard's row run per
+    bucket: ``runs[b][s] = (first local row, owned rows)`` — the rows
+    ``dst[b][s, :k]``, which ``make_shard_spec`` lays out contiguously."""
+
+    nbrs: tuple  # int32 [g, rb, cap] per bucket
+    dst: tuple  # int32 [g, rb] per bucket
+    runs: tuple
+
+    @classmethod
+    def from_spec(cls, spec: ShardSpec, device) -> "ShardedBuckets":
+        rps = spec.rows_per_shard
+        runs = []
+        for db in spec.dst_sh:
+            per = []
+            for s in range(db.shape[0]):
+                k = int(np.count_nonzero(db[s] < rps))
+                first = int(db[s, 0]) if k else 0
+                if k and not (np.array_equal(db[s, :k], first + np.arange(k))
+                              and (db[s, k:] >= rps).all()):
+                    raise ValueError(f"shard {s}'s bucket rows are not one contiguous run")
+                per.append((first, k))
+            runs.append(tuple(per))
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)  # noqa: E731
+        return cls(nbrs=tuple(t(a) for a in spec.nbrs_sh), dst=tuple(t(a) for a in spec.dst_sh),
+                   runs=tuple(runs))
+
+
+def shard_ell_groups(routed, device) -> list:
+    """Per shard, the ``EllGroups`` of its routed label-build ELL groups
+    (``route_label_ell``): global gather ids, local ``dst`` rows with the
+    dropped sentinel ``rps``."""
+    g = routed[0][0].shape[0] if routed else 1
+    return [
+        label_kernels.EllGroups.from_groups([(sb[s], db[s]) for sb, db in routed], device)
+        for s in range(g)
+    ]
+
+
+def _mesh_shards(mesh, g: int, device: torch.device) -> None:
+    if mesh is None:
+        return
+    if mesh.graph != g:
+        raise ValueError(f"a mesh of {mesh.graph} shards cannot run {g} stacked shards")
+    if not same_device(mesh.device, device):
+        raise ValueError(f"the mesh lives on {mesh.device}, the arrays on {device}")
+
+
+# -- collectives ---------------------------------------------------------------------
+
+
+def _note(kind: str, nbytes: int) -> None:
+    COLLECTIVE_CALLS[kind] += 1
+    COLLECTIVE_BYTES[kind] += int(nbytes)
+
+
+def all_gather_rows(slabs: Sequence[torch.Tensor], out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The halo exchange: each shard's ``[rps, w]`` slab copied into its row
+    range of one gathered ``[g·rps, w]`` bitmap (``copy_``, a device copy on
+    the card). The gathered bitmap is a copy, never a view of the live
+    slabs: the pulls of a hop read it while shards commit."""
+    g = len(slabs)
+    rps, w = slabs[0].shape
+    if out is None:
+        out = torch.empty((g * rps, w), dtype=slabs[0].dtype, device=slabs[0].device)
+    for s, slab in enumerate(slabs):
+        out[s * rps : (s + 1) * rps].copy_(slab)
+    _note("all_gather", g * rps * w * slabs[0].element_size())
+    return out
+
+
+def psum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Sum over shards with int32 wrap-around (the reference's psum)."""
+    total = torch.stack([p.to(torch.int64) for p in parts]).sum(0)
+    _note("psum", sum(p.numel() * p.element_size() for p in parts))
+    return ((total + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+def or_combine(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Bitwise OR over shards (the reference's all_gather + OR-reduce of the
+    packed answers)."""
+    out = parts[0].clone()
+    for p in parts[1:]:
+        out |= p
+    _note("or_combine", sum(p.numel() * p.element_size() for p in parts))
+    return out
+
+
+def _u32_to_i32(v: int) -> int:
+    v &= 0xFFFFFFFF
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+# -- K10a: the sharded BFS fixpoint ---------------------------------------------------
+
+
+def _pull_shard_ref(Rfull, buckets: ShardedBuckets, s: int, rps: int, ov) -> torch.Tensor:
+    """One shard's local pull from the gathered bitmap into its ``[rps, W]``
+    rows: every bucket's owned rows, then the overlay OR; scatters to a
+    local row at ``rps`` or beyond are dropped."""
+    p = torch.zeros((rps, Rfull.shape[1]), dtype=Rfull.dtype, device=Rfull.device)
+    for nb, d in zip(buckets.nbrs, buckets.dst):
+        keep = d[s] < rps
+        if bool(keep.any()):
+            p[d[s][keep].long()] = _gather_or(Rfull, nb[s][keep])
+    if ov is not None:
+        keep = ov[1][s] < rps
+        if bool(keep.any()):
+            rows = ov[1][s][keep].long()
+            p[rows] |= _gather_or(Rfull, ov[0][s][keep])
+    return p
+
+
+def shard_answer_ref(entries, sizes, P, ans_base, R, rps: int, iters: int, truncated: bool):
+    """One shard's part of K10a's answer in plain PyTorch → int32[W+3]: the
+    owned targets' and sink gathers' bits, ``iters``, ``truncated`` and the
+    popcount of ``R`` (mod 2³²). Non-owned rows (``>= rps``) contribute 0."""
+    _, _, _, _, a_rows, a_q, targets = kernels._split(entries, sizes)
+    B = sizes[3]
+    dev = entries.device
+    q = torch.arange(B, device=dev)
+    # shift amounts stay int32 so the bitmaps never promote to int64
+    words, bits = q >> 5, (q & 31).to(torch.int32)
+    own_t = targets < rps
+    tc = torch.clamp(targets, max=rps - 1)
+    a = torch.where(own_t, P[tc, words] | ans_base[tc, words], torch.zeros_like(P[tc, words]))
+    hit = (a >> bits) & 1
+    own_a = a_rows < rps
+    ac = torch.clamp(a_rows, max=rps - 1)
+    v = (R[ac, a_q >> 5] >> (a_q & 31).to(torch.int32)) & 1
+    vals = torch.where(own_a, v, torch.zeros_like(v))
+    hit = hit.scatter_reduce(0, a_q, vals, reduce="amax")
+    pop = int(label_kernels._popcount(R).sum()) & 0xFFFFFFFF
+    tail = torch.tensor([iters, int(truncated), _u32_to_i32(pop)], dtype=torch.int32, device=dev)
+    return torch.cat([kernels._pack_bits(hit), tail])
+
+
+def check_step_ref(
+    mesh,
+    buckets: ShardedBuckets,
+    entries: torch.Tensor,
+    ov_nbrs: Optional[torch.Tensor] = None,
+    ov_dst: Optional[torch.Tensor] = None,
+    *,
+    sizes: tuple,
+    rps: int,
+    B: int,
+    it_cap: int,
+    block_iters: int = 8,
+) -> torch.Tensor:
+    """K10a in plain PyTorch → int32[W+3] (see the module docstring)."""
+    g = entries.shape[0]
+    _mesh_shards(mesh, g, entries.device)
+    W = B // 32
+    ov = None if ov_nbrs is None else (ov_nbrs, ov_dst)
+    seeded = [kernels.seed_ref(entries[s], sizes, rps - 1, W) for s in range(g)]
+    R = [r for r, _ in seeded]
+    ans_base = [a for _, a in seeded]
+    p = [torch.zeros((rps, W), dtype=torch.int32, device=entries.device) for _ in range(g)]
+    # the reference's loop has no "nothing to pull" guard: it always runs
+    changed, iters = True, 0
+    while changed and iters < it_cap:
+        for _ in range(block_iters):
+            if not changed:  # a guarded step after convergence is a no-op
+                break
+            Rfull = all_gather_rows(R)
+            p = [_pull_shard_ref(Rfull, buckets, s, rps, ov) for s in range(g)]
+            grew = []
+            for s in range(g):
+                nxt = R[s] | p[s]
+                grew.append(torch.tensor([int(bool((nxt != R[s]).any()))], dtype=torch.int32))
+                R[s] = nxt
+            changed = bool(psum(grew)[0] > 0)
+            iters += 1
+    parts = [shard_answer_ref(entries[s], sizes, p[s], ans_base[s], R[s], rps, iters, changed)
+             for s in range(g)]
+    # the popcounts add as int32 words with wrap-around: a uint32 psum
+    return torch.cat([or_combine([x[:W] for x in parts]), parts[0][W : W + 2],
+                      psum([x[W + 2 :] for x in parts])])
+
+
+def shard_answer_cuda(entries, sizes, P, ans_base, R, rps: int, state, out) -> None:
+    """One shard's part of K10a's answer via ``keto_shard_answer``, OR-ed
+    (bits) and added (popcount) into the shared ``out`` int32[W+3]."""
+    kernels._need_entries(entries, sizes)
+    S1, S2, SA, B = sizes
+    W = B // 32
+    for t, what in ((P, "P"), (ans_base, "ans_base"), (R, "R")):
+        kernels._need_rows(t, what, rps, W)
+    kernels._need_state(state)
+    _need(out, "out", 1)
+    if out.numel() != W + 3:
+        raise ValueError(f"out: expected int32[{W + 3}], got {tuple(out.shape)}")
+    COUNTS["shard_answer"] += 1
+    _check(_lib().keto_shard_answer(entries.data_ptr(), S1, S2, SA, B, rps, P.data_ptr(),
+                                    ans_base.data_ptr(), R.data_ptr(), W, state.data_ptr(),
+                                    out.data_ptr(), _stream()), "keto_shard_answer")
+    _note("or_combine", (W + 3) * 4)
+
+
+def _pull_shard_cuda(G, buckets: ShardedBuckets, s: int, rps: int, P, state, ov) -> None:
+    """One shard's guarded local pull via ``keto_pull``: each bucket's owned
+    run in row-run mode (written in place), then the overlay in ``dst``
+    mode (ORed, ``dst >= rps`` dropped)."""
+    lib, stream, W = _lib(), _stream(), G.shape[1]
+    for nb, runs in zip(buckets.nbrs, buckets.runs):
+        first, k = runs[s]
+        if k:
+            COUNTS["pull"] += 1
+            _check(lib.keto_pull(nb[s].data_ptr(), k, nb.shape[2], None, first, rps,
+                                 G.data_ptr(), P.data_ptr(), W, state.data_ptr(), stream),
+                   "keto_pull")
+    if ov is not None and ov[0].shape[1]:
+        ovn, ovd = ov[0][s], ov[1][s]
+        COUNTS["pull"] += 1
+        COUNTS["pull_overlay"] += 1
+        _check(lib.keto_pull(ovn.data_ptr(), ovn.shape[0], ovn.shape[1], ovd.data_ptr(), 0, rps,
+                             G.data_ptr(), P.data_ptr(), W, state.data_ptr(), stream),
+               "keto_pull")
+
+
+def fixpoint_cuda(
+    mesh,
+    buckets: ShardedBuckets,
+    entries: torch.Tensor,
+    ov_nbrs: Optional[torch.Tensor] = None,
+    ov_dst: Optional[torch.Tensor] = None,
+    *,
+    sizes: tuple,
+    rps: int,
+    B: int,
+    it_cap: int,
+    block_iters: int = 8,
+):
+    """K10a's seeds and guarded fixpoint on the card: per shard its
+    fixpoint slab ``R``, its last pull ``P`` and its one-hop term
+    ``ans_base`` (lists of ``[rps, W]``), and the shared ``state``
+    int32[3] {changed, iters, step_changed}."""
+    _need(entries, "entries", 2)
+    g = entries.shape[0]
+    _mesh_shards(mesh, g, entries.device)
+    for nb, d in zip(buckets.nbrs, buckets.dst):
+        _need(nb, "bucket nbrs", 3)
+        _need(d, "bucket dst", 2)
+        if nb.shape[0] != g or d.shape[0] != g:
+            raise ValueError(f"stacked buckets of {nb.shape[0]} shards, entries of {g}")
+    ov = None
+    if ov_nbrs is not None:
+        _need(ov_nbrs, "ov_nbrs", 3)
+        _need(ov_dst, "ov_dst", 2)
+        if ov_nbrs.shape[:2] != ov_dst.shape or ov_nbrs.shape[0] != g:
+            raise ValueError("ov_dst must name one destination row per ov_nbrs row and shard")
+        ov = (ov_nbrs, ov_dst)
+    W = B // 32
+    dev = entries.device
+    seeded = [kernels.seed_cuda(entries[s], sizes, rps - 1, W) for s in range(g)]
+    R = [r for r, _ in seeded]
+    ans_base = [a for _, a in seeded]
+    P = [torch.zeros((rps, W), dtype=torch.int32, device=dev) for _ in range(g)]
+    G = torch.empty((g * rps, W), dtype=torch.int32, device=dev)
+    # {changed, iters, step_changed}: one word every shard's commit raises
+    # (the psum of the changed flag) and one close per hop
+    state = torch.tensor([1, 0, 0], dtype=torch.int32, device=dev)
+    changed, iters = True, 0
+    while changed and iters < it_cap:
+        for _ in range(block_iters):
+            all_gather_rows(R, out=G)
+            for s in range(g):
+                _pull_shard_cuda(G, buckets, s, rps, P[s], state, ov)
+            for s in range(g):
+                kernels.commit_cuda(P[s], R[s], rps, state)
+            kernels.close_cuda(state)
+        changed, iters = (int(v) for v in state[:2].tolist())
+    return R, P, ans_base, state
+
+
+def check_step_cuda(mesh, buckets: ShardedBuckets, entries: torch.Tensor, ov_nbrs=None,
+                    ov_dst=None, *, sizes: tuple, rps: int, B: int, it_cap: int,
+                    block_iters: int = 8) -> torch.Tensor:
+    """K10a on the card → int32[W+3] (device tensor, not synchronised but
+    for the one guard read per block): the fixpoint, then every shard's
+    answers into one output."""
+    R, P, ans_base, state = fixpoint_cuda(mesh, buckets, entries, ov_nbrs, ov_dst, sizes=sizes,
+                                          rps=rps, B=B, it_cap=it_cap, block_iters=block_iters)
+    out = torch.zeros(B // 32 + 3, dtype=torch.int32, device=entries.device)
+    for s in range(entries.shape[0]):
+        shard_answer_cuda(entries[s], sizes, P[s], ans_base[s], R[s], rps, state, out)
+    return out
+
+
+def check_step(mesh, buckets, entries: torch.Tensor, ov_nbrs=None, ov_dst=None, **kw) -> torch.Tensor:
+    """K10a: the plain version for CPU tensors, the kernels for CUDA tensors."""
+    if _on_cpu(entries):
+        return check_step_ref(mesh, buckets, entries, ov_nbrs, ov_dst, **kw)
+    return check_step_cuda(mesh, buckets, entries, ov_nbrs, ov_dst, **kw)
+
+
+# -- K10b: the sharded label intersection ---------------------------------------------
+
+
+def pair_rows_ref(lab: torch.Tensor, rows: torch.Tensor, g0: int, out: torch.Tensor) -> None:
+    """One shard's part of the pair-row exchange in plain PyTorch:
+    ``out[p] += lab[rows[p] - g0]`` where the shard owns that row (int32
+    wrap-around)."""
+    rl = lab.shape[0]
+    local = rows.long() - g0
+    own = (local >= 0) & (local < rl)
+    if bool(own.any()):
+        add = lab[local[own]].to(torch.int64) + out[own].to(torch.int64)
+        out[own] = ((add + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+def pair_rows_cuda(lab: torch.Tensor, rows: torch.Tensor, g0: int, out: torch.Tensor) -> None:
+    """One shard's part of the pair-row exchange via ``keto_pair_rows``."""
+    _need(lab, "lab", 2)
+    _need(rows, "rows", 1)
+    _need(out, "out", 2)
+    if out.shape != (rows.numel(), lab.shape[1]):
+        raise ValueError(f"out: expected {(rows.numel(), lab.shape[1])}, got {tuple(out.shape)}")
+    if rows.numel():
+        COUNTS["pair_rows"] += 1
+        _check(_lib().keto_pair_rows(lab.data_ptr(), lab.shape[0], lab.shape[1], rows.data_ptr(),
+                                     rows.numel(), g0, out.data_ptr(), _stream()),
+               "keto_pair_rows")
+
+
+def exchange_pair_rows(lab_sh, rows: torch.Tensor, rl: int, accumulate=None) -> torch.Tensor:
+    """The one-shot pair-row exchange of one side: every shard adds the pair
+    rows it owns into one zeroed ``[P, w]`` buffer (the psum).
+    ``accumulate`` is the per-shard step (``pair_rows_ref`` or
+    ``pair_rows_cuda``; by the tensors' device when None)."""
+    if accumulate is None:
+        accumulate = pair_rows_ref if _on_cpu(rows) else pair_rows_cuda
+    g, _, w = lab_sh.shape
+    out = torch.zeros((rows.numel(), w), dtype=torch.int32, device=rows.device)
+    for s in range(g):
+        accumulate(lab_sh[s], rows, s * rl, out)
+    _note("psum", g * out.numel() * 4)
+    return out
+
+
+def _label_step(mesh, out_sh, in_sh, entries, n_pairs, B, rl, accumulate, step):
+    g = out_sh.shape[0]
+    _mesh_shards(mesh, g, entries.device)
+    if in_sh.shape[0] != g or out_sh.shape[1] != rl or in_sh.shape[1] != rl:
+        raise ValueError(f"label stripes {tuple(out_sh.shape)} / {tuple(in_sh.shape)}, rl={rl}")
+    pa, pb, pq = kernels._label_parts(entries, n_pairs)
+    oa = exchange_pair_rows(out_sh, pa, rl, accumulate)
+    ib = exchange_pair_rows(in_sh, pb, rl, accumulate)
+    ar = torch.arange(n_pairs, dtype=torch.int32, device=entries.device)
+    return step(oa, ib, torch.cat([ar, ar, pq]), n_pairs=n_pairs, B=B)
+
+
+def label_step_ref(mesh, out_sh, in_sh, entries, *, n_pairs: int, B: int, rl: int):
+    """K10b in plain PyTorch → int32[W]."""
+    return _label_step(mesh, out_sh, in_sh, entries, n_pairs, B, rl, pair_rows_ref,
+                       kernels.label_step_ref)
+
+
+def label_step_cuda(mesh, out_sh, in_sh, entries, *, n_pairs: int, B: int, rl: int):
+    """K10b on the card → int32[W]: ``keto_pair_rows`` per shard and side,
+    then ``keto_label_step``."""
+    return _label_step(mesh, out_sh, in_sh, entries, n_pairs, B, rl, pair_rows_cuda,
+                       kernels.label_step_cuda)
+
+
+def label_step(mesh, out_sh, in_sh, entries: torch.Tensor, *, n_pairs: int, B: int, rl: int):
+    """K10b → int32[W]: the pair-row exchange of both sides, then K3's
+    compare and pack on the exchanged rows (pair ``p`` reads row ``p`` of
+    each side). Plain for CPU tensors, the kernels for CUDA tensors."""
+    if _on_cpu(entries):
+        return label_step_ref(mesh, out_sh, in_sh, entries, n_pairs=n_pairs, B=B, rl=rl)
+    return label_step_cuda(mesh, out_sh, in_sh, entries, n_pairs=n_pairs, B=B, rl=rl)
+
+
+# -- K10c: the sharded label-build wave ------------------------------------------------
+
+
+def label_sweep_step(mesh, groups: Sequence, V, X, S, cov, *, rps: int, prune_expansion: bool = True,
+                     wave=None):
+    """One sharded wave → ``(V, X2, S, state)``: lists of per-shard
+    ``[rps, wt]`` slabs (``V`` and ``S`` updated in place, ``X2`` fresh) and
+    ``state`` int32[2] {active, visits} summed over the shards. The halo
+    all-gather of ``X`` comes first; each shard's wave then reads the
+    gathered bitmap (global rows) and writes its own rows. ``wave`` is the
+    per-shard step (``sweep_step_into_ref`` or ``_cuda``; by the slabs'
+    device when None)."""
+    if wave is None:
+        wave = label_kernels.sweep_step_into
+    g = len(V)
+    _mesh_shards(mesh, g, V[0].device)
+    if len(groups) != g:
+        raise ValueError(f"{len(groups)} routed group sets for {g} shards")
+    Xfull = all_gather_rows(X)
+    X2 = [torch.zeros_like(v) for v in V]
+    state = torch.zeros(2, dtype=torch.int32, device=V[0].device)
+    for s in range(g):
+        if V[s].shape[0] != rps:
+            raise ValueError(f"shard {s}: {V[s].shape[0]} rows, expected rps={rps}")
+        wave(groups[s], Xfull, V[s], S[s], cov[s], X2[s], state, prune_expansion=prune_expansion)
+    _note("psum", 2 * 4 * g)
+    return V, X2, S, state

@@ -332,6 +332,26 @@ class MemoryPersister(Manager):
 
     # -- snapshot support ----------------------------------------------------
 
+    def fork(self) -> "MemoryPersister":
+        """An independent store holding the same rows at the same watermark,
+        over the same namespaces: the row list is copied (its rows are
+        immutable and shared) and the change logs start empty at the fork's
+        watermark, so a write to either store is invisible to the other.
+        chip_smoke.py gives a second engine its own copy of a 10M-tuple
+        store this way, without generating it again."""
+        with self._lock:
+            other = MemoryPersister(self._nm)
+            other._rows = list(self._rows)
+            # both stores go on from the same next row id: the parent gets
+            # back the id read here, ahead of its own counter
+            nxt = next(self._seq)
+            self._seq = itertools.chain((nxt,), self._seq)
+            other._seq = itertools.count(nxt)
+            other._watermark = self._watermark
+            other._log_floor = other._del_floor = self._watermark
+            other._delete_wm = self._delete_wm
+            return other
+
     def snapshot_rows(self) -> tuple[list[InternalRow], int]:
         """Consistent (rows, watermark) view for the graph builder."""
         with self._lock:

@@ -24,3 +24,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "plain PyTorch path on the host"
         )
     return dev
+
+
+def same_device(a: Union[str, torch.device], b: Union[str, torch.device]) -> bool:
+    """Do ``a`` and ``b`` name the same device (``cuda`` is ``cuda:0``)?"""
+    a, b = torch.device(a), torch.device(b)
+    return a.type == b.type and (a.type == "cpu" or (a.index or 0) == (b.index or 0))

@@ -1,0 +1,369 @@
+"""The sharded programs of the PyTorch port (K10) against the JAX reference's
+``shard_map`` programs, word for word.
+
+``keto_tpu_torch.parallel.sharded``'s plain versions of ``check_step``
+(K10a), ``label_step`` (K10b) and ``label_sweep_step`` (K10c) must equal
+``keto_tpu.parallel.sharded``'s ``check_kernel``, ``label_kernel`` and
+``label_sweep_kernel`` on the 8-virtual-device CPU mesh of
+tests/conftest.py, over sub-meshes of 1, 2, 3, 4 and 8 shards, on the same
+numpy-seeded layouts: the whole ``uint32[W+3]`` / ``uint32[W]`` output
+(decision bits, ``iters``, ``truncated``, the frontier-bit word) and every
+slab word of the wave. The routing functions must equal the reference's
+byte for byte. The ``cuda`` tests hold every CUDA entry point against its
+plain version on the card and skip where there is none.
+"""
+
+from __future__ import annotations
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from keto_tpu_torch.check import kernels
+from keto_tpu_torch.check.random_layouts import (
+    random_label_case,
+    random_shard_case,
+    random_sweep_case,
+)
+from keto_tpu_torch.graph import label_kernels
+from keto_tpu_torch.parallel import make_mesh
+from keto_tpu_torch.parallel import sharded as ps
+
+GS = (1, 2, 3, 4, 8)
+
+CHECK_CASES = {
+    "w1-caps": dict(W=1, caps=(1, 2, 4), rows=(9, 7, 5)),
+    "w8-cap16-uneven": dict(W=8, caps=(1, 16), rows=(20, 3), n_int=80, block_iters=3),
+    "w8-overlay": dict(W=8, caps=(1, 4, 16), rows=(12, 8, 4), overlay=True, block_iters=1),
+    "chain-trunc-cap3-b1": dict(W=8, caps=(1,), rows=(30,), it_cap=3, block_iters=1, chain=True),
+    "chain-trunc-overlay": dict(W=8, caps=(1,), rows=(30,), it_cap=5, block_iters=3, chain=True,
+                                overlay=True),
+    "chain-trunc-cap2-b8": dict(W=1, caps=(1,), rows=(30,), it_cap=2, block_iters=8, chain=True),
+    "n-active-0": dict(W=8, n_int=30),
+}
+LABEL_CASES = {  # (n, Wo, Wi, W, live pairs)
+    "w1": (90, 1, 1, 1, 20),
+    "wo32": (90, 32, 1, 8, 300),
+    "w64": (61, 64, 64, 8, 500),
+    "wo128": (50, 128, 32, 1, 40),
+}
+SWEEP_CASES = {  # (n, caps, rows per group, wt, expansion pruning)
+    "prune-wt1": (40, (1, 2, 4), (10, 8, 5), 1, True),
+    "noprune-wt2": (33, (1, 8), (20, 6), 2, False),
+    "prune-wt2-cap16": (70, (1, 2, 16), (30, 10, 3), 2, True),
+}
+
+
+def _jax_mesh(g):
+    import jax
+
+    from keto_tpu.parallel import make_mesh as jmesh
+
+    return jmesh(jax.devices()[:g], graph=g)
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _shard_case(name, g):
+    return random_shard_case(np.random.default_rng(sorted(CHECK_CASES).index(name)), g,
+                             **CHECK_CASES[name])
+
+
+@pytest.mark.parametrize("g", GS)
+@pytest.mark.parametrize("name", sorted(CHECK_CASES))
+def test_check_step_matches_jax(name, g):
+    import jax.numpy as jnp
+
+    from keto_tpu.parallel import sharded as js
+
+    single, (spec, ent, ov, kw) = _shard_case(name, g)
+    want = np.asarray(js.check_kernel(_jax_mesh(g))(
+        tuple(jnp.asarray(a) for a in spec.nbrs_sh), tuple(jnp.asarray(a) for a in spec.dst_sh),
+        jnp.asarray(ent), ov_nbrs=None if ov is None else jnp.asarray(ov[0]),
+        ov_dst=None if ov is None else jnp.asarray(ov[1]), **kw))
+    bk = ps.ShardedBuckets.from_spec(spec, "cpu")
+    got = ps.check_step(make_mesh(graph=g, device="cpu"), bk, _t(ent),
+                        *((None, None) if ov is None else (_t(ov[0]), _t(ov[1]))),
+                        **kw).numpy().view(np.uint32)
+    assert got.shape == want.shape
+    assert np.array_equal(got, want), (
+        f"{np.count_nonzero(got != want)} words differ; tail port={got[-3:]} jax={want[-3:]}")
+    W = kw["B"] // 32
+    buckets, entries, sov, k1 = single
+    if k1["n_active"]:
+        # the single-device K2 on the same layout: equal decisions and tail
+        one = kernels.check_step(
+            [_t(b) for b in buckets], _t(entries),
+            *((None, None) if sov is None else (_t(sov[0]), _t(sov[1]))), **k1,
+        ).numpy().view(np.uint32)
+        assert np.array_equal(got[: W + 2], one)
+    if name.startswith("chain-trunc"):
+        assert want[W + 1] == 1, "the case must truncate"
+
+
+@pytest.mark.parametrize("g", (1, 3, 4))
+def test_check_step_all_padding_slice_decides_nothing(g):
+    """The reference's warm geometry: every entry a sentinel. The sharded
+    dispatch returns zero decision bits and the reference's tail."""
+    import jax.numpy as jnp
+
+    from keto_tpu.parallel import sharded as js
+
+    _, (spec, _, ov, kw) = _shard_case("w8-overlay", g)
+    ni, B = spec.n_int, kw["B"]
+    e_rows, e_q = np.full(B, ni + 1, np.int32), np.zeros(B, np.int32)
+    packed = (e_rows, e_q, e_rows, e_q, np.full(B, ni, np.int32), e_q, np.full(B, ni, np.int32))
+    ent, sizes = ps.route_entries(spec, packed, B)
+    jent, jsizes = js.route_entries(spec, packed, B)  # reads the spec's sizes only
+    assert np.array_equal(ent, jent) and sizes == jsizes
+    kw = dict(kw, sizes=sizes)
+    got = ps.check_step(make_mesh(graph=g, device="cpu"), ps.ShardedBuckets.from_spec(spec, "cpu"),
+                        _t(ent), _t(ov[0]), _t(ov[1]), **kw).numpy().view(np.uint32)
+    want = np.asarray(js.check_kernel(_jax_mesh(g))(
+        tuple(jnp.asarray(a) for a in spec.nbrs_sh), tuple(jnp.asarray(a) for a in spec.dst_sh),
+        jnp.asarray(ent), ov_nbrs=jnp.asarray(ov[0]), ov_dst=jnp.asarray(ov[1]), **kw))
+    assert np.array_equal(got, want)
+    assert not got[: B // 32].any()
+
+
+@pytest.mark.parametrize("g", GS)
+@pytest.mark.parametrize("name", sorted(LABEL_CASES))
+def test_label_step_matches_jax(name, g):
+    import jax.numpy as jnp
+
+    from keto_tpu.parallel import sharded as js
+
+    n, Wo, Wi, W, pairs = LABEL_CASES[name]
+    out_lab, in_lab, ent, P, B = random_label_case(np.random.default_rng(n + Wo), n, Wo, Wi, W,
+                                                   pairs)
+    o_sh, i_sh, rl, owned = ps.route_labels(out_lab, in_lab, g)
+    jo, ji, jrl, jowned = js.route_labels(out_lab, in_lab, g)
+    assert np.array_equal(o_sh, jo) and np.array_equal(i_sh, ji) and (rl, owned) == (jrl, jowned)
+    want = np.asarray(js.label_kernel(_jax_mesh(g))(
+        jnp.asarray(o_sh), jnp.asarray(i_sh), jnp.asarray(ent), n_pairs=P, B=B, rl=rl))
+    got = ps.label_step(make_mesh(graph=g, device="cpu"), _t(o_sh), _t(i_sh), _t(ent),
+                        n_pairs=P, B=B, rl=rl).numpy().view(np.uint32)
+    assert np.array_equal(got, want)
+    one = kernels.label_step(_t(out_lab), _t(in_lab), _t(ent), n_pairs=P, B=B)
+    assert np.array_equal(got, one.numpy().view(np.uint32))
+
+
+def test_pair_row_exchange_keeps_the_pads():
+    """A pair row no shard owned would rebuild as zeros on both sides and
+    match (0 == 0); the stripes pad with each side's own pad, so at g = 3
+    (rows that do not divide evenly) every pad pair still misses."""
+    g, n = 3, 10
+    out_lab = np.full((n + 1, 2), -1, np.int32)
+    in_lab = np.full((n + 1, 2), -2, np.int32)
+    out_lab[0, 0] = in_lab[5, 0] = 7  # one real grant: (0, 5)
+    o_sh, i_sh, rl, _ = ps.route_labels(out_lab, in_lab, g)
+    assert g * rl > n + 1  # the last stripe is padding past row n
+    pa = np.array([0, n, g * rl - 1, 1], np.int32)  # a grant, the pad row, a pad stripe row
+    pb = np.array([5, n, g * rl - 1, 2], np.int32)
+    pq = np.array([0, 1, 2, 3], np.int32)
+    got = ps.label_step(make_mesh(graph=g, device="cpu"), _t(o_sh), _t(i_sh),
+                        _t(np.concatenate([pa, pb, pq])), n_pairs=4, B=32, rl=rl)
+    assert got.tolist() == [1]
+    oa = ps.exchange_pair_rows(_t(o_sh), _t(pa), rl)
+    assert oa[2].tolist() == [-1, -1] and oa[0].tolist() == [7, -1]
+
+
+@pytest.mark.parametrize("g", GS)
+@pytest.mark.parametrize("name", sorted(SWEEP_CASES))
+def test_label_sweep_step_matches_jax(name, g):
+    import jax.numpy as jnp
+
+    from keto_tpu.parallel import sharded as js
+
+    n, caps, rows, wt, prune = SWEEP_CASES[name]
+    groups, V, X, S, cov = random_sweep_case(np.random.default_rng(n), n, caps, rows, wt)
+    rps = -(-(n + 1) // g)
+    routed = ps.route_label_ell(groups, n, g, rps)
+    jr = js.route_label_ell(groups, n, g, rps)
+    assert all(np.array_equal(a, b) and np.array_equal(c, d) for (a, c), (b, d) in zip(routed, jr))
+
+    def stacked(a):
+        o = np.zeros((g * rps, wt), np.int32)
+        o[: a.shape[0]] = a
+        return o.reshape(g, rps, wt)
+
+    Vs, Xs, Ss, Cs = (stacked(a) for a in (V, X, S, cov))
+    u = lambda a: jnp.asarray(a.view(np.uint32))  # noqa: E731
+    jV, jX, jS, act, vis = js.label_sweep_kernel(_jax_mesh(g))(
+        tuple(jnp.asarray(a) for a, _ in jr), tuple(jnp.asarray(b) for _, b in jr),
+        u(Vs), u(Xs), u(Ss), u(Cs), rps=rps, prune_expansion=prune)
+    slabs = lambda a: [_t(x.copy()) for x in a]  # noqa: E731
+    V2, X2, S2, state = ps.label_sweep_step(
+        make_mesh(graph=g, device="cpu"), ps.shard_ell_groups(routed, "cpu"), slabs(Vs),
+        slabs(Xs), slabs(Ss), slabs(Cs), rps=rps, prune_expansion=prune)
+    for mine, ref in ((V2, jV), (X2, jX), (S2, jS)):
+        assert np.array_equal(np.stack([m.numpy() for m in mine]).view(np.uint32), np.asarray(ref))
+    assert state.tolist() == [int(bool(act)), int(vis)]
+
+
+# -- routing ----------------------------------------------------------------------
+
+
+def _snapshots(seed):
+    """The same random store's snapshot from the port and from the reference."""
+    from test_torch_overlay import NS, Pair, rand_tuple
+
+    rng = random.Random(seed)
+    objs = [f"o{i}" for i in range(12)]
+    users = [f"u{i}" for i in range(6)]
+    return Pair(NS, [rand_tuple(rng, objs, users) for _ in range(160)]).snapshots()
+
+
+@pytest.mark.parametrize("g", GS)
+def test_routing_matches_jax_byte_for_byte(g):
+    from keto_tpu.parallel import sharded as js
+
+    mine, ref = _snapshots(g)
+    assert mine.num_int == ref.num_int and mine.num_int > 0
+    spec, jspec = ps.make_shard_spec(mine, g), js.make_shard_spec(ref, g)
+    for f in ("n_shards", "rows_per_shard", "n_int", "n_active", "owned_bucket_bytes"):
+        assert getattr(spec, f) == getattr(jspec, f), f
+    for f in ("nbrs_sh", "dst_sh", "bucket_lo"):
+        a, b = getattr(spec, f), getattr(jspec, f)
+        assert len(a) == len(b) and all(x.dtype == y.dtype and np.array_equal(x, y)
+                                        for x, y in zip(a, b)), f
+    assert spec.padded_bucket_bytes() == jspec.padded_bucket_bytes()
+    for bi, b in enumerate(mine.buckets):
+        for row in range(b.n):
+            assert spec.patch_pos(b.offset, bi, row) == jspec.patch_pos(b.offset, bi, row)
+    for W in (1, 8):
+        assert ps.halo_bytes_per_round(spec, W) == js.halo_bytes_per_round(jspec, W)
+
+    rng = np.random.default_rng(g)
+    ni, B = mine.num_int, 64
+    rows = lambda k, hi, pad: np.concatenate(  # noqa: E731
+        [rng.integers(0, hi, size=k), np.full(B - k, pad)]).astype(np.int32)
+    qs = lambda: rng.integers(0, B, size=B).astype(np.int32)  # noqa: E731
+    packed = (rows(40, ni + 1, ni + 1), qs(), rows(20, ni + 1, ni + 1), qs(),
+              rows(10, ni, ni), qs(), rng.integers(0, ni + 1, size=B).astype(np.int32))
+    a, sa = ps.route_entries(spec, packed, B)
+    b, sb = js.route_entries(jspec, packed, B)
+    assert sa == sb and a.dtype == b.dtype and np.array_equal(a, b)
+    buf = np.empty_like(a)
+    c, _ = ps.route_entries(spec, packed, B, out=buf)
+    assert np.shares_memory(c, buf) and np.array_equal(c, a)
+
+    if mine.num_active:
+        dst = np.unique(rng.integers(0, mine.num_active, size=5))
+        dst = np.concatenate([dst, [mine.num_active]])  # a pad row no shard owns
+        nbrs = rng.integers(0, ni + 1, size=(dst.size, 4)).astype(np.int32)
+        x, y = ps.route_overlay(spec, nbrs, dst, mine.num_active), \
+            js.route_overlay(jspec, nbrs, dst, mine.num_active)
+        assert np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1]) and x[2] == y[2]
+
+    from keto_tpu.graph.label_build import build_ell_groups as jgroups
+
+    from keto_tpu_torch.graph.label_build import build_ell_groups
+    from keto_tpu_torch.graph.labels import interior_adjacency
+
+    out_ip, out_ix, in_ip, in_ix = interior_adjacency(mine)
+    groups = build_ell_groups(in_ip, in_ix, ni)
+    assert all(np.array_equal(p[0], q[0]) and np.array_equal(p[1], q[1])
+               for p, q in zip(groups, jgroups(in_ip, in_ix, ni)))
+    rps = -(-(ni + 1) // g)
+    for p, q in zip(ps.route_label_ell(groups, ni, g, rps), js.route_label_ell(groups, ni, g, rps)):
+        assert p[0].dtype == q[0].dtype and np.array_equal(p[0], q[0]) and np.array_equal(p[1], q[1])
+
+
+def test_shard_row_ranges_matches_jax():
+    from keto_tpu.graph.device_build import shard_row_ranges as jranges
+
+    from keto_tpu_torch.graph.device_build import shard_row_ranges
+
+    for n in (0, 1, 7, 10, 64, 123_950):
+        for g in (1, 2, 3, 4, 8):
+            assert shard_row_ranges(n, g) == jranges(n, g)
+
+
+# -- the CUDA entry points against their plain versions -------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", (1, 2, 3, 4))
+@pytest.mark.parametrize("name", sorted(CHECK_CASES))
+def test_check_step_cuda_matches_plain(name, g, cuda_device):
+    _, (spec, ent, ov, kw) = _shard_case(name, g)
+    mesh = make_mesh(graph=g, device=cuda_device)
+    bk = ps.ShardedBuckets.from_spec(spec, cuda_device)
+    args = [x if x is None else x.to(cuda_device)
+            for x in (_t(ent), *((None, None) if ov is None else (_t(ov[0]), _t(ov[1]))))]
+    got = ps.check_step_cuda(mesh, bk, *args, **kw)
+    want = ps.check_step_ref(mesh, bk, *args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", (1, 3, 4))
+@pytest.mark.parametrize("name", sorted(LABEL_CASES))
+def test_label_step_cuda_matches_plain(name, g, cuda_device):
+    n, Wo, Wi, W, pairs = LABEL_CASES[name]
+    out_lab, in_lab, ent, P, B = random_label_case(np.random.default_rng(n + Wo), n, Wo, Wi, W,
+                                                   pairs)
+    o_sh, i_sh, rl, _ = ps.route_labels(out_lab, in_lab, g)
+    want = ps.label_step(make_mesh(graph=g, device="cpu"), _t(o_sh), _t(i_sh), _t(ent),
+                         n_pairs=P, B=B, rl=rl)
+    before = kernels.COUNTS["pair_rows"]
+    got = ps.label_step(make_mesh(graph=g, device=cuda_device), _t(o_sh).to(cuda_device),
+                        _t(i_sh).to(cuda_device), _t(ent).to(cuda_device), n_pairs=P, B=B, rl=rl)
+    assert torch.equal(got.cpu(), want)
+    assert kernels.COUNTS["pair_rows"] - before == 2 * g
+    pa = _t(ent[:P]).to(cuda_device)
+    for s in range(g):
+        a = torch.zeros((P, Wo), dtype=torch.int32)
+        b = a.to(cuda_device)
+        ps.pair_rows_ref(_t(o_sh[s]), _t(ent[:P]), s * rl, a)
+        ps.pair_rows_cuda(_t(o_sh[s]).to(cuda_device), pa, s * rl, b)
+        assert torch.equal(b.cpu(), a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", (1, 2, 3, 4))
+@pytest.mark.parametrize("name", sorted(SWEEP_CASES))
+def test_label_sweep_step_cuda_matches_plain(name, g, cuda_device):
+    n, caps, rows, wt, prune = SWEEP_CASES[name]
+    groups, V, X, S, cov = random_sweep_case(np.random.default_rng(n), n, caps, rows, wt)
+    rps = -(-(n + 1) // g)
+    routed = ps.route_label_ell(groups, n, g, rps)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        def slabs(a):
+            o = np.zeros((g * rps, wt), np.int32)
+            o[: a.shape[0]] = a
+            return [_t(o[s * rps : (s + 1) * rps].copy()).to(dev) for s in range(g)]
+
+        outs.append(ps.label_sweep_step(make_mesh(graph=g, device=dev),
+                                        ps.shard_ell_groups(routed, dev), slabs(V), slabs(X),
+                                        slabs(S), slabs(cov), rps=rps, prune_expansion=prune))
+    torch.cuda.synchronize()
+    (rV, rX, rS, rst), (cV, cX, cS, cst) = outs
+    for a, b in ((rV, cV), (rX, cX), (rS, cS)):
+        assert all(torch.equal(x, y.cpu()) for x, y in zip(a, b))
+    assert torch.equal(rst, cst.cpu())
+
+
+@pytest.mark.cuda
+def test_shard_sweep_cuda_refuses_aliased_frontier(cuda_device):
+    groups, V, X, S, cov = random_sweep_case(np.random.default_rng(0), 20, (1,), (5,), 1)
+    eg = label_kernels.EllGroups.from_groups(groups, cuda_device)
+    t = lambda a: _t(a).to(cuda_device)  # noqa: E731
+    v = t(V)
+    with pytest.raises(ValueError):
+        label_kernels.sweep_step_into_cuda(eg, t(X), v, t(S), t(cov), v,
+                                           torch.zeros(2, dtype=torch.int32, device=cuda_device))
