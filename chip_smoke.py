@@ -31,14 +31,17 @@ Phases, in order; any failure exits non-zero:
    overlay into passive rows, a chain that it_cap truncates, no active row
    but an overlay, all 32 lanes), the build's radix argsort (empty, one
    key, all keys equal, negative keys, a ragged last tile, random int32, 10M
-   keys in [0, 5.2M), each permutation also equal to numpy's stable
-   argsort) and the sharded programs at 1, 2, 3 and 4 shards (K10a on the
-   check step's layouts — uneven last shards, overlays with rows no shard
-   owns, it_cap truncation, bit 31, no active row, and each layout again
+   keys in [0, 5.2M), keys whose middle digit is constant, the build's
+   bucket keys; each permutation also equal to numpy's stable argsort and
+   to ``torch.argsort(stable=True)``) and the sharded programs at 1, 2, 3
+   and 4 shards (K10a on the check step's layouts — uneven last shards,
+   overlays with rows no shard owns, it_cap truncation, bit 31, no active
+   row, and each layout again
    with all-sentinel entries, which must decide nothing — with the
    1-shard output's first W+2 words equal to the single-device K2's and
    its popcount word equal to every shard count's; K10b on label widths
-   1..128 with pad rows, also against the single-device K3; K10c with
+   1..128 with pad rows, also against the single-device K3, and each
+   side's pair-row exchange alone with rows no shard owns; K10c with
    expansion pruning on and off, also against the single-device K6);
    every word of every output must agree;
 3. main — BASELINE config 3 (RBAC, 1M tuples, 3-level group nesting) on
@@ -47,8 +50,9 @@ Phases, in order; any failure exits non-zero:
    oracle, and every BFS kernel launched; each kernel is then timed at the
    main path's shapes beside its plain version and its bound. The snapshot
    line gives the build's sort seconds on the card (K8) against the host
-   sorter on the same keys, whose permutations must equal the card's, and
-   the sorter's dispatch counts;
+   sorter on the same keys, whose permutations must equal the card's, the
+   sorter's dispatch counts, and K8's summed device ms over the same sorts
+   replayed on the idle card, with the passes they ran and skipped;
 4. labels — the same store and checks with the default engine: labels on,
    built on the host (config 3 is below the device-build gate): decisions
    equal to the BFS run's and the expectation, the label step launched and
@@ -59,7 +63,8 @@ Phases, in order; any failure exits non-zero:
    expectation, an oracle sample, the label step, frontier wave and
    covered mask each launched; then those three kernels are timed at the
    path's shapes beside their plain versions and bounds; its snapshot line
-   reports the build's sorts as main's does;
+   reports the build's sorts as main's does, K8's replay on its own line
+   once the label build has left the card;
 6. shard — one ``ShardMesh`` of 4 graph shards on the card: (a) main's
    store and 100k checks on a sharded engine with labels off (K10a, the
    BFS route), every decision equal to the analytic expectation and to
@@ -81,11 +86,12 @@ Phases, in order; any failure exits non-zero:
    each followed by the 100k checks (the fold's equal to the overlay's,
    the deletes' equal to the expectation) and an oracle sample; peak
    device memory; then K10a's program, ``keto_shard_answer`` and the halo
-   copy timed at config 3's shapes, K10b's program and ``keto_pair_rows``
-   and K10c's wave and K6's ``keto_sweep_step`` per shard at config 4's,
-   each beside its
+   copy timed at config 3's shapes, K10b's program and its pair-row
+   exchange (``keto_pair_gather``, one launch per side) and K10c's wave and
+   K6's ``keto_sweep_step`` per shard at config 4's, each beside its
    plain version and bound (the halo copy beside ``torch.cat`` and the
-   exchange beside ``torch.stack(...).sum(0)``);
+   exchange beside ``torch.index_select`` of the flattened stripes, and
+   the earlier yardstick ``torch.stack(...).sum(0)``);
 7. list — on the deep phase's engine and store: 200 ListObjects ("which
    issues may user-u view") and 200 ListSubjects ("which users may view
    issue-j"), each against its analytic expected set from the generator's
@@ -565,15 +571,19 @@ def sort_parity(torch, rng, dev) -> int:
     for kind in SORT_CASES:
         keys = sort_case_keys(kind, rng, tile=sk.TILE, big=(10_000_000, 5_200_000))
         t = torch.from_numpy(keys).to(dev)
+        before = dict(sk.COUNTS)
         got = sk.radix_argsort_cuda(t)
+        ran = sk.COUNTS["radix_pass"] - before["radix_pass"]
         want = sk.radix_argsort_ref(t)
+        lib = torch.argsort(t, stable=True).to(torch.int32)
         torch.cuda.synchronize()
         m, _ = diff(got, want)
+        m_lib, _ = diff(got, lib)
         host = np.argsort(keys, kind="stable")
         m_np = int((got.cpu().numpy() != host).sum()) if host.size else 0
-        log(f"parity radix_argsort {kind}: {keys.size} keys, mismatches={m} "
-            f"(vs np.argsort stable: {m_np})")
-        total += m + m_np
+        log(f"parity radix_argsort {kind}: {keys.size} keys, {ran} passes run, mismatches={m} "
+            f"(vs np.argsort stable: {m_np}, vs torch.argsort stable: {m_lib})")
+        total += m + m_np + m_lib
     return total
 
 
@@ -671,11 +681,17 @@ def shard_parity(torch, rng, dev) -> int:
                                  torch.from_numpy(i_sh), torch.from_numpy(ent), n_pairs=P, B=B,
                                  rl=rl)
             one = kernels.label_step_cuda(t(out_lab), t(in_lab), t(ent), n_pairs=P, B=B)
+            # each side's exchange alone, with rows no shard owns (negative,
+            # at and past g*rl) and rows at a stripe boundary added
+            extra = np.asarray([-1, -rl, g * rl, g * rl + 3, rl - 1, rl], np.int32)
+            m_rows = sum(diff(ps.pair_rows_cuda(t(sh), t(np.concatenate([r, extra])), rl),
+                              ps.pair_rows_ref(t(sh), t(np.concatenate([r, extra])), rl))[0]
+                         for sh, r in ((o_sh, ent[:P]), (i_sh, ent[P : 2 * P])))
             torch.cuda.synchronize()
-            m = diff(got.cpu(), want)[0] + diff(got, one)[0]
+            m = diff(got.cpu(), want)[0] + diff(got, one)[0] + m_rows
             log(f"parity shard label_step n={n} Wo={Wo} Wi={Wi} W={W} pairs={pairs} g={g} "
                 f"rl={rl}: {int(torch.tensor([bin(x & 0xFFFFFFFF).count('1') for x in want.tolist()]).sum())} "
-                f"grants, mismatches={m}")
+                f"grants, pair_rows mismatches={m_rows}, mismatches={m}")
             total += m
     for n, caps, rows, wt, prune in SHARD_SWEEP_CASES:
         seed = int(rng.integers(1 << 30))
@@ -735,6 +751,61 @@ def record_sorts(engine) -> list:
     return batches
 
 
+def k8_replay(batches, sort_s_card) -> dict:
+    """K8 over the build's card-side batches again, on an idle card: the
+    passes the build's sorts ran and skipped; ``k8_kernel_ms``, the summed
+    device ms of the kernels alone (each array's ``keto_radix_hist`` and
+    the passes of its plan, enqueued on scratch made beforehand, as
+    ``list_sort_rows`` times them) with its share of the build's
+    ``sort_s_card``; and ``k8_call_ms``, the wrapper's whole calls (scratch,
+    the plan's copy-back and its one synchronisation included). CUDA events,
+    mean of 3 calls a batch. These launches are measurements: the counts
+    are restored after."""
+    import numpy as np
+    import torch
+
+    from keto_tpu_torch.graph import sort_kernels as sk
+    from keto_tpu_torch.graph.device_build import DEFAULT_MIN_EDGES
+
+    saved = dict(sk.COUNTS)
+    on_card = [arrays for arrays, _ in batches
+               if max((a.size for a in arrays), default=0) >= DEFAULT_MIN_EDGES]
+    uploads = [[torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).cuda()
+                for a in arrays if a.size] for arrays in on_card]
+    for keys in uploads:
+        sk.radix_argsort_many_cuda(keys)
+    r = {"k8_sorts": sk.COUNTS["radix_sort"] - saved["radix_sort"],
+         "k8_passes_run": sk.COUNTS["radix_pass"] - saved["radix_pass"],
+         "k8_passes_skipped": sk.COUNTS["radix_pass_skipped"] - saved["radix_pass_skipped"]}
+    klib, stream = sk._lib(), sk._stream()
+
+    def kernels_ms(keys):
+        plans = [sk.radix_pass_plan(sk.radix_hist_ref(k)) for k in keys]
+
+        def make():
+            hist = torch.zeros((len(keys), sk.PASSES, sk.DIGITS), dtype=torch.int32,
+                               device="cuda")
+            return hist, [sk._Scratch(k, h) for k, h in zip(keys, hist)]
+
+        def run(hist, scratch):
+            for k, h in zip(keys, hist):
+                klib.keto_radix_hist(k.data_ptr(), k.numel(), h.data_ptr(), stream)
+            for sc, plan in zip(scratch, plans):
+                sk._passes_cuda(klib, stream, sc, plan)
+
+        return time_fresh_ms(run, make, 3, warmup=1)
+
+    kernel = [kernels_ms(keys) for keys in uploads]
+    call = [time_ms(lambda: sk.radix_argsort_many_cuda(keys), 3, warmup=0) for keys in uploads]
+    sk.COUNTS.update(saved)
+    r["k8_kernel_ms"] = sum(kernel)
+    r["k8_call_ms"] = sum(call)
+    r["k8_share_of_sort_s_card"] = r["k8_kernel_ms"] / 1e3 / sort_s_card if sort_s_card else None
+    r["k8_batches"] = [{"keys": [k.numel() for k in keys], "kernel_ms": km, "call_ms": cm}
+                       for keys, km, cm in zip(uploads, kernel, call)]
+    return r
+
+
 def sort_report(engine, batches) -> dict:
     """The build's sort seconds on the card against the host sorter on the
     same keys, the sorter's counters, and the permutation mismatches."""
@@ -792,6 +863,7 @@ def phase_main(torch, kernels, report):
     torch.cuda.synchronize()
     snap_s = time.monotonic() - t0
     sorts = sort_report(engine, batches)
+    sorts.update(k8_replay(batches, sorts["sort_s_card"]))  # labels off: the card is idle
     del batches
     log(f"snapshot: {snap.n_nodes} nodes, {snap.n_edges} edges, num_int={snap.num_int}, "
         f"num_active={snap.num_active}, n_peeled={snap.n_peeled}, "
@@ -1068,7 +1140,6 @@ def phase_deep(torch, kernels, report):
     sorts = sort_report(engine, batches)
     # K8's kernel row times the largest array the build sorted
     sort_keys = max((a for arrays, _ in batches for a in arrays), key=lambda a: a.size)
-    del batches
     log(f"deep snapshot: {snap.n_nodes} nodes, {snap.n_edges} edges, num_int={snap.num_int}, "
         f"num_active={snap.num_active}, {slots} interior ELL slots, "
         f"buckets={[(tuple(b.nbrs.shape), b.n) for b in snap.buckets]}, {snap_s:.3f}s; "
@@ -1134,6 +1205,11 @@ def phase_deep(torch, kernels, report):
         f"({time.monotonic() - t0:.1f}s); steady {N_CHECKS / steady_s:.0f} checks/s")
     if bad:
         raise SystemExit(f"deep FAILED: {bad} oracle mismatches")
+    # K8 replayed on the idle card, after the path's peak memory was read
+    sorts.update(k8_replay(batches, sorts["sort_s_card"]))
+    del batches
+    k8 = {k: v for k, v in sorts.items() if k.startswith("k8_")}
+    log(f"deep build sorts on K8 alone: {json.dumps(k8)}")
     report["deep"] = {
         "config": "BASELINE config 4 (GitHub org/team/repo)", "tuples": n_tuples,
         "checks": N_CHECKS, "snapshot_s": snap_s, "interior_rows": snap.num_int,
@@ -1663,6 +1739,29 @@ def shard_check_rows(torch, ps, mesh, snap, call, launches, halo_copies, rate) -
     return rows
 
 
+def device_kernels(torch, fn) -> dict:
+    """The device kernels one call of ``fn`` runs, by ``torch.profiler``:
+    {kernel name: device µs}, or {"error": ...} where the profiler fails."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            if us and e.device_type == torch.autograd.DeviceType.CUDA:
+                out[e.key[:120]] = us
+        return out
+    except Exception as e:  # noqa: BLE001 - a yardstick's breakdown, reported with the row
+        return {"error": repr(e)[:200]}
+
+
 def shard_label_rows(torch, ps, mesh, captured, launches, build_launches, rate,
                      int_rate) -> list:
     """K10b's and K10c's rows at config 4's shapes: the first label step of
@@ -1676,15 +1775,51 @@ def shard_label_rows(torch, ps, mesh, captured, launches, build_launches, rate,
     pa, pb = ent[:P], ent[P : 2 * P]
     full = lambda: ps.label_step_cuda(mesh, out_sh, in_sh, ent, **kw)  # noqa: E731
     plain = lambda: ps.label_step_ref(mesh, out_sh, in_sh, ent, **kw)  # noqa: E731
-    exch = 4 * P * (Wo + Wi)
+    # every pair row of the path lies in [0, g*rl); the pairs name each
+    # stripe row many times over, and the function reads each named row once
+    for r in (pa, pb):
+        if not bool(((r >= 0) & (r < g * rl)).all()):
+            raise SystemExit("shard FAILED: a label-route pair row outside [0, g*rl)")
+    named = 4 * (torch.unique(pa).numel() * Wo + torch.unique(pb).numel() * Wi)
     _k10_row(rows, "shard_label_step", K10B, "pair-row exchange and K3's compare",
              full, plain, ([full()], [plain()]), launches["label_step"],
-             _bound(rate, int_rate, 12 * P + 3 * exch + B // 8, P * Wo * Wi), 20,
-             extra={"pairs": P, "Wo": Wo, "Wi": Wi, "rl": rl, "g": g})
+             _bound(rate, int_rate, 12 * P + named + B // 8, P * Wo * Wi), 20,
+             extra={"pairs": P, "Wo": Wo, "Wi": Wi, "rl": rl, "g": g, "named_row_bytes": named})
 
-    def exchange(acc):
-        return torch.cat([ps.exchange_pair_rows(out_sh, pa, rl, acc),
-                          ps.exchange_pair_rows(in_sh, pb, rl, acc)], 1)
+    def exchange(fn):
+        return [fn(out_sh, pa, rl), fn(in_sh, pb, rl)]
+
+    # one call over the flattened stripes computes the same function on rows
+    # in [0, g*rl): index_select on the int32 words and on the same bytes as
+    # complex128 (a fourth of the elements), and gather with the row index
+    # expanded over the row; the fastest is the row's library call
+    pa64, pb64 = pa.long(), pb.long()
+    kernel_out = exchange(ps.pair_rows_cuda)
+
+    def flat(dt):
+        return out_sh.view(g * rl, Wo).view(dt), in_sh.view(g * rl, Wi).view(dt)
+
+    def index_select(dt):
+        fo, fi = flat(dt)
+        return lambda: (torch.index_select(fo, 0, pa64), torch.index_select(fi, 0, pb64))
+
+    def gather(dt):
+        fo, fi = flat(dt)
+        io, ii = pa64[:, None].expand(P, fo.shape[1]), pb64[:, None].expand(P, fi.shape[1])
+        return lambda: (torch.gather(fo, 0, io), torch.gather(fi, 0, ii))
+
+    calls = {"index_select int32": index_select(torch.int32)}
+    if not (Wo % 4 or Wi % 4 or out_sh.storage_offset() % 4 or in_sh.storage_offset() % 4):
+        calls["index_select complex128"] = index_select(torch.complex128)
+        calls["gather complex128"] = gather(torch.complex128)
+    else:
+        calls["gather int32"] = gather(torch.int32)
+    lib_ms = {}
+    for name, call in calls.items():
+        if any(diff(a.view(torch.int32), b)[0] for a, b in zip(call(), kernel_out)):
+            raise SystemExit(f"shard FAILED: {name} differs from the pair-row exchange")
+        lib_ms[name] = time_ms(call, 20)
+    best = min(lib_ms, key=lib_ms.get)
 
     def contrib(lab_sh, rows_):
         out = []
@@ -1695,14 +1830,39 @@ def shard_label_rows(torch, ps, mesh, captured, launches, build_launches, rate,
                                    torch.zeros((), dtype=torch.int32, device="cuda")))
         return torch.stack(out)
 
+    # both sides' bare launches in one CUDA graph: the kernels' device time
+    # without the wrappers' host work between them
+    klib = ps._lib()
+    bare = [torch.empty_like(o) for o in kernel_out]
+
+    def launch():
+        for lab, r, o in ((out_sh, pa, bare[0]), (in_sh, pb, bare[1])):
+            rc = klib.keto_pair_gather(lab.data_ptr(), rl, g, lab.shape[2], r.data_ptr(), P,
+                                       o.data_ptr(), ps._stream())
+            if rc:
+                raise RuntimeError(f"keto_pair_gather failed: CUDA error {rc}")
+
+    bare_ms, bare_how = graph_ms(torch, launch, 20)
+    if any(diff(a, b)[0] for a, b in zip(bare, kernel_out)):
+        raise SystemExit("shard FAILED: the bare pair-gather launches differ from the wrapper's")
+    del bare
+
     co, ci = contrib(out_sh, pa), contrib(in_sh, pb)
+    prev_ms = time_ms(lambda: (co.sum(0, dtype=torch.int32), ci.sum(0, dtype=torch.int32)), 20)
+    del co, ci
     _k10_row(rows, "pair_rows", K10B, "the psum pair-row exchange, sharded.py:500-514 (both "
-             "sides, every shard)", lambda: exchange(ps.pair_rows_cuda),
+             "sides, one owner-gather launch each)", lambda: exchange(ps.pair_rows_cuda),
              lambda: exchange(ps.pair_rows_ref),
-             ([exchange(ps.pair_rows_cuda)], [exchange(ps.pair_rows_ref)]), launches["pair_rows"],
-             _bound(rate, 1, 8 * P + 2 * exch), 20,
-             library=lambda: (co.sum(0, dtype=torch.int32), ci.sum(0, dtype=torch.int32)),
-             extra={"pairs": P, "library": "torch.stack(...).sum(0) of the per-shard rows"})
+             (exchange(ps.pair_rows_cuda), exchange(ps.pair_rows_ref)), launches["pair_rows"],
+             _bound(rate, 1, 8 * P + named + 4 * P * (Wo + Wi)), 20, library=calls[best],
+             extra={"pairs": P, "named_row_bytes": named, "bare_graph_ms": bare_ms,
+                    "bare_timed_by": bare_how,
+                    "library": f"torch.{best} over the flattened [g*rl, w] stripes, per side, "
+                               "int64 indices made beforehand (the fastest of library_calls_ms)",
+                    "library_calls_ms": lib_ms,
+                    "library_index_select_kernels": device_kernels(torch, calls["index_select int32"]),
+                    "library_prev": {"call": "torch.stack(...).sum(0) of ready per-shard rows",
+                                     "ms": prev_ms}})
 
     (m_, groups, V, X, S, cov), kw = captured["label_sweep_step"]
     rps, wt = kw["rps"], V[0].shape[1]
@@ -2801,17 +2961,32 @@ def list_sort_rows(torch, kernels, captured, list_launches, deep_launches, sort_
     ms = time_ms(lambda: sk.radix_argsort_cuda(keys), 10)
     plain = time_ms(lambda: sk.radix_argsort_ref(keys), 1, warmup=0)
     lib_ms = time_ms(lambda: torch.argsort(keys, stable=True), 10)
+    # the kernels alone: the histogram launch, then the passes enqueued with
+    # the plan known (no synchronisation between them)
+    plan = sk.radix_pass_plan(sk.radix_hist_ref(keys))
+    hist = torch.zeros((sk.PASSES, sk.DIGITS), dtype=torch.int32, device="cuda")
+    klib, stream = sk._lib(), sk._stream()
+    hist_ms = time_ms(lambda: klib.keto_radix_hist(keys.data_ptr(), n, hist.data_ptr(), stream), 10)
+    hist.zero_()
+    klib.keto_radix_hist(keys.data_ptr(), n, hist.data_ptr(), stream)
+    passes_ms = time_fresh_ms(lambda sc: sk._passes_cuda(klib, stream, sc, plan),
+                              lambda: (sk._Scratch(keys, hist),), 10)
     rows.append({"name": "radix_argsort", "route": "cuda", "source": "keto_tpu_torch/csrc/sort_kernels.cu",
                  "replaces": K8, "launches": deep_launches["radix_sort"], "mismatches": m,
                  "max_abs_err": err, "ms": ms, "plain_ms": plain,
                  # the function reads each int32 key once and writes each int32 index once
                  "bound_ms": 8 * n / rate * 1e3, "bound_by": "bytes", "library_ms": lib_ms,
-                 "keys": n, "kernel_bytes_bound_ms": 80 * n / rate * 1e3,
+                 "keys": n, "passes_run": plan, "hist_kernel_ms": hist_ms,
+                 "pass_kernels_ms": passes_ms,
+                 "kernel_bytes_bound_ms": sk.kernel_bytes(n, len(plan)) / rate * 1e3,
                  "kernel_launches": {k: deep_launches[k] for k in
-                                     ("radix_hist", "radix_scan", "radix_scatter")},
-                 "note": "launches = whole sorts in the deep build (each 4 passes of "
-                         "keto_radix_hist, keto_radix_scan, keto_radix_scatter); "
-                         "kernel_bytes_bound_ms = the 80 B/key the 4 passes move"})
+                                     ("radix_hist", "radix_pass", "radix_pass_skipped")},
+                 "note": "launches = whole sorts in the deep build (each one keto_radix_hist, "
+                         "then one keto_radix_pass per pass its plan runs; radix_pass_skipped "
+                         "counts the passes left out); ms = the wrapper's whole call (its one "
+                         "synchronisation for the plan included); hist_kernel_ms and "
+                         "pass_kernels_ms time the kernels alone; kernel_bytes_bound_ms = "
+                         f"the {sk.kernel_bytes(1, len(plan))} B/key the kernels move"})
     log(f"kernel radix_argsort: {ms:.4f} ms on {n} keys (plain {plain:.4f} ms, bound "
         f"{rows[-1]['bound_ms']:.4f} ms, torch.argsort stable {lib_ms:.4f} ms), mismatches {m}")
     if m:

@@ -52,12 +52,11 @@ _SIGNATURES = {
     "keto_covered": [_P, _I64, _I32, _P, _I64, _P, _I32, _P, _P],
     "keto_slot_set": [_P, _I32, _I64, _P, _P, _P, _I64, _P, _P],
     "keto_radix_tile": [],
-    "keto_radix_hist": [_P, _I64, _I32, _P, _P],
-    "keto_radix_scan": [_P, _I64, _P, _P],
-    "keto_radix_scatter": [_P, _P, _I64, _I32, _P, _P, _P, _P, _P],
+    "keto_radix_hist": [_P, _I64, _P, _P],
+    "keto_radix_pass": [_P, _P, _I64, _I32, _P, _P, _P, _P, _P, _P],
     "keto_list_scatter": [_P, _I64, _P, _P, _I64, _P, _P],
     "keto_shard_answer": [_P, _I64, _I64, _I64, _I64, _I32, _P, _P, _P, _I32, _P, _P, _P],
-    "keto_pair_rows": [_P, _I64, _I32, _P, _I64, _I64, _P, _P],
+    "keto_pair_gather": [_P, _I64, _I32, _I32, _P, _I64, _P, _P],
 }
 
 

@@ -345,14 +345,18 @@ def list_case_inputs(kind: str, rng, n_rows: int, n_active: int):
 
 
 #: the build sort's parity layouts; "config-4 range" is 10M keys in
-#: [0, 5.2M) at config 4's size (a node-id range of its edge arrays)
+#: [0, 5.2M) at config 4's size (a node-id range of its edge arrays);
+#: "sparse digits" mixes keys whose digit 1 is constant while digits 0, 2
+#: and 3 vary (a skipped pass between passes that run); "bucket keys" are
+#: the build's degree buckets (``ceil(log2(deg)) + 1``), only digit 0 varies
 SORT_CASES = ("empty", "one key", "all equal", "negative", "ragged tile", "random int32",
-              "config-4 range")
+              "config-4 range", "sparse digits", "bucket keys")
 
 
-def sort_case_keys(kind: str, rng, tile: int = 4096, big: tuple = (100_000, 52_000)) -> np.ndarray:
+def sort_case_keys(kind: str, rng, tile: int = 4096,
+                   big: tuple = (100_000, 5_200_000)) -> np.ndarray:
     """int32 keys of a ``SORT_CASES`` kind; ``big`` = (count, range) of the
-    "config-4 range" case."""
+    "config-4 range" case (by default config 4's range at a test's count)."""
     if kind == "empty":
         return np.zeros(0, np.int32)
     if kind == "one key":
@@ -367,4 +371,9 @@ def sort_case_keys(kind: str, rng, tile: int = 4096, big: tuple = (100_000, 52_0
         return rng.integers(-(2**31), 2**31, size=3 * tile + 1, dtype=np.int64).astype(np.int32)
     if kind == "config-4 range":
         return rng.integers(0, big[1], size=big[0]).astype(np.int32)
+    if kind == "sparse digits":
+        values = np.asarray([0, 1, 1 << 24, -(1 << 16)], np.int32)
+        return values[rng.integers(0, values.size, size=3 * tile + 123)]
+    if kind == "bucket keys":
+        return rng.integers(1, 25, size=2 * tile + 77).astype(np.int32)
     raise ValueError(kind)

@@ -5,8 +5,8 @@
 // keto_tpu/parallel/sharded.py (K10):
 //   K10a `sharded_check_step`       (:327) -> keto_shard_answer, with K2's
 //        keto_seed, keto_pull, keto_commit and keto_close per shard
-//   K10b `sharded_label_step`       (:473) -> keto_pair_rows, then K3's
-//        keto_label_step on the exchanged pair rows
+//   K10b `sharded_label_step`       (:473) -> keto_pair_gather per side, then
+//        K3's keto_label_step on the exchanged pair rows
 //   K10c `sharded_label_sweep_step` (:559) -> K6's keto_sweep_step per
 //        shard (csrc/label_kernels.cu), whose n_dst drops the sentinel
 // The halo all-gather is a device copy per shard slab (cudaMemcpyAsync, in
@@ -95,28 +95,57 @@ __global__ void shard_answer_kernel(const int32_t* __restrict__ entries, int64_t
   if ((threadIdx.x & 31) == 0 && pop) atomicAdd(out + W + 2, pop);
 }
 
-// K10b, one shard's part of the pair-row exchange: out[p] += lab[rows[p] - g0]
-// for every pair row the shard owns (rows[p] - g0 in [0, rl)), with int32
-// wrap-around. Every shard adds into the one zeroed [P, w] buffer, one
-// launch after the other on one stream, so the sum over shards is the
-// reference's psum of "the owned row, else 0": a row no shard owns stays
-// zero and the pads (OUT -1, IN -2) survive the exchange.
+// K10b, the pair-row exchange of one side, as one owner gather:
+// out[p] = lab[s][rows[p] - s*rl] where shard s = rows[p] / rl owns the row
+// (0 <= rows[p] < g*rl), and out[p] = 0 for a row no shard owns (negative,
+// or at or past g*rl): the reference's psum over shards of "the owned row,
+// else 0" (sharded.py:500-514), since exactly one shard owns each row of
+// [0, g*rl). Pads inside a stripe (OUT -1, IN -2) come through as they are.
+// It replaces one launch per shard and side that added each owned row into
+// a zeroed buffer.
 //
-// Bound: bytes — each owned pair row is read once and written once.
-// Design: one thread per (pair, word), the word fastest, so a warp reads a
-// contiguous run of one label row.
-__global__ void pair_rows_kernel(const int32_t* __restrict__ lab, int64_t rl, int32_t w,
-                                 const int32_t* __restrict__ rows, int64_t P, int64_t g0,
-                                 int32_t* __restrict__ out) {
-  const int64_t n = P * w;
-  for (int64_t idx = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; idx < n;
-       idx += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t p = idx / w;
-    const int64_t j = idx - p * w;
-    const int64_t r = (int64_t)rows[p] - g0;
-    if (r < 0 || r >= rl) continue;
-    out[idx] = static_cast<int32_t>(static_cast<uint32_t>(out[idx]) +
-                                    static_cast<uint32_t>(lab[r * w + j]));
+// Bound: bytes — 4*P for `rows`, each stripe row the pairs name read once
+// (4*w a distinct row, at most the stripes' 4*g*rl*w), and 4*P*w written.
+// Design: one thread per (pair, chunk), the chunk fastest, so a warp reads
+// and writes contiguous runs of rows; each thread reads rows[p] once, finds
+// the owner and the local row, reads that stripe's row and writes every
+// output word exactly once (no zeroed buffer, no read of `out`). A chunk is
+// an int4 (V = int4) where w % 4 == 0 and both arrays are 16-byte aligned,
+// else one word. The index arithmetic is 32-bit (I = uint32_t) wherever
+// every index fits: at 2 chunks a row, two 64-bit divisions a chunk cost
+// about as much as its bytes. The stripes arrive as one [g, rl, w] array
+// (stripe s at lab + s*rl*w); a multi-card mesh will hand the kernel
+// per-stripe pointers instead.
+template <typename V, typename I>
+__global__ void pair_gather_kernel(const V* __restrict__ lab, I rl, I g, I wv,
+                                   const int32_t* __restrict__ rows, I P, V* __restrict__ out) {
+  const I n = P * wv;
+  for (I idx = blockIdx.x * (I)blockDim.x + threadIdx.x; idx < n;
+       idx += (I)gridDim.x * blockDim.x) {
+    const I p = idx / wv;
+    const I j = idx - p * wv;
+    const int32_t r = __ldg(rows + p);
+    V v{};
+    if (r >= 0 && (I)r < g * rl) {
+      const I s = (I)r / rl;
+      const V* stripe = lab + s * rl * wv;
+      v = stripe[((I)r - s * rl) * wv + j];
+    }
+    out[idx] = v;
+  }
+}
+
+template <typename V>
+void launch_pair_gather(const V* lab, int64_t rl, int32_t g, int32_t wv,
+                        const int32_t* rows, int64_t P, V* out, cudaStream_t s) {
+  const int64_t n = P * wv;
+  const int64_t small = int64_t(1) << 31;
+  if (n < small && (int64_t)g * rl * wv < small) {
+    pair_gather_kernel<V, uint32_t><<<blocks_for(n), kThreads, 0, s>>>(
+        lab, (uint32_t)rl, (uint32_t)g, (uint32_t)wv, rows, (uint32_t)P, out);
+  } else {
+    pair_gather_kernel<V, int64_t><<<blocks_for(n), kThreads, 0, s>>>(
+        lab, rl, (int64_t)g, (int64_t)wv, rows, P, out);
   }
 }
 
@@ -138,9 +167,15 @@ extern "C" int keto_shard_answer(const int32_t* entries, int64_t S1, int64_t S2,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int keto_pair_rows(const int32_t* lab, int64_t rl, int32_t w, const int32_t* rows,
-                              int64_t P, int64_t g0, int32_t* out, void* stream) {
-  pair_rows_kernel<<<blocks_for(P * w), kThreads, 0, (cudaStream_t)stream>>>(lab, rl, w, rows,
-                                                                             P, g0, out);
+extern "C" int keto_pair_gather(const int32_t* lab, int64_t rl, int32_t g, int32_t w,
+                                const int32_t* rows, int64_t P, int32_t* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(lab) | reinterpret_cast<uintptr_t>(out);
+  if (w % 4 == 0 && addr % 16 == 0) {
+    launch_pair_gather(reinterpret_cast<const int4*>(lab), rl, g, w / 4, rows, P,
+                       reinterpret_cast<int4*>(out), s);
+  } else {
+    launch_pair_gather(lab, rl, g, w, rows, P, out, s);
+  }
   return static_cast<int>(cudaGetLastError());
 }

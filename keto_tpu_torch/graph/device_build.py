@@ -11,7 +11,7 @@ seam**:
 - ``HostSorter`` — ``np.argsort(kind="stable")``, the bit-exactness oracle;
 - ``DeviceSorter`` — the same stable argsort as K8, the hand-written radix
   sort of keto_tpu_torch/graph/sort_kernels.py (its plain version for a CPU
-  device), one sort per array on the current stream.
+  device), one batch of sorts per call on the current stream.
 
 **Bit-identity is the contract.** Every key the build sorts is integral and
 fits int32, and a stable sort of integer keys is unique, so the device's
@@ -78,12 +78,12 @@ class DeviceSorter:
         return self.argsort_many([keys])[0]
 
     def argsort_many(self, arrays: Sequence[np.ndarray]) -> list:
-        """One K8 sort per array, all enqueued before the first copy back;
-        int64 numpy permutations."""
-        prepped = [self._prep(a) for a in arrays]
-        perms = [
-            sort_kernels.radix_argsort(torch.from_numpy(a).to(self.device)) for a in prepped
-        ]
+        """One K8 sort per array as one batch (on the card: every array's
+        histogram, one synchronisation for the pass plans, then every
+        array's passes, all before the first copy back); int64 numpy
+        permutations."""
+        keys = [torch.from_numpy(self._prep(a)).to(self.device) for a in arrays]
+        perms = sort_kernels.radix_argsort_many(keys)
         return [p.cpu().numpy().astype(np.int64) for p in perms]
 
 

@@ -40,10 +40,11 @@ entry points):
   as the answer's ``p_fix`` — a ``P`` zeroed every step would lose it. The
   overlay stage uses K1's ``dst`` mode with ``n_dst = rps``.
 - ``label_step`` replaces ``sharded_label_step`` (:473-534), K10b: the
-  one-shot pair-row exchange — every shard adds the pair rows it owns
-  (zeros elsewhere) into one ``[P, w]`` buffer per side, the psum — then
-  K3's compare and pack on the exchanged rows, ``uint32[W]``. CUDA:
-  ``keto_pair_rows`` per shard and side, then ``keto_label_step``.
+  one-shot pair-row exchange — per side, the psum over shards of "the
+  owned pair row, else 0", which is a gather from the owning stripe (0 for
+  a row no shard owns) — then K3's compare and pack on the exchanged rows,
+  ``uint32[W]``. CUDA: one ``keto_pair_gather`` per side, then
+  ``keto_label_step``.
 - ``label_sweep_step`` replaces ``sharded_label_sweep_step`` (:559-628),
   K10c: the halo all-gather of the frontier slabs, then each shard's K6
   wave from the gathered bitmap into its local rows (``dst`` sentinel
@@ -621,55 +622,58 @@ def check_step(mesh, buckets, entries: torch.Tensor, ov_nbrs=None, ov_dst=None, 
 # -- K10b: the sharded label intersection ---------------------------------------------
 
 
-def pair_rows_ref(lab: torch.Tensor, rows: torch.Tensor, g0: int, out: torch.Tensor) -> None:
-    """One shard's part of the pair-row exchange in plain PyTorch:
-    ``out[p] += lab[rows[p] - g0]`` where the shard owns that row (int32
-    wrap-around)."""
-    rl = lab.shape[0]
-    local = rows.long() - g0
-    own = (local >= 0) & (local < rl)
-    if bool(own.any()):
-        add = lab[local[own]].to(torch.int64) + out[own].to(torch.int64)
-        out[own] = ((add + 2**31) % 2**32 - 2**31).to(torch.int32)
+def pair_rows_ref(lab_sh: torch.Tensor, rows: torch.Tensor, rl: int) -> torch.Tensor:
+    """The pair-row exchange of one side in plain PyTorch → int32
+    ``[P, w]``: the sum over shards of "the owned row, else 0" (int32
+    wrap-around), the reference's psum. Exactly one shard owns each row of
+    ``[0, g·rl)``; any other row (negative, or at or past ``g·rl``) gives 0."""
+    g, _, w = lab_sh.shape
+    acc = torch.zeros((rows.numel(), w), dtype=torch.int64, device=rows.device)
+    for s in range(g):
+        local = rows.long() - s * rl
+        own = (local >= 0) & (local < rl)
+        acc += torch.where(own[:, None], lab_sh[s][local.clamp(0, rl - 1)].to(torch.int64), 0)
+    return ((acc + 2**31) % 2**32 - 2**31).to(torch.int32)
 
 
-def pair_rows_cuda(lab: torch.Tensor, rows: torch.Tensor, g0: int, out: torch.Tensor) -> None:
-    """One shard's part of the pair-row exchange via ``keto_pair_rows``."""
-    _need(lab, "lab", 2)
+def pair_rows_cuda(lab_sh: torch.Tensor, rows: torch.Tensor, rl: int) -> torch.Tensor:
+    """The pair-row exchange of one side via one ``keto_pair_gather``
+    launch → int32 ``[P, w]`` (every word written by the kernel)."""
+    _need(lab_sh, "lab_sh", 3)
     _need(rows, "rows", 1)
-    _need(out, "out", 2)
-    if out.shape != (rows.numel(), lab.shape[1]):
-        raise ValueError(f"out: expected {(rows.numel(), lab.shape[1])}, got {tuple(out.shape)}")
+    g, rows_per, w = lab_sh.shape
+    if rows_per != rl:
+        raise ValueError(f"lab_sh: {rows_per} rows a stripe, expected rl={rl}")
+    out = torch.empty((rows.numel(), w), dtype=torch.int32, device=rows.device)
     if rows.numel():
         COUNTS["pair_rows"] += 1
-        _check(_lib().keto_pair_rows(lab.data_ptr(), lab.shape[0], lab.shape[1], rows.data_ptr(),
-                                     rows.numel(), g0, out.data_ptr(), _stream()),
-               "keto_pair_rows")
-
-
-def exchange_pair_rows(lab_sh, rows: torch.Tensor, rl: int, accumulate=None) -> torch.Tensor:
-    """The one-shot pair-row exchange of one side: every shard adds the pair
-    rows it owns into one zeroed ``[P, w]`` buffer (the psum).
-    ``accumulate`` is the per-shard step (``pair_rows_ref`` or
-    ``pair_rows_cuda``; by the tensors' device when None)."""
-    if accumulate is None:
-        accumulate = pair_rows_ref if _on_cpu(rows) else pair_rows_cuda
-    g, _, w = lab_sh.shape
-    out = torch.zeros((rows.numel(), w), dtype=torch.int32, device=rows.device)
-    for s in range(g):
-        accumulate(lab_sh[s], rows, s * rl, out)
-    _note("psum", g * out.numel() * 4)
+        _check(_lib().keto_pair_gather(lab_sh.data_ptr(), rl, g, w, rows.data_ptr(), rows.numel(),
+                                       out.data_ptr(), _stream()), "keto_pair_gather")
     return out
 
 
-def _label_step(mesh, out_sh, in_sh, entries, n_pairs, B, rl, accumulate, step):
+def _exchange(gather, lab_sh, rows: torch.Tensor, rl: int) -> torch.Tensor:
+    out = gather(lab_sh, rows, rl)
+    _note("psum", lab_sh.shape[0] * out.numel() * 4)
+    return out
+
+
+def exchange_pair_rows(lab_sh, rows: torch.Tensor, rl: int) -> torch.Tensor:
+    """The one-shot pair-row exchange of one side → ``[P, w]``: pair ``p``
+    gets the row ``rows[p]`` of the shard that owns it, 0 where no shard
+    does (the reference's psum over shards, whose bytes it notes). The plain
+    version for CPU tensors, one kernel launch for CUDA tensors."""
+    return _exchange(pair_rows_ref if _on_cpu(rows) else pair_rows_cuda, lab_sh, rows, rl)
+
+
+def _label_step(mesh, out_sh, in_sh, entries, n_pairs, B, rl, gather, step):
     g = out_sh.shape[0]
     _mesh_shards(mesh, g, entries.device)
     if in_sh.shape[0] != g or out_sh.shape[1] != rl or in_sh.shape[1] != rl:
         raise ValueError(f"label stripes {tuple(out_sh.shape)} / {tuple(in_sh.shape)}, rl={rl}")
     pa, pb, pq = kernels._label_parts(entries, n_pairs)
-    oa = exchange_pair_rows(out_sh, pa, rl, accumulate)
-    ib = exchange_pair_rows(in_sh, pb, rl, accumulate)
+    oa = _exchange(gather, out_sh, pa, rl)
+    ib = _exchange(gather, in_sh, pb, rl)
     ar = torch.arange(n_pairs, dtype=torch.int32, device=entries.device)
     return step(oa, ib, torch.cat([ar, ar, pq]), n_pairs=n_pairs, B=B)
 
@@ -681,8 +685,8 @@ def label_step_ref(mesh, out_sh, in_sh, entries, *, n_pairs: int, B: int, rl: in
 
 
 def label_step_cuda(mesh, out_sh, in_sh, entries, *, n_pairs: int, B: int, rl: int):
-    """K10b on the card → int32[W]: ``keto_pair_rows`` per shard and side,
-    then ``keto_label_step``."""
+    """K10b on the card → int32[W]: one ``keto_pair_gather`` per side, then
+    ``keto_label_step``."""
     return _label_step(mesh, out_sh, in_sh, entries, n_pairs, B, rl, pair_rows_cuda,
                        kernels.label_step_cuda)
 

@@ -429,10 +429,10 @@ def test_failed_build_sort_raises_and_is_counted(monkeypatch):
     eng = TorchCheckEngine(p, p.namespaces, device="cpu", labels_enabled=False)
     eng._build_sorter = GovernedSorter("cpu", min_size=0, on_count=eng._incr)
 
-    def boom(keys):
+    def boom(arrays):
         raise RuntimeError("K8 launch failed")
 
-    monkeypatch.setattr(sort_kernels, "radix_argsort", boom)
+    monkeypatch.setattr(sort_kernels, "radix_argsort_many", boom)
     try:
         with pytest.raises(RuntimeError, match="K8 launch failed"):
             eng.snapshot()

@@ -171,6 +171,38 @@ def test_pair_row_exchange_keeps_the_pads():
     oa = ps.exchange_pair_rows(_t(o_sh), _t(pa), rl)
     assert oa[2].tolist() == [-1, -1] and oa[0].tolist() == [7, -1]
 
+    # rows no shard owns (negative, at or past g·rl) exchange as 0, never as
+    # the nearest stripe's row; the rows at each stripe boundary come from
+    # their owner; every pair's decision equals the JAX sharded_label_step's
+    import jax.numpy as jnp
+
+    from keto_tpu.parallel import sharded as js
+
+    out_lab[:n, 0] = in_lab[:n, 0] = 100 + np.arange(n)
+    o_sh, i_sh, rl, _ = ps.route_labels(out_lab, in_lab, g)
+    bounds = sorted({s * rl for s in range(g)} | {s * rl - 1 for s in range(1, g + 1)})
+    rows = np.asarray([-1, -rl, g * rl, g * rl + 5, *bounds], np.int32)
+    owned = (rows >= 0) & (rows < g * rl)
+    for sh in (o_sh, i_sh):
+        got = ps.exchange_pair_rows(_t(sh), _t(rows), rl).numpy()
+        flat = sh.reshape(g * rl, -1)
+        assert np.array_equal(got, np.where(owned[:, None], flat[np.clip(rows, 0, g * rl - 1)], 0))
+    pa, pb = np.repeat(rows, rows.size), np.tile(rows, rows.size)
+    P = pa.size
+    B = -(-P // 32) * 32
+    ent = np.concatenate([pa, pb, np.arange(P)]).astype(np.int32)
+    want = np.asarray(js.label_kernel(_jax_mesh(g))(jnp.asarray(o_sh), jnp.asarray(i_sh),
+                                                    jnp.asarray(ent), n_pairs=P, B=B, rl=rl))
+    got = ps.label_step(make_mesh(graph=g, device="cpu"), _t(o_sh), _t(i_sh), _t(ent),
+                        n_pairs=P, B=B, rl=rl).numpy().view(np.uint32)
+    assert np.array_equal(got, want)
+    # a pair hits when both rows are the same real row, or when no shard
+    # owns either (0 == 0 in the reference too)
+    hit = np.unpackbits(got.view(np.uint8), bitorder="little")[:P].astype(bool)
+    real = owned & (rows < n)
+    assert np.array_equal(hit, ((pa == pb) & np.repeat(real, rows.size))
+                          | (~np.repeat(owned, rows.size) & ~np.tile(owned, rows.size)))
+
 
 @pytest.mark.parametrize("g", GS)
 @pytest.mark.parametrize("name", sorted(SWEEP_CASES))
@@ -323,13 +355,10 @@ def test_label_step_cuda_matches_plain(name, g, cuda_device):
     got = ps.label_step(make_mesh(graph=g, device=cuda_device), _t(o_sh).to(cuda_device),
                         _t(i_sh).to(cuda_device), _t(ent).to(cuda_device), n_pairs=P, B=B, rl=rl)
     assert torch.equal(got.cpu(), want)
-    assert kernels.COUNTS["pair_rows"] - before == 2 * g
-    pa = _t(ent[:P]).to(cuda_device)
-    for s in range(g):
-        a = torch.zeros((P, Wo), dtype=torch.int32)
-        b = a.to(cuda_device)
-        ps.pair_rows_ref(_t(o_sh[s]), _t(ent[:P]), s * rl, a)
-        ps.pair_rows_cuda(_t(o_sh[s]).to(cuda_device), pa, s * rl, b)
+    assert kernels.COUNTS["pair_rows"] - before == 2  # one launch per side
+    for sh, rows in ((o_sh, ent[:P]), (i_sh, ent[P : 2 * P])):
+        a = ps.pair_rows_ref(_t(sh), _t(rows), rl)
+        b = ps.pair_rows_cuda(_t(sh).to(cuda_device), _t(rows).to(cuda_device), rl)
         assert torch.equal(b.cpu(), a)
 
 

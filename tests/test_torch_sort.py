@@ -3,8 +3,11 @@
 - ``radix_argsort_ref`` (the plain version; the dispatcher on CPU tensors)
   equals ``np.argsort(kind="stable")`` and the JAX ``DeviceSorter`` on
   JAX-CPU over K8's layouts: empty, one key, all keys equal, negative keys,
-  a length that is not a multiple of the tile, random int32, and config 4's
-  key range cut to a test's size;
+  a length that is not a multiple of the tile, random int32, config 4's
+  key range at a test's count, keys whose middle digit is constant, and
+  the build's bucket keys;
+- ``radix_pass_plan`` skips exactly the passes whose digit is constant, on
+  every layout;
 - the sign bias (negative keys order first) and stability are pinned on
   their own;
 - the port's sorters (``DeviceSorter`` on the CPU, ``GovernedSorter`` with
@@ -61,6 +64,46 @@ def test_radix_ref_matches_numpy_and_jax(case):
     assert np.array_equal(got.astype(np.int64), jax_perm)
     # the dispatcher takes the plain version on a CPU tensor
     assert np.array_equal(radix_argsort(torch.from_numpy(keys)).numpy(), got)
+
+
+#: the passes ``radix_pass_plan`` runs on each layout: a pass whose digit is
+#: the same for every key is skipped
+K8_PLANS = {
+    "empty": [], "one key": [], "all equal": [], "negative": [0, 1, 2, 3],
+    "ragged tile": [0, 1], "random int32": [0, 1, 2, 3], "config-4 range": [0, 1, 2],
+    "sparse digits": [0, 2, 3], "bucket keys": [0],
+}
+
+
+@pytest.mark.parametrize("case", K8_LAYOUTS)
+def test_radix_pass_plan(case):
+    keys = _keys(case, np.random.default_rng(K8_LAYOUTS.index(case)))
+    hist = sort_kernels.radix_hist_ref(torch.from_numpy(keys))
+    assert hist.shape == (sort_kernels.PASSES, sort_kernels.DIGITS)
+    assert (hist.sum(1) == keys.size).all()
+    assert sort_kernels.radix_pass_plan(hist) == K8_PLANS[case]
+    # the plan reads the histograms as the card copies them back: int32
+    assert sort_kernels.radix_pass_plan(hist.to(torch.int32).numpy()) == K8_PLANS[case]
+
+
+def test_radix_kernel_bytes():
+    """44 bytes a key with 3 passes run (the build's node ids), 60 with 4,
+    12 with 1: the first pass reads no index, the last writes no key."""
+    assert sort_kernels.kernel_bytes(10, 3) == 440
+    assert sort_kernels.kernel_bytes(10, 4) == 600
+    assert sort_kernels.kernel_bytes(10, 1) == 120
+    assert sort_kernels.kernel_bytes(10, 0) == 40
+
+
+def test_radix_argsort_many_matches_numpy_per_array():
+    """The batch dispatcher on CPU tensors: one plain sort per array, every
+    plan's shape among them (no pass, one pass, a skipped middle pass)."""
+    rng = np.random.default_rng(9)
+    arrays = [_keys(c, rng) for c in ("one key", "bucket keys", "sparse digits", "empty")]
+    got = sort_kernels.radix_argsort_many([torch.from_numpy(a) for a in arrays])
+    assert len(got) == len(arrays)
+    for g, a in zip(got, arrays):
+        assert g.dtype == torch.int32 and np.array_equal(g.numpy(), np.argsort(a, kind="stable"))
 
 
 def test_radix_sign_bias_orders_negative_keys_first():
@@ -137,10 +180,11 @@ def test_failed_device_sort_raises_and_counts(monkeypatch):
     counts: dict = {}
     s = GovernedSorter("cpu", min_size=0, on_count=lambda k: counts.__setitem__(k, counts.get(k, 0) + 1))
 
-    def boom(keys):
+    def boom(arrays):
         raise RuntimeError("K8 launch failed")
 
-    monkeypatch.setattr(sort_kernels, "radix_argsort", boom)
+    # the seam DeviceSorter calls, on the CPU and the card alike
+    monkeypatch.setattr(sort_kernels, "radix_argsort_many", boom)
     with pytest.raises(RuntimeError, match="K8 launch failed"):
         s.argsort_many([np.arange(10)])
     assert counts == {"device_build_errors": 1}
@@ -231,3 +275,35 @@ def test_radix_cuda_matches_plain(case, cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert np.array_equal(got.cpu().numpy(), np.argsort(keys, kind="stable"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, TILE - 1, TILE, TILE + 1, 10_000_000])
+def test_radix_cuda_matches_plain_at_tile_edges_and_config4(n, cuda_device):
+    """Keys in config 4's node-id range [0, 5.2M) (passes 0-2 run): one key,
+    a tile less one, one tile, a tile and one, and the deep build's 10M."""
+    keys = np.random.default_rng(n).integers(0, 5_200_000, size=n).astype(np.int32)
+    t = torch.from_numpy(keys).to(cuda_device)
+    got = sort_kernels.radix_argsort_cuda(t)
+    want = radix_argsort_ref(t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert np.array_equal(got.cpu().numpy(), np.argsort(keys, kind="stable"))
+
+
+@pytest.mark.cuda
+def test_radix_many_cuda_matches_plain(cuda_device):
+    """One batch: histograms, one synchronisation, then every array's passes."""
+    rng = np.random.default_rng(13)
+    arrays = [_keys(c, rng) for c in K8_LAYOUTS]
+    before = dict(sort_kernels.COUNTS)
+    got = sort_kernels.radix_argsort_many([torch.from_numpy(a).to(cuda_device) for a in arrays])
+    torch.cuda.synchronize()
+    for g, a in zip(got, arrays):
+        assert np.array_equal(g.cpu().numpy(), np.argsort(a, kind="stable"))
+    ran = sum(len(p) for c, p in K8_PLANS.items())
+    assert sort_kernels.COUNTS["radix_pass"] - before["radix_pass"] == ran
+    sorted_ = sum(1 for a in arrays if a.size)
+    assert sort_kernels.COUNTS["radix_hist"] - before["radix_hist"] == sorted_
+    assert (sort_kernels.COUNTS["radix_pass_skipped"] - before["radix_pass_skipped"]
+            == 4 * sorted_ - ran)
