@@ -20,8 +20,9 @@ Phases, in order; any failure exits non-zero:
    check step (degree caps 1..4096, W in {1, 8, 64, 4096}, bit 31, sentinel
    and padding rows, overlays, it_cap truncation, n_active = 0), the label
    step (label widths 1..128, pad pairs, several pairs per query), the
-   frontier wave (expansion pruning on and off, rows outside every dst,
-   wt 1 and 2), the covered mask (an empty table, wt 1 and 2, a table
+   whole frontier sweep (one launch a run: expansion pruning on and off,
+   rows outside every dst, groups of cap 32 and more, wt 1, 2 and 5, with
+   no budget, the run's own visits, one visit less and half), the covered mask (an empty table, wt 1 and 2, a table
    too large for shared memory) and the slot set (a bucket patch, overlay
    rows and their dst vector, a label-mirror store in place, an empty
    entry list, duplicate slots, an out-of-range entry that must raise), the
@@ -29,7 +30,9 @@ Phases, in order; any failure exits non-zero:
    rows, the pad row, pairs with no common entry, rows whose every entry is
    common, 65,536 pairs), the list fixpoint (the base pull alone, an overlay into active rows, an
    overlay into passive rows, a chain that it_cap truncates, no active row
-   but an overlay, all 32 lanes), the build's radix argsort (empty, one
+   but an overlay, all 32 lanes; and random layouts with wide buckets,
+   overlays into passive rows and it_cap cuts inside a block of steps),
+   the build's radix argsort (empty, one
    key, all keys equal, negative keys, a ragged last tile, random int32, 10M
    keys in [0, 5.2M), keys whose middle digit is constant, the build's
    bucket keys; each permutation also equal to numpy's stable argsort and
@@ -41,8 +44,10 @@ Phases, in order; any failure exits non-zero:
    1-shard output's first W+2 words equal to the single-device K2's and
    its popcount word equal to every shard count's; K10b on label widths
    1..128 with pad rows, also against the single-device K3, and each
-   side's pair-row exchange alone with rows no shard owns; K10c with
-   expansion pruning on and off, also against the single-device K6);
+   side's pair-row exchange alone with rows no shard owns; K10c's whole
+   sharded sweep, one launch with the halo copy between waves, with
+   expansion pruning on and off, the routing's padding rows and the
+   budgets above, also against the single-device sweep);
    every word of every output must agree;
 3. main — BASELINE config 3 (RBAC, 1M tuples, 3-level group nesting) on
    the BFS route (labels off), 100k checks: every decision equals the
@@ -60,9 +65,12 @@ Phases, in order; any failure exits non-zero:
 5. deep — BASELINE config 4 (GitHub-style org/team/repo, 10M tuples,
    five namespaces, grant chains up to 7 edges) with the default engine:
    the labels built on the card, 100k checks equal to the analytic
-   expectation, an oracle sample, the label step, frontier wave and
-   covered mask each launched; then those three kernels are timed at the
-   path's shapes beside their plain versions and bounds; its snapshot line
+   expectation, an oracle sample, the label step, frontier sweep and
+   covered mask each launched, the build's seconds split into seed
+   uploads, sweeps (launch to host read), covered masks and the host
+   mirror; then those three kernels are timed at the path's shapes beside
+   their plain versions and bounds (the sweep as a whole run, its kernel
+   alone, its launches and host reads a run); its snapshot line
    reports the build's sorts as main's does, K8's replay on its own line
    once the label build has left the card;
 6. shard — one ``ShardMesh`` of 4 graph shards on the card: (a) main's
@@ -87,8 +95,9 @@ Phases, in order; any failure exits non-zero:
    the deletes' equal to the expectation) and an oracle sample; peak
    device memory; then K10a's program, ``keto_shard_answer`` and the halo
    copy timed at config 3's shapes, K10b's program and its pair-row
-   exchange (``keto_pair_gather``, one launch per side) and K10c's wave and
-   K6's ``keto_sweep_step`` per shard at config 4's, each beside its
+   exchange (``keto_pair_gather``, one launch per side) and K10c's whole
+   sharded sweep (the build's first; the build's halo rounds and bytes
+   one a wave) at config 4's, each beside its
    plain version and bound (the halo copy beside ``torch.cat`` and the
    exchange beside ``torch.index_select`` of the flattened stripes, and
    the earlier yardstick ``torch.stack(...).sum(0)``);
@@ -100,7 +109,8 @@ Phases, in order; any failure exits non-zero:
    upload seconds of each orientation; then 50 of each against the host
    lister on the same snapshot, 10 ListSubjects against the Manager oracle,
    and 20 ListObjects answers through a Check batch (every listed issue
-   allowed, as many unlisted ones denied); K5 and K8 are timed at the
+   allowed, as many unlisted ones denied); K5 (a whole run, its kernel
+   alone, its launches and host reads a run) and K8 are timed at the
    path's shapes beside their plain versions and bounds;
 8. explain — on the deep phase's engine and store, labels on: the 100k
    checks through ``batch_check_stream`` (ordered) and through
@@ -219,7 +229,7 @@ K9 = ("keto_tpu/check/tpu_engine.py:2542 (and :2665; keto_tpu/graph/label_build.
       "keto_tpu/list/tpu_engine.py:337)")
 K5 = "keto_tpu/list/tpu_engine.py:76"
 #: the counts of the kernels one K5 fixpoint run launches
-K5_KERNELS = ("pull", "commit", "list_gather", "list_scatter", "close")
+K5_KERNELS = ("list_fixpoint",)
 K8 = "keto_tpu/graph/device_build.py:54"
 K4 = "keto_tpu/check/tpu_engine.py:352"
 K10A = "keto_tpu/parallel/sharded.py:327"
@@ -389,14 +399,35 @@ LABEL_STEP_CASES = [  # (n, Wo, Wi, W, live pairs)
     (120, 128, 32, 64, 2100), (120, 32, 128, 64, 2100), (60, 128, 128, 1, 100),
     (3000, 64, 64, 4096, 300_000), (500, 2, 8, 4096, 140_000),
 ]
-SWEEP_CASES = [  # (n, caps, rows per group, wt)
+SWEEP_CASES = [  # (n, caps, rows per group, wt): the whole sweep (K6)
     (100, (1, 2, 4), (30, 10, 5), 1), (100, (1, 2, 4), (30, 10, 5), 2),
     (300, (1, 4096), (100, 3), 2), (5000, (1, 2, 8, 64, 1024), (2000, 800, 300, 40, 4), 2),
+    (400, (8, 32, 64), (40, 12, 6), 5),
 ]
 COVERED_CASES = [  # (rows, width, u, wt)
     (1000, 64, 4096, 2), (1000, 64, 300, 1), (500, 8, 0, 2), (700, 16, 1, 2),
     (2000, 64, 20000, 2), (30000, 64, 4096, 2),
 ]
+
+
+def sweep_parity(torch, run) -> tuple[int, str]:
+    """The whole sweep's kernel against its plain version through ``run(fn,
+    budget)`` (``fn`` is ``sweep_cuda`` or ``sweep_ref``) with no budget,
+    the run's own visits, one visit less and half of them: mismatching
+    words of the stored bitmap plus mismatching {waves, visits, dry}, and
+    one launch a run. Returns (mismatches, a log line)."""
+    from keto_tpu_torch.graph import label_kernels as lk
+
+    _, waves, visits, _ = run(lk.sweep_ref, None)
+    m, seen = 0, []
+    for budget in (None, visits, visits - 1, visits // 2):
+        before = lk.COUNTS["sweep_run"]
+        got = run(lk.sweep_cuda, budget)
+        want = run(lk.sweep_ref, budget)
+        m += diff(got[0], want[0])[0] + sum(a != b for a, b in zip(got[1:], want[1:]))
+        m += abs(lk.COUNTS["sweep_run"] - before - 1)
+        seen.append(list(want[1:]))
+    return m, f"{waves} waves, {visits} visits; (waves, visits, dry) by budget {seen}"
 
 
 def label_parity(torch, rng, dev) -> int:
@@ -423,15 +454,12 @@ def label_parity(torch, rng, dev) -> int:
             f"{hits} query bits set, mismatches={m}")
         total += m
     for n, caps, rows, wt in SWEEP_CASES:
-        groups, V, X, S, cov = random_sweep_case(rng, n, caps, rows, wt)
+        groups, _, X0, _, cov = random_sweep_case(rng, n, caps, rows, wt)
         g = lk.EllGroups.from_groups(groups, dev)
         for prune in (True, False):
-            a = lk.sweep_step_cuda(g, t(V), t(X), t(S), t(cov), prune_expansion=prune)
-            b = lk.sweep_step_ref(g, t(V), t(X), t(S), t(cov), prune_expansion=prune)
-            torch.cuda.synchronize()
-            m = sum(diff(x, y)[0] for x, y in zip(a, b))
-            log(f"parity sweep_step n={n} caps={caps} wt={wt} prune={prune}: "
-                f"state={b[3].tolist()}, mismatches={m}")
+            m, log_ = sweep_parity(torch, lambda fn, b: fn(g, t(X0), t(cov), n_dst=n + 1,
+                                                           prune_expansion=prune, budget=b))
+            log(f"parity sweep n={n} caps={caps} wt={wt} prune={prune}: {log_}, mismatches={m}")
             total += m
     for rows, width, u, wt in COVERED_CASES:
         lab, U, masks = random_covered_case(rng, rows, width, u, wt)
@@ -525,7 +553,8 @@ def list_parity(torch, rng, dev) -> int:
     overlay, all 32 lanes; lane 31 seeded in each). Mismatching words."""
     import numpy as np
 
-    from keto_tpu_torch.check.random_layouts import LIST_CASES, list_case_inputs, list_case_tuples
+    from keto_tpu_torch.check.random_layouts import (
+        LIST_CASES, LIST_WIDE_CASES, list_case_inputs, list_case_tuples, random_list_layout)
     from keto_tpu_torch.graph.carry import device_list_from_arrays, list_layout_arrays
     from keto_tpu_torch.graph.snapshot import build_snapshot
     from keto_tpu_torch.list import kernels as lk
@@ -554,6 +583,22 @@ def list_parity(torch, rng, dev) -> int:
         log(f"parity list_step {kind}: {meta['n_rows']} rows, {meta['n_active']} active, "
             f"overlay {None if ovn is None else list(ovn.shape)}, "
             f"{lk.COUNTS['list_iters'] - iters0} steps, {grown} words grew, mismatches={m}")
+        total += m
+    for caps, rows, passive, K, it_cap, block_iters in LIST_WIDE_CASES:
+        buckets, R0, ovn, ovd = random_list_layout(rng, caps, rows, passive, K)
+        t = lambda a: None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        nb = [t(b) for b in buckets]
+        kw = dict(n_active=sum(rows), valid_rows=rows, it_cap=it_cap, block_iters=block_iters)
+        before = dict(lk.COUNTS)
+        got = lk.list_step_cuda(nb, t(R0), t(ovn), t(ovd), **kw)
+        steps = lk.COUNTS["list_iters"] - before["list_iters"]
+        m = abs(lk.COUNTS["list_fixpoint"] - before["list_fixpoint"] - 1)
+        want = lk.list_step_ref(nb, t(R0), t(ovn), t(ovd), **kw)
+        torch.cuda.synchronize()
+        m += diff(got, want)[0]
+        log(f"parity list_fixpoint caps={caps} rows={rows} passive={passive} overlay={K} "
+            f"it_cap={it_cap} block_iters={block_iters}: {steps} steps, "
+            f"{int((want != t(R0)).sum())} words grew, mismatches={m}")
         total += m
     return total
 
@@ -627,8 +672,8 @@ def shard_parity(torch, rng, dev) -> int:
     word, at g in 1..4: the sharded BFS step (K10a, and the g = 1 program
     against the single-device K2: its words [0, W+2) equal K2's and its
     popcount word equals every g's), the sharded label step (K10b, and
-    against the single-device K3) and the sharded wave (K10c, and against
-    the single-device K6 on the same rows). Mismatching words."""
+    against the single-device K3) and the sharded sweep (K10c, and against
+    the single-device sweep on the same rows). Mismatching words."""
     import numpy as np
 
     from keto_tpu_torch.check import kernels
@@ -695,36 +740,34 @@ def shard_parity(torch, rng, dev) -> int:
             total += m
     for n, caps, rows, wt, prune in SHARD_SWEEP_CASES:
         seed = int(rng.integers(1 << 30))
+        groups, _, X0, _, cov = random_sweep_case(np.random.default_rng(seed), n, caps, rows, wt)
+        one = lk.EllGroups.from_groups(groups, dev)
+        S1, w1, v1, _ = lk.sweep_cuda(one, t(X0), t(cov), n_dst=n + 1, prune_expansion=prune)
         for g in SHARD_GS:
-            groups, V, X, S, cov = random_sweep_case(np.random.default_rng(seed), n, caps, rows, wt)
             rps = -(-(n + 1) // g)
             routed = ps.route_label_ell(groups, n, g, rps)
+            merged = ps.sweep_ell_groups(routed, rps, dev)
+            mesh = make_mesh(graph=g, device=dev)
 
-            def slabs(a, where):
+            def slab(a):
                 o = np.zeros((g * rps, wt), np.int32)
                 o[: a.shape[0]] = a
-                return [torch.from_numpy(o[s * rps : (s + 1) * rps].copy()).to(where)
-                        for s in range(g)]
+                return t(o)
 
-            outs = []
-            for where in (dev, "cpu"):
-                mesh = make_mesh(graph=g, device=where)
-                outs.append(ps.label_sweep_step(
-                    mesh, ps.shard_ell_groups(routed, where), slabs(V, where), slabs(X, where),
-                    slabs(S, where), slabs(cov, where), rps=rps, prune_expansion=prune))
-            torch.cuda.synchronize()
-            (cV, cX, cS, cst), (rV, rX, rS, rst) = outs
-            flat = lambda xs: torch.cat([x.cpu() for x in xs])[: n + 1]  # noqa: E731
-            m = sum(diff(flat(a), flat(b))[0] for a, b in ((cV, rV), (cX, rX), (cS, rS)))
-            m += diff(cst.cpu(), rst)[0]
-            eg = lk.EllGroups.from_groups(groups, dev)
-            oV, oX, oS, ost = lk.sweep_step_cuda(eg, t(V), t(X), t(S), t(cov),
-                                                 prune_expansion=prune)
-            torch.cuda.synchronize()
-            m += sum(diff(flat(a), b.cpu())[0] for a, b in ((cV, oV), (cX, oX), (cS, oS)))
-            m += diff(cst, ost)[0]
-            log(f"parity shard sweep n={n} caps={caps} wt={wt} prune={prune} g={g} rps={rps}: "
-                f"state {cst.tolist()}, mismatches={m}")
+            def run(fn, budget):
+                if fn is lk.sweep_cuda:
+                    return ps.label_sweep(mesh, merged, slab(X0), slab(cov), rps=rps,
+                                          prune_expansion=prune, budget=budget)
+                return fn(merged, slab(X0), slab(cov), n_dst=rps, shards=g,
+                          prune_expansion=prune, budget=budget)
+
+            m, line = sweep_parity(torch, run)
+            # and against the single-device sweep on the same rows
+            S, w, v, _ = run(lk.sweep_cuda, None)
+            m += diff(S[: n + 1], S1)[0] + int((w, v) != (w1, v1))
+            pad = int(sum(int((db == rps).sum()) for _, db in routed))
+            log(f"parity shard sweep n={n} caps={caps} wt={wt} prune={prune} g={g} rps={rps} "
+                f"({pad} padding rows): {line}, mismatches={m}")
             total += m
     return total
 
@@ -1088,7 +1131,7 @@ def phase_labels(torch, kernels, report, main_ctx, queries):
         f"differ from the BFS run {differ}")
     if wrong or differ:
         raise SystemExit(f"labels FAILED: {wrong} wrong, {differ} differ from the BFS route")
-    if idx.backend != "host" or counts["label_device_builds"] or launches["sweep_step"] \
+    if idx.backend != "host" or counts["label_device_builds"] or launches["sweep_run"] \
             or launches["covered"]:
         raise SystemExit("labels FAILED: config 3 must take the host build")
     if not launches["label_step"] or not counts["label_checks"]:
@@ -1102,6 +1145,30 @@ def phase_labels(torch, kernels, report, main_ctx, queries):
 
 
 # -- phase 5: deep, config 4 on the label route ---------------------------------
+
+
+def label_digest(idx) -> str:
+    """A short hash of a label index's arrays, to hold two builds (two
+    trees, or the sharded and the unsharded build) against each other."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for k in ("out_lab", "in_lab", "out_ok", "in_ok", "processed"):
+        h.update(np.ascontiguousarray(getattr(idx, k)).tobytes())
+    return h.hexdigest()[:16]
+
+
+def build_split(info) -> dict:
+    """The device label build's seconds by part (host clock, BuildInfo):
+    seed uploads, sweeps from launch to host read (the stored bitmap's
+    download included), the covered masks (K7 and its host table), and
+    the rest: the host mirror, its flushes (K9) and the finalize."""
+    build_s = info.build_ms / 1e3
+    parts = {"upload_s": info.upload_s, "sweep_s": info.sweep_s, "covered_s": info.covered_s}
+    return {"sweeps": info.sweeps, "waves": info.waves, "build_s": build_s, **parts,
+            "host_s": build_s - sum(parts.values())}
 
 
 def phase_deep(torch, kernels, report):
@@ -1157,6 +1224,7 @@ def phase_deep(torch, kernels, report):
         "entries": idx.n_entries, "coverage": idx.coverage, "Wo": int(idx.out_lab.shape[1]),
         "Wi": int(idx.in_lab.shape[1]), "transient_bytes": engine.label_build_bytes,
         "truncated": info.truncated if info else "",
+        "label_sha256": label_digest(idx), "split": build_split(info) if info else None,
     }
     log(f"deep label build: {json.dumps(build)}")
 
@@ -1186,7 +1254,7 @@ def phase_deep(torch, kernels, report):
         f"wrong vs analytic {wrong}")
     if wrong:
         raise SystemExit(f"deep FAILED: {wrong} decisions differ from the expectation")
-    missing = [k for k in ("label_step", "sweep_step", "covered") if not launches[k]]
+    missing = [k for k in ("label_step", "sweep_run", "covered") if not launches[k]]
     if missing:
         raise SystemExit(f"deep FAILED: kernels never launched: {missing}")
     if counts["label_device_builds"] != 1 or not counts["label_checks"]:
@@ -1220,6 +1288,106 @@ def phase_deep(torch, kernels, report):
         "oracle_mismatches": bad, "grants": sum(expected), "build_sorts": sorts,
     }
     return engine, snap, captured, launches, store, queries, got, ctx, sort_keys
+
+
+def bare_ms(torch, launch, states, spin_cycles: int = 2_000_000) -> float:
+    """Mean device time of one bare launch: ``launch(state)`` once on each of
+    ``states`` (made beforehand), between two CUDA events queued behind a
+    spin kernel, so the host's launch work happens while the card is busy
+    and nothing but the kernel lies between the events."""
+    torch.cuda.synchronize()
+    pairs = []
+    for st in states:
+        torch.cuda._sleep(spin_cycles)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        rc = launch(st)
+        e1.record()
+        if rc:
+            raise RuntimeError(f"bare launch failed: CUDA error {rc}")
+        pairs.append((e0, e1))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / len(pairs)
+
+
+def host_reads(torch, fn) -> int:
+    """The synchronising CUDA calls one ``fn()`` makes, counted by PyTorch's
+    sync debug mode (each warns once)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # PyTorch's one-time notice that the mode is a prototype is not a sync
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in seen)
+
+
+def whole_ms(torch, fn, reps: int) -> float:
+    """Mean host-clock time of ``fn()`` over ``reps`` calls, each ending in
+    its own host read (so the work is done when it returns)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def sweep_row(torch, name, replaces, part, run, launch, X0, launches, wave_bytes, halo_bytes,
+              rate, extra, reps=20):
+    """A whole-sweep kernel row: ``run(fn, budget)`` calls the wrapper
+    (``sweep_cuda``) or the plain version (``sweep_ref``) on the path's
+    inputs, ``launch(state)`` the bare kernel on ``sweep_state`` buffers.
+    Holds the kernel against the plain version (no budget and one that runs
+    dry a visit early), times the whole run (the wrapper's call: one launch
+    and its one host read), the kernel alone (``bare_ms``) and the plain
+    version, and counts the launches and host reads of one run (one each,
+    or the row fails). The bound is what one run moves: the run's waves ×
+    one wave's bytes, and ``halo_bytes`` for each halo copy between two
+    waves (waves − 1 of them)."""
+    from keto_tpu_torch.graph import label_kernels as lk
+
+    want = run(lk.sweep_ref, None)
+    before = lk.COUNTS["sweep_run"]
+    reads = host_reads(torch, lambda: run(lk.sweep_cuda, None))
+    per_run = lk.COUNTS["sweep_run"] - before
+    got = run(lk.sweep_cuda, None)
+    m, err = diff(got[0], want[0])
+    m += sum(a != b for a, b in zip(got[1:], want[1:]))
+    _, waves, visits, _ = want
+    dry_got, dry_want = run(lk.sweep_cuda, visits - 1), run(lk.sweep_ref, visits - 1)
+    m += sum(a != b for a, b in zip(dry_got[1:], dry_want[1:]))
+    if not visits or waves < 2:
+        raise SystemExit(f"{name} FAILED: the timed sweep runs {waves} waves, {visits} visits")
+    ms = whole_ms(torch, lambda: run(lk.sweep_cuda, None), reps)
+    states = [lk.sweep_state(X0) for _ in range(reps)]
+    kernel_ms = bare_ms(torch, launch, states)
+    last = states[-1]
+    m += diff(last[3][: X0.numel()].view(X0.shape).cpu(), want[0])[0]
+    del states, last
+    plain = whole_ms(torch, lambda: run(lk.sweep_ref, None), 2)
+    bound = (waves * wave_bytes + (waves - 1) * halo_bytes) / rate * 1e3
+    r = {"name": name, "route": "cuda", "source": LABEL_SRC, "replaces": replaces, "part": part,
+         "launches": launches["sweep_run"], "mismatches": m, "max_abs_err": err, "ms": ms,
+         "kernel_ms": kernel_ms, "kernel_timed_by": "events around a bare launch behind a spin",
+         "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+         "launches_per_run": per_run, "host_reads_per_run": reads, "waves": waves,
+         "visits": visits, "wave_bound_ms": wave_bytes / rate * 1e3,
+         "halo_bound_ms": halo_bytes / rate * 1e3,
+         "runs_waves": launches["sweep_waves"], **extra}
+    log(f"kernel {name}: {ms:.4f} ms a run (kernel alone {kernel_ms:.4f} ms, plain {plain:.4f} "
+        f"ms, bound {bound:.4f} ms over {waves} waves), {per_run} launch and {reads} host read "
+        f"a run, mismatches {m}, {json.dumps(extra)}")
+    if m or per_run != 1 or reads != 1:
+        raise SystemExit(f"{name} FAILED at its path's shapes: {m} mismatches, {per_run} "
+                         f"launches and {reads} host reads a run")
+    return r
 
 
 def label_rows(torch, kernels, snap, engine, captured, launches, rate, int_rate):
@@ -1275,35 +1443,29 @@ def label_rows(torch, kernels, snap, engine, captured, launches, rate, int_rate)
         {"pairs": P, "live_pairs": int(((pa < snap.num_int) & (pb < snap.num_int)).sum()),
          "Wo": Wo, "Wi": Wi, "B": B, "valid_compares": compares})
 
-    # K6: the first wave of the first forward sweep batch
+    # K6: the first forward sweep of the build's first batch (no labels yet,
+    # so nothing is covered), the whole run to its fixpoint
     n = snap.num_int
     out_ip, out_ix, in_ip, in_ix = interior_adjacency(snap)
     order = landmark_order(out_ip, in_ip, n)
     wt = engine._labels_batch // 32
     g = lk.EllGroups.from_groups(label_build.build_ell_groups(in_ip, in_ix, n), "cuda")
-    V0 = np.zeros((n + 1, wt), np.uint32)
-    for j, u in enumerate(order[: 32 * wt].tolist()):
-        V0[u, j // 32] |= np.uint32(1) << np.uint32(j % 32)
-    V = torch.from_numpy(V0.view(np.int32)).cuda()
-    cov = torch.zeros_like(V)
-    # one wave on, so the timed wave has a real frontier; the wave updates
-    # V and S in place, so every timed call gets fresh copies (X is only read)
-    V, X, S, _ = lk.sweep_step_cuda(g, V, V.clone(), torch.zeros_like(V), cov)
-    args = lambda: (V.clone(), X, S.clone(), cov)  # noqa: E731
+    X0 = torch.from_numpy(label_build._seed_bitmap(order[: 32 * wt], n, wt, n + 1)).cuda()
+    cov = torch.zeros_like(X0)
+    # a wave reads every slot and dst index once, one X row per distinct
+    # source, and V, S, cov and X' once per dst word (the ping-pong buffers
+    # are never zeroed)
     srcs = int((torch.unique(g.slots) < n).sum())
-    k6_bytes = 4 * (g.slots.numel() + g.n_rows + wt * (srcs + 5 * g.n_rows + n + 1))
-    got = lk.sweep_step_cuda(g, *args())
-    visits = int(got[3][1])
-    if not visits:
-        raise SystemExit("deep FAILED: the timed sweep wave visits no node")
-    row("sweep_step", K6,
-        lambda *a: lk.sweep_step_cuda(g, *a),
-        lambda *a: lk.sweep_step_ref(g, *a),
-        (got, lk.sweep_step_ref(g, *args())),
-        k6_bytes, 0, 20,
-        {"rows": g.n_rows, "slots": int(g.slots.numel()), "groups": len(g.rows),
-         "caps": list(g.caps), "wt": wt, "distinct_source_rows": srcs,
-         "frontier_words": int((X != 0).sum()), "visits": visits}, make=args)
+    wave_bytes = 4 * (g.slots.numel() + g.n_rows + wt * (srcs + 5 * g.n_rows))
+    rows.append(sweep_row(torch, "sweep_run", K6, "one orientation's whole sweep (the waves of "
+                          "_sweep_step().step to the fixpoint, label_build.py:269-281)",
+                          lambda fn, b: fn(g, X0, cov, n_dst=n + 1, budget=b),
+                          lambda st: lk.sweep_launch(lk._lib(), g, st, cov, n_dst=n + 1,
+                                                     halo=False, prune_expansion=True,
+                                                     budget=None, stream=lk._stream()),
+                          X0, launches, wave_bytes, 0, rate,
+                          {"rows": g.n_rows, "slots": int(g.slots.numel()), "groups": len(g.rows),
+                           "caps": list(g.caps), "wt": wt, "distinct_source_rows": srcs}))
 
     # K7: the covered mask of a mid-build batch, against the final labels
     idx = snap.labels
@@ -1399,21 +1561,14 @@ def phase_shard(torch, kernels, report, main_keep, deep_keep, rate, int_rate, de
     mesh = make_mesh(graph=SHARD_G, device=device)
     out: dict = {"graph_shards": SHARD_G}
     captured: dict = {}
-    wrapped = {name: getattr(ps, name) for name in ("check_step", "label_step", "label_sweep_step")}
+    wrapped = {name: getattr(ps, name) for name in ("check_step", "label_step", "label_sweep")}
 
     def capture(name):
         fn = wrapped[name]
 
         def call(*a, **kw):
             if name not in captured:
-                if name == "label_sweep_step":
-                    # the wave updates V and S in place: keep the first
-                    # wave's inputs as they were
-                    m_, groups, V, X, S, cov = a
-                    captured[name] = ((m_, groups, [v.clone() for v in V], list(X),
-                                       [x.clone() for x in S], list(cov)), kw)
-                else:
-                    captured[name] = (a, kw)
+                captured[name] = (a, kw)
             return fn(*a, **kw)
         return call
 
@@ -1476,6 +1631,7 @@ def phase_shard(torch, kernels, report, main_keep, deep_keep, rate, int_rate, de
         fork = deep_store.fork()
         eng = TorchCheckEngine(fork, fork.namespaces, device=device, mesh=mesh)
         kernels.reset_counts()
+        ps.reset_collective_counts()
         reset_peak()
         t0 = time.monotonic()
         snap = eng.snapshot()
@@ -1489,14 +1645,23 @@ def phase_shard(torch, kernels, report, main_keep, deep_keep, rate, int_rate, de
         idx, one = snap.labels, deep.snapshot().labels
         same = {f: bool(np.array_equal(getattr(idx, f), getattr(one, f)))
                 for f in ("out_lab", "in_lab", "out_ok", "in_ok", "processed")}
+        halo = (ps.COLLECTIVE_CALLS["all_gather"], ps.COLLECTIVE_BYTES["all_gather"])
         build = {"backend": idx.backend, "build_s": idx.build_ms / 1e3, "settled_s": settle_s,
                  "unsharded_build_s": one.build_ms / 1e3, "entries": idx.n_entries,
                  "unsharded_entries": one.n_entries, "equal": same,
-                 "waves": build_launches["sweep_step"] // SHARD_G,
-                 "launches": {k: build_launches[k] for k in ("sweep_step", "covered")}}
+                 "label_sha256": label_digest(idx),
+                 "split": build_split(eng.label_build_info) if eng.label_build_info else {},
+                 "waves": build_launches["sweep_waves"], "halo_rounds": halo[0],
+                 "halo_bytes": halo[1],
+                 "launches": {k: build_launches[k] for k in ("sweep_run", "covered")}}
+        sweeps = build["split"].get("sweeps", 0)
+        build["per_sweep"] = {"launches": build_launches["sweep_run"] / max(1, sweeps),
+                              "halo_rounds": halo[0] / max(1, sweeps),
+                              "halo_bytes": halo[1] / max(1, sweeps)}
         log(f"shard (b) label build: {json.dumps(build)}")
         if idx.backend != "sharded" or not all(same.values()) \
-                or (on_card and not build_launches["sweep_step"]):
+                or (on_card and build_launches["sweep_run"] != sweeps) \
+                or halo[0] != build["waves"] or halo[1] % max(1, halo[0]):
             raise SystemExit(f"shard FAILED: the sharded label build {build}")
         kernels.reset_counts()
         ps.reset_collective_counts()
@@ -1562,7 +1727,7 @@ def phase_shard(torch, kernels, report, main_keep, deep_keep, rate, int_rate, de
         out["b"] = b
         if on_card:
             rows += shard_label_rows(torch, ps, mesh, captured, launches, build_launches, rate,
-                                     int_rate)
+                                     int_rate, snap.num_int)
         eng.close()
     finally:
         for name, fn in wrapped.items():
@@ -1651,7 +1816,7 @@ def shard_write(kernels, eng, store, queries, expected, ctx, sync, on_card) -> d
     wrong = sum(g != e for g, e in zip(got_del, expected))
     out["wrong_vs_analytic_after_deletes"] = wrong
     out["launches"] = {k: kernels.COUNTS[k] - before[k] for k in
-                       ("shard_answer", "pull_overlay", "slot_set", "sweep_step", "covered")}
+                       ("shard_answer", "pull_overlay", "slot_set", "sweep_run", "covered")}
     log(f"shard write: {json.dumps({k: v for k, v in out.items() if k not in ('overlay', 'after_fold', 'deleted')})}")
     if wrong or not out["tombstones"] or (on_card and not out["ell_patch_slot_sets"]):
         raise SystemExit(f"shard FAILED: after the deletes {wrong} decisions differ from the "
@@ -1763,9 +1928,10 @@ def device_kernels(torch, fn) -> dict:
 
 
 def shard_label_rows(torch, ps, mesh, captured, launches, build_launches, rate,
-                     int_rate) -> list:
+                     int_rate, n) -> list:
     """K10b's and K10c's rows at config 4's shapes: the first label step of
-    the 100k batch and the first wave of the sharded label build."""
+    the 100k batch and the first sweep of the sharded label build (``n``
+    interior rows, the gather sentinel)."""
     from keto_tpu_torch.graph import label_kernels as lk
 
     rows: list = []
@@ -1864,47 +2030,40 @@ def shard_label_rows(torch, ps, mesh, captured, launches, build_launches, rate,
                     "library_prev": {"call": "torch.stack(...).sum(0) of ready per-shard rows",
                                      "ms": prev_ms}})
 
-    (m_, groups, V, X, S, cov), kw = captured["label_sweep_step"]
-    rps, wt = kw["rps"], V[0].shape[1]
-    make = lambda: ([v.clone() for v in V], X, [x.clone() for x in S], cov)  # noqa: E731
+    # K10c: the sharded build's first sweep, the whole run, every shard in
+    # the one launch with the halo copy between waves
+    (m_, groups, X0, cov), kw = captured["label_sweep"]
+    rps, wt = kw["rps"], X0.shape[1]
+    prune = kw.get("prune_expansion", True)
+    n_rows, n_slots = groups.n_rows, int(groups.slots.numel())
+    # a wave's bytes as the single-device wave's: every dst index, the slots
+    # of the rows the routing keeps (its padding rows, dst = rps, are
+    # skipped before their slots are read), one X row per distinct source,
+    # V, S, cov and X' once per kept dst word; the halo copy of every slab
+    # (read once, written once) runs between two waves only
+    kept = [int(((d >= 0) & (d < rps)).sum()) for d in
+            (groups.group(i)[1] for i in range(len(groups.rows)))]
+    kept_rows, kept_slots = sum(kept), sum(k * c for k, c in zip(kept, groups.caps))
+    srcs = int((torch.unique(groups.slots) < n).sum())
+    wave_bytes = 4 * (kept_slots + n_rows + wt * (srcs + 5 * kept_rows))
+    halo_bytes = 2 * g * rps * wt * 4
 
-    def wave(fn):
-        return lambda Vs, Xs, Ss, Cs: ps.label_sweep_step(mesh, groups, Vs, Xs, Ss, Cs, wave=fn,
-                                                          **kw)
+    def run(fn, budget):
+        if fn is lk.sweep_cuda:
+            return ps.label_sweep(mesh, groups, X0, cov, rps=rps, prune_expansion=prune,
+                                  budget=budget)
+        return fn(groups, X0, cov, n_dst=rps, shards=g, prune_expansion=prune, budget=budget)
 
-    def flat(res):
-        return [torch.cat(res[0]), torch.cat(res[1]), torch.cat(res[2]), res[3]]
-
-    n_rows = sum(gr.n_rows for gr in groups)
-    n_slots = sum(int(gr.slots.numel()) for gr in groups)
-    k6_bytes = 4 * (n_slots + n_rows + wt * (g * rps + 5 * n_rows)) + 2 * g * rps * wt * 4
-    _k10_row(rows, "shard_label_sweep_step", K10C, "one sharded wave: the halo copy and "
-             "K6's keto_sweep_step per shard", wave(lk.sweep_step_into_cuda),
-             wave(lk.sweep_step_into_ref),
-             (flat(wave(lk.sweep_step_into_cuda)(*make())),
-              flat(wave(lk.sweep_step_into_ref)(*make()))),
-             build_launches["sweep_step"] // g, _bound(rate, 1, k6_bytes), 20, make=make,
-             extra={"rows": n_rows, "slots": n_slots, "wt": wt, "rps": rps, "g": g},
-             source=LABEL_SRC)
-    Xfull = ps.all_gather_rows(X)
-
-    def sweep_only(fn):
-        def run(Vs, Xs, Ss, Cs):
-            X2 = [torch.zeros_like(v) for v in Vs]
-            st = torch.zeros(2, dtype=torch.int32, device="cuda")
-            for s in range(g):
-                fn(groups[s], Xfull, Vs[s], Ss[s], Cs[s], X2[s], st,
-                   prune_expansion=kw.get("prune_expansion", True))
-            return [torch.cat(Vs), torch.cat(X2), torch.cat(Ss), st]
-        return run
-
-    _k10_row(rows, "sweep_step_sharded", K10C, "the shard-local wave, sharded.py:592-610 "
-             "(K6's keto_sweep_step with n_dst = rps, once per shard)",
-             sweep_only(lk.sweep_step_into_cuda), sweep_only(lk.sweep_step_into_ref),
-             (sweep_only(lk.sweep_step_into_cuda)(*make()),
-              sweep_only(lk.sweep_step_into_ref)(*make())),
-             build_launches["sweep_step"], _bound(rate, 1, k6_bytes - 2 * g * rps * wt * 4), 20,
-             make=make, source=LABEL_SRC)
+    rows.append(sweep_row(torch, "shard_label_sweep", K10C, "one orientation's whole sharded "
+                          "sweep: per wave the halo copy of the slabs and every shard's K6 wave "
+                          "(sharded.py:559-628 to the fixpoint)", run,
+                          lambda st: lk.sweep_launch(lk._lib(), groups, st, cov, n_dst=rps,
+                                                     halo=True, prune_expansion=prune,
+                                                     budget=None, stream=lk._stream()),
+                          X0, build_launches, wave_bytes, halo_bytes, rate,
+                          {"rows": n_rows, "slots": n_slots, "groups": len(groups.rows),
+                           "wt": wt, "rps": rps, "g": g, "kept_rows": kept_rows,
+                           "kept_slots": kept_slots, "distinct_source_rows": srcs}))
     if sum(r["mismatches"] for r in rows):
         raise SystemExit("shard FAILED: K10b/K10c parity at config 4's shapes")
     return rows
@@ -1995,14 +2154,14 @@ def phase_list(torch, kernels, report, engine, store, ctx, device="cuda"):
     launches = dict(kernels.COUNTS)
     routes = {f"{op}/{path}": n for (op, path), n in sorted(lst.requests_total.items())}
     out.update({"routes": routes, "device_errors": lst.device_errors,
-                "k5_runs": launches["list_step"], "k5_steps": launches["list_iters"],
+                "k5_runs": launches["list_fixpoint"], "k5_steps": launches["list_iters"],
                 "upload_s": dict(lst.upload_seconds), "launches": launches})
-    log(f"list routes {routes}, K5 runs {launches['list_step']} ({launches['list_iters']} steps), "
+    log(f"list routes {routes}, K5 runs {launches['list_fixpoint']} ({launches['list_iters']} steps), "
         f"upload seconds {lst.upload_seconds}, launches {launches}")
     if (routes.get("objects/device") != len(objects) or routes.get("subjects/device") != len(subjects)
             or any(k.endswith("/host") for k in routes)):
         raise SystemExit(f"list FAILED: every listing must take the device route: {routes}")
-    if device == "cuda" and (not launches["list_step"] or not launches["pull"]):
+    if device == "cuda" and not launches["list_fixpoint"]:
         raise SystemExit(f"list FAILED: K5 never launched: {launches}")
 
     # the host lister on the same snapshot, the oracle, and Check
@@ -2594,8 +2753,9 @@ def phase_write(torch, kernels, report, engine, store, queries, lst, ctx, device
              "snaptokens": sorted(tokens), "host_snapshot": int(snap.snapshot_id),
              "lst_ov_edges": len(snap.lst_ov_edges or ()), "lst_patch": len(snap.lst_patch or ()),
              "lst_dirty": snap.lst_dirty,
-             "k5_overlay_launches": kernels.COUNTS["list_gather"] - before["list_gather"],
-             "k5_runs": kernels.COUNTS["list_step"] - before["list_step"]}
+             "k5_overlay_runs": (kernels.COUNTS["list_fixpoint_overlay"]
+                                 - before["list_fixpoint_overlay"]),
+             "k5_runs": kernels.COUNTS["list_fixpoint"] - before["list_fixpoint"]}
         log(f"write {name} listings: {json.dumps(r)}")
         if bad or tokens != {snap.snapshot_id}:
             raise SystemExit(f"write FAILED: step {name}: listings differ from the host lister: {r}")
@@ -2752,7 +2912,7 @@ def phase_write(torch, kernels, report, engine, store, queries, lst, ctx, device
         step["lists"], _, _ = list_round(
             "(b)", rng.sample(users_b, min(WRITE_LIST_QUERIES, len(users_b))),
             issues_of(touched_b, WRITE_LIST_QUERIES))
-        if device == "cuda" and not step["lists"]["k5_overlay_launches"]:
+        if device == "cuda" and not step["lists"]["k5_overlay_runs"]:
             raise SystemExit(f"write FAILED: K5's overlay stage never launched in (b): {step}")
         step["fold"] = settle("(b)", fold=True)
         step["fold"].update(lists_cleared("(b)"))
@@ -2905,18 +3065,30 @@ def slot_rows(torch, kernels, captured, launches, rate):
 
 
 def k5_row(torch, lk, cap, launches, rate, name, note):
-    """K5 on one captured fixpoint's inputs: the kernels against the plain
-    version, timed, with the kernel launches of one run read from the counts."""
+    """K5 on one captured fixpoint's inputs: the kernel against the plain
+    version; the whole run (the wrapper's call: one launch and its one host
+    read), the kernel alone (``bare_ms``) and the plain version timed; the
+    launches and host reads of one run counted."""
     buckets, R0, ovn, ovd, kw = cap
     got = lk.list_step_cuda(buckets, R0, ovn, ovd, **kw)
     want = lk.list_step_ref(buckets, R0, ovn, ovd, **kw)
     m, err = diff(got, want)
     before = dict(lk.COUNTS)
-    lk.list_step_cuda(buckets, R0, ovn, ovd, **kw)
+    reads = host_reads(torch, lambda: lk.list_step_cuda(buckets, R0, ovn, ovd, **kw))
     per_run = {k: lk.COUNTS[k] - before[k] for k in K5_KERNELS}
     steps = lk.COUNTS["list_iters"] - before["list_iters"]
-    ms = time_ms(lambda: lk.list_step_cuda(buckets, R0, ovn, ovd, **kw), 10)
-    plain = time_ms(lambda: lk.list_step_ref(buckets, R0, ovn, ovd, **kw), 2, warmup=1)
+    ms = whole_ms(torch, lambda: lk.list_step_cuda(buckets, R0, ovn, ovd, **kw), 20)
+    pull = bool(buckets) and kw["n_active"] > 0
+    bk = list(zip(buckets, kw["valid_rows"])) if pull else []
+    K = 0 if ovn is None else int(ovn.shape[0])
+    states = [lk.fixpoint_state(R0, pull, K) for _ in range(20)]
+    kernel_ms = bare_ms(torch, lambda st: lk.fixpoint_launch(
+        lk._lib(), bk, st, ovn if K else None, ovd, kw["it_cap"], kw.get("block_iters", 8),
+        lk._stream()), states)
+    Ra, Rb, _, ctl = states[-1]
+    m += diff(Rb if int(ctl[2]) else Ra, want)[0]
+    del states
+    plain = whole_ms(torch, lambda: lk.list_step_ref(buckets, R0, ovn, ovd, **kw), 2)
     # inputs read once (the valid bucket rows, the overlay, R0), the bitmap
     # written once
     slots = sum(int(n) * b.shape[1] for b, n in zip(buckets, kw["valid_rows"]))
@@ -2924,15 +3096,18 @@ def k5_row(torch, lk, cap, launches, rate, name, note):
     k5_bytes = 4 * (slots + ov_ints) + 2 * R0.numel() * 4
     row = {"name": name, "route": "cuda", "source": "keto_tpu_torch/csrc/list_kernels.cu",
            "replaces": K5, "launches": launches, "mismatches": m, "max_abs_err": err,
-           "ms": ms, "plain_ms": plain, "bound_ms": k5_bytes / rate * 1e3, "bound_by": "bytes",
-           "library_ms": None, "rows": int(R0.shape[0]) - 1, "n_active": kw["n_active"],
-           "edge_slots": slots, "overlay_rows": 0 if ovn is None else int(ovn.shape[0]),
-           "steps": steps, "kernel_launches_per_run": sum(per_run.values()),
-           "kernel_launches_per_run_by_kernel": per_run, "note": note}
-    log(f"kernel {name}: {ms:.4f} ms (plain {plain:.4f} ms, bound {row['bound_ms']:.4f} ms), "
-        f"{steps} steps, {row['kernel_launches_per_run']} launches a run {per_run}, mismatches {m}")
-    if m:
-        raise SystemExit(f"{name} parity at its path's shapes FAILED: {m} mismatching words")
+           "ms": ms, "kernel_ms": kernel_ms,
+           "kernel_timed_by": "events around a bare launch behind a spin", "plain_ms": plain,
+           "bound_ms": k5_bytes / rate * 1e3, "bound_by": "bytes", "library_ms": None,
+           "rows": int(R0.shape[0]) - 1, "n_active": kw["n_active"], "edge_slots": slots,
+           "overlay_rows": K, "steps": steps, "launches_per_run": sum(per_run.values()),
+           "host_reads_per_run": reads, "note": note}
+    log(f"kernel {name}: {ms:.4f} ms a run (kernel alone {kernel_ms:.4f} ms, plain {plain:.4f} "
+        f"ms, bound {row['bound_ms']:.4f} ms), {steps} steps, {row['launches_per_run']} launch "
+        f"and {reads} host read a run, mismatches {m}")
+    if m or row["launches_per_run"] != 1 or reads != 1:
+        raise SystemExit(f"{name} FAILED at its path's shapes: {m} mismatching words, "
+                         f"{row['launches_per_run']} launches and {reads} host reads a run")
     return row
 
 
@@ -2945,10 +3120,9 @@ def list_sort_rows(torch, kernels, captured, list_launches, deep_launches, sort_
     from keto_tpu_torch.graph import sort_kernels as sk
     from keto_tpu_torch.list import kernels as lk
 
-    rows = [k5_row(torch, lk, captured[0], list_launches["list_step"], rate, "list_step",
+    rows = [k5_row(torch, lk, captured[0], list_launches["list_fixpoint"], rate, "list_step",
                    "the whole fixpoint, no overlay pending; launches = fixpoint runs in the "
-                   "list phase; per step keto_pull per bucket + keto_commit + keto_close, "
-                   "queued in blocks of 8 guarded steps")]
+                   "list phase, one keto_list_fixpoint launch each")]
 
     keys = torch.from_numpy(np.ascontiguousarray(sort_keys, dtype=np.int32)).cuda()
     n = keys.numel()
@@ -3001,11 +3175,10 @@ def list_overlay_row(torch, cap, launches, rate):
 
     if cap is None:
         raise SystemExit("write FAILED: no listing ran K5 with an overlay pending")
-    return k5_row(torch, lk, cap, launches["list_scatter"], rate, "list_step_overlay",
-                  "the whole fixpoint with the write phase's overlay pending; launches = "
-                  "keto_list_scatter launches in the write phase; per step keto_pull per "
-                  "bucket + keto_commit + keto_pull (overlay gather) + keto_list_scatter + "
-                  "keto_close, queued in blocks of 8 guarded steps")
+    return k5_row(torch, lk, cap, launches["list_fixpoint_overlay"], rate, "list_step_overlay",
+                  "the whole fixpoint with the write phase's overlay pending; launches = the "
+                  "write phase's fixpoint runs with an overlay pending, one keto_list_fixpoint "
+                  "launch each")
 
 
 # -- phase 9: serve ---------------------------------------------------------------
@@ -3147,11 +3320,11 @@ def phase_serve(kernels, report):
                  "namespace=videos&object=/cats/1.mp4&relation=view&page_size=1")
         routes = dict(d.lister.requests_total)
         log(f"serve: list-objects {lo}, list-subjects {ls}, routes {routes}, "
-            f"K5 runs {kernels.COUNTS['list_step']}")
+            f"K5 runs {kernels.COUNTS['list_fixpoint']}")
         if lo[0] != 200 or lo[1]["objects"] != ["/cats", "/cats/1.mp4", "/cats/2.mp4"] \
                 or ls[0] != 200 or ls[1]["subject_ids"] != ["*"] or not ls[1]["next_page_token"]:
             raise SystemExit(f"serve FAILED: listings answered {lo}, {ls}")
-        if kernels.COUNTS["list_step"] < 2 or any(p != "device" for _, p in routes):
+        if kernels.COUNTS["list_fixpoint"] < 2 or any(p != "device" for _, p in routes):
             raise SystemExit(f"serve FAILED: the listings did not run K5 on the card: {routes}")
         report["serve_list_launches"] = dict(kernels.COUNTS)
     finally:

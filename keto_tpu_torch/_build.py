@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled with ``nvcc -gencode
+Every ``csrc/*.cu`` (with the ``csrc/*.cuh`` headers they include) is
+compiled with ``nvcc -gencode
 arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC -c`` (one nvcc process
 per source, all started together), and the objects are linked into one
 shared library in ``build/kernels/`` at the root of the checkout (a
@@ -8,8 +9,8 @@ directory ``.gitignore`` lists) the first time a kernel is launched. The
 library has a plain C interface and is loaded with ``ctypes``. Nothing is
 built when the package is imported, and nothing but the repository's own
 sources is read. A built library is reused while no source changed: its
-file name carries one hash over every source's name and bytes and the
-compiler flags. Every run on a fresh checkout builds cold;
+file name carries one hash over every source's and header's name and
+bytes and the compiler flags. Every run on a fresh checkout builds cold;
 ``chip_smoke.py`` times that build beside one nvcc over every source.
 """
 
@@ -48,13 +49,15 @@ _SIGNATURES = {
     "keto_answer_pack": [_P, _I64, _I64, _I64, _I64, _I32, _P, _P, _P, _I32, _P, _P, _P],
     "keto_label_step": [_P, _I32, _P, _I32, _I64, _P, _I64, _P, _P],
     "keto_label_witness": [_P, _I32, _P, _I32, _I64, _P, _P, _I64, _P, _P],
-    "keto_sweep_step": [_P, _P, _P, _I32, _I64, _P, _P, _P, _P, _P, _I32, _I64, _I32, _P, _P],
+    "keto_sweep_run": [_P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _I32,
+                       _I32, _I64, _P, _I64, _P],
     "keto_covered": [_P, _I64, _I32, _P, _I64, _P, _I32, _P, _P],
     "keto_slot_set": [_P, _I32, _I64, _P, _P, _P, _I64, _P, _P],
     "keto_radix_tile": [],
     "keto_radix_hist": [_P, _I64, _P, _P],
     "keto_radix_pass": [_P, _P, _I64, _I32, _P, _P, _P, _P, _P, _P],
-    "keto_list_scatter": [_P, _I64, _P, _P, _I64, _P, _P],
+    "keto_list_fixpoint": [_P, _P, _P, _I32, _P, _P, _P, _I32, _I32, _P, _P, _I32, _I32, _I32, _P,
+                           _P],
     "keto_shard_answer": [_P, _I64, _I64, _I64, _I64, _I32, _P, _P, _P, _I32, _P, _P, _P],
     "keto_pair_gather": [_P, _I64, _I32, _I32, _P, _I64, _P, _P],
 }
@@ -75,9 +78,13 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
     return BUILD_DIR / f"libketo_kernels_{h.hexdigest()[:16]}.so"
 

@@ -64,15 +64,16 @@ import torch
 #: (keto_tpu_torch/parallel/sharded.py) count here too
 COUNTS = {
     "seed": 0, "pull": 0, "commit": 0, "close": 0, "answer_pack": 0,
-    "label_step": 0, "label_witness": 0, "sweep_step": 0, "covered": 0, "slot_set": 0,
-    "radix_hist": 0, "radix_pass": 0,
-    "list_gather": 0, "list_scatter": 0,
+    "label_step": 0, "label_witness": 0, "sweep_run": 0, "covered": 0, "slot_set": 0,
+    "radix_hist": 0, "radix_pass": 0, "list_fixpoint": 0,
     "shard_answer": 0, "pair_rows": 0,
     # not kernels of their own: of the "pull" launches, those over the
     # overlay gather matrix (K2's overlay stage); whole radix sorts and the
-    # passes their plans skipped; list fixpoint runs and the steps they ran
-    "pull_overlay": 0, "radix_sort": 0, "radix_pass_skipped": 0, "list_step": 0,
-    "list_iters": 0,
+    # passes their plans skipped; the waves the sweep runs ran; of the
+    # list fixpoint launches, those with an overlay pending, and the steps
+    # every list fixpoint ran
+    "pull_overlay": 0, "radix_sort": 0, "radix_pass_skipped": 0, "sweep_waves": 0,
+    "list_fixpoint_overlay": 0, "list_iters": 0,
 }
 #: the kernels of the BFS route and of the label route's intersection
 BFS_KERNELS = ("seed", "pull", "commit", "close", "answer_pack")

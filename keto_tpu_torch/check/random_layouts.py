@@ -214,7 +214,7 @@ def random_witness_case(rng, n: int, Wo: int, Wi: int, pairs: int, *, shuffle: b
 
 
 def random_sweep_case(rng, n: int, caps, rows, wt: int):
-    """``(groups, V, X, S, cov)`` for ``sweep_step``: ELL groups of
+    """``(groups, V, X, S, cov)`` for the frontier wave: ELL groups of
     ``rows[g]`` rows with degree cap ``caps[g]`` over distinct ``dst`` rows
     (the rest of [0, n) is in no group), and random int32[n+1, wt] bitmaps
     with the sentinel row n of X zero."""
@@ -342,6 +342,46 @@ def list_case_inputs(kind: str, rng, n_rows: int, n_active: int):
             ov_nbrs[: n_rows - 1] = n_rows
             ov_nbrs[: n_rows - 1, 0] = np.arange(0, n_rows - 1)
     return R0.view(np.int32), ov_nbrs, ov_dst, it_cap, block_iters
+
+
+#: the list fixpoint's random layouts: (caps, valid rows, passive rows,
+#: overlay rows, it_cap, block_iters) — wide buckets (a warp a row in the
+#: kernel), overlays into active and passive rows, it_cap cuts that are not
+#: a multiple of block_iters (the last a chain longer than its it_cap)
+LIST_WIDE_CASES = [
+    ((1, 2, 64), (200, 50, 6), 40, 12, 10_000, 8),
+    ((1, 4096), (300, 3), 20, 0, 10_000, 8),
+    ((1, 32, 128), (120, 20, 4), 30, 9, 5, 3),
+    ((1,), (90,), 10, 6, 7, 2),
+]
+
+
+def random_list_layout(rng, caps, rows, passive: int, K: int):
+    """``(buckets, R0, ov_nbrs, ov_dst)`` for the list fixpoint: buckets
+    tiling ``sum(rows)`` active rows (a chain when ``caps == (1,)``),
+    ``passive`` rows past them, R0 int32 ``[n_rows + 1, 1]`` with bits 0, 1
+    and 31 scattered (a chain's at its head only; row ``n_rows`` zero), and,
+    when ``K``, an overlay of
+    ``K`` distinct destinations (half of them passive) plus two padded
+    ones, or None."""
+    n_active = sum(rows)
+    n_rows = n_active + passive
+    chain = tuple(caps) == (1,)
+    buckets = random_buckets(rng, n_rows, caps, rows, chain=chain)
+    R0 = np.zeros((n_rows + 1, 1), np.uint32)
+    if chain:  # seeded at its head only, so the walk takes one step a row
+        R0[0, 0] = np.uint32(0x80000001)
+    else:
+        R0[:n_rows, 0] = (rng.integers(0, 2**32, size=n_rows, dtype=np.uint64)
+                          & np.uint64(0x80000003))
+    ov = ov_dst = None
+    if K:
+        dst = np.concatenate([rng.choice(np.arange(n_active, n_rows), size=K // 2, replace=False),
+                              rng.choice(n_active, size=K - K // 2, replace=False)])
+        ov = np.full((K + 2, 4), n_rows, np.int32)
+        ov[:K] = rng.integers(0, n_rows + 1, size=(K, 4))
+        ov_dst = np.concatenate([dst, [n_rows + 1, n_rows + 1]]).astype(np.int32)
+    return buckets, R0.view(np.int32), ov, ov_dst
 
 
 #: the build sort's parity layouts; "config-4 range" is 10M keys in

@@ -5,21 +5,27 @@
 // Replaces the XLA programs:
 //   K3 `label_step`            (keto_tpu/check/tpu_engine.py:310)  -> keto_label_step
 //   K4 `label_step_witness`    (keto_tpu/check/tpu_engine.py:352)  -> keto_label_witness
-//   K6 `_sweep_step().step`    (keto_tpu/graph/label_build.py:150) -> keto_sweep_step
+//   K6 `_sweep_step().step`    (keto_tpu/graph/label_build.py:150) and the
+//      sweep loop around it (:269-281), with K10c's per-shard wave
+//      (keto_tpu/parallel/sharded.py:559)                          -> keto_sweep_run
 //   K7 `_covered_fn().covered` (keto_tpu/graph/label_build.py:183) -> keto_covered
 // The Python wrappers and the plain PyTorch versions live in
 // keto_tpu_torch/check/kernels.py (K3) and keto_tpu_torch/graph/label_kernels.py
 // (K6, K7); the build (nvcc, plain C ABI, ctypes) in keto_tpu_torch/_build.py.
 // Torch holds every array as int32; bitmaps are read as uint32.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "coop.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 132 * 32;
-constexpr int kMaxGroups = 64;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int32_t kIntMax = 0x7fffffff;
 
@@ -123,74 +129,185 @@ __global__ void label_witness_kernel(const int32_t* __restrict__ out_lab, int32_
   }
 }
 
-// K6. One frontier wave of a batch of landmark BFSs over every ELL group:
-// row r of the flattened groups gathers X over its slots (P), then at its
-// destination d: N = P & ~V, store = N & ~cov, V |= N, S |= store,
-// X2 = store (prune) or N. A d outside [0, n_dst) is dropped. `active`
-// (state[0]) is set when any X2 word is nonzero and `visits` (state[1])
-// gains the popcount of N; X2 arrives zeroed, and state is added into.
+// K6, and K10c's per-shard wave. One orientation's sweep run to its fixpoint
+// in ONE cooperative launch: waves of a batch of landmark BFSs over every ELL
+// group, separated by grid-wide barriers, with the stop test on the device.
+// Row r of group g gathers X over its slots (P), then at its destination
+// row base[g] + d, d = dst[r]: N = P & ~V, store = N & ~cov, V |= N,
+// S |= store, X' = store (prune) or N. A d outside [0, n_dst) is dropped.
 //
-// The sharded build (K10c, keto_tpu/parallel/sharded.py:559) runs the same
-// kernel once per shard: X is the halo-exchanged bitmap in GLOBAL rows,
-// V/S/cov/X2 are the shard's LOCAL rows, n_dst = rps drops the routing's
-// padding sentinel, and every shard adds into one state pair (the psums of
-// active and visits). Unsharded, n_dst = n + 1 and no dst is dropped.
+// Unsharded, base = 0 and n_dst = n + 1 (nothing is dropped). Sharded (the
+// reference's shard_map program, keto_tpu/parallel/sharded.py:559), shard s
+// owns the rows [s·rps, (s+1)·rps) of every bitmap, its routed groups carry
+// base = s·rps and local dst rows, and n_dst = rps drops the routing's
+// padding sentinel; the gathers read global rows of the halo-exchanged
+// bitmap, so shard s's local row r sits at global row s·rps + r.
 //
-// Bound: bytes — each ELL slot index is read once and each names one X
-// word per landmark word; the masks touch V, S, cov and X2 once per dst
-// word. Design: one thread per (group row, word), the word index fastest,
-// so a warp reads wt-word runs of each source row; the group of a row is
-// found in a descriptor table in shared memory (few groups, linear scan).
-// dst rows are distinct across groups, so every V/S/X2 word has one
-// writer, and rows outside every dst keep N = 0 as in the reference. The
-// gathers read X and the wave writes X2: Jacobi, as the reference. Warp
-// reductions fold `visits` and `active` into one atomic each.
-__global__ void sweep_step_kernel(const int32_t* __restrict__ slots,
-                                  const int32_t* __restrict__ dst,
-                                  const int64_t* __restrict__ desc, int32_t G,
-                                  int64_t n_rows, const uint32_t* __restrict__ X,
-                                  uint32_t* __restrict__ V, uint32_t* __restrict__ S,
-                                  const uint32_t* __restrict__ cov,
-                                  uint32_t* __restrict__ X2, int32_t wt, int64_t n_dst,
-                                  int32_t prune, int32_t* __restrict__ state) {
-  __shared__ int64_t sdesc[3 * kMaxGroups];
-  for (int i = threadIdx.x; i < 3 * G; i += blockDim.x) sdesc[i] = desc[i];
+// Buffers. X0 is the seeded frontier. Unsharded (halo = 0), wave 0 reads X0
+// and the waves after it ping-pong between Xa and Xb (wave k writes Xa for
+// even k, Xb for odd k, and reads the other): Jacobi, as the reference. Every
+// dst row of the written buffer is written each wave (0 where the row adds
+// nothing) and no other row ever is, so neither buffer needs zeroing between
+// waves. Sharded (halo = 1), every wave reads the gathered bitmap X0 and
+// writes the shards' slabs Xa; then, while the run goes on, an explicit halo
+// phase between two barriers copies every slab into X0 (the all_gather).
+//
+// Stop test, as the host loop of keto_tpu/graph/label_build.py:269-281: after
+// wave k's barrier every block adds wave k's visits (an int64 slot of three,
+// k % 3, reset by block 0 two waves ahead of its reuse) to its running total
+// and reads the last active wave (raised with atomicMax, so every block reads
+// the same answer). The run stops when the budget is given and the total
+// exceeds it (the remaining budget below 0: the crossing wave counted, as
+// the reference subtracts after each wave) or when the wave was inactive.
+// ctl (int64[8], zeroed by the caller): [0..2] the visit slots, [3] the last
+// active wave + 1, and on return [4] waves run, [5] total visits, [6] dry,
+// [7] 1 when the wave cap (every bit of V set once) was passed.
+//
+// Bound: bytes, per wave — each ELL slot index is read once and names one X
+// word per landmark word, and the masks touch V, S, cov and X' once per dst
+// word. Design: a group of cap >= 32 gives each row one warp (the lanes split
+// the slots, four words at a time, and fold with __reduce_or_sync); narrower
+// groups give each (row, word) one thread, the word index fastest. Groups run
+// one after another inside a wave, each starting where the previous one's
+// threads left off, so small groups do not pile onto the first blocks. The
+// descriptor table (start row, rows, cap, slot offset, base) sits in shared
+// memory. Index math is 32-bit: the wrapper checks that the slot count and
+// rows·wt stay below 2^31. Buffers written during the run are read with
+// plain loads (never through the read-only path), so a wave sees the writes
+// before the barrier.
+constexpr int kSweepThreads = 256;
+constexpr int kMaxSweepGroups = 256;
+constexpr int kWideCap = 32;
+
+__device__ __forceinline__ void sweep_store(uint32_t acc, int at, uint32_t* V, uint32_t* S,
+                                            const uint32_t* __restrict__ cov, uint32_t* Xw,
+                                            int prune, unsigned& visits, bool& active) {
+  const uint32_t v = V[at];
+  const uint32_t nw = acc & ~v;
+  uint32_t st = 0;
+  if (nw) {
+    st = nw & ~cov[at];
+    V[at] = v | nw;
+    if (st) S[at] |= st;
+    visits += __popc(nw);
+  }
+  const uint32_t x2 = prune ? st : nw;
+  Xw[at] = x2;
+  active |= x2 != 0;
+}
+
+__global__ void __launch_bounds__(kSweepThreads)
+sweep_run_kernel(const int32_t* __restrict__ slots, const int32_t* __restrict__ dst,
+                 const int32_t* __restrict__ desc, int32_t G, int32_t wt, int32_t n_dst,
+                 int32_t words, int32_t halo, uint32_t* X0, uint32_t* Xa, uint32_t* Xb,
+                 uint32_t* V, uint32_t* S, const uint32_t* __restrict__ cov, int32_t prune,
+                 int32_t has_budget, long long budget, long long max_waves,
+                 long long* ctl) {
+  __shared__ int32_t sd[5 * kMaxSweepGroups];
+  __shared__ long long s_visits;
+  __shared__ long long s_active;
+  for (int i = threadIdx.x; i < 5 * G; i += blockDim.x) sd[i] = desc[i];
   __syncthreads();
-  unsigned visits = 0;
-  bool active = false;
-  const int64_t n = n_rows * wt;
-  for (int64_t idx = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; idx < n;
-       idx += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t r = idx / wt;
-    const int32_t d = dst[r];
-    if (d < 0 || d >= n_dst) continue;
-    const int32_t w = static_cast<int32_t>(idx - r * wt);
-    int g = 0;
-    while (g + 1 < G && sdesc[3 * (g + 1)] <= r) ++g;
-    const int64_t cap = sdesc[3 * g + 1];
-    const int32_t* row = slots + sdesc[3 * g + 2] + (r - sdesc[3 * g]) * cap;
-    uint32_t acc = 0;
-    for (int64_t j = 0; j < cap; ++j) acc |= X[(int64_t)row[j] * wt + w];
-    const int64_t at = (int64_t)d * wt + w;
-    const uint32_t v = V[at];
-    const uint32_t nw = acc & ~v;
-    if (nw) {
-      const uint32_t st = nw & ~cov[at];
-      V[at] = v | nw;
-      if (st) S[at] |= st;
-      const uint32_t x2 = prune ? st : nw;
-      if (x2) {
-        X2[at] = x2;
-        active = true;
+  cg::grid_group grid = cg::this_grid();
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nthreads = gridDim.x * blockDim.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nthreads >> 5;
+  long long total = 0;
+  bool dry = false, over = false;
+  long long k = 0;
+  for (;; ++k) {
+    if (tid == 0) ctl[(k + 1) % 3] = 0;  // wave k+1's slot, last read after wave k-2
+    const uint32_t* Xr = halo ? X0 : (k == 0 ? X0 : ((k & 1) ? Xa : Xb));
+    uint32_t* Xw = halo ? Xa : ((k & 1) ? Xb : Xa);
+    unsigned visits = 0;
+    bool active = false;
+    int lead = 0, wlead = 0;  // work handed out so far this wave
+    for (int g = 0; g < G; ++g) {
+      const int start = sd[5 * g], rows = sd[5 * g + 1], cap = sd[5 * g + 2];
+      const int off = sd[5 * g + 3], base = sd[5 * g + 4];
+      if (cap < kWideCap) {
+        const int items = rows * wt;
+        int i = tid - lead % nthreads;
+        if (i < 0) i += nthreads;
+        for (; i < items; i += nthreads) {
+          const int r = i / wt;
+          const int w = i - r * wt;
+          const int d = dst[start + r];
+          if (d < 0 || d >= n_dst) continue;
+          const int32_t* row = slots + off + r * cap;
+          uint32_t acc = 0;
+          for (int j = 0; j < cap; ++j) acc |= Xr[row[j] * wt + w];
+          sweep_store(acc, (base + d) * wt + w, V, S, cov, Xw, prune, visits, active);
+        }
+        lead = (lead + items % nthreads) % nthreads;
+      } else {
+        int r = warp - wlead % nwarps;
+        if (r < 0) r += nwarps;
+        for (; r < rows; r += nwarps) {  // uniform across the warp
+          const int d = dst[start + r];
+          if (d < 0 || d >= n_dst) continue;
+          const int32_t* row = slots + off + r * cap;
+          for (int w0 = 0; w0 < wt; w0 += 4) {
+            uint32_t a0 = 0, a1 = 0, a2 = 0, a3 = 0;
+            for (int j = lane; j < cap; j += 32) {
+              const uint32_t* x = Xr + row[j] * wt + w0;
+              a0 |= x[0];
+              if (w0 + 1 < wt) a1 |= x[1];
+              if (w0 + 2 < wt) a2 |= x[2];
+              if (w0 + 3 < wt) a3 |= x[3];
+            }
+            a0 = __reduce_or_sync(kFull, a0);
+            a1 = __reduce_or_sync(kFull, a1);
+            a2 = __reduce_or_sync(kFull, a2);
+            a3 = __reduce_or_sync(kFull, a3);
+            if (lane < 4 && w0 + lane < wt) {
+              const uint32_t acc = lane == 0 ? a0 : lane == 1 ? a1 : lane == 2 ? a2 : a3;
+              sweep_store(acc, (base + d) * wt + w0 + lane, V, S, cov, Xw, prune, visits,
+                          active);
+            }
+          }
+        }
+        wlead = (wlead + rows % nwarps) % nwarps;
       }
-      visits += __popc(nw);
+    }
+    visits = __reduce_add_sync(kFull, visits);
+    active = __any_sync(kFull, active);
+    if (lane == 0) {
+      if (visits)
+        atomicAdd(reinterpret_cast<unsigned long long*>(ctl + k % 3),
+                  static_cast<unsigned long long>(visits));
+      if (active) atomicMax(ctl + 3, k + 1);
+    }
+    grid.sync();
+    if (threadIdx.x == 0) {
+      s_visits = *reinterpret_cast<volatile long long*>(ctl + k % 3);
+      s_active = *reinterpret_cast<volatile long long*>(ctl + 3);
+    }
+    __syncthreads();
+    total += s_visits;
+    const bool was_active = s_active >= k + 1;
+    __syncthreads();  // s_* are rewritten after the next barrier only
+    if (has_budget && total > budget) {
+      dry = true;
+      break;
+    }
+    if (!was_active) break;
+    if (k + 1 >= max_waves) {
+      over = true;
+      break;
+    }
+    if (halo) {  // the all_gather: every shard's slab into the gathered bitmap
+      for (int i = tid; i < words; i += nthreads) X0[i] = Xa[i];
+      grid.sync();
     }
   }
-  visits = __reduce_add_sync(kFull, visits);
-  active = __any_sync(kFull, active);
-  if ((threadIdx.x & 31) == 0) {
-    if (visits) atomicAdd(state + 1, static_cast<int32_t>(visits));
-    if (active) state[0] = 1;
+  if (tid == 0) {
+    ctl[4] = k + 1;
+    ctl[5] = total;
+    ctl[6] = dry ? 1 : 0;
+    ctl[7] = over ? 1 : 0;
   }
 }
 
@@ -261,13 +378,24 @@ extern "C" int keto_label_witness(const int32_t* out_lab, int32_t Wo, const int3
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int keto_sweep_step(const int32_t* slots, const int32_t* dst, const int64_t* desc,
-                               int32_t G, int64_t n_rows, const uint32_t* X, uint32_t* V,
-                               uint32_t* S, const uint32_t* cov, uint32_t* X2, int32_t wt,
-                               int64_t n_dst, int32_t prune, int32_t* state, void* stream) {
-  if (G > kMaxGroups) return static_cast<int>(cudaErrorInvalidValue);
-  sweep_step_kernel<<<blocks_for(n_rows * wt), kThreads, 0, (cudaStream_t)stream>>>(
-      slots, dst, desc, G, n_rows, X, V, S, cov, X2, wt, n_dst, prune, state);
+extern "C" int keto_sweep_run(const int32_t* slots, const int32_t* dst, const int32_t* desc,
+                              int32_t G, int32_t wt, int32_t n_dst, int32_t words,
+                              int32_t halo, uint32_t* X0, uint32_t* Xa, uint32_t* Xb,
+                              uint32_t* V, uint32_t* S, const uint32_t* cov, int32_t prune,
+                              int32_t has_budget, int64_t budget, int64_t* ctl, int64_t work,
+                              void* stream) {
+  if (G < 1 || G > kMaxSweepGroups || wt < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int grid = 0;
+  cudaError_t e = coresident_grid(sweep_run_kernel, kSweepThreads, work, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  long long budget_ll = budget;
+  long long max_waves = static_cast<long long>(words) * 32 + 2;
+  long long* ctl_ll = reinterpret_cast<long long*>(ctl);
+  void* args[] = {&slots, &dst, &desc, &G, &wt, &n_dst, &words, &halo, &X0, &Xa, &Xb,
+                  &V, &S, &cov, &prune, &has_budget, &budget_ll, &max_waves, &ctl_ll};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(sweep_run_kernel), grid,
+                                  kSweepThreads, args, 0, (cudaStream_t)stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,10 +7,12 @@
 //        keto_seed, keto_pull, keto_commit and keto_close per shard
 //   K10b `sharded_label_step`       (:473) -> keto_pair_gather per side, then
 //        K3's keto_label_step on the exchanged pair rows
-//   K10c `sharded_label_sweep_step` (:559) -> K6's keto_sweep_step per
-//        shard (csrc/label_kernels.cu), whose n_dst drops the sentinel
-// The halo all-gather is a device copy per shard slab (cudaMemcpyAsync, in
-// keto_tpu_torch/parallel/sharded.py), the counterpart of lax.all_gather,
+//   K10c `sharded_label_sweep_step` (:559) -> K6's keto_sweep_run over every
+//        shard at once (csrc/label_kernels.cu): its n_dst drops the
+//        sentinel and its halo phase copies the slabs between waves
+// Otherwise the halo all-gather is a device copy per shard slab
+// (cudaMemcpyAsync, in keto_tpu_torch/parallel/sharded.py), the
+// counterpart of lax.all_gather,
 // which is a collective and not part of a kernel body. The reductions across
 // shards (psum of the changed flag, the visit count and the popcount, the
 // OR of the answers) are kernels of all shards accumulating into one word

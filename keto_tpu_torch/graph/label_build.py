@@ -4,8 +4,9 @@ sweeps on one GPU.
 A port of the single-device build of keto_tpu/graph/label_build.py.
 ``build_labels`` (keto_tpu_torch/graph/labels.py) runs one Python BFS per
 landmark; this module runs a batch of ``batch`` landmark BFSs at once as a
-bit-packed ``int32[n+1, batch/32]`` frontier, one wave per launch of
-``sweep_step`` (K6, keto_tpu_torch/graph/label_kernels.py): forward sweeps
+bit-packed ``int32[n+1, batch/32]`` frontier, one orientation's waves to
+their fixpoint per call of ``sweep`` (K6, keto_tpu_torch/graph/label_kernels.py;
+on the card one launch and one host read a sweep): forward sweeps
 pull along the interior in-neighbour rows, backward sweeps along the
 transposed rows, and PLL **expansion pruning is a per-wave ANDNOT** against
 the batch's ``covered`` rows — the pairs the labels built so far already
@@ -34,7 +35,8 @@ waves over the row-range shards of a ``ShardMesh``
 (keto_tpu_torch/parallel/): the ELL groups are routed by destination row
 (``route_label_ell``, the rows the serving label stripes use), the frontier
 slabs halo-exchange once per wave and each shard runs its part of the wave
-(K10c, ``label_sweep_step``). OR is OR on any layout, so the stored entry
+(K10c, ``label_sweep``: every shard's waves in the same one launch a sweep).
+OR is OR on any layout, so the stored entry
 set equals ``_Sweeper``'s. ``mesh=`` with ``shard_count > 1`` selects it,
 as in the reference (:553-554, :665-666).
 """
@@ -130,16 +132,41 @@ def _compute_covered(lab_d: torch.Tensor, own_rows_host: np.ndarray, lanes: int,
     )
 
 
+def _seed_bitmap(rows, n: int, wt: int, n_rows: int) -> np.ndarray:
+    """``int32[n_rows, wt]``: lane j's bit at row ``rows[j]`` when it is a
+    node (``-1`` marks a dead lane); rows past ``n + 1`` are padding."""
+    V0 = np.zeros((n_rows, wt), np.uint32)
+    for j, u in enumerate(np.asarray(rows, np.int64).tolist()):
+        if 0 <= u < n:
+            V0[u, j // 32] |= np.uint32(1) << np.uint32(j % 32)
+    return V0.view(np.int32)
+
+
 class _Sweeper:
-    """Runs batched frontier sweeps on one device."""
+    """Runs batched frontier sweeps on one device. ``seconds`` sums the host
+    clock of the sweeps' seed uploads (``upload``) and of their runs from
+    the call to the host read that brings the stored bitmap home
+    (``sweep``)."""
 
     backend = "device"
 
     def __init__(self, fwd_groups, bwd_groups, n: int, device):
         self.n = n
         self.device = torch.device(device)
-        self._fwd = label_kernels.EllGroups.from_groups(fwd_groups, self.device)
-        self._bwd = label_kernels.EllGroups.from_groups(bwd_groups, self.device)
+        self._fwd, self._bwd = self._groups(fwd_groups), self._groups(bwd_groups)
+        self.seconds = {"upload": 0.0, "sweep": 0.0}
+        self.sweeps = 0
+        self.waves = 0
+
+    def _groups(self, groups):
+        return label_kernels.EllGroups.from_groups(groups, self.device)
+
+    def _rows(self) -> int:
+        return self.n + 1
+
+    def _run(self, groups, X0, cov, prune_expansion, budget):
+        return label_kernels.sweep(groups, X0, cov, n_dst=self.n + 1,
+                                   prune_expansion=prune_expansion, budget=budget)
 
     def sweep(
         self,
@@ -157,99 +184,58 @@ class _Sweeper:
         mutable ``[remaining visits]``) runs dry. Lane j starts at
         ``seeds[j]`` (-1 for a dead lane), or at ``start_rows[j]`` when
         given (a patch resumes mid-graph; stores still belong to lane j's
-        landmark). One host read of the wave's ``{active, visits}`` per
-        wave, as the reference's ``bool(active)``."""
-        n = self.n
+        landmark). Each wave's visits are subtracted from the budget after
+        the wave, the crossing wave included, as the reference's loop. On
+        the card the call makes one launch and one host read, after the
+        seed bitmap's synchronous upload."""
+        t0 = time.monotonic()
         rows = seeds if start_rows is None else start_rows
-        V0 = np.zeros((n + 1, wt), np.uint32)
-        for j, u in enumerate(np.asarray(rows, np.int64).tolist()):
-            if 0 <= u < n:
-                V0[u, j // 32] |= np.uint32(1) << np.uint32(j % 32)
-        V = torch.from_numpy(V0.view(np.int32)).to(self.device)
-        X = V.clone()  # the wave updates V in place; X must not alias it
-        S = torch.zeros_like(V)
-        groups = self._fwd if forward else self._bwd
-        while groups.rows:
-            V, X, S, state = label_kernels.sweep_step(
-                groups, V, X, S, cov, prune_expansion=prune_expansion
-            )
-            active, visits = state.tolist()
-            if budget is not None:
-                budget[0] -= int(visits)
-                if budget[0] < 0:
-                    return None
-            if not active:
-                break
-        return S.cpu().numpy().view(np.uint32)
+        X0 = torch.from_numpy(_seed_bitmap(rows, self.n, wt, self._rows())).to(self.device)
+        t1 = time.monotonic()
+        S, waves, visits, dry = self._run(self._fwd if forward else self._bwd, X0, cov,
+                                          prune_expansion, None if budget is None else budget[0])
+        self.seconds["upload"] += t1 - t0
+        self.seconds["sweep"] += time.monotonic() - t1
+        self.sweeps += 1
+        self.waves += waves
+        if budget is not None:
+            budget[0] -= visits
+        if dry:
+            return None
+        return S[: self.n + 1].numpy().view(np.uint32)
 
 
-class _ShardedSweeper:
+class _ShardedSweeper(_Sweeper):
     """The sweeps over a mesh's row-range shards: frontier slabs sharded by
-    the serving path's row ownership, one halo exchange per wave (K10c).
-    Stores the same bitmaps as ``_Sweeper``."""
+    the serving path's row ownership, one halo exchange per wave (K10c),
+    every shard's waves in the same run. Stores the same bitmaps as
+    ``_Sweeper``."""
 
     backend = "sharded"
 
     def __init__(self, fwd_groups, bwd_groups, n: int, mesh, n_shards: int, device):
-        from keto_tpu_torch.parallel import sharded as shard_mod
-
-        self.n = n
-        self.device = torch.device(device)
         self._mesh = mesh
-        g = max(1, int(n_shards))
-        ranges = shard_row_ranges(n + 1, g)
+        self._g = max(1, int(n_shards))
+        ranges = shard_row_ranges(n + 1, self._g)
         self._rps = ranges[0][1] - ranges[0][0] if ranges[0][1] > ranges[0][0] else 1
-        self._g = g
-        self._fwd = shard_mod.shard_ell_groups(
-            shard_mod.route_label_ell(fwd_groups, n, g, self._rps), self.device)
-        self._bwd = shard_mod.shard_ell_groups(
-            shard_mod.route_label_ell(bwd_groups, n, g, self._rps), self.device)
-        self._n_fwd, self._n_bwd = len(fwd_groups), len(bwd_groups)
+        super().__init__(fwd_groups, bwd_groups, n, device)
 
-    def _shard(self, flat: torch.Tensor) -> list:
-        """``[n+1, wt]`` on the device → ``g`` slabs ``[rps, wt]``."""
-        g, rps = self._g, self._rps
-        out = torch.zeros((g * rps, flat.shape[1]), dtype=torch.int32, device=self.device)
-        out[: flat.shape[0]] = flat
-        return [out[s * rps : (s + 1) * rps] for s in range(g)]
-
-    def sweep(
-        self,
-        forward: bool,
-        seeds: np.ndarray,
-        cov: torch.Tensor,
-        wt: int,
-        *,
-        prune_expansion: bool = True,
-        budget: Optional[list] = None,
-        start_rows: Optional[np.ndarray] = None,
-    ) -> Optional[np.ndarray]:
-        """As ``_Sweeper.sweep``, one sharded wave per launch set."""
+    def _groups(self, groups):
         from keto_tpu_torch.parallel import sharded as shard_mod
 
-        n = self.n
-        rows = seeds if start_rows is None else start_rows
-        V0 = np.zeros((n + 1, wt), np.uint32)
-        for j, u in enumerate(np.asarray(rows, np.int64).tolist()):
-            if 0 <= u < n:
-                V0[u, j // 32] |= np.uint32(1) << np.uint32(j % 32)
-        V = self._shard(torch.from_numpy(V0.view(np.int32)).to(self.device))
-        X = [v.clone() for v in V]  # the wave updates V in place
-        S = [torch.zeros_like(v) for v in V]
-        cov_sh = self._shard(cov)
-        groups = self._fwd if forward else self._bwd
-        while self._n_fwd if forward else self._n_bwd:
-            V, X, S, state = shard_mod.label_sweep_step(
-                self._mesh, groups, V, X, S, cov_sh, rps=self._rps,
-                prune_expansion=prune_expansion)
-            active, visits = state.tolist()
-            if budget is not None:
-                budget[0] -= int(visits)
-                if budget[0] < 0:
-                    return None
-            if not active:
-                break
-        return torch.cat(S)[: n + 1].cpu().numpy().view(np.uint32)
+        routed = shard_mod.route_label_ell(groups, self.n, self._g, self._rps)
+        return shard_mod.sweep_ell_groups(routed, self._rps, self.device)
+
+    def _rows(self) -> int:
+        return self._g * self._rps
+
+    def _run(self, groups, X0, cov, prune_expansion, budget):
+        from keto_tpu_torch.parallel import sharded as shard_mod
+
+        cov_sh = torch.zeros_like(X0)
+        cov_sh[: cov.shape[0]] = cov
+        return shard_mod.label_sweep(self._mesh, groups, X0, cov_sh, rps=self._rps,
+                                     prune_expansion=prune_expansion, budget=budget)
 
 
 def _make_sweeper(fwd_groups, bwd_groups, n: int, device, mesh, shard_count: int):
@@ -396,6 +382,15 @@ class BuildInfo:
     restarts: int = 0  # lanes re-run due to intra-batch interference
     build_ms: float = 0.0
     gain_history: list = field(default_factory=list)
+    #: the sweeps run and their waves; the host-clock split of build_ms: the
+    #: sweeps' seed uploads, the sweeps from the call to the host read that
+    #: brings the stored bitmap home, and the covered masks (K7 with its
+    #: host table); the rest is the host mirror and finalize
+    sweeps: int = 0
+    waves: int = 0
+    upload_s: float = 0.0
+    sweep_s: float = 0.0
+    covered_s: float = 0.0
 
 
 # -- the batched build --------------------------------------------------------
@@ -442,8 +437,10 @@ def device_build_labels(
         mirror.flush_device()
         # covered masks: certification against the FROZEN pre-batch label
         # arrays (the pruning ANDNOT of every wave of this batch)
+        tc = time.monotonic()
         cov_f = _compute_covered(mirror.in_d, mirror.out_h[v_batch], lanes, wt, OUT_PAD)
         cov_b = _compute_covered(mirror.out_d, mirror.in_h[v_batch], lanes, wt, IN_PAD)
+        info.covered_s += time.monotonic() - tc
         S_f = sweeper.sweep(True, seeds, cov_f, wt)
         S_b = sweeper.sweep(False, seeds, cov_b, wt)
         info.dispatches += 2
@@ -488,6 +485,8 @@ def device_build_labels(
     idx.build_ms = (time.monotonic() - t0) * 1e3
     info.build_ms = idx.build_ms
     info.landmarks = pos
+    info.sweeps, info.waves = sweeper.sweeps, sweeper.waves
+    info.upload_s, info.sweep_s = sweeper.seconds["upload"], sweeper.seconds["sweep"]
     return idx, info
 
 

@@ -1,5 +1,5 @@
-"""The list fixpoint (K5) as a plain PyTorch version and hand-written CUDA
-kernels.
+"""The list fixpoint (K5) as a plain PyTorch version and a hand-written CUDA
+kernel.
 
 Source notes:
 
@@ -13,13 +13,14 @@ Source notes:
   dropped (the padding ``dst = n_rows + 1``) — and the changed flag over
   every row. An overlay destination may be a passive row (no base
   neighbour), which the check step's overlay stage (K2, ORed into the
-  pull) would miss. CUDA: ``keto_pull`` (K1) at W = 1 and ``keto_commit``
-  (csrc/check_kernels.cu) for the base stage; for the overlay ``keto_pull``
-  again, gathering into a separate ``ovo[K]``, and ``keto_list_scatter``
-  (csrc/list_kernels.cu); then ``keto_close``; the loop is driven from the host in blocks of
-  ``block_iters`` guarded steps with one read of the device guard
-  ``{changed, iters, step_changed}`` per block, as K2's. Bound: bytes — per
-  step the bucket matrices, the gathered rows of R, and P.
+  pull) would miss. The loop is the reference's ``lax.while_loop``: the
+  guard ``changed and it < it_cap`` is tested between blocks of
+  ``block_iters`` guarded steps, and a step after convergence is a no-op.
+  CUDA: ``keto_list_fixpoint`` (csrc/list_kernels.cu), the whole run in ONE
+  cooperative launch — the steps' phases between grid barriers, the guard
+  on the device — and ONE host read of its {steps, result buffer} words.
+  Bound: bytes — per step the bucket matrices, the gathered rows of R and
+  the active prefix.
 
 ``ov_dst`` entries other than padding are distinct (the engine groups the
 overlay by destination row). Bits are int32 in torch and uint32 in CUDA.
@@ -27,12 +28,13 @@ Both versions return the whole fixpoint bitmap ``int32[n_rows + 1, 1]``.
 A run with nothing to iterate (no active rows or no buckets, and no
 overlay) returns ``R0`` itself and launches nothing. Launch counts go
 into the shared ``COUNTS`` of keto_tpu_torch/check/kernels.py:
-``list_gather``/``list_scatter`` per launch, ``list_step`` per fixpoint
-run that launched kernels and ``list_iters`` for the steps it ran.
+``list_fixpoint`` per launch, ``list_fixpoint_overlay`` for the launches
+with an overlay pending and ``list_iters`` for the steps they ran.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Sequence
 
 import torch
@@ -79,22 +81,8 @@ def list_step_ref(
     return R
 
 
-def list_gather_cuda(ov_nbrs: torch.Tensor, R: torch.Tensor, ovo: torch.Tensor, state) -> None:
-    """``ovo[k] = OR_c R[ov_nbrs[k, c]]`` via ``keto_pull`` (K1) at W = 1
-    with no destination rows: row k lands at ``ovo[k]``."""
-    K = ov_nbrs.shape[0]
-    COUNTS["list_gather"] += 1
-    _check(_lib().keto_pull(ov_nbrs.data_ptr(), K, ov_nbrs.shape[1], None, 0, K, R.data_ptr(),
-                            ovo.data_ptr(), 1, state.data_ptr(), _stream()), "keto_pull")
-
-
-def list_scatter_cuda(ov_dst: torch.Tensor, ovo: torch.Tensor, R: torch.Tensor, state) -> None:
-    """``R[ov_dst[k]] |= ovo[k]`` (destinations outside R dropped) via
-    ``keto_list_scatter``; sets ``state[2]`` when a word grew."""
-    COUNTS["list_scatter"] += 1
-    _check(_lib().keto_list_scatter(ov_dst.data_ptr(), ov_dst.shape[0], ovo.data_ptr(),
-                                    R.data_ptr(), R.shape[0], state.data_ptr(), _stream()),
-           "keto_list_scatter")
+#: the kernel's bucket table holds at most this many degree buckets
+MAX_BUCKETS = 32
 
 
 def list_step_cuda(
@@ -108,39 +96,74 @@ def list_step_cuda(
     it_cap: int,
     block_iters: int = 8,
 ) -> torch.Tensor:
-    """The list step on the card → int32[n_rows + 1, 1] (device tensor)."""
+    """The list step on the card via one ``keto_list_fixpoint`` launch →
+    int32[n_rows + 1, 1] (device tensor)."""
     _need(R0, "R0", 2)
     if R0.shape[1] != 1:
         raise ValueError(f"R0: expected one word per row, got {tuple(R0.shape)}")
     if _idle(bucket_nbrs, n_active, ov_nbrs):
         return R0
     pull = bool(bucket_nbrs) and n_active > 0
+    buckets = list(zip(bucket_nbrs, valid_rows)) if pull else []
     if pull and sum(int(n) for n in valid_rows) != n_active:
         raise ValueError(f"buckets cover {sum(valid_rows)} rows, n_active is {n_active}")
+    if len(buckets) > MAX_BUCKETS:
+        raise ValueError(f"{len(buckets)} degree buckets: the kernel's table holds {MAX_BUCKETS}")
+    for nb, n in buckets:
+        _need(nb, "bucket nbrs", 2)
+        if nb.shape[0] < int(n) or nb.numel() >= 2**31:
+            raise ValueError(f"bucket nbrs {tuple(nb.shape)} for {n} valid rows")
+    if R0.shape[0] >= 2**31:
+        raise ValueError(f"R0: {R0.shape[0]} rows past the kernel's 32-bit index")
+    K = 0
     if ov_nbrs is not None:
         _need(ov_nbrs, "ov_nbrs", 2)
         _need(ov_dst, "ov_dst", 1)
         if ov_dst.numel() != ov_nbrs.shape[0]:
             raise ValueError("ov_dst must name one destination row per ov_nbrs row")
-        ovo = torch.empty(ov_nbrs.shape[0], dtype=torch.int32, device=R0.device)
-    R = R0.clone()
-    P = torch.empty((max(n_active, 1), 1), dtype=torch.int32, device=R0.device)
-    # {changed, iters, step_changed}
-    state = torch.tensor([1, 0, 0], dtype=torch.int32, device=R0.device)
-    COUNTS["list_step"] += 1
-    changed, iters = True, 0
-    while changed and iters < it_cap:
-        for _ in range(block_iters):
-            if pull:
-                kernels.pull_cuda(bucket_nbrs, valid_rows, R, P=P, state=state)
-                kernels.commit_cuda(P, R, n_active, state)
-            if ov_nbrs is not None:
-                list_gather_cuda(ov_nbrs, R, ovo, state)
-                list_scatter_cuda(ov_dst, ovo, R, state)
-            kernels.close_cuda(state)
-        changed, iters = (int(v) for v in state[:2].tolist())
+        K = ov_nbrs.shape[0]
+        if K and ov_nbrs.numel() >= 2**31:
+            raise ValueError(f"ov_nbrs {tuple(ov_nbrs.shape)} past the kernel's 32-bit index")
+    state = fixpoint_state(R0, pull, K)
+    COUNTS["list_fixpoint"] += 1
+    if K:
+        COUNTS["list_fixpoint_overlay"] += 1
+    _check(fixpoint_launch(_lib(), buckets, state, ov_nbrs if K else None, ov_dst, it_cap,
+                           block_iters, _stream()), "keto_list_fixpoint")
+    Ra, Rb, _, ctl = state
+    _, iters, in_b, _ = ctl.tolist()
     COUNTS["list_iters"] += iters
-    return R
+    return Rb if in_b else Ra
+
+
+def fixpoint_state(R0: torch.Tensor, pull: bool, K: int) -> tuple:
+    """One run's device buffers: the two bitmaps (copies of ``R0``; one
+    buffer without the pull), the overlay's gathered words and the int32
+    control words (zeroed). ``(Ra, Rb, ovo, ctl)``."""
+    Ra = R0.clone()
+    Rb = R0.clone() if pull else Ra
+    ovo = torch.empty(max(K, 1), dtype=torch.int32, device=R0.device)
+    # {last changed step + 1, steps, result in Rb, changed at exit}
+    ctl = torch.zeros(4, dtype=torch.int32, device=R0.device)
+    return Ra, Rb, ovo, ctl
+
+
+def fixpoint_launch(lib, buckets, state: tuple, ov_nbrs, ov_dst, it_cap: int, block_iters: int,
+                    stream: int) -> int:
+    """``keto_list_fixpoint`` on ``fixpoint_state``'s buffers over
+    ``buckets`` (``[(nbrs, valid rows)]``, empty without the pull); returns
+    its error code (the bare launch ``list_step_cuda`` checks, counts and
+    reads)."""
+    Ra, Rb, ovo, ctl = state
+    K, C = (0, 0) if ov_nbrs is None else ov_nbrs.shape
+    ptrs = (ctypes.c_int64 * MAX_BUCKETS)(*[b.data_ptr() for b, _ in buckets])
+    rows = (ctypes.c_int32 * MAX_BUCKETS)(*[int(n) for _, n in buckets])
+    caps = (ctypes.c_int32 * MAX_BUCKETS)(*[b.shape[1] for b, _ in buckets])
+    return lib.keto_list_fixpoint(
+        ptrs, rows, caps, len(buckets), Ra.data_ptr(), Rb.data_ptr(),
+        None if not K else ov_nbrs.data_ptr(), K, C, None if not K else ov_dst.data_ptr(),
+        ovo.data_ptr(), Ra.shape[0], min(int(it_cap), 2**31 - 1), int(block_iters),
+        ctl.data_ptr(), stream)
 
 
 def list_step(bucket_nbrs, R0: torch.Tensor, ov_nbrs=None, ov_dst=None, **kw) -> torch.Tensor:

@@ -45,13 +45,17 @@ entry points):
   a row no shard owns) — then K3's compare and pack on the exchanged rows,
   ``uint32[W]``. CUDA: one ``keto_pair_gather`` per side, then
   ``keto_label_step``.
-- ``label_sweep_step`` replaces ``sharded_label_sweep_step`` (:559-628),
-  K10c: the halo all-gather of the frontier slabs, then each shard's K6
-  wave from the gathered bitmap into its local rows (``dst`` sentinel
-  ``rps`` dropped), ``active`` and ``visits`` summed over the shards into
-  one word pair. CUDA: K6's ``keto_sweep_step`` per shard, whose drop
-  bound is the shard's ``rps`` rows (``sweep_step_into``,
-  keto_tpu_torch/graph/label_kernels.py).
+- ``label_sweep`` replaces the sweep loop over ``sharded_label_sweep_step``
+  (:559-628), K10c: per wave, the halo all-gather of the frontier slabs,
+  then each shard's K6 wave from the gathered bitmap into its local rows
+  (``dst`` sentinel ``rps`` dropped), ``active`` and ``visits`` summed over
+  the shards, until a wave is inactive or a visit budget runs dry. CUDA:
+  K6's ``keto_sweep_run`` over every shard's routed groups at once
+  (``sweep_ell_groups``; keto_tpu_torch/graph/label_kernels.py), one
+  launch a sweep, the halo copy a phase of each wave between two grid
+  barriers; the plain version is ``label_kernels.sweep_ref`` over the
+  same table and slabs, whose wave (``sweep_step_into_ref`` over the
+  gathered bitmap) is the reference's program word for word.
 
 **Jacobi across shards.** Every pull of a hop reads the gathered copy, taken
 before any shard commits, so no shard's commit feeds another shard's pull
@@ -350,15 +354,15 @@ class ShardedBuckets:
                    runs=tuple(runs))
 
 
-def shard_ell_groups(routed, device) -> list:
-    """Per shard, the ``EllGroups`` of its routed label-build ELL groups
-    (``route_label_ell``): global gather ids, local ``dst`` rows with the
-    dropped sentinel ``rps``."""
+def sweep_ell_groups(routed, rps: int, device) -> label_kernels.EllGroups:
+    """Every shard's routed label-build ELL groups (``route_label_ell``) in
+    one table for the sharded sweep: shard s's groups (global gather ids,
+    local ``dst`` rows with the dropped sentinel ``rps``) carry the base row
+    ``s·rps``."""
     g = routed[0][0].shape[0] if routed else 1
-    return [
-        label_kernels.EllGroups.from_groups([(sb[s], db[s]) for sb, db in routed], device)
-        for s in range(g)
-    ]
+    groups = [(sb[s], db[s]) for s in range(g) for sb, db in routed]
+    bases = [s * rps for s in range(g) for _ in routed]
+    return label_kernels.EllGroups.from_groups(groups, device, bases=bases)
 
 
 def _mesh_shards(mesh, g: int, device: torch.device) -> None:
@@ -703,27 +707,22 @@ def label_step(mesh, out_sh, in_sh, entries: torch.Tensor, *, n_pairs: int, B: i
 # -- K10c: the sharded label-build wave ------------------------------------------------
 
 
-def label_sweep_step(mesh, groups: Sequence, V, X, S, cov, *, rps: int, prune_expansion: bool = True,
-                     wave=None):
-    """One sharded wave → ``(V, X2, S, state)``: lists of per-shard
-    ``[rps, wt]`` slabs (``V`` and ``S`` updated in place, ``X2`` fresh) and
-    ``state`` int32[2] {active, visits} summed over the shards. The halo
-    all-gather of ``X`` comes first; each shard's wave then reads the
-    gathered bitmap (global rows) and writes its own rows. ``wave`` is the
-    per-shard step (``sweep_step_into_ref`` or ``_cuda``; by the slabs'
-    device when None)."""
-    if wave is None:
-        wave = label_kernels.sweep_step_into
-    g = len(V)
-    _mesh_shards(mesh, g, V[0].device)
-    if len(groups) != g:
-        raise ValueError(f"{len(groups)} routed group sets for {g} shards")
-    Xfull = all_gather_rows(X)
-    X2 = [torch.zeros_like(v) for v in V]
-    state = torch.zeros(2, dtype=torch.int32, device=V[0].device)
-    for s in range(g):
-        if V[s].shape[0] != rps:
-            raise ValueError(f"shard {s}: {V[s].shape[0]} rows, expected rps={rps}")
-        wave(groups[s], Xfull, V[s], S[s], cov[s], X2[s], state, prune_expansion=prune_expansion)
-    _note("psum", 2 * 4 * g)
-    return V, X2, S, state
+def label_sweep(mesh, groups: label_kernels.EllGroups, X0: torch.Tensor, cov: torch.Tensor, *,
+                rps: int, prune_expansion: bool = True, budget: Optional[int] = None):
+    """K10c, one orientation's sharded sweep → ``(S, waves, visits, dry)``
+    as ``label_kernels.sweep``: ``X0`` and ``cov`` are the ``[g·rps, wt]``
+    bitmaps, shard s's slab at rows ``[s·rps, (s+1)·rps)``; ``groups`` is
+    ``sweep_ell_groups``'s table. Every wave run counts one halo
+    all-gather of the slabs and one psum of the wave's {active, visits}, as
+    the reference's program moves them. The plain version for CPU tensors,
+    one ``keto_sweep_run`` launch for CUDA tensors."""
+    g = X0.shape[0] // rps
+    _mesh_shards(mesh, g, X0.device)
+    if X0.shape[0] != g * rps:
+        raise ValueError(f"X0: {X0.shape[0]} rows is not a whole number of {rps}-row slabs")
+    out = label_kernels.sweep(groups, X0, cov, n_dst=rps, shards=g,
+                              prune_expansion=prune_expansion, budget=budget)
+    for _ in range(out[1]):
+        _note("all_gather", g * rps * X0.shape[1] * X0.element_size())
+        _note("psum", 2 * 4 * g)
+    return out

@@ -1,6 +1,6 @@
 """The port's device label build against the JAX package.
 
-``sweep_step`` (K6) must equal the JAX ``_sweep_step()`` on all five of
+``sweep_step_ref`` (K6's wave) must equal the JAX ``_sweep_step()`` on all five of
 its outputs (visited, frontier, stored, active, visits) and ``covered``
 (K7) the JAX ``_covered_fn()``, word for word, with the plain versions on
 the CPU; ``device_build_labels`` must give byte-equal label arrays, flags
@@ -50,7 +50,7 @@ def test_sweep_step_matches_jax(name, prune):
         u(V), u(X), u(S), u(cov), prune_expansion=prune,
     )
     g = label_kernels.EllGroups.from_groups(groups, "cpu")
-    V2, X2, S2, state = label_kernels.sweep_step(
+    V2, X2, S2, state = label_kernels.sweep_step_ref(
         g, _t(V.copy()), _t(X), _t(S.copy()), _t(cov), prune_expansion=prune
     )
     for got, ref, what in ((V2, want[0], "V"), (X2, want[1], "X"), (S2, want[2], "S")):

@@ -47,21 +47,36 @@ def test_label_step_cuda_matches_plain(Wo, Wi, W, cuda_device):
     assert torch.equal(got, want)
 
 
+def _sweep_budgets(run) -> list:
+    """No budget, the run's own visits, one visit less, and half of them."""
+    _, _, visits, _ = run(None)
+    return [None, visits, visits - 1, visits // 2]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("prune", [True, False])
-@pytest.mark.parametrize("wt", [1, 2])
-@pytest.mark.parametrize("caps,rows", [((1, 2, 4), (30, 10, 5)), ((1, 4096), (40, 2)), ((8,), (12,))])
-def test_sweep_step_cuda_matches_plain(caps, rows, wt, prune, cuda_device):
+@pytest.mark.parametrize("wt", [1, 2, 5])
+@pytest.mark.parametrize("caps,rows", [((1, 2, 4), (30, 10, 5)), ((1, 4096), (40, 2)),
+                                       ((8, 32, 64), (12, 6, 3)), ((1, 2, 16, 128), (300, 60, 9, 4))])
+def test_sweep_cuda_matches_plain(caps, rows, wt, prune, cuda_device):
+    """The whole sweep (one keto_sweep_run launch) against waves of the
+    plain step: the stored bitmap, waves, visits and the dry flag, with
+    groups of cap 32 and more (a warp a row) and wt past 4 (the warp's
+    word chunks), at several budgets."""
+    n = 400
     rng = np.random.default_rng(sum(caps) + wt)
-    groups, V, X, S, cov = random_sweep_case(rng, 100, caps, rows, wt)
-    g = label_kernels.EllGroups.from_groups(groups, cuda_device)
-    outs = []
-    for fn in (label_kernels.sweep_step_cuda, label_kernels.sweep_step_ref):
-        outs.append(fn(g, _t(V, cuda_device), _t(X, cuda_device), _t(S, cuda_device),
-                       _t(cov, cuda_device), prune_expansion=prune))
-    torch.cuda.synchronize()
-    for a, b in zip(*outs):
-        assert torch.equal(a, b)
+    groups, _, X0, _, cov = random_sweep_case(rng, n, caps, rows, wt)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        g = label_kernels.EllGroups.from_groups(groups, dev)
+        fn = label_kernels.sweep_ref if dev == "cpu" else label_kernels.sweep_cuda
+        out[dev] = lambda b, g=g, fn=fn, dev=dev: fn(g, _t(X0, dev), _t(cov, dev), n_dst=n + 1,
+                                                     prune_expansion=prune, budget=b)
+    assert out["cpu"](None)[1] >= 2, "the case must run waves"
+    for budget in _sweep_budgets(out["cpu"]):
+        want = out["cpu"](budget)
+        got = out[cuda_device](budget)
+        assert torch.equal(got[0], want[0]) and got[1:] == want[1:], budget
 
 
 @pytest.mark.cuda

@@ -17,7 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from keto_tpu_torch.check.random_layouts import LIST_CASES, list_case_inputs, list_case_tuples
+from keto_tpu_torch.check.random_layouts import (
+    LIST_CASES,
+    LIST_WIDE_CASES,
+    list_case_inputs,
+    list_case_tuples,
+    random_list_layout,
+)
 from keto_tpu_torch.graph.carry import device_list_from_arrays, list_layout_arrays
 from keto_tpu_torch.graph.snapshot import build_snapshot
 from keto_tpu_torch.list import kernels as lk
@@ -107,6 +113,22 @@ def test_list_step_truncation_matches_jax():
     assert np.array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("case", range(len(LIST_WIDE_CASES)))
+def test_list_step_ref_matches_jax_on_wide_layouts(case):
+    """The kernel's random layouts (wide buckets, passive overlay rows,
+    it_cap cuts inside a block) give the JAX package's bitmap too."""
+    caps, rows, passive, K, it_cap, block_iters = LIST_WIDE_CASES[case]
+    buckets, R0, ov, ov_dst = random_list_layout(np.random.default_rng(case), caps, rows,
+                                                 passive, K)
+    want = _jax_list_step(buckets, {"n_active": sum(rows), "n": list(rows)},
+                          (R0, ov, ov_dst, it_cap, block_iters))
+    t = lambda a: None if a is None else torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    got = lk.list_step([t(b) for b in buckets], t(R0), t(ov), t(ov_dst), n_active=sum(rows),
+                       valid_rows=rows, it_cap=it_cap, block_iters=block_iters)
+    assert np.array_equal(got.numpy(), want)
+    assert not np.array_equal(want, R0)
+
+
 def test_idle_run_returns_r0_itself():
     ref, _, orient, inputs = _case("no-active-overlay")
     arrays, meta = list_layout_arrays(ref, orient)
@@ -144,3 +166,22 @@ def test_list_step_cuda_matches_plain(kind, cuda_device):
     want = _port_list_step(dl, inputs, lk.list_step_ref)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(LIST_WIDE_CASES)))
+def test_list_fixpoint_cuda_matches_plain_on_wide_layouts(case, cuda_device):
+    caps, rows, passive, K, it_cap, block_iters = LIST_WIDE_CASES[case]
+    buckets, R0, ov, ov_dst = random_list_layout(np.random.default_rng(case), caps, rows,
+                                                 passive, K)
+    t = lambda a: None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)  # noqa: E731
+    kw = dict(n_active=sum(rows), valid_rows=rows, it_cap=it_cap, block_iters=block_iters)
+    before = lk.COUNTS["list_iters"]
+    got = lk.list_step_cuda([t(b) for b in buckets], t(R0), t(ov), t(ov_dst), **kw)
+    steps = lk.COUNTS["list_iters"] - before
+    want = lk.list_step_ref([t(b) for b in buckets], t(R0), t(ov), t(ov_dst), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if caps == (1,):  # a chain longer than it_cap: cut where the block ends
+        assert steps == -(-it_cap // block_iters) * block_iters

@@ -2,7 +2,9 @@
 ``shard_map`` programs, word for word.
 
 ``keto_tpu_torch.parallel.sharded``'s plain versions of ``check_step``
-(K10a), ``label_step`` (K10b) and ``label_sweep_step`` (K10c) must equal
+(K10a) and ``label_step`` (K10b), and one wave of the plain sharded sweep
+(K10c: ``label_kernels.sweep_step_into_ref`` over ``sweep_ell_groups``'
+table), must equal
 ``keto_tpu.parallel.sharded``'s ``check_kernel``, ``label_kernel`` and
 ``label_sweep_kernel`` on the 8-virtual-device CPU mesh of
 tests/conftest.py, over sub-meshes of 1, 2, 3, 4 and 8 shards, on the same
@@ -228,12 +230,16 @@ def test_label_sweep_step_matches_jax(name, g):
     jV, jX, jS, act, vis = js.label_sweep_kernel(_jax_mesh(g))(
         tuple(jnp.asarray(a) for a, _ in jr), tuple(jnp.asarray(b) for _, b in jr),
         u(Vs), u(Xs), u(Ss), u(Cs), rps=rps, prune_expansion=prune)
-    slabs = lambda a: [_t(x.copy()) for x in a]  # noqa: E731
-    V2, X2, S2, state = ps.label_sweep_step(
-        make_mesh(graph=g, device="cpu"), ps.shard_ell_groups(routed, "cpu"), slabs(Vs),
-        slabs(Xs), slabs(Ss), slabs(Cs), rps=rps, prune_expansion=prune)
+    # one wave of the plain sharded sweep: every shard's routed groups in one
+    # table, the gathered bitmap read in global rows, each slab written
+    flat = lambda a: _t(a.reshape(g * rps, wt).copy())  # noqa: E731
+    V2, S2, X2 = flat(Vs), flat(Ss), torch.zeros((g * rps, wt), dtype=torch.int32)
+    Xfull = ps.all_gather_rows(list(flat(Xs).view(g, rps, wt)))
+    state = torch.zeros(2, dtype=torch.int32)
+    label_kernels.sweep_step_into_ref(ps.sweep_ell_groups(routed, rps, "cpu"), Xfull, V2, S2,
+                                      flat(Cs), X2, state, n_dst=rps, prune_expansion=prune)
     for mine, ref in ((V2, jV), (X2, jX), (S2, jS)):
-        assert np.array_equal(np.stack([m.numpy() for m in mine]).view(np.uint32), np.asarray(ref))
+        assert np.array_equal(mine.numpy().reshape(g, rps, wt).view(np.uint32), np.asarray(ref))
     assert state.tolist() == [int(bool(act)), int(vis)]
 
 
@@ -362,37 +368,45 @@ def test_label_step_cuda_matches_plain(name, g, cuda_device):
         assert torch.equal(b.cpu(), a)
 
 
+def _label_sweep_case(name, g, dev):
+    """(merged routed groups, X0, cov, rps, prune) of a SWEEP_CASES layout
+    over g shards on ``dev``: slabs of rps rows, the routing's padding rows
+    (dst = rps) dropped."""
+    n, caps, rows, wt, prune = SWEEP_CASES[name]
+    groups, _, X0, _, cov = random_sweep_case(np.random.default_rng(n), n, caps, rows, wt)
+    rps = -(-(n + 1) // g)
+
+    def slabs(a):
+        o = np.zeros((g * rps, wt), np.int32)
+        o[: a.shape[0]] = a
+        return _t(o).to(dev)
+
+    merged = ps.sweep_ell_groups(ps.route_label_ell(groups, n, g, rps), rps, dev)
+    return merged, slabs(X0), slabs(cov), rps, prune
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("g", (1, 2, 3, 4))
 @pytest.mark.parametrize("name", sorted(SWEEP_CASES))
-def test_label_sweep_step_cuda_matches_plain(name, g, cuda_device):
-    n, caps, rows, wt, prune = SWEEP_CASES[name]
-    groups, V, X, S, cov = random_sweep_case(np.random.default_rng(n), n, caps, rows, wt)
-    rps = -(-(n + 1) // g)
-    routed = ps.route_label_ell(groups, n, g, rps)
-    outs = []
+def test_label_sweep_cuda_matches_plain(name, g, cuda_device):
+    """K10c's whole sweep: every shard in one keto_sweep_run launch with the
+    halo copy between waves, against the plain slabs, at several budgets."""
+    runs = {}
     for dev in ("cpu", cuda_device):
-        def slabs(a):
-            o = np.zeros((g * rps, wt), np.int32)
-            o[: a.shape[0]] = a
-            return [_t(o[s * rps : (s + 1) * rps].copy()).to(dev) for s in range(g)]
-
-        outs.append(ps.label_sweep_step(make_mesh(graph=g, device=dev),
-                                        ps.shard_ell_groups(routed, dev), slabs(V), slabs(X),
-                                        slabs(S), slabs(cov), rps=rps, prune_expansion=prune))
-    torch.cuda.synchronize()
-    (rV, rX, rS, rst), (cV, cX, cS, cst) = outs
-    for a, b in ((rV, cV), (rX, cX), (rS, cS)):
-        assert all(torch.equal(x, y.cpu()) for x, y in zip(a, b))
-    assert torch.equal(rst, cst.cpu())
+        merged, X0, cov, rps, prune = _label_sweep_case(name, g, dev)
+        mesh = make_mesh(graph=g, device=dev)
+        runs[dev] = lambda b, m=merged, X=X0, c=cov, mesh=mesh: ps.label_sweep(
+            mesh, m, X, c, rps=rps, prune_expansion=prune, budget=b)
+    _, _, visits, _ = runs["cpu"](None)
+    for budget in (None, visits, visits - 1, visits // 2):
+        want = runs["cpu"](budget)
+        got = runs[cuda_device](budget)
+        assert torch.equal(got[0], want[0]) and got[1:] == want[1:], budget
 
 
 @pytest.mark.cuda
-def test_shard_sweep_cuda_refuses_aliased_frontier(cuda_device):
-    groups, V, X, S, cov = random_sweep_case(np.random.default_rng(0), 20, (1,), (5,), 1)
-    eg = label_kernels.EllGroups.from_groups(groups, cuda_device)
-    t = lambda a: _t(a).to(cuda_device)  # noqa: E731
-    v = t(V)
+def test_label_sweep_cuda_refuses_a_ragged_layout(cuda_device):
+    merged, X0, cov, rps, _ = _label_sweep_case("prune-wt1", 3, cuda_device)
     with pytest.raises(ValueError):
-        label_kernels.sweep_step_into_cuda(eg, t(X), v, t(S), t(cov), v,
-                                           torch.zeros(2, dtype=torch.int32, device=cuda_device))
+        ps.label_sweep(make_mesh(graph=3, device=cuda_device), merged, X0[:-1], cov[:-1],
+                       rps=rps)
