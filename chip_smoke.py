@@ -22,10 +22,17 @@ Phases, in order; any failure exits non-zero:
    step (label widths 1..128, pad pairs, several pairs per query), the
    whole frontier sweep (one launch a run: expansion pruning on and off,
    rows outside every dst, groups of cap 32 and more, wt 1, 2 and 5, with
-   no budget, the run's own visits, one visit less and half), the covered mask (an empty table, wt 1 and 2, a table
-   too large for shared memory) and the slot set (a bucket patch, overlay
-   rows and their dst vector, a label-mirror store in place, an empty
-   entry list, duplicate slots, an out-of-range entry that must raise), the
+   no budget, the run's own visits, one visit less and half), the covered
+   mask (lanes 1 to 160 at wt 1, 2, 3 and 5, own pads -1 and -2, label
+   widths 1, 3 and 12 to 64, with and without 16-byte loads, own rows
+   narrower than the label rows, output rows past the label rows, config
+   4's 123,950 rows, one table reused and zero after every call, also
+   through ``_compute_covered``; an own entry outside the label rows must
+   raise) and the slot set (a bucket patch, overlay rows and their dst
+   vector, a label-mirror store in place, an empty entry list, duplicate
+   slots; calls of several targets over many tiles and cut tiles, in place
+   and not, one launch a call; an out-of-range entry that must raise with
+   every target untouched and nothing launched), the
    label witness (label widths 1..128, unequal sides, sorted and shuffled
    rows, the pad row, pairs with no common entry, rows whose every entry is
    common, 65,536 pairs), the list fixpoint (the base pull alone, an overlay into active rows, an
@@ -65,12 +72,16 @@ Phases, in order; any failure exits non-zero:
 5. deep — BASELINE config 4 (GitHub-style org/team/repo, 10M tuples,
    five namespaces, grant chains up to 7 edges) with the default engine:
    the labels built on the card, 100k checks equal to the analytic
-   expectation, an oracle sample, the label step, frontier sweep and
-   covered mask each launched, the build's seconds split into seed
-   uploads, sweeps (launch to host read), covered masks and the host
-   mirror; then those three kernels are timed at the path's shapes beside
-   their plain versions and bounds (the sweep as a whole run, its kernel
-   alone, its launches and host reads a run); its snapshot line
+   expectation, an oracle sample, the label step, frontier sweep, covered
+   mask and slot set each launched, every mirror flush one slot set
+   launch, the build's seconds split into seed uploads, sweeps (launch to
+   host read), covered masks, flushes and the host mirror; then the three
+   label kernels are timed at the path's shapes beside their plain
+   versions and bounds (the sweep as a whole run, its kernel alone, its
+   launches and host reads a run; the covered mask as wrapper calls, its
+   kernel alone and the whole ``_compute_covered`` call, one
+   ``keto_covered`` call (three device launches) and no host read, or the
+   row fails); its snapshot line
    reports the build's sorts as main's does, K8's replay on its own line
    once the label build has left the card;
 6. shard — one ``ShardMesh`` of 4 graph shards on the card: (a) main's
@@ -158,7 +169,9 @@ Phases, in order; any failure exits non-zero:
    then the fold. At the end the 100k decisions and the last listings are
    held against a fresh engine built on the final store (the rebuild the
    write path replaced, its labels built on the card) and no full rebuild
-   may have happened; K9 is timed at the write shapes, and K5 on the first
+   may have happened; K9 is timed on the largest bucket-patch call (every
+   bucket in one fused launch: the copy and the patch; one launch and no
+   host read a call, or the row fails), and K5 on the first
    fixpoint that ran with the overlay pending, against its plain version;
 10. serve — the REST server with the default engine (labels on) and a
    decision log sampling every check: ``GET /check/explain`` on a grant
@@ -404,9 +417,12 @@ SWEEP_CASES = [  # (n, caps, rows per group, wt): the whole sweep (K6)
     (300, (1, 4096), (100, 3), 2), (5000, (1, 2, 8, 64, 1024), (2000, 800, 300, 40, 4), 2),
     (400, (8, 32, 64), (40, 12, 6), 5),
 ]
-COVERED_CASES = [  # (rows, width, u, wt)
-    (1000, 64, 4096, 2), (1000, 64, 300, 1), (500, 8, 0, 2), (700, 16, 1, 2),
-    (2000, 64, 20000, 2), (30000, 64, 4096, 2),
+COVERED_CASES = [  # (label rows T, width, lanes, wt, own pad, own width (0: width), rows past T)
+    (1000, 64, 64, 2, -1, 0, 0), (1000, 64, 32, 1, -2, 0, 0), (700, 16, 1, 2, -2, 0, 13),
+    (5000, 64, 33, 2, -1, 16, 0), (3001, 3, 64, 2, -2, 0, 7), (900, 12, 96, 3, -1, 0, 0),
+    (4000, 32, 160, 5, -2, 64, 0), (123950, 64, 64, 2, -1, 0, 3), (30000, 1, 32, 1, -2, 0, 0),
+    (700, 4, 64, 2, -1, 0, 0), (30000, 1, 64, 2, -2, 0, 5), (700, 8, 96, 3, -1, 0, 0),
+    (700, 2, 96, 3, -2, 0, 0), (5000, 1, 160, 5, -1, 0, 0),
 ]
 
 
@@ -438,7 +454,7 @@ def label_parity(torch, rng, dev) -> int:
         random_label_case,
         random_sweep_case,
     )
-    from keto_tpu_torch.graph import label_kernels as lk
+    from keto_tpu_torch.graph import label_build, label_kernels as lk
 
     t = lambda a: torch.from_numpy(a.copy()).to(dev)  # noqa: E731
     total = 0
@@ -461,15 +477,34 @@ def label_parity(torch, rng, dev) -> int:
                                                            prune_expansion=prune, budget=b))
             log(f"parity sweep n={n} caps={caps} wt={wt} prune={prune}: {log_}, mismatches={m}")
             total += m
-    for rows, width, u, wt in COVERED_CASES:
-        lab, U, masks = random_covered_case(rng, rows, width, u, wt)
-        got = lk.covered_cuda(t(lab), t(U), t(masks))
-        want = lk.covered_ref(t(lab), t(U), t(masks))
+    table = None
+    for T, width, lanes, wt, pad, own_width, extra in COVERED_CASES:
+        lab, own = random_covered_case(rng, T, width, lanes, pad=pad, own_width=own_width)
+        if table is None or table.shape[0] < T or table.shape[1] != wt:
+            table = torch.zeros((max(T, 123950), wt), dtype=torch.int32, device=dev)
+        tab = table[:T]  # one table reused across calls, as the build does
+        got = lk.covered_cuda(t(lab), t(own), wt=wt, rows=T + extra, table=tab)
+        want = lk.covered_ref(t(lab), t(own), wt=wt, rows=T + extra)
         torch.cuda.synchronize()
-        m, _ = diff(got, want)
-        log(f"parity covered rows={rows} width={width} u={u} wt={wt}: "
+        m = diff(got, want)[0] + int(table.count_nonzero())
+        out = torch.full_like(want, 0x5A5A5A5A)  # a word the launch misses shows
+        if lk.covered_launch(lk._lib(), t(lab), t(own), wt, tab, out, lk._stream()):
+            raise SystemExit("kernel parity FAILED: keto_covered refused the launch")
+        m += diff(out, want)[0] + int(table.count_nonzero())
+        via = label_build._compute_covered(t(lab), own, lanes, wt, pad, rows=T + extra, table=tab)
+        m += diff(via, want)[0]
+        log(f"parity covered T={T} width={width} lanes={lanes} wt={wt} pad={pad} "
+            f"own_width={own_width or width} rows={T + extra}: "
             f"{int((want != 0).any(1).sum())} rows covered, mismatches={m}")
         total += m
+    lab, own = random_covered_case(rng, 500, 8, 33, pad=-1)
+    own[3, 0] = 500
+    try:
+        label_build._compute_covered(t(lab), own, 33, 2, -1)
+    except ValueError as e:
+        log(f"parity covered own entry outside the label rows: raised ({e})")
+    else:
+        raise SystemExit("kernel parity FAILED: an own entry outside the label rows did not raise")
     return total
 
 
@@ -513,9 +548,22 @@ def witness_parity(torch, rng, dev) -> int:
     return total
 
 
+#: K9 calls of several targets, one launch each: (rows, ld, entries,
+#: duplicates, 1-D) per target; targets over many SLOT_TILE tiles, tiles cut
+#: by a target's end, an empty entry list among them
+SLOT_MANY_CASES = [
+    ("bucket patch, every bucket", [(131072, 1, 64, False, False), (4097, 8, 300, False, False),
+                                    (1000, 32, 0, False, False), (257, 1024, 900, True, False)]),
+    ("overlay rows and dst", [(64, 8, 24, False, False), (64, 1, 24, False, True)]),
+    ("mirror flush, both sides", [(124000, 64, 9000, False, False),
+                                  (124000, 64, 2500, True, False)]),
+]
+
+
 def slot_parity(torch, rng, dev) -> int:
-    """K9 against its plain version on the write path's layouts; an entry
-    outside its target must raise. Mismatching words."""
+    """K9 against its plain version on the write path's layouts, one
+    target a call and several (one launch a call); an entry outside its
+    target must raise before any target is written. Mismatching words."""
     from keto_tpu_torch.check import kernels
     from keto_tpu_torch.check.random_layouts import random_slot_case
 
@@ -535,12 +583,40 @@ def slot_parity(torch, rng, dev) -> int:
         log(f"parity slot_set {what}: shape {tuple(buf.shape)}, {m} entries, "
             f"{int((got != a).sum()) if not in_place else m} words changed, mismatches={mism}")
         total += mism
+    for what, shapes in SLOT_MANY_CASES:
+        cases = [random_slot_case(rng, n, ld, m, dup=dup, one_d=one_d)
+                 for n, ld, m, dup, one_d in shapes]
+        for in_place in (False, True):
+            a = [torch.from_numpy(c[0].copy()).to(dev) for c in cases]
+            b = [torch.from_numpy(c[0].copy()).to(dev) for c in cases]
+            before = kernels.COUNTS["slot_set"]
+            got = kernels.slot_set_many_cuda([(x, *c[1:]) for x, c in zip(a, cases)],
+                                             in_place=in_place)
+            launches = kernels.COUNTS["slot_set"] - before
+            want = kernels.slot_set_many_ref([(x, *c[1:]) for x, c in zip(b, cases)],
+                                             in_place=in_place)
+            torch.cuda.synchronize()
+            mism = sum(diff(g, w)[0] for g, w in zip(got, want)) + abs(launches - 1)
+            if not in_place:
+                mism += sum(diff(x, torch.from_numpy(c[0]).to(dev))[0] for x, c in zip(a, cases))
+            log(f"parity slot_set_many {what} (in place {in_place}): {len(cases)} targets, "
+                f"{sum(len(c[1]) for c in cases)} entries, {launches} launch, mismatches={mism}")
+            total += mism
     buf, r, c, v = random_slot_case(rng, 100, 4, 10)
     c[3] = 4
+    other, ro, co, vo = random_slot_case(rng, 5000, 8, 40)
+    keep = [torch.from_numpy(other).to(dev), torch.from_numpy(buf).to(dev)]
+    before = kernels.COUNTS["slot_set"]
     try:
-        kernels.slot_set_cuda(torch.from_numpy(buf).to(dev), r, c, v)
+        kernels.slot_set_many_cuda([(keep[0], ro, co, vo), (keep[1], r, c, v)], in_place=True)
     except ValueError as e:
-        log(f"parity slot_set out of range: raised ({e})")
+        torch.cuda.synchronize()
+        changed = diff(keep[0].cpu(), torch.from_numpy(other))[0] + \
+            diff(keep[1].cpu(), torch.from_numpy(buf))[0]
+        log(f"parity slot_set out of range: raised ({e}); {changed} words of its targets "
+            f"changed, {kernels.COUNTS['slot_set'] - before} launches")
+        if changed or kernels.COUNTS["slot_set"] != before:
+            raise SystemExit("kernel parity FAILED: an out-of-range slot set wrote its targets")
     else:
         raise SystemExit("kernel parity FAILED: an out-of-range slot set did not raise")
     return total
@@ -1163,12 +1239,14 @@ def label_digest(idx) -> str:
 def build_split(info) -> dict:
     """The device label build's seconds by part (host clock, BuildInfo):
     seed uploads, sweeps from launch to host read (the stored bitmap's
-    download included), the covered masks (K7 and its host table), and
-    the rest: the host mirror, its flushes (K9) and the finalize."""
+    download included), the covered masks (K7: the own rows' check and
+    upload, the launch), the mirror's flushes (K9, one call each), and the
+    rest: the host mirror and the finalize."""
     build_s = info.build_ms / 1e3
-    parts = {"upload_s": info.upload_s, "sweep_s": info.sweep_s, "covered_s": info.covered_s}
-    return {"sweeps": info.sweeps, "waves": info.waves, "build_s": build_s, **parts,
-            "host_s": build_s - sum(parts.values())}
+    parts = {"upload_s": info.upload_s, "sweep_s": info.sweep_s, "covered_s": info.covered_s,
+             "flush_s": info.flush_s}
+    return {"sweeps": info.sweeps, "waves": info.waves, "flushes": info.flushes,
+            "build_s": build_s, **parts, "host_s": build_s - sum(parts.values())}
 
 
 def phase_deep(torch, kernels, report):
@@ -1254,9 +1332,12 @@ def phase_deep(torch, kernels, report):
         f"wrong vs analytic {wrong}")
     if wrong:
         raise SystemExit(f"deep FAILED: {wrong} decisions differ from the expectation")
-    missing = [k for k in ("label_step", "sweep_run", "covered") if not launches[k]]
+    missing = [k for k in ("label_step", "sweep_run", "covered", "slot_set") if not launches[k]]
     if missing:
         raise SystemExit(f"deep FAILED: kernels never launched: {missing}")
+    if info is None or launches["slot_set"] != info.flushes:
+        raise SystemExit(f"deep FAILED: {launches['slot_set']} slot set launches for "
+                         f"{info.flushes if info else None} mirror flushes (one launch a flush)")
     if counts["label_device_builds"] != 1 or not counts["label_checks"]:
         raise SystemExit(f"deep FAILED: route counts {counts}")
     t0 = time.monotonic()
@@ -1327,6 +1408,22 @@ def host_reads(torch, fn) -> int:
     return sum("called a synchronizing CUDA operation" in str(w.message) for w in seen)
 
 
+def call_ms(torch, fn, reps: int = 200) -> float:
+    """Median host-clock time of one ``fn()`` over ``reps`` calls, each
+    timed alone, for a call that makes no host read (it only enqueues, so
+    its host time is what its caller waits): the median leaves out a
+    garbage collection of the store's objects landing in one call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return sorted(times)[len(times) // 2] * 1e3
+
+
 def whole_ms(torch, fn, reps: int) -> float:
     """Mean host-clock time of ``fn()`` over ``reps`` calls, each ending in
     its own host read (so the work is done when it returns)."""
@@ -1394,8 +1491,6 @@ def label_rows(torch, kernels, snap, engine, captured, launches, rate, int_rate)
     """Time K3, K6 and K7 at the deep path's shapes beside their plain
     versions and bounds; compare each against its plain version once more.
     No single PyTorch call computes any of the three (library_ms null)."""
-    import numpy as np
-
     from keto_tpu_torch.graph import label_build, label_kernels as lk
     from keto_tpu_torch.graph.labels import interior_adjacency, landmark_order
 
@@ -1467,31 +1562,84 @@ def label_rows(torch, kernels, snap, engine, captured, launches, rate, int_rate)
                           {"rows": g.n_rows, "slots": int(g.slots.numel()), "groups": len(g.rows),
                            "caps": list(g.caps), "wt": wt, "distinct_source_rows": srcs}))
 
-    # K7: the covered mask of a mid-build batch, against the final labels
-    idx = snap.labels
-    mw = engine._labels_max_width
-    lab = np.full((n + 1, mw), -2, np.int32)
-    lab[:, : min(mw, idx.in_lab.shape[1])] = idx.in_lab[:, :mw]
-    mid = order[(n // 2) : (n // 2) + 32 * wt]
-    vals: dict = {}
-    for j, v in enumerate(mid.tolist()):
-        for x in idx.out_lab[v][idx.out_lab[v] != -1].tolist():
-            vals[x] = vals.get(x, 0) | (1 << j)
-    U = np.array(sorted(vals), np.int32)
-    masks = np.array([[(vals[x] >> (32 * w)) & 0xFFFFFFFF for w in range(wt)] for x in U.tolist()],
-                     np.uint32).reshape(-1, wt).view(np.int32)
-    lab_t, U_t, m_t = (torch.from_numpy(a).cuda() for a in (lab, U, masks))
-    k7_bytes = 4 * (lab.size + U.size + masks.size + (n + 1) * wt)
-    row("covered", K7,
-        lambda: lk.covered_cuda(lab_t, U_t, m_t),
-        lambda: lk.covered_ref(lab_t, U_t, m_t),
-        ([lk.covered_cuda(lab_t, U_t, m_t)], [lk.covered_ref(lab_t, U_t, m_t)]),
-        k7_bytes, 0, 20,
-        {"rows": n + 1, "width": mw, "u": int(U.size), "wt": wt})
+    # K7: the covered mask of a mid-build batch (the forward orientation:
+    # the IN rows against the lanes' own OUT rows), against the final labels
+    rows.append(covered_row(torch, snap, engine, order, wt, launches, rate))
     total = sum(r["mismatches"] for r in rows)
     if total:
         raise SystemExit(f"label kernel parity at deep shapes FAILED: {total} mismatching words")
     return rows
+
+
+def covered_row(torch, snap, engine, order, wt, launches, rate, reps=20):
+    """K7 at the deep path's shapes: the lanes of a mid-build batch (64
+    landmarks from the middle of the landmark order) with their own OUT
+    rows of the final index, against the IN rows padded to the build's
+    width. Holds the kernel and the whole ``_compute_covered`` call against
+    the plain version; times the wrapper's calls back to back (``ms``, CUDA
+    events), the kernel alone (``kernel_ms``: its three launches behind a
+    spin), the whole call on the host clock (``call_ms``: the own rows'
+    check, their upload and the launches) and the plain version; counts the
+    ``keto_covered`` calls (three device launches each) and the host reads
+    of one call (the row fails unless 1 and 0)."""
+    import numpy as np
+
+    from keto_tpu_torch.graph import label_build, label_kernels as lk
+    from keto_tpu_torch.graph.labels import IN_PAD, OUT_PAD
+
+    n = snap.num_int
+    idx = snap.labels
+    mw = engine._labels_max_width
+    lab = np.full((n + 1, mw), IN_PAD, np.int32)
+    lab[:, : min(mw, idx.in_lab.shape[1])] = idx.in_lab[:, :mw]
+    lanes = 32 * wt
+    mid = order[(n // 2) : (n // 2) + lanes]
+    own = np.full((lanes, mw), OUT_PAD, np.int32)
+    own[:, : min(mw, idx.out_lab.shape[1])] = idx.out_lab[mid, :mw]
+    lab_t = torch.from_numpy(lab).cuda()
+    own_t = torch.from_numpy(own).cuda()
+    table = torch.zeros((n + 1, wt), dtype=torch.int32, device="cuda")
+
+    def call():
+        return label_build._compute_covered(lab_t, own, lanes, wt, OUT_PAD, table=table)
+
+    want = lk.covered_ref(lab_t, own_t, wt=wt)
+    m, err = diff(lk.covered_cuda(lab_t, own_t, wt=wt, table=table), want)
+    m += diff(call(), want)[0]
+    before = lk.COUNTS["covered"]
+    reads = host_reads(torch, call)
+    per_call = lk.COUNTS["covered"] - before
+    m += int(table.count_nonzero())
+    ms = time_ms(lambda: lk.covered_cuda(lab_t, own_t, wt=wt, table=table), reps)
+    out = torch.empty((n + 1, wt), dtype=torch.int32, device="cuda")
+    lib, stream = lk._lib(), lk._stream()
+    kernel_ms = bare_ms(torch, lambda _: lk.covered_launch(lib, lab_t, own_t, wt, table, out,
+                                                           stream), [None] * reps)
+    m += diff(out, want)[0]
+    host_ms = call_ms(torch, call)
+    plain = time_ms(lambda: lk.covered_ref(lab_t, own_t, wt=wt), 2, warmup=1)
+    own_entries = int((own != OUT_PAD).sum())
+    nbytes = 4 * (lab.size + own.size + (n + 1) * wt)
+    r = {"name": "covered", "route": "cuda", "source": LABEL_SRC, "replaces": K7,
+         "launches": launches["covered"], "mismatches": m, "max_abs_err": err, "ms": ms,
+         "kernel_ms": kernel_ms,
+         "kernel_timed_by": "events around the three bare launches behind a spin",
+         "call_ms": host_ms, "call_timed_by": "host clock, median of 200 calls timed alone",
+         "plain_ms": plain, "bound_ms": nbytes / rate * 1e3, "bound_by": "bytes",
+         "bound_note": "the label array and own rows read once, the output written once; the "
+                       "lane-mask table's gathers stay in L2 and are not counted",
+         "library_ms": None, "launches_per_call": per_call, "host_reads_per_call": reads,
+         "rows": n + 1, "width": mw, "lanes": lanes, "wt": wt, "own_entries": own_entries,
+         "distinct_own_entries": int(np.unique(own[own != OUT_PAD]).size),
+         "rows_covered": int((want != 0).any(1).sum())}
+    log(f"kernel covered: {ms:.4f} ms a wrapper call (kernel alone {kernel_ms:.4f} ms, whole "
+        f"_compute_covered {host_ms:.4f} ms, plain {plain:.4f} ms, bound {r['bound_ms']:.4f} ms), "
+        f"{per_call} keto_covered call and {reads} host reads a call, mismatches {m}, "
+        f"{json.dumps(r)}")
+    if m or per_call != 1 or reads:
+        raise SystemExit(f"covered FAILED at its path's shapes: {m} mismatches, {per_call} "
+                         f"calls and {reads} host reads a call")
+    return r
 
 
 # -- phase 6: shard, sharded serving on the card (K10) -------------------------------
@@ -1653,7 +1801,7 @@ def phase_shard(torch, kernels, report, main_keep, deep_keep, rate, int_rate, de
                  "split": build_split(eng.label_build_info) if eng.label_build_info else {},
                  "waves": build_launches["sweep_waves"], "halo_rounds": halo[0],
                  "halo_bytes": halo[1],
-                 "launches": {k: build_launches[k] for k in ("sweep_run", "covered")}}
+                 "launches": {k: build_launches[k] for k in ("sweep_run", "covered", "slot_set")}}
         sweeps = build["split"].get("sweeps", 0)
         build["per_sweep"] = {"launches": build_launches["sweep_run"] / max(1, sweeps),
                               "halo_rounds": halo[0] / max(1, sweeps),
@@ -1661,6 +1809,7 @@ def phase_shard(torch, kernels, report, main_keep, deep_keep, rate, int_rate, de
         log(f"shard (b) label build: {json.dumps(build)}")
         if idx.backend != "sharded" or not all(same.values()) \
                 or (on_card and build_launches["sweep_run"] != sweeps) \
+                or (on_card and build_launches["slot_set"] != build["split"].get("flushes")) \
                 or halo[0] != build["waves"] or halo[1] % max(1, halo[0]):
             raise SystemExit(f"shard FAILED: the sharded label build {build}")
         kernels.reset_counts()
@@ -2686,25 +2835,27 @@ def phase_write(torch, kernels, report, engine, store, queries, lst, ctx, device
     rng = random.Random(SEED + 6)
     oracle = CheckEngine(store)
     out: dict = {"steps": {}}
-    # every slot set of the write path, tagged by its site (the bucket patch
-    # runs inside _apply_ell_patch; the mirror writes in place; the rest
-    # are the resident overlay's rows and dst)
+    # every slot set call of the write path (one launch each on the card),
+    # tagged by its site (the bucket patch runs inside _apply_ell_patch; the
+    # mirror writes in place; the rest are the resident overlay's rows and
+    # dst), with its targets
     captured: list = []
     sites = {"ell_patch": 0, "overlay": 0, "mirror": 0, "list": 0}
     in_patch, in_list = [False], [False]
-    slot_set, apply_patch = kernels.slot_set, engine._apply_ell_patch
+    slot_set, apply_patch = kernels.slot_set_many, engine._apply_ell_patch
     ensure_list, list_step = lst._ensure_device, gpu_engine.list_step
     # the first K5 run with the overlay pending, for K5's overlay row
     ov_cap: list = [None]
 
-    def capture(buf, rows, cols, vals, *, in_place=False):
+    def capture(targets, *, in_place=False):
         site = ("list" if in_list[0] else "mirror" if in_place
                 else "ell_patch" if in_patch[0] else "overlay")
-        if len(rows):
+        targets = [(buf, np.asarray(rows), None if cols is None else np.asarray(cols),
+                    np.asarray(vals)) for buf, rows, cols, vals in targets]
+        if targets:
             sites[site] += 1
-            captured.append((site, buf, np.asarray(rows), None if cols is None else np.asarray(cols),
-                             np.asarray(vals)))
-        return slot_set(buf, rows, cols, vals, in_place=in_place)
+            captured.append((site, targets))
+        return slot_set(targets, in_place=in_place)
 
     def step_capture(buckets, R0, ov_nbrs, ov_dst, **kw):
         if ov_cap[0] is None and ov_nbrs is not None and ov_nbrs.shape[0]:
@@ -2813,7 +2964,7 @@ def phase_write(torch, kernels, report, engine, store, queries, lst, ctx, device
         log(f"write {name} fold: {json.dumps(r)}")
         return r
 
-    kernels.slot_set, engine._apply_ell_patch, lst._ensure_device = capture, patch, ensure
+    kernels.slot_set_many, engine._apply_ell_patch, lst._ensure_device = capture, patch, ensure
     gpu_engine.list_step = step_capture
     try:
         kernels.reset_counts()
@@ -2968,7 +3119,7 @@ def phase_write(torch, kernels, report, engine, store, queries, lst, ctx, device
         step["after_fold"], got = check_round("(c) after the fold", touched_c)
         out["steps"]["c"] = step
     finally:
-        kernels.slot_set, engine._apply_ell_patch, lst._ensure_device = (
+        kernels.slot_set_many, engine._apply_ell_patch, lst._ensure_device = (
             slot_set, apply_patch, ensure_list)
         gpu_engine.list_step = list_step
     launches = dict(kernels.COUNTS)
@@ -3018,49 +3169,67 @@ def phase_write(torch, kernels, report, engine, store, queries, lst, ctx, device
 
 
 def slot_rows(torch, kernels, captured, launches, rate):
-    """Time K9 on the write path's largest bucket patch beside its plain
-    version, its bound and ``clone().index_put_``. ``ms`` is the device work
-    of the functional update — the copy and the launch, entries already on
-    the card, as the bound counts it; ``wrapper_ms`` the whole wrapper call
-    (dedup, upload, copy, launch, the read of the error word)."""
-    import numpy as np
-
-    site, buf, r, c, v = max((x for x in captured if x[0] == "ell_patch"),
-                             key=lambda x: x[1].numel())
-    got = kernels.slot_set_cuda(buf, r, c, v)
-    want = kernels.slot_set_ref(buf, r, c, v)
-    m, err = diff(got, want)
-    rows, cols, vals, ld = kernels._slot_entries(buf, r, c, v)
-    n = len(rows)
-    ent = torch.from_numpy(np.concatenate([rows.astype(np.int32), cols.astype(np.int32),
-                                           vals])).cuda()
-    flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+    """Time K9 on the write path's largest bucket-patch call (every bucket
+    of one patch in one launch) beside its plain version, its bound and
+    ``clone().index_put_`` a target. ``ms`` is the fused launch alone (the
+    copy and the patch; plan and entries already on the card) by CUDA
+    events over back-to-back launches, ``wrapper_ms`` the whole wrapper
+    call (dedup and range check, plan, upload, launch) the same way, and
+    ``call_ms`` on the host clock; one call must make one launch and no
+    host read."""
+    site, targets = max((x for x in captured if x[0] == "ell_patch"),
+                        key=lambda x: sum(t[0].numel() for t in x[1]))
+    want = kernels.slot_set_many_ref(targets)
+    got = kernels.slot_set_many_cuda(targets)
+    torch.cuda.synchronize()
+    m = sum(diff(g, w)[0] for g, w in zip(got, want))
+    err = max(diff(g, w)[1] for g, w in zip(got, want))
+    before = kernels.COUNTS["slot_set"]
+    reads = host_reads(torch, lambda: kernels.slot_set_many_cuda(targets))
+    per_call = kernels.COUNTS["slot_set"] - before
+    plan = kernels.slot_set_plan(targets)
+    words = torch.from_numpy(plan.words).cuda()
     lib, stream = kernels._lib(), kernels._stream()
+    if kernels.slot_set_launch(lib, plan, words, stream):
+        raise SystemExit("slot set at write shapes FAILED: the bare launch was refused")
+    torch.cuda.synchronize()
+    m += sum(diff(o, w)[0] for o, w in zip(plan.outs, want))
+    ent = []
+    for buf, r, c, v in targets:
+        rows, cols, vals, _ = kernels._slot_entries(buf, r, c, v)
+        ent.append((buf, torch.from_numpy(rows).cuda(), torch.from_numpy(cols).cuda(),
+                    torch.from_numpy(vals).cuda()))
 
-    def launch():
-        out = buf.clone()
-        lib.keto_slot_set(out.data_ptr(), ld, buf.shape[0], ent.data_ptr(), ent.data_ptr() + 4 * n,
-                          ent.data_ptr() + 8 * n, n, flag.data_ptr(), stream)
-        return out
+    def library():
+        for buf, rr, cc, vv in ent:
+            buf.clone().index_put_((rr,) if buf.dim() == 1 else (rr, cc), vv)
 
-    if diff(launch(), want)[0] or int(flag.item()):
-        raise SystemExit("slot set at write shapes FAILED: the bare launch disagrees")
-    rr, cc = ent[:n].long(), ent[n : 2 * n].long()
-    vv = ent[2 * n :]
-    lib_ms = time_ms(lambda: buf.clone().index_put_((rr, cc), vv), 100)
-    ms = time_ms(launch, 100)
-    wrapper = time_ms(lambda: kernels.slot_set_cuda(buf, r, c, v), 50)
-    plain = time_ms(lambda: kernels.slot_set_ref(buf, r, c, v), 10, warmup=1)
-    bytes_needed = 2 * buf.numel() * 4 + 16 * n
+    lib_ms = time_ms(library, 100)
+    ms = time_ms(lambda: kernels.slot_set_launch(lib, plan, words, stream), 100)
+    wrapper = time_ms(lambda: kernels.slot_set_many_cuda(targets), 50)
+    host_ms = call_ms(torch, lambda: kernels.slot_set_many_cuda(targets))
+    plain = time_ms(lambda: kernels.slot_set_many_ref(targets), 10, warmup=1)
+    n = plan.n_entries
+    # each functional target read and written once, the descriptors and
+    # every entry's key and value read once, every entry's word written once
+    bytes_needed = sum(2 * t[0].numel() * 4 for t in targets) + 4 * (plan.words.size + n)
     row = {"name": "slot_set", "route": "cuda", "source": "keto_tpu_torch/csrc/patch_kernels.cu",
            "replaces": K9, "launches": launches["slot_set"], "mismatches": m, "max_abs_err": err,
            "ms": ms, "plain_ms": plain, "bound_ms": bytes_needed / rate * 1e3, "bound_by": "bytes",
-           "library_ms": lib_ms, "wrapper_ms": wrapper, "site": site,
-           "target_shape": list(buf.shape), "entries": n}
-    log(f"kernel slot_set: {ms:.4f} ms (wrapper {wrapper:.4f} ms, plain {plain:.4f} ms, bound "
-        f"{row['bound_ms']:.5f} ms, index_put_ {lib_ms:.4f} ms), mismatches {m}, {json.dumps(row)}")
-    if m:
-        raise SystemExit(f"slot set parity at write shapes FAILED: {m} mismatching words")
+           "library_ms": lib_ms, "library_note": "clone().index_put_ a target",
+           "wrapper_ms": wrapper, "call_ms": host_ms,
+           "call_timed_by": "host clock, median of 200 calls timed alone",
+           "launches_per_call": per_call, "host_reads_per_call": reads, "site": site,
+           "targets": len(targets),
+           "target_shapes": [list(t[0].shape) for t in targets], "entries": n,
+           "blocks": plan.n_blocks}
+    log(f"kernel slot_set: {ms:.4f} ms the fused launch (wrapper {wrapper:.4f} ms, host clock "
+        f"{host_ms:.4f} ms, plain {plain:.4f} ms, bound {row['bound_ms']:.5f} ms, index_put_ "
+        f"{lib_ms:.4f} ms), {per_call} launch and {reads} host reads a call, mismatches {m}, "
+        f"{json.dumps(row)}")
+    if m or per_call != 1 or reads:
+        raise SystemExit(f"slot set at write shapes FAILED: {m} mismatching words, {per_call} "
+                         f"launches and {reads} host reads a call")
     return [row]
 
 

@@ -51,8 +51,8 @@ _SIGNATURES = {
     "keto_label_witness": [_P, _I32, _P, _I32, _I64, _P, _P, _I64, _P, _P],
     "keto_sweep_run": [_P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _I32,
                        _I32, _I64, _P, _I64, _P],
-    "keto_covered": [_P, _I64, _I32, _P, _I64, _P, _I32, _P, _P],
-    "keto_slot_set": [_P, _I32, _I64, _P, _P, _P, _I64, _P, _P],
+    "keto_covered": [_P, _I32, _I32, _P, _I32, _I32, _I32, _P, _P, _I32, _I32, _P],
+    "keto_slot_set": [_P, _I32, _I32, _I64, _I32, _P],
     "keto_radix_tile": [],
     "keto_radix_hist": [_P, _I64, _P, _P],
     "keto_radix_pass": [_P, _P, _I64, _I32, _P, _P, _P, _P, _P, _P],

@@ -26,8 +26,9 @@ as a **delta overlay** on the immutable snapshot (keto_tpu_torch/graph/
 overlay.py): inserts extend it, deletes become tombstones, in milliseconds
 and without re-interning. Tombstoned iterated edges patch their device
 bucket slots and overlay-ELL edges land in the resident ``[K, C]`` overlay
-gather matrix through K9 (``slot_set``), copy-on-write, so a batch that
-captured the old snapshot keeps gathering the old tensors. A supervised
+gather matrix through K9 (``slot_set_many``: every target of one update in
+one launch), copy-on-write, so a batch that captured the old snapshot
+keeps gathering the old tensors. A supervised
 background pass folds the overlay into the base layout
 (keto_tpu_torch/graph/compaction.py) once it passes
 ``overlay_edge_budget`` edges or has been quiet for ``compact_after_s``,
@@ -789,9 +790,12 @@ class TorchCheckEngine:
         for bi, row, col, val in patch:
             by_bucket.setdefault(bi, []).append((row, col, val))
         bufs = list(g.buckets)
+        targets = []
         for bi, entries in by_bucket.items():
             e = np.asarray(entries, np.int64)
-            bufs[bi] = kernels.slot_set(bufs[bi], e[:, 0], e[:, 1], e[:, 2])
+            targets.append((bufs[bi], e[:, 0], e[:, 1], e[:, 2]))
+        for bi, out in zip(by_bucket, kernels.slot_set_many(targets)):
+            bufs[bi] = out
         snap.device = dataclasses.replace(g, buckets=tuple(bufs))
 
     def _apply_ell_patch_sharded(self, snap: GraphSnapshot, patch) -> None:
@@ -807,13 +811,14 @@ class TorchCheckEngine:
             by_bucket.setdefault(bi, []).append((s, pos, col, val))
         dev = snap.device_shards
         bufs = list(dev.nbrs)
+        targets = []
         for bi, entries in by_bucket.items():
             e = np.asarray(entries, np.int64)
             spec.nbrs_sh[bi][e[:, 0], e[:, 1], e[:, 2]] = e[:, 3]
             g, rb, cap = bufs[bi].shape
-            flat = kernels.slot_set(bufs[bi].view(g * rb, cap), e[:, 0] * rb + e[:, 1], e[:, 2],
-                                    e[:, 3])
-            bufs[bi] = flat.view(g, rb, cap)
+            targets.append((bufs[bi].view(g * rb, cap), e[:, 0] * rb + e[:, 1], e[:, 2], e[:, 3]))
+        for bi, flat in zip(by_bucket, kernels.slot_set_many(targets)):
+            bufs[bi] = flat.view(bufs[bi].shape)
         snap.device_shards = dataclasses.replace(dev, nbrs=tuple(bufs))
 
     def _upload_buckets(self, snap: GraphSnapshot) -> None:
@@ -887,10 +892,13 @@ class TorchCheckEngine:
             vals.append(s)
         dev_n, dev_d = pack["dev"]
         try:
+            targets = ([(dev_n, rows, cols, vals)] if rows else []) + (
+                [(dev_d, drows, None, dvals)] if drows else [])
+            outs = iter(kernels.slot_set_many(targets))
             if rows:
-                dev_n = kernels.slot_set(dev_n, rows, cols, vals)
+                dev_n = next(outs)
             if drows:
-                dev_d = kernels.slot_set(dev_d, drows, None, dvals)
+                dev_d = next(outs)
         except Exception:
             self._ov_pack = None
             raise

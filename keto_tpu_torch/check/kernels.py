@@ -29,16 +29,22 @@ Source notes:
   ``keto_label_witness`` in csrc/label_kernels.cu, K3's warp per pair with
   a warp minimum instead of the first-hit exit. Bound: as K3's (the
   explain path launches it with one pair, so a launch).
-- ``slot_set`` replaces the XLA scatter ``buf.at[rows, cols].set(vals)`` of
-  ``_apply_ell_patch`` (tpu_engine.py:2542), ``_apply_overlay_delta``
-  (:2665) and ``_Mirror.flush_device`` (keto_tpu/graph/label_build.py:433).
-  CUDA: ``keto_slot_set`` in csrc/patch_kernels.cu, one thread per entry.
-  The wrapper keeps the last entry per slot (the reference leaves the
-  winner of a duplicate undefined; its callers never make one), copies the
-  target first unless asked to write in place (the first two sites update
-  functionally: batches in flight keep gathering the old tensor), and
-  raises on an entry outside the target. Bound: bytes — the copy reads and
-  writes the target once, each entry is read once and written once.
+- ``slot_set_many`` replaces the XLA scatters ``buf.at[rows, cols].set(vals)``
+  of ``_apply_ell_patch`` (tpu_engine.py:2542), ``_apply_overlay_delta``
+  (:2665), ``_Mirror.flush_device`` (keto_tpu/graph/label_build.py:433)
+  and the list site (keto_tpu/list/tpu_engine.py:337), every target of one
+  call at once; ``slot_set`` is its one-target case. CUDA:
+  ``keto_slot_set`` in csrc/patch_kernels.cu, ONE launch a call over every
+  target: a block a tile of a functional target copies the tile (batches
+  in flight keep gathering the old tensor) and writes the entries that
+  fall in it; a block a tile of an in-place target's entries writes them.
+  The host keeps the last entry per slot, in slot order, and checks every
+  entry against its target before anything is uploaded (an out-of-range
+  entry raises, every target untouched); one upload carries the
+  descriptors and the entries (each block finds its own on the card), and
+  no host read follows. Bound: bytes — a functional
+  target is read and written once, each entry read once and written once;
+  at the write path's sizes a launch's latency is larger.
 
 The output is the reference's ``uint32[W+2]`` (held as int32): decision
 bits, then the iteration count, then the truncation flag, equal word for
@@ -52,6 +58,7 @@ as the reference's ``lax.while_loop`` observes its condition.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import numpy as np
@@ -277,8 +284,9 @@ def label_step_witness_ref(out_lab, in_lab, pa, pb) -> torch.Tensor:
 
 def _slot_entries(buf: torch.Tensor, rows, cols, vals):
     """Host entry arrays for a slot set on ``buf``: int64 rows/cols, int32
-    vals, the 1-D case as column 0, only the LAST entry per slot kept (in
-    first-kept order), and every slot checked against the target."""
+    vals, the 1-D case as column 0. Every entry is checked against the
+    target (an entry outside it raises), then only the LAST entry per slot
+    is kept, in slot order (row-major)."""
     rows = np.asarray(rows, np.int64).ravel()
     cols = np.zeros_like(rows) if cols is None else np.asarray(cols, np.int64).ravel()
     vals = np.asarray(vals, np.int64).ravel()
@@ -287,10 +295,12 @@ def _slot_entries(buf: torch.Tensor, rows, cols, vals):
     if buf.dim() not in (1, 2):
         raise ValueError(f"slot set: expected a 1-D or 2-D target, got {tuple(buf.shape)}")
     ld = 1 if buf.dim() == 1 else buf.shape[1]
+    err = _slot_range_error(buf, rows, cols, ld)
+    if err is not None:
+        raise err
     if rows.size:
-        key = rows * ld + cols
-        _, last_rev = np.unique(key[::-1], return_index=True)
-        keep = np.sort(rows.size - 1 - last_rev)
+        _, last_rev = np.unique((rows * ld + cols)[::-1], return_index=True)
+        keep = rows.size - 1 - last_rev
         rows, cols, vals = rows[keep], cols[keep], vals[keep]
     return rows, cols, vals.astype(np.int32), ld
 
@@ -306,23 +316,35 @@ def _slot_range_error(buf, rows, cols, ld) -> Optional[ValueError]:
     return None
 
 
+def _slot_plan(targets) -> list:
+    """``_slot_entries`` of every ``(buf, rows, cols, vals)`` target, all
+    checked before any is written."""
+    return [(buf, *_slot_entries(buf, *ent)) for buf, *ent in targets]
+
+
+def slot_set_many_ref(targets, *, in_place: bool = False) -> list:
+    """K9 in plain PyTorch over ``[(buf, rows, cols, vals), ...]``: per
+    target ``out = buf.clone(); out[rows, cols] = vals`` (``out`` is
+    ``buf`` itself with ``in_place``), after the last-entry-per-slot dedup;
+    an entry outside its target raises before any target is written."""
+    outs = []
+    for buf, rows, cols, vals, _ in _slot_plan(targets):
+        out = buf if in_place else buf.clone()
+        if rows.size:
+            v = torch.from_numpy(vals).to(out.device)
+            r = torch.from_numpy(rows).to(out.device)
+            if out.dim() == 1:
+                out[r] = v
+            else:
+                out[r, torch.from_numpy(cols).to(out.device)] = v
+        outs.append(out)
+    return outs
+
+
 def slot_set_ref(buf: torch.Tensor, rows, cols, vals, *, in_place: bool = False) -> torch.Tensor:
-    """K9 in plain PyTorch: ``out = buf.clone(); out[rows, cols] = vals``
-    (``out`` is ``buf`` itself with ``in_place``), after the wrapper's
-    last-entry-per-slot dedup; raises on a slot outside ``buf``."""
-    rows, cols, vals, ld = _slot_entries(buf, rows, cols, vals)
-    err = _slot_range_error(buf, rows, cols, ld)
-    if err is not None:
-        raise err
-    out = buf if in_place else buf.clone()
-    if rows.size:
-        v = torch.from_numpy(vals).to(out.device)
-        r = torch.from_numpy(rows).to(out.device)
-        if out.dim() == 1:
-            out[r] = v
-        else:
-            out[r, torch.from_numpy(cols).to(out.device)] = v
-    return out
+    """K9 in plain PyTorch on one target (``slot_set_many_ref``'s one-target
+    case)."""
+    return slot_set_many_ref([(buf, rows, cols, vals)], in_place=in_place)[0]
 
 
 # -- CUDA wrappers ------------------------------------------------------------
@@ -545,33 +567,96 @@ def label_step_witness_cuda(out_lab, in_lab, pa, pb) -> torch.Tensor:
     return out
 
 
+#: words of a functional target one ``keto_slot_set`` block copies and
+#: patches, and entries of an in-place target one block writes (a multiple
+#: of 4: the copy moves 16 bytes a thread)
+SLOT_TILE = 4096
+
+
+@dataclass
+class SlotPlan:
+    """One ``keto_slot_set`` launch, made on the host: the outputs (new
+    tensors, or the targets themselves in place) and one int32 buffer of
+    ``n_targets`` int64 descriptors ``(out, src or 0, words, first entry,
+    end entry, first block)``, then the ``n_entries`` slot keys (a word of
+    their target, ascending within it) and their values."""
+
+    outs: list
+    words: np.ndarray
+    n_targets: int
+    n_blocks: int
+    n_entries: int
+
+
+def slot_set_plan(targets, *, in_place: bool = False) -> SlotPlan:
+    """The launch of one slot set over every target; raises, with every
+    target untouched, on a target the kernel does not take or an entry
+    outside its target. A functional target gets a block for each
+    ``SLOT_TILE`` of its words (the copy), an in-place one a block for each
+    ``SLOT_TILE`` of its entries."""
+    targets = list(targets)
+    if in_place and len({t[0].data_ptr() for t in targets}) < len(targets):
+        raise ValueError("slot set: in-place targets must not share storage")
+    outs, desc, keys, vals = [], [], [], []
+    at = blocks = 0
+    for buf, rows, cols, v in targets:
+        if buf.dtype != torch.int32 or not buf.is_contiguous():
+            raise ValueError(f"buf: expected a contiguous int32 tensor, got {buf.dtype} "
+                             f"{tuple(buf.shape)}")
+        n = buf.numel()
+        if n >= 2**31:
+            raise ValueError(f"slot set: a target of {n} words: the kernel indexes one in 32 "
+                             "bits")
+        rows, cols, v, ld = _slot_entries(buf, rows, cols, v)
+        out = buf if in_place else torch.empty_like(buf)
+        outs.append(out)
+        m = rows.size
+        desc.append((out.data_ptr(), 0 if in_place else buf.data_ptr(), n, at, at + m, blocks))
+        keys.append((rows * ld + cols).astype(np.int32))
+        vals.append(v)
+        at += m
+        blocks += -(-(m if in_place else n) // SLOT_TILE)
+    words = np.concatenate([np.array(desc, np.int64).reshape(-1).view(np.int32), *keys, *vals])
+    return SlotPlan(outs, words, len(desc), blocks, at)
+
+
+def slot_set_launch(lib, plan: SlotPlan, words: torch.Tensor, stream: int) -> int:
+    """``keto_slot_set`` on ``plan`` with its words on the card; returns the
+    error code (the bare launch ``slot_set_many_cuda`` checks and counts)."""
+    return lib.keto_slot_set(words.data_ptr(), plan.n_targets, plan.n_blocks, plan.n_entries,
+                             SLOT_TILE, stream)
+
+
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """``a`` on ``device``; on a CUDA device with no host sync: staged in
+    pinned host memory (PyTorch's caching host allocator holds the block
+    until the copy has run) and copied on the current stream."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def slot_set_many_cuda(targets, *, in_place: bool = False) -> list:
+    """K9 over every target via ONE ``keto_slot_set`` launch: the host
+    plan (range check, dedup, descriptors), one upload, the launch, no host
+    read. Returns the outputs in order."""
+    targets = list(targets)
+    for buf, *_ in targets:
+        if buf.device.type != "cuda":
+            raise ValueError(f"buf: expected a CUDA tensor, got one on {buf.device}")
+    plan = slot_set_plan(targets, in_place=in_place)
+    if plan.n_blocks:
+        words = _upload(plan.words, plan.outs[0].device)
+        COUNTS["slot_set"] += 1
+        _check(slot_set_launch(_lib(), plan, words, _stream()), "keto_slot_set")
+    return plan.outs
+
+
 def slot_set_cuda(buf: torch.Tensor, rows, cols, vals, *, in_place: bool = False) -> torch.Tensor:
-    """K9 via ``keto_slot_set``: one upload of the deduplicated entries,
-    a device copy of ``buf`` unless ``in_place``, one launch, and one read
-    of the error word (an out-of-range entry raises)."""
-    if buf.device.type != "cuda" or buf.dtype != torch.int32 or not buf.is_contiguous():
-        raise ValueError(
-            f"buf: expected a contiguous int32 CUDA tensor, got {buf.dtype} "
-            f"{tuple(buf.shape)} on {buf.device}"
-        )
-    rows, cols, vals, ld = _slot_entries(buf, rows, cols, vals)
-    out = buf if in_place else buf.clone()
-    m = int(rows.size)
-    if not m:
-        return out
-    ent = torch.from_numpy(
-        np.concatenate([rows.astype(np.int32), cols.astype(np.int32), vals])
-    ).to(buf.device)
-    err = torch.zeros(1, dtype=torch.int32, device=buf.device)
-    COUNTS["slot_set"] += 1
-    _check(_lib().keto_slot_set(out.data_ptr(), ld, buf.shape[0], ent.data_ptr(),
-                                ent.data_ptr() + 4 * m, ent.data_ptr() + 8 * m, m,
-                                err.data_ptr(), _stream()), "keto_slot_set")
-    if int(err.item()):
-        raise _slot_range_error(buf, rows, cols, ld) or ValueError(
-            "keto_slot_set flagged an entry outside its target"
-        )
-    return out
+    """K9 via ``keto_slot_set`` on one target (``slot_set_many_cuda``'s
+    one-target case)."""
+    return slot_set_many_cuda([(buf, rows, cols, vals)], in_place=in_place)[0]
 
 
 # -- dispatchers ----------------------------------------------------------------
@@ -620,3 +705,16 @@ def slot_set(buf: torch.Tensor, rows, cols, vals, *, in_place: bool = False) -> 
     if _on_cpu(buf):
         return slot_set_ref(buf, rows, cols, vals, in_place=in_place)
     return slot_set_cuda(buf, rows, cols, vals, in_place=in_place)
+
+
+def slot_set_many(targets, *, in_place: bool = False) -> list:
+    """K9 over ``[(buf, rows, cols, vals), ...]``, every entry checked
+    before any target is written. CUDA targets: one launch for all of
+    them. CPU targets: one ``slot_set`` per target after the check, so
+    that the one-target dispatcher stays the seam where a fault injected
+    into the slot set reaches every site on the CPU."""
+    targets = list(targets)
+    if targets and _on_cpu(targets[0][0]):
+        _slot_plan(targets)
+        return [slot_set(*t, in_place=in_place) for t in targets]
+    return slot_set_many_cuda(targets, in_place=in_place)

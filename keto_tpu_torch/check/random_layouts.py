@@ -14,7 +14,10 @@ row ``n`` is all padding, and pad pairs name row ``n`` for query 0; the
 sweep groups write distinct ``dst`` rows and gather sentinel ``n`` (an
 all-zero frontier row). The slot-set targets are a bucket, the overlay's
 rows or dst vector, or a label mirror, with distinct slots unless asked
-for duplicates. The witness cases (``random_witness_case``) add a row pair
+for duplicates. The covered cases (``random_covered_case``) pair label
+rows padded with the other side's pad (all-pad rows among them) with the
+lanes' own rows: an empty lane, an id shared by every other lane, the last
+row's id. The witness cases (``random_witness_case``) add a row pair
 whose every entry is common, a row with no common entry, the pad row on
 either side and, when asked, rows in shuffled order. The list fixpoint's cases (``LIST_CASES``) are tuple sets
 whose snapshots give its layouts (``list_case_tuples``) plus seeds and an
@@ -236,14 +239,39 @@ def random_sweep_case(rng, n: int, caps, rows, wt: int):
     return groups, V, X, S, cov
 
 
-def random_covered_case(rng, rows: int, width: int, u: int, wt: int, pad: int = -1):
-    """``(lab, U, masks)`` for ``covered``: label rows over values in
-    [0, 2u+8) (so entries are found and missed), a sorted table ``U`` of
-    ``u`` distinct values (empty when u = 0) and random lane masks."""
-    hi = 2 * u + 8
-    lab = random_label_rows(rng, rows - 1, width, pad, hi)
-    U = np.sort(rng.choice(hi, size=u, replace=False)).astype(np.int32)
-    return lab, U, _bits(rng, (u, wt))
+def random_covered_case(rng, rows: int, width: int, lanes: int, pad: int = -1,
+                        own_width: int = 0, empty: bool = False):
+    """``(lab, own)`` for the covered mask. ``lab`` int32[rows, width]: label
+    rows over node ids in [0, rows), padded after their entries with the
+    other side's pad (-2 for ``pad`` -1, else -1), full rows among them;
+    every seventh row and the last all pads, the id rows-1 in row 1.
+    ``own`` int32[lanes, own_width or width]: the lanes' own rows over a
+    third of the ids (0..8 entries, lane 1 full), padded with ``pad``; one
+    id in every other lane, rows-1 in the last lane, lane 0 empty when
+    there are several; all ``pad`` with ``empty``."""
+    other = -2 if pad == -1 else -1
+    lab = rng.integers(0, rows, size=(rows, width)).astype(np.int32)
+    k = rng.integers(0, width + 1, size=rows)
+    k[rng.random(rows) < 0.2] = width
+    lab[np.arange(width)[None, :] >= k[:, None]] = other
+    lab[::7] = other
+    lab[-1] = other
+    if rows > 2:
+        lab[1, 0] = rows - 1
+    ow = own_width or width
+    pool = rng.choice(rows, size=max(1, rows // 3), replace=False).astype(np.int32)
+    own = pool[rng.integers(0, pool.size, size=(lanes, ow))]
+    kk = rng.integers(0, min(ow, 8) + 1, size=lanes)
+    if lanes > 1:
+        kk[1] = ow
+    own[np.arange(ow)[None, :] >= kk[:, None]] = pad
+    own[::2, -1] = pool[0]
+    own[-1, 0] = rows - 1
+    if lanes > 1:
+        own[0] = pad
+    if empty:
+        own[:] = pad
+    return lab, own
 
 
 def random_slot_case(rng, rows: int, ld: int, m: int, dup: bool = False, one_d: bool = False):

@@ -8,7 +8,8 @@
 //   K6 `_sweep_step().step`    (keto_tpu/graph/label_build.py:150) and the
 //      sweep loop around it (:269-281), with K10c's per-shard wave
 //      (keto_tpu/parallel/sharded.py:559)                          -> keto_sweep_run
-//   K7 `_covered_fn().covered` (keto_tpu/graph/label_build.py:183) -> keto_covered
+//   K7 `_covered_fn().covered` (keto_tpu/graph/label_build.py:183) and the
+//      lane-mask table of `_compute_covered` (:193-221)         -> keto_covered
 // The Python wrappers and the plain PyTorch versions live in
 // keto_tpu_torch/check/kernels.py (K3) and keto_tpu_torch/graph/label_kernels.py
 // (K6, K7); the build (nvcc, plain C ABI, ctypes) in keto_tpu_torch/_build.py.
@@ -311,49 +312,123 @@ sweep_run_kernel(const int32_t* __restrict__ slots, const int32_t* __restrict__ 
   }
 }
 
-// K7. Per node row: OR of masks[k] over the row's entries x with U[k] == x,
-// k the left searchsorted position of x in the sorted table U. `out`
-// arrives zeroed.
+// K7. covered[u] = OR of the lane bits of the batch lanes j whose own
+// pre-batch label row shares a non-pad entry with row u of `lab` (the
+// reference's searchsorted over the union U of the own entries, with a lane
+// mask per value). `own` is the batch's own rows as the host mirror holds
+// them, [lanes, own_width]; the host has checked that each of their entries
+// is the pad or a node row in [0, T), T = lab's rows.
 //
-// Bound: bytes — one read of every label entry, the table, and one write
-// of the output. Design: one thread per row, the table and its masks in
-// shared memory (at most lanes × max_width values: 4,096 values and 32 KB
-// of masks at the defaults), a binary search per entry. Pads (-1, -2) are
-// never in U, which holds node ids, so they never hit. Where the table
-// does not fit in shared memory the searches read it from device memory.
-__global__ void covered_kernel(const int32_t* __restrict__ lab, int64_t rows,
-                               int32_t width, const int32_t* __restrict__ U,
-                               int64_t u, const uint32_t* __restrict__ masks,
-                               int32_t wt, uint32_t* __restrict__ out,
-                               int32_t use_smem) {
-  extern __shared__ uint32_t smem[];
-  const int32_t* tU = U;
-  const uint32_t* tM = masks;
-  if (use_smem) {
-    int32_t* sU = reinterpret_cast<int32_t*>(smem);
-    uint32_t* sM = smem + u;
-    for (int64_t i = threadIdx.x; i < u; i += blockDim.x) sU[i] = U[i];
-    for (int64_t i = threadIdx.x; i < u * wt; i += blockDim.x) sM[i] = masks[i];
-    __syncthreads();
-    tU = sU;
-    tM = sM;
-  }
-  for (int64_t row = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; row < rows;
-       row += (int64_t)gridDim.x * blockDim.x) {
-    const int32_t* lr = lab + row * width;
-    uint32_t* orow = out + row * wt;
-    for (int32_t k = 0; k < width; ++k) {
-      const int32_t x = lr[k];
-      int64_t lo = 0, hi = u;
-      while (lo < hi) {
-        const int64_t mid = (lo + hi) >> 1;
-        if (tU[mid] < x) lo = mid + 1; else hi = mid;
-      }
-      if (lo < u && tU[lo] == x) {
-        for (int32_t w = 0; w < wt; ++w) orow[w] |= tM[lo * wt + w];
+// THREE stream-ordered launches a call, no host read:
+//   1. covered_table_kernel: the lane-mask table, atomicOr(table[v][j/32],
+//      1 << j%32) for each own entry v in [0, T) of lane j. `table` is
+//      int32[T, wt], allocated once by the caller, zero between calls;
+//   2. covered_pass_kernel: a group of `group` lanes a row (4 to 32; a
+//      warp holds 32/group rows, neighbouring rows at neighbouring
+//      addresses, a thread a group of rows per launch, no loop; lane `sub`
+//      of the group writes the words w0 + sub), each lane reading `vec`
+//      entries at once (16 bytes where the width allows), one table gather
+//      per entry in [0, T) (pads and entries outside are skipped: no own
+//      entry can equal them), the words OR-reduced across the group by
+//      shuffles and written once. Rows [T, out_rows) are written 0 (the
+//      sharded sweep's padding rows);
+//   3. covered_table_kernel again: the same slots cleared, so the table is
+//      zero for the next call without a memset of the whole table.
+// One cooperative launch with the phases between grid barriers was tried
+// first and ran slower at config 4's shapes: a co-resident grid walks the
+// rows in a loop whose iterations wait on each other, and the barriers
+// cost (PERF.md).
+// The table (484 KB at wt 1, 968 KB at wt 2 at config 4's rows) stays in
+// the 50 MB L2, so its gathers are not device-memory bytes.
+//
+// Bound: bytes — one read of `lab` and of the own rows, one write of the
+// output. The pass reads the table only after the first launch ended, so
+// through the read-only path. Index math: rows and words in 64 bits.
+constexpr int kCoverThreads = 256;
+
+__global__ void __launch_bounds__(kCoverThreads)
+covered_table_kernel(const int32_t* __restrict__ own, int32_t items, int32_t own_width,
+                     int32_t T, int32_t wt, uint32_t* __restrict__ table, int32_t clear) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= items) return;
+  const int32_t v = own[i];
+  if (v < 0 || v >= T) return;
+  const int j = i / own_width;
+  uint32_t* w = table + static_cast<int64_t>(v) * wt + (j >> 5);
+  if (clear) *w = 0;
+  else atomicOr(w, 1u << (j & 31));
+}
+
+__device__ __forceinline__ void covered_gather(int32_t x, int32_t T,
+                                               const uint32_t* __restrict__ table, int32_t wt,
+                                               int32_t w0, uint32_t* a) {
+  if (x < 0 || x >= T) return;
+  const uint32_t* t = table + static_cast<int64_t>(x) * wt + w0;
+  a[0] |= t[0];
+  if (w0 + 1 < wt) a[1] |= t[1];
+  if (w0 + 2 < wt) a[2] |= t[2];
+  if (w0 + 3 < wt) a[3] |= t[3];
+}
+
+// The pass, specialised at compile time on the load width (VEC entries a
+// load) and the lanes a row (GROUP), and held to 8 blocks an SM (all 64
+// warps resident): each lane has one load in flight, so the rows in flight
+// are the warps resident.
+template <int VEC, int GROUP>
+__global__ void __launch_bounds__(kCoverThreads, 8)
+covered_pass_kernel(const int32_t* __restrict__ lab, int32_t T, int32_t width,
+                    const uint32_t* __restrict__ table, int32_t wt,
+                    uint32_t* __restrict__ out, int32_t out_rows) {
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (GROUP - 1);
+  const int64_t row = (tid >> 5) * (32 / GROUP) + lane / GROUP;
+  const int32_t* lr = lab + row * width;
+  for (int w0 = 0; w0 < wt; w0 += 4) {  // uniform across the warp
+    uint32_t a[4] = {0, 0, 0, 0};
+    if (row < T) {
+      for (int k = VEC * sub; k < width; k += VEC * GROUP) {
+        if (VEC == 4) {
+          const int4 q = *reinterpret_cast<const int4*>(lr + k);
+          covered_gather(q.x, T, table, wt, w0, a);
+          covered_gather(q.y, T, table, wt, w0, a);
+          covered_gather(q.z, T, table, wt, w0, a);
+          covered_gather(q.w, T, table, wt, w0, a);
+        } else {
+          covered_gather(lr[k], T, table, wt, w0, a);
+        }
       }
     }
+#pragma unroll
+    for (int off = GROUP >> 1; off; off >>= 1) {
+      a[0] |= __shfl_xor_sync(kFull, a[0], off);
+      if (w0 + 1 < wt) a[1] |= __shfl_xor_sync(kFull, a[1], off);
+      if (w0 + 2 < wt) a[2] |= __shfl_xor_sync(kFull, a[2], off);
+      if (w0 + 3 < wt) a[3] |= __shfl_xor_sync(kFull, a[3], off);
+    }
+    if (sub < 4 && w0 + sub < wt && row < out_rows)
+      out[row * wt + w0 + sub] = sub == 0 ? a[0] : sub == 1 ? a[1] : sub == 2 ? a[2] : a[3];
   }
+}
+
+template <int VEC>
+void covered_pass(int group, int64_t blocks, cudaStream_t s, const int32_t* lab, int32_t T,
+                  int32_t width, const uint32_t* table, int32_t wt, uint32_t* out,
+                  int32_t out_rows) {
+  const unsigned g = static_cast<unsigned>(blocks);
+#define KETO_PASS(G)                                                                 \
+  case G:                                                                            \
+    covered_pass_kernel<VEC, G><<<g, kCoverThreads, 0, s>>>(lab, T, width, table, wt, \
+                                                          out, out_rows);          \
+    break
+  switch (group) {
+    KETO_PASS(4);
+    KETO_PASS(8);
+    KETO_PASS(16);
+    default:
+    KETO_PASS(32);
+  }
+#undef KETO_PASS
 }
 
 }  // namespace
@@ -399,19 +474,26 @@ extern "C" int keto_sweep_run(const int32_t* slots, const int32_t* dst, const in
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int keto_covered(const int32_t* lab, int64_t rows, int32_t width, const int32_t* U,
-                            int64_t u, const uint32_t* masks, int32_t wt, uint32_t* out,
-                            void* stream) {
-  // the table in shared memory when it fits the 227 KB a block may use
-  const int64_t bytes = u * 4 + u * wt * 4;
-  const bool use_smem = bytes <= 200 * 1024;
-  const size_t smem = use_smem ? static_cast<size_t>(bytes) : 0;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        covered_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  covered_kernel<<<blocks_for(rows), kThreads, smem, (cudaStream_t)stream>>>(
-      lab, rows, width, U, u, masks, wt, out, use_smem ? 1 : 0);
+extern "C" int keto_covered(const int32_t* lab, int32_t T, int32_t width, const int32_t* own,
+                            int32_t lanes, int32_t own_width, int32_t wt, uint32_t* table,
+                            uint32_t* out, int32_t out_rows, int32_t vec, void* stream) {
+  if (T < 1 || width < 1 || lanes < 1 || own_width < 1 || wt < 1 || out_rows < T ||
+      lanes > 32 * wt || (vec != 1 && vec != 4) || width % vec)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // Lanes a row: a power of two covering the row's loads, at most a warp, and
+  // at least 4, since lane `sub` of the group writes the words w0 + sub.
+  int group = 4;
+  while (group < 32 && group * vec < width) group <<= 1;
+  const int rows_per_block = kCoverThreads / group;
+  const int64_t blocks = (static_cast<int64_t>(out_rows) + rows_per_block - 1) / rows_per_block;
+  const int32_t items = lanes * own_width;
+  const int table_blocks = (items + kCoverThreads - 1) / kCoverThreads;
+  cudaStream_t s = (cudaStream_t)stream;
+  covered_table_kernel<<<table_blocks, kCoverThreads, 0, s>>>(own, items, own_width, T, wt,
+                                                              table, 0);
+  if (vec == 4) covered_pass<4>(group, blocks, s, lab, T, width, table, wt, out, out_rows);
+  else covered_pass<1>(group, blocks, s, lab, T, width, table, wt, out, out_rows);
+  covered_table_kernel<<<table_blocks, kCoverThreads, 0, s>>>(own, items, own_width, T, wt,
+                                                              table, 1);
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,8 +27,9 @@ landmark fall below it.
 incremental patch of an overlay compaction on the same machinery: the
 exact ``labels.patch_labels`` semantics, each folded edge's resume
 landmarks run as bit-packed lanes with ``prune_expansion=False``. The
-mirror's stores reach the device label arrays through K9 (``slot_set``,
-in place, as the reference's mirror updates its arrays).
+mirror's stores reach the device label arrays through K9
+(``slot_set_many``, in place, as the reference's mirror updates its
+arrays: both sides in one call, one launch a flush).
 
 ``_ShardedSweeper`` (keto_tpu/graph/label_build.py:284-365) runs the same
 waves over the row-range shards of a ``ShardMesh``
@@ -108,28 +109,30 @@ def estimate_build_bytes(n: int, max_width: int, batch: int = DEFAULT_BATCH) -> 
     return bitmaps + labels
 
 
-def _compute_covered(lab_d: torch.Tensor, own_rows_host: np.ndarray, lanes: int, wt: int, pad):
-    """Covered bitmap ``int32[n+1, wt]`` for one orientation: union the
-    batch's own pre-batch label entries (host mirror rows) into a sorted
-    value table with one lane mask per value, then ``covered`` (K7)."""
-    vals: dict[int, int] = {}
-    for j in range(lanes):
-        row = own_rows_host[j]
-        for v in row[row != pad].tolist():
-            vals[v] = vals.get(v, 0) | (1 << j)
+def _compute_covered(lab_d: torch.Tensor, own_rows_host: np.ndarray, lanes: int, wt: int, pad,
+                     *, rows: Optional[int] = None, table: Optional[torch.Tensor] = None):
+    """Covered bitmap ``int32[rows, wt]`` for one orientation (``rows``
+    defaults to ``lab_d``'s n+1; a sharded sweep's g·rps rows have a zero
+    tail): the bits of the batch lanes whose own pre-batch label row (host
+    mirror rows) shares an entry with each row of ``lab_d``, via ``covered``
+    (K7). The own rows are checked here, with numpy: an entry that is
+    neither ``pad`` nor a row of ``lab_d`` raises. No own entry at all gives
+    zeros without a launch; else one upload of the rows as they are and,
+    on the card, ``keto_covered`` and no host read. ``table`` is a zero
+    ``int32[n+1, wt]`` reused across calls (fresh when None)."""
+    own = np.ascontiguousarray(own_rows_host[:lanes], np.int32)
     n1 = int(lab_d.shape[0])
-    if not vals:
-        return torch.zeros((n1, wt), dtype=torch.int32, device=lab_d.device)
-    U = np.array(sorted(vals), np.int32)
-    masks = np.zeros((U.size, wt), np.uint32)
-    for i, v in enumerate(U.tolist()):
-        m = vals[v]
-        for w in range(wt):
-            masks[i, w] = (m >> (32 * w)) & 0xFFFFFFFF
-    dev = lab_d.device
-    return label_kernels.covered(
-        lab_d, torch.from_numpy(U).to(dev), torch.from_numpy(masks.view(np.int32)).to(dev)
-    )
+    live = own != pad
+    bad = live & ((own < 0) | (own >= n1))
+    if bad.any():
+        j, k = (int(x[0]) for x in np.nonzero(bad))
+        raise ValueError(f"covered: lane {j}'s own entry {int(own[j, k])} is neither the pad "
+                         f"{pad} nor a row of a {n1}-row label array")
+    rows = n1 if rows is None else rows
+    if not live.any():
+        return torch.zeros((rows, wt), dtype=torch.int32, device=lab_d.device)
+    return label_kernels.covered(lab_d, kernels._upload(own, lab_d.device), wt=wt, rows=rows,
+                                 table=table)
 
 
 def _seed_bitmap(rows, n: int, wt: int, n_rows: int) -> np.ndarray:
@@ -181,7 +184,8 @@ class _Sweeper:
     ) -> Optional[np.ndarray]:
         """Run one orientation's waves to the fixpoint; returns the stored
         bitmap ``uint32[n+1, wt]`` on the host, or None when ``budget`` (a
-        mutable ``[remaining visits]``) runs dry. Lane j starts at
+        mutable ``[remaining visits]``) runs dry. ``cov`` is the covered
+        mask of the sweeper's ``_rows()`` rows. Lane j starts at
         ``seeds[j]`` (-1 for a dead lane), or at ``start_rows[j]`` when
         given (a patch resumes mid-graph; stores still belong to lane j's
         landmark). Each wave's visits are subtracted from the budget after
@@ -209,7 +213,8 @@ class _ShardedSweeper(_Sweeper):
     """The sweeps over a mesh's row-range shards: frontier slabs sharded by
     the serving path's row ownership, one halo exchange per wave (K10c),
     every shard's waves in the same run. Stores the same bitmaps as
-    ``_Sweeper``."""
+    ``_Sweeper``. Its covered masks hold its g·rps rows (``_rows()``), the
+    tail past n+1 zero: K7 writes them so."""
 
     backend = "sharded"
 
@@ -232,9 +237,7 @@ class _ShardedSweeper(_Sweeper):
     def _run(self, groups, X0, cov, prune_expansion, budget):
         from keto_tpu_torch.parallel import sharded as shard_mod
 
-        cov_sh = torch.zeros_like(X0)
-        cov_sh[: cov.shape[0]] = cov
-        return shard_mod.label_sweep(self._mesh, groups, X0, cov_sh, rps=self._rps,
+        return shard_mod.label_sweep(self._mesh, groups, X0, cov, rps=self._rps,
                                      prune_expansion=prune_expansion, budget=budget)
 
 
@@ -277,6 +280,8 @@ class _Mirror:
         self.out_d = torch.from_numpy(self.out_h.copy()).to(device)
         self.in_d = torch.from_numpy(self.in_h.copy()).to(device)
         self._pending: dict[str, list] = {"out": [], "in": []}
+        self.flushes = 0
+        self.flush_s = 0.0
 
     def store(self, side: str, nodes: np.ndarray, v: int) -> int:
         """Append landmark ``v`` at ``nodes`` on one side, width-capped; a
@@ -302,19 +307,20 @@ class _Mirror:
 
     def flush_device(self) -> None:
         """Scatter pending host stores onto the device label arrays in
-        place: K9 (``slot_set``), one launch per side."""
-        for side in ("out", "in"):
+        place: K9 (``slot_set_many``), both sides in one call, so one
+        launch a flush on the card. ``flushes`` counts the calls that
+        wrote, ``flush_s`` their host clock."""
+        t0 = time.monotonic()
+        targets = []
+        for side, dev in (("out", self.out_d), ("in", self.in_d)):
             pend = self._pending[side]
-            if not pend:
-                continue
-            kernels.slot_set(
-                self.out_d if side == "out" else self.in_d,
-                np.concatenate([p[0] for p in pend]),
-                np.concatenate([p[1] for p in pend]),
-                np.concatenate([p[2] for p in pend]),
-                in_place=True,
-            )
-            self._pending[side] = []
+            if pend:
+                targets.append((dev, *(np.concatenate([p[i] for p in pend]) for i in range(3))))
+                self._pending[side] = []
+        if targets:
+            kernels.slot_set_many(targets, in_place=True)
+            self.flushes += 1
+            self.flush_s += time.monotonic() - t0
 
     def row(self, side: str, u: int) -> np.ndarray:
         h = self.out_h if side == "out" else self.in_h
@@ -384,13 +390,17 @@ class BuildInfo:
     gain_history: list = field(default_factory=list)
     #: the sweeps run and their waves; the host-clock split of build_ms: the
     #: sweeps' seed uploads, the sweeps from the call to the host read that
-    #: brings the stored bitmap home, and the covered masks (K7 with its
-    #: host table); the rest is the host mirror and finalize
+    #: brings the stored bitmap home, the covered masks (K7: the own rows'
+    #: check and upload, the launch) and the mirror's flushes onto the
+    #: device arrays (K9, ``flushes`` of them); the rest is the host mirror
+    #: and finalize
     sweeps: int = 0
     waves: int = 0
     upload_s: float = 0.0
     sweep_s: float = 0.0
     covered_s: float = 0.0
+    flush_s: float = 0.0
+    flushes: int = 0
 
 
 # -- the batched build --------------------------------------------------------
@@ -427,6 +437,8 @@ def device_build_labels(
     sweeper = _make_sweeper(build_ell_groups(in_ip, in_ix, n),
                             build_ell_groups(out_ip, out_ix, n), n, device, mesh, shard_count)
     mirror = _Mirror(n, max_width, sweeper.device)
+    cov_rows = sweeper._rows()
+    table = torch.zeros((n + 1, wt), dtype=torch.int32, device=sweeper.device)
     processed = np.zeros(n, bool)
     pos = 0
     while pos < K:
@@ -438,8 +450,10 @@ def device_build_labels(
         # covered masks: certification against the FROZEN pre-batch label
         # arrays (the pruning ANDNOT of every wave of this batch)
         tc = time.monotonic()
-        cov_f = _compute_covered(mirror.in_d, mirror.out_h[v_batch], lanes, wt, OUT_PAD)
-        cov_b = _compute_covered(mirror.out_d, mirror.in_h[v_batch], lanes, wt, IN_PAD)
+        cov_f = _compute_covered(mirror.in_d, mirror.out_h[v_batch], lanes, wt, OUT_PAD,
+                                 rows=cov_rows, table=table)
+        cov_b = _compute_covered(mirror.out_d, mirror.in_h[v_batch], lanes, wt, IN_PAD,
+                                 rows=cov_rows, table=table)
         info.covered_s += time.monotonic() - tc
         S_f = sweeper.sweep(True, seeds, cov_f, wt)
         S_b = sweeper.sweep(False, seeds, cov_b, wt)
@@ -487,6 +501,7 @@ def device_build_labels(
     info.landmarks = pos
     info.sweeps, info.waves = sweeper.sweeps, sweeper.waves
     info.upload_s, info.sweep_s = sweeper.seconds["upload"], sweeper.seconds["sweep"]
+    info.flush_s, info.flushes = mirror.flush_s, mirror.flushes
     return idx, info
 
 
@@ -534,6 +549,8 @@ def device_patch_labels(
     batch = max(32, (int(batch) // 32) * 32)
     wt = batch // 32
     budget = [int(visit_budget)]
+    cov_rows = sweeper._rows()
+    table = torch.zeros((n + 1, wt), dtype=torch.int32, device=sweeper.device)
 
     def lane_groups(lms: list[int], own_side: str) -> list[list[int]]:
         """Split the ordered resume list into clean prefix groups: lane j
@@ -567,7 +584,7 @@ def device_patch_labels(
                 r = mirror.row(own_side, lm)
                 own_rows[j, : r.size] = r
             cov = _compute_covered(mirror.in_d if forward else mirror.out_d, own_rows, lanes,
-                                   wt, pad)
+                                   wt, pad, rows=cov_rows, table=table)
             seeds = np.full(batch, -1, np.int64)
             seeds[:lanes] = group
             starts = np.full(batch, -1, np.int64)

@@ -21,11 +21,17 @@ Source notes:
   device) and ONE host read of the stored bitmap and the run's
   {waves, visits, dry} words. Bound: bytes — per wave the gather reads one
   ``X`` word per ELL slot and per word; the sum over the run's waves.
-- ``covered`` replaces ``_covered_fn().covered`` (label_build.py:183):
-  per node row, OR of the lane masks of the label entries found in the
-  sorted value table ``U``. CUDA: ``keto_covered``, one thread per row
-  with ``U`` and the masks in shared memory. Bound: bytes — one read of
-  every label entry.
+- ``covered`` replaces ``_covered_fn().covered`` (label_build.py:183)
+  with the table ``_compute_covered`` builds for it (:193-221): per node
+  row, the OR of the lane bits of the batch lanes whose own row shares a
+  non-pad entry with the row. The lane masks sit in a dense table
+  ``int32[T, wt]`` indexed by node id (T = the label array's rows), so
+  nothing is sorted and nothing is searched. CUDA: ``keto_covered``,
+  three stream-ordered launches a call (the table's lane bits; the
+  covered pass, a group of lanes a row and one table gather an entry; the
+  table's slots cleared again), no host read. Bound: bytes — one read of
+  the label array and the own rows, one write of the output; the table
+  stays in L2.
 - ``sweep_step_ref`` and ``sweep_step_into_ref`` are one wave in plain
   PyTorch (the reference's ``_sweep_step().step`` word for word);
   ``sweep_ref`` runs them wave after wave with the same stop test and
@@ -208,21 +214,40 @@ def sweep_ref(groups: EllGroups, X0, cov, *, n_dst: int, shards: int = 1,
     return S.cpu(), waves, visits, dry
 
 
-def covered_ref(lab: torch.Tensor, U: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
-    """``int32[rows, wt]``: per row, the OR of ``masks[k]`` over the row's
-    entries equal to ``U[k]`` (a left searchsorted plus an equality test,
-    as the reference), in row chunks."""
-    rows, wt = lab.shape[0], masks.shape[1]
+def _lane_bit(j: int) -> int:
+    """Lane ``j``'s bit in its int32 word."""
+    b = 1 << (j % 32)
+    return b - (1 << 32) if b >= 1 << 31 else b
+
+
+def covered_ref(lab: torch.Tensor, own: torch.Tensor, *, wt: int, rows: Optional[int] = None,
+                table: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``int32[rows, wt]`` (``rows`` defaults to ``lab``'s T rows; rows past
+    T are 0): per row of ``lab``, the OR of lane j's bit over the lanes j
+    whose own row (``own[j]``) shares an entry in [0, T) with it. The same
+    three phases as the kernel: the lane bits into the dense table
+    ``int32[T, wt]`` (one indexed OR a lane), the gather, in row chunks,
+    and the table cleared (``table`` zero on entry and on return; a fresh
+    one when None)."""
+    T = lab.shape[0]
+    rows = T if rows is None else rows
+    if table is None:
+        table = torch.zeros((T, wt), dtype=torch.int32, device=lab.device)
+    live = []
+    for j in range(own.shape[0]):
+        v = own[j]
+        v = v[(v >= 0) & (v < T)].long()
+        table[v, j // 32] |= _lane_bit(j)
+        live.append((v, j // 32))
     out = torch.zeros((rows, wt), dtype=torch.int32, device=lab.device)
-    if U.numel() == 0:
-        return out
-    last = U.numel() - 1
-    for r0 in range(0, rows, _COVER_CHUNK):
+    for r0 in range(0, T, _COVER_CHUNK):
         part = lab[r0 : r0 + _COVER_CHUNK]
-        idx = torch.searchsorted(U, part).clamp_(max=last)
-        found = U[idx] == part
-        m = torch.where(found[..., None], masks[idx], torch.zeros((), dtype=masks.dtype, device=lab.device))
-        out[r0 : r0 + _COVER_CHUNK] = _or_reduce(m, 1)
+        hit = (part >= 0) & (part < T)
+        m = table[torch.where(hit, part, torch.zeros_like(part)).long()]
+        m = torch.where(hit[..., None], m, torch.zeros((), dtype=m.dtype, device=lab.device))
+        out[r0 : r0 + part.shape[0]] = _or_reduce(m, 1)
+    for v, w in live:
+        table[v, w] = 0
     return out
 
 
@@ -296,22 +321,42 @@ def sweep_launch(lib, groups: EllGroups, state: tuple, cov, *, n_dst: int, halo:
         buf[at:].data_ptr(), work, stream)
 
 
-def covered_cuda(lab: torch.Tensor, U: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
-    """``int32[rows, wt]`` via ``keto_covered``: ONE launch covers every
-    row (the reference's ``_COVER_CHUNK`` split only bounds an intermediate
-    array that the kernel does not have)."""
+def covered_launch(lib, lab: torch.Tensor, own: torch.Tensor, wt: int, table: torch.Tensor,
+                   out: torch.Tensor, stream: int) -> int:
+    """``keto_covered`` into ``out`` (its rows the output's); returns the
+    error code (the bare launch ``covered_cuda`` checks and counts). The
+    row loads are 16 bytes where the width and ``lab``'s address allow."""
+    width = lab.shape[1]
+    vec = 4 if width % 4 == 0 and lab.data_ptr() % 16 == 0 else 1
+    return lib.keto_covered(lab.data_ptr(), lab.shape[0], width, own.data_ptr(), own.shape[0],
+                            own.shape[1], wt, table.data_ptr(), out.data_ptr(), out.shape[0],
+                            vec, stream)
+
+
+def covered_cuda(lab: torch.Tensor, own: torch.Tensor, *, wt: int, rows: Optional[int] = None,
+                 table: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``int32[rows, wt]`` via ``keto_covered`` (its three launches, one
+    count) and no host read, as ``covered_ref``; ``table`` (``int32[T,
+    wt]`` on the card, zero) is reused across calls when given, and left
+    zero."""
     _need(lab, "lab", 2)
-    _need(U, "U", 1)
-    _need(masks, "masks", 2)
-    if masks.shape[0] != U.numel():
-        raise ValueError(f"masks: expected {U.numel()} rows, got {tuple(masks.shape)}")
-    rows, wt = lab.shape[0], masks.shape[1]
-    out = torch.zeros((rows, wt), dtype=torch.int32, device=lab.device)
-    if rows:
-        COUNTS["covered"] += 1
-        _check(_lib().keto_covered(lab.data_ptr(), rows, lab.shape[1], U.data_ptr(), U.numel(),
-                                   masks.data_ptr(), wt, out.data_ptr(), _stream()),
-               "keto_covered")
+    _need(own, "own", 2)
+    T = lab.shape[0]
+    rows = T if rows is None else rows
+    lanes = own.shape[0]
+    if table is None:
+        table = torch.zeros((T, wt), dtype=torch.int32, device=lab.device)
+    _need(table, "table", 2)
+    if tuple(table.shape) != (T, wt) or not 1 <= lanes <= 32 * wt or not own.shape[1] \
+            or rows < T:
+        raise ValueError(f"covered: lab {tuple(lab.shape)}, own {tuple(own.shape)}, table "
+                         f"{tuple(table.shape)}, wt {wt}, {rows} rows: expected a [T, wt] table, "
+                         "1..32·wt own rows and at least T output rows")
+    if rows >= 2**31:
+        raise ValueError(f"covered: {rows} rows: the kernel takes row counts in 32 bits")
+    out = torch.empty((rows, wt), dtype=torch.int32, device=lab.device)
+    COUNTS["covered"] += 1
+    _check(covered_launch(_lib(), lab, own, wt, table, out, _stream()), "keto_covered")
     return out
 
 
@@ -328,8 +373,8 @@ def sweep(groups: EllGroups, X0, cov, *, n_dst: int, shards: int = 1,
               budget=budget)
 
 
-def covered(lab: torch.Tensor, U: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+def covered(lab: torch.Tensor, own: torch.Tensor, *, wt: int, rows: Optional[int] = None,
+            table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K7: the plain version for CPU tensors, the kernel for CUDA tensors."""
-    if _on_cpu(lab):
-        return covered_ref(lab, U, masks)
-    return covered_cuda(lab, U, masks)
+    fn = covered_ref if _on_cpu(lab) else covered_cuda
+    return fn(lab, own, wt=wt, rows=rows, table=table)

@@ -33,7 +33,7 @@ governor.
 
 Each snapshot uploads its own layouts on first use (``_ensure_device``),
 then applies the pending ``lst_patch`` slot patches to that private copy
-in place with K9 (``slot_set``), the list site of K9.
+in place with K9 (``slot_set_many``), the list site of K9.
 
 Pagination: results are canonicalized (sorted, deduplicated) and cached
 per (query, snapshot id); page tokens carry the snapshot watermark and a
@@ -218,9 +218,9 @@ class SnapshotListEngine:
     def _ensure_device(self, snap: GraphSnapshot, orient: str):
         """This snapshot's upload of one orientation's layouts, with the
         pending ``lst_patch`` entries past its applied count written in place
-        by K9 (``slot_set``). The upload is private to the snapshot (a delta
-        snapshot starts with none), so the in-place writes touch no tensor
-        another snapshot reads."""
+        by K9 (``slot_set_many``: every bucket in one call). The upload is
+        private to the snapshot (a delta snapshot starts with none), so the
+        in-place writes touch no tensor another snapshot reads."""
         with self._lock:
             if snap.device_list is None:
                 snap.device_list = {}
@@ -240,9 +240,9 @@ class SnapshotListEngine:
                     if o == orient:
                         by_bucket.setdefault(bi, []).append((row, col, val))
                 bufs = entry[0].buckets
-                for bi, ents in by_bucket.items():
-                    e = np.asarray(ents, np.int64)
-                    kernels.slot_set(bufs[bi], e[:, 0], e[:, 1], e[:, 2], in_place=True)
+                es = [np.asarray(ents, np.int64) for ents in by_bucket.values()]
+                kernels.slot_set_many([(bufs[bi], e[:, 0], e[:, 1], e[:, 2])
+                                       for bi, e in zip(by_bucket, es)], in_place=True)
                 entry[1] = len(patches)
             return entry[0]
 

@@ -1,5 +1,6 @@
-"""Time the label build's frontier sweeps (K6, K10c) and the list fixpoint
-(K5) of one checkout of the PyTorch port on the card, on BASELINE config 4.
+"""Time the label build's frontier sweeps (K6, K10c), its covered masks
+(K7) and mirror flushes (K9), and the list fixpoint (K5) of one checkout of
+the PyTorch port on the card, on BASELINE config 4.
 
     python3 scripts/ab_fixpoints.py --tree . --out build/ab_change.json
     python3 scripts/ab_fixpoints.py --tree build/parent --out build/ab_parent.json
@@ -9,7 +10,8 @@
 its parent — run the same measurements on the same inputs, one process
 each, in one call on one card. Only entry points both checkouts share are
 called: the engine's snapshot, ``device_build_labels`` (unsharded and over
-a mesh of 4 shards), the two sweepers' ``sweep`` and ``list_step_cuda``.
+a mesh of 4 shards), the two sweepers' ``sweep``, ``_compute_covered``,
+``_Mirror.store``/``flush_device`` and ``list_step_cuda``.
 
 Measured, each on the card (host clock around calls that end in a host
 read; host reads counted by PyTorch's sync debug mode):
@@ -21,6 +23,16 @@ read; host reads counted by PyTorch's sync debug mode):
   labels yet), run to its fixpoint by ``_Sweeper.sweep`` and by
   ``_ShardedSweeper.sweep`` over 4 shards: ms a sweep, host reads, a hash
   of the stored bitmap;
+- the covered mask of a mid-build batch (64 landmarks from the middle of
+  the landmark order, their own OUT rows of the built index against its IN
+  rows at the build's width, as chip_smoke.py's K7 row), by
+  ``_compute_covered`` as the tree's build calls it (with its reused
+  lane-mask table where the tree has one): ms a call (the mean of calls
+  back to back, and the median of calls timed alone), host reads, a hash;
+- one mirror flush of a batch's stores (the same 64 landmarks' entries of
+  the built index, both sides, stored into a fresh ``_Mirror``), replayed
+  from the same pending stores: ms a flush (mean and median, as above),
+  host reads, slot set launches, a hash of the device arrays;
 - the list fixpoint of the first ListObjects query of the list phase
   (chip_smoke.py's), without an overlay and with a 64-row overlay made from
   the seed (half its destinations passive rows): ms a run, steps, host
@@ -59,6 +71,67 @@ def _smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def covered_and_flush(smoke, torch, np, label_build, idx, order, n, wt, mw) -> dict:
+    """K7's ``_compute_covered`` and K9's ``_Mirror.flush_device`` of this
+    tree on one mid-build batch of ``idx`` (see the module docstring)."""
+    import inspect
+
+    from keto_tpu_torch.check import kernels
+
+    out_pad, in_pad = -1, -2
+    lanes = 32 * wt
+    mid = np.asarray(order[n // 2 : n // 2 + lanes], np.int64)
+    lab = np.full((n + 1, mw), in_pad, np.int32)
+    lab[:, : min(mw, idx.in_lab.shape[1])] = idx.in_lab[:, :mw]
+    own = np.full((lanes, mw), out_pad, np.int32)
+    own[:, : min(mw, idx.out_lab.shape[1])] = idx.out_lab[mid, :mw]
+    lab_t = torch.from_numpy(lab).cuda()
+    kw = {}
+    if "table" in inspect.signature(label_build._compute_covered).parameters:
+        kw["table"] = torch.zeros((n + 1, wt), dtype=torch.int32, device="cuda")
+
+    def covered():
+        return label_build._compute_covered(lab_t, own, lanes, wt, out_pad, **kw)
+
+    res = covered()
+    torch.cuda.synchronize()
+    launches = kernels.COUNTS["covered"]
+    reads = smoke.host_reads(torch, covered)
+    r = {"covered": {
+        "ms": smoke.whole_ms(torch, covered, REPS), "median_ms": smoke.call_ms(torch, covered),
+        "host_reads": reads,
+        "launches": kernels.COUNTS["covered"] - launches, "lanes": lanes,
+        "own_entries": int((own != out_pad).sum()), "table_reused": bool(kw),
+        "result_sha256": hashlib.sha256(res.cpu().numpy().tobytes()).hexdigest()[:16]}}
+    print(f"covered: {json.dumps(r['covered'])}", flush=True)
+
+    mirror = label_build._Mirror(n, mw, "cuda")
+    for v in mid.tolist():
+        mirror.store("out", np.array([v]), v)
+        mirror.store("in", np.array([v]), v)
+        mirror.store("in", np.nonzero((idx.in_lab[:n] == v).any(1))[0], v)
+        mirror.store("out", np.nonzero((idx.out_lab[:n] == v).any(1))[0], v)
+    pend = {k: list(v) for k, v in mirror._pending.items()}
+
+    def flush():
+        mirror._pending = {k: list(v) for k, v in pend.items()}
+        mirror.flush_device()
+
+    flush()
+    torch.cuda.synchronize()
+    launches = kernels.COUNTS["slot_set"]
+    reads = smoke.host_reads(torch, flush)
+    digest = hashlib.sha256(mirror.out_d.cpu().numpy().tobytes()
+                            + mirror.in_d.cpu().numpy().tobytes()).hexdigest()[:16]
+    r["flush"] = {"ms": smoke.whole_ms(torch, flush, REPS),
+                  "median_ms": smoke.call_ms(torch, flush), "host_reads": reads,
+                  "launches": kernels.COUNTS["slot_set"] - launches,
+                  "entries": int(sum(p[0].size for v in pend.values() for p in v)),
+                  "arrays_sha256": digest}
+    print(f"flush: {json.dumps(r['flush'])}", flush=True)
+    return r
 
 
 def main(argv=None) -> int:
@@ -122,8 +195,13 @@ def main(argv=None) -> int:
                      "sweeps": int(info.dispatches), "label_sha256": smoke.label_digest(idx),
                      "backend": idx.backend,
                      "halo_rounds": int(ps.COLLECTIVE_CALLS["all_gather"]),
-                     "halo_bytes": int(ps.COLLECTIVE_BYTES["all_gather"])}
+                     "halo_bytes": int(ps.COLLECTIVE_BYTES["all_gather"]),
+                     "covered_s": info.covered_s,
+                     "flush_s": getattr(info, "flush_s", None),
+                     "flushes": getattr(info, "flushes", None)}
         print(f"{name}: {json.dumps(out[name])}", flush=True)
+        if name == "build":
+            built = idx
         del idx
 
     # the first forward sweep of the build's first batch
@@ -132,11 +210,11 @@ def main(argv=None) -> int:
     fwd = label_build.build_ell_groups(in_ip, in_ix, n)
     bwd = label_build.build_ell_groups(out_ip, out_ix, n)
     seeds = np.asarray(order[: 32 * wt], np.int64)
-    cov = torch.zeros((n + 1, wt), dtype=torch.int32, device="cuda")
     sweepers = {"sweep": label_build._Sweeper(fwd, bwd, n, "cuda"),
                 "sharded_sweep": label_build._ShardedSweeper(fwd, bwd, n, mesh, SHARDS, "cuda")}
     stored = {}
     for name, sw in sweepers.items():
+        cov = torch.zeros((sw._rows(), wt), dtype=torch.int32, device="cuda")
         S = sw.sweep(True, seeds, cov, wt)
         stored[name] = hashlib.sha256(np.ascontiguousarray(S).tobytes()).hexdigest()[:16]
         def call(sw=sw):
@@ -147,6 +225,11 @@ def main(argv=None) -> int:
                      "stored_sha256": stored[name], "stored_bits": int(np.unpackbits(
                          S.view(np.uint8)).sum())}
         print(f"{name}: {json.dumps(out[name])}", flush=True)
+
+    # the covered mask of a mid-build batch and one mirror flush of its stores
+    out.update(covered_and_flush(smoke, torch, np, label_build, built, order, n, wt,
+                                 engine._labels_max_width))
+    del built
 
     # the list fixpoint of the list phase's first ListObjects query
     objects, _ = github_list_queries(random.Random(SEED + 5), LIST_QUERIES, ctx)

@@ -153,9 +153,43 @@ def test_slot_set_cuda_matches_plain(name, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("in_place", [False, True])
+def test_slot_set_many_cuda_matches_plain(in_place, cuda_device):
+    """Every target of one call in ONE keto_slot_set launch: targets over
+    many tiles (SLOT_TILE words a block), 1-D and 2-D, duplicates, an
+    empty entry list, and tiles cut by the target's end."""
+    rng = np.random.default_rng(9)
+    shapes = [(40000, 1, 900, False, False), (3000, 64, 5000, False, False),
+              (4097, 1, 40, True, True), (100, 4, 0, False, False), (1031, 3, 700, True, False)]
+    cases = [random_slot_case(rng, n, ld, m, dup=dup, one_d=one_d)
+             for n, ld, m, dup, one_d in shapes]
+    got_in = [torch.from_numpy(c[0].copy()).to(cuda_device) for c in cases]
+    want_in = [torch.from_numpy(c[0].copy()).to(cuda_device) for c in cases]
+    before = kernels.COUNTS["slot_set"]
+    got = kernels.slot_set_many_cuda([(g, *c[1:]) for g, c in zip(got_in, cases)],
+                                     in_place=in_place)
+    assert kernels.COUNTS["slot_set"] - before == 1
+    want = kernels.slot_set_many_ref([(w, *c[1:]) for w, c in zip(want_in, cases)],
+                                     in_place=in_place)
+    torch.cuda.synchronize()
+    for g, w, a, c in zip(got, want, got_in, cases):
+        assert torch.equal(g, w)
+        if in_place:
+            assert g.data_ptr() == a.data_ptr()
+        else:
+            assert np.array_equal(a.cpu().numpy(), c[0]), "a functional slot set wrote its target"
+
+
+@pytest.mark.cuda
 def test_slot_set_cuda_raises_out_of_range(cuda_device):
     buf = torch.zeros((8, 4), dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="outside"):
         kernels.slot_set_cuda(buf, [1, 8], [0, 0], [5, 6])
     with pytest.raises(ValueError, match="outside"):
         kernels.slot_set_cuda(buf, [1], [4], [5])
+    other = torch.zeros(16, dtype=torch.int32, device=cuda_device)
+    before = kernels.COUNTS["slot_set"]
+    with pytest.raises(ValueError, match="outside"):
+        kernels.slot_set_many_cuda([(other, [3], None, [7]), (buf, [2], [4], [5])],
+                                   in_place=True)
+    assert kernels.COUNTS["slot_set"] == before and not other.any() and not buf.any()

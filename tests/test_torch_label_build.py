@@ -1,9 +1,10 @@
 """The port's device label build against the JAX package.
 
 ``sweep_step_ref`` (K6's wave) must equal the JAX ``_sweep_step()`` on all five of
-its outputs (visited, frontier, stored, active, visits) and ``covered``
-(K7) the JAX ``_covered_fn()``, word for word, with the plain versions on
-the CPU; ``device_build_labels`` must give byte-equal label arrays, flags
+its outputs (visited, frontier, stored, active, visits) and
+``_compute_covered`` (K7 with its lane-mask table) the JAX
+``_compute_covered``, word for word, with the plain versions on the CPU;
+the mirror's flush is one slot set a flush; ``device_build_labels`` must give byte-equal label arrays, flags
 and ``BuildInfo`` to the JAX ``device_build_labels`` and equal arrays to
 the port's host ``build_labels`` on 5 fuzz seeds, with and without a
 landmark cap and with ``min_gain``.
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from keto_tpu_torch.check.random_layouts import random_covered_case, random_sweep_case
+from keto_tpu_torch.check import kernels
 from keto_tpu_torch.graph import label_build, label_kernels
 from keto_tpu_torch.graph.labels import build_labels, interior_adjacency
 
@@ -61,32 +63,98 @@ def test_sweep_step_matches_jax(name, prune):
 
 
 COVERED_CASES = {
-    "wt2-mw64": dict(seed=0, rows=90, width=64, u=300, wt=2),
-    "wt1-mw8": dict(seed=1, rows=50, width=8, u=20, wt=1),
-    "wt2-in-pads": dict(seed=2, rows=70, width=16, u=64, wt=2, pad=-2),
-    "wt2-empty-U": dict(seed=3, rows=30, width=8, u=0, wt=2),
-    "wt2-one-value": dict(seed=4, rows=40, width=4, u=1, wt=2),
+    "l1-wt1": dict(seed=0, rows=60, width=8, lanes=1, wt=1, pad=-1),
+    "l32-wt1-in-pads": dict(seed=1, rows=90, width=16, lanes=32, wt=1, pad=-2),
+    "l1-wt2-in-pads": dict(seed=2, rows=50, width=4, lanes=1, wt=2, pad=-2),
+    "l32-wt2-own16": dict(seed=3, rows=70, width=64, lanes=32, wt=2, pad=-1, own_width=16),
+    "l33-wt2-in-pads": dict(seed=4, rows=80, width=12, lanes=33, wt=2, pad=-2),
+    "l64-wt2-mw64": dict(seed=5, rows=120, width=64, lanes=64, wt=2, pad=-1),
+    "l64-wt2-own8-in-pads": dict(seed=6, rows=100, width=32, lanes=64, wt=2, pad=-2,
+                                 own_width=8),
+    "l33-wt2-width3": dict(seed=7, rows=40, width=3, lanes=33, wt=2, pad=-1),
+    "l32-wt1-width1-in-pads": dict(seed=8, rows=25, width=1, lanes=32, wt=1, pad=-2),
+    "l64-wt2-own-empty": dict(seed=9, rows=30, width=8, lanes=64, wt=2, pad=-1, empty=True),
 }
+
+
+def _covered_case(name):
+    kw = dict(COVERED_CASES[name])
+    rng = np.random.default_rng(kw.pop("seed"))
+    wt = kw.pop("wt")
+    lab, own = random_covered_case(rng, **kw)
+    return lab, own, kw["lanes"], wt, kw["pad"], kw.get("empty", False)
 
 
 @pytest.mark.parametrize("name", sorted(COVERED_CASES))
 def test_covered_matches_jax(name):
+    """The port's ``_compute_covered`` (K7's dense lane-mask table) against
+    the reference's (its searchsorted over the sorted own entries), with
+    the same arguments, word for word."""
     import jax.numpy as jnp
 
-    from keto_tpu.graph.label_build import _covered_fn
+    from keto_tpu.graph.label_build import _compute_covered
 
-    kw = dict(COVERED_CASES[name])
-    rng = np.random.default_rng(kw.pop("seed"))
-    lab, U, masks = random_covered_case(rng, **kw)
-    got = label_kernels.covered(_t(lab), _t(U), _t(masks)).numpy().view(np.uint32)
-    if U.size == 0:
-        # the reference never calls the kernel without a table
-        assert not got.any() and got.shape == (lab.shape[0], masks.shape[1])
-        return
-    want = np.asarray(_covered_fn()(jnp.asarray(lab), jnp.asarray(U),
-                                    jnp.asarray(masks.view(np.uint32))))
+    lab, own, lanes, wt, pad, empty = _covered_case(name)
+    got = label_build._compute_covered(_t(lab), own, lanes, wt, pad).numpy().view(np.uint32)
+    want = np.asarray(_compute_covered(jnp.asarray(lab), own, lanes, wt, pad))
+    assert got.shape == want.shape == (lab.shape[0], wt)
     assert np.array_equal(got, want)
-    assert want.any() and not want.all()
+    assert bool(want.any()) != empty
+    if not empty:  # the case's shared id, the id T-1 and the all-pad rows
+        assert want[1].any() and not want[::7].any() and not want[-1].any()
+
+
+def test_covered_rows_and_table_reuse():
+    """A sharded sweep's output rows (past n+1 all zero) and one table for
+    several calls: zero again after each, the outputs unchanged by reuse."""
+    table = torch.zeros((120, 2), dtype=torch.int32)
+    for name in ("l64-wt2-mw64", "l33-wt2-in-pads", "l1-wt2-in-pads"):
+        lab, own, lanes, wt, pad, _ = _covered_case(name)
+        T = lab.shape[0]
+        want = label_build._compute_covered(_t(lab), own, lanes, wt, pad)
+        tab = table[:T]
+        got = label_build._compute_covered(_t(lab), own, lanes, wt, pad, rows=T + 9, table=tab)
+        assert got.shape == (T + 9, wt) and torch.equal(got[:T], want) and not got[T:].any()
+        assert not table.any()
+
+
+@pytest.mark.parametrize("bad", ["T", "minus-3", "other-pad"])
+def test_covered_refuses_own_entries_outside_the_label_rows(bad):
+    lab, own, lanes, wt, pad, _ = _covered_case("l33-wt2-in-pads")
+    own = own.copy()
+    own[5, 0] = {"T": lab.shape[0], "minus-3": -3, "other-pad": -1}[bad]
+    with pytest.raises(ValueError, match="neither the pad"):
+        label_build._compute_covered(_t(lab), own, lanes, wt, pad)
+
+
+def test_flush_device_is_one_slot_set_a_flush(monkeypatch):
+    """The mirror's flush writes both sides through one ``slot_set_many``
+    call and leaves the device arrays equal to the host mirror; a flush
+    with nothing pending makes none. The build counts its flushes."""
+    calls = []
+    many = kernels.slot_set_many
+
+    def counting(targets, **kw):
+        calls.append(len(targets))
+        return many(targets, **kw)
+
+    monkeypatch.setattr(kernels, "slot_set_many", counting)
+    m = label_build._Mirror(12, 4, "cpu")
+    m.store("out", np.array([1, 3, 5]), 7)
+    m.store("in", np.array([2, 3]), 7)
+    m.store("out", np.array([3, 11]), 9)
+    m.flush_device()
+    assert calls == [2] and m.flushes == 1
+    assert np.array_equal(m.out_d.numpy(), m.out_h) and np.array_equal(m.in_d.numpy(), m.in_h)
+    m.flush_device()
+    assert calls == [2]
+    m.store("in", np.array([4]), 1)
+    m.flush_device()
+    assert calls == [2, 1] and m.flushes == 2 and np.array_equal(m.in_d.numpy(), m.in_h)
+    calls.clear()
+    mine, _ = snapshots(LABEL_NS, fuzz_rows(0, n_objects=12, n_rows=90))
+    _, info = label_build.device_build_labels(mine, device="cpu", max_width=64, batch=32)
+    assert len(calls) == info.flushes > 0 and info.flush_s >= 0.0
 
 
 def test_ell_groups_and_estimate_match_jax():

@@ -80,13 +80,34 @@ def test_sweep_cuda_matches_plain(caps, rows, wt, prune, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width,u,wt", [(64, 4096, 2), (64, 300, 1), (8, 0, 2), (16, 1, 2),
-                                        (64, 20000, 2)])
-def test_covered_cuda_matches_plain(width, u, wt, cuda_device):
-    rng = np.random.default_rng(width + u + wt)
-    lab, U, masks = random_covered_case(rng, 700, width, u, wt)
-    args = (_t(lab, cuda_device), _t(U, cuda_device), _t(masks, cuda_device))
-    got = label_kernels.covered_cuda(*args)
-    want = label_kernels.covered_ref(*args)
+@pytest.mark.parametrize("rows,width,lanes,wt,pad,own_width,extra", [
+    (700, 64, 64, 2, -1, 0, 0), (700, 64, 32, 1, -2, 0, 0), (500, 8, 64, 2, -1, 0, 0),
+    (700, 16, 1, 2, -2, 0, 13), (5000, 64, 33, 2, -1, 16, 0), (3001, 3, 64, 2, -2, 0, 7),
+    (4000, 32, 64, 2, -1, 64, 3), (900, 12, 96, 3, -1, 0, 0), (800, 64, 160, 5, -2, 0, 0),
+    (700, 4, 64, 2, -1, 0, 0), (700, 1, 64, 2, -2, 0, 5), (700, 8, 96, 3, -1, 0, 0),
+    (700, 2, 96, 3, -2, 0, 0), (700, 1, 160, 5, -1, 0, 0),
+])
+def test_covered_cuda_matches_plain(rows, width, lanes, wt, pad, own_width, extra, cuda_device):
+    """One keto_covered launch against the plain version: widths that take
+    16-byte loads and widths that do not, narrow rows whose words outnumber
+    the lanes their loads need, wt past 4 (two word blocks), output rows
+    past the label rows, and one table reused (zero after each call). The
+    bare launch writes into an output filled with a sentinel, so a word it
+    misses shows."""
+    rng = np.random.default_rng(rows + width + lanes)
+    lab, own = random_covered_case(rng, rows, width, lanes, pad=pad, own_width=own_width)
+    args = (_t(lab, cuda_device), _t(own, cuda_device))
+    table = torch.zeros((rows, wt), dtype=torch.int32, device=cuda_device)
+    want = label_kernels.covered_ref(*args, wt=wt, rows=rows + extra)
+    for _ in range(2):
+        before = kernels.COUNTS["covered"]
+        got = label_kernels.covered_cuda(*args, wt=wt, rows=rows + extra, table=table)
+        torch.cuda.synchronize()
+        assert kernels.COUNTS["covered"] - before == 1
+        assert torch.equal(got, want) and not table.any()
+    out = torch.full_like(want, 0x5A5A5A5A)
+    rc = label_kernels.covered_launch(label_kernels._lib(), *args, wt, table, out,
+                                      label_kernels._stream())
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    assert rc == 0 and torch.equal(out, want) and not table.any()
+    assert want.any() and (lanes <= 32 * (wt - 1) or want[:, -1].any())

@@ -11,7 +11,9 @@
 - K9's plain version (``slot_set_ref``, the dispatcher on CPU tensors)
   equals ``jnp.ndarray.at[].set`` word for word on the write path's layouts,
   keeps the last entry per duplicate slot, copies unless asked to write in
-  place, and raises on an entry outside its target.
+  place, and raises on an entry outside its target; over several targets
+  (``slot_set_many``) it equals one slot set a target and raises before
+  any target is written.
 """
 
 from __future__ import annotations
@@ -372,3 +374,53 @@ def test_slot_set_raises_out_of_range():
             kernels.slot_set(buf, r, c, [1])
     with pytest.raises(ValueError, match="outside"):
         kernels.slot_set(torch.zeros(5, dtype=torch.int32), [5], None, [1])
+
+
+#: several targets in one call: (rows, ld, entries, duplicates, 1-D) each
+SLOT_MANY = {
+    "bucket-patch": [(64, 4, 20, False, False), (128, 1, 9, False, False),
+                     (32, 8, 40, False, False)],
+    "overlay-rows-and-dst": [(16, 8, 24, False, False), (16, 1, 7, False, True)],
+    "mirror-sides": [(40, 64, 300, False, False), (40, 64, 250, False, False)],
+    "duplicates": [(30, 4, 60, True, False), (50, 1, 30, True, True)],
+    "one-empty": [(8, 2, 0, False, False), (20, 3, 12, False, False)],
+}
+
+
+def _many_case(name, seed):
+    rng = np.random.default_rng(seed)
+    return [random_slot_case(rng, n, ld, m, dup=dup, one_d=one_d)
+            for n, ld, m, dup, one_d in SLOT_MANY[name]]
+
+
+@pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("name", sorted(SLOT_MANY))
+def test_slot_set_many_equals_one_slot_set_per_target(name, in_place):
+    cases = _many_case(name, len(name))
+    bufs = [torch.from_numpy(buf.copy()) for buf, *_ in cases]
+    targets = [(b, r, c, v) for b, (_, r, c, v) in zip(bufs, cases)]
+    for fn in (kernels.slot_set_many, kernels.slot_set_many_ref):
+        mine = [b.clone() for b in bufs]
+        got = fn([(m, *t[1:]) for m, t in zip(mine, targets)], in_place=in_place)
+        assert len(got) == len(cases)
+        for out, m, (buf, r, c, v) in zip(got, mine, cases):
+            want = kernels.slot_set_ref(torch.from_numpy(buf.copy()), r, c, v)
+            assert np.array_equal(out.numpy(), want.numpy())
+            if in_place:
+                assert out is m
+            else:
+                assert out is not m and np.array_equal(m.numpy(), buf), "a target was written"
+
+
+@pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("bad", [0, 1])
+def test_slot_set_many_out_of_range_leaves_every_target_unchanged(bad, in_place):
+    cases = _many_case("mirror-sides", 7)
+    bufs = [torch.from_numpy(buf.copy()) for buf, *_ in cases]
+    targets = [(b, r, c.copy(), v) for b, (_, r, c, v) in zip(bufs, cases)]
+    targets[bad][2][-1] = 64  # one column past the target
+    for fn in (kernels.slot_set_many, kernels.slot_set_many_ref):
+        with pytest.raises(ValueError, match="outside"):
+            fn(targets, in_place=in_place)
+        for b, (buf, *_) in zip(bufs, cases):
+            assert np.array_equal(b.numpy(), buf)

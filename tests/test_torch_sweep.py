@@ -85,6 +85,15 @@ def _budget(kind: str, visits: list):
     return cum[at] - 1, at
 
 
+def _cov(sw, cov: np.ndarray) -> torch.Tensor:
+    """The covered mask ``cov`` (n+1 rows, as the reference's sweep takes
+    it) at the port's sweeper's row count, the tail zero: a sharded
+    sweeper's masks hold its g·rps rows."""
+    out = torch.zeros((sw._rows(), cov.shape[1]), dtype=torch.int32)
+    out[: cov.shape[0]] = torch.from_numpy(cov.view(np.int32))
+    return out
+
+
 def _sweepers(fwd, bwd, n, g):
     import jax
 
@@ -112,7 +121,7 @@ def test_sweep_matches_jax(graph, g, mode, budget_kind):
     kw = dict(prune_expansion=prune, start_rows=start)
     b_mine = None if budget is None else [budget]
     b_ref = None if budget is None else [budget]
-    got = mine.sweep(True, seeds, torch.from_numpy(cov.view(np.int32)), LANES // 32,
+    got = mine.sweep(True, seeds, _cov(mine, cov), LANES // 32,
                      budget=b_mine, **kw)
     want = ref.sweep(True, seeds, jnp.asarray(cov), LANES // 32, budget=b_ref, **kw)
     assert b_mine == b_ref
@@ -142,7 +151,7 @@ def test_sweep_dry_on_an_inactive_last_wave_matches_jax(g):
     for budget in (visits[0] - 1, visits[0]):
         mine, ref = _sweepers(fwd, bwd, n, g)
         b_mine, b_ref = [budget], [budget]
-        got = mine.sweep(True, seeds, torch.from_numpy(cov.view(np.int32)), LANES // 32,
+        got = mine.sweep(True, seeds, _cov(mine, cov), LANES // 32,
                          budget=b_mine)
         want = ref.sweep(True, seeds, jnp.asarray(cov), LANES // 32, budget=b_ref)
         assert b_mine == b_ref == [budget - visits[0]]
@@ -161,7 +170,7 @@ def test_sharded_sweep_counts_one_halo_round_a_wave():
     g = 3
     sw = label_build._ShardedSweeper(fwd, bwd, n, make_mesh(graph=g, device="cpu"), g, "cpu")
     ps.reset_collective_counts()
-    assert sw.sweep(False, seeds, torch.from_numpy(cov.view(np.int32)), LANES // 32) is not None
+    assert sw.sweep(False, seeds, _cov(sw, cov), LANES // 32) is not None
     waves = sw.waves
     assert waves >= 2
     assert ps.COLLECTIVE_CALLS["all_gather"] == ps.COLLECTIVE_CALLS["psum"] == waves
