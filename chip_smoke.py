@@ -17,8 +17,12 @@ Phases, in order; any failure exits non-zero:
    source when the build was cold;
 2. parity — every CUDA kernel against its plain PyTorch version on the same
    tensors on the card, over random layouts made from a numpy seed: the
-   check step (degree caps 1..4096, W in {1, 8, 64, 4096}, bit 31, sentinel
-   and padding rows, overlays, it_cap truncation, n_active = 0), the label
+   check step (degree caps 1..4096 and 1,100, W in {1, 3, 5, 8, 12, 64,
+   4096}, bit 31, sentinel and padding rows, overlays, it_cap truncation
+   inside a block of steps, n_active = 0; each step the seeds, ONE
+   ``keto_check_run`` launch and the answer with no host read in between),
+   K1's ``keto_pull`` alone (one launch over every bucket) and the run
+   alone, each into a sentinel-filled output, the label
    step (label widths 1..128, pad pairs, several pairs per query), the
    whole frontier sweep (one launch a run: expansion pruning on and off,
    rows outside every dst, groups of cap 32 and more, wt 1, 2 and 5, with
@@ -46,10 +50,13 @@ Phases, in order; any failure exits non-zero:
    to ``torch.argsort(stable=True)``) and the sharded programs at 1, 2, 3
    and 4 shards (K10a on the check step's layouts — uneven last shards,
    overlays with rows no shard owns, it_cap truncation, bit 31, no active
-   row, and each layout again
+   row, narrow and odd widths, a cap past 1,024, and each layout again
    with all-sentinel entries, which must decide nothing — with the
    1-shard output's first W+2 words equal to the single-device K2's and
-   its popcount word equal to every shard count's; K10b on label widths
+   its popcount word equal to every shard count's; each step g seeds, ONE
+   run over every shard and g answers with no host read in between; the
+   run alone into a sentinel-filled P against the plain run on the same
+   global rows, a halo copy each step run; K10b on label widths
    1..128 with pad rows, also against the single-device K3, and each
    side's pair-row exchange alone with rows no shard owns; K10c's whole
    sharded sweep, one launch with the halo copy between waves, with
@@ -59,8 +66,12 @@ Phases, in order; any failure exits non-zero:
 3. main — BASELINE config 3 (RBAC, 1M tuples, 3-level group nesting) on
    the BFS route (labels off), 100k checks: every decision equals the
    analytic expectation, a 2,000-query sample equals the recursive
-   oracle, and every BFS kernel launched; each kernel is then timed at the
-   main path's shapes beside its plain version and its bound. The snapshot
+   oracle, and every BFS kernel launched, each BFS step the seeds, one
+   ``keto_check_run`` launch and the answer (the runs' pull phases counted
+   on the card); each kernel is then timed at the main path's shapes
+   beside its plain version and its bound: ``keto_pull`` alone beside
+   ``torch.index_select``, the run kernel alone (a bare launch) and as its
+   wrapper's call, the whole step (which must make no host read). The snapshot
    line gives the build's sort seconds on the card (K8) against the host
    sorter on the same keys, whose permutations must equal the card's, the
    sorter's dispatch counts, and K8's summed device ms over the same sorts
@@ -88,7 +99,9 @@ Phases, in order; any failure exits non-zero:
    store and 100k checks on a sharded engine with labels off (K10a, the
    BFS route), every decision equal to the analytic expectation and to
    main's unsharded run, a 2,000-query oracle sample, every K10a entry
-   point launched and no unsharded answer kernel, each slice's iterations
+   point launched and no unsharded answer kernel, each step 4 seeds, one
+   run and 4 answers, the halo copies counted on the card equal to the
+   steps run and to the ``shard_halo_rounds`` counter, each slice's iterations
    and truncation flag equal to main's engine's on the same slices, the
    ``shard_*`` counters and the collectives' bytes, checks/s beside the
    unsharded engine's; (b) a sharded engine on a fork of the deep phase's
@@ -104,8 +117,9 @@ Phases, in order; any failure exits non-zero:
    and the edges' deletes (bucket slots patched on their owning shards),
    each followed by the 100k checks (the fold's equal to the overlay's,
    the deletes' equal to the expectation) and an oracle sample; peak
-   device memory; then K10a's program, ``keto_shard_answer`` and the halo
-   copy timed at config 3's shapes, K10b's program and its pair-row
+   device memory; then K10a's whole step (no host read, one run), its run
+   alone, ``keto_shard_answer`` and the halo copy timed at config 3's
+   shapes, K10b's program and its pair-row
    exchange (``keto_pair_gather``, one launch per side) and K10c's whole
    sharded sweep (the build's first; the build's halo rounds and bytes
    one a wave) at config 4's, each beside its
@@ -303,6 +317,16 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def paired_ms(fn, other, turns: int = 5, reps: int = 20) -> tuple:
+    """``time_ms`` of ``fn`` and of ``other`` (None: not timed) in turns,
+    ``fn`` first: their medians and every turn's pair."""
+    pairs = [(time_ms(fn, reps), None if other is None else time_ms(other, reps))
+             for _ in range(turns)]
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    return (med([a for a, _ in pairs]), None if other is None else med([b for _, b in pairs]),
+            pairs)
+
+
 def time_fresh_ms(fn, make, reps: int, warmup: int = 2) -> float:
     """Mean device time of ``fn(*state)`` over ``reps`` calls, each on its
     own ``state = make()``, all made before the timed loop: for a kernel
@@ -364,37 +388,95 @@ PARITY_CASES = [
     dict(W=8, n_int=30),
     dict(W=4096, n_int=12),
 ]
+#: narrow and odd widths (a word at a time), caps past 1,024, it_cap cuts
+#: inside a block of steps (a generator of their own, so the layouts above
+#: and after stay as they were)
+NARROW_CASES = [
+    dict(W=3, caps=(1, 2, 1100), rows=(40, 10, 2), n_int=90, overlay=True, block_iters=2),
+    dict(W=5, caps=(1, 4, 2048), rows=(40, 8, 2), n_int=90),
+    dict(W=5, caps=(1,), rows=(60,), chain=True, it_cap=7, block_iters=4),
+    dict(W=3, caps=(1,), rows=(60,), chain=True, it_cap=5, block_iters=3, overlay=True),
+    dict(W=12, caps=(1, 1100), rows=(30, 3), n_int=60, overlay=True),
+]
+
+
+def run_parity(torch, kernels, plan, R0, P0, run_kw, plain, G=None) -> tuple:
+    """``keto_check_run`` of ``plan`` on a copy of ``R0`` into ``P0`` (its run
+    rows sentinel-filled) against its plain version ``plain(R, P)`` on
+    another copy: mismatching words of R, P and the state's {changed,
+    steps}, the steps and the halo copies the card counted, and the plain
+    state."""
+    Rc, Rr = R0.clone(), R0.clone()
+    Pr = torch.zeros_like(P0)
+    kernels.reset_run_counts()
+    state = kernels.check_run_cuda(plan, Rc, P0, G=G, **run_kw)
+    steps, copies = kernels.run_counts()
+    want = plain(Rr, Pr)
+    torch.cuda.synchronize()
+    m = diff(Rc, Rr)[0] + diff(P0, Pr)[0] + diff(state[:2], want[:2])[0]
+    return m, steps, copies, want
 
 
 def phase_parity(torch, kernels, rows_out):
     import numpy as np
 
-    from keto_tpu_torch.check.random_layouts import random_case
+    from keto_tpu_torch.check.random_layouts import SENTINEL, random_case
 
     rng = np.random.default_rng(SEED)
+    narrow = np.random.default_rng(SEED + 10)
     dev = torch.device("cuda")
     total = 0
-    for i, case in enumerate(PARITY_CASES):
-        buckets, entries, ov, kw = random_case(rng, **case)
+    for i, case in enumerate(PARITY_CASES + NARROW_CASES):
+        gen = rng if i < len(PARITY_CASES) else narrow
+        buckets, entries, ov, kw = random_case(gen, **case)
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
         nb = [t(b) for b in buckets]
         ent = t(entries)
         ovn, ovd = (None, None) if ov is None else (t(ov[0]), t(ov[1]))
+        before = dict(kernels.COUNTS)
+        reads = host_reads(torch, lambda: kernels.check_step_cuda(nb, ent, ovn, ovd, **kw))
+        launched = {k: kernels.COUNTS[k] - before[k] for k in kernels.BFS_KERNELS}
         got = kernels.check_step_cuda(nb, ent, ovn, ovd, **kw)
         want = kernels.check_step_ref(nb, ent, ovn, ovd, **kw)
         torch.cuda.synchronize()
         m, _ = diff(got, want)
+        # a step is the seeds, one run (none without active rows) and the
+        # answer, with no host read in between
+        m += int(reads != 0) + int(launched != {"seed": 1, "answer_pack": 1,
+                                               "check_run": int(bool(kw["n_active"]))})
         tail = got[-2:].tolist()
-        if kw["n_active"]:
+        line = ""
+        n_active, n_int = kw["n_active"], kw["n_int"]
+        if n_active:
             W = kw["sizes"][3] // 32
             R = torch.from_numpy(
-                rng.integers(0, 2**32, size=(kw["n_int"] + 1, W), dtype=np.uint64)
+                gen.integers(0, 2**32, size=(n_int + 1, W), dtype=np.uint64)
                 .astype(np.uint32).view(np.int32)
             ).to(dev)
             R[-1] = 0
-            m += diff(kernels.pull_cuda(nb, kw["valid_rows"], R),
-                      kernels.pull_ref(nb, kw["valid_rows"], R))[0]
-        log(f"parity case {i}: {case} -> iters={tail[0]} truncated={tail[1]} mismatches={m}")
+            # K1 alone into a sentinel-filled output, one launch
+            P = torch.full((n_active + 2, W), SENTINEL, dtype=torch.int32, device=dev)
+            pulls = kernels.COUNTS["pull"]
+            kernels.pull_cuda(nb, kw["valid_rows"], R, P=P)
+            m_pull = diff(P[:n_active], kernels.pull_ref(nb, kw["valid_rows"], R))[0]
+            m_pull += int((P[n_active:] != SENTINEL).sum()) + int(kernels.COUNTS["pull"] - pulls != 1)
+            # the run alone into a sentinel-filled P
+            R0, _ = kernels.seed_ref(ent, kw["sizes"], n_int, W)
+            P0 = torch.full((n_active + 1, W), SENTINEL, dtype=torch.int32, device=dev)
+            P0[n_active] = 0
+            plan = kernels.bucket_runs(nb, kw["valid_rows"], src_rows=n_int + 1, W=W)
+            run_kw = dict(ov=kernels.RunOverlay.of(ovn, ovd, n_active), it_cap=kw["it_cap"],
+                          block_iters=kw["block_iters"])
+            m_run, steps, copies, ref = run_parity(
+                torch, kernels, plan, R0, P0, run_kw,
+                lambda R, P: kernels.check_run_ref(nb, kw["valid_rows"], R, P, ovn, ovd,
+                                                   it_cap=kw["it_cap"],
+                                                   block_iters=kw["block_iters"]))
+            m_run += int((steps, copies) != (int(ref[1]), 0))
+            m += m_pull + m_run
+            line = f", pull mismatches={m_pull}, run mismatches={m_run} (steps {steps})"
+        log(f"parity case {i}: {case} -> iters={tail[0]} truncated={tail[1]}, host reads {reads}, "
+            f"launches {launched}{line}, mismatches={m}")
         total += m
     total += label_parity(torch, rng, dev)
     total += witness_parity(torch, rng, dev)
@@ -721,6 +803,13 @@ SHARD_CASES = [
     dict(W=64, caps=(1,), rows=(50,), n_int=64, chain=True, block_iters=3, overlay=True),
     dict(W=8, n_int=30),
 ]
+#: K10a's narrow and odd widths, a cap past 1,024 and an it_cap cut inside a
+#: block of steps (seeded by a generator of their own)
+SHARD_NARROW_CASES = [
+    dict(W=3, caps=(1, 2, 1100), rows=(40, 10, 2), n_int=90, overlay=True, block_iters=2),
+    dict(W=5, caps=(1,), rows=(60,), n_int=64, chain=True, it_cap=7, block_iters=4),
+    dict(W=1, caps=(1, 2048), rows=(30, 2), n_int=41, overlay=True),
+]
 SHARD_GS = (1, 2, 3, 4)
 #: K10c's parity layouts: (n, caps, rows per group, wt, expansion pruning)
 SHARD_SWEEP_CASES = [
@@ -754,28 +843,38 @@ def shard_parity(torch, rng, dev) -> int:
 
     from keto_tpu_torch.check import kernels
     from keto_tpu_torch.check.random_layouts import (
-        random_label_case, random_shard_case, random_sweep_case)
+        SENTINEL, random_label_case, random_shard_case, random_sweep_case)
     from keto_tpu_torch.graph import label_kernels as lk
     from keto_tpu_torch.parallel import make_mesh
     from keto_tpu_torch.parallel import sharded as ps
 
     t = lambda a: None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     total = 0
-    for i, case in enumerate(SHARD_CASES):
-        seed = int(rng.integers(1 << 30))
+    narrow = np.random.default_rng(SEED + 11)
+    for i, case in enumerate(SHARD_CASES + SHARD_NARROW_CASES):
+        seed = int((rng if i < len(SHARD_CASES) else narrow).integers(1 << 30))
         pop1 = None
         for g in SHARD_GS:
             mesh = make_mesh(graph=g, device=dev)
             single, (spec, ent, ov, kw) = random_shard_case(np.random.default_rng(seed), g, **case)
             bk = ps.ShardedBuckets.from_spec(spec, dev)
             ovn, ovd = (None, None) if ov is None else (t(ov[0]), t(ov[1]))
-            got = ps.check_step_cuda(mesh, bk, t(ent), ovn, ovd, **kw)
-            want = ps.check_step_ref(mesh, bk, t(ent), ovn, ovd, **kw)
+            ent_d = t(ent)
+            before = dict(kernels.COUNTS)
+            reads = host_reads(torch, lambda: ps.check_step_cuda(mesh, bk, ent_d, ovn, ovd, **kw))
+            launched = {k: kernels.COUNTS[k] - before[k] for k in
+                        ("seed", "check_run", "shard_answer", "pull", "answer_pack")}
+            got = ps.check_step_cuda(mesh, bk, ent_d, ovn, ovd, **kw)
+            want = ps.check_step_ref(mesh, bk, ent_d, ovn, ovd, **kw)
             pad = _sentinel_entries(spec, kw["B"])
             got0 = ps.check_step_cuda(mesh, bk, t(pad), ovn, ovd, **kw)
             want0 = ps.check_step_ref(mesh, bk, t(pad), ovn, ovd, **kw)
             torch.cuda.synchronize()
             m = diff(got, want)[0] + diff(got0, want0)[0]
+            # a step is g seeds, ONE run over every shard and g answers, with
+            # no host read in between
+            m += int(reads != 0) + int(launched != {"seed": g, "check_run": 1, "shard_answer": g,
+                                                    "pull": 0, "answer_pack": 0})
             W = kw["B"] // 32
             m += int((got0[:W] != 0).sum())  # an all-padding slice decides nothing
             b, e, o, k1 = single
@@ -786,9 +885,27 @@ def shard_parity(torch, rng, dev) -> int:
             pop = int(got[W + 2]) & 0xFFFFFFFF
             pop1 = pop if pop1 is None else pop1
             m += int(pop != pop1)
-            log(f"parity shard check_step case {i} g={g} rps={kw['rps']} "
+            # the run alone into a sentinel-filled P, against its plain
+            # version; a halo copy each step run
+            rps = kw["rps"]
+            plan = ps.shard_runs(bk, g, rps, W)
+            R0 = torch.zeros((g * rps, W), dtype=torch.int32, device=dev)
+            for s in range(g):
+                R0[s * rps : (s + 1) * rps] = kernels.seed_ref(ent_d[s], kw["sizes"], rps - 1, W)[0]
+            P0 = torch.full((g * rps, W), SENTINEL, dtype=torch.int32, device=dev)
+            P0[plan.n_rows :] = 0
+            loop = dict(it_cap=kw["it_cap"], block_iters=kw["block_iters"])
+            m_run, steps, copies, ref = run_parity(
+                torch, kernels, plan, R0, P0, dict(ov=kernels.RunOverlay.of(ovn, ovd, rps, rps),
+                                                   **loop),
+                lambda R, P: ps.shard_run_ref(plan, R, P, ovn, ovd, rps=rps, **loop),
+                G=torch.empty_like(R0))
+            m_run += int(not steps == copies == int(ref[1]))
+            m += m_run
+            log(f"parity shard check_step case {i} g={g} rps={rps} "
                 f"iters={int(got[W])} truncated={int(got[W + 1])} frontier_bits={pop}: "
-                f"mismatches={m}")
+                f"host reads {reads}, launches {launched}, run mismatches={m_run} (steps {steps}, "
+                f"halo copies {copies}), mismatches={m}")
             total += m
     for n, Wo, Wi, W, pairs in LABEL_STEP_CASES[:7] + [(301, 64, 64, 64, 6000)]:
         seed = int(rng.integers(1 << 30))
@@ -989,14 +1106,17 @@ def phase_main(torch, kernels, report):
         f"buckets={[(tuple(b.nbrs.shape), b.n) for b in snap.buckets]}, {snap_s:.3f}s; "
         f"build sorts {json.dumps(sorts)}")
 
-    # the main path's run: launch counts from exactly this call
+    # the main path's run: launch counts from exactly this call (the runs'
+    # steps, each a pull phase, counted on the card)
     kernels.reset_counts()
+    kernels.reset_run_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     got = engine.batch_check(queries)
     torch.cuda.synchronize()
     check_s = time.monotonic() - t0
     launches = dict(kernels.COUNTS)
+    launches["check_run_steps"], launches["check_run_halo_copies"] = kernels.run_counts()
     peak = torch.cuda.max_memory_allocated()
     wrong = sum(g != e for g, e in zip(got, expected))
     log(f"main path: {N_CHECKS} checks in {check_s:.3f}s ({N_CHECKS / check_s:.0f} checks/s), "
@@ -1007,6 +1127,11 @@ def phase_main(torch, kernels, report):
     missing = [k for k in kernels.BFS_KERNELS if launches[k] == 0]
     if missing:
         raise SystemExit(f"main path FAILED: kernels never launched: {missing}")
+    # config 3 has active rows: every BFS step is the seeds, one run and the
+    # answer (keto_pull alone is not on the path: its device function is)
+    if not launches["seed"] == launches["check_run"] == launches["answer_pack"] \
+            or launches["pull"] or not launches["check_run_steps"]:
+        raise SystemExit(f"main path FAILED: BFS steps are not one run each: {launches}")
     # steady state: block_iters has adapted, nothing is cold
     t0 = time.monotonic()
     got2 = engine.batch_check(queries)
@@ -1060,15 +1185,16 @@ def kernel_rows(torch, kernels, engine, snap, queries, rate, launches):
     act = n_active * W * word
     rows = []
 
-    def row(name, part, cuda_fn, plain_fn, outs, bytes_needed, reps, library=None, extra=None):
+    def row(name, part, cuda_fn, plain_fn, outs, bytes_needed, reps, library=None, extra=None,
+            ms=None, plain=None, n_launches=None, lib=None):
         a, b = outs
         m, err = diff(a, b)
-        ms = time_ms(cuda_fn, reps)
-        plain = time_ms(plain_fn, max(1, reps // 10), warmup=1)
-        lib = time_ms(library, reps) if library is not None else None
+        ms = time_ms(cuda_fn, reps) if ms is None else ms
+        plain = time_ms(plain_fn, max(1, reps // 10), warmup=1) if plain is None else plain
+        lib = time_ms(library, reps) if library is not None else lib
         r = {"name": name, "route": "cuda", "source": "keto_tpu_torch/csrc/check_kernels.cu",
              "replaces": K1 if name == "pull" else K2, "part": part,
-             "launches": launches[name], "mismatches": m,
+             "launches": launches[name] if n_launches is None else n_launches, "mismatches": m,
              "max_abs_err": err, "ms": ms, "plain_ms": plain,
              "bound_ms": bytes_needed / rate * 1e3, "bound_by": "bytes", "library_ms": lib}
         r.update(extra or {})
@@ -1093,21 +1219,19 @@ def kernel_rows(torch, kernels, engine, snap, queries, rate, launches):
         8 * (S1 + S2) + 2 * bitmap, 20,
         library=lambda: scratch.index_put_((flat,), bits, accumulate=True))
 
-    # the fixpoint, for realistic pull/commit/answer inputs
+    # the fixpoint, for realistic pull and answer inputs: one run from R0
+    plan = kernels.bucket_runs(g.buckets, g.valid_rows, src_rows=n_int + 1, W=W)
     R = R0.clone()
-    P = torch.zeros((n_active + 1, W), dtype=torch.int32, device="cuda")
-    state = torch.tensor([1, 0, 0], dtype=torch.int32, device="cuda")
-    while int(state[0]):
-        kernels.pull_cuda(g.buckets, g.valid_rows, R, P=P, state=state)
-        kernels.commit_cuda(P, R, n_active, state)
-        kernels.close_cuda(state)
-    iters = int(state[1])
+    P = kernels.pull_out(n_active + 1, W, n_active, kw["it_cap"], "cuda")
+    state = kernels.check_run_cuda(plan, R, P, it_cap=kw["it_cap"], block_iters=kw["block_iters"])
+    truncated, iters = state[:2].tolist()
 
     # the pull must read every valid neighbour slot, each distinct source
     # row once (the all-zero sentinel row n_int needs no read), and write P
     slots = sum(n * b.shape[1] for b, n in zip(g.buckets, g.valid_rows))
     srcs = torch.unique(torch.cat([b[:n].reshape(-1) for b, n in zip(g.buckets, g.valid_rows)]))
     distinct = int((srcs < n_int).sum())
+    pull_bytes = slots * word + distinct * W * word + act
     pulled = kernels.pull_cuda(g.buckets, g.valid_rows, R)
     library = None
     if all(b.shape[1] == 1 for b in g.buckets):
@@ -1116,55 +1240,107 @@ def kernel_rows(torch, kernels, engine, snap, queries, rate, launches):
         if diff(torch.index_select(R, 0, src), pulled)[0]:
             raise SystemExit("index_select disagrees with the pull at cap 1")
         library = lambda: torch.index_select(R, 0, src)  # noqa: E731
-    row("pull", "_pull, tpu_engine.py:89-107 (and the overlay OR, :181-188)",
-        lambda: kernels.pull_cuda(g.buckets, g.valid_rows, R),
-        lambda: kernels.pull_ref(g.buckets, g.valid_rows, R),
+    Pp = torch.empty_like(pulled)
+    lib_ = kernels._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    pull_bare = bare_ms(torch, lambda _: kernels.pull_launch(lib_, plan, R, Pp, stream), [0] * 20)
+
+    # the run: the kernel alone (a bare launch behind a spin kernel, each on
+    # its own copy of R0), the wrapper's call, the plain run
+    def run_state():
+        Rs = R0.clone()
+        return (Rs, kernels.pull_out(n_active + 1, W, n_active, kw["it_cap"], "cuda"),
+                torch.zeros(3, dtype=torch.int32, device="cuda"))
+
+    run_kw = dict(it_cap=kw["it_cap"], block_iters=kw["block_iters"])
+    run_bare = bare_ms(torch, lambda st: kernels.run_launch(lib_, plan, *st, **run_kw,
+                                                            stream=stream),
+                       [run_state() for _ in range(10)])
+    run_wrapper = time_fresh_ms(lambda Rs, Ps, _: kernels.check_run_cuda(plan, Rs, Ps, **run_kw),
+                                run_state, 10)
+    run_plain = time_fresh_ms(lambda Rs, Ps, _: kernels.check_run_ref(g.buckets, g.valid_rows,
+                                                                      Rs, Ps, **run_kw),
+                              run_state, 2, warmup=1)
+    Rr = R0.clone()
+    Pr = torch.zeros_like(P)
+    ref_state = kernels.check_run_ref(g.buckets, g.valid_rows, Rr, Pr, **run_kw)
+    # what a step's work must move: the pull's bytes (P written once, the
+    # answer's p_fix), one read of R's active prefix, and the words of R
+    # that the step changes; the commit's re-read of P is the run's own
+    # cost (a run that ping-pongs R would not make it), so it is not charged
+    changed = words_changed(lambda Rs, Ps, k: kernels.check_run_ref(
+        g.buckets, g.valid_rows, Rs, Ps, it_cap=k, block_iters=1), R0, P, iters)
+    run_bytes = iters * (pull_bytes + act) + changed * word
+    # the run's phases as the path runs them, stamped by the card's clock
+    phases = run_phases(torch, kernels, lambda st, stamps: kernels.run_launch(
+        lib_, plan, *st, **run_kw, stamps=stamps, stream=stream),
+        [run_state() for _ in range(5)], iters)
+    # K1 (its launches on a plan made once) and its library call timed in
+    # turns, the median of each; the wrapper's calls apart
+    pull_fn = lambda: kernels.pull_cuda(g.buckets, g.valid_rows, R, P=Pp)  # noqa: E731
+    pull_ms, lib_ms, turns = paired_ms(
+        lambda: _ok(kernels.pull_launch(lib_, plan, R, Pp, stream), "keto_pull"), library)
+    row("pull", "_pull, tpu_engine.py:89-107: keto_pull alone, one launch over every bucket "
+        "(on the main path the same device function is a phase of keto_check_run)",
+        pull_fn, lambda: kernels.pull_ref(g.buckets, g.valid_rows, R),
         (pulled, kernels.pull_ref(g.buckets, g.valid_rows, R)),
-        slots * word + distinct * W * word + act, 20, library=library,
-        extra={"edge_slots": slots, "distinct_source_rows": distinct})
-
-    # the first commit folds the pull into R0; the timed repeats then find
-    # nothing to change, so their bound is the two reads alone
-    Pc = P[:n_active].clone()
-    Rc, Rr = R0.clone(), R0.clone()
-    sc = torch.tensor([1, 0, 0], dtype=torch.int32, device="cuda")
-    sr = sc.clone()
-    kernels.commit_cuda(Pc, Rc, n_active, sc)
-    kernels.commit_ref(Pc, Rr, n_active, sr)
-    on = torch.tensor([1, 0, 0], dtype=torch.int32, device="cuda")
-    row("commit", "R[:n_active] |= p and the changed flag, tpu_engine.py:189-191",
-        lambda: kernels.commit_cuda(Pc, Rc, n_active, on),
-        lambda: kernels.commit_ref(Pc, Rr, n_active, sr),
-        (torch.cat([Rc.view(-1), sc]), torch.cat([Rr.view(-1), sr])),
-        2 * act, 20)
-
-    s1 = torch.tensor([1, 5, 1], dtype=torch.int32, device="cuda")
-    s2 = s1.clone()
-    kernels.close_cuda(s1)
-    kernels.close_ref(s2)
-    spare = torch.tensor([1, 0, 1], dtype=torch.int32, device="cuda")
-    row("close", "the while/fori guard, tpu_engine.py:198-212",
-        lambda: kernels.close_cuda(spare),
-        lambda: kernels.close_ref(spare.clone()),
-        (s1, s2), 24, 50)
+        pull_bytes, 20, ms=pull_ms, lib=lib_ms, n_launches=launches["check_run_steps"],
+        extra={"edge_slots": slots, "distinct_source_rows": distinct, "bare_ms": pull_bare,
+               "wrapper_ms": time_ms(pull_fn, 20), "turns_ms": turns,
+               "timed_by": "CUDA events over 20 launches back to back, in 5 turns with the "
+                           "library call; the medians",
+               "keto_pull_launches_main_path": launches["pull"],
+               "launches_are": "pull phases of keto_check_run on the main path (counted on "
+                               "the card)",
+               "run_ms_per_step": run_bare / max(1, iters),
+               "run_pull_phase_ms": phases["pull_ms"],
+               "run_pull_phase_bound_ratio": phases["pull_ms"] / (pull_bytes / rate * 1e3)})
+    row("check_run", "the guarded fixpoint, tpu_engine.py:164-216: keto_check_run, ONE "
+        "cooperative launch a step (pull, commit, guard between grid barriers); ms is the "
+        "kernel alone",
+        None, None,
+        (torch.cat([R.view(-1), P[:n_active].reshape(-1), state[:2]]),
+         torch.cat([Rr.view(-1), Pr[:n_active].reshape(-1), ref_state[:2]])),
+        run_bytes, 0, ms=run_bare, plain=run_plain,
+        extra={"wrapper_ms": run_wrapper, "iters": iters, "truncated": truncated,
+               "block_iters": kw["block_iters"], "runs": len(plan.rows),
+               "ms_per_step": run_bare / max(1, iters), "pull_alone_ms": pull_bare,
+               "words_changed": changed, "phases": phases,
+               "bound_counts": "a step: slots, distinct source rows, P written, R's active "
+                               "prefix read; the words changed written once"})
 
     out_c = kernels.answer_pack_cuda(entries, sizes, n_active, P, ans0, R, state)
-    out_r = kernels.answer_pack_ref(entries, sizes, n_active, P, ans0, R, iters, False)
+    out_r = kernels.answer_pack_ref(entries, sizes, n_active, P, ans0, R, iters, bool(truncated))
     row("answer_pack", "answers and bit pack, tpu_engine.py:219-243",
         lambda: kernels.answer_pack_cuda(entries, sizes, n_active, P, ans0, R, state),
-        lambda: kernels.answer_pack_ref(entries, sizes, n_active, P, ans0, R, iters, False),
+        lambda: kernels.answer_pack_ref(entries, sizes, n_active, P, ans0, R, iters,
+                                        bool(truncated)),
         (out_c, out_r), word * (3 * B + 3 * SA) + (W + 2) * word, 20)
 
-    # the whole step at the main path's shapes, for the record
-    full_c = kernels.check_step_cuda(g.buckets, entries, **kw)
+    # the whole step at the main path's shapes: the seeds, one run, the
+    # answer, no host read in between
+    step_fn = lambda: kernels.check_step_cuda(g.buckets, entries, **kw)  # noqa: E731
+    before = dict(kernels.COUNTS)
+    reads = host_reads(torch, step_fn)
+    per_step = {k: kernels.COUNTS[k] - before[k] for k in kernels.BFS_KERNELS + ("pull",)}
+    if reads or per_step != {"seed": 1, "check_run": 1, "answer_pack": 1, "pull": 0}:
+        raise SystemExit(f"main path FAILED: a BFS step made {reads} host reads and launched "
+                         f"{per_step}, not the seeds, one run and the answer")
+    full_c = step_fn()
     full_r = kernels.check_step_ref(g.buckets, entries, **kw)
-    m, _ = diff(full_c, full_r)
+    seed_bytes = 8 * (S1 + S2) + 2 * bitmap
+    ans_bytes = word * (3 * B + 3 * SA) + (W + 2) * word
+    row("check_step", "the whole step, tpu_engine.py:110-251: keto_seed, keto_check_run, "
+        "keto_answer_pack and the step's allocations",
+        step_fn, lambda: kernels.check_step_ref(g.buckets, entries, **kw), (full_c, full_r),
+        seed_bytes + run_bytes + ans_bytes, 5, n_launches=launches["check_run"],
+        extra={"host_reads": reads, "launches_a_step": per_step, "iters": iters,
+               "wall_ms": whole_ms(torch, lambda: step_fn().tolist(), 20)})
     step = {"name": "check_step", "W": W, "sizes": list(sizes), "iters": iters,
-            "mismatches": m, **host,
-            "ms": time_ms(lambda: kernels.check_step_cuda(g.buckets, entries, **kw), 5, 1),
-            "plain_ms": time_ms(lambda: kernels.check_step_ref(g.buckets, entries, **kw), 2, 1)}
+            "mismatches": rows[-1]["mismatches"], **host, "ms": rows[-1]["ms"],
+            "plain_ms": rows[-1]["plain_ms"]}
     log(f"check_step at main shapes: {json.dumps(step)}")
-    total = sum(r["mismatches"] for r in rows) + m
+    total = sum(r["mismatches"] for r in rows)
     if total:
         raise SystemExit(f"kernel parity at main shapes FAILED: {total} mismatching words")
     return rows, step
@@ -1389,6 +1565,57 @@ def bare_ms(torch, launch, states, spin_cycles: int = 2_000_000) -> float:
         pairs.append((e0, e1))
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs) / len(pairs)
+
+
+def _ok(rc: int, what: str) -> None:
+    """Raise on a launch's nonzero CUDA error code: a refused launch timed
+    as an empty interval must not read as a fast kernel."""
+    if rc:
+        raise RuntimeError(f"{what} failed: CUDA error {rc}")
+
+
+RUN_PHASES = ("halo", "pull", "overlay", "commit")
+
+
+def run_phases(torch, kernels, launch, states, steps: int) -> dict:
+    """Device ms a step of each phase of ``keto_check_run`` as the path runs
+    it (on its co-resident grid, each phase up to the end of its grid
+    barrier): ``launch(state, stamps)`` once on each of ``states``, the
+    card's nanosecond clock stamped by the run at every phase boundary of
+    its ``steps`` steps. The means over every step of every launch, the
+    first launch's steps, and the stamps' finest nonzero step."""
+    import numpy as np
+
+    diffs = []
+    for st in states:
+        stamps = torch.zeros((steps, kernels.RUN_STAMPS), dtype=torch.int64, device="cuda")
+        _ok(launch(st, stamps), "keto_check_run")
+        t = stamps.cpu().numpy()
+        d = np.diff(t, axis=1)
+        if not t.all() or (d < 0).any():
+            raise SystemExit(f"keto_check_run's phase stamps are incomplete or out of order: {t}")
+        diffs.append(d / 1e6)
+    d = np.concatenate(diffs)
+    pos = d[d > 0]
+    return {**{f"{k}_ms": float(d[:, i].mean()) for i, k in enumerate(RUN_PHASES)},
+            "step_ms": float(d.sum(1).mean()), "steps": steps, "launches": len(states),
+            "first_launch_ms": diffs[0].round(6).tolist(),
+            "clock_step_ns": float(pos.min() * 1e6) if pos.size else None,
+            "timed_by": "%globaltimer stamps of thread 0 of block 0 after each grid barrier"}
+
+
+def words_changed(run, R0, P0, iters: int) -> int:
+    """Words of R that the plain run changes, summed over its ``iters``
+    steps: ``run(R, P, k)`` runs k steps on fresh copies (``block_iters``
+    1, ``it_cap`` k), and step k's changes are R after k steps against R
+    after k - 1."""
+    prev, total = R0, 0
+    for k in range(1, iters + 1):
+        R = R0.clone()
+        run(R, P0.clone(), k)
+        total += int((R != prev).sum())
+        prev = R
+    return total
 
 
 def host_reads(torch, fn) -> int:
@@ -1731,6 +1958,8 @@ def phase_shard(torch, kernels, report, main_keep, deep_keep, rate, int_rate, de
         snap_s = time.monotonic() - t0
         spec = snap.shard_spec
         kernels.reset_counts()
+        if on_card:
+            kernels.reset_run_counts()
         ps.reset_collective_counts()
         reset_peak()
         t0 = time.monotonic()
@@ -1738,13 +1967,21 @@ def phase_shard(torch, kernels, report, main_keep, deep_keep, rate, int_rate, de
         sync()
         check_s = time.monotonic() - t0
         launches = dict(kernels.COUNTS)
+        if on_card:  # the runs' steps and halo copies, counted on the card
+            launches["check_run_steps"], launches["check_run_halo_copies"] = kernels.run_counts()
         coll = {k: (ps.COLLECTIVE_CALLS[k], ps.COLLECTIVE_BYTES[k]) for k in ps.COLLECTIVE_BYTES}
         peak = peak_bytes()
         wrong = sum(g != e for g, e in zip(got, expected3))
         differ = sum(g != e for g, e in zip(got, got3))
         counters = shard_counts(eng)
-        missing = [k for k in ("seed", "pull", "commit", "close", "shard_answer")
-                   if on_card and not launches[k]]
+        missing = [k for k in ("seed", "check_run", "shard_answer") if on_card and not launches[k]]
+        if on_card and (launches["seed"] != SHARD_G * launches["check_run"]
+                        or launches["shard_answer"] != SHARD_G * launches["check_run"]
+                        or launches["pull"]
+                        or not launches["check_run_halo_copies"] == launches["check_run_steps"]
+                        == counters["shard_halo_rounds"]):
+            missing.append(f"one run a step and a halo copy a step run: {launches}, "
+                           f"halo rounds {counters['shard_halo_rounds']}")
         t0 = time.monotonic()
         got_b = eng.batch_check(queries3)
         steady_s = time.monotonic() - t0
@@ -1771,8 +2008,8 @@ def phase_shard(torch, kernels, report, main_keep, deep_keep, rate, int_rate, de
             raise SystemExit(f"shard FAILED (a): per-slice iters/truncated {steps_sh} vs "
                              f"{steps_one}, counters {counters}")
         out["a"] = a
-        rows = shard_check_rows(torch, ps, mesh, snap, captured.pop("check_step"), launches,
-                                coll["all_gather"][0], rate) if on_card else []
+        rows = shard_check_rows(torch, kernels, ps, mesh, snap, captured.pop("check_step"),
+                                launches, rate) if on_card else []
         del eng, snap
 
         # (b) config 4 on a fork of the deep phase's store: labels on
@@ -1830,7 +2067,8 @@ def phase_shard(torch, kernels, report, main_keep, deep_keep, rate, int_rate, de
         before = dict(kernels.COUNTS)
         hgot = eng.batch_check(hq)
         hybrid_launches = {k: kernels.COUNTS[k] - before[k] for k in
-                           ("shard_answer", "pair_rows", "label_step", "pull", "answer_pack")}
+                           ("shard_answer", "pair_rows", "label_step", "check_run",
+                            "answer_pack")}
         hwrong = sum(g != w for g, w in zip(hgot, hwant))
         hsteps, hsteps_one = slice_steps(eng, hq), slice_steps(deep, hq)
         gen, _ = eng.batch_check_stream_with_token(hq, ordered=False, with_info=True,
@@ -1933,7 +2171,7 @@ def shard_write(kernels, eng, store, queries, expected, ctx, sync, on_card) -> d
              "shard_overlay": None if snap.device_shard_overlay is None
              else list(snap.device_shard_overlay[0].shape),
              "launches": {k: kernels.COUNTS[k] - before[k] for k in
-                          ("shard_answer", "pull_overlay", "pair_rows", "slot_set")}}
+                          ("shard_answer", "check_run_overlay", "pair_rows", "slot_set")}}
         log(f"shard write {name}: {json.dumps(r)}")
         if bad:
             raise SystemExit(f"shard FAILED: write {name}: {bad} oracle mismatches")
@@ -1945,7 +2183,7 @@ def shard_write(kernels, eng, store, queries, expected, ctx, sync, on_card) -> d
     if eng.snapshot().snapshot_id != wm:
         raise SystemExit("shard FAILED: the write is not visible")
     out["overlay"], got_ov = round_("(overlay)")
-    if (on_card and not out["overlay"]["launches"]["pull_overlay"]) \
+    if (on_card and not out["overlay"]["launches"]["check_run_overlay"]) \
             or out["overlay"]["shard_overlay"] is None:
         raise SystemExit(f"shard FAILED: the routed overlay never ran: {out['overlay']}")
     t0 = time.monotonic()
@@ -1965,7 +2203,7 @@ def shard_write(kernels, eng, store, queries, expected, ctx, sync, on_card) -> d
     wrong = sum(g != e for g, e in zip(got_del, expected))
     out["wrong_vs_analytic_after_deletes"] = wrong
     out["launches"] = {k: kernels.COUNTS[k] - before[k] for k in
-                       ("shard_answer", "pull_overlay", "slot_set", "sweep_run", "covered")}
+                       ("shard_answer", "check_run_overlay", "slot_set", "sweep_run", "covered")}
     log(f"shard write: {json.dumps({k: v for k, v in out.items() if k not in ('overlay', 'after_fold', 'deleted')})}")
     if wrong or not out["tombstones"] or (on_card and not out["ell_patch_slot_sets"]):
         raise SystemExit(f"shard FAILED: after the deletes {wrong} decisions differ from the "
@@ -1980,13 +2218,13 @@ def _bound(rate, int_rate, nbytes, ops=0):
 
 
 def _k10_row(rows, name, replaces, part, cuda_fn, plain_fn, outs, launches, bound, reps,
-             library=None, extra=None, make=None, source=SHARD_SRC):
+             library=None, extra=None, make=None, source=SHARD_SRC, ms=None, plain=None):
     m = sum(diff(a, b)[0] for a, b in zip(*outs))
     err = max(diff(a, b)[1] for a, b in zip(*outs))
-    if make is None:
+    if ms is None and make is None:  # else measured by the caller
         ms = time_ms(cuda_fn, reps)
         plain = time_ms(plain_fn, max(1, reps // 10), warmup=1)
-    else:
+    elif ms is None:
         ms = time_fresh_ms(cuda_fn, make, reps)
         plain = time_fresh_ms(plain_fn, make, max(1, reps // 10), warmup=1)
     lib = None if library is None else time_ms(library, reps)
@@ -1998,31 +2236,98 @@ def _k10_row(rows, name, replaces, part, cuda_fn, plain_fn, outs, launches, boun
         f"{bound[1]}, library {lib}), mismatches {m}, {json.dumps(extra or {})}")
 
 
-def shard_check_rows(torch, ps, mesh, snap, call, launches, halo_copies, rate) -> list:
+def shard_check_rows(torch, kernels, ps, mesh, snap, call, launches, rate) -> list:
     """K10a's rows at config 3's shapes (the first sharded dispatch of the
-    shard phase's run): the whole program, ``keto_shard_answer`` and the
-    halo copy, each beside its plain version and bound."""
+    shard phase's run): the whole program, its run alone,
+    ``keto_shard_answer`` and the halo copy, each beside its plain version
+    and bound. The step must be the seeds, one run and the answers with no
+    host read in between, and its halo copies equal its iters."""
     (m_, bk, ent, ovn, ovd), kw = call
     g, rps, B = ent.shape[0], kw["rps"], kw["B"]
     W, (S1, S2, SA, _) = B // 32, kw["sizes"]
+    kernels.reset_run_counts()
     R, P, ab, state = ps.fixpoint_cuda(mesh, bk, ent, ovn, ovd, **kw)
-    iters = int(state[1])
+    truncated, iters = state[:2].tolist()
+    steps, copies = kernels.run_counts()
     rows: list = []
     slab = rps * W * 4
-    # the whole program: seeds, per hop a halo copy (read + write), the
-    # pull's slots and sources, the commit, then the answers
-    slots = sum(k * nb.shape[2] for nb, runs in zip(bk.nbrs, bk.runs) for _, k in runs)
-    srcs = int(torch.unique(torch.cat([nb[s][:k].reshape(-1) for nb, runs in zip(bk.nbrs, bk.runs)
-                                       for s, (_, k) in enumerate(runs) if k])).numel()) if slots else 0
-    hop = 2 * g * slab + 4 * slots + srcs * W * 4 + 3 * g * slab
+    plan = ps.shard_runs(bk, g, rps, W)
+    act = plan.n_rows * W * 4
+    # what a hop's work must move: the halo copy (read + write every slab),
+    # the pull's slots and distinct sources and its P rows (written once,
+    # the answer's p_fix), one read of R's active rows; and the words of R
+    # the hops change, written once (the commit's re-read of P is the run's
+    # own cost, not the work's)
+    slots = sum(k * nb.shape[1] for nb, k in zip(plan.nbrs, plan.rows))
+    srcs = int(torch.unique(torch.cat([nb[:k].reshape(-1) for nb, k in
+                                       zip(plan.nbrs, plan.rows)])).numel()) if slots else 0
+    hop = 2 * g * slab + 4 * slots + srcs * W * 4 + 2 * act
+    R0 = torch.zeros((g * rps, W), dtype=torch.int32, device="cuda")
+    for s in range(g):
+        R0[s * rps : (s + 1) * rps] = kernels.seed_ref(ent[s], kw["sizes"], rps - 1, W)[0]
+    plain_run = lambda Rs, Ps, k=kw["it_cap"], b=kw["block_iters"]: ps.shard_run_ref(  # noqa: E731
+        plan, Rs, Ps, ovn, ovd, rps=rps, it_cap=k, block_iters=b)
+    changed = words_changed(lambda Rs, Ps, k: plain_run(Rs, Ps, k, 1), R0,
+                            torch.zeros((g * rps, W), dtype=torch.int32, device="cuda"), iters)
+    run_b = iters * hop + 4 * changed
     seed_b = g * (8 * (S1 + S2) + 2 * slab)
     ans_b = g * (4 * (B + 2 * SA) + slab) + 4 * (B + SA) + 4 * (W + 3)
     full = lambda: ps.check_step_cuda(mesh, bk, ent, ovn, ovd, **kw)  # noqa: E731
     plain = lambda: ps.check_step_ref(mesh, bk, ent, ovn, ovd, **kw)  # noqa: E731
-    _k10_row(rows, "shard_check_step", K10A, "the whole sharded BFS step (K1/K2 entry points, "
-             "keto_shard_answer, the halo copies)", full, plain, ([full()], [plain()]),
-             launches["shard_answer"] // g, _bound(rate, 1, seed_b + iters * hop + ans_b), 5,
-             extra={"g": g, "rps": rps, "W": W, "iters": iters, "sizes": list(kw["sizes"])})
+    before = dict(kernels.COUNTS)
+    reads = host_reads(torch, full)
+    per_step = {k: kernels.COUNTS[k] - before[k] for k in
+                ("seed", "check_run", "shard_answer", "pull", "answer_pack")}
+    if reads or per_step != {"seed": g, "check_run": 1, "shard_answer": g, "pull": 0,
+                             "answer_pack": 0} or not steps == copies == iters:
+        raise SystemExit(f"shard FAILED: a K10a step made {reads} host reads, launched "
+                         f"{per_step}, ran {steps} steps with {copies} halo copies ({iters} iters)")
+    _k10_row(rows, "shard_check_step", K10A, "the whole sharded BFS step (keto_seed a shard, "
+             "ONE keto_check_run over every shard with its halo phase, keto_shard_answer a "
+             "shard, and the step's allocations)", full, plain, ([full()], [plain()]),
+             launches["check_run"], _bound(rate, 1, seed_b + run_b + ans_b), 5,
+             extra={"g": g, "rps": rps, "W": W, "iters": iters, "truncated": truncated,
+                    "halo_copies": copies, "host_reads": reads, "launches_a_step": per_step,
+                    "sizes": list(kw["sizes"]),
+                    "wall_ms": whole_ms(torch, lambda: full().tolist(), 20)})
+
+    # the run alone over every shard: a bare launch behind a spin kernel on
+    # its own copy of the seeded slabs
+    run_kw = dict(ov=kernels.RunOverlay.of(ovn, ovd, rps, rps), it_cap=kw["it_cap"],
+                  block_iters=kw["block_iters"])
+    lib_ = kernels._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run_state():
+        return (R0.clone(), kernels.pull_out(g * rps, W, plan.n_rows, kw["it_cap"], "cuda"),
+                torch.zeros(3, dtype=torch.int32, device="cuda"), torch.empty_like(R0))
+
+    bare = bare_ms(torch, lambda st: kernels.run_launch(lib_, plan, *st[:3], G=st[3], **run_kw,
+                                                        stream=stream),
+                   [run_state() for _ in range(10)])
+    wrapper = time_fresh_ms(lambda Rs, Ps, _, Gs: kernels.check_run_cuda(plan, Rs, Ps, G=Gs,
+                                                                         **run_kw),
+                            run_state, 10)
+    phases = run_phases(torch, kernels, lambda st, stamps: kernels.run_launch(
+        lib_, plan, *st[:3], G=st[3], **run_kw, stamps=stamps, stream=stream),
+        [run_state() for _ in range(5)], iters)
+    run_plain = time_fresh_ms(lambda Rs, Ps, *_: plain_run(Rs, Ps), run_state, 2, warmup=1)
+    Rc, Pc, Cc, Gc = run_state()
+    Sc = kernels.check_run_cuda(plan, Rc, Pc, G=Gc, **run_kw)
+    Rr, Pr = R0.clone(), torch.zeros_like(Pc)
+    Sr = plain_run(Rr, Pr)
+    _k10_row(rows, "shard_check_run", K10A, "the sharded fixpoint, sharded.py:371-417: "
+             "keto_check_run over every shard, a halo phase a hop run; ms is the kernel alone",
+             None, None, ([Rc, Pc[: plan.n_rows], Sc[:2]], [Rr, Pr[: plan.n_rows], Sr[:2]]),
+             launches["check_run"], _bound(rate, 1, run_b), 0, ms=bare, plain=run_plain,
+             source="keto_tpu_torch/csrc/check_kernels.cu",
+             extra={"wrapper_ms": wrapper, "iters": iters, "halo_copies": copies,
+                    "runs": len(plan.rows), "ms_per_hop": bare / max(1, iters),
+                    "words_changed": changed, "phases": phases,
+                    "pull_phase_bound_ms": _bound(rate, 1, 4 * slots + srcs * W * 4 + act)[0],
+                    "bound_counts": "a hop: the halo (every slab read and written), slots, "
+                                    "distinct source rows, P written, R's active rows read; "
+                                    "the words changed written once"})
 
     def answer():
         out = torch.zeros(W + 3, dtype=torch.int32, device="cuda")
@@ -2032,7 +2337,7 @@ def shard_check_rows(torch, ps, mesh, snap, call, launches, halo_copies, rate) -
 
     def answer_plain():
         parts = [ps.shard_answer_ref(ent[s], kw["sizes"], P[s], ab[s], R[s], rps, iters,
-                                     bool(state[0])) for s in range(g)]
+                                     bool(truncated)) for s in range(g)]
         return torch.cat([ps.or_combine([x[:W] for x in parts]), parts[0][W : W + 2],
                           ps.psum([x[W + 2 :] for x in parts])])
 
@@ -2040,13 +2345,18 @@ def shard_check_rows(torch, ps, mesh, snap, call, launches, halo_copies, rate) -
              "sharded.py:422-455", answer, answer_plain, ([answer()], [answer_plain()]),
              launches["shard_answer"], _bound(rate, 1, ans_b), 20)
     G = torch.empty((g * rps, W), dtype=torch.int32, device="cuda")
-    _k10_row(rows, "halo_copy", K10A, "lax.all_gather of the [rps, W] slabs, sharded.py:403 "
-             "(cudaMemcpyAsync per slab; one card, no interconnect)",
+    _k10_row(rows, "halo_copy", K10A, "lax.all_gather of the [rps, W] slabs, sharded.py:403: "
+             "a phase of keto_check_run on the path, timed here as a copy_ per slab (one card, "
+             "no interconnect)",
              lambda: ps.all_gather_rows(R, out=G), lambda: torch.cat(R),
-             ([ps.all_gather_rows(R, out=G)], [torch.cat(R)]), halo_copies,
-             _bound(rate, 1, 2 * g * slab), 20, library=lambda: torch.cat(R, out=G),
-             extra={"bytes_moved_per_hop": g * slab,
-                    "reference_halo_bytes_per_round": ps.halo_bytes_per_round(snap.shard_spec, W)},
+             ([ps.all_gather_rows(R, out=G)], [torch.cat(R)]),
+             launches["check_run_halo_copies"], _bound(rate, 1, 2 * g * slab), 20,
+             library=lambda: torch.cat(R, out=G),
+             extra={"bytes_moved_per_hop": g * slab, "run_halo_phase_ms": phases["halo_ms"],
+                    "run_halo_phase_bound_ratio": phases["halo_ms"] / _bound(rate, 1, 2 * g * slab)[0],
+                    "reference_halo_bytes_per_round": ps.halo_bytes_per_round(snap.shard_spec, W),
+                    "launches_are": "halo phases of the runs on the shard phase's path "
+                                    "(counted on the card)"},
              source="keto_tpu_torch/parallel/sharded.py")
     if sum(r["mismatches"] for r in rows):
         raise SystemExit("shard FAILED: K10a parity at config 3's shapes")
@@ -3040,8 +3350,9 @@ def phase_write(torch, kernels, report, engine, store, queries, lst, ctx, device
         users_b = sorted({f"user-{u}" for k in kids for u in ctx["team_users"].get(k, ())})
         launches_before = dict(kernels.COUNTS)
         step["checks"], _ = check_round("(b)", touched_b)
-        step["overlay_pull_launches"] = kernels.COUNTS["pull_overlay"] - launches_before["pull_overlay"]
-        if step["checks"]["label_checks"] or (device == "cuda" and not step["overlay_pull_launches"]):
+        step["overlay_run_launches"] = (kernels.COUNTS["check_run_overlay"]
+                                        - launches_before["check_run_overlay"])
+        if step["checks"]["label_checks"] or (device == "cuda" and not step["overlay_run_launches"]):
             raise SystemExit(f"write FAILED: the dirty overlay did not take the BFS route: {step}")
         host = host_lister(ex_snap, store, device)
         ex_bad = []
@@ -3205,7 +3516,8 @@ def slot_rows(torch, kernels, captured, launches, rate):
             buf.clone().index_put_((rr,) if buf.dim() == 1 else (rr, cc), vv)
 
     lib_ms = time_ms(library, 100)
-    ms = time_ms(lambda: kernels.slot_set_launch(lib, plan, words, stream), 100)
+    ms = time_ms(lambda: _ok(kernels.slot_set_launch(lib, plan, words, stream), "keto_slot_set"),
+                 100)
     wrapper = time_ms(lambda: kernels.slot_set_many_cuda(targets), 50)
     host_ms = call_ms(torch, lambda: kernels.slot_set_many_cuda(targets))
     plain = time_ms(lambda: kernels.slot_set_many_ref(targets), 10, warmup=1)
@@ -3309,7 +3621,8 @@ def list_sort_rows(torch, kernels, captured, list_launches, deep_launches, sort_
     plan = sk.radix_pass_plan(sk.radix_hist_ref(keys))
     hist = torch.zeros((sk.PASSES, sk.DIGITS), dtype=torch.int32, device="cuda")
     klib, stream = sk._lib(), sk._stream()
-    hist_ms = time_ms(lambda: klib.keto_radix_hist(keys.data_ptr(), n, hist.data_ptr(), stream), 10)
+    hist_ms = time_ms(lambda: _ok(klib.keto_radix_hist(keys.data_ptr(), n, hist.data_ptr(), stream),
+                                   "keto_radix_hist"), 10)
     hist.zero_()
     klib.keto_radix_hist(keys.data_ptr(), n, hist.data_ptr(), stream)
     passes_ms = time_fresh_ms(lambda sc: sk._passes_cuda(klib, stream, sc, plan),
@@ -3380,7 +3693,7 @@ def served_launches(kernels, engine, what: str, before: dict) -> dict:
     n_active = engine.snapshot().num_active
     need = ["label_step"] if answered else []
     if fell_back:
-        need += ["seed", "answer_pack"] + (["pull", "commit", "close"] if n_active else [])
+        need += ["seed", "answer_pack"] + (["check_run"] if n_active else [])
     log(f"serve launches ({what}, {n_active} active rows, {answered} label-route checks, "
         f"{fell_back} fallbacks): {counts}")
     missing = [k for k in need if not counts[k]]
@@ -3477,7 +3790,7 @@ def phase_serve(kernels, report):
         if put[0] != 201 or cyc != (200, {"results": [a for _, a in SERVE_CYCLE_CHECKS]}):
             raise SystemExit(f"serve FAILED: checks over the cycle answered {cyc}")
         cycled = served_launches(kernels, d.engine, "cycle", before)
-        if not cycled["pull"]:
+        if not cycled["check_run"]:
             raise SystemExit("serve FAILED: the cycle left the served snapshot without active rows")
         report["serve_cycle_launches"] = cycled
 

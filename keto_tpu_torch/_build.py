@@ -43,9 +43,9 @@ _I64 = ctypes.c_int64
 #: C signature of every entry point in csrc/*.cu
 _SIGNATURES = {
     "keto_seed": [_P, _I64, _I64, _I32, _I32, _P, _P, _P],
-    "keto_pull": [_P, _I64, _I32, _P, _I64, _I64, _P, _P, _I32, _P, _P],
-    "keto_commit": [_P, _P, _I64, _P, _P],
-    "keto_close": [_P, _P],
+    "keto_pull": [_P, _P, _P, _P, _I32, _P, _P, _I32, _P],
+    "keto_check_run": [_P, _P, _P, _P, _I32, _P, _P, _I32, _I32, _I32, _I32, _I32, _P, _P, _I32,
+                       _P, _I32, _I32, _I32, _I32, _P, _P, _P, _I32, _P],
     "keto_answer_pack": [_P, _I64, _I64, _I64, _I64, _I32, _P, _P, _P, _I32, _P, _P, _P],
     "keto_label_step": [_P, _I32, _P, _I32, _I64, _P, _I64, _P, _P],
     "keto_label_witness": [_P, _I32, _P, _I32, _I64, _P, _P, _I64, _P, _P],

@@ -7,16 +7,19 @@ Source notes:
 
 - ``pull`` replaces ``_pull`` (keto_tpu/check/tpu_engine.py:89): per degree
   bucket, gather ``R[nbrs]`` and OR-reduce over the bucket's degree; the
-  bucket outputs concatenated are the active prefix. CUDA:
-  ``keto_pull`` in csrc/check_kernels.cu, one thread per (row, word).
-  Bound: bytes — it must read each bucket matrix and the R rows and write
-  ``P``; the gather streams ``sum(n·cap)·W·4`` bytes of R.
+  bucket outputs concatenated are the active prefix. CUDA: ``keto_pull``
+  in csrc/check_kernels.cu, ONE launch over every bucket (``PullRuns``, the
+  host-side table of bucket runs): a team of lanes a row, 16-byte loads
+  where the width allows, a neighbour id read by a team at once. Bound:
+  bytes — it must read each bucket slot, each distinct source row once
+  and write ``P``.
 - ``check_step`` replaces ``check_step`` (tpu_engine.py:110, jitted at
-  :257): seed scatter (``keto_seed``), a guarded Jacobi loop of pull +
-  commit (``keto_pull``, ``keto_commit``, ``keto_close``) run in blocks of
-  ``block_iters`` with one host read of ``(changed, iters)`` per block, and
-  the answer gather + bit pack (``keto_answer_pack``). Bound: bytes — the
-  seed and answer gathers touch a word per entry; each step moves R and P.
+  :257): the seed scatter (``keto_seed``), the whole guarded Jacobi loop in
+  ONE cooperative launch (``keto_check_run``: per step K1's pull, the
+  overlay OR and the commit between grid barriers, the guard on the card)
+  and the answer gather + bit pack (``keto_answer_pack``), with no host
+  read in between. Bound: bytes — the seed and answer gathers touch a word
+  per entry; each step moves the pull's bytes and R and P once.
 - ``label_step`` replaces ``label_step`` (tpu_engine.py:310): per pair
   (a, b), ``any(out_lab[a][i] == in_lab[b][j])``, maxed into the owning
   query and packed to ``uint32[W]``. CUDA: ``keto_label_step`` in
@@ -51,13 +54,17 @@ bits, then the iteration count, then the truncation flag, equal word for
 word. Each dispatcher runs the plain version only for tensors on the CPU
 and the kernel for tensors on a CUDA device — never one in place of the
 other. Every CUDA wrapper adds one to ``COUNTS[name]`` where it launches
-its kernel, launches on the current stream and does not synchronise;
-``check_step_cuda``'s host loop reads the two guard words once per block,
-as the reference's ``lax.while_loop`` observes its condition.
+its kernel, launches on the current stream and does not synchronise: the
+guard of the fixpoint lives on the card, and the caller's read of the
+output is the step's only host read. The run kernel also adds its steps
+(pull phases) and halo copies into an int64 pair on the card
+(``run_counts``), the counts no host read gives.
 """
 
 from __future__ import annotations
 
+import ctypes
+import threading
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -70,20 +77,20 @@ import torch
 #: (keto_tpu_torch/list/kernels.py) and the sharded programs'
 #: (keto_tpu_torch/parallel/sharded.py) count here too
 COUNTS = {
-    "seed": 0, "pull": 0, "commit": 0, "close": 0, "answer_pack": 0,
+    "seed": 0, "pull": 0, "check_run": 0, "answer_pack": 0,
     "label_step": 0, "label_witness": 0, "sweep_run": 0, "covered": 0, "slot_set": 0,
     "radix_hist": 0, "radix_pass": 0, "list_fixpoint": 0,
     "shard_answer": 0, "pair_rows": 0,
-    # not kernels of their own: of the "pull" launches, those over the
-    # overlay gather matrix (K2's overlay stage); whole radix sorts and the
-    # passes their plans skipped; the waves the sweep runs ran; of the
-    # list fixpoint launches, those with an overlay pending, and the steps
-    # every list fixpoint ran
-    "pull_overlay": 0, "radix_sort": 0, "radix_pass_skipped": 0, "sweep_waves": 0,
+    # not kernels of their own: of the check runs, those with an overlay
+    # pending (K2's overlay stage); whole radix sorts and the passes their
+    # plans skipped; the waves the sweep runs ran; of the list fixpoint
+    # launches, those with an overlay pending, and the steps every list
+    # fixpoint ran
+    "check_run_overlay": 0, "radix_sort": 0, "radix_pass_skipped": 0, "sweep_waves": 0,
     "list_fixpoint_overlay": 0, "list_iters": 0,
 }
-#: the kernels of the BFS route and of the label route's intersection
-BFS_KERNELS = ("seed", "pull", "commit", "close", "answer_pack")
+#: the kernels of the BFS route: a step is the seeds, one run and the answer
+BFS_KERNELS = ("seed", "check_run", "answer_pack")
 
 # cap on the [rows, chunk, W] gather intermediate of the plain pull
 _DEGREE_CHUNK = 1024
@@ -200,6 +207,49 @@ def answer_pack_ref(entries, sizes, n_active: int, P, ans_base, R, iters: int, t
     return torch.cat([_pack_bits(hit), tail])
 
 
+def overlay_or_ref(P, src, ov_nbrs, ov_dst, n_dst: int, base: int = 0) -> None:
+    """The overlay stage in place: ``P[base + d] |= OR_c src[ov_nbrs[k, c]]``
+    for each row k whose destination ``d = ov_dst[k]`` lies in ``[0,
+    n_dst)`` (others are dropped)."""
+    keep = (ov_dst >= 0) & (ov_dst < n_dst)
+    if bool(keep.any()):
+        P[base + ov_dst[keep].long()] |= _gather_or(src, ov_nbrs[keep])
+
+
+def check_run_ref(
+    bucket_nbrs: Sequence[torch.Tensor],
+    valid_rows: Sequence[int],
+    R: torch.Tensor,
+    P: torch.Tensor,
+    ov_nbrs: Optional[torch.Tensor] = None,
+    ov_dst: Optional[torch.Tensor] = None,
+    *,
+    it_cap: int,
+    block_iters: int = 8,
+) -> torch.Tensor:
+    """``keto_check_run``'s plain version: the guarded Jacobi fixpoint of
+    ``R`` (int32[n_int+1, W], in place), the pull of the last step run in
+    ``P[:n_active]`` → the state int32[3] {changed at exit, steps run,
+    step_changed}: per step the pull, the overlay OR (from the same ``R``),
+    ``commit_ref`` and ``close_ref``, in blocks of ``block_iters`` steps
+    whose guard is tested where a block begins. It runs a first step
+    whatever it is given (the sharded program's loop has no "nothing to
+    pull" guard; ``check_step_ref`` skips the run instead)."""
+    n_active = sum(int(n) for n in valid_rows)
+    state = torch.tensor([1, 0, 0], dtype=torch.int32, device=R.device)
+    while int(state[0]) and int(state[1]) < it_cap:
+        for _ in range(block_iters):
+            if not int(state[0]):  # a guarded step after convergence is a no-op
+                break
+            if n_active:
+                P[:n_active] = pull_ref(bucket_nbrs, valid_rows, R)
+            if ov_nbrs is not None:
+                overlay_or_ref(P, R, ov_nbrs, ov_dst, n_active)
+            commit_ref(P, R, n_active, state)
+            close_ref(state)
+    return state
+
+
 def check_step_ref(
     bucket_nbrs: Sequence[torch.Tensor],
     entries: torch.Tensor,
@@ -213,29 +263,18 @@ def check_step_ref(
     it_cap: int,
     block_iters: int = 8,
 ) -> torch.Tensor:
-    """The reference check step in plain PyTorch → int32[W+2]."""
+    """The reference check step in plain PyTorch → int32[W+2]: the seeds,
+    the run (none without active rows or buckets) and the answer."""
     W = sizes[3] // 32
     R, ans_base = seed_ref(entries, sizes, n_int, W)
-    p = torch.zeros((n_active, W), dtype=torch.int32, device=entries.device)
-    changed, iters = False, 0
+    # P's extra all-zero row is what passive and absent targets read
+    P = torch.zeros((n_active + 1, W), dtype=torch.int32, device=entries.device)
+    iters, truncated = 0, False
     if n_active and bucket_nbrs:
-        changed = True
-        while changed and iters < it_cap:
-            for _ in range(block_iters):
-                if not changed:  # a guarded step after convergence is a no-op
-                    break
-                p = pull_ref(bucket_nbrs, valid_rows, R)
-                if ov_nbrs is not None:
-                    keep = (ov_dst >= 0) & (ov_dst < n_active)
-                    d = ov_dst[keep].long()
-                    p[d] |= _gather_or(R, ov_nbrs[keep])
-                act = R[:n_active]
-                nxt = p | act
-                changed = bool((nxt != act).any())
-                R[:n_active] = nxt
-                iters += 1
-    P = torch.cat([p, torch.zeros((1, W), dtype=torch.int32, device=p.device)])
-    return answer_pack_ref(entries, sizes, n_active, P, ans_base, R, iters, changed)
+        state = check_run_ref(bucket_nbrs, valid_rows, R, P, ov_nbrs, ov_dst, it_cap=it_cap,
+                              block_iters=block_iters)
+        iters, truncated = int(state[1]), bool(state[0])
+    return answer_pack_ref(entries, sizes, n_active, P, ans_base, R, iters, truncated)
 
 
 def _label_parts(entries: torch.Tensor, n_pairs: int):
@@ -393,19 +432,98 @@ def _need_entries(entries: torch.Tensor, sizes) -> None:
 def _need_state(state: torch.Tensor) -> None:
     _need(state, "state", 1)
     if state.numel() != 3:
-        raise ValueError("state: expected int32[3] {changed, iters, step_changed}")
+        raise ValueError("state: expected int32[3] {changed at exit, steps run, a third word}")
 
 
-def seed_cuda(entries: torch.Tensor, sizes, n_int: int, W: int):
-    """``(R0, ans_base)`` via ``keto_seed``."""
+def seed_cuda(entries: torch.Tensor, sizes, n_int: int, W: int, *, R=None, ans_base=None):
+    """``(R0, ans_base)`` via ``keto_seed``, into the given zeroed
+    ``[n_int+1, W]`` buffers or new ones."""
     _need_entries(entries, sizes)
     S1, S2, _, _ = sizes
-    R = torch.zeros((n_int + 1, W), dtype=torch.int32, device=entries.device)
-    ans_base = torch.zeros_like(R)
+    if R is None:
+        R = torch.zeros((n_int + 1, W), dtype=torch.int32, device=entries.device)
+        ans_base = torch.zeros_like(R)
+    for t, what in ((R, "R"), (ans_base, "ans_base")):
+        _need_rows(t, what, n_int + 1, W)
     COUNTS["seed"] += 1
     _check(_lib().keto_seed(entries.data_ptr(), S1, S2, n_int, W, R.data_ptr(),
                             ans_base.data_ptr(), _stream()), "keto_seed")
     return R, ans_base
+
+
+#: the bucket runs one ``keto_pull`` or ``keto_check_run`` launch takes
+MAX_RUNS = 64
+_I31 = 2**31
+
+
+@dataclass(frozen=True)
+class PullRuns:
+    """The table of bucket runs of one pull, made on the host: run r
+    gathers the first ``rows[r]`` rows of ``nbrs[r]`` (int32 ``[≥ rows,
+    cap]``, neighbour ids = rows of the source bitmap) into the output rows
+    ``out[r] ..``; the runs tile the output rows ``[0, n_rows)`` in order.
+    Runs of no row are left out."""
+
+    nbrs: tuple
+    rows: tuple
+    out: tuple
+    n_rows: int
+
+    def args(self) -> tuple:
+        """The kernels' host arrays: ``(ptrs, rows, caps, outs, n)``."""
+        n = len(self.nbrs)
+        return ((ctypes.c_int64 * MAX_RUNS)(*[t.data_ptr() for t in self.nbrs]),
+                (ctypes.c_int32 * MAX_RUNS)(*self.rows),
+                (ctypes.c_int32 * MAX_RUNS)(*[t.shape[1] for t in self.nbrs]),
+                (ctypes.c_int32 * MAX_RUNS)(*self.out), n)
+
+
+def pull_runs(runs, *, src_rows: int, W: int) -> PullRuns:
+    """``PullRuns`` of ``[(nbrs, rows, first output row), ...]``; raises on a
+    table the kernels do not take: more than ``MAX_RUNS`` runs, a matrix
+    that is not 2-D int32 with ``rows`` rows and a cap of at least 1, runs
+    that do not tile their output rows in order (a ragged layout), or a
+    source bitmap, output or matrix of 2^31 words or more (the kernels
+    index in 32 bits)."""
+    nbrs, rows, out = [], [], []
+    at = 0
+    for nb, k, first in runs:
+        k, first = int(k), int(first)
+        if nb.dtype != torch.int32 or nb.dim() != 2 or not nb.is_contiguous() or nb.shape[1] < 1:
+            raise ValueError(f"bucket nbrs: expected a contiguous int32 [rows, cap >= 1] matrix, "
+                             f"got {nb.dtype} {tuple(nb.shape)}")
+        if not 0 <= k <= nb.shape[0]:
+            raise ValueError(f"a bucket of {nb.shape[0]} rows cannot hold {k} valid rows")
+        if nb.numel() >= _I31:
+            raise ValueError(f"bucket nbrs {tuple(nb.shape)}: the kernels index in 32 bits")
+        if not k:
+            continue
+        if first != at:
+            raise ValueError(f"a bucket run at output row {first} after {at} rows: the runs "
+                             "must tile their output rows in order")
+        nbrs.append(nb)
+        rows.append(k)
+        out.append(first)
+        at += k
+    if len(nbrs) > MAX_RUNS:
+        raise ValueError(f"{len(nbrs)} bucket runs: the kernels' table holds {MAX_RUNS}")
+    if max(src_rows, at + 1) * W >= _I31:
+        raise ValueError(f"bitmaps of {max(src_rows, at + 1)} rows of {W} words: the kernels "
+                         "index in 32 bits")
+    return PullRuns(tuple(nbrs), tuple(rows), tuple(out), at)
+
+
+def bucket_runs(bucket_nbrs, valid_rows, *, src_rows: int, W: int) -> PullRuns:
+    """The unsharded table: one run a degree bucket, the buckets tiling the
+    active prefix in order."""
+    offs = np.cumsum([0, *[int(n) for n in valid_rows]])
+    return pull_runs(zip(bucket_nbrs, valid_rows, offs), src_rows=src_rows, W=W)
+
+
+def pull_launch(lib, plan: PullRuns, R: torch.Tensor, P: torch.Tensor, stream: int) -> int:
+    """``keto_pull`` of ``plan`` from ``R`` into ``P``; returns the error
+    code (the bare launch ``pull_cuda`` checks and counts)."""
+    return lib.keto_pull(*plan.args(), R.data_ptr(), P.data_ptr(), R.shape[1], stream)
 
 
 def pull_cuda(
@@ -414,63 +532,151 @@ def pull_cuda(
     R: torch.Tensor,
     *,
     P: Optional[torch.Tensor] = None,
-    state: Optional[torch.Tensor] = None,
-    ov_nbrs: Optional[torch.Tensor] = None,
-    ov_dst: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """One pull step via ``keto_pull`` (one launch per bucket, one for the
-    overlay). Returns ``P`` int32[n_active, W] when ``P`` is not given;
-    otherwise writes into the given ``P`` (≥ n_active rows), guarded by the
-    device ``state``."""
+    """One pull via ONE ``keto_pull`` launch over every bucket → ``P``
+    int32[n_active, W] (a new tensor, or the given ``P`` of at least
+    n_active rows; every word of its first n_active rows is written)."""
     _need(R, "R", 2)
     W = R.shape[1]
-    n_active = sum(int(n) for n in valid_rows)
-    if P is None:
-        P = torch.empty((n_active, W), dtype=torch.int32, device=R.device)
-    _need_rows(P, "P", n_active, W)
-    if state is not None:
-        _need_state(state)
-    lib, stream, state_p = _lib(), _stream(), _ptr(state)
-    offset = 0
-    for nb, n in zip(bucket_nbrs, valid_rows):
+    plan = bucket_runs(bucket_nbrs, valid_rows, src_rows=R.shape[0], W=W)
+    for nb in plan.nbrs:
         _need(nb, "bucket nbrs", 2)
-        if nb.shape[0] < n:
-            raise ValueError(f"a bucket of {nb.shape[0]} rows cannot hold {n} valid rows")
-        if n:
-            COUNTS["pull"] += 1
-            _check(lib.keto_pull(nb.data_ptr(), int(n), nb.shape[1], None, offset, n_active,
-                                 R.data_ptr(), P.data_ptr(), W, state_p, stream), "keto_pull")
-        offset += int(n)
-    if ov_nbrs is not None and ov_nbrs.shape[0]:
-        _need(ov_nbrs, "ov_nbrs", 2)
-        _need(ov_dst, "ov_dst", 1)
-        if ov_dst.numel() != ov_nbrs.shape[0]:
-            raise ValueError("ov_dst must name one destination row per ov_nbrs row")
+    if P is None:
+        P = torch.empty((plan.n_rows, W), dtype=torch.int32, device=R.device)
+    _need_rows(P, "P", plan.n_rows, W)
+    if P.numel() >= _I31:
+        raise ValueError(f"P {tuple(P.shape)}: the kernels index in 32 bits")
+    if plan.n_rows:
         COUNTS["pull"] += 1
-        COUNTS["pull_overlay"] += 1
-        _check(lib.keto_pull(ov_nbrs.data_ptr(), ov_nbrs.shape[0], ov_nbrs.shape[1],
-                             ov_dst.data_ptr(), 0, n_active, R.data_ptr(), P.data_ptr(),
-                             W, state_p, stream), "keto_pull")
+        _check(pull_launch(_lib(), plan, R, P, _stream()), "keto_pull")
     return P
 
 
-def commit_cuda(P: torch.Tensor, R: torch.Tensor, n_active: int, state: torch.Tensor) -> None:
-    """``R[:n_active] |= P[:n_active]`` via ``keto_commit``; sets
-    ``state[2]`` when a word grew."""
+@dataclass(frozen=True)
+class RunOverlay:
+    """The overlay stage of one run: row k of ``nbrs`` (int32 ``[rows,
+    C]``) ORs into output row ``(k // per) * stride + dst[k]``, dropped
+    unless ``0 <= dst[k] < n_dst``. Unsharded ``per = rows``, ``stride =
+    0``, ``n_dst = n_active``; sharded ``per = K`` rows a shard, ``stride =
+    rps``, ``n_dst = rps``."""
+
+    nbrs: torch.Tensor
+    dst: torch.Tensor
+    per: int
+    stride: int
+    n_dst: int
+
+    @classmethod
+    def of(cls, ov_nbrs, ov_dst, n_dst: int, stride: int = 0) -> Optional["RunOverlay"]:
+        """The stage of ``[g, K, C]``/``[g, K]`` (or ``[K, C]``/``[K]``)
+        overlay arrays; None where there is no overlay row."""
+        if ov_nbrs is None or not ov_nbrs.shape[-2]:
+            return None
+        _need(ov_nbrs, "ov_nbrs", ov_nbrs.dim())
+        _need(ov_dst, "ov_dst", ov_dst.dim())
+        if ov_nbrs.shape[:-1] != ov_dst.shape or ov_nbrs.dim() not in (2, 3):
+            raise ValueError("ov_dst must name one destination row per ov_nbrs row")
+        if ov_nbrs.numel() >= _I31:
+            raise ValueError(f"ov_nbrs {tuple(ov_nbrs.shape)}: the kernels index in 32 bits")
+        return cls(ov_nbrs, ov_dst, ov_nbrs.shape[-2], stride, n_dst)
+
+
+#: stamps a step of a measured run: begun, halo done, pull done, overlay
+#: done, committed (``keto_check_run``'s ``stamps``)
+RUN_STAMPS = 5
+
+
+def run_launch(lib, plan: PullRuns, R, P, ctl, *, G=None, ov: Optional[RunOverlay] = None,
+               it_cap: int, block_iters: int, counts=None, stamps=None, stream: int) -> int:
+    """``keto_check_run`` of ``plan`` on ``R`` and ``P`` (with ``G``, the
+    sharded run: a halo copy of R's rows into G each step, the pulls from
+    G); returns the error code (the bare launch ``check_run_cuda`` checks
+    and counts). ``ctl`` is int32[3], zeroed. ``stamps`` (int64 ``[steps,
+    RUN_STAMPS]`` on the card, for measurement only) takes the card's
+    nanosecond clock at each phase boundary of the first ``steps`` steps."""
+    C = 0 if ov is None else ov.nbrs.shape[-1]
+    rows = 0 if ov is None else ov.nbrs.numel() // C
+    return lib.keto_check_run(
+        *plan.args(), _ptr(None if ov is None else ov.nbrs), _ptr(None if ov is None else ov.dst),
+        rows, C, 1 if ov is None else ov.per, 0 if ov is None else ov.stride,
+        0 if ov is None else ov.n_dst, R.data_ptr(), _ptr(G), 0 if G is None else G.shape[0],
+        P.data_ptr(), plan.n_rows, R.shape[1], min(int(it_cap), _I31 - 1), int(block_iters),
+        ctl.data_ptr(), _ptr(counts), _ptr(stamps), 0 if stamps is None else stamps.shape[0],
+        stream)
+
+
+#: per device (a tensor's own ``device``, index set), the int64[2] {steps,
+#: halo copies} every run adds to
+_RUN_COUNTS: dict = {}
+_RUN_COUNTS_LOCK = threading.Lock()
+
+
+def _run_counter(device: torch.device) -> torch.Tensor:
+    counter = _RUN_COUNTS.get(device)
+    if counter is None:
+        with _RUN_COUNTS_LOCK:
+            if device not in _RUN_COUNTS:
+                _RUN_COUNTS[device] = torch.zeros(2, dtype=torch.int64, device=device)
+            counter = _RUN_COUNTS[device]
+    return counter
+
+
+def run_counts(device="cuda") -> tuple:
+    """``(steps, halo copies)`` the runs on ``device`` made since the last
+    ``reset_run_counts`` (a host read: for the smoke and tests, never on
+    the path)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    steps, copies = _run_counter(dev).tolist()
+    return steps, copies
+
+
+def reset_run_counts() -> None:
+    with _RUN_COUNTS_LOCK:
+        for t in _RUN_COUNTS.values():
+            t.zero_()
+
+
+def check_run_cuda(plan: PullRuns, R: torch.Tensor, P: torch.Tensor, *, G=None,
+                   ov: Optional[RunOverlay] = None, it_cap: int,
+                   block_iters: int = 8) -> torch.Tensor:
+    """The guarded fixpoint via ONE ``keto_check_run`` launch: ``R`` in
+    place, the pull of the last step run in ``P``'s run rows → the device
+    state int32[3] {changed at exit, steps run, last changed step + 1}
+    (not read here)."""
+    _need(R, "R", 2)
     W = R.shape[1]
-    _need_rows(P, "P", n_active, W)
-    _need_rows(R, "R", n_active, W)
-    _need_state(state)
-    COUNTS["commit"] += 1
-    _check(_lib().keto_commit(P.data_ptr(), R.data_ptr(), n_active * R.shape[1],
-                              state.data_ptr(), _stream()), "keto_commit")
+    _need_rows(P, "P", plan.n_rows + 1 if G is None else plan.n_rows, W)
+    if G is not None:
+        _need_rows(G, "G", R.shape[0], W)
+    for nb in plan.nbrs:
+        _need(nb, "bucket nbrs", 2)
+    for t, what in ((R, "R"), (P, "P")):
+        if t.numel() >= _I31:
+            raise ValueError(f"{what} {tuple(t.shape)}: the kernels index in 32 bits")
+    if block_iters < 1:
+        raise ValueError(f"block_iters must be at least 1, got {block_iters}")
+    ctl = torch.zeros(3, dtype=torch.int32, device=R.device)
+    COUNTS["check_run"] += 1
+    if ov is not None:
+        COUNTS["check_run_overlay"] += 1
+    _check(run_launch(_lib(), plan, R, P, ctl, G=G, ov=ov, it_cap=it_cap,
+                      block_iters=block_iters, counts=_run_counter(R.device),
+                      stream=_stream()),
+           "keto_check_run")
+    return ctl
 
 
-def close_cuda(state: torch.Tensor) -> None:
-    """End one guarded step via ``keto_close``."""
-    _need_state(state)
-    COUNTS["close"] += 1
-    _check(_lib().keto_close(state.data_ptr(), _stream()), "keto_close")
+def pull_out(rows: int, W: int, n_active: int, it_cap: int, device) -> torch.Tensor:
+    """A run's ``P`` (``[rows, W]``): rows past the active prefix zero, the
+    prefix left for the run to write — unless no step can run (``it_cap``
+    below 1), when the answer reads it as the reference's all-zero ``p0``."""
+    if it_cap < 1:
+        return torch.zeros((rows, W), dtype=torch.int32, device=device)
+    P = torch.empty((rows, W), dtype=torch.int32, device=device)
+    P[n_active:].zero_()
+    return P
 
 
 def answer_pack_cuda(entries, sizes, n_active: int, P, ans_base, R, state) -> torch.Tensor:
@@ -505,23 +711,19 @@ def check_step_cuda(
     it_cap: int,
     block_iters: int = 8,
 ) -> torch.Tensor:
-    """The check step on the card → int32[W+2] (device tensor)."""
+    """The check step on the card → int32[W+2] (device tensor, not
+    synchronised): the seeds, ONE ``keto_check_run`` launch (none without
+    active rows or buckets) and the answer, with no host read."""
     W = sizes[3] // 32
     R, ans_base = seed_cuda(entries, sizes, n_int, W)
-    # P's extra all-zero row is what passive and absent targets read
-    P = torch.zeros((n_active + 1, W), dtype=torch.int32, device=entries.device)
+    P = pull_out(n_active + 1, W, n_active, it_cap, entries.device)
     state = None
     if n_active and bucket_nbrs:
-        # {changed, iters, step_changed}
-        state = torch.tensor([1, 0, 0], dtype=torch.int32, device=entries.device)
-        changed, iters = True, 0
-        while changed and iters < it_cap:
-            for _ in range(block_iters):
-                pull_cuda(bucket_nbrs, valid_rows, R, P=P, state=state,
-                          ov_nbrs=ov_nbrs, ov_dst=ov_dst)
-                commit_cuda(P, R, n_active, state)
-                close_cuda(state)
-            changed, iters = (int(v) for v in state[:2].tolist())
+        plan = bucket_runs(bucket_nbrs, valid_rows, src_rows=n_int + 1, W=W)
+        if plan.n_rows != n_active:
+            raise ValueError(f"buckets cover {plan.n_rows} rows, n_active is {n_active}")
+        state = check_run_cuda(plan, R, P, ov=RunOverlay.of(ov_nbrs, ov_dst, n_active),
+                               it_cap=it_cap, block_iters=block_iters)
     return answer_pack_cuda(entries, sizes, n_active, P, ans_base, R, state)
 
 

@@ -31,6 +31,22 @@ from __future__ import annotations
 
 import numpy as np
 
+#: what a sentinel-filled output holds where a kernel wrote nothing
+SENTINEL = 0x5A5A5A5A
+
+
+class RefusingLib:
+    """A stand-in kernel library: the entry points named in ``refused``
+    return cudaErrorInvalidConfiguration (9), every other one launches
+    nothing and returns 0 — for holding a wrapper's failure path (it must
+    raise and count the launch) without a card."""
+
+    def __init__(self, *refused: str):
+        self.refused = refused
+
+    def __getattr__(self, name):
+        return lambda *a: 9 if name in self.refused else 0
+
 
 def _ceil_pow2(x: int) -> int:
     return 1 if x <= 1 else 1 << (int(x) - 1).bit_length()

@@ -1,41 +1,115 @@
 // Check-path kernels for Hopper (sm_90a): the bit-packed BFS fixpoint.
 //
 // Replaces the XLA programs of keto_tpu/check/tpu_engine.py:
-//   K1 `_pull`      (tpu_engine.py:89)  -> keto_pull
-//   K2 `check_step` (tpu_engine.py:110) -> keto_seed, keto_pull, keto_commit,
-//                                          keto_close, keto_answer_pack
-// The Python wrappers and the plain PyTorch versions of each live in
-// keto_tpu_torch/check/kernels.py; the build (nvcc, plain C ABI, ctypes) in
-// keto_tpu_torch/_build.py.
+//   K1 `_pull`      (tpu_engine.py:89)  -> keto_pull: one launch over every
+//      bucket (the device function `pull_task`, which the run below runs too)
+//   K2 `check_step` (tpu_engine.py:110) -> keto_seed, keto_check_run (the whole
+//      guarded fixpoint in ONE cooperative launch), keto_answer_pack
+// and the fixpoint of K10a `sharded_check_step` (keto_tpu/parallel/sharded.py:327),
+// which keto_check_run runs over every row-range shard at once, its halo
+// all-gather a phase of each hop (csrc/shard_kernels.cu holds its answer).
+// The Python wrappers and the plain PyTorch versions live in
+// keto_tpu_torch/check/kernels.py and keto_tpu_torch/parallel/sharded.py; the
+// build (nvcc, plain C ABI, ctypes) in keto_tpu_torch/_build.py.
 //
 // Layout. Bitmaps are uint32 [rows, W]: bit q&31 of word q>>5 in row v means
 // "query q has reached node v". R has n_int+1 rows (row n_int is the all-zero
 // row every ELL sentinel points at); P, the pull output, has n_active+1 rows
-// (row n_active stays zero: passive and absent targets read it). Torch holds
-// both as int32; the kernels reinterpret them as uint32.
+// (row n_active stays zero: passive and absent targets read it). Sharded, R,
+// G (its gathered copy) and P are [g·rps, W] and shard s owns the rows
+// [s·rps, (s+1)·rps): a global row id is the row. Torch holds every bitmap as
+// int32; the kernels read them as uint32, 16 bytes at a time (uint4) where W
+// is a multiple of 4 and the buffers are 16-byte aligned, else a word at a
+// time.
 //
-// Bound. Every kernel is a gather or a scatter of 4-byte words with one OR per
-// word loaded: memory-bound. The pull streams R rows once per in-edge slot;
-// one thread per (row, word) with the word index fastest makes a warp read
-// 128 contiguous bytes of one source row while the neighbour index is a
-// broadcast load. Work is integer ORs only, so no tensor-core path applies.
+// The pull. The degree buckets arrive as a table of bucket RUNS, passed by
+// value (keto_pull reads it from the constant bank; keto_check_run copies it
+// into shared memory): run r gathers its rows[r] rows of nbrs[r]
+// (int32 [rows, cap], neighbour ids = rows of the source bitmap) into the
+// output rows out[r], out[r] + 1, ...; the runs tile the active prefix in
+// order (unsharded, one run a bucket; sharded, one a shard's slice of a
+// bucket). Work is row-major: a TEAM of lanes owns a row, 1 << is item lanes
+// (the row's words, as vectors) by 1 << ss slot lanes (its neighbours),
+// is + ss <= 5, so a warp holds 32 >> (is + ss) rows; a row longer than a
+// warp's kUnroll vectors a lane is cut into 1 << cs chunks, one warp each.
+// Each lane loads its neighbour ids itself (lanes of a team read the same id
+// at once: one broadcast transaction), gathers kUnroll vectors a slot and
+// folds the slot lanes with shuffles; lane 0 of each slot group stores. A
+// warp's rows (or chunk) are a task; tasks are numbered run after run
+// (warp0[r] is run r's first), a chunked run's chunk-major (every row's first
+// chunk, then every row's second, as index_select's grid: the stores spread
+// over rows, which measured faster than a row's chunks side by side), so no
+// index divides. Wide caps (past 1,024)
+// loop over their slots, narrow widths (W = 1, 3, 5) take the word-wide path,
+// and every output word is written. Index math is 32-bit: the wrapper refuses
+// bitmaps or bucket matrices of 2^31 words or more.
 //
-// The fixpoint is Jacobi, like the reference: each step pulls into P from the
-// R of the previous step, then keto_commit folds P into R. Pulling into R in
-// place would converge in fewer steps and change the reported iteration
-// count. The loop guard lives on the device (int32 state {changed, iters,
-// step_changed}): every step kernel returns at once while changed == 0, so
-// the host can enqueue a block of steps and read the state once per block,
-// reproducing lax.while_loop(cond, fori_loop(cond(step))) word for word.
+// Bound: bytes. A pull must read each bucket slot once, each distinct source
+// row once and write the P rows. A 16 KB row (config 3, W = 4,096) is 16
+// warp tasks of 1 KB, each lane's two 16-byte loads in flight at once after
+// one id load: the access pattern of an index_select. P is stored evict-first
+// (__stcs), so the source rows, read again by other rows, keep the L2. At
+// config 3 the pull writes 130 MB and reads 23 MB of distinct rows: it runs
+// at the card's practical write rate, as index_select does (rows sorted by
+// source, for L1 reuse, measured no faster).
+//
+// The fixpoint (keto_check_run) is Jacobi, like the reference: every pull of
+// a step reads R (sharded: G) as it stood before any commit of that step, and
+// P is not R. One step, its phases split by grid barriers:
+//   1. sharded only, the halo: every slab of R copied into G (lax.all_gather);
+//   2. the pull of every run (from R, or G) into P;
+//   3. with an overlay, ovo[k] = OR_c src[ov_nbrs[k, c]] ORed (atomicOr) into
+//      P[base + ov_dst[k]], dropping a destination outside [0, n_dst): the
+//      reference's p.at[ov_dst].set(p[ov_dst] | ovo, mode="drop"), landing
+//      after the bucket row it ORs into;
+//   4. the commit R[:n_active] |= P[:n_active], raising the last changed
+//      step with atomicMax (every block reads the same answer after the
+//      barrier).
+// The loop guard is lax.while_loop(changed && it < it_cap, fori_loop(
+// block_iters, cond(changed, step))) word for word: `it < it_cap` is tested
+// only where a block of block_iters steps begins, so iters may pass it_cap by
+// up to block_iters - 1, and a step that changes nothing ends the run (the
+// guarded no-op steps after it do nothing, so P keeps the pull of the last
+// step run: the answer's p_fix). The halo is copied only on steps that run.
+// ctl (int32[3], zeroed by the caller): on return [0] changed at exit (the
+// truncation flag), [1] steps run; [2] is the last changed step + 1.
+// keto_answer_pack and keto_shard_answer read [0] and [1]. With `counts`
+// (int64[2] on the card, never reset here) the run adds its steps and its
+// halo copies: the launch counts of the pull and the halo, which no host
+// read between the seeds and the answer could give. With `stamps` (int64
+// [stamp_steps, kStamps], for measurement; null on the path) thread 0 of
+// block 0 writes %globaltimer (ns) where each of the first stamp_steps
+// steps begins and after each of its barriers: the phases' times as they
+// run on the co-resident grid, barrier waits included.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "coop.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 // grid-stride loops: enough blocks to fill 132 SMs several times over
 constexpr int64_t kMaxBlocks = 132 * 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxRuns = 64;
+// vectors a lane of a pull task gathers, and a lane of the run's commit and
+// halo phases moves at once (2 and 4 measured alike at config 3, 1 and 8
+// slower)
+constexpr int kUnroll = 2;
+// stamps a step of a measured keto_check_run (see the header)
+constexpr int kStamps = 5;
+
+__device__ __forceinline__ long long globaltimer_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 
 inline int blocks_for(int64_t n) {
   int64_t b = (n + kThreads - 1) / kThreads;
@@ -44,8 +118,259 @@ inline int blocks_for(int64_t n) {
   return static_cast<int>(b);
 }
 
-__device__ __forceinline__ bool halted(const int32_t* state) {
-  return state != nullptr && state[0] == 0;
+// The bucket runs of one pull: see the header. shape = is | ss << 8 | cs << 16
+// | rs << 24 (a chunked run's row tasks, padded to 1 << rs).
+struct PullRuns {
+  const int32_t* nbrs[kMaxRuns];
+  int32_t rows[kMaxRuns];
+  int32_t cap[kMaxRuns];
+  int32_t out[kMaxRuns];
+  int32_t shape[kMaxRuns];
+  int32_t warp0[kMaxRuns + 1];
+  int32_t n;
+};
+
+// The overlay stage: row k ORs into P[(k / per) * stride + dst[k]], dropped
+// unless 0 <= dst[k] < n_dst (unsharded: per = rows, stride 0, n_dst =
+// n_active; sharded: per = K rows a shard, stride rps, n_dst = rps).
+struct Overlay {
+  const int32_t* nbrs;
+  const int32_t* dst;
+  int32_t rows, cap, per, stride, n_dst, shape, warps;
+};
+
+// The table in shared memory, for indexing by a run number.
+struct RunsShared {
+  const int32_t* nbrs[kMaxRuns];
+  int32_t rows[kMaxRuns], cap[kMaxRuns], out[kMaxRuns], shape[kMaxRuns];
+  int32_t warp0[kMaxRuns + 1];
+};
+
+__device__ __forceinline__ void load_runs(const PullRuns& t, RunsShared* s) {
+  for (int r = threadIdx.x; r < t.n; r += blockDim.x) {
+    s->nbrs[r] = t.nbrs[r];
+    s->rows[r] = t.rows[r];
+    s->cap[r] = t.cap[r];
+    s->out[r] = t.out[r];
+    s->shape[r] = t.shape[r];
+  }
+  for (int r = threadIdx.x; r <= t.n; r += blockDim.x) s->warp0[r] = t.warp0[r];
+  __syncthreads();
+}
+
+__device__ __forceinline__ uint32_t vor(uint32_t a, uint32_t b) { return a | b; }
+__device__ __forceinline__ uint4 vor(uint4 a, uint4 b) {
+  return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
+}
+__device__ __forceinline__ bool vne(uint32_t a, uint32_t b) { return a != b; }
+__device__ __forceinline__ bool vne(uint4 a, uint4 b) {
+  return ((a.x ^ b.x) | (a.y ^ b.y) | (a.z ^ b.z) | (a.w ^ b.w)) != 0;
+}
+__device__ __forceinline__ uint32_t shfl_or(uint32_t v, int off) {
+  return v | __shfl_xor_sync(kFull, v, off);
+}
+__device__ __forceinline__ uint4 shfl_or(uint4 v, int off) {
+  return make_uint4(shfl_or(v.x, off), shfl_or(v.y, off), shfl_or(v.z, off), shfl_or(v.w, off));
+}
+__device__ __forceinline__ void or_into(uint32_t* p, uint32_t v) {
+  if (v) atomicOr(p, v);
+}
+__device__ __forceinline__ void or_into(uint4* p, uint4 v) {
+  uint32_t* w = reinterpret_cast<uint32_t*>(p);
+  or_into(w, v.x);
+  or_into(w + 1, v.y);
+  or_into(w + 2, v.z);
+  or_into(w + 3, v.w);
+}
+
+// K1's device function: warp task `task` of one run (or of the overlay, with
+// OVERLAY). A task is 32 >> (is + ss) rows, or, for a row wider than one
+// warp's kUnroll vectors a lane, one chunk of kUnroll · 32 vectors of one row
+// (1 << cs chunks a row): a wide row is spread over several warps, each
+// with its loads in flight at once. Rows past the run's end, and dropped
+// overlay rows, load nothing but still join the warp's shuffles. IT is the
+// row's length in vectors. Source rows are read with plain loads: inside
+// keto_check_run the commit writes them between pulls.
+template <typename V, bool OVERLAY>
+__device__ __forceinline__ void pull_task(const int32_t* __restrict__ nbrs, int rows, int cap,
+                                          int shape, int out, const int32_t* __restrict__ dst,
+                                          int per, int stride, int n_dst, int task, const V* src,
+                                          V* __restrict__ P, unsigned IT, int lane) {
+  const int is = shape & 0xff;
+  const int ts = is + ((shape >> 8) & 0xff);
+  const int cs = (shape >> 16) & 0xff;
+  const int tl = lane & ((1 << ts) - 1);
+  const int il = tl & ((1 << is) - 1);
+  const int sl = tl >> is;
+  const int ni = 1 << is, nsl = 1 << (ts - is);
+  const int rs = (shape >> 24) & 0xff;
+  const int ct = cs ? task >> rs : 0;
+  const int rt = cs ? task & ((1 << rs) - 1) : task;
+  const unsigned i0 = static_cast<unsigned>(ct) * (ni * kUnroll);
+  const int row = (rt << (5 - ts)) + (lane >> ts);
+  int orow = -1;
+  if (row < rows && i0 < IT) {
+    if (OVERLAY) {
+      const int d = __ldg(dst + row);
+      if (d >= 0 && d < n_dst) orow = (row / per) * stride + d;
+    } else {
+      orow = out + row;
+    }
+  }
+  V acc[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) acc[u] = V{};
+  if (orow >= 0) {
+    const int32_t* ids = nbrs + static_cast<unsigned>(row) * static_cast<unsigned>(cap);
+    for (int j = sl; j < cap; j += nsl) {
+      const V* s = src + static_cast<unsigned>(__ldg(ids + j)) * IT;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const unsigned it = i0 + u * ni + il;
+        if (it < IT) acc[u] = vor(acc[u], s[it]);
+      }
+    }
+  }
+  for (int off = ni; off < (1 << ts); off <<= 1) {  // uniform: one run a warp
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) acc[u] = shfl_or(acc[u], off);
+  }
+  if (orow >= 0 && sl == 0) {
+    V* o = P + static_cast<unsigned>(orow) * IT;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const unsigned it = i0 + u * ni + il;
+      if (it < IT) {
+        if (OVERLAY) or_into(o + it, acc[u]);
+        else __stcs(o + it, acc[u]);  // evict-first: keep L2 for the source rows
+      }
+    }
+  }
+}
+
+// Every bucket run's tasks, a warp a task, in a grid of `nwarps` warps. The
+// table is the launch's own parameter (keto_pull: its blocks are short, so
+// they read it from the constant bank, warp-uniform, with no prologue) or a
+// copy in shared memory (keto_check_run).
+template <typename V, typename Table>
+__device__ __forceinline__ void pull_runs(const Table& t, int n, const V* src, V* P, unsigned IT,
+                                          int warp, int nwarps, int lane) {
+  const int total = t.warp0[n];
+  int r = 0;
+  for (int task = warp; task < total; task += nwarps) {
+    while (task >= t.warp0[r + 1]) ++r;  // tasks ascend: r only moves on
+    pull_task<V, false>(t.nbrs[r], t.rows[r], t.cap[r], t.shape[r], t.out[r], nullptr, 0, 0, 0,
+                        task - t.warp0[r], src, P, IT, lane);
+  }
+}
+
+// keto_pull: every run's tasks in one full grid (a warp a task).
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+pull_kernel(const __grid_constant__ PullRuns t, const V* R, V* __restrict__ P, unsigned IT) {
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  pull_runs<V>(t, t.n, R, P, IT, warp, (gridDim.x * blockDim.x) >> 5, threadIdx.x & 31);
+}
+
+// keto_check_run: the whole guarded fixpoint (see the header). halo = 0:
+// unsharded, the pulls read R; halo > 0: the halo phase copies `halo` vectors
+// of R into G each step run, and the pulls read G. `commit` vectors of R (the
+// active prefix) take the commit.
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+check_run_kernel(const __grid_constant__ PullRuns t, const __grid_constant__ Overlay ov, V* R,
+                 V* G, unsigned halo, V* P, unsigned commit, unsigned IT, int32_t it_cap,
+                 int32_t block_iters, int32_t* ctl, long long* counts, long long* stamps,
+                 int32_t stamp_steps) {
+  __shared__ RunsShared s;
+  __shared__ int32_t s_last;
+  load_runs(t, &s);
+  cg::grid_group grid = cg::this_grid();
+  const unsigned tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned nthreads = gridDim.x * blockDim.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nthreads >> 5;
+  const V* src = halo ? G : R;
+  int it = 0, copies = 0;
+  bool changed = true;
+  // stamp k of this step: 0 begun, 1 halo done, 2 pull done, 3 overlay done, 4 committed
+  auto stamp = [&](int k) {
+    if (stamps && tid == 0 && it < stamp_steps) stamps[it * kStamps + k] = globaltimer_ns();
+  };
+  for (;;) {
+    if (it % block_iters == 0 && it >= it_cap) break;
+    stamp(0);
+    if (halo) {  // the all_gather: every shard's slab into the gathered bitmap
+      for (unsigned i0 = tid; i0 < halo; i0 += kUnroll * nthreads) {
+        V v[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const unsigned i = i0 + u * nthreads;
+          if (i < halo) v[u] = R[i];
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const unsigned i = i0 + u * nthreads;
+          if (i < halo) G[i] = v[u];
+        }
+      }
+      ++copies;
+      grid.sync();
+    }
+    stamp(1);
+    pull_runs<V>(s, t.n, src, P, IT, warp, nwarps, lane);
+    grid.sync();
+    stamp(2);
+    if (ov.rows) {  // from the same snapshot as the buckets, after their rows
+      for (int task = warp; task < ov.warps; task += nwarps)
+        pull_task<V, true>(ov.nbrs, ov.rows, ov.cap, ov.shape, 0, ov.dst, ov.per, ov.stride,
+                           ov.n_dst, task, src, P, IT, lane);
+      grid.sync();
+    }
+    stamp(3);
+    bool grew = false;
+    for (unsigned i0 = tid; i0 < commit; i0 += kUnroll * nthreads) {
+      V old[kUnroll], add[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const unsigned i = i0 + u * nthreads;
+        if (i < commit) {
+          old[u] = R[i];
+          add[u] = P[i];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const unsigned i = i0 + u * nthreads;
+        if (i < commit) {
+          const V nxt = vor(old[u], add[u]);
+          if (vne(nxt, old[u])) {
+            R[i] = nxt;
+            grew = true;
+          }
+        }
+      }
+    }
+    if (__any_sync(kFull, grew) && lane == 0) atomicMax(ctl + 2, it + 1);
+    grid.sync();
+    stamp(4);
+    if (threadIdx.x == 0) s_last = *reinterpret_cast<volatile int32_t*>(ctl + 2);
+    __syncthreads();
+    changed = s_last >= it + 1;
+    __syncthreads();  // s_last is rewritten after the next barrier only
+    ++it;
+    if (!changed) break;
+  }
+  if (tid == 0) {
+    ctl[0] = changed ? 1 : 0;
+    ctl[1] = it;
+    if (counts) {
+      atomicAdd(reinterpret_cast<unsigned long long*>(counts), static_cast<unsigned long long>(it));
+      atomicAdd(reinterpret_cast<unsigned long long*>(counts + 1),
+                static_cast<unsigned long long>(copies));
+    }
+  }
 }
 
 // Seed scatter: for each (row, query) entry of e1 and e2 whose row lies in
@@ -70,62 +395,6 @@ __global__ void seed_kernel(const int32_t* __restrict__ entries, int64_t S1,
     const uint32_t bit = 1u << (q & 31);
     atomicOr(R + at, bit);
     if (e2) atomicOr(ans_base + at, bit);
-  }
-}
-
-// One ELL gather-OR: out row i = OR over j < cap of R[nbrs[i, j]]. Without
-// `dst`, row i lands at P[offset + i] (a degree bucket: buckets tile the
-// active prefix, so no scatter). With `dst`, row i ORs into P[dst[i]] and
-// destinations outside [0, n_dst) are dropped (the delta-overlay stage).
-__global__ void pull_kernel(const int32_t* __restrict__ nbrs, int64_t n_rows,
-                            int32_t cap, const int32_t* __restrict__ dst,
-                            int64_t offset, int64_t n_dst,
-                            const uint32_t* __restrict__ R,
-                            uint32_t* __restrict__ P, int32_t W,
-                            const int32_t* __restrict__ state) {
-  if (halted(state)) return;
-  const int64_t n = n_rows * W;
-  for (int64_t idx = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; idx < n;
-       idx += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t i = idx / W;
-    const int32_t w = static_cast<int32_t>(idx - i * W);
-    const int32_t* row = nbrs + i * cap;
-    uint32_t acc = 0;
-    for (int32_t j = 0; j < cap; ++j) acc |= R[(int64_t)row[j] * W + w];
-    if (dst == nullptr) {
-      P[(offset + i) * W + w] = acc;
-    } else {
-      const int32_t d = dst[i];
-      if (d >= 0 && d < n_dst && acc) atomicOr(P + (int64_t)d * W + w, acc);
-    }
-  }
-}
-
-// R[:n_active] |= P, raising state.step_changed when any word grew.
-__global__ void commit_kernel(const uint32_t* __restrict__ P,
-                              uint32_t* __restrict__ R, int64_t n,
-                              int32_t* __restrict__ state) {
-  if (halted(state)) return;
-  bool grew = false;
-  for (int64_t idx = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; idx < n;
-       idx += (int64_t)gridDim.x * blockDim.x) {
-    const uint32_t old = R[idx];
-    const uint32_t nxt = old | P[idx];
-    if (nxt != old) {
-      R[idx] = nxt;
-      grew = true;
-    }
-  }
-  if (grew) state[2] = 1;
-}
-
-// Ends one guarded step: changed = step_changed, step_changed = 0, iters += 1
-// — only while the loop is still running.
-__global__ void close_kernel(int32_t* state) {
-  if (state[0]) {
-    state[0] = state[2];
-    state[2] = 0;
-    state[1] += 1;
   }
 }
 
@@ -167,11 +436,103 @@ __global__ void answer_pack_kernel(const int32_t* __restrict__ entries,
   }
 }
 
+int ceil_log2(int64_t x) {
+  int s = 0;
+  while ((int64_t(1) << s) < x) ++s;
+  return s;
+}
+
+// A team for rows of IT vectors and `cap` slots: item lanes cover the row up
+// to a warp, slot lanes fill the rest of the warp up to the cap, and a row
+// past one warp's kUnroll vectors a lane is cut into 1 << cs chunks.
+int team_shape(unsigned IT, int cap) {
+  const int is = ceil_log2(IT < 32 ? IT : 32);
+  int ss = ceil_log2(cap);
+  if (ss > 5 - is) ss = 5 - is;
+  const int cs = ceil_log2((IT + 32 * kUnroll - 1) / (32 * kUnroll));
+  return is | (ss << 8) | (cs << 16);
+}
+
+int64_t warps_for(int rows, int& shape) {
+  const int per = 32 >> ((shape & 0xff) + ((shape >> 8) & 0xff));
+  const int64_t rt = (rows + per - 1) / per;
+  const int cs = (shape >> 16) & 0xff;
+  if (!cs) return rt;
+  const int rs = ceil_log2(rt);  // chunk-major: the run's row tasks padded to 1 << rs
+  shape |= rs << 24;
+  return (int64_t(1) << rs) << cs;
+}
+
+// The table from the host arrays; every run must have cap >= 1 and rows >= 0.
+cudaError_t make_runs(const int64_t* nbrs, const int32_t* rows, const int32_t* caps,
+                      const int32_t* outs, int32_t n, unsigned IT, PullRuns* t) {
+  if (n < 0 || n > kMaxRuns) return cudaErrorInvalidValue;
+  t->n = n;
+  int64_t w = 0;
+  for (int r = 0; r < n; ++r) {  // warp0 stays below 2^31
+    if (rows[r] < 0 || caps[r] < 1 || outs[r] < 0) return cudaErrorInvalidValue;
+    t->nbrs[r] = reinterpret_cast<const int32_t*>(nbrs[r]);
+    t->rows[r] = rows[r];
+    t->cap[r] = caps[r];
+    t->out[r] = outs[r];
+    t->shape[r] = team_shape(IT, caps[r]);
+    t->warp0[r] = static_cast<int32_t>(w);
+    w += warps_for(rows[r], t->shape[r]);
+    if (w >= (int64_t(1) << 31)) return cudaErrorInvalidValue;
+  }
+  t->warp0[n] = static_cast<int32_t>(w);
+  return cudaSuccess;
+}
+
+bool vec4(int32_t W, const void* a, const void* b, const void* c) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+                         reinterpret_cast<uintptr_t>(c);
+  return W % 4 == 0 && addr % 16 == 0;
+}
+
+template <typename V>
+cudaError_t launch_pull(const PullRuns& t, const uint32_t* R, uint32_t* P, unsigned IT,
+                        cudaStream_t s) {
+  const int64_t blocks = (static_cast<int64_t>(t.warp0[t.n]) + kWarps - 1) / kWarps;
+  if (blocks == 0) return cudaSuccess;
+  pull_kernel<V><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      t, reinterpret_cast<const V*>(R), reinterpret_cast<V*>(P), IT);
+  return cudaGetLastError();
+}
+
+template <typename V>
+cudaError_t launch_run(const PullRuns& t, const Overlay& ov, uint32_t* R, uint32_t* G,
+                       int32_t halo_rows, uint32_t* P, int32_t commit_rows, unsigned IT,
+                       int32_t it_cap, int32_t block_iters, int32_t* ctl, int64_t* counts,
+                       int64_t* stamps, int32_t stamp_steps, cudaStream_t s) {
+  V* Rv = reinterpret_cast<V*>(R);
+  V* Gv = reinterpret_cast<V*>(G);
+  V* Pv = reinterpret_cast<V*>(P);
+  unsigned halo = static_cast<unsigned>(halo_rows) * IT;
+  unsigned commit = static_cast<unsigned>(commit_rows) * IT;
+  long long* cnt = reinterpret_cast<long long*>(counts);
+  long long* stm = reinterpret_cast<long long*>(stamps);
+  int64_t work = 32 * static_cast<int64_t>(t.warp0[t.n] > ov.warps ? t.warp0[t.n] : ov.warps);
+  if (halo > work) work = halo;
+  if (commit > work) work = commit;
+  int grid = 0;
+  cudaError_t e = coresident_grid(check_run_kernel<V>, kThreads, work, &grid);
+  if (e != cudaSuccess) return e;
+  void* args[] = {const_cast<PullRuns*>(&t), const_cast<Overlay*>(&ov), &Rv, &Gv, &halo, &Pv,
+                  &commit, &IT, &it_cap, &block_iters, &ctl, &cnt, &stm, &stamp_steps};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(check_run_kernel<V>), grid, kThreads,
+                                  args, 0, s);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// Plain C entry points (ctypes). Each launches on `stream` and returns
-// cudaGetLastError() so a refused launch surfaces in the Python wrapper.
+// Plain C entry points (ctypes). Each launches on `stream` and returns the
+// launch's error code, or cudaGetLastError(), so a refused launch surfaces in
+// the Python wrapper. `nbrs`, `rows`, `caps` and `outs` are host arrays of
+// `n` bucket runs.
 
 extern "C" int keto_seed(const int32_t* entries, int64_t S1, int64_t S2,
                          int32_t n_int, int32_t W, uint32_t* R,
@@ -181,25 +542,50 @@ extern "C" int keto_seed(const int32_t* entries, int64_t S1, int64_t S2,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int keto_pull(const int32_t* nbrs, int64_t n_rows, int32_t cap,
-                         const int32_t* dst, int64_t offset, int64_t n_dst,
-                         const uint32_t* R, uint32_t* P, int32_t W,
-                         const int32_t* state, void* stream) {
-  pull_kernel<<<blocks_for(n_rows * W), kThreads, 0, (cudaStream_t)stream>>>(
-      nbrs, n_rows, cap, dst, offset, n_dst, R, P, W, state);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int keto_pull(const int64_t* nbrs, const int32_t* rows, const int32_t* caps,
+                         const int32_t* outs, int32_t n, const uint32_t* R, uint32_t* P,
+                         int32_t W, void* stream) {
+  if (W < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const bool v4 = vec4(W, R, P, P);
+  const unsigned IT = v4 ? W / 4 : W;
+  PullRuns t;
+  cudaError_t e = make_runs(nbrs, rows, caps, outs, n, IT, &t);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t s = (cudaStream_t)stream;
+  e = v4 ? launch_pull<uint4>(t, R, P, IT, s) : launch_pull<uint32_t>(t, R, P, IT, s);
+  return static_cast<int>(e);
 }
 
-extern "C" int keto_commit(const uint32_t* P, uint32_t* R, int64_t n,
-                           int32_t* state, void* stream) {
-  commit_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(P, R, n,
-                                                                      state);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int keto_close(int32_t* state, void* stream) {
-  close_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(state);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int keto_check_run(const int64_t* nbrs, const int32_t* rows, const int32_t* caps,
+                              const int32_t* outs, int32_t n, const int32_t* ov_nbrs,
+                              const int32_t* ov_dst, int32_t ov_rows, int32_t ov_cap,
+                              int32_t ov_per, int32_t ov_stride, int32_t n_dst, uint32_t* R,
+                              uint32_t* G, int32_t halo_rows, uint32_t* P, int32_t commit_rows,
+                              int32_t W, int32_t it_cap, int32_t block_iters, int32_t* ctl,
+                              int64_t* counts, int64_t* stamps, int32_t stamp_steps,
+                              void* stream) {
+  if (W < 1 || block_iters < 1 || halo_rows < 0 || commit_rows < 0 || (halo_rows && !G) ||
+      stamp_steps < 0 ||
+      (ov_rows > 0 && (ov_cap < 1 || ov_per < 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool v4 = vec4(W, R, P, halo_rows ? G : R);
+  const unsigned IT = v4 ? W / 4 : W;
+  PullRuns t;
+  cudaError_t e = make_runs(nbrs, rows, caps, outs, n, IT, &t);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  Overlay ov{ov_nbrs, ov_dst, ov_rows > 0 ? ov_rows : 0, ov_cap, ov_per, ov_stride, n_dst, 0, 0};
+  if (ov.rows) {
+    ov.shape = team_shape(IT, ov_cap);
+    const int64_t w = warps_for(ov.rows, ov.shape);
+    if (w >= (int64_t(1) << 31)) return static_cast<int>(cudaErrorInvalidValue);
+    ov.warps = static_cast<int32_t>(w);
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  e = v4 ? launch_run<uint4>(t, ov, R, G, halo_rows, P, commit_rows, IT, it_cap, block_iters,
+                             ctl, counts, stamps, stamp_steps, s)
+         : launch_run<uint32_t>(t, ov, R, G, halo_rows, P, commit_rows, IT, it_cap,
+                                block_iters, ctl, counts, stamps, stamp_steps, s);
+  return static_cast<int>(e);
 }
 
 extern "C" int keto_answer_pack(const int32_t* entries, int64_t S1, int64_t S2,

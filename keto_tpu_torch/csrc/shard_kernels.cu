@@ -3,20 +3,20 @@
 //
 // Replaces the shard-local work of the shard_map programs of
 // keto_tpu/parallel/sharded.py (K10):
-//   K10a `sharded_check_step`       (:327) -> keto_shard_answer, with K2's
-//        keto_seed, keto_pull, keto_commit and keto_close per shard
+//   K10a `sharded_check_step`       (:327) -> keto_shard_answer per shard, after
+//        K2's keto_seed per shard and keto_check_run over every shard at once
+//        (csrc/check_kernels.cu): its halo phase copies the slabs each hop
 //   K10b `sharded_label_step`       (:473) -> keto_pair_gather per side, then
 //        K3's keto_label_step on the exchanged pair rows
 //   K10c `sharded_label_sweep_step` (:559) -> K6's keto_sweep_run over every
 //        shard at once (csrc/label_kernels.cu): its n_dst drops the
 //        sentinel and its halo phase copies the slabs between waves
-// Otherwise the halo all-gather is a device copy per shard slab
-// (cudaMemcpyAsync, in keto_tpu_torch/parallel/sharded.py), the
-// counterpart of lax.all_gather,
-// which is a collective and not part of a kernel body. The reductions across
-// shards (psum of the changed flag, the visit count and the popcount, the
-// OR of the answers) are kernels of all shards accumulating into one word
-// or buffer on the device: the shards share one card.
+// The halo all-gather, the counterpart of lax.all_gather, is thus a phase of
+// a persistent kernel: a device copy of every shard slab between two grid
+// barriers (the shards share one card). The reductions across shards (psum
+// of the changed flag, the visit count and the popcount, the OR of the
+// answers) are kernels of all shards accumulating into one word or buffer
+// on the device.
 //
 // Shard s owns global rows [s*rps, (s+1)*rps). A local row at rps or beyond
 // is the "not owned / padding" sentinel: scatters drop it and gathers read

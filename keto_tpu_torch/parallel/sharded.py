@@ -26,19 +26,21 @@ entry points):
   the halo all-gather of every shard's ``[rps, W]`` frontier slab into one
   gathered bitmap, each shard's local pull from it, ``nxt = R | p``, and
   the psum of the changed flag; the same ``block_iters``/``it_cap`` loop as
-  K2, whose guard is read between blocks. Then every shard answers the
-  targets and sink rows it owns, OR-combined into ``uint32[W+3]``: the
-  decision bits, ``iters``, ``truncated`` and the frontier-bit population
-  (a uint32 psum that wraps, as the reference's). CUDA: per shard
-  ``keto_seed`` (with ``n_int = rps - 1``, so the sentinel ``rps`` drops),
-  ``keto_pull`` from the gathered bitmap, ``keto_commit`` into one state
-  word every shard shares (that is the psum), one ``keto_close`` per hop,
-  and ``keto_shard_answer``. The bucket pulls use K1's row-run mode: each
-  shard's slice of a bucket is a contiguous run of local rows
-  (``make_shard_spec``), written in place each guarded step, so the pull
-  of the last step run survives the guarded no-op steps after convergence
-  as the answer's ``p_fix`` — a ``P`` zeroed every step would lose it. The
-  overlay stage uses K1's ``dst`` mode with ``n_dst = rps``.
+  K2. Then every shard answers the targets and sink rows it owns,
+  OR-combined into ``uint32[W+3]``: the decision bits, ``iters``,
+  ``truncated`` and the frontier-bit population (a uint32 psum that wraps,
+  as the reference's). CUDA: per shard ``keto_seed`` (with ``n_int = rps -
+  1``, so the sentinel ``rps`` drops) into its slab of one ``[g·rps, W]``
+  bitmap, then K2's ``keto_check_run`` ONCE over every shard — per hop that
+  runs a halo phase copying every slab into the gathered bitmap, the pull
+  of every shard's bucket runs from it, the overlay in ``dst`` mode
+  (``n_dst = rps``), the commit and the changed flag every shard raises
+  (that is the psum), between grid barriers, the guard on the card — and
+  ``keto_shard_answer`` per shard, with no host read in between. Each
+  shard's slice of a bucket is a contiguous run of rows
+  (``make_shard_spec``) written in place each step that runs, so the pull
+  of the last step run survives as the answer's ``p_fix``. The halo copies
+  a step equal its ``iters``.
 - ``label_step`` replaces ``sharded_label_step`` (:473-534), K10b: the
   one-shot pair-row exchange — per side, the psum over shards of "the
   owned pair row, else 0", which is a gather from the owning stripe (0 for
@@ -61,11 +63,13 @@ entry points):
 before any shard commits, so no shard's commit feeds another shard's pull
 in the same hop, and ``iters`` equals the reference's.
 
-The collectives live in one place (``all_gather_rows``, ``psum``,
-``or_combine``) and count the bytes they move in ``COLLECTIVE_BYTES``. On
-one card the all-gather is one ``copy_`` (``cudaMemcpyAsync``) per shard
-slab into the gathered bitmap, and the reductions are kernels of every
-shard accumulating into one buffer. ``halo_bytes_per_round`` keeps the
+The collectives of the plain versions live in one place
+(``all_gather_rows``, ``psum``, ``or_combine``) and count the bytes they
+move in ``COLLECTIVE_BYTES``. On one card the all-gather is a copy of
+every shard slab into the gathered bitmap — a phase of the run kernel in
+K10a and K10c (K10a's copies are counted on the card,
+``kernels.run_counts``) — and the reductions are kernels of every shard
+accumulating into one buffer. ``halo_bytes_per_round`` keeps the
 reference's definition (the bytes one device RECEIVES per exchange,
 ``(g-1)·rps·W·4``); the copy on one card moves ``g·rps·W·4``.
 """
@@ -432,10 +436,7 @@ def _pull_shard_ref(Rfull, buckets: ShardedBuckets, s: int, rps: int, ov) -> tor
         if bool(keep.any()):
             p[d[s][keep].long()] = _gather_or(Rfull, nb[s][keep])
     if ov is not None:
-        keep = ov[1][s] < rps
-        if bool(keep.any()):
-            rows = ov[1][s][keep].long()
-            p[rows] |= _gather_or(Rfull, ov[0][s][keep])
+        kernels.overlay_or_ref(p, Rfull, ov[0][s], ov[1][s], rps)
     return p
 
 
@@ -526,25 +527,28 @@ def shard_answer_cuda(entries, sizes, P, ans_base, R, rps: int, state, out) -> N
     _note("or_combine", (W + 3) * 4)
 
 
-def _pull_shard_cuda(G, buckets: ShardedBuckets, s: int, rps: int, P, state, ov) -> None:
-    """One shard's guarded local pull via ``keto_pull``: each bucket's owned
-    run in row-run mode (written in place), then the overlay in ``dst``
-    mode (ORed, ``dst >= rps`` dropped)."""
-    lib, stream, W = _lib(), _stream(), G.shape[1]
-    for nb, runs in zip(buckets.nbrs, buckets.runs):
-        first, k = runs[s]
-        if k:
-            COUNTS["pull"] += 1
-            _check(lib.keto_pull(nb[s].data_ptr(), k, nb.shape[2], None, first, rps,
-                                 G.data_ptr(), P.data_ptr(), W, state.data_ptr(), stream),
-                   "keto_pull")
-    if ov is not None and ov[0].shape[1]:
-        ovn, ovd = ov[0][s], ov[1][s]
-        COUNTS["pull"] += 1
-        COUNTS["pull_overlay"] += 1
-        _check(lib.keto_pull(ovn.data_ptr(), ovn.shape[0], ovn.shape[1], ovd.data_ptr(), 0, rps,
-                             G.data_ptr(), P.data_ptr(), W, state.data_ptr(), stream),
-               "keto_pull")
+def shard_runs(buckets: ShardedBuckets, g: int, rps: int, W: int) -> kernels.PullRuns:
+    """The run table of every shard's bucket runs, shard by shard (global
+    output rows ``s·rps + first``): together they tile the active prefix."""
+    runs = [(nb[s], k, s * rps + first) for s in range(g)
+            for nb, per in zip(buckets.nbrs, buckets.runs) for first, k in (per[s],)]
+    return kernels.pull_runs(runs, src_rows=g * rps, W=W)
+
+
+def shard_run_ref(plan: kernels.PullRuns, R, P, ov_nbrs=None, ov_dst=None, *, rps: int,
+                  it_cap: int, block_iters: int = 8) -> torch.Tensor:
+    """``keto_check_run``'s plain version over every shard: ``check_run_ref``
+    on the global rows of ``shard_runs``' table (``R`` and ``P`` the
+    ``[g·rps, W]`` bitmaps), the overlay's local destinations made global
+    (a row no shard owns drops) → the state int32[3]."""
+    ovn = ovd = None
+    if ov_nbrs is not None:
+        g = ov_nbrs.shape[0]
+        base = torch.arange(g, device=ov_dst.device)[:, None] * rps
+        ovd = torch.where(ov_dst < rps, ov_dst + base, torch.full_like(ov_dst, g * rps)).reshape(-1)
+        ovn = ov_nbrs.reshape(-1, ov_nbrs.shape[-1])
+    return kernels.check_run_ref(list(plan.nbrs), plan.rows, R, P, ovn, ovd, it_cap=it_cap,
+                                 block_iters=block_iters)
 
 
 def fixpoint_cuda(
@@ -560,10 +564,11 @@ def fixpoint_cuda(
     it_cap: int,
     block_iters: int = 8,
 ):
-    """K10a's seeds and guarded fixpoint on the card: per shard its
-    fixpoint slab ``R``, its last pull ``P`` and its one-hop term
-    ``ans_base`` (lists of ``[rps, W]``), and the shared ``state``
-    int32[3] {changed, iters, step_changed}."""
+    """K10a's seeds and guarded fixpoint on the card, ONE ``keto_check_run``
+    launch over every shard: per shard its fixpoint slab ``R``, its last
+    pull ``P`` and its one-hop term ``ans_base`` (lists of ``[rps, W]``
+    views of one ``[g·rps, W]`` bitmap each), and the device ``state``
+    int32[3] {changed at exit, iters, a third word}."""
     _need(entries, "entries", 2)
     g = entries.shape[0]
     _mesh_shards(mesh, g, entries.device)
@@ -572,42 +577,35 @@ def fixpoint_cuda(
         _need(d, "bucket dst", 2)
         if nb.shape[0] != g or d.shape[0] != g:
             raise ValueError(f"stacked buckets of {nb.shape[0]} shards, entries of {g}")
-    ov = None
     if ov_nbrs is not None:
         _need(ov_nbrs, "ov_nbrs", 3)
         _need(ov_dst, "ov_dst", 2)
         if ov_nbrs.shape[:2] != ov_dst.shape or ov_nbrs.shape[0] != g:
             raise ValueError("ov_dst must name one destination row per ov_nbrs row and shard")
-        ov = (ov_nbrs, ov_dst)
     W = B // 32
     dev = entries.device
-    seeded = [kernels.seed_cuda(entries[s], sizes, rps - 1, W) for s in range(g)]
-    R = [r for r, _ in seeded]
-    ans_base = [a for _, a in seeded]
-    P = [torch.zeros((rps, W), dtype=torch.int32, device=dev) for _ in range(g)]
-    G = torch.empty((g * rps, W), dtype=torch.int32, device=dev)
-    # {changed, iters, step_changed}: one word every shard's commit raises
-    # (the psum of the changed flag) and one close per hop
-    state = torch.tensor([1, 0, 0], dtype=torch.int32, device=dev)
-    changed, iters = True, 0
-    while changed and iters < it_cap:
-        for _ in range(block_iters):
-            all_gather_rows(R, out=G)
-            for s in range(g):
-                _pull_shard_cuda(G, buckets, s, rps, P[s], state, ov)
-            for s in range(g):
-                kernels.commit_cuda(P[s], R[s], rps, state)
-            kernels.close_cuda(state)
-        changed, iters = (int(v) for v in state[:2].tolist())
-    return R, P, ans_base, state
+    plan = shard_runs(buckets, g, rps, W)
+    R = torch.zeros((g * rps, W), dtype=torch.int32, device=dev)
+    ans_base = torch.zeros_like(R)
+    for s in range(g):
+        kernels.seed_cuda(entries[s], sizes, rps - 1, W, R=R[s * rps : (s + 1) * rps],
+                          ans_base=ans_base[s * rps : (s + 1) * rps])
+    P = kernels.pull_out(g * rps, W, plan.n_rows, it_cap, dev)
+    G = torch.empty_like(R)
+    # the reference's loop has no "nothing to pull" guard: it always runs
+    state = kernels.check_run_cuda(plan, R, P, G=G,
+                                   ov=kernels.RunOverlay.of(ov_nbrs, ov_dst, rps, rps),
+                                   it_cap=it_cap, block_iters=block_iters)
+    slabs = lambda t: list(t.view(g, rps, W))  # noqa: E731
+    return slabs(R), slabs(P), slabs(ans_base), state
 
 
 def check_step_cuda(mesh, buckets: ShardedBuckets, entries: torch.Tensor, ov_nbrs=None,
                     ov_dst=None, *, sizes: tuple, rps: int, B: int, it_cap: int,
                     block_iters: int = 8) -> torch.Tensor:
-    """K10a on the card → int32[W+3] (device tensor, not synchronised but
-    for the one guard read per block): the fixpoint, then every shard's
-    answers into one output."""
+    """K10a on the card → int32[W+3] (device tensor, not synchronised):
+    the seeds, one run over every shard, then every shard's answers into
+    one output."""
     R, P, ans_base, state = fixpoint_cuda(mesh, buckets, entries, ov_nbrs, ov_dst, sizes=sizes,
                                           rps=rps, B=B, it_cap=it_cap, block_iters=block_iters)
     out = torch.zeros(B // 32 + 3, dtype=torch.int32, device=entries.device)

@@ -5,9 +5,15 @@
 output — decision bits, iteration count and truncation flag — over random
 bucket layouts made with numpy from a seed; ``pull_ref`` must equal
 ``_pull``. Both run through the port's dispatchers, which take the plain
-version for CPU tensors. The ``cuda`` tests hold the CUDA kernels (K1, K2
-and the write path's slot set, K9) against the plain versions on the card
-and skip where there is none.
+version for CPU tensors. The layouts take narrow and odd widths (W = 1, 3,
+5), caps past 1,024 and it_cap cuts inside a block of steps. The host-side
+run table (``pull_runs``) is tested on the CPU: its arrays, and its
+refusals (too many runs, a ragged layout, sizes past 32-bit indexing); so
+is a failed run launch, through a library that refuses it. The ``cuda``
+tests hold the CUDA kernels (K1's ``keto_pull``, K2's ``keto_check_run``
+and the whole step, and the write path's slot set, K9) against the plain
+versions on the card, into sentinel-filled outputs, and skip where there
+is none.
 """
 
 from __future__ import annotations
@@ -17,7 +23,13 @@ import pytest
 import torch
 
 from keto_tpu_torch.check import kernels
-from keto_tpu_torch.check.random_layouts import random_buckets, random_case, random_slot_case
+from keto_tpu_torch.check.random_layouts import (
+    SENTINEL,
+    RefusingLib,
+    random_buckets,
+    random_case,
+    random_slot_case,
+)
 
 
 def _case(seed, **kw):
@@ -35,6 +47,12 @@ CASES = {
     "chain-converge-overlay": dict(seed=7, W=8, caps=(1,), rows=(25,), block_iters=3, chain=True, overlay=True),
     "n-active-0": dict(seed=8, W=8, n_int=30),
     "w1-n-active-0": dict(seed=9, W=1, n_int=5),
+    "w3-odd": dict(seed=10, W=3, caps=(1, 2, 8), rows=(14, 9, 4), n_int=40),
+    "w5-cap1100-overlay": dict(seed=11, W=5, caps=(1, 1100), rows=(18, 2), n_int=60,
+                               overlay=True, block_iters=2),
+    "w1-cap4096": dict(seed=12, W=1, caps=(2, 4096), rows=(10, 2), n_int=50),
+    "chain-trunc-cap7-b4-w5": dict(seed=13, W=5, caps=(1,), rows=(30,), it_cap=7, block_iters=4,
+                                   chain=True),
 }
 
 
@@ -79,7 +97,8 @@ def test_check_step_matches_jax(name):
 
 @pytest.mark.parametrize(
     "W,caps,rows",
-    [(1, (1, 2, 8), (9, 6, 3)), (8, (1, 2048), (17, 2)), (64, (4, 32), (5, 6))],
+    [(1, (1, 2, 8), (9, 6, 3)), (8, (1, 2048), (17, 2)), (64, (4, 32), (5, 6)),
+     (3, (1, 2, 1100), (9, 6, 2)), (5, (1, 4), (12, 5))],
 )
 def test_pull_matches_jax(W, caps, rows):
     import jax.numpy as jnp
@@ -105,6 +124,61 @@ def test_dispatch_refuses_other_devices():
                            valid_rows=(), it_cap=1)
 
 
+def _nb(caps, rows, n_int=30, seed=0):
+    return [torch.from_numpy(b) for b in random_buckets(np.random.default_rng(seed), n_int, caps,
+                                                         rows)]
+
+
+def test_bucket_runs_table():
+    nb = _nb((1, 4, 2048), (7, 0, 3))
+    plan = kernels.bucket_runs(nb, (7, 0, 3), src_rows=31, W=5)
+    assert plan.rows == (7, 3) and plan.out == (0, 7) and plan.n_rows == 10
+    assert [t.data_ptr() for t in plan.nbrs] == [nb[0].data_ptr(), nb[2].data_ptr()]
+    ptrs, rows, caps, outs, n = plan.args()
+    assert n == 2 and list(ptrs[:2]) == [t.data_ptr() for t in plan.nbrs]
+    assert list(rows[:2]) == [7, 3] and list(caps[:2]) == [1, 2048] and list(outs[:2]) == [0, 7]
+    assert kernels.bucket_runs([], (), src_rows=31, W=5).n_rows == 0
+
+
+@pytest.mark.parametrize("what", ["too-many", "ragged-gap", "ragged-overlap", "rows", "dtype",
+                                  "int32-bitmap", "int32-matrix"])
+def test_pull_runs_refuses(what):
+    nb = _nb((1, 2), (4, 3))[0]
+    runs = [(nb, 4, 0), (nb, 3, 4)]
+    src_rows, W = 31, 8
+    if what == "too-many":
+        runs = [(nb, 1, i) for i in range(kernels.MAX_RUNS + 1)]
+    elif what == "ragged-gap":
+        runs = [(nb, 4, 0), (nb, 3, 5)]
+    elif what == "ragged-overlap":
+        runs = [(nb, 4, 0), (nb, 3, 3)]
+    elif what == "rows":
+        runs = [(nb, nb.shape[0] + 1, 0)]
+    elif what == "dtype":
+        runs = [(nb.long(), 4, 0)]
+    elif what == "int32-bitmap":
+        W = 2**31 // 16
+    else:
+        # a matrix of 2^31 words, on the meta device (no storage)
+        runs = [(torch.empty((2**16, 2**15), dtype=torch.int32, device="meta"), 4, 0)]
+    with pytest.raises(ValueError):
+        kernels.pull_runs(runs, src_rows=src_rows, W=W)
+
+
+def test_failed_check_run_launch_raises_and_is_counted(monkeypatch):
+    monkeypatch.setattr(kernels, "_lib", lambda: RefusingLib("keto_check_run"))
+    monkeypatch.setattr(kernels, "_need", lambda *a: None)
+    monkeypatch.setattr(kernels, "_stream", lambda: 0)
+    buckets, entries, ov, kw = _case(**CASES["w64-overlay"])
+    nb, ent, ovn, ovd = _torch_args(buckets, entries, ov, "cpu")
+    before = dict(kernels.COUNTS)
+    with pytest.raises(RuntimeError, match="keto_check_run"):
+        kernels.check_step_cuda(nb, ent, ovn, ovd, **kw)
+    counted = {k: kernels.COUNTS[k] - before[k] for k in kernels.COUNTS}
+    assert {k: v for k, v in counted.items() if v} == {"seed": 1, "check_run": 1,
+                                                       "check_run_overlay": 1}
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -112,15 +186,80 @@ def cuda_device():
     return torch.device("cuda")
 
 
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_check_step_cuda_matches_plain(name, cuda_device):
+    """The whole step: the seeds, ONE keto_check_run launch (none without
+    active rows) and the answer, with no host read in between."""
     buckets, entries, ov, kw = _case(**CASES[name])
     args = _torch_args(buckets, entries, ov, cuda_device)
-    got = kernels.check_step_cuda(*args, **kw)
+    before = dict(kernels.COUNTS)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = kernels.check_step_cuda(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counted = {k: kernels.COUNTS[k] - before[k] for k in kernels.BFS_KERNELS}
     want = kernels.check_step_ref(*args, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    assert counted == {"seed": 1, "check_run": int(bool(kw["n_active"])), "answer_pack": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [n for n in sorted(CASES) if CASES[n].get("rows")])
+def test_pull_and_run_cuda_match_plain(name, cuda_device):
+    """keto_pull alone and keto_check_run, each into a sentinel-filled P,
+    against their plain versions: every word of R and of P's run rows, the
+    state's {changed at exit, steps}, and the steps the card counted."""
+    buckets, entries, ov, kw = _case(**CASES[name])
+    nb, ent, ovn, ovd = _torch_args(buckets, entries, ov, cuda_device)
+    n_active, n_int, W = kw["n_active"], kw["n_int"], kw["sizes"][3] // 32
+    rng = np.random.default_rng(len(name))
+    R = torch.from_numpy(rng.integers(0, 2**32, size=(n_int + 1, W), dtype=np.uint64)
+                         .astype(np.uint32).view(np.int32)).to(cuda_device)
+    R[n_int] = 0
+    P = torch.full((n_active + 3, W), SENTINEL, dtype=torch.int32, device=cuda_device)
+    before = kernels.COUNTS["pull"]
+    got = kernels.pull_cuda(nb, kw["valid_rows"], R, P=P)
+    assert kernels.COUNTS["pull"] - before == 1  # one launch over every bucket
+    torch.cuda.synchronize()
+    assert torch.equal(got[:n_active], kernels.pull_ref(nb, kw["valid_rows"], R))
+    assert (got[n_active:] == SENTINEL).all()
+
+    R0, _ = kernels.seed_ref(ent, kw["sizes"], n_int, W)
+    Rc, Rr = R0.clone(), R0.clone()
+    Pc = torch.full((n_active + 1, W), SENTINEL, dtype=torch.int32, device=cuda_device)
+    Pc[n_active] = 0
+    Pr = torch.zeros_like(Pc)
+    plan = kernels.bucket_runs(nb, kw["valid_rows"], src_rows=n_int + 1, W=W)
+    kernels.reset_run_counts()
+    state = kernels.check_run_cuda(plan, Rc, Pc, ov=kernels.RunOverlay.of(ovn, ovd, n_active),
+                                   it_cap=kw["it_cap"], block_iters=kw["block_iters"])
+    steps, copies = kernels.run_counts(cuda_device)
+    want = kernels.check_run_ref(nb, kw["valid_rows"], Rr, Pr, ovn, ovd, it_cap=kw["it_cap"],
+                                 block_iters=kw["block_iters"])
+    torch.cuda.synchronize()
+    assert state[:2].tolist() == want[:2].tolist()
+    assert (steps, copies) == (int(want[1]), 0)
+    assert torch.equal(Rc, Rr) and torch.equal(Pc, Pr)
+
+    # a measured bare launch computes the same and stamps each step's phases in order
+    Rs, Ps = R0.clone(), torch.full_like(Pc, SENTINEL)
+    Ps[n_active] = 0
+    ctl = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+    stamps = torch.zeros((int(want[1]), kernels.RUN_STAMPS), dtype=torch.int64,
+                         device=cuda_device)
+    assert kernels.run_launch(kernels._lib(), plan, Rs, Ps, ctl,
+                              ov=kernels.RunOverlay.of(ovn, ovd, n_active), it_cap=kw["it_cap"],
+                              block_iters=kw["block_iters"], stamps=stamps,
+                              stream=kernels._stream()) == 0
+    torch.cuda.synchronize()
+    assert ctl[:2].tolist() == want[:2].tolist()
+    assert torch.equal(Rs, Rr) and torch.equal(Ps, Pr)
+    assert (stamps > 0).all() and (stamps.diff(dim=1) >= 0).all()
 
 
 #: K9 layouts of the write path: (rows, ld, entries, duplicates, 1-D, in place)

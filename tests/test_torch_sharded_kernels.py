@@ -10,9 +10,13 @@ table), must equal
 tests/conftest.py, over sub-meshes of 1, 2, 3, 4 and 8 shards, on the same
 numpy-seeded layouts: the whole ``uint32[W+3]`` / ``uint32[W]`` output
 (decision bits, ``iters``, ``truncated``, the frontier-bit word) and every
-slab word of the wave. The routing functions must equal the reference's
-byte for byte. The ``cuda`` tests hold every CUDA entry point against its
-plain version on the card and skip where there is none.
+slab word of the wave. The check layouts take narrow and odd widths (W =
+1, 3, 5), a cap past 1,024 and it_cap cuts inside a block of steps. The
+routing functions must equal the reference's byte for byte; the run table
+of every shard's bucket runs must tile the active prefix, and a layout
+whose runs do not is refused. The ``cuda`` tests hold every CUDA entry
+point against its plain version on the card (K10a's run into a
+sentinel-filled ``P``) and skip where there is none.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import torch
 
 from keto_tpu_torch.check import kernels
 from keto_tpu_torch.check.random_layouts import (
+    SENTINEL,
+    RefusingLib,
     random_label_case,
     random_shard_case,
     random_sweep_case,
@@ -44,6 +50,11 @@ CHECK_CASES = {
                                 overlay=True),
     "chain-trunc-cap2-b8": dict(W=1, caps=(1,), rows=(30,), it_cap=2, block_iters=8, chain=True),
     "n-active-0": dict(W=8, n_int=30),
+    "w3-odd": dict(seed=10, W=3, caps=(1, 2, 8), rows=(14, 9, 4), n_int=40),
+    "w5-cap1100-overlay": dict(seed=11, W=5, caps=(1, 1100), rows=(18, 2), n_int=60, overlay=True,
+                               block_iters=2),
+    "chain-trunc-cap7-b4-w5": dict(seed=13, W=5, caps=(1,), rows=(30,), n_int=40, it_cap=7,
+                                   block_iters=4, chain=True),
 }
 LABEL_CASES = {  # (n, Wo, Wi, W, live pairs)
     "w1": (90, 1, 1, 1, 20),
@@ -71,8 +82,11 @@ def _t(a):
 
 
 def _shard_case(name, g):
-    return random_shard_case(np.random.default_rng(sorted(CHECK_CASES).index(name)), g,
-                             **CHECK_CASES[name])
+    case = dict(CHECK_CASES[name])
+    seed = case.pop("seed", None)
+    if seed is None:  # the first cases are seeded by their place among themselves
+        seed = sorted(n for n, c in CHECK_CASES.items() if "seed" not in c).index(name)
+    return random_shard_case(np.random.default_rng(seed), g, **case)
 
 
 @pytest.mark.parametrize("g", GS)
@@ -105,6 +119,68 @@ def test_check_step_matches_jax(name, g):
         assert np.array_equal(got[: W + 2], one)
     if name.startswith("chain-trunc"):
         assert want[W + 1] == 1, "the case must truncate"
+
+
+@pytest.mark.parametrize("g", (1, 2, 3, 4))
+@pytest.mark.parametrize("name", ["w1-caps", "w8-cap16-uneven", "w5-cap1100-overlay", "n-active-0"])
+def test_shard_runs_tile_the_active_prefix(name, g):
+    """One run a shard's slice of a bucket, shard by shard: the runs' output
+    rows (global rows) tile [0, n_active) in order; a layout missing a run
+    is ragged and refused."""
+    single, (spec, _, _, kw) = _shard_case(name, g)
+    bk = ps.ShardedBuckets.from_spec(spec, "cpu")
+    W = kw["B"] // 32
+    plan = ps.shard_runs(bk, g, kw["rps"], W)
+    assert plan.n_rows == spec.n_active == single[3]["n_active"]
+    assert list(plan.out) == [int(x) for x in np.cumsum([0, *plan.rows])[:-1]]
+    assert all(k > 0 for k in plan.rows) and len(plan.rows) <= len(bk.nbrs) + g - 1
+    if len(plan.rows) > 1:
+        runs = [list(per) for per in bk.runs]
+        b, s = next((b, s) for s in range(g) for b in range(len(runs)) if runs[b][s][1])
+        runs[b][s] = (0, 0)  # shard s no longer pulls its rows of bucket b
+        ragged = ps.ShardedBuckets(bk.nbrs, bk.dst, tuple(tuple(p) for p in runs))
+        with pytest.raises(ValueError, match="tile"):
+            ps.shard_runs(ragged, g, kw["rps"], W)
+
+
+@pytest.mark.parametrize("g", (1, 2, 3, 4))
+@pytest.mark.parametrize("name", sorted(CHECK_CASES))
+def test_shard_run_ref_matches_the_sharded_program(name, g):
+    """The plain run over every shard on the global rows (what the CUDA run
+    is held against) gives the plain sharded program's ``iters``,
+    ``truncated`` and frontier-bit word, and writes no row past the active
+    prefix of P."""
+    _, (spec, ent, ov, kw) = _shard_case(name, g)
+    rps, W = kw["rps"], kw["B"] // 32
+    bk = ps.ShardedBuckets.from_spec(spec, "cpu")
+    plan = ps.shard_runs(bk, g, rps, W)
+    R = torch.zeros((g * rps, W), dtype=torch.int32)
+    for s in range(g):
+        R[s * rps : (s + 1) * rps] = kernels.seed_ref(_t(ent[s]), kw["sizes"], rps - 1, W)[0]
+    P = torch.zeros_like(R)
+    ovn, ovd = (None, None) if ov is None else (_t(ov[0]), _t(ov[1]))
+    state = ps.shard_run_ref(plan, R, P, ovn, ovd, rps=rps, it_cap=kw["it_cap"],
+                             block_iters=kw["block_iters"])
+    want = ps.check_step_ref(make_mesh(graph=g, device="cpu"), bk, _t(ent), ovn, ovd, **kw)
+    pop = int(label_kernels._popcount(R).sum()) & 0xFFFFFFFF
+    assert [int(state[1]), int(state[0]), pop] == (want[W:].numpy().view(np.uint32)).tolist()
+    assert not P[plan.n_rows :].any()
+
+
+def test_failed_sharded_run_launch_raises_and_is_counted(monkeypatch):
+    for module in (kernels, ps):
+        monkeypatch.setattr(module, "_lib", lambda: RefusingLib("keto_check_run"))
+        monkeypatch.setattr(module, "_need", lambda *a: None)
+        monkeypatch.setattr(module, "_stream", lambda: 0)
+    _, (spec, ent, ov, kw) = _shard_case("w8-overlay", 3)
+    bk = ps.ShardedBuckets.from_spec(spec, "cpu")
+    before = dict(kernels.COUNTS)
+    with pytest.raises(RuntimeError, match="keto_check_run"):
+        ps.check_step_cuda(make_mesh(graph=3, device="cpu"), bk, _t(ent), _t(ov[0]), _t(ov[1]),
+                           **kw)
+    counted = {k: kernels.COUNTS[k] - before[k] for k in kernels.COUNTS}
+    assert {k: v for k, v in counted.items() if v} == {"seed": 3, "check_run": 1,
+                                                       "check_run_overlay": 1}
 
 
 @pytest.mark.parametrize("g", (1, 3, 4))
@@ -345,6 +421,58 @@ def test_check_step_cuda_matches_plain(name, g, cuda_device):
     want = ps.check_step_ref(mesh, bk, *args, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", (1, 2, 3, 4))
+@pytest.mark.parametrize("name", sorted(CHECK_CASES))
+def test_sharded_run_cuda_matches_plain(name, g, cuda_device):
+    """K10a's fixpoint: ONE keto_check_run over every shard (a halo copy
+    each step run) into a sentinel-filled P, against the plain run
+    (``shard_run_ref``): every word of R and of P's active rows, the state's
+    {changed at exit, steps}, the steps and halo copies the card counted;
+    and the whole step with no host read."""
+    _, (spec, ent, ov, kw) = _shard_case(name, g)
+    g_, rps, W = ent.shape[0], kw["rps"], kw["B"] // 32
+    bk = ps.ShardedBuckets.from_spec(spec, cuda_device)
+    plan = ps.shard_runs(bk, g, rps, W)
+    n_active = plan.n_rows
+    ent_d = _t(ent).to(cuda_device)
+    R0 = torch.zeros((g * rps, W), dtype=torch.int32, device=cuda_device)
+    for s in range(g):
+        R0[s * rps : (s + 1) * rps] = kernels.seed_ref(ent_d[s], kw["sizes"], rps - 1, W)[0]
+    Rc, Rr = R0.clone(), R0.clone()
+    Pc = torch.full((g * rps, W), SENTINEL, dtype=torch.int32, device=cuda_device)
+    Pc[n_active:] = 0
+    Pr = torch.zeros_like(Pc)
+    ovn, ovd = (None, None) if ov is None else (_t(ov[0]).to(cuda_device),
+                                                _t(ov[1]).to(cuda_device))
+    loop = dict(it_cap=kw["it_cap"], block_iters=kw["block_iters"])
+    kernels.reset_run_counts()
+    state = kernels.check_run_cuda(plan, Rc, Pc, G=torch.empty_like(Rc),
+                                   ov=kernels.RunOverlay.of(ovn, ovd, rps, rps), **loop)
+    steps, copies = kernels.run_counts(cuda_device)
+    want = ps.shard_run_ref(plan, Rr, Pr, ovn, ovd, rps=rps, **loop)
+    torch.cuda.synchronize()
+    assert state[:2].tolist() == want[:2].tolist()
+    assert steps == copies == int(want[1])  # a halo copy a step run
+    assert torch.equal(Rc, Rr) and torch.equal(Pc, Pr)
+
+    mesh = make_mesh(graph=g, device=cuda_device)
+    args = [x if x is None else x.to(cuda_device)
+            for x in (_t(ent), *((None, None) if ov is None else (_t(ov[0]), _t(ov[1]))))]
+    before = dict(kernels.COUNTS)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ps.check_step_cuda(mesh, bk, *args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counted = {k: kernels.COUNTS[k] - before[k] for k in ("seed", "check_run", "shard_answer",
+                                                          "pull", "answer_pack")}
+    assert counted == {"seed": g, "check_run": 1, "shard_answer": g, "pull": 0, "answer_pack": 0}
+    assert torch.equal(got, ps.check_step_ref(mesh, bk, *args, **kw))
 
 
 @pytest.mark.cuda
