@@ -489,10 +489,21 @@ def phase_parity(torch, kernels, rows_out):
         raise SystemExit(f"kernel parity FAILED: {total} mismatching words")
 
 
-LABEL_STEP_CASES = [  # (n, Wo, Wi, W, live pairs)
-    (90, 1, 1, 1, 20), (90, 32, 1, 8, 700), (90, 1, 32, 8, 700), (200, 64, 64, 64, 6000),
-    (120, 128, 32, 64, 2100), (120, 32, 128, 64, 2100), (60, 128, 128, 1, 100),
-    (3000, 64, 64, 4096, 300_000), (500, 2, 8, 4096, 140_000),
+#: K3's parity layouts: (n, Wo, Wi, W, live pairs, layout); "sorted" is the
+#: engine's order (live pairs by query, pads with query 0 after them),
+#: "k10b" the exchanged rows K10b hands K3 (pa = pb = arange(P)), "outside"
+#: pairs naming rows outside the label arrays (no hit, as a pad pair)
+LABEL_STEP_CASES = [
+    (90, 1, 1, 1, 20, "random"), (90, 32, 1, 8, 700, "random"), (90, 1, 32, 8, 700, "random"),
+    (200, 64, 64, 64, 6000, "random"), (120, 128, 32, 64, 2100, "random"),
+    (120, 32, 128, 64, 2100, "random"), (60, 128, 128, 1, 100, "random"),
+    (3000, 64, 64, 4096, 300_000, "random"), (500, 2, 8, 4096, 140_000, "random"),
+    (90, 3, 5, 8, 700, "random"), (90, 5, 3, 8, 700, "random"),
+    (120, 33, 65, 64, 2100, "random"), (120, 65, 33, 64, 2100, "random"),
+    (500, 8, 2, 4096, 140_000, "sorted"), (500, 3, 5, 4096, 140_000, "sorted"),
+    (300, 33, 5, 64, 6000, "sorted"), (300, 200, 3, 64, 6000, "sorted"),
+    (500, 8, 2, 4096, 140_000, "k10b"), (200, 5, 33, 64, 6000, "k10b"),
+    (200, 65, 3, 64, 6000, "outside"), (200, 8, 2, 64, 6000, "outside"),
 ]
 SWEEP_CASES = [  # (n, caps, rows per group, wt): the whole sweep (K6)
     (100, (1, 2, 4), (30, 10, 5), 1), (100, (1, 2, 4), (30, 10, 5), 2),
@@ -529,9 +540,13 @@ def sweep_parity(torch, run) -> tuple[int, str]:
 
 
 def label_parity(torch, rng, dev) -> int:
-    """K3, K6 and K7 against their plain versions; mismatching words."""
+    """K3, K6 and K7 against their plain versions; mismatching words. K3
+    also from a bare launch, and counted: one launch a call."""
+    import numpy as np
+
     from keto_tpu_torch.check import kernels
     from keto_tpu_torch.check.random_layouts import (
+        outside_rows,
         random_covered_case,
         random_label_case,
         random_sweep_case,
@@ -540,16 +555,28 @@ def label_parity(torch, rng, dev) -> int:
 
     t = lambda a: torch.from_numpy(a.copy()).to(dev)  # noqa: E731
     total = 0
-    for n, Wo, Wi, W, pairs in LABEL_STEP_CASES:
-        out_lab, in_lab, entries, P, B = random_label_case(rng, n, Wo, Wi, W, pairs)
-        args = (t(out_lab), t(in_lab), t(entries))
-        got = kernels.label_step_cuda(*args, n_pairs=P, B=B)
-        want = kernels.label_step_ref(*args, n_pairs=P, B=B)
+    for n, Wo, Wi, W, pairs, layout in LABEL_STEP_CASES:
+        out_lab, in_lab, entries, P, B = random_label_case(
+            rng, n, Wo, Wi, W, pairs, sorted_queries=layout in ("sorted", "k10b"),
+            exchanged=layout == "k10b")
+        plain = entries
+        if layout == "outside":
+            rows, plain_rows = outside_rows(rng, entries[: 2 * P], n, pairs // 10)
+            entries = np.concatenate([rows, entries[2 * P :]])
+            plain = np.concatenate([plain_rows, plain[2 * P :]])
+        lab = (t(out_lab), t(in_lab))
+        before = kernels.COUNTS["label_step"]
+        got = kernels.label_step_cuda(*lab, t(entries), n_pairs=P, B=B)
+        launched = kernels.COUNTS["label_step"] - before
+        want = kernels.label_step_ref(*lab, t(plain), n_pairs=P, B=B)
+        bare = torch.zeros_like(want)
+        _ok(kernels.label_step_launch(kernels._lib(), *lab, t(entries), P, bare,
+                                      kernels._stream()), "keto_label_step")
         torch.cuda.synchronize()
-        m, _ = diff(got, want)
+        m = diff(got, want)[0] + diff(bare, want)[0] + abs(launched - 1)
         hits = int(sum(bin(w & 0xFFFFFFFF).count("1") for w in want.tolist()))
-        log(f"parity label_step n={n} Wo={Wo} Wi={Wi} W={W} pairs={pairs}: "
-            f"{hits} query bits set, mismatches={m}")
+        log(f"parity label_step n={n} Wo={Wo} Wi={Wi} W={W} pairs={pairs} layout={layout} "
+            f"team={kernels.label_team(Wo)}: {hits} query bits set, mismatches={m}")
         total += m
     for n, caps, rows, wt in SWEEP_CASES:
         groups, _, X0, _, cov = random_sweep_case(rng, n, caps, rows, wt)
@@ -601,19 +628,23 @@ SLOT_CASES = [  # (what, rows, ld, entries, duplicates, 1-D, in place)
 ]
 
 
-#: K4's parity layouts: (n, Wo, Wi, pairs, shuffled rows); the last is the
-#: 65,536-pair batch
+#: K4's parity layouts: (n, Wo, Wi, pairs, shuffled rows); the 65,536-pair
+#: batch, odd widths, rows wider than 128 entries and the explain path's
+#: single pair among them
 WITNESS_CASES = [
     (60, 1, 8, 400, False), (60, 8, 1, 400, True), (90, 32, 64, 2000, False),
     (90, 64, 32, 2000, True), (120, 128, 64, 4000, False), (120, 64, 128, 4000, True),
     (80, 128, 1, 1000, True), (3000, 64, 64, 65_536, False), (3000, 64, 64, 65_536, True),
+    (90, 3, 5, 700, False), (90, 5, 3, 700, True), (120, 33, 65, 2000, False),
+    (120, 65, 33, 2000, True), (80, 200, 3, 1000, True), (40, 8, 2, 1, False),
+    (40, 64, 64, 1, True),
 ]
 
 
 def witness_parity(torch, rng, dev) -> int:
     """K4 against its plain version on its own layouts; mismatching words."""
     from keto_tpu_torch.check import kernels
-    from keto_tpu_torch.check.random_layouts import random_witness_case
+    from keto_tpu_torch.check.random_layouts import SENTINEL, outside_rows, random_witness_case
 
     total = 0
     for n, Wo, Wi, pairs, shuffle in WITNESS_CASES:
@@ -621,11 +652,22 @@ def witness_parity(torch, rng, dev) -> int:
         args = [torch.from_numpy(a).to(dev) for a in arrays]
         got = kernels.label_step_witness_cuda(*args)
         want = kernels.label_step_witness_ref(*args)
+        # a bare launch into a sentinel-filled output: every word is written
+        bare = torch.full_like(want, SENTINEL)
+        _ok(kernels.label_witness_launch(kernels._lib(), *args, bare, kernels._stream()),
+            "keto_label_witness")
+        # pairs naming rows outside the label arrays answer -1, as pad pairs
+        (pa, plain_a), (pb, plain_b) = (outside_rows(rng, a, n, max(1, pairs // 10))
+                                        for a in arrays[2:])
+        far = kernels.label_step_witness_cuda(*args[:2], *(torch.from_numpy(x).to(dev)
+                                                           for x in (pa, pb)))
+        far_want = kernels.label_step_witness_ref(*args[:2], *(torch.from_numpy(x).to(dev)
+                                                               for x in (plain_a, plain_b)))
         torch.cuda.synchronize()
-        m, _ = diff(got, want)
-        log(f"parity label_witness n={n} Wo={Wo} Wi={Wi} pairs={pairs} shuffled={shuffle}: "
-            f"{int((want >= 0).sum())} pairs with a landmark, first {want[:3].tolist()}, "
-            f"mismatches={m}")
+        m = diff(got, want)[0] + diff(bare, want)[0] + diff(far, far_want)[0]
+        log(f"parity label_witness n={n} Wo={Wo} Wi={Wi} pairs={pairs} shuffled={shuffle} "
+            f"team={kernels.label_team(Wo)}: {int((want >= 0).sum())} pairs with a landmark, "
+            f"first {want[:3].tolist()}, mismatches={m}")
         total += m
     return total
 
@@ -907,7 +949,7 @@ def shard_parity(torch, rng, dev) -> int:
                 f"host reads {reads}, launches {launched}, run mismatches={m_run} (steps {steps}, "
                 f"halo copies {copies}), mismatches={m}")
             total += m
-    for n, Wo, Wi, W, pairs in LABEL_STEP_CASES[:7] + [(301, 64, 64, 64, 6000)]:
+    for n, Wo, Wi, W, pairs, _ in LABEL_STEP_CASES[:7] + [(301, 64, 64, 64, 6000, None)]:
         seed = int(rng.integers(1 << 30))
         for g in SHARD_GS:
             out_lab, in_lab, ent, P, B = random_label_case(np.random.default_rng(seed), n, Wo,
@@ -1724,10 +1766,12 @@ def label_rows(torch, kernels, snap, engine, captured, launches, rate, int_rate)
     rows = []
 
     def row(name, replaces, cuda_fn, plain_fn, outs, bound_bytes, bound_ops, reps, extra,
-            make=None):
+            make=None, ms=None):
         m = sum(diff(a, b)[0] for a, b in zip(*outs))
         errs = [diff(a, b)[1] for a, b in zip(*outs)]
-        if make is None:
+        if ms is not None:  # measured by the caller
+            plain = time_ms(plain_fn, max(1, reps // 10), warmup=1)
+        elif make is None:
             ms = time_ms(cuda_fn, reps)
             plain = time_ms(plain_fn, max(1, reps // 10), warmup=1)
         else:
@@ -1745,7 +1789,11 @@ def label_rows(torch, kernels, snap, engine, captured, launches, rate, int_rate)
         log(f"kernel {name}: {ms:.4f} ms (plain {plain:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"by {r['bound_by']}), mismatches {m}, {json.dumps(extra)}")
 
-    # K3: the largest label step of the deep batch
+    # K3: the largest label step of the deep batch. ms: bare keto_label_step
+    # launches in one CUDA graph (the kernel's device time; each launch ORs
+    # into the same zeroed output, which ends equal to the plain answer);
+    # wrapper_ms: the whole label_step_cuda call (checks, the zeroed output,
+    # the ctypes launch), back to back
     out_lab, in_lab, entries, kw = max(captured, key=lambda c: c[3]["n_pairs"])
     P, B = kw["n_pairs"], kw["B"]
     e = entries.long()
@@ -1756,14 +1804,24 @@ def label_rows(torch, kernels, snap, engine, captured, launches, rate, int_rate)
     Wo, Wi = out_lab.shape[1], in_lab.shape[1]
     k3_bytes = 12 * P + 4 * (int(torch.unique(pa).numel()) * Wo + int(torch.unique(pb).numel()) * Wi
                              + B // 32)
-    row("label_step", K3,
-        lambda: kernels.label_step_cuda(out_lab, in_lab, entries, **kw),
+    want = kernels.label_step_ref(out_lab, in_lab, entries, **kw)
+    bare = torch.zeros_like(want)
+    lib = kernels._lib()
+    ms, timed_by = graph_ms(torch, lambda: _ok(kernels.label_step_launch(
+        lib, out_lab, in_lab, entries, P, bare, kernels._stream()), "keto_label_step"), 20)
+    torch.cuda.synchronize()
+    wrapper = time_ms(lambda: kernels.label_step_cuda(out_lab, in_lab, entries, **kw), 20)
+    live = int(((pa < snap.num_int) & (pb < snap.num_int)).sum())
+    team, k = kernels.label_team(Wo)
+    log(f"kernel label_step shape: Wo={Wo} Wi={Wi} pairs={P} live_pairs={live} team={team} "
+        f"k={k} (pairs a warp at once: {32 // team})")
+    row("label_step", K3, None,
         lambda: kernels.label_step_ref(out_lab, in_lab, entries, **kw),
-        ([kernels.label_step_cuda(out_lab, in_lab, entries, **kw)],
-         [kernels.label_step_ref(out_lab, in_lab, entries, **kw)]),
+        ([kernels.label_step_cuda(out_lab, in_lab, entries, **kw), bare], [want, want]),
         k3_bytes, compares, 20,
-        {"pairs": P, "live_pairs": int(((pa < snap.num_int) & (pb < snap.num_int)).sum()),
-         "Wo": Wo, "Wi": Wi, "B": B, "valid_compares": compares})
+        {"pairs": P, "live_pairs": live, "Wo": Wo, "Wi": Wi, "B": B, "team": team, "k": k,
+         "valid_compares": compares, "wrapper_ms": wrapper, "timed_by": timed_by,
+         "graph_launches": 20}, ms=ms)
 
     # K6: the first forward sweep of the build's first batch (no labels yet,
     # so nothing is covered), the whole run to its fixpoint
@@ -2406,10 +2464,16 @@ def shard_label_rows(torch, ps, mesh, captured, launches, build_launches, rate,
         if not bool(((r >= 0) & (r < g * rl)).all()):
             raise SystemExit("shard FAILED: a label-route pair row outside [0, g*rl)")
     named = 4 * (torch.unique(pa).numel() * Wo + torch.unique(pb).numel() * Wi)
+    # ms: whole calls back to back (CUDA events; the host's work between the
+    # launches included, so it bounds this number where the kernels are
+    # faster than it); device_ms: the same calls captured in one CUDA graph
+    # and replayed, the step's device time alone
+    device_ms, device_how = graph_ms(torch, full, 20)
     _k10_row(rows, "shard_label_step", K10B, "pair-row exchange and K3's compare",
              full, plain, ([full()], [plain()]), launches["label_step"],
              _bound(rate, int_rate, 12 * P + named + B // 8, P * Wo * Wi), 20,
-             extra={"pairs": P, "Wo": Wo, "Wi": Wi, "rl": rl, "g": g, "named_row_bytes": named})
+             extra={"pairs": P, "Wo": Wo, "Wi": Wi, "rl": rl, "g": g, "named_row_bytes": named,
+                    "device_ms": device_ms, "device_timed_by": device_how})
 
     def exchange(fn):
         return [fn(out_sh, pa, rl), fn(in_sh, pb, rl)]
@@ -3074,11 +3138,8 @@ def witness_rows(torch, kernels, snap, pairs, launches, rate, int_rate):
         bare = torch.full((P,), -3, dtype=torch.int32, device="cuda")
 
         def launch():
-            rc = lib.keto_label_witness(out_lab.data_ptr(), Wo, in_lab.data_ptr(), Wi,
-                                        out_lab.shape[0], pa.data_ptr(), pb.data_ptr(), P,
-                                        bare.data_ptr(), kernels._stream())
-            if rc:
-                raise RuntimeError(f"keto_label_witness failed: CUDA error {rc}")
+            _ok(kernels.label_witness_launch(lib, out_lab, in_lab, pa, pb, bare,
+                                             kernels._stream()), "keto_label_witness")
 
         ms, timed_by = graph_ms(torch, launch, n_graph)
         m_bare = diff(bare, want)[0]

@@ -47,8 +47,8 @@ _SIGNATURES = {
     "keto_check_run": [_P, _P, _P, _P, _I32, _P, _P, _I32, _I32, _I32, _I32, _I32, _P, _P, _I32,
                        _P, _I32, _I32, _I32, _I32, _P, _P, _P, _I32, _P],
     "keto_answer_pack": [_P, _I64, _I64, _I64, _I64, _I32, _P, _P, _P, _I32, _P, _P, _P],
-    "keto_label_step": [_P, _I32, _P, _I32, _I64, _P, _I64, _P, _P],
-    "keto_label_witness": [_P, _I32, _P, _I32, _I64, _P, _P, _I64, _P, _P],
+    "keto_label_step": [_P, _I32, _P, _I32, _I64, _P, _I64, _I32, _I32, _P, _P],
+    "keto_label_witness": [_P, _I32, _P, _I32, _I64, _P, _P, _I64, _I32, _I32, _P, _P],
     "keto_sweep_run": [_P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _I32,
                        _I32, _I64, _P, _I64, _P],
     "keto_covered": [_P, _I32, _I32, _P, _I32, _I32, _I32, _P, _P, _I32, _I32, _P],

@@ -1529,9 +1529,15 @@ class TorchCheckEngine:
 
     def _slice_cap(self, snap: GraphSnapshot) -> int:
         """Queries per device slice: the widest bitmap the workspace budget
-        allows (~3 W-wide int32 bitmaps over interior rows)."""
+        allows (~3 W-wide int32 bitmaps over interior rows) and the check
+        kernels index (a bitmap of under 2^31 words, as ``pull_runs``
+        checks)."""
+        rows = snap.num_int + 1
+        spec = snap.shard_spec  # a sharded bitmap's slabs pad its rows
+        index_rows = max(rows, spec.n_shards * spec.rows_per_shard) if spec else rows
         w_cap = next(
-            (w for w in reversed(_WORD_WIDTHS) if (snap.num_int + 1) * 12 * w <= self._mem_budget),
+            (w for w in reversed(_WORD_WIDTHS)
+             if rows * 12 * w <= self._mem_budget and index_rows * w < kernels.INDEX_LIMIT),
             _WORD_WIDTHS[0],
         )
         return min(self._max_batch, 32 * w_cap)

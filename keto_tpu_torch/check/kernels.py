@@ -23,15 +23,22 @@ Source notes:
 - ``label_step`` replaces ``label_step`` (tpu_engine.py:310): per pair
   (a, b), ``any(out_lab[a][i] == in_lab[b][j])``, maxed into the owning
   query and packed to ``uint32[W]``. CUDA: ``keto_label_step`` in
-  csrc/label_kernels.cu, one warp per pair. Bound: operations at large
-  label widths (Wo·Wi int32 compares per pair), else the bytes of the
-  pairs' label rows.
+  csrc/label_kernels.cu, ONE launch a call: a team of ``t`` lanes a pair
+  (``label_team``: each lane holds up to 4 OUT entries in registers, so a
+  warp compares 32/t pairs at once), a warp's 32 pairs read coalesced and
+  handed to the teams by shuffle, two rounds of them at a time, 16-byte
+  loads of both rows where the widths allow, every load of a row issued
+  before its compares; the hits of a warp grouped by answer word, one
+  ``atomicOr`` a distinct word. Bound: bytes at the route's widths — the pairs' entries once,
+  each distinct label row they name once, the answer once — else the
+  Wo·Wi int32 compares a pair.
 - ``label_step_witness`` replaces ``label_step_witness`` (tpu_engine.py:352),
   the explain path's enrichment: per pair (a, b), the smallest
   ``out_lab[a]`` entry equal to some ``in_lab[b]`` entry, or -1. CUDA:
-  ``keto_label_witness`` in csrc/label_kernels.cu, K3's warp per pair with
-  a warp minimum instead of the first-hit exit. Bound: as K3's (the
-  explain path launches it with one pair, so a launch).
+  ``keto_label_witness`` in csrc/label_kernels.cu, K3's compare core and
+  tiling with a team minimum (xor shuffles within the team) in place of
+  the "any", one coalesced store a warp's 32 pairs. Bound: as K3's; the
+  explain path launches it with one pair, one warp, so a launch.
 - ``slot_set_many`` replaces the XLA scatters ``buf.at[rows, cols].set(vals)``
   of ``_apply_ell_patch`` (tpu_engine.py:2542), ``_apply_overlay_delta``
   (:2665), ``_Mirror.flush_device`` (keto_tpu/graph/label_build.py:433)
@@ -453,7 +460,8 @@ def seed_cuda(entries: torch.Tensor, sizes, n_int: int, W: int, *, R=None, ans_b
 
 #: the bucket runs one ``keto_pull`` or ``keto_check_run`` launch takes
 MAX_RUNS = 64
-_I31 = 2**31
+#: the check kernels index in 32 bits: every array they take holds fewer words
+INDEX_LIMIT = 2**31
 
 
 @dataclass(frozen=True)
@@ -494,7 +502,7 @@ def pull_runs(runs, *, src_rows: int, W: int) -> PullRuns:
                              f"got {nb.dtype} {tuple(nb.shape)}")
         if not 0 <= k <= nb.shape[0]:
             raise ValueError(f"a bucket of {nb.shape[0]} rows cannot hold {k} valid rows")
-        if nb.numel() >= _I31:
+        if nb.numel() >= INDEX_LIMIT:
             raise ValueError(f"bucket nbrs {tuple(nb.shape)}: the kernels index in 32 bits")
         if not k:
             continue
@@ -507,7 +515,7 @@ def pull_runs(runs, *, src_rows: int, W: int) -> PullRuns:
         at += k
     if len(nbrs) > MAX_RUNS:
         raise ValueError(f"{len(nbrs)} bucket runs: the kernels' table holds {MAX_RUNS}")
-    if max(src_rows, at + 1) * W >= _I31:
+    if max(src_rows, at + 1) * W >= INDEX_LIMIT:
         raise ValueError(f"bitmaps of {max(src_rows, at + 1)} rows of {W} words: the kernels "
                          "index in 32 bits")
     return PullRuns(tuple(nbrs), tuple(rows), tuple(out), at)
@@ -544,7 +552,7 @@ def pull_cuda(
     if P is None:
         P = torch.empty((plan.n_rows, W), dtype=torch.int32, device=R.device)
     _need_rows(P, "P", plan.n_rows, W)
-    if P.numel() >= _I31:
+    if P.numel() >= INDEX_LIMIT:
         raise ValueError(f"P {tuple(P.shape)}: the kernels index in 32 bits")
     if plan.n_rows:
         COUNTS["pull"] += 1
@@ -576,7 +584,7 @@ class RunOverlay:
         _need(ov_dst, "ov_dst", ov_dst.dim())
         if ov_nbrs.shape[:-1] != ov_dst.shape or ov_nbrs.dim() not in (2, 3):
             raise ValueError("ov_dst must name one destination row per ov_nbrs row")
-        if ov_nbrs.numel() >= _I31:
+        if ov_nbrs.numel() >= INDEX_LIMIT:
             raise ValueError(f"ov_nbrs {tuple(ov_nbrs.shape)}: the kernels index in 32 bits")
         return cls(ov_nbrs, ov_dst, ov_nbrs.shape[-2], stride, n_dst)
 
@@ -600,7 +608,7 @@ def run_launch(lib, plan: PullRuns, R, P, ctl, *, G=None, ov: Optional[RunOverla
         *plan.args(), _ptr(None if ov is None else ov.nbrs), _ptr(None if ov is None else ov.dst),
         rows, C, 1 if ov is None else ov.per, 0 if ov is None else ov.stride,
         0 if ov is None else ov.n_dst, R.data_ptr(), _ptr(G), 0 if G is None else G.shape[0],
-        P.data_ptr(), plan.n_rows, R.shape[1], min(int(it_cap), _I31 - 1), int(block_iters),
+        P.data_ptr(), plan.n_rows, R.shape[1], min(int(it_cap), INDEX_LIMIT - 1), int(block_iters),
         ctl.data_ptr(), _ptr(counts), _ptr(stamps), 0 if stamps is None else stamps.shape[0],
         stream)
 
@@ -653,7 +661,7 @@ def check_run_cuda(plan: PullRuns, R: torch.Tensor, P: torch.Tensor, *, G=None,
     for nb in plan.nbrs:
         _need(nb, "bucket nbrs", 2)
     for t, what in ((R, "R"), (P, "P")):
-        if t.numel() >= _I31:
+        if t.numel() >= INDEX_LIMIT:
             raise ValueError(f"{what} {tuple(t.shape)}: the kernels index in 32 bits")
     if block_iters < 1:
         raise ValueError(f"block_iters must be at least 1, got {block_iters}")
@@ -727,44 +735,80 @@ def check_step_cuda(
     return answer_pack_cuda(entries, sizes, n_active, P, ans_base, R, state)
 
 
-def label_step_cuda(out_lab, in_lab, entries, *, n_pairs: int, B: int) -> torch.Tensor:
-    """int32[B/32] via ``keto_label_step`` (device tensor, not synchronised)."""
+def label_team(Wo: int) -> tuple[int, int]:
+    """``(t, k)`` for the label kernels at OUT width ``Wo``: ``t`` lanes a
+    pair (a power of two, at most a warp) and ``k`` OUT entries a lane,
+    ``t·k >= Wo``. Up to 128 entries ``k <= 4`` (held in registers, ``t``
+    the narrowest team that does it); a wider row takes a whole warp and
+    ``k = ceil(Wo / 32)``, compared in chunks of 128. Where ``Wo % 4 ==
+    0``, ``k`` is at least 4, so that a lane's entries are one 16-byte
+    load."""
+    Wo = max(1, int(Wo))
+    t = 1
+    while t < 32 and 4 * t < Wo:
+        t *= 2
+    k = -(-Wo // t)
+    if Wo % 4 == 0:
+        k = max(k, 4)
+    return t, k
+
+
+def _need_labels(out_lab, in_lab) -> None:
     _need(out_lab, "out_lab", 2)
     _need(in_lab, "in_lab", 2)
+    if out_lab.shape[0] != in_lab.shape[0]:
+        raise ValueError(f"label arrays of {out_lab.shape[0]} and {in_lab.shape[0]} rows: "
+                         "expected equal row counts")
+
+
+def label_step_launch(lib, out_lab, in_lab, entries, n_pairs: int, out, stream: int) -> int:
+    """``keto_label_step`` of ``n_pairs`` pairs into the zeroed ``out``;
+    returns the error code (the bare launch ``label_step_cuda`` checks and
+    counts)."""
+    team, k = label_team(out_lab.shape[1])
+    return lib.keto_label_step(out_lab.data_ptr(), out_lab.shape[1], in_lab.data_ptr(),
+                               in_lab.shape[1], out_lab.shape[0], entries.data_ptr(), n_pairs,
+                               team, k, out.data_ptr(), stream)
+
+
+def label_witness_launch(lib, out_lab, in_lab, pa, pb, out, stream: int) -> int:
+    """``keto_label_witness`` of the pairs ``(pa, pb)`` into ``out`` (every
+    word written); returns the error code (the bare launch
+    ``label_step_witness_cuda`` checks and counts)."""
+    team, k = label_team(out_lab.shape[1])
+    return lib.keto_label_witness(out_lab.data_ptr(), out_lab.shape[1], in_lab.data_ptr(),
+                                  in_lab.shape[1], out_lab.shape[0], pa.data_ptr(), pb.data_ptr(),
+                                  pa.numel(), team, k, out.data_ptr(), stream)
+
+
+def label_step_cuda(out_lab, in_lab, entries, *, n_pairs: int, B: int) -> torch.Tensor:
+    """int32[B/32] via ONE ``keto_label_step`` launch (device tensor, not
+    synchronised, no host read)."""
     _need(entries, "entries", 1)
     _label_parts(entries, n_pairs)
-    if out_lab.shape[0] != in_lab.shape[0] or B % 32:
-        raise ValueError(
-            f"label arrays of {out_lab.shape[0]} and {in_lab.shape[0]} rows, B={B}: "
-            "expected equal row counts and B a multiple of 32"
-        )
+    _need_labels(out_lab, in_lab)
+    if B % 32:
+        raise ValueError(f"B={B}: expected a multiple of 32")
     out = torch.zeros(B // 32, dtype=torch.int32, device=entries.device)
     if n_pairs:
         COUNTS["label_step"] += 1
-        _check(_lib().keto_label_step(out_lab.data_ptr(), out_lab.shape[1], in_lab.data_ptr(),
-                                      in_lab.shape[1], out_lab.shape[0], entries.data_ptr(),
-                                      n_pairs, out.data_ptr(), _stream()), "keto_label_step")
+        _check(label_step_launch(_lib(), out_lab, in_lab, entries, n_pairs, out, _stream()),
+               "keto_label_step")
     return out
 
 
 def label_step_witness_cuda(out_lab, in_lab, pa, pb) -> torch.Tensor:
-    """int32[P] via ``keto_label_witness`` (device tensor, not
-    synchronised)."""
-    _need(out_lab, "out_lab", 2)
-    _need(in_lab, "in_lab", 2)
+    """int32[P] via ONE ``keto_label_witness`` launch (device tensor, not
+    synchronised, no host read)."""
     _need(pa, "pa", 1)
     _need(pb, "pb", 1)
-    if out_lab.shape[0] != in_lab.shape[0] or pa.numel() != pb.numel():
-        raise ValueError(
-            f"label arrays of {out_lab.shape[0]} and {in_lab.shape[0]} rows, "
-            f"{pa.numel()} and {pb.numel()} pair rows: expected equal counts"
-        )
+    _need_labels(out_lab, in_lab)
+    if pa.numel() != pb.numel():
+        raise ValueError(f"{pa.numel()} and {pb.numel()} pair rows: expected equal counts")
     out = torch.empty(pa.numel(), dtype=torch.int32, device=pa.device)
     if pa.numel():
         COUNTS["label_witness"] += 1
-        _check(_lib().keto_label_witness(out_lab.data_ptr(), out_lab.shape[1], in_lab.data_ptr(),
-                                         in_lab.shape[1], out_lab.shape[0], pa.data_ptr(),
-                                         pb.data_ptr(), pa.numel(), out.data_ptr(), _stream()),
+        _check(label_witness_launch(_lib(), out_lab, in_lab, pa, pb, out, _stream()),
                "keto_label_witness")
     return out
 

@@ -180,11 +180,16 @@ def random_label_rows(rng, n: int, width: int, pad: int, hi: int) -> np.ndarray:
     return lab
 
 
-def random_label_case(rng, n: int, Wo: int, Wi: int, W: int, pairs: int):
+def random_label_case(rng, n: int, Wo: int, Wi: int, W: int, pairs: int, *,
+                      sorted_queries: bool = False, exchanged: bool = False):
     """``(out_lab, in_lab, entries, n_pairs, B)`` for ``label_step``:
     ``pairs`` live pairs (several per query, every word's bit-31 query
     among them) padded to ``n_pairs`` with pad pairs, values drawn from a
-    small range so hits and misses both occur."""
+    small range so hits and misses both occur. ``sorted_queries`` gives the
+    engine's order: the live pairs ascending by query, the pad pairs (query
+    0) after them. ``exchanged`` gives the shape K10b hands K3: the label
+    arrays are the rows the pairs name, ``out_lab[pa]`` and ``in_lab[pb]``,
+    and pair ``p`` reads row ``p`` of each (``pa = pb = arange(n_pairs)``)."""
     from keto_tpu_torch.check.pack import _entry_pad
 
     B = 32 * W
@@ -196,10 +201,33 @@ def random_label_case(rng, n: int, Wo: int, Wi: int, W: int, pairs: int):
     pq = rng.integers(0, B, size=pairs)
     k = min(W, pairs)
     pq[:k] = np.arange(k) * 32 + 31
+    if sorted_queries:
+        order = np.argsort(pq, kind="stable")
+        pa, pb, pq = pa[order], pb[order], pq[order]
     P = _entry_pad(B, pairs)
     pad = P - pairs
-    entries = np.concatenate([pa, np.full(pad, n), pb, np.full(pad, n), pq, np.zeros(pad)])
+    pa = np.concatenate([pa, np.full(pad, n)])
+    pb = np.concatenate([pb, np.full(pad, n)])
+    if exchanged:
+        out_lab, in_lab = out_lab[pa], in_lab[pb]
+        pa = pb = np.arange(P)
+    entries = np.concatenate([pa, pb, pq, np.zeros(pad)])
     return out_lab, in_lab, entries.astype(np.int32), P, B
+
+
+def outside_rows(rng, rows: np.ndarray, n: int, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """``(got, plain)`` for pair rows ``rows`` over label arrays of ``n + 1``
+    rows: ``got`` a copy with ``k`` of them moved outside ``[0, n]`` (below
+    0, or at ``n + 1`` and past), ``plain`` the same copy with those rows on
+    the all-pad row ``n`` instead. A kernel's answer on ``got`` must equal
+    the plain version's on ``plain``: a pair naming a row outside its
+    arrays matches nothing, as a pair of pad rows."""
+    got, plain = rows.copy(), rows.copy()
+    at = rng.choice(rows.size, size=min(k, rows.size), replace=False)
+    far = rng.integers(n + 1, 4 * (n + 1), size=at.size)
+    got[at] = np.where(np.arange(at.size) % 2 == 0, -1 - far, far).astype(rows.dtype)
+    plain[at] = n
+    return got, plain
 
 
 def random_witness_case(rng, n: int, Wo: int, Wi: int, pairs: int, *, shuffle: bool = False):

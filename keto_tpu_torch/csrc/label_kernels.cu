@@ -26,107 +26,393 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 132 * 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int32_t kIntMax = 0x7fffffff;
 
-inline int blocks_for(int64_t n) {
-  int64_t b = (n + kThreads - 1) / kThreads;
-  if (b < 1) b = 1;
-  if (b > kMaxBlocks) b = kMaxBlocks;
-  return static_cast<int>(b);
+// K3 and K4: the label route's pair compare. Per pair (a, b), which entries
+// of OUT(a) equal some entry of IN(b)? K3 reduces the answer to one bit per
+// pair and ORs it into the pair's query bit; K4 to the smallest matching
+// entry. Both run one compare core (pair_compare) under one tiling:
+//
+// - A team of t lanes a pair, t a power of two <= 32, chosen on the host
+//   from Wo (kernels.label_team): each lane holds up to K <= 4 OUT entries
+//   in registers, t·K >= Wo up to 128 entries, chunks of t·K beyond. A warp
+//   compares 32/t pairs at once, so at narrow widths every lane works (the
+//   first design gave each pair a whole warp, one entry a lane).
+// - A warp takes a tile of 32 pairs: lane l reads pair l's (a, b, q), one
+//   coalesced 128-byte load per array. The teams take the tile's pairs in t
+//   rounds of 32/t, (a, b) handed over by shuffle, R = 2 rounds at a time
+//   where t >= 2 and the call has more than one round of pairs: the loads
+//   of both rounds are issued before either's compares. A round with no
+//   pair (a short tile) is skipped. After the rounds lane l holds pair l's
+//   answer. Lane and team indices are shifts and masks, never divisions by
+//   t (with them, and 64-bit row tests, K3 took a fifth longer at config 4,
+//   PERF.md).
+// - OUT entries: one 16-byte load a lane where Wo % 4 == 0 and the rows are
+//   16-byte aligned (K = 4, lane `sub` holds entries 4·sub .. 4·sub+3 of the
+//   chunk), else K scalar loads strided by t (coalesced across the team). A
+//   slot past the row holds the chunk's first entry again, a real entry of
+//   the row, so it changes neither the team's "any" nor its minimum.
+// - IN entries: every lane of the team reads the whole IN row (one
+//   broadcast load a team) in batches of loads issued together before any
+//   compare — 16-byte vectors where Wi % 4 == 0 and the rows are aligned,
+//   else scalars, 16 entries a pair a batch at R = 1 and 8 at R = 2; a load
+//   past the row repeats the batch's first one, which changes no answer.
+//   So a narrow row is one round trip to the cache, not a chain of loads
+//   each waiting on the last, and no branch stands between a chunk's loads
+//   and its compares. Where one chunk and one batch cover both rows (every
+//   OUT width up to 128 with IN widths up to 8 or 16), the kernel is a
+//   version with no loop at all.
+// - Brute force: no order of the entries is assumed; OUT_PAD (-1) and
+//   IN_PAD (-2) never compare equal; pad pairs name the all-pad row; a pair
+//   naming a row outside [0, rows) matches nothing.
+//
+// Bound: bytes at the label route's widths — each pair's (a, b, q) once,
+// each distinct label row the pairs name once, the answer once — against
+// operations (the Wo·Wi int32 compares of a pair's valid entries) at wide
+// rows. At config 4 the label arrays (a few MB) stay in the 50 MB L2, so
+// the row gathers are L2 traffic and the entries the device-memory bytes;
+// the kernel's time goes to the instructions it issues (a compare for
+// every slot pair, pads included, and the bookkeeping around them) more
+// than to either bound.
+template <int K, bool MIN>
+__device__ __forceinline__ void compare_in(const int32_t (&x)[K], int32_t y, bool (&m)[MIN ? K : 1]) {
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    if (MIN) m[s] |= x[s] == y;
+    else m[0] |= x[s] == y;
+  }
 }
 
-// K3. Per pair (a, b): does any OUT(a) entry equal any IN(b) entry? A hit
-// sets the owning query's bit in `out` (zeroed by the caller): the
-// reference's `at[pq].max` followed by its bit pack, as one atomicOr.
-//
-// Bound: operations where the label rows are wide (Wo·Wi int32 compares a
-// pair), else the bytes of the pairs' label rows. Design: one warp per
-// pair. Each lane holds Wo/32 OUT entries in a register (the loop over i0
-// covers Wo < 32 and Wo > 32); the warp walks the Wi IN entries, which all
-// lanes load together (one broadcast load per entry), and folds its lanes'
-// matches with __any_sync, stopping at the first hit. The compare is brute
-// force, so it assumes nothing about the order of the entries. OUT_PAD (-1)
-// and IN_PAD (-2) never compare equal, and pad pairs name the all-pad row,
-// so neither can hit. Pairs naming a row outside [0, rows) never hit.
-__global__ void label_step_kernel(const int32_t* __restrict__ out_lab, int32_t Wo,
-                                  const int32_t* __restrict__ in_lab, int32_t Wi,
-                                  int64_t rows, const int32_t* __restrict__ entries,
-                                  int64_t P, uint32_t* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warp = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
-  const int64_t n_warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
-  const int32_t* pa = entries;
-  const int32_t* pb = entries + P;
-  const int32_t* pq = entries + 2 * P;
-  for (int64_t p = warp; p < P; p += n_warps) {  // uniform across the warp
-    const int32_t a = pa[p];
-    const int32_t b = pb[p];
-    if (a < 0 || a >= rows || b < 0 || b >= rows) continue;
-    const int32_t* orow = out_lab + (int64_t)a * Wo;
-    const int32_t* irow = in_lab + (int64_t)b * Wi;
-    bool hit = false;
-    for (int32_t i0 = 0; i0 < Wo && !hit; i0 += 32) {
-      const int32_t i = i0 + lane;
-      const bool valid = i < Wo;
-      const int32_t x = valid ? orow[i] : 0;
-      bool mine = false;
-      for (int32_t j = 0; j < Wi; ++j) mine |= (x == irow[j]);
-      hit = __any_sync(kFull, valid && mine);
-    }
-    if (hit && lane == 0) {
-      const int32_t q = pq[p];
-      atomicOr(out + (q >> 5), 1u << (q & 31));
+// Lane `sub`'s OUT entries of the chunk at c0 into x. A slot past the row
+// loads the chunk's first entry instead: a real entry of the same row, which
+// lane 0 of the team also holds, so the team's "any" and minimum stay the
+// same, and no load waits on a branch.
+template <int K, bool VO>
+__device__ __forceinline__ void load_out(const int32_t* __restrict__ orow, int32_t Wo, int c0,
+                                         int t, int sub, int32_t (&x)[K]) {
+  if (VO) {
+    const int i = c0 + 4 * sub < Wo ? c0 + 4 * sub : c0;
+    const int4 v = __ldg(reinterpret_cast<const int4*>(orow + i));
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  } else {
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      const int i = c0 + s * t + sub;
+      x[s] = __ldg(orow + (i < Wo ? i : c0));
     }
   }
 }
 
-// K4. Per pair (a, b): the smallest OUT(a) entry that equals some IN(b)
-// entry, or -1 when none does (the reference's argmin over the same compare
-// K3 reduces to one bit).
-//
-// Bound: as K3's; the explain path launches it with one pair, so in serving
-// it is a launch. Design: K3's warp per pair and register-held OUT entries,
-// with no exit on the first hit: each lane keeps the minimum of its matching
-// entries (INT_MAX when it has none, or no valid slot where Wo < 32), the
-// warp takes __reduce_min_sync over the signed values and __any_sync over
-// the found flags, and lane 0 writes the minimum or -1. Brute force, so it
-// assumes nothing about the order of the entries; the pads (-1, -2) never
-// compare equal. Pairs naming a row outside [0, rows) write -1.
-__global__ void label_witness_kernel(const int32_t* __restrict__ out_lab, int32_t Wo,
-                                     const int32_t* __restrict__ in_lab, int32_t Wi,
-                                     int64_t rows, const int32_t* __restrict__ pa,
-                                     const int32_t* __restrict__ pb, int64_t P,
-                                     int32_t* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warp = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
-  const int64_t n_warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
-  for (int64_t p = warp; p < P; p += n_warps) {  // uniform across the warp
-    const int32_t a = pa[p];
-    const int32_t b = pb[p];
-    if (a < 0 || a >= rows || b < 0 || b >= rows) {
-      if (lane == 0) out[p] = -1;
-      continue;
+// The compare core for one lane of a team of t (`sub` its index in the
+// team), on R pairs at once. found[r]: whether any of the lane's OUT entries
+// of pair r matched an IN entry; with MIN, best[r] is lowered to the
+// smallest matching entry. A pair with ok[r] false (a row outside the
+// arrays) reads row 0 and is masked out after. VO and VI: the 16-byte loads
+// (VO needs K == 4). Every load of a chunk is issued before its compares,
+// with no branch between them; without MIN the lane stops after the first
+// chunk in which all its pairs matched.
+template <int K, bool VO, bool VI, bool MIN, int R, bool ONE>
+__device__ __forceinline__ void pair_compare(const int32_t* const (&orow)[R],
+                                             const int32_t* const (&irow)[R],
+                                             const bool (&ok)[R], int32_t Wo, int32_t Wi,
+                                             int t, int sub, bool (&found)[R],
+                                             int32_t (&best)[R]) {
+  static_assert(!VO || K == 4, "a 16-byte OUT load holds four entries");
+  constexpr int kVecs = 4 / R;      // 16-byte IN loads a pair a batch
+  constexpr int kScalars = 16 / R;  // scalar IN loads a pair a batch
+  const int c_end = ONE ? 1 : Wo, j_end = ONE ? 1 : Wi;  // ONE: one chunk, one batch
+  for (int c0 = 0; c0 < c_end; c0 += K * t) {
+    if (!MIN) {
+      bool open = false;
+#pragma unroll
+      for (int r = 0; r < R; ++r) open |= !found[r];
+      if (!open) break;
     }
-    const int32_t* orow = out_lab + (int64_t)a * Wo;
-    const int32_t* irow = in_lab + (int64_t)b * Wi;
-    int32_t best = kIntMax;
-    bool found = false;
-    for (int32_t i0 = 0; i0 < Wo; i0 += 32) {
-      const int32_t i = i0 + lane;
-      if (i >= Wo) continue;
-      const int32_t x = orow[i];
-      bool mine = false;
-      for (int32_t j = 0; j < Wi; ++j) mine |= (x == irow[j]);
-      if (mine) {
-        found = true;
-        best = x < best ? x : best;
+    int32_t x[R][K];
+#pragma unroll
+    for (int r = 0; r < R; ++r) load_out<K, VO>(orow[r], Wo, c0, t, sub, x[r]);
+    bool m[R][MIN ? K : 1];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int s = 0; s < (MIN ? K : 1); ++s) m[r][s] = false;
+    if (VI) {
+      for (int j0 = 0; j0 < j_end; j0 += 4 * kVecs) {
+        int4 y[R][kVecs];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int u = 0; u < kVecs; ++u) {
+            const int j = j0 + 4 * u < Wi ? j0 + 4 * u : j0;
+            y[r][u] = __ldg(reinterpret_cast<const int4*>(irow[r] + j));
+          }
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int u = 0; u < kVecs; ++u) {
+            compare_in<K, MIN>(x[r], y[r][u].x, m[r]);
+            compare_in<K, MIN>(x[r], y[r][u].y, m[r]);
+            compare_in<K, MIN>(x[r], y[r][u].z, m[r]);
+            compare_in<K, MIN>(x[r], y[r][u].w, m[r]);
+          }
+      }
+    } else {
+      for (int j0 = 0; j0 < j_end; j0 += kScalars) {
+        int32_t y[R][kScalars];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int u = 0; u < kScalars; ++u) y[r][u] = __ldg(irow[r] + (j0 + u < Wi ? j0 + u : j0));
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int u = 0; u < kScalars; ++u) compare_in<K, MIN>(x[r], y[r][u], m[r]);
       }
     }
-    best = __reduce_min_sync(kFull, best);
-    found = __any_sync(kFull, found);
-    if (lane == 0) out[p] = found ? best : -1;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (MIN) {
+#pragma unroll
+        for (int s = 0; s < K; ++s)
+          if (m[r][s] && ok[r]) {
+            found[r] = true;
+            best[r] = x[r][s] < best[r] ? x[r][s] : best[r];
+          }
+      } else {
+        found[r] |= m[r][0] && ok[r];
+      }
+    }
+  }
+}
+
+// Whether team g's lanes (bits [g·t, g·t + t) of a ballot) voted.
+__device__ __forceinline__ bool team_voted(unsigned ballot, int g, int t) {
+  const unsigned low = t == 32 ? kFull : (1u << t) - 1u;
+  return ((ballot >> (g * t)) & low) != 0u;
+}
+
+// One tile's rounds for lane `lane` of a warp whose lanes hold the tile's
+// pairs (a, b): R rounds at a time, each team on pair (round·32/t + team).
+// `rows` is the arrays' row count, at most 2^31 (an int32 row id below it,
+// read unsigned, is inside the arrays).
+// Calls fold(round, r, found, best) after each R rounds' compare with the
+// lane's own answers; every lane of the warp reaches every call.
+template <int K, bool VO, bool VI, bool MIN, int R, bool ONE, typename Fold>
+__device__ __forceinline__ void tile_rounds(const int32_t* __restrict__ out_lab, int32_t Wo,
+                                            const int32_t* __restrict__ in_lab, int32_t Wi,
+                                            uint32_t rows, int32_t a, int32_t b, int t,
+                                            Fold fold) {
+  const int lane = threadIdx.x & 31;
+  const int lt = __ffs(t) - 1;  // t is a power of two: shifts, not divisions
+  const int per = 32 >> lt;
+  const int team = lane >> lt, sub = lane & (t - 1);
+  for (int r0 = 0; r0 < t; r0 += R) {
+    const int32_t* orow[R];
+    const int32_t* irow[R];
+    bool ok[R], found[R];
+    int32_t best[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int32_t ra = __shfl_sync(kFull, a, (r0 + r) * per + team);
+      const int32_t rb = __shfl_sync(kFull, b, (r0 + r) * per + team);
+      ok[r] = static_cast<uint32_t>(ra) < rows && static_cast<uint32_t>(rb) < rows;
+      orow[r] = out_lab + (int64_t)(ok[r] ? ra : 0) * Wo;
+      irow[r] = in_lab + (int64_t)(ok[r] ? rb : 0) * Wi;
+      found[r] = false;
+      best[r] = kIntMax;
+    }
+    bool any = false;
+#pragma unroll
+    for (int r = 0; r < R; ++r) any |= ok[r];
+    if (__any_sync(kFull, any))  // rounds past a short tile's pairs are skipped
+      pair_compare<K, VO, VI, MIN, R, ONE>(orow, irow, ok, Wo, Wi, t, sub, found, best);
+#pragma unroll
+    for (int r = 0; r < R; ++r) fold(r0 + r, found[r], best[r]);
+  }
+}
+
+// K3. A hit sets the owning query's bit in `out` (zeroed by the caller): the
+// reference's `at[pq].max` followed by its bit pack. After its tile's rounds
+// the warp groups its hitting lanes by answer word (q >> 5) with
+// __match_any_sync, ORs each group's bits with __reduce_or_sync, and one lane
+// of each group issues one atomicOr: one atomic per distinct word per warp,
+// correct in any order of pq and one atomic a warp in the engine's order
+// (pairs sorted by query, pads with pq = 0 after them, never hitting).
+template <int K, bool VO, bool VI, int R, bool ONE>
+__global__ void __launch_bounds__(kThreads)
+label_step_kernel(const int32_t* __restrict__ out_lab, int32_t Wo,
+                  const int32_t* __restrict__ in_lab, int32_t Wi, int64_t rows,
+                  const int32_t* __restrict__ entries, int64_t P, int32_t t,
+                  uint32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int lt = __ffs(t) - 1;
+  const int per = 32 >> lt;  // pairs a round
+  const int mine = lane & (per - 1), my_round = lane >> (5 - lt);  // where lane l's pair is
+  const uint32_t nrows = rows < (1ll << 31) ? static_cast<uint32_t>(rows) : 1u << 31;
+  const int64_t tiles = (P + 31) >> 5;
+  const int64_t warp = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
+  const int64_t n_warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  for (int64_t tile = warp; tile < tiles; tile += n_warps) {  // uniform across the warp
+    const int64_t p = (tile << 5) + lane;
+    int32_t a = -1, b = -1, q = 0;
+    if (p < P) {
+      a = entries[p];
+      b = entries[P + p];
+      q = entries[2 * P + p];
+    }
+    bool hit = false;
+    auto fold = [&](int round, bool found, int32_t) {
+      const unsigned voted = __ballot_sync(kFull, found);
+      if (my_round == round) hit = team_voted(voted, mine, t);
+    };
+    tile_rounds<K, VO, VI, false, R, ONE>(out_lab, Wo, in_lab, Wi, nrows, a, b, t, fold);
+    const unsigned hits = __ballot_sync(kFull, hit);
+    if (hit) {
+      const unsigned group = __match_any_sync(hits, q >> 5);
+      const unsigned bits = __reduce_or_sync(group, 1u << (q & 31));
+      if (lane == __ffs(group) - 1) atomicOr(out + (q >> 5), bits);
+    }
+  }
+}
+
+// K4. The smallest matching OUT(a) entry, or -1 when none matches (the
+// reference's argmin over the same compare K3 reduces to one bit): each lane
+// of the team takes the minimum of its matching entries (INT_MAX when none),
+// the team takes its minimum by xor shuffles within the team and a ballot
+// for "found", and lane l of the tile writes pair l's answer (one coalesced
+// store a tile). Every output word is written; a pair naming a row outside
+// [0, rows) writes -1. The explain path launches it with one pair: one warp.
+// (__reduce_min_sync over each team's lane mask, 16 masks in one warp at
+// t = 2, took the one-pair launch from 2.2 to 3.9 µs on the H100, PERF.md.)
+template <int K, bool VO, bool VI, int R, bool ONE>
+__global__ void __launch_bounds__(kThreads)
+label_witness_kernel(const int32_t* __restrict__ out_lab, int32_t Wo,
+                     const int32_t* __restrict__ in_lab, int32_t Wi, int64_t rows,
+                     const int32_t* __restrict__ pa, const int32_t* __restrict__ pb, int64_t P,
+                     int32_t t, int32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int lt = __ffs(t) - 1;
+  const int per = 32 >> lt;  // pairs a round
+  const int mine = lane & (per - 1), my_round = lane >> (5 - lt);  // where lane l's pair is
+  const uint32_t nrows = rows < (1ll << 31) ? static_cast<uint32_t>(rows) : 1u << 31;
+  const int64_t tiles = (P + 31) >> 5;
+  const int64_t warp = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
+  const int64_t n_warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  for (int64_t tile = warp; tile < tiles; tile += n_warps) {  // uniform across the warp
+    const int64_t p = (tile << 5) + lane;
+    int32_t a = -1, b = -1;
+    if (p < P) {
+      a = pa[p];
+      b = pb[p];
+    }
+    int32_t res = -1;
+    auto fold = [&](int round, bool found, int32_t best) {
+      for (int off = t >> 1; off; off >>= 1) {  // the team's minimum
+        const int32_t other = __shfl_xor_sync(kFull, best, off);
+        best = other < best ? other : best;
+      }
+      const unsigned voted = __ballot_sync(kFull, found);
+      const int32_t v = __shfl_sync(kFull, best, mine << lt);
+      if (my_round == round) res = team_voted(voted, mine, t) ? v : -1;
+    };
+    tile_rounds<K, VO, VI, true, R, ONE>(out_lab, Wo, in_lab, Wi, nrows, a, b, t, fold);
+    if (p < P) out[p] = res;
+  }
+}
+
+// The launch of a pair kernel: a warp a tile of 32 pairs, blocks of up to 8
+// warps (one warp for one tile: the explain path's single pair), the tiles
+// walked grid-stride past kPairBlocks.
+constexpr int64_t kPairBlocks = 132 * 64;
+
+inline void pair_grid(int64_t P, int* blocks, int* threads) {
+  const int64_t tiles = (P + 31) / 32;
+  const int64_t per = tiles < kThreads / 32 ? (tiles < 1 ? 1 : tiles) : kThreads / 32;
+  int64_t b = (tiles + per - 1) / per;
+  if (b < 1) b = 1;
+  if (b > kPairBlocks) b = kPairBlocks;
+  *blocks = static_cast<int>(b);
+  *threads = static_cast<int>(32 * per);
+}
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The shape a launch takes: K registers of OUT entries a lane, which sides
+// read 16 bytes at a time, the rounds compared at once (two where the team
+// is narrower than the warp, holds three or four entries a lane — always
+// so at t >= 2 — and the pairs fill more than one round; one for the
+// explain path's single pair), and whether one chunk and one IN batch
+// cover the rows (the code for it has no loop). Returns false for a team
+// or K the kernels do not take.
+struct PairShape {
+  int K, R;
+  bool vo, vi, one;
+};
+
+inline bool pair_shape(const int32_t* out_lab, int32_t Wo, const int32_t* in_lab, int32_t Wi,
+                       int64_t P, int32_t t, int32_t k, PairShape* sh) {
+  if (t < 1 || t > 32 || (t & (t - 1)) || k < 1 || Wo < 0 || Wi < 0) return false;
+  sh->vo = Wo % 4 == 0 && k >= 4 && aligned16(out_lab);
+  sh->vi = Wi % 4 == 0 && aligned16(in_lab);
+  sh->K = k < 4 ? k : 4;
+  sh->R = t >= 2 && sh->K >= 3 && P > 32 / t ? 2 : 1;
+  // one chunk of OUT entries and one batch of IN loads: no loop at all
+  sh->one = Wo >= 1 && Wi >= 1 && Wo <= (sh->vo ? 4 : sh->K) * t && Wi <= 16 / sh->R;
+  return true;
+}
+
+using StepKernel = void (*)(const int32_t*, int32_t, const int32_t*, int32_t, int64_t,
+                            const int32_t*, int64_t, int32_t, uint32_t*);
+using WitnessKernel = void (*)(const int32_t*, int32_t, const int32_t*, int32_t, int64_t,
+                               const int32_t*, const int32_t*, int64_t, int32_t, int32_t*);
+
+template <int K, bool VO, int R>
+StepKernel step_kernel(const PairShape& sh) {
+  if (sh.vi)
+    return sh.one ? &label_step_kernel<K, VO, true, R, true>
+                  : &label_step_kernel<K, VO, true, R, false>;
+  return sh.one ? &label_step_kernel<K, VO, false, R, true>
+                : &label_step_kernel<K, VO, false, R, false>;
+}
+
+template <int K, bool VO, int R>
+WitnessKernel witness_kernel(const PairShape& sh) {
+  if (sh.vi)
+    return sh.one ? &label_witness_kernel<K, VO, true, R, true>
+                  : &label_witness_kernel<K, VO, true, R, false>;
+  return sh.one ? &label_witness_kernel<K, VO, false, R, true>
+                : &label_witness_kernel<K, VO, false, R, false>;
+}
+
+StepKernel pick_step(const PairShape& sh) {
+  if (sh.R == 2) {
+    if (sh.vo) return step_kernel<4, true, 2>(sh);
+    return sh.K == 3 ? step_kernel<3, false, 2>(sh) : step_kernel<4, false, 2>(sh);
+  }
+  if (sh.vo) return step_kernel<4, true, 1>(sh);
+  switch (sh.K) {
+    case 1: return step_kernel<1, false, 1>(sh);
+    case 2: return step_kernel<2, false, 1>(sh);
+    case 3: return step_kernel<3, false, 1>(sh);
+    default: return step_kernel<4, false, 1>(sh);
+  }
+}
+
+WitnessKernel pick_witness(const PairShape& sh) {
+  if (sh.R == 2) {
+    if (sh.vo) return witness_kernel<4, true, 2>(sh);
+    return sh.K == 3 ? witness_kernel<3, false, 2>(sh) : witness_kernel<4, false, 2>(sh);
+  }
+  if (sh.vo) return witness_kernel<4, true, 1>(sh);
+  switch (sh.K) {
+    case 1: return witness_kernel<1, false, 1>(sh);
+    case 2: return witness_kernel<2, false, 1>(sh);
+    case 3: return witness_kernel<3, false, 1>(sh);
+    default: return witness_kernel<4, false, 1>(sh);
   }
 }
 
@@ -439,17 +725,33 @@ void covered_pass(int group, int64_t blocks, cudaStream_t s, const int32_t* lab,
 
 extern "C" int keto_label_step(const int32_t* out_lab, int32_t Wo, const int32_t* in_lab,
                                int32_t Wi, int64_t rows, const int32_t* entries, int64_t P,
-                               uint32_t* out, void* stream) {
-  label_step_kernel<<<blocks_for(32 * P), kThreads, 0, (cudaStream_t)stream>>>(
-      out_lab, Wo, in_lab, Wi, rows, entries, P, out);
+                               int32_t team, int32_t k, uint32_t* out, void* stream) {
+  PairShape sh;
+  if (!pair_shape(out_lab, Wo, in_lab, Wi, P, team, k, &sh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows < 1) return static_cast<int>(cudaSuccess);  // no pair names a row: no hit
+  int blocks = 0, threads = 0;
+  pair_grid(P, &blocks, &threads);
+  const StepKernel kernel = pick_step(sh);
+  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(out_lab, Wo, in_lab, Wi, rows, entries, P,
+                                                       team, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int keto_label_witness(const int32_t* out_lab, int32_t Wo, const int32_t* in_lab,
                                   int32_t Wi, int64_t rows, const int32_t* pa, const int32_t* pb,
-                                  int64_t P, int32_t* out, void* stream) {
-  label_witness_kernel<<<blocks_for(32 * P), kThreads, 0, (cudaStream_t)stream>>>(
-      out_lab, Wo, in_lab, Wi, rows, pa, pb, P, out);
+                                  int64_t P, int32_t team, int32_t k, int32_t* out,
+                                  void* stream) {
+  PairShape sh;
+  if (!pair_shape(out_lab, Wo, in_lab, Wi, P, team, k, &sh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows < 1)  // no pair names a row: every answer is -1
+    return static_cast<int>(cudaMemsetAsync(out, 0xff, 4 * P, (cudaStream_t)stream));
+  int blocks = 0, threads = 0;
+  pair_grid(P, &blocks, &threads);
+  const WitnessKernel kernel = pick_witness(sh);
+  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(out_lab, Wo, in_lab, Wi, rows, pa, pb, P,
+                                                       team, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,6 +14,7 @@ import torch
 
 from keto_tpu_torch.check import kernels
 from keto_tpu_torch.check.random_layouts import (
+    outside_rows,
     random_covered_case,
     random_label_case,
     random_sweep_case,
@@ -34,17 +35,51 @@ def _t(a, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("Wo,Wi", [(1, 1), (1, 32), (32, 1), (64, 64), (128, 32), (32, 128),
-                                   (128, 128), (2, 8)])
+                                   (128, 128), (2, 8), (3, 3), (5, 5), (33, 33), (65, 65),
+                                   (3, 65), (65, 3), (5, 33), (33, 5), (8, 2), (200, 3)])
 @pytest.mark.parametrize("W", [1, 8, 64])
 def test_label_step_cuda_matches_plain(Wo, Wi, W, cuda_device):
+    """One keto_label_step launch against the plain version: teams of 1 to
+    32 lanes, widths that take 16-byte loads and widths that do not, rows
+    wider than a warp's 128 entries (chunks)."""
     rng = np.random.default_rng(Wo * 1000 + Wi * 10 + W)
     out_lab, in_lab, entries, P, B = random_label_case(rng, n=90, Wo=Wo, Wi=Wi, W=W,
                                                        pairs=3 * 32 * W + 7)
     args = (_t(out_lab, cuda_device), _t(in_lab, cuda_device), _t(entries, cuda_device))
+    before = kernels.COUNTS["label_step"]
     got = kernels.label_step_cuda(*args, n_pairs=P, B=B)
     want = kernels.label_step_ref(*args, n_pairs=P, B=B)
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    assert torch.equal(got, want) and kernels.COUNTS["label_step"] - before == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["sorted", "k10b", "outside"])
+@pytest.mark.parametrize("Wo,Wi", [(3, 5), (5, 3), (8, 2), (33, 65), (65, 33), (64, 64)])
+def test_label_step_cuda_layouts(layout, Wo, Wi, cuda_device):
+    """The engine's order (live pairs by query, pads with query 0 after
+    them: most of a warp's hits share an answer word), K10b's shape
+    (``pa = pb = arange(P)`` over the exchanged rows) and pairs naming rows
+    outside the label arrays (no hit, as a pad pair), against the plain
+    version; the engine's order also from a bare launch, no host read."""
+    rng = np.random.default_rng(Wo * 100 + Wi)
+    n = 120
+    out_lab, in_lab, entries, P, B = random_label_case(
+        rng, n, Wo, Wi, 64, 5000, sorted_queries=layout != "outside", exchanged=layout == "k10b")
+    plain = entries
+    if layout == "outside":
+        rows, plain_rows = outside_rows(rng, entries[: 2 * P], n, 300)
+        entries = np.concatenate([rows, entries[2 * P :]])
+        plain = np.concatenate([plain_rows, plain[2 * P :]])
+    lab = (_t(out_lab, cuda_device), _t(in_lab, cuda_device))
+    got = kernels.label_step_cuda(*lab, _t(entries, cuda_device), n_pairs=P, B=B)
+    want = kernels.label_step_ref(*lab, _t(plain, cuda_device), n_pairs=P, B=B)
+    bare = torch.zeros_like(want)
+    rc = kernels.label_step_launch(kernels._lib(), *lab, _t(entries, cuda_device), P, bare,
+                                   kernels._stream())
+    torch.cuda.synchronize()
+    assert rc == 0 and torch.equal(got, want) and torch.equal(bare, want)
+    assert want.any() and not bool((want == -1).all())
 
 
 def _sweep_budgets(run) -> list:

@@ -20,7 +20,7 @@ import torch
 
 from keto_tpu_torch.check import kernels
 from keto_tpu_torch.check.gpu_engine import TorchCheckEngine
-from keto_tpu_torch.check.random_layouts import random_witness_case
+from keto_tpu_torch.check.random_layouts import outside_rows, random_witness_case
 from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectID, SubjectSet
 
 from test_torch_snapshot import jax_store, port_store
@@ -36,7 +36,15 @@ CASES = {
     "wo128-wi64": (4, 50, 128, 64, 1200, False),
     "wo64-wi128-shuffled": (5, 50, 64, 128, 1200, True),
     "wo128-wi1-many": (6, 200, 128, 1, 5000, True),
+    "wo3-wi5": (7, 50, 3, 5, 700, False),
+    "wo5-wi3-shuffled": (8, 50, 5, 3, 700, True),
+    "wo33-wi65": (9, 60, 33, 65, 900, False),
+    "wo65-wi33-shuffled": (10, 60, 65, 33, 900, True),
+    "wo200-wi3-shuffled": (12, 40, 200, 3, 300, True),
 }
+#: the card's cases: CASES and the explain path's single pair (one warp)
+CUDA_CASES = {**CASES, "wo8-wi2-one-pair": (11, 40, 8, 2, 1, False),
+              "wo64-wi64-one-pair": (13, 40, 64, 64, 1, True)}
 
 
 def _t(*arrays):
@@ -150,12 +158,28 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(CUDA_CASES))
 def test_witness_cuda_matches_plain(name, cuda_device):
-    seed, n, Wo, Wi, pairs, shuffle = CASES[name]
-    arrays = random_witness_case(np.random.default_rng(seed), n, Wo, Wi, pairs, shuffle=shuffle)
+    """One keto_label_witness launch against the plain version; a bare
+    launch into a sentinel-filled output (every word is written) and with
+    pairs naming rows outside the label arrays (-1, as a pad pair)."""
+    seed, n, Wo, Wi, pairs, shuffle = CUDA_CASES[name]
+    rng = np.random.default_rng(seed)
+    arrays = random_witness_case(rng, n, Wo, Wi, pairs, shuffle=shuffle)
     args = [t.to(cuda_device) for t in _t(*arrays)]
+    before = kernels.COUNTS["label_witness"]
     got = kernels.label_step_witness_cuda(*args)
     want = kernels.label_step_witness_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and kernels.COUNTS["label_witness"] - before == 1
+    out = torch.full_like(want, 0x5A5A5A5A)
+    rc = kernels.label_witness_launch(kernels._lib(), *args, out, kernels._stream())
+    torch.cuda.synchronize()
+    assert rc == 0 and torch.equal(out, want)
+    pa, plain_a = outside_rows(rng, arrays[2], n, max(1, pairs // 10))
+    pb, plain_b = outside_rows(rng, arrays[3], n, max(1, pairs // 10))
+    lab = args[:2]
+    got = kernels.label_step_witness_cuda(*lab, *(t.to(cuda_device) for t in _t(pa, pb)))
+    want = kernels.label_step_witness_ref(*lab, *(t.to(cuda_device) for t in _t(plain_a, plain_b)))
     torch.cuda.synchronize()
     assert torch.equal(got, want)
