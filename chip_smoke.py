@@ -53,15 +53,21 @@ Phases, in order; any failure exits non-zero:
    row, narrow and odd widths, a cap past 1,024, and each layout again
    with all-sentinel entries, which must decide nothing — with the
    1-shard output's first W+2 words equal to the single-device K2's and
-   its popcount word equal to every shard count's; each step g seeds, ONE
-   run over every shard and g answers with no host read in between; the
+   its popcount word (counted by the seeds and the run where they set its
+   bits) equal to every shard count's; each step g seeds, ONE run over
+   every shard and ONE answer with no host read in between; the
    run alone into a sentinel-filled P against the plain run on the same
    global rows, a halo copy each step run; K10b on label widths
    1..128 with pad rows, also against the single-device K3, and each
    side's pair-row exchange alone with rows no shard owns; K10c's whole
    sharded sweep, one launch with the halo copy between waves, with
    expansion pruning on and off, the routing's padding rows and the
-   budgets above, also against the single-device sweep);
+   budgets above, also against the single-device sweep), and the two
+   answer kernels, ``keto_answer_pack`` and ``keto_shard_answer``, one
+   launch a call, on their own layouts (random entries, a word whose 32
+   queries all hit, every sink entry in one word, passive and absent
+   targets, targets and sink rows no shard owns; W = 1, 3, 5, 8, 64 and
+   4,096; g = 1..8);
    every word of every output must agree;
 3. main — BASELINE config 3 (RBAC, 1M tuples, 3-level group nesting) on
    the BFS route (labels off), 100k checks: every decision equals the
@@ -100,7 +106,7 @@ Phases, in order; any failure exits non-zero:
    BFS route), every decision equal to the analytic expectation and to
    main's unsharded run, a 2,000-query oracle sample, every K10a entry
    point launched and no unsharded answer kernel, each step 4 seeds, one
-   run and 4 answers, the halo copies counted on the card equal to the
+   run and one answer, the halo copies counted on the card equal to the
    steps run and to the ``shard_halo_rounds`` counter, each slice's iterations
    and truncation flag equal to main's engine's on the same slices, the
    ``shard_*`` counters and the collectives' bytes, checks/s beside the
@@ -484,9 +490,66 @@ def phase_parity(torch, kernels, rows_out):
     total += list_parity(torch, rng, dev)
     total += sort_parity(torch, rng, dev)
     total += shard_parity(torch, rng, dev)
+    total += answer_parity(torch, dev)
     rows_out["parity_mismatches"] = total
     if total:
         raise SystemExit(f"kernel parity FAILED: {total} mismatching words")
+
+
+#: the answer kernels' parity layouts (``random_answer_case``): K2's
+#: ``keto_answer_pack`` at (W, n_int, n_active), K10a's ``keto_shard_answer``
+#: at (W, n_int, shard counts), each for every kind
+ANSWER_WIDTHS = [(1, 96, 64), (3, 96, 64), (5, 200, 150), (64, 300, 200), (4096, 4095, 3000)]
+SHARD_ANSWER_WIDTHS = [(1, 96, range(1, 9)), (3, 96, range(1, 9)), (5, 200, range(1, 9)),
+                       (8, 300, range(1, 9)), (4096, 4095, (4,))]
+
+
+def answer_parity(torch, dev) -> int:
+    """K2's and K10a's answer kernels, ONE launch each, against their plain
+    versions on every ``random_answer_case`` layout (random entries, a word
+    whose 32 queries all hit, every sink entry in one word, passive and
+    absent targets, targets and sink rows no shard owns; W = 1, 3, 5, 8, 64
+    and 4,096; g = 1..8): mismatching words, launches and host reads."""
+    import numpy as np
+
+    from keto_tpu_torch.check import kernels
+    from keto_tpu_torch.check.random_layouts import ANSWER_KINDS, random_answer_case
+    from keto_tpu_torch.parallel import sharded as ps
+
+    rng = np.random.default_rng(SEED + 12)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    total = 0
+    state = torch.tensor([1, 6, 0], dtype=torch.int32, device=dev)
+    for kind in ANSWER_KINDS:
+        m = n = 0
+        for W, n_int, n_active in ANSWER_WIDTHS:
+            c = random_answer_case(rng, kind, W, n_int=n_int, n_active=n_active)
+            args = (t(c["entries"]), c["sizes"], n_active, t(c["P"]), t(c["ans_base"]), t(c["R"]))
+            before = kernels.COUNTS["answer_pack"]
+            reads = host_reads(torch, lambda: kernels.answer_pack_cuda(*args, state))
+            got = kernels.answer_pack_cuda(*args, state)
+            m += diff(got, kernels.answer_pack_ref(*args, 6, True))[0] + int(reads != 0)
+            m += int(kernels.COUNTS["answer_pack"] - before != 2)
+            n += 1
+        for W, n_int, gs in SHARD_ANSWER_WIDTHS:
+            for g in gs:
+                c = random_answer_case(rng, kind, W, n_int=n_int, g=g)
+                args = (t(c["entries"]), c["sizes"], t(c["P"]), t(c["ans_base"]), t(c["R"]),
+                        c["rps"])
+                out = torch.zeros(W + 3, dtype=torch.int32, device=dev)
+                out[W + 2] = 0x5A5A  # the seeds' and the run's count, left as it is
+                before = kernels.COUNTS["shard_answer"]
+                reads = host_reads(torch, lambda: ps.shard_answer_cuda(*args, state, out.clone()))
+                ps.shard_answer_cuda(*args, state, out)
+                m += diff(out, ps.shard_answer_ref(*args, 6, True, 0x5A5A))[0] + int(reads != 0)
+                m += int(kernels.COUNTS["shard_answer"] - before != 2)
+                n += 1
+        log(f"parity answers {kind}: {n} layouts (keto_answer_pack at W "
+            f"{[w for w, *_ in ANSWER_WIDTHS]}, keto_shard_answer at W "
+            f"{[w for w, *_ in SHARD_ANSWER_WIDTHS]}, g 1..8 and 4 at W 4,096), one launch a call, "
+            f"mismatches={m}")
+        total += m
+    return total
 
 
 #: K3's parity layouts: (n, Wo, Wi, W, live pairs, layout); "sorted" is the
@@ -913,9 +976,9 @@ def shard_parity(torch, rng, dev) -> int:
             want0 = ps.check_step_ref(mesh, bk, t(pad), ovn, ovd, **kw)
             torch.cuda.synchronize()
             m = diff(got, want)[0] + diff(got0, want0)[0]
-            # a step is g seeds, ONE run over every shard and g answers, with
+            # a step is g seeds, ONE run over every shard and ONE answer, with
             # no host read in between
-            m += int(reads != 0) + int(launched != {"seed": g, "check_run": 1, "shard_answer": g,
+            m += int(reads != 0) + int(launched != {"seed": g, "check_run": 1, "shard_answer": 1,
                                                     "pull": 0, "answer_pack": 0})
             W = kw["B"] // 32
             m += int((got0[:W] != 0).sum())  # an all-padding slice decides nothing
@@ -1353,11 +1416,34 @@ def kernel_rows(torch, kernels, engine, snap, queries, rate, launches):
 
     out_c = kernels.answer_pack_cuda(entries, sizes, n_active, P, ans0, R, state)
     out_r = kernels.answer_pack_ref(entries, sizes, n_active, P, ans0, R, iters, bool(truncated))
-    row("answer_pack", "answers and bit pack, tpu_engine.py:219-243",
-        lambda: kernels.answer_pack_cuda(entries, sizes, n_active, P, ans0, R, state),
+    # what the answer must move: each target's id and each sink pair
+    # (coalesced), and a 32-byte sector for every distinct sector its
+    # random word gathers touch (P, ans_base, R), the answer written once
+    a0 = 2 * S1 + 2 * S2
+    tg, a_rows, a_q = e[a0 + 2 * SA :], e[a0 : a0 + SA], e[a0 + SA : a0 + 2 * SA]
+    qw = torch.arange(B, device="cuda") >> 5
+    gathers = {"P": sectors(torch, tg.clamp(max=n_active) * W + qw),
+               "ans_base": sectors(torch, tg * W + qw),
+               "R": sectors(torch, a_rows * W + (a_q >> 5))}
+    ans_bytes = 32 * sum(gathers.values()) + word * (B + 2 * SA) + (W + 2) * word
+    bare = torch.zeros_like(out_c)
+    ans_ms, ans_how = graph_ms(torch, lambda: _ok(lib_.keto_answer_pack(
+        entries.data_ptr(), S1, S2, SA, B, n_active, P.data_ptr(), ans0.data_ptr(), R.data_ptr(),
+        W, state.data_ptr(), bare.data_ptr(), kernels._stream()), "keto_answer_pack"), 20)
+    def answer_fn():
+        return kernels.answer_pack_cuda(entries, sizes, n_active, P, ans0, R, state)
+
+    row("answer_pack", "answers and bit pack, tpu_engine.py:219-243: keto_answer_pack, a warp an "
+        "answer word (one ballot), sink hits one atomic a distinct word a warp; ms is the kernel "
+        "alone",
+        answer_fn,
         lambda: kernels.answer_pack_ref(entries, sizes, n_active, P, ans0, R, iters,
                                         bool(truncated)),
-        (out_c, out_r), word * (3 * B + 3 * SA) + (W + 2) * word, 20)
+        (out_c, out_r), ans_bytes, 20, ms=ans_ms,
+        extra={"timed_by": ans_how, "wrapper_ms": time_ms(answer_fn, 20), "B": B, "SA": SA,
+               "sectors": gathers, "bound_counts": "bytes in 32-byte sectors: a sector per "
+               "distinct sector the gathers touch, ids and pairs once, the answer once",
+               "bound_4byte_ms": (word * (3 * B + 3 * SA) + (W + 2) * word) / rate * 1e3})
 
     # the whole step at the main path's shapes: the seeds, one run, the
     # answer, no host read in between
@@ -1371,7 +1457,6 @@ def kernel_rows(torch, kernels, engine, snap, queries, rate, launches):
     full_c = step_fn()
     full_r = kernels.check_step_ref(g.buckets, entries, **kw)
     seed_bytes = 8 * (S1 + S2) + 2 * bitmap
-    ans_bytes = word * (3 * B + 3 * SA) + (W + 2) * word
     row("check_step", "the whole step, tpu_engine.py:110-251: keto_seed, keto_check_run, "
         "keto_answer_pack and the step's allocations",
         step_fn, lambda: kernels.check_step_ref(g.buckets, entries, **kw), (full_c, full_r),
@@ -1658,6 +1743,12 @@ def words_changed(run, R0, P0, iters: int) -> int:
         total += int((R != prev).sum())
         prev = R
     return total
+
+
+def sectors(torch, words) -> int:
+    """The distinct 32-byte sectors (8 words) that gathers of the flat word
+    indices ``words`` touch in one buffer."""
+    return int(torch.unique(words >> 3).numel())
 
 
 def host_reads(torch, fn) -> int:
@@ -2034,7 +2125,7 @@ def phase_shard(torch, kernels, report, main_keep, deep_keep, rate, int_rate, de
         counters = shard_counts(eng)
         missing = [k for k in ("seed", "check_run", "shard_answer") if on_card and not launches[k]]
         if on_card and (launches["seed"] != SHARD_G * launches["check_run"]
-                        or launches["shard_answer"] != SHARD_G * launches["check_run"]
+                        or launches["shard_answer"] != launches["check_run"]
                         or launches["pull"]
                         or not launches["check_run_halo_copies"] == launches["check_run_steps"]
                         == counters["shard_halo_rounds"]):
@@ -2296,15 +2387,16 @@ def _k10_row(rows, name, replaces, part, cuda_fn, plain_fn, outs, launches, boun
 
 def shard_check_rows(torch, kernels, ps, mesh, snap, call, launches, rate) -> list:
     """K10a's rows at config 3's shapes (the first sharded dispatch of the
-    shard phase's run): the whole program, its run alone,
+    shard phase's run): the whole program, its run alone (counting the
+    frontier bits it sets, as on the path, and without the counter),
     ``keto_shard_answer`` and the halo copy, each beside its plain version
-    and bound. The step must be the seeds, one run and the answers with no
+    and bound. The step must be the seeds, one run and one answer with no
     host read in between, and its halo copies equal its iters."""
     (m_, bk, ent, ovn, ovd), kw = call
     g, rps, B = ent.shape[0], kw["rps"], kw["B"]
     W, (S1, S2, SA, _) = B // 32, kw["sizes"]
     kernels.reset_run_counts()
-    R, P, ab, state = ps.fixpoint_cuda(mesh, bk, ent, ovn, ovd, **kw)
+    R, P, ab, state, counted = ps.fixpoint_cuda(mesh, bk, ent, ovn, ovd, **kw)
     truncated, iters = state[:2].tolist()
     steps, copies = kernels.run_counts()
     rows: list = []
@@ -2329,20 +2421,36 @@ def shard_check_rows(torch, kernels, ps, mesh, snap, call, launches, rate) -> li
                             torch.zeros((g * rps, W), dtype=torch.int32, device="cuda"), iters)
     run_b = iters * hop + 4 * changed
     seed_b = g * (8 * (S1 + S2) + 2 * slab)
-    ans_b = g * (4 * (B + 2 * SA) + slab) + 4 * (B + SA) + 4 * (W + 3)
+    # what the answer must move: every shard's target ids and sink pairs
+    # (coalesced), a sector for every distinct sector the owned gathers
+    # touch (P, ans_base, R), the answer written once; no read of R for the
+    # popcount (the seeds and the run count it where they set the bits)
+    e, a0 = ent.long(), 2 * S1 + 2 * S2
+    qw = torch.arange(B, device="cuda") >> 5
+    tflat, sflat = [], []
+    for s in range(g):
+        tg = e[s, a0 + 2 * SA :]
+        ar, aq = e[s, a0 : a0 + SA], e[s, a0 + SA : a0 + 2 * SA]
+        own, owned = tg < rps, (ar >= 0) & (ar < rps)
+        tflat.append((s * rps + tg[own]) * W + qw[own])
+        sflat.append((s * rps + ar[owned]) * W + (aq[owned] >> 5))
+    gathers = {"P": sectors(torch, torch.cat(tflat)), "sinks_R": sectors(torch, torch.cat(sflat))}
+    gathers["ans_base"] = gathers["P"]
+    ans_b = 32 * sum(gathers.values()) + 4 * g * (B + 2 * SA) + 4 * (W + 3)
+    ans_old = g * (4 * (B + 2 * SA) + slab) + 4 * (B + SA) + 4 * (W + 3)
     full = lambda: ps.check_step_cuda(mesh, bk, ent, ovn, ovd, **kw)  # noqa: E731
     plain = lambda: ps.check_step_ref(mesh, bk, ent, ovn, ovd, **kw)  # noqa: E731
     before = dict(kernels.COUNTS)
     reads = host_reads(torch, full)
     per_step = {k: kernels.COUNTS[k] - before[k] for k in
                 ("seed", "check_run", "shard_answer", "pull", "answer_pack")}
-    if reads or per_step != {"seed": g, "check_run": 1, "shard_answer": g, "pull": 0,
+    if reads or per_step != {"seed": g, "check_run": 1, "shard_answer": 1, "pull": 0,
                              "answer_pack": 0} or not steps == copies == iters:
         raise SystemExit(f"shard FAILED: a K10a step made {reads} host reads, launched "
                          f"{per_step}, ran {steps} steps with {copies} halo copies ({iters} iters)")
     _k10_row(rows, "shard_check_step", K10A, "the whole sharded BFS step (keto_seed a shard, "
-             "ONE keto_check_run over every shard with its halo phase, keto_shard_answer a "
-             "shard, and the step's allocations)", full, plain, ([full()], [plain()]),
+             "ONE keto_check_run over every shard with its halo phase, ONE keto_shard_answer, "
+             "and the step's allocations)", full, plain, ([full()], [plain()]),
              launches["check_run"], _bound(rate, 1, seed_b + run_b + ans_b), 5,
              extra={"g": g, "rps": rps, "W": W, "iters": iters, "truncated": truncated,
                     "halo_copies": copies, "host_reads": reads, "launches_a_step": per_step,
@@ -2350,7 +2458,8 @@ def shard_check_rows(torch, kernels, ps, mesh, snap, call, launches, rate) -> li
                     "wall_ms": whole_ms(torch, lambda: full().tolist(), 20)})
 
     # the run alone over every shard: a bare launch behind a spin kernel on
-    # its own copy of the seeded slabs
+    # its own copy of the seeded slabs, with its frontier-bit counter as on
+    # the path (the phases also without it, in the same call)
     run_kw = dict(ov=kernels.RunOverlay.of(ovn, ovd, rps, rps), it_cap=kw["it_cap"],
                   block_iters=kw["block_iters"])
     lib_ = kernels._lib()
@@ -2358,58 +2467,91 @@ def shard_check_rows(torch, kernels, ps, mesh, snap, call, launches, rate) -> li
 
     def run_state():
         return (R0.clone(), kernels.pull_out(g * rps, W, plan.n_rows, kw["it_cap"], "cuda"),
-                torch.zeros(3, dtype=torch.int32, device="cuda"), torch.empty_like(R0))
+                torch.zeros(3, dtype=torch.int32, device="cuda"), torch.empty_like(R0),
+                torch.zeros(1, dtype=torch.int32, device="cuda"))
 
-    bare = bare_ms(torch, lambda st: kernels.run_launch(lib_, plan, *st[:3], G=st[3], **run_kw,
-                                                        stream=stream),
+    bare = bare_ms(torch, lambda st: kernels.run_launch(lib_, plan, *st[:3], G=st[3], pop=st[4],
+                                                        **run_kw, stream=stream),
                    [run_state() for _ in range(10)])
-    wrapper = time_fresh_ms(lambda Rs, Ps, _, Gs: kernels.check_run_cuda(plan, Rs, Ps, G=Gs,
-                                                                         **run_kw),
-                            run_state, 10)
-    phases = run_phases(torch, kernels, lambda st, stamps: kernels.run_launch(
-        lib_, plan, *st[:3], G=st[3], **run_kw, stamps=stamps, stream=stream),
-        [run_state() for _ in range(5)], iters)
+    wrapper = time_fresh_ms(lambda Rs, Ps, _, Gs, pc: kernels.check_run_cuda(
+        plan, Rs, Ps, G=Gs, pop=pc, **run_kw), run_state, 10)
+    phase_fns = {c: (lambda st, stamps, c=c: kernels.run_launch(
+        lib_, plan, *st[:3], G=st[3], pop=st[4] if c else None, **run_kw, stamps=stamps,
+        stream=stream)) for c in (True, False)}
+    phases = run_phases(torch, kernels, phase_fns[True], [run_state() for _ in range(5)], iters)
+    phases_uncounted = run_phases(torch, kernels, phase_fns[False],
+                                  [run_state() for _ in range(5)], iters)
     run_plain = time_fresh_ms(lambda Rs, Ps, *_: plain_run(Rs, Ps), run_state, 2, warmup=1)
-    Rc, Pc, Cc, Gc = run_state()
-    Sc = kernels.check_run_cuda(plan, Rc, Pc, G=Gc, **run_kw)
+    Rc, Pc, Cc, Gc, pc = run_state()
+    Sc = kernels.check_run_cuda(plan, Rc, Pc, G=Gc, pop=pc, **run_kw)
     Rr, Pr = R0.clone(), torch.zeros_like(Pc)
-    Sr = plain_run(Rr, Pr)
+    pr = torch.zeros(1, dtype=torch.int32, device="cuda")
+    Sr = ps.shard_run_ref(plan, Rr, Pr, ovn, ovd, rps=rps, it_cap=kw["it_cap"],
+                          block_iters=kw["block_iters"], pop=pr)
     _k10_row(rows, "shard_check_run", K10A, "the sharded fixpoint, sharded.py:371-417: "
-             "keto_check_run over every shard, a halo phase a hop run; ms is the kernel alone",
-             None, None, ([Rc, Pc[: plan.n_rows], Sc[:2]], [Rr, Pr[: plan.n_rows], Sr[:2]]),
+             "keto_check_run over every shard, a halo phase a hop run, the commits counting "
+             "the frontier bits they set; ms is the kernel alone",
+             None, None, ([Rc, Pc[: plan.n_rows], Sc[:2], pc], [Rr, Pr[: plan.n_rows], Sr[:2], pr]),
              launches["check_run"], _bound(rate, 1, run_b), 0, ms=bare, plain=run_plain,
              source="keto_tpu_torch/csrc/check_kernels.cu",
              extra={"wrapper_ms": wrapper, "iters": iters, "halo_copies": copies,
                     "runs": len(plan.rows), "ms_per_hop": bare / max(1, iters),
                     "words_changed": changed, "phases": phases,
+                    "phases_without_counter": phases_uncounted,
+                    "commit_phase_ms_counted_vs_not": [phases["commit_ms"],
+                                                       phases_uncounted["commit_ms"]],
                     "pull_phase_bound_ms": _bound(rate, 1, 4 * slots + srcs * W * 4 + act)[0],
                     "bound_counts": "a hop: the halo (every slab read and written), slots, "
                                     "distinct source rows, P written, R's active rows read; "
                                     "the words changed written once"})
 
+    # the answer: ONE launch over every shard into an output whose frontier
+    # word the seeds and the run counted (the step's own count is held
+    # against popcount(R) here, as the reference's psum computes it)
+    pop_word = int(counted[W + 2]) & 0xFFFFFFFF
+    pop_r = int(kernels._popcount(R).sum()) & 0xFFFFFFFF
+
     def answer():
-        out = torch.zeros(W + 3, dtype=torch.int32, device="cuda")
-        for s in range(g):
-            ps.shard_answer_cuda(ent[s], kw["sizes"], P[s], ab[s], R[s], rps, state, out)
+        out = counted.clone()
+        ps.shard_answer_cuda(ent, kw["sizes"], P, ab, R, rps, state, out)
         return out
 
     def answer_plain():
-        parts = [ps.shard_answer_ref(ent[s], kw["sizes"], P[s], ab[s], R[s], rps, iters,
-                                     bool(truncated)) for s in range(g)]
-        return torch.cat([ps.or_combine([x[:W] for x in parts]), parts[0][W : W + 2],
-                          ps.psum([x[W + 2 :] for x in parts])])
+        return ps.shard_answer_ref(ent, kw["sizes"], P, ab, R, rps, iters, bool(truncated),
+                                   pop_r)
 
-    _k10_row(rows, "shard_answer", K10A, "owned answers, OR-combine and popcount psum, "
-             "sharded.py:422-455", answer, answer_plain, ([answer()], [answer_plain()]),
-             launches["shard_answer"], _bound(rate, 1, ans_b), 20)
+    bare_out = counted.clone()
+    ans_ms, ans_how = graph_ms(torch, lambda: _ok(lib_.keto_shard_answer(
+        ent.data_ptr(), ent.shape[1], g, S1, S2, SA, B, rps, P.data_ptr(), ab.data_ptr(),
+        R.data_ptr(), W, state.data_ptr(), bare_out.data_ptr(), kernels._stream()),
+        "keto_shard_answer"), 20)
+    _k10_row(rows, "shard_answer", K10A, "owned answers and their OR-combine over every shard, "
+             "sharded.py:422-455, ONE launch; the popcount psum counted by the seeds and the "
+             "run where they set the bits; ms is the kernel alone",
+             answer, answer_plain, ([answer()], [answer_plain()]),
+             launches["shard_answer"], _bound(rate, 1, ans_b), 20, ms=ans_ms,
+             plain=time_ms(answer_plain, 2, warmup=1),
+             extra={"timed_by": ans_how, "wrapper_ms": time_ms(answer, 20), "g": g, "B": B,
+                    "SA_per_shard": SA, "sectors": gathers,
+                    "frontier_bits_counted": pop_word, "frontier_bits_popcount_R": pop_r,
+                    "bound_counts": "bytes in 32-byte sectors: a sector per distinct sector "
+                                    "the owned gathers touch, ids and pairs once, the answer "
+                                    "once; no read of R for the popcount",
+                    "bound_4byte_ms": ans_old / rate * 1e3,
+                    "bound_4byte_counts": "the parent's: 4 bytes a gather, and each shard's "
+                                          "R slab read for the popcount"})
+    if pop_word != pop_r:
+        raise SystemExit(f"shard FAILED: the counted frontier bits {pop_word} are not "
+                         f"popcount(R) {pop_r}")
+    slabs = list(R.view(g, rps, W))
     G = torch.empty((g * rps, W), dtype=torch.int32, device="cuda")
     _k10_row(rows, "halo_copy", K10A, "lax.all_gather of the [rps, W] slabs, sharded.py:403: "
              "a phase of keto_check_run on the path, timed here as a copy_ per slab (one card, "
              "no interconnect)",
-             lambda: ps.all_gather_rows(R, out=G), lambda: torch.cat(R),
-             ([ps.all_gather_rows(R, out=G)], [torch.cat(R)]),
+             lambda: ps.all_gather_rows(slabs, out=G), lambda: torch.cat(slabs),
+             ([ps.all_gather_rows(slabs, out=G)], [torch.cat(slabs)]),
              launches["check_run_halo_copies"], _bound(rate, 1, 2 * g * slab), 20,
-             library=lambda: torch.cat(R, out=G),
+             library=lambda: torch.cat(slabs, out=G),
              extra={"bytes_moved_per_hop": g * slab, "run_halo_phase_ms": phases["halo_ms"],
                     "run_halo_phase_bound_ratio": phases["halo_ms"] / _bound(rate, 1, 2 * g * slab)[0],
                     "reference_halo_bytes_per_round": ps.halo_bytes_per_round(snap.shard_spec, W),

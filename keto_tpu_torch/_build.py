@@ -42,10 +42,10 @@ _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 #: C signature of every entry point in csrc/*.cu
 _SIGNATURES = {
-    "keto_seed": [_P, _I64, _I64, _I32, _I32, _P, _P, _P],
+    "keto_seed": [_P, _I64, _I64, _I32, _I32, _P, _P, _P, _P],
     "keto_pull": [_P, _P, _P, _P, _I32, _P, _P, _I32, _P],
     "keto_check_run": [_P, _P, _P, _P, _I32, _P, _P, _I32, _I32, _I32, _I32, _I32, _P, _P, _I32,
-                       _P, _I32, _I32, _I32, _I32, _P, _P, _P, _I32, _P],
+                       _P, _I32, _I32, _I32, _I32, _P, _P, _P, _I32, _P, _P],
     "keto_answer_pack": [_P, _I64, _I64, _I64, _I64, _I32, _P, _P, _P, _I32, _P, _P, _P],
     "keto_label_step": [_P, _I32, _P, _I32, _I64, _P, _I64, _I32, _I32, _P, _P],
     "keto_label_witness": [_P, _I32, _P, _I32, _I64, _P, _P, _I64, _I32, _I32, _P, _P],
@@ -58,7 +58,8 @@ _SIGNATURES = {
     "keto_radix_pass": [_P, _P, _I64, _I32, _P, _P, _P, _P, _P, _P],
     "keto_list_fixpoint": [_P, _P, _P, _I32, _P, _P, _P, _I32, _I32, _P, _P, _I32, _I32, _I32, _P,
                            _P],
-    "keto_shard_answer": [_P, _I64, _I64, _I64, _I64, _I32, _P, _P, _P, _I32, _P, _P, _P],
+    "keto_shard_answer": [_P, _I64, _I32, _I64, _I64, _I64, _I64, _I32, _P, _P, _P, _I32, _P, _P,
+                          _P],
     "keto_pair_gather": [_P, _I64, _I32, _I32, _P, _I64, _P, _P],
 }
 

@@ -17,9 +17,13 @@ Source notes:
   :257): the seed scatter (``keto_seed``), the whole guarded Jacobi loop in
   ONE cooperative launch (``keto_check_run``: per step K1's pull, the
   overlay OR and the commit between grid barriers, the guard on the card)
-  and the answer gather + bit pack (``keto_answer_pack``), with no host
-  read in between. Bound: bytes — the seed and answer gathers touch a word
-  per entry; each step moves the pull's bytes and R and P once.
+  and the answer gather + bit pack (``keto_answer_pack``: a warp owns an
+  answer word, its 32 target decisions packed by one ballot; sink hits
+  grouped by word, one atomic a distinct word a warp), with no host read
+  in between. Bound: bytes — the seed and answer gathers touch a sector
+  per entry; each step moves the pull's bytes and R and P once. The seeds
+  and the run take an optional counter (``pop``): each adds the bits of R
+  it newly sets (the sharded step's frontier-bit word).
 - ``label_step`` replaces ``label_step`` (tpu_engine.py:310): per pair
   (a, b), ``any(out_lab[a][i] == in_lab[b][j])``, maxed into the owning
   query and packed to ``uint32[W]``. CUDA: ``keto_label_step`` in
@@ -156,31 +160,62 @@ def _split(entries: torch.Tensor, sizes):
     return [p.long() for p in parts]
 
 
-def seed_ref(entries, sizes, n_int: int, W: int):
-    """``(R0, ans_base)``: e1/e2 query bits scattered into their rows; rows
-    outside ``[0, n_int]`` are dropped. Scatter-add on disjoint bits, as the
-    reference."""
+def _popcount(x: torch.Tensor) -> torch.Tensor:
+    """Per-word popcount of int32 words read as uint32 (int64 result)."""
+    v = x.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def u32_to_i32(v: int) -> int:
+    """``v`` mod 2^32 as the int32 word that holds it."""
+    v &= 0xFFFFFFFF
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def count_into(pop: Optional[torch.Tensor], bits: int) -> None:
+    """``pop[0] += bits`` as uint32 with wrap-around (an int32 word), as the
+    kernels' ``atomicAdd`` into the frontier-bit counter; None counts
+    nothing."""
+    if pop is not None:
+        pop[0] = u32_to_i32(int(pop[0]) + int(bits))
+
+
+def seed_ref(entries, sizes, n_int: int, W: int, pop: Optional[torch.Tensor] = None):
+    """``(R0, ans_base)``: e1/e2 query bits set in their rows; rows outside
+    ``[0, n_int]`` are dropped. An OR, as ``keto_seed``'s atomicOr: on
+    distinct (row, query) pairs, the engine's, it equals the reference's
+    scatter-add, and an entry given twice sets its bit once. ``pop`` counts
+    the bits of R0 the seeds set (each once)."""
     e1r, e1q, e2r, e2q, _, _, _ = _split(entries, sizes)
     dev = entries.device
     ans_base = torch.zeros((n_int + 1, W), dtype=torch.int32, device=dev)
     R0 = torch.zeros((n_int + 1, W), dtype=torch.int32, device=dev)
     for dst, rows, qs in ((ans_base, e2r, e2q), (R0, e1r, e1q)):
         keep = (rows >= 0) & (rows <= n_int)
-        rows, qs = rows[keep], qs[keep]
+        keys = torch.unique(rows[keep] * (32 * W) + qs[keep])
+        rows, qs = keys // (32 * W), keys % (32 * W)
         bits = (torch.ones_like(qs) << (qs & 31)).to(torch.int32)
         dst.view(-1).index_put_((rows * W + (qs >> 5),), bits, accumulate=True)
-    return R0 | ans_base, ans_base
+    R0 |= ans_base
+    count_into(pop, int(_popcount(R0).sum()))
+    return R0, ans_base
 
 
-def commit_ref(P: torch.Tensor, R: torch.Tensor, n_active: int, state: torch.Tensor) -> None:
+def commit_ref(P: torch.Tensor, R: torch.Tensor, n_active: int, state: torch.Tensor,
+               pop: Optional[torch.Tensor] = None) -> None:
     """``R[:n_active] |= P[:n_active]`` while ``state[0]`` (changed) is set,
-    raising ``state[2]`` (step_changed) when a word grew."""
+    raising ``state[2]`` (step_changed) when a word grew; ``pop`` counts the
+    bits the commit newly set."""
     if int(state[0]) == 0:
         return
     act = R[:n_active]
     nxt = act | P[:n_active]
     if bool((nxt != act).any()):
         state[2] = 1
+        count_into(pop, int(_popcount(nxt & ~act).sum()))
     R[:n_active] = nxt
 
 
@@ -233,6 +268,7 @@ def check_run_ref(
     *,
     it_cap: int,
     block_iters: int = 8,
+    pop: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``keto_check_run``'s plain version: the guarded Jacobi fixpoint of
     ``R`` (int32[n_int+1, W], in place), the pull of the last step run in
@@ -241,7 +277,8 @@ def check_run_ref(
     ``commit_ref`` and ``close_ref``, in blocks of ``block_iters`` steps
     whose guard is tested where a block begins. It runs a first step
     whatever it is given (the sharded program's loop has no "nothing to
-    pull" guard; ``check_step_ref`` skips the run instead)."""
+    pull" guard; ``check_step_ref`` skips the run instead). ``pop`` counts
+    the bits the commits newly set."""
     n_active = sum(int(n) for n in valid_rows)
     state = torch.tensor([1, 0, 0], dtype=torch.int32, device=R.device)
     while int(state[0]) and int(state[1]) < it_cap:
@@ -252,7 +289,7 @@ def check_run_ref(
                 P[:n_active] = pull_ref(bucket_nbrs, valid_rows, R)
             if ov_nbrs is not None:
                 overlay_or_ref(P, R, ov_nbrs, ov_dst, n_active)
-            commit_ref(P, R, n_active, state)
+            commit_ref(P, R, n_active, state, pop)
             close_ref(state)
     return state
 
@@ -442,9 +479,20 @@ def _need_state(state: torch.Tensor) -> None:
         raise ValueError("state: expected int32[3] {changed at exit, steps run, a third word}")
 
 
-def seed_cuda(entries: torch.Tensor, sizes, n_int: int, W: int, *, R=None, ans_base=None):
+def _need_pop(pop: Optional[torch.Tensor], device) -> None:
+    if pop is not None:
+        _need(pop, "pop", 1)
+        if pop.numel() < 1 or pop.device != device:
+            raise ValueError(f"pop: expected an int32 counter on {device}, got "
+                             f"{tuple(pop.shape)} on {pop.device}")
+
+
+def seed_cuda(entries: torch.Tensor, sizes, n_int: int, W: int, *, R=None, ans_base=None,
+              pop: Optional[torch.Tensor] = None):
     """``(R0, ans_base)`` via ``keto_seed``, into the given zeroed
-    ``[n_int+1, W]`` buffers or new ones."""
+    ``[n_int+1, W]`` buffers or new ones; with ``pop`` (an int32 on the
+    card, read as uint32) the kernel adds the bits of R it newly sets into
+    ``pop[0]``."""
     _need_entries(entries, sizes)
     S1, S2, _, _ = sizes
     if R is None:
@@ -452,9 +500,10 @@ def seed_cuda(entries: torch.Tensor, sizes, n_int: int, W: int, *, R=None, ans_b
         ans_base = torch.zeros_like(R)
     for t, what in ((R, "R"), (ans_base, "ans_base")):
         _need_rows(t, what, n_int + 1, W)
+    _need_pop(pop, R.device)
     COUNTS["seed"] += 1
     _check(_lib().keto_seed(entries.data_ptr(), S1, S2, n_int, W, R.data_ptr(),
-                            ans_base.data_ptr(), _stream()), "keto_seed")
+                            ans_base.data_ptr(), _ptr(pop), _stream()), "keto_seed")
     return R, ans_base
 
 
@@ -595,13 +644,15 @@ RUN_STAMPS = 5
 
 
 def run_launch(lib, plan: PullRuns, R, P, ctl, *, G=None, ov: Optional[RunOverlay] = None,
-               it_cap: int, block_iters: int, counts=None, stamps=None, stream: int) -> int:
+               it_cap: int, block_iters: int, counts=None, stamps=None, pop=None,
+               stream: int) -> int:
     """``keto_check_run`` of ``plan`` on ``R`` and ``P`` (with ``G``, the
     sharded run: a halo copy of R's rows into G each step, the pulls from
     G); returns the error code (the bare launch ``check_run_cuda`` checks
     and counts). ``ctl`` is int32[3], zeroed. ``stamps`` (int64 ``[steps,
     RUN_STAMPS]`` on the card, for measurement only) takes the card's
-    nanosecond clock at each phase boundary of the first ``steps`` steps."""
+    nanosecond clock at each phase boundary of the first ``steps`` steps.
+    ``pop`` (an int32 on the card) takes the bits the commits newly set."""
     C = 0 if ov is None else ov.nbrs.shape[-1]
     rows = 0 if ov is None else ov.nbrs.numel() // C
     return lib.keto_check_run(
@@ -610,7 +661,7 @@ def run_launch(lib, plan: PullRuns, R, P, ctl, *, G=None, ov: Optional[RunOverla
         0 if ov is None else ov.n_dst, R.data_ptr(), _ptr(G), 0 if G is None else G.shape[0],
         P.data_ptr(), plan.n_rows, R.shape[1], min(int(it_cap), INDEX_LIMIT - 1), int(block_iters),
         ctl.data_ptr(), _ptr(counts), _ptr(stamps), 0 if stamps is None else stamps.shape[0],
-        stream)
+        _ptr(pop), stream)
 
 
 #: per device (a tensor's own ``device``, index set), the int64[2] {steps,
@@ -648,11 +699,12 @@ def reset_run_counts() -> None:
 
 def check_run_cuda(plan: PullRuns, R: torch.Tensor, P: torch.Tensor, *, G=None,
                    ov: Optional[RunOverlay] = None, it_cap: int,
-                   block_iters: int = 8) -> torch.Tensor:
+                   block_iters: int = 8, pop: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The guarded fixpoint via ONE ``keto_check_run`` launch: ``R`` in
     place, the pull of the last step run in ``P``'s run rows → the device
     state int32[3] {changed at exit, steps run, last changed step + 1}
-    (not read here)."""
+    (not read here). With ``pop`` (an int32 on the card) the commits add
+    the bits they newly set into ``pop[0]``."""
     _need(R, "R", 2)
     W = R.shape[1]
     _need_rows(P, "P", plan.n_rows + 1 if G is None else plan.n_rows, W)
@@ -665,12 +717,13 @@ def check_run_cuda(plan: PullRuns, R: torch.Tensor, P: torch.Tensor, *, G=None,
             raise ValueError(f"{what} {tuple(t.shape)}: the kernels index in 32 bits")
     if block_iters < 1:
         raise ValueError(f"block_iters must be at least 1, got {block_iters}")
+    _need_pop(pop, R.device)
     ctl = torch.zeros(3, dtype=torch.int32, device=R.device)
     COUNTS["check_run"] += 1
     if ov is not None:
         COUNTS["check_run_overlay"] += 1
     _check(run_launch(_lib(), plan, R, P, ctl, G=G, ov=ov, it_cap=it_cap,
-                      block_iters=block_iters, counts=_run_counter(R.device),
+                      block_iters=block_iters, counts=_run_counter(R.device), pop=pop,
                       stream=_stream()),
            "keto_check_run")
     return ctl
@@ -688,8 +741,8 @@ def pull_out(rows: int, W: int, n_active: int, it_cap: int, device) -> torch.Ten
 
 
 def answer_pack_cuda(entries, sizes, n_active: int, P, ans_base, R, state) -> torch.Tensor:
-    """int32[W+2] via ``keto_answer_pack``; ``state`` None means iters = 0
-    and not truncated."""
+    """int32[W+2] via ONE ``keto_answer_pack`` launch (no host read);
+    ``state`` None means iters = 0 and not truncated."""
     _need_entries(entries, sizes)
     S1, S2, SA, B = sizes
     W = B // 32

@@ -19,7 +19,12 @@ rows padded with the other side's pad (all-pad rows among them) with the
 lanes' own rows: an empty lane, an id shared by every other lane, the last
 row's id. The witness cases (``random_witness_case``) add a row pair
 whose every entry is common, a row with no common entry, the pad row on
-either side and, when asked, rows in shuffled order. The list fixpoint's cases (``LIST_CASES``) are tuple sets
+either side and, when asked, rows in shuffled order. The answer cases
+(``ANSWER_KINDS``, ``random_answer_case``) feed K2's and K10a's answer
+kernels bitmaps and entries directly: random entries, a word whose 32
+queries all hit, every sink entry in one word, passive and absent
+targets, and (sharded) targets and sink rows that no shard owns. The
+list fixpoint's cases (``LIST_CASES``) are tuple sets
 whose snapshots give its layouts (``list_case_tuples``) plus seeds and an
 overlay in the layout's row space (``list_case_inputs``): every case seeds
 lane 31; overlay destinations are distinct and padded with ``n_rows + 1``,
@@ -166,6 +171,92 @@ def _bits(rng, shape) -> np.ndarray:
     w = rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32)
     w[rng.random(shape) < 0.33] |= np.uint32(1 << 31)
     return w.view(np.int32)
+
+
+#: the layouts of ``random_answer_case``
+ANSWER_KINDS = ("random", "all-hit", "one-word-sinks", "passive-absent", "unowned")
+
+
+def random_answer_case(rng, kind: str, W: int, *, n_int: int = 96, n_active: int = 64,
+                       g: int = 0, SA: int = 0) -> dict:
+    """Inputs of the answer kernels for a batch of ``32·W`` queries, as
+    numpy arrays: ``entries`` and ``sizes`` (e1/e2 hold padding only: the
+    answer does not read them), bitmaps whose words have about a quarter of
+    their bits set, and ``SA`` sink entries (default ``2·B + 7``, a ragged
+    last tile). Unsharded (``g`` 0): ``P`` ``[n_active+1, W]`` (row
+    ``n_active`` zero), ``ans_base`` and ``R`` ``[n_int+1, W]``, targets in
+    ``[0, n_int]``. Sharded (``g`` shards of ``rps`` rows covering ``n_int +
+    1``): the ``[g·rps, W]`` bitmaps and ``entries`` int32[g, L]; each query's
+    target is a local row on one owner shard and the sentinel ``rps`` on the
+    others; each shard's sink rows lie in ``[0, rps]`` with some past the
+    slab (``rps + 1 ..``). ``kind``: ``random``; ``all-hit``, one answer word
+    whose 32 targets all read a full word; ``one-word-sinks``, every sink
+    entry in one answer word, half of them hits; ``passive-absent``, every
+    target a passive row or the absent row ``n_int`` (unsharded) — the
+    last shard's rows (sharded); ``unowned``, a third of the targets and
+    sink rows owned by no shard (unsharded: as ``random``)."""
+    if kind not in ANSWER_KINDS:
+        raise ValueError(f"unknown answer layout {kind!r}")
+    B = 32 * W
+    SA = SA or 2 * B + 7
+    S = 32
+
+    def sparse(shape):
+        return (_bits(rng, shape) & _bits(rng, shape)).astype(np.int32)
+
+    def sinks(hi, k):
+        rows = rng.integers(0, hi, size=k).astype(np.int32)
+        qs = rng.integers(0, B, size=k).astype(np.int32)
+        if kind == "one-word-sinks":
+            qs = (32 * (W - 1) + rng.integers(0, 32, size=k)).astype(np.int32)
+        return rows, qs
+
+    pad = lambda row: [np.full(S, row, np.int32), np.zeros(S, np.int32)] * 2  # noqa: E731
+    if not g:
+        P = sparse((n_active + 1, W))
+        P[n_active] = 0
+        ans_base, R = sparse((n_int + 1, W)), sparse((n_int + 1, W))
+        targets = rng.integers(0, n_int + 1, size=B).astype(np.int32)
+        if kind == "passive-absent":
+            targets = rng.integers(n_active, n_int + 1, size=B).astype(np.int32)
+            targets[::5] = n_int
+        a_rows, a_q = sinks(n_int + 1, SA)
+        w0 = W // 2
+        if kind == "all-hit":
+            r = int(rng.integers(0, n_active))
+            P[r, w0] = -1
+            targets[32 * w0 : 32 * w0 + 32] = r
+        if kind == "one-word-sinks":
+            R[a_rows[::2], W - 1] = -1
+        entries = np.concatenate(pad(n_int + 1) + [a_rows, a_q, targets]).astype(np.int32)
+        return dict(entries=entries, sizes=(S, S, SA, B), n_active=n_active, P=P,
+                    ans_base=ans_base, R=R)
+    rps = -(-(n_int + 1) // g)
+    P, ans_base, R = (sparse((g * rps, W)) for _ in range(3))
+    owner = rng.integers(0, g, size=B)
+    if kind == "passive-absent":
+        owner[:] = g - 1
+    if kind == "unowned":
+        owner[rng.random(B) < 1 / 3] = -1
+    local = rng.integers(0, rps, size=B).astype(np.int32)
+    w0 = W // 2
+    if kind == "all-hit":
+        s0, r0 = int(rng.integers(0, g)), int(rng.integers(0, rps))
+        P[s0 * rps + r0, w0] = -1
+        owner[32 * w0 : 32 * w0 + 32], local[32 * w0 : 32 * w0 + 32] = s0, r0
+    rows = []
+    for s in range(g):
+        targets = np.where(owner == s, local, rps).astype(np.int32)
+        a_rows, a_q = sinks(rps, SA)
+        if kind == "unowned":
+            a_rows[rng.random(SA) < 1 / 3] = rps
+        a_rows[::11] = rps + 1 + a_rows[::11]  # rows past the slab
+        if kind == "one-word-sinks":
+            own = a_rows[::2] < rps
+            R[s * rps + a_rows[::2][own], W - 1] = -1
+        rows.append(np.concatenate(pad(rps) + [a_rows, a_q, targets]))
+    return dict(entries=np.stack(rows).astype(np.int32), sizes=(S, S, SA, B), rps=rps, P=P,
+                ans_base=ans_base, R=R)
 
 
 def random_label_rows(rng, n: int, width: int, pad: int, hi: int) -> np.ndarray:

@@ -8,6 +8,11 @@
 // and the fixpoint of K10a `sharded_check_step` (keto_tpu/parallel/sharded.py:327),
 // which keto_check_run runs over every row-range shard at once, its halo
 // all-gather a phase of each hop (csrc/shard_kernels.cu holds its answer).
+// Sharded, the seeds and the run also count the frontier bits they set
+// (`pop`, the reference's psum of popcount(R_fix)): each adds the bits its
+// writes newly set, a block reduction and one atomicAdd a block, so no
+// kernel reads R again for it. Unsharded, `pop` is null and they count
+// nothing.
 // The Python wrappers and the plain PyTorch versions live in
 // keto_tpu_torch/check/kernels.py and keto_tpu_torch/parallel/sharded.py; the
 // build (nvcc, plain C ABI, ctypes) in keto_tpu_torch/_build.py.
@@ -73,7 +78,10 @@
 // step run: the answer's p_fix). The halo is copied only on steps that run.
 // ctl (int32[3], zeroed by the caller): on return [0] changed at exit (the
 // truncation flag), [1] steps run; [2] is the last changed step + 1.
-// keto_answer_pack and keto_shard_answer read [0] and [1]. With `counts`
+// keto_answer_pack and keto_shard_answer read [0] and [1]. With `pop` (a
+// uint32 on the card; COUNT) each commit thread keeps popc(nxt & ~old) of
+// the words it grows in a register across the steps, and adds it after the
+// last one (a block reduction, one atomicAdd a block). With `counts`
 // (int64[2] on the card, never reset here) the run adds its steps and its
 // halo copies: the launch counts of the pull and the halo, which no host
 // read between the seeds and the answer could give. With `stamps` (int64
@@ -86,6 +94,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "answer.cuh"
 #include "coop.cuh"
 
 namespace cg = cooperative_groups;
@@ -182,6 +191,14 @@ __device__ __forceinline__ void or_into(uint4* p, uint4 v) {
   or_into(w + 2, v.z);
   or_into(w + 3, v.w);
 }
+// the bits of `nxt` that `old` lacks
+__device__ __forceinline__ unsigned popc_new(uint32_t nxt, uint32_t old) {
+  return __popc(nxt & ~old);
+}
+__device__ __forceinline__ unsigned popc_new(uint4 nxt, uint4 old) {
+  return popc_new(nxt.x, old.x) + popc_new(nxt.y, old.y) + popc_new(nxt.z, old.z) +
+         popc_new(nxt.w, old.w);
+}
 
 // K1's device function: warp task `task` of one run (or of the overlay, with
 // OVERLAY). A task is 32 >> (is + ss) rows, or, for a row wider than one
@@ -276,12 +293,12 @@ pull_kernel(const __grid_constant__ PullRuns t, const V* R, V* __restrict__ P, u
 // unsharded, the pulls read R; halo > 0: the halo phase copies `halo` vectors
 // of R into G each step run, and the pulls read G. `commit` vectors of R (the
 // active prefix) take the commit.
-template <typename V>
+template <typename V, bool COUNT>
 __global__ void __launch_bounds__(kThreads)
 check_run_kernel(const __grid_constant__ PullRuns t, const __grid_constant__ Overlay ov, V* R,
                  V* G, unsigned halo, V* P, unsigned commit, unsigned IT, int32_t it_cap,
                  int32_t block_iters, int32_t* ctl, long long* counts, long long* stamps,
-                 int32_t stamp_steps) {
+                 int32_t stamp_steps, uint32_t* pop) {
   __shared__ RunsShared s;
   __shared__ int32_t s_last;
   load_runs(t, &s);
@@ -293,6 +310,7 @@ check_run_kernel(const __grid_constant__ PullRuns t, const __grid_constant__ Ove
   const int nwarps = nthreads >> 5;
   const V* src = halo ? G : R;
   int it = 0, copies = 0;
+  unsigned fresh = 0;  // COUNT: bits this thread's commits set
   bool changed = true;
   // stamp k of this step: 0 begun, 1 halo done, 2 pull done, 3 overlay done, 4 committed
   auto stamp = [&](int k) {
@@ -348,6 +366,7 @@ check_run_kernel(const __grid_constant__ PullRuns t, const __grid_constant__ Ove
           if (vne(nxt, old[u])) {
             R[i] = nxt;
             grew = true;
+            if (COUNT) fresh += popc_new(nxt, old[u]);
           }
         }
       }
@@ -362,6 +381,7 @@ check_run_kernel(const __grid_constant__ PullRuns t, const __grid_constant__ Ove
     ++it;
     if (!changed) break;
   }
+  if (COUNT) count_block<kThreads>(pop, fresh);  // every thread leaves on the same step
   if (tid == 0) {
     ctl[0] = changed ? 1 : 0;
     ctl[1] = it;
@@ -376,12 +396,16 @@ check_run_kernel(const __grid_constant__ PullRuns t, const __grid_constant__ Ove
 // Seed scatter: for each (row, query) entry of e1 and e2 whose row lies in
 // [0, n_int], set the query's bit in R (and, for e2, in ans_base). The
 // reference scatter-adds onto disjoint bits, so OR is exact; padding rows
-// (n_int+1) fall outside and are dropped like its mode="drop".
-__global__ void seed_kernel(const int32_t* __restrict__ entries, int64_t S1,
-                            int64_t S2, int32_t n_int, int32_t W,
-                            uint32_t* __restrict__ R,
-                            uint32_t* __restrict__ ans_base) {
+// (n_int+1) fall outside and are dropped like its mode="drop". COUNT adds
+// the bits of R that the atomicOr newly set (from the old value it returns,
+// so an entry seeded twice counts once) into *pop, one atomicAdd a block.
+template <bool COUNT>
+__global__ void __launch_bounds__(kThreads)
+seed_kernel(const int32_t* __restrict__ entries, int64_t S1, int64_t S2, int32_t n_int,
+            int32_t W, uint32_t* __restrict__ R, uint32_t* __restrict__ ans_base,
+            uint32_t* __restrict__ pop) {
   const int64_t n = S1 + S2;
+  unsigned fresh = 0;
   for (int64_t j = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; j < n;
        j += (int64_t)gridDim.x * blockDim.x) {
     const bool e2 = j >= S1;
@@ -393,46 +417,69 @@ __global__ void seed_kernel(const int32_t* __restrict__ entries, int64_t S1,
     if (row < 0 || row > n_int) continue;
     const int64_t at = (int64_t)row * W + (q >> 5);
     const uint32_t bit = 1u << (q & 31);
-    atomicOr(R + at, bit);
+    if (COUNT) {
+      fresh += (atomicOr(R + at, bit) & bit) ? 0u : 1u;
+    } else {
+      atomicOr(R + at, bit);
+    }
     if (e2) atomicOr(ans_base + at, bit);
   }
+  if (COUNT) count_block<kThreads>(pop, fresh);
 }
 
-// Decisions: interior targets read P (the pull of the fixpoint) OR ans_base
-// (the host-propagated one-hop term); sink targets OR the fixpoint bits of
-// their interior in-neighbours. Bits pack into out[0:W]; out[W] = iters,
-// out[W+1] = truncated (changed at exit). `out` arrives zeroed.
-__global__ void answer_pack_kernel(const int32_t* __restrict__ entries,
-                                   int64_t S1, int64_t S2, int64_t SA,
-                                   int64_t B, int32_t n_active,
-                                   const uint32_t* __restrict__ P,
-                                   const uint32_t* __restrict__ ans_base,
-                                   const uint32_t* __restrict__ R, int32_t W,
-                                   const int32_t* __restrict__ state,
-                                   uint32_t* __restrict__ out) {
+// K2's answer. Decisions: interior targets read P (the pull of the fixpoint)
+// OR ans_base (the host-propagated one-hop term); sink targets OR the
+// fixpoint bits of their interior in-neighbours. Bits pack into out[0:W];
+// out[W] = iters, out[W+1] = truncated (changed at exit). `out` arrives
+// zeroed.
+//
+// Bound: bytes, counted in sectors — each target reads its id (coalesced)
+// and one word of a random P row and of a random ans_base row, each sink
+// entry its (row, query) pair and one word of a random R row: from HBM a
+// random word costs a 32-byte sector, so at most 32·(2B + SA) + 4·(B + 2SA)
+// bytes (fewer where gathers share a sector). Design: a warp a tile of 32
+// entries, the tiles walked grid-stride (uniform across the warp), about
+// 1.5 waves of warps at config 3 (a warp holding four tiles in flight ran
+// slower on the card, PERF.md §6). Tile w < W is the 32 targets of answer
+// word w: each lane gathers its target's two words and tests its own bit,
+// and __ballot_sync packs the word, written by lane 0 with one atomicOr
+// (sinks may OR into the same word), none where it is 0 — W writes, where
+// a thread an entry made up to B same-address atomics. A sink tile groups
+// its hits by answer word and issues one atomicOr a distinct word
+// (or_word_hits, K3's idiom).
+__global__ void __launch_bounds__(kThreads)
+answer_pack_kernel(const int32_t* __restrict__ entries, int64_t S1, int64_t S2, int64_t SA,
+                   int32_t n_active, const uint32_t* __restrict__ P,
+                   const uint32_t* __restrict__ ans_base, const uint32_t* __restrict__ R,
+                   int32_t W, const int32_t* __restrict__ state, uint32_t* __restrict__ out) {
   const int32_t* a_rows = entries + 2 * S1 + 2 * S2;
   const int32_t* a_q = a_rows + SA;
   const int32_t* targets = a_q + SA;
-  const int64_t n = B + SA;
-  const int64_t first = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (first == 0) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
+  const int64_t n_warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  if (warp == 0 && lane == 0) {
     out[W] = state ? static_cast<uint32_t>(state[1]) : 0u;
     out[W + 1] = state ? static_cast<uint32_t>(state[0]) : 0u;
   }
-  for (int64_t idx = first; idx < n; idx += (int64_t)gridDim.x * blockDim.x) {
-    int32_t q;
-    uint32_t word;
-    if (idx < B) {
-      q = static_cast<int32_t>(idx);
-      const int32_t t = targets[idx];
+  const int64_t tiles = W + ((SA + 31) >> 5);
+  for (int64_t tile = warp; tile < tiles; tile += n_warps) {
+    if (tile < W) {
+      const int32_t t = targets[(tile << 5) + lane];
       const int32_t t_act = t < n_active ? t : n_active;
-      word = P[(int64_t)t_act * W + (q >> 5)] | ans_base[(int64_t)t * W + (q >> 5)];
+      const uint32_t word = P[(int64_t)t_act * W + tile] | ans_base[(int64_t)t * W + tile];
+      const unsigned hits = __ballot_sync(kFull, (word >> lane) & 1u);
+      if (lane == 0 && hits) atomicOr(out + tile, hits);
     } else {
-      const int64_t j = idx - B;
-      q = a_q[j];
-      word = R[(int64_t)a_rows[j] * W + (q >> 5)];
+      const int64_t j = ((tile - W) << 5) + lane;
+      int32_t q = 0;
+      bool hit = false;
+      if (j < SA) {
+        q = a_q[j];
+        hit = (R[(int64_t)a_rows[j] * W + (q >> 5)] >> (q & 31)) & 1u;
+      }
+      or_word_hits(out, hit, q);
     }
-    if ((word >> (q & 31)) & 1u) atomicOr(out + (q >> 5), 1u << (q & 31));
   }
 }
 
@@ -500,11 +547,11 @@ cudaError_t launch_pull(const PullRuns& t, const uint32_t* R, uint32_t* P, unsig
   return cudaGetLastError();
 }
 
-template <typename V>
+template <typename V, bool COUNT>
 cudaError_t launch_run(const PullRuns& t, const Overlay& ov, uint32_t* R, uint32_t* G,
                        int32_t halo_rows, uint32_t* P, int32_t commit_rows, unsigned IT,
                        int32_t it_cap, int32_t block_iters, int32_t* ctl, int64_t* counts,
-                       int64_t* stamps, int32_t stamp_steps, cudaStream_t s) {
+                       int64_t* stamps, int32_t stamp_steps, uint32_t* pop, cudaStream_t s) {
   V* Rv = reinterpret_cast<V*>(R);
   V* Gv = reinterpret_cast<V*>(G);
   V* Pv = reinterpret_cast<V*>(P);
@@ -516,12 +563,12 @@ cudaError_t launch_run(const PullRuns& t, const Overlay& ov, uint32_t* R, uint32
   if (halo > work) work = halo;
   if (commit > work) work = commit;
   int grid = 0;
-  cudaError_t e = coresident_grid(check_run_kernel<V>, kThreads, work, &grid);
+  cudaError_t e = coresident_grid(check_run_kernel<V, COUNT>, kThreads, work, &grid);
   if (e != cudaSuccess) return e;
   void* args[] = {const_cast<PullRuns*>(&t), const_cast<Overlay*>(&ov), &Rv, &Gv, &halo, &Pv,
-                  &commit, &IT, &it_cap, &block_iters, &ctl, &cnt, &stm, &stamp_steps};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(check_run_kernel<V>), grid, kThreads,
-                                  args, 0, s);
+                  &commit, &IT, &it_cap, &block_iters, &ctl, &cnt, &stm, &stamp_steps, &pop};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(check_run_kernel<V, COUNT>), grid,
+                                  kThreads, args, 0, s);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -536,9 +583,13 @@ cudaError_t launch_run(const PullRuns& t, const Overlay& ov, uint32_t* R, uint32
 
 extern "C" int keto_seed(const int32_t* entries, int64_t S1, int64_t S2,
                          int32_t n_int, int32_t W, uint32_t* R,
-                         uint32_t* ans_base, void* stream) {
-  seed_kernel<<<blocks_for(S1 + S2), kThreads, 0, (cudaStream_t)stream>>>(
-      entries, S1, S2, n_int, W, R, ans_base);
+                         uint32_t* ans_base, uint32_t* pop, void* stream) {
+  const int blocks = blocks_for(S1 + S2);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (pop)
+    seed_kernel<true><<<blocks, kThreads, 0, s>>>(entries, S1, S2, n_int, W, R, ans_base, pop);
+  else
+    seed_kernel<false><<<blocks, kThreads, 0, s>>>(entries, S1, S2, n_int, W, R, ans_base, pop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -563,7 +614,7 @@ extern "C" int keto_check_run(const int64_t* nbrs, const int32_t* rows, const in
                               uint32_t* G, int32_t halo_rows, uint32_t* P, int32_t commit_rows,
                               int32_t W, int32_t it_cap, int32_t block_iters, int32_t* ctl,
                               int64_t* counts, int64_t* stamps, int32_t stamp_steps,
-                              void* stream) {
+                              uint32_t* pop, void* stream) {
   if (W < 1 || block_iters < 1 || halo_rows < 0 || commit_rows < 0 || (halo_rows && !G) ||
       stamp_steps < 0 ||
       (ov_rows > 0 && (ov_cap < 1 || ov_per < 1)))
@@ -581,10 +632,16 @@ extern "C" int keto_check_run(const int64_t* nbrs, const int32_t* rows, const in
     ov.warps = static_cast<int32_t>(w);
   }
   cudaStream_t s = (cudaStream_t)stream;
-  e = v4 ? launch_run<uint4>(t, ov, R, G, halo_rows, P, commit_rows, IT, it_cap, block_iters,
-                             ctl, counts, stamps, stamp_steps, s)
-         : launch_run<uint32_t>(t, ov, R, G, halo_rows, P, commit_rows, IT, it_cap,
-                                block_iters, ctl, counts, stamps, stamp_steps, s);
+  if (v4)
+    e = pop ? launch_run<uint4, true>(t, ov, R, G, halo_rows, P, commit_rows, IT, it_cap,
+                                      block_iters, ctl, counts, stamps, stamp_steps, pop, s)
+            : launch_run<uint4, false>(t, ov, R, G, halo_rows, P, commit_rows, IT, it_cap,
+                                       block_iters, ctl, counts, stamps, stamp_steps, pop, s);
+  else
+    e = pop ? launch_run<uint32_t, true>(t, ov, R, G, halo_rows, P, commit_rows, IT, it_cap,
+                                         block_iters, ctl, counts, stamps, stamp_steps, pop, s)
+            : launch_run<uint32_t, false>(t, ov, R, G, halo_rows, P, commit_rows, IT, it_cap,
+                                          block_iters, ctl, counts, stamps, stamp_steps, pop, s);
   return static_cast<int>(e);
 }
 
@@ -594,8 +651,10 @@ extern "C" int keto_answer_pack(const int32_t* entries, int64_t S1, int64_t S2,
                                 const uint32_t* R, int32_t W,
                                 const int32_t* state, uint32_t* out,
                                 void* stream) {
-  answer_pack_kernel<<<blocks_for(B + SA), kThreads, 0,
-                       (cudaStream_t)stream>>>(entries, S1, S2, SA, B, n_active,
-                                               P, ans_base, R, W, state, out);
+  if (W < 1 || B != 32 * static_cast<int64_t>(W) || SA < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  answer_pack_kernel<<<blocks_for(32 * (W + (SA + 31) / 32)), kThreads, 0,
+                       (cudaStream_t)stream>>>(
+      entries, S1, S2, SA, n_active, P, ans_base, R, W, state, out);
   return static_cast<int>(cudaGetLastError());
 }

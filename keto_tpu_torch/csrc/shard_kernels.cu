@@ -3,9 +3,11 @@
 //
 // Replaces the shard-local work of the shard_map programs of
 // keto_tpu/parallel/sharded.py (K10):
-//   K10a `sharded_check_step`       (:327) -> keto_shard_answer per shard, after
-//        K2's keto_seed per shard and keto_check_run over every shard at once
-//        (csrc/check_kernels.cu): its halo phase copies the slabs each hop
+//   K10a `sharded_check_step`       (:327) -> keto_shard_answer, ONE launch over
+//        every shard, after K2's keto_seed per shard and keto_check_run over
+//        every shard at once (csrc/check_kernels.cu): its halo phase copies
+//        the slabs each hop, and the seeds and the run count the frontier
+//        bits they set
 //   K10b `sharded_label_step`       (:473) -> keto_pair_gather per side, then
 //        K3's keto_label_step on the exchanged pair rows
 //   K10c `sharded_label_sweep_step` (:559) -> K6's keto_sweep_run over every
@@ -16,7 +18,8 @@
 // barriers (the shards share one card). The reductions across shards (psum
 // of the changed flag, the visit count and the popcount, the OR of the
 // answers) are kernels of all shards accumulating into one word or buffer
-// on the device.
+// on the device; the popcount is added where its bits are set (by the
+// seeds and the run's commits), never by a read of R.
 //
 // Shard s owns global rows [s*rps, (s+1)*rps). A local row at rps or beyond
 // is the "not owned / padding" sentinel: scatters drop it and gathers read
@@ -25,6 +28,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "answer.cuh"
 
 namespace {
 
@@ -39,62 +44,69 @@ inline int blocks_for(int64_t n) {
   return static_cast<int>(b);
 }
 
-// K10a, one shard's part of the answer. Targets read the shard's last pull
-// P OR its one-hop term ans_base; sink answer gathers read its fixpoint R.
-// Only rows the shard owns (local row in [0, rps)) contribute; their bits
-// are atomicOr'ed into the one out[0:W] every shard shares (the OR-combine
-// across shards). The popcount of the shard's R adds into out[W+2] with
-// uint32 wrap-around (the psum of the frontier bits), and out[W], out[W+1]
-// take iters and the changed flag from the shared state. `out` arrives
-// zeroed.
+// K10a's answer, every shard in one launch. Shard s's entries are row s of
+// `entries` ([g, L]); its rows of P, ans_base and R are [s·rps, (s+1)·rps)
+// of the [g·rps, W] bitmaps. Targets read the owning shard's last pull P OR
+// its one-hop term ans_base; sink answer gathers read its fixpoint R. Only
+// rows a shard owns (local row in [0, rps)) contribute, OR-combined across
+// the shards into out[0:W]; out[W], out[W+1] take iters and the changed
+// flag from the shared state. out[W+2], the psum of the frontier bits,
+// holds what the seeds and the run counted where they set the bits: this
+// kernel does not touch it. `out` arrives zeroed before the seeds.
 //
-// Bound: bytes — a word per answer entry plus one read of the shard's R for
-// the popcount. Design: one grid-stride loop over max(B + SA, rps·W); the
-// popcount folds per warp (__reduce_add_sync) into one atomic.
-__global__ void shard_answer_kernel(const int32_t* __restrict__ entries, int64_t S1,
-                                    int64_t S2, int64_t SA, int64_t B, int32_t rps,
-                                    const uint32_t* __restrict__ P,
-                                    const uint32_t* __restrict__ ans_base,
-                                    const uint32_t* __restrict__ R, int32_t W,
-                                    const int32_t* __restrict__ state,
-                                    uint32_t* __restrict__ out) {
-  const int32_t* a_rows = entries + 2 * S1 + 2 * S2;
-  const int32_t* a_q = a_rows + SA;
-  const int32_t* targets = a_q + SA;
-  const int64_t n_ans = B + SA;
-  const int64_t n_pop = (int64_t)rps * W;
-  const int64_t n = n_ans > n_pop ? n_ans : n_pop;
-  const int64_t first = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (first == 0) {
+// Bound: bytes, counted in sectors — each target reads its id on every
+// shard (coalesced) and one word of a random P and ans_base row on its
+// owner, each sink entry its pair (coalesced) and, where its shard owns
+// the row, one word of a random R row: 4·g·B + 64·(owned targets) +
+// 8·g·SA + 32·(owned sink entries) bytes, fewer where gathers share a
+// sector. Design: K2's answer over every shard, a warp a tile of 32
+// entries. Tile w < W is answer word w: each lane loops over the g shards'
+// ids of its query (loading eight ids at once measured no faster, PERF.md
+// §6), gathers on each shard that owns the row, tests its bit, and one
+// ballot and one atomicOr by lane 0 write the word. The g·ceil(SA/32) sink
+// tiles follow, shard-major; a tile groups its hits by answer word, one
+// atomicOr a distinct word (or_word_hits).
+__global__ void __launch_bounds__(kThreads)
+shard_answer_kernel(const int32_t* __restrict__ entries, int64_t L, int32_t g, int64_t S1,
+                    int64_t S2, int64_t SA, int32_t rps, const uint32_t* __restrict__ P,
+                    const uint32_t* __restrict__ ans_base, const uint32_t* __restrict__ R,
+                    int32_t W, const int32_t* __restrict__ state, uint32_t* __restrict__ out) {
+  const int64_t a0 = 2 * S1 + 2 * S2, t0 = a0 + 2 * SA;  // a_rows and targets in a row
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
+  const int64_t n_warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  if (warp == 0 && lane == 0) {
     out[W] = static_cast<uint32_t>(state[1]);
     out[W + 1] = static_cast<uint32_t>(state[0]);
   }
-  unsigned pop = 0;
-  for (int64_t idx = first; idx < n; idx += (int64_t)gridDim.x * blockDim.x) {
-    if (idx < n_ans) {
-      int32_t q = 0;
+  const int64_t per = (SA + 31) >> 5;  // sink tiles a shard
+  const int64_t tiles = W + g * per;
+  for (int64_t tile = warp; tile < tiles; tile += n_warps) {
+    if (tile < W) {
+      const int64_t q = (tile << 5) + lane;
       uint32_t word = 0;
-      if (idx < B) {
-        const int32_t t = targets[idx];
+      for (int32_t s = 0; s < g; ++s) {
+        const int32_t t = entries[s * L + t0 + q];
         if (t >= 0 && t < rps) {
-          q = static_cast<int32_t>(idx);
-          const int64_t at = (int64_t)t * W + (q >> 5);
-          word = P[at] | ans_base[at];
-        }
-      } else {
-        const int64_t j = idx - B;
-        const int32_t r = a_rows[j];
-        if (r >= 0 && r < rps) {
-          q = a_q[j];
-          word = R[(int64_t)r * W + (q >> 5)];
+          const int64_t at = ((int64_t)s * rps + t) * W + tile;
+          word |= P[at] | ans_base[at];
         }
       }
-      if ((word >> (q & 31)) & 1u) atomicOr(out + (q >> 5), 1u << (q & 31));
+      const unsigned hits = __ballot_sync(kFull, (word >> lane) & 1u);
+      if (lane == 0 && hits) atomicOr(out + tile, hits);
+    } else {
+      const int64_t s = (tile - W) / per;
+      const int64_t j = ((tile - W - s * per) << 5) + lane;
+      int32_t q = 0;
+      bool hit = false;
+      if (j < SA) {
+        const int32_t r = entries[s * L + a0 + j];
+        q = entries[s * L + a0 + SA + j];
+        if (r >= 0 && r < rps) hit = (R[(s * rps + r) * W + (q >> 5)] >> (q & 31)) & 1u;
+      }
+      or_word_hits(out, hit, q);
     }
-    if (idx < n_pop) pop += __popc(R[idx]);
   }
-  pop = __reduce_add_sync(kFull, pop);
-  if ((threadIdx.x & 31) == 0 && pop) atomicAdd(out + W + 2, pop);
 }
 
 // K10b, the pair-row exchange of one side, as one owner gather:
@@ -157,15 +169,16 @@ void launch_pair_gather(const V* lab, int64_t rl, int32_t g, int32_t wv,
 // Plain C entry points (ctypes). Each launches on `stream` and returns
 // cudaGetLastError() so a refused launch surfaces in the Python wrapper.
 
-extern "C" int keto_shard_answer(const int32_t* entries, int64_t S1, int64_t S2, int64_t SA,
-                                 int64_t B, int32_t rps, const uint32_t* P,
+extern "C" int keto_shard_answer(const int32_t* entries, int64_t L, int32_t g, int64_t S1,
+                                 int64_t S2, int64_t SA, int64_t B, int32_t rps, const uint32_t* P,
                                  const uint32_t* ans_base, const uint32_t* R, int32_t W,
                                  const int32_t* state, uint32_t* out, void* stream) {
-  const int64_t n_ans = B + SA;
-  const int64_t n_pop = (int64_t)rps * W;
-  shard_answer_kernel<<<blocks_for(n_ans > n_pop ? n_ans : n_pop), kThreads, 0,
-                        (cudaStream_t)stream>>>(entries, S1, S2, SA, B, rps, P, ans_base, R,
-                                                W, state, out);
+  if (W < 1 || g < 1 || rps < 1 || B != 32 * static_cast<int64_t>(W) || SA < 0 ||
+      L != 2 * (S1 + S2 + SA) + B)
+    return static_cast<int>(cudaErrorInvalidValue);
+  shard_answer_kernel<<<blocks_for(32 * (W + g * ((SA + 31) / 32))), kThreads, 0,
+                        (cudaStream_t)stream>>>(
+      entries, L, g, S1, S2, SA, rps, P, ans_base, R, W, state, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -69,6 +69,7 @@ from keto_tpu_torch.check.kernels import (
     _need,
     _on_cpu,
     _or_reduce,
+    _popcount,
     _stream,
 )
 
@@ -135,15 +136,6 @@ class EllGroups:
 
 
 # -- plain PyTorch versions -----------------------------------------------------
-
-
-def _popcount(x: torch.Tensor) -> torch.Tensor:
-    """Per-word popcount of int32 words read as uint32 (int64 result)."""
-    v = x.to(torch.int64) & 0xFFFFFFFF
-    v = v - ((v >> 1) & 0x55555555)
-    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
-    v = (v + (v >> 4)) & 0x0F0F0F0F
-    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
 
 
 def sweep_step_into_ref(groups: EllGroups, X, V, S, cov, X2, state, *,

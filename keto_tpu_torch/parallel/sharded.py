@@ -36,11 +36,13 @@ entry points):
   of every shard's bucket runs from it, the overlay in ``dst`` mode
   (``n_dst = rps``), the commit and the changed flag every shard raises
   (that is the psum), between grid barriers, the guard on the card — and
-  ``keto_shard_answer`` per shard, with no host read in between. Each
-  shard's slice of a bucket is a contiguous run of rows
-  (``make_shard_spec``) written in place each step that runs, so the pull
-  of the last step run survives as the answer's ``p_fix``. The halo copies
-  a step equal its ``iters``.
+  ONE ``keto_shard_answer`` over every shard, with no host read in
+  between. The frontier-bit word is counted where its bits are set: the
+  seeds and the run's commits add the bits of R they newly set into it
+  (``pop``), so nothing reads R again for the popcount. Each shard's slice
+  of a bucket is a contiguous run of rows (``make_shard_spec``) written in
+  place each step that runs, so the pull of the last step run survives as
+  the answer's ``p_fix``. The halo copies a step equal its ``iters``.
 - ``label_step`` replaces ``sharded_label_step`` (:473-534), K10b: the
   one-shot pair-row exchange — per side, the psum over shards of "the
   owned pair row, else 0", which is a gather from the owning stripe (0 for
@@ -418,11 +420,6 @@ def or_combine(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     return out
 
 
-def _u32_to_i32(v: int) -> int:
-    v &= 0xFFFFFFFF
-    return v - (1 << 32) if v >= 1 << 31 else v
-
-
 # -- K10a: the sharded BFS fixpoint ---------------------------------------------------
 
 
@@ -440,28 +437,37 @@ def _pull_shard_ref(Rfull, buckets: ShardedBuckets, s: int, rps: int, ov) -> tor
     return p
 
 
-def shard_answer_ref(entries, sizes, P, ans_base, R, rps: int, iters: int, truncated: bool):
-    """One shard's part of K10a's answer in plain PyTorch → int32[W+3]: the
-    owned targets' and sink gathers' bits, ``iters``, ``truncated`` and the
-    popcount of ``R`` (mod 2³²). Non-owned rows (``>= rps``) contribute 0."""
-    _, _, _, _, a_rows, a_q, targets = kernels._split(entries, sizes)
+def shard_answer_ref(entries, sizes, P, ans_base, R, rps: int, iters: int, truncated: bool,
+                     pop: int) -> torch.Tensor:
+    """K10a's answer in plain PyTorch (``keto_shard_answer``'s contract) →
+    int32[W+3]: every shard's owned targets' and sink gathers' bits
+    (``entries`` int32[g, L]; ``P``, ``ans_base`` and ``R`` the ``[g·rps,
+    W]`` bitmaps, shard s's slab at rows ``[s·rps, (s+1)·rps)``), OR-combined
+    across the shards, then ``iters``, ``truncated`` and ``pop``, the
+    frontier-bit word the seeds and the run counted. Non-owned rows (``>=
+    rps``) contribute 0."""
+    g = entries.shape[0]
     B = sizes[3]
     dev = entries.device
     q = torch.arange(B, device=dev)
     # shift amounts stay int32 so the bitmaps never promote to int64
     words, bits = q >> 5, (q & 31).to(torch.int32)
-    own_t = targets < rps
-    tc = torch.clamp(targets, max=rps - 1)
-    a = torch.where(own_t, P[tc, words] | ans_base[tc, words], torch.zeros_like(P[tc, words]))
-    hit = (a >> bits) & 1
-    own_a = a_rows < rps
-    ac = torch.clamp(a_rows, max=rps - 1)
-    v = (R[ac, a_q >> 5] >> (a_q & 31).to(torch.int32)) & 1
-    vals = torch.where(own_a, v, torch.zeros_like(v))
-    hit = hit.scatter_reduce(0, a_q, vals, reduce="amax")
-    pop = int(label_kernels._popcount(R).sum()) & 0xFFFFFFFF
-    tail = torch.tensor([iters, int(truncated), _u32_to_i32(pop)], dtype=torch.int32, device=dev)
-    return torch.cat([kernels._pack_bits(hit), tail])
+    parts = []
+    for s in range(g):
+        _, _, _, _, a_rows, a_q, targets = kernels._split(entries[s], sizes)
+        Ps, As, Rs = (x[s * rps : (s + 1) * rps] for x in (P, ans_base, R))
+        own_t = targets < rps
+        tc = torch.clamp(targets, max=rps - 1)
+        a = torch.where(own_t, Ps[tc, words] | As[tc, words], torch.zeros_like(Ps[tc, words]))
+        hit = (a >> bits) & 1
+        own_a = a_rows < rps
+        ac = torch.clamp(a_rows, max=rps - 1)
+        v = (Rs[ac, a_q >> 5] >> (a_q & 31).to(torch.int32)) & 1
+        hit = hit.scatter_reduce(0, a_q, torch.where(own_a, v, torch.zeros_like(v)), reduce="amax")
+        parts.append(kernels._pack_bits(hit))
+    tail = torch.tensor([iters, int(truncated), kernels.u32_to_i32(pop)], dtype=torch.int32,
+                        device=dev)
+    return torch.cat([or_combine(parts), tail])
 
 
 def check_step_ref(
@@ -477,12 +483,15 @@ def check_step_ref(
     it_cap: int,
     block_iters: int = 8,
 ) -> torch.Tensor:
-    """K10a in plain PyTorch → int32[W+3] (see the module docstring)."""
+    """K10a in plain PyTorch → int32[W+3] (see the module docstring). Each
+    shard counts its frontier bits as the kernels do, the seeds' and then
+    every commit's newly set bits, and the counts are psummed."""
     g = entries.shape[0]
     _mesh_shards(mesh, g, entries.device)
     W = B // 32
     ov = None if ov_nbrs is None else (ov_nbrs, ov_dst)
-    seeded = [kernels.seed_ref(entries[s], sizes, rps - 1, W) for s in range(g)]
+    pops = [torch.zeros(1, dtype=torch.int32, device=entries.device) for _ in range(g)]
+    seeded = [kernels.seed_ref(entries[s], sizes, rps - 1, W, pop=pops[s]) for s in range(g)]
     R = [r for r, _ in seeded]
     ans_base = [a for _, a in seeded]
     p = [torch.zeros((rps, W), dtype=torch.int32, device=entries.device) for _ in range(g)]
@@ -497,34 +506,41 @@ def check_step_ref(
             grew = []
             for s in range(g):
                 nxt = R[s] | p[s]
+                kernels.count_into(pops[s], int(kernels._popcount(nxt & ~R[s]).sum()))
                 grew.append(torch.tensor([int(bool((nxt != R[s]).any()))], dtype=torch.int32))
                 R[s] = nxt
             changed = bool(psum(grew)[0] > 0)
             iters += 1
-    parts = [shard_answer_ref(entries[s], sizes, p[s], ans_base[s], R[s], rps, iters, changed)
-             for s in range(g)]
-    # the popcounts add as int32 words with wrap-around: a uint32 psum
-    return torch.cat([or_combine([x[:W] for x in parts]), parts[0][W : W + 2],
-                      psum([x[W + 2 :] for x in parts])])
+    # the counts add as int32 words with wrap-around: a uint32 psum
+    pop = int(psum(pops)[0]) & 0xFFFFFFFF
+    return shard_answer_ref(entries, sizes, torch.cat(p), torch.cat(ans_base), torch.cat(R), rps,
+                            iters, changed, pop)
 
 
 def shard_answer_cuda(entries, sizes, P, ans_base, R, rps: int, state, out) -> None:
-    """One shard's part of K10a's answer via ``keto_shard_answer``, OR-ed
-    (bits) and added (popcount) into the shared ``out`` int32[W+3]."""
-    kernels._need_entries(entries, sizes)
+    """K10a's answer via ONE ``keto_shard_answer`` launch over every shard:
+    the owned bits OR-ed into ``out[0:W]`` and ``iters``/``truncated`` into
+    ``out[W:W+2]`` of the shared ``out`` int32[W+3], whose ``out[W+2]``
+    already holds the frontier bits the seeds and the run counted.
+    ``entries`` is int32[g, L]; ``P``, ``ans_base`` and ``R`` the ``[g·rps,
+    W]`` bitmaps."""
+    _need(entries, "entries", 2)
+    g = entries.shape[0]
+    kernels._need_entries(entries[0], sizes)
     S1, S2, SA, B = sizes
     W = B // 32
     for t, what in ((P, "P"), (ans_base, "ans_base"), (R, "R")):
-        kernels._need_rows(t, what, rps, W)
+        kernels._need_rows(t, what, g * rps, W)
     kernels._need_state(state)
     _need(out, "out", 1)
     if out.numel() != W + 3:
         raise ValueError(f"out: expected int32[{W + 3}], got {tuple(out.shape)}")
     COUNTS["shard_answer"] += 1
-    _check(_lib().keto_shard_answer(entries.data_ptr(), S1, S2, SA, B, rps, P.data_ptr(),
-                                    ans_base.data_ptr(), R.data_ptr(), W, state.data_ptr(),
-                                    out.data_ptr(), _stream()), "keto_shard_answer")
-    _note("or_combine", (W + 3) * 4)
+    _check(_lib().keto_shard_answer(entries.data_ptr(), entries.shape[1], g, S1, S2, SA, B, rps,
+                                    P.data_ptr(), ans_base.data_ptr(), R.data_ptr(), W,
+                                    state.data_ptr(), out.data_ptr(), _stream()),
+           "keto_shard_answer")
+    _note("or_combine", g * (W + 3) * 4)
 
 
 def shard_runs(buckets: ShardedBuckets, g: int, rps: int, W: int) -> kernels.PullRuns:
@@ -536,11 +552,12 @@ def shard_runs(buckets: ShardedBuckets, g: int, rps: int, W: int) -> kernels.Pul
 
 
 def shard_run_ref(plan: kernels.PullRuns, R, P, ov_nbrs=None, ov_dst=None, *, rps: int,
-                  it_cap: int, block_iters: int = 8) -> torch.Tensor:
+                  it_cap: int, block_iters: int = 8, pop=None) -> torch.Tensor:
     """``keto_check_run``'s plain version over every shard: ``check_run_ref``
     on the global rows of ``shard_runs``' table (``R`` and ``P`` the
     ``[g·rps, W]`` bitmaps), the overlay's local destinations made global
-    (a row no shard owns drops) → the state int32[3]."""
+    (a row no shard owns drops) → the state int32[3]; ``pop`` counts the
+    bits the commits newly set."""
     ovn = ovd = None
     if ov_nbrs is not None:
         g = ov_nbrs.shape[0]
@@ -548,7 +565,7 @@ def shard_run_ref(plan: kernels.PullRuns, R, P, ov_nbrs=None, ov_dst=None, *, rp
         ovd = torch.where(ov_dst < rps, ov_dst + base, torch.full_like(ov_dst, g * rps)).reshape(-1)
         ovn = ov_nbrs.reshape(-1, ov_nbrs.shape[-1])
     return kernels.check_run_ref(list(plan.nbrs), plan.rows, R, P, ovn, ovd, it_cap=it_cap,
-                                 block_iters=block_iters)
+                                 block_iters=block_iters, pop=pop)
 
 
 def fixpoint_cuda(
@@ -565,10 +582,12 @@ def fixpoint_cuda(
     block_iters: int = 8,
 ):
     """K10a's seeds and guarded fixpoint on the card, ONE ``keto_check_run``
-    launch over every shard: per shard its fixpoint slab ``R``, its last
-    pull ``P`` and its one-hop term ``ans_base`` (lists of ``[rps, W]``
-    views of one ``[g·rps, W]`` bitmap each), and the device ``state``
-    int32[3] {changed at exit, iters, a third word}."""
+    launch over every shard: the ``[g·rps, W]`` bitmaps ``R`` (the
+    fixpoint), ``P`` (the last pull) and ``ans_base`` (the one-hop term),
+    shard s's slab at rows ``[s·rps, (s+1)·rps)``, the device ``state``
+    int32[3] {changed at exit, iters, a third word}, and the step's output
+    int32[W+3], zeroed but for ``out[W+2]``: the frontier bits that the
+    seeds and the run counted as they set them."""
     _need(entries, "entries", 2)
     g = entries.shape[0]
     _mesh_shards(mesh, g, entries.device)
@@ -585,32 +604,32 @@ def fixpoint_cuda(
     W = B // 32
     dev = entries.device
     plan = shard_runs(buckets, g, rps, W)
+    out = torch.zeros(W + 3, dtype=torch.int32, device=dev)
+    pop = out[W + 2 :]
     R = torch.zeros((g * rps, W), dtype=torch.int32, device=dev)
     ans_base = torch.zeros_like(R)
     for s in range(g):
         kernels.seed_cuda(entries[s], sizes, rps - 1, W, R=R[s * rps : (s + 1) * rps],
-                          ans_base=ans_base[s * rps : (s + 1) * rps])
+                          ans_base=ans_base[s * rps : (s + 1) * rps], pop=pop)
     P = kernels.pull_out(g * rps, W, plan.n_rows, it_cap, dev)
     G = torch.empty_like(R)
     # the reference's loop has no "nothing to pull" guard: it always runs
     state = kernels.check_run_cuda(plan, R, P, G=G,
                                    ov=kernels.RunOverlay.of(ov_nbrs, ov_dst, rps, rps),
-                                   it_cap=it_cap, block_iters=block_iters)
-    slabs = lambda t: list(t.view(g, rps, W))  # noqa: E731
-    return slabs(R), slabs(P), slabs(ans_base), state
+                                   it_cap=it_cap, block_iters=block_iters, pop=pop)
+    return R, P, ans_base, state, out
 
 
 def check_step_cuda(mesh, buckets: ShardedBuckets, entries: torch.Tensor, ov_nbrs=None,
                     ov_dst=None, *, sizes: tuple, rps: int, B: int, it_cap: int,
                     block_iters: int = 8) -> torch.Tensor:
     """K10a on the card → int32[W+3] (device tensor, not synchronised):
-    the seeds, one run over every shard, then every shard's answers into
-    one output."""
-    R, P, ans_base, state = fixpoint_cuda(mesh, buckets, entries, ov_nbrs, ov_dst, sizes=sizes,
-                                          rps=rps, B=B, it_cap=it_cap, block_iters=block_iters)
-    out = torch.zeros(B // 32 + 3, dtype=torch.int32, device=entries.device)
-    for s in range(entries.shape[0]):
-        shard_answer_cuda(entries[s], sizes, P[s], ans_base[s], R[s], rps, state, out)
+    the seeds, one run over every shard, then ONE answer launch over every
+    shard into the output that holds the counted frontier bits."""
+    R, P, ans_base, state, out = fixpoint_cuda(mesh, buckets, entries, ov_nbrs, ov_dst,
+                                               sizes=sizes, rps=rps, B=B, it_cap=it_cap,
+                                               block_iters=block_iters)
+    shard_answer_cuda(entries, sizes, P, ans_base, R, rps, state, out)
     return out
 
 

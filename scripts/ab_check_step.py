@@ -27,7 +27,10 @@ step, on the card:
   (``kernels.run_counts``) where it has one, else the copies its host loop
   notes (``COLLECTIVE_CALLS["all_gather"]``);
 - ``iters``, ``truncated`` and a hash of the output words (two checkouts
-  must give the same).
+  must give the same);
+- the device µs of each kernel one unsharded and one sharded step run,
+  by name, from one ``torch.profiler`` session over both (``kernels_us``;
+  a process's first session is the one that sees the card).
 
 The card's name and power limit go into the output beside every number.
 """
@@ -138,8 +141,10 @@ def main(argv=None) -> int:
                     "buckets": [[int(b.shape[0]), int(b.shape[1]), int(n)]
                                 for b, n in zip(g.buckets, g.valid_rows)]}
 
-    out["step"] = measure(smoke, torch, kernels,
-                          lambda: kernels.check_step_cuda(g.buckets, entries, **kw), lambda: 0, 2)
+    def step():
+        return kernels.check_step_cuda(g.buckets, entries, **kw)
+
+    out["step"] = measure(smoke, torch, kernels, step, lambda: 0, 2)
     print(f"step: {json.dumps(out['step'])}", flush=True)
 
     mesh = make_mesh(graph=SHARDS, device="cuda")
@@ -158,11 +163,14 @@ def main(argv=None) -> int:
         def halo():
             return ps.COLLECTIVE_CALLS["all_gather"]
         out["halo_counter"] = "COLLECTIVE_CALLS['all_gather'] (host loop)"
-    out["sharded_step"] = measure(
-        smoke, torch, kernels,
-        lambda: ps.check_step_cuda(mesh, ssnap.device_shards, ent, None, None, **skw), halo, 3)
+    def sharded_step():
+        return ps.check_step_cuda(mesh, ssnap.device_shards, ent, None, None, **skw)
+
+    out["sharded_step"] = measure(smoke, torch, kernels, sharded_step, halo, 3)
     out["sharded_step"]["rows_per_shard"] = spec.rows_per_shard
     print(f"sharded_step: {json.dumps(out['sharded_step'])}", flush=True)
+    out["kernels_us"] = smoke.device_kernels(torch, lambda: (step(), sharded_step()))
+    print(f"kernels_us: {json.dumps(out['kernels_us'])}", flush=True)
     engine.close()
     sharded.close()
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -9,9 +9,12 @@ version for CPU tensors. The layouts take narrow and odd widths (W = 1, 3,
 5), caps past 1,024 and it_cap cuts inside a block of steps. The host-side
 run table (``pull_runs``) is tested on the CPU: its arrays, and its
 refusals (too many runs, a ragged layout, sizes past 32-bit indexing); so
-is a failed run launch, through a library that refuses it. The ``cuda``
-tests hold the CUDA kernels (K1's ``keto_pull``, K2's ``keto_check_run``
-and the whole step, and the write path's slot set, K9) against the plain
+is a failed run or answer launch, through a library that refuses it, and
+every entry point's ctypes signature against its C declaration. The
+``cuda`` tests hold the CUDA kernels (K1's ``keto_pull``, K2's
+``keto_check_run``, ``keto_answer_pack`` on the answer layouts of
+``random_answer_case``, the seeds' and the run's frontier-bit counters,
+the whole step, and the write path's slot set, K9) against the plain
 versions on the card, into sentinel-filled outputs, and skip where there
 is none.
 """
@@ -22,10 +25,13 @@ import numpy as np
 import pytest
 import torch
 
+from keto_tpu_torch import _build
 from keto_tpu_torch.check import kernels
 from keto_tpu_torch.check.random_layouts import (
+    ANSWER_KINDS,
     SENTINEL,
     RefusingLib,
+    random_answer_case,
     random_buckets,
     random_case,
     random_slot_case,
@@ -179,6 +185,46 @@ def test_failed_check_run_launch_raises_and_is_counted(monkeypatch):
                                                        "check_run_overlay": 1}
 
 
+def test_failed_answer_pack_launch_raises_and_is_counted(monkeypatch):
+    monkeypatch.setattr(kernels, "_lib", lambda: RefusingLib("keto_answer_pack"))
+    monkeypatch.setattr(kernels, "_need", lambda *a: None)
+    monkeypatch.setattr(kernels, "_stream", lambda: 0)
+    buckets, entries, ov, kw = _case(**CASES["w64-overlay"])
+    nb, ent, ovn, ovd = _torch_args(buckets, entries, ov, "cpu")
+    before = dict(kernels.COUNTS)
+    with pytest.raises(RuntimeError, match="keto_answer_pack"):
+        kernels.check_step_cuda(nb, ent, ovn, ovd, **kw)
+    counted = {k: kernels.COUNTS[k] - before[k] for k in kernels.COUNTS}
+    assert {k: v for k, v in counted.items() if v} == {"seed": 1, "check_run": 1,
+                                                       "check_run_overlay": 1, "answer_pack": 1}
+
+
+def _c_params(name: str) -> list:
+    """The parameters of ``extern "C" int name(...)`` in csrc/*.cu."""
+    import re
+
+    for src in _build.sources():
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src.read_text())
+        if m:
+            return [a for a in (x.strip() for x in m.group(1).split(",")) if a and a != "void"]
+    raise AssertionError(f"no entry point {name} in {_build.CSRC}")
+
+
+@pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
+def test_signatures_match_the_sources(name):
+    """ctypes passes what ``_SIGNATURES`` says: a pointer for each pointer
+    (and the stream), a 64- or 32-bit int for each int, in the C order."""
+    import ctypes
+
+    params = _c_params(name)
+    sig = _build._SIGNATURES[name]
+    assert len(params) == len(sig), (params, sig)
+    for decl, t in zip(params, sig):
+        want = (ctypes.c_void_p if "*" in decl else ctypes.c_int64 if decl.startswith("int64_t")
+                else ctypes.c_int32)
+        assert t is want, (decl, t)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -260,6 +306,88 @@ def test_pull_and_run_cuda_match_plain(name, cuda_device):
     assert ctl[:2].tolist() == want[:2].tolist()
     assert torch.equal(Rs, Rr) and torch.equal(Ps, Pr)
     assert (stamps > 0).all() and (stamps.diff(dim=1) >= 0).all()
+
+
+def _answer_inputs(case, dev):
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return (t(case["entries"]), case["sizes"], case["n_active"], t(case["P"]),
+            t(case["ans_base"]), t(case["R"]))
+
+
+#: (kind, W, n_int, n_active): the answer layouts at narrow and odd widths,
+#: a wide one, and config 3's width with about as many sink entries as
+#: config 3's 100k checks give (2·B + 7)
+ANSWER_CASES = [(k, W, 96, 64) for k in ANSWER_KINDS if k != "unowned" for W in (1, 3, 5, 64)] \
+    + [("random", 4096, 4095, 3000), ("one-word-sinks", 4096, 4095, 3000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,W,n_int,n_active", ANSWER_CASES)
+def test_answer_pack_cuda_matches_plain(kind, W, n_int, n_active, cuda_device):
+    """``keto_answer_pack``, ONE launch, against ``answer_pack_ref``, word for
+    word, with and without a run's state."""
+    case = random_answer_case(np.random.default_rng(W + len(kind)), kind, W, n_int=n_int,
+                              n_active=n_active)
+    args = _answer_inputs(case, cuda_device)
+    state = torch.tensor([1, 7, 0], dtype=torch.int32, device=cuda_device)
+    before = kernels.COUNTS["answer_pack"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = kernels.answer_pack_cuda(*args, state)
+        got0 = kernels.answer_pack_cuda(*args, None)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernels.COUNTS["answer_pack"] - before == 2
+    assert torch.equal(got, kernels.answer_pack_ref(*args, 7, True))
+    assert torch.equal(got0, kernels.answer_pack_ref(*args, 0, False))
+    if kind == "all-hit":
+        assert int(got[W // 2]) == -1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [n for n in sorted(CASES) if CASES[n].get("rows")]
+                         + ["dup-seeds"])
+def test_seed_and_run_count_the_frontier_bits(name, cuda_device):
+    """``keto_seed`` and ``keto_check_run`` with a counter: it ends equal to
+    popcount(R) after the run (mod 2^32) and to the plain versions' count;
+    an entry seeded twice (in e1, and in e1 and e2) counts once. Without a
+    counter the seeds and the run compute the same R."""
+    buckets, entries, ov, kw = _case(**CASES["w64-overlay" if name == "dup-seeds" else name])
+    S1, S2 = kw["sizes"][:2]
+    if name == "dup-seeds":
+        live = np.flatnonzero(entries[:S1] <= kw["n_int"])
+        pads = np.flatnonzero(entries[:S1] > kw["n_int"])
+        pads2 = 2 * S1 + np.flatnonzero(entries[2 * S1 : 2 * S1 + S2] > kw["n_int"])
+        for dst, src in ((pads[0], live[0]), (pads[1], live[1]), (pads2[0], live[2])):
+            off = S1 if dst < S1 else S2
+            entries[dst], entries[dst + off] = entries[src], entries[src + S1]
+    nb, ent, ovn, ovd = _torch_args(buckets, entries, ov, cuda_device)
+    n_active, n_int, W = kw["n_active"], kw["n_int"], kw["sizes"][3] // 32
+    pop = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    R, _ = kernels.seed_cuda(ent, kw["sizes"], n_int, W, pop=pop)
+    R0, _ = kernels.seed_cuda(ent, kw["sizes"], n_int, W)
+    want_pop = torch.zeros(1, dtype=torch.int32)
+    Rr, _ = kernels.seed_ref(ent.cpu(), kw["sizes"], n_int, W, pop=want_pop)
+    torch.cuda.synchronize()
+    assert torch.equal(R.cpu(), Rr) and torch.equal(R0, R)
+    assert pop.tolist() == want_pop.tolist()
+    assert int(pop) & 0xFFFFFFFF == int(kernels._popcount(R).sum()) & 0xFFFFFFFF
+    plan = kernels.bucket_runs(nb, kw["valid_rows"], src_rows=n_int + 1, W=W)
+    loop = dict(it_cap=kw["it_cap"], block_iters=kw["block_iters"])
+    P = kernels.pull_out(n_active + 1, W, n_active, kw["it_cap"], cuda_device)
+    P0 = P.clone()
+    ovl = kernels.RunOverlay.of(ovn, ovd, n_active)
+    kernels.check_run_cuda(plan, R, P, ov=ovl, pop=pop, **loop)
+    kernels.check_run_cuda(plan, R0, P0, ov=ovl, **loop)
+    Pr = torch.zeros((n_active + 1, W), dtype=torch.int32)
+    kernels.check_run_ref([b.cpu() for b in nb], kw["valid_rows"], Rr, Pr,
+                          None if ovn is None else ovn.cpu(), None if ovd is None else ovd.cpu(),
+                          pop=want_pop, **loop)
+    torch.cuda.synchronize()
+    assert torch.equal(R.cpu(), Rr) and torch.equal(R0, R)
+    assert pop.tolist() == want_pop.tolist()
+    assert int(pop) & 0xFFFFFFFF == int(kernels._popcount(R).sum()) & 0xFFFFFFFF
 
 
 #: K9 layouts of the write path: (rows, ld, entries, duplicates, 1-D, in place)

@@ -14,9 +14,14 @@ slab word of the wave. The check layouts take narrow and odd widths (W =
 1, 3, 5), a cap past 1,024 and it_cap cuts inside a block of steps. The
 routing functions must equal the reference's byte for byte; the run table
 of every shard's bucket runs must tile the active prefix, and a layout
-whose runs do not is refused. The ``cuda`` tests hold every CUDA entry
-point against its plain version on the card (K10a's run into a
-sentinel-filled ``P``) and skip where there is none.
+whose runs do not is refused. The frontier-bit word, which the port counts
+where its bits are set (the seeds' and the commits' newly set bits), must
+equal the reference's psum of popcount(R_fix) on duplicate seed entries,
+seeds past the slab, truncated runs and overlays, at g = 1, 3 and 5 with
+slabs that do not divide the rows. The ``cuda`` tests hold every CUDA
+entry point against its plain version on the card (K10a's run into a
+sentinel-filled ``P``, its one answer launch on the answer layouts of
+``random_answer_case``) and skip where there is none.
 """
 
 from __future__ import annotations
@@ -29,8 +34,10 @@ import torch
 
 from keto_tpu_torch.check import kernels
 from keto_tpu_torch.check.random_layouts import (
+    ANSWER_KINDS,
     SENTINEL,
     RefusingLib,
+    random_answer_case,
     random_label_case,
     random_shard_case,
     random_sweep_case,
@@ -165,6 +172,15 @@ def test_shard_run_ref_matches_the_sharded_program(name, g):
     pop = int(label_kernels._popcount(R).sum()) & 0xFFFFFFFF
     assert [int(state[1]), int(state[0]), pop] == (want[W:].numpy().view(np.uint32)).tolist()
     assert not P[plan.n_rows :].any()
+    # counted where set: the seeds' bits, then the commits' newly set bits
+    counted = torch.zeros(1, dtype=torch.int32)
+    R2 = torch.zeros_like(R)
+    for s in range(g):
+        R2[s * rps : (s + 1) * rps] = kernels.seed_ref(_t(ent[s]), kw["sizes"], rps - 1, W,
+                                                       pop=counted)[0]
+    ps.shard_run_ref(plan, R2, torch.zeros_like(R2), ovn, ovd, rps=rps, it_cap=kw["it_cap"],
+                     block_iters=kw["block_iters"], pop=counted)
+    assert torch.equal(R2, R) and int(counted) & 0xFFFFFFFF == pop
 
 
 def test_failed_sharded_run_launch_raises_and_is_counted(monkeypatch):
@@ -181,6 +197,100 @@ def test_failed_sharded_run_launch_raises_and_is_counted(monkeypatch):
     counted = {k: kernels.COUNTS[k] - before[k] for k in kernels.COUNTS}
     assert {k: v for k, v in counted.items() if v} == {"seed": 3, "check_run": 1,
                                                        "check_run_overlay": 1}
+
+
+def test_failed_shard_answer_launch_raises_and_is_counted(monkeypatch):
+    for module in (kernels, ps):
+        monkeypatch.setattr(module, "_lib", lambda: RefusingLib("keto_shard_answer"))
+        monkeypatch.setattr(module, "_need", lambda *a: None)
+        monkeypatch.setattr(module, "_stream", lambda: 0)
+    _, (spec, ent, ov, kw) = _shard_case("w8-overlay", 3)
+    bk = ps.ShardedBuckets.from_spec(spec, "cpu")
+    before = dict(kernels.COUNTS)
+    with pytest.raises(RuntimeError, match="keto_shard_answer"):
+        ps.check_step_cuda(make_mesh(graph=3, device="cpu"), bk, _t(ent), _t(ov[0]), _t(ov[1]),
+                           **kw)
+    counted = {k: kernels.COUNTS[k] - before[k] for k in kernels.COUNTS}
+    assert {k: v for k, v in counted.items() if v} == {"seed": 3, "check_run": 1,
+                                                       "check_run_overlay": 1, "shard_answer": 1}
+
+
+#: the frontier-bit layouts: a CHECK_CASES layout over 64 rows (g = 3 and 5
+#: do not divide them) and what is done to its routed seeds
+POP_CASES = {
+    "dup-e1": ("w8-overlay", "e1-twice"),
+    "dup-e1-e2": ("w8-overlay", "e1-and-e2"),
+    "past-slab": ("w3-odd", "past-slab"),
+    "trunc": ("chain-trunc-overlay", None),
+    "overlay": ("w5-cap1100-overlay", None),
+}
+
+
+def _pop_case(name, g):
+    base, edit = POP_CASES[name]
+    case = dict(CHECK_CASES[base])
+    seed = case.pop("seed", 0) + 100
+    case["n_int"] = 63
+    _, (spec, ent, ov, kw) = random_shard_case(np.random.default_rng(seed), g, **case)
+    rps = kw["rps"]
+    assert g == 1 or g * rps != 64, "the slabs must not divide the rows"
+    S1, S2 = kw["sizes"][:2]
+    edited = ent.copy()
+    rng = np.random.default_rng(seed)
+    for s in range(g):
+        e = edited[s]
+        live = np.flatnonzero(e[:S1] < rps)
+        pad1 = np.flatnonzero(e[:S1] == rps)
+        pad2 = 2 * S1 + np.flatnonzero(e[2 * S1 : 2 * S1 + S2] == rps)
+        if edit == "e1-twice" and live.size and pad1.size:
+            e[pad1[0]], e[pad1[0] + S1] = e[live[0]], e[live[0] + S1]
+        if edit == "e1-and-e2" and live.size and pad2.size:
+            e[pad2[0]], e[pad2[0] + S2] = e[live[-1]], e[live[-1] + S1]
+        if edit == "past-slab":
+            for pads, off in ((pad1[:3], S1), (pad2[:3], S2)):
+                e[pads] = rps + np.array([1, 7, 10**6])[: pads.size]
+                e[pads + off] = rng.integers(0, kw["B"], size=pads.size)
+    if edit in ("e1-twice", "e1-and-e2"):
+        assert not np.array_equal(edited, ent), "the layout must hold a duplicate seed"
+    return spec, ent, edited, ov, kw
+
+
+@pytest.mark.parametrize("g", (1, 3, 5))
+@pytest.mark.parametrize("name", sorted(POP_CASES))
+def test_frontier_bits_counted_where_set_match_jax(name, g):
+    """The frontier-bit word counted where its bits are set — each shard's
+    seeds (an entry seeded twice, in e1 or in e1 and e2, counts once; a
+    seed past the slab drops) plus its commits' newly set bits, psummed —
+    equals the reference's psum of popcount(R_fix), with the whole
+    ``uint32[W+3]``. The reference scatter-adds its seeds, which is an OR
+    only on the distinct pairs the engine packs: an e1 entry given twice is
+    held against the reference on the layout without the copy."""
+    import jax.numpy as jnp
+
+    from keto_tpu.parallel import sharded as js
+
+    spec, ent, edited, ov, kw = _pop_case(name, g)
+    same = ent if POP_CASES[name][1] == "e1-twice" else edited
+    want = np.asarray(js.check_kernel(_jax_mesh(g))(
+        tuple(jnp.asarray(a) for a in spec.nbrs_sh), tuple(jnp.asarray(a) for a in spec.dst_sh),
+        jnp.asarray(same), ov_nbrs=None if ov is None else jnp.asarray(ov[0]),
+        ov_dst=None if ov is None else jnp.asarray(ov[1]), **kw))
+    bk = ps.ShardedBuckets.from_spec(spec, "cpu")
+    ovt = (None, None) if ov is None else (_t(ov[0]), _t(ov[1]))
+    got = ps.check_step(make_mesh(graph=g, device="cpu"), bk, _t(edited), *ovt,
+                        **kw).numpy().view(np.uint32)
+    W = kw["B"] // 32
+    assert np.array_equal(got, want), f"tail port={got[W:]} jax={want[W:]}"
+    if name == "trunc":
+        assert want[W + 1] == 1, "the case must truncate"
+    # the count equals popcount(R) of the plain run from the same seeds
+    rps = kw["rps"]
+    R = torch.zeros((g * rps, W), dtype=torch.int32)
+    for s in range(g):
+        R[s * rps : (s + 1) * rps] = kernels.seed_ref(_t(edited[s]), kw["sizes"], rps - 1, W)[0]
+    ps.shard_run_ref(ps.shard_runs(bk, g, rps, W), R, torch.zeros_like(R), *ovt, rps=rps,
+                     it_cap=kw["it_cap"], block_iters=kw["block_iters"])
+    assert int(got[W + 2]) == int(label_kernels._popcount(R).sum()) & 0xFFFFFFFF
 
 
 @pytest.mark.parametrize("g", (1, 3, 4))
@@ -471,8 +581,58 @@ def test_sharded_run_cuda_matches_plain(name, g, cuda_device):
         torch.cuda.set_sync_debug_mode("default")
     counted = {k: kernels.COUNTS[k] - before[k] for k in ("seed", "check_run", "shard_answer",
                                                           "pull", "answer_pack")}
-    assert counted == {"seed": g, "check_run": 1, "shard_answer": g, "pull": 0, "answer_pack": 0}
+    assert counted == {"seed": g, "check_run": 1, "shard_answer": 1, "pull": 0, "answer_pack": 0}
     assert torch.equal(got, ps.check_step_ref(mesh, bk, *args, **kw))
+    # the run's counter: the commits' newly set bits, as the plain run's
+    Rc, Rr = R0.clone(), R0.clone()
+    pc = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    pr = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    kernels.check_run_cuda(plan, Rc, torch.zeros_like(Rc), G=torch.empty_like(Rc),
+                           ov=kernels.RunOverlay.of(ovn, ovd, rps, rps), pop=pc, **loop)
+    ps.shard_run_ref(plan, Rr, torch.zeros_like(Rr), ovn, ovd, rps=rps, pop=pr, **loop)
+    torch.cuda.synchronize()
+    assert torch.equal(Rc, Rr) and pc.tolist() == pr.tolist()
+    fresh = int(label_kernels._popcount(Rc).sum()) - int(label_kernels._popcount(R0).sum())
+    assert int(pc) & 0xFFFFFFFF == fresh & 0xFFFFFFFF
+
+
+def _shard_answer_inputs(case, dev):
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return (t(case["entries"]), case["sizes"], t(case["P"]), t(case["ans_base"]), t(case["R"]),
+            case["rps"])
+
+
+#: (kind, g, W, n_int): every answer layout at g = 1..8 at narrow and odd
+#: widths, and config 3's width over 4 shards
+SHARD_ANSWER_CASES = [(k, g, (1, 3, 5, 8)[g % 4], 96) for k in ANSWER_KINDS
+                      for g in range(1, 9)] + [("random", 4, 4096, 4095),
+                                               ("unowned", 4, 4096, 4095)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,g,W,n_int", SHARD_ANSWER_CASES)
+def test_shard_answer_cuda_matches_plain(kind, g, W, n_int, cuda_device):
+    """ONE ``keto_shard_answer`` launch over every shard against
+    ``shard_answer_ref``, word for word: the bits, iters and truncated,
+    and the frontier-bit word left as the seeds and the run counted it."""
+    case = random_answer_case(np.random.default_rng(g * 10 + W), kind, W, n_int=n_int, g=g)
+    ent, sizes, P, ab, R, rps = _shard_answer_inputs(case, cuda_device)
+    state = torch.tensor([0, 5, 0], dtype=torch.int32, device=cuda_device)
+    out = torch.zeros(W + 3, dtype=torch.int32, device=cuda_device)
+    out[W + 2] = -123  # what the seeds and the run counted
+    before = kernels.COUNTS["shard_answer"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ps.shard_answer_cuda(ent, sizes, P, ab, R, rps, state, out)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernels.COUNTS["shard_answer"] - before == 1
+    want = ps.shard_answer_ref(ent, sizes, P, ab, R, rps, 5, False, (-123) & 0xFFFFFFFF)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    if kind == "all-hit":
+        assert int(out[W // 2]) == -1
 
 
 @pytest.mark.cuda
