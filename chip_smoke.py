@@ -14,7 +14,9 @@ Phases, in order; any failure exits non-zero:
 1. build — the card's name and power limit (nvidia-smi), then the CUDA
    kernels compiled from keto_tpu_torch/csrc with nvcc for sm_90a (one nvcc
    per source, all started together), timed beside one nvcc over every
-   source when the build was cold;
+   source when the build was cold, and the host library (the interner with
+   its bulk resolve and the pack walk, keto_tpu_torch/native/*.cpp)
+   compiled with g++, its seconds and the compiler's version beside nvcc's;
 2. parity — every CUDA kernel against its plain PyTorch version on the same
    tensors on the card, over random layouts made from a numpy seed: the
    check step (degree caps 1..4096 and 1,100, W in {1, 3, 5, 8, 12, 64,
@@ -81,7 +83,15 @@ Phases, in order; any failure exits non-zero:
    line gives the build's sort seconds on the card (K8) against the host
    sorter on the same keys, whose permutations must equal the card's, the
    sorter's dispatch counts, and K8's summed device ms over the same sorts
-   replayed on the idle card, with the passes they ran and skipped;
+   replayed on the idle card, with the passes they ran and skipped. The
+   batch must take the native host path (the snapshot interned in C++, every
+   slice resolved by the C++ bulk resolve and packed by the native walk);
+   the host-path line then gives the whole batch's resolve seconds, native
+   against the host loop ``_resolve_bulk_py`` (medians of 3, the arrays
+   equal), its pack seconds, the native walk against numpy (medians of 3,
+   equal entry buffers), the path counters, the interning of the 1M stored
+   rows, native against the Python interner (one run each, the arrays and
+   code tables equal), and checks/s, first and steady;
 4. labels — the same store and checks with the default engine: labels on,
    built on the host (config 3 is below the device-build gate): decisions
    equal to the BFS run's and the expectation, the label step launched and
@@ -100,7 +110,9 @@ Phases, in order; any failure exits non-zero:
    ``keto_covered`` call (three device launches) and no host read, or the
    row fails); its snapshot line
    reports the build's sorts as main's does, K8's replay on its own line
-   once the label build has left the card;
+   once the label build has left the card; its host-path line gives the
+   snapshot's interning seconds and the batch's resolve and pack seconds
+   on each path, as main's does;
 6. shard — one ``ShardMesh`` of 4 graph shards on the card: (a) main's
    store and 100k checks on a sharded engine with labels off (K10a, the
    BFS route), every decision equal to the analytic expectation and to
@@ -1177,6 +1189,173 @@ def sort_report(engine, batches) -> dict:
     return r
 
 
+# -- the host half of a check ----------------------------------------------------
+
+
+def host_paths(engine) -> dict:
+    """The host path counters: resolved batches by path (engine), packed
+    chunks by path and snapshot interns by path (process-wide)."""
+    from keto_tpu_torch.check import native_pack
+    from keto_tpu_torch.graph import native
+
+    c = engine.counters()
+    return {"resolve_native_batches": c.get("resolve_native_batches", 0),
+            "resolve_python_batches": c.get("resolve_python_batches", 0),
+            "pack_native_chunks": native_pack.COUNTERS["native"],
+            "pack_numpy_chunks": native_pack.COUNTERS["numpy"],
+            "intern_native": native.COUNTERS["native"], "intern_python": native.COUNTERS["python"]}
+
+
+def require_native(phase, snap, before, after) -> None:
+    """Fail unless the snapshot interned in C++ and the batch between the
+    two counter reads resolved and packed only on the native paths."""
+    from keto_tpu_torch.graph.native import NativeInterned
+
+    d = {k: after[k] - before[k] for k in after}
+    log(f"{phase} batch host paths: {json.dumps(d)}, snapshot interned by "
+        f"{type(snap.interned).__name__}")
+    if not isinstance(snap.interned, NativeInterned) or not d["resolve_native_batches"] \
+            or d["resolve_python_batches"] or not d["pack_native_chunks"] \
+            or d["pack_numpy_chunks"]:
+        raise SystemExit(f"{phase} FAILED: the batch left the native host path: {d}")
+
+
+def _median_s(fn, reps: int):
+    """(median seconds, every run's seconds, the last result) of ``reps``
+    calls of ``fn``."""
+    import statistics
+
+    times, out = [], None
+    for _ in range(reps):
+        t0 = time.monotonic()
+        out = fn()
+        times.append(time.monotonic() - t0)
+    return statistics.median(times), times, out
+
+
+def host_split(engine, snap, queries, reps: int = 3) -> dict:
+    """The host half of one whole batch on each path: the resolve (the C++
+    bulk resolve against the host loop) and the pack (the native walk
+    against numpy; then its walk and its sink gather alone), medians of
+    ``reps`` runs each. Fails unless each pair gives equal outputs."""
+    import numpy as np
+
+    from keto_tpu_torch.check import native_pack
+    from keto_tpu_torch.check.pack import pack_chunk, pack_entries, walk_numpy
+
+    import statistics
+
+    n = len(queries)
+    # the C++ call's own seconds inside each native resolve (the rest is
+    # the Python loop that packs the queries into its buffer)
+    interned = snap.interned
+    inner, c_call_s = interned.resolve_queries, []
+
+    def timed(buf, k):
+        t0 = time.monotonic()
+        out = inner(buf, k)
+        c_call_s.append(time.monotonic() - t0)
+        return out
+
+    interned.resolve_queries = timed
+    try:
+        rn_s, rn_runs, (sd, tg, multi) = _median_s(lambda: engine._resolve_bulk(snap, queries),
+                                                   reps)
+    finally:
+        del interned.resolve_queries
+    rp_s, rp_runs, (sd2, tg2, multi2) = _median_s(
+        lambda: engine._resolve_bulk_py(snap, queries), reps)
+    resolve_equal = (np.array_equal(sd, sd2) and np.array_equal(tg, tg2)
+                     and multi.keys() == multi2.keys()
+                     and all(np.array_equal(a, b) for i in multi
+                             for a, b in zip(multi[i], multi2[i])))
+    pn_s, pn_runs, (pn, hn) = _median_s(
+        lambda: pack_chunk(snap, sd, tg, multi, 0, n, native=True), reps)
+    pp_s, pp_runs, (pp, hp) = _median_s(
+        lambda: pack_chunk(snap, sd, tg, multi, 0, n, native=False), reps)
+    entries_equal = hn.tobytes() == hp.tobytes() and (pn is None) == (pp is None)
+    if entries_equal and pn is not None:
+        (bn, zn), (bp, zp) = pack_entries(pn), pack_entries(pp)
+        entries_equal = zn == zp and bn.tobytes() == bp.tobytes()
+    # the pack's two native parts alone, on the whole batch: the walk of
+    # the host-propagated starts and the sink answer gather
+    ni, sb, nl = snap.num_int, snap.sink_base, snap.num_live
+    m_host = ((sd >= ni) & (sd < sb)) | (sd >= nl)
+    rows = np.concatenate([sd[m_host]] + [h for _, h in multi.values()]).astype(np.int64)
+    pq = np.concatenate([np.nonzero(m_host)[0]] + [np.full(h.size, i) for i, (_, h)
+                                                   in multi.items()]).astype(np.int64)
+    wn_s, _, wn = _median_s(lambda: native_pack.pack_walk(snap, rows, pq, tg), reps)
+    wp_s, _, wp = _median_s(lambda: walk_numpy(snap, rows, pq, tg), reps)
+    sinks = tg[(sd != -1) & (tg >= sb) & (tg < nl)]
+    gn_s, _, gn = _median_s(lambda: native_pack.sink_gather(snap, sinks), reps)
+    gp_s, _, gp = _median_s(lambda: snap.sink_in_rows_bulk(sinks), reps)
+    parts_equal = all(np.array_equal(a, b) for a, b in zip(wn[:2] + gn, wp[:2] + gp)) \
+        and (wn[2] is None) == (wp[2] is None) \
+        and (wn[2] is None or np.array_equal(wn[2], wp[2]))
+    r = {"queries": n, "reps": reps, "resolve_native_s": rn_s, "resolve_py_s": rp_s,
+         "resolve_native_runs_s": rn_runs, "resolve_py_runs_s": rp_runs,
+         "resolve_c_call_s": statistics.median(c_call_s), "resolve_equal": resolve_equal, "multi_start_queries": len(multi),
+         "walk_eligible": native_pack.walk_eligible(snap), "pack_native_s": pn_s,
+         "pack_numpy_s": pp_s, "pack_native_runs_s": pn_runs, "pack_numpy_runs_s": pp_runs,
+         "entries_equal": entries_equal, "walk_rows": int(rows.size),
+         "walk_native_s": wn_s, "walk_numpy_s": wp_s, "sink_targets": int(sinks.size),
+         "sink_rows": int(gn[0].size), "sink_gather_native_s": gn_s,
+         "sink_gather_numpy_s": gp_s, "parts_equal": parts_equal}
+    if not (resolve_equal and entries_equal and parts_equal):
+        raise SystemExit(f"host path FAILED: the native and Python paths differ: {r}")
+    return r
+
+
+def native_intern(rows, wild):
+    """The rows interned by the C++ interner, one run: (the interned graph,
+    its seconds, the seconds of the C++ build call inside them; the rest
+    is the Python column extraction and the arrays' copy-out)."""
+    from keto_tpu_torch import _build
+    from keto_tpu_torch.graph.native import native_intern_rows
+
+    lib = _build.host_lib()
+    inner, c_call_s = lib.graph_build_columnar, []
+
+    def timed(*args):
+        t0 = time.monotonic()
+        handle = inner(*args)
+        c_call_s.append(time.monotonic() - t0)
+        return handle
+
+    lib.graph_build_columnar = timed
+    try:
+        t0 = time.monotonic()
+        nat = native_intern_rows(rows, wild)
+        seconds = time.monotonic() - t0
+    finally:
+        lib.graph_build_columnar = inner
+    return nat, seconds, sum(c_call_s)
+
+
+def intern_split(store, wild) -> dict:
+    """The store's rows interned by the C++ interner and by the Python
+    interner, one run each; fails unless the arrays and code tables are
+    equal."""
+    import numpy as np
+
+    from keto_tpu_torch.graph.interner import intern_rows
+
+    rows, _ = store.snapshot_rows()
+    nat, native_s, c_call_s = native_intern(rows, wild)
+    t1 = time.monotonic()
+    py = intern_rows(rows, wild)
+    t2 = time.monotonic()
+    equal = nat is not None and (nat.num_sets, nat.num_leaves) == (py.num_sets, py.num_leaves) \
+        and all(np.array_equal(getattr(nat, k), getattr(py, k))
+                for k in ("src", "dst", "key_ns", "key_obj", "key_rel", "key_wild")) \
+        and (nat.num_obj_codes(), nat.num_rel_codes()) == (py.num_obj_codes(), py.num_rel_codes())
+    r = {"intern_rows": len(rows), "intern_native_s": native_s, "intern_c_call_s": c_call_s,
+         "intern_py_s": t2 - t1, "intern_equal": equal}
+    if not equal:
+        raise SystemExit(f"host path FAILED: the native interner differs from Python's: {r}")
+    return r
+
+
 # -- phase 3: main path ---------------------------------------------------------
 
 
@@ -1216,10 +1395,12 @@ def phase_main(torch, kernels, report):
     kernels.reset_counts()
     kernels.reset_run_counts()
     torch.cuda.reset_peak_memory_stats()
+    paths0 = host_paths(engine)
     t0 = time.monotonic()
     got = engine.batch_check(queries)
     torch.cuda.synchronize()
     check_s = time.monotonic() - t0
+    require_native("main", snap, paths0, host_paths(engine))
     launches = dict(kernels.COUNTS)
     launches["check_run_steps"], launches["check_run_halo_copies"] = kernels.run_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1251,12 +1432,17 @@ def phase_main(torch, kernels, report):
         f"({time.monotonic() - t0:.1f}s); steady {N_CHECKS / steady_s:.0f} checks/s")
     if bad:
         raise SystemExit(f"main path FAILED: {bad} oracle mismatches")
+    host = host_split(engine, snap, queries)
+    host.update(intern_split(store, frozenset(n.id for n in RBAC_NAMESPACES if n.name == "")))
+    host.update({"paths": host_paths(engine), "checks_per_s": N_CHECKS / check_s,
+                 "steady_checks_per_s": N_CHECKS / steady_s})
+    log(f"main host path: {json.dumps(host)}")
     report["main"] = {
         "config": "BASELINE config 3 (RBAC)", "tuples": len(tuples), "checks": N_CHECKS,
         "snapshot_s": snap_s, "check_s": check_s, "checks_per_s": N_CHECKS / check_s,
         "steady_check_s": steady_s, "steady_checks_per_s": N_CHECKS / steady_s,
         "peak_device_bytes": peak, "oracle_sample": ORACLE_SAMPLE, "oracle_mismatches": bad,
-        "grants": sum(expected), "build_sorts": sorts,
+        "grants": sum(expected), "build_sorts": sorts, "host_path": host,
     }
     report["launches"] = launches
     return engine, snap, queries, (store, nm, got, expected)
@@ -1271,7 +1457,7 @@ def kernel_rows(torch, kernels, engine, snap, queries, rate, launches):
     # the host half of the batch, timed on its own (the engine runs the same
     # calls inside batch_check)
     t0 = time.monotonic()
-    sd, tg, multi = engine._resolve_bulk_py(snap, queries)
+    sd, tg, multi = engine._resolve_bulk(snap, queries)
     t1 = time.monotonic()
     packed, _ = pack_chunk(snap, sd, tg, multi, 0, len(queries))
     buf, sizes = pack_entries(packed)
@@ -1619,6 +1805,7 @@ def phase_deep(torch, kernels, report):
         return dispatch(out_lab, in_lab, entries, **kw)
 
     kernels.label_step = capture
+    paths0 = host_paths(engine)
     try:
         t0 = time.monotonic()
         got = engine.batch_check(queries)
@@ -1626,6 +1813,7 @@ def phase_deep(torch, kernels, report):
         check_s = time.monotonic() - t0
     finally:
         kernels.label_step = dispatch
+    require_native("deep", snap, paths0, host_paths(engine))
     launches = dict(kernels.COUNTS)
     counts = route_counts(engine)
     peak = torch.cuda.max_memory_allocated()
@@ -1657,6 +1845,22 @@ def phase_deep(torch, kernels, report):
         f"({time.monotonic() - t0:.1f}s); steady {N_CHECKS / steady_s:.0f} checks/s")
     if bad:
         raise SystemExit(f"deep FAILED: {bad} oracle mismatches")
+    host = host_split(engine, snap, queries)
+    # the snapshot's interning once more, split into the C++ build call and
+    # the Python column extraction around it
+    rows, _ = store.snapshot_rows()
+    nat, native_s, c_call_s = native_intern(rows, frozenset(
+        n.id for n in GITHUB_NAMESPACES if n.name == ""))
+    if (nat.num_nodes, nat.src.size) != (snap.n_nodes, snap.n_edges):
+        raise SystemExit(f"deep FAILED: the interner gave {nat.num_nodes} nodes and "
+                         f"{nat.src.size} edges, the snapshot {snap.n_nodes} and {snap.n_edges}")
+    del rows, nat
+    host.update({"snapshot_intern_s": (engine.build_info or {}).get("intern_s"),
+                 "intern_rows": n_tuples, "intern_native_s": native_s,
+                 "intern_c_call_s": c_call_s,
+                 "snapshot_s": snap_s, "paths": host_paths(engine),
+                 "checks_per_s": N_CHECKS / check_s, "steady_checks_per_s": N_CHECKS / steady_s})
+    log(f"deep host path: {json.dumps(host)}")
     # K8 replayed on the idle card, after the path's peak memory was read
     sorts.update(k8_replay(batches, sorts["sort_s_card"]))
     del batches
@@ -1670,6 +1874,7 @@ def phase_deep(torch, kernels, report):
         "steady_checks_per_s": N_CHECKS / steady_s, "peak_device_bytes": peak,
         "route_counts": counts, "launches": launches, "oracle_sample": len(sample),
         "oracle_mismatches": bad, "grants": sum(expected), "build_sorts": sorts,
+        "host_path": host,
     }
     return engine, snap, captured, launches, store, queries, got, ctx, sort_keys
 
@@ -3047,7 +3252,7 @@ def phase_explain(torch, kernels, report, engine, store, queries, expected, ctx,
         if want and resp["route"] in ("label", "hybrid"):
             # the host index's answer for the same pair; None where the query
             # has no single interior pair
-            sd, tg, multi = engine._resolve_bulk_py(snap, [q])
+            sd, tg, multi = engine._resolve_bulk(snap, [q])
             a, b = int(sd[0]), int(tg[0])
             pair = 0 not in multi and 0 <= a < snap.num_int and 0 <= b < snap.num_int
             host_lm = idx.witness_landmark(a, b) if pair else None
@@ -4054,6 +4259,12 @@ def main(argv=None) -> int:
         f"{time.monotonic() - t0:.2f}s (nvcc {_build.build_seconds:.2f}s)")
     if _build.build_seconds:
         log(f"build: one nvcc over every source instead: {serial_build_seconds(_build):.2f}s")
+    t0 = time.monotonic()
+    _build.host_lib()
+    log(f"build: host library {_build.host_library_path().name} from "
+        f"{[p.name for p in _build.host_sources()]} in {time.monotonic() - t0:.2f}s "
+        f"(g++ {_build.host_build_seconds:.2f}s; {_build.compiler_version()}; "
+        f"{' '.join(_build.HOST_COMPILE_FLAGS + _build.HOST_LINK_FLAGS)})")
 
     report: dict = {}
     t_start = time.monotonic()

@@ -131,7 +131,12 @@ from keto_tpu_torch.graph.compaction import compact_snapshot
 from keto_tpu_torch.graph.device_build import GovernedSorter, estimate_sort_bytes
 from keto_tpu_torch.graph.labels import build_labels, patch_labels
 from keto_tpu_torch.graph.overlay import apply_delta
-from keto_tpu_torch.graph.snapshot import WILDCARD, GraphSnapshot, build_snapshot
+from keto_tpu_torch.graph.snapshot import (
+    WILDCARD,
+    GraphSnapshot,
+    intern_snapshot_rows,
+    layout_snapshot,
+)
 from keto_tpu_torch.parallel import sharded as shard_mod
 from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectID, SubjectSet
 from keto_tpu_torch.x.device import resolve_device, same_device
@@ -143,6 +148,10 @@ _log = logging.getLogger("keto_tpu_torch.check")
 
 #: distinct-from-None cache sentinel for namespace resolution
 _UNSET = object()
+#: wildcard-namespace marker in the native resolve's namespace cache
+_WILD = object()
+#: native-format record whose result is overwritten on the Python side
+_PLACEHOLDER = b"0\x1f\x1f\x1f1\x1f\x1f\x1f\x1e"
 
 
 class _DeviceOut:
@@ -293,6 +302,7 @@ class TorchCheckEngine:
         compact_after_s: float = 5.0,
         sync_rebuild_budget_s: float = 0.25,
         device_build_enabled: bool = True,
+        native_pack_enabled: bool = True,
         mesh=None,
     ):
         if it_cap < 1:
@@ -317,6 +327,9 @@ class TorchCheckEngine:
         # huge graphs narrow the batch width instead of overshooting memory
         self._mem_budget = mem_budget_bytes
         self._peel_seed_cap = peel_seed_cap
+        # the native pack walk (check/native_pack.py) on every chunk
+        # walk_eligible takes; False pins the numpy walk (tpu_engine.py:1149)
+        self._native_pack = bool(native_pack_enabled)
         # pulls per convergence observation, grown to the workload's depth
         self._block_iters = 8
         # the streaming pipeline (tpu_engine.py:1129-1153): the width
@@ -400,7 +413,10 @@ class TorchCheckEngine:
         # failures the port raises where the reference falls back:
         # refresh_failures, compaction_failures, label_patch_failures,
         # witness_errors (a failed K4 launch in label_witness_info),
-        # shard_dispatch_failures (a failed sharded dispatch); slice_splits,
+        # shard_dispatch_failures (a failed sharded dispatch); the resolved
+        # batches by path, resolve_native_batches (the C++ bulk resolve) and
+        # resolve_python_batches (the host loop: a separator byte in a
+        # query, or a snapshot interned in Python); slice_splits,
         # the sub-chunks past the first that chunks whose entries passed
         # their budget were split into; and, sharded, shard_halo_rounds,
         # shard_halo_bytes and shard_frontier_bits
@@ -412,8 +428,9 @@ class TorchCheckEngine:
         self._build_sorter = (
             GovernedSorter(self.device, on_count=self._incr) if device_build_enabled else None
         )
-        #: the last full build: seconds, sort seconds by backend, and the
-        #: transient sort bytes the reference plans (build_sort_bytes)
+        #: the last full build: seconds, its interning seconds (intern_s),
+        #: sort seconds by backend, and the transient sort bytes the
+        #: reference plans (build_sort_bytes)
         self.build_info: Optional[dict] = None
 
     @property
@@ -590,15 +607,20 @@ class TorchCheckEngine:
             t0 = time.monotonic()
             rows, wm = self._store.snapshot_rows()
             self._take_sort_seconds()
-            new = build_snapshot(rows, wm, wild_ns_ids, peel_seed_cap=self._peel_seed_cap,
-                                 sorter=self._build_sorter)
-            sort_s = self._take_sort_seconds()
+            t_i = time.monotonic()
+            interned = intern_snapshot_rows(rows, wild_ns_ids)
+            intern_s = time.monotonic() - t_i
             del rows
+            new = layout_snapshot(interned, wm, wild_ns_ids, peel_seed_cap=self._peel_seed_cap,
+                                  sorter=self._build_sorter)
+            del interned
+            sort_s = self._take_sort_seconds()
             self._upload_buckets(new)
             self._ov_pack = None
             self._last_full_build_s = time.monotonic() - t0
             self.build_info = {
                 "seconds": self._last_full_build_s,
+                "intern_s": intern_s,
                 "sort_s": sort_s,
                 "build_sort_bytes": estimate_sort_bytes(new.n_nodes, new.n_edges),
             }
@@ -1239,6 +1261,150 @@ class TorchCheckEngine:
                 starts[((starts >= ni) & (starts < sbase)) | (starts >= nl)],
             )
 
+    def _resolve_bulk(
+        self, snap: GraphSnapshot, tuples: Sequence[RelationTuple]
+    ) -> tuple[np.ndarray, np.ndarray, dict]:
+        """Resolve every query to device rows (see ``_resolve_bulk_py`` for
+        the result contract; tpu_engine.py:3301). Literal queries go through
+        the C++ intern tables in one bulk call; wildcard/pattern queries,
+        and every query of a batch whose strings hold a separator byte or
+        of a snapshot interned in Python, take the host loop. Each batch
+        counts its path (``resolve_native_batches``,
+        ``resolve_python_batches``)."""
+        if hasattr(snap.interned, "resolve_queries"):
+            got = self._resolve_bulk_native(snap, tuples)
+            if got is not None:
+                self._incr("resolve_native_batches")
+                return got
+        self._incr("resolve_python_batches")
+        return self._resolve_bulk_py(snap, tuples)
+
+    def _resolve_bulk_native(
+        self, snap: GraphSnapshot, tuples: Sequence[RelationTuple]
+    ):
+        """Pack literal queries into the native wire format and resolve them
+        in one C++ pass (tpu_engine.py:3315-3448); route the rest through
+        the per-query Python path. Returns None when the buffer framing is
+        unsafe (separator bytes in strings): the caller takes the host
+        loop."""
+        n = len(tuples)
+        nl = snap.num_live
+        wild_ids = snap.wild_ns_ids
+        nm = self._nm()
+        ns_cache: dict = {}
+
+        def _ns_bytes(name: str):
+            """namespace name → decimal-ASCII id bytes, _WILD, or None."""
+            hit = ns_cache.get(name, _UNSET)
+            if hit is not _UNSET:
+                return hit
+            if name == "":
+                r: object = _WILD
+            else:
+                try:
+                    ns_id = nm.get_namespace_by_name(name).id
+                    r = _WILD if ns_id in wild_ids else b"%d" % ns_id
+                except ErrNamespaceUnknown:
+                    r = None
+            ns_cache[name] = r
+            return r
+
+        parts: list[bytes] = []
+        ap = parts.append
+        special: list[int] = []
+        dead: list[int] = []  # guaranteed denies; placeholder results ignored
+        # queries whose start resolves normally but whose subject cannot
+        # exist (an empty-namespace subject set with no "" namespace
+        # configured): the placeholder subject may collide with a real
+        # node, so tg is forced unreachable after the bulk resolve
+        no_target: list[int] = []
+        for i, rt in enumerate(tuples):
+            ns = _ns_bytes(rt.namespace)
+            if ns is None:
+                dead.append(i)  # unknown namespace → denied
+                ap(_PLACEHOLDER)
+                continue
+            obj, rel = rt.object, rt.relation
+            if ns is _WILD or obj == "" or rel == "":
+                special.append(i)  # wildcard pattern → host resolver
+                ap(_PLACEHOLDER)
+                continue
+            sub = rt.subject
+            if type(sub) is SubjectID:
+                ap(b"%b\x1f%b\x1f%b\x1f1\x1f%b\x1f\x1f\x1e"
+                   % (ns, obj.encode(), rel.encode(), sub.id.encode()))
+            elif isinstance(sub, SubjectSet):
+                sns = _ns_bytes(sub.namespace)
+                if sns is None:
+                    dead.append(i)  # unknown subject namespace → denied
+                    ap(_PLACEHOLDER)
+                    continue
+                if sns is _WILD:
+                    # subjects match literally (_subject_target): an empty
+                    # subject namespace can only equal a stored subject in
+                    # a namespace named "", so resolve against that
+                    # namespace's id
+                    wild_list = list(wild_ids)
+                    if not wild_list:
+                        # no namespace named "": the target cannot exist —
+                        # resolve the start normally, force tg = -1
+                        no_target.append(i)
+                        ap(b"%b\x1f%b\x1f%b\x1f1\x1f\x1f\x1f\x1e"
+                           % (ns, obj.encode(), rel.encode()))
+                        continue
+                    sns = b"%d" % wild_list[0]
+                ap(b"%b\x1f%b\x1f%b\x1f0\x1f%b\x1f%b\x1f%b\x1e"
+                   % (ns, obj.encode(), rel.encode(), sns,
+                      sub.object.encode(), sub.relation.encode()))
+            else:
+                dead.append(i)  # nil subject → denied
+                ap(_PLACEHOLDER)
+        buf = b"".join(parts)
+        # separator bytes inside strings corrupt framing — detectable as a
+        # field-count mismatch, the same check as the interner's
+        if buf.count(b"\x1f") != 6 * n or buf.count(b"\x1e") != n:
+            return None
+        got = snap.interned.resolve_queries(buf, n)
+        if got is None:
+            return None
+        start_raw, sub_raw = got
+        r2d = snap.raw2dev
+        sd = np.where(start_raw >= 0, r2d[np.clip(start_raw, 0, None)], -1)
+        t = r2d[np.clip(sub_raw, 0, None)]
+        # a target only matters when the query has starts (as the host
+        # loop, which leaves tg unreachable for start-less denies)
+        tg = np.where((sub_raw >= 0) & (t < nl) & (sd >= 0), t, -1)
+        if dead:
+            # placeholder records may coincide with real nodes — force deny
+            di = np.asarray(dead)
+            sd[di] = -1
+            tg[di] = -1
+        if no_target:
+            tg[np.asarray(no_target)] = -1
+        multi: dict = {}
+        if special:
+            self._resolve_specials(snap, tuples, special, sd, tg, multi)
+        if snap.ov_set_ids or snap.ov_leaf_ids or getattr(snap.interned, "has_ext", False):
+            # nodes created since the base build — overlay nodes, or
+            # fold-extension nodes (interner.ExtendedInterned) — are not in
+            # the resident C++ tables: re-resolve the queries whose start or
+            # target missed through the extension-aware host path, in ONE
+            # bulk call
+            done = set(special) | set(dead)
+            miss = [
+                int(i)
+                for i in np.nonzero((sd == -1) | (tg == -1))[0]
+                if int(i) not in done
+            ]
+            if miss:
+                s1, t1, m1 = self._resolve_bulk_py(snap, [tuples[i] for i in miss])
+                for j, i in enumerate(miss):
+                    sd[i] = s1[j]
+                    tg[i] = t1[j]
+                    if j in m1:
+                        multi[i] = m1[j]
+        return sd, tg, multi
+
     def _resolve_bulk_py(
         self, snap: GraphSnapshot, tuples: Sequence[RelationTuple]
     ) -> tuple[np.ndarray, np.ndarray, dict]:
@@ -1398,7 +1564,7 @@ class TorchCheckEngine:
         idx = snap.labels
         if idx is None or snap.lab_dirty:
             return None
-        sd, tg, multi = self._resolve_bulk_py(snap, [rt])
+        sd, tg, multi = self._resolve_bulk(snap, [rt])
         if 0 in multi:
             return None  # a wildcard pattern: no single (start, target) pair
         a, b = int(sd[0]), int(tg[0])
@@ -1592,7 +1758,7 @@ class TorchCheckEngine:
         n = len(tuples)
         for s0 in range(0, n, cap_q):
             s1 = min(s0 + cap_q, n)
-            sd, tg, multi = self._resolve_bulk_py(snap, tuples[s0:s1])
+            sd, tg, multi = self._resolve_bulk(snap, tuples[s0:s1])
             nq = s1 - s0
             W = next(w for w in _WORD_WIDTHS if 32 * w >= nq)
             B = 32 * W
@@ -1649,7 +1815,7 @@ class TorchCheckEngine:
           over-fanout queries fall back.
         """
         idx = snap.labels
-        packed, host_ans = pack_chunk(snap, sd, tg, multi, i0, i1, W)
+        packed, host_ans = pack_chunk(snap, sd, tg, multi, i0, i1, W, native=self._native_pack)
         nq = i1 - i0
         leases: list = []
         if packed is None:
@@ -1773,7 +1939,9 @@ class TorchCheckEngine:
         ``_DeviceOut``; None when no query of the chunk reaches the
         device), the host-decided grants, and the staging buffers the
         caller releases only once the slice has landed."""
-        packed, host_ans = pack_chunk(snap, sd, tg, multi, i0, i1, force_W)
+        packed, host_ans = pack_chunk(
+            snap, sd, tg, multi, i0, i1, force_W, native=self._native_pack
+        )
         leases: list = []
         if packed is None:
             return None, host_ans, leases

@@ -5,9 +5,11 @@ and ``:439-807``): ``pack_chunk`` walks host-propagated starts (static and
 peeled nodes) through the forward CSR with numpy and emits the seven
 entry arrays the check kernels consume; ``pack_entries`` concatenates
 them into the single int32 buffer shipped to the card in one copy. The
-native C++ walk (native/pack.cpp) is a later slice; this numpy path is
-byte-identical to the JAX package's ``native=False`` path
-(tests/test_torch_snapshot.py).
+walk runs in C++ (check/native_pack.py, the reference's native/pack.cpp)
+on every chunk ``walk_eligible`` takes, as in the reference; the numpy
+walk is the contract and takes the rest. Both are byte-identical to the
+JAX package's ``native=False`` path (tests/test_torch_snapshot.py,
+tests/test_torch_native_pack.py).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Optional
 
 import numpy as np
 
+from keto_tpu_torch.check import native_pack
 from keto_tpu_torch.graph.snapshot import GraphSnapshot
 
 # batch widths (in 32-query words) the engine runs; a request is padded up
@@ -119,6 +122,65 @@ def _pad_entries(rows_l, qs_l, B: int, drop_row: int):
     return rows, qs
 
 
+def walk_numpy(
+    snap: GraphSnapshot, rows: np.ndarray, pq: np.ndarray, tgc: np.ndarray
+) -> tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+    """The numpy walk of host-propagated (row, query) pairs (int64)
+    through the forward CSR, overlays included: the contract
+    ``native_pack.pack_walk`` reproduces. Returns ``(seed_rows, seed_q,
+    host_hits)``: the device seeds, (query, row)-deduplicated in first-
+    occurrence order, and the host-decided grants (None when there are
+    none). ``tgc``: each query's target row (-1 = none)."""
+    ni = snap.num_int
+    sb = snap.sink_base
+    hits = np.zeros(tgc.shape[0], dtype=bool)
+    # multi-hop frontier propagation, (query, row)-deduplicated. The
+    # visited set lives in merged sorted runs (_SortedSeen) — membership
+    # stays one searchsorted pass per run, and inserts amortize to
+    # O(log n) instead of the O(n) np.insert memmove that made long walks
+    # quadratic.
+    seen = _SortedSeen()
+    seed_rows: list = []
+    seed_q: list = []
+    while rows.size:
+        key = (pq << 32) | rows
+        _, first = np.unique(key, return_index=True)
+        keep = np.sort(first)
+        rows, pq, key = rows[keep], pq[keep], key[keep]
+        fresh = ~seen.contains(key)
+        rows, pq, key = rows[fresh], pq[fresh], key[fresh]
+        if not rows.size:
+            break
+        seen.add(np.sort(key))
+        nbrs, cnts = snap.out_neighbors_bulk(rows)
+        if not nbrs.size:
+            break
+        gq = np.repeat(pq, cnts)
+        nbrs = nbrs.astype(np.int64)
+        # a traversed edge landing on the query's target decides it
+        # ("reached via ≥ 1 edge" — real edges only). The -1 no-target
+        # sentinel can never match a neighbor id.
+        hit = nbrs == tgc[gq]
+        if hit.any():
+            hits[gq[hit]] = True
+        m_seed = nbrs < ni
+        if m_seed.any():
+            seed_rows.append(nbrs[m_seed])
+            seed_q.append(gq[m_seed])
+        m_next = (nbrs >= ni) & (nbrs < sb)
+        rows, pq = nbrs[m_next], gq[m_next]
+    if not seed_rows:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64), (hits if hits.any() else None)
+    # global (query, row) dedup: e2 scatter-adds per-bit, so a row seeded
+    # twice for one query would carry into the next bit
+    srows = np.concatenate(seed_rows)
+    sq = np.concatenate(seed_q)
+    skey = (sq << 32) | srows
+    _, sfirst = np.unique(skey, return_index=True)
+    keep = np.sort(sfirst)
+    return srows[keep], sq[keep], (hits if hits.any() else None)
+
+
 def pack_chunk(
     snap: GraphSnapshot,
     sd: np.ndarray,
@@ -127,12 +189,13 @@ def pack_chunk(
     i0: int,
     i1: int,
     force_W: Optional[int] = None,
+    native: bool = True,
 ):
     """Pack queries ``[i0, i1)`` of a bulk-resolved batch into kernel
     arguments — vectorized numpy throughout (the host side of the hot path,
     replacing the reference's per-traversal-step SQL round trips).
 
-    ``sd``/``tg``/``multi`` come from ``TorchCheckEngine._resolve_bulk_py``.
+    ``sd``/``tg``/``multi`` come from ``TorchCheckEngine._resolve_bulk``.
     Starts in the host-propagated classes (static, or peeled interior —
     see the peel note in graph/snapshot.py) expand here through
     the forward CSR, one vectorized gather per hop over the whole chunk's
@@ -141,8 +204,11 @@ def pack_chunk(
     the frontier (the peeled subgraph is a DAG among base nodes; the
     per-(query, row) visited filter also ends cycles a delta overlay may
     close). Sink targets get answer-gather entries from the
-    snapshot's sink reverse CSR. This is the numpy walk of the JAX
-    package's pack_chunk (its ``native=False`` path), byte for byte.
+    snapshot's sink reverse CSR. With ``native`` (the default) the walk
+    and the sink gather run in one GIL-released C++ call each wherever
+    ``native_pack.walk_eligible(snap)``; ``native_pack.COUNTERS`` counts
+    each chunk's path. The output is the JAX package's pack_chunk's, byte
+    for byte.
 
     Returns ``(packed, host_ans)`` where ``packed`` is ``(e1_rows, e1_q,
     e2_rows, e2_q, a_rows, a_q, targets)`` numpy arrays (None when no
@@ -186,54 +252,20 @@ def pack_chunk(
             prop_rows.append(hostp)
             prop_q.append(np.full(hostp.size, li, np.int64))
 
+    use_native = native and native_pack.walk_eligible(snap)
+    native_pack.COUNTERS["native" if use_native else "numpy"] += 1
     if prop_rows:
         rows = np.concatenate(prop_rows).astype(np.int64)
         pq = np.concatenate(prop_q).astype(np.int64)
-        # multi-hop frontier propagation, (query, row)-deduplicated. The visited set lives in merged sorted
-        # runs (_SortedSeen) — membership stays one searchsorted pass
-        # per run, and inserts amortize to O(log n) instead of the
-        # O(n) np.insert memmove that made long walks quadratic.
-        seen = _SortedSeen()
-        seed_rows: list = []
-        seed_q: list = []
-        while rows.size:
-            key = (pq << 32) | rows
-            _, first = np.unique(key, return_index=True)
-            keep = np.sort(first)
-            rows, pq, key = rows[keep], pq[keep], key[keep]
-            fresh = ~seen.contains(key)
-            rows, pq, key = rows[fresh], pq[fresh], key[fresh]
-            if not rows.size:
-                break
-            seen.add(np.sort(key))
-            nbrs, cnts = snap.out_neighbors_bulk(rows)
-            if not nbrs.size:
-                break
-            gq = np.repeat(pq, cnts)
-            nbrs = nbrs.astype(np.int64)
-            # a traversed edge landing on the query's target decides
-            # it ("reached via ≥ 1 edge" — real edges only). The -1
-            # no-target sentinel can never match a neighbor id.
-            hit = nbrs == tgc[gq]
-            if hit.any():
-                host_ans[gq[hit]] = True
-            m_seed = nbrs < ni
-            if m_seed.any():
-                seed_rows.append(nbrs[m_seed])
-                seed_q.append(gq[m_seed])
-            m_next = (nbrs >= ni) & (nbrs < sb)
-            rows, pq = nbrs[m_next], gq[m_next]
-        if seed_rows:
-            # global (query, row) dedup: e2 scatter-adds per-bit, so
-            # a row seeded twice for one query would carry into the
-            # next bit
-            srows = np.concatenate(seed_rows)
-            sq = np.concatenate(seed_q)
-            skey = (sq << 32) | srows
-            _, sfirst = np.unique(skey, return_index=True)
-            keep = np.sort(sfirst)
-            e2[0].append(srows[keep])
-            e2[1].append(sq[keep])
+        # native: one GIL-released C++ call walks the whole frontier
+        # (threaded CSR gathers, hash-set seen/seed dedup), bit-identical
+        walk = native_pack.pack_walk if use_native else walk_numpy
+        srows, sq, hits = walk(snap, rows, pq, tgc)
+        if hits is not None:
+            host_ans |= hits
+        if srows.size:
+            e2[0].append(srows)
+            e2[1].append(sq)
 
     # answer-gather entries for sink targets of queries that have any start
     has_start = m_int | m_host
@@ -248,7 +280,12 @@ def pack_chunk(
         m_sink_t = m_sink_t | np.isin(tgc, np.fromiter(snap.ov_sink_in.keys(), np.int64))
     m_ans = has_start & m_sink_t
     if m_ans.any():
-        rows, cnts = snap.sink_in_rows_bulk(tgc[m_ans])
+        if use_native:
+            # overlay-free by eligibility: the native gather mirrors
+            # sink_in_rows_bulk's plain-CSR arm off the GIL
+            rows, cnts = native_pack.sink_gather(snap, tgc[m_ans])
+        else:
+            rows, cnts = snap.sink_in_rows_bulk(tgc[m_ans])
         if rows.size:
             ans[0].append(rows)
             ans[1].append(np.repeat(qi[m_ans], cnts).astype(np.int32))

@@ -158,6 +158,10 @@ class ExtendedInterned:
     stacking wrappers.
     """
 
+    #: the engine's bulk resolve re-resolves its misses through the host
+    #: path while this is set (extension nodes are not in a native base)
+    has_ext = True
+
     def __init__(self, base, new_set_keys, new_leaves):
         if isinstance(base, ExtendedInterned):
             self._base = base._base
@@ -244,6 +248,24 @@ class ExtendedInterned:
         c = self._base.rel_code(s)
         return c if c >= 0 else self._ext_rel_codes.get(s, -1)
 
+    def resolve_queries(self, buf: bytes, n: int):
+        """Bulk literal resolution through the base's native tables, with
+        leaf raw ids re-offset for the grown set count. Ext-only keys come
+        back -1; the engine re-resolves those misses through the host path
+        (``has_ext``). None when the base has no native bulk entry point
+        or rejects the buffer."""
+        base_rq = getattr(self._base, "resolve_queries", None)
+        if base_rq is None:
+            return None
+        got = base_rq(buf, n)
+        if got is None:
+            return None
+        start, sub = got
+        k = len(self._ext_set_keys)
+        if k:
+            sub = np.where(sub >= self._base_num_sets, sub + k, sub)
+        return start, sub
+
     def set_key_of(self, raw_id: int):
         if raw_id < self._base_num_sets:
             return self._base.set_key_of(raw_id)
@@ -264,7 +286,9 @@ class IncrementalInterner:
 
     A copy of keto_tpu/graph/interner.py's Python path, so a snapshot built
     here is byte-identical to the JAX package's (tests/test_torch_snapshot.py
-    holds them against each other). The native C++ ingest is a later slice."""
+    holds them against each other). Snapshots intern through the native
+    C++ interner (graph/native.py), which assigns the same ids; this path
+    takes the rows it cannot encode."""
 
     def __init__(self, wild_ns_ids: FrozenSet[int] = frozenset()):
         self._wild_ns_ids = wild_ns_ids

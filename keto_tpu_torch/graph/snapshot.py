@@ -48,6 +48,7 @@ from typing import Any, FrozenSet, Iterable, Optional
 import numpy as np
 
 from keto_tpu_torch.graph.device_build import host_sorter
+from keto_tpu_torch.graph import native
 from keto_tpu_torch.graph.interner import intern_rows
 
 #: namespace sentinel meaning "wildcard" in a resolved query pattern
@@ -738,6 +739,21 @@ class GraphSnapshot:
 
 
 
+def intern_snapshot_rows(rows: Iterable, wild_ns_ids: FrozenSet[int] = frozenset()):
+    """Intern a snapshot's rows: in the native C++ interner
+    (graph/native.py), and in Python only where the reference does, for
+    rows whose strings defeat both native encodings. ``native.COUNTERS``
+    counts each path."""
+    if not isinstance(rows, list):
+        rows = list(rows)
+    g = native.native_intern_rows(rows, wild_ns_ids)
+    if g is None:
+        native.COUNTERS["python"] += 1
+        return intern_rows(rows, wild_ns_ids)
+    native.COUNTERS["native"] += 1
+    return g
+
+
 def build_snapshot(
     rows: Iterable,
     watermark: int,
@@ -745,11 +761,12 @@ def build_snapshot(
     peel_seed_cap: float = 4.0,
     sorter=None,
 ) -> GraphSnapshot:
-    """Intern rows (Python interner) and lay out the bucketed reverse-ELL
-    adjacency. ``wild_ns_ids``: ids of configured namespaces whose *name*
-    is the empty string — their set nodes expand with a wildcarded
-    namespace. ``sorter``: the stable-argsort backend (host by default)."""
-    g = intern_rows(list(rows), wild_ns_ids)
+    """Intern rows (``intern_snapshot_rows``) and lay out the bucketed
+    reverse-ELL adjacency. ``wild_ns_ids``: ids of configured namespaces
+    whose *name* is the empty string — their set nodes expand with a
+    wildcarded namespace. ``sorter``: the stable-argsort backend (host by
+    default)."""
+    g = intern_snapshot_rows(rows, wild_ns_ids)
     return layout_snapshot(g, watermark, wild_ns_ids, peel_seed_cap=peel_seed_cap, sorter=sorter)
 
 

@@ -1,0 +1,309 @@
+// Native batch-setup pack walk: the host side of the check hot path.
+//
+// keto_tpu/check/tpu_engine.py:pack_chunk expands host-propagated starts
+// (static, peeled-interior, overlay nodes) through the forward CSR until
+// every path either seeds the device bitmap (interior rows), decides a
+// query on host (a traversed edge landing on its target), or dies out.
+// The numpy implementation is vectorized but single-threaded AND holds
+// the GIL for the whole walk — it serializes in front of every dispatch,
+// so resolve/pack of chunk k+2 fights the GIL instead of overlapping
+// exec of chunk k+1. This file is the same walk behind a C ABI: ctypes
+// releases the GIL for the call, the per-hop CSR gather fans out across
+// worker threads, and the (query, row) seen/seed bookkeeping lives in
+// open-addressed hash sets (amortized O(1) per key — the numpy path's
+// sorted-insert seen set was the quadratic tail the issue names).
+//
+// **Bit-identical contract.** The output must equal the numpy path byte
+// for byte (tests/test_native_pack.py fuzzes the comparison):
+//
+//  - per hop the frontier dedups by key ((q << 32) | row) keeping the
+//    FIRST occurrence in frontier order, then filters keys already seen
+//    (all survivors are inserted before gathering) — one ordered pass
+//    over a hash set reproduces numpy's unique/searchsorted dance;
+//  - neighbors gather in frontier order, CSR order within a row; rows
+//    >= n_base (overlay ids) and rows with no out-edges contribute
+//    nothing, exactly like out_neighbors_bulk on an overlay-free base;
+//  - a neighbor equal to the query's target sets host_ans[q] (the
+//    "reached via >= 1 edge" rule; target -1 never matches);
+//  - neighbors < ni append to the seed stream, neighbors in [ni, sb)
+//    continue the frontier; the final seed list dedups by key keeping
+//    first occurrence over the concatenated per-hop streams;
+//  - the walk stops when a hop's total neighbor count is zero (numpy's
+//    `if not nbrs.size: break`), or the frontier empties.
+//
+// Threading merges per-chunk results IN CHUNK ORDER (the ingest.cpp
+// pattern), so the seed stream the serial dedup consumes is identical
+// to a single-threaded walk. Thread count: KETO_TPU_PACK_THREADS, else
+// min(hardware_concurrency, 8); hops under ~64k gathered neighbors stay
+// serial (spawn cost dominates).
+//
+// The sink answer gather (sink reverse CSR rows of sink-class targets)
+// rides the same library: one contiguous CSR gather, C ABI so the whole
+// pack stays off the GIL on the eligible (overlay-free) path.
+//
+// Ownership of result handles stays with the caller (keto_pack_free /
+// keto_gather_free).
+
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <thread>
+#include <vector>
+
+namespace {
+
+// Open-addressed set of uint64 keys (slots hold key+1; 0 = empty).
+// Linear probing over a pow2 table; grow at 50% load. Keys here are
+// ((q << 32) | row) pairs — already well mixed enough for the low bits
+// after a multiplicative scramble.
+struct KeySet {
+    std::vector<uint64_t> slots;
+    size_t mask = 0;
+    size_t count = 0;
+
+    static inline size_t mix(uint64_t k) {
+        k *= 0x9e3779b97f4a7c15ULL;
+        k ^= k >> 29;
+        return (size_t)k;
+    }
+
+    void reserve(size_t n) {
+        size_t cap = 16;
+        while (cap < n * 2) cap <<= 1;
+        if (cap > slots.size()) rehash(cap);
+    }
+
+    void rehash(size_t cap) {
+        std::vector<uint64_t> old;
+        old.swap(slots);
+        slots.assign(cap, 0);
+        mask = cap - 1;
+        for (uint64_t v : old) {
+            if (!v) continue;
+            size_t i = mix(v - 1) & mask;
+            while (slots[i]) i = (i + 1) & mask;
+            slots[i] = v;
+        }
+    }
+
+    // true when newly inserted (false: already present)
+    bool insert(uint64_t key) {
+        if (slots.empty() || (count + 1) * 2 > slots.size())
+            rehash(slots.empty() ? 16 : slots.size() * 2);
+        size_t i = mix(key) & mask;
+        while (slots[i]) {
+            if (slots[i] == key + 1) return false;
+            i = (i + 1) & mask;
+        }
+        slots[i] = key + 1;
+        ++count;
+        return true;
+    }
+};
+
+struct PackResult {
+    std::vector<int64_t> seed_rows;
+    std::vector<int64_t> seed_q;
+    std::vector<uint8_t> host_ans;  // [nq]
+};
+
+struct GatherResult {
+    std::vector<int32_t> rows;
+    std::vector<int64_t> cnts;
+};
+
+// Per-thread chunk output of one hop's gather: raw (pre-dedup) seeds,
+// next-hop frontier entries, and target hits — merged in chunk order.
+struct HopChunk {
+    std::vector<int64_t> seed_rows, seed_q;
+    std::vector<int64_t> next_rows, next_q;
+    std::vector<int64_t> hit_q;
+};
+
+void gather_range(
+    const int64_t* indptr, const int32_t* indices, int64_t n_base,
+    int64_t ni, int64_t sb, const int64_t* tgc,
+    const int64_t* rows, const int64_t* qs, size_t lo, size_t hi,
+    HopChunk* out) {
+    for (size_t i = lo; i < hi; ++i) {
+        int64_t row = rows[i];
+        if (row >= n_base) continue;  // overlay id: no base out-edges
+        int64_t q = qs[i];
+        int64_t tg = tgc[q];
+        for (int64_t e = indptr[row]; e < indptr[row + 1]; ++e) {
+            int64_t nbr = indices[e];
+            if (nbr == tg) out->hit_q.push_back(q);
+            if (nbr < ni) {
+                out->seed_rows.push_back(nbr);
+                out->seed_q.push_back(q);
+            } else if (nbr < sb) {
+                out->next_rows.push_back(nbr);
+                out->next_q.push_back(q);
+            }
+        }
+    }
+}
+
+int pack_threads() {
+    if (const char* env = std::getenv("KETO_TPU_PACK_THREADS")) {
+        int n = std::atoi(env);
+        if (n > 0) return n;
+    }
+    unsigned hw = std::thread::hardware_concurrency();
+    return (int)(hw ? (hw < 8 ? hw : 8) : 1);
+}
+
+// frontier work below this many gathered neighbors stays serial
+constexpr int64_t kParallelThreshold = 1 << 16;
+
+}  // namespace
+
+extern "C" {
+
+// ABI version probe: the Python binding refuses a stale .so.
+int64_t keto_pack_version() { return 1; }
+
+void* keto_pack_walk(
+    const int64_t* fwd_indptr, const int32_t* fwd_indices, int64_t n_base,
+    int64_t ni, int64_t sb,
+    const int64_t* prop_rows, const int64_t* prop_q, int64_t n_prop,
+    const int64_t* tgc, int64_t nq, int64_t n_threads) {
+    auto* res = new PackResult();
+    res->host_ans.assign((size_t)nq, 0);
+    if (n_prop <= 0) return res;
+    int threads = n_threads > 0 ? (int)n_threads : pack_threads();
+
+    std::vector<int64_t> rows(prop_rows, prop_rows + n_prop);
+    std::vector<int64_t> qs(prop_q, prop_q + n_prop);
+    KeySet seen;
+    seen.reserve((size_t)n_prop);
+    KeySet seed_seen;
+    std::vector<int64_t> next_rows, next_q;
+
+    while (!rows.empty()) {
+        // frontier dedup + seen filter, first occurrence wins (one pass:
+        // a key rejected by `seen` is either a prior hop's or an earlier
+        // duplicate this hop — dropped either way, order preserved)
+        size_t w = 0;
+        for (size_t i = 0; i < rows.size(); ++i) {
+            uint64_t key = ((uint64_t)qs[i] << 32) | (uint64_t)rows[i];
+            if (seen.insert(key)) {
+                rows[w] = rows[i];
+                qs[w] = qs[i];
+                ++w;
+            }
+        }
+        rows.resize(w);
+        qs.resize(w);
+        if (rows.empty()) break;
+
+        // total gathered neighbors this hop (numpy breaks on zero)
+        int64_t total = 0;
+        for (size_t i = 0; i < rows.size(); ++i) {
+            int64_t r = rows[i];
+            if (r < n_base) total += fwd_indptr[r + 1] - fwd_indptr[r];
+        }
+        if (total == 0) break;
+
+        int t = (total >= kParallelThreshold && rows.size() > 1) ? threads : 1;
+        if ((size_t)t > rows.size()) t = (int)rows.size();
+        std::vector<HopChunk> chunks((size_t)t);
+        if (t == 1) {
+            gather_range(fwd_indptr, fwd_indices, n_base, ni, sb, tgc,
+                         rows.data(), qs.data(), 0, rows.size(), &chunks[0]);
+        } else {
+            std::vector<std::thread> pool;
+            pool.reserve((size_t)t);
+            size_t per = (rows.size() + (size_t)t - 1) / (size_t)t;
+            for (int k = 0; k < t; ++k) {
+                size_t lo = (size_t)k * per;
+                size_t hi = lo + per < rows.size() ? lo + per : rows.size();
+                if (lo >= hi) break;
+                pool.emplace_back(gather_range, fwd_indptr, fwd_indices,
+                                  n_base, ni, sb, tgc, rows.data(), qs.data(),
+                                  lo, hi, &chunks[(size_t)k]);
+            }
+            for (auto& th : pool) th.join();
+        }
+
+        // serial merge IN CHUNK ORDER: hits, deduped seeds (first
+        // occurrence over the concatenated stream), next frontier
+        next_rows.clear();
+        next_q.clear();
+        for (auto& c : chunks) {
+            for (int64_t q : c.hit_q) res->host_ans[(size_t)q] = 1;
+            for (size_t i = 0; i < c.seed_rows.size(); ++i) {
+                uint64_t key =
+                    ((uint64_t)c.seed_q[i] << 32) | (uint64_t)c.seed_rows[i];
+                if (seed_seen.insert(key)) {
+                    res->seed_rows.push_back(c.seed_rows[i]);
+                    res->seed_q.push_back(c.seed_q[i]);
+                }
+            }
+            next_rows.insert(next_rows.end(), c.next_rows.begin(),
+                             c.next_rows.end());
+            next_q.insert(next_q.end(), c.next_q.begin(), c.next_q.end());
+        }
+        rows.swap(next_rows);
+        qs.swap(next_q);
+    }
+    return res;
+}
+
+int64_t keto_pack_n_seeds(void* h) {
+    return (int64_t)static_cast<PackResult*>(h)->seed_rows.size();
+}
+
+void keto_pack_fetch(void* h, int64_t* seed_rows, int64_t* seed_q,
+                     uint8_t* host_ans) {
+    auto* r = static_cast<PackResult*>(h);
+    if (!r->seed_rows.empty()) {
+        std::memcpy(seed_rows, r->seed_rows.data(),
+                    r->seed_rows.size() * sizeof(int64_t));
+        std::memcpy(seed_q, r->seed_q.data(),
+                    r->seed_q.size() * sizeof(int64_t));
+    }
+    if (!r->host_ans.empty())
+        std::memcpy(host_ans, r->host_ans.data(), r->host_ans.size());
+}
+
+void keto_pack_free(void* h) { delete static_cast<PackResult*>(h); }
+
+// Sink answer gather: concatenated sink-reverse-CSR rows of each target
+// (device ids, already offset by sink_base on the Python side) plus the
+// per-target counts — the overlay-free arm of sink_in_rows_bulk.
+void* keto_sink_gather(const int64_t* sink_indptr, const int32_t* sink_indices,
+                       const int64_t* sinks, int64_t n) {
+    auto* res = new GatherResult();
+    res->cnts.resize((size_t)n);
+    int64_t total = 0;
+    for (int64_t i = 0; i < n; ++i) {
+        int64_t s = sinks[i];
+        int64_t c = sink_indptr[s + 1] - sink_indptr[s];
+        res->cnts[(size_t)i] = c;
+        total += c;
+    }
+    res->rows.reserve((size_t)total);
+    for (int64_t i = 0; i < n; ++i) {
+        int64_t s = sinks[i];
+        for (int64_t e = sink_indptr[s]; e < sink_indptr[s + 1]; ++e)
+            res->rows.push_back(sink_indices[e]);
+    }
+    return res;
+}
+
+int64_t keto_gather_n(void* h) {
+    return (int64_t)static_cast<GatherResult*>(h)->rows.size();
+}
+
+void keto_gather_fetch(void* h, int32_t* rows, int64_t* cnts) {
+    auto* r = static_cast<GatherResult*>(h);
+    if (!r->rows.empty())
+        std::memcpy(rows, r->rows.data(), r->rows.size() * sizeof(int32_t));
+    if (!r->cnts.empty())
+        std::memcpy(cnts, r->cnts.data(), r->cnts.size() * sizeof(int64_t));
+}
+
+void keto_gather_free(void* h) { delete static_cast<GatherResult*>(h); }
+
+}  // extern "C"

@@ -43,6 +43,8 @@ REQUIRED = (
     "keto_tpu_torch.explain.engine",
     "keto_tpu_torch.explain.witness",
     "keto_tpu_torch.explain.decision_log",
+    "keto_tpu_torch.graph.native",
+    "keto_tpu_torch.check.native_pack",
 )
 
 

@@ -88,7 +88,13 @@ def assert_snapshots_equal(mine, ref):
         assert bm.nbrs.dtype == br.nbrs.dtype and bm.nbrs.shape == br.nbrs.shape
         assert bm.nbrs.tobytes() == br.nbrs.tobytes()
     gi, ri = mine.interned, ref.interned
-    assert gi.set_ids == ri.set_ids and gi.leaf_ids == ri.leaf_ids
+    # the port interns natively (no Python dicts): the same key ↔ id maps,
+    # both ways, over exactly as many keys
+    assert (gi.num_sets, gi.num_leaves) == (len(ri.set_ids), len(ri.leaf_ids))
+    for key, i in ri.set_ids.items():
+        assert gi.resolve_set(*key) == i and gi.set_key_of(i) == key
+    for sid, i in ri.leaf_ids.items():
+        assert gi.resolve_leaf(sid) == i and gi.leaf_str(i) == sid
     for k in ("key_ns", "key_obj", "key_rel", "key_wild", "src", "dst"):
         assert getattr(gi, k).tobytes() == getattr(ri, k).tobytes(), k
 
