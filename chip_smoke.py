@@ -91,7 +91,18 @@ Phases, in order; any failure exits non-zero:
    equal), its pack seconds, the native walk against numpy (medians of 3,
    equal entry buffers), the path counters, the interning of the 1M stored
    rows, native against the Python interner (one run each, the arrays and
-   code tables equal), and checks/s, first and steady;
+   code tables equal), and checks/s, first and steady. The store takes the
+   1M tuples in one bulk write (a numpy lexsort, the sorted column bundle
+   kept, the row objects parked); the cold-start line gives the store's
+   seconds, the first build's path and phase seconds (``intern``,
+   ``device_build``), the snapshot's seconds, the host's resident and peak
+   memory after the load, the build and the first row materialization, and
+   that materialization's seconds, timed apart; the phase fails unless the
+   first build interned from the bundle (``columns``). The streaming line
+   builds the same snapshot through a chunk-preferring view of the store
+   (``full_build``'s ``stream`` path: the native stream builder fed chunk
+   by chunk), with its scan and intern seconds, and fails unless its arrays
+   equal the column build's;
 4. labels — the same store and checks with the default engine: labels on,
    built on the host (config 3 is below the device-build gate): decisions
    equal to the BFS run's and the expectation, the label step launched and
@@ -112,7 +123,14 @@ Phases, in order; any failure exits non-zero:
    reports the build's sorts as main's does, K8's replay on its own line
    once the label build has left the card; its host-path line gives the
    snapshot's interning seconds and the batch's resolve and pack seconds
-   on each path, as main's does;
+   on each path, as main's does; its cold-start line is main's (the 10M
+   tuples in one bulk write, the first build from the bundle or the phase
+   fails, the materialization timed apart after the label build settles),
+   and the host-path line interns the 10M rows once more from the row
+   objects, split into the C++ call and the Python column extraction
+   around it (the path the bundle replaces), and the bundle once more,
+   split into the NUL scan of its columns and the C++ call (main's does
+   the same at 1M);
 6. shard — one ``ShardMesh`` of 4 graph shards on the card: (a) main's
    store and 100k checks on a sharded engine with labels off (K10a, the
    BFS route), every decision equal to the analytic expectation and to
@@ -198,7 +216,9 @@ Phases, in order; any failure exits non-zero:
    100 ListSubjects for issues granted to the touched teams, each against
    the host lister on the same snapshot (K5's overlay stage must launch in
    (b), K9's list site in (c), and every fold must clear the list mirror);
-   then the fold. At the end the 100k decisions and the last listings are
+   then the fold. The store's rows are built before the burst (the deep
+   phase timed that apart), so no ``store_s`` pays it. At the end the 100k
+   decisions and the last listings are
    held against a fresh engine built on the final store (the rebuild the
    write path replaced, its labels built on the card) and no full rebuild
    may have happened; K9 is timed on the largest bucket-patch call (every
@@ -213,7 +233,12 @@ Phases, in order; any failure exits non-zero:
    /check/batch, then a PUT that closes a cycle and a batch over it, then
    a ListObjects and a paged ListSubjects over REST; each part fails
    unless its requests launched the kernels of the routes that answered
-   them.
+   them; then the tuple API: ``/version`` on both ports, ``GET /expand``
+   (trees equal to the Manager-backed engine's on the same store at the
+   clamped depth, a 400 without ``max-depth``), ``GET /relation-tuples``
+   paged one tuple at a time (equal to the store's own read), and a
+   ``PATCH /relation-tuples`` of an insert and a delete, read back through
+   ``/relation-tuples``, ``/check`` and ``/expand``.
 
 ``--only`` names a subset; ``labels`` needs ``main``, ``shard`` needs
 ``main`` and ``deep``, ``list`` and ``explain`` need ``deep`` and ``write``
@@ -1332,10 +1357,30 @@ def native_intern(rows, wild):
     return nat, seconds, sum(c_call_s)
 
 
-def intern_split(store, wild) -> dict:
+def interned_equal(a, b, sample: int = 4096) -> bool:
+    """Two interned graphs are equal: their edge and key arrays, their
+    counts and code tables, and the keys of ``sample`` set ids and leaf ids
+    spread over each range, looked up both ways."""
+    import numpy as np
+
+    if a is None or b is None:
+        return False
+    if (a.num_sets, a.num_leaves, a.num_obj_codes(), a.num_rel_codes()) != \
+            (b.num_sets, b.num_leaves, b.num_obj_codes(), b.num_rel_codes()):
+        return False
+    if not all(np.array_equal(getattr(a, k), getattr(b, k))
+               for k in ("src", "dst", "key_ns", "key_obj", "key_rel", "key_wild")):
+        return False
+    sets = np.unique(np.linspace(0, a.num_sets - 1, min(sample, a.num_sets)).astype(np.int64))
+    leaves = np.unique(np.linspace(0, a.num_leaves - 1, min(sample, a.num_leaves)).astype(np.int64))
+    return all(a.set_key_of(int(i)) == b.set_key_of(int(i)) for i in sets) and \
+        all(a.leaf_str(int(i)) == b.leaf_str(int(i)) for i in leaves)
+
+
+def intern_split(store, wild):
     """The store's rows interned by the C++ interner and by the Python
     interner, one run each; fails unless the arrays and code tables are
-    equal."""
+    equal. Returns (the line's numbers, the C++ interner's graph)."""
     import numpy as np
 
     from keto_tpu_torch.graph.interner import intern_rows
@@ -1353,6 +1398,144 @@ def intern_split(store, wild) -> dict:
          "intern_py_s": t2 - t1, "intern_equal": equal}
     if not equal:
         raise SystemExit(f"host path FAILED: the native interner differs from Python's: {r}")
+    return r, nat
+
+
+def column_intern(store, wild, rows_interned) -> dict:
+    """The store's column bundle interned once more, split into the NUL
+    scan of its five string columns (``native._ucs4_ok``), the C++
+    ``graph_build_ucs4`` call and the rest (the arrays' copy-out); fails
+    unless the bundle is there and gives the graph that the row path
+    (``rows_interned``, the C++ interner over ``snapshot_rows``) gives."""
+    from keto_tpu_torch import _build
+    from keto_tpu_torch.graph import native
+
+    cols = store.snapshot_columns(store.watermark())
+    if cols is None:
+        raise SystemExit("host path FAILED: the store holds no column bundle")
+    names = ("obj", "rel", "sid", "sso", "ssr")
+    t0 = time.monotonic()
+    ok = all(native._ucs4_ok(cols[k]) for k in names)
+    scan_s = time.monotonic() - t0
+    lib = _build.host_lib()
+    inner, c_call_s = lib.graph_build_ucs4, []
+
+    def timed(*args):
+        t1 = time.monotonic()
+        handle = inner(*args)
+        c_call_s.append(time.monotonic() - t1)
+        return handle
+
+    lib.graph_build_ucs4 = timed
+    try:
+        t0 = time.monotonic()
+        g = native.native_intern_columns(lib, cols, wild)
+        seconds = time.monotonic() - t0
+    finally:
+        lib.graph_build_ucs4 = inner
+    equal = interned_equal(g, rows_interned)
+    r = {"columns_intern_s": seconds, "columns_nul_scan_s": scan_s,
+         "columns_c_call_s": sum(c_call_s), "columns_ok": ok, "columns_equal": equal,
+         "bundle_mib": sum(a.nbytes for a in cols.values()) / 2**20,
+         "bundle_widths": {k: cols[k].dtype.itemsize // 4 for k in names}}
+    if not (ok and equal):
+        raise SystemExit(f"host path FAILED: the column intern differs from the row intern: {r}")
+    return r
+
+
+def host_rss() -> dict:
+    """The process's resident memory now (VmRSS) and at its peak
+    (``ru_maxrss``, since the process started), in MiB."""
+    import resource
+
+    now = None
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                now = int(line.split()[1]) / 1024
+    return {"rss_mib": now,
+            "peak_rss_mib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024}
+
+
+def cold_start(phase, engine, store, store_s, snap_s, rss_stored, rss_built) -> dict:
+    """The first build's path and phases, the snapshot's seconds and the
+    host memory around it, then the first row materialization, timed
+    apart. Fails unless the build interned from the column bundle with the
+    store's rows parked."""
+    from keto_tpu_torch.persistence.memory import _DeferredRows
+
+    info = engine.build_info
+    parked = isinstance(store._row_list, _DeferredRows)
+    t0 = time.monotonic()
+    rows, _ = store.snapshot_rows()
+    mat_s = time.monotonic() - t0
+    r = {"store_s": store_s, "path": info["path"], "phases_s": info["phases_s"],
+         "intern_s": info["intern_s"], "build_s": info["seconds"], "snapshot_s": snap_s,
+         "rows_parked_at_build": parked, "materialized_rows": len(rows),
+         "materialize_s": mat_s, "after_store": rss_stored, "after_snapshot": rss_built,
+         "after_materialize": host_rss()}
+    log(f"{phase} cold start: {json.dumps(r)}")
+    if info["path"] != "columns" or not parked:
+        raise SystemExit(f"{phase} FAILED: the first build did not intern from the store's "
+                         f"column bundle with its rows parked: {r}")
+    return r
+
+
+class ChunkPreferring:
+    """A view of a store that offers only the chunked scan and prefers it:
+    ``full_build`` takes its ``stream`` path over it."""
+
+    scan_chunks_preferred = True
+
+    def __init__(self, inner):
+        self._inner = inner
+
+    def watermark(self):
+        return self._inner.watermark()
+
+    def snapshot_scan(self, on_chunk, chunk_rows):
+        return self._inner.snapshot_scan(on_chunk, chunk_rows=chunk_rows)
+
+
+def snapshots_equal(a, b) -> bool:
+    """Every host array of two snapshots, the buckets, both list layouts
+    and the interned graphs' arrays."""
+    import numpy as np
+
+    arrays = ("raw2dev", "fwd_indptr", "fwd_indices", "sink_indptr", "sink_indices",
+              "rev_indptr", "rev_indices")
+    scalars = ("snapshot_id", "num_sets", "num_leaves", "num_active", "num_int", "num_live",
+               "n_peeled")
+    ok = all(np.array_equal(getattr(a, k), getattr(b, k)) for k in arrays)
+    ok = ok and all(getattr(a, k) == getattr(b, k) for k in scalars)
+    ok = ok and len(a.buckets) == len(b.buckets) and all(
+        (x.offset, x.n) == (y.offset, y.n) and np.array_equal(x.nbrs, y.nbrs)
+        for x, y in zip(a.buckets, b.buckets))
+    ok = ok and all(np.array_equal(getattr(a, o).order, getattr(b, o).order)
+                    for o in ("lay_fwd", "lay_rev"))
+    return ok and all(np.array_equal(getattr(a.interned, k), getattr(b.interned, k))
+                      for k in ("src", "dst", "key_ns", "key_obj", "key_rel", "key_wild"))
+
+
+def streaming_line(engine, store, snap, wild) -> dict:
+    """``full_build`` over a chunk-preferring view of the store (the
+    ``stream`` path), with the engine's sorter and the default chunk size; fails unless
+    it took that path and its snapshot equals the column build's."""
+    from keto_tpu_torch.graph import stream_build
+
+    prog = stream_build.BuildProgress()
+    t0 = time.monotonic()
+    got = stream_build.full_build(ChunkPreferring(store), wild,
+                                  peel_seed_cap=engine._peel_seed_cap,
+                                  sorter=engine._build_sorter, progress=prog)
+    wall = time.monotonic() - t0
+    equal = snapshots_equal(got, snap)
+    r = {"path": prog.path, "seconds": wall, "phases_s": prog.durations(),
+         "rows": prog.rows_ingested, "chunk_rows": stream_build.DEFAULT_CHUNK_ROWS,
+         "equal_to_column_build": equal}
+    log(f"streaming build: {json.dumps(r)}")
+    if prog.path != "stream" or not equal:
+        raise SystemExit(f"streaming build FAILED: {r}")
     return r
 
 
@@ -1370,11 +1553,15 @@ def phase_main(torch, kernels, report):
     t0 = time.monotonic()
     tuples, ctx = rbac_workload(rng, N_TUPLES)
     queries, expected = rbac_queries(rng, N_CHECKS, ctx)
+    gen_s = time.monotonic() - t0
     nm = tns.MemoryManager(RBAC_NAMESPACES)
     store = MemoryPersister(nm)
+    t0 = time.monotonic()
     store.write_relation_tuples(*tuples)
+    store_s = time.monotonic() - t0
+    rss_stored = host_rss()
     log(f"workload: {len(tuples)} tuples, {len(queries)} checks, "
-        f"{sum(expected)} expected grants ({time.monotonic() - t0:.1f}s to generate and store)")
+        f"{sum(expected)} expected grants ({gen_s:.1f}s to generate, {store_s:.1f}s to store)")
 
     engine = TorchCheckEngine(store, nm, device="cuda", labels_enabled=False)
     batches = record_sorts(engine)
@@ -1382,6 +1569,7 @@ def phase_main(torch, kernels, report):
     snap = engine.snapshot()
     torch.cuda.synchronize()
     snap_s = time.monotonic() - t0
+    cold = cold_start("main", engine, store, store_s, snap_s, rss_stored, host_rss())
     sorts = sort_report(engine, batches)
     sorts.update(k8_replay(batches, sorts["sort_s_card"]))  # labels off: the card is idle
     del batches
@@ -1433,12 +1621,18 @@ def phase_main(torch, kernels, report):
     if bad:
         raise SystemExit(f"main path FAILED: {bad} oracle mismatches")
     host = host_split(engine, snap, queries)
-    host.update(intern_split(store, frozenset(n.id for n in RBAC_NAMESPACES if n.name == "")))
+    wild = frozenset(n.id for n in RBAC_NAMESPACES if n.name == "")
+    split, rows_nat = intern_split(store, wild)
+    host.update(split)
+    host.update(column_intern(store, wild, rows_nat))
+    del rows_nat
     host.update({"paths": host_paths(engine), "checks_per_s": N_CHECKS / check_s,
                  "steady_checks_per_s": N_CHECKS / steady_s})
     log(f"main host path: {json.dumps(host)}")
+    stream = streaming_line(engine, store, snap, wild)
     report["main"] = {
         "config": "BASELINE config 3 (RBAC)", "tuples": len(tuples), "checks": N_CHECKS,
+        "cold_start": cold, "streaming_build": stream,
         "snapshot_s": snap_s, "check_s": check_s, "checks_per_s": N_CHECKS / check_s,
         "steady_check_s": steady_s, "steady_checks_per_s": N_CHECKS / steady_s,
         "peak_device_bytes": peak, "oracle_sample": ORACLE_SAMPLE, "oracle_mismatches": bad,
@@ -1756,10 +1950,12 @@ def phase_deep(torch, kernels, report):
     store = MemoryPersister(nm)
     t0 = time.monotonic()
     store.write_relation_tuples(*tuples)
+    store_s = time.monotonic() - t0
     n_tuples = len(tuples)
     del tuples
+    rss_stored = host_rss()
     log(f"deep workload: {n_tuples} tuples, {len(queries)} checks, {sum(expected)} expected "
-        f"grants ({gen_s:.1f}s to generate, {time.monotonic() - t0:.1f}s to store)")
+        f"grants ({gen_s:.1f}s to generate, {store_s:.1f}s to store)")
 
     # the main path's run: counts from the snapshot and label build on
     kernels.reset_counts()
@@ -1770,6 +1966,7 @@ def phase_deep(torch, kernels, report):
     snap = engine.snapshot()
     torch.cuda.synchronize()
     snap_s = time.monotonic() - t0
+    rss_built = host_rss()
     slots = engine._interior_ell_slots(snap)
     sorts = sort_report(engine, batches)
     # K8's kernel row times the largest array the build sorted
@@ -1794,6 +1991,8 @@ def phase_deep(torch, kernels, report):
         "label_sha256": label_digest(idx), "split": build_split(info) if info else None,
     }
     log(f"deep label build: {json.dumps(build)}")
+    # the first row materialization, once the label build has left the host
+    cold = cold_start("deep", engine, store, store_s, snap_s, rss_stored, rss_built)
 
     # capture the label step's inputs while the batch runs (the launches
     # themselves are counted by the CUDA wrapper as always)
@@ -1846,15 +2045,18 @@ def phase_deep(torch, kernels, report):
     if bad:
         raise SystemExit(f"deep FAILED: {bad} oracle mismatches")
     host = host_split(engine, snap, queries)
-    # the snapshot's interning once more, split into the C++ build call and
-    # the Python column extraction around it
+    # the snapshot's interning once more from the rows, split into the C++
+    # build call and the Python column extraction around it, and from the
+    # column bundle, held against it
     rows, _ = store.snapshot_rows()
-    nat, native_s, c_call_s = native_intern(rows, frozenset(
-        n.id for n in GITHUB_NAMESPACES if n.name == ""))
+    wild = frozenset(n.id for n in GITHUB_NAMESPACES if n.name == "")
+    nat, native_s, c_call_s = native_intern(rows, wild)
+    del rows
     if (nat.num_nodes, nat.src.size) != (snap.n_nodes, snap.n_edges):
         raise SystemExit(f"deep FAILED: the interner gave {nat.num_nodes} nodes and "
                          f"{nat.src.size} edges, the snapshot {snap.n_nodes} and {snap.n_edges}")
-    del rows, nat
+    host.update(column_intern(store, wild, nat))
+    del nat
     host.update({"snapshot_intern_s": (engine.build_info or {}).get("intern_s"),
                  "intern_rows": n_tuples, "intern_native_s": native_s,
                  "intern_c_call_s": c_call_s,
@@ -1868,7 +2070,7 @@ def phase_deep(torch, kernels, report):
     log(f"deep build sorts on K8 alone: {json.dumps(k8)}")
     report["deep"] = {
         "config": "BASELINE config 4 (GitHub org/team/repo)", "tuples": n_tuples,
-        "checks": N_CHECKS, "snapshot_s": snap_s, "interior_rows": snap.num_int,
+        "checks": N_CHECKS, "cold_start": cold, "snapshot_s": snap_s, "interior_rows": snap.num_int,
         "interior_ell_slots": slots, "label_build": build, "check_s": check_s,
         "checks_per_s": N_CHECKS / check_s, "steady_check_s": steady_s,
         "steady_checks_per_s": N_CHECKS / steady_s, "peak_device_bytes": peak,
@@ -3550,6 +3752,11 @@ def phase_write(torch, kernels, report, engine, store, queries, lst, ctx, device
     from keto_tpu_torch.explain import ExplainEngine
     from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectID, SubjectSet
 
+    from keto_tpu_torch.persistence.memory import _DeferredRows
+
+    if isinstance(store._row_list, _DeferredRows):
+        raise SystemExit("write FAILED: the store's rows are still parked; the burst's store_s "
+                         "would pay their materialization")
     rng = random.Random(SEED + 6)
     oracle = CheckEngine(store)
     out: dict = {"steps": {}}
@@ -3872,6 +4079,8 @@ def phase_write(torch, kernels, report, engine, store, queries, lst, ctx, device
     lbad += sum(len(set(g) ^ set(fresh_lst.list_subjects("issues", i, "view")[0]))
                 for i, g in zip(issues_c, subs_c))
     out["fresh_engine"] = {"snapshot_s": rebuild_s, "label_build_s": label_s,
+                           "build_path": fresh.build_info["path"],
+                           "build_phases_s": fresh.build_info["phases_s"],
                            "route_counts": route_counts(fresh), "mismatches": bad,
                            "listings": len(users_c) + len(issues_c), "listing_items_differ": lbad,
                            "list_routes": {f"{o}/{p}": n for (o, p), n in
@@ -4110,6 +4319,94 @@ def served_launches(kernels, engine, what: str, before: dict) -> dict:
     return counts
 
 
+def serve_tuple_api(d, req) -> dict:
+    """``/version``, ``GET /expand``, ``GET /relation-tuples`` and ``PATCH
+    /relation-tuples`` on the daemon ``d``; fails on a wrong answer. The
+    expand trees are held against the Manager-backed engine over the same
+    store at the clamped depth, the tuple pages against the store's own
+    read."""
+    from urllib.parse import urlencode
+
+    from keto_tpu_torch.expand import ExpandEngine
+    from keto_tpu_torch.relationtuple.model import RelationQuery, RelationTuple, SubjectSet
+    from keto_tpu_torch.version import __version__
+
+    out: dict = {}
+    oracle = ExpandEngine(d.store)
+
+    def fail(what, got):
+        raise SystemExit(f"serve FAILED: {what} answered {got}")
+
+    for port in (d.read.port, d.write.port):
+        got = req("GET", port, "/version")
+        if got != (200, {"version": __version__}):
+            fail("/version", got)
+    out["version"] = __version__
+
+    def expand(obj, rel, depth):
+        q = urlencode({"namespace": "videos", "object": obj, "relation": rel,
+                       **({} if depth is None else {"max-depth": depth})})
+        return req("GET", d.read.port, "/expand?" + q)
+
+    def tree_json(obj, rel, depth):
+        t = oracle.build_tree(SubjectSet("videos", obj, rel), depth)
+        return None if t is None else t.to_json()
+
+    cap = d.read.app.max_read_depth
+    trees = {}
+    for obj, rel, asked in (("/cats/1.mp4", "view", 3), ("/cats/2.mp4", "view", 0),
+                            ("/cats", "owner", 100), ("/cats/9.mp4", "view", 2)):
+        got = expand(obj, rel, asked)
+        want = tree_json(obj, rel, d.read.app.expand_depth(asked))
+        if got != (200, want):
+            fail(f"/expand {obj}#{rel} max-depth={asked} (want {want})", got)
+        trees[f"{obj}#{rel}@{asked}"] = got[1]
+    if expand("/cats/1.mp4", "view", None)[0] != 400:
+        fail("/expand without max-depth", expand("/cats/1.mp4", "view", None))
+    out["expand"] = {"cap": cap, "trees": len(trees), "no_depth": 400}
+
+    def pages(query: RelationQuery):
+        seen, token, n = [], "", 0
+        while True:
+            status, body = req("GET", d.read.port, "/relation-tuples?" + query.to_url_query()
+                               + f"&page_size=1&page_token={token}")
+            if status != 200:
+                fail("/relation-tuples", (status, body))
+            seen += body["relation_tuples"]
+            token, n = body["next_page_token"], n + 1
+            if not token:
+                return seen, n
+
+    q1 = RelationQuery(namespace="videos", object="/cats/1.mp4")
+    got, n_pages = pages(q1)
+    want = [t.to_json() for t in d.store.get_relation_tuples(q1)[0]]
+    if got != want or n_pages != len(want):
+        fail(f"/relation-tuples pages (want {want})", got)
+    out["relation_tuples"] = {"tuples": len(got), "pages": n_pages}
+
+    ins = RelationTuple.from_string("videos:/cats/3.mp4#view@*")
+    dele = RelationTuple.from_string("videos:/cats/1.mp4#view@*")
+    status, body = req("PATCH", d.write.port, "/relation-tuples", [
+        {"action": "insert", "relation_tuple": ins.to_json()},
+        {"action": "delete", "relation_tuple": dele.to_json()}])
+    if status != 204:
+        fail("PATCH /relation-tuples", (status, body))
+    after = {
+        "inserted": req("GET", d.read.port, "/check?" + ins.to_url_query() + "&latest=true"),
+        "deleted": req("GET", d.read.port, "/check?" + dele.to_url_query() + "&latest=true"),
+        "3.mp4": pages(RelationQuery(namespace="videos", object="/cats/3.mp4"))[0],
+        "expand": expand("/cats/1.mp4", "view", 3),
+    }
+    if after["inserted"] != (200, {"allowed": True}) or \
+            after["deleted"] != (403, {"allowed": False}) or after["3.mp4"] != [ins.to_json()] \
+            or after["expand"] != (200, tree_json("/cats/1.mp4", "view", 3)) or \
+            "*" in [c.get("subject_id") for c in after["expand"][1]["children"]]:
+        fail("the tuple API after a PATCH", after)
+    out["patch"] = {"status": status, "inserted_allowed": True, "deleted_allowed": False}
+    log(f"serve: tuple API {json.dumps(out)}, trees {json.dumps(trees)}")
+    return out
+
+
 def phase_serve(kernels, report):
     import tempfile
     import urllib.error
@@ -4217,6 +4514,7 @@ def phase_serve(kernels, report):
         if kernels.COUNTS["list_fixpoint"] < 2 or any(p != "device" for _, p in routes):
             raise SystemExit(f"serve FAILED: the listings did not run K5 on the card: {routes}")
         report["serve_list_launches"] = dict(kernels.COUNTS)
+        report["serve_tuple_api"] = serve_tuple_api(d, req)
     finally:
         d.stop()
         log_dir.cleanup()

@@ -91,13 +91,19 @@ _PI64 = ctypes.POINTER(ctypes.c_int64)
 _PI32 = ctypes.POINTER(ctypes.c_int32)
 _PU8 = ctypes.POINTER(ctypes.c_uint8)
 _STR = ctypes.c_char_p
+_PU32 = ctypes.POINTER(ctypes.c_uint32)
 #: (restype, argtypes) of every entry point of native/*.cpp that the port
-#: calls (ingest.cpp's ``graph_build_ucs4`` and ``stream_build_*`` wait for
-#: the streaming build and the store's bulk path)
+#: calls: the interner's row, columnar and UCS4 column-bundle builds, the
+#: chunk-fed stream builder, the resolves and the pack walk
 _HOST_SIGNATURES = {
     "graph_build": (_P, [_STR, _I64, _PI64, _I64]),
     "graph_build_columnar": (_P, [_I64, _PI64, _PU8, _PI64] + [_STR, _PI64, _PI64] * 5
                              + [_PI64, _I64]),
+    "graph_build_ucs4": (_P, [_I64, _PI64, _PU8, _PI64] + [_PU32, _I64] * 5 + [_PI64, _I64]),
+    "stream_build_new": (_P, [_PI64, _I64, _I64]),
+    "stream_build_feed": (_I64, [_P, _STR, _I64, _I64]),
+    "stream_build_finish": (_P, [_P]),
+    "stream_build_abort": (None, [_P]),
     "graph_free": (None, [_P]),
     "graph_num_sets": (_I64, [_P]),
     "graph_num_leaves": (_I64, [_P]),

@@ -58,6 +58,12 @@ governor, reported here); the counters ``device_build_dispatches``,
 ``device_build_host_dispatches`` and ``device_build_errors`` count the
 sorter's batches. A failed device sort raises.
 
+Full builds (tpu_engine.py:2185-2200) go through
+``stream_build.full_build`` only: the store's column bundle after a bulk
+load, the chunked scan when the store prefers it, else ``snapshot_rows``
+(keto_tpu_torch/graph/stream_build.py); ``build_progress`` times their
+phases.
+
 Streaming (tpu_engine.py:3718-4069). ``batch_check_stream`` keeps up to
 16 slices in flight: the host resolves and packs slice k+2 while k+1 runs
 on the card, each slice's entries go up from a pinned staging buffer
@@ -131,12 +137,8 @@ from keto_tpu_torch.graph.compaction import compact_snapshot
 from keto_tpu_torch.graph.device_build import GovernedSorter, estimate_sort_bytes
 from keto_tpu_torch.graph.labels import build_labels, patch_labels
 from keto_tpu_torch.graph.overlay import apply_delta
-from keto_tpu_torch.graph.snapshot import (
-    WILDCARD,
-    GraphSnapshot,
-    intern_snapshot_rows,
-    layout_snapshot,
-)
+from keto_tpu_torch.graph.snapshot import WILDCARD, GraphSnapshot
+from keto_tpu_torch.graph.stream_build import BuildProgress, full_build
 from keto_tpu_torch.parallel import sharded as shard_mod
 from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectID, SubjectSet
 from keto_tpu_torch.x.device import resolve_device, same_device
@@ -264,7 +266,8 @@ class TorchCheckEngine:
     """Check engine answering batched queries on the device graph.
 
     ``store`` must expose ``snapshot_rows() -> (rows, watermark)``,
-    ``watermark()`` and ``changes_since(watermark)``
+    ``watermark()`` and ``changes_since(watermark)``, and may expose
+    ``snapshot_columns(watermark)`` and ``snapshot_scan(on_chunk, chunk_rows)``
     (keto_tpu_torch/persistence/memory.py); ``namespaces``
     is a namespace.Manager or a zero-arg callable returning the current one.
     ``device`` defaults to ``cuda`` and must be named ``"cpu"`` to run the
@@ -428,9 +431,12 @@ class TorchCheckEngine:
         self._build_sorter = (
             GovernedSorter(self.device, on_count=self._incr) if device_build_enabled else None
         )
+        #: the full builds' phases and path (keto_tpu_torch/graph/stream_build.py)
+        self.build_progress = BuildProgress()
         #: the last full build: seconds, its interning seconds (intern_s),
-        #: sort seconds by backend, and the transient sort bytes the
-        #: reference plans (build_sort_bytes)
+        #: sort seconds by backend, the transient sort bytes the reference
+        #: plans (build_sort_bytes), its path (columns, stream, rows or
+        #: python) and its phases' seconds (phases_s)
         self.build_info: Optional[dict] = None
 
     @property
@@ -605,24 +611,25 @@ class TorchCheckEngine:
             if delta_only:
                 return None
             t0 = time.monotonic()
-            rows, wm = self._store.snapshot_rows()
             self._take_sort_seconds()
-            t_i = time.monotonic()
-            interned = intern_snapshot_rows(rows, wild_ns_ids)
-            intern_s = time.monotonic() - t_i
-            del rows
-            new = layout_snapshot(interned, wm, wild_ns_ids, peel_seed_cap=self._peel_seed_cap,
-                                  sorter=self._build_sorter)
-            del interned
+            new = full_build(
+                self._store, wild_ns_ids,
+                peel_seed_cap=self._peel_seed_cap,
+                sorter=self._build_sorter,
+                progress=self.build_progress,
+            )
             sort_s = self._take_sort_seconds()
             self._upload_buckets(new)
             self._ov_pack = None
             self._last_full_build_s = time.monotonic() - t0
+            phases = self.build_progress.durations()
             self.build_info = {
                 "seconds": self._last_full_build_s,
-                "intern_s": intern_s,
+                "intern_s": phases.get("intern", 0.0),
                 "sort_s": sort_s,
                 "build_sort_bytes": estimate_sort_bytes(new.n_nodes, new.n_edges),
+                "path": self.build_progress.path,
+                "phases_s": phases,
             }
             self._incr("full_rebuilds")
         self._apply_ell_patch(new)

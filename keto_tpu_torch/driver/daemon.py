@@ -1,7 +1,9 @@
 """The serving process: one store, one check engine on the card, the list
-engine beside it on the same snapshots, one check batcher and the read and
-write REST ports (reference internal/driver/daemon.go, cut to the Check
-and List slices). The engine serves with
+engine and the snapshot-backed expand engine beside it on the same
+snapshots, one check batcher and the read and write REST ports (reference
+internal/driver/daemon.go, cut to the Check, Expand, List and tuple
+slices). ``max_read_depth`` caps an expand's depth (the reference's
+``limit.max_read_depth``, default 5). The engine serves with
 2-hop labels on, as the reference's daemon does; ``engine_options`` passes
 the label knobs (``labels_enabled``, ``labels_max_width``,
 ``labels_landmarks``, ``labels_device_build``, ``labels_min_gain``,
@@ -35,12 +37,13 @@ import torch
 from keto_tpu_torch import namespace as namespace_pkg
 from keto_tpu_torch.check.gpu_engine import TorchCheckEngine
 from keto_tpu_torch.driver.batch import CheckBatcher
+from keto_tpu_torch.expand.snapshot_engine import SnapshotExpandEngine
 from keto_tpu_torch.explain import DecisionLog, ExplainEngine
 from keto_tpu_torch.list.gpu_engine import SnapshotListEngine
 from keto_tpu_torch.parallel import make_mesh
 from keto_tpu_torch.persistence.memory import MemoryPersister
 from keto_tpu_torch.relationtuple.model import RelationTuple
-from keto_tpu_torch.servers.rest import READ, WRITE, RestServer
+from keto_tpu_torch.servers.rest import MAX_READ_DEPTH, READ, WRITE, RestServer
 from keto_tpu_torch.x.device import resolve_device
 
 
@@ -61,6 +64,7 @@ class Daemon:
         decision_log_segment_bytes: int = 1 << 20,
         decision_log_retention: int = 8,
         mesh_graph: int = 1,
+        max_read_depth: int = MAX_READ_DEPTH,
     ):
         nm = namespace_pkg.MemoryManager(namespaces)
         options = dict(engine_options or {})
@@ -72,6 +76,7 @@ class Daemon:
             self.store.write_relation_tuples(*tuples)
         self.engine = TorchCheckEngine(self.store, nm, device=device, **options)
         self.lister = SnapshotListEngine(self.engine, nm, device=self.engine.device)
+        self.expander = SnapshotExpandEngine(self.engine, nm)
         self.batcher = CheckBatcher(self.engine)
         self.decision_log = (
             DecisionLog(decision_log_dir, sample=decision_log_sample,
@@ -85,7 +90,8 @@ class Daemon:
         )
         self.read = RestServer(READ, self.store, self.batcher, host, read_port,
                                lister=self.lister, explain=self.explain,
-                               decision_log=self.decision_log)
+                               decision_log=self.decision_log, expander=self.expander,
+                               max_read_depth=max_read_depth)
         self.write = RestServer(WRITE, self.store, self.batcher, host, write_port)
 
     def start(self) -> None:

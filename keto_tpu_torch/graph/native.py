@@ -14,9 +14,13 @@ load raises, and no environment variable turns the native path off. The
 only way back to the Python interner is the reference's own: rows whose
 strings defeat both native encodings (``native_intern_rows`` returns
 None; ``snapshot.intern_snapshot_rows`` then interns in Python and counts
-it in ``COUNTERS``). The store's column bundle (``native_intern_columns``) and
-the chunk-fed ``NativeStreamBuilder`` belong with the streaming build and
-are not ported yet.
+it in ``COUNTERS``). The store's sorted column bundle interns through
+``native_intern_columns`` (UCS4 cells decoded in C++ straight out of the
+numpy buffers); a bundle with an embedded NUL code point goes back to the
+rows, counted as ``columns_refused``. The chunk-fed ``NativeStreamBuilder``
+interns scan chunks on a C++ worker pool (graph/stream_build.py); a chunk
+whose framing fails kills the stream, and the caller replays its chunks in
+Python (``stream_replays``).
 
 Lifetime: a ``NativeInterned`` owns its C++ handle and frees it in
 ``__del__``. Every native call runs inside one of its methods, which
@@ -37,11 +41,16 @@ from keto_tpu_torch import _build
 _FIELD = b"\x1f"
 _RECORD = b"\x1e"
 
-#: snapshot interns per path since process start (counted by
-#: ``snapshot.intern_snapshot_rows``): ``native`` (the C++
-#: interner) or ``python`` (rows whose strings defeat both native
-#: encodings, the reference's fallback)
-COUNTERS = {"native": 0, "python": 0}
+#: interns per path since process start: ``native`` (the C++ interner
+#: over rows, ``native_intern_rows``), ``python`` (a snapshot's rows whose
+#: strings defeat both native encodings, the reference's fallback, counted
+#: by ``snapshot.intern_snapshot_rows``), ``columns`` (the store's column
+#: bundle), ``columns_refused`` (a bundle ``native_intern_columns`` would
+#: not take: an embedded NUL code point or a non-``U`` column), ``stream``
+#: (a chunk-fed ``NativeStreamBuilder`` build) and ``stream_replays`` (a
+#: stream killed by a chunk's framing, its chunks replayed in Python)
+COUNTERS = {"native": 0, "python": 0, "columns": 0, "columns_refused": 0, "stream": 0,
+            "stream_replays": 0}
 
 _PI64 = ctypes.POINTER(ctypes.c_int64)
 
@@ -233,10 +242,114 @@ def native_intern_rows_columnar(lib, rows: list, wild_ns_ids) -> Optional[Native
     return NativeInterned(lib, handle)
 
 
+def _ucs4_ok(arr: np.ndarray) -> bool:
+    """True when every cell's NUL padding is trailing-only: an embedded
+    NUL code point would truncate in the C++ decoder (NUL is the pad)."""
+    if arr.dtype.itemsize == 0 or arr.size == 0:
+        return True
+    v = arr.view(np.uint32).reshape(arr.shape[0], -1)
+    if v.shape[1] <= 1:
+        return True
+    z = v == 0
+    return not bool(np.any(z[:, :-1] & (v[:, 1:] != 0)))
+
+
+def native_intern_columns(lib, columns: dict, wild_ns_ids) -> Optional[NativeInterned]:
+    """Intern from the store's sorted column bundle (numpy '<U*' string
+    arrays and the int/kind arrays): no per-row Python work, the C++ side
+    decodes the UCS4 cells straight out of the numpy buffers. None (counted
+    as ``columns_refused``) when a string column is not ``U`` or holds an
+    embedded NUL code point; the caller interns the rows instead."""
+    n = int(columns["ns"].shape[0])
+    str_cols = []
+    for name in ("obj", "rel", "sid", "sso", "ssr"):
+        arr = np.ascontiguousarray(columns[name])
+        if arr.dtype.kind != "U" or not _ucs4_ok(arr):
+            COUNTERS["columns_refused"] += 1
+            return None
+        str_cols.append(arr)
+    ns = np.ascontiguousarray(columns["ns"], np.int64)
+    kind = np.ascontiguousarray(columns["kind"], np.uint8)
+    sns = np.ascontiguousarray(columns["sns"], np.int64)
+    wild = np.asarray(sorted(wild_ns_ids), np.int64)
+    args = [n, ns.ctypes.data_as(_PI64), kind.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            sns.ctypes.data_as(_PI64)]
+    for arr in str_cols:
+        args += [arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)), arr.dtype.itemsize // 4]
+    args += [wild.ctypes.data_as(_PI64), len(wild)]
+    handle = lib.graph_build_ucs4(*args)
+    if not handle:
+        raise RuntimeError("graph_build_ucs4 returned no graph")
+    COUNTERS["columns"] += 1
+    return NativeInterned(lib, handle)
+
+
+class NativeStreamBuilder:
+    """Chunk-fed native interner (``ingest.cpp``'s ``stream_build_*``).
+
+    ``feed(rows)`` packs one scan chunk into the wire format and hands it
+    to the C++ worker pool; the call returns once the chunk is queued
+    (blocking briefly on the bounded queue), so the caller's next store
+    fetch overlaps interning. ``finish()`` merges the per-chunk shards in
+    feed order, which gives the one-shot build's first-occurrence ids.
+
+    A chunk the packer cannot frame (a string holding a separator byte)
+    kills the stream: ``feed`` returns False and the caller replays its
+    chunks through the Python interner, as the reference does.
+    """
+
+    def __init__(self, lib: ctypes.CDLL, wild_ns_ids):
+        self._lib = lib
+        wild = np.asarray(sorted(wild_ns_ids), np.int64)
+        self._handle = lib.stream_build_new(wild.ctypes.data_as(_PI64), len(wild), 0)
+        self._dead = not self._handle
+
+    @classmethod
+    def create(cls, wild_ns_ids) -> "NativeStreamBuilder":
+        """A fresh builder on the port's host library; raises when the
+        library cannot be built or loaded or refuses the builder."""
+        sb = cls(_build.host_lib(), wild_ns_ids)
+        if sb._dead:
+            raise RuntimeError("stream_build_new returned no builder")
+        return sb
+
+    def feed(self, rows: list) -> bool:
+        """Queue one chunk; False when the stream is unusable (a framing
+        rejection, or an earlier malformed chunk)."""
+        if self._dead:
+            return False
+        buf = pack_rows(rows)
+        if buf.count(_FIELD) != 6 * len(rows) or buf.count(_RECORD) != len(rows):
+            self.abort()
+            return False
+        if self._lib.stream_build_feed(self._handle, buf, len(buf), len(rows)) != 0:
+            self.abort()
+            return False
+        return True
+
+    def finish(self) -> Optional[NativeInterned]:
+        """Join the workers and merge; None when the stream died (the
+        caller interns its chunks in Python)."""
+        if self._dead:
+            return None
+        handle = self._lib.stream_build_finish(self._handle)
+        self._handle = None
+        self._dead = True
+        if not handle:
+            return None
+        return NativeInterned(self._lib, handle)
+
+    def abort(self) -> None:
+        if not self._dead:
+            self._lib.stream_build_abort(self._handle)
+            self._handle = None
+            self._dead = True
+
+
 def native_intern_rows(rows: Iterable, wild_ns_ids=frozenset()) -> Optional[NativeInterned]:
-    """Native counterpart of ``intern_rows``. ``InternalRow``s go through
-    the columnar entry point; rows it cannot take (a string with NUL, or
-    rows without ``namespace_id``) through the packed buffer. None when the
+    """Native counterpart of ``intern_rows``. ``InternalRow``s go through the
+    columnar entry point; rows it cannot take (a string with NUL, or rows
+    without ``namespace_id``) through the packed buffer. None when the
     buffer's framing is unsafe too (a string holds NUL and a separator
     byte): the caller interns in Python, as the reference does."""
     lib = _build.host_lib()
@@ -245,6 +358,7 @@ def native_intern_rows(rows: Iterable, wild_ns_ids=frozenset()) -> Optional[Nati
     if rows and hasattr(rows[0], "namespace_id"):
         got = native_intern_rows_columnar(lib, rows, wild_ns_ids)
         if got is not None:
+            COUNTERS["native"] += 1
             return got
     buf = pack_rows(rows)
     # strings holding the separator bytes would corrupt the framing,
@@ -255,4 +369,5 @@ def native_intern_rows(rows: Iterable, wild_ns_ids=frozenset()) -> Optional[Nati
     handle = lib.graph_build(buf, len(buf), wild.ctypes.data_as(_PI64), len(wild))
     if not handle:
         return None  # the parser rejected the buffer
+    COUNTERS["native"] += 1
     return NativeInterned(lib, handle)

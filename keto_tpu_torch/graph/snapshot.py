@@ -406,6 +406,21 @@ class GraphSnapshot:
                 self._pattern_cache["_dev2raw"] = d2r
             return d2r
 
+    def is_set_dev_bulk(self, devs: np.ndarray) -> np.ndarray:
+        """bool[len(devs)]: True where the device id is a set node (base or
+        overlay), False for subject-id leaves."""
+        devs = np.asarray(devs)
+        nb = self.n_base_nodes
+        d2r = self._dev2raw()
+        in_base = devs < nb
+        out = np.zeros(devs.shape[0], bool)
+        out[in_base] = d2r[devs[in_base]] < self.num_sets
+        if not in_base.all():
+            ov_sets = set((self.ov_set_ids or {}).values())
+            for i in np.nonzero(~in_base)[0]:
+                out[i] = int(devs[i]) in ov_sets
+        return out
+
     def _removed_drop(self, keys: np.ndarray, cnts: np.ndarray):
         """(keep-mask over gathered entries, per-segment adjusted counts) for
         the tombstone filter, or None when nothing matches. ``keys`` pack
@@ -750,7 +765,6 @@ def intern_snapshot_rows(rows: Iterable, wild_ns_ids: FrozenSet[int] = frozenset
     if g is None:
         native.COUNTERS["python"] += 1
         return intern_rows(rows, wild_ns_ids)
-    native.COUNTERS["native"] += 1
     return g
 
 
@@ -760,14 +774,24 @@ def build_snapshot(
     wild_ns_ids: FrozenSet[int] = frozenset(),
     peel_seed_cap: float = 4.0,
     sorter=None,
+    progress=None,
 ) -> GraphSnapshot:
     """Intern rows (``intern_snapshot_rows``) and lay out the bucketed
     reverse-ELL adjacency. ``wild_ns_ids``: ids of configured namespaces
     whose *name* is the empty string — their set nodes expand with a
-    wildcarded namespace. ``sorter``: the stable-argsort backend (host by
-    default)."""
-    g = intern_snapshot_rows(rows, wild_ns_ids)
-    return layout_snapshot(g, watermark, wild_ns_ids, peel_seed_cap=peel_seed_cap, sorter=sorter)
+    wildcarded namespace. ``sorter``: the stable-argsort backend (host by default).
+    ``progress``: a ``stream_build.BuildProgress`` that times the
+    ``intern`` and ``device_build`` phases (keto_tpu/graph/snapshot.py:
+    889-927)."""
+    rows = list(rows)
+    if progress is not None:
+        with progress.phase("intern"):
+            g = intern_snapshot_rows(rows, wild_ns_ids)
+            progress.add_rows(len(rows))
+    else:
+        g = intern_snapshot_rows(rows, wild_ns_ids)
+    return layout_snapshot(g, watermark, wild_ns_ids, peel_seed_cap=peel_seed_cap, sorter=sorter,
+                           progress=progress)
 
 
 def layout_snapshot(
@@ -776,13 +800,25 @@ def layout_snapshot(
     wild_ns_ids: FrozenSet[int] = frozenset(),
     peel_seed_cap: float = 4.0,
     sorter=None,
+    progress=None,
 ) -> GraphSnapshot:
     """Lay out an already-interned graph ``g``: classify/peel, renumber,
     bucket, and derive the forward CSR, the sink reverse CSR, the
     transposed CSR and both list layouts. Every stable sort goes through
     ``sorter`` (keto_tpu_torch/graph/device_build.py; numpy's when None);
     host and device give identical permutations, so the arrays equal the
-    JAX package's build byte for byte."""
+    JAX package's build byte for byte. With ``progress`` the layout is its
+    ``device_build`` phase and adds the graph's edges to its count."""
+    if progress is None:
+        return _layout_snapshot_inner(g, watermark, wild_ns_ids, peel_seed_cap, sorter)
+    with progress.phase("device_build"):
+        try:
+            return _layout_snapshot_inner(g, watermark, wild_ns_ids, peel_seed_cap, sorter)
+        finally:
+            progress.add_edges(int(np.asarray(g.src).shape[0]))
+
+
+def _layout_snapshot_inner(g, watermark, wild_ns_ids, peel_seed_cap, sorter) -> GraphSnapshot:
     S = sorter or host_sorter()
     src_raw, dst_raw = g.src, g.dst
     n = g.num_nodes

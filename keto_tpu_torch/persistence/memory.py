@@ -23,6 +23,13 @@ reference SQL persister (internal/persistence/sql/relationtuples.go):
   :600-715). ``rows_since`` and ``changes_since`` read them; a bulk write
   past the cap raises the log's floor instead of logging every row, so a
   10M-tuple load keeps no log entries.
+- a write of 4,096 tuples or more takes the bulk path
+  (keto_tpu/persistence/memory.py:292-416): one column pass, the store's
+  ORDER BY as a numpy lexsort, the rows built already in order. A bulk
+  load into an empty store keeps its sorted column bundle
+  (``snapshot_columns``), the snapshot builder's zero-copy interning input;
+  past ``LOG_CAP`` it also parks the row objects (``_DeferredRows``), which
+  the first reader of a row builds. Every mutation drops the bundle.
 
 Left out against the reference store: networks, idempotency keys, fleet
 leases and watch logs.
@@ -34,6 +41,8 @@ import bisect
 import itertools
 import threading
 from typing import Optional, Sequence
+
+import numpy as np
 
 from keto_tpu_torch import namespace as namespace_pkg
 from keto_tpu_torch.relationtuple.manager import Manager, TransactResult
@@ -111,11 +120,44 @@ class InternalRow:
         )
 
 
+class _DeferredRows:
+    """A bulk load's row objects, not built yet.
+
+    Building tens of millions of ``InternalRow`` objects is the largest
+    cost of a bulk load, and the cold start never reads them: the snapshot
+    builder interns straight from the sorted column bundle
+    (``snapshot_columns`` → ``native_intern_columns``). So a bulk load into
+    an empty store past ``LOG_CAP`` parks this thunk, and the first reader
+    that needs row objects (a Manager read, a delete, a later write,
+    ``snapshot_rows``, ``fork``) builds them through
+    ``MemoryPersister._rows``: the same rows in the same order, paid off
+    the cold start (keto_tpu/persistence/memory.py:143-165)."""
+
+    __slots__ = ("_make", "n")
+
+    def __init__(self, make, n: int):
+        self._make = make
+        self.n = int(n)
+
+    def materialize(self) -> list:
+        return self._make()
+
+
 class MemoryPersister(Manager):
     #: inserts above this count sort once and merge; smaller ones insort
     _MERGE_AT = 256
     #: log entries kept for delta snapshots; past this, readers rebuild
     LOG_CAP = 65536
+    #: inserts from this count on take the bulk path (``_bulk_ingest``)
+    _BULK_AT = 4096
+    #: longest string a bulk-ingest numpy column holds: fixed-width U-dtype
+    #: cells mean one outlier inflates the whole column (n · maxlen · 4
+    #: bytes), so a batch with a longer string takes the row path
+    _BULK_MAX_STR = 256
+    #: the one-shot paths (the column bundle, the columnar extraction) beat
+    #: chunked packing here: the streaming build prefers the chunk seam only
+    #: on stores with scan I/O to overlap
+    scan_chunks_preferred = False
 
     def __init__(self, namespace_manager_source):
         """``namespace_manager_source`` is a zero-arg callable returning the
@@ -124,8 +166,14 @@ class MemoryPersister(Manager):
             self._nm = lambda: namespace_manager_source
         else:
             self._nm = namespace_manager_source
-        self._lock = threading.RLock()  # guards: _rows, _lhs_index, _watermark
-        self._rows: list[InternalRow] = []
+        # guards: _row_list, _col_cache, _lhs_index, _watermark, the logs
+        self._lock = threading.RLock()
+        # the rows in ORDER BY, or a parked bulk load: read through _rows()
+        self._row_list: "list[InternalRow] | _DeferredRows" = []
+        # (watermark, sorted column bundle) of a bulk load into an empty
+        # store: the snapshot builder's interning input while no mutation
+        # has followed it (snapshot_columns)
+        self._col_cache: Optional[tuple[int, dict]] = None
         self._seq = itertools.count()
         self._watermark = 0
         # (ns_id, obj, rel) → sorted row sublist: the in-memory analog of
@@ -153,6 +201,15 @@ class MemoryPersister(Manager):
 
     # -- helpers -------------------------------------------------------------
 
+    def _rows(self) -> list[InternalRow]:
+        """The row list, building a parked bulk load's rows on first touch
+        (keto_tpu/persistence/memory.py:267-279). The one reader of
+        ``_row_list``; callers hold the lock."""
+        got = self._row_list
+        if isinstance(got, _DeferredRows):
+            got = self._row_list = got.materialize()
+        return got
+
     def _to_row(self, rt: RelationTuple) -> InternalRow:
         nm = self._nm()
         ns = nm.get_namespace_by_name(rt.namespace)
@@ -164,6 +221,106 @@ class MemoryPersister(Manager):
         return InternalRow(
             ns.id, rt.object, rt.relation, None, sns.id, rt.subject.object, rt.subject.relation, next(self._seq)
         )
+
+    def _bulk_ingest(self, tuples_seq: Sequence[RelationTuple]) -> Optional[tuple]:
+        """Bulk tuples → ``(make_rows thunk, sorted column bundle)`` in ONE
+        column pass (keto_tpu/persistence/memory.py:298-416). The ORDER BY
+        runs as a numpy lexsort over the columns: NULL-first rides on
+        (presence, value) pairs as in ``sort_key``, numpy's U-dtype
+        comparison is by code point (Python's str order), and the arange
+        tie-break is arrival order, which is seq order, so the order is
+        ``sort_key``'s. The thunk builds the rows directly in that order.
+
+        Returns None when the batch is unsafe for fixed-width numpy
+        columns: a string with a trailing NUL (numpy strips it on read-back,
+        collapsing ``"a\x00"`` onto ``"a"``) or longer than
+        ``_BULK_MAX_STR``. The caller takes the row path, which handles both
+        exactly."""
+        nm = self._nm()
+        ns_cache: dict = {}
+
+        def ns_id(name: str) -> int:
+            i = ns_cache.get(name)
+            if i is None:
+                i = ns_cache[name] = nm.get_namespace_by_name(name).id
+            return i
+
+        n = len(tuples_seq)
+        c_ns: list[int] = []
+        c_obj: list[str] = []
+        c_rel: list[str] = []
+        c_kind: list[bool] = []
+        c_sid: list[str] = []
+        c_sns: list[int] = []
+        c_sso: list[str] = []
+        c_ssr: list[str] = []
+        for rt in tuples_seq:
+            sub = rt.subject
+            if sub is None:
+                raise ErrNilSubject()
+            c_ns.append(ns_id(rt.namespace))
+            c_obj.append(rt.object)
+            c_rel.append(rt.relation)
+            if isinstance(sub, SubjectID):
+                c_kind.append(True)
+                c_sid.append(sub.id)
+                c_sns.append(0)
+                c_sso.append("")
+                c_ssr.append("")
+            else:
+                c_kind.append(False)
+                c_sid.append("")
+                c_sns.append(ns_id(sub.namespace))
+                c_sso.append(sub.object)
+                c_ssr.append(sub.relation)
+
+        cap = self._BULK_MAX_STR
+        for col in (c_obj, c_rel, c_sid, c_sso, c_ssr):
+            if max(map(len, col), default=0) > cap or any(s.endswith("\x00") for s in col):
+                return None
+        a_ns = np.asarray(c_ns, np.int64)
+        a_obj = np.array(c_obj)
+        a_rel = np.array(c_rel)
+        sid_p = np.asarray(c_kind, bool)
+        sid_v = np.array(c_sid)
+        sns_v = np.asarray(c_sns, np.int64)
+        sso_v = np.array(c_sso)
+        ssr_v = np.array(c_ssr)
+        # exactly one of subject id / subject set: ~sid_p is the presence
+        # flag of sns/sso/ssr (NULL-first: subject-set rows sort before
+        # subject-id rows)
+        perm = np.lexsort((
+            np.arange(n),
+            ssr_v, sso_v, sns_v, ~sid_p,
+            sid_v, sid_p,
+            a_rel, a_obj, a_ns,
+        ))
+        bundle = {
+            "ns": a_ns[perm],
+            "kind": sid_p[perm].view(np.uint8),
+            "sns": sns_v[perm],
+            "obj": a_obj[perm],
+            "rel": a_rel[perm],
+            "sid": sid_v[perm],
+            "sso": sso_v[perm],
+            "ssr": ssr_v[perm],
+        }
+        seqs = list(itertools.islice(self._seq, n))
+
+        def make_rows() -> list:
+            # the rows in sorted order, directly (no second permutation
+            # pass); a thunk, so a bulk load into an empty store can park it
+            rows: list = [None] * n
+            for out_i, i in enumerate(perm.tolist()):
+                if c_kind[i]:
+                    rows[out_i] = InternalRow(c_ns[i], c_obj[i], c_rel[i], c_sid[i], None, None,
+                                              None, seqs[i])
+                else:
+                    rows[out_i] = InternalRow(c_ns[i], c_obj[i], c_rel[i], None, c_sns[i],
+                                              c_sso[i], c_ssr[i], seqs[i])
+            return rows
+
+        return make_rows, bundle
 
     def _to_tuple(self, row: InternalRow) -> RelationTuple:
         nm = self._nm()
@@ -211,11 +368,11 @@ class MemoryPersister(Manager):
         (namespace, object, relation) query, else the full row list. Must be
         called under the lock."""
         if query.namespace == "" or query.object == "" or query.relation == "":
-            return self._rows
+            return self._rows()
         idx = self._lhs_index
         if idx is None:
             idx = {}
-            for r in self._rows:
+            for r in self._rows():
                 idx.setdefault((r.namespace_id, r.object, r.relation), []).append(r)
             self._lhs_index = idx
         ns_id = self._nm().get_namespace_by_name(query.namespace).id
@@ -260,31 +417,62 @@ class MemoryPersister(Manager):
         mutation, so a failing insert/delete leaves the store untouched
         (rollback semantics of reference relationtuples.go:271-278)."""
         with self._lock:
-            new_rows = [self._to_row(rt) for rt in insert]
+            make_rows = bundle = None
+            if len(insert) >= self._BULK_AT:
+                # one column pass and a numpy lexsort, plus the interner's
+                # column bundle; None: the batch is unsafe for numpy
+                # columns, the row path below takes it
+                got = self._bulk_ingest(insert)
+                if got is not None:
+                    make_rows, bundle = got
+            new_rows = [] if make_rows is not None else [self._to_row(rt) for rt in insert]
             # delete keys in request order (the delete log keeps it)
             delete_keys = list(dict.fromkeys(self._to_row(rt).key7() for rt in delete))
-            rows = self._rows
-            if len(new_rows) > self._MERGE_AT:
-                # the log keeps request order; the merge needs sort order
-                rows = _merge_sorted(rows, sorted(new_rows, key=InternalRow.sort_key))
-            else:
-                for r in new_rows:
-                    bisect.insort(rows, r, key=InternalRow.sort_key)
+            rows = self._rows()
+            # any mutation drops the bundle; a clean bulk load into an
+            # empty store sets it again below
+            self._col_cache = None
+            col_bundle = bundle if bundle is not None and not rows and not delete else None
+            # a bulk load into an empty store past the log cap parks its
+            # rows: the snapshot builder reads the bundle, and the log takes
+            # the raise-the-floor path either way
+            deferred = col_bundle is not None and len(insert) > self.LOG_CAP
             hit_keys: set = set()
-            if delete_keys:
-                keyset = set(delete_keys)
-                kept = []
-                for r in rows:
-                    k = r.key7()
-                    if k in keyset:
-                        hit_keys.add(k)
-                    else:
-                        kept.append(r)
-                rows = kept
-            self._rows = rows
-            self._update_lhs_index(new_rows, keyset if delete_keys else ())
+            if deferred:
+                self._row_list = _DeferredRows(make_rows, len(insert))
+                self._lhs_index = None
+            else:
+                if make_rows is not None:
+                    # the bulk rows come sorted, and the log keeps them so
+                    new_rows = make_rows()
+                    rows = _merge_sorted(rows, new_rows)
+                elif len(new_rows) > self._MERGE_AT:
+                    # the log keeps request order; the merge needs sort order
+                    rows = _merge_sorted(rows, sorted(new_rows, key=InternalRow.sort_key))
+                else:
+                    for r in new_rows:
+                        bisect.insort(rows, r, key=InternalRow.sort_key)
+                if delete_keys:
+                    keyset = set(delete_keys)
+                    kept = []
+                    for r in rows:
+                        k = r.key7()
+                        if k in keyset:
+                            hit_keys.add(k)
+                        else:
+                            kept.append(r)
+                    rows = kept
+                self._row_list = rows
+                self._update_lhs_index(new_rows, keyset if delete_keys else ())
             self._watermark += 1
             wm = self._watermark
+            if col_bundle is not None:
+                self._col_cache = (wm, col_bundle)
+            if deferred:
+                # parked rows never enter the insert log: no delta can
+                # span this batch
+                self._log_floor = wm
+                self._insert_log = []
             if hit_keys:
                 # only effective deletes (matched >= 1 row) are logged
                 self._delete_wm = wm
@@ -334,14 +522,18 @@ class MemoryPersister(Manager):
 
     def fork(self) -> "MemoryPersister":
         """An independent store holding the same rows at the same watermark,
-        over the same namespaces: the row list is copied (its rows are
-        immutable and shared) and the change logs start empty at the fork's
-        watermark, so a write to either store is invisible to the other.
-        chip_smoke.py gives a second engine its own copy of a 10M-tuple
-        store this way, without generating it again."""
+        over the same namespaces: the parent's rows are built once if a
+        bulk load parked them, the row list is copied (its rows are
+        immutable and shared), the column bundle valid at this watermark
+        is carried over (so the fork's cold start interns from it too), and
+        the change logs start empty at the fork's watermark, so a write to
+        either store is invisible to the other. chip_smoke.py gives a
+        second engine its own copy of a 10M-tuple store this way, without
+        generating it again."""
         with self._lock:
             other = MemoryPersister(self._nm)
-            other._rows = list(self._rows)
+            other._row_list = list(self._rows())
+            other._col_cache = self._col_cache
             # both stores go on from the same next row id: the parent gets
             # back the id read here, ahead of its own counter
             nxt = next(self._seq)
@@ -355,7 +547,32 @@ class MemoryPersister(Manager):
     def snapshot_rows(self) -> tuple[list[InternalRow], int]:
         """Consistent (rows, watermark) view for the graph builder."""
         with self._lock:
-            return list(self._rows), self._watermark
+            return list(self._rows()), self._watermark
+
+    def snapshot_scan(self, on_chunk, chunk_rows: int = 262144) -> int:
+        """Chunked ``snapshot_rows`` (the streaming build's scan seam,
+        keto_tpu_torch/graph/stream_build.py): calls ``on_chunk`` with
+        consecutive row chunks in ORDER BY order and returns the watermark
+        they are consistent at. The chunks are handed over outside the lock
+        (the list is copied under it)."""
+        with self._lock:
+            rows = list(self._rows())
+            wm = self._watermark
+        step = max(1, int(chunk_rows))
+        for i in range(0, len(rows), step):
+            on_chunk(rows[i : i + step])
+        return wm
+
+    def snapshot_columns(self, watermark: int) -> Optional[dict]:
+        """The bulk load's sorted column bundle if it is valid at
+        ``watermark`` (no mutation since), else None: the zero-copy
+        interning input of a full snapshot build
+        (keto_tpu_torch/graph/native.py ``native_intern_columns``)."""
+        with self._lock:
+            got = self._col_cache
+            if got is not None and got[0] == watermark:
+                return got[1]
+            return None
 
     def rows_since(self, watermark: int):
         """Rows inserted after ``watermark`` as ``(rows, new_watermark)``, or

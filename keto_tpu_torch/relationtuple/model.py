@@ -101,6 +101,19 @@ def subject_from_string(s: str) -> Subject:
     return SubjectID(id=s)
 
 
+def subject_set_from_url_query(query: Union[str, Mapping[str, list[str]]]) -> SubjectSet:
+    """Decode a subject set from bare ``namespace``/``object``/``relation``
+    query keys: the expand endpoint's subject (reference
+    internal/relationtuple/definitions.go:145-151)."""
+    q = parse_qs(query, keep_blank_values=True) if isinstance(query, str) else query
+
+    def get(k: str) -> str:
+        v = q.get(k, [])
+        return v[0] if v else ""
+
+    return SubjectSet(namespace=get("namespace"), object=get("object"), relation=get("relation"))
+
+
 def _subject_from_json(obj: Mapping[str, Any]) -> Subject:
     """Decode the ``subject_id`` XOR ``subject_set`` JSON convention.
     Reference definitions.go:316-339."""
@@ -283,3 +296,19 @@ class RelationQuery:
             subject_id=subject_id,
             subject_set=subject_set,
         )
+
+    def to_url_query(self) -> str:
+        vals: list[tuple[str, str]] = []
+        if self.namespace:
+            vals.append(("namespace", self.namespace))
+        if self.relation:
+            vals.append(("relation", self.relation))
+        if self.object:
+            vals.append(("object", self.object))
+        if self.subject_id is not None:
+            vals.append((_SUBJECT_ID_KEY, self.subject_id))
+        elif self.subject_set is not None:
+            vals.append((_SSET_NS_KEY, self.subject_set.namespace))
+            vals.append((_SSET_OBJ_KEY, self.subject_set.object))
+            vals.append((_SSET_REL_KEY, self.subject_set.relation))
+        return urlencode(vals)

@@ -29,17 +29,30 @@ Read port:
   Always 200 (the body carries ``allowed``); a nil subject is a 400; 404
   when explain is disabled; ``?snaptoken=`` as on ``/check``; the response
   carries ``X-Keto-Snaptoken``.
+- ``GET /expand`` (keto_tpu/servers/rest.py:843-873) answers the subject
+  set's tree (``Tree.to_json``; an empty 200 for no tree) through the
+  snapshot-backed expand engine; ``max-depth`` is required (absent or not
+  an integer: 400), and a depth of 0 or past ``max_read_depth`` (the
+  reference's ``limit.max_read_depth``, default 5) takes the cap
+  (keto_tpu/driver/registry.py:768-773).
+- ``GET /relation-tuples`` (rest.py:875-899) pages the store's tuples
+  matching the URL query: ``page_token``, ``page_size`` (malformed: 400);
+  the body is ``{"relation_tuples": [...], "next_page_token": ...}``.
 - With a decision log, ``/check`` appends a sampled, witness-free record of
   each decision (rest.py:705-746) with ``route: ""`` (the reference's
   value when request timelines are off; the port has none).
 
 Write port: ``PUT /relation-tuples`` creates from a JSON body → 201 +
 Location (reference transact_server.go:130-153); ``DELETE`` by URL query →
-204 (transact_server.go:173-187). Both answer the commit's snaptoken.
+204 (transact_server.go:173-187); ``PATCH /relation-tuples`` applies a JSON
+array of ``{"action": "insert" | "delete", "relation_tuple": {...}}`` in one
+transaction → 204 (rest.py:1088-1112; an unknown action or a missing tuple
+is a 400 and applies nothing). Each answers the commit's snaptoken.
 
 Both ports: ``GET /health/alive`` → ``{"status": "ok"}``; ``GET
 /health/ready`` → 200 ``{"status": "ok"}`` while the check batcher runs,
-else 503. Errors render the herodot-style envelope of x/errors.py.
+else 503; ``/version`` → ``{"version": ...}`` (rest.py:267-268). Errors
+render the herodot-style envelope of x/errors.py.
 """
 
 from __future__ import annotations
@@ -50,25 +63,39 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, urlsplit
 
-from keto_tpu_torch.relationtuple.model import RelationQuery, RelationTuple
+from keto_tpu_torch.relationtuple.model import (
+    RelationQuery,
+    RelationTuple,
+    subject_set_from_url_query,
+)
+from keto_tpu_torch.version import __version__
 from keto_tpu_torch.x.errors import ErrBadRequest, ErrNilSubject, KetoError
+from keto_tpu_torch.x.pagination import with_size, with_token
 
 READ = "read"
 WRITE = "write"
 
 #: upper bound on one /check/batch payload
 MAX_BATCH_CHECK = 65536
+#: the expand depth cap's default (the reference's limit.max_read_depth)
+MAX_READ_DEPTH = 5
 
 
 class RestApp:
-    """Routes requests for one server role against the store (writes), the
-    check batcher and the list engine (reads)."""
+    """Routes requests for one server role against the store (writes and
+    tuple reads), the check batcher, the list engine and the expand engine
+    (reads)."""
 
-    def __init__(self, role: str, store, batcher, lister=None, explain=None, decision_log=None):
+    def __init__(self, role: str, store, batcher, lister=None, explain=None, decision_log=None,
+                 expander=None, max_read_depth: int = MAX_READ_DEPTH):
         self.role = role
         self.store = store
         self.batcher = batcher
         self.lister = lister
+        #: the expand engine (keto_tpu_torch/expand), None: no /expand
+        self.expander = expander
+        #: the cap of an expand's depth (the reference's limit.max_read_depth)
+        self.max_read_depth = int(max_read_depth)
         #: the ExplainEngine, None when explain is disabled
         self.explain = explain
         #: the DecisionLog that /check samples into, None when there is none
@@ -84,6 +111,8 @@ class RestApp:
                 if self.batcher.running:
                     return 200, {"status": "ok"}, {}
                 return 503, {"status": "unavailable", "reason": "check batcher stopped"}, {}
+            if path == "/version":
+                return 200, {"version": __version__}, {}
             if self.role == READ:
                 if route == ("GET", "/check"):
                     return self._get_check(query)
@@ -93,6 +122,10 @@ class RestApp:
                     return self._post_check_batch(body, query)
                 if route == ("GET", "/check/explain"):
                     return self._get_explain(query)
+                if route == ("GET", "/expand") and self.expander is not None:
+                    return self._get_expand(query)
+                if route == ("GET", "/relation-tuples"):
+                    return self._get_relation_tuples(query)
                 if route == ("GET", "/relation-tuples/list-objects") and self.lister:
                     return self._get_list_objects(query)
                 if route == ("GET", "/relation-tuples/list-subjects") and self.lister:
@@ -102,6 +135,8 @@ class RestApp:
                     return self._put_relation_tuple(body)
                 if route == ("DELETE", "/relation-tuples"):
                     return self._delete_relation_tuple(query)
+                if route == ("PATCH", "/relation-tuples"):
+                    return self._patch_relation_tuples(body)
             err = KetoError("404 page not found")
             err.status_code = 404
             return 404, err.to_json(), {}
@@ -196,6 +231,42 @@ class RestApp:
         )
         return 200, {"results": [bool(r) for r in results]}, self._token_headers(token)
 
+    def expand_depth(self, requested: int) -> int:
+        """A request's max-depth clamped to the cap: 0, or more than the
+        cap, takes the cap (keto_tpu/driver/registry.py:768-773)."""
+        cap = self.max_read_depth
+        return cap if requested <= 0 or requested > cap else requested
+
+    def _get_expand(self, query):
+        # the reference parses max-depth unconditionally: absent or
+        # invalid is a 400; 0 means the cap
+        raw_depth = (query.get("max-depth") or [""])[0]
+        try:
+            depth = int(raw_depth)
+        except ValueError:
+            raise ErrBadRequest(f"invalid max-depth {raw_depth!r}") from None
+        subject = subject_set_from_url_query(query)
+        tree = self.expander.build_tree(subject, self.expand_depth(depth))
+        if tree is None:
+            return 200, None, {}
+        return 200, tree.to_json(), {}
+
+    def _get_relation_tuples(self, query):
+        rq = RelationQuery.from_url_query(query)
+        opts = []
+        token = (query.get("page_token") or [""])[0]
+        if token:
+            opts.append(with_token(token))
+        raw_size = (query.get("page_size") or [""])[0]
+        if raw_size:
+            try:
+                opts.append(with_size(int(raw_size)))
+            except ValueError:
+                raise ErrBadRequest(f"invalid page_size {raw_size!r}") from None
+        rels, next_page = self.store.get_relation_tuples(rq, *opts)
+        body = {"relation_tuples": [r.to_json() for r in rels], "next_page_token": next_page}
+        return 200, body, {}
+
     # -- reverse queries -------------------------------------------------------
 
     @staticmethod
@@ -267,6 +338,28 @@ class RestApp:
         result = self.store.transact_relation_tuples((), [rel])
         return 204, None, self._token_headers(result.snaptoken)
 
+    def _patch_relation_tuples(self, body: bytes):
+        try:
+            deltas = json.loads(body or b"[]")
+        except json.JSONDecodeError as e:
+            raise ErrBadRequest(str(e)) from None
+        if not isinstance(deltas, list):
+            raise ErrBadRequest("expected a JSON array of patch deltas")
+        insert, delete = [], []
+        for d in deltas:
+            raw = d.get("relation_tuple") if isinstance(d, dict) else None
+            if raw is None:
+                raise ErrBadRequest("relation_tuple is missing")
+            action = d.get("action")
+            if action == "insert":
+                insert.append(RelationTuple.from_json(raw))
+            elif action == "delete":
+                delete.append(RelationTuple.from_json(raw))
+            else:
+                raise ErrBadRequest(f"unknown action {action}")
+        result = self.store.transact_relation_tuples(insert, delete)
+        return 204, None, self._token_headers(result.snaptoken)
+
 
 def _make_handler(app: RestApp):
     class Handler(BaseHTTPRequestHandler):
@@ -304,6 +397,9 @@ def _make_handler(app: RestApp):
         def do_DELETE(self):
             self._serve("DELETE")
 
+        def do_PATCH(self):
+            self._serve("PATCH")
+
     return Handler
 
 
@@ -311,8 +407,10 @@ class RestServer:
     """One role's REST server on its own port, served from a thread."""
 
     def __init__(self, role: str, store, batcher, host: str = "127.0.0.1", port: int = 0,
-                 lister=None, explain=None, decision_log=None):
-        self.app = RestApp(role, store, batcher, lister, explain, decision_log)
+                 lister=None, explain=None, decision_log=None, expander=None,
+                 max_read_depth: int = MAX_READ_DEPTH):
+        self.app = RestApp(role, store, batcher, lister, explain, decision_log, expander,
+                           max_read_depth)
         self.httpd = ThreadingHTTPServer((host or "0.0.0.0", port), _make_handler(self.app))
         self.httpd.daemon_threads = True
         self._thread: Optional[threading.Thread] = None

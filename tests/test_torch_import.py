@@ -22,9 +22,9 @@ PKG = ROOT / "keto_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
-#: modules the walk must find (the write path's, the reverse queries' and
-#: the explain path's among them): a module that fails to be found is not
-#: checked
+#: modules the walk must find (the write path's, the reverse queries', the
+#: explain path's, the full build's and expand's among them): a module that
+#: fails to be found is not checked
 REQUIRED = (
     "keto_tpu_torch.graph.overlay",
     "keto_tpu_torch.graph.compaction",
@@ -45,6 +45,12 @@ REQUIRED = (
     "keto_tpu_torch.explain.decision_log",
     "keto_tpu_torch.graph.native",
     "keto_tpu_torch.check.native_pack",
+    "keto_tpu_torch.graph.stream_build",
+    "keto_tpu_torch.expand",
+    "keto_tpu_torch.expand.engine",
+    "keto_tpu_torch.expand.tree",
+    "keto_tpu_torch.expand.snapshot_engine",
+    "keto_tpu_torch.version",
 )
 
 

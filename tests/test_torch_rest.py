@@ -6,7 +6,14 @@ and ``/relation-tuples/list-subjects``) answer with their status codes,
 ``GET /check/explain`` answers a grant with a verified witness and a deny
 with a certificate (both 200), a nil subject with 400, and 404 when
 explain is disabled; ``/check`` samples its decisions into the decision
-log; the CLI passes the explain and decision-log flags through."""
+log; the CLI passes the explain and decision-log flags through.
+``/version`` answers on both ports; ``GET /expand`` answers the reference's
+tree, a 400 without an integer ``max-depth`` and clamps the depth to
+``max_read_depth``; ``GET /relation-tuples`` pages the store (a malformed
+``page_size`` is a 400, an unknown namespace a 404); ``PATCH
+/relation-tuples`` applies inserts and deletes in one transaction, and an
+unknown action or namespace applies nothing (tests/test_rest_api.py:59,
+:106, :131, :166)."""
 
 from __future__ import annotations
 
@@ -304,3 +311,267 @@ def test_cli_passes_the_explain_flags():
         "--decision-log-segment-bytes", "4096", "--decision-log-retention", "2"])
     assert (args.explain_enabled, args.decision_log_dir, args.decision_log_sample,
             args.decision_log_segment_bytes, args.decision_log_retention) == (False, "/x", 0.25, 4096, 2)
+
+
+# -- the tuple API: /version, /expand, GET and PATCH /relation-tuples ----------
+
+
+def _tuple_json(ns, obj, rel, subject_id=None, subject_set=None):
+    body = {"namespace": ns, "object": obj, "relation": rel}
+    if subject_id is not None:
+        body["subject_id"] = subject_id
+    if subject_set is not None:
+        body["subject_set"] = subject_set
+    return body
+
+
+@pytest.fixture
+def api():
+    """tests/test_rest_api.py's servers: two namespaces, no tuples."""
+    from keto_tpu_torch import namespace as tns
+
+    d = Daemon([tns.Namespace(id=0, name="videos"), tns.Namespace(id=1, name="groups")],
+               device="cpu")
+    d.start()
+    yield d
+    d.stop()
+
+
+def test_version_on_both_ports(api):
+    from keto_tpu.version import __version__ as ref_version
+
+    for port in (api.read.port, api.write.port):
+        status, body, _ = _req("GET", port, "/version")
+        assert (status, body) == (200, {"version": ref_version})
+
+
+def test_expand(api):
+    _req("PUT", api.write.port, "/relation-tuples",
+         _tuple_json("videos", "v2", "view",
+                     subject_set={"namespace": "groups", "object": "g1", "relation": "member"}))
+    _req("PUT", api.write.port, "/relation-tuples", _tuple_json("groups", "g1", "member",
+                                                                 subject_id="u1"))
+    status, body, _ = _req("GET", api.read.port,
+                           "/expand?namespace=videos&object=v2&relation=view&max-depth=3")
+    assert status == 200
+    assert body == {"type": "union",
+                    "subject_set": {"namespace": "videos", "object": "v2", "relation": "view"},
+                    "children": [{"type": "union",
+                                  "subject_set": {"namespace": "groups", "object": "g1",
+                                                  "relation": "member"},
+                                  "children": [{"type": "leaf", "subject_id": "u1"}]}]}
+    # no tree: an empty 200
+    status, body, _ = _req("GET", api.read.port,
+                           "/expand?namespace=videos&object=nope&relation=view&max-depth=3")
+    assert (status, body) == (200, None)
+    # an absent or non-integer max-depth is a 400 (the reference parses it)
+    for q in ("", "&max-depth=", "&max-depth=two"):
+        status, body, _ = _req("GET", api.read.port,
+                               "/expand?namespace=videos&object=v2&relation=view" + q)
+        assert status == 400 and body["error"]["code"] == 400
+    # an unknown namespace is a 404 and expand is a read route only
+    status, _, _ = _req("GET", api.read.port,
+                        "/expand?namespace=nope&object=v2&relation=view&max-depth=3")
+    assert status == 404
+    assert _req("GET", api.write.port,
+                "/expand?namespace=videos&object=v2&relation=view&max-depth=3")[0] == 404
+
+
+def _depth(tree):
+    return 0 if tree is None else 1 + max((_depth(c) for c in tree.get("children", ())),
+                                          default=0)
+
+
+@pytest.mark.parametrize("cap,asked,want", [
+    (5, 0, 5), (5, -1, 5), (5, 2, 2), (5, 5, 5), (5, 100, 5), (3, 0, 3), (3, 4, 3), (3, 1, 1),
+])
+def test_expand_depth_is_clamped_to_max_read_depth(cap, asked, want):
+    """keto_tpu/driver/registry.py:768-773: 0, a negative depth or one past
+    the cap takes the cap."""
+    from keto_tpu import namespace as jns
+    from keto_tpu.expand.engine import ExpandEngine as RefExpand
+    from keto_tpu.persistence.memory import MemoryPersister as JaxPersister
+    from keto_tpu.relationtuple.model import RelationTuple as JT
+    from keto_tpu.relationtuple.model import SubjectSet as JSet
+    from keto_tpu_torch import namespace as tns
+
+    chain = [RelationTuple.from_string(f"groups:g{i}#member@groups:g{i + 1}#member")
+             for i in range(8)]
+    chain.append(RelationTuple.from_string("groups:g8#member@u"))
+    d = Daemon([tns.Namespace(id=1, name="groups")], device="cpu", tuples=chain,
+               max_read_depth=cap)
+    d.start()
+    try:
+        status, body, _ = _req("GET", d.read.port,
+                               f"/expand?namespace=groups&object=g0&relation=member"
+                               f"&max-depth={asked}")
+    finally:
+        d.stop()
+    assert status == 200 and _depth(body) == want
+    ref = JaxPersister(jns.MemoryManager([jns.Namespace(id=1, name="groups")]))
+    ref.write_relation_tuples(*(JT.from_string(str(t)) for t in chain))
+    assert body == RefExpand(ref).build_tree(JSet("groups", "g0", "member"), want).to_json()
+
+
+def test_relation_tuples_crud_and_pagination(api):
+    for i in range(5):
+        _req("PUT", api.write.port, "/relation-tuples",
+             _tuple_json("videos", "list", "view", subject_id=f"u{i}"))
+    status, body, _ = _req("GET", api.read.port,
+                           "/relation-tuples?namespace=videos&object=list&relation=view"
+                           "&page_size=2")
+    assert status == 200 and len(body["relation_tuples"]) == 2
+    assert body["next_page_token"] == "2"
+    seen = [t["subject_id"] for t in body["relation_tuples"]]
+    token = body["next_page_token"]
+    while token:
+        status, body, _ = _req("GET", api.read.port,
+                               "/relation-tuples?namespace=videos&object=list&relation=view"
+                               f"&page_size=2&page_token={token}")
+        assert status == 200
+        seen += [t["subject_id"] for t in body["relation_tuples"]]
+        token = body["next_page_token"]
+    assert seen == [f"u{i}" for i in range(5)]
+    assert body["relation_tuples"][0] == _tuple_json("videos", "list", "view", subject_id="u4")
+    # the whole store, one page of the default size
+    status, body, _ = _req("GET", api.read.port, "/relation-tuples")
+    assert status == 200 and len(body["relation_tuples"]) == 5 and body["next_page_token"] == ""
+    # a malformed page size or token is a 400; an unknown namespace a 404
+    assert _req("GET", api.read.port, "/relation-tuples?page_size=two")[0] == 400
+    assert _req("GET", api.read.port, "/relation-tuples?page_token=x1")[0] == 400
+    status, body, _ = _req("GET", api.read.port, "/relation-tuples?namespace=nope")
+    assert status == 404 and body["error"]["code"] == 404
+    # DELETE by query, then the list no longer holds it; GET is a read route
+    status, _, _ = _req("DELETE", api.write.port,
+                        "/relation-tuples?namespace=videos&object=list&relation=view"
+                        "&subject_id=u0")
+    assert status == 204
+    _, body, _ = _req("GET", api.read.port,
+                      "/relation-tuples?namespace=videos&object=list&relation=view")
+    assert [t["subject_id"] for t in body["relation_tuples"]] == [f"u{i}" for i in range(1, 5)]
+    assert _req("GET", api.write.port, "/relation-tuples?namespace=videos")[0] == 404
+
+
+def test_patch_transaction(api):
+    def subjects():
+        _, body, _ = _req("GET", api.read.port,
+                          "/relation-tuples?namespace=videos&object=p&relation=view")
+        return [t["subject_id"] for t in body["relation_tuples"]]
+
+    _req("PUT", api.write.port, "/relation-tuples", _tuple_json("videos", "p", "view",
+                                                                 subject_id="old"))
+    status, body, headers = _req("PATCH", api.write.port, "/relation-tuples", [
+        {"action": "insert", "relation_tuple": _tuple_json("videos", "p", "view",
+                                                           subject_id="new")},
+        {"action": "delete", "relation_tuple": _tuple_json("videos", "p", "view",
+                                                           subject_id="old")},
+    ])
+    assert (status, body, headers["X-Keto-Snaptoken"]) == (204, None, "2")
+    assert subjects() == ["new"]
+    # the check path sees the patch (read-your-writes through the snaptoken)
+    q = "/check?namespace=videos&object=p&relation=view&subject_id=new&snaptoken=2"
+    assert _req("GET", api.read.port, q)[0] == 200
+    for bad, code in (
+        ([{"action": "upsert",
+           "relation_tuple": _tuple_json("videos", "p", "view", subject_id="x")}], 400),
+        ([{"action": "insert"}], 400),
+        ({"action": "insert"}, 400),
+        ([{"action": "insert", "relation_tuple": _tuple_json("videos", "p", "view",
+                                                             subject_id="y")},
+          {"action": "insert", "relation_tuple": _tuple_json("nope", "p", "view",
+                                                             subject_id="y")}], 404),
+    ):
+        status, body, _ = _req("PATCH", api.write.port, "/relation-tuples", bad)
+        assert status == code and body["error"]["code"] == code
+        assert subjects() == ["new"]
+    # PATCH is a write route only
+    assert _req("PATCH", api.read.port, "/relation-tuples", [])[0] == 404
+
+
+def test_read_write_split(api):
+    status, _, _ = _req("PUT", api.read.port, "/relation-tuples",
+                        _tuple_json("videos", "x", "r", subject_id="u"))
+    assert status == 404
+    status, _, _ = _req("GET", api.write.port,
+                        "/check?namespace=videos&object=x&relation=r&subject_id=u")
+    assert status == 404
+
+
+_SET_G1 = {"namespace": "groups", "object": "g1", "relation": "member"}
+_P_VIEW = ("videos", "p", "view")
+_SCRIPTS = {
+    "expand": [
+        ("PUT", "write", "/relation-tuples", _tuple_json("videos", "v2", "view",
+                                                         subject_set=_SET_G1)),
+        ("PUT", "write", "/relation-tuples", _tuple_json("groups", "g1", "member",
+                                                         subject_id="u1")),
+    ] + [("GET", role, "/expand?namespace=" + q, None) for role, q in (
+        ("read", "videos&object=v2&relation=view&max-depth=3"),
+        ("read", "videos&object=v2&relation=view&max-depth=0"),
+        ("read", "videos&object=v2&relation=view&max-depth=1"),
+        ("read", "videos&object=nope&relation=view&max-depth=3"),
+        ("read", "videos&object=v2&relation=view"),
+        ("read", "videos&object=v2&relation=view&max-depth="),
+        ("read", "videos&object=v2&relation=view&max-depth=two"),
+        ("read", "nope&object=v2&relation=view&max-depth=3"),
+        ("write", "videos&object=v2&relation=view&max-depth=3"),
+    )],
+    "pages": [
+        ("PUT", "write", "/relation-tuples", _tuple_json("videos", "list", "view",
+                                                         subject_id=f"u{i}"))
+        for i in range(5)
+    ] + [("GET", "read", "/relation-tuples" + q, None) for q in (
+        "?namespace=videos&object=list&relation=view&page_size=2",
+        "?namespace=videos&object=list&relation=view&page_size=2&page_token=2",
+        "?namespace=videos&object=list&relation=view&page_size=2&page_token=4",
+        "", "?page_size=two", "?page_token=x1", "?namespace=nope",
+    )] + [
+        ("GET", "write", "/relation-tuples?namespace=videos", None),
+        ("DELETE", "write",
+         "/relation-tuples?namespace=videos&object=list&relation=view&subject_id=u0", None),
+        ("GET", "read", "/relation-tuples?namespace=videos&object=list&relation=view", None),
+    ],
+    "patch": [
+        ("PUT", "write", "/relation-tuples", _tuple_json(*_P_VIEW, subject_id="old")),
+        ("PATCH", "write", "/relation-tuples", [
+            {"action": "insert", "relation_tuple": _tuple_json(*_P_VIEW, subject_id="new")},
+            {"action": "delete", "relation_tuple": _tuple_json(*_P_VIEW, subject_id="old")}]),
+        ("GET", "read", "/relation-tuples?namespace=videos&object=p&relation=view", None),
+        ("PATCH", "write", "/relation-tuples",
+         [{"action": "upsert", "relation_tuple": _tuple_json(*_P_VIEW, subject_id="x")}]),
+        ("PATCH", "write", "/relation-tuples", [{"action": "insert"}]),
+        ("PATCH", "write", "/relation-tuples", {"action": "insert"}),
+        ("PATCH", "write", "/relation-tuples", [
+            {"action": "insert", "relation_tuple": _tuple_json(*_P_VIEW, subject_id="y")},
+            {"action": "insert", "relation_tuple": _tuple_json("nope", "p", "view",
+                                                               subject_id="y")}]),
+        ("GET", "read", "/relation-tuples?namespace=videos&object=p&relation=view", None),
+        ("PATCH", "read", "/relation-tuples", []),
+    ],
+    "version": [("GET", "read", "/version", None), ("GET", "write", "/version", None)],
+}
+
+
+@pytest.mark.parametrize("script", sorted(_SCRIPTS))
+def test_tuple_routes_answer_as_the_reference(api, script):
+    """The same requests, in the same order, to the port's servers and to
+    the reference's (tests/test_rest_api.py's setup): equal status codes
+    and bodies, error envelopes included."""
+    from keto_tpu.config.provider import Config
+    from keto_tpu.driver.registry import Registry
+    from keto_tpu.servers.rest import READ, WRITE, RestServer
+
+    reg = Registry(Config(overrides={"namespaces": [{"id": 0, "name": "videos"},
+                                                    {"id": 1, "name": "groups"}]}))
+    ref = {"read": RestServer(reg, READ, port=0), "write": RestServer(reg, WRITE, port=0)}
+    for s in ref.values():
+        s.start()
+    try:
+        for method, role, path, body in _SCRIPTS[script]:
+            got = _req(method, getattr(api, role).port, path, body)[:2]
+            want = _req(method, ref[role].port, path, body)[:2]
+            assert got == want, (method, role, path)
+    finally:
+        for s in ref.values():
+            s.stop()
+        reg.close()
