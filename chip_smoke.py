@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, parity, the BFS
-and label routes of Check, sharded serving, reverse queries, the stream and
-explain, the write path, serve.
+and label routes of Check, the check scheduler under load, sharded serving,
+reverse queries, the stream and explain, the write path, serve.
 
     python3 chip_smoke.py            # every phase, as a release check runs it
     python3 chip_smoke.py --only build,parity
+    python3 chip_smoke.py --only build,main,lanes               # the check scheduler
     python3 chip_smoke.py --only build,parity,main,deep,shard   # sharded serving
     python3 chip_smoke.py --only build,parity,deep,list         # reverse queries
     python3 chip_smoke.py --only build,parity,deep,explain      # the stream and explain
@@ -103,11 +104,42 @@ Phases, in order; any failure exits non-zero:
    (``full_build``'s ``stream`` path: the native stream builder fed chunk
    by chunk), with its scan and intern seconds, and fails unless its arrays
    equal the column build's;
-4. labels — the same store and checks with the default engine: labels on,
+4. lanes — main's engine (labels off) and store behind the daemon's
+   wiring (``make_batcher``: priority lanes, lanes of 32,768 tuples that
+   shed when full, admission control; one ``TimelineRecorder``; a read and
+   a write ``RestServer``; a decision log sampling every /check; the
+   shadow audit at 1%), driven over HTTP: a 50,000-tuple batch, wider than
+   the admission window, must answer 429 with ``Retry-After``; a lone
+   batch (3 back-to-back posts of half the window, no other client: ms,
+   sheds, rounds a post, checks/s beside ``engine.batch_check`` of the
+   same); (a) 16 clients sending 200 ``GET /check`` each while two
+   posters keep the batch lane fed with main's 100,000 checks in
+   2,048-tuple posts (each posts while the other's is served): interactive
+   p50/p99 overall, under a batch (an admitted post in flight at any point
+   of the GET's life) and alone, the share of the span a batch was in
+   flight and the lane's queued share, the rounds and the batch's
+   sub-slices, the slices, the controller before and after; (b) four
+   turns, the audit on, off, on, off, each from a reopened admission
+   window: three waves of 8 concurrent half-window batches beside 16
+   clients: 429s with ``Retry-After``, the shed counters, the admission
+   window, each thread group's CPU seconds (handlers, collector, audit,
+   clients; ``/proc/self/task/*/schedstat``); (c) 200
+   ``?timeout_ms=0.001`` and 200 ``X-Request-Timeout-Ms: 1`` checks while a
+   batch is queued: 504 or the right answer, ``deadline_drop_count``; (d)
+   every interactive answer carries ``Server-Timing`` with a ``device``
+   entry and ``X-Request-Id``, ``/debug/requests`` answers 50 recent and a
+   trace-id filter, the device stamps' slice widths, every decision-log
+   record routed ``bfs`` (or ``host``) with its trace id; (f) a batch in
+   flight, then the drain: ``/health/ready`` 503 while draining, the batch
+   answered, the drain's seconds; (e) the audit settles with checks and
+   no mismatch. Any wrong decision, unlisted status, interactive 429, a
+   (b) turn without a 429, or a phase that launched no ``keto_seed``,
+   ``keto_check_run`` or ``keto_answer_pack`` fails it;
+5. labels — the same store and checks with the default engine: labels on,
    built on the host (config 3 is below the device-build gate): decisions
    equal to the BFS run's and the expectation, the label step launched and
    the label build's kernels not;
-5. deep — BASELINE config 4 (GitHub-style org/team/repo, 10M tuples,
+6. deep — BASELINE config 4 (GitHub-style org/team/repo, 10M tuples,
    five namespaces, grant chains up to 7 edges) with the default engine:
    the labels built on the card, 100k checks equal to the analytic
    expectation, an oracle sample, the label step, frontier sweep, covered
@@ -131,7 +163,7 @@ Phases, in order; any failure exits non-zero:
    around it (the path the bundle replaces), and the bundle once more,
    split into the NUL scan of its columns and the C++ call (main's does
    the same at 1M);
-6. shard — one ``ShardMesh`` of 4 graph shards on the card: (a) main's
+7. shard — one ``ShardMesh`` of 4 graph shards on the card: (a) main's
    store and 100k checks on a sharded engine with labels off (K10a, the
    BFS route), every decision equal to the analytic expectation and to
    main's unsharded run, a 2,000-query oracle sample, every K10a entry
@@ -162,7 +194,7 @@ Phases, in order; any failure exits non-zero:
    plain version and bound (the halo copy beside ``torch.cat`` and the
    exchange beside ``torch.index_select`` of the flattened stripes, and
    the earlier yardstick ``torch.stack(...).sum(0)``);
-7. list — on the deep phase's engine and store: 200 ListObjects ("which
+8. list — on the deep phase's engine and store: 200 ListObjects ("which
    issues may user-u view") and 200 ListSubjects ("which users may view
    issue-j"), each against its analytic expected set from the generator's
    maps; p50/p99 seconds and items/s per orientation (cache misses only),
@@ -173,7 +205,7 @@ Phases, in order; any failure exits non-zero:
    allowed, as many unlisted ones denied); K5 (a whole run, its kernel
    alone, its launches and host reads a run) and K8 are timed at the
    path's shapes beside their plain versions and bounds;
-8. explain — on the deep phase's engine and store, labels on: the 100k
+9. explain — on the deep phase's engine and store, labels on: the 100k
    checks through ``batch_check_stream`` (ordered) and through
    ``batch_check_stream_with_token(ordered=False, with_info=True)``, each
    equal to ``batch_check`` and the expectation with every offset
@@ -198,7 +230,7 @@ Phases, in order; any failure exits non-zero:
    with the label witness launched once per interior pair; explain p50/p99
    seconds; the label witness is then timed at one pair and at 65,536
    pairs on config 4's label arrays beside its plain version and bound;
-9. write — the deep phase's engine and store take writes through the
+10. write — the deep phase's engine and store take writes through the
    store, as the REST write API makes them: (a) the reference bench's
    burst of 5,000 new team memberships (interior→sink edges: the labels
    stay live, the background fold absorbs the burst), (b) 64 new
@@ -225,7 +257,7 @@ Phases, in order; any failure exits non-zero:
    bucket in one fused launch: the copy and the patch; one launch and no
    host read a call, or the row fails), and K5 on the first
    fixpoint that ran with the overlay pending, against its plain version;
-10. serve — the REST server with the default engine (labels on) and a
+11. serve — the REST server with the default engine (labels on) and a
    decision log sampling every check: ``GET /check/explain`` on a grant
    (a verified witness) and a deny (a certificate), the cat-videos checks
    (200, 200, 403, 200) read back from the decision log, read-your-writes
@@ -240,8 +272,8 @@ Phases, in order; any failure exits non-zero:
    ``PATCH /relation-tuples`` of an insert and a delete, read back through
    ``/relation-tuples``, ``/check`` and ``/expand``.
 
-``--only`` names a subset; ``labels`` needs ``main``, ``shard`` needs
-``main`` and ``deep``, ``list`` and ``explain`` need ``deep`` and ``write``
+``--only`` names a subset; ``lanes`` and ``labels`` need ``main``,
+``shard`` needs ``main`` and ``deep``, ``list`` and ``explain`` need ``deep`` and ``write``
 needs ``list`` (they run on that phase's engine and store), and a subset
 that breaks this exits non-zero.
 
@@ -259,10 +291,11 @@ import subprocess
 import sys
 import time
 
-PHASES = ("build", "parity", "main", "labels", "deep", "shard", "list", "explain", "write",
-          "serve")
+PHASES = ("build", "parity", "main", "lanes", "labels", "deep", "shard", "list", "explain",
+          "write", "serve")
 #: a phase that runs on the engine and store of another
-PHASE_NEEDS = {"labels": ("main",), "shard": ("main", "deep"), "list": ("deep",),
+PHASE_NEEDS = {"lanes": ("main",), "labels": ("main",), "shard": ("main", "deep"),
+               "list": ("deep",),
                "explain": ("deep",), "write": ("list",)}
 SEED = 20261017
 N_TUPLES = 1_000_000
@@ -1853,7 +1886,752 @@ def kernel_rows(torch, kernels, engine, snap, queries, rate, launches):
     return rows, step
 
 
-# -- phase 4: labels on config 3 ------------------------------------------------
+# -- phase 4: lanes, the check scheduler over HTTP on main's engine ------------
+
+
+#: the lanes phase: interactive clients and their GETs each, the overload
+#: phase's concurrent batch posters and waves, the deadline checks of each
+#: kind, the audit's sample rate. The widest batch the daemon's wiring
+#: admits is its admission window's top, ``max_pending``; the phase's
+#: batches take half of it, which the window still admits after one
+#: halving, and two of them fill it
+LANES_CLIENTS = 16
+LANES_GETS = 200
+LANES_POSTERS = 8
+LANES_WAVES = 3
+LANES_DEADLINES = 200
+LANES_AUDIT_RATE = 0.01
+#: a batch wider than the admission window's top: the wiring answers it
+#: 429 even into an empty lane
+LANES_WIDE = 50_000
+#: how long a batch poster honours Retry-After before the phase fails
+LANES_RETRY_S = 60.0
+#: (a)'s batch stream: this many posters, each posting its next batch while
+#: the other's is served, so the batch lane holds work for the whole
+#: interactive run. A round takes at most one batch sub-slice (1,024)
+#: whatever a post's width, so the width only has to keep the lane's
+#: backlog inside the admission budget (160 ms at 4 × the 40 ms target):
+#: two sub-slices a post
+LANES_STREAM_POSTERS = 2
+LANES_STREAM_WIDTH = 2048
+#: (b)'s turns, each at this audit sample rate: on, off, on, off
+LANES_B_AUDIT = (LANES_AUDIT_RATE, 0.0, LANES_AUDIT_RATE, 0.0)
+#: lone batch posts (no other client), each half the window's top
+LANES_LONE_REPS = 3
+#: how long the phase waits for the admission window to reopen between parts
+LANES_REOPEN_S = 20.0
+#: the sampler's period (the batch lane's occupancy)
+LANES_SAMPLE_S = 0.005
+
+
+def _lane_trace(k: int) -> str:
+    """A W3C traceparent carrying the phase's trace id number ``k``."""
+    return f"00-{k:032x}-{k:016x}-01"
+
+
+def _pct_ms(xs, q):
+    return round(sorted(xs)[min(len(xs) - 1, int(len(xs) * q))], 3) if xs else None
+
+
+def _merge_spans(spans):
+    """The union of ``(t0, t1)`` spans as sorted disjoint spans."""
+    merged: list = []
+    for t0, t1 in sorted(spans):
+        if merged and t0 <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], t1)
+        else:
+            merged.append([t0, t1])
+    return merged
+
+
+def _overlaps(merged, t0, t1) -> bool:
+    """Whether ``[t0, t1]`` meets any of the sorted disjoint ``merged``."""
+    import bisect
+
+    i = bisect.bisect_right([m[0] for m in merged], t1) - 1
+    return i >= 0 and merged[i][1] >= t0
+
+
+def _covered_share(merged, t0, t1) -> float:
+    """The share of ``[t0, t1]`` that the sorted disjoint ``merged`` cover."""
+    if t1 <= t0:
+        return 0.0
+    return sum(max(0.0, min(b, t1) - max(a, t0)) for a, b in merged) / (t1 - t0)
+
+
+#: the lanes phase's thread groups, by Python thread name (the rest of the
+#: process's threads, the card's and the native host library's, are
+#: ``native``)
+def _thread_group(name: str) -> str:
+    if name == "check-batcher":
+        return "collector"
+    if name == "keto-torch-audit":
+        return "audit"
+    if "process_request_thread" in name:
+        return "handlers"
+    if name.startswith("lanes-client"):
+        return "clients"
+    if name.startswith("lanes-poster"):
+        return "posters"
+    if name == "lanes-sampler":
+        return "sampler"
+    if name == "MainThread":
+        return "main"
+    return "other_python"
+
+
+def _task_cpu_ns(tid: int):
+    """A thread's CPU time in ns: ``schedstat``'s first field where the
+    kernel keeps it, else ``stat``'s utime + stime in clock ticks; None if
+    neither reads."""
+    import os
+
+    try:
+        with open(f"/proc/self/task/{tid}/schedstat") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        pass
+    try:
+        with open(f"/proc/self/task/{tid}/stat") as f:
+            fields = f.read().rpartition(")")[2].split()
+        return (int(fields[11]) + int(fields[12])) * 10**9 // os.sysconf("SC_CLK_TCK")
+    except (OSError, ValueError, IndexError):
+        return None
+
+
+class _LaneSampler:
+    """Samples, on a thread of its own, whether the batcher's batch lane
+    holds queued tuples (every ``LANES_SAMPLE_S``), and takes each thread's
+    CPU time (``/proc/self/task/<tid>/``) at ``start()`` and ``stop()``
+    only: a read of every thread's file is costly in a sandboxed ``/proc``,
+    so a thread that ends in between notes its own CPU time as it ends
+    (``note_exit``). ``stop()`` returns the lane's queued share and the CPU
+    seconds of each thread group over the span, beside the wall and process
+    CPU."""
+
+    def __init__(self, batcher, lane):
+        import threading
+
+        self._batcher, self._lane = batcher, lane
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="lanes-sampler", daemon=True)
+        self._first: dict = {}  # tid → ns at its first sample (0 for a thread born later)
+        self._last: dict = {}  # tid → (ns, group) at its last sample
+        self.samples = self.queued = 0
+
+    def _cpu(self, born_ok: bool) -> None:
+        import os
+        import threading
+
+        names = {t.native_id: t.name for t in threading.enumerate()}
+        try:
+            tids = [int(t) for t in os.listdir("/proc/self/task")]
+        except OSError:
+            return
+        for tid in tids:
+            ns = _task_cpu_ns(tid)
+            if ns is None:
+                continue  # the thread ended between the listing and the read
+            group = _thread_group(names[tid]) if tid in names else "native"
+            if tid not in self._first:
+                self._first[tid] = 0 if born_ok else ns
+            self._last[tid] = (ns, group)
+
+    def note_exit(self) -> None:
+        """The calling thread's own CPU time as it ends (a short-lived
+        client may end between two samples)."""
+        import threading
+
+        tid = threading.get_native_id()
+        self._first.setdefault(tid, 0)
+        self._last[tid] = (time.thread_time_ns(), _thread_group(threading.current_thread().name))
+
+    def _run(self) -> None:
+        while not self._stop.wait(LANES_SAMPLE_S):
+            self.samples += 1
+            self.queued += self._batcher.lane_depths[self._lane] > 0
+
+    def start(self) -> "_LaneSampler":
+        self._t0, self._p0 = time.monotonic(), time.process_time()
+        self._cpu(False)
+        self._thread.start()
+        return self
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        self._cpu(True)
+        wall = time.monotonic() - self._t0
+        groups: dict = {}
+        for tid, (ns, group) in self._last.items():
+            groups[group] = groups.get(group, 0.0) + (ns - self._first[tid]) / 1e9
+        python = sum(v for k, v in groups.items() if k != "native")
+        process = time.process_time() - self._p0
+        return {
+            "lane_queued_share": round(self.queued / self.samples, 4) if self.samples else None,
+            "wall_s": round(wall, 3),
+            "process_cpu_s": round(process, 3),
+            "thread_cpu_s": {k: round(v, 3) for k, v in sorted(groups.items())},
+            # threads that ended in between without noting their own
+            "unsampled_cpu_s": round(process - sum(groups.values()), 3),
+            "python_threads_cpu_per_wall": round(python / wall, 3) if wall else None,
+        }
+
+
+def phase_lanes(torch, kernels, report, engine, queries, main_ctx):
+    """Main's engine and store behind the daemon's wiring (``make_batcher``,
+    one ``TimelineRecorder``, a read and a write ``RestServer``, a decision
+    log sampling every /check), driven over HTTP: (a) interactive GETs
+    under a monster batch, (b) overload, (c) deadlines, (d) timelines, (e)
+    the shadow audit at 1%, (f) a drain with a batch in flight."""
+    import http.client
+    import tempfile
+    import threading
+
+    from keto_tpu_torch import _build
+    from keto_tpu_torch.driver.batch import BATCH
+    from keto_tpu_torch.driver.daemon import DRAINING, drain, make_batcher
+    from keto_tpu_torch.explain import DecisionLog
+    from keto_tpu_torch.servers.rest import READ, WRITE, RestServer
+    from keto_tpu_torch.x.timeline import TimelineRecorder
+
+    store, _nm, _got, expected = main_ctx
+    batcher = make_batcher(engine)
+    recorder = TimelineRecorder()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    log_dir = tempfile.TemporaryDirectory(dir=_build.BUILD_DIR)
+    dlog = DecisionLog(log_dir.name, sample=1.0)
+    read = RestServer(READ, store, batcher, decision_log=dlog, recorder=recorder)
+    write = RestServer(WRITE, store, batcher, recorder=recorder)
+    wide = batcher.max_pending
+    half = wide // 2
+    rng = random.Random(SEED + 15)
+    errors: list = []
+    out: dict = {"batch_width": half, "window_top": wide}
+
+    def fail(msg):
+        errors.append(msg)
+        raise SystemExit(f"lanes FAILED: {msg}")
+
+    # each round's interactive and batch tuples (the batcher's own dispatch,
+    # observed; a measurement hook of this script only)
+    rounds: list = []
+    dispatch = batcher._dispatch_stream
+
+    def counted(segments, at_leasts, latests):
+        rounds.append((sum(c for it, _, c in segments if it.lane != BATCH),
+                       sum(c for it, _, c in segments if it.lane == BATCH)))
+        return dispatch(segments, at_leasts, latests)
+
+    batcher._dispatch_stream = counted
+
+    # every client thread keeps one HTTP/1.1 connection to the read port,
+    # as a client's connection pool would
+    conns = threading.local()
+
+    def call(method, path, body=None, headers=None):
+        conn = getattr(conns, "c", None)
+        if conn is None:
+            conn = conns.c = http.client.HTTPConnection("127.0.0.1", read.port, timeout=300)
+        t0 = time.perf_counter()
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        raw = resp.read()
+        ms = (time.perf_counter() - t0) * 1e3
+        return resp.status, (json.loads(raw) if raw else None), resp.headers, ms
+
+    def hang_up():
+        conn = getattr(conns, "c", None)
+        if conn is not None:
+            conn.close()
+            conns.c = None
+
+    paths = {}
+
+    def path_of(i):
+        if i not in paths:
+            paths[i] = "/check?" + queries[i].to_url_query()
+        return paths[i]
+
+    def batch_body(start, n):
+        return json.dumps({"tuples": [q.to_json() for q in queries[start:start + n]]}).encode()
+
+    inter: dict = {}  # part → [(ms, t0, t1, status)], perf_counter spans
+    stage_ms: dict = {}  # part → the Server-Timing segments of each answer
+
+    def interactive(part, i, headers=None, suffix="", allow_504=False):
+        t0 = time.perf_counter()
+        st, body, h, ms = call("GET", path_of(i) + suffix, headers=headers)
+        got = (ms, t0, time.perf_counter(), st)
+        want = expected[i]
+        if st == 504 and allow_504:
+            inter.setdefault(part, []).append(got)
+            return st
+        if st == 429:
+            fail(f"({part}) an interactive check was shed: {body}")
+        if st != (200 if want else 403) or body != {"allowed": want}:
+            fail(f"({part}) check {i} answered {st} {body}, expected {want}")
+        timing = h.get("Server-Timing") or ""
+        if "device;dur=" not in timing or not h.get("X-Request-Id"):
+            fail(f"({part}) check {i} lacks Server-Timing device or X-Request-Id: {dict(h)}")
+        inter.setdefault(part, []).append(got)
+        for entry in timing.split(","):
+            stage, _, dur = entry.strip().partition(";dur=")
+            stage_ms.setdefault(part, {}).setdefault(stage, []).append(float(dur))
+        return st
+
+    def stages(part):
+        """p50/p99 ms of each Server-Timing stage of ``part``'s answers."""
+        return {k: (_pct_ms(v, 0.5), _pct_ms(v, 0.99))
+                for k, v in stage_ms.get(part, {}).items()}
+
+    posts: list = []  # (part, status, ms, retry_after, t0, t1)
+
+    def post_batch(part, start, n, retry, trace=None, body=None):
+        """One /check/batch; ``retry`` honours 429s' Retry-After until it is
+        admitted (as the reference's SDK does)."""
+        body = batch_body(start, n) if body is None else body
+        headers = {"Content-Type": "application/json"}
+        if trace is not None:
+            headers["traceparent"] = _lane_trace(trace)
+        t_end = time.monotonic() + LANES_RETRY_S
+        while True:
+            t0 = time.perf_counter()
+            st, got, h, ms = call("POST", "/check/batch", body, headers)
+            t1 = time.perf_counter()
+            if st == 429:
+                ra = h.get("Retry-After")
+                posts.append((part, st, ms, ra, t0, t1))
+                if not ra:
+                    fail(f"({part}) a 429 without Retry-After: {got}")
+                if not retry:
+                    return st
+                if time.monotonic() > t_end:
+                    fail(f"({part}) a {n}-tuple batch was refused for {LANES_RETRY_S}s")
+                time.sleep(float(ra))
+                continue
+            posts.append((part, st, ms, None, t0, t1))
+            if st != 200 or got["results"] != expected[start:start + n]:
+                fail(f"({part}) batch [{start}, {start + n}) answered {st}, "
+                     f"{None if got is None else str(got)[:200]}")
+            return st
+
+    sampling: list = []  # the running _LaneSampler, if any
+
+    def on_thread(fn):
+        def go():
+            try:
+                fn()
+            except Exception as e:  # a client's own fault fails the phase
+                errors.append(f"{type(e).__name__}: {e}")
+            finally:
+                hang_up()
+                for smp in sampling:
+                    smp.note_exit()
+        return go
+
+    def spawn(fns, name):
+        threads = [threading.Thread(target=on_thread(f), name=f"{name}-{k}", daemon=True)
+                   for k, f in enumerate(fns)]
+        for t in threads:
+            t.start()
+        return threads
+
+    def join_all(threads, timeout=600):
+        for t in threads:
+            t.join(timeout=timeout)
+        if any(t.is_alive() for t in threads) or errors:
+            raise SystemExit(f"lanes FAILED: {errors or 'a client hung'}")
+
+    def run_threads(fns, name="lanes-poster"):
+        join_all(spawn(fns, name))
+
+    def reopen():
+        """Wait, the lanes empty, until the admission window is back at its
+        top: each admission precheck with the lane empty ticks it (+512
+        tuples a healthy tick, a tick each 0.25 s at most)."""
+        t_end = time.monotonic() + LANES_REOPEN_S
+        while batcher.admission.window < wide and time.monotonic() < t_end:
+            if not batcher.lane_depths[BATCH]:
+                batcher.admission_precheck(BATCH)
+            time.sleep(0.05)
+        return batcher.admission.window
+
+    def lat_split(part, spans):
+        """``part``'s interactive latencies: all, and those under a batch
+        (an admitted batch in flight at any point of the GET's life) and
+        alone, with the share of the GETs' span that a batch was in flight."""
+        rows = inter.get(part, [])
+        merged = _merge_spans(spans)
+        under = [m for m, t0, t1, _ in rows if _overlaps(merged, t0, t1)]
+        alone = [m for m, t0, t1, _ in rows if not _overlaps(merged, t0, t1)]
+        lat = [m for m, _, _, _ in rows]
+        span = (min((r[1] for r in rows), default=0.0), max((r[2] for r in rows), default=0.0))
+        return {
+            "gets": len(lat), "p50_ms": _pct_ms(lat, 0.5), "p99_ms": _pct_ms(lat, 0.99),
+            "under_batch": len(under), "under_p50_ms": _pct_ms(under, 0.5),
+            "under_p99_ms": _pct_ms(under, 0.99), "alone": len(alone),
+            "alone_p50_ms": _pct_ms(alone, 0.5), "alone_p99_ms": _pct_ms(alone, 0.99),
+            "batch_in_flight_share": round(_covered_share(merged, *span), 4),
+        }
+
+    # a handler thread that ends between two samples (a shed post) notes
+    # its own CPU time as it ends (a measurement hook of this script only)
+    serve_one = read.httpd.process_request_thread
+
+    def process_request_thread(request, client_address):
+        try:
+            serve_one(request, client_address)
+        finally:
+            for smp in sampling:
+                smp.note_exit()
+
+    read.httpd.process_request_thread = process_request_thread
+
+    # sheds before a body's decode (the pre-parse check) apart from those
+    # after it (a measurement hook of this script only)
+    precheck = batcher.admission_precheck
+    prechecked: list = []
+
+    def counted_precheck(lane=BATCH):
+        try:
+            return precheck(lane)
+        except Exception:
+            prechecked.append(lane)
+            raise
+
+    batcher.admission_precheck = counted_precheck
+
+    engine.audit_sample_rate = LANES_AUDIT_RATE
+    audit0 = {k: engine.counters()[k] for k in ("audit_checks", "audit_mismatches",
+                                                "audit_skipped_stale")}
+    kernels.reset_counts()
+    for s in (read, write):
+        s.start()
+    batcher.start()
+    try:
+        # the wiring refuses a batch wider than the admission window, even
+        # into an empty lane
+        st, body, h, _ = call("POST", "/check/batch", batch_body(0, LANES_WIDE),
+                              {"Content-Type": "application/json"})
+        out["wide_batch"] = {"tuples": LANES_WIDE, "status": st,
+                             "retry_after": h.get("Retry-After"),
+                             "window": batcher.admission.window}
+        if st != 429 or not h.get("Retry-After"):
+            fail(f"a {LANES_WIDE}-tuple batch answered {st} {body}")
+
+        # a lone batch: half the window's top posted back to back with no
+        # other client (a 429 sleeps its Retry-After), beside the same
+        # checks straight through the engine; the cost of serving a batch
+        # a sub-slice a round
+        lone_bodies = [batch_body(k * half, half) for k in range(LANES_LONE_REPS)]
+        r0 = len(rounds)
+        t0 = time.monotonic()
+        for k, b in enumerate(lone_bodies):
+            post_batch("lone", k * half, half, True, body=b)
+        lone_wall = time.monotonic() - t0
+        lone_ok = [ms for p, st, ms, _, _, _ in posts if p == "lone" and st == 200]
+        eng_ms = []
+        for k in range(LANES_LONE_REPS):
+            t1 = time.perf_counter()
+            if engine.batch_check(queries[k * half:(k + 1) * half]) != \
+                    expected[k * half:(k + 1) * half]:
+                fail("the lone batch's checks disagree straight through the engine")
+            eng_ms.append((time.perf_counter() - t1) * 1e3)
+        out["lone"] = {
+            "width": half, "reps": LANES_LONE_REPS, "post_ms": [round(m, 3) for m in lone_ok],
+            "post_checks_per_s": round(half / _pct_ms(lone_ok, 0.5) * 1e3, 1),
+            "shed": sum(p == "lone" and st == 429 for p, st, *_ in posts),
+            "sustained_checks_per_s": round(half * len(lone_ok) / lone_wall, 1),
+            "rounds_a_post": (len(rounds) - r0) / len(lone_ok),
+            "engine_ms": [round(m, 3) for m in eng_ms],
+            "engine_checks_per_s": round(half / _pct_ms(eng_ms, 0.5) * 1e3, 1),
+        }
+        log(f"lanes lone: {json.dumps(out['lone'])}")
+
+        # (a) interactive under a batch stream: LANES_STREAM_POSTERS posters
+        # post main's checks LANES_STREAM_WIDTH at a time, each its next
+        # batch while the other's is served, until the 16 interactive
+        # clients are done and main's 100,000 checks were posted once
+        window_a = reopen()
+        ctrl_a0 = engine.stream_ctrl.snapshot()
+        slices_a0 = engine.stream_slice_stats.snapshot()["count"]
+        r0, p0 = len(rounds), len(posts)
+        chunks = [(s0, min(LANES_STREAM_WIDTH, N_CHECKS - s0))
+                  for s0 in range(0, N_CHECKS, LANES_STREAM_WIDTH)]
+        chunk_bodies = [batch_body(s0, n) for s0, n in chunks]
+        picks = [[rng.randrange(N_CHECKS) for _ in range(LANES_GETS)]
+                 for _ in range(LANES_CLIENTS)]
+        next_chunk = iter(range(1 << 30))  # shared; next() is atomic under the GIL
+        first_queued = threading.Event()
+        clients_done = threading.Event()
+
+        def poster():
+            while True:
+                k = next(next_chunk)
+                if k >= len(chunks) and clients_done.is_set():
+                    return
+                (s0, n), b = chunks[k % len(chunks)], chunk_bodies[k % len(chunks)]
+                post_batch("a", s0, n, True, trace=2, body=b)
+                first_queued.set()
+
+        def client(k):
+            # client 0's requests carry a traceparent: the trace-id filter
+            # of /debug/requests must return them
+            hdr = {"traceparent": _lane_trace(1)} if k == 0 else None
+
+            def go():
+                t_end = time.monotonic() + LANES_RETRY_S
+                while not (batcher.lane_depths[BATCH] or first_queued.is_set()) and \
+                        time.monotonic() < t_end:
+                    time.sleep(0.0005)
+                for i in picks[k]:
+                    interactive("a", i, hdr)
+            return go
+
+        t0 = time.monotonic()
+        posters = spawn([poster] * LANES_STREAM_POSTERS, "lanes-poster")
+        sampler = _LaneSampler(batcher, BATCH).start()
+        sampling.append(sampler)
+        try:
+            join_all(spawn([client(k) for k in range(LANES_CLIENTS)], "lanes-client"))
+        finally:
+            clients_done.set()
+        join_all(posters)
+        sampled = sampler.stop()
+        sampling.clear()
+        a_s = time.monotonic() - t0
+        rounds_a = rounds[r0:]
+        batch_rounds = [b for _, b in rounds_a if b]
+        a_posts = [p for p in posts[p0:] if p[0] == "a"]
+        a_ok = [p for p in a_posts if p[1] == 200]
+        out["a"] = {
+            "seconds": round(a_s, 3), "window_at_start": window_a,
+            **lat_split("a", [(p[4], p[5]) for p in a_ok]),
+            **sampled, "server_timing": stages("a"),
+            "batch_posts": len(a_ok), "batch_width": LANES_STREAM_WIDTH,
+            "batch_posters": LANES_STREAM_POSTERS,
+            "batch_checks": sum(n for (s0, n) in chunks) if len(a_ok) >= len(chunks) else None,
+            "batch_shed": len(a_posts) - len(a_ok),
+            "batch_post_p50_ms": _pct_ms([p[2] for p in a_ok], 0.5),
+            "batch_post_p99_ms": _pct_ms([p[2] for p in a_ok], 0.99),
+            "rounds": len(rounds_a), "rounds_with_batch": len(batch_rounds),
+            "batch_sub_slice_max": max(batch_rounds, default=0),
+            "batch_sub_slice_p50": _pct_ms(batch_rounds, 0.5),
+            "round_interactive_max": max((i for i, _ in rounds_a), default=0),
+            "slices": engine.stream_slice_stats.snapshot()["count"] - slices_a0,
+            "slice_ms": engine.stream_slice_stats.snapshot(),
+            "ctrl_before": ctrl_a0, "ctrl_after": engine.stream_ctrl.snapshot(),
+        }
+        log(f"lanes (a): {json.dumps(out['a'])}")
+        if len(a_ok) < len(chunks):
+            fail(f"(a) answered {len(a_ok)} batch posts, fewer than main's {len(chunks)} chunks")
+
+        # (d) timelines, read before (b) rotates the ring
+        st, dbg, _, _ = call("GET", "/debug/requests?n=50")
+        st1, traced, _, _ = call("GET", f"/debug/requests?n=1000&slowest=0&trace_id={1:032x}")
+        st2, mon, _, _ = call("GET", f"/debug/requests?n=1000&slowest=32&trace_id={2:032x}")
+        if st != 200 or len(dbg["recent"]) != 50 or st1 != 200 or not traced["recent"] or \
+                any(t["trace_id"] != f"{1:032x}" for t in traced["recent"]):
+            fail(f"/debug/requests answered {st} ({len(dbg['recent'])} recent), "
+                 f"the trace filter {st1} ({len(traced['recent'])})")
+        widths = [s["attrs"]["width"] for t in dbg["recent"] + mon["recent"] + mon["slowest"]
+                  for s in t["stages"] if s["stage"] == "device"]
+        # the slowest answered batch (a shed one rode no slice)
+        mon_tl = next((t for t in mon["slowest"] + mon["recent"] if t["status"] == 200), None)
+        out["d"] = {
+            "recent": len(dbg["recent"]), "traced": len(traced["recent"]),
+            "batch_timelines": len(mon["recent"]) + len(mon["slowest"]),
+            "device_widths": {"n": len(widths), "min": min(widths, default=None),
+                              "p50": _pct_ms(widths, 0.5), "max": max(widths, default=None)},
+            "batch_timeline": None if mon_tl is None else {
+                "total_ms": mon_tl["total_ms"], "truncated": mon_tl["truncated"],
+                "devices": sum(s["stage"] == "device" for s in mon_tl["stages"]),
+                "routes": sorted({s["attrs"]["route"] for s in mon_tl["stages"]
+                                  if s["stage"] == "device"})},
+        }
+
+        # (b) overload: waves of concurrent batch posters beside the
+        # interactive clients, in turns with the audit on and off, each
+        # from a reopened window, each thread's CPU sampled
+        def overload(turn, rate):
+            part = f"b{turn}"
+            engine.audit_settled(timeout=60)  # no earlier sample runs into this turn
+            engine.audit_sample_rate = rate
+            window0 = reopen()
+            stop_b = threading.Event()
+            shed_b0 = (batcher.shed_count, dict(batcher.shed_by_lane),
+                       batcher.admission_shed_count)
+            p0, pre0 = len(posts), len(prechecked)
+
+            def steady(k):
+                def go():
+                    for _ in range(LANES_GETS):
+                        if stop_b.is_set():
+                            return
+                        interactive(part, rng.randrange(N_CHECKS))
+                return go
+
+            t0 = time.monotonic()
+            sampler = _LaneSampler(batcher, BATCH).start()
+            sampling.append(sampler)
+            clients = spawn([steady(k) for k in range(LANES_CLIENTS)], "lanes-client")
+            try:
+                for wave in b_bodies:
+                    run_threads([(lambda s0=s0, b=b: post_batch(part, s0, half, False, body=b))
+                                 for s0, b in wave])
+            finally:
+                stop_b.set()
+            join_all(clients, timeout=60)
+            sampled = sampler.stop()
+            sampling.clear()
+            b_posts = [p for p in posts[p0:] if p[0] == part]
+            res = {
+                "audit_rate": rate, "window_at_start": window0,
+                "seconds": round(time.monotonic() - t0, 3), "posts": len(b_posts),
+                "ok": sum(p[1] == 200 for p in b_posts),
+                "shed": sum(p[1] == 429 for p in b_posts),
+                "retry_after": sorted({p[3] for p in b_posts if p[1] == 429}),
+                "shed_before_decode": len(prechecked) - pre0,
+                "shed_ms_p50": _pct_ms([p[2] for p in b_posts if p[1] == 429], 0.5),
+                **lat_split(part, [(p[4], p[5]) for p in b_posts if p[1] == 200]),
+                **sampled, "server_timing": stages(part),
+                "shed_count": batcher.shed_count - shed_b0[0],
+                "shed_by_lane": {k: v - shed_b0[1][k] for k, v in batcher.shed_by_lane.items()},
+                "admission_shed_count": batcher.admission_shed_count - shed_b0[2],
+                "admission": batcher.admission.snapshot(),
+            }
+            log(f"lanes (b) turn {turn}: {json.dumps(res)}")
+            if not res["shed"]:
+                fail(f"(b) turn {turn} shed nothing")
+            return res
+
+        # every turn posts the same batches, encoded once before the first
+        b_bodies = [[(s0, batch_body(s0, half)) for s0 in
+                     ((wave * LANES_POSTERS + p) * 4096 % (N_CHECKS - wide)
+                      for p in range(LANES_POSTERS))] for wave in range(LANES_WAVES)]
+        out["b"] = [overload(turn, rate) for turn, rate in enumerate(LANES_B_AUDIT)]
+        del b_bodies
+        engine.audit_sample_rate = LANES_AUDIT_RATE
+
+        # (c) deadlines, sent while a batch is queued
+        drops0 = batcher.deadline_drop_count
+        reopen()
+        c_post = threading.Thread(target=on_thread(lambda: post_batch("c", 0, half, True)),
+                                  daemon=True)
+        c_post.start()
+        t_end = time.monotonic() + LANES_RETRY_S
+        while not batcher.lane_depths[BATCH] and time.monotonic() < t_end and not errors:
+            time.sleep(0.001)
+        queued_at_start = batcher.lane_depths[BATCH]
+        kinds = [("query", i) for i in range(LANES_DEADLINES)] + \
+                [("header", i) for i in range(LANES_DEADLINES)]
+        rng.shuffle(kinds)
+        got_c: dict = {"query": [], "header": []}
+
+        def deadline_client(part):
+            def go():
+                for kind, _ in part:
+                    i = rng.randrange(N_CHECKS)
+                    if kind == "query":
+                        st = interactive("c", i, suffix="&timeout_ms=0.001", allow_504=True)
+                    else:
+                        st = interactive("c", i, {"X-Request-Timeout-Ms": "1"}, allow_504=True)
+                    got_c[kind].append(st)
+            return go
+
+        run_threads([deadline_client(kinds[k::8]) for k in range(8)], "lanes-client")
+        c_post.join(timeout=600)
+        if errors or c_post.is_alive():
+            raise SystemExit(f"lanes FAILED: {errors or '(c) the batch never finished'}")
+        out["c"] = {
+            "batch_queued_at_start": queued_at_start,
+            **{f"{kind}_{code}": sum(s == code for s in got_c[kind])
+               for kind in ("query", "header") for code in (504, 200, 403)},
+            "deadline_drop_count": batcher.deadline_drop_count - drops0,
+        }
+        log(f"lanes (c): {json.dumps(out['c'])}")
+
+        # (d) the decision log: every /check decision, its route and trace id
+        recs, corrupt = dlog.read_all("default")
+        routes: dict = {}
+        for r in recs:
+            routes[r["route"]] = routes.get(r["route"], 0) + 1
+        traced_recs = sum(r["trace_id"] == f"{1:032x}" for r in recs)
+        out["d"].update({"decision_log": len(recs), "corrupt": corrupt, "routes": routes,
+                         "traced_records": traced_recs})
+        if corrupt or not recs or set(routes) - {"bfs", "host"} or not routes.get("bfs") \
+                or not traced_recs:
+            fail(f"the decision log holds {len(recs)} records, routes {routes}, "
+                 f"{traced_recs} traced, {corrupt} corrupt")
+        log(f"lanes (d): {json.dumps(out['d'])}")
+
+        # (f) drain with a batch in flight
+        reopen()
+        f_post = threading.Thread(
+            target=on_thread(lambda: post_batch("f", N_CHECKS - half, half, True)), daemon=True)
+        f_post.start()
+        t_end = time.monotonic() + LANES_RETRY_S
+        while not batcher.lane_depths[BATCH] and time.monotonic() < t_end and not errors:
+            time.sleep(0.001)
+        inflight = batcher.inflight
+        drained: dict = {}
+        dt = threading.Thread(
+            target=on_thread(lambda: drained.update(drain((read, write), batcher, 60.0))),
+            daemon=True)
+        dt.start()
+        ready = []
+        while True:
+            alive = dt.is_alive()
+            st, body, h, _ = call("GET", "/health/ready")
+            ready.append((st, body.get("reason"), h.get("Retry-After")))
+            if st == 503 or not alive:
+                break
+        dt.join(timeout=120)
+        f_post.join(timeout=120)
+        if errors or f_post.is_alive() or dt.is_alive():
+            raise SystemExit(f"lanes FAILED: {errors or '(f) the drain hung'}")
+        after = call("GET", "/health/ready")[:2]
+        hang_up()
+        out["f"] = {"inflight_at_drain": inflight, "drain": drained,
+                    "ready_while_draining": ready[-1], "ready_polls": len(ready),
+                    "ready_after": after,
+                    "batch": [(st, round(ms, 1)) for p, st, ms, *_ in posts if p == "f"]}
+        log(f"lanes (f): {json.dumps(out['f'])}")
+        if ready[-1] != (503, DRAINING, "1") or after[0] != 503 or \
+                not drained.get("batcher_idle") or posts[-1][:2] != ("f", 200):
+            fail(f"(f) the drain: {out['f']}")
+    finally:
+        batcher.stop()
+        for s in (read, write):
+            s.stop()
+        dlog.close()
+        log_dir.cleanup()
+        batcher._dispatch_stream = dispatch
+        batcher.admission_precheck = precheck
+
+    # (e) the audit: every sample re-checked on the oracle, off the path
+    t0 = time.monotonic()
+    if not engine.audit_settled(timeout=600):
+        raise SystemExit("lanes FAILED: the audit did not settle")
+    engine.audit_sample_rate = 0.0
+    c = engine.counters()
+    out["e"] = {k: c[k] - audit0[k] for k in audit0}
+    out["e"].update({"settle_s": round(time.monotonic() - t0, 3), "rate": LANES_AUDIT_RATE,
+                     "divergences": list(engine.audit_divergences)})
+    log(f"lanes (e): {json.dumps(out['e'])}")
+    if not out["e"]["audit_checks"] or out["e"]["audit_mismatches"]:
+        raise SystemExit(f"lanes FAILED: the audit {out['e']}")
+    launches = dict(kernels.COUNTS)
+    out["launches"] = launches
+    out["shed_count"] = batcher.shed_count
+    missing = [k for k in ("seed", "check_run", "answer_pack") if not launches.get(k)]
+    if missing:
+        raise SystemExit(f"lanes FAILED: the phase's requests never launched {missing}")
+    report["lanes"] = out
+
+
+# -- phase 5: labels on config 3 ------------------------------------------------
 
 
 def route_counts(engine) -> dict:
@@ -1903,7 +2681,7 @@ def phase_labels(torch, kernels, report, main_ctx, queries):
     }
 
 
-# -- phase 5: deep, config 4 on the label route ---------------------------------
+# -- phase 6: deep, config 4 on the label route ---------------------------------
 
 
 def label_digest(idx) -> str:
@@ -2425,7 +3203,7 @@ def covered_row(torch, snap, engine, order, wt, launches, rate, reps=20):
     return r
 
 
-# -- phase 6: shard, sharded serving on the card (K10) -------------------------------
+# -- phase 7: shard, sharded serving on the card (K10) -------------------------------
 
 #: the shard phase's mesh: graph shards, all on the one card
 SHARD_G = 4
@@ -3141,7 +3919,7 @@ def shard_label_rows(torch, ps, mesh, captured, launches, build_launches, rate,
     return rows
 
 
-# -- phase 7: list, reverse queries on the deep phase's engine and store -----------
+# -- phase 8: list, reverse queries on the deep phase's engine and store -----------
 
 
 class PinnedEngine:
@@ -3277,7 +4055,7 @@ def phase_list(torch, kernels, report, engine, store, ctx, device="cuda"):
     return lst, captured, launches
 
 
-# -- phase 7: explain, the stream and decision provenance on deep's engine -------
+# -- phase 9: explain, the stream and decision provenance on deep's engine -------
 
 #: the explain phase: explains of denies, of label-route grants, and at most
 #: this many grants the router sends to the hybrid route
@@ -3724,7 +4502,7 @@ def witness_rows(torch, kernels, snap, pairs, launches, rate, int_rate):
     return rows
 
 
-# -- phase 8: write, on the deep phase's engine and store ------------------------
+# -- phase 10: write, on the deep phase's engine and store ------------------------
 
 MAINT = ("delta_applies", "overlay_device_applies", "full_rebuilds", "compactions", "fold_runs",
          "label_patches", "label_patch_aborts", "label_rebuilds", "label_invalidations",
@@ -4280,7 +5058,7 @@ def list_overlay_row(torch, cap, launches, rate):
                   "launch each")
 
 
-# -- phase 9: serve ---------------------------------------------------------------
+# -- phase 11: serve ---------------------------------------------------------------
 
 
 #: a cycle through the directory's owners: its rows cannot be peeled, so the
@@ -4524,8 +5302,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help=f"comma-separated phases to run (default: all of {','.join(PHASES)}); "
-                         "labels needs main, shard needs main and deep, list and explain need "
-                         "deep, write needs list")
+                         "lanes and labels need main, shard needs main and deep, list and "
+                         "explain need deep, write needs list")
     args = ap.parse_args(argv)
     phases = set(args.only.split(","))
     unknown = phases - set(PHASES)
@@ -4574,6 +5352,10 @@ def main(argv=None) -> int:
         rows, step = kernel_rows(torch, kernels, engine, snap, queries, rate, report["launches"])
         report["check_step"] = step
         log(json.dumps({"main": report["main"]}))
+        if "lanes" in phases:
+            phase_lanes(torch, kernels, report, engine, queries, main_ctx)
+            log(json.dumps({"lanes": report["lanes"]}))
+            log(f"elapsed {time.monotonic() - t_start:.1f}s")
         if "labels" in phases:
             phase_labels(torch, kernels, report, main_ctx, queries)
             log(json.dumps({"labels": report["labels"]}))

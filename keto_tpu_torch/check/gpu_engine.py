@@ -93,15 +93,26 @@ raises and counts ``shard_dispatch_failures``; nothing falls back to the
 unsharded kernels. Explain names a sharded engine's landmark from the host
 index, as the reference does (tpu_engine.py:3836).
 
+The shadow audit (tpu_engine.py:1818-1900). With ``audit_sample_rate`` >
+0 a random sample of the decisions the batch path and each landed stream
+slice answered is queued (at most 4,096 pending) and re-checked on a
+supervised background thread against the CPU oracle
+(keto_tpu_torch/check/engine.py) over the store; a sample whose snaptoken
+no longer equals the store's watermark is skipped and counted
+(``audit_skipped_stale``), a disagreement counted (``audit_mismatches``)
+with both witnesses kept in ``audit_divergences``. It never answers a
+request: it is an alarm off the serving path, not a fallback. The
+reference's DEGRADED health flip waits for the health machine (ROADMAP
+A6).
+
 Kept against the reference engine: bucket upload, the label build
 overlapped on a background thread and installed only onto the exact
 snapshot it was built for, host resolution, the label router, slicing, the
 exact truncation re-run ladder and the
 grow-only ``block_iters`` retune. Not here: the snapshot cache, group
 commit, shards on several cards, the GSPMD mode and the multi-process
-lockstep, the HBM governor (and its staging rung), priority lanes,
-admission control, deadlines, request timelines, the shadow audit and any
-CPU fallback. A device error raises; a failed label
+lockstep, the HBM governor (and its staging rung) and any CPU fallback.
+A device error raises; a failed label
 build, background refresh, fold or device label patch is counted and
 raised by the next check (and by ``labels_settled()`` and
 ``maintenance_settled()``), where the reference would serve stale, rebuild
@@ -114,6 +125,7 @@ import collections
 import dataclasses
 import itertools
 import logging
+import random
 import threading
 import time
 from typing import Callable, Optional, Sequence, Union
@@ -273,8 +285,10 @@ class TorchCheckEngine:
     ``device`` defaults to ``cuda`` and must be named ``"cpu"`` to run the
     plain PyTorch path on the host. The overlay knobs and their defaults
     are the reference's (tpu_engine.py:1086-1092); the stream runs with the
-    reference's default window and controller (target 40 ms per slice, tail
-    ratio 5). ``mesh`` (a ``ShardMesh`` on the engine's device) selects the
+    reference's default window, and its controller with
+    ``stream_slice_target_ms`` (40 ms a slice) and ``stream_tail_ratio``
+    (5). ``audit_sample_rate`` (0: off) samples decisions into the shadow
+    audit. ``mesh`` (a ``ShardMesh`` on the engine's device) selects the
     sharded mode.
     """
 
@@ -306,6 +320,9 @@ class TorchCheckEngine:
         sync_rebuild_budget_s: float = 0.25,
         device_build_enabled: bool = True,
         native_pack_enabled: bool = True,
+        stream_slice_target_ms: float = 40.0,
+        stream_tail_ratio: float = 5.0,
+        audit_sample_rate: float = 0.0,
         mesh=None,
     ):
         if it_cap < 1:
@@ -339,7 +356,9 @@ class TorchCheckEngine:
         # controller shared by every stream so a serving process stays
         # converged, and the per-slice service times that the controller
         # and chip_smoke.py both read
-        self.stream_ctrl = StreamSliceController()
+        self.stream_ctrl = StreamSliceController(
+            target_ms=stream_slice_target_ms, tail_ratio=stream_tail_ratio
+        )
         self.stream_slice_stats = DurationStats()
         #: BFS iteration counts of every slice that ran the fixpoint (steps)
         self.bfs_steps_stats = DurationStats()
@@ -385,6 +404,15 @@ class TorchCheckEngine:
         self._refresh_task = SupervisedTask(
             "refresh", self._refresh_pass, on_error=self._note_maintenance_error
         )
+        # the shadow audit (tpu_engine.py:1349-1366): the fraction of live
+        # decisions re-checked on the CPU oracle, off the serving path
+        self.audit_sample_rate = max(0.0, float(audit_sample_rate))
+        self._audit_rng = random.Random(0xA0D17)
+        self._audit_pending: collections.deque = collections.deque(maxlen=4096)
+        self._audit_oracle = None
+        #: evidence of the last shadow-audit divergences (both witnesses)
+        self.audit_divergences: collections.deque = collections.deque(maxlen=8)
+        self._audit_task = SupervisedTask("audit", self._audit_pass)
         #: what the last compaction did: seconds (the label patch or build
         #: included), the label outcome, the label patch's or build's ms,
         #: the touched buckets and their bytes
@@ -416,7 +444,9 @@ class TorchCheckEngine:
         # failures the port raises where the reference falls back:
         # refresh_failures, compaction_failures, label_patch_failures,
         # witness_errors (a failed K4 launch in label_witness_info),
-        # shard_dispatch_failures (a failed sharded dispatch); the resolved
+        # shard_dispatch_failures (a failed sharded dispatch); the shadow
+        # audit's audit_checks, audit_mismatches and audit_skipped_stale
+        # (always present); the resolved
         # batches by path, resolve_native_batches (the C++ bulk resolve) and
         # resolve_python_batches (the host loop: a separator byte in a
         # query, or a snapshot interned in Python); slice_splits,
@@ -552,8 +582,9 @@ class TorchCheckEngine:
         return self._snapshot
 
     def close(self) -> None:
-        """Stop the background refresh worker."""
+        """Stop the background refresh and audit workers."""
         self._refresh_task.stop()
+        self._audit_task.stop()
 
     def _refresh_locked(
         self, force_full: bool = False, delta_only: bool = False, maintenance: bool = False
@@ -1007,7 +1038,91 @@ class TorchCheckEngine:
         """The route and maintenance counters since construction (see
         ``__init__``)."""
         with self._counter_lock:
-            return dict(self._counters)
+            out = dict(self._counters)
+        for name in ("audit_checks", "audit_mismatches", "audit_skipped_stale"):
+            out.setdefault(name, 0)
+        return out
+
+    # -- the shadow audit (tpu_engine.py:1816-1900) ----------------------------
+
+    def _audit_sample(self, tuples, decisions, token: Optional[int]) -> None:
+        """Queue a random ``audit_sample_rate`` sample of live decisions for
+        the background re-check (never on the serving path)."""
+        rate = self.audit_sample_rate
+        if rate <= 0.0 or token is None:
+            return
+        rng = self._audit_rng
+        picked = False
+        for i, rt in enumerate(tuples):
+            if rng.random() < rate:
+                self._audit_pending.append((rt, bool(decisions[i]), token))
+                picked = True
+        if picked:
+            self._audit_task.kick()
+
+    def _audit_oracle_check(self, rt: RelationTuple) -> bool:
+        """The CPU oracle's decision over the live store."""
+        if self._audit_oracle is None:
+            from keto_tpu_torch.check.engine import CheckEngine
+
+            self._audit_oracle = CheckEngine(self._store)
+        return self._audit_oracle.subject_is_allowed(rt)
+
+    def _audit_pass(self) -> None:
+        """One supervised audit pass: drain the sample queue and re-check
+        each decision on the oracle. A sample whose snaptoken no longer
+        equals the store's watermark is skipped (the oracle reads the live
+        store: comparing across a write would fabricate a divergence)."""
+        while True:
+            try:
+                rt, decision, token = self._audit_pending.popleft()
+            except IndexError:
+                return
+            try:
+                wm = self._store.watermark()
+            except Exception:
+                continue  # the store is unreadable: the refresh path raises that
+            if wm != token:
+                self._incr("audit_skipped_stale")
+                continue
+            got = self._audit_oracle_check(rt)
+            self._incr("audit_checks")
+            if got != decision:
+                self._incr("audit_mismatches")
+                self._note_audit_divergence(rt, decision, got, token)
+                _log.error(
+                    "shadow-parity audit MISMATCH: %r decided %s on the device, %s on the "
+                    "CPU oracle (snaptoken %d)", rt, decision, got, token,
+                )
+
+    def _note_audit_divergence(self, rt: RelationTuple, device: bool, oracle: bool,
+                               token: int) -> None:
+        """Keep the evidence of one divergence: the store's shortest witness
+        (what the device route should have found) beside the oracle's own
+        traversal (keto_tpu_torch/explain/witness.py)."""
+        try:
+            from keto_tpu_torch.explain.witness import build_witness, oracle_witness
+
+            _, dev_path, certificate = build_witness(self._store, rt)
+            orc_path = oracle_witness(self._store, rt)
+            self.audit_divergences.append({
+                "tuple": str(rt),
+                "device_decision": device,
+                "oracle_decision": oracle,
+                "snaptoken": token,
+                "device_witness": [str(t) for t in dev_path] if dev_path else None,
+                "oracle_witness": [str(t) for t in orc_path] if orc_path else None,
+                "certificate": certificate,
+            })
+        except Exception:
+            # the evidence is best-effort: the counter above already raised
+            # the alarm
+            _log.warning("could not capture the audit divergence's witnesses", exc_info=True)
+
+    def audit_settled(self, timeout: Optional[float] = None) -> bool:
+        """Block until the audit worker has re-checked every queued sample;
+        False on timeout. Tests and ``chip_smoke.py`` use it."""
+        return self._audit_task.wait_idle(timeout)
 
     # -- 2-hop labels (keto_tpu_torch/graph/labels.py) -------------------------
 
@@ -1489,6 +1604,7 @@ class TorchCheckEngine:
             return [False] * len(tuples), snap.snapshot_id
         out, max_iters = self._run_exact(snap, tuples)
         self._after_batch(max_iters)
+        self._audit_sample(tuples, out, snap.snapshot_id)
         return out.tolist(), snap.snapshot_id
 
     def subject_is_allowed(self, requested: RelationTuple) -> bool:
@@ -2168,6 +2284,7 @@ class TorchCheckEngine:
             stats.observe(ms)
             ctrl.observe(nq, ms, route=route, bfs_steps=int(iters), entries=n_ent)
             self._note_route(route, nq, ms)
+            self._audit_sample(chunk, out, snap.snapshot_id)
             if not with_info:
                 return off, out
             info = {"width": nq, "bfs_steps": int(iters), "route": route,

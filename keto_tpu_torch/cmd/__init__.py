@@ -46,6 +46,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seal a log segment past this size (default 1 MiB)")
     s.add_argument("--decision-log-retention", type=int, default=8, metavar="N",
                    help="sealed log segments kept (default 8)")
+    s.add_argument("--no-admission", dest="admission_enabled", action="store_false",
+                   help="no admission window on the batch lane (a full lane still sheds 429)")
+    s.add_argument("--no-timeline", dest="timeline_enabled", action="store_false",
+                   help="record no request timelines (no Server-Timing, /debug/requests empty)")
+    s.add_argument("--audit-sample-rate", type=float, default=0.0, metavar="FRACTION",
+                   help="fraction of decisions re-checked on the CPU oracle off the serving "
+                        "path (default 0: no shadow audit)")
+    s.add_argument("--stream-slice-target-ms", type=float, default=40.0, metavar="MS",
+                   help="the stream's target service time a slice (default 40; admission's "
+                        "budget is 4 times it)")
     return p
 
 
@@ -60,12 +70,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             tuples = parse_tuples(f.read())
     d = Daemon(args.namespace, device=args.device, host=args.host,
                read_port=args.read_port, write_port=args.write_port, tuples=tuples,
-               engine_options={"device_build_enabled": args.device_build},
+               engine_options={"device_build_enabled": args.device_build,
+                               "audit_sample_rate": args.audit_sample_rate,
+                               "stream_slice_target_ms": args.stream_slice_target_ms},
                explain_enabled=args.explain_enabled, decision_log_dir=args.decision_log_dir,
                decision_log_sample=args.decision_log_sample,
                decision_log_segment_bytes=args.decision_log_segment_bytes,
                decision_log_retention=args.decision_log_retention,
-               mesh_graph=args.mesh_graph)
+               mesh_graph=args.mesh_graph, admission_enabled=args.admission_enabled,
+               timeline_enabled=args.timeline_enabled)
     d.start()
     print(f"serving: read :{d.read.port}, write :{d.write.port}, device {d.engine.device}, "
           f"graph shards {d.engine.shard_count}", flush=True)
@@ -75,7 +88,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         done.wait()
     except KeyboardInterrupt:
         pass
-    d.stop()
+    d.drain_and_shutdown()
     return 0
 
 

@@ -1,2 +1,3 @@
-"""Serving core: the check batcher and the daemon that wires store, engine,
-batcher and the two REST ports together."""
+"""Serving core: the check batcher with its priority lanes, admission
+control and the daemon that wires store, engine, batcher and the two REST
+ports together."""

@@ -1,0 +1,155 @@
+"""Adaptive admission control: a copy of keto_tpu/driver/admission.py, an
+AIMD window over the batch check lane, its logic unchanged.
+
+The batcher's queue bound is a memory defense, not a latency defense: a
+queue sized for burst absorption (8×batch_size tuples) holds seconds of
+backlog before the hard 429. This controller closes the loop the way TCP
+does — additive increase, multiplicative decrease — keyed off two live
+signals:
+
+- the slice service times the stream's width controller already records
+  (``DurationStats`` on the engine, keto_tpu_torch/x/telemetry.py): p99 of
+  the slices landed since the last tick;
+- the estimated queue delay: batch-lane backlog over the batcher's
+  observed dispatch throughput (EWMA over recent rounds). A fast device
+  behind 3× offered load never shows slow slices.
+
+When either passes the latency budget (default 4× the stream's
+``stream_slice_target_ms``), the admitted batch-lane window shrinks
+multiplicatively and excess load sheds at the door with 429 +
+``Retry-After`` before it queues; when healthy, the window recovers
+additively. The interactive lane is never admission-limited.
+``retry_after_s`` grows with consecutive overloaded ticks (1→2→4→8 s).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Optional
+
+
+class AdmissionController:
+    """AIMD concurrency limiter for the batch check lane.
+
+    ``stats`` is anything with ``tail(n) -> (observations_ms, count)``
+    (``DurationStats``); None disables the slice-time signal
+    and leaves only the queue-delay estimate. ``tick`` is rate-limited to
+    ``interval_s`` internally, so callers invoke it on every enqueue and
+    dispatch round without cost concerns."""
+
+    def __init__(
+        self,
+        stats=None,
+        target_ms: float = 40.0,
+        budget_ms: Optional[float] = None,
+        min_window: int = 64,
+        max_window: int = 32768,
+        decrease: float = 0.5,
+        increase: Optional[int] = None,
+        interval_s: float = 0.25,
+        time_fn=time.monotonic,
+    ):
+        self._stats = stats
+        self.budget_ms = float(budget_ms) if budget_ms else 4.0 * float(target_ms)
+        self.min_window = max(1, int(min_window))
+        self.max_window = max(self.min_window, int(max_window))
+        self._decrease = float(decrease)
+        self._increase = int(increase) if increase else max(16, self.max_window // 64)
+        self._interval_s = float(interval_s)
+        self._time = time_fn
+        self._lock = threading.Lock()  # guards: window, _last_tick, _seen, _rate, _consec_over, last_p99_ms, last_queue_delay_ms, decreases, increases
+        #: admitted batch-lane window (tuples queued); starts open — the
+        #: first overloaded tick shrinks it, idle ticks recover it
+        self.window = self.max_window
+        self._last_tick = -1e18
+        self._seen = 0  # stats count high-water mark at the last tick
+        self._rate: Optional[float] = None  # EWMA dispatch tuples/s
+        self._consec_over = 0
+        #: introspection counters
+        self.last_p99_ms = 0.0
+        self.last_queue_delay_ms = 0.0
+        self.decreases = 0
+        self.increases = 0
+
+    # -- signals --------------------------------------------------------------
+
+    def observe_round(self, n_tuples: int, wall_s: float) -> None:
+        """The batcher reports every dispatch round (tuples served, wall
+        seconds) — the throughput estimate the queue-delay signal needs."""
+        if wall_s <= 0 or n_tuples <= 0:
+            return
+        rate = n_tuples / wall_s
+        with self._lock:
+            self._rate = rate if self._rate is None else 0.8 * self._rate + 0.2 * rate
+
+    def tick(self, backlog: int = 0, now: Optional[float] = None) -> None:
+        """One AIMD evaluation, rate-limited to ``interval_s``.
+        ``backlog`` is the batch lane's queued tuple count."""
+        now = self._time() if now is None else now
+        with self._lock:
+            if now - self._last_tick < self._interval_s:
+                return
+            self._last_tick = now
+
+            # only slices landed since the last tick count: a quiet
+            # period must not keep re-judging stale history
+            p99: Optional[float] = None
+            if self._stats is not None:
+                _, count = self._stats.tail(0)
+                delta = count - self._seen
+                if delta > 0:
+                    samples, _ = self._stats.tail(min(4096, delta))
+                    self._seen = count
+                    if samples:
+                        vals = sorted(samples)
+                        p99 = vals[min(len(vals) - 1, int(len(vals) * 0.99))]
+                        self.last_p99_ms = p99
+
+            queue_delay_ms: Optional[float] = None
+            if self._rate:
+                queue_delay_ms = backlog / self._rate * 1e3
+                self.last_queue_delay_ms = queue_delay_ms
+
+            overloaded = (p99 is not None and p99 > self.budget_ms) or (
+                queue_delay_ms is not None and queue_delay_ms > self.budget_ms
+            )
+            if p99 is None and queue_delay_ms is None and backlog > self.window:
+                # stalled device: backlog grows but nothing lands to
+                # measure — treat silence plus a deep queue as overload
+                overloaded = True
+
+            if overloaded:
+                self.window = max(self.min_window, int(self.window * self._decrease))
+                self.decreases += 1
+                self._consec_over += 1
+            else:
+                self.window = min(self.max_window, self.window + self._increase)
+                self.increases += 1
+                self._consec_over = 0
+
+    # -- decisions ------------------------------------------------------------
+
+    def retry_after_s(self) -> float:
+        """Backoff advice for a shed request: doubles with consecutive
+        overloaded ticks, capped at 8 s."""
+        with self._lock:
+            return float(min(8, 1 << min(self._consec_over, 3)))
+
+    @property
+    def overloaded(self) -> bool:
+        with self._lock:
+            return self._consec_over > 0
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "window": self.window,
+                "budget_ms": round(self.budget_ms, 3),
+                "last_p99_ms": round(self.last_p99_ms, 3),
+                "last_queue_delay_ms": round(self.last_queue_delay_ms, 3),
+                "rate_tuples_per_s": round(self._rate, 1) if self._rate else None,
+                "increases": self.increases,
+                "decreases": self.decreases,
+                "overloaded": self._consec_over > 0,
+            }

@@ -9,8 +9,10 @@ the label knobs (``labels_enabled``, ``labels_max_width``,
 ``labels_landmarks``, ``labels_device_build``, ``labels_min_gain``,
 ``labels_batch``, ``labels_device_min_edges``) and the overlay knobs
 (``overlay_edge_budget``, ``fold_segment_edges``, ``compact_after_s``,
-``sync_rebuild_budget_s``) and ``device_build_enabled`` (the build's sorts
-on the card) through to ``TorchCheckEngine``. Writes apply as
+``sync_rebuild_budget_s``), ``device_build_enabled`` (the build's sorts
+on the card) and the stream and audit knobs (``stream_slice_target_ms``,
+``stream_tail_ratio``, ``audit_sample_rate``) through to
+``TorchCheckEngine``. Writes apply as
 delta overlays folded in the background (keto_tpu_torch/graph/overlay.py,
 keto_tpu_torch/graph/compaction.py).
 
@@ -26,16 +28,28 @@ segments of ``decision_log_segment_bytes`` (1 MiB) of which
 Sharded serving (keto_tpu/driver/registry.py:650-680, the registry's
 ``serve.mesh_graph``): ``mesh_graph`` > 1 serves from a ``ShardMesh`` of
 that many row-range shards on the engine's device
-(keto_tpu_torch/parallel/); 1 (the default) serves unsharded."""
+(keto_tpu_torch/parallel/); 1 (the default) serves unsharded.
+
+The check batcher is wired by ``make_batcher`` as the reference's registry
+wires it (keto_tpu/driver/registry.py:878-920): priority lanes, a full lane
+shedding 429, and admission control over the engine's slice service times
+(``admission_enabled``). ``timeline_enabled`` (default true) keeps one
+``TimelineRecorder`` for both ports. ``drain_and_shutdown`` is the
+reference's drain (keto_tpu/driver/daemon.py:163-277) cut to this daemon:
+``/health/ready`` answers 503 while the batcher's in-flight checks and the
+servers' open exchanges finish, then everything stops; the signal handling
+stays with the CLI (ROADMAP A7)."""
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Union
+import time
+from typing import Iterable, Optional, Sequence, Union
 
 import torch
 
 from keto_tpu_torch import namespace as namespace_pkg
 from keto_tpu_torch.check.gpu_engine import TorchCheckEngine
+from keto_tpu_torch.driver.admission import AdmissionController
 from keto_tpu_torch.driver.batch import CheckBatcher
 from keto_tpu_torch.expand.snapshot_engine import SnapshotExpandEngine
 from keto_tpu_torch.explain import DecisionLog, ExplainEngine
@@ -45,6 +59,65 @@ from keto_tpu_torch.persistence.memory import MemoryPersister
 from keto_tpu_torch.relationtuple.model import RelationTuple
 from keto_tpu_torch.servers.rest import MAX_READ_DEPTH, READ, WRITE, RestServer
 from keto_tpu_torch.x.device import resolve_device
+from keto_tpu_torch.x.timeline import TimelineRecorder
+
+#: the readiness reason while a drain runs (keto_tpu/driver/daemon.py:183)
+DRAINING = "draining: shutdown requested"
+
+
+#: the reference registry's batcher settings at their defaults
+#: (keto_tpu/driver/registry.py:878-920: ``engine.batch_size``,
+#: ``engine.batch_window_ms``, ``serve.interactive_max_tuples``,
+#: ``serve.batch_sub_slice``, ``serve.admission_min_window``); they come
+#: back as knobs with the config loader (ROADMAP A7)
+BATCH_SIZE = 4096
+WINDOW_MS = 1.0
+INTERACTIVE_MAX_TUPLES = 16
+BATCH_SUB_SLICE = 1024
+ADMISSION_MIN_WINDOW = 64
+
+
+def make_batcher(engine, *, admission_enabled: bool = True) -> CheckBatcher:
+    """The serving process's check batcher, wired as the reference's
+    registry wires it: lanes of ``max_pending = 8 × BATCH_SIZE`` tuples that
+    shed when full, and (``admission_enabled``) an AIMD admission window
+    over the batch lane keyed off the engine's slice service times, its
+    budget 4 × the engine's slice target (``engine.stream_ctrl``)."""
+    max_pending = 8 * BATCH_SIZE
+    admission = None
+    if admission_enabled:
+        ctrl = getattr(engine, "stream_ctrl", None)
+        admission = AdmissionController(
+            stats=getattr(engine, "stream_slice_stats", None),
+            target_ms=float(getattr(ctrl, "target_ms", 40.0)),
+            min_window=ADMISSION_MIN_WINDOW,
+            max_window=max_pending,
+        )
+    return CheckBatcher(
+        engine,
+        batch_size=BATCH_SIZE,
+        window_ms=WINDOW_MS,
+        max_pending=max_pending,
+        shed_on_full=True,
+        interactive_max_tuples=INTERACTIVE_MAX_TUPLES,
+        batch_sub_slice=BATCH_SUB_SLICE,
+        admission=admission,
+    )
+
+
+def drain(servers: Sequence[RestServer], batcher: CheckBatcher, drain_timeout_s: float) -> dict:
+    """The drain before a shutdown: every server's ``/health/ready`` answers
+    503 from now on; then wait up to ``drain_timeout_s`` for the batcher's
+    in-flight checks and for the servers to write every accepted response.
+    Returns ``{"batcher_idle", "servers_idle", "seconds"}``; stops nothing."""
+    t0 = time.monotonic()
+    for s in servers:
+        s.app.draining = DRAINING
+    deadline = t0 + max(0.0, drain_timeout_s)
+    idle = batcher.drain(drain_timeout_s)
+    servers_idle = all(s.drain(max(0.5, deadline - time.monotonic())) for s in servers)
+    return {"batcher_idle": idle, "servers_idle": servers_idle,
+            "seconds": time.monotonic() - t0}
 
 
 class Daemon:
@@ -65,6 +138,8 @@ class Daemon:
         decision_log_retention: int = 8,
         mesh_graph: int = 1,
         max_read_depth: int = MAX_READ_DEPTH,
+        admission_enabled: bool = True,
+        timeline_enabled: bool = True,
     ):
         nm = namespace_pkg.MemoryManager(namespaces)
         options = dict(engine_options or {})
@@ -77,7 +152,9 @@ class Daemon:
         self.engine = TorchCheckEngine(self.store, nm, device=device, **options)
         self.lister = SnapshotListEngine(self.engine, nm, device=self.engine.device)
         self.expander = SnapshotExpandEngine(self.engine, nm)
-        self.batcher = CheckBatcher(self.engine)
+        self.batcher = make_batcher(self.engine, admission_enabled=admission_enabled)
+        #: the request timelines of both ports
+        self.recorder = TimelineRecorder(enabled=timeline_enabled)
         self.decision_log = (
             DecisionLog(decision_log_dir, sample=decision_log_sample,
                         segment_bytes=decision_log_segment_bytes,
@@ -91,8 +168,9 @@ class Daemon:
         self.read = RestServer(READ, self.store, self.batcher, host, read_port,
                                lister=self.lister, explain=self.explain,
                                decision_log=self.decision_log, expander=self.expander,
-                               max_read_depth=max_read_depth)
-        self.write = RestServer(WRITE, self.store, self.batcher, host, write_port)
+                               max_read_depth=max_read_depth, recorder=self.recorder)
+        self.write = RestServer(WRITE, self.store, self.batcher, host, write_port,
+                                recorder=self.recorder)
 
     def start(self) -> None:
         """Build the first snapshot on the device, then open both ports."""
@@ -100,6 +178,14 @@ class Daemon:
         self.batcher.start()
         self.read.start()
         self.write.start()
+
+    def drain_and_shutdown(self, drain_timeout_s: float = 5.0) -> dict:
+        """Answer 503 on ``/health/ready``, let the in-flight checks and
+        responses finish (up to ``drain_timeout_s``), then stop. Returns
+        ``drain``'s record."""
+        out = drain((self.read, self.write), self.batcher, drain_timeout_s)
+        self.stop()
+        return out
 
     def stop(self) -> None:
         self.read.stop()

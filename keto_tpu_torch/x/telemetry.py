@@ -1,10 +1,10 @@
 """Sliding-window duration statistics: a copy of ``DurationStats``
 (keto_tpu/x/telemetry.py:18-86). The streaming check pipeline records every
 slice's service time here (and the BFS steps of every slice that ran the
-fixpoint), and every reader — the slice controller, ``chip_smoke.py``'s
-stream report, an operator — reads the same numbers. The reference's
-``/metrics`` histogram mirror and ``tail()`` (read by admission control)
-come with the slices that need them."""
+fixpoint), and every reader — the slice controller, admission control
+(``tail``, keto_tpu_torch/driver/admission.py), ``chip_smoke.py``'s stream
+report, an operator — reads the same numbers. The reference's ``/metrics``
+histogram mirror comes with the metrics (ROADMAP A6)."""
 
 from __future__ import annotations
 
@@ -29,6 +29,18 @@ class DurationStats:
         with self._lock:
             self._window.clear()
             self._count = 0
+
+    def tail(self, n: int) -> tuple[list[float], int]:
+        """``(last ≤n observations, total observation count)``: admission
+        control reads the slice service times recorded since its previous
+        tick (by count delta) without resetting the window other readers
+        share."""
+        with self._lock:
+            count = self._count
+            if n <= 0:
+                return [], count
+            vals = list(self._window)
+            return (vals[-n:] if n < len(vals) else vals), count
 
     def snapshot(self) -> dict:
         """``{count, p50_ms, p99_ms, mean_ms, max_ms}`` over the window

@@ -23,8 +23,8 @@ SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 #: modules the walk must find (the write path's, the reverse queries', the
-#: explain path's, the full build's and expand's among them): a module that
-#: fails to be found is not checked
+#: explain path's, the full build's, expand's and the check scheduler's among
+#: them): a module that fails to be found is not checked
 REQUIRED = (
     "keto_tpu_torch.graph.overlay",
     "keto_tpu_torch.graph.compaction",
@@ -51,6 +51,11 @@ REQUIRED = (
     "keto_tpu_torch.expand.tree",
     "keto_tpu_torch.expand.snapshot_engine",
     "keto_tpu_torch.version",
+    "keto_tpu_torch.x.timeline",
+    "keto_tpu_torch.driver.admission",
+    "keto_tpu_torch.driver.batch",
+    "keto_tpu_torch.driver.daemon",
+    "keto_tpu_torch.servers.rest",
 )
 
 
@@ -63,7 +68,7 @@ def _modules():
 def test_walk_finds_every_module():
     found = set(_modules())
     assert set(REQUIRED) <= found, sorted(set(REQUIRED) - found)
-    assert len(found) >= 49
+    assert len(found) >= 51
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -81,7 +86,7 @@ def test_every_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 49
+    assert int(out.stdout.strip()) >= 51
 
 
 def _imports(path: Path):

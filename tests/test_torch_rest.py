@@ -13,11 +13,21 @@ tree, a 400 without an integer ``max-depth`` and clamps the depth to
 ``page_size`` is a 400, an unknown namespace a 404); ``PATCH
 /relation-tuples`` applies inserts and deletes in one transaction, and an
 unknown action or namespace applies nothing (tests/test_rest_api.py:59,
-:106, :131, :166)."""
+:106, :131, :166). The check scheduler over REST: ``X-Keto-Priority`` and
+``timeout_ms`` / ``X-Request-Timeout-Ms`` answer as the reference's
+servers do (400s, 504), a shed ``/check/batch`` answers 429 with
+``Retry-After`` as the reference's, responses carry ``X-Request-Id`` and
+``Server-Timing``, ``GET /debug/requests`` answers with its filters, the
+decision log takes its route and trace id from the timeline, a drain
+answers 503 on ``/health/ready`` while in-flight checks finish, and the
+CLI and daemon pass the scheduler's knobs."""
 
 from __future__ import annotations
 
 import json
+import re
+import threading
+import time
 import urllib.error
 import urllib.request
 from urllib.parse import urlencode
@@ -295,7 +305,10 @@ def test_check_samples_into_the_decision_log(tmp_path):
     checks = [r for r in recs if r["kind"] == "check"]
     assert corrupt == 0 and [c["decision"] for c in checks] == [a for _, a in CAT_VIDEOS_CHECKS]
     for c in checks:
-        assert c["route"] == "" and c["witness"] is None and c["snaptoken"] == "1"
+        # the route comes off the request timeline's device stamp, the
+        # trace id is the request id (no traceparent was sent)
+        assert c["route"] in ("host", "label", "hybrid", "bfs") and c["trace_id"]
+        assert c["witness"] is None and c["snaptoken"] == "1"
     explains = [r for r in recs if r["kind"] == "explain"]
     assert len(explains) == 1 and explains[0]["witness"] and explains[0]["decision"] is True
 
@@ -575,3 +588,337 @@ def test_tuple_routes_answer_as_the_reference(api, script):
         for s in ref.values():
             s.stop()
         reg.close()
+
+
+# -- the check scheduler over REST: lanes, deadlines, sheds, timelines, drain ----------
+
+
+def _acl(i, j):
+    return RelationTuple.from_string(f"acl:obj-{i}#access@user-{j}")
+
+
+def _hreq(method, port, path, body=None, headers=None):
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method,
+                                 headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            raw = r.read()
+            return r.status, (json.loads(raw) if raw else None), r.headers
+    except urllib.error.HTTPError as e:
+        raw = e.read()
+        return e.code, (json.loads(raw) if raw else None), e.headers
+
+
+@pytest.fixture(scope="module")
+def acl_pair():
+    """The port's daemon and the reference's (tests/test_overload.py's
+    ``daemon`` fixture) on the same eight grants."""
+    from keto_tpu.config.provider import Config
+    from keto_tpu.driver.daemon import Daemon as RefDaemon
+    from keto_tpu.driver.registry import Registry
+    from keto_tpu.relationtuple.model import RelationTuple as JT
+
+    from keto_tpu_torch import namespace as tns
+
+    grants = [_acl(i, i) for i in range(8)]
+    mine = Daemon([tns.Namespace(id=0, name="acl")], device="cpu", tuples=grants)
+    mine.start()
+    ref = RefDaemon(Registry(Config(overrides={"namespaces": [{"id": 0, "name": "acl"}],
+                                               "dsn": "memory", "serve.read.port": 0,
+                                               "serve.write.port": 0})))
+    ref.serve_all(block=False)
+    ref.registry.relation_tuple_manager().write_relation_tuples(
+        *(JT.from_string(str(t)) for t in grants))
+    yield mine, ref
+    mine.stop()
+    ref.shutdown()
+
+
+_CHECK = "/check?" + _acl(1, 1).to_url_query()
+_DENY = "/check?" + _acl(1, 2).to_url_query()
+_BATCH = {"tuples": [_acl(i, j).to_json() for i, j in ((0, 0), (1, 2), (3, 3))]}
+_SCHEDULER_SCRIPT = [
+    ("GET", _CHECK, None, {}),
+    ("GET", _DENY, None, {"X-Keto-Priority": "batch"}),
+    ("GET", _CHECK, None, {"X-Keto-Priority": " Interactive "}),
+    ("GET", _CHECK, None, {"X-Keto-Priority": "urgent"}),
+    ("GET", _CHECK + "&timeout_ms=x", None, {}),
+    ("GET", _CHECK + "&timeout_ms=0", None, {}),
+    ("GET", _CHECK + "&timeout_ms=-5", None, {}),
+    ("GET", _CHECK, None, {"X-Request-Timeout-Ms": "soon"}),
+    ("GET", _CHECK + "&timeout_ms=0.001", None, {}),
+    ("GET", _CHECK + "&timeout_ms=5000", None, {"X-Request-Timeout-Ms": "0.001"}),
+    ("GET", _CHECK, None, {"X-Request-Timeout-Ms": "5000"}),
+    ("POST", "/check?timeout_ms=0.001", _acl(1, 1).to_json(), {}),
+    ("POST", "/check", _acl(1, 1).to_json(), {"X-Keto-Priority": "nope"}),
+    ("POST", "/check/batch", _BATCH, {"X-Keto-Priority": "urgent"}),
+    ("POST", "/check/batch?timeout_ms=0.001", _BATCH, {}),
+    ("POST", "/check/batch?timeout_ms=abc", _BATCH, {}),
+    ("POST", "/check/batch", _BATCH, {"X-Keto-Priority": "batch"}),
+    ("POST", "/check/batch", _BATCH, {"X-Keto-Priority": "interactive"}),
+]
+
+
+@pytest.mark.parametrize("k", range(len(_SCHEDULER_SCRIPT)))
+def test_lanes_and_deadlines_answer_as_the_reference(acl_pair, k):
+    """``X-Keto-Priority`` and ``timeout_ms`` / ``X-Request-Timeout-Ms``:
+    the same request to both servers, equal status and body (400s for a
+    malformed or non-positive value or an unknown lane, 504 for a deadline
+    that expired before queueing)."""
+    mine, ref = acl_pair
+    method, path, body, headers = _SCHEDULER_SCRIPT[k]
+    got = _hreq(method, mine.read.port, path, body, headers)
+    want = _hreq(method, ref.read_port, path, body, headers)
+    assert got[:2] == want[:2], (method, path, headers)
+
+
+def test_timeout_of_a_thousandth_ms_sheds_with_504(acl_pair):
+    mine, _ = acl_pair
+    status, body, headers = _hreq("GET", mine.read.port, _CHECK + "&timeout_ms=0.001")
+    assert status == 504 and body["error"]["code"] == 504
+    assert headers["X-Request-Id"] and "Retry-After" not in headers
+
+
+def _pin_window(batcher, window):
+    """Hold the admission window where it is: no tick re-judges it."""
+    adm = batcher.admission
+    adm._interval_s, adm._last_tick, adm.window = 1e9, time.monotonic(), window
+
+
+def test_shed_batch_answers_429_with_retry_after_as_the_reference(acl_pair):
+    mine, ref = acl_pair
+    batchers = (mine.batcher, ref.registry.check_batcher())
+    saved = [(b.admission.window, b.admission._interval_s, b.admission._last_tick)
+             for b in batchers]
+    try:
+        for b in batchers:
+            _pin_window(b, 0)
+        shed0 = mine.batcher.admission_shed_count
+        got = _hreq("POST", mine.read.port, "/check/batch", _BATCH)
+        want = _hreq("POST", ref.read_port, "/check/batch", _BATCH)
+        assert got[0] == want[0] == 429
+        assert got[2]["Retry-After"] == want[2]["Retry-After"] == "1"
+        assert got[1]["error"]["message"] == want[1]["error"]["message"]
+        assert got[1]["error"]["code"] == 429
+        assert mine.batcher.admission_shed_count == shed0 + 1
+        # a batch pinned interactive is never admission-limited
+        got = _hreq("POST", mine.read.port, "/check/batch", _BATCH,
+                    {"X-Keto-Priority": "interactive"})
+        want = _hreq("POST", ref.read_port, "/check/batch", _BATCH,
+                     {"X-Keto-Priority": "interactive"})
+        assert got[:2] == want[:2] == (200, {"results": [True, False, True]})
+    finally:
+        for b, (w, iv, lt) in zip(batchers, saved):
+            b.admission.window, b.admission._interval_s, b.admission._last_tick = w, iv, lt
+
+
+SERVER_TIMING_ENTRY = re.compile(r"^[a-z_]+;dur=\d+\.\d\d$")
+
+
+def test_responses_carry_server_timing_and_request_id(acl_pair):
+    mine, _ = acl_pair
+    status, _, h = _hreq("GET", mine.read.port, _CHECK)
+    assert status == 200 and re.fullmatch(r"[0-9a-f]{32}", h["X-Request-Id"])
+    parts = [p.strip() for p in h["Server-Timing"].split(",")]
+    assert all(SERVER_TIMING_ENTRY.match(p) for p in parts), parts
+    assert [p.split(";")[0] for p in parts] == ["admit", "pack", "dispatch", "device", "land",
+                                                "deliver", "total"]
+    _, _, h = _hreq("GET", mine.read.port, _CHECK, headers={"X-Request-Id": "req-7"})
+    assert h["X-Request-Id"] == "req-7"
+    status, _, h = _hreq("GET", mine.read.port, _CHECK + "&timeout_ms=x")
+    assert status == 400 and h["X-Request-Id"] and h["Server-Timing"].startswith("deliver;")
+    status, _, h = _hreq("GET", mine.write.port, "/version")
+    assert status == 200 and h["X-Request-Id"] and h["Server-Timing"]
+    _, _, h = _hreq("GET", mine.read.port, "/health/alive")
+    assert "X-Request-Id" not in h and "Server-Timing" not in h
+
+
+def test_debug_requests_and_its_filters():
+    from keto_tpu_torch import namespace as tns
+
+    d = Daemon([tns.Namespace(id=0, name="acl")], device="cpu",
+               tuples=[_acl(i, i) for i in range(4)])
+    d.start()
+    try:
+        trace = "4bf92f3577b34da6a3ce929d0e0e4736"
+        parent = f"00-{trace}-00f067aa0ba902b7-01"
+        for k in range(3):
+            _hreq("GET", d.read.port, _CHECK, headers={"traceparent": parent})
+        _hreq("GET", d.read.port, _DENY)
+        _hreq("GET", d.read.port, _DENY, headers={"traceparent": "00-zz-bad-01"})
+        _hreq("PUT", d.write.port, "/relation-tuples", _acl(5, 5).to_json())
+        for port in (d.read.port, d.write.port):  # one recorder behind both ports
+            status, body, _ = _hreq("GET", port, "/debug/requests")
+            assert status == 200 and body["enabled"] and body["finished"] == {"http": 6}
+            assert [t["kind"] for t in body["recent"]] == \
+                ["PUT /relation-tuples"] + ["GET /check"] * 5
+        status, body, _ = _hreq("GET", d.read.port, f"/debug/requests?trace_id={trace}")
+        assert [t["trace_id"] for t in body["recent"]] == [trace] * 3
+        assert len(body["slowest"]) == 3
+        check = body["recent"][0]
+        assert [s["stage"] for s in check["stages"]] == [
+            "arrival", "admit", "pack", "dispatch", "device", "land", "deliver"]
+        device = next(s for s in check["stages"] if s["stage"] == "device")["attrs"]
+        assert set(device) >= {"width", "bfs_steps", "route", "service_ms"}
+        assert check["status"] == 200 and check["snaptoken"] == "1"
+        status, body, _ = _hreq("GET", d.read.port, "/debug/requests?n=2&slowest=1")
+        assert len(body["recent"]) == 2 and len(body["slowest"]) == 1
+        _, body, _ = _hreq("GET", d.read.port, "/debug/requests?snaptoken=2")
+        assert [t["kind"] for t in body["recent"]] == ["PUT /relation-tuples"]
+        _, body, _ = _hreq("GET", d.read.port, "/debug/requests?tenant=other")
+        assert body["recent"] == [] and body["slowest"] == []
+        _, body, _ = _hreq("GET", d.read.port, "/debug/requests?tenant=default")
+        assert len(body["recent"]) == 6
+        assert _hreq("GET", d.read.port, "/debug/requests?n=x")[0] == 400
+        # reading the ring does not churn it
+        _, body, _ = _hreq("GET", d.read.port, "/debug/requests")
+        assert body["finished"] == {"http": 6}
+    finally:
+        d.stop()
+
+
+def test_decision_log_takes_route_and_trace_from_the_timeline(tmp_path):
+    from keto_tpu_torch import namespace as tns
+    from keto_tpu_torch.explain import DecisionLog
+
+    d = Daemon([tns.Namespace(id=0, name="acl")], device="cpu",
+               tuples=[_acl(i, i) for i in range(4)],
+               decision_log_dir=str(tmp_path / "dlog"), decision_log_sample=1.0)
+    d.start()
+    trace = "0af7651916cd43dd8448eb211c80319c"
+    try:
+        _, _, h1 = _hreq("GET", d.read.port, _CHECK,
+                         headers={"traceparent": f"00-{trace}-b7ad6b7169203331-01"})
+        _, _, h2 = _hreq("POST", d.read.port, "/check", _acl(1, 2).to_json())
+        _, body, _ = _hreq("GET", d.read.port, "/debug/requests")
+        routes = [[s["attrs"]["route"] for s in t["stages"] if s["stage"] == "device"][-1]
+                  for t in body["recent"]]
+    finally:
+        d.stop()
+    recs, corrupt = DecisionLog(str(tmp_path / "dlog")).read_all("default")
+    assert corrupt == 0
+    assert [(r["decision"], r["trace_id"]) for r in recs] == \
+        [(True, trace), (False, h2["X-Request-Id"])]
+    assert [r["route"] for r in recs] == routes[::-1] and all(routes)
+
+
+def test_drain_answers_503_while_inflight_checks_finish():
+    from keto_tpu_torch import namespace as tns
+    from keto_tpu_torch.driver.daemon import DRAINING, drain
+
+    d = Daemon([tns.Namespace(id=0, name="acl")], device="cpu",
+               tuples=[_acl(i, i) for i in range(4)])
+    d.start()
+    gate = threading.Event()
+    dispatch = d.batcher._dispatch_stream
+
+    def held(*a, **kw):
+        assert gate.wait(10)
+        return dispatch(*a, **kw)
+
+    d.batcher._dispatch_stream = held
+    res = {}
+    t = threading.Thread(target=lambda: res.update(r=_hreq("GET", d.read.port, _CHECK)[:2]),
+                         daemon=True)
+    t.start()
+    try:
+        deadline = time.monotonic() + 10
+        while d.batcher.inflight == 0 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        out = {}
+        dt = threading.Thread(target=lambda: out.update(drain((d.read, d.write), d.batcher,
+                                                              10.0)), daemon=True)
+        dt.start()
+        deadline = time.monotonic() + 10
+        while (d.read.app.draining is None or d.write.app.draining is None) \
+                and time.monotonic() < deadline:
+            time.sleep(0.005)
+        for port in (d.read.port, d.write.port):
+            status, body, h = _hreq("GET", port, "/health/ready")
+            assert (status, body, h["Retry-After"]) == \
+                (503, {"status": "unavailable", "reason": DRAINING}, "1")
+            assert _hreq("GET", port, "/health/alive")[:2] == (200, {"status": "ok"})
+        assert dt.is_alive() and d.batcher.inflight == 1
+        gate.set()
+        dt.join(timeout=10)
+        t.join(timeout=10)
+        assert res["r"] == (200, {"allowed": True})
+        assert out["batcher_idle"] and out["servers_idle"] and out["seconds"] > 0
+    finally:
+        gate.set()
+        d.stop()
+
+
+def test_drain_and_shutdown_stops_the_daemon():
+    from keto_tpu_torch import namespace as tns
+
+    d = Daemon([tns.Namespace(id=0, name="acl")], device="cpu", tuples=[_acl(0, 0)])
+    d.start()
+    port = d.read.port
+    assert _hreq("GET", port, _CHECK.replace("obj-1", "obj-0").replace("user-1", "user-0"))[0] \
+        == 200
+    out = d.drain_and_shutdown(drain_timeout_s=2.0)
+    assert out["batcher_idle"] and out["servers_idle"] and not d.batcher.running
+    with pytest.raises(OSError):
+        urllib.request.urlopen(f"http://127.0.0.1:{port}/health/alive", timeout=2)
+
+
+def test_cli_passes_the_scheduler_flags():
+    from keto_tpu_torch.cmd import build_parser
+
+    args = build_parser().parse_args(["serve"])
+    assert (args.admission_enabled, args.timeline_enabled, args.audit_sample_rate,
+            args.stream_slice_target_ms) == (True, True, 0.0, 40.0)
+    args = build_parser().parse_args(["serve", "--no-admission", "--no-timeline",
+                                      "--audit-sample-rate", "0.5",
+                                      "--stream-slice-target-ms", "20"])
+    assert (args.admission_enabled, args.timeline_enabled, args.audit_sample_rate,
+            args.stream_slice_target_ms) == (False, False, 0.5, 20.0)
+
+
+def test_daemon_wires_the_scheduler_knobs():
+    """``make_batcher`` as the reference's registry wires the batcher, and
+    the daemon's knobs: no admission, no timelines, the engine's stream
+    target and audit rate."""
+    from keto_tpu.config.provider import Config
+    from keto_tpu.driver.registry import Registry
+
+    from keto_tpu_torch import namespace as tns
+
+    reg = Registry(Config(overrides={"namespaces": [{"id": 0, "name": "acl"}]}))
+    d = Daemon([tns.Namespace(id=0, name="acl")], device="cpu", tuples=[_acl(0, 0)])
+    try:
+        ref = reg.check_batcher()
+        for b in (d.batcher, ref):
+            b.start()
+        for attr in ("_batch_size", "_window_s", "_max_pending", "_shed_on_full",
+                     "_interactive_max_tuples", "_sub_slice", "_batch_reserve"):
+            assert getattr(d.batcher, attr) == getattr(ref, attr), attr
+        mine_adm = d.batcher.admission.snapshot()
+        assert mine_adm == ref.admission.snapshot()
+        assert d.batcher.admission.min_window == ref.admission.min_window
+        assert d.engine.stream_ctrl.target_ms == 40.0 and d.engine.audit_sample_rate == 0.0
+    finally:
+        d.batcher.stop()
+        d.engine.close()
+        reg.close()
+    d = Daemon([tns.Namespace(id=0, name="acl")], device="cpu", tuples=[_acl(0, 0)],
+               engine_options={"stream_slice_target_ms": 10.0})
+    try:
+        # the admission budget follows the engine's slice target: 4 × 10 ms
+        assert d.batcher.admission.budget_ms == 40.0
+    finally:
+        d.engine.close()
+    d = Daemon([tns.Namespace(id=0, name="acl")], device="cpu", tuples=[_acl(0, 0)],
+               admission_enabled=False, timeline_enabled=False,
+               engine_options={"audit_sample_rate": 0.5, "stream_slice_target_ms": 10.0})
+    d.start()
+    try:
+        assert d.batcher.admission is None and not d.recorder.enabled
+        assert d.engine.stream_ctrl.target_ms == 10.0 and d.engine.audit_sample_rate == 0.5
+        status, _, h = _hreq("GET", d.read.port, "/check?" + _acl(0, 0).to_url_query())
+        assert status == 200 and h["X-Request-Id"] and "Server-Timing" not in h
+        assert _hreq("GET", d.read.port, "/debug/requests")[1]["recent"] == []
+    finally:
+        d.stop()

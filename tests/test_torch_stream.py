@@ -23,7 +23,7 @@ from keto_tpu_torch.check import kernels
 from keto_tpu_torch.check.engine import CheckEngine
 from keto_tpu_torch.check.gpu_engine import TorchCheckEngine
 from keto_tpu_torch.check.stream import StreamSliceController, _StagingPool
-from keto_tpu_torch.driver.batch import CheckBatcher, _Item
+from keto_tpu_torch.driver.batch import BATCH, CheckBatcher, _Item
 from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectID, SubjectSet
 
 from test_torch_snapshot import jax_store, port_store
@@ -490,15 +490,18 @@ def test_batcher_round_is_bounded_by_the_planned_width():
     rows, queries = mixed_depth(seed=12)
     _, engine = engine_on(rows)
     try:
-        b = CheckBatcher(engine, batch_size=8192)
+        b = CheckBatcher(engine, batch_size=8192, batch_sub_slice=8192)
         engine.stream_ctrl.observe(engine.stream_ctrl.cap(), 1_000_000.0)
         cap = engine.stream_ctrl.cap()
         assert cap < 8192
         with b._cond:
-            for _ in range(cap + 100):
-                b._queue.append(_Item([queries[0]], Future()))
-                b._queued_tuples += 1
+            # a batch-lane chunk wider than the planned width: the round
+            # takes a partial chunk of exactly that width
+            item = _Item([queries[0]] * (cap + 100), Future(), None, False, None, BATCH)
+            b._lanes[BATCH].append(item)
+            b._lane_tuples[BATCH] += item.n
             took = b._take_locked()
-        assert len(took) == cap, "the round is not bounded by the planned slice width"
+        assert [(it, start, count) for it, start, count in took] == [(item, 0, cap)], \
+            "the round is not bounded by the planned slice width"
     finally:
         engine.close()

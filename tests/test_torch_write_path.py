@@ -633,10 +633,11 @@ def test_batcher_coalesces_mixed_consistency():
     real = eng.batch_check_stream_with_token
 
     def spy(tuples, **kw):
-        # the batcher dispatches a round through the engine's stream
-        assert kw.pop("ordered") is False
+        # the batcher dispatches a round through the engine's stream, with
+        # the slice info its request timelines stamp
+        assert kw.pop("ordered") is False and kw.pop("with_info") is True
         seen.append(dict(kw))
-        return real(tuples, ordered=False, **kw)
+        return real(tuples, ordered=False, with_info=True, **kw)
 
     eng.batch_check_stream_with_token = spy
     batcher = CheckBatcher(eng, window_ms=50)
