@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, parity, the BFS
-and label routes of Check, the check scheduler under load, sharded serving,
-reverse queries, the stream and explain, the write path, serve.
+and label routes of Check, the check scheduler under load, the snapshot
+cache, sharded serving, reverse queries, the stream and explain, the write
+path, serve.
 
     python3 chip_smoke.py            # every phase, as a release check runs it
     python3 chip_smoke.py --only build,parity
@@ -9,6 +10,7 @@ reverse queries, the stream and explain, the write path, serve.
     python3 chip_smoke.py --only build,parity,deep,list         # reverse queries
     python3 chip_smoke.py --only build,parity,deep,explain      # the stream and explain
     python3 chip_smoke.py --only build,parity,deep,list,write   # and the write path
+    python3 chip_smoke.py --only build,deep,cache,serve         # the snapshot cache, keyed writes
 
 Phases, in order; any failure exits non-zero:
 
@@ -163,7 +165,26 @@ Phases, in order; any failure exits non-zero:
    around it (the path the bundle replaces), and the bundle once more,
    split into the NUL scan of its columns and the C++ call (main's does
    the same at 1M);
-7. shard — one ``ShardMesh`` of 4 graph shards on the card: (a) main's
+7. cache — the snapshot cache (keto_tpu_torch/graph/snapcache.py), in a
+   ``tempfile.mkdtemp`` directory removed at the end, its disk's free space
+   printed first: (a) deep's snapshot, its labels settled, saved: seconds
+   split into the string tables (the C++ interner's strings one code at a
+   time) and the rest, and bytes; (b) a fresh engine on deep's store with
+   that directory: seconds to its first answered 100k batch beside deep's
+   snapshot and label build, ``cache_loads`` 1, ``full_rebuilds`` 0 and
+   ``label_builds`` 0 or the phase fails, K8 launched by the reload's list
+   layouts, every decision equal to deep's, the resolve path (the host
+   loop: a cached interner has no bulk resolve) and checks/s first and
+   steady; (e) config 3 (main's store, or made anew without main) on a
+   4-shard engine with labels off saves per-shard bucket segments, and a
+   4-shard and a single-device engine each reload them with every decision
+   equal to the expectation; (c) 5,000 new memberships written to a
+   ``fork()`` of the store, an engine reloading the older cache catches up
+   through the delta path (``delta_applies``, no rebuild), every decision
+   and the 5,000 memberships equal to a fresh build's; (d) a segment of
+   that cache corrupted: ``load_latest`` quarantines it. (c) and (d) run at
+   config 4, or at config 3 when (a) and (b) took more than 120 s;
+8. shard — one ``ShardMesh`` of 4 graph shards on the card: (a) main's
    store and 100k checks on a sharded engine with labels off (K10a, the
    BFS route), every decision equal to the analytic expectation and to
    main's unsharded run, a 2,000-query oracle sample, every K10a entry
@@ -194,7 +215,7 @@ Phases, in order; any failure exits non-zero:
    plain version and bound (the halo copy beside ``torch.cat`` and the
    exchange beside ``torch.index_select`` of the flattened stripes, and
    the earlier yardstick ``torch.stack(...).sum(0)``);
-8. list — on the deep phase's engine and store: 200 ListObjects ("which
+9. list — on the deep phase's engine and store: 200 ListObjects ("which
    issues may user-u view") and 200 ListSubjects ("which users may view
    issue-j"), each against its analytic expected set from the generator's
    maps; p50/p99 seconds and items/s per orientation (cache misses only),
@@ -205,7 +226,7 @@ Phases, in order; any failure exits non-zero:
    allowed, as many unlisted ones denied); K5 (a whole run, its kernel
    alone, its launches and host reads a run) and K8 are timed at the
    path's shapes beside their plain versions and bounds;
-9. explain — on the deep phase's engine and store, labels on: the 100k
+10. explain — on the deep phase's engine and store, labels on: the 100k
    checks through ``batch_check_stream`` (ordered) and through
    ``batch_check_stream_with_token(ordered=False, with_info=True)``, each
    equal to ``batch_check`` and the expectation with every offset
@@ -230,7 +251,7 @@ Phases, in order; any failure exits non-zero:
    with the label witness launched once per interior pair; explain p50/p99
    seconds; the label witness is then timed at one pair and at 65,536
    pairs on config 4's label arrays beside its plain version and bound;
-10. write — the deep phase's engine and store take writes through the
+11. write — the deep phase's engine and store take writes through the
    store, as the REST write API makes them: (a) the reference bench's
    burst of 5,000 new team memberships (interior→sink edges: the labels
    stay live, the background fold absorbs the burst), (b) 64 new
@@ -257,7 +278,7 @@ Phases, in order; any failure exits non-zero:
    bucket in one fused launch: the copy and the patch; one launch and no
    host read a call, or the row fails), and K5 on the first
    fixpoint that ran with the overlay pending, against its plain version;
-11. serve — the REST server with the default engine (labels on) and a
+12. serve — the REST server with the default engine (labels on) and a
    decision log sampling every check: ``GET /check/explain`` on a grant
    (a verified witness) and a deny (a certificate), the cat-videos checks
    (200, 200, 403, 200) read back from the decision log, read-your-writes
@@ -270,11 +291,15 @@ Phases, in order; any failure exits non-zero:
    clamped depth, a 400 without ``max-depth``), ``GET /relation-tuples``
    paged one tuple at a time (equal to the store's own read), and a
    ``PATCH /relation-tuples`` of an insert and a delete, read back through
-   ``/relation-tuples``, ``/check`` and ``/expand``.
+   ``/relation-tuples``, ``/check`` and ``/expand``; last, 64 concurrent
+   keyed ``PUT /relation-tuples`` (``X-Idempotency-Key``, one keep-alive
+   connection a writer), each resent once: every resend replays its token,
+   the daemon's group-commit coordinator commits them in fewer groups than
+   writers, and ``GET /check?snaptoken=`` reads every write.
 
 ``--only`` names a subset; ``lanes`` and ``labels`` need ``main``,
-``shard`` needs ``main`` and ``deep``, ``list`` and ``explain`` need ``deep`` and ``write``
-needs ``list`` (they run on that phase's engine and store), and a subset
+``shard`` needs ``main`` and ``deep``, ``cache``, ``list`` and ``explain`` need ``deep`` and
+``write`` needs ``list`` (they run on that phase's engine and store), and a subset
 that breaks this exits non-zero.
 
 Output: progress lines, the ``{"kernels": [...]}`` line, the card line, and
@@ -285,17 +310,19 @@ no result, where ``torch.cuda.is_available()`` is false.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import random
 import subprocess
 import sys
 import time
+import types
 
-PHASES = ("build", "parity", "main", "lanes", "labels", "deep", "shard", "list", "explain",
-          "write", "serve")
+PHASES = ("build", "parity", "main", "lanes", "labels", "deep", "cache", "shard", "list",
+          "explain", "write", "serve")
 #: a phase that runs on the engine and store of another
 PHASE_NEEDS = {"lanes": ("main",), "labels": ("main",), "shard": ("main", "deep"),
-               "list": ("deep",),
+               "cache": ("deep",), "list": ("deep",),
                "explain": ("deep",), "write": ("list",)}
 SEED = 20261017
 N_TUPLES = 1_000_000
@@ -2859,6 +2886,256 @@ def phase_deep(torch, kernels, report):
     return engine, snap, captured, launches, store, queries, got, ctx, sort_keys
 
 
+#: the cache phase: the catch-up's writes, the seconds of its save and
+#: reload past which the catch-up and the corruption run at config 3, and
+#: the sharded save's shards
+CACHE_WRITES = 5_000
+CACHE_CONFIG3_AFTER_S = 120.0
+CACHE_SHARDS = 4
+
+
+def config3_store():
+    """Config 3's store, queries and expected decisions, made as the main
+    phase makes them (for a cache phase run without main)."""
+    from keto_tpu_torch import namespace as tns
+    from keto_tpu_torch.persistence.memory import MemoryPersister
+    from keto_tpu_torch.workloads import RBAC_NAMESPACES, rbac_queries, rbac_workload
+
+    rng = random.Random(SEED)
+    tuples, ctx = rbac_workload(rng, N_TUPLES)
+    queries, expected = rbac_queries(rng, N_CHECKS, ctx)
+    nm = tns.MemoryManager(RBAC_NAMESPACES)
+    store = MemoryPersister(nm)
+    store.write_relation_tuples(*tuples)
+    return store, nm, queries, expected
+
+
+def cache_burst(snap, ns: str, ns_id: int, prefix: str, rng) -> list:
+    """CACHE_WRITES memberships of new users on the groups ``prefix-k`` that
+    ``snap`` holds (sink edges: the overlay keeps the labels live)."""
+    from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectID
+
+    n_groups = 0
+    while snap.resolve_set(ns_id, f"{prefix}-{n_groups}", "member") is not None:
+        n_groups += 1
+    return [RelationTuple(ns, f"{prefix}-{rng.randrange(n_groups)}", "member",
+                          SubjectID(f"cache-user-{i}")) for i in range(CACHE_WRITES)]
+
+
+def phase_cache(torch, kernels, report, deep_keep, main_keep, device="cuda"):
+    """The snapshot cache (see the module docstring): (a) deep's snapshot
+    saved, (b) reloaded by a fresh engine, (e) config 3's sharded save
+    reloaded by a sharded and a single-device engine, (c) an older cache
+    caught up through the delta path, (d) a corrupted segment quarantined.
+    Returns the reload's launch counts (K8's among them)."""
+    import os
+    import shutil
+    import tempfile
+
+    from keto_tpu_torch.check.gpu_engine import TorchCheckEngine
+    from keto_tpu_torch.graph import snapcache
+    from keto_tpu_torch.parallel import make_mesh
+    from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectID
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def fail(what):
+        raise SystemExit(f"cache FAILED: {what}")
+
+    deep, store, queries, got_deep, _ = deep_keep
+    out: dict = {}
+    root = tempfile.mkdtemp(prefix="keto-snapcache-")
+    try:
+        usage = shutil.disk_usage(root)
+        out["disk"] = {"dir": root, "free_bytes": usage.free, "total_bytes": usage.total}
+        log(f"cache: {root}, {usage.free / 2**30:.1f} GiB free of {usage.total / 2**30:.1f} GiB")
+
+        # (a) the save: deep's snapshot, its labels settled
+        if not deep.labels_settled():
+            fail("deep's engine has no label index to save")
+        d4 = os.path.join(root, "config4")
+        timings: dict = {}
+        snap = deep.snapshot()
+        path4 = snapcache.save_snapshot(snap, d4, labels_wait=deep._label_build_wait,
+                                        timings=timings)
+        if path4 is None:
+            fail("deep's snapshot was not cacheable")
+        save = {**timings, "rest_s": timings["seconds"] - timings["strings_s"],
+                "tag": os.path.basename(path4),
+                "segments": len(json.loads(open(os.path.join(path4, "meta.json")).read())
+                                ["segments"])}
+        out["save"] = save
+        log(f"cache (a) save: {json.dumps(save)}")
+
+        # (b) the reload: a fresh engine on deep's store, to its first batch
+        kernels.reset_counts()
+        t0 = time.monotonic()
+        eng = TorchCheckEngine(store, store.namespaces, device=device, snapshot_cache_dir=d4)
+        got = eng.batch_check(queries)
+        sync()
+        first_s = time.monotonic() - t0
+        launches = dict(kernels.COUNTS)
+        c = eng.counters()
+        t0 = time.monotonic()
+        got2 = eng.batch_check(queries)
+        sync()
+        steady_s = time.monotonic() - t0
+        deep_r = report.get("deep", {})
+        reload = {
+            "first_batch_s": first_s, "reload_s": eng.last_cache_load["seconds"],
+            "bytes": eng.last_cache_load["bytes"], "labels": eng.last_cache_load["labels"],
+            "deep_snapshot_s": deep_r.get("snapshot_s"),
+            "deep_label_build_s": deep_r.get("label_build", {}).get("build_s"),
+            "deep_label_settled_s": deep_r.get("label_build", {}).get("settled_s"),
+            "counters": {k: c.get(k, 0) for k in (
+                "cache_loads", "full_rebuilds", "label_builds", "cache_quarantined",
+                "cache_load_failures", "label_checks", "label_fallbacks",
+                "resolve_python_batches", "resolve_native_batches",
+                "device_build_dispatches", "device_build_host_dispatches")},
+            "k8": {k: launches[k] for k in ("radix_sort", "radix_hist", "radix_pass",
+                                            "radix_pass_skipped")},
+            "resolve_path": "python" if not c.get("resolve_native_batches") else "native",
+            "checks_per_s_first": len(queries) / first_s,
+            "checks_per_s_steady": len(queries) / steady_s,
+            "wrong_vs_deep": sum(a != b for a, b in zip(got, got_deep)),
+        }
+        out["reload"] = reload
+        log(f"cache (b) reload: {json.dumps(reload)}")
+        if reload["wrong_vs_deep"] or got2 != got:
+            fail(f"{reload['wrong_vs_deep']} reloaded decisions differ from deep's")
+        if (c.get("cache_loads"), c.get("full_rebuilds", 0), c.get("label_builds", 0)) != (1, 0, 0):
+            fail(f"the reload's counters: {reload['counters']}")
+        if on_card and not launches["radix_hist"]:
+            fail("the reload's list layouts never launched K8")
+        eng.close()
+        del eng, got, got2
+        ab_s = timings["seconds"] + first_s
+        small = ab_s > CACHE_CONFIG3_AFTER_S
+        out["catch_up_config"] = 3 if small else 4
+
+        # (e) config 3's sharded save, reloaded sharded and single-device
+        if main_keep is not None:
+            _, queries3, (store3, nm3, _, expected3) = main_keep
+        else:
+            store3, nm3, queries3, expected3 = config3_store()
+        d3 = os.path.join(root, "config3")
+        kw3 = dict(device=device, labels_enabled=False, snapshot_cache_dir=d3)
+        sh = TorchCheckEngine(store3, nm3, mesh=make_mesh(graph=CACHE_SHARDS, device=device), **kw3)
+        snap3 = sh.snapshot()
+        sh.cache_settled(600)
+        path3 = sh.save_snapshot_cache()
+        saved3 = dict(sh.last_cache_save or {})
+        sh.close()
+        names = os.listdir(path3)
+        meta3 = json.loads(open(os.path.join(path3, "meta.json")).read())
+        stripes = [n for n in names if n.startswith("bucket_") and "_s" in n]
+        sharded = {"shards": meta3["shards"], "stripes": len(stripes),
+                   "buckets": len(meta3["buckets"]),
+                   "groups": sorted(g for g in meta3["groups"] if g.startswith("shard")),
+                   "save_s": saved3.get("seconds"), "bytes": saved3.get("bytes")}
+        if meta3["shards"] != CACHE_SHARDS or len(stripes) != CACHE_SHARDS * len(meta3["buckets"]):
+            fail(f"the sharded save: {sharded}")
+        for mode, extra in (("sharded", {"mesh": make_mesh(graph=CACHE_SHARDS, device=device)}),
+                            ("single", {})):
+            t0 = time.monotonic()
+            e = TorchCheckEngine(store3, nm3, **kw3, **extra)
+            g = e.batch_check(queries3)
+            sync()
+            ce = e.counters()
+            wrong = sum(a != b for a, b in zip(g, expected3))
+            sharded[mode] = {"first_batch_s": time.monotonic() - t0,
+                             "reload_s": e.last_cache_load["seconds"] if e.last_cache_load else None,
+                             "cache_loads": ce.get("cache_loads", 0),
+                             "full_rebuilds": ce.get("full_rebuilds", 0), "wrong": wrong}
+            e.close()
+            if wrong or (ce.get("cache_loads"), ce.get("full_rebuilds", 0)) != (1, 0):
+                fail(f"the {mode} reload of the sharded save: {sharded[mode]}")
+        out["sharded"] = sharded
+        log(f"cache (e) sharded: {json.dumps(sharded)}")
+
+        # (c) the catch-up: writes on a fork, the older cache reloaded, the
+        # delta path to the fork's watermark, decisions equal a fresh build's
+        if small:
+            cstore, cnm, cq, cdir, csnap = store3, nm3, queries3, d3, snap3
+            burst_of, labels = ("groups", 1, "leaf"), False
+        else:
+            cstore, cnm, cq, cdir, csnap = store, store.namespaces, queries, d4, snap
+            burst_of, labels = ("teams", 2, "team"), True
+        burst = cache_burst(csnap, *burst_of, random.Random(SEED + 7))
+        fork = cstore.fork()
+        t0 = time.monotonic()
+        wm = fork.transact_relation_tuples(burst, ()).snaptoken
+        store_s = time.monotonic() - t0
+        qs = list(cq) + [RelationTuple(b.namespace, b.object, "member", b.subject) for b in burst]
+        qs += [RelationTuple(b.namespace, b.object, "member", SubjectID(b.subject.id + "-ghost"))
+               for b in burst[:500]]
+        t0 = time.monotonic()
+        e = TorchCheckEngine(fork, cnm, device=device, snapshot_cache_dir=cdir,
+                             labels_enabled=labels, compact_after_s=3600.0,
+                             overlay_edge_budget=1 << 20)
+        got = e.batch_check(qs)
+        sync()
+        catch_s = time.monotonic() - t0
+        ce = e.counters()
+        snap_c = e.snapshot()
+        e.close()
+        t0 = time.monotonic()
+        fresh = TorchCheckEngine(fork, cnm, device=device, labels_enabled=False)
+        want = fresh.batch_check(qs)
+        sync()
+        fresh_s = time.monotonic() - t0
+        fresh.close()
+        catch = {"config": out["catch_up_config"], "writes": len(burst), "store_s": store_s,
+                 "watermark": wm, "cached_watermark": int(csnap.snapshot_id),
+                 "first_batch_s": catch_s, "fresh_build_and_batch_s": fresh_s,
+                 "checks": len(qs), "overlay": snap_c.has_overlay,
+                 "snapshot_id": int(snap_c.snapshot_id),
+                 "counters": {k: ce.get(k, 0) for k in ("cache_loads", "delta_applies",
+                                                        "full_rebuilds", "label_builds")},
+                 "wrong_vs_fresh": sum(a != b for a, b in zip(got, want)),
+                 "burst_granted": sum(got[len(cq):len(cq) + len(burst)])}
+        out["catch_up"] = catch
+        log(f"cache (c) catch-up: {json.dumps(catch)}")
+        if catch["wrong_vs_fresh"] or catch["burst_granted"] != len(burst) or \
+                snap_c.snapshot_id != wm:
+            fail(f"the catch-up decided otherwise than a fresh build: {catch}")
+        if (ce.get("cache_loads"), ce.get("full_rebuilds", 0)) != (1, 0) or not ce.get("delta_applies"):
+            fail(f"the catch-up did not reload and apply a delta: {catch['counters']}")
+        del fork, got, want
+
+        # (d) a corrupted segment is quarantined
+        victim_dir = sorted(p for p in os.listdir(cdir) if p.startswith("v"))[-1]
+        meta_c = json.loads(open(os.path.join(cdir, victim_dir, "meta.json")).read())
+        victim = "lab_out.npy" if "lab_out.npy" in meta_c["segments"] else sorted(
+            n for n in meta_c["segments"] if n.startswith("bucket_"))[0]
+        seg = os.path.join(cdir, victim_dir, victim)
+        with open(seg, "r+b") as f:
+            f.seek(os.path.getsize(seg) // 2)
+            b = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([b[0] ^ 0xFF]))
+
+        counts = collections.Counter()
+        t0 = time.monotonic()
+        loaded = snapcache.load_latest(
+            cdir, stats=types.SimpleNamespace(incr=lambda k, by=1: counts.update({k: by})))
+        corrupt = {"segment": victim, "quarantined": counts["cache_quarantined"],
+                   "loaded": loaded is not None, "seconds": time.monotonic() - t0,
+                   "left": sorted(os.listdir(cdir))}
+        out["corruption"] = corrupt
+        log(f"cache (d) corruption: {json.dumps(corrupt)}")
+        if loaded is not None or corrupt["quarantined"] != 1 or victim_dir in corrupt["left"]:
+            fail(f"the corrupted cache was not quarantined: {corrupt}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    report["cache"] = out
+    return launches
+
+
 def bare_ms(torch, launch, states, spin_cycles: int = 2_000_000) -> float:
     """Mean device time of one bare launch: ``launch(state)`` once on each of
     ``states`` (made beforehand), between two CUDA events queued behind a
@@ -4987,10 +5264,12 @@ def k5_row(torch, lk, cap, launches, rate, name, note):
     return row
 
 
-def list_sort_rows(torch, kernels, captured, list_launches, deep_launches, sort_keys, rate):
+def list_sort_rows(torch, kernels, captured, list_launches, deep_launches, sort_keys, rate,
+                   cache_launches=None):
     """K5 at the list phase's shapes (the first ListObjects fixpoint) and K8
     on the deep build's largest key array, each beside its plain version and
-    bound; K8 also beside ``torch.argsort(stable=True)``."""
+    bound; K8 also beside ``torch.argsort(stable=True)``, with the cache
+    phase's reload's launches where it ran."""
     import numpy as np
 
     from keto_tpu_torch.graph import sort_kernels as sk
@@ -5032,6 +5311,9 @@ def list_sort_rows(torch, kernels, captured, list_launches, deep_launches, sort_
                  "kernel_bytes_bound_ms": sk.kernel_bytes(n, len(plan)) / rate * 1e3,
                  "kernel_launches": {k: deep_launches[k] for k in
                                      ("radix_hist", "radix_pass", "radix_pass_skipped")},
+                 "cache_reload_launches": None if cache_launches is None else {
+                     k: cache_launches[k] for k in ("radix_sort", "radix_hist", "radix_pass",
+                                                    "radix_pass_skipped")},
                  "note": "launches = whole sorts in the deep build (each one keto_radix_hist, "
                          "then one keto_radix_pass per pass its plan runs; radix_pass_skipped "
                          "counts the passes left out); ms = the wrapper's whole call (its one "
@@ -5185,6 +5467,84 @@ def serve_tuple_api(d, req) -> dict:
     return out
 
 
+#: concurrent keyed writers of the serve phase, each resending its PUT once
+SERVE_KEYED_WRITERS = 64
+
+
+def serve_keyed_writes(d) -> dict:
+    """SERVE_KEYED_WRITERS concurrent ``PUT /relation-tuples`` with an
+    ``X-Idempotency-Key`` each, each resent once: every resend must replay
+    its write's token (``X-Keto-Idempotent-Replay: true``), the store must
+    commit them in fewer groups than writers (the daemon's group-commit
+    coordinator), and ``GET /check?snaptoken=`` must read every write. Each
+    writer keeps one connection open (keep-alive), opened before the
+    writers start, as a client pool does."""
+    import http.client
+    import threading
+    import urllib.request
+
+    from keto_tpu_torch.relationtuple.model import RelationTuple
+
+    def put(conn, t, key):
+        conn.request("PUT", "/relation-tuples", body=json.dumps(t.to_json()).encode(),
+                     headers={"X-Idempotency-Key": key, "Content-Type": "application/json"})
+        resp = conn.getresponse()
+        resp.read()
+        return resp.status, dict(resp.getheaders())
+
+    n = SERVE_KEYED_WRITERS
+    tuples = [RelationTuple.from_string(f"videos:/cats/keyed-{i}.mp4#view@writer-{i}")
+              for i in range(n)]
+    first: list = [None] * n
+    again: list = [None] * n
+    flush0, writers0 = d.writer.flush_total, d.writer.writers_total
+    replays0 = d.store.idempotent_replays
+    conns = [http.client.HTTPConnection("127.0.0.1", d.write.port, timeout=60) for _ in range(n)]
+    for c in conns:
+        c.connect()
+    barrier = threading.Barrier(n + 1)
+
+    def writer(i):
+        barrier.wait()
+        first[i] = put(conns[i], tuples[i], f"serve-keyed-{i}")
+        again[i] = put(conns[i], tuples[i], f"serve-keyed-{i}")
+
+    threads = [threading.Thread(target=writer, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    t0 = time.monotonic()
+    for t in threads:
+        t.join()
+    wall = time.monotonic() - t0
+    for c in conns:
+        c.close()
+    tokens = [int(h.get("X-Keto-Snaptoken", -1)) for _, h in first]
+    out = {"writers": n, "seconds": wall,
+           "statuses": sorted({st for st, _ in first + again}),
+           "distinct_tokens": len(set(tokens)),
+           "replayed": sum(h.get("X-Keto-Idempotent-Replay") == "true"
+                           and int(h.get("X-Keto-Snaptoken", -2)) == tok
+                           for (_, h), tok in zip(again, tokens)),
+           "first_replayed": sum(h.get("X-Keto-Idempotent-Replay") == "true" for _, h in first),
+           "flush_total": d.writer.flush_total - flush0,
+           "writers_total": d.writer.writers_total - writers0,
+           "store_replays": d.store.idempotent_replays - replays0}
+    read = 0
+    for t, tok in zip(tuples, tokens):
+        q = t.to_url_query() + f"&snaptoken={tok}"
+        with urllib.request.urlopen(f"http://127.0.0.1:{d.read.port}/check?{q}", timeout=60) as r:
+            read += json.loads(r.read()) == {"allowed": True} and \
+                int(r.headers["X-Keto-Snaptoken"]) >= tok
+    out["read_at_token"] = read
+    log(f"serve: keyed writers {json.dumps(out)}")
+    if out["statuses"] != [201] or out["distinct_tokens"] != n or out["replayed"] != n \
+            or out["first_replayed"] or out["store_replays"] != n or read != n \
+            or not out["flush_total"] < n:
+        raise SystemExit(f"serve FAILED: keyed writers {out}")
+    return out
+
+
 def phase_serve(kernels, report):
     import tempfile
     import urllib.error
@@ -5293,6 +5653,7 @@ def phase_serve(kernels, report):
             raise SystemExit(f"serve FAILED: the listings did not run K5 on the card: {routes}")
         report["serve_list_launches"] = dict(kernels.COUNTS)
         report["serve_tuple_api"] = serve_tuple_api(d, req)
+        report["serve_keyed_writes"] = serve_keyed_writes(d)
     finally:
         d.stop()
         log_dir.cleanup()
@@ -5302,8 +5663,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help=f"comma-separated phases to run (default: all of {','.join(PHASES)}); "
-                         "lanes and labels need main, shard needs main and deep, list and "
-                         "explain need deep, write needs list")
+                         "lanes and labels need main, shard needs main and deep, cache, list "
+                         "and explain need deep, write needs list")
     args = ap.parse_args(argv)
     phases = set(args.only.split(","))
     unknown = phases - set(PHASES)
@@ -5347,6 +5708,7 @@ def main(argv=None) -> int:
     if "parity" in phases:
         phase_parity(torch, kernels, report)
     rows = []
+    main_keep = None
     if "main" in phases:
         engine, snap, queries, main_ctx = phase_main(torch, kernels, report)
         rows, step = kernel_rows(torch, kernels, engine, snap, queries, rate, report["launches"])
@@ -5359,8 +5721,9 @@ def main(argv=None) -> int:
         if "labels" in phases:
             phase_labels(torch, kernels, report, main_ctx, queries)
             log(json.dumps({"labels": report["labels"]}))
-        # the shard phase holds its config 3 run against this engine's
-        main_keep = (engine, queries, main_ctx) if "shard" in phases else None
+        # the shard phase holds its config 3 run against this engine's; the
+        # cache phase saves and reloads its store
+        main_keep = (engine, queries, main_ctx) if phases & {"shard", "cache"} else None
         del engine, snap, queries, main_ctx
     log(f"elapsed {time.monotonic() - t_start:.1f}s")
     if "deep" in phases:
@@ -5370,15 +5733,23 @@ def main(argv=None) -> int:
         log(json.dumps({"deep": report["deep"]}))
         del snap, captured
         log(f"elapsed {time.monotonic() - t_start:.1f}s")
+        cache_launches = None
+        if "cache" in phases:
+            cache_launches = phase_cache(torch, kernels, report,
+                                         (engine, store, deep_q, deep_got, ctx), main_keep)
+            log(json.dumps({"cache": report["cache"]}))
+            log(f"elapsed {time.monotonic() - t_start:.1f}s")
         if "shard" in phases:
             rows += phase_shard(torch, kernels, report, main_keep,
                                 (engine, store, deep_q, deep_got, ctx), rate, int_rate)
+            log(f"elapsed {time.monotonic() - t_start:.1f}s")
+        if main_keep is not None:
             main_keep[0].close()
             main_keep = None
-            log(f"elapsed {time.monotonic() - t_start:.1f}s")
         if "list" in phases:
             lst, lcap, ll = phase_list(torch, kernels, report, engine, store, ctx)
-            rows += list_sort_rows(torch, kernels, lcap, ll, launches, sort_keys, rate)
+            rows += list_sort_rows(torch, kernels, lcap, ll, launches, sort_keys, rate,
+                                   cache_launches)
             log(json.dumps({"list": report["list"]}))
             del lcap
             log(f"elapsed {time.monotonic() - t_start:.1f}s")

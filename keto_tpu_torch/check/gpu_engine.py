@@ -105,13 +105,35 @@ request: it is an alarm off the serving path, not a fallback. The
 reference's DEGRADED health flip waits for the health machine (ROADMAP
 A6).
 
+The snapshot cache (tpu_engine.py:2449-2540, keto_tpu_torch/graph/
+snapcache.py). With ``snapshot_cache_dir`` the first refresh reloads the
+newest cache at or below the store's watermark (its list layouts
+re-derived through the build sorter, K8 on the card), uploads its buckets
+(striped per shard when sharded, from either kind of save) and its labels
+without a build (dropped with ``labels_enabled=False``; a cache without
+labels starts the label build), and catches up through the delta path.
+A cache whose wildcard namespaces differ from the configuration's is not
+used. Every overlay-free install kicks a save on the supervised ``cache``
+worker; ``save_snapshot_cache()`` saves at once. A corrupt cache is
+quarantined and an unreadable one passed over, as in the reference, but
+any other reload error — a failed K8 launch or upload — raises and
+counts ``cache_load_failures``, where the reference retries it for 2 s
+and then rebuilds (tpu_engine.py:2461-2470). Store reads on the refresh
+path (``changes_since`` and the full build's scans) go through
+``_read_store``: the store's own errors (an ``OSError``: a dropped
+connection, a timeout, an I/O error) retry with jittered backoff for up
+to ``refresh_retry_max_wait_s`` (counted in ``refresh_read_retries``);
+any other error, of the port's own code, of torch or of CUDA, raises at
+once.
+
 Kept against the reference engine: bucket upload, the label build
 overlapped on a background thread and installed only onto the exact
 snapshot it was built for, host resolution, the label router, slicing, the
 exact truncation re-run ladder and the
-grow-only ``block_iters`` retune. Not here: the snapshot cache, group
-commit, shards on several cards, the GSPMD mode and the multi-process
-lockstep, the HBM governor (and its staging rung) and any CPU fallback.
+grow-only ``block_iters`` retune. Not here: shards on several cards, the
+GSPMD mode and the multi-process lockstep, the HBM governor (and its
+staging rung), the fault-injection seams (ROADMAP A10) and any CPU
+fallback.
 A device error raises; a failed label
 build, background refresh, fold or device label patch is counted and
 raised by the next check (and by ``labels_settled()`` and
@@ -128,6 +150,7 @@ import logging
 import random
 import threading
 import time
+import types
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
@@ -143,8 +166,8 @@ from keto_tpu_torch.check.pack import (
     pack_chunk,
     pack_entries,
 )
-from keto_tpu_torch.graph import label_build
-from keto_tpu_torch.graph.carry import device_graph_from_arrays, snapshot_arrays
+from keto_tpu_torch.graph import label_build, snapcache
+from keto_tpu_torch.graph.carry import device_graph_from_arrays, host_tensor, snapshot_arrays
 from keto_tpu_torch.graph.compaction import compact_snapshot
 from keto_tpu_torch.graph.device_build import GovernedSorter, estimate_sort_bytes
 from keto_tpu_torch.graph.labels import build_labels, patch_labels
@@ -155,10 +178,12 @@ from keto_tpu_torch.parallel import sharded as shard_mod
 from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectID, SubjectSet
 from keto_tpu_torch.x.device import resolve_device, same_device
 from keto_tpu_torch.x.errors import ErrNamespaceUnknown
+from keto_tpu_torch.x.retry import retry_call
 from keto_tpu_torch.x.supervise import SupervisedTask
 from keto_tpu_torch.x.telemetry import DurationStats
 
 _log = logging.getLogger("keto_tpu_torch.check")
+
 
 #: distinct-from-None cache sentinel for namespace resolution
 _UNSET = object()
@@ -289,7 +314,9 @@ class TorchCheckEngine:
     ``stream_slice_target_ms`` (40 ms a slice) and ``stream_tail_ratio``
     (5). ``audit_sample_rate`` (0: off) samples decisions into the shadow
     audit. ``mesh`` (a ``ShardMesh`` on the engine's device) selects the
-    sharded mode.
+    sharded mode. ``snapshot_cache_dir`` (None: off) keeps the snapshot
+    cache there; ``refresh_retry_max_wait_s`` bounds the retries of a
+    failing store read on the refresh path.
     """
 
     #: the stream yields per-slice route info (``with_info=True``)
@@ -324,6 +351,8 @@ class TorchCheckEngine:
         stream_tail_ratio: float = 5.0,
         audit_sample_rate: float = 0.0,
         mesh=None,
+        snapshot_cache_dir: Optional[str] = None,
+        refresh_retry_max_wait_s: float = 2.0,
     ):
         if it_cap < 1:
             raise ValueError("it_cap must be >= 1 (the answer pull needs one step)")
@@ -404,6 +433,24 @@ class TorchCheckEngine:
         self._refresh_task = SupervisedTask(
             "refresh", self._refresh_pass, on_error=self._note_maintenance_error
         )
+        # a failing store read on the refresh path retries for this long
+        self._refresh_retry_max_wait_s = float(refresh_retry_max_wait_s)
+        # the snapshot cache (keto_tpu_torch/graph/snapcache.py): the newest
+        # overlay-free snapshot waits here for the supervised save pass
+        self._cache_dir = snapshot_cache_dir or None
+        self._cache_pending: Optional[GraphSnapshot] = None
+        self._cache_task = SupervisedTask(
+            "cache", self._cache_save_pass,
+            on_error=lambda e: self._incr("cache_save_failures"),
+        )
+        # snapcache counts quarantines through this sink's incr
+        self._cache_stats = types.SimpleNamespace(incr=self._incr)
+        #: the last cache reload: its seconds, bytes (the segments read),
+        #: path and watermark, and whether it carried labels
+        self.last_cache_load: Optional[dict] = None
+        #: the last cache save: its seconds by part (snapcache.save_snapshot's
+        #: timings), bytes and path
+        self.last_cache_save: Optional[dict] = None
         # the shadow audit (tpu_engine.py:1349-1366): the fraction of live
         # decisions re-checked on the CPU oracle, off the serving path
         self.audit_sample_rate = max(0.0, float(audit_sample_rate))
@@ -452,7 +499,10 @@ class TorchCheckEngine:
         # query, or a snapshot interned in Python); slice_splits,
         # the sub-chunks past the first that chunks whose entries passed
         # their budget were split into; and, sharded, shard_halo_rounds,
-        # shard_halo_bytes and shard_frontier_bits
+        # shard_halo_bytes and shard_frontier_bits; the snapshot cache's
+        # cache_loads, cache_saves, cache_quarantined, cache_reload_retries
+        # (an unreadable cache directory), cache_save_failures and
+        # cache_load_failures (a reload that raised); refresh_read_retries
         self._counters: collections.Counter = collections.Counter()
         self._counter_lock = threading.Lock()
         # the build's stable sorts: K8 on the card past the size gate
@@ -582,9 +632,10 @@ class TorchCheckEngine:
         return self._snapshot
 
     def close(self) -> None:
-        """Stop the background refresh and audit workers."""
+        """Stop the background refresh, audit and cache-save workers."""
         self._refresh_task.stop()
         self._audit_task.stop()
+        self._cache_task.stop()
 
     def _refresh_locked(
         self, force_full: bool = False, delta_only: bool = False, maintenance: bool = False
@@ -595,9 +646,12 @@ class TorchCheckEngine:
         layout by segment — on the background pass (``maintenance``) only;
         a full rebuild is the last resort, for shapes the overlay or the
         fold cannot express. With ``delta_only`` returns None instead of
-        rebuilding (the serving path)."""
+        rebuilding (the serving path). The first refresh of an engine with a
+        snapshot cache reloads the cache, then catches up from it."""
         snap = self._snapshot
         wm = self._store.watermark()
+        if snap is None and self._cache_dir is not None and not delta_only:
+            snap = self._load_cache_locked(wm)
         needs_fold = (
             snap is not None
             and snap.has_overlay
@@ -648,6 +702,7 @@ class TorchCheckEngine:
                 peel_seed_cap=self._peel_seed_cap,
                 sorter=self._build_sorter,
                 progress=self.build_progress,
+                read_retry=self._read_store,
             )
             sort_s = self._take_sort_seconds()
             self._upload_buckets(new)
@@ -679,7 +734,121 @@ class TorchCheckEngine:
         if rebuilt:
             # the label build overlaps serving: BFS answers until it installs
             self._start_label_build(new)
+        if not new.has_overlay:
+            # after the label build has started: the save joins it
+            self._kick_cache_save(new)
         return new
+
+    def _read_store(self, fn, *args):
+        """A store read on the refresh path (tpu_engine.py:1507-1524): the
+        store's own errors (``OSError``) retry with jittered backoff for up
+        to ``refresh_retry_max_wait_s`` (each retry counted in
+        ``refresh_read_retries``), then the last one raises and fails the
+        pass. Any other error raises at once: the reference retries every
+        error, which would retry a fault of the interner, torch or CUDA."""
+        return retry_call(
+            lambda: fn(*args),
+            max_wait_s=self._refresh_retry_max_wait_s,
+            base_s=0.05,
+            max_s=0.5,
+            retryable=lambda e: isinstance(e, OSError),
+            on_retry=lambda e, d: self._incr("refresh_read_retries"),
+        )
+
+    # -- the snapshot cache (tpu_engine.py:2447-2540) ---------------------------
+
+    def _load_cache_locked(self, store_wm: int) -> Optional[GraphSnapshot]:
+        """Cold start: reload the newest usable cache at or below
+        ``store_wm`` and install it; the caller then catches up through the
+        delta path. None when no cache fits (none at or below the
+        watermark, every one corrupt or unreadable, or its wildcard
+        namespaces differ from the configuration's). An unreadable cache
+        directory retries for 2 s (``cache_reload_retries``); any other
+        error raises, counted in ``cache_load_failures``."""
+        t0 = time.monotonic()
+        loaded: dict = {}
+        try:
+            snap = retry_call(
+                lambda: snapcache.load_latest(
+                    self._cache_dir, max_watermark=store_wm, stats=self._cache_stats,
+                    sorter=self._build_sorter, loaded=loaded,
+                ),
+                max_wait_s=2.0,
+                base_s=0.05,
+                max_s=0.5,
+                retryable=lambda e: isinstance(e, OSError),
+                on_retry=lambda e, d: self._incr("cache_reload_retries"),
+            )
+            if snap is None:
+                return None
+            wild_now = frozenset(n.id for n in self._nm().namespaces() if n.name == "")
+            if snap.wild_ns_ids != wild_now:
+                return None  # the namespace config changed: the expansion differs
+            self._upload_buckets(snap)
+            if snap.labels is not None and not self._labels_enabled:
+                snap.labels = None  # cached labels ignored when disabled
+            if snap.labels is not None:
+                self._upload_labels(snap)
+        except Exception:
+            self._incr("cache_load_failures")
+            raise
+        self._ov_pack = None
+        with self._swap_lock:
+            self._snapshot = snap
+        if snap.labels is None:
+            self._start_label_build(snap)
+        self._incr("cache_loads")
+        self.last_cache_load = {
+            "seconds": time.monotonic() - t0, "bytes": loaded.get("bytes"),
+            "path": loaded.get("path"), "watermark": int(snap.snapshot_id),
+            "labels": snap.labels is not None,
+        }
+        _log.info("snapshot cache reloaded: %s", self.last_cache_load)
+        return snap
+
+    def _kick_cache_save(self, snap: GraphSnapshot) -> None:
+        """Persist an overlay-free snapshot on the supervised ``cache``
+        worker (a failed pass counts ``cache_save_failures`` and retries);
+        kicks coalesce, so only the newest pending snapshot is saved."""
+        if self._cache_dir is None or snap.has_overlay:
+            return
+        self._cache_pending = snap
+        self._cache_task.kick()
+
+    def _cache_save_pass(self) -> None:
+        """One supervised cache-save pass (the SupervisedTask target)."""
+        snap = self._cache_pending
+        if snap is None:
+            return
+        self._save_cache(snap)
+        if self._cache_pending is snap:
+            self._cache_pending = None
+
+    def _save_cache(self, snap: GraphSnapshot) -> Optional[str]:
+        timings: dict = {}
+        path = snapcache.save_snapshot(
+            snap, self._cache_dir, shards=max(1, self._shard_count),
+            labels_wait=self._label_build_wait, timings=timings,
+        )
+        if path is not None:
+            self._incr("cache_saves")
+            if timings:  # empty when this watermark's cache was already there
+                self.last_cache_save = {**timings, "path": path,
+                                        "watermark": int(snap.snapshot_id)}
+        return path
+
+    def save_snapshot_cache(self) -> Optional[str]:
+        """Persist the current snapshot at once (its label build joined);
+        returns the cache path, or None when there is no cache directory or
+        the snapshot is not cacheable (a pending overlay)."""
+        if self._cache_dir is None:
+            return None
+        return self._save_cache(self.snapshot())
+
+    def cache_settled(self, timeout: Optional[float] = None) -> bool:
+        """Block until the supervised cache-save worker is idle (tests and
+        ``chip_smoke.py``). Returns False on timeout."""
+        return self._cache_task.wait_idle(timeout)
 
     def _take_sort_seconds(self) -> dict:
         """The build sorter's seconds by backend since the last call."""
@@ -705,7 +874,7 @@ class TorchCheckEngine:
         """Apply the watermark advance as an overlay. None when the store
         cannot produce a delta (its logs no longer reach back), the delta
         needs a class change, or the overlay would pass the hard cap."""
-        got = self._store.changes_since(base.snapshot_id)
+        got = self._read_store(self._store.changes_since, base.snapshot_id)
         if got is None:
             return None
         ops, new_wm = got
@@ -743,9 +912,7 @@ class TorchCheckEngine:
         else:
             bufs = list(g.buckets)
             for bi in got.touched_buckets:
-                bufs[bi] = torch.from_numpy(
-                    np.ascontiguousarray(new.buckets[bi].nbrs, np.int32)
-                ).to(self.device)
+                bufs[bi] = host_tensor(new.buckets[bi].nbrs, np.int32, self.device)
             new.device = dataclasses.replace(g, buckets=tuple(bufs), num_live=new.num_live)
         if got.labels == "patched":
             self._incr("label_patches")
@@ -1249,15 +1416,15 @@ class TorchCheckEngine:
         """Place the label arrays on the device: the pair, or in sharded mode
         (tpu_engine.py:3142-3160) row stripes per shard, each padded with
         its side's own pad."""
-        out_lab = np.ascontiguousarray(snap.labels.out_lab, np.int32)
-        in_lab = np.ascontiguousarray(snap.labels.in_lab, np.int32)
+        out_lab = snap.labels.out_lab
+        in_lab = snap.labels.in_lab
         if self._sharded:
             out_sh, in_sh, rl, _ = shard_mod.route_labels(out_lab, in_lab, self._shard_count)
             snap.device_labels = None
             snap.device_shard_labels = (torch.from_numpy(out_sh).to(self.device),
                                         torch.from_numpy(in_sh).to(self.device), rl)
             return
-        snap.device_labels = tuple(torch.from_numpy(a).to(self.device) for a in (out_lab, in_lab))
+        snap.device_labels = tuple(host_tensor(a, np.int32, self.device) for a in (out_lab, in_lab))
 
     def _labels_dev(self, snap: GraphSnapshot):
         """The device label arrays this engine's mode reads: the row

@@ -17,7 +17,7 @@ Copies of two pieces of keto_tpu/check/tpu_engine.py, their logic unchanged:
   is abandoned): re-leasing it earlier would let the next slice's entries
   overwrite a copy still in flight, with no error anywhere.
 
-Not here: the HBM governor's staging rung (ROADMAP A item 6). The
+Not here: the HBM governor's staging rung (ROADMAP A item 5). The
 reference's pool plans each new buffer against the governor, reports its
 byte total to it and can be dropped by its eviction ladder; this pool has
 none of those hooks, since nothing here would call them.

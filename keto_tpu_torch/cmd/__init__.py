@@ -1,5 +1,7 @@
 """Command line: ``python -m keto_tpu_torch serve`` (explicit flags; the
-config provider and the client commands are a later slice)."""
+config provider and the client commands are a later slice, ROADMAP A7:
+``--mesh-graph`` and ``--snapshot-cache-dir`` stand in for
+``serve.mesh_graph`` and ``serve.snapshot_cache_dir`` until then)."""
 
 from __future__ import annotations
 
@@ -34,6 +36,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default cuda; 'cpu' runs the plain PyTorch path)")
     s.add_argument("--mesh-graph", type=int, default=1, metavar="G",
                    help="serve from G row-range graph shards on the device (default 1: unsharded)")
+    s.add_argument("--snapshot-cache-dir", default="", metavar="DIR",
+                   help="keep the snapshot cache under DIR and reload it at start "
+                        "(default: off)")
     s.add_argument("--no-device-build", dest="device_build", action="store_false",
                    help="sort the snapshot build on the host instead of the card (K8)")
     s.add_argument("--no-explain", dest="explain_enabled", action="store_false",
@@ -78,7 +83,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                decision_log_segment_bytes=args.decision_log_segment_bytes,
                decision_log_retention=args.decision_log_retention,
                mesh_graph=args.mesh_graph, admission_enabled=args.admission_enabled,
-               timeline_enabled=args.timeline_enabled)
+               timeline_enabled=args.timeline_enabled,
+               snapshot_cache_dir=args.snapshot_cache_dir)
     d.start()
     print(f"serving: read :{d.read.port}, write :{d.write.port}, device {d.engine.device}, "
           f"graph shards {d.engine.shard_count}", flush=True)

@@ -38,7 +38,17 @@ shedding 429, and admission control over the engine's slice service times
 reference's drain (keto_tpu/driver/daemon.py:163-277) cut to this daemon:
 ``/health/ready`` answers 503 while the batcher's in-flight checks and the
 servers' open exchanges finish, then everything stops; the signal handling
-stays with the CLI (ROADMAP A7)."""
+stays with the CLI (ROADMAP A7).
+
+Writes (keto_tpu/driver/registry.py:161-230): the write port's
+transactions go through a ``GroupCommitCoordinator``
+(keto_tpu_torch/driver/group_commit.py) that commits concurrent writers as
+one store group, at the reference's defaults (128 writers, a 2.0 ms
+window, 4,096 pending; they become settings with the config loader,
+ROADMAP A7); the drain waits for its queued writers too
+(keto_tpu/driver/daemon.py:249-252). ``snapshot_cache_dir`` (default "":
+off, keto_tpu/config/schema.py:83-86) keeps the engine's snapshot cache
+there (keto_tpu_torch/graph/snapcache.py)."""
 
 from __future__ import annotations
 
@@ -51,6 +61,7 @@ from keto_tpu_torch import namespace as namespace_pkg
 from keto_tpu_torch.check.gpu_engine import TorchCheckEngine
 from keto_tpu_torch.driver.admission import AdmissionController
 from keto_tpu_torch.driver.batch import CheckBatcher
+from keto_tpu_torch.driver.group_commit import GroupCommitCoordinator
 from keto_tpu_torch.expand.snapshot_engine import SnapshotExpandEngine
 from keto_tpu_torch.explain import DecisionLog, ExplainEngine
 from keto_tpu_torch.list.gpu_engine import SnapshotListEngine
@@ -105,18 +116,22 @@ def make_batcher(engine, *, admission_enabled: bool = True) -> CheckBatcher:
     )
 
 
-def drain(servers: Sequence[RestServer], batcher: CheckBatcher, drain_timeout_s: float) -> dict:
+def drain(servers: Sequence[RestServer], batcher: CheckBatcher, drain_timeout_s: float,
+          writer: Optional[GroupCommitCoordinator] = None) -> dict:
     """The drain before a shutdown: every server's ``/health/ready`` answers
     503 from now on; then wait up to ``drain_timeout_s`` for the batcher's
-    in-flight checks and for the servers to write every accepted response.
-    Returns ``{"batcher_idle", "servers_idle", "seconds"}``; stops nothing."""
+    in-flight checks, the group-commit coordinator's queued writers (an
+    acknowledged snaptoken must have committed) and for the servers to
+    write every accepted response. Returns ``{"batcher_idle",
+    "writers_idle", "servers_idle", "seconds"}``; stops nothing."""
     t0 = time.monotonic()
     for s in servers:
         s.app.draining = DRAINING
     deadline = t0 + max(0.0, drain_timeout_s)
     idle = batcher.drain(drain_timeout_s)
+    writers_idle = writer is None or writer.drain(max(0.5, deadline - time.monotonic()))
     servers_idle = all(s.drain(max(0.5, deadline - time.monotonic())) for s in servers)
-    return {"batcher_idle": idle, "servers_idle": servers_idle,
+    return {"batcher_idle": idle, "writers_idle": writers_idle, "servers_idle": servers_idle,
             "seconds": time.monotonic() - t0}
 
 
@@ -140,9 +155,12 @@ class Daemon:
         max_read_depth: int = MAX_READ_DEPTH,
         admission_enabled: bool = True,
         timeline_enabled: bool = True,
+        snapshot_cache_dir: str = "",
     ):
         nm = namespace_pkg.MemoryManager(namespaces)
         options = dict(engine_options or {})
+        if snapshot_cache_dir:
+            options["snapshot_cache_dir"] = snapshot_cache_dir
         if int(mesh_graph) > 1:
             options["mesh"] = make_mesh(graph=int(mesh_graph), device=resolve_device(device))
         self.store = MemoryPersister(nm)
@@ -169,13 +187,16 @@ class Daemon:
                                lister=self.lister, explain=self.explain,
                                decision_log=self.decision_log, expander=self.expander,
                                max_read_depth=max_read_depth, recorder=self.recorder)
+        #: the group-commit coordinator of the write port
+        self.writer = GroupCommitCoordinator(self.store)
         self.write = RestServer(WRITE, self.store, self.batcher, host, write_port,
-                                recorder=self.recorder)
+                                recorder=self.recorder, transact=self.writer.transact)
 
     def start(self) -> None:
         """Build the first snapshot on the device, then open both ports."""
         self.engine.snapshot()
         self.batcher.start()
+        self.writer.start()
         self.read.start()
         self.write.start()
 
@@ -183,7 +204,7 @@ class Daemon:
         """Answer 503 on ``/health/ready``, let the in-flight checks and
         responses finish (up to ``drain_timeout_s``), then stop. Returns
         ``drain``'s record."""
-        out = drain((self.read, self.write), self.batcher, drain_timeout_s)
+        out = drain((self.read, self.write), self.batcher, drain_timeout_s, self.writer)
         self.stop()
         return out
 
@@ -191,6 +212,7 @@ class Daemon:
         self.read.stop()
         self.write.stop()
         self.batcher.stop()
+        self.writer.stop()
         self.engine.close()
         if self.decision_log is not None:
             self.decision_log.close()

@@ -11,6 +11,11 @@ The reverse-query layouts cross the same way: ``list_layout_arrays`` reads
 one orientation's ``ListLayout`` of either package into numpy arrays, and
 ``device_list_from_arrays`` places its bucket matrices on ``device`` (the
 list engine's upload; the tests run K5 on the JAX package's own layouts).
+
+Every host array crosses through ``host_tensor``: a snapshot reloaded from
+the cache (keto_tpu_torch/graph/snapcache.py) maps its arrays read-only,
+and such an array is copied once on the host first, so a CPU tensor never
+aliases read-only pages that an in-place update would fault on.
 """
 
 from __future__ import annotations
@@ -20,6 +25,16 @@ from typing import Any, Mapping, Sequence, Union
 
 import numpy as np
 import torch
+
+
+def host_tensor(a, dtype, device, copy: bool = False) -> torch.Tensor:
+    """``a`` as a contiguous ``dtype`` tensor on ``device``. A read-only
+    array (a cache reload's memory map) is copied on the host first;
+    ``copy`` makes the result its own storage on the CPU too."""
+    a = np.ascontiguousarray(a, dtype)
+    if not a.flags.writeable:
+        a, copy = a.copy(), False
+    return torch.from_numpy(a).to(device, copy=copy)
 
 
 @dataclass(frozen=True)
@@ -62,9 +77,7 @@ def device_graph_from_arrays(
             f"buckets cover {sum(n)} rows, num_active is {meta['num_active']}"
         )
     dev = torch.device(device)
-    buckets = tuple(
-        torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev) for a in arrays
-    )
+    buckets = tuple(host_tensor(a, np.int32, dev) for a in arrays)
     return DeviceGraph(
         buckets=buckets,
         valid_rows=n,
@@ -119,9 +132,6 @@ def device_list_from_arrays(
     dev = torch.device(device)
     # always a copy, on the CPU too: the list engine patches its upload in
     # place, and the host arrays belong to the snapshot (and its deltas)
-    buckets = tuple(
-        torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev, copy=True)
-        for a in arrays
-    )
+    buckets = tuple(host_tensor(a, np.int32, dev, copy=True) for a in arrays)
     return DeviceList(buckets=buckets, valid_rows=n, n_rows=int(meta["n_rows"]),
                       n_active=int(meta["n_active"]), device=dev)

@@ -31,8 +31,23 @@ reference SQL persister (internal/persistence/sql/relationtuples.go):
   past ``LOG_CAP`` it also parks the row objects (``_DeferredRows``), which
   the first reader of a row builds. Every mutation drops the bundle.
 
-Left out against the reference store: networks, idempotency keys, fleet
-leases and watch logs.
+- idempotency keys (keto_tpu/persistence/memory.py:565-570, :716-724): a
+  keyed write whose key was already applied re-applies nothing, leaves the
+  watermark where it is and answers the original snaptoken with
+  ``replayed=True`` (counted in ``idempotent_replays``); a key is
+  recorded with its commit and forgotten ``idempotency_ttl_s`` (86,400 s)
+  later, swept by the next keyed write from the oldest key on (the
+  reference scans every key each time). The store has no networks, so it
+  keeps one dedup dict.
+- group commit (``transact_many``, :528-553): every writer of the group
+  under one lock hold, each with its own token, in order (counted in
+  ``group_commits`` and ``group_commit_writers``). Every writer's input
+  is validated before any of its rows apply, and a writer the store
+  refuses gets its own error while the rest of the group commits.
+
+Left out against the reference store: networks, fleet leases and the
+write fence (``_check_fence_locked``) with the store's fault points
+(``faults.check``), which come with ROADMAP A10, and watch logs.
 """
 
 from __future__ import annotations
@@ -40,14 +55,16 @@ from __future__ import annotations
 import bisect
 import itertools
 import threading
+import time
+from collections import OrderedDict
 from typing import Optional, Sequence
 
 import numpy as np
 
 from keto_tpu_torch import namespace as namespace_pkg
-from keto_tpu_torch.relationtuple.manager import Manager, TransactResult
+from keto_tpu_torch.relationtuple.manager import Manager, TransactResult, TransactWrite
 from keto_tpu_torch.relationtuple.model import RelationQuery, RelationTuple, SubjectID, SubjectSet
-from keto_tpu_torch.x.errors import ErrMalformedPageToken, ErrNilSubject
+from keto_tpu_torch.x.errors import ErrMalformedPageToken, ErrNilSubject, KetoError
 from keto_tpu_torch.x.pagination import (
     DEFAULT_PAGE_SIZE,
     PaginationOptionSetter,
@@ -166,7 +183,8 @@ class MemoryPersister(Manager):
             self._nm = lambda: namespace_manager_source
         else:
             self._nm = namespace_manager_source
-        # guards: _row_list, _col_cache, _lhs_index, _watermark, the logs
+        # guards: _row_list, _col_cache, _lhs_index, _watermark, the logs,
+        # _idempotency and the counters
         self._lock = threading.RLock()
         # the rows in ORDER BY, or a parked bulk load: read through _rows()
         self._row_list: "list[InternalRow] | _DeferredRows" = []
@@ -192,6 +210,17 @@ class MemoryPersister(Manager):
         #: watermark of the last effective delete (rows_since refuses to
         #: span it: an insert-only delta cannot express a delete)
         self._delete_wm = 0
+        # idempotency dedup: key → (snaptoken, created_at)
+        # (insertion order is time order: the TTL sweep pops from the front)
+        self._idempotency: OrderedDict[str, tuple[int, float]] = OrderedDict()
+        #: how long idempotency keys dedup retries before the sweep forgets them
+        self.idempotency_ttl_s = 86400.0
+        #: keyed write retries answered from the dedup dict instead of
+        #: applied again
+        self.idempotent_replays = 0
+        #: groups committed by ``transact_many`` and the writers in them
+        self.group_commits = 0
+        self.group_commit_writers = 0
 
     @property
     def namespaces(self):
@@ -412,89 +441,167 @@ class MemoryPersister(Manager):
         self,
         insert: Sequence[RelationTuple],
         delete: Sequence[RelationTuple],
+        idempotency_key: Optional[str] = None,
     ) -> TransactResult:
         """Atomic: namespace validation happens for the whole batch before any
         mutation, so a failing insert/delete leaves the store untouched
-        (rollback semantics of reference relationtuples.go:271-278)."""
+        (rollback semantics of reference relationtuples.go:271-278).
+        ``idempotency_key`` dedups retries: an already-applied key applies
+        nothing and answers the original snaptoken with ``replayed=True``."""
         with self._lock:
-            make_rows = bundle = None
-            if len(insert) >= self._BULK_AT:
-                # one column pass and a numpy lexsort, plus the interner's
-                # column bundle; None: the batch is unsafe for numpy
-                # columns, the row path below takes it
-                got = self._bulk_ingest(insert)
-                if got is not None:
-                    make_rows, bundle = got
-            new_rows = [] if make_rows is not None else [self._to_row(rt) for rt in insert]
-            # delete keys in request order (the delete log keeps it)
-            delete_keys = list(dict.fromkeys(self._to_row(rt).key7() for rt in delete))
-            rows = self._rows()
-            # any mutation drops the bundle; a clean bulk load into an
-            # empty store sets it again below
-            self._col_cache = None
-            col_bundle = bundle if bundle is not None and not rows and not delete else None
-            # a bulk load into an empty store past the log cap parks its
-            # rows: the snapshot builder reads the bundle, and the log takes
-            # the raise-the-floor path either way
-            deferred = col_bundle is not None and len(insert) > self.LOG_CAP
-            hit_keys: set = set()
-            if deferred:
-                self._row_list = _DeferredRows(make_rows, len(insert))
-                self._lhs_index = None
+            return self._transact_locked_one(insert, delete, idempotency_key)
+
+    def transact_many(self, writes: Sequence[TransactWrite]) -> list:
+        """Group commit: every writer under ONE lock hold, each with its own
+        token from the watermark sequence, in order; a writer's key replays
+        against earlier writers of the same group too. A writer whose
+        input the store refuses (a ``KetoError``: an unknown namespace,
+        a nil subject) applies nothing and gets its error in its place in
+        the list; the writers around it commit as they would alone. The
+        reference's group instead stops at that writer, with the writers
+        before it committed, and fails the whole group."""
+        if not writes:
+            return []
+        with self._lock:
+            results: list = []
+            for w in writes:
+                got = self._replay_locked(w.idempotency_key)
+                if got is None:
+                    try:
+                        prepared = self._prepare_locked(w.insert, w.delete)
+                    except KetoError as e:  # this writer's own input, refused
+                        results.append(e)
+                        continue
+                    got = self._apply_locked(prepared, w.idempotency_key)
+                results.append(got)
+            self.group_commits += 1
+            self.group_commit_writers += len(writes)
+            return results
+
+    def _transact_locked_one(
+        self,
+        insert: Sequence[RelationTuple],
+        delete: Sequence[RelationTuple],
+        idempotency_key: Optional[str] = None,
+    ) -> TransactResult:
+        """One transaction (caller holds the lock): the dedup check before
+        any mutation, then the validation, then the write with its key."""
+        got = self._replay_locked(idempotency_key)
+        if got is not None:
+            return got
+        return self._apply_locked(self._prepare_locked(insert, delete), idempotency_key)
+
+    def _replay_locked(self, idempotency_key: Optional[str]) -> Optional[TransactResult]:
+        """The original token of an applied key, else None."""
+        if idempotency_key is None:
+            return None
+        got = self._idempotency.get(idempotency_key)
+        if got is None:
+            return None
+        self.idempotent_replays += 1
+        return TransactResult(snaptoken=got[0], replayed=True)
+
+    def _prepare_locked(self, insert: Sequence[RelationTuple],
+                        delete: Sequence[RelationTuple]) -> tuple:
+        """The rows of one transaction, validated: raises on an unknown
+        namespace or a nil subject and mutates nothing."""
+        make_rows = bundle = None
+        if len(insert) >= self._BULK_AT:
+            # one column pass and a numpy lexsort, plus the interner's
+            # column bundle; None: the batch is unsafe for numpy
+            # columns, the row path below takes it
+            got = self._bulk_ingest(insert)
+            if got is not None:
+                make_rows, bundle = got
+        new_rows = [] if make_rows is not None else [self._to_row(rt) for rt in insert]
+        # delete keys in request order (the delete log keeps it)
+        delete_keys = list(dict.fromkeys(self._to_row(rt).key7() for rt in delete))
+        return len(insert), make_rows, bundle, new_rows, delete_keys
+
+    def _apply_locked(self, prepared: tuple, idempotency_key: Optional[str]) -> TransactResult:
+        """Apply one prepared transaction and record its key (caller holds
+        the lock)."""
+        n_insert, make_rows, bundle, new_rows, delete_keys = prepared
+        rows = self._rows()
+        # any mutation drops the bundle; a clean bulk load into an
+        # empty store sets it again below
+        self._col_cache = None
+        col_bundle = bundle if bundle is not None and not rows and not delete_keys else None
+        # a bulk load into an empty store past the log cap parks its
+        # rows: the snapshot builder reads the bundle, and the log takes
+        # the raise-the-floor path either way
+        deferred = col_bundle is not None and n_insert > self.LOG_CAP
+        hit_keys: set = set()
+        if deferred:
+            self._row_list = _DeferredRows(make_rows, n_insert)
+            self._lhs_index = None
+        else:
+            if make_rows is not None:
+                # the bulk rows come sorted, and the log keeps them so
+                new_rows = make_rows()
+                rows = _merge_sorted(rows, new_rows)
+            elif len(new_rows) > self._MERGE_AT:
+                # the log keeps request order; the merge needs sort order
+                rows = _merge_sorted(rows, sorted(new_rows, key=InternalRow.sort_key))
             else:
-                if make_rows is not None:
-                    # the bulk rows come sorted, and the log keeps them so
-                    new_rows = make_rows()
-                    rows = _merge_sorted(rows, new_rows)
-                elif len(new_rows) > self._MERGE_AT:
-                    # the log keeps request order; the merge needs sort order
-                    rows = _merge_sorted(rows, sorted(new_rows, key=InternalRow.sort_key))
-                else:
-                    for r in new_rows:
-                        bisect.insort(rows, r, key=InternalRow.sort_key)
-                if delete_keys:
-                    keyset = set(delete_keys)
-                    kept = []
-                    for r in rows:
-                        k = r.key7()
-                        if k in keyset:
-                            hit_keys.add(k)
-                        else:
-                            kept.append(r)
-                    rows = kept
-                self._row_list = rows
-                self._update_lhs_index(new_rows, keyset if delete_keys else ())
-            self._watermark += 1
-            wm = self._watermark
-            if col_bundle is not None:
-                self._col_cache = (wm, col_bundle)
-            if deferred:
-                # parked rows never enter the insert log: no delta can
-                # span this batch
+                for r in new_rows:
+                    bisect.insort(rows, r, key=InternalRow.sort_key)
+            if delete_keys:
+                keyset = set(delete_keys)
+                kept = []
+                for r in rows:
+                    k = r.key7()
+                    if k in keyset:
+                        hit_keys.add(k)
+                    else:
+                        kept.append(r)
+                rows = kept
+            self._row_list = rows
+            self._update_lhs_index(new_rows, keyset if delete_keys else ())
+        self._watermark += 1
+        wm = self._watermark
+        if col_bundle is not None:
+            self._col_cache = (wm, col_bundle)
+        if deferred:
+            # parked rows never enter the insert log: no delta can
+            # span this batch
+            self._log_floor = wm
+            self._insert_log = []
+        if hit_keys:
+            # only effective deletes (matched >= 1 row) are logged
+            self._delete_wm = wm
+            self._delete_log.extend((wm, k) for k in delete_keys if k in hit_keys)
+            if len(self._delete_log) > self.LOG_CAP:
+                drop = len(self._delete_log) - self.LOG_CAP
+                self._del_floor = self._delete_log[drop - 1][0]
+                del self._delete_log[:drop]
+        if new_rows:
+            if len(new_rows) > self.LOG_CAP:
+                # a bulk write past the cap: no delta can span it (its
+                # rows share one watermark) — raise the floor instead
+                # of logging every row
                 self._log_floor = wm
                 self._insert_log = []
-            if hit_keys:
-                # only effective deletes (matched >= 1 row) are logged
-                self._delete_wm = wm
-                self._delete_log.extend((wm, k) for k in delete_keys if k in hit_keys)
-                if len(self._delete_log) > self.LOG_CAP:
-                    drop = len(self._delete_log) - self.LOG_CAP
-                    self._del_floor = self._delete_log[drop - 1][0]
-                    del self._delete_log[:drop]
-            if new_rows:
-                if len(new_rows) > self.LOG_CAP:
-                    # a bulk write past the cap: no delta can span it (its
-                    # rows share one watermark) — raise the floor instead
-                    # of logging every row
-                    self._log_floor = wm
-                    self._insert_log = []
-                else:
-                    self._insert_log.extend((wm, r) for r in new_rows)
-                    if len(self._insert_log) > self.LOG_CAP:
-                        drop = len(self._insert_log) - self.LOG_CAP
-                        self._log_floor = self._insert_log[drop - 1][0]
-                        del self._insert_log[:drop]
-            return TransactResult(snaptoken=wm)
+            else:
+                self._insert_log.extend((wm, r) for r in new_rows)
+                if len(self._insert_log) > self.LOG_CAP:
+                    drop = len(self._insert_log) - self.LOG_CAP
+                    self._log_floor = self._insert_log[drop - 1][0]
+                    del self._insert_log[:drop]
+        if idempotency_key is not None:
+            now = time.time()
+            dedup = self._idempotency
+            dedup[idempotency_key] = (wm, now)
+            # sweep the keys past their TTL: they were recorded in time
+            # order, so the expired ones lead and the sweep stops at the
+            # first live key
+            cutoff = now - self.idempotency_ttl_s
+            while dedup:
+                oldest = next(iter(dedup))
+                if dedup[oldest][1] > cutoff:
+                    break
+                dedup.popitem(last=False)
+        return TransactResult(snaptoken=wm)
 
     def _update_lhs_index(self, new_rows, delete_keys) -> None:
         """Keep the LHS index current without an O(rows) rebuild per write:

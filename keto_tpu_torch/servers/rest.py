@@ -71,7 +71,13 @@ Location (reference transact_server.go:130-153); ``DELETE`` by URL query →
 204 (transact_server.go:173-187); ``PATCH /relation-tuples`` applies a JSON
 array of ``{"action": "insert" | "delete", "relation_tuple": {...}}`` in one
 transaction → 204 (rest.py:1088-1112; an unknown action or a missing tuple
-is a 400 and applies nothing). Each answers the commit's snaptoken.
+is a 400 and applies nothing). Each answers the commit's snaptoken. An
+``X-Idempotency-Key`` header on any of the three (rest.py:1019-1112) makes
+the write exactly-once per key: a retry of an applied key applies nothing
+and answers the original ``X-Keto-Snaptoken`` with
+``X-Keto-Idempotent-Replay: true``. Writes go through ``transact`` (the
+daemon passes its group-commit coordinator's, keto_tpu_torch/driver/
+group_commit.py), else straight to the store's transaction.
 
 Both ports: ``GET /health/alive`` → ``{"status": "ok"}``; ``GET
 /health/ready`` → 200 ``{"status": "ok"}`` while the check batcher runs
@@ -157,10 +163,14 @@ class RestApp:
 
     def __init__(self, role: str, store, batcher, lister=None, explain=None, decision_log=None,
                  expander=None, max_read_depth: int = MAX_READ_DEPTH,
-                 recorder: Optional[TimelineRecorder] = None):
+                 recorder: Optional[TimelineRecorder] = None, transact=None):
         self.role = role
         self.store = store
         self.batcher = batcher
+        #: the write path: ``(insert, delete, idempotency_key=None) ->
+        #: TransactResult``, the group-commit coordinator's ``transact`` or
+        #: the store's own transaction
+        self.transact = transact if transact is not None else store.transact_relation_tuples
         self.lister = lister
         #: the expand engine (keto_tpu_torch/expand), None: no /expand
         self.expander = expander
@@ -233,11 +243,11 @@ class RestApp:
                     return self._get_list_subjects(query)
             else:
                 if route == ("PUT", "/relation-tuples"):
-                    return self._put_relation_tuple(body)
+                    return self._put_relation_tuple(body, headers)
                 if route == ("DELETE", "/relation-tuples"):
-                    return self._delete_relation_tuple(query)
+                    return self._delete_relation_tuple(query, headers)
                 if route == ("PATCH", "/relation-tuples"):
-                    return self._patch_relation_tuples(body)
+                    return self._patch_relation_tuples(body, headers)
             err = KetoError("404 page not found")
             err.status_code = 404
             return 404, err.to_json(), {}
@@ -519,23 +529,40 @@ class RestApp:
 
     # -- write ---------------------------------------------------------------
 
-    def _put_relation_tuple(self, body: bytes):
+    @staticmethod
+    def _idempotency_key_from(headers) -> Optional[str]:
+        """``X-Idempotency-Key`` on a write opts into exactly-once
+        semantics (rest.py:1019-1026)."""
+        return (headers or {}).get("x-idempotency-key") or None
+
+    @staticmethod
+    def _write_headers(result) -> dict[str, str]:
+        """A write's response headers: the snaptoken it committed at, and
+        the replay marker on a deduplicated retry (rest.py:1048-1060)."""
+        if result is None:
+            return {}
+        out = {"X-Keto-Snaptoken": str(result.snaptoken)}
+        if result.replayed:
+            out["X-Keto-Idempotent-Replay"] = "true"
+        return out
+
+    def _put_relation_tuple(self, body: bytes, headers=None):
         try:
             obj = json.loads(body or b"{}")
         except json.JSONDecodeError as e:
             raise ErrBadRequest(str(e)) from None
         rel = RelationTuple.from_json(obj)
-        result = self.store.transact_relation_tuples([rel], ())
-        headers = {"Location": "/relation-tuples?" + rel.to_url_query()}
-        headers.update(self._token_headers(result.snaptoken))
-        return 201, rel.to_json(), headers
+        result = self.transact([rel], (), idempotency_key=self._idempotency_key_from(headers))
+        resp = {"Location": "/relation-tuples?" + rel.to_url_query()}
+        resp.update(self._write_headers(result))
+        return 201, rel.to_json(), resp
 
-    def _delete_relation_tuple(self, query):
+    def _delete_relation_tuple(self, query, headers=None):
         rel = RelationTuple.from_url_query(query)
-        result = self.store.transact_relation_tuples((), [rel])
-        return 204, None, self._token_headers(result.snaptoken)
+        result = self.transact((), [rel], idempotency_key=self._idempotency_key_from(headers))
+        return 204, None, self._write_headers(result)
 
-    def _patch_relation_tuples(self, body: bytes):
+    def _patch_relation_tuples(self, body: bytes, headers=None):
         try:
             deltas = json.loads(body or b"[]")
         except json.JSONDecodeError as e:
@@ -554,8 +581,9 @@ class RestApp:
                 delete.append(RelationTuple.from_json(raw))
             else:
                 raise ErrBadRequest(f"unknown action {action}")
-        result = self.store.transact_relation_tuples(insert, delete)
-        return 204, None, self._token_headers(result.snaptoken)
+        result = self.transact(insert, delete,
+                               idempotency_key=self._idempotency_key_from(headers))
+        return 204, None, self._write_headers(result)
 
 
 def _make_handler(app: RestApp):
@@ -626,9 +654,9 @@ class RestServer:
     def __init__(self, role: str, store, batcher, host: str = "127.0.0.1", port: int = 0,
                  lister=None, explain=None, decision_log=None, expander=None,
                  max_read_depth: int = MAX_READ_DEPTH,
-                 recorder: Optional[TimelineRecorder] = None):
+                 recorder: Optional[TimelineRecorder] = None, transact=None):
         self.app = RestApp(role, store, batcher, lister, explain, decision_log, expander,
-                           max_read_depth, recorder)
+                           max_read_depth, recorder, transact)
         self.httpd = _Server((host or "0.0.0.0", port), _make_handler(self.app))
         self.httpd.active_count = 0
         self.httpd.active_lock = threading.Lock()

@@ -23,8 +23,9 @@ SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 #: modules the walk must find (the write path's, the reverse queries', the
-#: explain path's, the full build's, expand's and the check scheduler's among
-#: them): a module that fails to be found is not checked
+#: explain path's, the full build's, expand's, the check scheduler's and the
+#: snapshot cache's and group commit's among them): a module that fails to
+#: be found is not checked
 REQUIRED = (
     "keto_tpu_torch.graph.overlay",
     "keto_tpu_torch.graph.compaction",
@@ -56,6 +57,11 @@ REQUIRED = (
     "keto_tpu_torch.driver.batch",
     "keto_tpu_torch.driver.daemon",
     "keto_tpu_torch.servers.rest",
+    "keto_tpu_torch.graph.snapcache",
+    "keto_tpu_torch.driver.group_commit",
+    "keto_tpu_torch.x.retry",
+    "keto_tpu_torch.relationtuple.manager",
+    "keto_tpu_torch.persistence.memory",
 )
 
 
@@ -68,7 +74,7 @@ def _modules():
 def test_walk_finds_every_module():
     found = set(_modules())
     assert set(REQUIRED) <= found, sorted(set(REQUIRED) - found)
-    assert len(found) >= 51
+    assert len(found) >= 54
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -86,7 +92,7 @@ def test_every_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 51
+    assert int(out.stdout.strip()) >= 54
 
 
 def _imports(path: Path):
