@@ -1,11 +1,12 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, parity, the BFS
-and label routes of Check, the check scheduler under load, the snapshot
-cache, sharded serving, reverse queries, the stream and explain, the write
-path, serve.
+and label routes of Check, the check scheduler under load, the
+device-memory governor and the health machine, the snapshot cache, sharded
+serving, reverse queries, the stream and explain, the write path, serve.
 
     python3 chip_smoke.py            # every phase, as a release check runs it
     python3 chip_smoke.py --only build,parity
     python3 chip_smoke.py --only build,main,lanes               # the check scheduler
+    python3 chip_smoke.py --only build,main,labels,hbm          # the governor and health
     python3 chip_smoke.py --only build,parity,main,deep,shard   # sharded serving
     python3 chip_smoke.py --only build,parity,deep,list         # reverse queries
     python3 chip_smoke.py --only build,parity,deep,explain      # the stream and explain
@@ -120,8 +121,8 @@ Phases, in order; any failure exits non-zero:
    p50/p99 overall, under a batch (an admitted post in flight at any point
    of the GET's life) and alone, the share of the span a batch was in
    flight and the lane's queued share, the rounds and the batch's
-   sub-slices, the slices, the controller before and after; (b) four
-   turns, the audit on, off, on, off, each from a reopened admission
+   sub-slices, the slices, the controller before and after; (b) two
+   turns, the audit on, then off, each from a reopened admission
    window: three waves of 8 concurrent half-window batches beside 16
    clients: 429s with ``Retry-After``, the shed counters, the admission
    window, each thread group's CPU seconds (handlers, collector, audit,
@@ -141,7 +142,30 @@ Phases, in order; any failure exits non-zero:
    built on the host (config 3 is below the device-build gate): decisions
    equal to the BFS run's and the expectation, the label step launched and
    the label build's kernels not;
-6. deep — BASELINE config 4 (GitHub-style org/team/repo, 10M tuples,
+6. hbm — the device-memory governor and the health machine
+   (keto_tpu_torch/driver/hbm.py, health.py) on a ``fork()`` of main's
+   store, config 3 with labels built on the card and a list engine, a
+   ``HealthMonitor`` and a read ``RestServer``: (a) every ledger tag beside
+   its tensors' bytes (``snapshot``, ``labels``, ``overlay`` and ``reverse``
+   must be equal) and beside ``torch.cuda.memory_allocated`` since the
+   engine was made (after ``deep``, the same at config 4 on deep's engine);
+   (b) a budget below the buckets' bytes and a mid → leaf write: the ladder
+   walks its five rungs in order and refuses the refresh, ``health()`` shows
+   ``memory_pressure``, ``/health/ready`` answers 200 ``degraded``, the 100k
+   checks equal main's expectation on the BFS route, and 200 listings on
+   the reverse rung's host route equal the card's from before; (c) the
+   monitor's staleness budget cut to 2 s: 503 with ``Retry-After``; (d) the
+   auto budget back: the ladder restores, the fold rebuilds the labels on
+   the card, the label route answers the new expectation and health reads
+   SERVING; (e) real ``torch.OutOfMemoryError``s with the card filled: the
+   100k batch, with the ladder at 0, evicts the staging rung (host memory),
+   fails its retry and raises with no answer, health SERVING, then answers
+   once the card is freed; a refresh's overlay upload evicts the labels
+   rung, whose freed arrays let its retry succeed (``oom_recoveries`` + 1);
+   (f) budgets that refuse the build transients (``evict=False``): the sorts
+   and the label build run on the host, their permutations and entries
+   equal to the card's, counted ``skipped``, the rung depth unchanged;
+7. deep — BASELINE config 4 (GitHub-style org/team/repo, 10M tuples,
    five namespaces, grant chains up to 7 edges) with the default engine:
    the labels built on the card, 100k checks equal to the analytic
    expectation, an oracle sample, the label step, frontier sweep, covered
@@ -165,7 +189,7 @@ Phases, in order; any failure exits non-zero:
    around it (the path the bundle replaces), and the bundle once more,
    split into the NUL scan of its columns and the C++ call (main's does
    the same at 1M);
-7. cache — the snapshot cache (keto_tpu_torch/graph/snapcache.py), in a
+8. cache — the snapshot cache (keto_tpu_torch/graph/snapcache.py), in a
    ``tempfile.mkdtemp`` directory removed at the end, its disk's free space
    printed first: (a) deep's snapshot, its labels settled, saved: seconds
    split into the string tables (the C++ interner's strings one code at a
@@ -184,7 +208,7 @@ Phases, in order; any failure exits non-zero:
    and the 5,000 memberships equal to a fresh build's; (d) a segment of
    that cache corrupted: ``load_latest`` quarantines it. (c) and (d) run at
    config 4, or at config 3 when (a) and (b) took more than 120 s;
-8. shard — one ``ShardMesh`` of 4 graph shards on the card: (a) main's
+9. shard — one ``ShardMesh`` of 4 graph shards on the card: (a) main's
    store and 100k checks on a sharded engine with labels off (K10a, the
    BFS route), every decision equal to the analytic expectation and to
    main's unsharded run, a 2,000-query oracle sample, every K10a entry
@@ -214,8 +238,11 @@ Phases, in order; any failure exits non-zero:
    one a wave) at config 4's, each beside its
    plain version and bound (the halo copy beside ``torch.cat`` and the
    exchange beside ``torch.index_select`` of the flattened stripes, and
-   the earlier yardstick ``torch.stack(...).sum(0)``);
-9. list — on the deep phase's engine and store: 200 ListObjects ("which
+   the earlier yardstick ``torch.stack(...).sum(0)``); (g) the config 3
+   engine's per-shard ledger after ``warm_compile``, and a
+   plan that only the hottest shard's slice of the budget refuses, whose
+   walk evicts each rung once for the whole mesh down to the warm ladder;
+10. list — on the deep phase's engine and store: 200 ListObjects ("which
    issues may user-u view") and 200 ListSubjects ("which users may view
    issue-j"), each against its analytic expected set from the generator's
    maps; p50/p99 seconds and items/s per orientation (cache misses only),
@@ -226,7 +253,7 @@ Phases, in order; any failure exits non-zero:
    allowed, as many unlisted ones denied); K5 (a whole run, its kernel
    alone, its launches and host reads a run) and K8 are timed at the
    path's shapes beside their plain versions and bounds;
-10. explain — on the deep phase's engine and store, labels on: the 100k
+11. explain — on the deep phase's engine and store, labels on: the 100k
    checks through ``batch_check_stream`` (ordered) and through
    ``batch_check_stream_with_token(ordered=False, with_info=True)``, each
    equal to ``batch_check`` and the expectation with every offset
@@ -251,7 +278,7 @@ Phases, in order; any failure exits non-zero:
    with the label witness launched once per interior pair; explain p50/p99
    seconds; the label witness is then timed at one pair and at 65,536
    pairs on config 4's label arrays beside its plain version and bound;
-11. write — the deep phase's engine and store take writes through the
+12. write — the deep phase's engine and store take writes through the
    store, as the REST write API makes them: (a) the reference bench's
    burst of 5,000 new team memberships (interior→sink edges: the labels
    stay live, the background fold absorbs the burst), (b) 64 new
@@ -278,7 +305,7 @@ Phases, in order; any failure exits non-zero:
    bucket in one fused launch: the copy and the patch; one launch and no
    host read a call, or the row fails), and K5 on the first
    fixpoint that ran with the overlay pending, against its plain version;
-12. serve — the REST server with the default engine (labels on) and a
+13. serve — the REST server with the default engine (labels on) and a
    decision log sampling every check: ``GET /check/explain`` on a grant
    (a verified witness) and a deny (a certificate), the cat-videos checks
    (200, 200, 403, 200) read back from the decision log, read-your-writes
@@ -297,7 +324,7 @@ Phases, in order; any failure exits non-zero:
    the daemon's group-commit coordinator commits them in fewer groups than
    writers, and ``GET /check?snaptoken=`` reads every write.
 
-``--only`` names a subset; ``lanes`` and ``labels`` need ``main``,
+``--only`` names a subset; ``lanes``, ``labels`` and ``hbm`` need ``main``,
 ``shard`` needs ``main`` and ``deep``, ``cache``, ``list`` and ``explain`` need ``deep`` and
 ``write`` needs ``list`` (they run on that phase's engine and store), and a subset
 that breaks this exits non-zero.
@@ -318,10 +345,11 @@ import sys
 import time
 import types
 
-PHASES = ("build", "parity", "main", "lanes", "labels", "deep", "cache", "shard", "list",
+PHASES = ("build", "parity", "main", "lanes", "labels", "hbm", "deep", "cache", "shard", "list",
           "explain", "write", "serve")
 #: a phase that runs on the engine and store of another
-PHASE_NEEDS = {"lanes": ("main",), "labels": ("main",), "shard": ("main", "deep"),
+PHASE_NEEDS = {"lanes": ("main",), "labels": ("main",), "hbm": ("main",),
+               "shard": ("main", "deep"),
                "cache": ("deep",), "list": ("deep",),
                "explain": ("deep",), "write": ("list",)}
 SEED = 20261017
@@ -1699,7 +1727,7 @@ def phase_main(torch, kernels, report):
         "grants": sum(expected), "build_sorts": sorts, "host_path": host,
     }
     report["launches"] = launches
-    return engine, snap, queries, (store, nm, got, expected)
+    return engine, snap, queries, (store, nm, got, expected), ctx
 
 
 def kernel_rows(torch, kernels, engine, snap, queries, rate, launches):
@@ -1941,8 +1969,9 @@ LANES_RETRY_S = 60.0
 #: two sub-slices a post
 LANES_STREAM_POSTERS = 2
 LANES_STREAM_WIDTH = 2048
-#: (b)'s turns, each at this audit sample rate: on, off, on, off
-LANES_B_AUDIT = (LANES_AUDIT_RATE, 0.0, LANES_AUDIT_RATE, 0.0)
+#: (b)'s turns, each at this audit sample rate: on, off (two more turns,
+#: on and off again, ran until the every-phase run neared its time limit)
+LANES_B_AUDIT = (LANES_AUDIT_RATE, 0.0)
 #: lone batch posts (no other client), each half the window's top
 LANES_LONE_REPS = 3
 #: how long the phase waits for the admission window to reopen between parts
@@ -2708,6 +2737,389 @@ def phase_labels(torch, kernels, report, main_ctx, queries):
     }
 
 
+# -- phase 6: hbm, the device-memory governor and the health machine -----------
+
+
+#: listings per orientation of the hbm phase (before the pressure on the
+#: card, then on the reverse rung's host route)
+HBM_LISTINGS = 100
+#: the monitor's staleness budget in (c)
+HBM_STALENESS_S = 2.0
+
+
+def ledger_line(torch, eng, base: int, lst=None) -> dict:
+    """Every ledger tag beside the bytes of the tensors it names, and the
+    ledger's total beside ``torch.cuda.memory_allocated`` since ``base``
+    (just before the engine was made). Fails unless ``snapshot``,
+    ``labels``, ``overlay`` and ``reverse`` equal their tensors' bytes."""
+    from keto_tpu_torch.driver.hbm import device_measured_bytes
+
+    led = eng.hbm.ledger()
+    tensors = eng.hbm_ledger_bytes()
+    snap = eng._snapshot
+    if lst is not None:
+        tensors["reverse"] = lst.device_bytes(snap)
+    alloc = (device_measured_bytes(eng.device) or 0) - base
+    out = {"ledger": led, "tensors": tensors, "resident": eng.hbm.resident_bytes(),
+           "allocated_since_engine": alloc,
+           "gap": alloc - eng.hbm.resident_bytes(), "budget": eng.hbm.budget_bytes,
+           "host": eng.hbm.snapshot().get("host", {})}
+    bad = [t for t in tensors if led.get(t, 0) != tensors[t]]
+    if bad:
+        raise SystemExit(f"hbm FAILED (a): tags {bad} differ from their tensors: {out}")
+    return out
+
+
+def _fill_card(torch) -> list:
+    """Fill the card: one ballast tensor over the driver's free memory less
+    64 MiB, then ever smaller tensors, each size until the caching
+    allocator raises ``torch.OutOfMemoryError``, so that neither the driver
+    nor a cached segment has a free block left."""
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    held = [torch.empty(max(0, free - (64 << 20)), dtype=torch.uint8, device="cuda")]
+    for size in (16 << 20, 1 << 20, 64 << 10, 4 << 10, 512):
+        while True:
+            try:
+                held.append(torch.empty(size, dtype=torch.uint8, device="cuda"))
+            except torch.OutOfMemoryError:
+                break
+    return held
+
+
+def _rbac_expect(ctx, parsed, extra) -> list:
+    """The analytic decisions of main's checks with ``extra`` mid → leaf
+    edges (``groups:mid-m#member@groups:leaf-g#member``) added."""
+    add: dict = {}
+    for m, g in extra:
+        add.setdefault(g, set()).add(m)
+    out = []
+    for d, u in parsed:
+        kind, g = ctx["doc_grant"][d]
+        leaves = ctx["membership"].get(u, set())
+        if kind == "leaf":
+            out.append(g in leaves)
+            continue
+        mids = {ctx["leaf_parent"][lf] for lf in leaves}
+        for lf in leaves:
+            mids |= add.get(lf, set())
+        out.append(g in mids if kind == "mid" else
+                   g in {ctx["mid_parent"][m] for m in mids})
+    return out
+
+
+def _new_edge(ctx, parsed, expected, taken) -> tuple:
+    """A mid → leaf edge (both active interior rows: an overlay-ELL edge)
+    that turns at least one of main's denies into a grant."""
+    for (d, u), e in zip(parsed, expected):
+        kind, g = ctx["doc_grant"][d]
+        if e or kind == "leaf":
+            continue
+        m = g if kind == "mid" else (ctx["top_mids"].get(g) or [None])[0]
+        for lf in sorted(ctx["membership"].get(u, ())):
+            if m is not None and ctx["leaf_parent"][lf] != m and (m, lf) not in taken:
+                return m, lf
+    raise SystemExit("hbm FAILED: no mid → leaf edge changes a decision")
+
+
+def phase_hbm(torch, kernels, report, main_ctx, queries, rctx, device="cuda"):
+    """The device-memory governor and the health machine at config 3 on a
+    fork of main's store (see the module docstring)."""
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from keto_tpu_torch.check.gpu_engine import TorchCheckEngine
+    from keto_tpu_torch.driver.daemon import make_batcher
+    from keto_tpu_torch.driver.hbm import device_budget_bytes
+    from keto_tpu_torch.driver.health import HealthMonitor, HealthState
+    from keto_tpu_torch.graph.device_build import DEFAULT_MIN_EDGES, GovernedSorter
+    from keto_tpu_torch.list.gpu_engine import SnapshotListEngine
+    from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectID, SubjectSet
+    from keto_tpu_torch.servers.rest import READ, RestServer
+
+    on_card = device == "cuda"
+    store, nm, _bfs_got, expected = main_ctx
+    t_phase = time.monotonic()
+    out: dict = {"config": "BASELINE config 3 (RBAC), labels on, built on the card"}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def fail(msg):
+        raise SystemExit(f"hbm FAILED: {msg}")
+
+    def ready():
+        url = f"http://127.0.0.1:{server.port}/health/ready"
+        try:
+            with urllib.request.urlopen(url, timeout=30) as r:
+                return r.status, json.loads(r.read()), r.headers.get("Retry-After")
+        except urllib.error.HTTPError as err:
+            return err.code, json.loads(err.read()), err.headers.get("Retry-After")
+
+    def checks(what, want, mode="latest"):
+        before = eng.counters().get("label_checks", 0)
+        kernels.reset_counts()
+        t0 = time.monotonic()
+        got = eng.batch_check(queries, mode=mode)
+        sync()
+        s = time.monotonic() - t0
+        wrong = sum(g != e for g, e in zip(got, want))
+        r = {"s": s, "checks_per_s": len(queries) / s, "wrong": wrong,
+             "label_checks": eng.counters().get("label_checks", 0) - before,
+             "label_step": kernels.COUNTS["label_step"], "check_run": kernels.COUNTS["check_run"]}
+        if wrong:
+            fail(f"{what}: {wrong} decisions differ from the expectation: {r}")
+        return r
+
+    def counts():
+        c = eng.counters()
+        g = eng.hbm.snapshot()
+        return {"rung": g["rung"], "evicted": g["evicted"], "refusals": g["refusals"],
+                "restores": g["restores"], "oom_events": g["oom_events"],
+                "oom_recoveries": g["oom_recoveries"],
+                "evictions_by_rung": {k: v for k, v in g["evictions_by_rung"].items() if v},
+                "refresh_failures": c.get("refresh_failures", 0)}
+
+    parsed = [(int(q.object[4:]), int(q.subject.id[5:])) for q in queries]
+    users = sorted({u for _, u in parsed[::2]})[:HBM_LISTINGS]
+    docs = sorted({d for d, _ in parsed})[:HBM_LISTINGS]
+
+    def listings():
+        lst._cache.clear()
+        t0 = time.monotonic()
+        got = [lst.list_objects("docs", "view", SubjectID(f"user-{u}"))[0] for u in users]
+        got += [lst.list_subjects("docs", f"doc-{d}", "view")[0] for d in docs]
+        return got, time.monotonic() - t0
+
+    fork = store.fork()
+    sync()
+    base = torch.cuda.memory_allocated() if on_card else 0
+    t0 = time.monotonic()
+    eng = TorchCheckEngine(fork, nm, device=device, labels_device_min_edges=0)
+    batches = record_sorts(eng)
+    lst = SnapshotListEngine(eng, nm, device=device)
+    monitor = HealthMonitor(eng, staleness_budget_s=60.0)
+    server = RestServer(READ, fork, make_batcher(eng), monitor=monitor)
+    server.start()
+    try:
+        if not eng.labels_settled():
+            fail("no label index")
+        sync()
+        idx = eng._snapshot.labels
+        out["build"] = {"s": time.monotonic() - t0, "labels": idx.backend,
+                        "label_bytes": idx.device_bytes(), "entries": idx.n_entries}
+        if idx.backend != "device":
+            fail(f"the labels were built on the {idx.backend}")
+        out["checks"] = checks("labels on", expected)
+        if out["checks"]["label_checks"] == 0 or (on_card and not out["checks"]["label_step"]):
+            fail(f"the label route never answered: {out['checks']}")
+        dev_lists, list_s = listings()
+        routes = dict(lst.requests_total)
+        n_dev = sum(n for (_, p), n in routes.items() if p == "device")
+        # "host": a listing whose seeds hold no interior row needs no fixpoint
+        if set(p for (_, p) in routes) - {"device", "host"} or n_dev < HBM_LISTINGS:
+            fail(f"the listings did not run on the card: {routes}")
+        out["listings_device"] = {"s": list_s, "routes": {f"{o}/{p}": n
+                                                          for (o, p), n in routes.items()}}
+
+        # (a) the ledger against the card
+        out["a"] = ledger_line(torch, eng, base, lst)
+        log(f"hbm (a) config 3: {json.dumps(out['a'])}")
+
+        # (b) pressure: a budget below the bucket bytes of the next snapshot
+        extra = [_new_edge(rctx, parsed, expected, set())]
+        want1 = _rbac_expect(rctx, parsed, extra)
+        snap0 = eng._snapshot
+        auto = eng.hbm.budget_bytes
+        eng.hbm.set_budget_bytes(eng.hbm.ledger()["snapshot"] // 2)
+        m, g = extra[0]
+        fork.write_relation_tuples(RelationTuple(
+            namespace="groups", object=f"mid-{m}", relation="member",
+            subject=SubjectSet("groups", f"leaf-{g}", "member")))
+        t0 = time.monotonic()
+        b_checks = checks("(b) under pressure", expected, mode="serving")
+        b = {"checks": b_checks, "first_batch_s": time.monotonic() - t0}
+        h = eng.health()
+        b["counts"] = counts()
+        b["health"] = {k: h[k] for k in ("memory_pressure", "hbm_rung", "hbm_resident_bytes",
+                                          "hbm_budget_bytes", "staleness_s")}
+        b["ready"] = ready()[:2]
+        if eng._snapshot is not snap0 or not h["memory_pressure"] \
+                or b["counts"]["evicted"] != ["staging", "labels", "reverse", "warm-ladder",
+                                              "overlay-budget"] \
+                or b["counts"]["refusals"] < 1 or b_checks["label_checks"] \
+                or b_checks["label_step"]:
+            fail(f"(b) the ladder: {b}")
+        if b["ready"][0] != 200 or b["ready"][1].get("status") != "degraded":
+            fail(f"(b) /health/ready: {b['ready']}")
+        ev_lists, ev_s = listings()
+        ev_routes = {f"{o}/{p}": n for (o, p), n in lst.requests_total.items()}
+        b["listings_evicted_s"] = ev_s
+        b["listing_routes"] = ev_routes
+        differ = sum(x != y for x, y in zip(ev_lists, dev_lists))
+        n_ev = sum(n for (_, p), n in lst.requests_total.items() if p == "evicted")
+        if differ or n_ev != n_dev:
+            fail(f"(b) {differ} listings differ on the reverse rung's route, {n_ev} evicted")
+        log(f"hbm (b): {json.dumps(b)}")
+        out["b"] = b
+
+        # (c) staleness: the monitor's budget cut to HBM_STALENESS_S
+        monitor.set_staleness_budget_s(HBM_STALENESS_S)
+        t0 = time.monotonic()
+        while monitor.status()[0] is not HealthState.NOT_SERVING:
+            if time.monotonic() - t0 > 30:
+                fail(f"(c) never NOT_SERVING: {monitor.status()}")
+            time.sleep(0.05)
+        st, body, retry = ready()
+        out["c"] = {"not_serving_after_s": time.monotonic() - t0, "status": st, "body": body,
+                    "retry_after": retry, "staleness_s": eng.staleness_s()}
+        log(f"hbm (c): {json.dumps(out['c'])}")
+        if st != 503 or retry != "1" or body.get("status") != "unavailable":
+            fail(f"(c) /health/ready: {out['c']}")
+
+        # (d) restore: the auto budget back, the ladder up, the labels rebuilt
+        t0 = time.monotonic()
+        eng.hbm.set_budget_bytes(device_budget_bytes(eng.device) if on_card else auto)
+        eng.snapshot()
+        sync()
+        d = {"refresh_s": time.monotonic() - t0, "counts": counts()}
+        d["ledger_with_overlay"] = ledger_line(torch, eng, base, lst)
+        t1 = time.monotonic()
+        snap = eng.maintenance_settled(fold=True, timeout=300)
+        sync()
+        d["labels_restored_s"] = time.monotonic() - t1
+        d["restore_s"] = time.monotonic() - t0
+        d["checks"] = checks("(d) restored", want1)
+        d["flipped"] = sum(a != b_ for a, b_ in zip(want1, expected))
+        d["ready"] = ready()[:2]
+        d["state"] = monitor.status()[0].value
+        if snap.labels is None or eng.hbm.rung_depth or snap.has_overlay \
+                or not d["checks"]["label_checks"] or d["state"] == "not_serving":
+            fail(f"(d) restore: {d}")
+        monitor.set_staleness_budget_s(60.0)
+        if monitor.status()[0] is not HealthState.SERVING or d["ready"][0] != 200:
+            fail(f"(d) health: {monitor.status()}")
+        d["labels_backend"] = snap.labels.backend
+        log(f"hbm (d): {json.dumps(d)}")
+        out["d"] = d
+
+        if on_card:
+            out["e"] = hbm_real_oom(torch, eng, fork, queries, want1, rctx, parsed, extra,
+                                    checks, counts, fail, monitor)
+
+        # (f) the build transients: refused with evict=False, built on the host
+        depth = eng.hbm.rung_depth
+        big = [arrays for arrays, _ in batches
+               if max((a.size for a in arrays), default=0) >= DEFAULT_MIN_EDGES]
+        sorter = GovernedSorter(eng.device, hbm=eng.hbm, on_count=eng._incr)
+        card = [sorter.argsort_many(arrays) for arrays in big]
+        c0 = eng.counters()
+        eng.hbm.set_budget_bytes(eng.hbm.resident_bytes() + 1)
+        t0 = time.monotonic()
+        host = [sorter.argsort_many(arrays) for arrays in big]
+        sort_host_s = time.monotonic() - t0
+        snap = eng._snapshot
+        eng.hbm.set_budget_bytes(eng.hbm.resident_bytes() + eng.label_build_bytes - 1)
+        t0 = time.monotonic()
+        idx_host = eng._build_label_index(snap)
+        label_host_s = time.monotonic() - t0
+        c1 = eng.counters()
+        eng.hbm.set_budget_bytes(device_budget_bytes(eng.device) if on_card else auto)
+        same_sorts = all(np.array_equal(x, y) for a, b_ in zip(card, host) for x, y in zip(a, b_))
+        same_labels = bool(np.array_equal(idx_host.out_lab, snap.labels.out_lab)
+                           and np.array_equal(idx_host.in_lab, snap.labels.in_lab))
+        f = {"sort_batches": len(big), "sorted_keys": sum(a.size for b_ in big for a in b_),
+             "host_sort_s": sort_host_s, "sorts_equal": same_sorts,
+             "device_build_skipped": c1.get("device_build_skipped", 0)
+             - c0.get("device_build_skipped", 0),
+             "label_backend": idx_host.backend, "labels_equal": same_labels,
+             "label_host_s": label_host_s,
+             "label_device_build_skipped": c1.get("label_device_build_skipped", 0)
+             - c0.get("label_device_build_skipped", 0),
+             "rung_before": depth, "rung_after": eng.hbm.rung_depth}
+        log(f"hbm (f): {json.dumps(f)}")
+        if not big or not same_sorts or not same_labels or f["device_build_skipped"] != len(big) \
+                or f["label_device_build_skipped"] != 1 or idx_host.backend != "host" \
+                or f["rung_after"] != depth:
+            fail(f"(f) the build transients: {f}")
+        out["f"] = f
+    finally:
+        server.stop()
+        eng.close()
+    out["seconds"] = time.monotonic() - t_phase
+    report["hbm"] = out
+    del eng, lst
+
+
+def hbm_real_oom(torch, eng, fork, queries, want, rctx, parsed, extra, checks, counts, fail,
+                 monitor) -> dict:
+    """(e) Real out-of-memory errors from the caching allocator, the card
+    filled by ``_fill_card``. (e0) the ladder at 0: the 100k batch's first
+    slice cannot allocate, the governor evicts the staging rung — host
+    memory, nothing on the card — the retry fails too and the batch RAISES:
+    no answer, counted, health SERVING; the card freed, the batch answers.
+    (e1) the next refresh's overlay upload cannot allocate: the governor
+    evicts the labels rung, whose arrays free their blocks, and the retry
+    succeeds (``oom_recoveries`` + 1)."""
+    from keto_tpu_torch.driver.health import HealthState
+    from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectSet
+
+    e: dict = {}
+    c0 = counts()
+    held = _fill_card(torch)
+    e["e0_held_bytes"] = sum(t.numel() for t in held)
+    t0 = time.monotonic()
+    try:
+        eng.batch_check(queries)
+    except torch.OutOfMemoryError as err:
+        e["e0_raised"] = str(err).split("\n")[0][:160]
+    finally:
+        e["e0_s"] = time.monotonic() - t0
+        e["e0_state"] = monitor.status()[0].value
+        del held
+        torch.cuda.empty_cache()
+    c1 = counts()
+    e["e0_counts"] = {k: c1[k] for k in ("oom_events", "oom_recoveries", "evicted")}
+    if "e0_raised" not in e or c1["oom_events"] != c0["oom_events"] + 1 \
+            or c1["oom_recoveries"] != c0["oom_recoveries"] or c1["evicted"] != ["staging"] \
+            or e["e0_state"] != HealthState.SERVING.value:
+        fail(f"(e0) a real OOM no rung clears: {e}")
+    e["e0_after"] = checks("(e0) the card freed", want)
+
+    m, g = _new_edge(rctx, parsed, want, set(extra))
+    extra.append((m, g))
+    want2 = _rbac_expect(rctx, parsed, extra)
+    fork.write_relation_tuples(RelationTuple(
+        namespace="groups", object=f"mid-{m}", relation="member",
+        subject=SubjectSet("groups", f"leaf-{g}", "member")))
+    held = _fill_card(torch)
+    t0 = time.monotonic()
+    try:
+        snap = eng.snapshot()
+        e["e1_s"] = time.monotonic() - t0
+    finally:
+        del held
+        torch.cuda.empty_cache()
+    c2 = counts()
+    e["e1_counts"] = {k: c2[k] for k in ("oom_events", "oom_recoveries", "evictions_by_rung")}
+    if snap.snapshot_id != fork.watermark() or c2["oom_events"] != c1["oom_events"] + 1 \
+            or c2["oom_recoveries"] != c1["oom_recoveries"] + 1 \
+            or c2["evictions_by_rung"].get("labels", 0) \
+            != c1["evictions_by_rung"].get("labels", 0) + 1:
+        fail(f"(e1) a real OOM at the refresh's upload: {e}, {c2}")
+    t0 = time.monotonic()
+    eng.maintenance_settled(fold=True, timeout=300)
+    e["e1_labels_restored_s"] = time.monotonic() - t0
+    e["e1_after"] = checks("(e1) recovered", want2)
+    if not e["e1_after"]["label_checks"] or eng.hbm.rung_depth:
+        fail(f"(e1) the labels did not come back: {e}")
+    log(f"hbm (e): {json.dumps(e)}")
+    return e
+
+
 # -- phase 6: deep, config 4 on the label route ---------------------------------
 
 
@@ -2765,6 +3177,8 @@ def phase_deep(torch, kernels, report):
     # the main path's run: counts from the snapshot and label build on
     kernels.reset_counts()
     torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
     engine = TorchCheckEngine(store, nm, device="cuda")
     batches = record_sorts(engine)
     t0 = time.monotonic()
@@ -2875,6 +3289,7 @@ def phase_deep(torch, kernels, report):
     log(f"deep build sorts on K8 alone: {json.dumps(k8)}")
     report["deep"] = {
         "config": "BASELINE config 4 (GitHub org/team/repo)", "tuples": n_tuples,
+        "alloc_before_engine": alloc0,
         "checks": N_CHECKS, "cold_start": cold, "snapshot_s": snap_s, "interior_rows": snap.num_int,
         "interior_ell_slots": slots, "label_build": build, "check_s": check_s,
         "checks_per_s": N_CHECKS / check_s, "steady_check_s": steady_s,
@@ -3610,6 +4025,7 @@ def phase_shard(torch, kernels, report, main_keep, deep_keep, rate, int_rate, de
              "slices_sharded": steps_sh, "slices_unsharded": steps_one, "counters": counters,
              "collective_bytes": coll, "peak_device_bytes": peak, "launches": launches}
         log(f"shard (a): {json.dumps(a)}")
+        out["g"] = shard_ledger_line(eng, queries3, expected3, on_card)
         eng.close()
         if wrong or differ or bad or got_b != got or missing or launches["answer_pack"]:
             raise SystemExit(f"shard FAILED (a): {wrong} wrong, {differ} differ, {bad} oracle, "
@@ -3732,6 +4148,52 @@ def phase_shard(torch, kernels, report, main_keep, deep_keep, rate, int_rate, de
             setattr(ps, name, fn)
     report["shard"] = out
     return rows
+
+
+def shard_ledger_line(eng, queries, expected, on_card) -> dict:
+    """(g) The per-shard ledger of the 4-shard engine at config 3 (labels
+    off), its warm ladder loaded by ``warm_compile``, and a plan that only
+    the hottest shard's slice of the budget refuses: the walk evicts rungs
+    for the whole mesh at once, each counted once, until that slice fits —
+    here the warm-ladder rung, after the three that hold nothing on this
+    engine's card (staging is host memory, labels are off, no list engine
+    is attached). The 100k checks then run on the trimmed widths and equal
+    the expectation; the auto budget restores the ladder."""
+    from keto_tpu_torch.driver.hbm import device_budget_bytes
+
+    gov = eng.hbm
+    warmed = eng.warm_compile()
+    res = gov.shard_resident_bytes()
+    g = {"warmed": warmed, "ledger": gov.ledger(), "per_shard": res,
+         "per_shard_by_tag": gov.shard_ledger(), "budget": gov.budget_bytes}
+    warm = gov.ledger().get("warmup", 0)
+    hot = max(range(len(res)), key=lambda s: res[s])
+    after = res[hot] - warm // len(res)
+    x = max(16, -(-(gov.resident_bytes() - 4 * after) // 3) + 1, max(res) - after + 1)
+    gov.set_budget_bytes(len(res) * (after + x))
+    per = [0] * len(res)
+    per[hot] = x
+    g.update({"hot_shard": hot, "plan_bytes": x, "plan_budget": gov.budget_bytes,
+              "global_fits": gov.fits(x), "hot_slice_fits": res[hot] + x <= gov.budget_bytes
+              // len(res)})
+    fits = gov.plan(x, what="one shard's upload", per_shard=per)
+    snap = gov.snapshot()
+    g.update({"planned": fits, "evicted": snap["evicted"],
+              "evictions_by_rung": {k: v for k, v in snap["evictions_by_rung"].items() if v},
+              "per_shard_after": gov.shard_resident_bytes(),
+              "widths_after": list(eng._word_widths())})
+    t0 = time.monotonic()
+    got = eng.batch_check(queries)
+    g["trimmed_check_s"] = time.monotonic() - t0
+    g["wrong"] = sum(a != b for a, b in zip(got, expected))
+    gov.set_budget_bytes(device_budget_bytes(eng.device) if on_card else 4 << 30)
+    g["restored"] = gov.maybe_restore()
+    log(f"shard (g): {json.dumps(g)}")
+    if not warm or not fits or g["wrong"] or not g["global_fits"] or g["hot_slice_fits"] \
+            or snap["evicted"][-1] != "warm-ladder" \
+            or any(v != 1 for v in g["evictions_by_rung"].values()) or gov.rung_depth:
+        raise SystemExit(f"shard FAILED (g): {g}")
+    return g
 
 
 def shard_write(kernels, eng, store, queries, expected, ctx, sync, on_card) -> dict:
@@ -5663,7 +6125,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help=f"comma-separated phases to run (default: all of {','.join(PHASES)}); "
-                         "lanes and labels need main, shard needs main and deep, cache, list "
+                         "lanes, labels and hbm need main, shard needs main and deep, cache, list "
                          "and explain need deep, write needs list")
     args = ap.parse_args(argv)
     phases = set(args.only.split(","))
@@ -5710,7 +6172,7 @@ def main(argv=None) -> int:
     rows = []
     main_keep = None
     if "main" in phases:
-        engine, snap, queries, main_ctx = phase_main(torch, kernels, report)
+        engine, snap, queries, main_ctx, rbac_ctx = phase_main(torch, kernels, report)
         rows, step = kernel_rows(torch, kernels, engine, snap, queries, rate, report["launches"])
         report["check_step"] = step
         log(json.dumps({"main": report["main"]}))
@@ -5721,10 +6183,14 @@ def main(argv=None) -> int:
         if "labels" in phases:
             phase_labels(torch, kernels, report, main_ctx, queries)
             log(json.dumps({"labels": report["labels"]}))
+        if "hbm" in phases:
+            phase_hbm(torch, kernels, report, main_ctx, queries, rbac_ctx)
+            log(json.dumps({"hbm": report["hbm"]}))
+            log(f"elapsed {time.monotonic() - t_start:.1f}s")
         # the shard phase holds its config 3 run against this engine's; the
         # cache phase saves and reloads its store
         main_keep = (engine, queries, main_ctx) if phases & {"shard", "cache"} else None
-        del engine, snap, queries, main_ctx
+        del engine, snap, queries, main_ctx, rbac_ctx
     log(f"elapsed {time.monotonic() - t_start:.1f}s")
     if "deep" in phases:
         engine, snap, captured, launches, store, deep_q, deep_got, ctx, sort_keys = phase_deep(
@@ -5732,6 +6198,10 @@ def main(argv=None) -> int:
         rows += label_rows(torch, kernels, snap, engine, captured, launches, rate, int_rate)
         log(json.dumps({"deep": report["deep"]}))
         del snap, captured
+        if "hbm" in phases:
+            # the ledger at config 4 on deep's engine, with no rebuild
+            report["hbm_deep"] = ledger_line(torch, engine, report["deep"]["alloc_before_engine"])
+            log(f"hbm (a) config 4: {json.dumps(report['hbm_deep'])}")
         log(f"elapsed {time.monotonic() - t_start:.1f}s")
         cache_launches = None
         if "cache" in phases:

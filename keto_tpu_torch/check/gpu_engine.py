@@ -53,10 +53,11 @@ their edge-scale stable sorts through a ``GovernedSorter``
 (keto_tpu_torch/graph/device_build.py): K8 on the card past
 ``DEFAULT_MIN_EDGES`` keys, the host below it. ``build_info`` records the
 last full build's seconds, its sort seconds by backend and
-``build_sort_bytes`` (the transient the reference plans against its HBM
-governor, reported here); the counters ``device_build_dispatches``,
-``device_build_host_dispatches`` and ``device_build_errors`` count the
-sorter's batches. A failed device sort raises.
+``build_sort_bytes``; the counters ``device_build_dispatches``,
+``device_build_host_dispatches``, ``device_build_skipped`` (a batch whose
+transient the governor refused, sorted on the host) and
+``device_build_errors`` count the sorter's batches. A failed device sort
+raises.
 
 Full builds (tpu_engine.py:2185-2200) go through
 ``stream_build.full_build`` only: the store's column bundle after a bulk
@@ -100,10 +101,38 @@ supervised background thread against the CPU oracle
 (keto_tpu_torch/check/engine.py) over the store; a sample whose snaptoken
 no longer equals the store's watermark is skipped and counted
 (``audit_skipped_stale``), a disagreement counted (``audit_mismatches``)
-with both witnesses kept in ``audit_divergences``. It never answers a
-request: it is an alarm off the serving path, not a fallback. The
-reference's DEGRADED health flip waits for the health machine (ROADMAP
-A6).
+with both witnesses kept in ``audit_divergences``, and ``health()``
+reports it, which the health machine reads as DEGRADED. It never answers
+a request: it is an alarm off the serving path, not a fallback.
+
+The device-memory governor (tpu_engine.py:1298-1346, :1594-1810,
+keto_tpu_torch/driver/hbm.py). ``self.hbm`` keeps a ledger of every tensor
+the engine places on the card — ``snapshot`` (the buckets), ``overlay``,
+``labels``, ``warmup``, the list engine's ``reverse`` and the build's
+transient ``build`` — against ``hbm_budget_bytes`` (0: the card's memory
+less 8%). Every refresh, fold and label upload is planned first
+(``_plan_or_refuse``): an over-budget plan walks the eviction ladder —
+``staging`` (the pinned host staging pool, which costs the card nothing
+and so never makes room: it keeps the reference's place and name),
+``labels`` (checks take the BFS route, decisions unchanged),
+``reverse`` (listings run on the host lister, equal answers),
+``warm-ladder`` (narrower slice widths, the allocator's cache emptied),
+``overlay-budget`` (a smaller overlay, folded) — and with every rung spent
+the refresh is refused: the current snapshot serves stale, ``health()``
+reports ``memory_pressure`` and ``refusals`` counts it; a cold engine
+with nothing to serve uploads over budget (``forced_allocs``). A
+successful refresh walks back up the ladder (``maybe_restore``). Every
+upload and every slice dispatch runs under ``_guard_alloc``: a
+``torch.OutOfMemoryError`` evicts one rung and retries once
+(``oom_events``, ``oom_recoveries``); a second one, or one with the ladder
+spent, raises to the caller — a batch fails every rider, a refresh is a
+supervised failure and the current snapshot serves stale. There is no CPU
+fallback: the reference's escalation into one (tpu_engine.py:1781-1800,
+:1977) is not ported, and ``health()["degraded"]`` is always False.
+``warm_compile()`` runs one empty slice a width to load each kernel's
+module and leave its workspace in the caching allocator, skipping the
+widths the budget cannot hold. ``health()`` and ``staleness_s()``
+(tpu_engine.py:1528-1582) feed keto_tpu_torch/driver/health.py.
 
 The snapshot cache (tpu_engine.py:2449-2540, keto_tpu_torch/graph/
 snapcache.py). With ``snapshot_cache_dir`` the first refresh reloads the
@@ -131,8 +160,8 @@ overlapped on a background thread and installed only onto the exact
 snapshot it was built for, host resolution, the label router, slicing, the
 exact truncation re-run ladder and the
 grow-only ``block_iters`` retune. Not here: shards on several cards, the
-GSPMD mode and the multi-process lockstep, the HBM governor (and its
-staging rung), the fault-injection seams (ROADMAP A10) and any CPU
+GSPMD mode and the multi-process lockstep (and with it the governor's
+deterministic mode), the fault-injection seams (ROADMAP A10) and any CPU
 fallback.
 A device error raises; a failed label
 build, background refresh, fold or device label patch is counted and
@@ -159,6 +188,7 @@ import torch
 from keto_tpu_torch import namespace as namespace_pkg
 from keto_tpu_torch.check import kernels
 from keto_tpu_torch.check.stream import StreamSliceController, _StagingPool
+from keto_tpu_torch.driver.hbm import HbmGovernor, MemoryPressure, is_resource_exhausted
 from keto_tpu_torch.check.pack import (
     _WORD_WIDTHS,
     _ceil_pow2,
@@ -171,7 +201,7 @@ from keto_tpu_torch.graph.carry import device_graph_from_arrays, host_tensor, sn
 from keto_tpu_torch.graph.compaction import compact_snapshot
 from keto_tpu_torch.graph.device_build import GovernedSorter, estimate_sort_bytes
 from keto_tpu_torch.graph.labels import build_labels, patch_labels
-from keto_tpu_torch.graph.overlay import apply_delta
+from keto_tpu_torch.graph.overlay import apply_delta, overlay_device_bytes
 from keto_tpu_torch.graph.snapshot import WILDCARD, GraphSnapshot
 from keto_tpu_torch.graph.stream_build import BuildProgress, full_build
 from keto_tpu_torch.parallel import sharded as shard_mod
@@ -316,7 +346,8 @@ class TorchCheckEngine:
     audit. ``mesh`` (a ``ShardMesh`` on the engine's device) selects the
     sharded mode. ``snapshot_cache_dir`` (None: off) keeps the snapshot
     cache there; ``refresh_retry_max_wait_s`` bounds the retries of a
-    failing store read on the refresh path.
+    failing store read on the refresh path. ``hbm_budget_bytes`` (0: auto,
+    the card's memory less 8%) is the device-memory governor's budget.
     """
 
     #: the stream yields per-slice route info (``with_info=True``)
@@ -353,6 +384,7 @@ class TorchCheckEngine:
         mesh=None,
         snapshot_cache_dir: Optional[str] = None,
         refresh_retry_max_wait_s: float = 2.0,
+        hbm_budget_bytes: int = 0,
     ):
         if it_cap < 1:
             raise ValueError("it_cap must be >= 1 (the answer pull needs one step)")
@@ -396,9 +428,6 @@ class TorchCheckEngine:
         self._route_stats: dict[str, DurationStats] = {}
         self._route_slices: collections.Counter = collections.Counter()
         self._route_queries: collections.Counter = collections.Counter()
-        # entry staging: host buffers (pinned on the card) leased until the
-        # slice that shipped them lands
-        self._staging = _StagingPool(pin=self.device.type == "cuda")
         # the refresh lock: deltas, folds and full rebuilds hold it. Installs
         # (the snapshot swap, a label index landing) take the short
         # _swap_lock instead, so the serving path's non-blocking try on the
@@ -431,7 +460,8 @@ class TorchCheckEngine:
         #: by the next check and by maintenance_settled()
         self._maintenance_error: Optional[Exception] = None
         self._refresh_task = SupervisedTask(
-            "refresh", self._refresh_pass, on_error=self._note_maintenance_error
+            "refresh", self._refresh_pass, on_error=self._note_maintenance_error,
+            quiet=lambda e: isinstance(e, MemoryPressure),
         )
         # a failing store read on the refresh path retries for this long
         self._refresh_retry_max_wait_s = float(refresh_retry_max_wait_s)
@@ -478,8 +508,8 @@ class TorchCheckEngine:
         #: the exception of the last background label build, raised by the
         #: next check and by labels_settled() (never a quiet BFS fallback)
         self._label_build_error: Optional[Exception] = None
-        #: transient device bytes of the last device label build (what the
-        #: reference plans against its HBM governor, which is not ported)
+        #: transient device bytes of the last device label build (planned
+        #: against the governor under the ``build`` tag)
         self.label_build_bytes = 0
         #: BuildInfo of the last device label build
         self.label_build_info: Optional[label_build.BuildInfo] = None
@@ -502,14 +532,63 @@ class TorchCheckEngine:
         # shard_halo_bytes and shard_frontier_bits; the snapshot cache's
         # cache_loads, cache_saves, cache_quarantined, cache_reload_retries
         # (an unreadable cache directory), cache_save_failures and
-        # cache_load_failures (a reload that raised); refresh_read_retries
+        # cache_load_failures (a reload that raised); refresh_read_retries;
+        # the governor's hbm_evictions, hbm_refusals, hbm_restores,
+        # hbm_forced_allocs, oom_events and oom_recoveries;
+        # label_device_build_skipped; health_transitions
         self._counters: collections.Counter = collections.Counter()
         self._counter_lock = threading.Lock()
-        # the build's stable sorts: K8 on the card past the size gate
-        # (device_build_dispatches, device_build_host_dispatches,
+        # the device-memory governor (tpu_engine.py:1298-1346): the ledger,
+        # plan before upload and the eviction ladder. Its counters land in
+        # the engine's; the reference's gauges wait for the metrics (A6)
+        self.hbm = HbmGovernor(
+            budget_bytes=int(hbm_budget_bytes), device=self.device,
+            stats=types.SimpleNamespace(incr=self._incr, set_gauge=lambda k, v: None),
+        )
+        if self._sharded:
+            # per-shard ledger: the mesh-wide plan binds on the hottest shard
+            self.hbm.set_shard_count(self._shard_count)
+        # the list engine's hooks behind the reverse rung (attach_reverse_rung)
+        self._reverse_evict_cb: Optional[Callable[[], int]] = None
+        self._reverse_restore_cb: Optional[Callable[[], None]] = None
+        # entry staging: host buffers (pinned on the card) leased until the
+        # slice that shipped them lands; its bytes are host memory, reported
+        # to the governor apart from the card's budget
+        self._staging_suspended = False
+        self._staging = _StagingPool(
+            pin=self.device.type == "cuda",
+            on_change=lambda b: self.hbm.set_host_bytes("staging", b),
+        )
+        self.hbm.attach_rungs([
+            ("staging", self._evict_staging, self._restore_staging),
+            ("labels", self._evict_labels, self._restore_labels),
+            ("reverse", self._evict_reverse, self._restore_reverse),
+            ("warm-ladder", self._evict_warm_ladder, self._restore_warm_ladder),
+            ("overlay-budget", self._evict_overlay_budget, self._restore_overlay_budget),
+        ])
+        # ladder state the rungs flip
+        self._labels_suspended = False
+        self._width_trim = 0
+        self._configured_overlay_budget = self._max_overlay_edges
+        self._memory_pressure = False
+        self._last_label_bytes = 0
+        self._last_warm_bytes = 0
+        #: the widest slice width (queries) ``warm_compile`` warmed, 0: none,
+        #: and the widths its last call skipped as over budget
+        self.warmup = 0
+        self.warm_widths_skipped = 0
+        # the snapshot a refresh is uploading, until it installs
+        self._installing: Optional[GraphSnapshot] = None
+        # staleness clock for the health machine: the monotonic instant the
+        # serving snapshot was first seen behind the store's watermark
+        self._behind_since: Optional[float] = None
+        # the build's stable sorts: K8 on the card past the size gate, each
+        # batch's transient planned against the governor (device_build_
+        # dispatches, device_build_host_dispatches, device_build_skipped,
         # device_build_errors count its batches), numpy's without the knob
         self._build_sorter = (
-            GovernedSorter(self.device, on_count=self._incr) if device_build_enabled else None
+            GovernedSorter(self.device, hbm=self.hbm, on_count=self._incr)
+            if device_build_enabled else None
         )
         #: the full builds' phases and path (keto_tpu_torch/graph/stream_build.py)
         self.build_progress = BuildProgress()
@@ -557,11 +636,23 @@ class TorchCheckEngine:
           snapshot serves while the background refresh catches up. The same
           holds while a rebuild or a fold holds the refresh lock.
 
-        A refresh error raises (the reference serves stale and counts it).
+        A refresh the device-memory governor refused (``MemoryPressure``),
+        or one whose upload ran out of card memory past its one retry,
+        serves the current snapshot stale, counted in
+        ``refresh_failures``, while the background refresh retries. Any
+        other refresh error raises (the reference serves stale on every
+        error).
         """
         snap = self._snapshot
         if snap is None or self._last_full_build_s <= self._sync_rebuild_budget_s:
-            return self.snapshot()
+            try:
+                return self.snapshot()
+            except Exception as e:
+                if snap is None or not self._serves_stale(e):
+                    raise
+                self._incr("refresh_failures")
+                self._refresh_task.kick()
+                return self._snapshot
         if snap.snapshot_id >= self._store.watermark():
             self._maybe_kick_compaction(snap)
             return snap
@@ -569,9 +660,11 @@ class TorchCheckEngine:
             try:
                 try:
                     got = self._refresh_locked(delta_only=True)
-                except Exception:
+                except Exception as e:
                     self._incr("refresh_failures")
-                    raise
+                    if not self._serves_stale(e):
+                        raise
+                    got = None
                 if got is not None:
                     if self._overlay_edge_count(got) > self._max_overlay_edges:
                         # serve fresh now; the background pass folds it
@@ -600,9 +693,16 @@ class TorchCheckEngine:
             self._refresh_force_full = True
             self._refresh_task.kick()
 
+    @staticmethod
+    def _serves_stale(e: BaseException) -> bool:
+        """A refresh error after which the current snapshot serves stale:
+        the governor's refusal, or a card OOM that survived its retry."""
+        return isinstance(e, MemoryPressure) or is_resource_exhausted(e)
+
     def _note_maintenance_error(self, e: Exception) -> None:
         self._incr("refresh_failures")
-        self._maintenance_error = e
+        if not self._serves_stale(e):
+            self._maintenance_error = e
 
     def _refresh_pass(self) -> None:
         """One supervised background pass: catch up to the watermark and
@@ -637,6 +737,236 @@ class TorchCheckEngine:
         self._audit_task.stop()
         self._cache_task.stop()
 
+    # -- health (keto_tpu_torch/driver/health.py reads this surface) -----------
+
+    def staleness_s(self) -> float:
+        """Seconds the serving snapshot has been behind the store watermark
+        (tpu_engine.py:1528-1548): 0.0 while current, or before the first
+        build. Observing a gap also kicks the background refresh, so a
+        health poll is itself a self-healing probe."""
+        snap = self._snapshot
+        if snap is None:
+            return 0.0
+        try:
+            wm = self._store.watermark()
+        except Exception:
+            wm = None  # store unreadable: keep (or start) the behind clock
+        now = time.monotonic()
+        if wm is not None and snap.snapshot_id >= wm:
+            self._behind_since = None
+            return 0.0
+        if self._behind_since is None:
+            self._behind_since = now
+        self._refresh_task.kick()
+        return now - self._behind_since
+
+    def health(self) -> dict:
+        """Live inputs for the health state machine (tpu_engine.py:1550-1582):
+        snapshot presence and staleness, the maintenance workers' liveness
+        and crash counts, the governor's pressure flag and figures, the
+        shadow audit's counts and the build's progress. ``degraded`` is
+        always False: no CPU fallback engine ever serves."""
+        rt = self._refresh_task
+        c = self.counters()
+        return {
+            "has_snapshot": self._snapshot is not None,
+            "staleness_s": self.staleness_s(),
+            "maintenance_alive": (
+                rt.alive() and self._cache_task.alive() and self._audit_task.alive()
+            ),
+            "refresh_failures": rt.crashes,
+            "refresh_consecutive_failures": rt.consecutive_failures,
+            "refresh_last_error": rt.last_error,
+            "degraded": False,
+            "memory_pressure": self._memory_pressure,
+            "hbm_resident_bytes": self.hbm.resident_bytes(),
+            "hbm_budget_bytes": self.hbm.budget_bytes,
+            "hbm_rung": self.hbm.rung_depth,
+            "audit_checks": c["audit_checks"],
+            "audit_mismatches": c["audit_mismatches"],
+            "build_phase": self.build_progress.current_phase,
+            "build_pct": self.build_progress.pct(),
+            "build_rows_ingested": self.build_progress.rows_ingested,
+        }
+
+    # -- the device-memory governor (keto_tpu_torch/driver/hbm.py) -----------
+
+    def _plan_or_refuse(self, what: str, need: int, per_shard=None) -> None:
+        """Plan ``need`` device bytes before an upload (tpu_engine.py:
+        1596-1618). The governor walks the eviction ladder until it fits;
+        with every rung spent the refresh is REFUSED (``MemoryPressure``:
+        the current snapshot serves stale) — unless there is no snapshot
+        at all (cold boot: nothing to serve, so the upload proceeds over
+        budget and is counted in ``forced_allocs``). ``per_shard`` holds
+        the plan against each shard's slice of the budget too."""
+        if self.hbm.plan(need, what=what, per_shard=per_shard):
+            return
+        if self._snapshot is None:
+            self.hbm.note_forced(what, need)
+            return
+        self.hbm.note_refused()
+        self._memory_pressure = True
+        raise MemoryPressure(
+            f"device memory budget refused {what}: need {need} bytes with "
+            f"{self.hbm.resident_bytes()} resident of {self.hbm.budget_bytes} "
+            "budgeted and every eviction rung spent — serving the current snapshot stale"
+        )
+
+    def _guard_alloc(self, what: str, fn):
+        """Run one upload or dispatch seam with OOM containment
+        (tpu_engine.py:1620-1652): a classified out-of-memory error evicts
+        one ladder rung and retries ONCE; a second one, or one with the
+        ladder spent, raises to the caller. There is no CPU fallback."""
+        try:
+            return fn()
+        except Exception as e:
+            if not is_resource_exhausted(e):
+                raise
+            self.hbm.note_oom(what)
+            rung = self.hbm.evict_one(reason=f"oom at {what}")
+            if rung is None:
+                raise
+            _log.warning("device OOM at %s: evicted rung %r, retrying once", what, rung)
+        out = fn()
+        self.hbm.note_oom_recovered()
+        return out
+
+    def _restore_plan_bytes(self) -> int:
+        """Bytes a full walk back up the ladder would re-place on the card
+        — the ``planned`` margin ``maybe_restore`` holds against, so the
+        ladder does not oscillate."""
+        est = 0
+        if self._labels_suspended:
+            est += self._last_label_bytes
+        if self._width_trim:
+            est += self._last_warm_bytes
+        return est
+
+    def _after_refresh(self) -> None:
+        """A refresh reached the watermark within budget: pressure (if any)
+        has cleared and the ladder may walk back up."""
+        self._behind_since = None
+        self._memory_pressure = False
+        self.hbm.maybe_restore(planned=self._restore_plan_bytes())
+
+    def attach_reverse_rung(self, evict: Callable[[], int], restore: Callable[[], None]) -> None:
+        """The list engine's hooks behind the ``reverse`` rung (eviction
+        drops the list layouts' device arrays; listings run on the host
+        lister). Called once at list-engine construction."""
+        self._reverse_evict_cb = evict
+        self._reverse_restore_cb = restore
+
+    def _evict_reverse(self) -> int:
+        cb = self._reverse_evict_cb
+        return int(cb()) if cb is not None else 0
+
+    def _restore_reverse(self) -> None:
+        cb = self._reverse_restore_cb
+        if cb is not None:
+            cb()
+
+    def _evict_staging(self) -> int:
+        """Rung 0 — drop the pinned staging pool; slices then ship their
+        entries from plain per-slice host tensors. It frees host memory
+        only, so it returns 0 card bytes."""
+        self._staging_suspended = True
+        self._staging.drop()
+        return 0
+
+    def _restore_staging(self) -> None:
+        self._staging_suspended = False  # the pool refills as slices dispatch
+
+    def _stage_acquire(self, n: int) -> torch.Tensor:
+        """An ``n``-element int32 host buffer for a slice's entries: leased
+        from the pool, or — while the staging rung is evicted — a plain
+        per-slice tensor, which the pool does not take back on release."""
+        buf = self._staging.acquire(n, plan=lambda b: not self._staging_suspended)
+        if buf is None:
+            buf = torch.empty(n, dtype=torch.int32)
+        return buf
+
+    def _evict_labels(self) -> int:
+        """Rung 1 — drop the label arrays: coverage loss only (checks take
+        the BFS route with the same decisions)."""
+        self._labels_suspended = True
+        freed = self.hbm.release("labels")
+        self._last_label_bytes = max(self._last_label_bytes, freed)
+        for snap in (self._snapshot, self._installing):
+            if snap is not None:
+                snap.device_labels = None
+                snap.device_shard_labels = None
+                snap.labels = None
+        return freed
+
+    def _restore_labels(self) -> None:
+        self._labels_suspended = False
+        # the next refresh pass rebuilds and uploads the index
+        self._refresh_task.kick()
+
+    def _evict_warm_ladder(self) -> int:
+        """Rung 3 — trim the slice widths to the ladder's lower rungs and
+        hand the caching allocator's free blocks back to the driver:
+        wide-slice throughput falls, decisions do not change."""
+        self._width_trim = max(self._width_trim, len(_WORD_WIDTHS) - 4)
+        freed = self.hbm.release("warmup")
+        self._last_warm_bytes = max(self._last_warm_bytes, freed)
+        self.warmup = 0
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        return freed
+
+    def _restore_warm_ladder(self) -> None:
+        self._width_trim = 0
+
+    def _evict_overlay_budget(self) -> int:
+        """Rung 4 (last) — shrink the overlay edge budget so pending deltas
+        fold into the base layout (the fold retires the overlay's device
+        arrays and keeps future overlays small)."""
+        self._max_overlay_edges = max(64, self._configured_overlay_budget // 8)
+        snap = self._snapshot
+        freed = 0
+        if snap is not None and snap.has_overlay:
+            freed = overlay_device_bytes(snap)  # retired when the fold lands
+            self._refresh_force_full = True
+            self._refresh_task.kick()
+        return freed
+
+    def _restore_overlay_budget(self) -> None:
+        self._max_overlay_edges = self._configured_overlay_budget
+
+    def _word_widths(self) -> tuple:
+        """The slice-width ladder in service: ``_WORD_WIDTHS``, or its lower
+        rungs while the warm-ladder rung is evicted (never fewer than two)."""
+        n = len(_WORD_WIDTHS) - self._width_trim
+        return _WORD_WIDTHS[: max(2, n)]
+
+    def hbm_ledger_bytes(self) -> dict:
+        """The bytes of the tensors each ledger tag names, summed from the
+        tensors themselves (``nbytes``) — what the ledger must equal:
+        ``snapshot`` (the buckets), ``overlay``, ``labels``; ``reverse``
+        is the list engine's (``SnapshotListEngine.device_bytes``)."""
+        snap = self._snapshot
+        out = {"snapshot": 0, "overlay": 0, "labels": 0}
+        if snap is None:
+            return out
+        if self._sharded:
+            dev = snap.device_shards
+            if dev is not None:
+                out["snapshot"] = sum(int(t.nbytes) for t in dev.nbrs + dev.dst)
+            ov = snap.device_shard_overlay
+            lab = snap.device_shard_labels
+            lab = lab[:2] if lab is not None else None
+        else:
+            if snap.device is not None:
+                out["snapshot"] = sum(int(t.nbytes) for t in snap.device.buckets)
+            ov = snap.device_overlay
+            lab = snap.device_labels
+        if ov is not None:
+            out["overlay"] = sum(int(t.nbytes) for t in ov)
+        if lab is not None:
+            out["labels"] = sum(int(t.nbytes) for t in lab)
+        return out
+
     def _refresh_locked(
         self, force_full: bool = False, delta_only: bool = False, maintenance: bool = False
     ) -> Optional[GraphSnapshot]:
@@ -664,6 +994,15 @@ class TorchCheckEngine:
             and not (force_full and snap.has_overlay)
             and not needs_fold
         ):
+            self._behind_since = None
+            if maintenance and not delta_only:
+                # an already-current engine has no install step: the
+                # background pass is where the ladder walks back up once
+                # pressure clears, and where labels the ladder dropped are
+                # built again after their rung restores
+                self.hbm.maybe_restore(planned=self._restore_plan_bytes())
+                if not snap.has_overlay and snap.labels is None:
+                    self._restart_label_build(snap)
             return snap
         wild_ns_ids = frozenset(n.id for n in self._nm().namespaces() if n.name == "")
         new = None
@@ -718,10 +1057,21 @@ class TorchCheckEngine:
                 "phases_s": phases,
             }
             self._incr("full_rebuilds")
-        self._apply_ell_patch(new)
-        self._upload_overlay(new)
-        with self._swap_lock:
-            self._snapshot = new
+        # the snapshot being installed: a labels eviction during its uploads
+        # drops its labels too (a delta carries its base's device arrays)
+        self._installing = new
+        try:
+            self._apply_ell_patch(new)
+            self._upload_overlay(new)
+            if self._labels_suspended:
+                new.labels = None
+                new.device_labels = None
+                new.device_shard_labels = None
+            with self._swap_lock:
+                self._snapshot = new
+        finally:
+            self._installing = None
+        self._after_refresh()
         if new.has_overlay:
             if self._overlay_born is None:
                 self._overlay_born = time.monotonic()
@@ -785,10 +1135,10 @@ class TorchCheckEngine:
             if snap.wild_ns_ids != wild_now:
                 return None  # the namespace config changed: the expansion differs
             self._upload_buckets(snap)
-            if snap.labels is not None and not self._labels_enabled:
-                snap.labels = None  # cached labels ignored when disabled
+            if snap.labels is not None and (not self._labels_enabled or self._labels_suspended):
+                snap.labels = None  # cached labels ignored when disabled or evicted
             if snap.labels is not None:
-                self._upload_labels(snap)
+                self._place_labels(snap)
         except Exception:
             self._incr("cache_load_failures")
             raise
@@ -910,10 +1260,18 @@ class TorchCheckEngine:
             # the sharded mode re-partitions the compacted layout in full
             self._upload_buckets(new)
         else:
+            # old and new copies of every touched bucket are co-resident
+            # while batches in flight gather the old ones: plan the
+            # re-upload like any other swap before placing it
+            self._plan_or_refuse("compaction bucket re-upload", got.touched_bytes)
             bufs = list(g.buckets)
             for bi in got.touched_buckets:
-                bufs[bi] = host_tensor(new.buckets[bi].nbrs, np.int32, self.device)
+                bufs[bi] = self._guard_alloc(
+                    "compaction-upload",
+                    lambda b=new.buckets[bi]: host_tensor(b.nbrs, np.int32, self.device),
+                )
             new.device = dataclasses.replace(g, buckets=tuple(bufs), num_live=new.num_live)
+            self.hbm.register("snapshot", sum(int(t.nbytes) for t in bufs))
         if got.labels == "patched":
             self._incr("label_patches")
         elif got.labels == "patch_abort":
@@ -921,13 +1279,13 @@ class TorchCheckEngine:
             self._incr("label_rebuilds")
         elif got.labels == "rebuild":
             self._incr("label_rebuilds")
-        if self._labels_enabled and new.labels is None:
+        if self._labels_enabled and not self._labels_suspended and new.labels is None:
             # as the reference's _ensure_labels: the fold (a background pass)
             # builds the index its compacted base needs before installing
             new.labels = self._build_label_index(new)
             self._incr("label_builds")
         if new.labels is not None and self._labels_dev(new) is None:
-            self._upload_labels(new)
+            self._place_labels(new)
         self._incr("compactions")
         self.last_compaction = {
             "seconds": time.monotonic() - t0,
@@ -1021,7 +1379,8 @@ class TorchCheckEngine:
         for bi, entries in by_bucket.items():
             e = np.asarray(entries, np.int64)
             targets.append((bufs[bi], e[:, 0], e[:, 1], e[:, 2]))
-        for bi, out in zip(by_bucket, kernels.slot_set_many(targets)):
+        outs = self._guard_alloc("ell-patch", lambda: kernels.slot_set_many(targets))
+        for bi, out in zip(by_bucket, outs):
             bufs[bi] = out
         snap.device = dataclasses.replace(g, buckets=tuple(bufs))
 
@@ -1044,21 +1403,32 @@ class TorchCheckEngine:
             spec.nbrs_sh[bi][e[:, 0], e[:, 1], e[:, 2]] = e[:, 3]
             g, rb, cap = bufs[bi].shape
             targets.append((bufs[bi].view(g * rb, cap), e[:, 0] * rb + e[:, 1], e[:, 2], e[:, 3]))
-        for bi, flat in zip(by_bucket, kernels.slot_set_many(targets)):
+        outs = self._guard_alloc("ell-patch", lambda: kernels.slot_set_many(targets))
+        for bi, flat in zip(by_bucket, outs):
             bufs[bi] = flat.view(bufs[bi].shape)
         snap.device_shards = dataclasses.replace(dev, nbrs=tuple(bufs))
 
     def _upload_buckets(self, snap: GraphSnapshot) -> None:
-        """Place the snapshot's buckets on the device: one tensor per bucket,
-        or in sharded mode (tpu_engine.py:2635-2663) the stacked per-shard
-        arrays of a fresh row-range partitioning."""
+        """Place the snapshot's buckets on the device (tpu_engine.py:
+        2618-2663): one tensor per bucket, or in sharded mode the stacked
+        per-shard arrays of a fresh row-range partitioning, their owned
+        bytes in the per-shard ledger. Planned BEFORE the upload: during a
+        swap the old snapshot's buckets are still resident."""
         if not self._sharded:
             arrays, meta = snapshot_arrays(snap)
-            snap.device = device_graph_from_arrays(arrays, meta, self.device)
+            self._plan_or_refuse("snapshot buckets", sum(4 * int(a.size) for a in arrays))
+            snap.device = self._guard_alloc(
+                "snapshot-upload", lambda: device_graph_from_arrays(arrays, meta, self.device))
+            self.hbm.register("snapshot", sum(int(t.nbytes) for t in snap.device.buckets))
             return
         spec = shard_mod.make_shard_spec(snap, self._shard_count)
+        self._plan_or_refuse("snapshot buckets", spec.padded_bucket_bytes(),
+                             per_shard=spec.owned_bucket_bytes)
         snap.shard_spec = spec
-        snap.device_shards = shard_mod.ShardedBuckets.from_spec(spec, self.device)
+        snap.device_shards = self._guard_alloc(
+            "snapshot-upload", lambda: shard_mod.ShardedBuckets.from_spec(spec, self.device))
+        self.hbm.register("snapshot", spec.padded_bucket_bytes())
+        self.hbm.register_shards("snapshot", spec.owned_bucket_bytes)
 
     def _apply_overlay_delta(self, snap: GraphSnapshot, delta) -> bool:
         """Scatter one delta's added and dropped overlay-ELL edges into the
@@ -1121,7 +1491,8 @@ class TorchCheckEngine:
         try:
             targets = ([(dev_n, rows, cols, vals)] if rows else []) + (
                 [(dev_d, drows, None, dvals)] if drows else [])
-            outs = iter(kernels.slot_set_many(targets))
+            outs = iter(self._guard_alloc("overlay-apply",
+                                          lambda: kernels.slot_set_many(targets)))
             if rows:
                 dev_n = next(outs)
             if drows:
@@ -1132,6 +1503,7 @@ class TorchCheckEngine:
         pack["dev"] = (dev_n, dev_d)
         pack["snap_id"] = int(snap.snapshot_id)
         snap.device_overlay = pack["dev"]
+        self.hbm.register("overlay", int(dev_n.nbytes + dev_d.nbytes))
         self._incr("overlay_device_applies")
         return True
 
@@ -1146,9 +1518,13 @@ class TorchCheckEngine:
             self._ov_pack = None
             snap.device_overlay = None
             snap.device_shard_overlay = None
+            self.hbm.register("overlay", 0)
+            if self._sharded:
+                self.hbm.register_shards("overlay", [0] * self._shard_count)
             return
         if not self._sharded and self._apply_overlay_delta(snap, delta):
             return
+        self._plan_or_refuse("overlay ELL", overlay_device_bytes(snap))
         src = snap.ov_ell[:, 0]
         dst = snap.ov_ell[:, 1]
         order = np.argsort(dst, kind="stable")
@@ -1163,10 +1539,14 @@ class TorchCheckEngine:
             nbrs = np.full((uniq.shape[0], C), snap.num_int, np.int32)
             for i, (s0, c) in enumerate(zip(starts, counts)):
                 nbrs[i, :c] = src[s0 : s0 + c]
-            ovn, ovd, _ = shard_mod.route_overlay(snap.shard_spec, nbrs, uniq, snap.num_active)
+            ovn, ovd, owned = shard_mod.route_overlay(snap.shard_spec, nbrs, uniq,
+                                                      snap.num_active)
             snap.device_overlay = None
-            snap.device_shard_overlay = (torch.from_numpy(ovn).to(self.device),
-                                         torch.from_numpy(ovd).to(self.device))
+            snap.device_shard_overlay = self._guard_alloc(
+                "overlay-upload", lambda: (torch.from_numpy(ovn).to(self.device),
+                                           torch.from_numpy(ovd).to(self.device)))
+            self.hbm.register("overlay", int(ovn.nbytes + ovd.nbytes))
+            self.hbm.register_shards("overlay", owned)
             return
         K = _ceil_pow2(uniq.shape[0])
         nbrs = np.full((K, C), snap.num_int, np.int32)  # the all-zero bitmap row
@@ -1174,10 +1554,11 @@ class TorchCheckEngine:
             nbrs[i, :c] = src[s0 : s0 + c]
         dst_pad = np.full(K, snap.num_active, np.int32)  # pad rows: masked
         dst_pad[: uniq.shape[0]] = uniq
-        snap.device_overlay = (
+        snap.device_overlay = self._guard_alloc("overlay-upload", lambda: (
             torch.from_numpy(nbrs.copy()).to(self.device),
             torch.from_numpy(dst_pad.copy()).to(self.device),
-        )
+        ))
+        self.hbm.register("overlay", int(nbrs.nbytes + dst_pad.nbytes))
         fill = np.zeros(K, np.int64)
         fill[: counts.shape[0]] = counts
         self._ov_pack = {
@@ -1305,10 +1686,14 @@ class TorchCheckEngine:
     def _build_label_index(self, snap: GraphSnapshot):
         """Construct the 2-hop index for ``snap``. On the device (batched
         sweeps, no landmark cap; ``labels_min_gain`` bounds the build) once
-        the graph has ``labels_device_min_edges`` interior ELL slots; on
-        the host (per-landmark BFS, ``LABELS_AUTO_CAP``) below that or with
-        ``labels_device_build=False`` — never after a device error, which
-        propagates. Entry-identical either way."""
+        the graph has ``labels_device_min_edges`` interior ELL slots, its
+        transient planned against the governor with ``evict=False`` and
+        registered under ``build`` while it runs (tpu_engine.py:2945-2995);
+        on the host (per-landmark BFS, ``LABELS_AUTO_CAP``) below that,
+        with ``labels_device_build=False``, or when the governor refuses
+        the transient (counted in ``label_device_build_skipped``: a build
+        never pushes serving state off the card) — never after a device
+        error, which propagates. Entry-identical either way."""
         n = snap.num_int
         landmarks = self._labels_landmarks
         if (
@@ -1318,22 +1703,30 @@ class TorchCheckEngine:
         ):
             need = label_build.estimate_build_bytes(n, self._labels_max_width, self._labels_batch)
             self.label_build_bytes = need
-            _log.info("device label build: %d interior rows, ~%d transient device bytes", n, need)
-            idx, info = label_build.device_build_labels(
-                snap,
-                max_width=self._labels_max_width,
-                landmarks=landmarks,
-                min_gain=self._labels_min_gain,
-                batch=self._labels_batch,
-                device=self.device,
-                mesh=self._mesh,
-                shard_count=self._shard_count,
-            )
-            self.label_build_info = info
-            self._incr("label_device_builds")
-            if info.truncated:
-                self._note_label_truncation(info.truncated, idx)
-            return idx
+            if not self.hbm.plan(need, what="label build transient", evict=False):
+                self._incr("label_device_build_skipped")
+            else:
+                _log.info("device label build: %d interior rows, ~%d transient device bytes",
+                          n, need)
+                self.hbm.register("build", need)
+                try:
+                    idx, info = label_build.device_build_labels(
+                        snap,
+                        max_width=self._labels_max_width,
+                        landmarks=landmarks,
+                        min_gain=self._labels_min_gain,
+                        batch=self._labels_batch,
+                        device=self.device,
+                        mesh=self._mesh,
+                        shard_count=self._shard_count,
+                    )
+                finally:
+                    self.hbm.release("build")
+                self.label_build_info = info
+                self._incr("label_device_builds")
+                if info.truncated:
+                    self._note_label_truncation(info.truncated, idx)
+                return idx
         if landmarks == 0:
             landmarks = min(n, self.LABELS_AUTO_CAP)
         idx = build_labels(snap, max_width=self._labels_max_width, landmarks=landmarks)
@@ -1355,8 +1748,9 @@ class TorchCheckEngine:
         under the install lock. The thread launches on its own current stream (the
         default stream, as serving does), so its kernels and serving's
         serialise on the card. A failure is kept on the engine and raised
-        by the next check and by ``labels_settled()``."""
-        if not self._labels_enabled:
+        by the next check and by ``labels_settled()``. Nothing starts
+        while the governor's labels rung is evicted."""
+        if not self._labels_enabled or self._labels_suspended:
             return
         self._label_build_error = None
 
@@ -1380,11 +1774,42 @@ class TorchCheckEngine:
         the snapshot it was built for, and upload it only while that
         snapshot is the one being served: a fold or a rebuild makes a new
         snapshot object, which gets its own index (patched or built), and an
-        index never serves another snapshot's edges."""
+        index never serves another snapshot's edges. An index that lands
+        while the labels rung is evicted is dropped."""
+        if self._labels_suspended:
+            return
         snap.labels = idx
         self._incr("label_builds")
         if self._snapshot is snap:
-            self._upload_labels(snap)
+            self._place_labels(snap)
+
+    def _restart_label_build(self, snap: GraphSnapshot) -> None:
+        """Build the index again for the serving snapshot once the labels
+        rung has restored (the background pass calls this): not while a
+        build runs, nor while a failed build's error waits for a caller."""
+        t = self._label_build_thread
+        if (t is not None and t.is_alive()) or self._label_build_error is not None:
+            return
+        self._start_label_build(snap)
+
+    def _place_labels(self, snap: GraphSnapshot) -> None:
+        """Plan, then upload the label arrays (tpu_engine.py:2884-2905). A
+        plan the ladder cannot meet, or one that evicted the labels rung
+        itself, drops the fresh index (the BFS route answers); so does an
+        upload whose own OOM retry evicted the labels rung."""
+        need = snap.labels.device_bytes()
+        self._last_label_bytes = max(self._last_label_bytes, need)
+        if not self.hbm.plan(need, what="label arrays") or self._labels_suspended:
+            snap.labels = None
+            snap.device_labels = None
+            snap.device_shard_labels = None
+            return
+        self._upload_labels(snap)
+        if self._labels_suspended:
+            snap.labels = None
+            snap.device_labels = None
+            snap.device_shard_labels = None
+            self.hbm.release("labels")
 
     def _label_build_wait(self) -> None:
         """Join the in-flight background label build."""
@@ -1416,15 +1841,22 @@ class TorchCheckEngine:
         """Place the label arrays on the device: the pair, or in sharded mode
         (tpu_engine.py:3142-3160) row stripes per shard, each padded with
         its side's own pad."""
-        out_lab = snap.labels.out_lab
-        in_lab = snap.labels.in_lab
+        idx = snap.labels
+        out_lab = idx.out_lab
+        in_lab = idx.in_lab
         if self._sharded:
-            out_sh, in_sh, rl, _ = shard_mod.route_labels(out_lab, in_lab, self._shard_count)
+            out_sh, in_sh, rl, owned = shard_mod.route_labels(out_lab, in_lab, self._shard_count)
             snap.device_labels = None
-            snap.device_shard_labels = (torch.from_numpy(out_sh).to(self.device),
-                                        torch.from_numpy(in_sh).to(self.device), rl)
+            snap.device_shard_labels = self._guard_alloc(
+                "labels-upload", lambda: (torch.from_numpy(out_sh).to(self.device),
+                                          torch.from_numpy(in_sh).to(self.device), rl))
+            self.hbm.register("labels", int(out_sh.nbytes + in_sh.nbytes))
+            self.hbm.register_shards("labels", owned)
             return
-        snap.device_labels = tuple(host_tensor(a, np.int32, self.device) for a in (out_lab, in_lab))
+        snap.device_labels = self._guard_alloc(
+            "labels-upload",
+            lambda: tuple(host_tensor(a, np.int32, self.device) for a in (out_lab, in_lab)))
+        self.hbm.register("labels", sum(int(t.nbytes) for t in snap.device_labels))
 
     def _labels_dev(self, snap: GraphSnapshot):
         """The device label arrays this engine's mode reads: the row
@@ -1992,11 +2424,87 @@ class TorchCheckEngine:
         spec = snap.shard_spec  # a sharded bitmap's slabs pad its rows
         index_rows = max(rows, spec.n_shards * spec.rows_per_shard) if spec else rows
         w_cap = next(
-            (w for w in reversed(_WORD_WIDTHS)
+            (w for w in reversed(self._word_widths())
              if rows * 12 * w <= self._mem_budget and index_rows * w < kernels.INDEX_LIMIT),
             _WORD_WIDTHS[0],
         )
         return min(self._max_batch, 32 * w_cap)
+
+    def stream_widths(self, snap: GraphSnapshot) -> list:
+        """The slice widths (queries, ascending) a slice may take on this
+        snapshot: the ladder in service, up to ``_slice_cap``."""
+        cap = self._slice_cap(snap)
+        return [32 * w for w in self._word_widths() if 32 * w <= cap]
+
+    def _warm_width_bytes(self, snap: GraphSnapshot, B: int) -> int:
+        """Device bytes one warmed width holds while its slice runs: the
+        BFS workspace (~3 W-wide int32 bitmaps over interior rows, the
+        ``_slice_cap`` formula)."""
+        return (snap.num_int + 1) * 12 * (B // 32)
+
+    def warm_compile(self) -> int:
+        """Run one empty slice a width on the current snapshot's geometry
+        (tpu_engine.py:3206-3275): K2's seeds, run and answer (sharded:
+        K10a), and K3 (sharded: K10b) when labels are on the device. On
+        the card this loads each kernel's module and leaves each width's
+        workspace in the caching allocator. A width whose workspace the
+        budget cannot hold is SKIPPED (planned with ``evict=False``: warming
+        is optional work), counted in ``warm_widths_skipped``;
+        ``warmup`` keeps the widest warmed width and the ``warmup`` tag its
+        workspace. Returns the number of slices run."""
+        snap = self.snapshot()
+        if snap.n_nodes == 0 or snap.n_edges == 0:
+            return 0
+        ni = snap.num_int
+        warmed = skipped = warm_bytes = 0
+        for B in self.stream_widths(snap):
+            need = self._warm_width_bytes(snap, B)
+            if not self.hbm.plan(need - warm_bytes, what=f"warm width {B}", evict=False):
+                skipped += 1
+                continue
+            # the empty slice: every entry at its pad, every row a sentinel
+            e_rows = np.full(B, ni + 1, np.int32)
+            e_q = np.zeros(B, np.int32)
+            packed = (e_rows, e_q, e_rows, e_q, np.full(B, ni, np.int32), e_q,
+                      np.full(B, ni, np.int32))
+            leases: list = []
+            try:
+                if self._sharded:
+                    dev = self._dispatch_sharded(snap, packed, self._it_cap, leases)
+                else:
+                    buf, sizes = pack_entries(packed)
+                    g = snap.device
+                    ov = snap.device_overlay or (None, None)
+                    dev = _DeviceOut(self._guard_alloc("warm-compile", lambda: kernels.check_step(
+                        g.buckets, torch.from_numpy(buf).to(g.device), ov[0], ov[1],
+                        sizes=sizes, n_active=g.num_active, n_int=ni, valid_rows=g.valid_rows,
+                        it_cap=self._it_cap, block_iters=self._block_iters)))
+                dev.words()
+            finally:
+                self._stage_release(leases)
+            warmed += 1
+            # one slice runs at a time: the family holds the WIDEST warmed
+            # width's workspace, not the sum over widths
+            warm_bytes = max(warm_bytes, need)
+            self.warmup = max(self.warmup, B)
+            self.hbm.register("warmup", warm_bytes)
+            if self._labels_usable(snap):
+                pairs = np.concatenate([np.full(B, ni, np.int32), np.full(B, ni, np.int32),
+                                        np.zeros(B, np.int32)])
+                if self._sharded:
+                    out_sh, in_sh, rl = snap.device_shard_labels
+                    out = self._guard_alloc("warm-compile", lambda: self._shard_call(
+                        shard_mod.label_step, self._mesh, out_sh, in_sh,
+                        torch.from_numpy(pairs).to(self.device), n_pairs=B, B=B, rl=rl))
+                else:
+                    out_lab, in_lab = snap.device_labels
+                    out = self._guard_alloc("warm-compile", lambda: kernels.label_step(
+                        out_lab, in_lab, torch.from_numpy(pairs).to(self.device),
+                        n_pairs=B, B=B))
+                _DeviceOut(out).words()
+                warmed += 1
+        self.warm_widths_skipped = skipped
+        return warmed
 
     def _entry_counts(
         self, snap: GraphSnapshot, sd: np.ndarray, tg: np.ndarray, multi: dict
@@ -2192,20 +2700,22 @@ class TorchCheckEngine:
             if pa.size:
                 P = _entry_pad(B, pa.size)
                 pad = P - pa.size
-                stg = self._staging.acquire(3 * P)
+                stg = self._stage_acquire(3 * P)
                 leases.append(stg)
                 np.concatenate([pa, np.full(pad, ni), pb, np.full(pad, ni), pq, np.zeros(pad)],
                                out=stg.numpy(), casting="unsafe")
-                ent = stg.to(self.device, non_blocking=True)
                 if self._sharded:
                     # row-striped labels: the pair-row exchange, then K3
                     out_sh, in_sh, rl = snap.device_shard_labels
-                    ldev = _DeviceOut(self._shard_call(
-                        shard_mod.label_step, self._mesh, out_sh, in_sh, ent, n_pairs=P, B=B,
-                        rl=rl))
+                    ldev = _DeviceOut(self._guard_alloc("check-dispatch", lambda: self._shard_call(
+                        shard_mod.label_step, self._mesh, out_sh, in_sh,
+                        stg.to(self.device, non_blocking=True), n_pairs=P, B=B, rl=rl)))
                 else:
                     out_lab, in_lab = snap.device_labels
-                    ldev = _DeviceOut(kernels.label_step(out_lab, in_lab, ent, n_pairs=P, B=B))
+                    ldev = _DeviceOut(self._guard_alloc(
+                        "check-dispatch", lambda: kernels.label_step(
+                            out_lab, in_lab, stg.to(self.device, non_blocking=True),
+                            n_pairs=P, B=B)))
             if n_fb:
                 pos = np.nonzero(fallback)[0]
                 gidx = pos + i0
@@ -2242,7 +2752,7 @@ class TorchCheckEngine:
                 self._stage_release(leases)  # nothing of the slice will land
                 raise
             return dev, host_ans, leases
-        stg = self._staging.acquire(sum(a.shape[0] for a in packed))
+        stg = self._stage_acquire(sum(a.shape[0] for a in packed))
         leases.append(stg)
         try:
             _, sizes = pack_entries(packed, out=stg.numpy())
@@ -2252,7 +2762,7 @@ class TorchCheckEngine:
         g = snap.device
         ov = snap.device_overlay or (None, None)
         try:
-            dev = kernels.check_step(
+            dev = self._guard_alloc("check-dispatch", lambda: kernels.check_step(
                 g.buckets,
                 stg.to(g.device, non_blocking=True),
                 ov[0],
@@ -2263,7 +2773,7 @@ class TorchCheckEngine:
                 valid_rows=g.valid_rows,
                 it_cap=it_cap or self._it_cap,
                 block_iters=self._block_iters,
-            )
+            ))
         except BaseException:
             self._stage_release(leases)  # nothing of the slice will land
             raise
@@ -2280,7 +2790,7 @@ class TorchCheckEngine:
         B = packed[-1].shape[0]
 
         def out_alloc(shape):
-            stg = self._staging.acquire(shape[0] * shape[1])
+            stg = self._stage_acquire(shape[0] * shape[1])
             leases.append(stg)
             return stg.numpy().reshape(shape)
 
@@ -2296,7 +2806,7 @@ class TorchCheckEngine:
                 rps=spec.rows_per_shard, B=B, it_cap=it_cap, block_iters=self._block_iters,
             )
 
-        dev = self._shard_call(dispatch)
+        dev = self._guard_alloc("check-dispatch", lambda: self._shard_call(dispatch))
         return _ShardedSlice(_DeviceOut(dev), shard_mod.halo_bytes_per_round(spec, B // 32))
 
     def _shard_call(self, fn, *args, **kw):

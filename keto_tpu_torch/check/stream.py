@@ -17,17 +17,20 @@ Copies of two pieces of keto_tpu/check/tpu_engine.py, their logic unchanged:
   is abandoned): re-leasing it earlier would let the next slice's entries
   overwrite a copy still in flight, with no error anywhere.
 
-Not here: the HBM governor's staging rung (ROADMAP A item 5). The
-reference's pool plans each new buffer against the governor, reports its
-byte total to it and can be dropped by its eviction ladder; this pool has
-none of those hooks, since nothing here would call them.
+The pool reports its byte total through ``on_change`` and can be dropped
+whole (``drop()``): the device-memory governor's ``staging`` rung
+(keto_tpu_torch/driver/hbm.py) does that first on its ladder, as the
+reference's does. Its bytes are pinned host memory, so the governor keeps
+them apart from the card's budget. ``acquire(plan=)`` returns None when
+``plan`` refuses a new buffer; the engine then ships that slice from a
+plain per-slice host tensor.
 """
 
 from __future__ import annotations
 
 import collections
 import threading
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -272,36 +275,79 @@ class _StagingPool:
     the H2D copy from a pinned buffer runs asynchronously, and on the CPU
     the kernel's input IS the buffer, so writing the next slice's entries
     into it any earlier could corrupt an in-flight slice.
-    tests/test_torch_stream.py fuzzes that contract."""
+    tests/test_torch_stream.py fuzzes that contract.
+
+    ``on_change(bytes)`` receives the pool's byte total (free + leased)
+    whenever it moves, always outside the pool's lock; ``drop()`` forgets
+    every buffer, and a lease handed out before it is not taken back in
+    on release."""
 
     #: free buffers kept per distinct size
     MAX_FREE_PER_SIZE = 8
 
-    def __init__(self, pin: bool = False):
+    def __init__(self, pin: bool = False, on_change: Optional[Callable[[int], None]] = None):
         self._pin = bool(pin)
-        self._lock = threading.Lock()  # guards: _free, _bytes, _leased
+        self._on_change = on_change
+        self._lock = threading.Lock()  # guards: _free, _bytes, _leased, _owned
         self._free: dict[int, list] = {}
         self._bytes = 0  # free + leased
         self._leased = 0
+        self._owned: set = set()  # data pointers of the buffers this pool made
 
-    def acquire(self, n: int) -> torch.Tensor:
-        """An int32 host tensor of exactly ``n`` elements, leased."""
+    def _notify(self, nbytes: int) -> None:
+        # outside self._lock: the callback takes the governor's lock, and
+        # the governor's staging rung calls drop() while holding it
+        cb = self._on_change
+        if cb is not None:
+            cb(nbytes)
+
+    def acquire(self, n: int, plan: Optional[Callable[[int], bool]] = None):
+        """An int32 host tensor of exactly ``n`` elements, leased; None when
+        a new buffer would be needed and ``plan`` (bytes -> bool) refuses
+        it."""
         with self._lock:
-            self._leased += 1
             free = self._free.get(n)
             if free:
+                self._leased += 1
                 return free.pop()
+        if plan is not None and not plan(4 * n):
+            return None
+        buf = torch.empty(n, dtype=torch.int32, pin_memory=self._pin)
+        with self._lock:
+            self._owned.add(buf.data_ptr())
             self._bytes += 4 * n
-        return torch.empty(n, dtype=torch.int32, pin_memory=self._pin)
+            self._leased += 1
+            total = self._bytes
+        self._notify(total)
+        return buf
 
     def release(self, buf: torch.Tensor) -> None:
+        total = None
         with self._lock:
+            if buf.data_ptr() not in self._owned:
+                return  # leased before a drop(): the pool no longer holds it
             self._leased = max(0, self._leased - 1)
             free = self._free.setdefault(buf.shape[0], [])
             if len(free) < self.MAX_FREE_PER_SIZE:
                 free.append(buf)
             else:
+                self._owned.discard(buf.data_ptr())
                 self._bytes = max(0, self._bytes - 4 * buf.shape[0])
+                total = self._bytes
+        if total is not None:
+            self._notify(total)
+
+    def drop(self) -> int:
+        """Evict: forget every buffer, free and leased (outstanding leases
+        are not taken back). Returns the bytes the pool held."""
+        with self._lock:
+            freed = self._bytes
+            self._free.clear()
+            self._owned.clear()
+            self._bytes = 0
+            self._leased = 0
+        self._notify(0)
+        return freed
 
     def snapshot(self) -> dict:
         """Bytes held (free and leased), leased and free buffer counts."""

@@ -160,6 +160,11 @@ class CheckBatcher:
     def running(self) -> bool:
         return self._thread is not None and not self._stop.is_set()
 
+    @property
+    def engine(self):
+        """The engine the batcher dispatches to."""
+        return self._engine
+
     def start(self) -> None:
         if self._thread:
             return

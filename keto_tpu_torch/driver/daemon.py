@@ -36,9 +36,18 @@ shedding 429, and admission control over the engine's slice service times
 (``admission_enabled``). ``timeline_enabled`` (default true) keeps one
 ``TimelineRecorder`` for both ports. ``drain_and_shutdown`` is the
 reference's drain (keto_tpu/driver/daemon.py:163-277) cut to this daemon:
-``/health/ready`` answers 503 while the batcher's in-flight checks and the
-servers' open exchanges finish, then everything stops; the signal handling
-stays with the CLI (ROADMAP A7).
+the health monitor is pinned NOT_SERVING (``/health/ready`` answers 503)
+while the batcher's in-flight checks and the servers' open exchanges
+finish, then everything stops; the signal handling stays with the CLI
+(ROADMAP A7).
+
+Health (keto_tpu/driver/daemon.py:90-93): the daemon makes one
+``HealthMonitor`` over its engine before it serves, and both ports'
+``/health/ready`` read it (keto_tpu_torch/driver/health.py). Its
+staleness budget and the engine's device-memory budget are the reference
+schema's defaults (``serve.staleness_budget_s`` 60 s,
+``serve.hbm_budget_bytes`` 0 = auto; keto_tpu/config/schema.py:88-91,
+:198-202), held as constants until the config loader (ROADMAP A7).
 
 Writes (keto_tpu/driver/registry.py:161-230): the write port's
 transactions go through a ``GroupCommitCoordinator``
@@ -62,6 +71,7 @@ from keto_tpu_torch.check.gpu_engine import TorchCheckEngine
 from keto_tpu_torch.driver.admission import AdmissionController
 from keto_tpu_torch.driver.batch import CheckBatcher
 from keto_tpu_torch.driver.group_commit import GroupCommitCoordinator
+from keto_tpu_torch.driver.health import HealthMonitor, HealthState
 from keto_tpu_torch.expand.snapshot_engine import SnapshotExpandEngine
 from keto_tpu_torch.explain import DecisionLog, ExplainEngine
 from keto_tpu_torch.list.gpu_engine import SnapshotListEngine
@@ -74,6 +84,11 @@ from keto_tpu_torch.x.timeline import TimelineRecorder
 
 #: the readiness reason while a drain runs (keto_tpu/driver/daemon.py:183)
 DRAINING = "draining: shutdown requested"
+#: the reference schema's defaults (keto_tpu/config/schema.py:88-91,
+#: :198-202): seconds behind the store before /health/ready answers 503,
+#: and the device-memory budget (0 = auto); knobs with the config loader
+STALENESS_BUDGET_S = 60.0
+HBM_BUDGET_BYTES = 0
 
 
 #: the reference registry's batcher settings at their defaults
@@ -118,15 +133,16 @@ def make_batcher(engine, *, admission_enabled: bool = True) -> CheckBatcher:
 
 def drain(servers: Sequence[RestServer], batcher: CheckBatcher, drain_timeout_s: float,
           writer: Optional[GroupCommitCoordinator] = None) -> dict:
-    """The drain before a shutdown: every server's ``/health/ready`` answers
-    503 from now on; then wait up to ``drain_timeout_s`` for the batcher's
-    in-flight checks, the group-commit coordinator's queued writers (an
-    acknowledged snaptoken must have committed) and for the servers to
-    write every accepted response. Returns ``{"batcher_idle",
+    """The drain before a shutdown: every server's health monitor is pinned
+    NOT_SERVING (``/health/ready`` answers 503 from now on); then wait up
+    to ``drain_timeout_s`` for the batcher's in-flight checks, the
+    group-commit coordinator's queued writers (an acknowledged snaptoken
+    must have committed) and for the servers to write every accepted
+    response. Returns ``{"batcher_idle",
     "writers_idle", "servers_idle", "seconds"}``; stops nothing."""
     t0 = time.monotonic()
     for s in servers:
-        s.app.draining = DRAINING
+        s.app.monitor.set_override(HealthState.NOT_SERVING, DRAINING)
     deadline = t0 + max(0.0, drain_timeout_s)
     idle = batcher.drain(drain_timeout_s)
     writers_idle = writer is None or writer.drain(max(0.5, deadline - time.monotonic()))
@@ -159,6 +175,7 @@ class Daemon:
     ):
         nm = namespace_pkg.MemoryManager(namespaces)
         options = dict(engine_options or {})
+        options.setdefault("hbm_budget_bytes", HBM_BUDGET_BYTES)
         if snapshot_cache_dir:
             options["snapshot_cache_dir"] = snapshot_cache_dir
         if int(mesh_graph) > 1:
@@ -168,6 +185,8 @@ class Daemon:
         if tuples:
             self.store.write_relation_tuples(*tuples)
         self.engine = TorchCheckEngine(self.store, nm, device=device, **options)
+        #: the health state machine both ports' /health/ready read
+        self.monitor = HealthMonitor(self.engine, staleness_budget_s=STALENESS_BUDGET_S)
         self.lister = SnapshotListEngine(self.engine, nm, device=self.engine.device)
         self.expander = SnapshotExpandEngine(self.engine, nm)
         self.batcher = make_batcher(self.engine, admission_enabled=admission_enabled)
@@ -186,11 +205,13 @@ class Daemon:
         self.read = RestServer(READ, self.store, self.batcher, host, read_port,
                                lister=self.lister, explain=self.explain,
                                decision_log=self.decision_log, expander=self.expander,
-                               max_read_depth=max_read_depth, recorder=self.recorder)
+                               max_read_depth=max_read_depth, recorder=self.recorder,
+                               monitor=self.monitor)
         #: the group-commit coordinator of the write port
         self.writer = GroupCommitCoordinator(self.store)
         self.write = RestServer(WRITE, self.store, self.batcher, host, write_port,
-                                recorder=self.recorder, transact=self.writer.transact)
+                                recorder=self.recorder, transact=self.writer.transact,
+                                monitor=self.monitor)
 
     def start(self) -> None:
         """Build the first snapshot on the device, then open both ports."""

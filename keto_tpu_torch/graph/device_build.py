@@ -18,14 +18,17 @@ fits int32, and a stable sort of integer keys is unique, so the device's
 permutation equals the host's; the tests hold every derived snapshot array
 byte for byte against the host build and the JAX package's.
 
-``GovernedSorter`` is the engine's policy: an argsort batch whose largest
-array is below ``min_size`` sorts on the host (a host dispatch), anything
-larger on the device. A failed device sort raises to the caller and counts
-``device_build_errors``: the reference's quiet host retries (a refused HBM
-plan, a failed sort; keto_tpu/graph/device_build.py:176-192) are not
-ported, and with no HBM governor there is no plan to refuse.
-``estimate_sort_bytes`` sizes the transient the reference plans against;
-the port reports it.
+``GovernedSorter`` is the engine's policy (keto_tpu/graph/device_build.py:
+143-193): an argsort batch whose largest array is below ``min_size`` sorts
+on the host (a host dispatch), anything larger on the device, its
+transient (``16 · size`` bytes an array) planned against the engine's
+device-memory governor with ``evict=False`` and registered under the
+``build`` tag for the dispatch. A refused plan sorts on the host and
+counts ``device_build_skipped`` (the permutations are equal: a build never
+pushes serving state off the card). A failed device sort raises to the
+caller and counts ``device_build_errors``: the reference's quiet host retry
+of a failed sort is not ported. ``estimate_sort_bytes`` sizes a full
+build's sort transient for the engine's ``build_info``.
 """
 
 from __future__ import annotations
@@ -104,20 +107,24 @@ def estimate_sort_bytes(n_nodes: int, n_edges: int) -> int:
 
 class GovernedSorter:
     """The engine's build-sort policy: a batch runs on the device when its
-    largest array reaches ``min_size``, else on the host. ``on_count(name)``
-    receives ``device_build_dispatches``, ``device_build_host_dispatches``
-    and ``device_build_errors``. ``seconds`` accumulates the sort time by
+    largest array reaches ``min_size`` and ``hbm`` (an ``HbmGovernor``, or
+    None) plans its transient without evicting, else on the host.
+    ``on_count(name)`` receives ``device_build_dispatches``,
+    ``device_build_host_dispatches``, ``device_build_skipped`` and
+    ``device_build_errors``. ``seconds`` accumulates the sort time by
     backend (``take_seconds`` reads and clears it)."""
 
     def __init__(
         self,
         device: Union[str, torch.device],
         *,
+        hbm=None,
         min_size: int = DEFAULT_MIN_EDGES,
         on_count: Optional[Callable[[str], None]] = None,
     ):
         self._dev = DeviceSorter(device)
         self._host = host_sorter()
+        self._hbm = hbm
         self._min_size = int(min_size)
         self._on_count = on_count
         self._lock = threading.Lock()
@@ -148,11 +155,24 @@ class GovernedSorter:
             self._add("host", time.monotonic() - t0)
             self._count("device_build_host_dispatches")
             return out
+        gov = self._hbm
+        if gov is not None:
+            need = sum(16 * a.size for a in arrays)
+            if not gov.plan(need, what="device build transient", evict=False):
+                # memory pressure: the build yields, serving state stays
+                out = self._host.argsort_many(arrays)
+                self._add("host", time.monotonic() - t0)
+                self._count("device_build_skipped")
+                return out
+            gov.register("build", need)
         try:
             out = self._dev.argsort_many(arrays)
         except Exception:
             self._count("device_build_errors")
             raise
+        finally:
+            if gov is not None:
+                gov.release("build")
         self._add("device", time.monotonic() - t0)
         self._count("device_build_dispatches")
         return out

@@ -49,7 +49,7 @@ launch in the list-layout re-derivation among them — where the reference
 catches every ``Exception`` and tries the next cache
 (keto_tpu/graph/snapcache.py:777-780): a failing kernel must not turn
 into a silent full rebuild. The ``cache_loaded_bytes`` gauge waits for
-the HBM governor and the metrics (ROADMAP A5, A6).
+the metrics (ROADMAP A6).
 """
 
 from __future__ import annotations

@@ -22,9 +22,10 @@ and its chunks were replayed through ``IncrementalInterner``, or where a
 ``graph.native.COUNTERS`` counts every intern by path.
 
 ``BuildProgress`` records the phases and their seconds (``intern``,
-``device_build`` and, on the stream path, ``scan``). The reference bridges
-it into ``/metrics`` and ``/health``; those bridges come with the port's
-metrics and health (ROADMAP A6). ``read_retry`` wraps each store read; its
+``device_build`` and, on the stream path, ``scan``); ``pct()`` and the live
+phase feed the engine's ``health()`` (the STARTING detail of
+``/health/ready``). The reference's ``/metrics`` bridge comes with the
+port's metrics (ROADMAP A6). ``read_retry`` wraps each store read; its
 default calls the read once (the reference's retry policy behind
 ``_read_store`` comes with ROADMAP A4). A store failure mid-scan aborts the
 in-flight native builder before the exception leaves ``_scan_and_intern``,
@@ -47,6 +48,13 @@ from keto_tpu_torch.graph.snapshot import GraphSnapshot, build_snapshot, layout_
 #: (pack, enqueue, shard tables) amortize, small enough that the intern
 #: pool stays busy while the scan fetches the next chunk
 DEFAULT_CHUNK_ROWS = 262144
+
+
+#: each full-build phase's share of ``BuildProgress.pct`` (the reference's)
+_PCT_WEIGHTS = {
+    "scan": 0.35, "intern": 0.25, "device_build": 0.30,
+    "labels": 0.10, "cache_save": 0.0,
+}
 
 
 class BuildProgress:
@@ -136,6 +144,20 @@ class BuildProgress:
     def path(self) -> str:
         with self._lock:
             return self._path
+
+    def pct(self) -> float:
+        """Coarse completion estimate of the build in flight
+        (keto_tpu/graph/stream_build.py:159-171), for the health machine's
+        STARTING detail: finished phases count their full weight, the live
+        phase half of its."""
+        with self._lock:
+            phase = self._phase
+            done = set(self._durations)
+        if phase == "idle":
+            return 1.0 if done else 0.0
+        got = sum(_PCT_WEIGHTS.get(p, 0.0) for p in done if p != phase)
+        got += 0.5 * _PCT_WEIGHTS.get(phase, 0.0)
+        return round(min(0.99, got), 3)
 
     def durations(self) -> dict:
         """Per-phase seconds of the current or last build."""

@@ -24,16 +24,20 @@ Routes, each counted in ``requests_total[(op, route)]``:
 - a snapshot whose overlay the layouts could not mirror (``lst_dirty``) →
   the host lister ``_fixpoint_host`` over the same snapshot, "host" (as
   is a listing with no interior seed, which needs no fixpoint);
+- while the device-memory governor's ``reverse`` rung is evicted
+  (tpu_engine.py:171-199: the layouts' device arrays dropped), or when its
+  plan for an upload cannot be met → the host lister, "evicted";
 - everything else → the card, "device".
 
-A device error raises to the caller and counts ``device_errors``: the
-reference's quiet host retry (tpu_engine.py:241-251) is not ported, and
-neither is its HBM ``reverse`` eviction rung, which waits for the HBM
-governor.
+The "evicted" route is taken only on the governor's counted decision. A
+device error raises to the caller and counts ``device_errors``: the
+reference's quiet host retry (tpu_engine.py:241-251) is not ported.
 
-Each snapshot uploads its own layouts on first use (``_ensure_device``),
+Each snapshot uploads its own layouts on first use (``_ensure_device``,
+planned against the governor and registered under its ``reverse`` tag),
 then applies the pending ``lst_patch`` slot patches to that private copy
-in place with K9 (``slot_set_many``), the list site of K9.
+in place with K9 (``slot_set_many``), the list site of K9. A restored
+rung uploads the layouts again on first use.
 
 Pagination: results are canonicalized (sorted, deduplicated) and cached
 per (query, snapshot id); page tokens carry the snapshot watermark and a
@@ -126,6 +130,32 @@ class SnapshotListEngine:
         self.device_errors = 0
         #: seconds of the last upload of each orientation's layouts
         self.upload_seconds: dict[str, float] = {}
+        #: flipped by the governor's ``reverse`` rung: the device arrays are
+        #: dropped and listings run on the host lister until the restore
+        self._suspended = False
+        attach = getattr(check_engine, "attach_reverse_rung", None)
+        if attach is not None:
+            attach(self._evict_device, self._restore_device)
+
+    # -- the governor's reverse rung (called under the governor's lock: no
+    # -- engine lock may be taken here) ----------------------------------------
+
+    def _evict_device(self) -> int:
+        self._suspended = True
+        snap = getattr(self._engine, "_snapshot", None)
+        if snap is not None:
+            snap.device_list = None
+        gov = getattr(self._engine, "hbm", None)
+        return int(gov.release("reverse")) if gov is not None else 0
+
+    def _restore_device(self) -> None:
+        self._suspended = False
+
+    @staticmethod
+    def device_bytes(snap: GraphSnapshot) -> int:
+        """Bytes of ``snap``'s uploaded list layouts (both orientations)."""
+        dl = snap.device_list or {}
+        return sum(int(t.nbytes) for entry in dl.values() for t in entry[0].buckets)
 
     # -- bookkeeping ---------------------------------------------------------
 
@@ -161,12 +191,16 @@ class SnapshotListEngine:
             return reached, "host"
         if snap.lst_dirty or snap.lay_fwd is None:
             return self._fixpoint_host(snap, orient, seeds), "host"
-        try:
-            return self._fixpoint_device(snap, orient, [seeds])[0], "device"
-        except Exception:
-            with self._count_lock:
-                self.device_errors += 1
-            raise
+        if not self._suspended:
+            try:
+                got = self._fixpoint_device(snap, orient, [seeds])
+            except Exception:
+                with self._count_lock:
+                    self.device_errors += 1
+                raise
+            if got is not None:
+                return got[0], "device"
+        return self._fixpoint_host(snap, orient, seeds), "evicted"
 
     def _fixpoint_host(self, snap: GraphSnapshot, orient: str, seeds: np.ndarray) -> np.ndarray:
         """The host lister's fixpoint: frontier BFS over the masked host CSRs
@@ -187,12 +221,15 @@ class SnapshotListEngine:
 
     def _fixpoint_device(self, snap: GraphSnapshot, orient: str, seed_lists: list) -> list:
         """Up to ``LANES`` listings in one bit-packed fixpoint on the card
-        (the engine runs one per call, as the reference)."""
+        (the engine runs one per call, as the reference); None when the
+        governor declined the layouts' upload."""
         if len(seed_lists) > LANES:
             raise ValueError(f"{len(seed_lists)} listings exceed the {LANES} lanes of one word")
         lay = snap.lay_fwd if orient == "fwd" else snap.lay_rev
         n_rows = lay.n_rows
         dl = self._ensure_device(snap, orient)
+        if dl is None:
+            return None
         ov_nbrs, ov_dst = self._overlay_stage(snap, lay)
         R0 = np.zeros((n_rows + 1, 1), np.uint32)
         for q, seeds in enumerate(seed_lists):
@@ -220,7 +257,11 @@ class SnapshotListEngine:
         pending ``lst_patch`` entries past its applied count written in place
         by K9 (``slot_set_many``: every bucket in one call). The upload is
         private to the snapshot (a delta snapshot starts with none), so the
-        in-place writes touch no tensor another snapshot reads."""
+        in-place writes touch no tensor another snapshot reads. The upload
+        is planned against the governor first (tpu_engine.py:218-238); None
+        when the plan cannot be met, or walked the ladder down past the
+        ``reverse`` rung itself."""
+        gov = getattr(self._engine, "hbm", None)
         with self._lock:
             if snap.device_list is None:
                 snap.device_list = {}
@@ -230,7 +271,19 @@ class SnapshotListEngine:
             if entry is None:
                 t0 = time.monotonic()
                 arrays, meta = list_layout_arrays(snap, orient)
-                entry = dl[orient] = [device_list_from_arrays(arrays, meta, self.device), 0]
+                if gov is not None:
+                    if not dl:
+                        # a fresh snapshot: the previous one's arrays are
+                        # garbage — replace the ledger figure
+                        gov.register("reverse", 0)
+                    if not gov.plan(sum(4 * int(a.size) for a in arrays),
+                                    what="reverse list layouts") or self._suspended:
+                        self._suspended = True
+                        return None
+                up = device_list_from_arrays(arrays, meta, self.device)
+                entry = dl[orient] = [up, 0]
+                if gov is not None:
+                    gov.add("reverse", sum(int(t.nbytes) for t in up.buckets))
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 self.upload_seconds[orient] = time.monotonic() - t0

@@ -80,9 +80,15 @@ daemon passes its group-commit coordinator's, keto_tpu_torch/driver/
 group_commit.py), else straight to the store's transaction.
 
 Both ports: ``GET /health/alive`` → ``{"status": "ok"}``; ``GET
-/health/ready`` → 200 ``{"status": "ok"}`` while the check batcher runs
-and no drain has begun, else 503 with its reason and ``Retry-After: 1``
-(a drain answers ``"draining: shutdown requested"``); ``/version`` →
+/health/ready`` reads the health state machine (keto_tpu_torch/driver/
+health.py; keto_tpu/servers/rest.py:509-548): 200 ``{"status": "ok"}``
+while SERVING; 200 ``{"status": <state>, "reason": ...}`` in the other
+ready states (``degraded`` under memory pressure or an audit mismatch;
+``starting`` with the first build's phase, percent and rows); 503
+``{"status": "unavailable", "reason": ...}`` with ``Retry-After: 1`` when
+NOT_SERVING — past the staleness budget, a dead maintenance worker, or a
+drain (``"draining: shutdown requested"``, pinned by the daemon);
+``/version`` →
 ``{"version": ...}`` (rest.py:267-268). Errors render the herodot-style
 envelope of x/errors.py.
 """
@@ -98,6 +104,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, urlsplit
 
+from keto_tpu_torch.driver.health import READY_STATES, HealthMonitor, HealthState
 from keto_tpu_torch.relationtuple.model import (
     RelationQuery,
     RelationTuple,
@@ -163,7 +170,8 @@ class RestApp:
 
     def __init__(self, role: str, store, batcher, lister=None, explain=None, decision_log=None,
                  expander=None, max_read_depth: int = MAX_READ_DEPTH,
-                 recorder: Optional[TimelineRecorder] = None, transact=None):
+                 recorder: Optional[TimelineRecorder] = None, transact=None,
+                 monitor: Optional[HealthMonitor] = None):
         self.role = role
         self.store = store
         self.batcher = batcher
@@ -182,8 +190,17 @@ class RestApp:
         self.decision_log = decision_log
         #: the request timelines' recorder (a disabled one records nothing)
         self.recorder = recorder if recorder is not None else TimelineRecorder(enabled=False)
-        #: the reason /health/ready answers 503 while a drain runs, else None
-        self.draining: Optional[str] = None
+        #: the health state machine /health/ready reads (by default one over
+        #: the batcher's engine)
+        self.monitor = monitor if monitor is not None else HealthMonitor(batcher.engine)
+
+    @property
+    def draining(self) -> Optional[str]:
+        """The reason of a pinned NOT_SERVING (a drain), else None."""
+        pinned = self.monitor.override()
+        if pinned is None or pinned[0] is not HealthState.NOT_SERVING:
+            return None
+        return pinned[1]
 
     def handle(self, method: str, path: str, query: dict[str, list[str]], body: bytes,
                headers: Optional[dict[str, str]] = None):
@@ -258,12 +275,22 @@ class RestApp:
             return 500, err.to_json(), {}
 
     def _health_ready(self):
-        """200 while the batcher runs and no drain has begun; else 503 with
-        the reason and backoff advice."""
-        reason = self.draining or (None if self.batcher.running else "check batcher stopped")
-        if reason is None:
+        """Readiness from the health state machine (rest.py:509-548): the
+        ready states answer 200 (the state surfaced, so probes can alert on
+        ``degraded``); NOT_SERVING answers 503 with the machine's reason and
+        backoff advice."""
+        state, reason = self.monitor.status()
+        if state not in READY_STATES:
+            return 503, {"status": "unavailable", "reason": reason or state.value}, \
+                {"Retry-After": "1"}
+        if state is HealthState.SERVING:
             return 200, {"status": "ok"}, {}
-        return 503, {"status": "unavailable", "reason": reason}, {"Retry-After": "1"}
+        body = {"status": state.value}
+        if reason:
+            body["reason"] = reason
+        if state is HealthState.STARTING:
+            body.update(self.monitor.starting_detail())
+        return 200, body, {}
 
     # -- observability -------------------------------------------------------
 
@@ -654,9 +681,10 @@ class RestServer:
     def __init__(self, role: str, store, batcher, host: str = "127.0.0.1", port: int = 0,
                  lister=None, explain=None, decision_log=None, expander=None,
                  max_read_depth: int = MAX_READ_DEPTH,
-                 recorder: Optional[TimelineRecorder] = None, transact=None):
+                 recorder: Optional[TimelineRecorder] = None, transact=None,
+                 monitor: Optional[HealthMonitor] = None):
         self.app = RestApp(role, store, batcher, lister, explain, decision_log, expander,
-                           max_read_depth, recorder, transact)
+                           max_read_depth, recorder, transact, monitor)
         self.httpd = _Server((host or "0.0.0.0", port), _make_handler(self.app))
         self.httpd.active_count = 0
         self.httpd.active_lock = threading.Lock()

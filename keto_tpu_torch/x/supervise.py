@@ -9,7 +9,9 @@ how tests and ``chip_smoke.py`` wait for a background fold.
 
 The engine keeps the error of a failed pass and raises it from the next
 check (keto_tpu_torch/check/gpu_engine.py): the worker retries, but never
-hides the failure.
+hides the failure. The health state machine (keto_tpu_torch/driver/
+health.py) reads ``alive()``, ``crashes``, ``consecutive_failures`` and
+``last_error``.
 """
 
 from __future__ import annotations
@@ -30,12 +32,16 @@ class SupervisedTask:
         target: Callable[[], None],
         *,
         on_error: Optional[Callable[[Exception], None]] = None,
+        quiet: Optional[Callable[[Exception], bool]] = None,
         base_backoff_s: float = 0.05,
         max_backoff_s: float = 2.0,
     ):
         self.name = name
         self._target = target
         self._on_error = on_error
+        # failures expected while a condition lasts (a refused refresh under
+        # memory pressure) log one line, not a traceback a retry
+        self._quiet = quiet
         self._base_s = base_backoff_s
         self._max_s = max_backoff_s
         self._attempt = 0
@@ -46,6 +52,8 @@ class SupervisedTask:
         self._retry_at: Optional[float] = None  # guarded by _cond
         self._thread: Optional[threading.Thread] = None
         self.crashes = 0
+        self.consecutive_failures = 0
+        self.last_error: Optional[str] = None
 
     def start(self) -> None:
         with self._cond:
@@ -64,6 +72,12 @@ class SupervisedTask:
         t = self._thread
         if t is not None and t.is_alive():
             t.join(timeout=timeout)
+
+    def alive(self) -> bool:
+        """True when the worker can still make progress: running, or never
+        needed yet. False means the worker thread itself died."""
+        t = self._thread
+        return True if t is None else t.is_alive()
 
     def kick(self) -> None:
         """Request one pass (starts the worker on first use)."""
@@ -111,15 +125,21 @@ class SupervisedTask:
                 self._target()
             except Exception as e:  # counted, kept by the owner, retried
                 self.crashes += 1
+                self.consecutive_failures += 1
+                self.last_error = f"{type(e).__name__}: {e}"
                 if self._on_error is not None:
                     self._on_error(e)
                 delay = self._backoff()
-                _log.warning("%s maintenance pass failed (crash #%d, retry in %.2fs)",
-                             self.name, self.crashes, delay, exc_info=True)
+                quiet = self._quiet is not None and self._quiet(e)
+                _log.warning("%s maintenance pass failed (crash #%d, retry in %.2fs)%s",
+                             self.name, self.crashes, delay, f": {e}" if quiet else "",
+                             exc_info=not quiet)
                 with self._cond:
                     self._retry_at = time.monotonic() + delay
             else:
                 self._attempt = 0
+                self.consecutive_failures = 0
+                self.last_error = None
             finally:
                 with self._cond:
                     self._running = False

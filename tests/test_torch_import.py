@@ -23,9 +23,10 @@ SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 #: modules the walk must find (the write path's, the reverse queries', the
-#: explain path's, the full build's, expand's, the check scheduler's and the
-#: snapshot cache's and group commit's among them): a module that fails to
-#: be found is not checked
+#: explain path's, the full build's, expand's, the check scheduler's, the
+#: snapshot cache's and group commit's, and the device-memory governor's and
+#: the health machine's among them): a module that fails to be found is not
+#: checked
 REQUIRED = (
     "keto_tpu_torch.graph.overlay",
     "keto_tpu_torch.graph.compaction",
@@ -62,6 +63,8 @@ REQUIRED = (
     "keto_tpu_torch.x.retry",
     "keto_tpu_torch.relationtuple.manager",
     "keto_tpu_torch.persistence.memory",
+    "keto_tpu_torch.driver.hbm",
+    "keto_tpu_torch.driver.health",
 )
 
 

@@ -1,7 +1,7 @@
 """Reverse queries of the port against the JAX package, the oracle and Check.
 
 Ported from tests/test_list_watch.py (the list half; watch, the snapshot
-cache and the HBM rung are out of scope):
+cache is out of scope):
 
 - ``SnapshotListEngine`` on the CPU equals the JAX package's
   ``SnapshotListEngine``, the Manager oracle (the port's and JAX's) and a
@@ -15,7 +15,10 @@ cache and the HBM rung are out of scope):
 - page tokens pin the snaptoken, across a fold too;
 - the list site of K9 patches each snapshot's own upload;
 - a device error raises and is counted, with no answer from the host; the
-  engine's build sorter counts its dispatches and a failed sort raises.
+  engine's build sorter counts its dispatches and a failed sort raises;
+- the device-memory governor's ``reverse`` rung routes listings to the
+  host lister ("evicted") with equal answers and restores; a refused sort
+  transient sorts on the host with equal permutations, counted.
 """
 
 from __future__ import annotations
@@ -443,6 +446,103 @@ def test_failed_build_sort_raises_and_is_counted(monkeypatch):
         assert eng.counters()["device_build_dispatches"] >= 3
     finally:
         eng.close()
+
+
+# -- the device-memory governor's reverse rung and build transients ------------
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_listings_under_the_reverse_rung_equal_the_reference(engines, seed):
+    """The ``reverse`` rung (keto_tpu/list/tpu_engine.py:171-199) drops the
+    layouts' device arrays: listings run on the host lister under the
+    route "evicted", equal to the JAX package's, the oracle's and Check's;
+    restored, the layouts upload again on first use."""
+    rng = random.Random(70 + seed)
+    e = engines([rand_tuple(rng) for _ in range(rng.randrange(30, 70))])
+    assert_parity(e, brute=False)
+    gov = e.eng.hbm
+    assert gov.ledger()["reverse"] == e.lst.device_bytes(e.eng._snapshot) > 0
+    gov.evict_one("test")  # staging
+    assert gov.evict_one("test") == "labels"
+    assert gov.evict_one("test") == "reverse"
+    assert e.lst._suspended and "reverse" not in gov.ledger()
+    assert e.eng._snapshot.device_list is None
+    e.lst._cache.clear()
+    dev_before = _device_listings(e.lst)
+    assert_parity(e, info=seed)
+    assert _device_listings(e.lst) == dev_before
+    assert sum(v for (_, path), v in e.lst.requests_total.items() if path == "evicted") > 0
+    assert gov.maybe_restore() == 3 and not e.lst._suspended
+    e.lst._cache.clear()
+    assert_parity(e, brute=False)
+    assert _device_listings(e.lst) > dev_before
+    assert gov.ledger()["reverse"] == e.lst.device_bytes(e.eng._snapshot) > 0
+
+
+def test_a_refused_reverse_plan_routes_to_the_host_lister(engines):
+    rng = random.Random(77)
+    e = engines([rand_tuple(rng) for _ in range(50)])
+    e.eng.snapshot()
+    e.eng.hbm.set_budget_bytes(1)  # no rung makes room for the layouts
+    assert_parity(e, brute=False)
+    assert _device_listings(e.lst) == 0 and e.lst._suspended
+    assert e.eng.hbm.snapshot()["evicted"][:3] == ["staging", "labels", "reverse"]
+
+
+def test_a_refused_sort_transient_sorts_on_the_host():
+    """``GovernedSorter`` plans ``16 · size`` bytes a batch with
+    ``evict=False``: a refused plan sorts on the host with the same
+    permutations, counted ``device_build_skipped``; an accepted one
+    registers ``build`` for the dispatch and releases it."""
+    from keto_tpu_torch.driver.hbm import HbmGovernor
+
+    rng = np.random.default_rng(3)
+    arrays = [rng.integers(0, 1 << 20, n).astype(np.int64) for n in (300, 1000, 40)]
+    want = [np.argsort(a, kind="stable") for a in arrays]
+    counts: dict = {}
+    seen_build: list = []
+
+    class Spy(HbmGovernor):
+        def register(self, tag, nbytes):
+            seen_build.append((tag, nbytes))
+            super().register(tag, nbytes)
+
+    gov = Spy(budget_bytes=1 << 30)
+    gov.attach_rungs([("labels", lambda: seen_build.append("evicted") or 0, lambda: None)])
+    s = GovernedSorter("cpu", hbm=gov, min_size=0,
+                       on_count=lambda k: counts.__setitem__(k, counts.get(k, 0) + 1))
+    got = s.argsort_many(arrays)
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    assert seen_build == [("build", 16 * 1340)] and "build" not in gov.ledger()
+    assert counts == {"device_build_dispatches": 1}
+    gov.register("snapshot", (1 << 30) - 16 * 1340 + 1)
+    got = s.argsort_many(arrays)
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    assert counts == {"device_build_dispatches": 1, "device_build_skipped": 1}
+    assert gov.rung_depth == 0 and "evicted" not in seen_build
+    assert s.take_seconds()["host"] > 0
+
+
+def test_an_engine_build_under_pressure_sorts_on_the_host(engines):
+    rng = random.Random(79)
+    e = engines([rand_tuple(rng) for _ in range(60)])
+    p = e.pair.mine
+    eng = TorchCheckEngine(p, p.namespaces, device="cpu", labels_enabled=False)
+    ref = TorchCheckEngine(p, p.namespaces, device="cpu", labels_enabled=False)
+    try:
+        eng._build_sorter = GovernedSorter("cpu", hbm=eng.hbm, min_size=0, on_count=eng._incr)
+        ref._build_sorter = GovernedSorter("cpu", hbm=ref.hbm, min_size=0, on_count=ref._incr)
+        eng.hbm.set_budget_bytes(1)
+        a, b = eng.snapshot(), ref.snapshot()
+        c = eng.counters()
+        assert c["device_build_skipped"] >= 3 and "device_build_dispatches" not in c
+        assert ref.counters()["device_build_dispatches"] >= 3
+        for lay in ("lay_fwd", "lay_rev"):
+            _assert_layout_equal(getattr(a, lay), getattr(b, lay))
+        assert np.array_equal(a.fwd_indptr, b.fwd_indptr)
+    finally:
+        eng.close()
+        ref.close()
 
 
 # -- pagination -------------------------------------------------------------------

@@ -531,3 +531,111 @@ def test_store_fork_is_independent_and_keeps_row_ids():
     assert p.watermark() == twin.watermark()
     seqs = [r.seq for r in f.snapshot_rows()[0]]
     assert len(set(seqs)) == len(seqs)
+
+
+def test_per_shard_ledger_and_a_one_shard_oom_walk_one_mesh_wide_rung(engines, monkeypatch):
+    """The port of tests/test_sharded_serving.py:187: the governor keeps
+    each shard's owned bytes; an out-of-memory error in one sharded
+    dispatch evicts ONE rung for the whole mesh, retries once and answers
+    equal; a plan only the hottest shard's slice refuses drops the labels
+    of every shard at once."""
+    rng = random.Random(9)
+    rows, objs, users = nested_rows(rng)
+    p = store_of(rows)
+    e = engines(p, p.namespaces, mesh=cpu_mesh(4))
+    assert e.labels_settled()
+    snap = e._snapshot
+    spec = snap.shard_spec
+    shards = e.hbm.shard_resident_bytes()
+    gov = e.hbm.snapshot()
+    assert gov["shard_count"] == 4 and gov["shards"] == shards and sum(shards) > 0
+    assert e.hbm.shard_ledger()["snapshot"] == list(spec.owned_bucket_bytes)
+    assert e.hbm.ledger()["snapshot"] == spec.padded_bucket_bytes() == \
+        e.hbm_ledger_bytes()["snapshot"]
+    assert e.hbm.ledger()["labels"] == e.hbm_ledger_bytes()["labels"] > 0
+
+    qs = queries(rng, objs, users, n=60)
+    want = [CheckEngine(p).subject_is_allowed(q) for q in qs]
+    assert e.batch_check(qs) == want
+    real, fired = ps.check_step, []
+
+    def one_shard_oom(*a, **kw):
+        if not fired:
+            fired.append(1)
+            raise torch.OutOfMemoryError("CUDA out of memory on shard 2's slab")
+        return real(*a, **kw)
+
+    monkeypatch.setattr(ps, "check_step", one_shard_oom)
+    assert e.batch_check(qs) == want
+    g = e.hbm.snapshot()
+    assert fired and (g["oom_events"], g["oom_recoveries"], g["rung"]) == (1, 1, 1)
+    monkeypatch.setattr(ps, "check_step", real)
+
+    # the hottest shard binds: the global plan fits, one slice does not, and
+    # the labels rung (every shard's labels) makes that slice fit
+    res = e.hbm.shard_resident_bytes()
+    lab = e.hbm.shard_ledger()["labels"]
+    hot = max(range(4), key=lambda s: lab[s])
+    after = res[hot] - lab[hot]
+    x = max(max(res), -(-(e.hbm.resident_bytes() - 4 * after) // 3) + 1, 16)
+    e.hbm.set_budget_bytes(4 * (after + x))
+    per = [0, 0, 0, 0]
+    per[hot] = x
+    assert e.hbm.fits(x) and res[hot] + x > e.hbm.budget_bytes // 4
+    assert e.hbm.plan(x, what="one shard", per_shard=per)
+    assert e.hbm.snapshot()["evicted"] == ["staging", "labels"]
+    assert e._snapshot.device_shard_labels is None and e._snapshot.labels is None
+    assert "labels" not in e.hbm.shard_ledger()
+    assert e.batch_check(qs) == want
+
+
+def test_a_sharded_refresh_plans_against_the_hottest_shard(engines):
+    rng = random.Random(5)
+    rows, objs, users = nested_rows(rng)
+    p = store_of(rows)
+    e = engines(p, p.namespaces, mesh=cpu_mesh(4), labels_enabled=False)
+    qs = queries(rng, objs, users, n=40)
+    base = e.batch_check(qs)
+    token = e._snapshot.snapshot_id
+    # a budget every shard's slice of which is full: the next upload's
+    # plan fails on every shard and the refresh is refused
+    e.hbm.set_budget_bytes(4 * max(e.hbm.shard_resident_bytes()))
+    p.write_relation_tuples(T("g", "mid0", "m", SubjectSet("g", "mid1", "m")))
+    got, got_token = e.batch_check_with_token(qs, mode="serving")
+    assert (got, got_token) == (base, token)
+    assert e.health()["memory_pressure"] and e.hbm.snapshot()["refusals"] >= 1
+    e.hbm.set_budget_bytes(1 << 30)
+    e._refresh_task.kick()
+    assert e.maintenance_settled(timeout=60).snapshot_id == p.watermark()
+    assert e.batch_check(qs) == [CheckEngine(p).subject_is_allowed(q) for q in qs]
+
+
+def test_sharded_warm_compile_registers_and_the_warm_ladder_is_mesh_wide(engines):
+    """A sharded engine warms each width on K10a (one empty slice a width);
+    the warm workspace spreads over the shards, and a plan only the hottest
+    shard's slice refuses walks the ladder once for the whole mesh."""
+    rng = random.Random(13)
+    rows, objs, users = nested_rows(rng)
+    p = store_of(rows)
+    e = engines(p, p.namespaces, mesh=cpu_mesh(4), labels_enabled=False)
+    qs = queries(rng, objs, users, n=50)
+    want = [CheckEngine(p).subject_is_allowed(q) for q in qs]
+    assert e.batch_check(qs) == want
+    assert e.warm_compile() == len(e.stream_widths(e._snapshot))
+    gov = e.hbm
+    warm = gov.ledger()["warmup"]
+    res = gov.shard_resident_bytes()
+    assert warm > 0 and gov.shard_ledger()["snapshot"] == list(e._snapshot.shard_spec.owned_bucket_bytes)
+    hot = max(range(4), key=lambda s: res[s])
+    after = res[hot] - warm // 4
+    x = max(16, -(-(gov.resident_bytes() - 4 * after) // 3) + 1, max(res) - after + 1)
+    gov.set_budget_bytes(4 * (after + x))
+    per = [0] * 4
+    per[hot] = x
+    assert gov.fits(x) and res[hot] + x > gov.budget_bytes // 4
+    assert gov.plan(x, per_shard=per)
+    snap = gov.snapshot()
+    assert snap["evicted"] == ["staging", "labels", "reverse", "warm-ladder"]
+    assert all(snap["evictions_by_rung"][r] == 1 for r in snap["evicted"])
+    assert len(e._word_widths()) < 7 and e.warmup == 0
+    assert e.batch_check(qs) == want
