@@ -135,9 +135,17 @@ Phases, in order; any failure exits non-zero:
    record routed ``bfs`` (or ``host``) with its trace id; (f) a batch in
    flight, then the drain: ``/health/ready`` 503 while draining, the batch
    answered, the drain's seconds; (e) the audit settles with checks and
-   no mismatch. Any wrong decision, unlisted status, interactive 429, a
-   (b) turn without a 429, or a phase that launched no ``keto_seed``,
-   ``keto_check_run`` or ``keto_answer_pack`` fails it;
+   no mismatch. The servers carry the daemon's observability wiring (a
+   ``memory`` tracer): one ``/metrics`` scrape is timed under (b)'s waves;
+   after (f) both ports' scrapes parse strictly and must hold the same
+   families, ``keto_http_requests_total`` equal to the phase's own count
+   of its requests by route and code, the slice histogram's count to the
+   engine's slice stats over the phase, the shed and deadline families to
+   the batcher's, the ``device`` stage series above 0, and ``GET /slo``'s
+   totals to a scrape. Any wrong decision, unlisted status, interactive
+   429, a (b) turn without a 429, a scrape that differs from its source,
+   or a phase that launched no ``keto_seed``, ``keto_check_run`` or
+   ``keto_answer_pack`` fails it;
 5. labels — the same store and checks with the default engine: labels on,
    built on the host (config 3 is below the device-build gate): decisions
    equal to the BFS run's and the expectation, the label step launched and
@@ -164,9 +172,17 @@ Phases, in order; any failure exits non-zero:
    rung, whose freed arrays let its retry succeed (``oom_recoveries`` + 1);
    (f) budgets that refuse the build transients (``evict=False``): the sorts
    and the label build run on the host, their permutations and entries
-   equal to the card's, counted ``skipped``, the rung depth unchanged;
+   equal to the card's, counted ``skipped``, the rung depth unchanged. A
+   flight recorder (``min_interval_s=0``) rides along: (b) must leave a
+   valid ``health-degraded`` bundle, (e0) and (e1) each an ``oom`` bundle
+   whose ``hbm`` section counts its event (bytes and trigger-to-file
+   seconds printed); a scrape after (a) must show ``keto_hbm_resident_bytes``
+   equal to the ledger, one after (e) the governor's OOM counts;
 7. deep — BASELINE config 4 (GitHub-style org/team/repo, 10M tuples,
-   five namespaces, grant chains up to 7 edges) with the default engine:
+   five namespaces, grant chains up to 7 edges) with the default engine
+   (its build histogram attached before the first build: a
+   ``keto_build_phase_duration_seconds`` series for each phase the build
+   names, ``keto_build_rows_ingested_total`` equal to the store's rows):
    the labels built on the card, 100k checks equal to the analytic
    expectation, an oracle sample, the label step, frontier sweep, covered
    mask and slot set each launched, every mirror flush one slot set
@@ -322,7 +338,11 @@ Phases, in order; any failure exits non-zero:
    keyed ``PUT /relation-tuples`` (``X-Idempotency-Key``, one keep-alive
    connection a writer), each resent once: every resend replays its token,
    the daemon's group-commit coordinator commits them in fewer groups than
-   writers, and ``GET /check?snaptoken=`` reads every write.
+   writers, and ``GET /check?snaptoken=`` reads every write. The daemon
+   traces to an ``otlp-file`` span file and keeps a bundle directory: after
+   a traced ``GET /check`` and the drain, every span line must parse, the
+   check's request span must have its stage spans (``device`` among them)
+   as children and the ``drain`` bundle must validate.
 
 ``--only`` names a subset; ``lanes``, ``labels`` and ``hbm`` need ``main``,
 ``shard`` needs ``main`` and ``deep``, ``cache``, ``list`` and ``explain`` need ``deep`` and
@@ -344,6 +364,7 @@ import subprocess
 import sys
 import time
 import types
+import urllib.request
 
 PHASES = ("build", "parity", "main", "lanes", "labels", "hbm", "deep", "cache", "shard", "list",
           "explain", "write", "serve")
@@ -2139,17 +2160,23 @@ def phase_lanes(torch, kernels, report, engine, queries, main_ctx):
     one ``TimelineRecorder``, a read and a write ``RestServer``, a decision
     log sampling every /check), driven over HTTP: (a) interactive GETs
     under a monster batch, (b) overload, (c) deadlines, (d) timelines, (e)
-    the shadow audit at 1%, (f) a drain with a batch in flight."""
+    the shadow audit at 1%, (f) a drain with a batch in flight. The servers
+    carry the daemon's observability wiring (keto_tpu_torch/driver/
+    observability.py, a ``memory`` tracer): after (f) both ports'
+    ``/metrics`` are scraped and held against their sources."""
     import http.client
     import tempfile
     import threading
 
     from keto_tpu_torch import _build
+    from keto_tpu_torch.driver import observability as obs
     from keto_tpu_torch.driver.batch import BATCH
     from keto_tpu_torch.driver.daemon import DRAINING, drain, make_batcher
     from keto_tpu_torch.explain import DecisionLog
     from keto_tpu_torch.servers.rest import READ, WRITE, RestServer
+    from keto_tpu_torch.x.metrics import normalize_route, parse_exposition
     from keto_tpu_torch.x.timeline import TimelineRecorder
+    from keto_tpu_torch.x.tracing import Tracer
 
     store, _nm, _got, expected = main_ctx
     batcher = make_batcher(engine)
@@ -2157,8 +2184,44 @@ def phase_lanes(torch, kernels, report, engine, queries, main_ctx):
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     log_dir = tempfile.TemporaryDirectory(dir=_build.BUILD_DIR)
     dlog = DecisionLog(log_dir.name, sample=1.0)
-    read = RestServer(READ, store, batcher, decision_log=dlog, recorder=recorder)
-    write = RestServer(WRITE, store, batcher, recorder=recorder)
+    # the daemon's observability wiring, by hand
+    tracer = Tracer("memory")
+    servers: list = []
+    metrics = obs.build_metrics(
+        engine=lambda: engine, batcher=lambda: batcher,
+        monitor=lambda: servers[0].app.monitor if servers else None,
+        recorder=lambda: recorder, decision_log=lambda: dlog, store=lambda: store,
+        tracer=lambda: tracer, slo=lambda: slo)
+    slo = obs.build_slo(metrics)
+    obs.attach_engine(metrics, engine)
+    obs.attach_recorder(metrics, recorder, tracer)
+    slices0 = engine.stream_slice_stats.snapshot()["count"]
+    seen = dict(recorder=recorder, metrics=metrics, tracer=tracer, slo=slo)
+    read = RestServer(READ, store, batcher, decision_log=dlog, **seen)
+    write = RestServer(WRITE, store, batcher, **seen)
+    servers += [read, write]
+    # every request of the phase by (role, method, route, code), health
+    # probes aside: what keto_http_requests_total must hold
+    sent: dict = {}
+    sent_lock = threading.Lock()
+
+    def tally(role, method, path, status):
+        if not path.startswith("/health/"):
+            key = (role, method, normalize_route(path.split("?")[0]), str(status))
+            with sent_lock:
+                sent[key] = sent.get(key, 0) + 1
+
+    def scrape(role):
+        """One ``GET /metrics`` on ``role``'s port, strictly parsed: its
+        seconds, bytes and families."""
+        port = read.port if role == READ else write.port
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=60) as resp:
+            text = resp.read().decode()
+            status = resp.status
+        sec = time.perf_counter() - t0
+        tally(role, "GET", "/metrics", status)
+        return sec, len(text), parse_exposition(text)
     wide = batcher.max_pending
     half = wide // 2
     rng = random.Random(SEED + 15)
@@ -2194,6 +2257,7 @@ def phase_lanes(torch, kernels, report, engine, queries, main_ctx):
         resp = conn.getresponse()
         raw = resp.read()
         ms = (time.perf_counter() - t0) * 1e3
+        tally(READ, method, path, resp.status)
         return resp.status, (json.loads(raw) if raw else None), resp.headers, ms
 
     def hang_up():
@@ -2532,6 +2596,14 @@ def phase_lanes(torch, kernels, report, engine, queries, main_ctx):
             sampler = _LaneSampler(batcher, BATCH).start()
             sampling.append(sampler)
             clients = spawn([steady(k) for k in range(LANES_CLIENTS)], "lanes-client")
+            if turn == 0:
+                # one scrape under the overload waves, on its own connection
+                def mid_scrape():
+                    time.sleep(0.25)
+                    sec, size, fams = scrape(READ)
+                    overload_scrape.update(seconds=sec, bytes=size, families=len(fams))
+
+                clients += spawn([mid_scrape], "lanes-scrape")
             try:
                 for wave in b_bodies:
                     run_threads([(lambda s0=s0, b=b: post_batch(part, s0, half, False, body=b))
@@ -2562,6 +2634,7 @@ def phase_lanes(torch, kernels, report, engine, queries, main_ctx):
                 fail(f"(b) turn {turn} shed nothing")
             return res
 
+        overload_scrape: dict = {}
         # every turn posts the same batches, encoded once before the first
         b_bodies = [[(s0, batch_body(s0, half)) for s0 in
                      ((wave * LANES_POSTERS + p) * 4096 % (N_CHECKS - wide)
@@ -2657,6 +2730,8 @@ def phase_lanes(torch, kernels, report, engine, queries, main_ctx):
         if ready[-1] != (503, DRAINING, "1") or after[0] != 503 or \
                 not drained.get("batcher_idle") or posts[-1][:2] != ("f", 200):
             fail(f"(f) the drain: {out['f']}")
+        out["scrape"] = lanes_scrape(scrape, sent, batcher, engine, slices0, read.port,
+                                     overload_scrape, out)
     finally:
         batcher.stop()
         for s in (read, write):
@@ -2665,6 +2740,8 @@ def phase_lanes(torch, kernels, report, engine, queries, main_ctx):
         log_dir.cleanup()
         batcher._dispatch_stream = dispatch
         batcher.admission_precheck = precheck
+        engine.stream_slice_stats.attach_histogram(None)
+        engine.build_progress.attach_histogram(None)
 
     # (e) the audit: every sample re-checked on the oracle, off the path
     t0 = time.monotonic()
@@ -2685,6 +2762,83 @@ def phase_lanes(torch, kernels, report, engine, queries, main_ctx):
     if missing:
         raise SystemExit(f"lanes FAILED: the phase's requests never launched {missing}")
     report["lanes"] = out
+
+
+def _samples(fams, name, **labels):
+    """``name``'s samples (a histogram's ``_count`` etc. by their sample
+    name) whose labels include ``labels``, as ``{label tuple: value}``."""
+    fam = name if name in fams else name.rsplit("_", 1)[0]
+    if fam not in fams:
+        raise SystemExit(f"scrape FAILED: {fam} is missing from the scrape")
+    return {tuple(sorted(lbl.items())): v for n, lbl, v in fams[fam]["samples"]
+            if n == name and all(lbl.get(k) == x for k, x in labels.items())}
+
+
+def lanes_scrape(scrape, sent, batcher, engine, slices0, read_port, overload_scrape, out) -> dict:
+    """After (a)–(f): both ports' ``/metrics`` strictly parsed and held
+    against their sources — the slice histogram's count against the
+    engine's slice stats over the phase, ``keto_http_requests_total``
+    against the phase's own count of its requests by route and code, the
+    shed and deadline families against the batcher's fields, the
+    ``device`` stage of the timeline histogram above 0 — and ``GET /slo``'s
+    totals against a scrape. Any difference or missing family fails."""
+    from keto_tpu_torch.servers.rest import READ, WRITE
+
+    def fail(msg):
+        raise SystemExit(f"lanes FAILED: the scrape: {msg}")
+
+    sec_w, size_w, fams_w = scrape(WRITE)
+    sec, size, fams = scrape(READ)
+    if set(fams) != set(fams_w):
+        fail(f"the ports expose different families: {sorted(set(fams) ^ set(fams_w))}")
+    got_req = {(lbl["role"], lbl["method"], lbl["route"], lbl["code"]): v
+               for _, lbl, v in fams["keto_http_requests_total"]["samples"]}
+    want_req = dict(sent)
+    want_req[(READ, "GET", "/metrics", "200")] -= 1  # the scrape counts after its render
+    slices = engine.stream_slice_stats.snapshot()["count"] - slices0
+    h_slices = sum(_samples(fams, "keto_engine_stream_slice_duration_seconds_count").values())
+    device = sum(_samples(fams, "keto_timeline_stage_duration_seconds_count",
+                          stage="device").values())
+    shed = sum(_samples(fams, "keto_check_shed_total").values())
+    drops = sum(_samples(fams, "keto_check_deadline_drops_total").values())
+    lane_shed = {k[0][1]: v for k, v in _samples(fams, "keto_lane_shed_total").items()}
+    res = {
+        "families": len(fams), "bytes": size, "scrape_s": sec, "write_scrape_s": sec_w,
+        "overload_scrape": overload_scrape, "requests": sum(got_req.values()),
+        "request_series": len(got_req), "slices": slices, "slice_histogram_count": h_slices,
+        "device_stage_count": device, "shed": shed, "deadline_drops": drops,
+        "get_p50_ms": out["a"]["p50_ms"], "get_p99_ms": out["a"]["p99_ms"],
+    }
+    if got_req != {k: v for k, v in want_req.items() if v}:
+        diff = {str(k): (got_req.get(k), want_req.get(k)) for k in set(got_req) | set(want_req)
+                if got_req.get(k) != want_req.get(k)}
+        fail(f"keto_http_requests_total differs from the phase's requests: {diff}")
+    if h_slices != slices or not slices:
+        fail(f"the slice histogram counts {h_slices}, the engine's stats {slices}")
+    if shed != batcher.shed_count or drops != batcher.deadline_drop_count or \
+            lane_shed != {k: float(v) for k, v in batcher.shed_by_lane.items()}:
+        fail(f"shed {shed}/{batcher.shed_count}, deadline drops {drops}/"
+             f"{batcher.deadline_drop_count}, lanes {lane_shed}/{batcher.shed_by_lane}")
+    if not device > 0 or not overload_scrape.get("families") == len(fams):
+        fail(f"device stage {device}, the scrape under overload {overload_scrape}")
+    # /slo: a fresh sample (past the engine's 1 s sampling interval), then a
+    # scrape; the report's 1 h window holds every request of the phase but
+    # /slo's own, which counts after its report
+    time.sleep(1.05)
+    with urllib.request.urlopen(f"http://127.0.0.1:{read_port}/slo", timeout=60) as resp:
+        slo_status, rep = resp.status, json.loads(resp.read())
+    _, _, after = scrape(READ)
+    total = sum(_samples(after, "keto_http_requests_total").values())
+    errors = sum(v for k, v in _samples(after, "keto_http_requests_total").items()
+                 if dict(k)["code"].startswith("5"))
+    hour = rep["windows"][1]
+    res["slo"] = {"status": slo_status, "requests": hour["requests"], "errors": hour["errors"],
+                  "availability_ratio": hour["availability_ratio"],
+                  "latency_ratio": hour["latency_ratio"]}
+    if slo_status != 200 or hour["requests"] != total - 1 or hour["errors"] != errors:
+        fail(f"/slo {res['slo']} against the scrape's {total} requests, {errors} errors")
+    log(f"lanes scrape: {json.dumps(res)}")
+    return res
 
 
 # -- phase 5: labels on config 3 ------------------------------------------------
@@ -2825,12 +2979,14 @@ def _new_edge(ctx, parsed, expected, taken) -> tuple:
 def phase_hbm(torch, kernels, report, main_ctx, queries, rctx, device="cuda"):
     """The device-memory governor and the health machine at config 3 on a
     fork of main's store (see the module docstring)."""
+    import tempfile
     import urllib.error
-    import urllib.request
 
     import numpy as np
 
+    from keto_tpu_torch import _build
     from keto_tpu_torch.check.gpu_engine import TorchCheckEngine
+    from keto_tpu_torch.driver import observability as obs
     from keto_tpu_torch.driver.daemon import make_batcher
     from keto_tpu_torch.driver.hbm import device_budget_bytes
     from keto_tpu_torch.driver.health import HealthMonitor, HealthState
@@ -2838,6 +2994,8 @@ def phase_hbm(torch, kernels, report, main_ctx, queries, rctx, device="cuda"):
     from keto_tpu_torch.list.gpu_engine import SnapshotListEngine
     from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectID, SubjectSet
     from keto_tpu_torch.servers.rest import READ, RestServer
+    from keto_tpu_torch.x.flightrec import list_bundles, validate_bundle
+    from keto_tpu_torch.x.metrics import parse_exposition
 
     on_card = device == "cuda"
     store, nm, _bfs_got, expected = main_ctx
@@ -2902,8 +3060,58 @@ def phase_hbm(torch, kernels, report, main_ctx, queries, rctx, device="cuda"):
     batches = record_sorts(eng)
     lst = SnapshotListEngine(eng, nm, device=device)
     monitor = HealthMonitor(eng, staleness_budget_s=60.0)
-    server = RestServer(READ, fork, make_batcher(eng), monitor=monitor)
+    batcher = make_batcher(eng)
+    # the flight recorder under build/, wired as the daemon wires it, but
+    # with min_interval_s=0: every trigger of the phase writes its bundle
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    bundle_dir = tempfile.TemporaryDirectory(dir=_build.BUILD_DIR)
+    fr = None
+    metrics = obs.build_metrics(engine=lambda: eng, batcher=lambda: batcher,
+                                monitor=lambda: monitor, lister=lambda: lst, store=lambda: fork,
+                                flightrec=lambda: fr)
+    fr = obs.build_flight_recorder(
+        bundle_dir.name, obs.flightrec_collect(monitor=lambda: monitor, engine=lambda: eng,
+                                               batcher=lambda: batcher, metrics=lambda: metrics),
+        min_interval_s=0.0)
+    obs.wire_flight_recorder(fr, monitor=monitor, engine=eng)
+    triggered: list = []  # (reason, time.time()) of each trigger (this script's hook)
+    on_oom = eng.hbm.on_oom
+
+    def oom_hook(what):
+        triggered.append(("oom", time.time()))
+        on_oom(what)
+
+    eng.hbm.on_oom = oom_hook
+    server = RestServer(READ, fork, batcher, monitor=monitor, metrics=metrics)
     server.start()
+
+    def scrape():
+        with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/metrics", timeout=60) as r:
+            return parse_exposition(r.read().decode())
+
+    def bundle(reason, n, timeout=30.0):
+        """The ``n``-th (from 1) bundle of ``reason``, once written: valid,
+        its bytes and the seconds from its trigger to its file."""
+        t_end = time.monotonic() + timeout
+        while True:
+            got = [(p, json.loads(p.read_text())) for p in list_bundles(bundle_dir.name)]
+            got = sorted([(b["created_unix"], p, b) for p, b in got if b["reason"] == reason],
+                         key=lambda x: x[0])
+            if len(got) >= n or time.monotonic() > t_end:
+                break
+            time.sleep(0.02)
+        if len(got) < n:
+            fail(f"no {reason} bundle number {n} in {timeout}s: {fr.snapshot()}")
+        _, path, b = got[n - 1]
+        problems = validate_bundle(b)
+        if problems:
+            fail(f"the {reason} bundle is invalid: {problems}")
+        trig = [t for r, t in triggered if r == reason]
+        return b, {"reason": reason, "bytes": path.stat().st_size,
+                   "trigger_to_file_s": path.stat().st_mtime - trig[n - 1],
+                   "sections": sorted(b["sections"]), "detail": b["detail"][:80]}
+
+    out["bundles"] = []
     try:
         if not eng.labels_settled():
             fail("no label index")
@@ -2925,9 +3133,15 @@ def phase_hbm(torch, kernels, report, main_ctx, queries, rctx, device="cuda"):
         out["listings_device"] = {"s": list_s, "routes": {f"{o}/{p}": n
                                                           for (o, p), n in routes.items()}}
 
-        # (a) the ledger against the card
+        # (a) the ledger against the card, and keto_hbm_resident_bytes
+        # against the ledger
         out["a"] = ledger_line(torch, eng, base, lst)
         log(f"hbm (a) config 3: {json.dumps(out['a'])}")
+        led = eng.hbm.ledger()
+        got_led = {k[0][1]: v for k, v in _samples(scrape(), "keto_hbm_resident_bytes").items()}
+        if {t: v for t, v in got_led.items() if v} != {t: float(v) for t, v in led.items() if v}:
+            fail(f"(a) keto_hbm_resident_bytes {got_led} differs from the ledger {led}")
+        out["a"]["scraped_tags"] = len(got_led)
 
         # (b) pressure: a budget below the bucket bytes of the next snapshot
         extra = [_new_edge(rctx, parsed, expected, set())]
@@ -2946,7 +3160,13 @@ def phase_hbm(torch, kernels, report, main_ctx, queries, rctx, device="cuda"):
         b["counts"] = counts()
         b["health"] = {k: h[k] for k in ("memory_pressure", "hbm_rung", "hbm_resident_bytes",
                                           "hbm_budget_bytes", "staleness_s")}
+        triggered.append(("health-degraded", time.time()))
         b["ready"] = ready()[:2]
+        deg, deg_line = bundle("health-degraded", 1)
+        out["bundles"].append(deg_line)
+        if deg["sections"]["health"]["state"] != "degraded" or \
+                "memory_pressure" not in deg["detail"]:
+            fail(f"(b) the health-degraded bundle: {deg_line}, {deg['sections']['health']}")
         if eng._snapshot is not snap0 or not h["memory_pressure"] \
                 or b["counts"]["evicted"] != ["staging", "labels", "reverse", "warm-ladder",
                                               "overlay-budget"] \
@@ -3007,8 +3227,24 @@ def phase_hbm(torch, kernels, report, main_ctx, queries, rctx, device="cuda"):
         out["d"] = d
 
         if on_card:
+            def oom_bundle(n, events):
+                """After (e0) or (e1): its ``oom`` bundle shows the event."""
+                got, line = bundle("oom", n)
+                hbm = got["sections"].get("hbm", {})
+                out["bundles"].append(line)
+                if hbm.get("oom_events") != events:
+                    fail(f"(e) oom bundle {n}: hbm {hbm.get('oom_events')}, counted {events}")
+
             out["e"] = hbm_real_oom(torch, eng, fork, queries, want1, rctx, parsed, extra,
-                                    checks, counts, fail, monitor)
+                                    checks, counts, fail, monitor, oom_bundle)
+            fams = scrape()
+            snap_g = eng.hbm.snapshot()
+            scraped = (sum(_samples(fams, "keto_oom_events_total").values()),
+                       sum(_samples(fams, "keto_oom_recoveries_total").values()))
+            if scraped != (snap_g["oom_events"], snap_g["oom_recoveries"]):
+                fail(f"(e) the scrape's OOM counts {scraped}, the governor's {snap_g}")
+            out["e"]["scraped_oom"] = scraped
+        log(f"hbm bundles (min_interval_s=0): {json.dumps(out['bundles'])}")
 
         # (f) the build transients: refused with evict=False, built on the host
         depth = eng.hbm.rung_depth
@@ -3049,13 +3285,14 @@ def phase_hbm(torch, kernels, report, main_ctx, queries, rctx, device="cuda"):
     finally:
         server.stop()
         eng.close()
+        bundle_dir.cleanup()
     out["seconds"] = time.monotonic() - t_phase
     report["hbm"] = out
     del eng, lst
 
 
 def hbm_real_oom(torch, eng, fork, queries, want, rctx, parsed, extra, checks, counts, fail,
-                 monitor) -> dict:
+                 monitor, oom_bundle) -> dict:
     """(e) Real out-of-memory errors from the caching allocator, the card
     filled by ``_fill_card``. (e0) the ladder at 0: the 100k batch's first
     slice cannot allocate, the governor evicts the staging rung — host
@@ -3063,7 +3300,9 @@ def hbm_real_oom(torch, eng, fork, queries, want, rctx, parsed, extra, checks, c
     no answer, counted, health SERVING; the card freed, the batch answers.
     (e1) the next refresh's overlay upload cannot allocate: the governor
     evicts the labels rung, whose arrays free their blocks, and the retry
-    succeeds (``oom_recoveries`` + 1)."""
+    succeeds (``oom_recoveries`` + 1). After each, ``oom_bundle(n,
+    oom_events)`` holds the flight recorder's n-th ``oom`` bundle against
+    the count."""
     from keto_tpu_torch.driver.health import HealthState
     from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectSet
 
@@ -3087,6 +3326,7 @@ def hbm_real_oom(torch, eng, fork, queries, want, rctx, parsed, extra, checks, c
             or c1["oom_recoveries"] != c0["oom_recoveries"] or c1["evicted"] != ["staging"] \
             or e["e0_state"] != HealthState.SERVING.value:
         fail(f"(e0) a real OOM no rung clears: {e}")
+    oom_bundle(1, c1["oom_events"])
     e["e0_after"] = checks("(e0) the card freed", want)
 
     m, g = _new_edge(rctx, parsed, want, set(extra))
@@ -3110,6 +3350,7 @@ def hbm_real_oom(torch, eng, fork, queries, want, rctx, parsed, extra, checks, c
             or c2["evictions_by_rung"].get("labels", 0) \
             != c1["evictions_by_rung"].get("labels", 0) + 1:
         fail(f"(e1) a real OOM at the refresh's upload: {e}, {c2}")
+    oom_bundle(2, c2["oom_events"])
     t0 = time.monotonic()
     eng.maintenance_settled(fold=True, timeout=300)
     e["e1_labels_restored_s"] = time.monotonic() - t0
@@ -3136,6 +3377,35 @@ def label_digest(idx) -> str:
     return h.hexdigest()[:16]
 
 
+def deep_build_families(metrics, engine, n_tuples: int) -> dict:
+    """The ``keto_build_*`` families after deep's first build and its label
+    build: a phase-histogram series for every phase the build names (and
+    ``labels``), and the rows ingested equal to the store's rows. The scrape
+    is the registry's render, strictly parsed."""
+    from keto_tpu_torch.x.metrics import parse_exposition
+
+    render_s = []  # twice: the first pays what a process's first render pays
+    for _ in range(2):
+        t0 = time.perf_counter()
+        text = metrics.render()
+        fams = parse_exposition(text)
+        render_s.append(time.perf_counter() - t0)
+    counts = {dict(k)["phase"]: v for k, v in
+              _samples(fams, "keto_build_phase_duration_seconds_count").items()}
+    sums = {dict(k)["phase"]: round(v, 3) for k, v in
+            _samples(fams, "keto_build_phase_duration_seconds_sum").items()}
+    rows = sum(_samples(fams, "keto_build_rows_ingested_total").values())
+    edges = sum(_samples(fams, "keto_build_edges_ingested_total").values())
+    named = set((engine.build_info or {}).get("phases_s", {})) | {"labels"}
+    res = {"phases": counts, "phase_s": sums, "rows_ingested": rows, "edges_ingested": edges,
+           "store_rows": n_tuples, "build_info_phases": sorted(named), "render_s": render_s,
+           "bytes": len(text)}
+    log(f"deep build families: {json.dumps(res)}")
+    if named - set(counts) or rows != n_tuples:
+        raise SystemExit(f"deep FAILED: the build families {res}")
+    return res
+
+
 def build_split(info) -> dict:
     """The device label build's seconds by part (host clock, BuildInfo):
     seed uploads, sweeps from launch to host read (the stored bitmap's
@@ -3155,6 +3425,7 @@ def phase_deep(torch, kernels, report):
     from keto_tpu_torch import namespace as tns
     from keto_tpu_torch.check.engine import CheckEngine
     from keto_tpu_torch.check.gpu_engine import TorchCheckEngine
+    from keto_tpu_torch.driver import observability as obs
     from keto_tpu_torch.persistence.memory import MemoryPersister
     from keto_tpu_torch.workloads import GITHUB_NAMESPACES, github_queries, github_workload
 
@@ -3180,6 +3451,9 @@ def phase_deep(torch, kernels, report):
     torch.cuda.synchronize()
     alloc0 = torch.cuda.memory_allocated()
     engine = TorchCheckEngine(store, nm, device="cuda")
+    # the build families: the phase histogram attached before the first build
+    metrics = obs.build_metrics(engine=lambda: engine)
+    obs.attach_engine(metrics, engine)
     batches = record_sorts(engine)
     t0 = time.monotonic()
     snap = engine.snapshot()
@@ -3210,6 +3484,7 @@ def phase_deep(torch, kernels, report):
         "label_sha256": label_digest(idx), "split": build_split(info) if info else None,
     }
     log(f"deep label build: {json.dumps(build)}")
+    build_fams = deep_build_families(metrics, engine, n_tuples)
     # the first row materialization, once the label build has left the host
     cold = cold_start("deep", engine, store, store_s, snap_s, rss_stored, rss_built)
 
@@ -3296,7 +3571,7 @@ def phase_deep(torch, kernels, report):
         "steady_checks_per_s": N_CHECKS / steady_s, "peak_device_bytes": peak,
         "route_counts": counts, "launches": launches, "oracle_sample": len(sample),
         "oracle_mismatches": bad, "grants": sum(expected), "build_sorts": sorts,
-        "host_path": host,
+        "host_path": host, "build_families": build_fams,
     }
     return engine, snap, captured, launches, store, queries, got, ctx, sort_keys
 
@@ -6022,9 +6297,10 @@ def phase_serve(kernels, report):
         parse_tuples,
     )
 
-    def req(method, port, path, body=None):
+    def req(method, port, path, body=None, headers=None):
         data = None if body is None else json.dumps(body).encode()
-        r = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method)
+        r = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method,
+                                   headers=headers or {})
         try:
             with urllib.request.urlopen(r, timeout=60) as resp:
                 raw = resp.read()
@@ -6034,9 +6310,15 @@ def phase_serve(kernels, report):
             return e.code, json.loads(raw) if raw else None
 
     log_dir = tempfile.TemporaryDirectory(dir=_build.BUILD_DIR)
+    obs_dir = tempfile.TemporaryDirectory(dir=_build.BUILD_DIR)
+    span_file = f"{obs_dir.name}/spans.otlp.jsonl"
+    bundle_dir = f"{obs_dir.name}/bundles"
     d = Daemon(CAT_VIDEOS_NAMESPACES, device="cuda", tuples=parse_tuples(CAT_VIDEOS_TUPLES),
-               decision_log_dir=log_dir.name, decision_log_sample=1.0)
+               decision_log_dir=log_dir.name, decision_log_sample=1.0,
+               tracing_provider="otlp-file", tracing_otlp_file=span_file,
+               debug_bundle_dir=bundle_dir)
     d.start()
+    drained = False
     try:
         d.engine.labels_settled()
         kernels.reset_counts()
@@ -6116,9 +6398,62 @@ def phase_serve(kernels, report):
         report["serve_list_launches"] = dict(kernels.COUNTS)
         report["serve_tuple_api"] = serve_tuple_api(d, req)
         report["serve_keyed_writes"] = serve_keyed_writes(d)
+
+        # one traced check, then the drain: a drain bundle, and the span file
+        # flushed with the check's request span and its stage spans (the
+        # writes above changed the decisions: any answer the status mirrors)
+        traced = req("GET", d.read.port, "/check?" + RelationTuple.from_string(
+            CAT_VIDEOS_CHECKS[0][0]).to_url_query(), headers={"traceparent": SERVE_TRACEPARENT})
+        if traced[0] not in (200, 403) or traced[1] != {"allowed": traced[0] == 200}:
+            raise SystemExit(f"serve FAILED: the traced check answered {traced}")
+        drained = True
+        d.drain_and_shutdown()
+        report["serve_observability"] = serve_observability(span_file, bundle_dir)
     finally:
-        d.stop()
+        if not drained:
+            d.stop()
         log_dir.cleanup()
+        obs_dir.cleanup()
+
+
+#: the traced check of the serve phase (W3C traceparent: trace, parent span)
+SERVE_TRACE_ID = "5e7c0ba1d9a44f3bb1d6c2f0a8e4b731"
+SERVE_TRACEPARENT = f"00-{SERVE_TRACE_ID}-a1b2c3d4e5f60718-01"
+
+
+def serve_observability(span_file: str, bundle_dir: str) -> dict:
+    """After the serve phase's drain: every line of the ``otlp-file`` span
+    file parses as an OTLP request; the traced ``GET /check`` is there with
+    its stage spans as children (``device`` among them); the ``drain``
+    bundle validates."""
+    from pathlib import Path
+
+    from keto_tpu_torch.x.flightrec import list_bundles, validate_bundle
+
+    def fail(msg):
+        raise SystemExit(f"serve FAILED: {msg}")
+
+    spans = []
+    lines = Path(span_file).read_text().splitlines()
+    for line in lines:
+        spans += json.loads(line)["resourceSpans"][0]["scopeSpans"][0]["spans"]
+    reqs = [s for s in spans if s["traceId"] == SERVE_TRACE_ID and s["name"] == "http.GET /check"]
+    if len(reqs) != 1 or reqs[0]["parentSpanId"] != SERVE_TRACEPARENT.split("-")[2]:
+        fail(f"the traced check's request span: {reqs}")
+    stages = sorted(s["name"] for s in spans if s["parentSpanId"] == reqs[0]["spanId"])
+    if "timeline.device" not in stages:
+        fail(f"the traced check's stage spans: {stages}")
+    bundles = [(p, json.loads(p.read_text())) for p in list_bundles(bundle_dir)]
+    drains = [(p, b) for p, b in bundles if b["reason"] == "drain"]
+    if len(drains) != 1 or validate_bundle(drains[0][1]):
+        fail(f"the drain bundle: {[b['reason'] for _, b in bundles]}, "
+             f"{validate_bundle(drains[0][1]) if drains else None}")
+    res = {"span_lines": len(lines), "spans": len(spans), "traced_stages": stages,
+           "bundles": [b["reason"] for _, b in bundles],
+           "drain_bundle_bytes": drains[0][0].stat().st_size,
+           "drain_sections": sorted(drains[0][1]["sections"])}
+    log(f"serve observability: {json.dumps(res)}")
+    return res
 
 
 def main(argv=None) -> int:

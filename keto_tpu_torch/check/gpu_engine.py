@@ -179,7 +179,6 @@ import logging
 import random
 import threading
 import time
-import types
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
@@ -210,7 +209,7 @@ from keto_tpu_torch.x.device import resolve_device, same_device
 from keto_tpu_torch.x.errors import ErrNamespaceUnknown
 from keto_tpu_torch.x.retry import retry_call
 from keto_tpu_torch.x.supervise import SupervisedTask
-from keto_tpu_torch.x.telemetry import DurationStats
+from keto_tpu_torch.x.telemetry import DurationStats, MaintenanceStats
 
 _log = logging.getLogger("keto_tpu_torch.check")
 
@@ -428,6 +427,8 @@ class TorchCheckEngine:
         self._route_stats: dict[str, DurationStats] = {}
         self._route_slices: collections.Counter = collections.Counter()
         self._route_queries: collections.Counter = collections.Counter()
+        # guards the route breakdown above and the label-invalidation latch
+        self._counter_lock = threading.Lock()
         # the refresh lock: deltas, folds and full rebuilds hold it. Installs
         # (the snapshot swap, a label index landing) take the short
         # _swap_lock instead, so the serving path's non-blocking try on the
@@ -456,12 +457,47 @@ class TorchCheckEngine:
         self._ov_pack: Optional[dict] = None
         self._label_blocked_snap: Optional[int] = None
         self._refresh_force_full = False
+        #: every count, gauge and duration of the snapshot lifecycle
+        #: (tpu_engine.py:1232-1236): the route and maintenance counters,
+        #: counted where the reference counts them — label_checks,
+        #: label_fallbacks, label_builds, label_device_builds; delta_applies,
+        #: overlay_device_applies, full_rebuilds, compactions, fold_runs,
+        #: label_patches, label_patch_aborts, label_rebuilds,
+        #: label_invalidations, label_build_truncated_<reason>; the supervised
+        #: passes' refresh_failures, cache_save_failures and audit_failures;
+        #: and the failures the port raises where the reference falls back:
+        #: compaction_failures, label_patch_failures, witness_errors (a failed
+        #: K4 launch in label_witness_info), shard_dispatch_failures (a failed
+        #: sharded dispatch); the shadow audit's audit_checks,
+        #: audit_mismatches and audit_skipped_stale (always present in
+        #: ``counters()``); the resolved batches by path,
+        #: resolve_native_batches (the C++ bulk resolve) and
+        #: resolve_python_batches (the host loop: a separator byte in a
+        #: query, or a snapshot interned in Python); slice_splits, the
+        #: sub-chunks past the first that chunks whose entries passed their
+        #: budget were split into; and, sharded, shard_halo_rounds,
+        #: shard_halo_bytes and shard_frontier_bits; the snapshot cache's
+        #: cache_loads, cache_saves, cache_quarantined, cache_reload_retries
+        #: (an unreadable cache directory) and cache_load_failures (a reload
+        #: that raised); refresh_read_retries; the governor's hbm_evictions,
+        #: hbm_refusals, hbm_restores, hbm_forced_allocs, oom_events and
+        #: oom_recoveries; the build sorter's device_build_* counts;
+        #: label_device_build_skipped; health_transitions. Gauges:
+        #: overlay_edges, overlay_budget, label_coverage, label_entries,
+        #: label_dirty_nodes, label_build_landmarks(_total), label_build_entries,
+        #: label_build_batches, memory_pressure, warm_widths_skipped,
+        #: shard_count, the governor's hbm_* and health_state. Durations (ms):
+        #: full_rebuild, compaction, fold, label_patch, label_build,
+        #: label_build_device, cache_reload, cache_save and build_<phase>.
+        self.maintenance = MaintenanceStats()
+        self.maintenance.set_gauge("overlay_budget", self._max_overlay_edges)
+        self.maintenance.set_gauge("overlay_edges", 0)
         #: the exception of the last failed background refresh pass, raised
         #: by the next check and by maintenance_settled()
         self._maintenance_error: Optional[Exception] = None
         self._refresh_task = SupervisedTask(
             "refresh", self._refresh_pass, on_error=self._note_maintenance_error,
-            quiet=lambda e: isinstance(e, MemoryPressure),
+            stats=self.maintenance, quiet=lambda e: isinstance(e, MemoryPressure),
         )
         # a failing store read on the refresh path retries for this long
         self._refresh_retry_max_wait_s = float(refresh_retry_max_wait_s)
@@ -470,11 +506,8 @@ class TorchCheckEngine:
         self._cache_dir = snapshot_cache_dir or None
         self._cache_pending: Optional[GraphSnapshot] = None
         self._cache_task = SupervisedTask(
-            "cache", self._cache_save_pass,
-            on_error=lambda e: self._incr("cache_save_failures"),
+            "cache-save", self._cache_save_pass, stats=self.maintenance,
         )
-        # snapcache counts quarantines through this sink's incr
-        self._cache_stats = types.SimpleNamespace(incr=self._incr)
         #: the last cache reload: its seconds, bytes (the segments read),
         #: path and watermark, and whether it carried labels
         self.last_cache_load: Optional[dict] = None
@@ -489,7 +522,7 @@ class TorchCheckEngine:
         self._audit_oracle = None
         #: evidence of the last shadow-audit divergences (both witnesses)
         self.audit_divergences: collections.deque = collections.deque(maxlen=8)
-        self._audit_task = SupervisedTask("audit", self._audit_pass)
+        self._audit_task = SupervisedTask("audit", self._audit_pass, stats=self.maintenance)
         #: what the last compaction did: seconds (the label patch or build
         #: included), the label outcome, the label patch's or build's ms,
         #: the touched buckets and their bytes
@@ -513,41 +546,16 @@ class TorchCheckEngine:
         self.label_build_bytes = 0
         #: BuildInfo of the last device label build
         self.label_build_info: Optional[label_build.BuildInfo] = None
-        # route and maintenance counters, counted where the reference counts
-        # them: label_checks, label_fallbacks, label_builds,
-        # label_device_builds; delta_applies, overlay_device_applies,
-        # full_rebuilds, compactions, fold_runs, label_patches,
-        # label_patch_aborts, label_rebuilds, label_invalidations; and the
-        # failures the port raises where the reference falls back:
-        # refresh_failures, compaction_failures, label_patch_failures,
-        # witness_errors (a failed K4 launch in label_witness_info),
-        # shard_dispatch_failures (a failed sharded dispatch); the shadow
-        # audit's audit_checks, audit_mismatches and audit_skipped_stale
-        # (always present); the resolved
-        # batches by path, resolve_native_batches (the C++ bulk resolve) and
-        # resolve_python_batches (the host loop: a separator byte in a
-        # query, or a snapshot interned in Python); slice_splits,
-        # the sub-chunks past the first that chunks whose entries passed
-        # their budget were split into; and, sharded, shard_halo_rounds,
-        # shard_halo_bytes and shard_frontier_bits; the snapshot cache's
-        # cache_loads, cache_saves, cache_quarantined, cache_reload_retries
-        # (an unreadable cache directory), cache_save_failures and
-        # cache_load_failures (a reload that raised); refresh_read_retries;
-        # the governor's hbm_evictions, hbm_refusals, hbm_restores,
-        # hbm_forced_allocs, oom_events and oom_recoveries;
-        # label_device_build_skipped; health_transitions
-        self._counters: collections.Counter = collections.Counter()
-        self._counter_lock = threading.Lock()
         # the device-memory governor (tpu_engine.py:1298-1346): the ledger,
-        # plan before upload and the eviction ladder. Its counters land in
-        # the engine's; the reference's gauges wait for the metrics (A6)
+        # plan before upload and the eviction ladder; its counters and
+        # gauges land in the engine's maintenance stats
         self.hbm = HbmGovernor(
-            budget_bytes=int(hbm_budget_bytes), device=self.device,
-            stats=types.SimpleNamespace(incr=self._incr, set_gauge=lambda k, v: None),
+            budget_bytes=int(hbm_budget_bytes), device=self.device, stats=self.maintenance,
         )
         if self._sharded:
             # per-shard ledger: the mesh-wide plan binds on the hottest shard
             self.hbm.set_shard_count(self._shard_count)
+            self.maintenance.set_gauge("shard_count", self._shard_count)
         # the list engine's hooks behind the reverse rung (attach_reverse_rung)
         self._reverse_evict_cb: Optional[Callable[[], int]] = None
         self._reverse_restore_cb: Optional[Callable[[], None]] = None
@@ -591,7 +599,7 @@ class TorchCheckEngine:
             if device_build_enabled else None
         )
         #: the full builds' phases and path (keto_tpu_torch/graph/stream_build.py)
-        self.build_progress = BuildProgress()
+        self.build_progress = BuildProgress(stats=self.maintenance)
         #: the last full build: seconds, its interning seconds (intern_s),
         #: sort seconds by backend, the transient sort bytes the reference
         #: plans (build_sort_bytes), its path (columns, stream, rows or
@@ -700,7 +708,7 @@ class TorchCheckEngine:
         return isinstance(e, MemoryPressure) or is_resource_exhausted(e)
 
     def _note_maintenance_error(self, e: Exception) -> None:
-        self._incr("refresh_failures")
+        # the supervisor counts it (refresh_failures)
         if not self._serves_stale(e):
             self._maintenance_error = e
 
@@ -755,10 +763,12 @@ class TorchCheckEngine:
         if wm is not None and snap.snapshot_id >= wm:
             self._behind_since = None
             return 0.0
-        if self._behind_since is None:
-            self._behind_since = now
+        # one read: the refresh pass clears the clock when it catches up
+        since = self._behind_since
+        if since is None:
+            since = self._behind_since = now
         self._refresh_task.kick()
-        return now - self._behind_since
+        return now - since
 
     def health(self) -> dict:
         """Live inputs for the health state machine (tpu_engine.py:1550-1582):
@@ -806,6 +816,7 @@ class TorchCheckEngine:
             return
         self.hbm.note_refused()
         self._memory_pressure = True
+        self.maintenance.set_gauge("memory_pressure", 1)
         raise MemoryPressure(
             f"device memory budget refused {what}: need {need} bytes with "
             f"{self.hbm.resident_bytes()} resident of {self.hbm.budget_bytes} "
@@ -846,7 +857,9 @@ class TorchCheckEngine:
         """A refresh reached the watermark within budget: pressure (if any)
         has cleared and the ladder may walk back up."""
         self._behind_since = None
-        self._memory_pressure = False
+        if self._memory_pressure:
+            self._memory_pressure = False
+            self.maintenance.set_gauge("memory_pressure", 0)
         self.hbm.maybe_restore(planned=self._restore_plan_bytes())
 
     def attach_reverse_rung(self, evict: Callable[[], int], restore: Callable[[], None]) -> None:
@@ -896,6 +909,8 @@ class TorchCheckEngine:
                 snap.device_labels = None
                 snap.device_shard_labels = None
                 snap.labels = None
+        self.maintenance.set_gauge("label_coverage", 0.0)
+        self.maintenance.set_gauge("label_entries", 0)
         return freed
 
     def _restore_labels(self) -> None:
@@ -923,6 +938,7 @@ class TorchCheckEngine:
         fold into the base layout (the fold retires the overlay's device
         arrays and keeps future overlays small)."""
         self._max_overlay_edges = max(64, self._configured_overlay_budget // 8)
+        self.maintenance.set_gauge("overlay_budget", self._max_overlay_edges)
         snap = self._snapshot
         freed = 0
         if snap is not None and snap.has_overlay:
@@ -933,6 +949,7 @@ class TorchCheckEngine:
 
     def _restore_overlay_budget(self) -> None:
         self._max_overlay_edges = self._configured_overlay_budget
+        self.maintenance.set_gauge("overlay_budget", self._max_overlay_edges)
 
     def _word_widths(self) -> tuple:
         """The slice-width ladder in service: ``_WORD_WIDTHS``, or its lower
@@ -1017,7 +1034,9 @@ class TorchCheckEngine:
                     # a runaway log: the next fold runs as one compaction
                     self._fold_base, self._seg_log = None, []
                 self._incr("delta_applies")
-                over = force_full or self._overlay_edge_count(new) > self._max_overlay_edges
+                n_ov = self._overlay_edge_count(new)
+                self.maintenance.set_gauge("overlay_edges", n_ov)
+                over = force_full or n_ov > self._max_overlay_edges
                 if over and new.has_overlay and not delta_only:
                     if not maintenance:
                         # never fold on a caller's thread
@@ -1057,6 +1076,7 @@ class TorchCheckEngine:
                 "phases_s": phases,
             }
             self._incr("full_rebuilds")
+            self.maintenance.observe_ms("full_rebuild", self._last_full_build_s * 1e3)
         # the snapshot being installed: a labels eviction during its uploads
         # drops its labels too (a delta carries its base's device arrays)
         self._installing = new
@@ -1081,6 +1101,7 @@ class TorchCheckEngine:
             # an overlay-free install is the new fold base
             self._fold_base, self._seg_log = new, []
             self._overlay_born = None
+            self.maintenance.set_gauge("overlay_edges", 0)
         if rebuilt:
             # the label build overlaps serving: BFS answers until it installs
             self._start_label_build(new)
@@ -1120,7 +1141,7 @@ class TorchCheckEngine:
         try:
             snap = retry_call(
                 lambda: snapcache.load_latest(
-                    self._cache_dir, max_watermark=store_wm, stats=self._cache_stats,
+                    self._cache_dir, max_watermark=store_wm, stats=self.maintenance,
                     sorter=self._build_sorter, loaded=loaded,
                 ),
                 max_wait_s=2.0,
@@ -1148,6 +1169,7 @@ class TorchCheckEngine:
         if snap.labels is None:
             self._start_label_build(snap)
         self._incr("cache_loads")
+        self.maintenance.observe_ms("cache_reload", (time.monotonic() - t0) * 1e3)
         self.last_cache_load = {
             "seconds": time.monotonic() - t0, "bytes": loaded.get("bytes"),
             "path": loaded.get("path"), "watermark": int(snap.snapshot_id),
@@ -1157,7 +1179,7 @@ class TorchCheckEngine:
         return snap
 
     def _kick_cache_save(self, snap: GraphSnapshot) -> None:
-        """Persist an overlay-free snapshot on the supervised ``cache``
+        """Persist an overlay-free snapshot on the supervised ``cache-save``
         worker (a failed pass counts ``cache_save_failures`` and retries);
         kicks coalesce, so only the newest pending snapshot is saved."""
         if self._cache_dir is None or snap.has_overlay:
@@ -1176,12 +1198,15 @@ class TorchCheckEngine:
 
     def _save_cache(self, snap: GraphSnapshot) -> Optional[str]:
         timings: dict = {}
-        path = snapcache.save_snapshot(
-            snap, self._cache_dir, shards=max(1, self._shard_count),
-            labels_wait=self._label_build_wait, timings=timings,
-        )
+        t0 = time.monotonic()
+        with self.build_progress.phase("cache_save"):
+            path = snapcache.save_snapshot(
+                snap, self._cache_dir, shards=max(1, self._shard_count),
+                labels_wait=self._label_build_wait, timings=timings,
+            )
         if path is not None:
             self._incr("cache_saves")
+            self.maintenance.observe_ms("cache_save", (time.monotonic() - t0) * 1e3)
             if timings:  # empty when this watermark's cache was already there
                 self.last_cache_save = {**timings, "path": path,
                                         "watermark": int(snap.snapshot_id)}
@@ -1274,6 +1299,7 @@ class TorchCheckEngine:
             self.hbm.register("snapshot", sum(int(t.nbytes) for t in bufs))
         if got.labels == "patched":
             self._incr("label_patches")
+            self.maintenance.observe_ms("label_patch", new.labels.build_ms)
         elif got.labels == "patch_abort":
             self._incr("label_patch_aborts")
             self._incr("label_rebuilds")
@@ -1284,9 +1310,11 @@ class TorchCheckEngine:
             # builds the index its compacted base needs before installing
             new.labels = self._build_label_index(new)
             self._incr("label_builds")
+            self.maintenance.observe_ms("label_build", new.labels.build_ms)
         if new.labels is not None and self._labels_dev(new) is None:
             self._place_labels(new)
         self._incr("compactions")
+        self.maintenance.observe_ms("compaction", (time.monotonic() - t0) * 1e3)
         self.last_compaction = {
             "seconds": time.monotonic() - t0,
             "labels": got.labels,
@@ -1306,6 +1334,7 @@ class TorchCheckEngine:
         ``full`` every segment folds. Returns the refreshed snapshot (which
         may still carry the newest segments' overlay), or None when the
         shape needs a full rebuild."""
+        t0 = time.monotonic()
         fb, log = self._fold_base, self._seg_log
         # continuity: the log must replay fb → snap exactly; otherwise fold
         # everything at once
@@ -1352,6 +1381,7 @@ class TorchCheckEngine:
         self._fold_base, self._seg_log = new_base, rest
         self._ov_pack = None  # a new lineage: the upload below re-packs
         self._incr("fold_runs")
+        self.maintenance.observe_ms("fold", (time.monotonic() - t0) * 1e3)
         _log.info("overlay fold: %d/%d segments folded (%d remain)", take, len(log), len(rest))
         return cur
 
@@ -1579,14 +1609,12 @@ class TorchCheckEngine:
     # -- counters ------------------------------------------------------------
 
     def _incr(self, name: str, by: int = 1) -> None:
-        with self._counter_lock:
-            self._counters[name] += by
+        self.maintenance.incr(name, by)
 
     def counters(self) -> dict:
         """The route and maintenance counters since construction (see
-        ``__init__``)."""
-        with self._counter_lock:
-            out = dict(self._counters)
+        ``maintenance`` in ``__init__``): a view over its counters."""
+        out = self.maintenance.raw()[0]
         for name in ("audit_checks", "audit_mismatches", "audit_skipped_stale"):
             out.setdefault(name, 0)
         return out
@@ -1719,11 +1747,14 @@ class TorchCheckEngine:
                         device=self.device,
                         mesh=self._mesh,
                         shard_count=self._shard_count,
+                        progress_cb=self._label_build_progress,
                     )
                 finally:
                     self.hbm.release("build")
                 self.label_build_info = info
                 self._incr("label_device_builds")
+                self.maintenance.observe_ms("label_build_device", idx.build_ms)
+                self.maintenance.set_gauge("label_build_batches", info.batches)
                 if info.truncated:
                     self._note_label_truncation(info.truncated, idx)
                 return idx
@@ -1734,8 +1765,16 @@ class TorchCheckEngine:
             self._note_label_truncation("cap", idx)
         return idx
 
-    @staticmethod
-    def _note_label_truncation(reason: str, idx) -> None:
+    def _label_build_progress(self, done: int, total: int, entries: int) -> None:
+        """The device build's progress after each batch, as gauges."""
+        self.maintenance.set_gauge("label_build_landmarks", done)
+        self.maintenance.set_gauge("label_build_landmarks_total", total)
+        self.maintenance.set_gauge("label_build_entries", entries)
+
+    def _note_label_truncation(self, reason: str, idx) -> None:
+        """Count a truncated build by reason (``cap`` or ``min_gain``) and
+        log the coverage it reached."""
+        self._incr(f"label_build_truncated_{reason}")
         _log.warning(
             "label build truncated (%s): %d/%d landmarks processed, coverage_ratio=%.4f — "
             "uncovered deep checks fall back to the BFS kernels",
@@ -1756,9 +1795,11 @@ class TorchCheckEngine:
 
         def work():
             try:
-                idx = self._build_label_index(snap)
+                with self.build_progress.phase("labels"):
+                    idx = self._build_label_index(snap)
             except Exception as e:  # kept on the engine and raised by the next check
                 _log.error("background label build failed", exc_info=True)
+                self._incr("label_build_failures")
                 if self._label_build_thread is threading.current_thread():
                     self._label_build_error = e
                 return
@@ -1780,6 +1821,7 @@ class TorchCheckEngine:
             return
         snap.labels = idx
         self._incr("label_builds")
+        self.maintenance.observe_ms("label_build", idx.build_ms)
         if self._snapshot is snap:
             self._place_labels(snap)
 
@@ -1810,6 +1852,10 @@ class TorchCheckEngine:
             snap.device_labels = None
             snap.device_shard_labels = None
             self.hbm.release("labels")
+            return
+        idx = snap.labels
+        self.maintenance.set_gauge("label_coverage", round(idx.coverage, 4))
+        self.maintenance.set_gauge("label_entries", idx.n_entries)
 
     def _label_build_wait(self) -> None:
         """Join the in-flight background label build."""
@@ -1874,8 +1920,10 @@ class TorchCheckEngine:
             with self._counter_lock:
                 if self._label_blocked_snap != snap.snapshot_id:
                     self._label_blocked_snap = snap.snapshot_id
-                    self._counters["label_invalidations"] += 1
+                    self._incr("label_invalidations")
+                    self.maintenance.set_gauge("label_dirty_nodes", len(snap.lab_dirty))
             return False
+        self.maintenance.set_gauge("label_dirty_nodes", 0)
         return self._labels_dev(snap) is not None
 
     def _label_patcher(self, idx, snap, added_edges, visit_budget: int = 65536):
@@ -2346,6 +2394,12 @@ class TorchCheckEngine:
             }
         return out
 
+    def route_slice_counts(self) -> dict:
+        """route → landed slice count (the ``keto_stream_route_slices_total``
+        bridge)."""
+        with self._counter_lock:
+            return dict(self._route_slices)
+
     def reset_route_stats(self) -> None:
         """Zero the per-route breakdown."""
         with self._counter_lock:
@@ -2504,6 +2558,7 @@ class TorchCheckEngine:
                 _DeviceOut(out).words()
                 warmed += 1
         self.warm_widths_skipped = skipped
+        self.maintenance.set_gauge("warm_widths_skipped", skipped)
         return warmed
 
     def _entry_counts(

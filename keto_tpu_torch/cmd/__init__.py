@@ -1,7 +1,13 @@
 """Command line: ``python -m keto_tpu_torch serve`` (explicit flags; the
-config provider and the client commands are a later slice, ROADMAP A7:
-``--mesh-graph`` and ``--snapshot-cache-dir`` stand in for
-``serve.mesh_graph`` and ``serve.snapshot_cache_dir`` until then)."""
+config provider and the client commands are a later slice, ROADMAP A7).
+Until then a flag stands in for each config key it is named after:
+``--mesh-graph`` for ``serve.mesh_graph``, ``--snapshot-cache-dir`` for
+``serve.snapshot_cache_dir``, ``--metrics-enabled`` for ``metrics.enabled``,
+``--tracing-provider``, ``--tracing-otlp-file`` and
+``--tracing-otlp-endpoint`` for ``tracing.*``, ``--debug-bundle-dir`` for
+``serve.debug_bundle_dir``, and ``--log-level`` and ``--log-format`` for
+``log.*``. The SLO objectives and the bundles' count, interval and size
+stay at the reference schema's defaults (keto_tpu_torch/driver/daemon.py)."""
 
 from __future__ import annotations
 
@@ -10,6 +16,8 @@ import signal
 import sys
 import threading
 from typing import Optional, Sequence
+
+from keto_tpu_torch.x.tracing import DEFAULT_OTLP_ENDPOINT
 
 
 def _namespace(spec: str):
@@ -61,6 +69,20 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--stream-slice-target-ms", type=float, default=40.0, metavar="MS",
                    help="the stream's target service time a slice (default 40; admission's "
                         "budget is 4 times it)")
+    s.add_argument("--metrics-enabled", action=argparse.BooleanOptionalAction, default=True,
+                   help="serve GET /metrics on both ports (default on; off: 404)")
+    s.add_argument("--tracing-provider", default="",
+                   choices=("", "log", "memory", "otlp-file", "otlp-http"),
+                   help="request spans: '' (off, default), log, memory, otlp-file, otlp-http")
+    s.add_argument("--tracing-otlp-file", default="", metavar="FILE",
+                   help="the otlp-file provider's file (one OTLP/JSON request a line)")
+    s.add_argument("--tracing-otlp-endpoint", default=DEFAULT_OTLP_ENDPOINT, metavar="URL",
+                   help=f"the otlp-http provider's collector (default {DEFAULT_OTLP_ENDPOINT})")
+    s.add_argument("--debug-bundle-dir", default="", metavar="DIR",
+                   help="write flight-recorder debug bundles under DIR (default: off)")
+    s.add_argument("--log-level", default="info", help="log level (default info)")
+    s.add_argument("--log-format", default="text", choices=("text", "json"),
+                   help="log format (default text)")
     return p
 
 
@@ -84,7 +106,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                decision_log_retention=args.decision_log_retention,
                mesh_graph=args.mesh_graph, admission_enabled=args.admission_enabled,
                timeline_enabled=args.timeline_enabled,
-               snapshot_cache_dir=args.snapshot_cache_dir)
+               snapshot_cache_dir=args.snapshot_cache_dir,
+               metrics_enabled=args.metrics_enabled, tracing_provider=args.tracing_provider,
+               tracing_otlp_file=args.tracing_otlp_file,
+               tracing_otlp_endpoint=args.tracing_otlp_endpoint,
+               debug_bundle_dir=args.debug_bundle_dir,
+               log_level=args.log_level, log_format=args.log_format)
     d.start()
     print(f"serving: read :{d.read.port}, write :{d.write.port}, device {d.engine.device}, "
           f"graph shards {d.engine.shard_count}", flush=True)

@@ -57,7 +57,27 @@ window, 4,096 pending; they become settings with the config loader,
 ROADMAP A7); the drain waits for its queued writers too
 (keto_tpu/driver/daemon.py:249-252). ``snapshot_cache_dir`` (default "":
 off, keto_tpu/config/schema.py:83-86) keeps the engine's snapshot cache
-there (keto_tpu_torch/graph/snapcache.py)."""
+there (keto_tpu_torch/graph/snapcache.py).
+
+Observability (keto_tpu/driver/registry.py:1107-2460, wired by
+keto_tpu_torch/driver/observability.py; the keys and defaults of
+keto_tpu/config/schema.py): ``metrics_enabled`` (``metrics.enabled``, true)
+builds the metrics registry both ports' ``GET /metrics`` serve, bridged to
+every component; ``tracing_provider`` (``tracing.provider``, "": off;
+``log``, ``memory``, ``otlp-file`` with ``tracing_otlp_file``, ``otlp-http``
+with ``tracing_otlp_endpoint``) traces every request with its stage spans;
+the SLO engine behind ``GET /slo`` judges the objectives
+``SLO_AVAILABILITY_OBJECTIVE`` (0.999), ``SLO_LATENCY_OBJECTIVE_MS`` (250)
+and ``SLO_LATENCY_OBJECTIVE_RATIO`` (0.99); ``debug_bundle_dir`` ("": off)
+keeps a flight recorder there (``DEBUG_BUNDLE_MAX`` 8 bundles, one per
+``DEBUG_BUNDLE_MIN_INTERVAL_S`` 30 s at most, ``DEBUG_BUNDLE_MAX_BYTES``
+4 MiB each; these six are constants at the reference schema's defaults until
+the config loader, ROADMAP A7) that dumps a bundle on a health transition
+into DEGRADED or NOT_SERVING, on the governor's contained OOMs (0.3 s later, so the
+request's timeline is in it) and first thing in a drain; ``log_level`` and
+``log_format`` (``log.level`` info, ``log.format`` text) set the logger the
+servers log through. The drain closes (flushes) the tracer last
+(keto_tpu/driver/daemon.py:173-178, :265-280)."""
 
 from __future__ import annotations
 
@@ -71,6 +91,7 @@ from keto_tpu_torch.check.gpu_engine import TorchCheckEngine
 from keto_tpu_torch.driver.admission import AdmissionController
 from keto_tpu_torch.driver.batch import CheckBatcher
 from keto_tpu_torch.driver.group_commit import GroupCommitCoordinator
+from keto_tpu_torch.driver import observability as obs
 from keto_tpu_torch.driver.health import HealthMonitor, HealthState
 from keto_tpu_torch.expand.snapshot_engine import SnapshotExpandEngine
 from keto_tpu_torch.explain import DecisionLog, ExplainEngine
@@ -80,7 +101,9 @@ from keto_tpu_torch.persistence.memory import MemoryPersister
 from keto_tpu_torch.relationtuple.model import RelationTuple
 from keto_tpu_torch.servers.rest import MAX_READ_DEPTH, READ, WRITE, RestServer
 from keto_tpu_torch.x.device import resolve_device
+from keto_tpu_torch.x.logging import new_logger
 from keto_tpu_torch.x.timeline import TimelineRecorder
+from keto_tpu_torch.x.tracing import DEFAULT_OTLP_ENDPOINT, Tracer
 
 #: the readiness reason while a drain runs (keto_tpu/driver/daemon.py:183)
 DRAINING = "draining: shutdown requested"
@@ -89,6 +112,14 @@ DRAINING = "draining: shutdown requested"
 #: and the device-memory budget (0 = auto); knobs with the config loader
 STALENESS_BUDGET_S = 60.0
 HBM_BUDGET_BYTES = 0
+#: the reference schema's ``serve.slo_*`` and ``serve.debug_bundle_*``
+#: defaults (keto_tpu/config/schema.py); knobs with the config loader
+SLO_AVAILABILITY_OBJECTIVE = 0.999
+SLO_LATENCY_OBJECTIVE_MS = 250.0
+SLO_LATENCY_OBJECTIVE_RATIO = 0.99
+DEBUG_BUNDLE_MAX = 8
+DEBUG_BUNDLE_MIN_INTERVAL_S = 30.0
+DEBUG_BUNDLE_MAX_BYTES = 4 << 20
 
 
 #: the reference registry's batcher settings at their defaults
@@ -172,7 +203,19 @@ class Daemon:
         admission_enabled: bool = True,
         timeline_enabled: bool = True,
         snapshot_cache_dir: str = "",
+        metrics_enabled: bool = True,
+        tracing_provider: str = "",
+        tracing_otlp_file: str = "",
+        tracing_otlp_endpoint: str = DEFAULT_OTLP_ENDPOINT,
+        debug_bundle_dir: str = "",
+        log_level: str = "info",
+        log_format: str = "text",
     ):
+        #: the structured logger the servers log through
+        self.logger = new_logger(log_level, log_format)
+        #: the request spans' tracer
+        self.tracer = Tracer(tracing_provider, self.logger, otlp_file=tracing_otlp_file,
+                             otlp_endpoint=tracing_otlp_endpoint)
         nm = namespace_pkg.MemoryManager(namespaces)
         options = dict(engine_options or {})
         options.setdefault("hbm_budget_bytes", HBM_BUDGET_BYTES)
@@ -202,19 +245,51 @@ class Daemon:
             ExplainEngine(self.engine, self.store, decision_log=self.decision_log)
             if explain_enabled else None
         )
+        self.writer: Optional[GroupCommitCoordinator] = None
+        self.flightrec = None
+        #: the metrics registry both ports' /metrics serve
+        self.metrics = obs.build_metrics(
+            enabled=metrics_enabled,
+            engine=lambda: self.engine, batcher=lambda: self.batcher,
+            monitor=lambda: self.monitor, recorder=lambda: self.recorder,
+            explain=lambda: self.explain, decision_log=lambda: self.decision_log,
+            lister=lambda: self.lister, store=lambda: self.store, writer=lambda: self.writer,
+            tracer=lambda: self.tracer, flightrec=lambda: self.flightrec, slo=lambda: self.slo,
+        )
+        obs.attach_engine(self.metrics, self.engine)
+        obs.attach_recorder(self.metrics, self.recorder, self.tracer)
+        #: the SLO engine GET /slo reports
+        self.slo = obs.build_slo(self.metrics,
+                                 availability_objective=SLO_AVAILABILITY_OBJECTIVE,
+                                 latency_objective_ms=SLO_LATENCY_OBJECTIVE_MS,
+                                 latency_objective_ratio=SLO_LATENCY_OBJECTIVE_RATIO)
+        #: the flight recorder, None without a bundle directory
+        self.flightrec = obs.build_flight_recorder(
+            debug_bundle_dir,
+            obs.flightrec_collect(
+                recorder=lambda: self.recorder, monitor=lambda: self.monitor,
+                engine=lambda: self.engine, batcher=lambda: self.batcher,
+                metrics=lambda: self.metrics, slo=lambda: self.slo,
+                explain=lambda: self.explain),
+            max_bundles=DEBUG_BUNDLE_MAX, min_interval_s=DEBUG_BUNDLE_MIN_INTERVAL_S,
+            max_bytes=DEBUG_BUNDLE_MAX_BYTES,
+        )
+        seen = dict(metrics=self.metrics, tracer=self.tracer, slo=self.slo,
+                    logger=self.logger, recorder=self.recorder, monitor=self.monitor)
         self.read = RestServer(READ, self.store, self.batcher, host, read_port,
                                lister=self.lister, explain=self.explain,
                                decision_log=self.decision_log, expander=self.expander,
-                               max_read_depth=max_read_depth, recorder=self.recorder,
-                               monitor=self.monitor)
+                               max_read_depth=max_read_depth, **seen)
         #: the group-commit coordinator of the write port
-        self.writer = GroupCommitCoordinator(self.store)
+        self.writer = GroupCommitCoordinator(self.store,
+                                             **obs.group_commit_histograms(self.metrics))
         self.write = RestServer(WRITE, self.store, self.batcher, host, write_port,
-                                recorder=self.recorder, transact=self.writer.transact,
-                                monitor=self.monitor)
+                                transact=self.writer.transact, **seen)
 
     def start(self) -> None:
-        """Build the first snapshot on the device, then open both ports."""
+        """Wire the flight recorder's triggers, build the first snapshot on
+        the device, then open both ports."""
+        obs.wire_flight_recorder(self.flightrec, monitor=self.monitor, engine=self.engine)
         self.engine.snapshot()
         self.batcher.start()
         self.writer.start()
@@ -222,10 +297,14 @@ class Daemon:
         self.write.start()
 
     def drain_and_shutdown(self, drain_timeout_s: float = 5.0) -> dict:
-        """Answer 503 on ``/health/ready``, let the in-flight checks and
-        responses finish (up to ``drain_timeout_s``), then stop. Returns
-        ``drain``'s record."""
+        """Dump a ``drain`` bundle (while the state it freezes still
+        describes live serving), answer 503 on ``/health/ready``, let the
+        in-flight checks and responses finish (up to ``drain_timeout_s``),
+        flush the tracer, then stop. Returns ``drain``'s record."""
+        if self.flightrec is not None:
+            self.flightrec.trigger("drain", "SIGTERM/SIGINT drain requested")
         out = drain((self.read, self.write), self.batcher, drain_timeout_s, self.writer)
+        self.tracer.close()
         self.stop()
         return out
 
@@ -237,3 +316,4 @@ class Daemon:
         self.engine.close()
         if self.decision_log is not None:
             self.decision_log.close()
+        self.tracer.close()

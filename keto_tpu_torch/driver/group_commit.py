@@ -24,9 +24,12 @@ error. Backpressure is blocking, not shedding: a write has no cheap
 enqueue waits (bounded by the caller's timeout) instead of 429ing.
 ``stop()`` fails the writers left over.
 
-Left for later slices: the Watch commit groups and their traceparents
-(ROADMAP A7) and the ``keto_group_commit_*`` metrics with their wait
-and group-size histograms (ROADMAP A6).
+``wait_histogram`` and ``batch_histogram`` (keto_tpu_torch/x/metrics.py)
+record each writer's queued seconds and each group's writer count; the
+``keto_group_commit_flush_total`` and ``_errors_total`` bridges read
+``flush_total`` and ``flush_errors``
+(keto_tpu_torch/driver/observability.py). Left for a later slice: the Watch
+commit groups and their traceparents (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -54,11 +57,15 @@ class GroupCommitCoordinator:
         max_writers: int = 128,
         window_ms: float = 2.0,
         max_pending: int = 4096,
+        wait_histogram=None,
+        batch_histogram=None,
     ):
         self._store = store
         self._max_writers = max(1, int(max_writers))
         self._window_s = max(0.0, float(window_ms)) / 1e3
         self._max_pending = max(self._max_writers, int(max_pending))
+        self._wait_hist = wait_histogram
+        self._batch_hist = batch_histogram
         self._cond = threading.Condition()
         self._queue: deque = deque()  # (TransactWrite, _Slot)
         self._stopping = False
@@ -186,6 +193,10 @@ class GroupCommitCoordinator:
                     self._idle.set()
 
     def _commit(self, batch: list) -> None:
+        start = time.monotonic()
+        if self._wait_hist is not None:
+            for slot in batch:
+                self._wait_hist.observe(value=start - slot.enqueued_at)
         try:
             results = self._store.transact_many([s.write for s in batch])
         except Exception as e:  # noqa: BLE001 — forwarded to every writer
@@ -196,6 +207,8 @@ class GroupCommitCoordinator:
         self.flush_total += 1
         self.writers_total += len(batch)
         self.last_batch_size = len(batch)
+        if self._batch_hist is not None:
+            self._batch_hist.observe(value=float(len(batch)))
         for slot, result in zip(batch, results):
             if isinstance(result, BaseException):
                 slot.fail(result)
@@ -207,10 +220,11 @@ class _Slot:
     """One writer's parked result: event + cell (lighter than a Future,
     and immune to InvalidStateError races on shutdown)."""
 
-    __slots__ = ("write", "_done", "_result", "_exc")
+    __slots__ = ("write", "enqueued_at", "_done", "_result", "_exc")
 
     def __init__(self, write: TransactWrite):
         self.write = write
+        self.enqueued_at = time.monotonic()
         self._done = threading.Event()
         self._result: Optional[TransactResult] = None
         self._exc: Optional[BaseException] = None

@@ -31,8 +31,10 @@ visible state from the engine's live health inputs
 The state is *derived on read* (staleness is a function of wall time);
 ``watch()`` polls cheaply and yields only transitions. ``set_override`` is
 the operator drain seam. The reference's replica seam (``set_replica``,
-``replication_lag``) waits for the replicas (ROADMAP A10); transitions are
-counted in the engine's counters (``health_transitions``).
+``replication_lag``) waits for the replicas (ROADMAP A10). Transitions are
+counted into a ``MaintenanceStats`` sink (``health_transitions``, and the
+``health_state`` gauge; keto_tpu/driver/health.py:290-295): ``stats=``, else
+the engine's ``maintenance``.
 """
 
 from __future__ import annotations
@@ -63,13 +65,15 @@ class HealthMonitor:
 
     ``engine`` may be any check engine: one without a ``health()`` method
     (the recursive oracle — no snapshot, no staleness concept) is always
-    SERVING. Transitions are logged, counted into the engine's counters
-    when it has them (``health_transitions``), and broadcast to
-    ``watch()`` streams and listeners."""
+    SERVING. Transitions are logged, counted into ``stats`` (by default the
+    engine's ``maintenance``, when it has one) as ``health_transitions``
+    with the ``health_state`` gauge, and broadcast to ``watch()`` streams
+    and listeners."""
 
-    def __init__(self, engine=None, *, staleness_budget_s: float = 60.0):
+    def __init__(self, engine=None, *, staleness_budget_s: float = 60.0, stats=None):
         self._engine = engine
         self._budget = float(staleness_budget_s)
+        self._stats = stats
         # guards: _last_state, _last_reason, _override, _transitions,
         # transitions_log
         self._lock = threading.Lock()
@@ -136,7 +140,7 @@ class HealthMonitor:
                 transitioned = self._last_state is not None
                 self._transitions += 1
                 self._last_state = state
-                self._record()
+                self._record(state)
             self._last_reason = reason
             listeners = list(self._listeners) if transitioned else []
         for fn in listeners:
@@ -245,10 +249,13 @@ class HealthMonitor:
             "rows_ingested": int(h.get("build_rows_ingested") or 0),
         }
 
-    def _record(self) -> None:
-        incr = getattr(self._engine, "_incr", None)
-        if incr is not None:
-            incr("health_transitions")
+    def _record(self, state: HealthState) -> None:
+        stats = self._stats
+        if stats is None:
+            stats = getattr(self._engine, "maintenance", None)
+        if stats is not None:
+            stats.incr("health_transitions")
+            stats.set_gauge("health_state", state.value)
 
     # -- streaming -----------------------------------------------------------
 

@@ -46,7 +46,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -275,6 +275,8 @@ class _Mirror:
             self.in_h[: n + 1, :span] = in0[: n + 1, :span]
         self.out_w = np.count_nonzero(self.out_h[:n] != OUT_PAD, axis=1).astype(np.int32)
         self.in_w = np.count_nonzero(self.in_h[:n] != IN_PAD, axis=1).astype(np.int32)
+        #: label entries held (both sides), for the build's progress gauges
+        self.entries = int(self.out_w.sum() + self.in_w.sum())
         self.out_ok = np.ones(n, bool)
         self.in_ok = np.ones(n, bool)
         self.out_d = torch.from_numpy(self.out_h.copy()).to(device)
@@ -303,6 +305,7 @@ class _Mirror:
             h[good, cols] = np.int32(v)
             w[good] += 1
             pend.append((good, cols, np.full(good.size, v, np.int32)))
+            self.entries += int(good.size)
         return int(good.size)
 
     def flush_device(self) -> None:
@@ -416,13 +419,15 @@ def device_build_labels(
     device: Union[str, torch.device] = "cuda",
     mesh=None,
     shard_count: int = 0,
+    progress_cb: Optional[Callable[[int, int, int], None]] = None,
 ) -> tuple[LabelIndex, BuildInfo]:
     """Construct the 2-hop index for ``snap`` with batched sweeps on
     ``device`` (over ``mesh``'s shards when ``shard_count > 1``);
     entry-set identical to ``build_labels(snap, max_width, landmarks=K)``
     where K is the number of landmarks actually processed
     (``landmarks == 0`` streams ALL interior nodes, subject only to the
-    ``min_gain`` early exit)."""
+    ``min_gain`` early exit). ``progress_cb(landmarks done, K, entries)``
+    runs after every batch (host values only)."""
     t0 = time.monotonic()
     n = snap.num_int
     info = BuildInfo()
@@ -489,6 +494,8 @@ def device_build_labels(
         info.landmarks = pos
         gain = swept / max(1, jstar) / max(1, n)
         info.gain_history.append(round(gain, 9))
+        if progress_cb is not None:
+            progress_cb(pos, K, mirror.entries)
         if min_gain > 0.0 and gain < min_gain and pos < K:
             info.truncated = "min_gain"
             break

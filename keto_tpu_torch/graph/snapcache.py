@@ -48,8 +48,8 @@ as the reference does, but lets every other error raise — a failed K8
 launch in the list-layout re-derivation among them — where the reference
 catches every ``Exception`` and tries the next cache
 (keto_tpu/graph/snapcache.py:777-780): a failing kernel must not turn
-into a silent full rebuild. The ``cache_loaded_bytes`` gauge waits for
-the metrics (ROADMAP A6).
+into a silent full rebuild. A ``stats`` sink with ``set_gauge`` gets the
+loaded buckets' bytes as ``cache_loaded_bytes`` (snapcache.py:770-775).
 """
 
 from __future__ import annotations
@@ -820,6 +820,12 @@ def load_latest(
             continue
         except OSError:
             continue  # unreadable → try the next
+        # the cold-start upload the governor is about to plan, surfaced at
+        # load time (snapcache.py:770-775); counter-only sinks skip it
+        set_gauge = getattr(stats, "set_gauge", None)
+        if set_gauge is not None:
+            set_gauge("cache_loaded_bytes",
+                      sum(int(np.asarray(b.nbrs).nbytes) for b in snap.buckets))
         if loaded is not None:
             meta = json.loads((d / "meta.json").read_text())
             loaded.update(path=str(d), bytes=sum(int(v["size"]) for v in meta["segments"].values()))

@@ -24,8 +24,10 @@ and its chunks were replayed through ``IncrementalInterner``, or where a
 ``BuildProgress`` records the phases and their seconds (``intern``,
 ``device_build`` and, on the stream path, ``scan``); ``pct()`` and the live
 phase feed the engine's ``health()`` (the STARTING detail of
-``/health/ready``). The reference's ``/metrics`` bridge comes with the
-port's metrics (ROADMAP A6). ``read_retry`` wraps each store read; its
+``/health/ready``); ``snapshot()``, the ``build_<phase>`` durations of its
+``stats`` and the histogram ``attach_histogram`` gives feed the
+``keto_build_*`` families (keto_tpu_torch/driver/observability.py).
+``read_retry`` wraps each store read; its
 default calls the read once (the reference's retry policy behind
 ``_read_store`` comes with ROADMAP A4). A store failure mid-scan aborts the
 in-flight native builder before the exception leaves ``_scan_and_intern``,
@@ -50,6 +52,10 @@ from keto_tpu_torch.graph.snapshot import GraphSnapshot, build_snapshot, layout_
 DEFAULT_CHUNK_ROWS = 262144
 
 
+#: the full build's phases, in order (the ``keto_build_phase`` gauge's
+#: labels beside ``idle``)
+PHASES = ("scan", "intern", "device_build", "labels", "cache_save")
+
 #: each full-build phase's share of ``BuildProgress.pct`` (the reference's)
 _PCT_WEIGHTS = {
     "scan": 0.35, "intern": 0.25, "device_build": 0.30,
@@ -62,15 +68,25 @@ class BuildProgress:
 
     The row and edge counters add up across builds; the phase and the
     per-phase durations describe the build in flight (or the last one).
-    ``path`` names the path the last build took (``full_build``)."""
+    ``path`` names the path the last build took (``full_build``). Each
+    phase's seconds also go to ``stats`` (a ``MaintenanceStats``, as
+    ``build_<phase>``) and to the histogram ``attach_histogram`` gives
+    (keto_tpu/graph/stream_build.py:62-200)."""
 
-    def __init__(self):
+    def __init__(self, stats=None):
         self._lock = threading.Lock()
         self._phase = "idle"
         self._rows = 0
         self._edges = 0
         self._durations: dict[str, float] = {}
         self._path = ""
+        self._hist = None
+        self._stats = stats  # MaintenanceStats or None
+
+    def attach_histogram(self, histogram) -> None:
+        """Mirror phase durations into ``histogram`` (anything with
+        ``observe((phase,), seconds)``)."""
+        self._hist = histogram
 
     # -- build lifecycle -----------------------------------------------------
 
@@ -114,6 +130,11 @@ class BuildProgress:
         s = max(0.0, float(seconds))
         with self._lock:
             self._durations[name] = self._durations.get(name, 0.0) + s
+        hist = self._hist
+        if hist is not None:
+            hist.observe((name,), s)
+        if self._stats is not None:
+            self._stats.observe_ms(f"build_{name}", s * 1e3)
 
     def add_rows(self, n: int) -> None:
         with self._lock:
@@ -163,6 +184,17 @@ class BuildProgress:
         """Per-phase seconds of the current or last build."""
         with self._lock:
             return dict(self._durations)
+
+    def snapshot(self) -> dict:
+        pct = self.pct()
+        with self._lock:
+            return {
+                "phase": self._phase,
+                "pct": pct,
+                "rows_ingested": self._rows,
+                "edges_ingested": self._edges,
+                "durations_s": {k: round(v, 3) for k, v in self._durations.items()},
+            }
 
 
 def _scan_and_intern(store, wild_ns_ids, progress, chunk_rows):

@@ -603,18 +603,19 @@ struct StreamBuilder {
 
 void stream_worker(StreamBuilder* sb) {
     for (;;) {
-        size_t idx;
+        Shard* s;
         std::string buf;
         {
             std::unique_lock<std::mutex> lk(sb->mu);
             sb->cv_work.wait(lk, [&] { return !sb->queue.empty() || sb->done; });
             if (sb->queue.empty()) return;  // done and drained
-            idx = sb->queue.front().first;
+            // read under the lock: the feeder's push_back may move the
+            // vector's storage while this chunk is interned
+            s = sb->shards[sb->queue.front().first];
             buf = std::move(sb->queue.front().second);
             sb->queue.pop_front();
             sb->cv_space.notify_one();
         }
-        Shard* s = sb->shards[idx];
         if (parse_packed_into_shard(*s, sb->wild_ns_ids, buf.data(),
                                     buf.data() + buf.size()) < 0) {
             std::unique_lock<std::mutex> lk(sb->mu);

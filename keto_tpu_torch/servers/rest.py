@@ -65,6 +65,18 @@ Read port:
   header joins its trace id. ``GET /debug/requests`` (both ports,
   rest.py:355-373) answers the recorder's recent and slowest timelines:
   ``?n=``, ``?slowest=``, ``?trace_id=``, ``?snaptoken=``, ``?tenant=``.
+- Observability (rest.py:150-262, :326-343, :375-390): every request but
+  the health routes counts into ``keto_http_requests_total`` and
+  ``keto_http_request_duration_seconds`` (trace-id exemplars) by role,
+  method, normalized route (``other`` past the declared surface) and code;
+  runs inside a request span ``http.{method} {route}`` that joins the
+  ``traceparent`` (its timeline is born inside it, so the stage spans
+  parent under it); and binds its request id and trace id into the log
+  context (keto_tpu_torch/x/logging.py) for the handler. ``GET /metrics``
+  (both ports) answers the registry's Prometheus text, or OpenMetrics with
+  exemplars for ``Accept: application/openmetrics-text``, and 404 when the
+  metrics are disabled; ``GET /slo`` (both ports) answers the SLO engine's
+  report (404 without one). ``/expand`` records ``keto_expand_*``.
 
 Write port: ``PUT /relation-tuples`` creates from a JSON body → 201 +
 Location (reference transact_server.go:130-153); ``DELETE`` by URL query →
@@ -100,6 +112,7 @@ import math
 import threading
 import time
 import uuid
+from dataclasses import dataclass
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, urlsplit
@@ -112,43 +125,27 @@ from keto_tpu_torch.relationtuple.model import (
 )
 from keto_tpu_torch.version import __version__
 from keto_tpu_torch.x.errors import ErrBadRequest, ErrNilSubject, KetoError
+from keto_tpu_torch.x.logging import new_logger, request_context
+from keto_tpu_torch.x.metrics import NullMetricsRegistry, normalize_route
 from keto_tpu_torch.x.pagination import with_size, with_token
 from keto_tpu_torch.x.timeline import TimelineRecorder, current_timeline
+from keto_tpu_torch.x.tracing import NOOP, parse_traceparent
 
 READ = "read"
 WRITE = "write"
 
-#: routes whose handling records no request timeline: reading the ring
-#: must not churn it
-_TIMELINE_EXCLUDED = frozenset({"/debug/requests"})
-
-#: routes the port serves; a timeline of any other path is kind "other",
-#: so a path-scanning client cannot grow the kinds without bound
-#: (keto_tpu/x/metrics.py:89-93)
-_KNOWN_ROUTES = frozenset({
-    "/check", "/check/batch", "/check/explain", "/expand", "/relation-tuples",
-    "/relation-tuples/list-objects", "/relation-tuples/list-subjects", "/version",
-    "/debug/requests", "/health/alive", "/health/ready",
-})
-
-_HEX = set("0123456789abcdef")
+#: routes whose handling records no request timeline: scrapes and the debug
+#: surfaces would otherwise churn the ring the operator is trying to read
+_TIMELINE_EXCLUDED = frozenset({"/metrics", "/debug/requests", "/slo"})
 
 
-def parse_traceparent(value: str) -> Optional[tuple[str, str]]:
-    """``(trace_id, parent_span_id)`` from a W3C ``traceparent`` header
-    (``00-<32 hex>-<16 hex>-<2 hex>``), or None when malformed: a copy of
-    keto_tpu/x/tracing.py:45-59."""
-    parts = (value or "").strip().lower().split("-")
-    if len(parts) < 4:
-        return None
-    version, trace_id, span_id = parts[0], parts[1], parts[2]
-    if version == "ff" or len(version) != 2 or not set(version) <= _HEX:
-        return None
-    if len(trace_id) != 32 or not set(trace_id) <= _HEX or trace_id == "0" * 32:
-        return None
-    if len(span_id) != 16 or not set(span_id) <= _HEX or span_id == "0" * 16:
-        return None
-    return trace_id, span_id
+@dataclass
+class RawBody:
+    """A non-JSON response payload (the ``/metrics`` exposition): the
+    handler writes ``data`` verbatim under ``content_type``."""
+
+    data: bytes
+    content_type: str
 
 
 def _error_headers(err: KetoError) -> dict[str, str]:
@@ -163,6 +160,44 @@ MAX_BATCH_CHECK = 65536
 MAX_READ_DEPTH = 5
 
 
+def http_metrics(m):
+    """The REST request counter and latency histogram, declared once per
+    registry (as the reference's ``RestApp``, keto_tpu/servers/rest.py:150-165;
+    creation is idempotent across the two roles)."""
+    return (
+        m.counter(
+            "keto_http_requests_total",
+            "REST requests served, by role/method/route/status code "
+            "(health endpoints excluded; undeclared routes count as 'other').",
+            ("role", "method", "route", "code"),
+        ),
+        m.histogram(
+            "keto_http_request_duration_seconds",
+            "REST request handling latency; the slowest sample per route "
+            "carries a trace_id exemplar.",
+            ("role", "method", "route"),
+        ),
+    )
+
+
+def expand_metrics(m):
+    """The expand request counter and build-latency histogram
+    (keto_tpu/servers/grpc_api.py:124-140), labeled by surface."""
+    return (
+        m.counter(
+            "keto_expand_requests_total",
+            "Expand trees built, by serving surface (http/grpc).",
+            ("surface",),
+        ),
+        m.histogram(
+            "keto_expand_duration_seconds",
+            "Expand tree construction latency (host-side recursion over "
+            "the device snapshot or the Manager).",
+            ("surface",),
+        ),
+    )
+
+
 class RestApp:
     """Routes requests for one server role against the store (writes and
     tuple reads), the check batcher, the list engine and the expand engine
@@ -171,7 +206,8 @@ class RestApp:
     def __init__(self, role: str, store, batcher, lister=None, explain=None, decision_log=None,
                  expander=None, max_read_depth: int = MAX_READ_DEPTH,
                  recorder: Optional[TimelineRecorder] = None, transact=None,
-                 monitor: Optional[HealthMonitor] = None):
+                 monitor: Optional[HealthMonitor] = None, metrics=None, tracer=None, slo=None,
+                 logger=None):
         self.role = role
         self.store = store
         self.batcher = batcher
@@ -193,6 +229,16 @@ class RestApp:
         #: the health state machine /health/ready reads (by default one over
         #: the batcher's engine)
         self.monitor = monitor if monitor is not None else HealthMonitor(batcher.engine)
+        #: the metrics registry (bridged by keto_tpu_torch/driver/observability.py);
+        #: the null registry records nothing and /metrics answers 404
+        self.metrics = metrics if metrics is not None else NullMetricsRegistry()
+        #: the request spans' tracer (disabled by default)
+        self.tracer = tracer if tracer is not None else NOOP
+        #: the SLO engine /slo reports, None: /slo answers 404
+        self.slo = slo
+        self._log = logger if logger is not None else new_logger()
+        self._req_count, self._req_latency = http_metrics(self.metrics)
+        self._expand_count, self._expand_latency = expand_metrics(self.metrics)
 
     @property
     def draining(self) -> Optional[str]:
@@ -210,18 +256,34 @@ class RestApp:
         if path.startswith("/health/"):
             return self._route(method, path, query, body, headers)
         hdrs = headers or {}
+        route = normalize_route(path)
         # correlation: echo the caller's request id or mint one; join the
         # caller's trace when a well-formed traceparent came in
         req_id = (hdrs.get("x-request-id") or "").strip() or uuid.uuid4().hex
         remote = parse_traceparent(hdrs.get("traceparent", ""))
         recorder = self.recorder
-        tl = None if path in _TIMELINE_EXCLUDED else recorder.begin(
-            f"{method} {path if path in _KNOWN_ROUTES else 'other'}",
-            trace_id=remote[0] if remote else "", request_id=req_id, surface="http",
-            tenant="default", parent_span_id=remote[1] if remote else "",
-        )
-        with recorder.activate(tl):
-            status, payload, resp_headers = self._route(method, path, query, body, headers)
+        t0 = time.perf_counter()
+        with self.tracer.span(f"http.{method} {route}", remote_parent=remote,
+                              role=self.role) as span:
+            trace_id = span.trace_id if span is not None else (remote[0] if remote else "")
+            # the timeline is born inside the request span, so the stage
+            # spans it emits at finish parent under it
+            tl = None if path in _TIMELINE_EXCLUDED else recorder.begin(
+                f"{method} {route}", trace_id=trace_id, request_id=req_id, surface="http",
+                tenant="default",
+            )
+            with request_context(request_id=req_id, trace_id=trace_id):
+                with recorder.activate(tl):
+                    status, payload, resp_headers = self._route(method, path, query, body,
+                                                                headers)
+                if span is not None:
+                    span.tags["status"] = status
+                    span.tags["request_id"] = req_id
+                # inside the bound context: the record carries the ids
+                self._log.debug("%s %s %s -> %d", self.role, method, path, status)
+        dur_s = time.perf_counter() - t0
+        self._req_count.inc((self.role, method, route, str(status)))
+        self._req_latency.observe((self.role, method, route), dur_s, trace_id=trace_id)
         resp_headers = dict(resp_headers)
         resp_headers.setdefault("X-Request-Id", req_id)
         if tl is not None:
@@ -239,8 +301,12 @@ class RestApp:
                 return self._health_ready()
             if path == "/version":
                 return 200, {"version": __version__}, {}
+            if route == ("GET", "/metrics"):
+                return self._get_metrics(headers)
             if route == ("GET", "/debug/requests"):
                 return self._get_debug_requests(query)
+            if route == ("GET", "/slo"):
+                return self._get_slo()
             if self.role == READ:
                 if route == ("GET", "/check"):
                     return self._get_check(query, headers)
@@ -293,6 +359,32 @@ class RestApp:
         return 200, body, {}
 
     # -- observability -------------------------------------------------------
+
+    def _get_metrics(self, headers):
+        """The registry's Prometheus text exposition; OpenMetrics with
+        trace-id exemplars for ``Accept: application/openmetrics-text``;
+        404 when the metrics are disabled (rest.py:326-343)."""
+        m = self.metrics
+        if not m.enabled:
+            err = KetoError("metrics disabled by configuration")
+            err.status_code = 404
+            return 404, err.to_json(), {}
+        openmetrics = "application/openmetrics-text" in (headers or {}).get("accept", "")
+        content_type = (
+            "application/openmetrics-text; version=1.0.0; charset=utf-8"
+            if openmetrics
+            else "text/plain; version=0.0.4; charset=utf-8"
+        )
+        return 200, RawBody(m.render(openmetrics=openmetrics).encode(), content_type), {}
+
+    def _get_slo(self):
+        """The SLO engine's multi-window availability and latency burn-rate
+        report (rest.py:375-384); 404 without an engine."""
+        if self.slo is None:
+            err = KetoError("no SLO engine configured")
+            err.status_code = 404
+            return 404, err.to_json(), {}
+        return 200, self.slo.to_json(), {}
 
     @staticmethod
     def _int_param(query, key: str, default: int) -> int:
@@ -477,7 +569,11 @@ class RestApp:
             raise ErrBadRequest(f"invalid max-depth {raw_depth!r}") from None
         subject = subject_set_from_url_query(query)
         eff_depth = self.expand_depth(depth)
+        t0 = time.perf_counter()
         tree = self.expander.build_tree(subject, eff_depth)
+        dur_s = time.perf_counter() - t0
+        self._expand_count.inc(("http",))
+        self._expand_latency.observe(("http",), dur_s)
         tl = current_timeline()
         if tl is not None:
             tl.stamp("expand", depth=eff_depth)
@@ -631,9 +727,13 @@ def _make_handler(app: RestApp):
                 req_headers = {k.lower(): v for k, v in self.headers.items()}
                 status, payload, headers = app.handle(method, parts.path, query, body,
                                                       req_headers)
-                data = b"" if payload is None else json.dumps(payload).encode()
+                if isinstance(payload, RawBody):
+                    data, content_type = payload.data, payload.content_type
+                else:
+                    data = b"" if payload is None else json.dumps(payload).encode()
+                    content_type = "application/json"
                 self.send_response(status)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", content_type)
                 self.send_header("Content-Length", str(len(data)))
                 for k, v in headers.items():
                     self.send_header(k, v)
@@ -682,9 +782,11 @@ class RestServer:
                  lister=None, explain=None, decision_log=None, expander=None,
                  max_read_depth: int = MAX_READ_DEPTH,
                  recorder: Optional[TimelineRecorder] = None, transact=None,
-                 monitor: Optional[HealthMonitor] = None):
+                 monitor: Optional[HealthMonitor] = None, metrics=None, tracer=None, slo=None,
+                 logger=None):
         self.app = RestApp(role, store, batcher, lister, explain, decision_log, expander,
-                           max_read_depth, recorder, transact, monitor)
+                           max_read_depth, recorder, transact, monitor, metrics, tracer, slo,
+                           logger)
         self.httpd = _Server((host or "0.0.0.0", port), _make_handler(self.app))
         self.httpd.active_count = 0
         self.httpd.active_lock = threading.Lock()

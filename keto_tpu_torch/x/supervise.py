@@ -2,7 +2,8 @@
 
 One persistent daemon thread per maintenance concern that waits for
 ``kick()``, runs its target, and on a crash logs it, hands the exception to
-``on_error`` and retries with jittered exponential backoff until a pass
+``on_error``, counts it into ``stats`` (``<name>_failures``) and retries
+with jittered exponential backoff until a pass
 succeeds. Kicks during a running pass coalesce into exactly one follow-up
 pass. ``wait_idle()`` blocks until no pass is running or owed, which is
 how tests and ``chip_smoke.py`` wait for a background fold.
@@ -32,6 +33,7 @@ class SupervisedTask:
         target: Callable[[], None],
         *,
         on_error: Optional[Callable[[Exception], None]] = None,
+        stats=None,
         quiet: Optional[Callable[[Exception], bool]] = None,
         base_backoff_s: float = 0.05,
         max_backoff_s: float = 2.0,
@@ -39,6 +41,10 @@ class SupervisedTask:
         self.name = name
         self._target = target
         self._on_error = on_error
+        # a MaintenanceStats-shaped sink (``incr(key)``): every failed pass
+        # counts under ``<name>_failures`` (keto_tpu/x/supervise.py:46-52)
+        self._stats = stats
+        self._counter_key = name.replace("-", "_") + "_failures"
         # failures expected while a condition lasts (a refused refresh under
         # memory pressure) log one line, not a traceback a retry
         self._quiet = quiet
@@ -127,6 +133,8 @@ class SupervisedTask:
                 self.crashes += 1
                 self.consecutive_failures += 1
                 self.last_error = f"{type(e).__name__}: {e}"
+                if self._stats is not None:
+                    self._stats.incr(self._counter_key)
                 if self._on_error is not None:
                     self._on_error(e)
                 delay = self._backoff()

@@ -9,17 +9,18 @@ sharded), land and deliver. A finished timeline is
 - kept in a bounded ring plus a top-K-slowest set, read at
   ``GET /debug/requests`` (keto_tpu_torch/servers/rest.py), filterable by
   trace id, snaptoken and tenant;
+- emitted as child spans under the request's span (``set_tracer``), so a
+  distributed trace shows the in-process stage breakdown;
 - summarized into the response's ``Server-Timing`` header, so the caller
-  sees the breakdown without a server-side query.
+  sees the breakdown without a server-side query;
+- mirrored into the ``keto_timeline_stage_duration_seconds{stage}``
+  histogram (``attach_stage_histogram``), whose slowest samples carry
+  trace-id exemplars.
 
 A stamp is one ``perf_counter`` read and one append onto a bounded list (no
 lock); the ring and top-K bookkeeping runs once per request at ``finish``,
 under one lock. A recorder built with ``enabled=False`` returns ``None``
 from ``begin`` and every stamp site is a ``None`` test.
-
-Left out against the reference, with their readers (ROADMAP A6): the
-tracer's child spans (``set_tracer``, ``_emit_spans``) and the
-``/metrics`` stage histogram (``attach_stage_histogram``, ``_mirror``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ import time
 from collections import deque
 from contextvars import ContextVar
 from typing import Any, Iterator, Optional
+
+from keto_tpu_torch.x.tracing import current_span_ids
 
 #: canonical stage names, in pipeline order (attrs ride the device stage:
 #: width / bfs_steps / route / service_ms, and halo_rounds / halo_bytes)
@@ -147,8 +150,22 @@ class TimelineRecorder:
         # the keep-set, evicted when a slower one arrives
         self._slow: list[tuple[float, int, Timeline]] = []
         self._seq = 0
-        #: finished timelines per surface
+        #: finished timelines per surface (the /metrics bridge reads this)
         self.finished_by_surface: dict[str, int] = {}
+        self._tracer = None
+        self._stage_hist = None
+
+    # -- wiring ---------------------------------------------------------------
+
+    def set_tracer(self, tracer) -> None:
+        """Finished timelines emit child spans through ``tracer`` (one span
+        per stage segment, under the request's span)."""
+        self._tracer = tracer
+
+    def attach_stage_histogram(self, histogram) -> None:
+        """Mirror per-stage segment durations into ``histogram`` (labels
+        ``(stage,)``, seconds, trace-id exemplars)."""
+        self._stage_hist = histogram
 
     # -- request lifecycle ----------------------------------------------------
 
@@ -159,13 +176,19 @@ class TimelineRecorder:
         request_id: str = "",
         surface: str = "http",
         tenant: str = "",
-        parent_span_id: str = "",
     ) -> Optional[Timeline]:
-        """A new timeline with its arrival stamp, or None when disabled."""
+        """A new timeline with its arrival stamp, or None when disabled.
+        Called inside the request's server span, so the child spans emitted
+        at finish parent under it."""
         if not self.enabled:
             return None
+        parent = ""
+        ids = current_span_ids()
+        if ids is not None:
+            trace_id = trace_id or ids[0]
+            parent = ids[1]
         tl = Timeline(kind, trace_id=trace_id, request_id=request_id, surface=surface,
-                      parent_span_id=parent_span_id, tenant=tenant)
+                      parent_span_id=parent, tenant=tenant)
         tl.stamp("arrival")
         return tl
 
@@ -184,8 +207,9 @@ class TimelineRecorder:
 
     def finish(self, tl: Optional[Timeline], status: Any = None,
                snaptoken: Optional[str] = None) -> None:
-        """Seal ``tl``: deliver stamp, ring + top-K insertion. Accepts None
-        so call sites stay unconditional."""
+        """Seal ``tl``: deliver stamp, ring + top-K insertion, metric
+        mirror, child-span emission. Accepts None so call sites stay
+        unconditional."""
         if tl is None:
             return
         tl.stamp("deliver")
@@ -201,6 +225,8 @@ class TimelineRecorder:
             elif tl.total_ms > self._slow[0][0]:
                 heapq.heapreplace(self._slow, (tl.total_ms, seq, tl))
             self.finished_by_surface[tl.surface] = self.finished_by_surface.get(tl.surface, 0) + 1
+        self._mirror(tl)
+        self._emit_spans(tl)
 
     # -- export ---------------------------------------------------------------
 
@@ -214,6 +240,34 @@ class TimelineRecorder:
             stage = tl.stamps[i][0]
             out[stage] = out.get(stage, 0.0) + (tl.stamps[i][1] - tl.stamps[i - 1][1])
         return list(out.items())
+
+    def _mirror(self, tl: Timeline) -> None:
+        hist = self._stage_hist
+        if hist is None:
+            return
+        for stage, dur in self._segments(tl):
+            hist.observe((stage,), dur, trace_id=tl.trace_id)
+
+    def _emit_spans(self, tl: Timeline) -> None:
+        tracer = self._tracer
+        if tracer is None or not getattr(tracer, "enabled", False):
+            return
+        if not tl.trace_id:
+            return
+        base_ns = int(tl.start_unix * 1e9)
+        for i in range(1, len(tl.stamps)):
+            stage, t, attrs = tl.stamps[i]
+            t_prev = tl.stamps[i - 1][1]
+            tags = dict(attrs or {})
+            tags["request_id"] = tl.request_id
+            tracer.emit(
+                f"timeline.{stage}",
+                trace_id=tl.trace_id,
+                parent_id=tl.parent_span_id or None,
+                start_unix_ns=base_ns + int(t_prev * 1e9),
+                duration_s=max(0.0, t - t_prev),
+                **tags,
+            )
 
     def server_timing(self, tl: Timeline) -> str:
         """The W3C ``Server-Timing`` header value: one ``<stage>;dur=<ms>``

@@ -549,6 +549,9 @@ def test_health_inputs_carry_the_reference_keys():
     p, e = port_engine(rows)
     try:
         e.batch_check(queries)
+        # the background label build narrates its "labels" phase into
+        # health() until it lands, as the reference's does
+        e.labels_settled()
         h = e.health()
         # the reference's device-error streak feeds its CPU fallback: not ported
         assert set(h) == set(je.health()) - {"consecutive_device_errors"}

@@ -24,9 +24,10 @@ SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 #: modules the walk must find (the write path's, the reverse queries', the
 #: explain path's, the full build's, expand's, the check scheduler's, the
-#: snapshot cache's and group commit's, and the device-memory governor's and
-#: the health machine's among them): a module that fails to be found is not
-#: checked
+#: snapshot cache's and group commit's, the device-memory governor's and the
+#: health machine's, and the metrics, logging, tracing, SLO, flight-recorder
+#: and observability wiring among them): a module that fails to be found is
+#: not checked
 REQUIRED = (
     "keto_tpu_torch.graph.overlay",
     "keto_tpu_torch.graph.compaction",
@@ -65,6 +66,12 @@ REQUIRED = (
     "keto_tpu_torch.persistence.memory",
     "keto_tpu_torch.driver.hbm",
     "keto_tpu_torch.driver.health",
+    "keto_tpu_torch.x.metrics",
+    "keto_tpu_torch.x.logging",
+    "keto_tpu_torch.x.tracing",
+    "keto_tpu_torch.x.slo",
+    "keto_tpu_torch.x.flightrec",
+    "keto_tpu_torch.driver.observability",
 )
 
 
