@@ -178,7 +178,34 @@ Phases, in order; any failure exits non-zero:
    whose ``hbm`` section counts its event (bytes and trigger-to-file
    seconds printed); a scrape after (a) must show ``keto_hbm_resident_bytes``
    equal to the ledger, one after (e) the governor's OOM counts;
-7. deep — BASELINE config 4 (GitHub-style org/team/repo, 10M tuples,
+7. cli — the reference's default serving path on the card (ROADMAP A7's
+   first half): (a) a JSON config (``dsn: memory``, ports 0,
+   ``serve.http_backend: async``, namespaces from a ``file://`` directory,
+   every other key at its default) through ``Config`` → ``Registry`` →
+   ``Daemon``; config 3's 1M tuples written through the registry's store
+   (the bulk path), main's 100k checks as ``POST /check/batch`` bodies of
+   16,384 tuples (429s slept through), then 16 keep-alive clients × 100
+   ``GET /check``: 0 wrong against main's expectation, GET p50/p99 beside
+   the lanes phase's threaded GETs, K2's run and K8's sorts launched (K3
+   where the label route answered); (b) ``GET /watch`` from the watermark,
+   then 10 ``PATCH`` transactions of 100 tuples through the write port:
+   every commit group once, in commit order, send-to-line ms; a resume
+   from the 5th token yields groups 6–10; ``gc_watch_logs`` with a 1 ms
+   retention: a resume below the horizon answers 410, and the engine, left
+   behind the horizon, takes exactly one full rebuild whose 100k decisions
+   equal main's expectation plus the writes; (c) a namespace file written
+   into the watched directory serves a ``PATCH`` within 5 s and checks on
+   the card; a malformed file keeps the last good set; the drain closes
+   the open stream; (d) ``python3 -m keto_tpu_torch serve -c`` as its own
+   process with ``profiling: trace``: its first answered check (boot
+   seconds), the cat-videos tuples PUT and checked, SIGTERM → exit 0
+   within ``serve.drain_timeout_s`` + 30 s, its ``torch.profiler`` trace
+   naming ``check_run_kernel`` (``keto_check_run``), the kernel library
+   under build/kernels/ reused (same source hash, no ``nvcc``); (e) an
+   unknown key, a wrong type and ``serve.role: replica`` each exit
+   non-zero with the schema's or the registry's message in a process that
+   sees no card;
+8. deep — BASELINE config 4 (GitHub-style org/team/repo, 10M tuples,
    five namespaces, grant chains up to 7 edges) with the default engine
    (its build histogram attached before the first build: a
    ``keto_build_phase_duration_seconds`` series for each phase the build
@@ -205,7 +232,7 @@ Phases, in order; any failure exits non-zero:
    around it (the path the bundle replaces), and the bundle once more,
    split into the NUL scan of its columns and the C++ call (main's does
    the same at 1M);
-8. cache — the snapshot cache (keto_tpu_torch/graph/snapcache.py), in a
+9. cache — the snapshot cache (keto_tpu_torch/graph/snapcache.py), in a
    ``tempfile.mkdtemp`` directory removed at the end, its disk's free space
    printed first: (a) deep's snapshot, its labels settled, saved: seconds
    split into the string tables (the C++ interner's strings one code at a
@@ -224,7 +251,7 @@ Phases, in order; any failure exits non-zero:
    and the 5,000 memberships equal to a fresh build's; (d) a segment of
    that cache corrupted: ``load_latest`` quarantines it. (c) and (d) run at
    config 4, or at config 3 when (a) and (b) took more than 120 s;
-9. shard — one ``ShardMesh`` of 4 graph shards on the card: (a) main's
+10. shard — one ``ShardMesh`` of 4 graph shards on the card: (a) main's
    store and 100k checks on a sharded engine with labels off (K10a, the
    BFS route), every decision equal to the analytic expectation and to
    main's unsharded run, a 2,000-query oracle sample, every K10a entry
@@ -258,7 +285,7 @@ Phases, in order; any failure exits non-zero:
    engine's per-shard ledger after ``warm_compile``, and a
    plan that only the hottest shard's slice of the budget refuses, whose
    walk evicts each rung once for the whole mesh down to the warm ladder;
-10. list — on the deep phase's engine and store: 200 ListObjects ("which
+11. list — on the deep phase's engine and store: 200 ListObjects ("which
    issues may user-u view") and 200 ListSubjects ("which users may view
    issue-j"), each against its analytic expected set from the generator's
    maps; p50/p99 seconds and items/s per orientation (cache misses only),
@@ -269,7 +296,7 @@ Phases, in order; any failure exits non-zero:
    allowed, as many unlisted ones denied); K5 (a whole run, its kernel
    alone, its launches and host reads a run) and K8 are timed at the
    path's shapes beside their plain versions and bounds;
-11. explain — on the deep phase's engine and store, labels on: the 100k
+12. explain — on the deep phase's engine and store, labels on: the 100k
    checks through ``batch_check_stream`` (ordered) and through
    ``batch_check_stream_with_token(ordered=False, with_info=True)``, each
    equal to ``batch_check`` and the expectation with every offset
@@ -294,7 +321,7 @@ Phases, in order; any failure exits non-zero:
    with the label witness launched once per interior pair; explain p50/p99
    seconds; the label witness is then timed at one pair and at 65,536
    pairs on config 4's label arrays beside its plain version and bound;
-12. write — the deep phase's engine and store take writes through the
+13. write — the deep phase's engine and store take writes through the
    store, as the REST write API makes them: (a) the reference bench's
    burst of 5,000 new team memberships (interior→sink edges: the labels
    stay live, the background fold absorbs the burst), (b) 64 new
@@ -321,7 +348,7 @@ Phases, in order; any failure exits non-zero:
    bucket in one fused launch: the copy and the patch; one launch and no
    host read a call, or the row fails), and K5 on the first
    fixpoint that ran with the overlay pending, against its plain version;
-13. serve — the REST server with the default engine (labels on) and a
+14. serve — the REST server with the default engine (labels on) and a
    decision log sampling every check: ``GET /check/explain`` on a grant
    (a verified witness) and a deny (a certificate), the cat-videos checks
    (200, 200, 403, 200) read back from the decision log, read-your-writes
@@ -344,7 +371,7 @@ Phases, in order; any failure exits non-zero:
    check's request span must have its stage spans (``device`` among them)
    as children and the ``drain`` bundle must validate.
 
-``--only`` names a subset; ``lanes``, ``labels`` and ``hbm`` need ``main``,
+``--only`` names a subset; ``lanes``, ``labels``, ``hbm`` and ``cli`` need ``main``,
 ``shard`` needs ``main`` and ``deep``, ``cache``, ``list`` and ``explain`` need ``deep`` and
 ``write`` needs ``list`` (they run on that phase's engine and store), and a subset
 that breaks this exits non-zero.
@@ -366,10 +393,10 @@ import time
 import types
 import urllib.request
 
-PHASES = ("build", "parity", "main", "lanes", "labels", "hbm", "deep", "cache", "shard", "list",
-          "explain", "write", "serve")
+PHASES = ("build", "parity", "main", "lanes", "labels", "hbm", "cli", "deep", "cache", "shard",
+          "list", "explain", "write", "serve")
 #: a phase that runs on the engine and store of another
-PHASE_NEEDS = {"lanes": ("main",), "labels": ("main",), "hbm": ("main",),
+PHASE_NEEDS = {"lanes": ("main",), "labels": ("main",), "hbm": ("main",), "cli": ("main",),
                "shard": ("main", "deep"),
                "cache": ("deep",), "list": ("deep",),
                "explain": ("deep",), "write": ("list",)}
@@ -6456,12 +6483,486 @@ def serve_observability(span_file: str, bundle_dir: str) -> dict:
     return res
 
 
+# -- the cli phase: the registry path, Watch, hot reload and the CLI process ---
+
+
+#: the cli phase: /check/batch bodies, keep-alive GET clients and their GETs,
+#: the watch leg's write transactions and their tuples, the seconds allowed
+#: for a hot-reloaded namespace to serve and for the CLI's drain past its
+#: serve.drain_timeout_s
+CLI_BATCH = 16_384
+CLI_CLIENTS = 16
+CLI_GETS = 100
+CLI_WATCH_WRITES = 10
+CLI_WATCH_TUPLES = 100
+CLI_RELOAD_S = 5.0
+CLI_EXIT_MARGIN_S = 30.0
+#: the hot-reloaded namespace (an id config 3 does not use)
+CLI_HOT_NS = {"id": 7, "name": "cli-hot"}
+CLI_HOT_TUPLES = ["cli-hot:a#m@(cli-hot:b#m)", "cli-hot:b#m@(cli-hot:a#m)", "cli-hot:b#m@alice"]
+CLI_HOT_CHECKS = [("cli-hot:a#m@alice", True), ("cli-hot:a#m@bob", False)]
+#: the device kernels whose names a CUDA trace of a check shows, by wrapper
+CLI_TRACE_KERNELS = {"check_run_kernel": "keto_check_run", "label_step_kernel": "keto_label_step"}
+
+
+class _Conn:
+    """One keep-alive HTTP/1.1 connection: ``req`` answers (status, parsed
+    body, headers)."""
+
+    def __init__(self, port: int, timeout: float = 120.0):
+        import http.client
+
+        self.c = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+
+    def req(self, method, path, body=None, headers=None):
+        data = None if body is None else (body if isinstance(body, bytes)
+                                          else json.dumps(body).encode())
+        self.c.request(method, path, body=data, headers=headers or {})
+        r = self.c.getresponse()
+        raw = r.read()
+        return r.status, (json.loads(raw) if raw else None), dict(r.getheaders())
+
+    def close(self):
+        self.c.close()
+
+
+class _WatchReader:
+    """A ``GET /watch?snaptoken=N`` stream read on a thread: ``lines`` holds
+    ``(receive unix time, message)``; the thread ends with the stream."""
+
+    def __init__(self, port: int, token: int):
+        import http.client
+        import threading
+
+        self.lines: list = []
+        self.status = None
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        self.conn.request("GET", f"/watch?snaptoken={token}")
+        self.resp = self.conn.getresponse()
+        self.status = self.resp.status
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        if self.status == 200:
+            self.thread.start()
+
+    def _read(self):
+        try:
+            while True:
+                line = self.resp.readline()
+                if not line:
+                    return
+                self.lines.append((time.time(), json.loads(line)))
+        except OSError:
+            return
+
+    def wait(self, n: int, timeout: float = 30.0) -> bool:
+        deadline = time.monotonic() + timeout
+        while len(self.lines) < n and time.monotonic() < deadline:
+            time.sleep(0.005)
+        return len(self.lines) >= n
+
+    def close(self):
+        self.conn.close()
+
+
+def _kernel_files():
+    from keto_tpu_torch import _build
+
+    return sorted((p.name, p.stat().st_mtime_ns) for p in _build.BUILD_DIR.glob("*.so"))
+
+
+def phase_cli(torch, kernels, report, queries, main_ctx, device="cuda"):
+    """The reference's default serving path on the card (see the module
+    docstring's cli entry): (a) ``Config`` → ``Registry`` → ``Daemon`` on
+    the async backend with config 3 loaded through the registry's store,
+    main's 100k checks as ``/check/batch`` posts, then keep-alive GETs;
+    (b) Watch: groups exactly once in commit order, a resume, 410 under a
+    GC'd horizon and the engine's full rebuild past it; (c) a hot-reloaded
+    namespace served on the card, a malformed file keeping the last good
+    set; (d) ``python3 -m keto_tpu_torch serve -c`` as its own process with
+    a ``torch.profiler`` trace, SIGTERM, exit 0; (e) bad configs refused
+    before the card is touched. ``device="cpu"`` rehearses the phase on the
+    host (no launch is counted there, so the launch checks are the card's
+    alone)."""
+    import os
+    import signal
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    from keto_tpu_torch import _build
+    from keto_tpu_torch.config import Config
+    from keto_tpu_torch.driver.daemon import Daemon
+    from keto_tpu_torch.driver.registry import Registry
+    from keto_tpu_torch.relationtuple.model import RelationTuple
+    from keto_tpu_torch.workloads import (
+        CAT_VIDEOS_CHECKS,
+        CAT_VIDEOS_NAMESPACES,
+        CAT_VIDEOS_TUPLES,
+        RBAC_NAMESPACES,
+        rbac_workload,
+    )
+
+    def fail(msg):
+        raise SystemExit(f"cli FAILED: {msg}")
+
+    t_phase = time.monotonic()
+    on_card = device == "cuda"
+    out: dict = {"card": card_line() if on_card else "cpu"}
+    _, _, _, expected = main_ctx
+    work = Path(tempfile.mkdtemp(dir=_build.BUILD_DIR.parent))
+    ns_dir = work / "ns"
+    ns_dir.mkdir()
+    for n in RBAC_NAMESPACES:
+        (ns_dir / f"{n.name}.json").write_text(json.dumps(n.to_json()))
+    cfg_path = work / "cfg.json"
+    cfg_path.write_text(json.dumps({
+        "dsn": "memory", "namespaces": f"file://{ns_dir}",
+        "serve": {"read": {"host": "127.0.0.1", "port": 0},
+                  "write": {"host": "127.0.0.1", "port": 0}, "http_backend": "async"}}))
+
+    # (a) the registry path in process
+    t0 = time.monotonic()
+    tuples, _ = rbac_workload(random.Random(SEED), N_TUPLES)
+    gen_s = time.monotonic() - t0
+    reg = Registry(Config(config_file=str(cfg_path)), device=None if on_card else device)
+    d = Daemon(reg)
+    store = reg.relation_tuple_manager()
+    t0 = time.monotonic()
+    store.write_relation_tuples(*tuples)
+    load_s = time.monotonic() - t0
+    del tuples
+    kernels.reset_counts()
+    if on_card:
+        kernels.reset_run_counts()
+    t0 = time.monotonic()
+    d.serve_all(block=False)
+    engine = reg.permission_engine()
+    serving = False
+    procs: dict = {}
+    try:
+        if type(d.read).__name__ != "AsyncRestServer":
+            fail(f"the read port serves on {type(d.read).__name__}, not the async backend")
+        post = _Conn(d.read_port)
+        got, sheds, post_ms = [], 0, []
+        for i in range(0, len(queries), CLI_BATCH):
+            body = json.dumps({"tuples": [q.to_json() for q in queries[i:i + CLI_BATCH]]}).encode()
+            while True:
+                t1 = time.monotonic()
+                status, resp, hdrs = post.req("POST", "/check/batch", body)
+                if status != 429:
+                    break
+                sheds += 1
+                time.sleep(float(hdrs.get("Retry-After", "1")))
+            post_ms.append((time.monotonic() - t1) * 1e3)
+            if status != 200:
+                fail(f"POST /check/batch answered {status} {resp}")
+            got += resp["results"]
+        post.close()
+        batch_s = time.monotonic() - t0
+        wrong = sum(bool(g) != e for g, e in zip(got, expected))
+        if len(got) != len(queries) or wrong:
+            fail(f"{wrong} of {len(got)} batch decisions differ from main's expectation")
+
+        lat, bad = [], []
+
+        def client(k):
+            c = _Conn(d.read_port)
+            try:
+                for j in range(CLI_GETS):
+                    i = (k * CLI_GETS + j * 7919) % len(queries)
+                    t1 = time.perf_counter()
+                    status, _, _ = c.req("GET", "/check?" + queries[i].to_url_query())
+                    lat.append((time.perf_counter() - t1) * 1e3)
+                    if status != (200 if expected[i] else 403):
+                        bad.append((i, status))
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(CLI_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        if bad or len(lat) != CLI_CLIENTS * CLI_GETS:
+            fail(f"GET /check: {len(bad)} wrong of {len(lat)}: {bad[:5]}")
+        launches = dict(kernels.COUNTS)
+        if on_card:
+            launches["check_run_steps"] = kernels.run_counts()[0]
+        labels = engine.labels_settled()
+        if on_card and (not launches["check_run"] or not launches["radix_sort"]
+                        or not launches["radix_pass"]):
+            fail(f"the registry path did not run K2 and K8 on the card: {launches}")
+        if on_card and labels and engine.counters().get("label_checks", 0) \
+                and not launches["label_step"]:
+            fail("the label route answered without K3")
+        out["a"] = {
+            "config": "BASELINE config 3 (RBAC) through Config, Registry, Daemon (async)",
+            "tuples": N_TUPLES, "checks": len(got), "wrong": wrong, "generate_s": gen_s,
+            "store_load_s": load_s, "batch_posts": len(post_ms), "batch_sheds": sheds,
+            "batch_s": batch_s, "post_p50_ms": _pct_ms(post_ms, 0.5),
+            "gets": len(lat), "get_p50_ms": _pct_ms(lat, 0.5), "get_p99_ms": _pct_ms(lat, 0.99),
+            "lanes_threaded_get": {k: report.get("lanes", {}).get("a", {}).get(k) for k in
+                                   ("p50_ms", "p99_ms", "alone_p50_ms", "alone_p99_ms")},
+            "labels_landed": bool(labels), "build_path": engine.build_info.get("path"),
+            "launches": launches,
+        }
+        log(f"cli (a): {json.dumps(out['a'])}")
+
+        # (e) refusals before the card is touched, in processes that see no
+        # card: started now, they run beside (b) and (c), which time nothing
+        # a few CPU-bound processes would move; read after (d)
+        bad = {"unknown key": ({"serve": {"nope": 1}}, "Additional properties are not allowed"),
+               "wrong type": ({"serve": {"read": {"port": "x"}}}, "is not of type 'integer'"),
+               "replica": ({"serve": {"role": "replica"}}, "ROADMAP A10")}
+        for name, (cfg, _) in bad.items():
+            path = work / f"bad-{name.replace(' ', '-')}.json"
+            path.write_text(json.dumps({"namespaces": [], **cfg}))
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "keto_tpu_torch", "serve", "-c", str(path)],
+                cwd=str(Path(__file__).resolve().parent),
+                env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        # (b) Watch over the write port's commits
+        wm = store.watermark()
+        keep = _WatchReader(d.read_port, wm)
+        if keep.status != 200:
+            fail(f"GET /watch answered {keep.status}")
+        denied = [i for i, e in enumerate(expected) if not e][:CLI_WATCH_WRITES * CLI_WATCH_TUPLES]
+        writer = _Conn(d.write_port)
+        acked = []
+        for w in range(CLI_WATCH_WRITES):
+            part = denied[w * CLI_WATCH_TUPLES:(w + 1) * CLI_WATCH_TUPLES]
+            sent = time.time()
+            status, _, hdrs = writer.req("PATCH", "/relation-tuples", [
+                {"action": "insert", "relation_tuple": queries[i].to_json()} for i in part])
+            if status != 204:
+                fail(f"PATCH /relation-tuples answered {status}")
+            acked.append((int(hdrs["X-Keto-Snaptoken"]), sent))
+        writer.close()
+        if not keep.wait(CLI_WATCH_WRITES):
+            fail(f"the stream delivered {len(keep.lines)} of {CLI_WATCH_WRITES} groups")
+        time.sleep(0.3)  # more than one poll: nothing else may arrive
+        tokens = [int(m["snaptoken"]) for _, m in keep.lines]
+        if tokens != [t for t, _ in acked] or any(len(m["changes"]) != CLI_WATCH_TUPLES
+                                                   for _, m in keep.lines):
+            fail(f"groups {tokens} against commits {[t for t, _ in acked]}")
+        # from the client's send of the write to its line on the stream (the
+        # commit's own stamp rides a line only when the handler registered
+        # it before the hub's poll emitted the group, as in the reference)
+        line_ms = [(rt - sent) * 1e3 for (rt, _), (_, sent) in zip(keep.lines, acked)]
+        emit_ms = [(m["emitted_at"] - m["committed_at"]) * 1e3 for _, m in keep.lines
+                   if "committed_at" in m]
+        resume = _WatchReader(d.read_port, acked[4][0])
+        resume.wait(CLI_WATCH_WRITES - 5)
+        time.sleep(0.3)
+        resumed = [int(m["snaptoken"]) for _, m in resume.lines]
+        resume.close()
+        if resumed != [t for t, _ in acked[5:]]:
+            fail(f"a resume from the 5th token yielded {resumed}")
+        # nothing asked the engine for a snapshot since the writes: it is
+        # behind them, and the GC below leaves it behind the horizon
+        engine_wm = engine._snapshot.snapshot_id
+        if engine_wm >= store.watermark():
+            fail("the engine caught up with the writes before the GC")
+        rebuilds0 = engine.counters().get("full_rebuilds", 0)
+        store.watch_log_retention_s = 1e-3
+        time.sleep(0.01)
+        # a pass prunes at most serve.watch_gc_max_rows: drain the backlog
+        pruned, n = 0, -1
+        while n:
+            n = store.gc_watch_logs()
+            pruned += n
+        store.watch_log_retention_s = 3600.0
+        gone = _Conn(d.read_port)
+        status, body, _ = gone.req("GET", f"/watch?snaptoken={wm}")
+        gone.close()
+        if status != 410:
+            fail(f"a resume below the GC'd horizon answered {status}, not 410")
+        t1 = time.monotonic()
+        after = engine.batch_check(queries)
+        rebuild_s = time.monotonic() - t1
+        want = list(expected)
+        for i in denied:
+            want[i] = True
+        rebuilt = engine.counters().get("full_rebuilds", 0) - rebuilds0
+        wrong_after = sum(a != w for a, w in zip(after, want))
+        if wrong_after or rebuilt != 1:
+            fail(f"after the GC: {wrong_after} wrong, {rebuilt} full rebuilds (want 1)")
+        out["b"] = {
+            "writes": CLI_WATCH_WRITES, "tuples_each": CLI_WATCH_TUPLES, "groups": tokens,
+            "send_to_line_ms": {"p50": _pct_ms(line_ms, 0.5), "max": round(max(line_ms), 3)},
+            "commit_to_emit_ms": {"p50": _pct_ms(emit_ms, 0.5),
+                                  "max": round(max(emit_ms), 3) if emit_ms else None,
+                                  "lines_with_commit_stamp": len(emit_ms)},
+            "resumed_from": acked[4][0], "resumed": resumed, "gc_pruned": pruned,
+            "engine_watermark_at_gc": engine_wm,
+            "below_horizon": status, "full_rebuilds": rebuilt, "rebuild_and_check_s": rebuild_s,
+            "wrong_after": wrong_after,
+        }
+        log(f"cli (b): {json.dumps(out['b'])}")
+
+        # (c) a namespace hot-reloaded from the watched directory
+        (ns_dir / "cli-hot.json").write_text(json.dumps(CLI_HOT_NS))
+        t1 = time.monotonic()
+        w = _Conn(d.write_port)
+        while True:
+            status, _, _ = w.req("PATCH", "/relation-tuples", [
+                {"action": "insert", "relation_tuple": RelationTuple.from_string(t).to_json()}
+                for t in CLI_HOT_TUPLES])
+            if status == 204 or time.monotonic() - t1 > CLI_RELOAD_S:
+                break
+            time.sleep(0.05)
+        reload_s = time.monotonic() - t1
+        w.close()
+        if status != 204:
+            fail(f"the hot-reloaded namespace refused writes for {reload_s:.1f}s: {status}")
+        r = _Conn(d.read_port)
+
+        def hot_checks():
+            kernels.reset_counts()
+            codes = [r.req("GET", "/check?" + RelationTuple.from_string(c).to_url_query()
+                           + "&latest=true")[0] for c, _ in CLI_HOT_CHECKS]
+            return codes, dict(kernels.COUNTS)
+
+        codes, hot_launches = hot_checks()
+        if codes != [200 if a else 403 for _, a in CLI_HOT_CHECKS]:
+            fail(f"checks on the hot-reloaded namespace answered {codes}")
+        launched = sum(hot_launches[k] for k in ("seed", "check_run", "answer_pack", "label_step"))
+        if on_card and not launched:
+            fail(f"the checks on the hot-reloaded namespace launched nothing: {hot_launches}")
+        (ns_dir / "zz-bad.json").write_text(json.dumps({"id": "x"}))
+        time.sleep(1.5)  # past one of the watcher's 1 s polls
+        names = sorted(n.name for n in reg.namespace_manager().namespaces())
+        codes_bad, _ = hot_checks()
+        r.close()
+        if names != sorted([n.name for n in RBAC_NAMESPACES] + [CLI_HOT_NS["name"]]) \
+                or codes_bad != codes:
+            fail(f"a malformed file did not keep the last good set: {names}, {codes_bad}")
+        out["c"] = {"reload_s": reload_s, "codes": codes, "launches": hot_launches,
+                    "after_malformed": names}
+        log(f"cli (c): {json.dumps(out['c'])}")
+
+        serving = True
+        t1 = time.monotonic()
+        d.drain_and_shutdown()
+        keep.thread.join(timeout=10)
+        if keep.thread.is_alive():
+            fail("the drain did not close the open watch stream")
+        out["drain_s"] = time.monotonic() - t1
+        keep.close()
+    finally:
+        if not serving:
+            d.shutdown()
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+    # (d) the CLI as its own process, with a torch.profiler trace
+    trace_dir = work / "trace"
+    cli_cfg = work / "cli.json"
+    cli_cfg.write_text(json.dumps({
+        "dsn": "memory", "namespaces": [n.to_json() for n in CAT_VIDEOS_NAMESPACES],
+        "serve": {"read": {"host": "127.0.0.1", "port": 0},
+                  "write": {"host": "127.0.0.1", "port": 0}},
+        "profiling": "trace"}))
+    before = _kernel_files()
+    env = dict(os.environ, KETO_TPU_TRACE_DIR=str(trace_dir))
+    t0 = time.monotonic()
+    proc = subprocess.Popen([sys.executable, "-m", "keto_tpu_torch", "serve", "-c", str(cli_cfg)]
+                            + ([] if on_card else ["--device", device]),
+                            cwd=str(Path(__file__).resolve().parent), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        import re
+        import select
+
+        # the banner comes once both ports answer; a process that never
+        # prints it fails the phase instead of holding the call
+        ready, _, _ = select.select([proc.stdout], [], [], 180.0)
+        first = proc.stdout.readline() if ready else ""
+
+        m = re.search(r"read :(\d+), write :(\d+), device (\S+), graph shards", first)
+        if not m:
+            fail(f"the CLI printed {first!r}; stderr {proc.stderr.read()[-2000:]}")
+        rp, wp, dev = int(m.group(1)), int(m.group(2)), m.group(3)
+        c = _Conn(rp)
+        status = c.req("GET", "/check?" + RelationTuple.from_string(
+            CAT_VIDEOS_CHECKS[0][0]).to_url_query())[0]
+        boot_s = time.monotonic() - t0
+        if status != 403:
+            fail(f"the CLI's first check on an empty store answered {status}")
+        w = _Conn(wp)
+        from keto_tpu_torch.workloads import parse_tuples
+
+        for t in parse_tuples(CAT_VIDEOS_TUPLES):
+            if w.req("PUT", "/relation-tuples", t.to_json())[0] != 201:
+                fail(f"the CLI refused PUT {t}")
+        w.close()
+        codes = [c.req("GET", "/check?" + RelationTuple.from_string(q).to_url_query()
+                       + "&latest=true")[0] for q, _ in CAT_VIDEOS_CHECKS]
+        c.close()
+        if codes != [200 if a else 403 for _, a in CAT_VIDEOS_CHECKS]:
+            fail(f"the CLI's cat-videos checks answered {codes}")
+        t1 = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=5.0 + CLI_EXIT_MARGIN_S)
+        exit_s = time.monotonic() - t1
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err = proc.stderr.read()
+    if rc != 0:
+        fail(f"the CLI exited {rc} after SIGTERM: {err[-2000:]}")
+    table = (trace_dir / "kernels.txt").read_text() if (trace_dir / "kernels.txt").exists() else ""
+    trace = (trace_dir / "trace.json").read_text() if (trace_dir / "trace.json").exists() else ""
+    named = sorted({wrapper for k, wrapper in CLI_TRACE_KERNELS.items()
+                    if k in table or k in trace})
+    if on_card and (dev not in ("cuda", "cuda:0") or not named):
+        fail(f"the CLI's trace names no hand-written kernel (device {dev}); "
+             f"{table[:1500]}")
+    reused = _kernel_files() == before
+    if on_card and not reused:
+        fail("the CLI process built the kernel library again")
+    out["d"] = {"device": dev, "boot_to_first_check_s": boot_s, "cat_videos": codes,
+                "sigterm_exit_s": exit_s, "exit": rc, "trace_names": named,
+                "trace_bytes": len(trace), "library_reused": reused}
+    log(f"cli (d): {json.dumps(out['d'])}")
+
+    refused = {}
+    for name, p in procs.items():
+        try:
+            _, err = p.communicate(timeout=60)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        refused[name] = p.returncode
+        if p.returncode == 0 or bad[name][1] not in err or "CUDA" in err:
+            fail(f"{name}: exit {p.returncode}, {err[-500:]}")
+    try:
+        Registry(Config(overrides={"namespaces": [], "serve.role": "replica"}, env={}))
+        fail("serve.role: replica built a registry")
+    except ValueError as e:
+        if "ROADMAP A10" not in str(e):
+            fail(f"serve.role: replica raised {e}")
+    out["e"] = {"exits": refused}
+    out["seconds"] = time.monotonic() - t_phase
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"cli (e): {json.dumps(out['e'])}; phase {out['seconds']:.1f}s")
+    report["cli"] = out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help=f"comma-separated phases to run (default: all of {','.join(PHASES)}); "
-                         "lanes, labels and hbm need main, shard needs main and deep, cache, list "
-                         "and explain need deep, write needs list")
+                         "lanes, labels, hbm and cli need main, shard needs main and deep, "
+                         "cache, list and explain need deep, write needs list")
     args = ap.parse_args(argv)
     phases = set(args.only.split(","))
     unknown = phases - set(PHASES)
@@ -6521,6 +7022,10 @@ def main(argv=None) -> int:
         if "hbm" in phases:
             phase_hbm(torch, kernels, report, main_ctx, queries, rbac_ctx)
             log(json.dumps({"hbm": report["hbm"]}))
+            log(f"elapsed {time.monotonic() - t_start:.1f}s")
+        if "cli" in phases:
+            phase_cli(torch, kernels, report, queries, main_ctx)
+            log(json.dumps({"cli": report["cli"]}))
             log(f"elapsed {time.monotonic() - t_start:.1f}s")
         # the shard phase holds its config 3 run against this engine's; the
         # cache phase saves and reloads its store

@@ -86,3 +86,62 @@ class CheckEngine:
                 return True
 
         return False
+
+
+class HostStreamEngine(CheckEngine):
+    """The host ``CheckEngine`` behind the batcher's stream interface: what
+    the registry serves for ``engine.backend: oracle`` (the reference's
+    explicit host setting). Each batcher round is decided on the host, one
+    recursion a tuple, against the store as it stands; the token is the
+    store's watermark read before the round, which every decision is at
+    least as fresh as. It runs no device code and has no snapshot, so the
+    registry serves Expand and the list routes from the store beside it and
+    explain is off."""
+
+    #: the stream yields per-slice route info (``with_info=True``)
+    STREAM_INFO = True
+
+    def __init__(self, manager: Manager, page_size: int = 0):
+        super().__init__(manager, page_size)
+        from keto_tpu_torch.check.stream import StreamSliceController
+        from keto_tpu_torch.x.telemetry import DurationStats
+
+        #: the batcher bounds a round by ``stream_ctrl.cap()``; admission
+        #: reads the slice times
+        self.stream_ctrl = StreamSliceController()
+        self.stream_slice_stats = DurationStats()
+
+    def batch_check_stream_with_token(self, tuples_iter, *, slice_cap=None, at_least=None,
+                                      mode: str = "latest", ordered: bool = True,
+                                      with_info: bool = False):
+        """``(generator, token)``: the generator yields ``(offset,
+        decisions)`` — ``(offset, decisions, info)`` with ``with_info`` — a
+        slice of at most ``slice_cap`` (default ``stream_ctrl.cap()``)
+        tuples at a time; ``info``'s route is ``cpu``."""
+        import time
+
+        import torch
+
+        if with_info and ordered:
+            raise ValueError("with_info requires ordered=False")
+        token = int(self._manager.watermark())
+        cap = max(1, int(slice_cap or self.stream_ctrl.cap()))
+
+        def gen():
+            offset, chunk = 0, []
+            for t in list(tuples_iter) + [None]:
+                if t is not None:
+                    chunk.append(t)
+                if chunk and (t is None or len(chunk) == cap):
+                    t0 = time.perf_counter()
+                    out = torch.tensor([self.subject_is_allowed(c) for c in chunk],
+                                       dtype=torch.bool)
+                    ms = (time.perf_counter() - t0) * 1e3
+                    self.stream_slice_stats.observe(ms)
+                    info = {"width": len(chunk), "bfs_steps": 0, "route": "cpu",
+                            "service_ms": ms}
+                    yield (offset, out, info) if with_info else (offset, out)
+                    offset += len(chunk)
+                    chunk = []
+
+        return gen(), token

@@ -202,7 +202,7 @@ from keto_tpu_torch.graph.device_build import GovernedSorter, estimate_sort_byte
 from keto_tpu_torch.graph.labels import build_labels, patch_labels
 from keto_tpu_torch.graph.overlay import apply_delta, overlay_device_bytes
 from keto_tpu_torch.graph.snapshot import WILDCARD, GraphSnapshot
-from keto_tpu_torch.graph.stream_build import BuildProgress, full_build
+from keto_tpu_torch.graph.stream_build import DEFAULT_CHUNK_ROWS, BuildProgress, full_build
 from keto_tpu_torch.parallel import sharded as shard_mod
 from keto_tpu_torch.relationtuple.model import RelationTuple, SubjectID, SubjectSet
 from keto_tpu_torch.x.device import resolve_device, same_device
@@ -347,6 +347,10 @@ class TorchCheckEngine:
     cache there; ``refresh_retry_max_wait_s`` bounds the retries of a
     failing store read on the refresh path. ``hbm_budget_bytes`` (0: auto,
     the card's memory less 8%) is the device-memory governor's budget.
+    ``staging_enabled`` (the reference's ``serve.staging_enabled``) leases
+    each slice's entry buffer from the pinned staging pool; False ships
+    every slice from a buffer of its own. ``build_chunk_rows``
+    (``serve.build_chunk_rows``) is the streaming build's scan chunk.
     """
 
     #: the stream yields per-slice route info (``with_info=True``)
@@ -384,6 +388,8 @@ class TorchCheckEngine:
         snapshot_cache_dir: Optional[str] = None,
         refresh_retry_max_wait_s: float = 2.0,
         hbm_budget_bytes: int = 0,
+        staging_enabled: bool = True,
+        build_chunk_rows: int = DEFAULT_CHUNK_ROWS,
     ):
         if it_cap < 1:
             raise ValueError("it_cap must be >= 1 (the answer pull needs one step)")
@@ -402,6 +408,7 @@ class TorchCheckEngine:
         else:
             self._nm = namespaces
         self._it_cap = it_cap
+        self._build_chunk_rows = max(1, int(build_chunk_rows))
         self._max_batch = max_batch
         # bound on the BFS workspace (~3 W-wide bitmaps over interior rows):
         # huge graphs narrow the batch width instead of overshooting memory
@@ -562,6 +569,7 @@ class TorchCheckEngine:
         # entry staging: host buffers (pinned on the card) leased until the
         # slice that shipped them lands; its bytes are host memory, reported
         # to the governor apart from the card's budget
+        self._staging_enabled = bool(staging_enabled)
         self._staging_suspended = False
         self._staging = _StagingPool(
             pin=self.device.type == "cuda",
@@ -893,7 +901,9 @@ class TorchCheckEngine:
         """An ``n``-element int32 host buffer for a slice's entries: leased
         from the pool, or — while the staging rung is evicted — a plain
         per-slice tensor, which the pool does not take back on release."""
-        buf = self._staging.acquire(n, plan=lambda b: not self._staging_suspended)
+        buf = None
+        if self._staging_enabled:
+            buf = self._staging.acquire(n, plan=lambda b: not self._staging_suspended)
         if buf is None:
             buf = torch.empty(n, dtype=torch.int32)
         return buf
@@ -1061,6 +1071,7 @@ class TorchCheckEngine:
                 sorter=self._build_sorter,
                 progress=self.build_progress,
                 read_retry=self._read_store,
+                chunk_rows=self._build_chunk_rows,
             )
             sort_s = self._take_sort_seconds()
             self._upload_buckets(new)

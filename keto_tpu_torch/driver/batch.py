@@ -120,7 +120,7 @@ class CheckBatcher:
         ``max_pending`` bounds each lane's queued tuples (default
         8×batch_size). In library mode a full lane blocks the caller up to
         its own deadline; with ``shed_on_full`` (the serving wiring,
-        ``keto_tpu_torch/driver/daemon.py``'s ``make_batcher``) it sheds
+        ``keto_tpu_torch/driver/registry.py``'s ``make_batcher``) it sheds
         at once with ``ErrTooManyRequests``. ``admission`` additionally
         sheds batch-lane arrivals beyond its adaptive window."""
         self._engine = engine

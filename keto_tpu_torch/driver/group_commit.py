@@ -28,8 +28,10 @@ enqueue waits (bounded by the caller's timeout) instead of 429ing.
 record each writer's queued seconds and each group's writer count; the
 ``keto_group_commit_flush_total`` and ``_errors_total`` bridges read
 ``flush_total`` and ``flush_errors``
-(keto_tpu_torch/driver/observability.py). Left for a later slice: the Watch
-commit groups and their traceparents (ROADMAP A7).
+(keto_tpu_torch/driver/observability.py). Each acknowledged write's
+commit group reaches the Watch changefeed from the store's change logs; the
+REST write routes register its traceparent with the watch hub
+(keto_tpu_torch/servers/rest.py ``_note_commit``).
 """
 
 from __future__ import annotations

@@ -3,11 +3,12 @@ engine, the timeline recorder's readers and the flight recorder.
 
 The counterpart of keto_tpu/driver/registry.py:1107-1300 (the timeline,
 SLO and flight-recorder builders) and :1301-2460 (``metrics()`` and
-``_register_metric_bridges``), until the port has a ``Registry`` (ROADMAP
-A7). Every function takes the components it reads explicitly, as
-late-bound getters (zero-argument callables that answer the component or
-None), so the daemon (keto_tpu_torch/driver/daemon.py) and a caller that
-builds its servers by hand (``chip_smoke.py``'s lanes phase) wire the
+``_register_metric_bridges``), and their one home in the port: the
+``Registry`` (keto_tpu_torch/driver/registry.py) calls these functions and
+copies none of them. Every function takes the components it reads
+explicitly, as late-bound getters (zero-argument callables that answer the
+component or None, the registry's ``peek``), so the registry and a caller
+that builds its servers by hand (``chip_smoke.py``'s lanes phase) wire the
 same way, and a scrape never constructs anything.
 
 A bridge reads live host values only: no callback synchronizes the
@@ -39,12 +40,9 @@ Getter = Callable[[], Optional[Any]]
 #: the reference's families the port's scrape leaves out, by the ROADMAP
 #: item that ports their component; each later item shrinks this
 PENDING_FAMILIES = {
-    # gRPC and Watch (A7)
+    # gRPC (A7's second half)
     "keto_grpc_requests_total": "A7",
     "keto_grpc_request_duration_seconds": "A7",
-    "keto_watch_streams": "A7",
-    "keto_watch_events_total": "A7",
-    "keto_watch_expired_total": "A7",
     # tenants (A9)
     "keto_tenant_known": "A9",
     "keto_tenant_resident": "A9",
@@ -173,6 +171,7 @@ def build_metrics(
     tracer: Getter = _none,
     flightrec: Getter = _none,
     slo: Getter = _none,
+    watch_hub: Getter = _none,
 ):
     """The process's ``MetricsRegistry`` (keto_tpu/driver/registry.py:
     1301-1372): ``keto_build_info``, the eagerly declared histograms and
@@ -195,12 +194,13 @@ def build_metrics(
     group_commit_histograms(m)
     _register_bridges(m, engine=engine, batcher=batcher, monitor=monitor, recorder=recorder,
                       explain=explain, decision_log=decision_log, lister=lister, store=store,
-                      writer=writer, tracer=tracer, flightrec=flightrec, slo=slo)
+                      writer=writer, tracer=tracer, flightrec=flightrec, slo=slo,
+                      watch_hub=watch_hub)
     return m
 
 
 def _register_bridges(m, *, engine, batcher, monitor, recorder, explain, decision_log, lister,
-                      store, writer, tracer, flightrec, slo) -> None:
+                      store, writer, tracer, flightrec, slo, watch_hub) -> None:
     """Scrape-time callbacks (keto_tpu/driver/registry.py:1374-2460, the
     families of the components the port has); a family reads zeros until
     its component exists."""
@@ -777,6 +777,35 @@ def _register_bridges(m, *, engine, batcher, monitor, recorder, explain, decisio
         attr_of(tracer, "spans_dropped"),
     )
 
+    # -- the Watch changefeed (keto_tpu/driver/registry.py:2056-2085) ---------------
+
+    def watch_stat(key):
+        def read():
+            hub = watch_hub()
+            snap = hub.snapshot() if hub is not None else {}
+            yield (), float(snap.get(key, 0))
+
+        return read
+
+    m.register_callback(
+        "keto_watch_streams", "gauge",
+        "Watch changefeed streams currently open (REST chunked + "
+        "gRPC server-stream), bounded by serve.watch_max_streams.",
+        watch_stat("active_streams"),
+    )
+    m.register_callback(
+        "keto_watch_events_total", "counter",
+        "Tuple-change events delivered to watch subscribers (inserts "
+        "+ deletes, across all streams).",
+        watch_stat("events_total"),
+    )
+    m.register_callback(
+        "keto_watch_expired_total", "counter",
+        "Watch resumes refused because the snaptoken predates the "
+        "retained change log (410 Gone / OUT_OF_RANGE).",
+        watch_stat("expired_total"),
+    )
+
     # -- the store and the write path ---------------------------------------------
     m.register_callback(
         "keto_persistence_reconnect_retries_total", "counter",
@@ -868,7 +897,8 @@ def build_flight_recorder(directory: str, collect: Callable[[], dict], *, max_bu
 
 def flightrec_collect(*, recorder: Getter = _none, monitor: Getter = _none,
                       engine: Getter = _none, batcher: Getter = _none, metrics: Getter = _none,
-                      slo: Getter = _none, explain: Getter = _none) -> Callable[[], dict]:
+                      slo: Getter = _none, explain: Getter = _none,
+                      watch_hub: Getter = _none) -> Callable[[], dict]:
     """The bundle's sections (keto_tpu/driver/registry.py:1210-1299, for the
     components the port has), each gathered under its own guard so one
     broken component cannot suppress the evidence of the rest."""
@@ -915,6 +945,9 @@ def flightrec_collect(*, recorder: Getter = _none, monitor: Getter = _none,
         m = metrics()
         if m is not None:
             sec("metrics", m.render)
+        hub = watch_hub()
+        if hub is not None:
+            sec("watch", hub.snapshot)
         s = slo()
         if s is not None:
             sec("slo", s.to_json)

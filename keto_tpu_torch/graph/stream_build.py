@@ -46,9 +46,10 @@ from keto_tpu_torch.graph import native
 from keto_tpu_torch.graph.interner import IncrementalInterner
 from keto_tpu_torch.graph.snapshot import GraphSnapshot, build_snapshot, layout_snapshot
 
-#: default rows per scan chunk: large enough that the per-chunk overheads
-#: (pack, enqueue, shard tables) amortize, small enough that the intern
-#: pool stays busy while the scan fetches the next chunk
+#: default rows per scan chunk (``serve.build_chunk_rows``, the engine's
+#: ``build_chunk_rows``): large enough that the per-chunk overheads (pack,
+#: enqueue, shard tables) amortize, small enough that the intern pool stays
+#: busy while the scan fetches the next chunk
 DEFAULT_CHUNK_ROWS = 262144
 
 

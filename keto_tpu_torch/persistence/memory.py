@@ -45,9 +45,21 @@ reference SQL persister (internal/persistence/sql/relationtuples.go):
   is validated before any of its rows apply, and a writer the store
   refuses gets its own error while the rest of the group commits.
 
+- the Watch seam (keto_tpu/persistence/memory.py:840-1017):
+  ``watch_changes_since`` answers the commit groups after a snaptoken
+  from the same two logs, and raises ``ErrWatchExpired`` once either
+  log's floor has risen past it. With ``watch_log_retention_s`` > 0 every
+  transaction records its commit time and prunes the log entries of
+  commits older than the retention, at most ``watch_gc_max_rows`` a pass
+  (``gc_watch_logs`` runs the same pass on demand). The pruning raises
+  both floors, the ones ``changes_since`` reads, so an engine whose
+  watermark fell behind the horizon takes a full rebuild and a watch
+  resume below it answers 410: neither is ever handed a delta that lacks
+  the pruned rows.
+
 Left out against the reference store: networks, fleet leases and the
 write fence (``_check_fence_locked``) with the store's fault points
-(``faults.check``), which come with ROADMAP A10, and watch logs.
+(``faults.check``), which come with ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -64,7 +76,12 @@ import numpy as np
 from keto_tpu_torch import namespace as namespace_pkg
 from keto_tpu_torch.relationtuple.manager import Manager, TransactResult, TransactWrite
 from keto_tpu_torch.relationtuple.model import RelationQuery, RelationTuple, SubjectID, SubjectSet
-from keto_tpu_torch.x.errors import ErrMalformedPageToken, ErrNilSubject, KetoError
+from keto_tpu_torch.x.errors import (
+    ErrMalformedPageToken,
+    ErrNilSubject,
+    ErrWatchExpired,
+    KetoError,
+)
 from keto_tpu_torch.x.pagination import (
     DEFAULT_PAGE_SIZE,
     PaginationOptionSetter,
@@ -221,6 +238,16 @@ class MemoryPersister(Manager):
         #: groups committed by ``transact_many`` and the writers in them
         self.group_commits = 0
         self.group_commit_writers = 0
+        # (watermark, commit unix time) of every transaction while the
+        # retention is on: the time axis of the watch-log GC
+        self._commit_times: list[tuple[int, float]] = []
+        #: seconds a commit's log entries are kept for /watch and the delta
+        #: path (the registry sets ``serve.watch_log_retention_s``); 0 keeps
+        #: them to ``LOG_CAP`` only
+        self.watch_log_retention_s = 0.0
+        #: log entries one GC pass prunes at most (``serve.watch_gc_max_rows``;
+        #: 0: no bound), so a write never stalls behind a long sweep
+        self.watch_gc_max_rows = 10000
 
     @property
     def namespaces(self):
@@ -601,6 +628,11 @@ class MemoryPersister(Manager):
                 if dedup[oldest][1] > cutoff:
                     break
                 dedup.popitem(last=False)
+        if self.watch_log_retention_s > 0:
+            # the time axis and the horizon GC, piggybacked on the write
+            now = time.time()
+            self._commit_times.append((wm, now))
+            self._gc_watch_logs_locked(now)
         return TransactResult(snaptoken=wm)
 
     def _update_lhs_index(self, new_rows, delete_keys) -> None:
@@ -624,6 +656,93 @@ class MemoryPersister(Manager):
     def watermark(self) -> int:
         with self._lock:
             return self._watermark
+
+    # -- the watch seam and its log hygiene -------------------------------------
+
+    def _gc_watch_logs_locked(self, now: float) -> int:
+        """Prune the insert- and delete-log entries of commits older than
+        ``watch_log_retention_s`` and raise both floors beneath them
+        (keto_tpu/persistence/memory.py:843-903): a watch resume or an
+        engine delta from below the risen floor then answers expired or a
+        full rebuild, never a change set missing the pruned rows. A pass
+        prunes at most ``watch_gc_max_rows`` entries (the floor lowered to
+        the cap-th oldest prunable entry), so a backlog drains across
+        writes. Caller holds the lock; returns the entries pruned."""
+        if self.watch_log_retention_s <= 0:
+            return 0
+        times = self._commit_times
+        if not times:
+            return 0
+        cutoff = now - self.watch_log_retention_s
+        i = 0
+        floor_wm = 0
+        while i < len(times) and times[i][1] <= cutoff:
+            floor_wm = times[i][0]
+            i += 1
+        if i == 0:
+            return 0
+        cap = int(self.watch_gc_max_rows)
+        if cap > 0:
+            prunable = sorted(
+                [w for w, _ in self._insert_log if w <= floor_wm]
+                + [w for w, _ in self._delete_log if w <= floor_wm]
+            )
+            if len(prunable) > cap:
+                floor_wm = prunable[cap - 1]
+                # keep the commit times above the lowered floor, so the
+                # next pass resumes where this one stopped
+                i = 0
+                while i < len(times) and times[i][0] <= floor_wm:
+                    i += 1
+                if i == 0:
+                    return 0
+        del times[:i]
+        kept = [(w, r) for w, r in self._insert_log if w > floor_wm]
+        kept_d = [(w, k) for w, k in self._delete_log if w > floor_wm]
+        pruned = len(self._insert_log) - len(kept) + len(self._delete_log) - len(kept_d)
+        self._insert_log, self._delete_log = kept, kept_d
+        self._log_floor = max(self._log_floor, floor_wm)
+        self._del_floor = max(self._del_floor, floor_wm)
+        return pruned
+
+    def gc_watch_logs(self, now: Optional[float] = None) -> int:
+        """The time-based GC of the change logs feeding /watch and the delta
+        path, on demand (it also runs after every transaction). Returns the
+        log entries pruned."""
+        with self._lock:
+            return self._gc_watch_logs_locked(time.time() if now is None else now)
+
+    def watch_changes_since(self, watermark: int):
+        """The committed mutations after ``watermark`` as ``(groups, current
+        watermark)``, each group ``(snaptoken, [(action, RelationTuple)])``
+        in commit order, inserts before deletes within a transaction
+        (keto_tpu/persistence/memory.py:966-1017). Raises
+        ``ErrWatchExpired`` when either log no longer reaches back to
+        ``watermark`` (the retained horizon)."""
+        nm = self._nm()
+        with self._lock:
+            if self._log_floor > watermark or self._del_floor > watermark:
+                raise ErrWatchExpired()
+            events = [(w, 0, ("insert", self._to_tuple(r)))
+                      for w, r in self._insert_log if w > watermark]
+            for w, k in self._delete_log:
+                if w <= watermark:
+                    continue
+                ns = nm.get_namespace_by_config_id(k[0])
+                if k[3] is not None:
+                    subject: object = SubjectID(id=k[3])
+                else:
+                    sns = nm.get_namespace_by_config_id(k[4])
+                    subject = SubjectSet(namespace=sns.name, object=k[5], relation=k[6])
+                events.append((w, 1, ("delete", RelationTuple(
+                    namespace=ns.name, object=k[1], relation=k[2], subject=subject))))
+            events.sort(key=lambda t: (t[0], t[1]))
+            groups: list = []
+            for w, _, op in events:
+                if not groups or groups[-1][0] != w:
+                    groups.append((w, []))
+                groups[-1][1].append(op)
+            return groups, self._watermark
 
     # -- snapshot support ----------------------------------------------------
 

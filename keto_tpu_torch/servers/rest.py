@@ -49,6 +49,15 @@ Read port:
   an integer: 400), and a depth of 0 or past ``max_read_depth`` (the
   reference's ``limit.max_read_depth``, default 5) takes the cap
   (keto_tpu/driver/registry.py:768-773).
+- ``GET /watch?snaptoken=N`` (keto_tpu/servers/rest.py:977-1016) is the
+  changefeed: a chunked ``application/x-ndjson`` stream, one line a
+  committed transaction ``{"snaptoken", "changes": [{"action",
+  "relation_tuple"}], "committed_at", "emitted_at"}`` (plus the writer's
+  ``traceparent`` where it sent one), resumable from any retained token.
+  A token below the store's retained horizon answers **410** before any
+  byte streams; past ``serve.watch_max_streams`` open streams it answers
+  **429**. The hub's ``close()`` (the drain's first step) ends every
+  stream. Without a watch hub the route is a 404.
 - ``GET /relation-tuples`` (rest.py:875-899) pages the store's tuples
   matching the URL query: ``page_token``, ``page_size`` (malformed: 400);
   the body is ``{"relation_tuples": [...], "next_page_token": ...}``.
@@ -91,6 +100,18 @@ and answers the original ``X-Keto-Snaptoken`` with
 daemon passes its group-commit coordinator's, keto_tpu_torch/driver/
 group_commit.py), else straight to the store's transaction.
 
+Tenants (keto_tpu/servers/rest.py:586-615): the port serves the default
+tenant alone (multi-tenant serving is ROADMAP A9). Every route the
+reference scopes through ``_scope`` reads ``X-Keto-Tenant``: absent, blank
+or ``default`` serves as always; a malformed id answers the reference's
+400; any other tenant answers 400 naming A9, so a request addressed to
+another tenant is never answered from, or written into, the default
+tenant's store. Every write reports its commit to the watch hub with the
+request's ``traceparent`` (``_note_commit``, rest.py:1029-1045), which the
+commit's watch line carries. With a ``Telemetry`` sink
+(``telemetry.enabled``) every non-health request counts into it by
+``"<role> <method> <route>"`` (rest.py:196).
+
 Both ports: ``GET /health/alive`` → ``{"status": "ok"}``; ``GET
 /health/ready`` reads the health state machine (keto_tpu_torch/driver/
 health.py; keto_tpu/servers/rest.py:509-548): 200 ``{"status": "ok"}``
@@ -109,12 +130,13 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import threading
 import time
 import uuid
 from dataclasses import dataclass
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import Any, Optional
 from urllib.parse import parse_qs, urlsplit
 
 from keto_tpu_torch.driver.health import READY_STATES, HealthMonitor, HealthState
@@ -124,12 +146,12 @@ from keto_tpu_torch.relationtuple.model import (
     subject_set_from_url_query,
 )
 from keto_tpu_torch.version import __version__
-from keto_tpu_torch.x.errors import ErrBadRequest, ErrNilSubject, KetoError
+from keto_tpu_torch.x.errors import ErrBadRequest, ErrNilSubject, ErrTooManyRequests, KetoError
 from keto_tpu_torch.x.logging import new_logger, request_context
 from keto_tpu_torch.x.metrics import NullMetricsRegistry, normalize_route
 from keto_tpu_torch.x.pagination import with_size, with_token
 from keto_tpu_torch.x.timeline import TimelineRecorder, current_timeline
-from keto_tpu_torch.x.tracing import NOOP, parse_traceparent
+from keto_tpu_torch.x.tracing import NOOP, current_traceparent, parse_traceparent
 
 READ = "read"
 WRITE = "write"
@@ -139,6 +161,29 @@ WRITE = "write"
 _TIMELINE_EXCLUDED = frozenset({"/metrics", "/debug/requests", "/slo"})
 
 
+#: the tenant every request without an ``X-Keto-Tenant`` header belongs to
+DEFAULT_TENANT = "default"
+#: the request header that addresses a tenant
+TENANT_HEADER = "X-Keto-Tenant"
+#: tenant ids are path- and label-safe (keto_tpu/driver/tenants.py:75-77)
+_TENANT_RE = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._-]{0,63}$")
+
+
+def validate_tenant_id(raw: str) -> str:
+    """The validated tenant id for ``raw`` (absent/blank -> default);
+    anything outside the 64-char ``[A-Za-z0-9._-]`` grammar is a 400 (the
+    port's copy of keto_tpu/driver/tenants.py:80-93)."""
+    tenant = (raw or "").strip()
+    if not tenant:
+        return DEFAULT_TENANT
+    if not _TENANT_RE.match(tenant):
+        raise ErrBadRequest(
+            f"invalid {TENANT_HEADER} {tenant!r} (expected 1-64 chars of "
+            "[A-Za-z0-9._-], starting alphanumeric)"
+        )
+    return tenant
+
+
 @dataclass
 class RawBody:
     """A non-JSON response payload (the ``/metrics`` exposition): the
@@ -146,6 +191,17 @@ class RawBody:
 
     data: bytes
     content_type: str
+
+
+@dataclass
+class StreamBody:
+    """A chunked streaming response (``GET /watch``): the backends write
+    ``Transfer-Encoding: chunked``, iterate ``chunks`` (bytes a chunk) until
+    it ends, then close the connection. Closing the iterator on a client
+    disconnect releases its resources (the watch hub's stream slot)."""
+
+    chunks: Any  # iterator of bytes
+    content_type: str = "application/x-ndjson"
 
 
 def _error_headers(err: KetoError) -> dict[str, str]:
@@ -207,7 +263,7 @@ class RestApp:
                  expander=None, max_read_depth: int = MAX_READ_DEPTH,
                  recorder: Optional[TimelineRecorder] = None, transact=None,
                  monitor: Optional[HealthMonitor] = None, metrics=None, tracer=None, slo=None,
-                 logger=None):
+                 logger=None, watch_hub=None, telemetry=None):
         self.role = role
         self.store = store
         self.batcher = batcher
@@ -237,6 +293,11 @@ class RestApp:
         #: the SLO engine /slo reports, None: /slo answers 404
         self.slo = slo
         self._log = logger if logger is not None else new_logger()
+        #: the Watch changefeed hub (keto_tpu_torch/list/watch.py), None: no
+        #: /watch, and writes note no commits
+        self.watch_hub = watch_hub
+        #: the per-route request counter (x/telemetry.Telemetry), or None
+        self.telemetry = telemetry
         self._req_count, self._req_latency = http_metrics(self.metrics)
         self._expand_count, self._expand_latency = expand_metrics(self.metrics)
 
@@ -261,6 +322,8 @@ class RestApp:
         # caller's trace when a well-formed traceparent came in
         req_id = (hdrs.get("x-request-id") or "").strip() or uuid.uuid4().hex
         remote = parse_traceparent(hdrs.get("traceparent", ""))
+        if self.telemetry is not None:
+            self.telemetry.record(f"{self.role} {method} {route}")
         recorder = self.recorder
         t0 = time.perf_counter()
         with self.tracer.span(f"http.{method} {route}", remote_parent=remote,
@@ -270,7 +333,7 @@ class RestApp:
             # spans it emits at finish parent under it
             tl = None if path in _TIMELINE_EXCLUDED else recorder.begin(
                 f"{method} {route}", trace_id=trace_id, request_id=req_id, surface="http",
-                tenant="default",
+                tenant=(hdrs.get("x-keto-tenant") or "").strip() or DEFAULT_TENANT,
             )
             with request_context(request_id=req_id, trace_id=trace_id):
                 with recorder.activate(tl):
@@ -288,8 +351,15 @@ class RestApp:
         resp_headers.setdefault("X-Request-Id", req_id)
         if tl is not None:
             recorder.finish(tl, status=status, snaptoken=resp_headers.get("X-Keto-Snaptoken"))
-            resp_headers.setdefault("Server-Timing", recorder.server_timing(tl))
+            # a stream's exchange has no end, so it carries no timing
+            if not isinstance(payload, StreamBody):
+                resp_headers.setdefault("Server-Timing", recorder.server_timing(tl))
         return status, payload, resp_headers
+
+    def note_listener_shed(self, method: str, path: str) -> None:
+        """Count a listener-level 429 (shed on the event loop before any
+        handler ran) into the request metrics (async_rest.py)."""
+        self._req_count.inc((self.role, method, normalize_route(path), "429"))
 
     def _route(self, method: str, path: str, query: dict[str, list[str]], body: bytes,
                headers: Optional[dict[str, str]] = None):
@@ -315,15 +385,17 @@ class RestApp:
                 if route == ("POST", "/check/batch"):
                     return self._post_check_batch(body, query, headers)
                 if route == ("GET", "/check/explain"):
-                    return self._get_explain(query)
+                    return self._get_explain(query, headers)
                 if route == ("GET", "/expand") and self.expander is not None:
-                    return self._get_expand(query)
+                    return self._get_expand(query, headers)
                 if route == ("GET", "/relation-tuples"):
-                    return self._get_relation_tuples(query)
+                    return self._get_relation_tuples(query, headers)
                 if route == ("GET", "/relation-tuples/list-objects") and self.lister:
-                    return self._get_list_objects(query)
+                    return self._get_list_objects(query, headers)
                 if route == ("GET", "/relation-tuples/list-subjects") and self.lister:
-                    return self._get_list_subjects(query)
+                    return self._get_list_subjects(query, headers)
+                if route == ("GET", "/watch") and self.watch_hub is not None:
+                    return self._get_watch(query, headers)
             else:
                 if route == ("PUT", "/relation-tuples"):
                     return self._put_relation_tuple(body, headers)
@@ -409,6 +481,22 @@ class RestApp:
         )
         return 200, body, {}
 
+    # -- tenancy --------------------------------------------------------------
+
+    @staticmethod
+    def _scope(headers) -> None:
+        """Admit the tenant a request addresses (rest.py:586-615): the
+        default tenant (no header, a blank one or ``default``) is served; a
+        malformed id is the reference's 400; any other tenant is a 400
+        naming ROADMAP A9, since the port serves one tenant's store."""
+        tenant = validate_tenant_id((headers or {}).get("x-keto-tenant", ""))
+        if tenant != DEFAULT_TENANT:
+            raise ErrBadRequest(
+                f"multi-tenant serving is not available: {TENANT_HEADER} {tenant!r} "
+                "addresses a tenant other than the default one, and this server "
+                "serves only the default tenant (ROADMAP A9)"
+            )
+
     # -- read ----------------------------------------------------------------
 
     @staticmethod
@@ -459,6 +547,7 @@ class RestApp:
         return {} if token is None else {"X-Keto-Snaptoken": str(token)}
 
     def _check(self, tuple_: RelationTuple, query, headers=None):
+        self._scope(headers)
         allowed, token = self.batcher.check_with_token(
             tuple_, **self._consistency_from(query),
             deadline=self._deadline_from(query, headers), lane=self._lane_from(headers),
@@ -506,8 +595,9 @@ class RestApp:
     def _get_check(self, query, headers=None):
         return self._check(self._tuple_from(query), query, headers)
 
-    def _get_explain(self, query):
+    def _get_explain(self, query, headers=None):
         """The decision plus its provenance (keto_tpu_torch/explain)."""
+        self._scope(headers)
         if self.explain is None:
             err = KetoError("explain disabled by configuration")
             err.status_code = 404
@@ -529,6 +619,7 @@ class RestApp:
         return self._check(RelationTuple.from_json(obj), query, headers)
 
     def _post_check_batch(self, body: bytes, query, headers=None):
+        self._scope(headers)
         lane_hint = self._lane_from(headers)
         if lane_hint != "interactive":
             # pre-parse shed: an over-window batch lane refuses BEFORE the
@@ -559,9 +650,10 @@ class RestApp:
         cap = self.max_read_depth
         return cap if requested <= 0 or requested > cap else requested
 
-    def _get_expand(self, query):
+    def _get_expand(self, query, headers=None):
         # the reference parses max-depth unconditionally: absent or
         # invalid is a 400; 0 means the cap
+        self._scope(headers)
         raw_depth = (query.get("max-depth") or [""])[0]
         try:
             depth = int(raw_depth)
@@ -581,7 +673,8 @@ class RestApp:
             return 200, None, {}
         return 200, tree.to_json(), {}
 
-    def _get_relation_tuples(self, query):
+    def _get_relation_tuples(self, query, headers=None):
+        self._scope(headers)
         rq = RelationQuery.from_url_query(query)
         opts = []
         token = (query.get("page_token") or [""])[0]
@@ -614,7 +707,7 @@ class RestApp:
                 raise ErrBadRequest(f"page_size must be >= 0, got {raw_size!r}")
         return size, token
 
-    def _get_list_objects(self, query):
+    def _get_list_objects(self, query, headers=None):
         """Every object the subject can reach under namespace + relation, a
         sorted page with a snaptoken-pinned page token."""
         rq = RelationQuery.from_url_query(query)
@@ -625,6 +718,7 @@ class RestApp:
         sub = rq.subject
         if sub is None:
             raise ErrBadRequest("Subject has to be specified.")
+        self._scope(headers)
         size, token = self._page_opts(query)
         objs, nxt, snaptoken = self.lister.page_objects(
             rq.namespace, rq.relation, sub, page_size=size, page_token=token,
@@ -633,7 +727,7 @@ class RestApp:
         body = {"objects": objs, "next_page_token": nxt, "snaptoken": str(snaptoken)}
         return 200, body, self._token_headers(snaptoken)
 
-    def _get_list_subjects(self, query):
+    def _get_list_subjects(self, query, headers=None):
         """Every subject id allowed on namespace:object#relation."""
         rq = RelationQuery.from_url_query(query)
         if rq.namespace == "":
@@ -642,6 +736,7 @@ class RestApp:
             raise ErrBadRequest("object has to be specified")
         if rq.relation == "":
             raise ErrBadRequest("relation has to be specified")
+        self._scope(headers)
         size, token = self._page_opts(query)
         subs, nxt, snaptoken = self.lister.page_subjects(
             rq.namespace, rq.object, rq.relation, page_size=size, page_token=token,
@@ -650,7 +745,58 @@ class RestApp:
         body = {"subject_ids": subs, "next_page_token": nxt, "snaptoken": str(snaptoken)}
         return 200, body, self._token_headers(snaptoken)
 
+    # -- watch ---------------------------------------------------------------
+
+    def _get_watch(self, query, headers=None):
+        """``GET /watch?snaptoken=N``: the chunked ndjson changefeed, one
+        line a committed transaction, resumable from any retained
+        snaptoken (410 past the horizon), ended by the drain."""
+        self._scope(headers)
+        hub = self.watch_hub
+        raw = (query.get("snaptoken") or [""])[0] or "0"
+        try:
+            since = int(raw)
+        except ValueError:
+            raise ErrBadRequest(f"malformed snaptoken {raw!r}") from None
+        # the horizon is checked before a 200 is committed: an expired
+        # token answers 410, it does not die mid-stream
+        hub.changes_since(since)
+        if not hub.try_acquire_stream():
+            raise ErrTooManyRequests(
+                "too many concurrent watch streams; retry with backoff", retry_after_s=1.0)
+
+        def gen():
+            try:
+                for token, changes in hub.subscribe(since, own_slot=False):
+                    msg = hub.enrich_group(token, {
+                        "snaptoken": str(token),
+                        "changes": [{"action": action, "relation_tuple": rt.to_json()}
+                                    for action, rt in changes],
+                    })
+                    yield (json.dumps(msg) + "\n").encode()
+            finally:
+                hub.release_stream()
+
+        return 200, StreamBody(gen()), {}
+
     # -- write ---------------------------------------------------------------
+
+    def _note_commit(self, result) -> None:
+        """Register the committed transaction's trace context with the
+        watch hub, so the commit's watch line carries the writer's
+        ``traceparent`` (rest.py:1029-1045). An idempotent replay answers an
+        old commit and registers nothing."""
+        hub = self.watch_hub
+        if hub is None or result is None or getattr(result, "replayed", False):
+            return
+        token = getattr(result, "snaptoken", None)
+        if token is None:
+            return
+        try:
+            hub.note_commit_trace(int(token), current_traceparent())
+        except Exception:
+            # the trace enrichment never fails a write
+            self._log.debug("commit-trace registration failed", exc_info=True)
 
     @staticmethod
     def _idempotency_key_from(headers) -> Optional[str]:
@@ -675,14 +821,18 @@ class RestApp:
         except json.JSONDecodeError as e:
             raise ErrBadRequest(str(e)) from None
         rel = RelationTuple.from_json(obj)
+        self._scope(headers)
         result = self.transact([rel], (), idempotency_key=self._idempotency_key_from(headers))
+        self._note_commit(result)
         resp = {"Location": "/relation-tuples?" + rel.to_url_query()}
         resp.update(self._write_headers(result))
         return 201, rel.to_json(), resp
 
     def _delete_relation_tuple(self, query, headers=None):
         rel = RelationTuple.from_url_query(query)
+        self._scope(headers)
         result = self.transact((), [rel], idempotency_key=self._idempotency_key_from(headers))
+        self._note_commit(result)
         return 204, None, self._write_headers(result)
 
     def _patch_relation_tuples(self, body: bytes, headers=None):
@@ -704,8 +854,10 @@ class RestApp:
                 delete.append(RelationTuple.from_json(raw))
             else:
                 raise ErrBadRequest(f"unknown action {action}")
+        self._scope(headers)
         result = self.transact(insert, delete,
                                idempotency_key=self._idempotency_key_from(headers))
+        self._note_commit(result)
         return 204, None, self._write_headers(result)
 
 
@@ -727,6 +879,9 @@ def _make_handler(app: RestApp):
                 req_headers = {k.lower(): v for k, v in self.headers.items()}
                 status, payload, headers = app.handle(method, parts.path, query, body,
                                                       req_headers)
+                if isinstance(payload, StreamBody):
+                    self._serve_stream(status, payload, headers)
+                    return
                 if isinstance(payload, RawBody):
                     data, content_type = payload.data, payload.content_type
                 else:
@@ -743,6 +898,34 @@ def _make_handler(app: RestApp):
             finally:
                 with self.server.active_lock:
                     self.server.active_count -= 1
+
+        def _serve_stream(self, status: int, payload: StreamBody, headers) -> None:
+            """Chunked transfer: each chunk framed and flushed as it comes,
+            so a subscriber sees a commit live; the connection closes at the
+            end. A client disconnect closes the generator, which releases
+            its watch slot."""
+            self.send_response(status)
+            self.send_header("Content-Type", payload.content_type)
+            self.send_header("Transfer-Encoding", "chunked")
+            for k, v in headers.items():
+                self.send_header(k, v)
+            self.send_header("Connection", "close")
+            self.end_headers()
+            chunks = payload.chunks
+            try:
+                for chunk in chunks:
+                    if not chunk:
+                        continue
+                    self.wfile.write(b"%x\r\n" % len(chunk) + chunk + b"\r\n")
+                    self.wfile.flush()
+                self.wfile.write(b"0\r\n\r\n")
+            except (BrokenPipeError, ConnectionResetError):
+                pass  # the subscriber went away; the finally releases the slot
+            finally:
+                close = getattr(chunks, "close", None)
+                if close is not None:
+                    close()
+                self.close_connection = True
 
         def log_message(self, fmt, *args):  # quiet: no per-request stderr lines
             pass
@@ -783,10 +966,10 @@ class RestServer:
                  max_read_depth: int = MAX_READ_DEPTH,
                  recorder: Optional[TimelineRecorder] = None, transact=None,
                  monitor: Optional[HealthMonitor] = None, metrics=None, tracer=None, slo=None,
-                 logger=None):
+                 logger=None, watch_hub=None, telemetry=None):
         self.app = RestApp(role, store, batcher, lister, explain, decision_log, expander,
                            max_read_depth, recorder, transact, monitor, metrics, tracer, slo,
-                           logger)
+                           logger, watch_hub, telemetry)
         self.httpd = _Server((host or "0.0.0.0", port), _make_handler(self.app))
         self.httpd.active_count = 0
         self.httpd.active_lock = threading.Lock()

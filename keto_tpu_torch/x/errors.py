@@ -170,3 +170,21 @@ class ErrMalformedPageToken(ErrBadRequest):
 
     def __init__(self, message: str = "malformed page token", **kw):
         super().__init__(message, **kw)
+
+
+class ErrWatchExpired(KetoError):
+    """A Watch resume snaptoken predates the store's retained change-log
+    horizon — REST 410 Gone / gRPC OUT_OF_RANGE. The subscriber re-lists
+    and re-subscribes from the current snaptoken (the standard changefeed
+    contract)."""
+
+    status_code = 410
+    grpc_code = 11  # OUT_OF_RANGE
+
+    def __init__(
+        self,
+        message: str = "watch snaptoken predates the retained change log; "
+        "re-list and resume from a current snaptoken",
+        **kw,
+    ):
+        super().__init__(message, **kw)

@@ -1,6 +1,5 @@
-"""Stat sinks: copies of ``DurationStats`` and ``MaintenanceStats``
-(keto_tpu/x/telemetry.py; its per-route ``Telemetry`` counter, which
-nothing in the port reads, is left out).
+"""Stat sinks: copies of ``DurationStats``, ``MaintenanceStats`` and the
+per-route ``Telemetry`` counter (keto_tpu/x/telemetry.py).
 
 The streaming check pipeline records every slice's service time in a
 ``DurationStats`` (and the BFS steps of every slice that ran the fixpoint),
@@ -8,7 +7,10 @@ and every reader — the slice controller, admission control (``tail``,
 keto_tpu_torch/driver/admission.py), ``chip_smoke.py``'s stream report, the
 ``/metrics`` histogram it mirrors into — reads the same numbers. The check
 engine counts every snapshot-lifecycle event into its ``MaintenanceStats``
-(counters, gauges and durations, read by ``/metrics`` and ``counters()``)."""
+(counters, gauges and durations, read by ``/metrics`` and ``counters()``).
+Both REST ports count every non-health request into the registry's
+``Telemetry`` by ``"<role> <method> <route>"`` when ``telemetry.enabled``
+is on; ``Registry.telemetry().snapshot()`` reads it."""
 
 from __future__ import annotations
 
@@ -127,3 +129,34 @@ class MaintenanceStats:
                 dict(self._gauges),
                 {k: dict(v) for k, v in self._durations.items()},
             )
+
+
+class Telemetry:
+    """Per-route request counters.
+
+    ``max_routes`` bounds label cardinality at the sink itself: the
+    serving layers already normalize unknown paths to ``other``
+    (keto_tpu_torch/x/metrics.normalize_route), but ANY caller recording
+    unbounded strings here (a future surface, a bug) folds into
+    ``other`` past the cap instead of growing the counter map without
+    bound under a path-scanning client."""
+
+    OVERFLOW_ROUTE = "other"
+
+    def __init__(self, enabled: bool = False, max_routes: int = 256):
+        self.enabled = enabled
+        self._max_routes = max_routes
+        self._lock = threading.Lock()  # guards: _counts
+        self._counts: collections.Counter = collections.Counter()
+
+    def record(self, route: str) -> None:
+        if not self.enabled:
+            return
+        with self._lock:
+            if route not in self._counts and len(self._counts) >= self._max_routes:
+                route = self.OVERFLOW_ROUTE
+            self._counts[route] += 1
+
+    def snapshot(self) -> dict[str, int]:
+        with self._lock:
+            return dict(self._counts)

@@ -494,6 +494,9 @@ def test_warm_compile_skips_widths_over_budget():
     p, e = port_engine(rows)
     try:
         e.batch_check(queries[:8])
+        # the background label build plans its arrays against the budget:
+        # let it land before the budget is cut to the warmup's size
+        assert e.labels_settled()
         snap = e._snapshot
         widths = e.stream_widths(snap)
         assert len(widths) > 1

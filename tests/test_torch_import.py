@@ -72,6 +72,17 @@ REQUIRED = (
     "keto_tpu_torch.x.slo",
     "keto_tpu_torch.x.flightrec",
     "keto_tpu_torch.driver.observability",
+    "keto_tpu_torch.x.ws",
+    "keto_tpu_torch.config",
+    "keto_tpu_torch.config.schema",
+    "keto_tpu_torch.config.validate",
+    "keto_tpu_torch.config.provider",
+    "keto_tpu_torch.list.watch",
+    "keto_tpu_torch.x.profiling",
+    "keto_tpu_torch.driver.registry",
+    "keto_tpu_torch.servers.async_rest",
+    "keto_tpu_torch.cmd",
+    "keto_tpu_torch.x.errors",
 )
 
 

@@ -30,6 +30,7 @@ Every comparison is exact (tolerance 0)."""
 from __future__ import annotations
 
 import json
+import logging
 import re
 import time
 import urllib.error
@@ -55,8 +56,7 @@ TRACEPARENT = f"00-{TID}-00f067aa0ba902b7-01"
 #: the reference's families the port leaves out, by the ROADMAP item that
 #: brings each; every later item must shrink this
 PENDING = {
-    "A7": {"keto_grpc_requests_total", "keto_grpc_request_duration_seconds",
-           "keto_watch_streams", "keto_watch_events_total", "keto_watch_expired_total"},
+    "A7": {"keto_grpc_requests_total", "keto_grpc_request_duration_seconds"},
     "A9": {"keto_tenant_known", "keto_tenant_resident", "keto_tenant_evictions_total",
            "keto_tenant_faultins_total", "keto_tenant_shed_spikes_total",
            "keto_tenant_checks_total", "keto_tenant_shed_total", "keto_tenant_resident_bytes",
@@ -440,20 +440,40 @@ def test_metrics_disabled_answers_404_and_checks_still_work(tmp_path):
         d.stop()
 
 
-def test_serve_flags_name_their_config_keys():
-    from keto_tpu_torch.cmd import build_parser
+def test_serve_flags_name_their_config_keys(tmp_path):
+    """The observability keys of a ``serve -c`` config (which replaced the
+    flags named after them) reach the registry's metrics, tracer, flight
+    recorder and logger."""
+    from test_torch_rest import write_config
 
-    args = build_parser().parse_args([
-        "serve", "--no-metrics-enabled", "--tracing-provider", "otlp-file",
-        "--tracing-otlp-file", "s.jsonl", "--tracing-otlp-endpoint", "http://127.0.0.1:1/v1/traces",
-        "--debug-bundle-dir", "b", "--log-level", "debug", "--log-format", "json"])
-    assert (args.metrics_enabled, args.tracing_provider, args.tracing_otlp_file,
-            args.tracing_otlp_endpoint, args.debug_bundle_dir, args.log_level,
-            args.log_format) == (False, "otlp-file", "s.jsonl", "http://127.0.0.1:1/v1/traces",
-                                 "b", "debug", "json")
-    d = build_parser().parse_args(["serve"])
-    assert (d.metrics_enabled, d.tracing_provider, d.tracing_otlp_file, d.debug_bundle_dir,
-            d.log_level, d.log_format) == (True, "", "", "", "info", "text")
+    from keto_tpu_torch.cmd import build_parser
+    from keto_tpu_torch.config import Config
+    from keto_tpu_torch.driver.registry import Registry, schema_default
+
+    nss = [{"id": 0, "name": "acl"}]
+    path = write_config(tmp_path / "a.json", nss, **{
+        "metrics.enabled": False, "tracing.provider": "otlp-file",
+        "tracing.otlp.file": str(tmp_path / "s.jsonl"),
+        "tracing.otlp.endpoint": "http://127.0.0.1:1/v1/traces",
+        "serve.debug_bundle_dir": str(tmp_path / "b"), "log.level": "debug",
+        "log.format": "json"})
+    args = build_parser().parse_args(["serve", "-c", str(path)])
+    cfg = Config(config_file=args.config, env={})
+    assert (cfg.get("metrics.enabled"), cfg.get("tracing.provider"), cfg.get("tracing.otlp.file"),
+            cfg.get("tracing.otlp.endpoint"), cfg.get("serve.debug_bundle_dir"),
+            cfg.get("log.level"), cfg.get("log.format")) == \
+        (False, "otlp-file", str(tmp_path / "s.jsonl"), "http://127.0.0.1:1/v1/traces",
+         str(tmp_path / "b"), "debug", "json")
+    reg = Registry(cfg, device="cpu")
+    try:
+        assert not reg.metrics().enabled and reg.tracer().provider == "otlp-file"
+        assert reg.flight_recorder() is not None and reg.logger().level == logging.DEBUG
+    finally:
+        reg.close()
+    d = Config(config_file=str(write_config(tmp_path / "d.json", nss)), env={})
+    keys = ("metrics.enabled", "tracing.provider", "tracing.otlp.file", "serve.debug_bundle_dir",
+            "log.level", "log.format")
+    assert tuple(d.get(k, schema_default(k)) for k in keys) == (True, "", "", "", "info", "text")
 
 
 def test_no_bridge_reads_a_component_that_is_not_there():

@@ -126,47 +126,94 @@ def test_errors_and_health(daemon):
     assert _req("GET", daemon.write.port, "/check?" + q)[0] == 404
 
 
-def test_cli_serve_on_cpu(tmp_path):
-    """``python -m keto_tpu_torch serve --device cpu`` answers the cat-videos
-    checks and exits 0 on SIGTERM."""
-    import re
-    import signal
-    import subprocess
-    import sys
-    from pathlib import Path
+def write_config(path, namespaces, **keys):
+    """A JSON config for ``serve -c``: the namespaces, both ports 0 and
+    ``keys`` as dotted keys over the defaults."""
+    cfg = {"dsn": "memory", "namespaces": namespaces,
+           "serve": {"read": {"port": 0}, "write": {"port": 0}}}
+    for dotted, value in keys.items():
+        cur = cfg
+        *head, last = dotted.split(".")
+        for part in head:
+            cur = cur.setdefault(part, {})
+        cur[last] = value
+    path.write_text(json.dumps(cfg))
+    return path
 
-    tuples = tmp_path / "tuples.txt"
-    tuples.write_text(CAT_VIDEOS_TUPLES)
-    root = Path(__file__).resolve().parent.parent
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "keto_tpu_torch", "serve", "--device", "cpu",
-         "--read-port", "0", "--write-port", "0", "--namespace", "videos=1",
-         "--tuples", str(tuples)],
-        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-    )
+
+class cli_serve:
+    """``python -m keto_tpu_torch serve -c CFG --device cpu`` as a
+    subprocess: ``read_port``/``write_port`` and ``line`` come from its
+    first stdout line; ``stop()`` sends SIGTERM and answers the exit code."""
+
+    def __init__(self, cfg, *extra):
+        import subprocess
+        import sys
+        from pathlib import Path
+
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "keto_tpu_torch", "serve", "-c", str(cfg), "--device", "cpu",
+             *extra],
+            cwd=Path(__file__).resolve().parent.parent, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True,
+        )
+        self.line = self.proc.stdout.readline()
+        m = re.search(r"read :(\d+), write :(\d+), device cpu", self.line)
+        if not m:
+            err = self.proc.stderr.read() if self.proc.poll() is not None else ""
+            self.kill()
+            raise AssertionError((self.line, err))
+        self.read_port, self.write_port = int(m.group(1)), int(m.group(2))
+
+    def stop(self, timeout=30):
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+        return self.proc.wait(timeout=timeout)
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def put_tuples(port, tuples):
+    for t in tuples:
+        status, _, _ = _req("PUT", port, "/relation-tuples", t.to_json())
+        assert status == 201, t
+
+
+def test_cli_serve_on_cpu(tmp_path):
+    """``python -m keto_tpu_torch serve -c cfg.json --device cpu`` takes the
+    cat-videos tuples through its write port, answers the cat-videos checks
+    and exits 0 on SIGTERM."""
+    cfg = write_config(tmp_path / "cfg.json", [n.to_json() for n in CAT_VIDEOS_NAMESPACES])
+    srv = cli_serve(cfg)
     try:
-        line = proc.stdout.readline()
-        m = re.search(r"read :(\d+), write :(\d+), device cpu", line)
-        assert m, (line, proc.stderr.read() if proc.poll() is not None else "")
-        read_port = int(m.group(1))
+        put_tuples(srv.write_port, parse_tuples(CAT_VIDEOS_TUPLES))
         for check, allowed in CAT_VIDEOS_CHECKS:
             q = RelationTuple.from_string(check).to_url_query()
-            assert _req("GET", read_port, "/check?" + q)[0] == (200 if allowed else 403)
-        proc.send_signal(signal.SIGTERM)
-        assert proc.wait(timeout=30) == 0
+            assert _req("GET", srv.read_port, "/check?" + q + "&latest=true")[0] == \
+                (200 if allowed else 403)
+        assert srv.stop() == 0
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        srv.kill()
 
 
-def test_cli_rejects_a_malformed_namespace():
-    from keto_tpu_torch.cmd import build_parser
+def test_cli_rejects_a_malformed_namespace(tmp_path):
+    """The schema refuses a namespace entry without an id, before anything
+    is served; a name with '=' in it is a name like any other."""
+    from keto_tpu_torch.cmd import main
+    from keto_tpu_torch.config import Config
+    from keto_tpu_torch.x.errors import ErrBadRequest
 
-    with pytest.raises(SystemExit):
-        build_parser().parse_args(["serve", "--namespace", "videos"])
-    args = build_parser().parse_args(["serve", "--namespace", "a=b=3"])
-    assert [(n.name, n.id) for n in args.namespace] == [("a=b", 3)]
+    bad = write_config(tmp_path / "bad.json", [{"name": "videos"}])
+    with pytest.raises(ErrBadRequest, match="invalid configuration"):
+        Config(config_file=str(bad), env={})
+    assert main(["serve", "-c", str(bad), "--device", "cpu"]) == 1
+    good = write_config(tmp_path / "good.json", [{"name": "a=b", "id": 3}])
+    nss = Config(config_file=str(good), env={}).namespace_manager().namespaces()
+    assert [(n.name, n.id) for n in nss] == [("a=b", 3)]
 
 
 LIST_OBJECTS = "/relation-tuples/list-objects?"
@@ -313,17 +360,37 @@ def test_check_samples_into_the_decision_log(tmp_path):
     assert len(explains) == 1 and explains[0]["witness"] and explains[0]["decision"] is True
 
 
-def test_cli_passes_the_explain_flags():
+def test_cli_passes_the_explain_flags(tmp_path):
+    """The explain and decision-log keys of a ``serve -c`` config reach the
+    registry's explain engine and decision log."""
     from keto_tpu_torch.cmd import build_parser
+    from keto_tpu_torch.config import Config
+    from keto_tpu_torch.driver.registry import Registry, schema_default
 
-    args = build_parser().parse_args(["serve"])
-    assert (args.explain_enabled, args.decision_log_dir, args.decision_log_sample,
-            args.decision_log_segment_bytes, args.decision_log_retention) == (True, "", 0.0, 1 << 20, 8)
-    args = build_parser().parse_args([
-        "serve", "--no-explain", "--decision-log-dir", "/x", "--decision-log-sample", "0.25",
-        "--decision-log-segment-bytes", "4096", "--decision-log-retention", "2"])
-    assert (args.explain_enabled, args.decision_log_dir, args.decision_log_sample,
-            args.decision_log_segment_bytes, args.decision_log_retention) == (False, "/x", 0.25, 4096, 2)
+    nss = [{"id": 0, "name": "acl"}]
+    args = build_parser().parse_args(["serve", "-c", str(write_config(tmp_path / "a.json", nss))])
+    cfg = Config(config_file=args.config, env={})
+    keys = ("serve.explain_enabled", "serve.decision_log_dir", "serve.decision_log_sample",
+            "serve.decision_log_segment_bytes", "serve.decision_log_retention")
+    assert tuple(cfg.get(k, schema_default(k)) for k in keys) == (True, "", 0.0, 1 << 20, 8)
+    reg = Registry(cfg, device="cpu")
+    try:
+        assert reg.explain_engine() is not None and reg.decision_log() is None
+    finally:
+        reg.close()
+    cfg_path = write_config(tmp_path / "b.json", nss, **{
+        "serve.explain_enabled": False, "serve.decision_log_dir": str(tmp_path / "x"),
+        "serve.decision_log_sample": 0.25, "serve.decision_log_segment_bytes": 4096,
+        "serve.decision_log_retention": 2})
+    args = build_parser().parse_args(["serve", "-c", str(cfg_path)])
+    reg = Registry(Config(config_file=args.config, env={}), device="cpu")
+    try:
+        dl = reg.decision_log()
+        assert reg.explain_engine() is None
+        assert (str(dl._root), dl._sample, dl._segment_bytes, dl._retention) == \
+            (str(tmp_path / "x"), 0.25, 4096, 2)
+    finally:
+        reg.close()
 
 
 # -- the tuple API: /version, /expand, GET and PATCH /relation-tuples ----------
@@ -864,17 +931,31 @@ def test_drain_and_shutdown_stops_the_daemon():
         urllib.request.urlopen(f"http://127.0.0.1:{port}/health/alive", timeout=2)
 
 
-def test_cli_passes_the_scheduler_flags():
+def test_cli_passes_the_scheduler_flags(tmp_path):
+    """The scheduler's keys of a ``serve -c`` config reach the batcher, the
+    timeline recorder and the engine."""
     from keto_tpu_torch.cmd import build_parser
+    from keto_tpu_torch.config import Config
+    from keto_tpu_torch.driver.registry import Registry
 
-    args = build_parser().parse_args(["serve"])
-    assert (args.admission_enabled, args.timeline_enabled, args.audit_sample_rate,
-            args.stream_slice_target_ms) == (True, True, 0.0, 40.0)
-    args = build_parser().parse_args(["serve", "--no-admission", "--no-timeline",
-                                      "--audit-sample-rate", "0.5",
-                                      "--stream-slice-target-ms", "20"])
-    assert (args.admission_enabled, args.timeline_enabled, args.audit_sample_rate,
-            args.stream_slice_target_ms) == (False, False, 0.5, 20.0)
+    nss = [{"id": 0, "name": "acl"}]
+    cases = [
+        ({}, (True, True, 0.0, 40.0)),
+        ({"serve.admission_enabled": False, "serve.timeline_enabled": False,
+          "serve.audit_sample_rate": 0.5, "serve.stream_slice_target_ms": 20.0},
+         (False, False, 0.5, 20.0)),
+    ]
+    for i, (keys, want) in enumerate(cases):
+        path = write_config(tmp_path / f"c{i}.json", nss, **keys)
+        args = build_parser().parse_args(["serve", "-c", str(path)])
+        reg = Registry(Config(config_file=args.config, env={}), device="cpu")
+        try:
+            eng = reg.permission_engine()
+            got = (reg.check_batcher().admission is not None, reg.timeline_recorder().enabled,
+                   eng.audit_sample_rate, eng.stream_ctrl.target_ms)
+            assert got == want
+        finally:
+            reg.close()
 
 
 def test_daemon_wires_the_scheduler_knobs():

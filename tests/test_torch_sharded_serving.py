@@ -407,49 +407,45 @@ def test_listings_and_explain_on_a_sharded_engine(engines):
 
 
 def test_serve_with_mesh_graph_on_cpu(tmp_path):
-    """``python -m keto_tpu_torch serve --mesh-graph 4 --device cpu`` serves
-    the cat-videos checks from four shards and exits 0 on SIGTERM."""
-    import re
-    import signal
-    import subprocess
-    import sys
-    from pathlib import Path
+    """``python -m keto_tpu_torch serve -c cfg.json --device cpu`` with
+    ``serve.mesh_graph: 4`` serves the cat-videos checks from four shards
+    and exits 0 on SIGTERM."""
+    from test_torch_rest import _req, cli_serve, put_tuples, write_config
 
-    from test_torch_rest import _req
-
-    from keto_tpu_torch.workloads import CAT_VIDEOS_CHECKS, CAT_VIDEOS_TUPLES
-
-    tuples = tmp_path / "tuples.txt"
-    tuples.write_text(CAT_VIDEOS_TUPLES)
-    root = Path(__file__).resolve().parent.parent
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "keto_tpu_torch", "serve", "--device", "cpu", "--mesh-graph", "4",
-         "--read-port", "0", "--write-port", "0", "--namespace", "videos=1",
-         "--tuples", str(tuples)],
-        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    from keto_tpu_torch.workloads import (
+        CAT_VIDEOS_CHECKS,
+        CAT_VIDEOS_NAMESPACES,
+        CAT_VIDEOS_TUPLES,
+        parse_tuples,
     )
+
+    cfg = write_config(tmp_path / "cfg.json", [n.to_json() for n in CAT_VIDEOS_NAMESPACES],
+                       **{"serve.mesh_graph": 4})
+    srv = cli_serve(cfg)
     try:
-        line = proc.stdout.readline()
-        m = re.search(r"read :(\d+), write :(\d+), device cpu, graph shards 4", line)
-        assert m, (line, proc.stderr.read() if proc.poll() is not None else "")
+        assert "graph shards 4" in srv.line
+        put_tuples(srv.write_port, parse_tuples(CAT_VIDEOS_TUPLES))
         for check, allowed in CAT_VIDEOS_CHECKS:
             q = RelationTuple.from_string(check).to_url_query()
-            assert _req("GET", int(m.group(1)), "/check?" + q)[0] == (200 if allowed else 403)
-        proc.send_signal(signal.SIGTERM)
-        assert proc.wait(timeout=30) == 0
+            assert _req("GET", srv.read_port, "/check?" + q + "&latest=true")[0] == \
+                (200 if allowed else 403)
+        assert srv.stop() == 0
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        srv.kill()
 
 
 def test_daemon_passes_the_mesh():
-    from keto_tpu_torch.cmd import build_parser
+    """``serve.mesh_graph`` (default 1) reaches the engine's mesh."""
+    from keto_tpu_torch.config import Config
     from keto_tpu_torch.driver.daemon import Daemon
+    from keto_tpu_torch.driver.registry import schema_default
     from keto_tpu_torch.workloads import CAT_VIDEOS_NAMESPACES
 
-    assert build_parser().parse_args(["serve", "--mesh-graph", "4"]).mesh_graph == 4
-    assert build_parser().parse_args(["serve"]).mesh_graph == 1
+    nss = [n.to_json() for n in CAT_VIDEOS_NAMESPACES]
+    assert Config(overrides={"namespaces": nss, "serve.mesh_graph": 4},
+                  env={}).get("serve.mesh_graph") == 4
+    assert Config(overrides={"namespaces": nss}, env={}).get(
+        "serve.mesh_graph", schema_default("serve.mesh_graph")) == 1
     d = Daemon(CAT_VIDEOS_NAMESPACES, device="cpu", mesh_graph=3)
     try:
         assert d.engine.shard_count == 3 and d.engine._mesh.graph == 3
